@@ -1,0 +1,436 @@
+"""Continuous-batching generation server — port of
+``paddle_tpu/inference/serving.py`` for ``cache="paged"``.
+
+A FIXED set of ``max_batch`` slots shares one pool of fixed-size KV blocks
+(inference/paged_cache.py) through per-slot block tables. Each
+:meth:`GenerationServer.step` admits waiting requests in FIFO order (gated
+on block headroom), advances ONE prefill chunk per prefilling slot (chunked
+prefill: a long prompt never stalls the slots that are decoding), then runs
+one decode tick for every decoding slot; finished slots are released and
+refilled mid-flight. Full prompt blocks are content-hashed and
+refcount-shared, so a repeated prefix prefills once (prefix caching).
+Greedy outputs are token-identical to the JAX server's on the same weights
+(up to floating-point ties).
+
+Not ported yet (their constructor arguments raise ``NotImplementedError``
+when given a non-default value): the dense cache, ``tick_window > 1``,
+speculative decoding, the int8 KV pool, LoRA, KV tiers and swap
+preemption, priority/WFQ scheduling, telemetry, fault injection, tensor/
+context parallelism, snapshots, replica roles and a per-server kernel mode
+(``kernels``; the mode is process-wide, set by
+``paddle_tpu_torch.ops.set_kernel_mode``). With the default
+``num_blocks`` the pool never runs dry; a smaller pool that does raises
+instead of preempting.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.generation import next_token
+from .executor import PagedExecutor
+from .paged_cache import BlockAllocator
+from .scheduler import Scheduler
+
+# the JAX server's other constructor arguments, at the defaults this slice
+# serves; any other value raises NotImplementedError
+_UNPORTED_DEFAULTS = {
+    "tick_window": 1, "prompt_buckets": (32, 64, 128), "spec": None,
+    "kv_quant": "none",
+    "pool_bytes": None, "host_pool_bytes": None, "warm_pool_bytes": None,
+    "tier_demote_low": None, "tier_demote_high": None, "lora": None,
+    "telemetry": None, "faults": None, "fault_retries": 3,
+    "mk_geometry": None, "mesh": None, "role": "any", "profile": None,
+    "clock": None, "kernels": "auto",
+}
+
+
+@dataclass
+class _Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    generated: List[int] = field(default_factory=list)
+    sched: Any = None                                # its SchedEntry
+    table: List[int] = field(default_factory=list)   # block ids, in order
+    hashes: List[int] = field(default_factory=list)  # chain hash per full blk
+    pf_next: int = 0                                 # next prefill position
+
+
+class GenerationServer:
+    """Paged continuous-batching decode server for a ``LlamaForCausalLM`` —
+    greedy by default, per-request sampling via ``submit(...,
+    temperature=, top_k=, top_p=)``.
+
+    Usage::
+
+        srv = GenerationServer(model, cache="paged", max_batch=8)
+        rid = srv.submit([1, 5, 9], max_new_tokens=16)
+        out = srv.run()          # drain all pending requests
+        tokens = out[rid]        # prompt + generated ids
+
+    ``device``: where the server runs — ``None`` means the current CUDA
+    device (raises when there is none); it must be the model's device.
+    ``block_size`` tokens per KV block; ``num_blocks`` bounds KV memory
+    (default: every slot can hold ``max_len`` tokens, plus scratch);
+    prompts prefill in ``prefill_chunk``-token chunks (rounded up to a block
+    multiple). Kernel dispatch follows the process-wide
+    :func:`paddle_tpu_torch.ops.set_kernel_mode`. ``seed`` seeds the
+    ``torch.Generator`` of sampled requests."""
+
+    def __init__(self, model, max_batch: int = 4, max_len: int = 256,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 cache: str = "paged",
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 prefill_chunk: int = 32, policy=None, device=None,
+                 **unported):
+        for name, value in unported.items():
+            if name not in _UNPORTED_DEFAULTS:
+                raise TypeError(f"GenerationServer got an unexpected keyword "
+                                f"argument {name!r}")
+            if value != _UNPORTED_DEFAULTS[name]:
+                raise NotImplementedError(
+                    f"GenerationServer({name}={value!r}) is not ported yet")
+        if cache != "paged":
+            raise NotImplementedError(
+                f"cache={cache!r}: only cache='paged' is ported")
+        if policy not in (None, "fifo"):
+            raise NotImplementedError(
+                f"policy={policy!r}: only FIFO scheduling is ported")
+        cfg = model.cfg
+        if max_len > cfg.max_position_embeddings:
+            raise ValueError(f"max_len {max_len} exceeds the model's "
+                             f"max_position_embeddings "
+                             f"{cfg.max_position_embeddings}")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"the model lives on {model.device}, the server "
+                             f"on {self.device}: move one of them")
+        self.model = model
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos = eos_token_id
+        # per-slot scalars live host-side (numpy)
+        self.pos = np.zeros((max_batch,), np.int32)
+        self.tokens = np.zeros((max_batch,), np.int32)
+        self.temps = np.zeros((max_batch,), np.float32)
+        self.topks = np.zeros((max_batch,), np.int32)
+        self.topps = np.zeros((max_batch,), np.float32)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self._slots: List[Optional[_Request]] = [None] * max_batch
+        self._sched = Scheduler()
+        self._results: Dict[int, List[int]] = {}
+        self._idle_streak = 0
+        self._next_rid = 0
+
+        bs = int(block_size)
+        if bs < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.block_size = bs
+        chunk = int(prefill_chunk)
+        if chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.prefill_chunk = -(-chunk // bs) * bs  # round up to blocks
+        entries = -(-max_len // bs)  # ceil: real table entries per slot
+        self._max_entries = entries
+        # slack entries (always 0 = scratch) so a final chunk's table slice
+        # never runs off the row
+        self._table_width = entries + self.prefill_chunk // bs
+        if num_blocks is None:
+            num_blocks = max_batch * entries + 1  # every slot at max_len
+        kv_bytes = (2 * cfg.num_hidden_layers * bs * cfg.num_key_value_heads
+                    * cfg.head_dim * torch.empty((), dtype=cfg.torch_dtype)
+                    .element_size())
+        self.alloc = BlockAllocator(int(num_blocks), bs,
+                                    bytes_per_block=kv_bytes)
+        self._bt = np.zeros((max_batch, self._table_width), np.int32)
+        # True while the slot streams prompt chunks; None once it decodes
+        # (or is empty)
+        self._prefilling: List[Optional[bool]] = [None] * max_batch
+        # throughput ledger: real prompt tokens / decoded tokens and the
+        # host wall time of the work, each span ending on a host copy of
+        # its result (so the device work is complete)
+        self._prefill_tokens = 0
+        self._prefill_chunks = 0
+        self._prefill_wall_s = 0.0
+        self._decode_ticks = 0
+        self._decode_tokens = 0
+        self._decode_wall_s = 0.0
+        self._exec = PagedExecutor(self, num_blocks=int(num_blocks))
+
+    # --------------------------------------------------------------- requests
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 0.0) -> int:
+        """Queue one request; returns its rid."""
+        prompt = list(prompt)
+        if not prompt:
+            raise ValueError("prompt must contain at least one token id")
+        for t in prompt:
+            if isinstance(t, bool) or not isinstance(t, (int, np.integer)):
+                raise ValueError(
+                    f"prompt must be a sequence of int token ids, got "
+                    f"{type(t).__name__}: {t!r}")
+        prompt = [int(t) for t in prompt]
+        if isinstance(max_new_tokens, bool) or \
+                not isinstance(max_new_tokens, (int, np.integer)) or \
+                max_new_tokens <= 0:
+            raise ValueError(f"max_new_tokens must be a positive int, got "
+                             f"{max_new_tokens!r}")
+        if len(prompt) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_len={self.max_len}")
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if not 0.0 <= top_p <= 1.0:
+            raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        # feasibility gate: a request whose worst-case block need exceeds
+        # the pool could never finish
+        worst = len(prompt) + max_new_tokens
+        need = min(self._max_entries, -(-worst // self.block_size))
+        if need > self.alloc.num_blocks - 1:
+            raise ValueError(
+                f"request needs up to {need} KV blocks but the pool has "
+                f"{self.alloc.num_blocks - 1} usable — raise num_blocks or "
+                f"shorten the request")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = _Request(rid, prompt, int(max_new_tokens),
+                       temperature=float(temperature), top_k=int(top_k),
+                       top_p=float(top_p))
+        req.sched = self._sched.submit(req, rid)
+        return rid
+
+    def _first_token(self, req: _Request, lg) -> int:
+        """First generated token from the final chunk's logits (1, V): a host
+        argmax for greedy requests, ``next_token`` otherwise."""
+        if req.temperature == 0.0:
+            return int(np.argmax(lg.cpu().numpy()[0]))
+        nxt = next_token(lg, self._gen, req.temperature, req.top_k,
+                         req.top_p)
+        return int(nxt[0])
+
+    def _activate_slot(self, slot: int, req: _Request, first: int) -> None:
+        """Move a freshly-prefilled request into the decode phase."""
+        self.pos[slot] = len(req.prompt)
+        self.tokens[slot] = first
+        self.temps[slot] = req.temperature
+        self.topks[slot] = req.top_k
+        self.topps[slot] = req.top_p
+        req.generated.append(first)
+
+    def _fill_free_slots(self) -> None:
+        """Admit waiting requests into free slots in FIFO order, gated on
+        block headroom, with no head-of-line bypass (a draining pool always
+        reopens headroom)."""
+        for s in range(self.max_batch):
+            if self._slots[s] is not None:
+                continue
+            ent = self._sched.peek()
+            if ent is None or not self._admissible(ent):
+                break
+            self._sched.pop()
+            self._admit_paged(s, ent.req)
+
+    def _admit_paged(self, slot: int, req: _Request) -> None:
+        """Claim a slot: reuse cached prefix blocks (the matched span skips
+        prefill) and start chunked prefill at the first uncached block."""
+        req.table = self.alloc.match_prefix(req.prompt)
+        req.hashes = self.alloc.chain_hashes(req.prompt)
+        req.pf_next = len(req.table) * self.block_size
+        self._bt[slot, :] = 0
+        self._bt[slot, :len(req.table)] = req.table
+        self._prefilling[slot] = True
+        self._slots[slot] = req
+
+    def _admissible(self, ent) -> bool:
+        """Headroom gate: the request's whole prompt (less its resident
+        prefix blocks) plus one spare block must be reclaimable now."""
+        prompt = ent.req.prompt
+        need = min(self._max_entries, -(-len(prompt) // self.block_size))
+        need = max(need - self.alloc.probe_prefix(prompt), 1)
+        headroom = min(need + 1, self.alloc.num_blocks - 1)
+        return (self.alloc.blocks_free
+                + self.alloc.evictable_cached) >= headroom
+
+    def _ensure_blocks(self, slot: int, entries: int) -> None:
+        """Grow the slot's block table to >= ``entries`` real entries
+        (capped at ceil(max_len/block_size); writes past that land in
+        scratch by construction)."""
+        req = self._slots[slot]
+        entries = min(entries, self._max_entries)
+        while len(req.table) < entries:
+            try:
+                bid = self.alloc.alloc()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"{e}; swap preemption is not ported yet, so the pool "
+                    f"must hold every admitted request (the default "
+                    f"num_blocks does)") from e
+            req.table.append(bid)
+            self._bt[slot, len(req.table) - 1] = bid
+
+    def _prefill_chunk_step(self, slot: int) -> None:
+        """Advance one prompt chunk for a prefilling slot; on the final
+        chunk, take the first token and flip the slot to decoding."""
+        req = self._slots[slot]
+        seq = req.prompt
+        n = len(seq)
+        bs = self.block_size
+        C = self.prefill_chunk
+        start = req.pf_next
+        end = min(start + C, n)
+        self._ensure_blocks(slot, -(-end // bs))
+        chunk = np.zeros((1, C), np.int64)
+        chunk[0, :end - start] = seq[start:end]
+        last_idx = (n - 1 - start) if end == n else 0
+        w0 = time.perf_counter()
+        lg = self._exec.chunk_prefill(
+            torch.from_numpy(chunk).to(self.device),
+            torch.from_numpy(self._bt[slot]).to(self.device), start,
+            last_idx)
+        first = self._first_token(req, lg) if end == n else None
+        if first is None:
+            lg.cpu()    # the host copy closes the timed span on the device
+        self._prefill_tokens += end - start
+        self._prefill_chunks += 1
+        self._prefill_wall_s += time.perf_counter() - w0
+        # publish the prompt blocks this chunk completed for prefix reuse
+        for i in range(start // bs, end // bs):
+            self.alloc.register(req.table[i], req.hashes[i])
+        req.pf_next = start + C
+        if end == n:
+            self._activate_slot(slot, req, first)
+            self._prefilling[slot] = None
+
+    def _plain_decode_trip(self, active) -> None:
+        """One decode tick across the listed slots; idle and prefilling rows
+        run masked — zeroed table and pos 0 route their discarded K/V writes
+        to scratch block 0, which keeps the batch shape fixed."""
+        for s in active:
+            self._ensure_blocks(s, -(-(int(self.pos[s]) + 1)
+                                     // self.block_size))
+        greedy = all(float(self.temps[s]) == 0.0 for s in active)
+        active_mask = np.zeros((self.max_batch,), np.int32)
+        active_mask[active] = 1
+        bt = np.where(active_mask[:, None] > 0, self._bt, 0)
+        posv = self.pos * active_mask
+        dev = self.device
+        w0 = time.perf_counter()
+        if greedy:
+            samp = (None, None, None)
+        else:
+            samp = (torch.from_numpy(self.temps).to(dev),
+                    torch.from_numpy(self.topks).to(dev),
+                    torch.from_numpy(self.topps).to(dev))
+        stack = self._exec.decode_paged(
+            torch.from_numpy(self.tokens.astype(np.int64)).to(dev),
+            torch.from_numpy(bt).to(dev), torch.from_numpy(posv).to(dev),
+            *samp, greedy=greedy, generator=self._gen)
+        nxt = stack.cpu().numpy()
+        self._decode_wall_s += time.perf_counter() - w0
+        self._decode_ticks += 1
+        self._decode_tokens += len(active)
+        self._harvest_window(nxt, active, active_mask)
+
+    def _harvest_window(self, nxt_host, active, active_mask) -> None:
+        """Fold one decode window's (k, B) token stack into the per-request
+        state: append tokens, detect eos / max-new / max-len completion and
+        free finished slots for the next step's refill."""
+        k = nxt_host.shape[0]
+        self.pos = self.pos + active_mask * k
+        self.tokens = np.where(active_mask > 0, nxt_host[-1],
+                               self.tokens).astype(np.int32)
+        for s in active:
+            req = self._slots[s]
+            done = False
+            for t in range(k):
+                finished_last = (self.eos is not None
+                                 and req.generated[-1] == self.eos)
+                if not finished_last:
+                    req.generated.append(int(nxt_host[t, s]))
+                pos_t = int(self.pos[s]) - k + t + 1
+                if (finished_last
+                        or len(req.generated) >= req.max_new_tokens
+                        or pos_t >= self.max_len - 1):
+                    done = True
+                    break
+            if done:
+                self._results[req.rid] = (req.prompt
+                                          + req.generated[:req.max_new_tokens])
+                self._release_slot(s)
+
+    def _release_slot(self, slot: int) -> None:
+        req = self._slots[slot]
+        self._slots[slot] = None
+        for bid in req.table:
+            self.alloc.free(bid)
+        req.table = []
+        self._bt[slot, :] = 0
+        self._prefilling[slot] = None
+        self.pos[slot] = 0
+        self.tokens[slot] = 0
+        self.temps[slot] = 0.0
+        self.topks[slot] = 0
+        self.topps[slot] = 0.0
+
+    # ------------------------------------------------------------- stepping
+    def step(self) -> int:
+        """One server step: admit queued requests, advance one prefill chunk
+        per prefilling slot, then one decode tick across decoding slots;
+        returns #remaining (occupied slots + queued)."""
+        self._fill_free_slots()
+        for s in range(self.max_batch):
+            if self._slots[s] is not None and self._prefilling[s]:
+                self._prefill_chunk_step(s)
+        active = [s for s in range(self.max_batch)
+                  if self._slots[s] is not None and not self._prefilling[s]]
+        if active:
+            self._plain_decode_trip(active)
+        occupied = sum(sl is not None for sl in self._slots)
+        if occupied == 0 and len(self._sched) > 0:
+            # every slot empty yet entries wait: admission against an idle
+            # pool must succeed, so a streak means corrupted state
+            self._idle_streak += 1
+            if self._idle_streak > 64:
+                raise RuntimeError("scheduler wedged: 64 steps with empty "
+                                   "slots and a non-empty queue")
+        else:
+            self._idle_streak = 0
+        return occupied + len(self._sched)
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain the queue; returns {rid: prompt+generated token ids}."""
+        while self.step():
+            pass
+        out, self._results = self._results, {}
+        return out
+
+    # -------------------------------------------------------------- metrics
+    def kv_stats(self) -> Dict[str, int]:
+        """Paged-pool occupancy and prefix-cache counters."""
+        return self.alloc.stats()
+
+    def throughput_stats(self) -> Dict[str, float]:
+        """Prompt tokens and decode ticks served so far with their host wall
+        time (each span ends on a host copy of its result, so the device
+        work is included)."""
+        return {"prefill_tokens": self._prefill_tokens,
+                "prefill_chunks": self._prefill_chunks,
+                "prefill_s": self._prefill_wall_s,
+                "decode_ticks": self._decode_ticks,
+                "decode_tokens": self._decode_tokens,
+                "decode_s": self._decode_wall_s}

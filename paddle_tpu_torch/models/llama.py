@@ -1,0 +1,354 @@
+"""Llama for paged serving — port of ``paddle_tpu/models/llama.py`` (the
+serving subset: config, RoPE, RMSNorm, GQA attention with the paged decode
+and chunked-prefill paths, the fp SwiGLU MLP, and the causal-LM head).
+
+Parameters keep the JAX package's names and Paddle's ``Linear`` layout:
+every projection weight is ``(in, out)`` and a projection computes
+``x @ weight`` (``torch.matmul``), so a JAX state dict carries over
+name-for-name and array-for-array (``models/convert.py``).
+
+Left out of this slice: dense and training forwards, dense KV caches,
+MoE, LoRA, int8 weights, ring/Ulysses attention.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .. import resolve_device
+from ..ops.fused_norm import fused_rms_norm
+from ..ops.paged_attention import (paged_decode_attention,
+                                   paged_prefill_attention, write_chunk_kv,
+                                   write_decode_kv)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # the JAX config's parallelism / training / MoE / LoRA knobs, kept so a
+    # config carries over field for field; this slice serves only their
+    # defaults (LlamaForCausalLM raises otherwise)
+    context_parallel: bool = False
+    sequence_parallel: bool = False
+    ulysses_parallel: bool = False
+    use_flash_attention: bool = True
+    fused_lm_head_ce: bool = True
+    ce_chunk_size: int = 16384
+    recompute: bool = False
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_every: int = 1
+    moe_aux_coeff: float = 0.01
+    lora_rank: int = 0
+    lora_alpha: Optional[float] = None
+    lora_targets: Optional[tuple] = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got "
+                             f"{self.dtype!r}")
+        return _DTYPES[self.dtype]
+
+
+def llama3_8b_config(**kw) -> LlamaConfig:
+    return LlamaConfig(**{**dict(
+        vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8), **kw})
+
+
+def llama_tiny_config(**kw) -> LlamaConfig:
+    return LlamaConfig(**{**dict(
+        vocab_size=1024, hidden_size=256, intermediate_size=704,
+        num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=4,
+        max_position_embeddings=512, dtype="float32"), **kw})
+
+
+# --------------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------------- #
+
+
+def _rope_tables(head_dim: int, max_pos: int, theta: float):
+    """fp32 (max_pos, head_dim/2) cos/sin tables, computed on the CPU so the
+    card and the CPU serve identical tables (the caller moves them)."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32) / head_dim))
+    t = torch.arange(max_pos, dtype=torch.float32)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def _rope_rotate(x, c, s):
+    """Rotate pairs (x[..., :D/2], x[..., D/2:]) by pre-gathered c/s rows,
+    in fp32, cast back to x's dtype."""
+    d2 = x.shape[-1] // 2
+    xf1 = x[..., :d2].float()
+    xf2 = x[..., d2:].float()
+    out = torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def _apply_rope_rows(x, cos, sin, pos):
+    """x: (B, 1, H, D), pos: int32 (B,) — each row at its own position."""
+    p = pos.long()
+    return _rope_rotate(x, cos[p][:, None, None, :], sin[p][:, None, None, :])
+
+
+def _apply_rope_chunk(x, cos, sin, start):
+    """x: (B, C, H, D) at positions ``start + arange(C)``, edge-clamped to the
+    table: a padded final chunk may overrun it, and the clamped rows are
+    padding that is never read."""
+    S = x.shape[1]
+    idx = torch.clamp(int(start) + torch.arange(S, device=x.device), 0,
+                      cos.shape[0] - 1)
+    return _rope_rotate(x, cos[idx][None, :, None, :],
+                        sin[idx][None, :, None, :])
+
+
+# --------------------------------------------------------------------------- #
+# Modules
+# --------------------------------------------------------------------------- #
+
+
+def _param(shape, cfg, device):
+    return nn.Parameter(torch.empty(shape, dtype=cfg.torch_dtype,
+                                    device=device), requires_grad=False)
+
+
+class Linear(nn.Module):
+    """Bias-free projection in Paddle's layout: ``weight`` (in, out),
+    ``y = x @ weight``."""
+
+    def __init__(self, in_features, out_features, cfg, device):
+        super().__init__()
+        self.weight = _param((in_features, out_features), cfg, device)
+
+    def forward(self, x):
+        return torch.matmul(x, self.weight)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num, dim, cfg, device):
+        super().__init__()
+        self.weight = _param((num, dim), cfg, device)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
+class LlamaRMSNorm(nn.Module):
+    def __init__(self, hidden_size, eps, cfg, device):
+        super().__init__()
+        self.weight = _param((hidden_size,), cfg, device)
+        self._eps = eps
+
+    def forward(self, x):
+        return fused_rms_norm(x, self.weight, self._eps)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        self.num_heads = cfg.num_attention_heads
+        self.num_kv_heads = cfg.num_key_value_heads
+        self.head_dim = cfg.head_dim
+        h, d = cfg.hidden_size, self.head_dim
+        self.q_proj = Linear(h, self.num_heads * d, cfg, device)
+        self.k_proj = Linear(h, self.num_kv_heads * d, cfg, device)
+        self.v_proj = Linear(h, self.num_kv_heads * d, cfg, device)
+        self.o_proj = Linear(self.num_heads * d, h, cfg, device)
+
+    def _qkv(self, x, B, S):
+        return (self.q_proj(x).reshape(B, S, self.num_heads, self.head_dim),
+                self.k_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim),
+                self.v_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim))
+
+    def paged_decode(self, x, cos, sin, pool, block_tables, pos):
+        """Single-token decode against the paged pool: the new token's K/V
+        scatter through the block table at ``pos`` (in place), then attention
+        reads the context by table. x: (B, 1, hidden); pool: ``(kp, vp)``
+        (num_blocks, bs, KV, D); block_tables: int32 (B, M); pos: int32 (B,).
+        Returns (output, pool)."""
+        B = x.shape[0]
+        q, k, v = self._qkv(x, B, 1)
+        qr = _apply_rope_rows(q, cos, sin, pos)
+        kr = _apply_rope_rows(k, cos, sin, pos)
+        kp, vp = pool
+        write_decode_kv(kp, vp, kr[:, 0], v[:, 0], block_tables, pos)
+        out = paged_decode_attention(qr, kp, vp, block_tables, pos)
+        return self.o_proj(out.reshape(B, 1, -1)), pool
+
+    def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start):
+        """One fixed-size prefill CHUNK: queries at ``start + arange(C)``
+        (block-aligned ``start``, C a multiple of the block size); their K/V
+        fill consecutive table entries (in place) and attention runs over
+        all paged context written so far. x: (1, C, hidden); block_table:
+        int32 (M,). Returns (output, pool)."""
+        B, S = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(x, B, S)
+        qr = _apply_rope_chunk(q, cos, sin, start)
+        kr = _apply_rope_chunk(k, cos, sin, start)
+        kp, vp = pool
+        write_chunk_kv(kp, vp, kr[0], v[0], block_table, start)
+        out = paged_prefill_attention(qr, kp, vp, block_table, start)
+        return self.o_proj(out.reshape(B, S, -1)), pool
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        h, f = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = Linear(h, f, cfg, device)
+        self.up_proj = Linear(h, f, cfg, device)
+        self.down_proj = Linear(f, h, cfg, device)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        self.input_layernorm = LlamaRMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
+                                            cfg, device)
+        self.self_attn = LlamaAttention(cfg, device)
+        self.post_attention_layernorm = LlamaRMSNorm(
+            cfg.hidden_size, cfg.rms_norm_eps, cfg, device)
+        self.mlp = LlamaMLP(cfg, device)
+
+    def paged_decode(self, x, cos, sin, pool, block_tables, pos):
+        a, pool = self.self_attn.paged_decode(self.input_layernorm(x), cos,
+                                              sin, pool, block_tables, pos)
+        h = x + a
+        return h + self.mlp(self.post_attention_layernorm(h)), pool
+
+    def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start):
+        a, pool = self.self_attn.paged_prefill_chunk(
+            self.input_layernorm(x), cos, sin, pool, block_table, start)
+        h = x + a
+        return h + self.mlp(self.post_attention_layernorm(h)), pool
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, cfg,
+                                      device)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(cfg, device)
+                                     for _ in range(cfg.num_hidden_layers)])
+        self.norm = LlamaRMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg,
+                                 device)
+        cos, sin = _rope_tables(cfg.head_dim, cfg.max_position_embeddings,
+                                cfg.rope_theta)
+        self.register_buffer("_cos", cos.to(device), persistent=False)
+        self.register_buffer("_sin", sin.to(device), persistent=False)
+
+    def paged_decode_step(self, token, pools, block_tables, pos):
+        """Paged continuous-batching decode. token: int (B, 1); pools: list
+        of per-layer ``(kp, vp)`` (updated in place); block_tables: int32
+        (B, M); pos: int32 (B,). Returns (normed hidden (B, 1, hidden),
+        pools)."""
+        x = self.embed_tokens(token)
+        new = []
+        for layer, pool in zip(self.layers, pools):
+            x, pool = layer.paged_decode(x, self._cos, self._sin, pool,
+                                         block_tables, pos)
+            new.append(pool)
+        return self.norm(x), new
+
+    def paged_prefill_chunk(self, input_ids, pools, block_table, start):
+        """Stream ONE prompt chunk into the paged pool. input_ids: int
+        (1, C); block_table: int32 (M,); start: block-aligned chunk origin.
+        Returns (normed hidden (1, C, hidden), pools)."""
+        x = self.embed_tokens(input_ids)
+        new = []
+        for layer, pool in zip(self.layers, pools):
+            x, pool = layer.paged_prefill_chunk(x, self._cos, self._sin, pool,
+                                                block_table, start)
+            new.append(pool)
+        return self.norm(x), new
+
+
+def _check_supported(cfg: LlamaConfig) -> None:
+    unsupported = {
+        "moe_num_experts": (cfg.moe_num_experts, 0),
+        "lora_rank": (cfg.lora_rank, 0),
+        "context_parallel": (cfg.context_parallel, False),
+        "sequence_parallel": (cfg.sequence_parallel, False),
+        "ulysses_parallel": (cfg.ulysses_parallel, False),
+    }
+    for name, (got, default) in unsupported.items():
+        if got != default:
+            raise NotImplementedError(
+                f"LlamaConfig.{name}={got!r} is not ported yet (this slice "
+                f"serves dense-MLP, single-device Llama)")
+    if cfg.hidden_size % cfg.num_attention_heads or \
+            cfg.num_attention_heads % cfg.num_key_value_heads:
+        raise ValueError("hidden_size must divide by num_attention_heads and "
+                         "num_attention_heads by num_key_value_heads")
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama causal LM for paged serving.
+
+    ``device=None`` puts the model on the current CUDA device and raises if
+    there is none; pass ``device="cpu"`` for the plain PyTorch path. Weights
+    are initialised on that device from a ``torch.Generator`` seeded with
+    ``seed`` — projections and embeddings N(0, 0.02), norms 1 — so a
+    full-width model never has to exist in host memory. Load trained or JAX
+    weights with ``load_state_dict`` (see ``models/convert.py``)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
+        super().__init__()
+        _check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.model = LlamaModel(cfg, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, cfg, device)
+        self.reset_parameters(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+
+    def head(self, h):
+        """Logits in the model dtype: ``h @ lm_head.weight``, or
+        ``h @ embed.T`` with tied embeddings."""
+        if self.cfg.tie_word_embeddings:
+            return torch.matmul(h, self.model.embed_tokens.weight.t())
+        return self.lm_head(h)

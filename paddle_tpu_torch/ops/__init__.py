@@ -1,0 +1,77 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch twins —
+the counterpart of ``paddle_tpu/ops`` (whose Pallas TPU kernels they
+replace).
+
+Kernel dispatch contract (shared by every wrapper in this package):
+
+* ``"auto"`` (default): a wrapper launches its CUDA kernel for CUDA tensors
+  and runs its plain PyTorch version for CPU tensors. On a CUDA tensor it
+  never falls back: a shape or dtype the kernel does not take raises.
+* ``"reference"``: every wrapper runs its plain PyTorch version, on any
+  device — ``chip_smoke.py`` uses it to hold each kernel against its plain
+  version on the card.
+
+The mode is process-wide and read at call time (PyTorch runs eagerly, so
+unlike the JAX package there is no trace to freeze it).
+
+Every wrapper that launches a kernel carries a plain-integer launch counter
+(``wrapper.launches``), bumped exactly where the kernel is launched and
+nowhere else, so a run can show that its main path went through the kernels:
+:func:`reset_launch_counts` before the run, :func:`launch_counts` after.
+"""
+from __future__ import annotations
+
+KERNEL_MODES = ("auto", "reference")
+
+_KERNEL_MODE = "auto"
+
+
+def set_kernel_mode(mode: str) -> None:
+    """Pin the process-wide dispatch: ``"auto"`` (kernels on CUDA tensors,
+    plain versions on CPU tensors) or ``"reference"`` (plain versions
+    everywhere)."""
+    global _KERNEL_MODE
+    if mode not in KERNEL_MODES:
+        raise ValueError(
+            f"kernel mode must be one of {KERNEL_MODES}, got {mode!r}")
+    _KERNEL_MODE = mode
+
+
+def kernel_mode() -> str:
+    return _KERNEL_MODE
+
+
+def use_kernel(x) -> bool:
+    """True when the wrapper must launch its CUDA kernel for tensor ``x``."""
+    return _KERNEL_MODE == "auto" and x.is_cuda
+
+
+from .fused_norm import fused_rms_norm, rms_norm_cuda  # noqa: E402
+from .paged_attention import (gather_block_kv,  # noqa: E402
+                              paged_decode_attention,
+                              paged_prefill_attention,
+                              paged_verify_attention, write_chunk_kv,
+                              write_decode_kv, write_window_kv)
+from .paged_attention_cuda import paged_attention_cuda  # noqa: E402
+
+# every kernel wrapper of the port, by kernel name
+KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
+                   "paged_attention": paged_attention_cuda}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
+
+
+__all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "fused_rms_norm",
+           "gather_block_kv", "kernel_mode", "launch_counts",
+           "paged_attention_cuda", "paged_decode_attention",
+           "paged_prefill_attention", "paged_verify_attention",
+           "reset_launch_counts", "rms_norm_cuda", "set_kernel_mode",
+           "use_kernel", "write_chunk_kv", "write_decode_kv",
+           "write_window_kv"]

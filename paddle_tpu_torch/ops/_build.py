@@ -1,0 +1,163 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` by hand into one shared
+library with a plain C interface, loaded with ``ctypes``.
+
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into its own object
+file — one ``nvcc`` per source, all started together — and the objects are
+linked into one ``.so``. Objects and the library are named by a hash of
+their inputs (source bytes, headers, flags), so a rebuild happens only when
+a source changes. The build directory (``_build/`` next to this file) is
+listed in ``.gitignore``; it is filled on first use, on the machine that has
+the card and the CUDA toolkit. Nothing here runs at import time.
+
+C interface: every entry point takes device pointers and the CUDA stream as
+``void*`` (``ctypes.c_void_p``), sizes as ``int``, and returns the
+``cudaError_t`` of ``cudaGetLastError()`` after its launch; :func:`check`
+raises when that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry point -> argtypes (all return int: the launch's cudaError_t)
+SIGNATURES = {
+    # x, w, y, rows, dim, eps, stream
+    "pt_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
+    # q, k_pool, v_pool, tables, pos, out, part_acc, part_ml,
+    # B, W, H, KV, D, N, bs, M, S, P, stream
+    "pt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+}
+
+_LOCK = threading.Lock()
+_LIB = None
+BUILD_INFO: dict = {}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``PATH``, else from ``$CUDA_HOME/bin``, else the
+    toolkit's default install prefix; raises when none exists."""
+    cands = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of paddle_tpu_torch are built from source on first "
+        "use and need the CUDA toolkit")
+
+
+def _digest(*parts: bytes) -> str:
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p)
+        h.update(b"\0")
+    return h.hexdigest()[:16]
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def compile_commands(nvcc: str, build_dir: Path = BUILD_DIR):
+    """[(source, object path, nvcc argv)] — one compile per source; the
+    object's name carries the hash of everything that shapes it."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS).encode()
+    out = []
+    for src in sources():
+        tag = _digest(src.read_bytes(), headers, flags)
+        obj = build_dir / f"{src.stem}-{tag}.o"
+        out.append((src, obj, [nvcc, *NVCC_FLAGS, "-c", str(src),
+                               "-o", str(obj)]))
+    return out
+
+
+def build() -> Path:
+    """Compile what changed (in parallel) and link the library; returns
+    its path. Records the compiler output and timings in
+    :data:`BUILD_INFO`."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmds = compile_commands(nvcc)
+    t0 = time.perf_counter()
+    procs = []
+    for src, obj, argv in cmds:
+        if obj.exists():
+            continue
+        tmp = obj.with_suffix(f".{os.getpid()}.tmp.o")
+        argv = argv[:-1] + [str(tmp)]
+        procs.append((src, obj, tmp, subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = []
+    failed = []
+    for src, obj, tmp, p in procs:
+        text, _ = p.communicate()
+        logs.append(f"== {src.name}\n{text}")
+        if p.returncode != 0:
+            failed.append(f"{src.name} (nvcc exit {p.returncode}):\n{text}")
+        else:
+            os.replace(tmp, obj)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    objs = [obj for _, obj, _ in cmds]
+    lib = BUILD_DIR / f"libpaddle_tpu_torch-{_digest(*(o.name.encode() for o in objs))}.so"
+    if not lib.exists():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        p = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"CUDA kernel link failed (nvcc exit "
+                               f"{p.returncode}):\n{p.stdout}{p.stderr}")
+        os.replace(tmp, lib)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(lib),
+                      compiled=[s.name for s, *_ in procs],
+                      log="\n".join(logs))
+    return lib
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA kernel launch failed with "
+                           f"cudaError_t {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+

@@ -1,0 +1,121 @@
+"""Guards of the PyTorch port's package rules: it imports neither ``jax``
+nor the JAX package, its entry points run on the card by default and raise
+when there is none, and ``chip_smoke.py`` fails (printing no result) where
+there is no card or no port beside it."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.inference.serving import GenerationServer
+from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "paddle_tpu_torch"
+PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.ops",
+                "paddle_tpu_torch.ops._build",
+                "paddle_tpu_torch.ops.fused_norm",
+                "paddle_tpu_torch.ops.paged_attention",
+                "paddle_tpu_torch.ops.paged_attention_cuda",
+                "paddle_tpu_torch.models", "paddle_tpu_torch.models.llama",
+                "paddle_tpu_torch.models.convert",
+                "paddle_tpu_torch.models.generation",
+                "paddle_tpu_torch.inference",
+                "paddle_tpu_torch.inference.paged_cache",
+                "paddle_tpu_torch.inference.scheduler",
+                "paddle_tpu_torch.inference.executor",
+                "paddle_tpu_torch.inference.serving"]
+# torch sees no card in the child, whatever the machine has
+NO_CARD_ENV = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_source_imports_jax_or_the_jax_package(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "paddle_tpu"}, (path, roots)
+
+
+def test_every_port_module_is_in_the_import_guard():
+    found = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+             .removesuffix(".__init__") for p in PORT.rglob("*.py")}
+    assert found == set(PORT_MODULES)
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
+    code = ("import sys\n"
+            f"for m in {PORT_MODULES!r}: __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "print('LOADED', bad)\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=NO_CARD_ENV)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle_tpu_torch.resolve_device(None)
+    cfg = llama_tiny_config(num_hidden_layers=1, vocab_size=64,
+                            hidden_size=64, intermediate_size=128,
+                            num_attention_heads=4, num_key_value_heads=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationServer(model, cache="paged")
+    srv = GenerationServer(model, cache="paged", device="cpu", max_len=32,
+                           block_size=4, prefill_chunk=8)
+    rid = srv.submit([1, 2, 3], max_new_tokens=2)
+    assert len(srv.run()[rid]) == 5
+
+
+@pytest.mark.parametrize("kwargs", [dict(cache="dense"), dict(spec=object()),
+                                    dict(kv_quant="int8"),
+                                    dict(tick_window=2), dict(policy="wfq"),
+                                    dict(kernels="reference")])
+def test_unported_server_options_raise(kwargs):
+    model = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
+                             device="cpu")
+    with pytest.raises(NotImplementedError):
+        GenerationServer(model, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("alone", [False, True],
+                         ids=["in_repo", "script_alone"])
+def test_chip_smoke_fails_without_a_card_or_the_port(alone, tmp_path):
+    """No card: exit non-zero and print no result line. Run alone in a
+    directory without the port, the script cannot succeed either."""
+    src = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(src.read_text())
+        cwd, script = tmp_path, tmp_path / "chip_smoke.py"
+    else:
+        cwd, script = ROOT, src
+    p = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                       capture_output=True, text=True, timeout=120,
+                       env=NO_CARD_ENV)
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout
