@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
-card — the quickest proof that the port still builds and serves on the GPU.
+card — the quickest proof that the port still builds, serves and trains on
+the GPU.
 
     python3 chip_smoke.py
 
@@ -10,11 +11,12 @@ Phases (any failure exits non-zero before the final line):
 2. Build: compiles the port's CUDA kernels from ``paddle_tpu_torch/ops/
    csrc`` with nvcc for sm_90a and prints the build time and each kernel's
    registers / spills.
-3. Kernels against their plain PyTorch versions on the card, in bf16, at
-   the serving path's shapes: RMSNorm at rows {8, 128} x 4096; paged
-   attention in decode form (B=8, H=32, KV=8, D=128, bs=16, mixed context
-   lengths with partial final blocks, a block boundary and a poisoned
-   scratch block 0) and in prefill form (B=1, C=128 behind earlier
+3. Serving kernels against their plain PyTorch versions on the card, in
+   bf16, at the serving path's shapes: RMSNorm at rows {8, 128} x 4096
+   (and at 4096 x 4096, the training path's B x S rows);
+   paged attention in decode form (B=8, H=32, KV=8, D=128, bs=16, mixed
+   context lengths with partial final blocks, a block boundary and a
+   poisoned scratch block 0) and in prefill form (B=1, C=128 behind earlier
    chunks). Tolerances are per element (RMSNorm) or per output row
    (attention), and the attention tolerance is shown to reject a causal
    mask one key off either way. Each prints its max abs error and
@@ -34,10 +36,40 @@ Phases (any failure exits non-zero before the final line):
    versions on an fp32 copy of the weights: the kernels' logits may be at
    most 1.25 x as far from the fp32 ones as the plain bf16 path's, and may
    differ from the plain bf16 path's by a bounded share of the rms logit.
+6. Training kernels against their plain versions, bf16, at B=2, H=32,
+   KV=8, D=128: flash forward at S=2048, at S=8192 (B=1) and at Sq=384 /
+   Sk=2048; the dQ and dK/dV kernels at S=2048; forward and backward
+   without the causal mask, with a ragged last tile and with Sq > Sk
+   (untimed); AdamW on a 4096 x 14336 and a 4096-element tensor with and
+   without an fp32 master weight, on the largest tensor of the path (the
+   128256 x 4096 embedding or lm-head) with one, and with fp32 grads at a
+   ragged length.
+   Attention is compared per output row (and the LSE per row), with the
+   tolerance shown to reject a causal mask one key off in the forward and
+   in the backward; AdamW per element. Times, bounds and library calls as
+   in phase 3 (SDPA forward and backward, ``torch.optim.AdamW(fused=
+   True)``).
+7. Train: ``ParallelEngine(LlamaForCausalLM(llama3_8b_config(
+   num_hidden_layers=8)), AdamW(multi_precision, ClipGradByGlobalNorm))``
+   on the card, 10 steps (2 warm-up) on one seeded batch of B=2 x S=2048;
+   checks the loss falls and that every step launched each flash kernel
+   once per layer, RMSNorm 2 x layers + 1 times and AdamW once per
+   parameter tensor (counts reset before each step, read after). Prints
+   ms/step, tokens/s, MFU (formula printed), peak memory and the device's
+   busy share of a step from ``torch.profiler``.
+8. Train end to end, 2 layers at full width: one forward + backward with
+   the kernels, with the plain versions (bf16) and with the plain versions
+   on an fp32 copy: the kernels' loss and every gradient may be at most
+   1.25 x as far (rms per tensor, and over all) from fp32 as the plain
+   bf16 path's; then three AdamW steps of both bf16 paths, a fresh seeded
+   batch each, whose losses (relative, per step) and changes of the fp32
+   master weights may differ by bounded amounts; the weight-change limit
+   is shown to reject two planted faults of the plain path (causal mask
+   one key off; bias correction stuck at step 1).
 
 Kernel times are device times from CUDA graphs of many calls (so the
-Python wrappers' host cost is left out); serving rates are host wall time
-around work that ends in a copy of its result to the host.
+Python wrappers' host cost is left out); serving and training rates are
+host wall time around work that ends in a copy of its result to the host.
 
 The second-to-last line is a JSON object listing each kernel with its
 launches on the main path and its measurements; the last line is
@@ -45,7 +77,9 @@ launches on the main path and its measurements; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -65,6 +99,21 @@ TABLE_WIDTH = MAX_LEN // BLOCK_SIZE + PREFILL_CHUNK // BLOCK_SIZE
 # machine's library versions
 DRIFT_RATIO = 1.25
 GAP_FRACTION = 0.1
+# the training cell (phases 6-8): Llama-3-8B width, depth cut to 8 layers
+# (AdamW state with fp32 master weights does not fit 32 layers on one
+# 80 GB card), batch 2 x 2048 tokens
+TRAIN_LAYERS, TRAIN_B, TRAIN_S = 8, 2, 2048
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+E2E_LAYERS = 2
+# phase 8: three AdamW steps of the kernels' and the plain bf16 path, a
+# fresh batch each: the largest per-step loss gap relative to the loss,
+# and the gap between their changes of the master weights (see
+# train_end_to_end). On an H100 the first reading was 2.3e-5 and 0.052
+# (the run is deterministic); two planted faults of the plain path, the
+# causal mask one key off and the bias correction stuck at step 1, read
+# 1.5e-4 / 0.25 and 2.2e-4 / 0.30. The limits lie between
+STEP_LOSS_REL = 1e-4
+UPDATE_GAP = 0.1
 
 
 def fail(msg: str) -> None:
@@ -149,7 +198,8 @@ def kernel_rms_norm(torch, fused_norm, cfg):
     D, eps = cfg.hidden_size, cfg.rms_norm_eps
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = []
-    for rows in (8, 128):
+    # a decode tick's and a prefill chunk's rows, then a train step's B x S
+    for rows in (8, 128, TRAIN_B * TRAIN_S):
         x = torch.randn(rows, D, generator=g, device="cuda").to(torch.bfloat16)
         w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(
             torch.bfloat16)
@@ -507,6 +557,676 @@ def end_to_end(torch, ops, model, prompt):
     return res
 
 
+# --------------------------------------------------------------- phase 6
+def event_ms(torch, fn, iters: int, flush=None) -> float:
+    """Device time per call from CUDA events around ``iters`` eager calls
+    (after 2 warm-up calls): for work a CUDA graph cannot capture (autograd
+    backward, torch.optim); includes whatever host time the calls leave
+    the device idle. ``flush`` as in :func:`time_ms`."""
+    def run(body):
+        for _ in range(2):
+            body()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            body()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    if flush is None:
+        return run(fn)
+
+    def flushed():
+        flush.zero_()
+        fn()
+
+    return max(run(flushed) - run(flush.zero_), 0.0)
+
+
+def _row_ratio(x, ref, rms_scale):
+    """Per output row: |x - ref| max over the row against one bf16 step of
+    the row's largest value plus 2^-8 of ``rms_scale`` (the tolerance form
+    of phase 3)."""
+    tol = 2.0 ** -7 * ref.float().abs().amax(-1) + 2.0 ** -8 * rms_scale
+    return (x.float() - ref.float()).abs().amax(-1) / tol
+
+
+def _rms(t) -> float:
+    return t.float().square().mean().sqrt().item()
+
+
+@contextlib.contextmanager
+def _mask_shifted(fa, d: int):
+    """The plain flash versions with the causal mask moved ``d`` keys
+    (query i sees key j iff j <= i + Sk - Sq + d): the fault the
+    tolerances must reject, computed with the plain versions' own
+    rounding so that only the mask differs."""
+    orig = fa._visible
+    fa._visible = lambda q0, q1, Sq, Sk, dev: orig(q0 + d, q1 + d, Sq, Sk,
+                                                  dev)
+    try:
+        yield
+    finally:
+        fa._visible = orig
+
+
+def _visible_pairs(Sq, Sk):
+    """(query, key) pairs the bottom-right causal mask keeps."""
+    offs = Sk - Sq
+    return sum(min(max(i + offs + 1, 0), Sk) for i in range(Sq))
+
+
+def kernel_flash(torch, fa, fac, ops):
+    """Flash forward at three shapes and the backward pair at S=2048,
+    against the plain versions, with mutant-mask checks."""
+    from torch.nn import functional as F
+
+    H, KV, D = 32, 8, 128
+    s = 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    fwd_cases, bwd_cases = [], []
+    for B, Sq, Sk in ((TRAIN_B, TRAIN_S, TRAIN_S), (1, 8192, 8192),
+                      (TRAIN_B, 384, TRAIN_S)):
+        q, k, v = rnd(B, H, Sq, D), rnd(B, KV, Sk, D), rnd(B, KV, Sk, D)
+        out, lse = fac.flash_fwd_cuda(q, k, v, True, s)
+        ref, rlse = fa._flash_fwd_plain(q, k, v, True, s)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()),
+              f"flash_fwd S={Sq}/{Sk}: non-finite output")
+        rms_v = _rms(v)
+        # one bf16 step of the row's largest value (each side rounds O to
+        # bf16 once); p is rounded to bf16 against the running max in the
+        # kernel and the final max in the plain version, a relative error
+        # of at most 2^-8 per key that averages out over the keys: 2^-8 x
+        # rms(V) bounds its sum even for a row with one key
+        worst = _row_ratio(out, ref, rms_v).max().item()
+        check(worst <= 1.0, f"flash_fwd S={Sq}/{Sk}: a row is off by "
+                            f"{worst:.3g} x its tolerance")
+        # LSE: both sum the same fp32 exponentials in other orders; Sk
+        # terms bound the relative error of the sum by Sk * 2^-24
+        lse_err = (lse - rlse).abs()
+        lse_tol = Sk * 2.0 ** -24 + 2.0 ** -20 * rlse.abs()
+        worst_lse = (lse_err / lse_tol).max().item()
+        check(worst_lse <= 1.0, f"flash_fwd S={Sq}/{Sk}: LSE off by "
+                                f"{worst_lse:.3g} x its tolerance")
+        mutants = {}
+        for d in (1, -1):
+            with _mask_shifted(fa, d):
+                r = _row_ratio(fa._flash_fwd_plain(q, k, v, True, s)[0], ref,
+                               rms_v)
+            mutants[f"mask{d:+d}"] = dict(
+                worst_err_over_tol=r.max().item(),
+                rows_failed=(r > 1.0).float().mean().item())
+            check(r.max().item() > 1.0, f"flash_fwd S={Sq}/{Sk}: the "
+                                        f"tolerance passes the mask{d:+d} "
+                                        f"fault")
+        pairs = _visible_pairs(Sq, Sk)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+        bnd, by = bound_ms(nbytes, 4 * D * B * H * pairs, BF16_FLOPS)
+        if Sq == Sk:
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+        else:   # SDPA's is_causal aligns top-left: pass the mask
+            mask = torch.ones(Sq, Sk, dtype=torch.bool,
+                              device="cuda").tril(Sk - Sq)
+
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+        case = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=True,
+                    max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                    worst_err_over_tol=worst,
+                    lse_max_abs_err=lse_err.max().item(),
+                    lse_worst_err_over_tol=worst_lse, mutants=mutants,
+                    ms=time_ms(lambda: fac.flash_fwd_cuda(q, k, v, True, s),
+                               20),
+                    plain_ms=time_ms(
+                        lambda: fa._flash_fwd_plain(q, k, v, True, s), 2),
+                    bound_ms=bnd, bound_by=by, library_ms=time_ms(lib, 20))
+        log(f"kernel flash_fwd S={Sq}/{Sk} B={B} bf16: " + json.dumps(case))
+        fwd_cases.append(case)
+        if (Sq, Sk) != (TRAIN_S, TRAIN_S):
+            continue
+        do = rnd(B, H, Sq, D)
+        delta = (do.float() * ref.float()).sum(-1)
+        dq = fac.flash_bwd_dq_cuda(q, k, v, do, rlse, delta, True, s)
+        dk, dv = fac.flash_bwd_dkv_cuda(q, k, v, do, rlse, delta, True, s)
+        rdq, rdk, rdv = fa._flash_bwd_plain(q, k, v, do, rlse, delta, True, s)
+        torch.cuda.synchronize()
+        grads = {"dq": (dq, rdq), "dk": (dk, rdk), "dv": (dv, rdv)}
+        # per output row: one bf16 step of the row's largest value (each
+        # side rounds once) plus 2^-8 of the tensor's rms for dS and P,
+        # rounded to bf16 from fp32 values that may differ in their last
+        # bits, averaged over the keys (dQ) or query rows (dK, dV)
+        ratios = {n: _row_ratio(x, r, _rms(r)).max().item()
+                  for n, (x, r) in grads.items()}
+        for n, w in ratios.items():
+            check(bool(torch.isfinite(grads[n][0].float()).all()),
+                  f"flash backward {n}: non-finite")
+            check(w <= 1.0, f"flash backward {n}: a row is off by {w:.3g} x "
+                            f"its tolerance")
+        # the mutant's whole plain pipeline: its own O, LSE and delta
+        bmut = {}
+        for d in (1, -1):
+            with _mask_shifted(fa, d):
+                mo, ml = fa._flash_fwd_plain(q, k, v, True, s)
+                got = fa._flash_bwd_plain(q, k, v, do, ml,
+                                          (do.float() * mo.float()).sum(-1),
+                                          True, s)
+            bmut[f"mask{d:+d}"] = {
+                n: _row_ratio(x, grads[n][1], _rms(grads[n][1])).max().item()
+                for n, x in zip(("dq", "dk", "dv"), got)}
+            del mo, ml, got
+            for n, w in bmut[f"mask{d:+d}"].items():
+                check(w > 1.0, f"flash backward {n}: the tolerance passes "
+                               f"the mask{d:+d} fault ({w:.3g} x tolerance)")
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def lib_fwd_bwd():
+            qg.grad = kg.grad = vg.grad = None
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                               enable_gqa=True)
+            o.backward(do)
+
+        # SDPA's backward computes dQ, dK and dV in one call: its time is
+        # the forward + backward less the forward
+        lib_fb = event_ms(torch, lib_fwd_bwd, 10)
+        lib_bwd = lib_fb - event_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True, enable_gqa=True), 10)
+        plain_bwd = time_ms(lambda: fa._flash_bwd_plain(
+            q, k, v, do, rlse, delta, True, s), 2)
+        io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * lse.numel()
+        for name, products, outs, fn in (
+                ("flash_bwd_dq", 3, dq.numel(),
+                 lambda: fac.flash_bwd_dq_cuda(q, k, v, do, rlse, delta,
+                                               True, s)),
+                ("flash_bwd_dkv", 4, dk.numel() + dv.numel(),
+                 lambda: fac.flash_bwd_dkv_cuda(q, k, v, do, rlse, delta,
+                                                True, s))):
+            bnd, by = bound_ms(io + 2 * outs, 2 * products * D * B * H * pairs,
+                               BF16_FLOPS)
+            errs = {n: (grads[n][0].float() - grads[n][1].float()).abs()
+                    .max().item() for n in (("dq",) if name.endswith("dq")
+                                            else ("dk", "dv"))}
+            case = dict(B=B, H=H, KV=KV, D=D, S=Sq, causal=True,
+                        library_fwd_bwd_ms=lib_fb,
+                        max_abs_err=max(errs.values()), max_abs_errs=errs,
+                        worst_err_over_tol={n: ratios[n] for n in errs},
+                        mutants={d: {n: m[n] for n in errs}
+                                 for d, m in bmut.items()},
+                        ms=time_ms(fn, 20), plain_ms=plain_bwd,
+                        bound_ms=bnd, bound_by=by, library_ms=lib_bwd)
+            log(f"kernel {name} S={Sq} B={B} bf16: " + json.dumps(case))
+            bwd_cases.append((name, case))
+        del qg, kg, vg, do, dq, dk, dv, rdq, rdk, rdv, grads
+    # the kernels' branches the training path does not take: no causal
+    # mask, a ragged last tile (S not a multiple of 64), and Sq > Sk, where
+    # the first causal rows see no key (O = 0); same tolerances, not timed
+    for B, Sq, Sk, causal in ((1, 1000, 1000, False), (1, 300, 1000, True),
+                              (1, 200, 130, True)):
+        q, k, v = rnd(B, H, Sq, D), rnd(B, KV, Sk, D), rnd(B, KV, Sk, D)
+        do = rnd(B, H, Sq, D)
+        out, lse = fac.flash_fwd_cuda(q, k, v, causal, s)
+        ref, rlse = fa._flash_fwd_plain(q, k, v, causal, s)
+        delta = (do.float() * ref.float()).sum(-1)
+        got = dict(o=out, dq=fac.flash_bwd_dq_cuda(q, k, v, do, rlse, delta,
+                                                   causal, s))
+        got["dk"], got["dv"] = fac.flash_bwd_dkv_cuda(q, k, v, do, rlse,
+                                                      delta, causal, s)
+        want = dict(zip(("dq", "dk", "dv"), fa._flash_bwd_plain(
+            q, k, v, do, rlse, delta, causal, s)), o=ref)
+        torch.cuda.synchronize()
+        ratios = {n: _row_ratio(x, want[n], _rms(v) if n == "o"
+                                else _rms(want[n])).max().item()
+                  for n, x in got.items()}
+        ratios["lse"] = ((lse - rlse).abs() / (Sk * 2.0 ** -24 + 2.0 ** -20
+                                               * rlse.abs())).max().item()
+        errs = {n: (x.float() - want[n].float()).abs().max().item()
+                for n, x in got.items()}
+        case = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=causal,
+                    max_abs_errs=errs, worst_err_over_tol=ratios)
+        log(f"kernel flash edge Sq={Sq} Sk={Sk} causal={causal}: "
+            + json.dumps(case))
+        for n, w in ratios.items():
+            check(bool(torch.isfinite(got.get(n, lse).float()).all()),
+                  f"flash edge {case}: {n} non-finite")
+            check(w <= 1.0, f"flash edge Sq={Sq} Sk={Sk} causal={causal}: "
+                            f"{n} off by {w:.3g} x its tolerance")
+        fwd_cases.append(dict(case, max_abs_err=errs["o"]))
+        for name, keys in (("flash_bwd_dq", ("dq",)),
+                           ("flash_bwd_dkv", ("dk", "dv"))):
+            bwd_cases.append((name, dict(case, max_abs_err=max(
+                errs[n] for n in keys))))
+    return fwd_cases, bwd_cases
+
+
+def kernel_adamw(torch, fw, ops):
+    """AdamW kernel against ``_reference_update`` per element, at an MLP
+    projection, a norm weight and the largest tensor of the training path
+    (the embedding table and the lm-head), and with fp32 grads."""
+    hp = dict(lr=3e-4, step=5, b1=0.9, b2=0.95, eps=1e-8, decay=0.01)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    # a train step updates each tensor once, from device memory: every
+    # timed call follows a rewrite of a buffer larger than the L2
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    cases = []
+    # an MLP projection and a norm weight with bf16 grads, each with and
+    # without a master weight; the path's largest tensor (embedding and
+    # lm-head, 525 M elements) as the path updates it, with a master; then
+    # the fp32-grad instantiations (gradient accumulation hands the update
+    # fp32 grads) at a length with a ragged tail (n % 8 != 0)
+    for shape, with_master, gdt in (
+            ((4096, 14336), True, torch.bfloat16),
+            ((4096, 14336), False, torch.bfloat16),
+            ((4096,), True, torch.bfloat16), ((4096,), False, torch.bfloat16),
+            ((128256, 4096), True, torch.bfloat16),
+            ((1000003,), True, torch.float32),
+            ((1000003,), False, torch.float32)):
+        p = (0.02 * torch.randn(*shape, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        grad = (1e-3 * torch.randn(*shape, generator=g,
+                                   device="cuda")).to(gdt)
+        m = 1e-4 * torch.randn(*shape, generator=g, device="cuda")
+        v = 1e-7 * torch.rand(*shape, generator=g, device="cuda")
+        master = (p.float() + 1e-4 * torch.randn(
+            *shape, generator=g, device="cuda")) if with_master else None
+        pf = master if with_master else p.float()
+        gf = grad.float()
+        rp, rm, rv = p.clone(), m.clone(), v.clone()
+        rw = master.clone() if with_master else None
+        ops.set_kernel_mode("reference")
+        fw.fused_adamw_update(rp, grad, rm, rv, master=rw, **hp)
+        ops.set_kernel_mode("auto")
+        # the magnitudes of each result's summed terms, against which
+        # an fp32 relative tolerance cannot be defeated by cancellation
+        t_m = hp["b1"] * m.abs() + (1 - hp["b1"]) * gf.abs()
+        t_v = hp["b2"] * v + (1 - hp["b2"]) * gf.square()
+        new = rw if with_master else None
+        kp, km, kv = p.clone(), m.clone(), v.clone()
+        kw = master.clone() if with_master else None
+        fw.fused_adamw_update(kp, grad, km, kv, master=kw, **hp)
+        torch.cuda.synchronize()
+        mhat = rm / (1 - hp["b1"] ** hp["step"])
+        vhat = rv / (1 - hp["b2"] ** hp["step"])
+        t_w = (pf.abs() * (1 - hp["lr"] * hp["decay"])
+               + hp["lr"] * mhat.abs() / (vhat.sqrt() + hp["eps"]))
+        # p: one bf16 step of the element; m, v, master: fp32 relative
+        # 1e-6 of their terms (the kernel multiplies by 1/(1-beta^t)
+        # where the plain version divides: a few fp32 ulps)
+        worst = {
+            "p": ((kp.float() - rp.float()).abs()
+                  / (2.0 ** -7 * rp.float().abs() + 1e-30)).max().item(),
+            "m": ((km - rm).abs() / (1e-6 * t_m + 1e-30)).max().item(),
+            "v": ((kv - rv).abs() / (1e-6 * t_v + 1e-30)).max().item()}
+        if with_master:
+            worst["master"] = ((kw - new).abs()
+                               / (1e-6 * t_w + 1e-30)).max().item()
+        del t_m, t_v, t_w, mhat, vhat       # room for the largest tensor
+        for n, w in worst.items():
+            check(w <= 1.0, f"fused_adamw {shape} master={with_master}: "
+                            f"{n} off by {w:.3g} x its tolerance")
+        err = max((kp.float() - rp.float()).abs().max().item(),
+                  (km - rm).abs().max().item(),
+                  (kv - rv).abs().max().item())
+        n = p.numel()
+        gb = grad.element_size()
+        # reads: master or p, g, m, v; writes: p, m, v, master
+        nbytes = n * ((4 + gb + 8) + (2 + 8 + 4) if with_master
+                      else (2 + gb + 8) + (2 + 8))
+        bnd, by = bound_ms(nbytes, 15 * n, FP32_FLOPS)
+        w32 = (master if with_master else p.float()).clone()
+        w32.requires_grad_()
+        w32.grad = gf.clone()
+        lib_opt = torch.optim.AdamW([w32], lr=hp["lr"],
+                                    betas=(hp["b1"], hp["b2"]),
+                                    eps=hp["eps"],
+                                    weight_decay=hp["decay"], fused=True)
+
+        def plain():
+            ops.set_kernel_mode("reference")
+            fw.fused_adamw_update(rp, grad, rm, rv, master=rw, **hp)
+            ops.set_kernel_mode("auto")
+
+        case = dict(shape=list(shape), master=with_master,
+                    grad=str(gdt).replace("torch.", ""),
+                    max_abs_err=err, worst_err_over_tol=worst,
+                    ms=time_ms(lambda: fw.fused_adamw_update(
+                        kp, grad, km, kv, master=kw, **hp), 20, flush),
+                    plain_ms=time_ms(plain, 5, flush),
+                    bound_ms=bnd, bound_by=by,
+                    library_ms=event_ms(torch, lib_opt.step, 20, flush))
+        log(f"kernel fused_adamw {shape} master={with_master}: "
+            + json.dumps(case))
+        cases.append(case)
+        del p, grad, m, v, master, rp, rm, rv, rw, kp, km, kv, kw, w32, gf
+        del pf, new, lib_opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cases
+
+
+# --------------------------------------------------------------- phase 7
+# kernel-name fragments of the port's own kernels, for the step breakdown
+OWN_KERNELS = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel":
+               "flash_bwd_dq", "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+               "adamw_kernel": "fused_adamw", "rms_norm_kernel": "rms_norm"}
+
+
+def _kernel_class(name: str) -> str:
+    for frag, own in OWN_KERNELS.items():
+        if frag in name:
+            return own
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas",
+                              "sm90_")):
+        return "matmul"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduce"
+    return "other"
+
+
+def _device_busy(torch, step, steps: int):
+    """(device-busy seconds, host wall seconds, {class: device seconds},
+    {kernel name: device seconds}) of ``steps`` train steps under
+    torch.profiler: busy is the union of the trace's CUDA kernel and copy
+    intervals, and the classes split the device time into the port's
+    kernels, matrix products, elementwise and reduction kernels and the
+    rest; (None, wall, {}, {}) when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    classes, names = {}, {}
+    for e in device:
+        t = e.time_range.elapsed_us() * 1e-6
+        c = _kernel_class(e.name)
+        classes[c] = classes.get(c, 0.0) + t
+        names[e.name] = names.get(e.name, 0.0) + t
+    if busy <= 0:
+        return None, wall, {}, {}
+    return busy * 1e-6, wall, classes, names
+
+
+def train(torch, ops):
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=0)      # on the card, seeded
+    opt = AdamW(learning_rate=3e-4, parameters=model.named_parameters(),
+                weight_decay=0.01, multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    eng = ParallelEngine(model, optimizer=opt)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    log(f"train model: llama3-8b width, {TRAIN_LAYERS} layers, {n_params} "
+        f"params bf16 ({n_tensors} tensors) + AdamW fp32 moments and master "
+        f"weights, made on the card in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                        generator=gen, device="cuda")
+    ids, labels = tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+    # per step: each flash kernel once per layer, RMSNorm twice per layer
+    # plus the final norm, AdamW once per parameter tensor
+    want = {"flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS, "rms_norm": 2 * TRAIN_LAYERS + 1,
+            "fused_adamw": n_tensors}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, launches = [], [], dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+    for i in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(ids, labels).item())
+        walls.append(time.perf_counter() - t0)
+        got = ops.launch_counts()
+        for name, n in want.items():
+            check(got[name] == n, f"train step {i}: {name} launched "
+                                  f"{got[name]} times, want {n}")
+        for name in launches:
+            launches[name] += got[name]
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(lambda x: x == x and abs(x) < 1e4, losses)),
+          f"train: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall over "
+                                  f"{TRAIN_STEPS} steps: {losses}")
+    timed = sorted(walls[TRAIN_WARMUP:])
+    step_s = timed[len(timed) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    embed = model.model.embed_tokens.weight.numel()
+    n_nonembed = n_params - embed
+    H, D = cfg.num_attention_heads, cfg.head_dim
+    attn_flops = 6 * TRAIN_LAYERS * H * D * TRAIN_S * tokens
+    flops = 6 * n_nonembed * tokens + attn_flops
+    prof_steps = 2
+    busy, prof_wall, classes, names = _device_busy(
+        torch, lambda: eng.train_batch(ids, labels).item(), prof_steps)
+    busy_step = None if busy is None else busy / prof_steps
+    res = dict(layers=TRAIN_LAYERS, batch=TRAIN_B, seq=TRAIN_S,
+               params=n_params, params_nonembed=n_nonembed,
+               losses=losses, step_walls_s=walls,
+               ms_per_step=step_s * 1e3, tokens_per_s=tokens / step_s,
+               mfu=flops / step_s / BF16_FLOPS,
+               mfu_formula="(6 * N_nonembed * T + 6 * L * H * D * S * T) / "
+                           "step_s / 989e12, N_nonembed = params - embedding "
+                           "table, T = B * S tokens, causal attention "
+                           "forward + backward",
+               flops_per_step=flops, peak_memory_gib=peak / 2 ** 30,
+               device_busy_ms_per_step=(None if busy is None
+                                        else busy_step * 1e3),
+               # device-busy time per step over the unprofiled step time,
+               # and over the profiled steps' own wall (profiler overhead
+               # included)
+               busy_share=(None if busy is None else busy_step / step_s),
+               busy_share_profiled=(None if busy is None
+                                    else busy / prof_wall),
+               device_ms_per_step_by_class={
+                   c: t / prof_steps * 1e3 for c, t in sorted(
+                       classes.items(), key=lambda kv: -kv[1])},
+               top_kernels_ms_per_step={
+                   n[:80]: t / prof_steps * 1e3 for n, t in sorted(
+                       names.items(), key=lambda kv: -kv[1])[:12]},
+               launches=launches, launches_per_step=want)
+    log("train llama3-8b (8 layers): " + json.dumps(res))
+    del eng, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------- phase 8
+def train_end_to_end(torch, ops, fa):
+    """2 layers at full width, one fixed batch: forward + backward with
+    the kernels, with the plain versions (bf16), and with the plain
+    versions on an fp32 copy of the same weights; then three AdamW steps
+    of both bf16 paths from the same seeded weights, a fresh seeded batch
+    each, held against each other in loss and in the change of the fp32
+    master weights, with the limits shown to reject two planted faults."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    cfg = llama3_8b_config(num_hidden_layers=E2E_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                        generator=gen, device="cuda")
+    ids, labels = tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+    def grads(m, mode):
+        ops.set_kernel_mode(mode)
+        for p in m.parameters():
+            p.requires_grad_(True)
+            p.grad = None
+        loss = m(ids, labels)
+        loss.backward()
+        ops.set_kernel_mode("auto")
+        out = {n: p.grad.float() for n, p in m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+        return loss.item(), out
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(cfg, seed=1)
+    lk, gk = grads(model, "auto")
+    lp, gp = grads(model, "reference")
+    m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                           device="cuda")
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p16)                  # exact widening of bf16
+    lf, gf = grads(m32, "reference")
+    del m32, model
+    # The kernels round to bf16 in other places than the plain versions
+    # (p before PV against the running max, summation order); neither bf16
+    # path is exact. The fp32 run of the same weights is: the kernels'
+    # loss and gradients may not be farther from it than the plain bf16
+    # path's, by more than DRIFT_RATIO, per tensor (rms) and over all.
+    per = {}
+    sk = sp = 0.0
+    for n in gf:
+        dk2 = (gk[n] - gf[n]).square().sum().item()
+        dp2 = (gp[n] - gf[n]).square().sum().item()
+        sk += dk2
+        sp += dp2
+        per[n] = (dk2 / max(dp2, 1e-300)) ** 0.5
+    worst_name = max(per, key=per.get)
+    res = dict(layers=E2E_LAYERS, loss_kernels=lk, loss_plain_bf16=lp,
+               loss_fp32=lf,
+               loss_drift_ratio=abs(lk - lf) / max(abs(lp - lf), 1e-30),
+               grad_drift_ratio_all=(sk / sp) ** 0.5,
+               grad_drift_ratio_worst=per[worst_name],
+               grad_drift_worst_tensor=worst_name,
+               grad_drift_ratio_median=sorted(per.values())[len(per) // 2],
+               grad_rms_fp32=(sum(g.square().sum().item()
+                                  for g in gf.values())
+                              / sum(g.numel() for g in gf.values())) ** 0.5)
+    del gk, gp, gf
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(res["loss_drift_ratio"] <= DRIFT_RATIO,
+          f"train end to end: the kernels' loss is "
+          f"{res['loss_drift_ratio']:.3g} x as far from fp32 as the plain "
+          f"bf16 path's (limit {DRIFT_RATIO})")
+    for key in ("grad_drift_ratio_all", "grad_drift_ratio_worst"):
+        check(res[key] <= DRIFT_RATIO, f"train end to end: {key} "
+              f"{res[key]:.3g} > {DRIFT_RATIO} ({worst_name})")
+
+    # Three steps, each on a fresh seeded batch: random tokens keep every
+    # step's loss near ln(vocab), so each step's loss gap is measured
+    # against a loss of one size (one memorised batch drove it to 1e-3 by
+    # step 3). The steps are compared in loss (per step, relative) and in
+    # what they did to the weights: the change of the fp32 master weights
+    # over the three steps, |W_kernels - W_plain| / |W_plain - W_0| over
+    # all tensors, which sees a fault of the backward or of the update that
+    # moves the loss little.
+    stok = torch.randint(0, cfg.vocab_size, (3, TRAIN_B, TRAIN_S + 1),
+                         generator=gen, device="cuda")
+    batches = [(t[:, :-1].contiguous(), t[:, 1:].contiguous()) for t in stok]
+    w0 = dict(LlamaForCausalLM(cfg, seed=1).named_parameters())
+
+    def steps(mode, fault=None):
+        ops.set_kernel_mode(mode)
+        m = LlamaForCausalLM(cfg, seed=1)
+        opt = AdamW(learning_rate=3e-4, parameters=m.named_parameters(),
+                    weight_decay=0.01, multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        eng = ParallelEngine(m, optimizer=opt)
+        if fault == "bias_step1":       # bias correction stuck at step 1
+            upd = opt.update
+            opt.update = lambda items, lr, step: upd(items, lr, 1)
+        with (_mask_shifted(fa, 1) if fault == "mask+1"
+              else contextlib.nullcontext()):
+            losses = [eng.train_batch(i, lb).item() for i, lb in batches]
+        ops.set_kernel_mode("auto")
+        masters = {n: s["master_weight"]
+                   for n, s in opt._accumulators.items()}
+        del eng, opt, m
+        gc.collect()                    # the engine holds a cycle
+        torch.cuda.empty_cache()
+        return losses, masters
+
+    def held_against(losses, masters, ref_losses, ref_masters):
+        """(largest per-step relative loss gap, master-weight change gap
+        over all tensors, the worst tensor's gap and its name)."""
+        d2 = s2 = 0.0
+        per = {}
+        for n, w in ref_masters.items():
+            dn = (masters[n] - w).square().sum().item()
+            sn = (w - w0[n].float()).square().sum().item()
+            d2, s2 = d2 + dn, s2 + sn
+            per[n] = (dn / max(sn, 1e-300)) ** 0.5
+        worst = max(per, key=per.get)
+        return dict(step_loss_rel_gap=max(abs(a - b) / abs(b) for a, b in
+                                          zip(losses, ref_losses)),
+                    update_gap=(d2 / s2) ** 0.5,
+                    update_gap_worst=per[worst],
+                    update_gap_worst_tensor=worst)
+
+    sp_, wp = steps("reference")
+    sk_, wk = steps("auto")
+    res.update(step_losses_kernels=sk_, step_losses_plain_bf16=sp_,
+               **held_against(sk_, wk, sp_, wp))
+    del wk
+    mutants = {}
+    for fault in ("mask+1", "bias_step1"):
+        sm, wm = steps("reference", fault)
+        mutants[fault] = dict(step_losses=sm,
+                              **held_against(sm, wm, sp_, wp))
+        del wm
+    res["mutants"] = mutants
+    del wp, w0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train end_to_end kernels vs plain vs fp32: " + json.dumps(res))
+    check(all(x == x for x in sk_ + sp_), "train end to end: non-finite loss")
+    check(res["step_loss_rel_gap"] <= STEP_LOSS_REL,
+          f"train end to end: three AdamW steps of the kernels and the plain "
+          f"bf16 path differ by {res['step_loss_rel_gap']:.3g} of the loss "
+          f"(limit {STEP_LOSS_REL})")
+    check(res["update_gap"] <= UPDATE_GAP,
+          f"train end to end: the kernels' three steps changed the master "
+          f"weights {res['update_gap']:.3g} (relative) away from the plain "
+          f"bf16 path's (limit {UPDATE_GAP})")
+    for fault, m in mutants.items():
+        check(m["update_gap"] > UPDATE_GAP,
+              f"train end to end: the update limit passes the planted fault "
+              f"{fault} ({m['update_gap']:.3g})")
+    return res
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -523,7 +1243,11 @@ def main() -> int:
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama3_8b_config)
-    from paddle_tpu_torch.ops import _build, fused_norm
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_attention_cuda as fac
+    from paddle_tpu_torch.ops import fused_adamw as fw
+    from paddle_tpu_torch.ops import fused_norm
     from paddle_tpu_torch.ops import paged_attention as pa
 
     t_start = time.perf_counter()
@@ -552,30 +1276,57 @@ def main() -> int:
         f"params bf16, made on the card in {time.perf_counter() - t0:.1f} s")
     serve_res, prompt = serve(torch, ops, model)
     e2e = end_to_end(torch, ops, model, prompt)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, cases):
-        main_case = cases[0]      # the decode-shape case
+    fwd_cases, bwd_cases = kernel_flash(torch, fa, fac, ops)
+    adamw_cases = kernel_adamw(torch, fw, ops)
+    train_res = train(torch, ops)
+    train_e2e = train_end_to_end(torch, ops, fa)
+
+    def entry(name, source, replaces, cases, launches, **extra):
+        main_case = cases[0]      # the main path's shape
         return dict(name=name, route="cuda", source=source,
-                    replaces=replaces,
-                    launches=serve_res["launches"][name],
+                    replaces=replaces, launches=launches,
                     max_abs_err=max(c["max_abs_err"] for c in cases),
                     ms=main_case["ms"], plain_ms=main_case["plain_ms"],
                     bound_ms=main_case["bound_ms"],
                     bound_by=main_case["bound_by"],
-                    library_ms=main_case["library_ms"], cases=cases)
+                    library_ms=main_case["library_ms"], cases=cases, **extra)
 
+    csrc = "paddle_tpu_torch/ops/csrc/"
+    flash = "paddle_tpu/ops/flash_attention.py:"
+    tl = train_res["launches"]
     kernels = [
-        entry("paged_attention", "paddle_tpu_torch/ops/csrc/paged_attention.cu",
-              "paddle_tpu/ops/paged_attention_pallas.py:253", attn_cases),
-        entry("rms_norm", "paddle_tpu_torch/ops/csrc/rms_norm.cu",
-              "paddle_tpu/ops/fused_norm.py:84", rms_cases),
+        entry("paged_attention", csrc + "paged_attention.cu",
+              "paddle_tpu/ops/paged_attention_pallas.py:253", attn_cases,
+              serve_res["launches"]["paged_attention"]),
+        entry("rms_norm", csrc + "rms_norm.cu",
+              "paddle_tpu/ops/fused_norm.py:84", rms_cases,
+              serve_res["launches"]["rms_norm"],
+              train_launches=tl["rms_norm"]),
+        entry("flash_fwd", csrc + "flash_attention.cu", flash + "488",
+              fwd_cases, tl["flash_fwd"]),
+        entry("flash_bwd_dq", csrc + "flash_attention.cu", flash + "628",
+              [c for n, c in bwd_cases if n == "flash_bwd_dq"],
+              tl["flash_bwd_dq"]),
+        entry("flash_bwd_dkv", csrc + "flash_attention.cu", flash + "646",
+              [c for n, c in bwd_cases if n == "flash_bwd_dkv"],
+              tl["flash_bwd_dkv"]),
+        entry("fused_adamw", csrc + "fused_adamw.cu",
+              "paddle_tpu/ops/fused_adamw.py:167", adamw_cases,
+              tl["fused_adamw"]),
     ]
-    # the run's serving, breakdown and end-to-end readings once more, so
-    # that they stand in the last lines of the output beside the kernels
+    # the run's serving, breakdown, end-to-end and training readings once
+    # more, so that they stand in the last lines of the output beside the
+    # kernels
     breakdown = serve_res.pop("breakdown")
     log("serve llama3-8b paged: " + json.dumps(serve_res))
     log("pass breakdown (host vs device): " + json.dumps(breakdown))
     log("end_to_end kernels vs plain vs fp32: " + json.dumps(e2e))
+    log("train llama3-8b (8 layers): " + json.dumps(train_res))
+    log("train end_to_end kernels vs plain vs fp32: " + json.dumps(train_e2e))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,14 +1,16 @@
-"""Llama for paged serving — port of ``paddle_tpu/models/llama.py`` (the
-serving subset: config, RoPE, RMSNorm, GQA attention with the paged decode
-and chunked-prefill paths, the fp SwiGLU MLP, and the causal-LM head).
+"""Llama — port of ``paddle_tpu/models/llama.py``: config, RoPE, RMSNorm,
+GQA attention, the fp SwiGLU MLP and the causal-LM head, with the dense
+causal training forward (``LlamaForCausalLM.forward(input_ids, labels)``:
+flash attention, the fused lm-head + CE loss) and the paged serving
+forwards (decode and chunked prefill).
 
 Parameters keep the JAX package's names and Paddle's ``Linear`` layout:
 every projection weight is ``(in, out)`` and a projection computes
 ``x @ weight`` (``torch.matmul``), so a JAX state dict carries over
 name-for-name and array-for-array (``models/convert.py``).
 
-Left out of this slice: dense and training forwards, dense KV caches,
-MoE, LoRA, int8 weights, ring/Ulysses attention.
+Left out so far: dense KV caches, MoE, LoRA, int8 weights, recompute,
+ring/Ulysses/context/sequence parallel attention.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import resolve_device
+from ..ops.flash_attention import flash_attention
+from ..ops.fused_ce import capped_chunk_size, fused_linear_cross_entropy
 from ..ops.fused_norm import fused_rms_norm
 from ..ops.paged_attention import (paged_decode_attention,
                                    paged_prefill_attention, write_chunk_kv,
@@ -117,6 +121,14 @@ def _apply_rope_rows(x, cos, sin, pos):
     return _rope_rotate(x, cos[p][:, None, None, :], sin[p][:, None, None, :])
 
 
+def _apply_rope_bhsd(x, cos, sin, pos_offset=0):
+    """x: (B, H, S, D), the kernels' head-major layout, at positions
+    ``pos_offset + arange(S)``."""
+    S = x.shape[2]
+    return _rope_rotate(x, cos[pos_offset:pos_offset + S][None, None],
+                        sin[pos_offset:pos_offset + S][None, None])
+
+
 def _apply_rope_chunk(x, cos, sin, start):
     """x: (B, C, H, D) at positions ``start + arange(C)``, edge-clamped to the
     table: a padded final chunk may overrun it, and the clamped rows are
@@ -186,6 +198,17 @@ class LlamaAttention(nn.Module):
                 self.k_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim),
                 self.v_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim))
 
+    def forward(self, x, cos, sin):
+        """Dense causal pass (training): heads go head-major BEFORE RoPE,
+        then flash attention, then back. x: (B, S, hidden)."""
+        B, S = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(x, B, S)
+        qh = _apply_rope_bhsd(q.transpose(1, 2), cos, sin)
+        kh = _apply_rope_bhsd(k.transpose(1, 2), cos, sin)
+        vh = v.transpose(1, 2)
+        out = flash_attention(qh, kh, vh, causal=True)
+        return self.o_proj(out.transpose(1, 2).reshape(B, S, -1))
+
     def paged_decode(self, x, cos, sin, pool, block_tables, pos):
         """Single-token decode against the paged pool: the new token's K/V
         scatter through the block table at ``pos`` (in place), then attention
@@ -239,6 +262,10 @@ class LlamaDecoderLayer(nn.Module):
             cfg.hidden_size, cfg.rms_norm_eps, cfg, device)
         self.mlp = LlamaMLP(cfg, device)
 
+    def forward(self, x, cos, sin):
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
     def paged_decode(self, x, cos, sin, pool, block_tables, pos):
         a, pool = self.self_attn.paged_decode(self.input_layernorm(x), cos,
                                               sin, pool, block_tables, pos)
@@ -266,6 +293,14 @@ class LlamaModel(nn.Module):
                                 cfg.rope_theta)
         self.register_buffer("_cos", cos.to(device), persistent=False)
         self.register_buffer("_sin", sin.to(device), persistent=False)
+
+    def forward(self, input_ids):
+        """Dense causal pass over (B, S) token ids from position 0;
+        returns the normed hidden states (B, S, hidden)."""
+        x = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            x = layer(x, self._cos, self._sin)
+        return self.norm(x)
 
     def paged_decode_step(self, token, pools, block_tables, pos):
         """Paged continuous-batching decode. token: int (B, 1); pools: list
@@ -300,12 +335,16 @@ def _check_supported(cfg: LlamaConfig) -> None:
         "context_parallel": (cfg.context_parallel, False),
         "sequence_parallel": (cfg.sequence_parallel, False),
         "ulysses_parallel": (cfg.ulysses_parallel, False),
+        "recompute": (cfg.recompute, False),
+        # attention always goes through flash_attention (its plain twin
+        # on the CPU or under set_kernel_mode("reference"))
+        "use_flash_attention": (cfg.use_flash_attention, True),
     }
     for name, (got, default) in unsupported.items():
         if got != default:
             raise NotImplementedError(
-                f"LlamaConfig.{name}={got!r} is not ported yet (this slice "
-                f"serves dense-MLP, single-device Llama)")
+                f"LlamaConfig.{name}={got!r} is not ported yet (the port "
+                f"runs dense-MLP, single-device Llama without recompute)")
     if cfg.hidden_size % cfg.num_attention_heads or \
             cfg.num_attention_heads % cfg.num_key_value_heads:
         raise ValueError("hidden_size must divide by num_attention_heads and "
@@ -313,14 +352,16 @@ def _check_supported(cfg: LlamaConfig) -> None:
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama causal LM for paged serving.
+    """Llama causal LM: the dense training forward and paged serving.
 
     ``device=None`` puts the model on the current CUDA device and raises if
     there is none; pass ``device="cpu"`` for the plain PyTorch path. Weights
     are initialised on that device from a ``torch.Generator`` seeded with
     ``seed`` — projections and embeddings N(0, 0.02), norms 1 — so a
     full-width model never has to exist in host memory. Load trained or JAX
-    weights with ``load_state_dict`` (see ``models/convert.py``)."""
+    weights with ``load_state_dict`` (see ``models/convert.py``).
+    Parameters are built with ``requires_grad=False`` (serving);
+    ``parallel.ParallelEngine`` turns gradients on for training."""
 
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -352,3 +393,32 @@ class LlamaForCausalLM(nn.Module):
         if self.cfg.tie_word_embeddings:
             return torch.matmul(h, self.model.embed_tokens.weight.t())
         return self.lm_head(h)
+
+    def forward(self, input_ids, labels=None):
+        """Dense causal pass. Without labels: logits (B, S, vocab) in the
+        model dtype. With labels and ``cfg.fused_lm_head_ce``: the fused
+        chunked lm-head + CE loss (mean over labels != -100); otherwise
+        :meth:`loss_fn` of the logits."""
+        h = self.model(input_ids)
+        if labels is not None and self.cfg.fused_lm_head_ce:
+            tied = self.cfg.tie_word_embeddings
+            w = self.model.embed_tokens.weight if tied else \
+                self.lm_head.weight
+            chunk = capped_chunk_size(self.cfg.ce_chunk_size,
+                                      input_ids.shape[1])
+            return fused_linear_cross_entropy(h, w, labels, chunk_size=chunk,
+                                              transpose_weight=tied)
+        logits = self.head(h)
+        if labels is None:
+            return logits
+        return self.loss_fn(logits, labels)
+
+    def loss_fn(self, logits, labels, ignore_index: int = -100):
+        """Mean next-token CE with an fp32 softmax over the labels that are
+        not ``ignore_index`` (the JAX package's ``F.cross_entropy``)."""
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        lbl = labels.long()
+        valid = lbl != ignore_index
+        nll = -logp.gather(-1, lbl.clamp(0, logits.shape[-1] - 1)[..., None])
+        nll = torch.where(valid, nll[..., 0], 0.0)
+        return nll.sum() / valid.sum().clamp_min(1).float()

@@ -46,6 +46,10 @@ def use_kernel(x) -> bool:
     return _KERNEL_MODE == "auto" and x.is_cuda
 
 
+from .flash_attention_cuda import (flash_bwd_dkv_cuda,  # noqa: E402
+                                   flash_bwd_dq_cuda, flash_fwd_cuda)
+from .fused_adamw import fused_adamw_cuda, fused_adamw_update  # noqa: E402
+from .fused_ce import fused_linear_cross_entropy  # noqa: E402
 from .fused_norm import fused_rms_norm, rms_norm_cuda  # noqa: E402
 from .paged_attention import (gather_block_kv,  # noqa: E402
                               paged_decode_attention,
@@ -56,7 +60,11 @@ from .paged_attention_cuda import paged_attention_cuda  # noqa: E402
 
 # every kernel wrapper of the port, by kernel name
 KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
-                   "paged_attention": paged_attention_cuda}
+                   "paged_attention": paged_attention_cuda,
+                   "flash_fwd": flash_fwd_cuda,
+                   "flash_bwd_dq": flash_bwd_dq_cuda,
+                   "flash_bwd_dkv": flash_bwd_dkv_cuda,
+                   "fused_adamw": fused_adamw_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -68,7 +76,10 @@ def launch_counts() -> dict:
     return {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
 
 
-__all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "fused_rms_norm",
+__all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "flash_bwd_dkv_cuda",
+           "flash_bwd_dq_cuda", "flash_fwd_cuda", "fused_adamw_cuda",
+           "fused_adamw_update", "fused_linear_cross_entropy",
+           "fused_rms_norm",
            "gather_block_kv", "kernel_mode", "launch_counts",
            "paged_attention_cuda", "paged_decode_attention",
            "paged_prefill_attention", "paged_verify_attention",

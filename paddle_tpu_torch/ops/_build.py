@@ -42,6 +42,19 @@ SIGNATURES = {
     # B, W, H, KV, D, N, bs, M, S, P, stream
     "pt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, lse, B, H, Hkv, Sq, Sk, causal, scale, stream
+    "pt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, do, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, scale, stream
+    "pt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, do, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal, scale,
+    # stream
+    "pt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _F, _P),
+    # p, g, m, v, master (or NULL), n, g_is_fp32, lr, inv_bc1, inv_bc2,
+    # b1, 1 - b1, b2, 1 - b2, eps, 1 - lr * decay, stream
+    "pt_fused_adamw": (_P, _P, _P, _P, _P, _I, _I,
+                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 _LOCK = threading.Lock()

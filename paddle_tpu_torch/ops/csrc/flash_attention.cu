@@ -1,0 +1,563 @@
+// Causal / GQA flash attention, forward and backward, for Hopper (sm_90a).
+//
+// Replaces: paddle_tpu/ops/flash_attention.py, the full-K loop kernels
+//   _fwd_kernel_loop      launched by _flash_fwd_bhsd_loop   (:488)
+//   _bwd_dq_kernel_loop   launched by _flash_bwd_bhsd_loop   (:628)
+//   _bwd_dkv_kernel_loop  launched by _flash_bwd_bhsd_loop   (:646)
+// Semantics, kept: q (B, H, Sq, D), k/v (B, Hkv, Sk, D), query head h reads
+// KV head h / (H / Hkv); causal masks align bottom-right (query i sees key j
+// iff j <= i + Sk - Sq). QK in fp32 times `scale`; running max from -1e30,
+// running sum and accumulator in fp32; p cast to bf16 before PV; O = acc /
+// max(l, 1e-30) in bf16, LSE = m + log(max(l, 1e-30)) in fp32. Backward:
+// P = exp(s - LSE), dS = P * (dO.V^T - delta) cast to bf16, dQ = scale *
+// dS.K, dV = P^T.dO, dK = scale * dS^T.Q, with delta = rowsum(dO * O)
+// computed outside. A masked key gets p = 0 exactly, so a row that sees no
+// key (causal with Sq > Sk) gets O = 0; every other row matches the TPU
+// kernel.
+//
+// Bound: operations. At the training shape (B = 2, H = 32, Hkv = 8, S =
+// 2048, D = 128, causal) the forward does 2 products of 2*S*S*D/2 flops
+// per head (~69 us at the H100 SXM's 989 TFLOP/s bf16 peak, data sheet,
+// 700 W) on 84 MB of q, k, v and O (~25 us at its 3.35 TB/s); dQ does 3
+// products, dK/dV 4. So the products must run on the tensor cores.
+//
+// Design. The TPU kernels run a sequential grid and keep whole K/V blocks
+// of up to 8192 rows resident in VMEM; on Hopper blocks run in parallel and
+// a block has at most 227 KB of shared memory, so:
+//   * forward and dQ: one block of 4 warps per (64-row query tile, head,
+//     batch); each warp owns 16 query rows, keeps its Q (and dO) fragments
+//     in registers, and loops over 64-key K/V tiles staged in shared memory
+//     up to the tile's causal frontier (the TPU kernel's early stop). GQA
+//     reads the shared KV head directly: nothing is repeated in memory.
+//     The causal tiles with the most keys are launched first.
+//   * dK/dV: one block per (64-key tile, KV head, batch); each warp owns 16
+//     keys; the block loops over the H/Hkv query heads of its group and over
+//     their 64-row Q/dO tiles from the causal lower bound, accumulating dK
+//     and dV of the whole group in fp32 registers and writing them once.
+//     The TPU kernel computes per query head and sums the [B, H, Sk, D]
+//     result afterwards (in bf16); here the group sum is exact in fp32 and
+//     rounded once, and the intermediate never exists.
+//   * every product is warp-level mma.sync m16n8k16 (bf16 in, fp32
+//     accumulate); the softmax probabilities and dS go from the fp32
+//     accumulator layout straight into the next product's A operand in
+//     registers. Shared-memory rows are padded by 16 bytes so that the
+//     fragment loads hit 32 different banks.
+//   * a ragged last tile (S not a multiple of 64) is loaded with zeros and
+//     masked; nothing needs a fallback.
+// Left for later: cp.async/TMA double buffering of the K/V (Q/dO) tiles and
+// wgmma; both loops wait on their shared-memory loads.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kD = 128;               // head dim (Llama-3-8B's); the only one
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;             // query rows / keys per tile
+constexpr int kStride = kD + 8;       // padded shared row, in bf16 elements
+constexpr int kTileElems = kTile * kStride;
+constexpr float kNegBig = -1e30f;     // running-max start, as the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pair(const bf16* lo, const bf16* hi) {
+  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
+         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+}
+
+// rows [row0, row0 + 64) of a (rows x 128) bf16 matrix into a padded shared
+// tile; rows at or past `limit` are zeros
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
+                                          int limit, int tid) {
+  constexpr int kChunks = kTile * kD / 8;  // 16-byte chunks
+#pragma unroll
+  for (int c = tid; c < kChunks; c += kThreads) {
+    const int r = c >> 4, col = (c & 15) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < limit)
+      val = *reinterpret_cast<const uint4*>(g + size_t(row0 + r) * kD + col);
+    *reinterpret_cast<uint4*>(s + r * kStride + col) = val;
+  }
+}
+
+// fragment lanes: g = lane / 4 (row group), t = lane % 4
+// A operand (16 x 16) of a row-major shared tile at (r0, c0)
+__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int r0,
+                                       int c0, int g, int t) {
+  const bf16* p = s + (r0 + g) * kStride + c0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * kStride);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * kStride + 8);
+}
+
+// B operand (16 x 8) whose transpose is the shared tile: B[k][n] = s[n0 + n]
+// [k0 + k] (keys or query rows of the tile are B's columns)
+__device__ __forceinline__ void frag_b_rows(uint32_t* b, const bf16* s,
+                                            int n0, int k0, int g, int t) {
+  const bf16* p = s + (n0 + g) * kStride + k0 + 2 * t;
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+
+// B operand (16 x 8) read straight from the shared tile: B[k][n] = s[k0 + k]
+// [n0 + n] (the tile's rows are the reduction dim)
+__device__ __forceinline__ void frag_b_cols(uint32_t* b, const bf16* s,
+                                            int k0, int n0, int g, int t) {
+  const bf16* p = s + (k0 + 2 * t) * kStride + n0 + g;
+  b[0] = pair(p, p + kStride);
+  b[1] = pair(p + 8 * kStride, p + 9 * kStride);
+}
+
+// A operand (16 x 16) from two fp32 accumulator tiles (16 x 8 each, columns
+// 0-7 and 8-15 of the A tile), rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0,
+                                         const float* c1) {
+  a[0] = pack(c0[0], c0[1]);
+  a[1] = pack(c0[2], c0[3]);
+  a[2] = pack(c1[0], c1[1]);
+  a[3] = pack(c1[2], c1[3]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// number of 64-key tiles the query rows [q0, q0 + 64) need
+__device__ __forceinline__ int key_tiles(int q0, int Sq, int Sk, int causal) {
+  int n = (Sk + kTile - 1) / kTile;
+  if (causal) {
+    const int last = min(q0 + kTile, Sq) - 1 + (Sk - Sq);  // last key seen
+    n = last < 0 ? 0 : min(n, last / kTile + 1);
+  }
+  return n;
+}
+
+__device__ __forceinline__ bool visible(int key, int row, int Sk, int offs,
+                                        int causal) {
+  return key < Sk && (!causal || key <= row + offs);
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                 int causal, float scale) {
+  __shared__ __align__(16) bf16 sK[kTileElems];
+  __shared__ __align__(16) bf16 sV[kTileElems];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const bf16* qb = q + size_t(b * H + h) * Sq * kD;
+  const bf16* kb = k + size_t(b * Hkv + hk) * Sk * kD;
+  const bf16* vb = v + size_t(b * Hkv + hk) * Sk * kD;
+  const int offs = Sk - Sq;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  load_tile(sK, qb, q0, Sq, tid);
+  __syncthreads();
+  uint32_t qf[kD / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < kD / 16; ++kc) frag_a(qf[kc], sK, warp * 16, kc * 16, g, t);
+  __syncthreads();
+
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int ntiles = key_tiles(q0, Sq, Sk, causal);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * kTile;
+    load_tile(sK, kb, k0, Sk, tid);
+    load_tile(sV, vb, k0, Sk, tid);
+    __syncthreads();
+    float s[kTile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kD / 16; ++kc) {
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+        uint32_t bf[2];
+        frag_b_rows(bf, sK, nt * 8, kc * 16, g, t);
+        mma(s[nt], qf[kc], bf);
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + 2 * t + (e & 1);
+        const float sv = visible(key, row[e >> 1], Sk, offs, causal)
+                             ? s[nt][e] * scale : -INFINITY;
+        s[nt][e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      alpha[i] = exp2f((m[i] - mx[i]) * kLog2e);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[nt][e] - m[e >> 1]) * kLog2e);  // 0 if masked
+        s[nt][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int nd = 0; nd < kD / 8; ++nd) {
+        uint32_t bf[2];
+        frag_b_cols(bf, sV, kc * 16, nd * 8, g, t);
+        mma(acc[nd], pa, bf);
+      }
+    }
+    __syncthreads();  // the next tile overwrites sK / sV
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float ls = fmaxf(quad_sum(l[i]), 1e-30f);
+    if (row[i] >= Sq) continue;
+    const float inv = 1.f / ls;
+    bf16* orow = o + (size_t(b * H + h) * Sq + row[i]) * kD;
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
+    }
+    if (t == 0) lse[size_t(b * H + h) * Sq + row[i]] = m[i] + logf(ls);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int H, int Hkv, int Sq, int Sk, int causal, float scale) {
+  __shared__ __align__(16) bf16 sK[kTileElems];
+  __shared__ __align__(16) bf16 sV[kTileElems];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const size_t bh = size_t(b * H + h);
+  const bf16* kb = k + size_t(b * Hkv + hk) * Sk * kD;
+  const bf16* vb = v + size_t(b * Hkv + hk) * Sk * kD;
+  const int offs = Sk - Sq;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse_r[i] = row[i] < Sq ? lse[bh * Sq + row[i]] : 0.f;
+    delta_r[i] = row[i] < Sq ? delta[bh * Sq + row[i]] : 0.f;
+  }
+
+  load_tile(sK, q + bh * Sq * kD, q0, Sq, tid);
+  load_tile(sV, dout + bh * Sq * kD, q0, Sq, tid);
+  __syncthreads();
+  uint32_t qf[kD / 16][4], dof[kD / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < kD / 16; ++kc) {
+    frag_a(qf[kc], sK, warp * 16, kc * 16, g, t);
+    frag_a(dof[kc], sV, warp * 16, kc * 16, g, t);
+  }
+  __syncthreads();
+
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int ntiles = key_tiles(q0, Sq, Sk, causal);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * kTile;
+    load_tile(sK, kb, k0, Sk, tid);
+    load_tile(sV, vb, k0, Sk, tid);
+    __syncthreads();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {   // 32 keys at a time
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kD / 16; ++kc) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t bf[2];
+          frag_b_rows(bf, sK, half * 32 + nt * 8, kc * 16, g, t);
+          mma(s[nt], qf[kc], bf);
+          frag_b_rows(bf, sV, half * 32 + nt * 8, kc * 16, g, t);
+          mma(dp[nt], dof[kc], bf);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + half * 32 + nt * 8 + 2 * t + (e & 1);
+          const int i = e >> 1;
+          const float p = visible(key, row[i], Sk, offs, causal)
+                              ? exp2f((s[nt][e] * scale - lse_r[i]) * kLog2e)
+                              : 0.f;
+          s[nt][e] = p * (dp[nt][e] - delta_r[i]);   // dS
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t da[4];
+        acc_to_a(da, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+        for (int nd = 0; nd < kD / 8; ++nd) {
+          uint32_t bf[2];
+          frag_b_cols(bf, sK, half * 32 + kc * 16, nd * 8, g, t);
+          mma(acc[nd], da, bf);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Sq) continue;
+    bf16* drow = dq + (bh * Sq + row[i]) * kD;
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(drow + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * i] * scale,
+                                acc[nd][2 * i + 1] * scale);
+    }
+  }
+}
+
+constexpr size_t kDkvSmem = 4 * kTileElems * sizeof(bf16) + 2 * kTile * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
+                     int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kTileElems;
+  bf16* sQ = sV + kTileElems;
+  bf16* sO = sQ + kTileElems;   // dO
+  float* sL = reinterpret_cast<float*>(sO + kTileElems);
+  float* sD = sL + kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kTile;
+  const int hk = blockIdx.y, b = blockIdx.z, rep = H / Hkv;
+  const size_t bhk = size_t(b * Hkv + hk);
+  const int offs = Sk - Sq;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+
+  load_tile(sK, k + bhk * Sk * kD, k0, Sk, tid);
+  load_tile(sV, v + bhk * Sk * kD, k0, Sk, tid);
+
+  float dka[kD / 8][4], dva[kD / 8][4];
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i) {
+    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+  }
+  // first query tile that sees key k0 (bottom-right aligned)
+  const int first = causal ? max(k0 - offs, 0) / kTile : 0;
+  const int nq = (Sq + kTile - 1) / kTile;
+  for (int r = 0; r < rep; ++r) {
+    const size_t bh = size_t(b * H + hk * rep + r);
+    for (int qt = first; qt < nq; ++qt) {
+      const int q0 = qt * kTile;
+      __syncthreads();  // the previous tile's readers are done
+      load_tile(sQ, q + bh * Sq * kD, q0, Sq, tid);
+      load_tile(sO, dout + bh * Sq * kD, q0, Sq, tid);
+      if (tid < kTile) {
+        const bool in = q0 + tid < Sq;
+        sL[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
+        sD[tid] = in ? delta[bh * Sq + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {   // 32 query rows at a time
+        float st[4][4], dpt[4][4];   // S^T, dP^T: 16 keys x 32 rows
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < kD / 16; ++kc) {
+          uint32_t ka[4], va[4];
+          frag_a(ka, sK, warp * 16, kc * 16, g, t);
+          frag_a(va, sV, warp * 16, kc * 16, g, t);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            uint32_t bf[2];
+            frag_b_rows(bf, sQ, half * 32 + nt * 8, kc * 16, g, t);
+            mma(st[nt], ka, bf);
+            frag_b_rows(bf, sO, half * 32 + nt * 8, kc * 16, g, t);
+            mma(dpt[nt], va, bf);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ql = half * 32 + nt * 8 + 2 * t + (e & 1);  // tile row
+            const int qrow = q0 + ql;
+            const float p =
+                qrow < Sq && visible(key[e >> 1], qrow, Sk, offs, causal)
+                    ? exp2f((st[nt][e] * scale - sL[ql]) * kLog2e)
+                    : 0.f;
+            st[nt][e] = p;
+            dpt[nt][e] = p * (dpt[nt][e] - sD[ql]);   // dS^T
+          }
+        }
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc) {
+          uint32_t pa[4], da[4];
+          acc_to_a(pa, st[2 * kc], st[2 * kc + 1]);
+          acc_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
+#pragma unroll
+          for (int nd = 0; nd < kD / 8; ++nd) {
+            uint32_t bf[2];
+            frag_b_cols(bf, sO, half * 32 + kc * 16, nd * 8, g, t);
+            mma(dva[nd], pa, bf);
+            frag_b_cols(bf, sQ, half * 32 + kc * 16, nd * 8, g, t);
+            mma(dka[nd], da, bf);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Sk) continue;
+    bf16* krow = dk + (bhk * Sk + key[i]) * kD;
+    bf16* vrow = dv + (bhk * Sk + key[i]) * kD;
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(dka[nd][2 * i] * scale,
+                                dka[nd][2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(dva[nd][2 * i], dva[nd][2 * i + 1]);
+    }
+  }
+}
+
+bool bad_shape(int B, int H, int Hkv, int Sq, int Sk) {
+  return B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || H % Hkv != 0 ||
+         B > 65535 || H > 65535;
+}
+
+}  // namespace
+
+// bfloat16 only, head_dim 128 only. q, dO, O, dQ: (B, H, Sq, 128); k, v,
+// dK, dV: (B, Hkv, Sk, 128); lse, delta: fp32 (B, H, Sq); all contiguous and
+// 16-byte aligned. Each returns cudaGetLastError() after its launch.
+extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int H, int Hkv, int Sq,
+                            int Sk, int causal, float scale, void* stream) {
+  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  flash_fwd_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Hkv, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int B, int H,
+                               int Hkv, int Sq, int Sk, int causal,
+                               float scale, void* stream) {
+  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  flash_bwd_dq_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv, int B,
+                                int H, int Hkv, int Sq, int Sk, int causal,
+                                float scale, void* stream) {
+  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kDkvSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  dim3 grid((Sk + kTile - 1) / kTile, Hkv, B);
+  flash_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem,
+                         reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, causal,
+      scale);
+  return (int)cudaGetLastError();
+}

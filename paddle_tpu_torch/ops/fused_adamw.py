@@ -1,0 +1,109 @@
+"""Fused Adam/AdamW parameter update — port of
+``paddle_tpu/ops/fused_adamw.py`` (``_reference_update`` and the one-pass
+kernel ``_make_kernel`` / ``_fused_call``).
+
+:func:`fused_adamw_update` updates one tensor's parameter, moments and
+optional fp32 master weight IN PLACE (the JAX function returns new arrays;
+updating in place saves a copy of the optimizer state) and returns the
+same tensors. On CUDA tensors it launches ``csrc/fused_adamw.cu`` — one
+elementwise pass that reads p, g, m, v (and the master) once and writes p,
+m, v (and the master) once — with the bias corrections 1/(1 - beta^step)
+computed on the host, as the TPU kernel's scalar block receives them. On
+CPU tensors, or under ``set_kernel_mode("reference")``, it runs
+:func:`_reference_update`. In the JAX package the kernel is opt-in
+(``PT_FUSED_ADAMW``) because XLA's fused elementwise update beat it on a
+TPU; on the card the alternative is about ten eager ops per tensor, so the
+port always uses the kernel on CUDA tensors. The update is the same
+either way, and there is no env knob.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _reference_update(param_f32, grad_f32, m, v, lr, b1, b2, eps, decay,
+                      step):
+    """The exact Adam(W) math both paths implement (the JAX package's
+    ``_reference_update``): decoupled decay on the master before the
+    moment update; ``decay=0`` is plain Adam; ``param_f32`` is the master
+    weight (or the upcast param). Returns (new_master, m2, v2)."""
+    master = param_f32 * (1.0 - lr * decay)
+    m2 = b1 * m + (1.0 - b1) * grad_f32
+    v2 = b2 * v + (1.0 - b2) * grad_f32 * grad_f32
+    mhat = m2 / (1.0 - b1 ** step)
+    vhat = v2 / (1.0 - b2 ** step)
+    new_master = master - lr * mhat / (torch.sqrt(vhat) + eps)
+    return new_master, m2, v2
+
+
+def fused_adamw_cuda(param, grad, m, v, master=None, *, lr, inv_bc1,
+                     inv_bc2, b1, b2, eps, decay):
+    """Launch the one-pass AdamW kernel: param (bfloat16), grad (bfloat16
+    or float32), m, v and master (float32), all contiguous, one shape, on
+    one CUDA device; updated in place. Raises on anything else."""
+    from . import _build
+
+    tensors = [param, grad, m, v] + ([master] if master is not None else [])
+    if not all(t.is_cuda for t in tensors) or \
+            len({t.device for t in tensors}) != 1:
+        raise ValueError("fused_adamw_cuda: all tensors must be on one CUDA "
+                         "device")
+    if any(t.shape != param.shape for t in tensors):
+        raise ValueError("fused_adamw_cuda: param, grad, moments and master "
+                         "must have one shape")
+    if param.dtype != torch.bfloat16 or grad.dtype not in (
+            torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_adamw_cuda: the kernel takes a bfloat16 "
+                        f"param and a bfloat16 or float32 grad, got "
+                        f"{param.dtype} and {grad.dtype}")
+    if any(t.dtype != torch.float32 for t in tensors[2:]):
+        raise TypeError("fused_adamw_cuda: moments and master must be "
+                        "float32")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError("fused_adamw_cuda: tensors must be contiguous and "
+                         "16-byte aligned (updated in place)")
+    n = param.numel()
+    if n == 0:
+        return
+    if n >= 2 ** 31:
+        raise ValueError(f"fused_adamw_cuda: {n} elements exceed int32")
+    lib = _build.library()
+    err = lib.pt_fused_adamw(
+        param.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
+        master.data_ptr() if master is not None else None, n,
+        int(grad.dtype == torch.float32), float(lr), float(inv_bc1),
+        float(inv_bc2), float(b1), float(1.0 - b1), float(b2),
+        float(1.0 - b2), float(eps), float(1.0 - lr * decay),
+        _build.stream_ptr(param.device))
+    _build.check(err, "fused_adamw")
+    fused_adamw_cuda.launches += 1
+
+
+fused_adamw_cuda.launches = 0
+
+
+@torch.no_grad()
+def fused_adamw_update(param, grad, m, v, *, lr, step, b1, b2, eps, decay,
+                       master=None):
+    """One Adam(W) step for one tensor, in place: ``param`` (and ``master``
+    when given, the fp32 weight the update is computed on), ``m`` and
+    ``v`` (fp32) are overwritten. ``grad`` is consumed in fp32 either way.
+    Returns ``(param, m, v, master)``."""
+    from . import use_kernel
+
+    if use_kernel(param):
+        fused_adamw_cuda(param, grad, m, v, master, lr=lr,
+                         inv_bc1=1.0 / (1.0 - b1 ** step),
+                         inv_bc2=1.0 / (1.0 - b2 ** step), b1=b1, b2=b2,
+                         eps=eps, decay=decay)
+        return param, m, v, master
+    pf = master if master is not None else param.float()
+    new_master, m2, v2 = _reference_update(pf, grad.float(), m, v, lr, b1,
+                                           b2, eps, decay, step)
+    param.copy_(new_master)
+    m.copy_(m2)
+    v.copy_(v2)
+    if master is not None:
+        master.copy_(new_master)
+    return param, m, v, master

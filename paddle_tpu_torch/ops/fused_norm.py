@@ -1,11 +1,14 @@
 """Fused RMSNorm — port of ``paddle_tpu/ops/fused_norm.py`` (``_rms_ref``,
-``_rms_kernel``/``_rms_pallas``, ``fused_rms_norm``).
+``_rms_kernel``/``_rms_pallas``, the custom-vjp ``fused_rms_norm``).
 
 ``fused_rms_norm(x, w, eps)`` computes ``x * rsqrt(mean(x²) + eps) * w`` over
-the last dim with fp32 math and the result cast back to ``x.dtype``. On a
-CUDA tensor it launches ``csrc/rms_norm.cu`` (one block per row); on a CPU
-tensor, or under ``set_kernel_mode("reference")``, it runs :func:`_rms_ref`.
-Serving only: no backward (the training slice adds one).
+the last dim with fp32 math and the result cast back to ``x.dtype``. It is
+a ``torch.autograd.Function``. Its forward launches ``csrc/rms_norm.cu`` on
+a CUDA tensor (one block per row) and runs :func:`_rms_ref` on a CPU
+tensor or under ``set_kernel_mode("reference")``. Its backward is the
+plain gradient of :func:`_rms_ref`, recomputed from the saved inputs, as
+the JAX package's ``_rms_bwd`` takes the vjp of its reference: the JAX
+package has no RMSNorm backward kernel, so the port has none either.
 """
 from __future__ import annotations
 
@@ -58,9 +61,27 @@ def rms_norm_cuda(x, w, eps):
 rms_norm_cuda.launches = 0
 
 
-def fused_rms_norm(x, w, eps=1e-6):
-    from . import use_kernel
+class _FusedRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        from . import use_kernel
 
-    if use_kernel(x):
-        return rms_norm_cuda(x, w, eps)
-    return _rms_ref(x, w, eps)
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        if use_kernel(x):
+            return rms_norm_cuda(x, w, eps)
+        return _rms_ref(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            wd = w.detach().requires_grad_()
+            y = _rms_ref(xd, wd, ctx.eps)
+        dx, dw = torch.autograd.grad(y, (xd, wd), g)
+        return dx, dw, None
+
+
+def fused_rms_norm(x, w, eps=1e-6):
+    return _FusedRMSNorm.apply(x, w, float(eps))

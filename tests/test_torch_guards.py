@@ -12,13 +12,20 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch import ops
 from paddle_tpu_torch.inference.serving import GenerationServer
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
+from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.parallel import ParallelEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
 PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.ops._build",
+                "paddle_tpu_torch.ops.flash_attention",
+                "paddle_tpu_torch.ops.flash_attention_cuda",
+                "paddle_tpu_torch.ops.fused_adamw",
+                "paddle_tpu_torch.ops.fused_ce",
                 "paddle_tpu_torch.ops.fused_norm",
                 "paddle_tpu_torch.ops.paged_attention",
                 "paddle_tpu_torch.ops.paged_attention_cuda",
@@ -29,7 +36,12 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.inference.paged_cache",
                 "paddle_tpu_torch.inference.scheduler",
                 "paddle_tpu_torch.inference.executor",
-                "paddle_tpu_torch.inference.serving"]
+                "paddle_tpu_torch.inference.serving",
+                "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.clip",
+                "paddle_tpu_torch.optimizer", "paddle_tpu_torch.optimizer.lr",
+                "paddle_tpu_torch.optimizer.optimizer",
+                "paddle_tpu_torch.parallel",
+                "paddle_tpu_torch.parallel.engine"]
 # torch sees no card in the child, whatever the machine has
 NO_CARD_ENV = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
@@ -90,6 +102,88 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                            block_size=4, prefill_chunk=8)
     rid = srv.submit([1, 2, 3], max_new_tokens=2)
     assert len(srv.run()[rid]) == 5
+
+
+def _tiny_model():
+    cfg = llama_tiny_config(num_hidden_layers=1, vocab_size=64,
+                            hidden_size=64, intermediate_size=128,
+                            num_attention_heads=4, num_key_value_heads=2)
+    return LlamaForCausalLM(cfg, device="cpu")
+
+
+def test_train_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """The engine trains where the model's parameters are: the model
+    defaults to the card (and raises without one); a model built on the
+    CPU trains there; parameters spread over devices raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ParallelEngine(LlamaForCausalLM(_tiny_model().cfg))
+    split = _tiny_model()
+    split.lm_head.weight = torch.nn.Parameter(
+        torch.empty_like(split.lm_head.weight, device="meta"))
+    with pytest.raises(ValueError, match="parameters are on"):
+        ParallelEngine(split, optimizer=AdamW(
+            parameters=split.named_parameters()))
+    model = _tiny_model()
+    opt = AdamW(parameters=model.named_parameters())
+    eng = ParallelEngine(model, optimizer=opt)
+    assert eng.device == torch.device("cpu")
+    ids = torch.randint(0, 64, (2, 8))
+    ops.reset_launch_counts()
+    loss = eng.train_batch(ids, ids)
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
+    # CPU tensors run the plain versions: no kernel launched
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+
+
+@pytest.mark.parametrize("kwargs", [dict(fsdp=True), dict(remat=True),
+                                    dict(offload_opt_state=True),
+                                    dict(injector=object()),
+                                    dict(telemetry=object()),
+                                    dict(mesh=type("Mesh", (), {"size": 2}))])
+def test_unported_engine_options_raise(kwargs):
+    model = _tiny_model()
+    with pytest.raises(NotImplementedError):
+        ParallelEngine(model, optimizer=AdamW(
+            parameters=model.named_parameters()), **kwargs)
+
+
+@pytest.mark.parametrize("field,value", [("moe_num_experts", 4),
+                                         ("lora_rank", 8),
+                                         ("context_parallel", True),
+                                         ("sequence_parallel", True),
+                                         ("ulysses_parallel", True),
+                                         ("recompute", True),
+                                         ("use_flash_attention", False)])
+def test_unported_model_options_raise(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1,
+                                           **{field: value}), device="cpu")
+
+
+def _cpu_args(name):
+    q = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16)
+    rows = torch.zeros(1, 2, 8)
+    p = torch.zeros(8, 128, dtype=torch.bfloat16)
+    f = torch.zeros(8, 128)
+    return {"flash_fwd": (q, k, k, True, 0.1),
+            "flash_bwd_dq": (q, k, k, q, rows, rows, True, 0.1),
+            "flash_bwd_dkv": (q, k, k, q, rows, rows, True, 0.1),
+            "fused_adamw": (p, p, f, f)}[name]
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv", "fused_adamw"])
+def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
+    wrapper = ops.KERNEL_WRAPPERS[name]
+    kw = {} if name != "fused_adamw" else dict(
+        lr=1e-3, inv_bc1=1.0, inv_bc2=1.0, b1=0.9, b2=0.999, eps=1e-8,
+        decay=0.0)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*_cpu_args(name), **kw)
+    assert wrapper.launches == before
 
 
 @pytest.mark.parametrize("kwargs", [dict(cache="dense"), dict(spec=object()),
