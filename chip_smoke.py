@@ -67,6 +67,38 @@ Phases (any failure exits non-zero before the final line):
    is shown to reject two planted faults of the plain path (causal mask
    one key off; bias correction stuck at step 1).
 
+Phases 9-12 run between phases 5 and 6, while the bf16 serving model is on
+the card:
+
+9. int8 and LoRA kernels against their plain PyTorch versions, bf16:
+   w8_matmul at M in {1, 8, 16} on every decode shape of Llama-3-8B (the
+   projections and the lm-head), per element within one bf16 step plus the
+   fp32 summation bound, shown to reject a lost K slice; int8-pool paged
+   attention in phase 3's decode and prefill forms (scratch poisoned with
+   full codes at a huge scale), per row, shown to reject the causal mask
+   one key off; the fused LoRA matmul per target shape at a decode batch
+   (adapters of ranks 8, 8, 4 in max_rank 8 plus null rows, which must
+   equal the kernel's output with every s = 0 bitwise) and a 128-token
+   prefill chunk, shown to reject the wrong adapter page. Times, bounds
+   and a library yardstick as in phase 3 (``torch.matmul`` on a bf16
+   weight; SDPA on the dequantized K/V; ``torch.matmul`` + the torch
+   ``bgmv``).
+10. LoRA serving: the phase-4 model and traffic behind
+   ``lora=LoRAConfig(registry, max_live_adapters=2, max_rank=8)`` with
+   three seeded adapters (ranks 8, 8, 4) on 8 of the 12 requests; checks
+   that every pass launched the fused LoRA kernel 7 x 32 times, that an
+   adapter upload followed an eviction, and that one prompt served under
+   a1, a2 and a2 again hits the prefix cache only on the third turn
+   (blocks keyed by adapter). Prints as phase 4.
+11. int8 serving: ``quantize_int8()`` in place, then the phase-4 traffic
+   with ``kv_quant="int8"``; checks that every decode tick launched
+   w8_matmul 7 x 32 + 1 times and the int8 attention 32 times, and that a
+   prefill chunk launched w8_matmul once (its lm-head row; its 128-row
+   projections dequantize). Prints as phase 4.
+12. End to end as phase 5, for the LoRA path (before phase 11) and for the
+   int8 path (the fp32 copy holds the same codes and scales), with phase
+   5's limits.
+
 Kernel times are device times from CUDA graphs of many calls (so the
 Python wrappers' host cost is left out); serving and training rates are
 host wall time around work that ends in a copy of its result to the host.
@@ -358,7 +390,13 @@ def kernel_paged_attention(torch, ops, pa, cfg):
 
 
 # --------------------------------------------------------------- phase 4
-def serve(torch, ops, model):
+def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
+          expect=None, **server_kw):
+    """Phase 4's traffic through ``GenerationServer(**server_kw)``;
+    ``adapters`` names each request's LoRA adapter (phase 10), ``expect``
+    maps (launches, passes, stats) to {kernel: wanted launches} (default:
+    the fp path's attention and norms). Returns (readings, longest prompt,
+    server)."""
     import numpy as np
 
     from paddle_tpu_torch.inference.serving import GenerationServer
@@ -366,7 +404,7 @@ def serve(torch, ops, model):
     cfg = model.cfg
     srv = GenerationServer(model, cache="paged", max_batch=MAX_BATCH,
                            block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
-                           max_len=MAX_LEN)
+                           max_len=MAX_LEN, **server_kw)
     check(srv._table_width == TABLE_WIDTH, "block-table width")
     # warm-up request (cuBLAS handles, allocator): not part of the run
     srv.submit(list(range(1, 40)), max_new_tokens=4)
@@ -377,12 +415,15 @@ def serve(torch, ops, model):
     lens = [100, 1000, 517, 256, 733, 129, 384, 960, 211, 640, 300, 871]
     news = rng.integers(32, 65, len(lens)).tolist()
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    adapters = adapters or [None] * len(lens)
     t_before = srv.throughput_stats()
+    ad_before = srv.adapter_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rids = [srv.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    rids = [srv.submit(p, max_new_tokens=m, adapter=a)
+            for p, m, a in zip(prompts, news, adapters)]
     out = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -400,12 +441,13 @@ def serve(torch, ops, model):
     L = cfg.num_hidden_layers
     # every decode tick and prefill chunk: one attention per layer, two
     # norms per layer plus the final norm
-    check(launches["paged_attention"] == L * passes,
-          f"paged_attention launches {launches['paged_attention']} != "
-          f"{L} x {passes} model passes")
-    check(launches["rms_norm"] == (2 * L + 1) * passes,
-          f"rms_norm launches {launches['rms_norm']} != {2 * L + 1} x "
-          f"{passes} model passes")
+    want = (expect or (lambda st: {"paged_attention": L * passes,
+                                   "rms_norm": (2 * L + 1) * passes}))(st)
+    for name, n in want.items():
+        check(launches[name] == n, f"{label}: {name} launches "
+                                   f"{launches[name]} != {n} ({passes} model "
+                                   f"passes: {st['decode_ticks']} ticks, "
+                                   f"{st['prefill_chunks']} chunks)")
     res = dict(requests=len(rids), wall_s=wall,
                prefill_tokens=st["prefill_tokens"],
                prefill_chunks=st["prefill_chunks"],
@@ -416,9 +458,13 @@ def serve(torch, ops, model):
                ms_per_decode_tick=st["decode_s"] / st["decode_ticks"] * 1e3,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                launches=launches)
-    log("serve llama3-8b paged: " + json.dumps(res))
+    if srv._lora is not None:
+        ad = srv.adapter_stats()
+        res["adapters"] = {k: ad[k] - ad_before.get(k, 0) for k in (
+            "adapter_hits", "adapter_uploads", "adapter_evictions")}
+    log(f"{label}: " + json.dumps(res))
     res["breakdown"] = pass_breakdown(torch, srv)
-    return res, max(prompts, key=len)
+    return res, max(prompts, key=len), srv
 
 
 def pass_breakdown(torch, srv):
@@ -427,8 +473,9 @@ def pass_breakdown(torch, srv):
     through the server's executor: eager wall time (host clock up to a
     synchronize), the host's enqueue time (the call's return, before the
     device is done), and the device time of the same work replayed from a
-    CUDA graph, with no host in the loop. Run after the served requests
-    have finished, on blocks of the server's pool."""
+    CUDA graph, with no host in the loop, and the device time of three
+    eager passes by kernel class (``torch.profiler``). Run after the served
+    requests have finished, on blocks of the server's pool."""
     import statistics
 
     ex = srv._exec
@@ -442,13 +489,22 @@ def pass_breakdown(torch, srv):
     pos = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     toks = torch.ones(B, dtype=torch.long, device="cuda")
     chunk = torch.ones(1, C, dtype=torch.long, device="cuda")
+    aidx = pages = None
+    if srv._lora is not None:
+        # rows on two adapters' pages and on the null page
+        names = srv._lora.registry.names()[:2]
+        pages = [srv._lora.acquire(n) for n in names]
+        aidx = torch.tensor([pages[b % 3] if b % 3 < 2 else 0
+                             for b in range(B)], dtype=torch.int32,
+                            device="cuda")
 
     def tick():
         return ex.decode_paged(toks, tables, pos, None, None, None,
-                               greedy=True, generator=None)
+                               greedy=True, generator=None, aidx=aidx)
 
     def prefill():
-        return ex.chunk_prefill(chunk, tables[0], start, C - 1)
+        return ex.chunk_prefill(chunk, tables[0], start, C - 1,
+                                None if aidx is None else aidx[:1])
 
     res = {}
     for name, fn in (("decode_tick", tick), ("prefill_chunk", prefill)):
@@ -464,20 +520,31 @@ def pass_breakdown(torch, srv):
             enq.append(t1 - t0)
         wall = statistics.median(walls) * 1e3
         device = time_ms(fn, iters=3)
+        # device time of 3 eager passes by kernel class (torch.profiler)
+        busy, _, classes, _ = _device_busy(torch, fn, 3)
         res[name] = dict(wall_ms=wall,
                          host_enqueue_ms=statistics.median(enq) * 1e3,
                          device_ms=device,
-                         device_idle_share=max(0.0, 1.0 - device / wall))
+                         device_idle_share=max(0.0, 1.0 - device / wall),
+                         device_ms_by_class={
+                             c: t / 3 * 1e3 for c, t in sorted(
+                                 classes.items(), key=lambda kv: -kv[1])})
+    for p in pages or ():
+        srv._lora.release(p)
     log("pass breakdown (host vs device): " + json.dumps(res))
     return res
 
 
 # --------------------------------------------------------------- phase 5
-def end_to_end(torch, ops, model, prompt):
+def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
+               lora=None):
     """First prefill chunk + 4 decode ticks of one request, run three times
     on fresh pools with the same tokens fed: bf16 with the kernels, bf16
     with the plain versions, and the plain versions on an fp32 copy of the
-    same weights (the yardstick for bf16 rounding)."""
+    same weights (the yardstick for bf16 rounding). ``kv_quant="int8"``:
+    int8 KV pools (for an int8 model the fp32 copy holds the same codes and
+    scales); ``lora``: (adapter pool, page) — the request runs on that
+    adapter page, the same factors in all three runs."""
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
 
     cfg = model.cfg
@@ -485,16 +552,29 @@ def end_to_end(torch, ops, model, prompt):
     nblk = (C + ticks) // bs + 2
     table = torch.arange(1, nblk + 1, dtype=torch.int32, device="cuda")
     shape = (nblk + 1, bs, cfg.num_key_value_heads, cfg.head_dim)
+    factors = None
+    if lora is not None:
+        factors = lora[0].layer_factors(
+            torch.tensor([lora[1]], dtype=torch.int32, device="cuda"))
+
+    def pools_for(dt):
+        if kv_quant == "int8":
+            sc = (nblk + 1, cfg.num_key_value_heads)
+            return [(torch.zeros(shape, dtype=torch.int8, device="cuda"),
+                     torch.zeros(sc, device="cuda"),
+                     torch.zeros(shape, dtype=torch.int8, device="cuda"),
+                     torch.zeros(sc, device="cuda"))
+                    for _ in range(cfg.num_hidden_layers)]
+        return [(torch.zeros(shape, dtype=dt, device="cuda"),
+                 torch.zeros(shape, dtype=dt, device="cuda"))
+                for _ in range(cfg.num_hidden_layers)]
 
     def run(m, mode, feed):
         ops.set_kernel_mode(mode)
-        dt = m.cfg.torch_dtype
-        pools = [(torch.zeros(shape, dtype=dt, device="cuda"),
-                  torch.zeros(shape, dtype=dt, device="cuda"))
-                 for _ in range(cfg.num_hidden_layers)]
+        pools = pools_for(m.cfg.torch_dtype)
         ids = torch.tensor([prompt[:C]], device="cuda")
         with torch.no_grad():
-            h, _ = m.model.paged_prefill_chunk(ids, pools, table, 0)
+            h, _ = m.model.paged_prefill_chunk(ids, pools, table, 0, factors)
             logits = [m.head(h[:, -1:])[:, 0].float()]
             toks = []
             for t in range(ticks):
@@ -502,7 +582,8 @@ def end_to_end(torch, ops, model, prompt):
                 toks.append(tok)
                 h, _ = m.model.paged_decode_step(
                     torch.tensor([[tok]], device="cuda"), pools, table[None],
-                    torch.tensor([C + t], dtype=torch.int32, device="cuda"))
+                    torch.tensor([C + t], dtype=torch.int32, device="cuda"),
+                    factors)
                 logits.append(m.head(h)[:, 0].float())
         ops.set_kernel_mode("auto")
         return torch.cat(logits), toks
@@ -514,8 +595,12 @@ def end_to_end(torch, ops, model, prompt):
     m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
                            device="cuda")
     with torch.no_grad():
-        for p32, p16 in zip(m32.parameters(), model.parameters()):
-            p32.copy_(p16)                  # exact widening of bf16
+        if model.quantized:             # the same codes and scales
+            m32.quantize_int8()
+            m32.load_state_dict(model.state_dict())
+        else:
+            for p32, p16 in zip(m32.parameters(), model.parameters()):
+                p32.copy_(p16)          # exact widening of bf16
     lf, _ = run(m32, "reference", toks)
     del m32
     torch.cuda.empty_cache()
@@ -546,15 +631,377 @@ def end_to_end(torch, ops, model, prompt):
     res["drift_ratio_rms"] = (res["kernels_bf16_vs_fp32_rms"]
                               / res["plain_bf16_vs_fp32_rms"])
     res["gap_fraction"] = res["rms_logit_diff"] / res["rms_logit"]
-    log("end_to_end kernels vs plain vs fp32: " + json.dumps(res))
+    log(f"{label} kernels vs plain vs fp32: " + json.dumps(res))
     for key in ("drift_ratio_max", "drift_ratio_rms"):
-        check(res[key] <= DRIFT_RATIO, f"end to end: the kernels drift from "
+        check(res[key] <= DRIFT_RATIO, f"{label}: the kernels drift from "
               f"fp32 {res[key]:.3g} x as far as the plain bf16 path "
               f"(limit {DRIFT_RATIO})")
     check(res["gap_fraction"] <= GAP_FRACTION,
-          f"end to end: kernels and plain versions differ by "
+          f"{label}: kernels and plain versions differ by "
           f"{res['gap_fraction']:.3g} of the rms logit (limit {GAP_FRACTION})")
     return res
+
+
+# --------------------------------------------------------------- phase 9
+# the decode shapes (K, N) of Llama-3-8B's projections and lm-head
+W8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+             (4096, 128256))
+# the phase-10 adapters: (name, rank, alpha) in a pool of max_rank 8
+LORA_ADAPTERS = (("a1", 8, 16.0), ("a2", 8, 8.0), ("a3", 4, 8.0))
+LORA_MAX_RANK, LORA_LIVE = 8, 2
+
+
+def _el_ratio(x, ref, mag, K):
+    """Per element |x - ref| against one bf16 step of ref (each side rounds
+    once) plus the fp32 summation-order bound K * 2^-24 of the summed
+    magnitudes ``mag``."""
+    tol = 2.0 ** -7 * ref.float().abs() + K * 2.0 ** -24 * mag
+    return (x.float() - ref.float()).abs() / tol
+
+
+def kernel_w8(torch, ops):
+    """w8_matmul against its plain twin at every decode shape, M in
+    {1, 8, 16}, with the tolerance shown to reject a lost K slice."""
+    from paddle_tpu_torch.ops import int8 as i8
+    from paddle_tpu_torch.ops.int8_cuda import w8_matmul_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for K, N in ((4096, 14336),) + tuple(sh for sh in W8_SHAPES
+                                        if sh != (4096, 14336)):
+        w = (0.02 * torch.randn(K, N, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        wq, sc = i8.quantize_per_channel(w)
+        # the prefill path's one-pass dequantize is the reference's
+        # (w_q * scale in fp32, rounded to bf16) bit for bit
+        check(torch.equal(i8.dequantize(wq, sc, torch.bfloat16),
+                          (wq.float() * sc).to(torch.bfloat16)),
+              f"dequantize {K}x{N}: not the fp32 product rounded to bf16")
+        for M in (8, 1, 16):
+            x = torch.randn(M, K, generator=g, device="cuda").to(
+                torch.bfloat16)
+            out = w8_matmul_cuda(x, wq, sc)
+            ref = i8._w8_plain(x, wq, sc)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"w8_matmul {M}x{K}x{N}: non-finite")
+            mag = (x.float().abs() @ wq.float().abs()) * sc
+            worst = _el_ratio(out, ref, mag, K).max().item()
+            check(worst <= 1.0, f"w8_matmul {M}x{K}x{N}: an element is off "
+                                f"by {worst:.3g} x its tolerance")
+            # planted fault: the plain twin without the last 128 rows of K
+            # (a K slice lost)
+            lost = i8._w8_plain(x[:, :-128], wq[:-128], sc)
+            fault = _el_ratio(lost, ref, mag, K).max().item()
+            check(fault > 1.0, f"w8_matmul {M}x{K}x{N}: the tolerance "
+                               f"passes a lost K slice ({fault:.3g})")
+            b, by = bound_ms(K * N + 4 * N + 2 * M * K + 2 * M * N,
+                             2 * M * K * N, BF16_FLOPS)
+            case = dict(M=M, K=K, N=N,
+                        max_abs_err=(out.float() - ref.float()).abs()
+                        .max().item(),
+                        worst_err_over_tol=worst, lost_slice_fault=fault,
+                        ms=time_ms(lambda: w8_matmul_cuda(x, wq, sc), 50,
+                                   flush),
+                        plain_ms=time_ms(lambda: i8._w8_plain(x, wq, sc), 5,
+                                         flush),
+                        bound_ms=b, bound_by=by,
+                        library_ms=time_ms(lambda: torch.matmul(x, w), 50,
+                                           flush))
+            log(f"kernel w8_matmul M={M} {K}x{N}: " + json.dumps(case))
+            cases.append(case)
+        del w, wq, sc, x, out, ref, mag, lost
+        torch.cuda.empty_cache()
+    return cases
+
+
+def kernel_paged_attention_int8(torch, ops, pa, cfg):
+    """The int8-pool attention kernel against its plain twin, decode and
+    prefill forms of phase 3, scratch block 0 poisoned with full codes at a
+    huge scale; the per-row tolerance is shown to reject the causal mask
+    one key off."""
+    from torch.nn import functional as F
+
+    from paddle_tpu_torch.ops.paged_attention_cuda import \
+        paged_attention_int8_cuda
+
+    H, KV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    bs = BLOCK_SIZE
+    g = torch.Generator(device="cuda").manual_seed(23)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    cases = []
+    forms = [("decode", 8, 1, [1000, 511, 512, 255, 37, 700, 128, 5]),
+             ("prefill", 1, 128, [384])]
+    for form, B, W, pos in forms:
+        q, kp, vp, tables, posv = _paged_case(torch, g, B, W, H, KV, D, bs,
+                                              pos, TABLE_WIDTH)
+        kq, ks = pa.quantize_block_kv(kp)
+        vq, vs = pa.quantize_block_kv(vp)
+        del kp, vp
+        kq[0], vq[0] = 127, -127
+        ks[0], vs[0] = 1e9, 1e9
+        args = (q, kq, ks, vq, vs, tables, posv)
+        out = paged_attention_int8_cuda(*args)
+        ops.set_kernel_mode("reference")
+        ref = pa.paged_verify_attention_q(*args)
+        ops.set_kernel_mode("auto")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()),
+              f"paged_attention_int8 {form}: non-finite (scratch leaked?)")
+        # the tolerance of phase 3, with V the dequantized values
+        rms_v = pa.dequantize_block_kv(vq[1:], vs[1:]).square().mean() \
+            .sqrt().item()
+        worst = _row_ratio(out, ref, rms_v).max().item()
+        check(worst <= 1.0, f"paged_attention_int8 {form}: a row is off by "
+                            f"{worst:.3g} x its tolerance")
+        kc, vc, ksc, vsc = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+        kc[0], vc[0], ksc[0], vsc[0] = kq[1], vq[1], ks[1], vs[1]
+        ck, cv = pa.gather_block_kv(kc, tables), pa.gather_block_kv(vc, tables)
+        ksl = pa.gather_block_scales(ksc, tables, bs)
+        vsl = pa.gather_block_scales(vsc, tables, bs)
+        qpos = posv.long()[:, None] + torch.arange(W, device="cuda")[None]
+        mutants = {}
+        for d in (1, -1):
+            r = _row_ratio(pa._attention_core(q, ck, cv, qpos + d, ksl, vsl),
+                           ref, rms_v)
+            mutants[f"mask{d:+d}"] = dict(
+                worst_err_over_tol=r.max().item(),
+                rows_failed=(r > 1.0).float().mean().item())
+            check(r.max().item() > 1.0, f"paged_attention_int8 {form}: the "
+                                        f"tolerance passes the mask{d:+d} "
+                                        f"fault")
+        ctx = [p + W for p in pos]
+        # q and out bf16; each visible K/V row once (int8) with its
+        # block's two scales
+        kv_bytes = sum(c * KV * D * 2 + -(-c // bs) * KV * 8 for c in ctx)
+        nbytes = 2 * q.numel() * 2 + kv_bytes + tables.numel() * 4 + B * 4
+        vis = sum(p + w + 1 for p in pos for w in range(W))
+        b, by = bound_ms(nbytes, 4 * D * H * vis, BF16_FLOPS)
+        # library yardstick: SDPA over the dequantized gathered K/V
+        dk = (ck.float() * ksl[..., None]).to(torch.bfloat16)
+        dv = (cv.float() * vsl[..., None]).to(torch.bfloat16)
+        dk = dk.repeat_interleave(H // KV, 2)
+        dv = dv.repeat_interleave(H // KV, 2)
+        qs, kss, vss = (t.transpose(1, 2).contiguous() for t in (q, dk, dv))
+        L = dk.shape[1]
+        mask = (torch.arange(L, device="cuda")[None, None, :]
+                <= qpos[:, :, None])[:, None]
+
+        def plain():
+            ops.set_kernel_mode("reference")
+            pa.paged_verify_attention_q(*args)
+            ops.set_kernel_mode("auto")
+
+        case = dict(form=form, B=B, W=W, H=H, KV=KV, D=D, block_size=bs,
+                    pos=pos, max_abs_err=(out.float() - ref.float()).abs()
+                    .max().item(),
+                    worst_err_over_tol=worst, mutants=mutants,
+                    ms=time_ms(lambda: paged_attention_int8_cuda(*args), 50,
+                               flush),
+                    plain_ms=time_ms(plain, 20, flush),
+                    bound_ms=b, bound_by=by,
+                    library_ms=time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qs, kss, vss, attn_mask=mask), 50, flush))
+        log(f"kernel paged_attention_int8 {form}: " + json.dumps(case))
+        cases.append(case)
+        del kc, vc, ck, cv, dk, dv, qs, kss, vss
+    return cases
+
+
+def kernel_fused_lora(torch, ops, cfg):
+    """The fused LoRA kernel against its plain twin per target shape, at a
+    decode batch (8 rows: adapters of ranks 8, 8 and 4 in max_rank 8 and
+    null rows, which must equal the same kernel's output with every s = 0
+    bitwise) and a prefill chunk (1 x 128 rows); the tolerance is shown to
+    reject the delta of the wrong adapter page."""
+    from paddle_tpu_torch.inference.lora import target_dims
+    from paddle_tpu_torch.nn import lora as tl
+    from paddle_tpu_torch.ops.fused_lora_cuda import fused_lora_matmul_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    R, L, layer = LORA_MAX_RANK, 2, 1
+    ranks = [r for _, r, _ in LORA_ADAPTERS]
+    scales = [a / r for _, r, a in LORA_ADAPTERS]
+    cases = []
+    dims = target_dims(cfg)
+    order = ["gate", "q", "k", "v", "o", "up", "down"]
+    for form, E, S, aidx in (("decode", MAX_BATCH, 1,
+                              [1, 2, 3, 0, 1, 0, 3, 2]),
+                             ("prefill", 1, PREFILL_CHUNK, [1])):
+        for t in order:
+            K, N = dims[t]
+            w = (0.02 * torch.randn(K, N, generator=g, device="cuda")).to(
+                torch.bfloat16)
+            x = torch.randn(E, S, K, generator=g, device="cuda").to(
+                torch.bfloat16)
+            A = torch.zeros(len(ranks) + 1, L, K, R, device="cuda")
+            Bf = torch.zeros(len(ranks) + 1, L, R, N, device="cuda")
+            for p, r in enumerate(ranks, start=1):
+                A[p, :, :, :r] = 0.02 * torch.randn(L, K, r, generator=g,
+                                                    device="cuda")
+                Bf[p, :, :r] = 0.02 * torch.randn(L, r, N, generator=g,
+                                                  device="cuda")
+            s = torch.tensor([0.0] + scales, device="cuda")
+            ai = torch.tensor(aidx, dtype=torch.int32, device="cuda")
+            pooled = tl.PooledFactors(A, Bf, s, layer, ai)
+            out = fused_lora_matmul_cuda(x, w, A, Bf, s, layer, ai)
+            ref = tl._lora_plain(x, w, *pooled.gather())
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"fused_lora {form} {t}: non-finite")
+            Ag, Bg, sg = pooled.gather()
+            xa = torch.bmm(x.float(), Ag).abs()
+            mag = (x.float().abs() @ w.float().abs()
+                   + torch.bmm(xa, Bg.abs()) * sg[:, None, None])
+            worst = _el_ratio(out, ref, mag, K).max().item()
+            check(worst <= 1.0, f"fused_lora {form} {t}: an element is off "
+                                f"by {worst:.3g} x its tolerance")
+            # planted fault: every entry reads the next entry's page
+            wrong = tl._lora_plain(x, w, *tl.PooledFactors(
+                A, Bf, s, layer, torch.roll(ai, 1) if E > 1 else ai + 1)
+                .gather())
+            fault = _el_ratio(wrong, ref, mag, K).max().item()
+            check(fault > 1.0, f"fused_lora {form} {t}: the tolerance passes "
+                               f"the wrong page ({fault:.3g})")
+            null = [e for e, p in enumerate(aidx) if p == 0]
+            if null:
+                zero = fused_lora_matmul_cuda(x, w, A, Bf, torch.zeros_like(s),
+                                              layer, ai)
+                check(torch.equal(out[null], zero[null]),
+                      f"fused_lora {form} {t}: null rows differ from the "
+                      f"kernel's output with s = 0")
+            used = sorted(set(aidx) - {0})
+            nbytes = (2 * x.numel() + 2 * K * N + 2 * E * S * N
+                      + len(used) * (K * R + R * N) * 4 + 4 * E)
+            flops = 2 * E * S * K * N + 2 * E * S * R * (K + N)
+            b, by = bound_ms(nbytes, flops, BF16_FLOPS)
+
+            def plain():
+                tl._lora_plain(x, w, *pooled.gather())
+
+            def library():
+                torch.matmul(x, w)
+                tl.bgmv(x, pooled)
+
+            case = dict(form=form, target=t, rows=E * S, K=K, N=N, rank=R,
+                        pages=aidx,
+                        max_abs_err=(out.float() - ref.float()).abs()
+                        .max().item(),
+                        worst_err_over_tol=worst, wrong_page_fault=fault,
+                        ms=time_ms(lambda: fused_lora_matmul_cuda(
+                            x, w, A, Bf, s, layer, ai), 50, flush),
+                        plain_ms=time_ms(plain, 5, flush),
+                        bound_ms=b, bound_by=by,
+                        library_ms=time_ms(library, 20, flush))
+            log(f"kernel fused_lora {form} {t}: " + json.dumps(case))
+            cases.append(case)
+            del w, x, A, Bf, out, ref, mag, wrong, xa
+        torch.cuda.empty_cache()
+    return cases
+
+
+# --------------------------------------------------------------- phase 10
+def lora_registry(cfg):
+    """The three adapters of phase 10, every target of every layer, factors
+    made from a seed with numpy (the registry's host tier)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.lora import (LORA_TARGETS,
+                                                 AdapterRegistry,
+                                                 target_dims)
+
+    reg = AdapterRegistry()
+    dims = target_dims(cfg)
+    for i, (name, rank, alpha) in enumerate(LORA_ADAPTERS):
+        rng = np.random.default_rng(100 + i)
+        w = {}
+        for layer in range(cfg.num_hidden_layers):
+            for t in LORA_TARGETS:
+                fi, fo = dims[t]
+                w[(layer, t)] = (
+                    rng.standard_normal((fi, rank), np.float32) * 0.02,
+                    rng.standard_normal((rank, fo), np.float32) * 0.02)
+        reg.register(name, w, rank=rank, alpha=alpha)
+    return reg
+
+
+def serve_lora(torch, ops, model):
+    """Phase 4's traffic behind ``lora=LoRAConfig(registry, max_live_adapters
+    =2, max_rank=8)``: 8 requests on three adapters, 4 without; then one
+    prompt of 2+ blocks under a1, then a2, then a2 again."""
+    from paddle_tpu_torch.inference.lora import LoRAConfig
+
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    reg = lora_registry(cfg)
+    log(f"lora: {len(reg)} adapters registered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    adapters = ["a1", "a2", None, "a3", "a1", None, "a2", "a3", None, "a1",
+                None, "a2"]
+
+    def expect(st):
+        passes = st["decode_ticks"] + st["prefill_chunks"]
+        return {"fused_lora_matmul": 7 * L * passes,
+                "paged_attention": L * passes,
+                "rms_norm": (2 * L + 1) * passes}
+
+    res, prompt, srv = serve(
+        torch, ops, model, label="serve llama3-8b paged lora",
+        adapters=adapters, expect=expect,
+        lora=LoRAConfig(reg, max_live_adapters=LORA_LIVE,
+                        max_rank=LORA_MAX_RANK))
+    check(res["adapters"]["adapter_evictions"] >= 1,
+          f"phase 10: no adapter upload followed an eviction "
+          f"({res['adapters']})")
+    # one new prompt of 3 full blocks (+5 tokens), in turn under a1, a2 and
+    # a2 again: the prefix cache keys blocks by adapter, so only the third
+    # hits
+    shared = prompt[::-1][:3 * BLOCK_SIZE + 5]
+    hits = []
+    for name in ("a1", "a2", "a2"):
+        before = srv.kv_stats()["prefix_hit_blocks"]
+        rid = srv.submit(shared, max_new_tokens=8, adapter=name)
+        check(len(srv.run()[rid]) == len(shared) + 8, "shared prompt length")
+        hits.append(srv.kv_stats()["prefix_hit_blocks"] - before)
+    res["shared_prompt_prefix_hits"] = hits
+    check(hits == [0, 0, 3], f"phase 10: prefix hits per turn {hits}, want "
+                             f"[0, 0, 3] (blocks keyed by adapter)")
+    log("serve lora shared prompt: " + json.dumps({"prefix_hits": hits}))
+    return res, prompt, srv
+
+
+# --------------------------------------------------------------- phase 11
+def serve_int8(torch, ops, model):
+    """``quantize_int8()`` in place, then phase 4's traffic with
+    ``kv_quant="int8"``: every decode tick streams the 7 x 32 projections
+    and the lm-head through w8_matmul and reads the int8 pool through the
+    int8 attention kernel; a prefill chunk's projections (128 rows)
+    dequantize, its lm-head row (1 row) streams."""
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model.quantize_int8()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"int8: quantized in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+
+    def expect(st):
+        passes = st["decode_ticks"] + st["prefill_chunks"]
+        return {"w8_matmul": (7 * L + 1) * st["decode_ticks"]
+                + st["prefill_chunks"],
+                "paged_attention_int8": L * passes, "paged_attention": 0,
+                "rms_norm": (2 * L + 1) * passes}
+
+    res, prompt, _ = serve(torch, ops, model,
+                           label="serve llama3-8b paged int8",
+                           expect=expect, kv_quant="int8")
+    return res, prompt
 
 
 # --------------------------------------------------------------- phase 6
@@ -919,7 +1366,9 @@ def kernel_adamw(torch, fw, ops):
 # kernel-name fragments of the port's own kernels, for the step breakdown
 OWN_KERNELS = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel":
                "flash_bwd_dq", "flash_bwd_dkv_kernel": "flash_bwd_dkv",
-               "adamw_kernel": "fused_adamw", "rms_norm_kernel": "rms_norm"}
+               "adamw_kernel": "fused_adamw", "rms_norm_kernel": "rms_norm",
+               "paged_attention_": "paged_attention", "w8_": "w8_matmul",
+               "lora_": "fused_lora_matmul"}
 
 
 def _kernel_class(name: str) -> str:
@@ -1274,8 +1723,23 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"model: llama3-8b {sum(p.numel() for p in model.parameters())} "
         f"params bf16, made on the card in {time.perf_counter() - t0:.1f} s")
-    serve_res, prompt = serve(torch, ops, model)
+    serve_res, prompt, _ = serve(torch, ops, model)
     e2e = end_to_end(torch, ops, model, prompt)
+
+    # phases 9-12, while the bf16 serving model is on the card
+    w8_cases = kernel_w8(torch, ops)
+    attn8_cases = kernel_paged_attention_int8(torch, ops, pa, cfg)
+    lora_cases = kernel_fused_lora(torch, ops, cfg)
+    lora_res, _, lora_srv = serve_lora(torch, ops, model)
+    e2e_lora = end_to_end(torch, ops, model, prompt, label="end_to_end lora",
+                          lora=(lora_srv._lora,
+                                lora_srv._lora.acquire("a1")))
+    del lora_srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_res, _ = serve_int8(torch, ops, model)
+    e2e_int8 = end_to_end(torch, ops, model, prompt, label="end_to_end int8",
+                          kv_quant="int8")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1317,14 +1781,25 @@ def main() -> int:
         entry("fused_adamw", csrc + "fused_adamw.cu",
               "paddle_tpu/ops/fused_adamw.py:167", adamw_cases,
               tl["fused_adamw"]),
+        entry("w8_matmul", csrc + "w8_matmul.cu", "paddle_tpu/ops/int8.py:80",
+              w8_cases, int8_res["launches"]["w8_matmul"]),
+        entry("paged_attention_int8", csrc + "paged_attention.cu",
+              "paddle_tpu/ops/paged_attention_pallas.py:253", attn8_cases,
+              int8_res["launches"]["paged_attention_int8"]),
+        entry("fused_lora_matmul", csrc + "fused_lora.cu",
+              "paddle_tpu/ops/paged_attention_pallas.py:343", lora_cases,
+              lora_res["launches"]["fused_lora_matmul"]),
     ]
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
-    breakdown = serve_res.pop("breakdown")
-    log("serve llama3-8b paged: " + json.dumps(serve_res))
-    log("pass breakdown (host vs device): " + json.dumps(breakdown))
-    log("end_to_end kernels vs plain vs fp32: " + json.dumps(e2e))
+    for label, res, e in (("serve llama3-8b paged", serve_res, e2e),
+                          ("serve llama3-8b paged lora", lora_res, e2e_lora),
+                          ("serve llama3-8b paged int8", int8_res, e2e_int8)):
+        breakdown = res.pop("breakdown")
+        log(f"{label}: " + json.dumps(res))
+        log("pass breakdown (host vs device): " + json.dumps(breakdown))
+        log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))
     log("train llama3-8b (8 layers): " + json.dumps(train_res))
     log("train end_to_end kernels vs plain vs fp32: " + json.dumps(train_e2e))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

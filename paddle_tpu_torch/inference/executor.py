@@ -4,9 +4,13 @@
 ``GenerationServer`` (serving.py) is the engine — request lifecycle,
 scheduling, slot bookkeeping and harvest, all host-side numpy state.
 :class:`PagedExecutor` owns what lives on the device: the per-layer K/V
-block pools and the two programs of a step, one decode tick
-(:meth:`decode_paged`, JAX ``_decode_paged_fn``) and one prefill chunk
-(:meth:`chunk_prefill`, JAX ``_chunk_prefill_fn``).
+block pools — ``(K, V)`` in the model dtype, or for ``kv_quant="int8"``
+``(K codes, K scales, V codes, V scales)`` with int8 codes and one f32
+scale per (block, KV head) — and the two programs of a step, one decode
+tick (:meth:`decode_paged`, JAX ``_decode_paged_fn``) and one prefill chunk
+(:meth:`chunk_prefill`, JAX ``_chunk_prefill_fn``). With LoRA, each program
+takes the slots' adapter page indices and hands every layer the adapter
+pool's factors at those pages (``AdapterPool.layer_factors``).
 
 Where the JAX executor jit-compiles each program and donates the pools,
 PyTorch runs eagerly and the model's paged methods write the pools in
@@ -31,24 +35,40 @@ class PagedExecutor:
     def __init__(self, engine, num_blocks: int):
         self.engine = engine
         cfg = engine.cfg
-        shape = (int(num_blocks), engine.block_size, cfg.num_key_value_heads,
-                 cfg.head_dim)
-        kw = dict(dtype=cfg.torch_dtype, device=engine.device)
-        self.pools: List[Tuple[torch.Tensor, torch.Tensor]] = [
-            (torch.zeros(shape, **kw), torch.zeros(shape, **kw))
-            for _ in range(cfg.num_hidden_layers)]
+        N, KV = int(num_blocks), cfg.num_key_value_heads
+        shape = (N, engine.block_size, KV, cfg.head_dim)
+        dev = engine.device
+        if engine.kv_quant == "int8":
+            def layer():
+                return tuple(torch.zeros(sh, dtype=dt, device=dev)
+                             for sh, dt in ((shape, torch.int8),
+                                            ((N, KV), torch.float32)) * 2)
+        else:
+            def layer():
+                return tuple(torch.zeros(shape, dtype=cfg.torch_dtype,
+                                         device=dev) for _ in range(2))
+        self.pools: List[Tuple[torch.Tensor, ...]] = [
+            layer() for _ in range(cfg.num_hidden_layers)]
+
+    def _lora(self, aidx):
+        """Per-layer adapter factors at the page indices ``aidx`` (None
+        without LoRA)."""
+        pool = self.engine._lora
+        return None if pool is None else pool.layer_factors(aidx)
 
     @torch.no_grad()
     def decode_paged(self, tokens, tables, pos, temps, topks, topps,
-                     greedy: bool, generator):
+                     greedy: bool, generator, aidx=None):
         """One decode tick for every slot: tokens int (B,), tables int32
         (B, table_width) with zeroed rows for idle/prefilling slots, pos
-        int32 (B,). ``greedy`` promises every active row has temperature 0
-        (sampling reduces to an argmax and ``temps``/``topks``/``topps``/
-        ``generator`` go unread). Returns the next tokens, int32 (1, B)."""
+        int32 (B,), ``aidx`` int32 (B,) the slots' adapter pages (LoRA
+        only; 0 = no adapter). ``greedy`` promises every active row has
+        temperature 0 (sampling reduces to an argmax and ``temps``/
+        ``topks``/``topps``/``generator`` go unread). Returns the next
+        tokens, int32 (1, B)."""
         model = self.engine.model
         h, _ = model.model.paged_decode_step(tokens[:, None], self.pools,
-                                             tables, pos)
+                                             tables, pos, self._lora(aidx))
         lg = model.head(h)[:, 0].float()                 # (B, V)
         if greedy:
             nxt = torch.argmax(lg, dim=-1).to(torch.int32)
@@ -57,13 +77,15 @@ class PagedExecutor:
         return nxt[None]
 
     @torch.no_grad()
-    def chunk_prefill(self, chunk, table, start: int, last_idx: int):
+    def chunk_prefill(self, chunk, table, start: int, last_idx: int,
+                      aidx=None):
         """One prefill chunk: chunk int (1, C) right-padded; its K/V fill the
-        slot's table from block-aligned ``start``. Returns fp32 logits
-        (1, V) at local index ``last_idx`` (the last real prompt token on the
-        final chunk; unused on earlier chunks)."""
+        slot's table from block-aligned ``start``; ``aidx`` int32 (1,) the
+        slot's adapter page (LoRA only). Returns fp32 logits (1, V) at local
+        index ``last_idx`` (the last real prompt token on the final chunk;
+        unused on earlier chunks)."""
         model = self.engine.model
         h, _ = model.model.paged_prefill_chunk(chunk, self.pools, table,
-                                               start)
+                                               start, self._lora(aidx))
         last = h[:, last_idx:last_idx + 1]
         return model.head(last)[:, 0].float()

@@ -2,7 +2,7 @@
 
 Host-only Python, copied from ``paddle_tpu/inference/paged_cache.py`` (the
 port imports nothing from the JAX package) and trimmed to what the port's
-paged server uses: swap, pinning, warm-tier and fault-injection
+paged server and adapter pool use: swap, warm-tier and fault-injection
 bookkeeping are left out with the features that drive them.
 
 - **free list**: block id 0 is the reserved SCRATCH block — never
@@ -19,23 +19,28 @@ bookkeeping are left out with the features that drive them.
 - **last-token rule**: matching is capped at ``(n-1)//bs`` blocks so the
   final prompt token is always recomputed — its logits give the first
   generated token.
+- **pinning**: a pinned block (live or cached) is never evicted; the
+  adapter pool pins hot adapter pages through it.
+- **chain seed**: the pool format (``kv_quant``) seeds every chain, as in
+  the JAX package, so int8 and fp blocks never alias. The port adds an
+  optional per-request ``salt`` to the seed: the server passes the request's
+  LoRA adapter identity, because with adapters on the K/V projections a
+  block's contents depend on the adapter, not only on its tokens (the JAX
+  server hashes tokens only and shares such blocks across adapters).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Set
 
 SCRATCH_BLOCK = 0
-# the JAX allocator seeds its hash chain with the pool format; the port's
-# pools are fp, so its chains equal the JAX package's fp chains
-_CHAIN_SEED = ("kv_quant", "none")
 
 
 class BlockAllocator:
     """Refcounted fixed-size KV block allocator with prefix caching."""
 
     def __init__(self, num_blocks: int, block_size: int,
-                 bytes_per_block: int = 0):
+                 kv_quant: str = "none", bytes_per_block: int = 0):
         if num_blocks < 2:
             raise ValueError(f"num_blocks must be >= 2 (one scratch + one "
                              f"usable), got {num_blocks}")
@@ -43,6 +48,7 @@ class BlockAllocator:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.kv_quant = kv_quant
         self.bytes_per_block = int(bytes_per_block)
         # LIFO free list over ids 1..N-1 (0 = scratch)
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
@@ -50,6 +56,7 @@ class BlockAllocator:
         self._hash_of: Dict[int, int] = {}   # bid -> chain hash
         self._by_hash: Dict[int, int] = {}   # chain hash -> bid
         self._lru: "OrderedDict[int, None]" = OrderedDict()  # cached, ref==0
+        self._pinned: Set[int] = set()       # never evicted (live or cached)
         self.peak_in_use = 0
         self.fresh_allocs = 0
         self.prefix_hit_blocks = 0
@@ -71,9 +78,13 @@ class BlockAllocator:
         return len(self._free)
 
     @property
+    def pinned_blocks(self) -> int:
+        return len(self._pinned)
+
+    @property
     def evictable_cached(self) -> int:
-        """Cached blocks eviction may reclaim (all of them: nothing pins)."""
-        return len(self._lru)
+        """Cached blocks eviction may actually reclaim (unpinned)."""
+        return sum(1 for bid in self._lru if bid not in self._pinned)
 
     def stats(self) -> Dict[str, int]:
         looked = self.prefix_lookup_blocks
@@ -89,8 +100,10 @@ class BlockAllocator:
                 "prefix_hit_rate":
                     (self.prefix_hit_blocks / looked) if looked else 0.0,
                 "evictions": self.evictions,
+                "kv_quant": self.kv_quant,
                 "bytes_per_block": self.bytes_per_block,
-                "bytes_in_use": self.bytes_per_block * self.blocks_in_use}
+                "bytes_in_use": self.bytes_per_block * self.blocks_in_use,
+                "pinned_blocks": self.pinned_blocks}
 
     def _note_use(self):
         self.peak_in_use = max(self.peak_in_use, self.blocks_in_use)
@@ -98,19 +111,20 @@ class BlockAllocator:
     # ------------------------------------------------------------ allocation
     def alloc(self) -> int:
         """Hand out one private block (ref=1, no hash). Prefers the free
-        list; falls back to evicting the coldest cached prefix block."""
+        list; falls back to evicting the coldest unpinned cached block."""
         if self._free:
             bid = self._free.pop()
-        elif self._lru:
-            bid, _ = self._lru.popitem(last=False)
+        else:
+            bid = next((c for c in self._lru if c not in self._pinned), None)
+            if bid is None:
+                raise RuntimeError(
+                    f"paged KV pool exhausted: all {self.num_blocks - 1} "
+                    f"usable blocks are referenced by live requests or "
+                    f"pinned — raise num_blocks or lower max_batch/max_len")
+            del self._lru[bid]
             h = self._hash_of.pop(bid)
             self._by_hash.pop(h, None)
             self.evictions += 1
-        else:
-            raise RuntimeError(
-                f"paged KV pool exhausted: all {self.num_blocks - 1} usable "
-                f"blocks are referenced by live requests — raise num_blocks "
-                f"or lower max_batch/max_len")
         self._ref[bid] = 1
         self.fresh_allocs += 1
         self._note_use()
@@ -143,23 +157,45 @@ class BlockAllocator:
         else:
             self._free.append(bid)
 
+    # --------------------------------------------------------------- pinning
+    def pin(self, bid: int) -> None:
+        """Freeze a live or cached block against eviction; refcounts are
+        untouched. Idempotent."""
+        if bid not in self._ref and bid not in self._lru:
+            raise KeyError(f"block {bid} is neither live nor cached")
+        self._pinned.add(bid)
+
+    def unpin(self, bid: int) -> None:
+        """Release a pin (idempotent; unknown ids are a no-op)."""
+        self._pinned.discard(bid)
+
+    def touch(self, bid: int) -> None:
+        """Make a CACHED block the most recently used, so eviction reaches
+        it last; live or unknown blocks are a no-op."""
+        if bid in self._lru:
+            self._lru.move_to_end(bid)
+
     # --------------------------------------------------------- prefix caching
-    def chain_hashes(self, tokens: Sequence[int]) -> List[int]:
-        """Chained content hash per FULL block of ``tokens``."""
+    def chain_hashes(self, tokens: Sequence[int],
+                     salt: tuple = ()) -> List[int]:
+        """Chained content hash per FULL block of ``tokens``, seeded with the
+        pool format (and ``salt``, when given). With no salt the chain equals
+        the JAX allocator's."""
         bs = self.block_size
         out: List[int] = []
-        h = hash(_CHAIN_SEED)
+        h = hash(("kv_quant", self.kv_quant, *salt))
         for i in range(len(tokens) // bs):
             h = hash((h, tuple(tokens[i * bs:(i + 1) * bs])))
             out.append(h)
         return out
 
-    def match_prefix(self, tokens: Sequence[int]) -> List[int]:
+    def match_prefix(self, tokens: Sequence[int],
+                     salt: tuple = ()) -> List[int]:
         """Longest cached prefix of ``tokens`` as a list of block ids — each
         returned block is re-ref'd for the caller. Capped at ``(n-1)//bs``
         blocks (last-token rule)."""
         limit = max((len(tokens) - 1) // self.block_size, 0)
-        hashes = self.chain_hashes(tokens)[:limit]
+        hashes = self.chain_hashes(tokens, salt)[:limit]
         out: List[int] = []
         for h in hashes:
             bid = self._by_hash.get(h)
@@ -171,13 +207,13 @@ class BlockAllocator:
         self.prefix_hit_blocks += len(out)
         return out
 
-    def probe_prefix(self, tokens: Sequence[int]) -> int:
+    def probe_prefix(self, tokens: Sequence[int], salt: tuple = ()) -> int:
         """Read-only: how many leading full prompt blocks of ``tokens`` are
         resident, capped like :meth:`match_prefix`. Takes no references and
         touches no counter or LRU order."""
         limit = max((len(tokens) - 1) // self.block_size, 0)
         hits = 0
-        for h in self.chain_hashes(tokens)[:limit]:
+        for h in self.chain_hashes(tokens, salt)[:limit]:
             if h not in self._by_hash:
                 break
             hits += 1

@@ -3,7 +3,8 @@
 
 Host-only: the queue never touches the device. Priorities, deadlines,
 weighted fair queuing, admission control and preemption requeue are not
-ported yet.
+ported yet; :meth:`Scheduler.adapter_demand` ranks waiting LoRA adapters
+in FIFO order.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ class SchedEntry:
 
     req: Any
     rid: int
+    adapter: Optional[str] = None
 
 
 class Scheduler:
@@ -27,8 +29,9 @@ class Scheduler:
     def __init__(self):
         self._q: List[SchedEntry] = []
 
-    def submit(self, req: Any, rid: int) -> SchedEntry:
-        ent = SchedEntry(req=req, rid=rid)
+    def submit(self, req: Any, rid: int,
+               adapter: Optional[str] = None) -> SchedEntry:
+        ent = SchedEntry(req=req, rid=rid, adapter=adapter)
         self._q.append(ent)
         return ent
 
@@ -37,6 +40,19 @@ class Scheduler:
 
     def pop(self) -> Optional[SchedEntry]:
         return self._q.pop(0) if self._q else None
+
+    def adapter_demand(self) -> List[str]:
+        """Distinct adapter names the queue wants, in pop order — replayed
+        through ``AdapterPool.warm`` so the adapters of the next requests
+        evict last."""
+        out: List[str] = []
+        seen = set()
+        for ent in self._q:
+            a = ent.adapter
+            if a is not None and a not in seen:
+                seen.add(a)
+                out.append(a)
+        return out
 
     def __len__(self) -> int:
         return len(self._q)

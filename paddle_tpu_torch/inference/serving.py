@@ -12,15 +12,25 @@ refcount-shared, so a repeated prefix prefills once (prefix caching).
 Greedy outputs are token-identical to the JAX server's on the same weights
 (up to floating-point ties).
 
+``kv_quant="int8"`` stores the KV pool as int8 codes with one f32 scale per
+(block, KV head): half the bytes of bf16, so a ``pool_bytes=`` budget holds
+about twice the blocks. ``lora=LoRAConfig(...)`` serves many LoRA adapters
+over one base model: a request names its adapter at ``submit(...,
+adapter=)``, its slot holds a page of the adapter pool (inference/lora.py)
+while it runs, and every projection adds the slot's adapter delta. Unlike
+the JAX server, the prefix cache keys a request's blocks by its adapter
+too: with adapters on the K/V projections a block's contents depend on the
+adapter, and the JAX server, which hashes tokens only, shares blocks
+across adapters (a fault of the reference).
+
 Not ported yet (their constructor arguments raise ``NotImplementedError``
 when given a non-default value): the dense cache, ``tick_window > 1``,
-speculative decoding, the int8 KV pool, LoRA, KV tiers and swap
-preemption, priority/WFQ scheduling, telemetry, fault injection, tensor/
-context parallelism, snapshots, replica roles and a per-server kernel mode
-(``kernels``; the mode is process-wide, set by
-``paddle_tpu_torch.ops.set_kernel_mode``). With the default
-``num_blocks`` the pool never runs dry; a smaller pool that does raises
-instead of preempting.
+speculative decoding, KV tiers and swap preemption, priority/WFQ
+scheduling, telemetry, fault injection, tensor/context parallelism,
+snapshots, replica roles and a per-server kernel mode (``kernels``; the
+mode is process-wide, set by ``paddle_tpu_torch.ops.set_kernel_mode``).
+With the default ``num_blocks`` the pool never runs dry; a smaller pool
+that does raises instead of preempting.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch
 from .. import resolve_device
 from ..models.generation import next_token
 from .executor import PagedExecutor
+from .lora import AdapterPool
 from .paged_cache import BlockAllocator
 from .scheduler import Scheduler
 
@@ -41,13 +52,26 @@ from .scheduler import Scheduler
 # serves; any other value raises NotImplementedError
 _UNPORTED_DEFAULTS = {
     "tick_window": 1, "prompt_buckets": (32, 64, 128), "spec": None,
-    "kv_quant": "none",
-    "pool_bytes": None, "host_pool_bytes": None, "warm_pool_bytes": None,
-    "tier_demote_low": None, "tier_demote_high": None, "lora": None,
+    "host_pool_bytes": None, "warm_pool_bytes": None,
+    "tier_demote_low": None, "tier_demote_high": None,
     "telemetry": None, "faults": None, "fault_retries": 3,
     "mk_geometry": None, "mesh": None, "role": "any", "profile": None,
     "clock": None, "kernels": "auto",
 }
+
+def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
+    """Device bytes one KV block costs across ALL layers (K + V pools, plus
+    the f32 scale rows of the int8 pool) — the unit of ``pool_bytes=``
+    sizing."""
+    kv = cfg.num_key_value_heads
+    d = cfg.hidden_size // cfg.num_attention_heads
+    if kv_quant == "int8":
+        # int8 codes + one f32 scale per (block, KV head)
+        per_pool = block_size * kv * d * 1 + kv * 4
+    else:
+        itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
+        per_pool = block_size * kv * d * itemsize
+    return 2 * cfg.num_hidden_layers * per_pool
 
 
 @dataclass
@@ -58,8 +82,10 @@ class _Request:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 0.0
+    adapter: Optional[str] = None                    # LoRA adapter name
     generated: List[int] = field(default_factory=list)
     sched: Any = None                                # its SchedEntry
+    salt: tuple = ()                                 # prefix-chain seed
     table: List[int] = field(default_factory=list)   # block ids, in order
     hashes: List[int] = field(default_factory=list)  # chain hash per full blk
     pf_next: int = 0                                 # next prefill position
@@ -80,18 +106,23 @@ class GenerationServer:
     ``device``: where the server runs — ``None`` means the current CUDA
     device (raises when there is none); it must be the model's device.
     ``block_size`` tokens per KV block; ``num_blocks`` bounds KV memory
-    (default: every slot can hold ``max_len`` tokens, plus scratch);
-    prompts prefill in ``prefill_chunk``-token chunks (rounded up to a block
-    multiple). Kernel dispatch follows the process-wide
-    :func:`paddle_tpu_torch.ops.set_kernel_mode`. ``seed`` seeds the
-    ``torch.Generator`` of sampled requests."""
+    (default: every slot can hold ``max_len`` tokens, plus scratch), or
+    ``pool_bytes`` sizes the pool by a byte budget (``num_blocks =
+    pool_bytes // kv_block_bytes(...)``); ``kv_quant``: ``"none"`` or
+    ``"int8"`` (int8 codes + per-(block, KV head) scales); ``lora``: a
+    :class:`~.lora.LoRAConfig` for multi-adapter serving (fp base weights
+    only, as in the JAX package). Prompts prefill in ``prefill_chunk``-token
+    chunks (rounded up to a block multiple). Kernel dispatch follows the
+    process-wide :func:`paddle_tpu_torch.ops.set_kernel_mode`. ``seed``
+    seeds the ``torch.Generator`` of sampled requests."""
 
     def __init__(self, model, max_batch: int = 4, max_len: int = 256,
                  eos_token_id: Optional[int] = None, seed: int = 0,
                  cache: str = "paged",
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 32, policy=None, device=None,
-                 **unported):
+                 kv_quant: str = "none", pool_bytes: Optional[int] = None,
+                 lora=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED_DEFAULTS:
                 raise TypeError(f"GenerationServer got an unexpected keyword "
@@ -105,6 +136,17 @@ class GenerationServer:
         if policy not in (None, "fifo"):
             raise NotImplementedError(
                 f"policy={policy!r}: only FIFO scheduling is ported")
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(
+                f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
+        if pool_bytes is not None and num_blocks is not None:
+            raise ValueError(
+                "pass either num_blocks= or pool_bytes=, not both")
+        if lora is not None and model.quantized:
+            raise NotImplementedError(
+                "lora= over weight-only int8 projections is not supported "
+                "(as in the JAX package) — serve LoRA over fp base weights "
+                "(kv_quant='int8' is fine)")
         cfg = model.cfg
         if max_len > cfg.max_position_embeddings:
             raise ValueError(f"max_len {max_len} exceeds the model's "
@@ -116,6 +158,7 @@ class GenerationServer:
                              f"on {self.device}: move one of them")
         self.model = model
         self.cfg = cfg
+        self.kv_quant = kv_quant
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos = eos_token_id
@@ -146,14 +189,22 @@ class GenerationServer:
         # slack entries (always 0 = scratch) so a final chunk's table slice
         # never runs off the row
         self._table_width = entries + self.prefill_chunk // bs
+        per_block = kv_block_bytes(cfg, bs, kv_quant)
         if num_blocks is None:
-            num_blocks = max_batch * entries + 1  # every slot at max_len
-        kv_bytes = (2 * cfg.num_hidden_layers * bs * cfg.num_key_value_heads
-                    * cfg.head_dim * torch.empty((), dtype=cfg.torch_dtype)
-                    .element_size())
-        self.alloc = BlockAllocator(int(num_blocks), bs,
-                                    bytes_per_block=kv_bytes)
+            if pool_bytes is not None:
+                # byte-budget sizing: the int8 pool's half-size blocks give
+                # about twice the blocks of the same budget
+                num_blocks = max(2, int(pool_bytes) // per_block)
+            else:
+                num_blocks = max_batch * entries + 1  # every slot at max_len
+        self.alloc = BlockAllocator(int(num_blocks), bs, kv_quant=kv_quant,
+                                    bytes_per_block=per_block)
         self._bt = np.zeros((max_batch, self._table_width), np.int32)
+        # per-slot adapter page in the LoRA pool; 0 = the all-zero NULL
+        # page, so adapterless slots need no branching
+        self.aidx = np.zeros((max_batch,), np.int32)
+        self._lora = (AdapterPool(cfg, lora, device=self.device)
+                      if lora is not None else None)
         # True while the slot streams prompt chunks; None once it decodes
         # (or is empty)
         self._prefilling: List[Optional[bool]] = [None] * max_batch
@@ -171,8 +222,11 @@ class GenerationServer:
     # --------------------------------------------------------------- requests
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 0.0) -> int:
-        """Queue one request; returns its rid."""
+               top_p: float = 0.0, adapter: Optional[str] = None) -> int:
+        """Queue one request; returns its rid. ``adapter`` names a
+        registered LoRA adapter (requires ``lora=``); an unknown name, a
+        rank past the pool's ``max_rank`` or mis-shaped factors are
+        rejected here, not at admission."""
         prompt = list(prompt)
         if not prompt:
             raise ValueError("prompt must contain at least one token id")
@@ -197,6 +251,12 @@ class GenerationServer:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         if not 0.0 <= top_p <= 1.0:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        if adapter is not None:
+            if self._lora is None:
+                raise ValueError(
+                    "adapter= requires a server built with "
+                    "lora=LoRAConfig(...)")
+            self._lora.validate(adapter)
         # feasibility gate: a request whose worst-case block need exceeds
         # the pool could never finish
         worst = len(prompt) + max_new_tokens
@@ -210,9 +270,17 @@ class GenerationServer:
         self._next_rid += 1
         req = _Request(rid, prompt, int(max_new_tokens),
                        temperature=float(temperature), top_k=int(top_k),
-                       top_p=float(top_p))
-        req.sched = self._sched.submit(req, rid)
+                       top_p=float(top_p), adapter=adapter)
+        req.sched = self._sched.submit(req, rid, adapter=adapter)
         return rid
+
+    def _salt(self, adapter: Optional[str]) -> tuple:
+        """Prefix-chain seed of a request: its adapter's name and
+        registration uid (a re-registered name gets new blocks), or nothing
+        for an adapterless request, whose chains equal the JAX server's."""
+        if adapter is None:
+            return ()
+        return ("adapter", adapter, self._lora.registry.get(adapter).uid)
 
     def _first_token(self, req: _Request, lg) -> int:
         """First generated token from the final chunk's logits (1, V): a host
@@ -236,6 +304,11 @@ class GenerationServer:
         """Admit waiting requests into free slots in FIFO order, gated on
         block headroom, with no head-of-line bypass (a draining pool always
         reopens headroom)."""
+        if self._lora is not None:
+            # replay the queue's adapter demand through the pool's LRU: the
+            # adapters of the next requests become most recently used and
+            # evict last
+            self._lora.warm(self._sched.adapter_demand())
         for s in range(self.max_batch):
             if self._slots[s] is not None:
                 continue
@@ -246,10 +319,15 @@ class GenerationServer:
             self._admit_paged(s, ent.req)
 
     def _admit_paged(self, slot: int, req: _Request) -> None:
-        """Claim a slot: reuse cached prefix blocks (the matched span skips
-        prefill) and start chunked prefill at the first uncached block."""
-        req.table = self.alloc.match_prefix(req.prompt)
-        req.hashes = self.alloc.chain_hashes(req.prompt)
+        """Claim a slot: take the request's adapter page (an upload on a
+        miss), reuse cached prefix blocks (the matched span skips prefill)
+        and start chunked prefill at the first uncached block."""
+        if self._lora is not None:
+            self.aidx[slot] = (self._lora.acquire(req.adapter)
+                               if req.adapter is not None else 0)
+        req.salt = self._salt(req.adapter)
+        req.table = self.alloc.match_prefix(req.prompt, req.salt)
+        req.hashes = self.alloc.chain_hashes(req.prompt, req.salt)
         req.pf_next = len(req.table) * self.block_size
         self._bt[slot, :] = 0
         self._bt[slot, :len(req.table)] = req.table
@@ -259,9 +337,15 @@ class GenerationServer:
     def _admissible(self, ent) -> bool:
         """Headroom gate: the request's whole prompt (less its resident
         prefix blocks) plus one spare block must be reclaimable now."""
+        adapter = ent.req.adapter
+        if adapter is not None and not self._lora.can_acquire(adapter):
+            # every adapter page is held by a running slot: wait for one
+            # to finish
+            return False
         prompt = ent.req.prompt
         need = min(self._max_entries, -(-len(prompt) // self.block_size))
-        need = max(need - self.alloc.probe_prefix(prompt), 1)
+        need = max(need - self.alloc.probe_prefix(prompt,
+                                                  self._salt(adapter)), 1)
         headroom = min(need + 1, self.alloc.num_blocks - 1)
         return (self.alloc.blocks_free
                 + self.alloc.evictable_cached) >= headroom
@@ -298,10 +382,12 @@ class GenerationServer:
         chunk[0, :end - start] = seq[start:end]
         last_idx = (n - 1 - start) if end == n else 0
         w0 = time.perf_counter()
+        aidx = (torch.from_numpy(self.aidx[slot:slot + 1]).to(self.device)
+                if self._lora is not None else None)
         lg = self._exec.chunk_prefill(
             torch.from_numpy(chunk).to(self.device),
             torch.from_numpy(self._bt[slot]).to(self.device), start,
-            last_idx)
+            last_idx, aidx)
         first = self._first_token(req, lg) if end == n else None
         if first is None:
             lg.cpu()    # the host copy closes the timed span on the device
@@ -336,10 +422,12 @@ class GenerationServer:
             samp = (torch.from_numpy(self.temps).to(dev),
                     torch.from_numpy(self.topks).to(dev),
                     torch.from_numpy(self.topps).to(dev))
+        aidx = (torch.from_numpy(self.aidx).to(dev)
+                if self._lora is not None else None)
         stack = self._exec.decode_paged(
             torch.from_numpy(self.tokens.astype(np.int64)).to(dev),
             torch.from_numpy(bt).to(dev), torch.from_numpy(posv).to(dev),
-            *samp, greedy=greedy, generator=self._gen)
+            *samp, greedy=greedy, generator=self._gen, aidx=aidx)
         nxt = stack.cpu().numpy()
         self._decode_wall_s += time.perf_counter() - w0
         self._decode_ticks += 1
@@ -379,6 +467,10 @@ class GenerationServer:
         for bid in req.table:
             self.alloc.free(bid)
         req.table = []
+        if self._lora is not None:
+            # the page stays cached (LRU) for the adapter's next request
+            self._lora.release(int(self.aidx[slot]))
+            self.aidx[slot] = 0
         self._bt[slot, :] = 0
         self._prefilling[slot] = None
         self.pos[slot] = 0
@@ -423,6 +515,10 @@ class GenerationServer:
     def kv_stats(self) -> Dict[str, int]:
         """Paged-pool occupancy and prefix-cache counters."""
         return self.alloc.stats()
+
+    def adapter_stats(self) -> Dict[str, Any]:
+        """Adapter-pool residency counters (empty without ``lora=``)."""
+        return self._lora.stats() if self._lora is not None else {}
 
     def throughput_stats(self) -> Dict[str, float]:
         """Prompt tokens and decode ticks served so far with their host wall

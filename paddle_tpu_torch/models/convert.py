@@ -3,7 +3,10 @@
 The port keeps Paddle's ``Linear`` layout — every projection weight is
 ``(in, out)`` and the port computes ``x @ weight`` — so the conversion is a
 name-for-name, array-for-array copy with no transpose. Parameter names are
-the JAX model's (``paddle_tpu.jit.state_values(model)``).
+the JAX model's (``paddle_tpu.jit.state_values(model)``). A JAX model after
+``quantize_int8()`` carries each projection as ``…weight_q`` (int8) and
+``…weight_scale`` (f32): those load into a port model after its own
+``quantize_int8()``, codes and scales unchanged.
 """
 from __future__ import annotations
 
@@ -15,9 +18,16 @@ import torch
 from .llama import LlamaConfig
 
 
-def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
+_PROJECTIONS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+                "mlp.down_proj")
+
+
+def param_shapes(cfg: LlamaConfig, int8: bool = False) -> Dict[str, tuple]:
     """Name → shape of every parameter of ``LlamaForCausalLM(cfg)``, in the
-    JAX package's naming and layout."""
+    JAX package's naming and layout; with ``int8``, of the model after
+    ``quantize_int8()`` (every projection and an untied lm-head as
+    ``weight_q`` (in, out) + ``weight_scale`` (out,))."""
     h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     hq = cfg.num_attention_heads * cfg.head_dim
     hkv = cfg.num_key_value_heads * cfg.head_dim
@@ -38,6 +48,14 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
     out["model.norm.weight"] = (h,)
     if not cfg.tie_word_embeddings:
         out["lm_head.weight"] = (h, v)
+    if int8:
+        for name in [n for n in out if n.endswith(".weight")
+                     and (n.startswith("lm_head")
+                          or any(p in n for p in _PROJECTIONS))]:
+            shape = out.pop(name)
+            base = name[:-len("weight")]
+            out[base + "weight_q"] = shape
+            out[base + "weight_scale"] = (shape[1],)
     return out
 
 
@@ -45,9 +63,12 @@ def params_from_jax(state: Dict[str, np.ndarray],
                     cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """Turn the JAX model's named parameters (``state_values(model)``
     converted to numpy) into a state dict for the port's
-    ``LlamaForCausalLM.load_state_dict``, in ``cfg.dtype``. Raises on a
-    missing, unexpected or mis-shaped parameter."""
-    want = param_shapes(cfg)
+    ``LlamaForCausalLM.load_state_dict``: floating parameters in
+    ``cfg.dtype``; an int8-quantized state keeps its int8 codes and f32
+    scales (load it into a port model after ``quantize_int8()``). Raises
+    on a missing, unexpected or mis-shaped parameter."""
+    int8 = any(n.endswith(".weight_q") for n in state)
+    want = param_shapes(cfg, int8=int8)
     missing = sorted(set(want) - set(state))
     extra = sorted(set(state) - set(want))
     if missing or extra:
@@ -59,7 +80,14 @@ def params_from_jax(state: Dict[str, np.ndarray],
         if tuple(arr.shape) != shape:
             raise ValueError(f"params_from_jax: {name} has shape "
                              f"{tuple(arr.shape)}, want {shape}")
+        if name.endswith(".weight_q"):
+            if arr.dtype != np.int8:
+                raise ValueError(f"params_from_jax: {name} is {arr.dtype}, "
+                                 f"want int8 codes")
+            out[name] = torch.from_numpy(arr.copy())
+            continue
         # numpy has no bfloat16: widen (exactly) and narrow in torch
         t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
-        out[name] = t.to(cfg.torch_dtype)
+        out[name] = t if name.endswith(".weight_scale") else \
+            t.to(cfg.torch_dtype)
     return out

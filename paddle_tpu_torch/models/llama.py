@@ -2,14 +2,17 @@
 GQA attention, the fp SwiGLU MLP and the causal-LM head, with the dense
 causal training forward (``LlamaForCausalLM.forward(input_ids, labels)``:
 flash attention, the fused lm-head + CE loss) and the paged serving
-forwards (decode and chunked prefill).
+forwards (decode and chunked prefill) over an fp or an int8 KV pool, with
+weight-only int8 projections (:meth:`LlamaForCausalLM.quantize_int8`) or
+per-row LoRA adapters read from the adapter pool (``lora=``).
 
 Parameters keep the JAX package's names and Paddle's ``Linear`` layout:
 every projection weight is ``(in, out)`` and a projection computes
 ``x @ weight`` (``torch.matmul``), so a JAX state dict carries over
 name-for-name and array-for-array (``models/convert.py``).
 
-Left out so far: dense KV caches, MoE, LoRA, int8 weights, recompute,
+Left out so far: dense KV caches, MoE, training-side LoRA (``lora_rank``),
+the fused int8 q/k/v weight (``PT_W8_FUSED_QKV``), recompute,
 ring/Ulysses/context/sequence parallel attention.
 """
 from __future__ import annotations
@@ -22,12 +25,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import resolve_device
+from ..nn.lora import lora_matmul
+from ..nn.quant import Int8Linear
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_ce import capped_chunk_size, fused_linear_cross_entropy
 from ..ops.fused_norm import fused_rms_norm
 from ..ops.paged_attention import (paged_decode_attention,
-                                   paged_prefill_attention, write_chunk_kv,
-                                   write_decode_kv)
+                                   paged_decode_attention_q,
+                                   paged_prefill_attention,
+                                   paged_prefill_attention_q, write_chunk_kv,
+                                   write_chunk_kv_q, write_decode_kv,
+                                   write_decode_kv_q)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -181,6 +189,17 @@ class LlamaRMSNorm(nn.Module):
         return fused_rms_norm(x, self.weight, self._eps)
 
 
+def _no_int8_lora(*projections) -> None:
+    """The JAX package serves LoRA over fp base weights only
+    (``models/llama.py:710-715``): int8 projections with adapter deltas
+    raise there, and here."""
+    if any(isinstance(p, Int8Linear) for p in projections):
+        raise NotImplementedError(
+            "pooled LoRA deltas on weight-only int8 projections are not "
+            "supported — serve LoRA over fp base weights (int8 KV quant is "
+            "fine)")
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
@@ -193,10 +212,27 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(h, self.num_kv_heads * d, cfg, device)
         self.o_proj = Linear(self.num_heads * d, h, cfg, device)
 
-    def _qkv(self, x, B, S):
-        return (self.q_proj(x).reshape(B, S, self.num_heads, self.head_dim),
-                self.k_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim),
-                self.v_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim))
+    def _qkv(self, x, B, S, lora=None):
+        """q/k/v projections; ``lora``: this layer's {target: factors} —
+        each base projection and its per-row delta run as one
+        ``lora_matmul``."""
+        if lora is not None:
+            _no_int8_lora(self.q_proj, self.k_proj, self.v_proj)
+            q = lora_matmul(x, self.q_proj.weight, lora.get("q"))
+            k = lora_matmul(x, self.k_proj.weight, lora.get("k"))
+            v = lora_matmul(x, self.v_proj.weight, lora.get("v"))
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        return (q.reshape(B, S, self.num_heads, self.head_dim),
+                k.reshape(B, S, self.num_kv_heads, self.head_dim),
+                v.reshape(B, S, self.num_kv_heads, self.head_dim))
+
+    def _o_lora(self, out, lora):
+        """Output projection plus this layer's "o" delta, fused."""
+        if lora is not None:
+            _no_int8_lora(self.o_proj)
+            return lora_matmul(out, self.o_proj.weight, lora.get("o"))
+        return self.o_proj(out)
 
     def forward(self, x, cos, sin):
         """Dense causal pass (training): heads go head-major BEFORE RoPE,
@@ -209,35 +245,46 @@ class LlamaAttention(nn.Module):
         out = flash_attention(qh, kh, vh, causal=True)
         return self.o_proj(out.transpose(1, 2).reshape(B, S, -1))
 
-    def paged_decode(self, x, cos, sin, pool, block_tables, pos):
+    def paged_decode(self, x, cos, sin, pool, block_tables, pos,
+                     lora=None):
         """Single-token decode against the paged pool: the new token's K/V
         scatter through the block table at ``pos`` (in place), then attention
         reads the context by table. x: (B, 1, hidden); pool: ``(kp, vp)``
-        (num_blocks, bs, KV, D); block_tables: int32 (B, M); pos: int32 (B,).
+        (num_blocks, bs, KV, D) fp pools, or ``(kq, ks, vq, vs)`` int8 codes
+        with (num_blocks, KV) f32 scales; block_tables: int32 (B, M); pos:
+        int32 (B,); ``lora``: this layer's adapter factors (or None).
         Returns (output, pool)."""
         B = x.shape[0]
-        q, k, v = self._qkv(x, B, 1)
+        q, k, v = self._qkv(x, B, 1, lora)
         qr = _apply_rope_rows(q, cos, sin, pos)
         kr = _apply_rope_rows(k, cos, sin, pos)
-        kp, vp = pool
-        write_decode_kv(kp, vp, kr[:, 0], v[:, 0], block_tables, pos)
-        out = paged_decode_attention(qr, kp, vp, block_tables, pos)
-        return self.o_proj(out.reshape(B, 1, -1)), pool
+        if len(pool) == 4:
+            write_decode_kv_q(*pool, kr[:, 0], v[:, 0], block_tables, pos)
+            out = paged_decode_attention_q(qr, *pool, block_tables, pos)
+        else:
+            write_decode_kv(*pool, kr[:, 0], v[:, 0], block_tables, pos)
+            out = paged_decode_attention(qr, *pool, block_tables, pos)
+        return self._o_lora(out.reshape(B, 1, -1), lora), pool
 
-    def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start):
+    def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start,
+                            lora=None):
         """One fixed-size prefill CHUNK: queries at ``start + arange(C)``
         (block-aligned ``start``, C a multiple of the block size); their K/V
         fill consecutive table entries (in place) and attention runs over
-        all paged context written so far. x: (1, C, hidden); block_table:
-        int32 (M,). Returns (output, pool)."""
+        all paged context written so far. x: (1, C, hidden); ``pool`` and
+        ``lora`` as in :meth:`paged_decode`; block_table: int32 (M,).
+        Returns (output, pool)."""
         B, S = x.shape[0], x.shape[1]
-        q, k, v = self._qkv(x, B, S)
+        q, k, v = self._qkv(x, B, S, lora)
         qr = _apply_rope_chunk(q, cos, sin, start)
         kr = _apply_rope_chunk(k, cos, sin, start)
-        kp, vp = pool
-        write_chunk_kv(kp, vp, kr[0], v[0], block_table, start)
-        out = paged_prefill_attention(qr, kp, vp, block_table, start)
-        return self.o_proj(out.reshape(B, S, -1)), pool
+        if len(pool) == 4:
+            write_chunk_kv_q(*pool, kr[0], v[0], block_table, start)
+            out = paged_prefill_attention_q(qr, *pool, block_table, start)
+        else:
+            write_chunk_kv(*pool, kr[0], v[0], block_table, start)
+            out = paged_prefill_attention(qr, *pool, block_table, start)
+        return self._o_lora(out.reshape(B, S, -1), lora), pool
 
 
 class LlamaMLP(nn.Module):
@@ -248,7 +295,17 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(h, f, cfg, device)
         self.down_proj = Linear(f, h, cfg, device)
 
-    def forward(self, x):
+    def forward(self, x, lora=None):
+        """SwiGLU. ``lora``: this layer's adapter factors — each projection
+        and its per-row delta run as one ``lora_matmul``. Int8 projections
+        (``Int8Linear``) run their own ``w8_matmul``."""
+        if lora is not None and any(t in lora for t in ("gate", "up",
+                                                         "down")):
+            _no_int8_lora(self.gate_proj, self.up_proj, self.down_proj)
+            g = lora_matmul(x, self.gate_proj.weight, lora.get("gate"))
+            u = lora_matmul(x, self.up_proj.weight, lora.get("up"))
+            return lora_matmul(F.silu(g) * u, self.down_proj.weight,
+                               lora.get("down"))
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
@@ -266,17 +323,20 @@ class LlamaDecoderLayer(nn.Module):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin)
         return h + self.mlp(self.post_attention_layernorm(h))
 
-    def paged_decode(self, x, cos, sin, pool, block_tables, pos):
+    def paged_decode(self, x, cos, sin, pool, block_tables, pos,
+                     lora=None):
         a, pool = self.self_attn.paged_decode(self.input_layernorm(x), cos,
-                                              sin, pool, block_tables, pos)
+                                              sin, pool, block_tables, pos,
+                                              lora)
         h = x + a
-        return h + self.mlp(self.post_attention_layernorm(h)), pool
+        return h + self.mlp(self.post_attention_layernorm(h), lora), pool
 
-    def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start):
+    def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start,
+                            lora=None):
         a, pool = self.self_attn.paged_prefill_chunk(
-            self.input_layernorm(x), cos, sin, pool, block_table, start)
+            self.input_layernorm(x), cos, sin, pool, block_table, start, lora)
         h = x + a
-        return h + self.mlp(self.post_attention_layernorm(h)), pool
+        return h + self.mlp(self.post_attention_layernorm(h), lora), pool
 
 
 class LlamaModel(nn.Module):
@@ -302,28 +362,34 @@ class LlamaModel(nn.Module):
             x = layer(x, self._cos, self._sin)
         return self.norm(x)
 
-    def paged_decode_step(self, token, pools, block_tables, pos):
+    def paged_decode_step(self, token, pools, block_tables, pos, lora=None):
         """Paged continuous-batching decode. token: int (B, 1); pools: list
-        of per-layer ``(kp, vp)`` (updated in place); block_tables: int32
-        (B, M); pos: int32 (B,). Returns (normed hidden (B, 1, hidden),
-        pools)."""
+        of per-layer ``(kp, vp)`` or ``(kq, ks, vq, vs)`` (updated in
+        place); block_tables: int32 (B, M); pos: int32 (B,); ``lora``: None
+        or a per-layer list of {target: factors}
+        (``inference.lora.AdapterPool.layer_factors``). Returns (normed
+        hidden (B, 1, hidden), pools)."""
         x = self.embed_tokens(token)
         new = []
-        for layer, pool in zip(self.layers, pools):
+        for i, (layer, pool) in enumerate(zip(self.layers, pools)):
             x, pool = layer.paged_decode(x, self._cos, self._sin, pool,
-                                         block_tables, pos)
+                                         block_tables, pos,
+                                         None if lora is None else lora[i])
             new.append(pool)
         return self.norm(x), new
 
-    def paged_prefill_chunk(self, input_ids, pools, block_table, start):
+    def paged_prefill_chunk(self, input_ids, pools, block_table, start,
+                            lora=None):
         """Stream ONE prompt chunk into the paged pool. input_ids: int
-        (1, C); block_table: int32 (M,); start: block-aligned chunk origin.
-        Returns (normed hidden (1, C, hidden), pools)."""
+        (1, C); block_table: int32 (M,); start: block-aligned chunk origin;
+        ``pools``/``lora`` as in :meth:`paged_decode_step`. Returns (normed
+        hidden (1, C, hidden), pools)."""
         x = self.embed_tokens(input_ids)
         new = []
-        for layer, pool in zip(self.layers, pools):
-            x, pool = layer.paged_prefill_chunk(x, self._cos, self._sin, pool,
-                                                block_table, start)
+        for i, (layer, pool) in enumerate(zip(self.layers, pools)):
+            x, pool = layer.paged_prefill_chunk(
+                x, self._cos, self._sin, pool, block_table, start,
+                None if lora is None else lora[i])
             new.append(pool)
         return self.norm(x), new
 
@@ -386,6 +452,29 @@ class LlamaForCausalLM(nn.Module):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=g)
+
+    @property
+    def quantized(self) -> bool:
+        """True after :meth:`quantize_int8`."""
+        return isinstance(self.model.layers[0].self_attn.q_proj, Int8Linear)
+
+    @torch.no_grad()
+    def quantize_int8(self):
+        """Convert every projection (q/k/v/o, gate/up/down) and an untied
+        lm-head to weight-only int8 (:class:`~paddle_tpu_torch.nn.quant.
+        Int8Linear`), in place, as ``paddle_tpu``'s ``quantize_int8``; the
+        embedding stays in the model dtype. For inference only. The JAX
+        package's fused-q/k/v option (``PT_W8_FUSED_QKV``) is not ported.
+        Returns self."""
+        for layer in self.model.layers:
+            att, mlp = layer.self_attn, layer.mlp
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                setattr(att, name, Int8Linear.from_linear(getattr(att, name)))
+            for name in ("gate_proj", "up_proj", "down_proj"):
+                setattr(mlp, name, Int8Linear.from_linear(getattr(mlp, name)))
+        if not self.cfg.tie_word_embeddings:
+            self.lm_head = Int8Linear.from_linear(self.lm_head)
+        return self
 
     def head(self, h):
         """Logits in the model dtype: ``h @ lm_head.weight``, or

@@ -50,13 +50,22 @@ from .flash_attention_cuda import (flash_bwd_dkv_cuda,  # noqa: E402
                                    flash_bwd_dq_cuda, flash_fwd_cuda)
 from .fused_adamw import fused_adamw_cuda, fused_adamw_update  # noqa: E402
 from .fused_ce import fused_linear_cross_entropy  # noqa: E402
+from .fused_lora_cuda import fused_lora_matmul_cuda  # noqa: E402
 from .fused_norm import fused_rms_norm, rms_norm_cuda  # noqa: E402
+from .int8 import quantize_per_channel, w8_matmul  # noqa: E402
+from .int8_cuda import w8_matmul_cuda  # noqa: E402
 from .paged_attention import (gather_block_kv,  # noqa: E402
                               paged_decode_attention,
+                              paged_decode_attention_q,
                               paged_prefill_attention,
-                              paged_verify_attention, write_chunk_kv,
-                              write_decode_kv, write_window_kv)
-from .paged_attention_cuda import paged_attention_cuda  # noqa: E402
+                              paged_prefill_attention_q,
+                              paged_verify_attention,
+                              paged_verify_attention_q, quantize_block_kv,
+                              write_chunk_kv, write_chunk_kv_q,
+                              write_decode_kv, write_decode_kv_q,
+                              write_window_kv, write_window_kv_q)
+from .paged_attention_cuda import (paged_attention_cuda,  # noqa: E402
+                                   paged_attention_int8_cuda)
 
 # every kernel wrapper of the port, by kernel name
 KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
@@ -64,7 +73,10 @@ KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
                    "flash_fwd": flash_fwd_cuda,
                    "flash_bwd_dq": flash_bwd_dq_cuda,
                    "flash_bwd_dkv": flash_bwd_dkv_cuda,
-                   "fused_adamw": fused_adamw_cuda}
+                   "fused_adamw": fused_adamw_cuda,
+                   "w8_matmul": w8_matmul_cuda,
+                   "paged_attention_int8": paged_attention_int8_cuda,
+                   "fused_lora_matmul": fused_lora_matmul_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -79,10 +91,14 @@ def launch_counts() -> dict:
 __all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "flash_bwd_dkv_cuda",
            "flash_bwd_dq_cuda", "flash_fwd_cuda", "fused_adamw_cuda",
            "fused_adamw_update", "fused_linear_cross_entropy",
-           "fused_rms_norm",
+           "fused_lora_matmul_cuda", "fused_rms_norm",
            "gather_block_kv", "kernel_mode", "launch_counts",
-           "paged_attention_cuda", "paged_decode_attention",
-           "paged_prefill_attention", "paged_verify_attention",
+           "paged_attention_cuda", "paged_attention_int8_cuda",
+           "paged_decode_attention", "paged_decode_attention_q",
+           "paged_prefill_attention", "paged_prefill_attention_q",
+           "paged_verify_attention", "paged_verify_attention_q",
+           "quantize_block_kv", "quantize_per_channel",
            "reset_launch_counts", "rms_norm_cuda", "set_kernel_mode",
-           "use_kernel", "write_chunk_kv", "write_decode_kv",
-           "write_window_kv"]
+           "use_kernel", "w8_matmul", "w8_matmul_cuda", "write_chunk_kv",
+           "write_chunk_kv_q", "write_decode_kv", "write_decode_kv_q",
+           "write_window_kv", "write_window_kv_q"]

@@ -10,7 +10,8 @@ listed in ``.gitignore``; it is filled on first use, on the machine that has
 the card and the CUDA toolkit. Nothing here runs at import time.
 
 C interface: every entry point takes device pointers and the CUDA stream as
-``void*`` (``ctypes.c_void_p``), sizes as ``int``, and returns the
+``void*`` (``ctypes.c_void_p``), sizes as ``int`` (strides that may pass
+2^31 as ``long long``), and returns the
 ``cudaError_t`` of ``cudaGetLastError()`` after its launch; :func:`check`
 raises when that is not 0.
 """
@@ -34,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry point -> argtypes (all return int: the launch's cudaError_t)
 SIGNATURES = {
     # x, w, y, rows, dim, eps, stream
@@ -51,6 +53,17 @@ SIGNATURES = {
     # stream
     "pt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, kq_pool, k_scales, vq_pool, v_scales, tables, pos, out, part_acc,
+    # part_ml, B, W, H, KV, D, N, bs, M, S, P, stream
+    "pt_paged_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w_q, scale, out, part (or NULL), M, K, N, S, KS, stream
+    "pt_w8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, a (at the layer), b (at the layer), scale, aidx, out, xa, part,
+    # M, K, N, R, rows_per_entry, a_page_stride, b_page_stride, splits, KS,
+    # mt, stream
+    "pt_fused_lora": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _L, _L, _I, _I, _I, _P),
     # p, g, m, v, master (or NULL), n, g_is_fp32, lr, inv_bc1, inv_bc2,
     # b1, 1 - b1, b2, 1 - b2, eps, 1 - lr * decay, stream
     "pt_fused_adamw": (_P, _P, _P, _P, _P, _I, _I,

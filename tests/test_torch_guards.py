@@ -13,7 +13,8 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import ops
-from paddle_tpu_torch.inference.serving import GenerationServer
+from paddle_tpu_torch.inference.serving import (_UNPORTED_DEFAULTS,
+                                                GenerationServer)
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel import ParallelEngine
@@ -26,18 +27,24 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.ops.flash_attention_cuda",
                 "paddle_tpu_torch.ops.fused_adamw",
                 "paddle_tpu_torch.ops.fused_ce",
+                "paddle_tpu_torch.ops.fused_lora_cuda",
                 "paddle_tpu_torch.ops.fused_norm",
+                "paddle_tpu_torch.ops.int8",
+                "paddle_tpu_torch.ops.int8_cuda",
                 "paddle_tpu_torch.ops.paged_attention",
                 "paddle_tpu_torch.ops.paged_attention_cuda",
                 "paddle_tpu_torch.models", "paddle_tpu_torch.models.llama",
                 "paddle_tpu_torch.models.convert",
                 "paddle_tpu_torch.models.generation",
                 "paddle_tpu_torch.inference",
+                "paddle_tpu_torch.inference.lora",
                 "paddle_tpu_torch.inference.paged_cache",
                 "paddle_tpu_torch.inference.scheduler",
                 "paddle_tpu_torch.inference.executor",
                 "paddle_tpu_torch.inference.serving",
                 "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.clip",
+                "paddle_tpu_torch.nn.lora", "paddle_tpu_torch.nn.quant",
+                "paddle_tpu_torch.nn.quant.quant_layers",
                 "paddle_tpu_torch.optimizer", "paddle_tpu_torch.optimizer.lr",
                 "paddle_tpu_torch.optimizer.optimizer",
                 "paddle_tpu_torch.parallel",
@@ -187,7 +194,7 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
 
 
 @pytest.mark.parametrize("kwargs", [dict(cache="dense"), dict(spec=object()),
-                                    dict(kv_quant="int8"),
+                                    dict(telemetry=object()),
                                     dict(tick_window=2), dict(policy="wfq"),
                                     dict(kernels="reference")])
 def test_unported_server_options_raise(kwargs):
@@ -213,3 +220,50 @@ def test_chip_smoke_fails_without_a_card_or_the_port(alone, tmp_path):
                        env=NO_CARD_ENV)
     assert p.returncode != 0
     assert '"ok"' not in p.stdout
+
+
+@pytest.mark.parametrize("name", sorted(_UNPORTED_DEFAULTS))
+def test_every_unported_server_default_still_raises(name):
+    model = _tiny_model()
+    with pytest.raises(NotImplementedError, match=name):
+        GenerationServer(model, device="cpu", **{name: object()})
+
+
+def _new_wrapper_cases():
+    """Per new kernel wrapper: (valid CPU arguments, the same with a wrong
+    dtype, the same with an unsupported size)."""
+    bf, i8, f32, i32 = torch.bfloat16, torch.int8, torch.float32, torch.int32
+    z = torch.zeros
+
+    def w8(xdt=bf, K=128):
+        return (z(8, K, dtype=xdt), z(K, 256, dtype=i8), z(256, dtype=f32))
+
+    def attn(qdt=bf, D=128):
+        return (z(2, 1, 8, D, dtype=qdt), z(4, 16, 2, D, dtype=i8),
+                z(4, 2, dtype=f32), z(4, 16, 2, D, dtype=i8),
+                z(4, 2, dtype=f32), z(2, 3, dtype=i32), z(2, dtype=i32))
+
+    def lora(xdt=bf, R=4):
+        return (z(2, 1, 64, dtype=xdt), z(64, 128, dtype=bf),
+                z(3, 1, 64, R), z(3, 1, R, 128), z(3), 0, z(2, dtype=i32))
+
+    return {"w8_matmul": (w8(), w8(xdt=f32), w8(K=100)),
+            "paged_attention_int8": (attn(), attn(qdt=f32), attn(D=64)),
+            "fused_lora_matmul": (lora(), lora(xdt=f32), lora(R=65))}
+
+
+@pytest.mark.parametrize("name", ["w8_matmul", "paged_attention_int8",
+                                  "fused_lora_matmul"])
+def test_int8_and_lora_wrappers_raise_on_cpu_dtype_and_size(name):
+    """The three wrappers of this slice launch nothing for CPU tensors, a
+    dtype or a size the kernel does not take: each raises."""
+    wrapper = ops.KERNEL_WRAPPERS[name]
+    ok, bad_dtype, bad_size = _new_wrapper_cases()[name]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*ok)
+    with pytest.raises(TypeError):
+        wrapper(*bad_dtype)
+    with pytest.raises(ValueError, match="unsupported|head_dim"):
+        wrapper(*bad_size)
+    assert wrapper.launches == before
