@@ -99,6 +99,24 @@ the card:
    int8 path (the fp32 copy holds the same codes and scales), with phase
    5's limits.
 
+Phases 13-15 run between phases 5 and 9, on the same model:
+
+13. The whole-tick decode kernel (``decode_tick``) against its plain twin,
+   bf16, at 1 and 4 of the model's layers, B=8, W in {1, 4}, phase 3's
+   positions and poisoned scratch block: output rows and the pool entries
+   the tick wrote, per row within phase 3's tolerance per rounding (two a
+   layer for the output rows), shown to reject the causal mask one key
+   off; no pool entry outside the window moves; the kernel no farther
+   from an fp32 twin than the bf16 twin, by the drift ratio of phase 5.
+   Then timed at 32 layers beside the twin, the per-layer kernels' tick
+   (the yardstick: no single PyTorch call computes a tick) and the bound.
+14. Megakernel serving: phase 4's traffic behind ``kernels="megakernel"``;
+   checks that every decode tick launched ``decode_tick`` once and the
+   per-layer attention never, and every prefill chunk the per-layer
+   attention once a layer and ``decode_tick`` never; counts the requests
+   whose tokens equal phase 4's. Prints as phase 4.
+15. End to end as phase 5, the decode ticks through ``decode_tick``.
+
 Kernel times are device times from CUDA graphs of many calls (so the
 Python wrappers' host cost is left out); serving and training rates are
 host wall time around work that ends in a copy of its result to the host.
@@ -391,12 +409,14 @@ def kernel_paged_attention(torch, ops, pa, cfg):
 
 # --------------------------------------------------------------- phase 4
 def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
-          expect=None, **server_kw):
+          expect=None, expect_per_pass=None, **server_kw):
     """Phase 4's traffic through ``GenerationServer(**server_kw)``;
     ``adapters`` names each request's LoRA adapter (phase 10), ``expect``
     maps (launches, passes, stats) to {kernel: wanted launches} (default:
-    the fp path's attention and norms). Returns (readings, longest prompt,
-    server)."""
+    the fp path's attention and norms), ``expect_per_pass`` maps
+    "decode_paged" / "chunk_prefill" to the launches every such pass must
+    make (phase 14). Returns (readings, longest prompt, server); the
+    readings' "tokens" holds every request's output, in order."""
     import numpy as np
 
     from paddle_tpu_torch.inference.serving import GenerationServer
@@ -406,6 +426,17 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
                            block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
                            max_len=MAX_LEN, **server_kw)
     check(srv._table_width == TABLE_WIDTH, "block-table width")
+    # each model pass's own launches: (kind, {kernel: launches})
+    per_pass = []
+    ex = srv._exec
+    for kind in ("decode_paged", "chunk_prefill"):
+        def counted(*a, _fn=getattr(ex, kind), _kind=kind, **k):
+            before = ops.launch_counts()
+            out = _fn(*a, **k)
+            per_pass.append((_kind, {n: c - before[n] for n, c in
+                                     ops.launch_counts().items()}))
+            return out
+        setattr(ex, kind, counted)
     # warm-up request (cuBLAS handles, allocator): not part of the run
     srv.submit(list(range(1, 40)), max_new_tokens=4)
     srv.run()
@@ -421,6 +452,7 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    per_pass.clear()
     t0 = time.perf_counter()
     rids = [srv.submit(p, max_new_tokens=m, adapter=a)
             for p, m, a in zip(prompts, news, adapters)]
@@ -448,6 +480,15 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
                                    f"{launches[name]} != {n} ({passes} model "
                                    f"passes: {st['decode_ticks']} ticks, "
                                    f"{st['prefill_chunks']} chunks)")
+    check(len(per_pass) == passes, f"{label}: {len(per_pass)} executor "
+                                   f"calls for {passes} passes")
+    for kind, want_one in (expect_per_pass or {}).items():
+        for k, got in per_pass:
+            if k != kind:
+                continue
+            for name, n in want_one.items():
+                check(got[name] == n, f"{label}: a {kind} pass launched "
+                                      f"{name} {got[name]} times, want {n}")
     res = dict(requests=len(rids), wall_s=wall,
                prefill_tokens=st["prefill_tokens"],
                prefill_chunks=st["prefill_chunks"],
@@ -464,6 +505,10 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
             "adapter_hits", "adapter_uploads", "adapter_evictions")}
     log(f"{label}: " + json.dumps(res))
     res["breakdown"] = pass_breakdown(torch, srv)
+    res["tokens"] = [out[rid] for rid in rids]
+    res["prompts"] = prompts
+    for kind in ("decode_paged", "chunk_prefill"):
+        delattr(ex, kind)       # the counting wrappers hold the executor
     return res, max(prompts, key=len), srv
 
 
@@ -537,15 +582,18 @@ def pass_breakdown(torch, srv):
 
 # --------------------------------------------------------------- phase 5
 def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
-               lora=None):
+               lora=None, megakernel=False):
     """First prefill chunk + 4 decode ticks of one request, run three times
     on fresh pools with the same tokens fed: bf16 with the kernels, bf16
     with the plain versions, and the plain versions on an fp32 copy of the
     same weights (the yardstick for bf16 rounding). ``kv_quant="int8"``:
     int8 KV pools (for an int8 model the fp32 copy holds the same codes and
     scales); ``lora``: (adapter pool, page) — the request runs on that
-    adapter page, the same factors in all three runs."""
+    adapter page, the same factors in all three runs; ``megakernel``: the
+    kernels' run takes each decode tick through the whole-tick kernel
+    (``decode_tick``; the prefill chunk keeps the per-layer kernels)."""
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import decode_megakernel as mk
 
     cfg = model.cfg
     C, bs, ticks = PREFILL_CHUNK, BLOCK_SIZE, 4
@@ -573,6 +621,8 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
         ops.set_kernel_mode(mode)
         pools = pools_for(m.cfg.torch_dtype)
         ids = torch.tensor([prompt[:C]], device="cuda")
+        tick_kernel = megakernel and mode == "auto"
+        weights = mk.stack_layer_weights(m) if tick_kernel else None
         with torch.no_grad():
             h, _ = m.model.paged_prefill_chunk(ids, pools, table, 0, factors)
             logits = [m.head(h[:, -1:])[:, 0].float()]
@@ -580,10 +630,21 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
             for t in range(ticks):
                 tok = feed[t] if feed else int(logits[-1].argmax())
                 toks.append(tok)
-                h, _ = m.model.paged_decode_step(
-                    torch.tensor([[tok]], device="cuda"), pools, table[None],
-                    torch.tensor([C + t], dtype=torch.int32, device="cuda"),
-                    factors)
+                tokv = torch.tensor([[tok]], device="cuda")
+                posv = torch.tensor([C + t], dtype=torch.int32,
+                                    device="cuda")
+                if tick_kernel:
+                    x = m.model.embed_tokens(tokv)
+                    cr, sr = mk.gather_rope_rows(m.model._cos, m.model._sin,
+                                                 posv, 1)
+                    xo, _ = mk.decode_tick(
+                        x, [p for pool in pools for p in pool], table[None],
+                        posv, weights, cr, sr, block_size=bs,
+                        eps=m.cfg.rms_norm_eps)
+                    h = m.model.norm(xo)
+                else:
+                    h, _ = m.model.paged_decode_step(tokv, pools, table[None],
+                                                     posv, factors)
                 logits.append(m.head(h)[:, 0].float())
         ops.set_kernel_mode("auto")
         return torch.cat(logits), toks
@@ -639,6 +700,287 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
     check(res["gap_fraction"] <= GAP_FRACTION,
           f"{label}: kernels and plain versions differ by "
           f"{res['gap_fraction']:.3g} of the rms logit (limit {GAP_FRACTION})")
+    return res
+
+
+# -------------------------------------------------------------- phase 13
+MK_CHECK_LAYERS = 4
+# decode positions of phase 3: mid-block, a block boundary on each side,
+# long contexts and a short one
+MK_POS = [1000, 511, 512, 255, 37, 700, 128, 5]
+
+
+def _layers_view(model, n):
+    """A stand-in exposing the first ``n`` decoder layers of ``model`` as
+    ``.model.layers`` (the weight table of a shallower tick)."""
+    import types
+
+    return types.SimpleNamespace(model=types.SimpleNamespace(
+        layers=model.model.layers[:n]))
+
+
+def _tick_inputs(torch, model, g, L, W):
+    """A tick's inputs at the serving shapes: B = 8 rows at MK_POS, window
+    W, per-layer pools with blocks in a scrambled order, scratch block 0
+    poisoned with +-1e9, embedded random tokens and their rope rows."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+
+    cfg = model.cfg
+    B, bs, KV, D = MAX_BATCH, BLOCK_SIZE, cfg.num_key_value_heads, cfg.head_dim
+    need = [(p + W - 1) // bs + 1 for p in MK_POS]
+    N = sum(need) + 8
+    pools = []
+    for _ in range(2 * L):
+        p = torch.randn(N, bs, KV, D, generator=g, device="cuda").to(
+            torch.bfloat16)
+        p[0] = 1e9 if len(pools) % 2 == 0 else -1e9
+        pools.append(p)
+    perm = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(2))
+            + 1).tolist()
+    tables = torch.zeros(B, TABLE_WIDTH, dtype=torch.int32)
+    took = 0
+    for b in range(B):
+        tables[b, :need[b]] = torch.tensor(perm[took:took + need[b]])
+        took += need[b]
+    tables = tables.cuda()
+    pos = torch.tensor(MK_POS, dtype=torch.int32, device="cuda")
+    tok = torch.randint(1, cfg.vocab_size, (B, W), generator=g, device="cuda")
+    x = model.model.embed_tokens(tok)
+    cosr, sinr = mk.gather_rope_rows(model.model._cos, model.model._sin, pos, W)
+    return x, pools, tables, pos, cosr, sinr
+
+
+class _F32Weights:
+    """fp32 copies of a ``LayerWeights``' tensors, for the fp32 twin."""
+
+    def __init__(self, weights):
+        self.num_layers = weights.num_layers
+        self._t = {n: [t.float() for t in weights[n]] for n in weights.NAMES}
+
+    def __getitem__(self, name):
+        return self._t[name]
+
+
+def kernel_decode_tick(torch, ops, model):
+    """The whole-tick kernel against its plain twin, bf16, Llama-3-8B width,
+    1 and MK_CHECK_LAYERS layers of the served model, B = 8, W in {1, 4}:
+    output rows and the pool entries the tick wrote, per row, within phase
+    3's tolerance once per layer the tick ran (see below), shown to reject
+    the causal mask one key off; and the kernel no farther from the fp32
+    twin than the bf16 twin is, by DRIFT_RATIO. Then the kernel, the twin
+    and the per-layer kernels timed at the model's full depth (W = 1)."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = model.cfg
+    eps, bs = cfg.rms_norm_eps, BLOCK_SIZE
+    g = torch.Generator(device="cuda").manual_seed(31)
+    cases = []
+    for W in (1, 4):
+        for L in (1, MK_CHECK_LAYERS):
+            view = _layers_view(model, L)
+            weights = mk.stack_layer_weights(view)
+            x, pools, tables, pos, cosr, sinr = _tick_inputs(torch, model, g,
+                                                             L, W)
+            kp = [p.clone() for p in pools]
+            rp = [p.clone() for p in pools]
+            fp = [p.float() for p in pools]
+            with torch.no_grad():
+                out = decode_tick_cuda(x, kp, tables, pos, weights, cosr,
+                                       sinr, eps=eps)
+                ref = mk._tick_plain(x, rp, tables, pos, weights, cosr, sinr,
+                                     eps=eps)
+                f32 = mk._tick_plain(x.float(), fp, tables, pos,
+                                     _F32Weights(weights), cosr, sinr,
+                                     eps=eps)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"decode_tick W={W} L={L}: non-finite output (scratch "
+                  f"leaked?)")
+            # Phase 3's per-row tolerance (one bf16 step of the row's
+            # largest value + 2^-8 of the rms of what is compared) holds one
+            # rounding of each side. A layer rounds its residual twice (the
+            # attention and the MLP adds) behind eight rounded products,
+            # and the two sides' roundings (fp32 sums in other orders, p
+            # kept in fp32 in the kernel) drift apart layer by layer: on an
+            # H100 the output rows reached 0.94-1.33 x the one-rounding
+            # tolerance at one layer (W = 1, 4) and 1.95 x at four, with the
+            # kernel as far from the fp32 twin as the bf16 twin (0.95-1.07
+            # x). So an output row may differ by two tolerances per layer,
+            # the K/V written by layer l by l + 1 (one rounding a layer
+            # behind them); the mask one key off exceeds that by 9-45 x
+            ratio = _row_ratio(out, ref, _rms(ref)) / (2 * L)
+            worst = ratio.max().item()
+            written = torch.zeros(pools[0].shape[:2], dtype=torch.bool,
+                                  device="cuda")
+            for b, p in enumerate(MK_POS):
+                for w in range(W):
+                    written[tables[b, (p + w) // bs], (p + w) % bs] = True
+            worst_kv, unwritten_moved = 0.0, 0
+            for i, (a, r, p0) in enumerate(zip(kp, rp, pools)):
+                worst_kv = max(worst_kv, _row_ratio(
+                    a[written], r[written], _rms(r[written])).max().item()
+                    / (i // 2 + 1))
+                unwritten_moved += int((a[~written] != p0[~written]).sum())
+            drift_rms = _rms(out.float() - f32) / _rms(ref.float() - f32)
+            drift_max = ((out.float() - f32).abs().max()
+                         / (ref.float() - f32).abs().max()).item()
+            # planted fault: the twin with the causal mask one key off
+            # either way; scratch gets ordinary values, so a key read past a
+            # row's last block is a plausible key and not the poison
+            mutants = {}
+            orig = mk._attention_core
+            for d in (1, -1):
+                mp = [p.clone() for p in pools]
+                for p in mp:
+                    p[0] = p[1]
+                mk._attention_core = (lambda q, ck, cv, qpos, *a, _d=d:
+                                      orig(q, ck, cv, qpos + _d, *a))
+                try:
+                    with torch.no_grad():
+                        mo = mk._tick_plain(x, mp, tables, pos, weights,
+                                            cosr, sinr, eps=eps)
+                finally:
+                    mk._attention_core = orig
+                r = _row_ratio(mo, ref, _rms(ref)) / (2 * L)
+                mutants[f"mask{d:+d}"] = dict(
+                    worst_err_over_tol=r.max().item(),
+                    rows_failed=(r > 1.0).float().mean().item())
+                del mp, mo
+            case = dict(layers=L, B=MAX_BATCH, W=W, pos=MK_POS,
+                        max_abs_err=(out.float() - ref.float()).abs()
+                        .max().item(),
+                        worst_err_over_tol=worst,
+                        row_err_over_tol=ratio.flatten().tolist(),
+                        kv_worst_err_over_tol=worst_kv,
+                        drift_ratio_rms=drift_rms, drift_ratio_max=drift_max,
+                        mutants=mutants)
+            log(f"kernel decode_tick check W={W} ({L} layers): "
+                + json.dumps(case))
+            check(worst <= 1.0, f"decode_tick W={W} L={L}: an output row is "
+                                f"off by {worst:.3g} x its tolerance")
+            check(worst_kv <= 1.0, f"decode_tick W={W} L={L}: a written K/V "
+                                   f"row is off by {worst_kv:.3g} x its "
+                                   f"tolerance")
+            check(unwritten_moved == 0, f"decode_tick W={W} L={L}: "
+                                        f"{unwritten_moved} pool entries "
+                                        f"outside the window moved")
+            for key in ("drift_ratio_rms", "drift_ratio_max"):
+                check(case[key] <= DRIFT_RATIO, f"decode_tick W={W} L={L}: "
+                      f"{key} {case[key]:.3g} > {DRIFT_RATIO}")
+            for name, m in mutants.items():
+                check(m["worst_err_over_tol"] > 1.0,
+                      f"decode_tick W={W} L={L}: the tolerance passes the "
+                      f"{name} fault ({m['worst_err_over_tol']:.3g})")
+            cases.append(case)
+            del kp, rp, fp, pools, out, ref, f32
+            torch.cuda.empty_cache()
+
+    # timing at full depth, W = 1, the serving path's shapes
+    L = cfg.num_hidden_layers
+    weights = mk.stack_layer_weights(model)
+    x, pools, tables, pos, cosr, sinr = _tick_inputs(torch, model, g, L, 1)
+    for p in pools:
+        p[0] = 0.0
+    pairs = [tuple(pools[2 * i:2 * i + 2]) for i in range(L)]
+    tok = torch.ones(MAX_BATCH, 1, dtype=torch.long, device="cuda")
+
+    def kernel():
+        decode_tick_cuda(x, pools, tables, pos, weights, cosr, sinr, eps=eps)
+
+    def plain():
+        mk._tick_plain(x, pools, tables, pos, weights, cosr, sinr, eps=eps)
+
+    def per_layer():     # the per-layer kernels' tick, embedding to norm
+        model.model.paged_decode_step(tok, pairs, tables, pos)
+
+    with torch.no_grad():
+        ms = time_ms(kernel, 5)
+        plain_ms = time_ms(plain, 2)
+        per_layer_ms = time_ms(per_layer, 3)
+    # bytes this data needs: every layer's seven projections and two norm
+    # weights once, each visible K/V row once, the window's K/V written,
+    # x in and out; operations: 2 per weight element and row, and QK + PV
+    # over the visible keys
+    Hd, I = cfg.hidden_size, cfg.intermediate_size
+    KVD = cfg.num_key_value_heads * cfg.head_dim
+    w_elems = Hd * Hd * 2 + 2 * Hd * KVD + 3 * Hd * I
+    vis = sum(p + 1 for p in MK_POS)
+    kv_bytes = L * (2 * vis * KVD * 2 + 2 * MAX_BATCH * KVD * 2)
+    nbytes = (L * (w_elems + 2 * Hd) * 2 + kv_bytes
+              + 2 * x.numel() * 2 + tables.numel() * 4)
+    flops = L * (2 * MAX_BATCH * w_elems
+                 + 4 * cfg.head_dim * cfg.num_attention_heads * vis)
+    b, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    avg_blocks = round(sum(p // bs + 1 for p in MK_POS) / MAX_BATCH)
+    est = mk.hbm_bytes_per_trip(cfg, batch=MAX_BATCH, window=1,
+                                block_size=bs, avg_ctx_blocks=avg_blocks,
+                                dtype_bytes=2)
+    timed = dict(layers=L, B=MAX_BATCH, W=1, pos=MK_POS,
+                 grid=torch.cuda.get_device_properties(0)
+                 .multi_processor_count,      # one block per SM
+                 barriers_per_tick=5 * L,
+                 ms=ms, plain_ms=plain_ms, per_layer_kernels_ms=per_layer_ms,
+                 bound_ms=b, bound_by=by, bytes=nbytes,
+                 hbm_bytes_per_trip=est,
+                 hbm_bytes_per_trip_bound_ms=est / HBM_BYTES_PER_S * 1e3,
+                 library_ms=None,
+                 library_note="no single PyTorch call computes a tick; "
+                              "per_layer_kernels_ms is the yardstick")
+    log("kernel decode_tick bf16 (full depth): " + json.dumps(timed))
+    del pools, pairs
+    torch.cuda.empty_cache()
+    # the main case (full depth, timed) first, with the checks' errors
+    timed["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    return [timed] + [dict(c, ms=None, plain_ms=None, bound_ms=None,
+                           bound_by=None, library_ms=None) for c in cases]
+
+
+# -------------------------------------------------------------- phase 14
+def serve_megakernel(torch, ops, model, phase4_tokens):
+    """Phase 4's model and traffic behind ``kernels="megakernel"``: every
+    decode tick launches decode_tick once and the per-layer attention never;
+    every prefill chunk launches the per-layer attention once a layer and
+    decode_tick never. Counts how many requests give phase 4's tokens."""
+    L = model.cfg.num_hidden_layers
+
+    def expect(st):
+        return {"decode_tick": st["decode_ticks"],
+                "paged_attention": L * st["prefill_chunks"],
+                "rms_norm": st["decode_ticks"]
+                + (2 * L + 1) * st["prefill_chunks"]}
+
+    try:
+        res, _, srv = serve(
+            torch, ops, model, label="serve llama3-8b paged megakernel",
+            expect=expect, kernels="megakernel",
+            expect_per_pass={
+                "decode_paged": {"decode_tick": 1, "paged_attention": 0},
+                "chunk_prefill": {"decode_tick": 0, "paged_attention": L}})
+        check(srv._exec.megakernel, "phase 14: the server did not take the "
+                                    "megakernel")
+    finally:
+        ops.set_kernel_mode("auto")
+    same = sum(a == b for a, b in zip(res["tokens"], phase4_tokens))
+    # generated tokens each request shares with phase 4's before the first
+    # difference: greedy decoding of random weights meets near-ties, where
+    # the two paths' bf16 roundings may pick different tokens
+    common = []
+    for a, b in zip(res["tokens"], phase4_tokens):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        common.append(n)
+    prompt_lens = [len(p) for p in res.pop("prompts")]
+    res["requests_identical_to_phase4"] = same
+    res["generated_tokens_shared_with_phase4"] = [
+        c - n for c, n in zip(common, prompt_lens)]
+    log("serve megakernel vs phase 4: " + json.dumps(
+        {"requests_identical_to_phase4": same,
+         "requests": len(phase4_tokens),
+         "generated_tokens_shared_with_phase4":
+             res["generated_tokens_shared_with_phase4"]}))
     return res
 
 
@@ -1368,7 +1710,8 @@ OWN_KERNELS = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel":
                "flash_bwd_dq", "flash_bwd_dkv_kernel": "flash_bwd_dkv",
                "adamw_kernel": "fused_adamw", "rms_norm_kernel": "rms_norm",
                "paged_attention_": "paged_attention", "w8_": "w8_matmul",
-               "lora_": "fused_lora_matmul"}
+               "lora_": "fused_lora_matmul",
+               "decode_tick_kernel": "decode_tick"}
 
 
 def _kernel_class(name: str) -> str:
@@ -1723,8 +2066,18 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"model: llama3-8b {sum(p.numel() for p in model.parameters())} "
         f"params bf16, made on the card in {time.perf_counter() - t0:.1f} s")
-    serve_res, prompt, _ = serve(torch, ops, model)
+    serve_res, prompt, srv4 = serve(torch, ops, model)
     e2e = end_to_end(torch, ops, model, prompt)
+    del srv4                    # its pools would count in the next peaks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phases 13-15, the whole-tick kernel, while the bf16 model is on the
+    # card
+    mk_cases = kernel_decode_tick(torch, ops, model)
+    mk_res = serve_megakernel(torch, ops, model, serve_res["tokens"])
+    e2e_mk = end_to_end(torch, ops, model, prompt,
+                        label="end_to_end megakernel", megakernel=True)
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -1789,14 +2142,23 @@ def main() -> int:
         entry("fused_lora_matmul", csrc + "fused_lora.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:343", lora_cases,
               lora_res["launches"]["fused_lora_matmul"]),
+        entry("decode_tick", csrc + "decode_megakernel.cu",
+              "paddle_tpu/ops/decode_megakernel.py:845", mk_cases,
+              mk_res["launches"]["decode_tick"],
+              per_layer_kernels_ms=mk_cases[0]["per_layer_kernels_ms"],
+              library_note=mk_cases[0]["library_note"]),
     ]
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
     for label, res, e in (("serve llama3-8b paged", serve_res, e2e),
+                          ("serve llama3-8b paged megakernel", mk_res,
+                           e2e_mk),
                           ("serve llama3-8b paged lora", lora_res, e2e_lora),
                           ("serve llama3-8b paged int8", int8_res, e2e_int8)):
         breakdown = res.pop("breakdown")
+        res.pop("tokens")
+        res.pop("prompts", None)
         log(f"{label}: " + json.dumps(res))
         log("pass breakdown (host vs device): " + json.dumps(breakdown))
         log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))

@@ -15,10 +15,17 @@ pool's factors at those pages (``AdapterPool.layer_factors``).
 Where the JAX executor jit-compiles each program and donates the pools,
 PyTorch runs eagerly and the model's paged methods write the pools in
 place.
+
+Under ``set_kernel_mode("megakernel")`` (``GenerationServer(kernels=
+"megakernel")``) a decode tick runs every layer as one launch of the
+whole-tick kernel (:meth:`_mk_window`, JAX ``_decode_megakernel_fn``);
+prefill chunks keep the per-layer kernels. The guard runs once, at
+construction, and a configuration the kernel does not serve raises there:
+unlike the JAX executor, nothing falls back to the per-layer programs.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -49,6 +56,41 @@ class PagedExecutor:
                                          device=dev) for _ in range(2))
         self.pools: List[Tuple[torch.Tensor, ...]] = [
             layer() for _ in range(cfg.num_hidden_layers)]
+        self._flat_pools = [t for pool in self.pools for t in pool]
+
+        # kernels="megakernel": the guard runs here, once; a rejection
+        # raises (the JAX executor records it and falls back)
+        self.megakernel = False
+        self.megakernel_reason: Optional[str] = None
+        self._mk_geometry = None
+        self._mk_weights = None
+        from .. import ops
+
+        if ops.use_megakernel():
+            from ..ops import decode_megakernel as mk
+
+            if engine.kv_quant == "int8":
+                raise NotImplementedError(
+                    "kernels='megakernel' with kv_quant='int8': the int8-KV "
+                    "variant of the whole-tick kernel (in-kernel whole-block "
+                    "requantization) is not ported yet")
+            if engine._lora is not None:
+                raise NotImplementedError(
+                    "kernels='megakernel' with lora=: the whole-tick "
+                    "kernel's LoRA streams are not ported yet")
+            geom = engine.mk_geometry or mk.MegakernelGeometry()
+            reason = mk.megakernel_supported(engine.model, cfg,
+                                             block_size=engine.block_size,
+                                             geometry=geom)
+            if reason is not None:
+                self.megakernel_reason = reason
+                raise ValueError(f"kernels='megakernel' cannot serve this "
+                                 f"model: {reason}")
+            mk.check_geometry(geom)
+            self.megakernel = True
+            self._mk_geometry = geom
+            # pointers to the model's own weights: no second copy
+            self._mk_weights = mk.stack_layer_weights(engine.model)
 
     def _lora(self, aidx):
         """Per-layer adapter factors at the page indices ``aidx`` (None
@@ -67,14 +109,37 @@ class PagedExecutor:
         ``topks``/``topps``/``generator`` go unread). Returns the next
         tokens, int32 (1, B)."""
         model = self.engine.model
-        h, _ = model.model.paged_decode_step(tokens[:, None], self.pools,
-                                             tables, pos, self._lora(aidx))
+        if self.megakernel:
+            h = self._mk_window(tokens[:, None], tables, pos)
+        else:
+            h, _ = model.model.paged_decode_step(tokens[:, None], self.pools,
+                                                 tables, pos,
+                                                 self._lora(aidx))
         lg = model.head(h)[:, 0].float()                 # (B, V)
         if greedy:
             nxt = torch.argmax(lg, dim=-1).to(torch.int32)
         else:
             nxt = sample_token_rows(lg, generator, temps, topks, topps)
         return nxt[None]
+
+    def _mk_window(self, window, tables, pos):
+        """One W-token tick through the whole-tick kernel: embed →
+        ``decode_tick`` (every layer, the pools written in place) → final
+        norm. window: int (B, W). Returns the normed hidden (B, W, hidden);
+        the head stays outside, as in the JAX executor."""
+        from ..ops import decode_megakernel as mk
+
+        engine = self.engine
+        m = engine.model.model
+        self._mk_weights.check(engine.model)
+        x = m.embed_tokens(window)
+        cosr, sinr = mk.gather_rope_rows(m._cos, m._sin, pos,
+                                         window.shape[1])
+        xo, _ = mk.decode_tick(x, self._flat_pools, tables, pos,
+                               self._mk_weights, cosr, sinr,
+                               block_size=engine.block_size,
+                               eps=engine.cfg.rms_norm_eps)
+        return m.norm(xo)
 
     @torch.no_grad()
     def chunk_prefill(self, chunk, table, start: int, last_idx: int,

@@ -23,12 +23,17 @@ too: with adapters on the K/V projections a block's contents depend on the
 adapter, and the JAX server, which hashes tokens only, shares blocks
 across adapters (a fault of the reference).
 
+``kernels="megakernel"`` runs each decode tick as ONE launch of the
+whole-tick CUDA kernel (ops/decode_megakernel.py) over fp pools without
+LoRA; prefill chunks keep the per-layer kernels. A configuration it does
+not serve raises at construction (no fallback).
+
 Not ported yet (their constructor arguments raise ``NotImplementedError``
 when given a non-default value): the dense cache, ``tick_window > 1``,
 speculative decoding, KV tiers and swap preemption, priority/WFQ
 scheduling, telemetry, fault injection, tensor/context parallelism,
-snapshots, replica roles and a per-server kernel mode (``kernels``; the
-mode is process-wide, set by ``paddle_tpu_torch.ops.set_kernel_mode``).
+snapshots, replica roles and ``kernels="pallas"`` (the port has no
+interpret mode).
 With the default ``num_blocks`` the pool never runs dry; a smaller pool
 that does raises instead of preempting.
 """
@@ -55,8 +60,7 @@ _UNPORTED_DEFAULTS = {
     "host_pool_bytes": None, "warm_pool_bytes": None,
     "tier_demote_low": None, "tier_demote_high": None,
     "telemetry": None, "faults": None, "fault_retries": 3,
-    "mk_geometry": None, "mesh": None, "role": "any", "profile": None,
-    "clock": None, "kernels": "auto",
+    "mesh": None, "role": "any", "profile": None, "clock": None,
 }
 
 def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
@@ -112,9 +116,18 @@ class GenerationServer:
     ``"int8"`` (int8 codes + per-(block, KV head) scales); ``lora``: a
     :class:`~.lora.LoRAConfig` for multi-adapter serving (fp base weights
     only, as in the JAX package). Prompts prefill in ``prefill_chunk``-token
-    chunks (rounded up to a block multiple). Kernel dispatch follows the
-    process-wide :func:`paddle_tpu_torch.ops.set_kernel_mode`. ``seed``
-    seeds the ``torch.Generator`` of sampled requests."""
+    chunks (rounded up to a block multiple). ``seed`` seeds the
+    ``torch.Generator`` of sampled requests.
+
+    ``kernels``: ``"auto"`` (default) leaves the process-wide
+    :func:`paddle_tpu_torch.ops.set_kernel_mode` as it is; ``"megakernel"``
+    (requires ``cache="paged"``) sets it so that every decode tick runs all
+    layers as one launch of the whole-tick kernel — fp KV pools, no LoRA,
+    fp weights; anything else raises at construction, naming the reason
+    (``_exec.megakernel_reason``); ``"reference"`` pins the plain versions.
+    ``mk_geometry``: a :class:`~..ops.decode_megakernel.MegakernelGeometry`,
+    accepted only with ``kernels="megakernel"``; the kernel takes the
+    default geometry only."""
 
     def __init__(self, model, max_batch: int = 4, max_len: int = 256,
                  eos_token_id: Optional[int] = None, seed: int = 0,
@@ -122,7 +135,10 @@ class GenerationServer:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 32, policy=None, device=None,
                  kv_quant: str = "none", pool_bytes: Optional[int] = None,
-                 lora=None, **unported):
+                 lora=None, kernels: str = "auto", mk_geometry=None,
+                 **unported):
+        from ..ops import KERNEL_MODES, kernel_mode, set_kernel_mode
+
         for name, value in unported.items():
             if name not in _UNPORTED_DEFAULTS:
                 raise TypeError(f"GenerationServer got an unexpected keyword "
@@ -130,6 +146,24 @@ class GenerationServer:
             if value != _UNPORTED_DEFAULTS[name]:
                 raise NotImplementedError(
                     f"GenerationServer({name}={value!r}) is not ported yet")
+        if kernels == "pallas":
+            raise NotImplementedError(
+                "kernels='pallas' forces the Pallas kernels in interpret "
+                "mode; the port has no interpret mode — use 'auto', "
+                "'megakernel' or 'reference'")
+        if kernels not in KERNEL_MODES:
+            raise ValueError(
+                f"kernels must be one of {KERNEL_MODES}, got {kernels!r}")
+        if kernels == "megakernel" and cache != "paged":
+            raise ValueError("kernels='megakernel' requires cache='paged' "
+                             "(the whole-tick kernel serves the paged "
+                             "decode path)")
+        if mk_geometry is not None:
+            if kernels != "megakernel":
+                raise ValueError("mk_geometry= requires "
+                                 "kernels='megakernel' (the geometry only "
+                                 "parameterizes the whole-tick kernel)")
+            mk_geometry.validate()
         if cache != "paged":
             raise NotImplementedError(
                 f"cache={cache!r}: only cache='paged' is ported")
@@ -217,7 +251,18 @@ class GenerationServer:
         self._decode_ticks = 0
         self._decode_tokens = 0
         self._decode_wall_s = 0.0
-        self._exec = PagedExecutor(self, num_blocks=int(num_blocks))
+        self.kernels = kernels
+        self.mk_geometry = mk_geometry
+        # the mode is process-wide (as in the JAX package); a server that
+        # fails to build leaves it as it found it
+        prev_mode = kernel_mode()
+        if kernels != "auto":
+            set_kernel_mode(kernels)
+        try:
+            self._exec = PagedExecutor(self, num_blocks=int(num_blocks))
+        except BaseException:
+            set_kernel_mode(prev_mode)
+            raise
 
     # --------------------------------------------------------------- requests
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,

@@ -7,6 +7,10 @@ Kernel dispatch contract (shared by every wrapper in this package):
 * ``"auto"`` (default): a wrapper launches its CUDA kernel for CUDA tensors
   and runs its plain PyTorch version for CPU tensors. On a CUDA tensor it
   never falls back: a shape or dtype the kernel does not take raises.
+* ``"megakernel"``: as ``"auto"``, and the serving executor runs each
+  decode tick as one launch of the whole-tick kernel
+  (``decode_megakernel.decode_tick``); prefill keeps the per-layer kernels.
+  Only an explicit request selects it: ``"auto"`` never does.
 * ``"reference"``: every wrapper runs its plain PyTorch version, on any
   device — ``chip_smoke.py`` uses it to hold each kernel against its plain
   version on the card.
@@ -21,15 +25,16 @@ nowhere else, so a run can show that its main path went through the kernels:
 """
 from __future__ import annotations
 
-KERNEL_MODES = ("auto", "reference")
+KERNEL_MODES = ("auto", "megakernel", "reference")
 
 _KERNEL_MODE = "auto"
 
 
 def set_kernel_mode(mode: str) -> None:
     """Pin the process-wide dispatch: ``"auto"`` (kernels on CUDA tensors,
-    plain versions on CPU tensors) or ``"reference"`` (plain versions
-    everywhere)."""
+    plain versions on CPU tensors), ``"megakernel"`` (the same, with the
+    whole-tick decode kernel on the serving path) or ``"reference"`` (plain
+    versions everywhere)."""
     global _KERNEL_MODE
     if mode not in KERNEL_MODES:
         raise ValueError(
@@ -43,9 +48,17 @@ def kernel_mode() -> str:
 
 def use_kernel(x) -> bool:
     """True when the wrapper must launch its CUDA kernel for tensor ``x``."""
-    return _KERNEL_MODE == "auto" and x.is_cuda
+    return _KERNEL_MODE != "reference" and x.is_cuda
 
 
+def use_megakernel() -> bool:
+    """True only under an explicit ``"megakernel"`` mode: the whole-tick
+    fusion is a deliberate serving configuration, never picked by
+    ``"auto"``."""
+    return _KERNEL_MODE == "megakernel"
+
+
+from .decode_megakernel_cuda import decode_tick_cuda  # noqa: E402
 from .flash_attention_cuda import (flash_bwd_dkv_cuda,  # noqa: E402
                                    flash_bwd_dq_cuda, flash_fwd_cuda)
 from .fused_adamw import fused_adamw_cuda, fused_adamw_update  # noqa: E402
@@ -76,7 +89,8 @@ KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
                    "fused_adamw": fused_adamw_cuda,
                    "w8_matmul": w8_matmul_cuda,
                    "paged_attention_int8": paged_attention_int8_cuda,
-                   "fused_lora_matmul": fused_lora_matmul_cuda}
+                   "fused_lora_matmul": fused_lora_matmul_cuda,
+                   "decode_tick": decode_tick_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -88,7 +102,8 @@ def launch_counts() -> dict:
     return {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
 
 
-__all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "flash_bwd_dkv_cuda",
+__all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "decode_tick_cuda",
+           "flash_bwd_dkv_cuda",
            "flash_bwd_dq_cuda", "flash_fwd_cuda", "fused_adamw_cuda",
            "fused_adamw_update", "fused_linear_cross_entropy",
            "fused_lora_matmul_cuda", "fused_rms_norm",
@@ -99,6 +114,6 @@ __all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "flash_bwd_dkv_cuda",
            "paged_verify_attention", "paged_verify_attention_q",
            "quantize_block_kv", "quantize_per_channel",
            "reset_launch_counts", "rms_norm_cuda", "set_kernel_mode",
-           "use_kernel", "w8_matmul", "w8_matmul_cuda", "write_chunk_kv",
+           "use_kernel", "use_megakernel", "w8_matmul", "w8_matmul_cuda", "write_chunk_kv",
            "write_chunk_kv_q", "write_decode_kv", "write_decode_kv_q",
            "write_window_kv", "write_window_kv_q"]

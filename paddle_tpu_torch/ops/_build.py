@@ -68,6 +68,10 @@ SIGNATURES = {
     # b1, 1 - b1, b2, 1 - b2, eps, 1 - lr * decay, stream
     "pt_fused_adamw": (_P, _P, _P, _P, _P, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    # wptrs, pools, tables, pos, cos_rows, sin_rows, xres, q, ao, hbuf,
+    # L, B, W, H, KV, D, I, bs, M, eps, stream
+    "pt_decode_tick": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _LOCK = threading.Lock()

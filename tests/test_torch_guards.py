@@ -23,6 +23,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
 PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.ops._build",
+                "paddle_tpu_torch.ops.decode_megakernel",
+                "paddle_tpu_torch.ops.decode_megakernel_cuda",
                 "paddle_tpu_torch.ops.flash_attention",
                 "paddle_tpu_torch.ops.flash_attention_cuda",
                 "paddle_tpu_torch.ops.fused_adamw",
@@ -196,7 +198,7 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
 @pytest.mark.parametrize("kwargs", [dict(cache="dense"), dict(spec=object()),
                                     dict(telemetry=object()),
                                     dict(tick_window=2), dict(policy="wfq"),
-                                    dict(kernels="reference")])
+                                    dict(kernels="pallas")])
 def test_unported_server_options_raise(kwargs):
     model = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
                              device="cpu")
@@ -267,3 +269,83 @@ def test_int8_and_lora_wrappers_raise_on_cpu_dtype_and_size(name):
     with pytest.raises(ValueError, match="unsupported|head_dim"):
         wrapper(*bad_size)
     assert wrapper.launches == before
+
+
+def _tick_args(dtype=torch.bfloat16, D=128, contiguous=True):
+    """CPU arguments of decode_tick_cuda at a 1-layer, 2-row tick of
+    hidden 256 (2 heads of D, 1 KV head), intermediate 256, bs 16."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+
+    z = torch.zeros
+    Hd = 2 * D
+    layer = type("Layer", (), {})()
+    layer.self_attn = type("A", (), {})()
+    layer.mlp = type("M", (), {})()
+    layer.input_layernorm = type("N", (), {"weight": z(Hd, dtype=dtype)})()
+    layer.post_attention_layernorm = type(
+        "N", (), {"weight": z(Hd, dtype=dtype)})()
+    for obj, name, shape in ((layer.self_attn, "q_proj", (Hd, Hd)),
+                             (layer.self_attn, "k_proj", (Hd, D)),
+                             (layer.self_attn, "v_proj", (Hd, D)),
+                             (layer.self_attn, "o_proj", (Hd, Hd)),
+                             (layer.mlp, "gate_proj", (Hd, 256)),
+                             (layer.mlp, "up_proj", (Hd, 256)),
+                             (layer.mlp, "down_proj", (256, Hd))):
+        setattr(obj, name, type("L", (), {"weight": z(shape, dtype=dtype)})())
+    model = type("Model", (), {})()
+    model.model = type("Inner", (), {"layers": [layer]})()
+    weights = mk.stack_layer_weights(model)
+    x = z(2, 1, Hd, dtype=dtype)
+    if not contiguous:
+        x = z(2, 1, 2 * Hd, dtype=dtype)[..., ::2]
+    pools = [z(4, 16, 1, D, dtype=dtype) for _ in range(2)]
+    return (x, pools, z(2, 3, dtype=torch.int32), z(2, dtype=torch.int32),
+            weights, z(2, 1, D // 2), z(2, 1, D // 2))
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("cpu", ValueError, "CUDA"), ("dtype", TypeError, "bfloat16"),
+    ("head_dim", ValueError, "head_dim"),
+    ("non_contiguous", ValueError, "contiguous")])
+def test_decode_tick_wrapper_raises_on_what_it_does_not_take(case, exc,
+                                                             match):
+    """The whole-tick wrapper launches nothing for a CPU tensor, a dtype, a
+    head dim or a layout the kernel does not take: it raises, where it could
+    have given way to the plain twin."""
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    args = _tick_args(**{"cpu": {}, "dtype": dict(dtype=torch.float32),
+                         "head_dim": dict(D=64),
+                         "non_contiguous": dict(contiguous=False)}[case])
+    before = decode_tick_cuda.launches
+    with pytest.raises(exc, match=match):
+        decode_tick_cuda(*args, eps=1e-5)
+    assert decode_tick_cuda.launches == before
+
+
+@pytest.mark.parametrize("mode,wrapper", [("auto", True),
+                                          ("megakernel", True),
+                                          ("reference", False)])
+def test_decode_tick_runs_the_twin_only_for_cpu_or_reference(
+        monkeypatch, mode, wrapper):
+    """``decode_tick`` hands a CUDA tensor to the kernel wrapper under
+    "auto" and "megakernel" (never to the plain twin), a CPU tensor to the
+    twin, and every tensor to the twin under "reference"."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import decode_megakernel_cuda as mkc
+
+    calls = []
+    monkeypatch.setattr(mkc, "decode_tick_cuda",
+                        lambda *a, **k: calls.append("kernel") or a[0])
+    monkeypatch.setattr(mk, "_tick_plain",
+                        lambda *a, **k: calls.append("twin") or a[0])
+    x, pools, tables, pos, weights, c, s = _tick_args()
+    ops.set_kernel_mode(mode)
+    try:
+        mk.decode_tick(x, pools, tables, pos, weights, c, s, block_size=16)
+        assert calls == ["twin"]            # a CPU tensor: the twin
+        monkeypatch.setattr(type(x), "is_cuda", property(lambda t: True))
+        mk.decode_tick(x, pools, tables, pos, weights, c, s, block_size=16)
+    finally:
+        ops.set_kernel_mode("auto")
+    assert calls[1] == ("kernel" if wrapper else "twin")
