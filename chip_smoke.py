@@ -99,30 +99,49 @@ the card:
    int8 path (the fp32 copy holds the same codes and scales), with phase
    5's limits.
 
-Phases 13-15 run between phases 5 and 9, on the same model:
+Phases 13-16 run between phases 5 and 9, on the same model:
 
 13. The whole-tick decode kernel (``decode_tick``) against its plain twin,
    bf16, at 1 and 4 of the model's layers, B=8, W in {1, 4}, phase 3's
-   positions and poisoned scratch block: output rows and the pool entries
-   the tick wrote, per row within phase 3's tolerance per rounding (two a
-   layer for the output rows), shown to reject the causal mask one key
-   off; no pool entry outside the window moves; the kernel no farther
-   from an fp32 twin than the bf16 twin, by the drift ratio of phase 5.
-   Then timed at 32 layers beside the twin, the per-layer kernels' tick
+   positions and poisoned scratch block, in each variant: fp pools, int8
+   pools (both ``dequant`` modes; "tile" at W=1), LoRA on every target
+   (pages of ranks 8, 8, 4 and the null page) over fp and over int8 pools:
+   output rows and the pool entries the tick wrote (int8: the written
+   blocks dequantized, within one code step of the block's scale on top),
+   per row within phase 3's tolerance per rounding (two a layer for the
+   output rows), shown to reject planted faults (the causal mask one key
+   off; the wrong adapter page; a scale applied twice); no pool entry
+   outside the window moves; the kernel no farther from an fp32 twin than
+   the bf16 twin, by the drift ratio of phase 5; with every row on the
+   null page the LoRA tick equals the fp tick bit for bit. Then each
+   variant timed at 32 layers beside the twin, the per-layer kernels' tick
    (the yardstick: no single PyTorch call computes a tick) and the bound.
 14. Megakernel serving: phase 4's traffic behind ``kernels="megakernel"``;
    checks that every decode tick launched ``decode_tick`` once and the
    per-layer attention never, and every prefill chunk the per-layer
    attention once a layer and ``decode_tick`` never; counts the requests
    whose tokens equal phase 4's. Prints as phase 4.
-15. End to end as phase 5, the decode ticks through ``decode_tick``.
+15. End to end as phase 5, the decode ticks through ``decode_tick`` (the
+   plain bf16 run through its twin).
+16. int8 KV pools under the bf16 model: phase 4's traffic with
+   ``kv_quant="int8"``, per layer (the int8-pool attention once a layer
+   every pass) and behind ``kernels="megakernel"`` (every decode tick one
+   ``decode_tick`` and no per-layer kernel but the final norm); then end
+   to end as phase 15.
+
+Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
+``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
+LoRA or per-layer attention launch; prefill chunks as in phase 10, the
+shared-prompt check included), then end to end as phase 15.
 
 Kernel times are device times from CUDA graphs of many calls (so the
 Python wrappers' host cost is left out); serving and training rates are
 host wall time around work that ends in a copy of its result to the host.
 
 The second-to-last line is a JSON object listing each kernel with its
-launches on the main path and its measurements; the last line is
+launches on the main path and its measurements (the tick kernel once per
+variant: ``decode_tick``, ``decode_tick_int8``, ``decode_tick_lora``, each
+with the launches of its serving cell); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -589,9 +608,11 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
     same weights (the yardstick for bf16 rounding). ``kv_quant="int8"``:
     int8 KV pools (for an int8 model the fp32 copy holds the same codes and
     scales); ``lora``: (adapter pool, page) — the request runs on that
-    adapter page, the same factors in all three runs; ``megakernel``: the
-    kernels' run takes each decode tick through the whole-tick kernel
-    (``decode_tick``; the prefill chunk keeps the per-layer kernels)."""
+    adapter page, the same factors in all three runs; ``megakernel``: both
+    bf16 runs take each decode tick through ``decode_tick`` — the kernel,
+    and its plain twin, which rounds a LoRA delta as the kernel does
+    (``bf16(base) + bf16(delta)``, where the per-layer plain path adds in
+    fp32 and rounds once); the prefill chunk keeps the per-layer path."""
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.ops import decode_megakernel as mk
 
@@ -600,10 +621,11 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
     nblk = (C + ticks) // bs + 2
     table = torch.arange(1, nblk + 1, dtype=torch.int32, device="cuda")
     shape = (nblk + 1, bs, cfg.num_key_value_heads, cfg.head_dim)
-    factors = None
+    factors = tick_lora = None
     if lora is not None:
-        factors = lora[0].layer_factors(
-            torch.tensor([lora[1]], dtype=torch.int32, device="cuda"))
+        aidx = torch.tensor([lora[1]], dtype=torch.int32, device="cuda")
+        factors = lora[0].layer_factors(aidx)
+        tick_lora = mk.lora_tables(lora[0], aidx)
 
     def pools_for(dt):
         if kv_quant == "int8":
@@ -621,7 +643,7 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
         ops.set_kernel_mode(mode)
         pools = pools_for(m.cfg.torch_dtype)
         ids = torch.tensor([prompt[:C]], device="cuda")
-        tick_kernel = megakernel and mode == "auto"
+        tick_kernel = megakernel and m is model
         weights = mk.stack_layer_weights(m) if tick_kernel else None
         with torch.no_grad():
             h, _ = m.model.paged_prefill_chunk(ids, pools, table, 0, factors)
@@ -640,7 +662,7 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
                     xo, _ = mk.decode_tick(
                         x, [p for pool in pools for p in pool], table[None],
                         posv, weights, cr, sr, block_size=bs,
-                        eps=m.cfg.rms_norm_eps)
+                        eps=m.cfg.rms_norm_eps, lora=tick_lora)
                     h = m.model.norm(xo)
                 else:
                     h, _ = m.model.paged_decode_step(tokv, pools, table[None],
@@ -719,22 +741,30 @@ def _layers_view(model, n):
         layers=model.model.layers[:n]))
 
 
-def _tick_inputs(torch, model, g, L, W):
+def _tick_inputs(torch, model, g, L, W, quant=False):
     """A tick's inputs at the serving shapes: B = 8 rows at MK_POS, window
     W, per-layer pools with blocks in a scrambled order, scratch block 0
-    poisoned with +-1e9, embedded random tokens and their rope rows."""
+    poisoned (+-1e9; int8: full codes at scale 1e9), embedded random tokens
+    and their rope rows. ``quant``: int8 pools, the random blocks quantized
+    (codes and scales of K, then of V, a layer)."""
     from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import paged_attention as pa
 
     cfg = model.cfg
     B, bs, KV, D = MAX_BATCH, BLOCK_SIZE, cfg.num_key_value_heads, cfg.head_dim
     need = [(p + W - 1) // bs + 1 for p in MK_POS]
     N = sum(need) + 8
     pools = []
-    for _ in range(2 * L):
+    for i in range(2 * L):
         p = torch.randn(N, bs, KV, D, generator=g, device="cuda").to(
             torch.bfloat16)
-        p[0] = 1e9 if len(pools) % 2 == 0 else -1e9
-        pools.append(p)
+        if quant:
+            codes, scales = pa.quantize_block_kv(p)
+            codes[0], scales[0] = 127 if i % 2 == 0 else -127, 1e9
+            pools += [codes, scales]
+        else:
+            p[0] = 1e9 if i % 2 == 0 else -1e9
+            pools.append(p)
     perm = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(2))
             + 1).tolist()
     tables = torch.zeros(B, TABLE_WIDTH, dtype=torch.int32)
@@ -750,6 +780,36 @@ def _tick_inputs(torch, model, g, L, W):
     return x, pools, tables, pos, cosr, sinr
 
 
+# the rows' adapter pages in the LoRA cases: LORA_ADAPTERS on pages 1-3
+# (ranks 8, 8, 4 in max_rank 8) and the null page 0
+MK_PAGES = [1, 2, 3, 0, 1, 0, 3, 2]
+
+
+def _tick_lora(torch, cfg, L, g):
+    """``LoraTables`` of an L-layer tick: every target, pages 1-3 holding
+    LORA_ADAPTERS' seeded factors (rank-padded to LORA_MAX_RANK) and their
+    alpha/r, page 0 the null adapter, the rows on MK_PAGES."""
+    from paddle_tpu_torch.inference.lora import LORA_TARGETS, target_dims
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+
+    R, pages = LORA_MAX_RANK, len(LORA_ADAPTERS) + 1
+    factors = {}
+    for t in LORA_TARGETS:
+        i, o = target_dims(cfg)[t]
+        A = torch.zeros(pages, L, i, R, device="cuda")
+        Bf = torch.zeros(pages, L, R, o, device="cuda")
+        for p, (_, r, _) in enumerate(LORA_ADAPTERS, start=1):
+            A[p, :, :, :r] = 0.02 * torch.randn(L, i, r, generator=g,
+                                                device="cuda")
+            Bf[p, :, :r] = 0.02 * torch.randn(L, r, o, generator=g,
+                                              device="cuda")
+        factors[t] = (A, Bf)
+    scale = torch.tensor([0.0] + [a / r for _, r, a in LORA_ADAPTERS],
+                         device="cuda")
+    return mk.LoraTables(factors, scale, torch.tensor(
+        MK_PAGES, dtype=torch.int32, device="cuda"), R)
+
+
 class _F32Weights:
     """fp32 copies of a ``LayerWeights``' tensors, for the fp32 twin."""
 
@@ -761,14 +821,108 @@ class _F32Weights:
         return self._t[name]
 
 
+# the tick's variants: (name, int8 pools, dequant mode, LoRA)
+MK_VARIANTS = (("fp", False, "scores", False),
+               ("int8", True, "scores", False),
+               ("int8_tile", True, "tile", False),
+               ("lora", False, "scores", True),
+               ("int8_lora", True, "scores", True))
+
+
+def _written_blocks(torch, tables, W, N):
+    """(block, slot) mask of the entries a tick of window W writes in a pool
+    of N blocks, and the blocks it writes (an int8 insert rewrites its
+    whole block-head)."""
+    bs = BLOCK_SIZE
+    slots = torch.zeros(N, bs, dtype=torch.bool, device="cuda")
+    for b, p in enumerate(MK_POS):
+        for w in range(W):
+            slots[tables[b, (p + w) // bs], (p + w) % bs] = True
+    return slots, slots.any(1)
+
+
+def _pool_ratio(torch, kp, rp, pools, tables, W, quant):
+    """(worst written-entry error over its tolerance, entries moved outside
+    what the tick writes). fp: per written K/V row, phase 3's tolerance
+    once per layer up to the writer. int8: the written blocks dequantized,
+    per element, one code step of the block-head's scale plus the token
+    tolerance of its largest row; no code or scale of another block may
+    move."""
+    slots, blocks = _written_blocks(torch, tables, W, pools[0].shape[0])
+    worst, moved = 0.0, 0
+    st = 4 if quant else 2
+    for i in range(0, len(pools), 2 if quant else 1):
+        layer = i // st + 1
+        if not quant:
+            a, r, p0 = kp[i], rp[i], pools[i]
+            m = slots
+            worst = max(worst, _row_ratio(a[m], r[m], _rms(r[m])).max().item()
+                        / layer)
+            moved += int((a[~m] != p0[~m]).sum())
+            continue
+        qa, sa, qr, sr = kp[i], kp[i + 1], rp[i], rp[i + 1]
+        m = blocks
+        da = qa[m].float() * sa[m][:, None, :, None]
+        dr = qr[m].float() * sr[m][:, None, :, None]
+        # a token off by its tolerance moves the block-head's scale, and
+        # every code with it, by up to that much: the token tolerance is
+        # the block-head's largest row's
+        step = torch.maximum(sa[m], sr[m])[:, None, :, None]
+        tol = step + layer * (2.0 ** -7 * dr.abs().amax((1, 3), keepdim=True)
+                              + 2.0 ** -8 * _rms(dr))
+        worst = max(worst, ((da - dr).abs() / tol).max().item())
+        moved += int((qa[~m] != pools[i][~m]).sum())
+        moved += int((sa[~m] != pools[i + 1][~m]).sum())
+    return worst, moved
+
+
+def _mutant_twin(torch, mk, fault, args, kw):
+    """The plain twin with one planted fault: the causal mask one key off
+    (``mask+1`` / ``mask-1``; scratch given ordinary values so that a key
+    read past a row's last block is plausible), every row on the next
+    row's adapter page (``wrong_page``), or a scale applied twice
+    (``scale_twice``: the int8 pools' k- and v-scales, else the adapters'
+    alpha/r)."""
+    x, pools, tables, pos, weights, cosr, sinr = args
+    mp = [p.clone() for p in pools]
+    for p in mp:
+        p[0] = p[1]
+    lora = kw["lora"]
+    orig_core, orig_scales = mk._attention_core, mk.gather_block_scales
+    if fault.startswith("mask"):
+        d = int(fault[4:])
+        mk._attention_core = (lambda q, ck, cv, qpos, *a, _d=d:
+                              orig_core(q, ck, cv, qpos + _d, *a))
+    elif fault == "wrong_page":
+        lora = mk.LoraTables(lora.factors, lora.scale,
+                             torch.roll(lora.aidx, 1), lora.max_rank)
+    elif pools[0].dtype == torch.int8:
+        mk.gather_block_scales = (lambda sc, t, bs:
+                                  orig_scales(sc, t, bs) ** 2)
+    else:
+        lora = mk.LoraTables(lora.factors, lora.scale ** 2, lora.aidx,
+                             lora.max_rank)
+    try:
+        with torch.no_grad():
+            return mk._tick_plain(x, mp, tables, pos, weights, cosr, sinr,
+                                  **dict(kw, lora=lora))
+    finally:
+        mk._attention_core, mk.gather_block_scales = orig_core, orig_scales
+
+
 def kernel_decode_tick(torch, ops, model):
     """The whole-tick kernel against its plain twin, bf16, Llama-3-8B width,
-    1 and MK_CHECK_LAYERS layers of the served model, B = 8, W in {1, 4}:
-    output rows and the pool entries the tick wrote, per row, within phase
-    3's tolerance once per layer the tick ran (see below), shown to reject
-    the causal mask one key off; and the kernel no farther from the fp32
-    twin than the bf16 twin is, by DRIFT_RATIO. Then the kernel, the twin
-    and the per-layer kernels timed at the model's full depth (W = 1)."""
+    1 and MK_CHECK_LAYERS layers of the served model, B = 8, W in {1, 4},
+    in each variant of MK_VARIANTS (fp or int8 pools, each dequant mode,
+    with and without LoRA on every target): output rows and the pool
+    entries the tick wrote, per row, within phase 3's tolerance once per
+    layer the tick ran (see below), shown to reject planted faults (the
+    causal mask one key off; with LoRA the wrong adapter page; a scale
+    applied twice); the kernel no farther from the fp32 twin than the bf16
+    twin is, by DRIFT_RATIO; with every row on the null page the LoRA
+    kernel's tick equals the fp kernel's bit for bit. Then each variant's
+    kernel, twin and per-layer kernels timed at the model's full depth
+    (W = 1). Returns {variant: [timed case, check cases...]}."""
     from paddle_tpu_torch.ops import decode_megakernel as mk
     from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
 
@@ -776,165 +930,210 @@ def kernel_decode_tick(torch, ops, model):
     cfg = model.cfg
     eps, bs = cfg.rms_norm_eps, BLOCK_SIZE
     g = torch.Generator(device="cuda").manual_seed(31)
-    cases = []
-    for W in (1, 4):
-        for L in (1, MK_CHECK_LAYERS):
-            view = _layers_view(model, L)
-            weights = mk.stack_layer_weights(view)
-            x, pools, tables, pos, cosr, sinr = _tick_inputs(torch, model, g,
-                                                             L, W)
-            kp = [p.clone() for p in pools]
-            rp = [p.clone() for p in pools]
-            fp = [p.float() for p in pools]
-            with torch.no_grad():
-                out = decode_tick_cuda(x, kp, tables, pos, weights, cosr,
-                                       sinr, eps=eps)
-                ref = mk._tick_plain(x, rp, tables, pos, weights, cosr, sinr,
-                                     eps=eps)
-                f32 = mk._tick_plain(x.float(), fp, tables, pos,
-                                     _F32Weights(weights), cosr, sinr,
-                                     eps=eps)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"decode_tick W={W} L={L}: non-finite output (scratch "
-                  f"leaked?)")
-            # Phase 3's per-row tolerance (one bf16 step of the row's
-            # largest value + 2^-8 of the rms of what is compared) holds one
-            # rounding of each side. A layer rounds its residual twice (the
-            # attention and the MLP adds) behind eight rounded products,
-            # and the two sides' roundings (fp32 sums in other orders, p
-            # kept in fp32 in the kernel) drift apart layer by layer: on an
-            # H100 the output rows reached 0.94-1.33 x the one-rounding
-            # tolerance at one layer (W = 1, 4) and 1.95 x at four, with the
-            # kernel as far from the fp32 twin as the bf16 twin (0.95-1.07
-            # x). So an output row may differ by two tolerances per layer,
-            # the K/V written by layer l by l + 1 (one rounding a layer
-            # behind them); the mask one key off exceeds that by 9-45 x
-            ratio = _row_ratio(out, ref, _rms(ref)) / (2 * L)
-            worst = ratio.max().item()
-            written = torch.zeros(pools[0].shape[:2], dtype=torch.bool,
-                                  device="cuda")
-            for b, p in enumerate(MK_POS):
-                for w in range(W):
-                    written[tables[b, (p + w) // bs], (p + w) % bs] = True
-            worst_kv, unwritten_moved = 0.0, 0
-            for i, (a, r, p0) in enumerate(zip(kp, rp, pools)):
-                worst_kv = max(worst_kv, _row_ratio(
-                    a[written], r[written], _rms(r[written])).max().item()
-                    / (i // 2 + 1))
-                unwritten_moved += int((a[~written] != p0[~written]).sum())
-            drift_rms = _rms(out.float() - f32) / _rms(ref.float() - f32)
-            drift_max = ((out.float() - f32).abs().max()
-                         / (ref.float() - f32).abs().max()).item()
-            # planted fault: the twin with the causal mask one key off
-            # either way; scratch gets ordinary values, so a key read past a
-            # row's last block is a plausible key and not the poison
-            mutants = {}
-            orig = mk._attention_core
-            for d in (1, -1):
-                mp = [p.clone() for p in pools]
-                for p in mp:
-                    p[0] = p[1]
-                mk._attention_core = (lambda q, ck, cv, qpos, *a, _d=d:
-                                      orig(q, ck, cv, qpos + _d, *a))
-                try:
+    cases = {name: [] for name, *_ in MK_VARIANTS}
+    for name, quant, dequant, with_lora in MK_VARIANTS:
+        for W in (1, 4):
+            for L in (1, MK_CHECK_LAYERS):
+                if name == "int8_tile" and W == 4:
+                    continue
+                view = _layers_view(model, L)
+                weights = mk.stack_layer_weights(view)
+                x, pools, tables, pos, cosr, sinr = _tick_inputs(
+                    torch, model, g, L, W, quant)
+                lora = _tick_lora(torch, cfg, L, g) if with_lora else None
+                kw = dict(eps=eps, dequant=dequant, lora=lora)
+                kp = [p.clone() for p in pools]
+                rp = [p.clone() for p in pools]
+                fp = [p.float() if p.dtype == torch.bfloat16 else p.clone()
+                      for p in pools]
+                with torch.no_grad():
+                    out = decode_tick_cuda(x, kp, tables, pos, weights, cosr,
+                                           sinr, **kw)
+                    ref = mk._tick_plain(x, rp, tables, pos, weights, cosr,
+                                         sinr, **kw)
+                    f32 = mk._tick_plain(x.float(), fp, tables, pos,
+                                         _F32Weights(weights), cosr, sinr,
+                                         **kw)
+                torch.cuda.synchronize()
+                label = f"decode_tick {name} W={W} L={L}"
+                check(bool(torch.isfinite(out.float()).all()),
+                      f"{label}: non-finite output (scratch leaked?)")
+                # Phase 3's per-row tolerance (one bf16 step of the row's
+                # largest value + 2^-8 of the rms of what is compared)
+                # holds one rounding of each side. A layer rounds its
+                # residual twice (the attention and the MLP adds) behind
+                # eight rounded products, and the two sides' roundings (fp32
+                # sums in other orders, p kept in fp32 in the kernel) drift
+                # apart layer by layer: on an H100 the fp output rows reached
+                # 0.94-1.33 x the one-rounding tolerance at one layer (W = 1,
+                # 4) and 1.95 x at four, with the kernel as far from the fp32
+                # twin as the bf16 twin (0.95-1.07 x). So an output row may
+                # differ by two tolerances per layer, the K/V written by
+                # layer l by l + 1 (one rounding a layer behind them); int8
+                # codes are compared dequantized, with one code step of the
+                # block's scale on top (a token that moved by a rounding can
+                # flip a code that sat on a half step)
+                ratio = _row_ratio(out, ref, _rms(ref)) / (2 * L)
+                worst = ratio.max().item()
+                worst_kv, moved = _pool_ratio(torch, kp, rp, pools, tables,
+                                              W, quant)
+                drift_rms = _rms(out.float() - f32) / _rms(ref.float() - f32)
+                drift_max = ((out.float() - f32).abs().max()
+                             / (ref.float() - f32).abs().max()).item()
+                faults = ["mask+1", "mask-1"]
+                if with_lora:
+                    faults.append("wrong_page")
+                if quant or with_lora:
+                    faults.append("scale_twice")
+                mutants = {}
+                args = (x, pools, tables, pos, weights, cosr, sinr)
+                for fault in faults:
+                    mo = _mutant_twin(torch, mk, fault, args, kw)
+                    r = _row_ratio(mo, ref, _rms(ref)) / (2 * L)
+                    mutants[fault] = dict(
+                        worst_err_over_tol=r.max().item(),
+                        rows_failed=(r > 1.0).float().mean().item())
+                    del mo
+                case = dict(variant=name, layers=L, B=MAX_BATCH, W=W,
+                            pos=MK_POS, dequant=dequant,
+                            pages=MK_PAGES if with_lora else None,
+                            max_abs_err=(out.float() - ref.float()).abs()
+                            .max().item(),
+                            worst_err_over_tol=worst,
+                            row_err_over_tol=ratio.flatten().tolist(),
+                            kv_worst_err_over_tol=worst_kv,
+                            drift_ratio_rms=drift_rms,
+                            drift_ratio_max=drift_max, mutants=mutants)
+                if with_lora and L == MK_CHECK_LAYERS:
+                    # every row on the null page: the fp kernel's tick, bit
+                    # for bit (a delta of 0 leaves bf16(base) as it is)
+                    zp = [p.clone() for p in pools]
+                    fpk = [p.clone() for p in pools]
+                    zero = mk.LoraTables(lora.factors, lora.scale,
+                                         torch.zeros_like(lora.aidx),
+                                         lora.max_rank)
                     with torch.no_grad():
-                        mo = mk._tick_plain(x, mp, tables, pos, weights,
-                                            cosr, sinr, eps=eps)
-                finally:
-                    mk._attention_core = orig
-                r = _row_ratio(mo, ref, _rms(ref)) / (2 * L)
-                mutants[f"mask{d:+d}"] = dict(
-                    worst_err_over_tol=r.max().item(),
-                    rows_failed=(r > 1.0).float().mean().item())
-                del mp, mo
-            case = dict(layers=L, B=MAX_BATCH, W=W, pos=MK_POS,
-                        max_abs_err=(out.float() - ref.float()).abs()
-                        .max().item(),
-                        worst_err_over_tol=worst,
-                        row_err_over_tol=ratio.flatten().tolist(),
-                        kv_worst_err_over_tol=worst_kv,
-                        drift_ratio_rms=drift_rms, drift_ratio_max=drift_max,
-                        mutants=mutants)
-            log(f"kernel decode_tick check W={W} ({L} layers): "
-                + json.dumps(case))
-            check(worst <= 1.0, f"decode_tick W={W} L={L}: an output row is "
-                                f"off by {worst:.3g} x its tolerance")
-            check(worst_kv <= 1.0, f"decode_tick W={W} L={L}: a written K/V "
-                                   f"row is off by {worst_kv:.3g} x its "
-                                   f"tolerance")
-            check(unwritten_moved == 0, f"decode_tick W={W} L={L}: "
-                                        f"{unwritten_moved} pool entries "
-                                        f"outside the window moved")
-            for key in ("drift_ratio_rms", "drift_ratio_max"):
-                check(case[key] <= DRIFT_RATIO, f"decode_tick W={W} L={L}: "
-                      f"{key} {case[key]:.3g} > {DRIFT_RATIO}")
-            for name, m in mutants.items():
-                check(m["worst_err_over_tol"] > 1.0,
-                      f"decode_tick W={W} L={L}: the tolerance passes the "
-                      f"{name} fault ({m['worst_err_over_tol']:.3g})")
-            cases.append(case)
-            del kp, rp, fp, pools, out, ref, f32
-            torch.cuda.empty_cache()
+                        oz = decode_tick_cuda(x, zp, tables, pos, weights,
+                                              cosr, sinr, **dict(kw,
+                                                                 lora=zero))
+                        of = decode_tick_cuda(x, fpk, tables, pos, weights,
+                                              cosr, sinr, **dict(kw,
+                                                                 lora=None))
+                    case["null_pages_bitwise_fp"] = bool(
+                        torch.equal(oz, of) and all(
+                            torch.equal(a, b) for a, b in zip(zp, fpk)))
+                    check(case["null_pages_bitwise_fp"],
+                          f"{label}: with every row on page 0 the LoRA tick "
+                          f"differs from the fp tick")
+                    del zp, fpk, oz, of
+                log(f"kernel {label}: " + json.dumps(case))
+                check(worst <= 1.0, f"{label}: an output row is off by "
+                                    f"{worst:.3g} x its tolerance")
+                check(worst_kv <= 1.0, f"{label}: a written K/V entry is off "
+                                       f"by {worst_kv:.3g} x its tolerance")
+                check(moved == 0, f"{label}: {moved} pool entries outside "
+                                  f"the window moved")
+                for key in ("drift_ratio_rms", "drift_ratio_max"):
+                    check(case[key] <= DRIFT_RATIO, f"{label}: {key} "
+                          f"{case[key]:.3g} > {DRIFT_RATIO}")
+                for fault, m in mutants.items():
+                    check(m["worst_err_over_tol"] > 1.0,
+                          f"{label}: the tolerance passes the {fault} fault "
+                          f"({m['worst_err_over_tol']:.3g})")
+                cases[name].append(case)
+                del kp, rp, fp, pools, out, ref, f32, lora
+                torch.cuda.empty_cache()
 
     # timing at full depth, W = 1, the serving path's shapes
     L = cfg.num_hidden_layers
     weights = mk.stack_layer_weights(model)
-    x, pools, tables, pos, cosr, sinr = _tick_inputs(torch, model, g, L, 1)
-    for p in pools:
-        p[0] = 0.0
-    pairs = [tuple(pools[2 * i:2 * i + 2]) for i in range(L)]
-    tok = torch.ones(MAX_BATCH, 1, dtype=torch.long, device="cuda")
-
-    def kernel():
-        decode_tick_cuda(x, pools, tables, pos, weights, cosr, sinr, eps=eps)
-
-    def plain():
-        mk._tick_plain(x, pools, tables, pos, weights, cosr, sinr, eps=eps)
-
-    def per_layer():     # the per-layer kernels' tick, embedding to norm
-        model.model.paged_decode_step(tok, pairs, tables, pos)
-
-    with torch.no_grad():
-        ms = time_ms(kernel, 5)
-        plain_ms = time_ms(plain, 2)
-        per_layer_ms = time_ms(per_layer, 3)
-    # bytes this data needs: every layer's seven projections and two norm
-    # weights once, each visible K/V row once, the window's K/V written,
-    # x in and out; operations: 2 per weight element and row, and QK + PV
-    # over the visible keys
     Hd, I = cfg.hidden_size, cfg.intermediate_size
-    KVD = cfg.num_key_value_heads * cfg.head_dim
+    KV, D = cfg.num_key_value_heads, cfg.head_dim
+    KVD = KV * D
     w_elems = Hd * Hd * 2 + 2 * Hd * KVD + 3 * Hd * I
     vis = sum(p + 1 for p in MK_POS)
-    kv_bytes = L * (2 * vis * KVD * 2 + 2 * MAX_BATCH * KVD * 2)
-    nbytes = (L * (w_elems + 2 * Hd) * 2 + kv_bytes
-              + 2 * x.numel() * 2 + tables.numel() * 4)
-    flops = L * (2 * MAX_BATCH * w_elems
-                 + 4 * cfg.head_dim * cfg.num_attention_heads * vis)
-    b, by = bound_ms(nbytes, flops, BF16_FLOPS)
-    avg_blocks = round(sum(p // bs + 1 for p in MK_POS) / MAX_BATCH)
-    est = mk.hbm_bytes_per_trip(cfg, batch=MAX_BATCH, window=1,
-                                block_size=bs, avg_ctx_blocks=avg_blocks,
-                                dtype_bytes=2)
-    timed = dict(layers=L, B=MAX_BATCH, W=1, pos=MK_POS,
+    nblk = sum(p // bs + 1 for p in MK_POS)
+    tok = torch.ones(MAX_BATCH, 1, dtype=torch.long, device="cuda")
+    timed = {}
+    for name, quant, dequant, with_lora in MK_VARIANTS:
+        x, pools, tables, pos, cosr, sinr = _tick_inputs(torch, model, g, L,
+                                                         1, quant)
+        for p in pools:
+            p[0] = 0
+        lora = _tick_lora(torch, cfg, L, g) if with_lora else None
+        kw = dict(eps=eps, dequant=dequant, lora=lora)
+        st = 4 if quant else 2
+        layer_pools = [tuple(pools[st * i:st * (i + 1)]) for i in range(L)]
+        factors = None if lora is None else [
+            {t: lora.pooled(i, t) for t in lora.factors} for i in range(L)]
+
+        def kernel():
+            decode_tick_cuda(x, pools, tables, pos, weights, cosr, sinr, **kw)
+
+        def plain():
+            mk._tick_plain(x, pools, tables, pos, weights, cosr, sinr, **kw)
+
+        def per_layer():     # the per-layer kernels' tick, embedding to norm
+            model.model.paged_decode_step(tok, layer_pools, tables, pos,
+                                          factors)
+
+        with torch.no_grad():
+            ms = time_ms(kernel, 5)
+            plain_ms = time_ms(plain, 2)
+            per_layer_ms = time_ms(per_layer, 3)
+        # bytes this data needs: every layer's seven projections and two
+        # norm weights once, each visible K/V row once (int8: each visible
+        # block's codes, which the insert reads whole, and its scales; the
+        # written block-head back), the window's K/V written, x in and
+        # out, the used adapter pages' factors once; operations: 2 per
+        # weight element and row, QK + PV over the visible keys, and the
+        # LoRA shrink and expand
+        if quant:
+            kv_bytes = L * (2 * nblk * (bs * KVD + KV * 4)
+                            + 2 * MAX_BATCH * (bs * KVD + KV * 4))
+        else:
+            kv_bytes = L * (2 * vis * KVD * 2 + 2 * MAX_BATCH * KVD * 2)
+        nbytes = (L * (w_elems + 2 * Hd) * 2 + kv_bytes
+                  + 2 * x.numel() * 2 + tables.numel() * 4)
+        flops = L * (2 * MAX_BATCH * w_elems
+                     + 4 * D * cfg.num_attention_heads * vis)
+        barriers = 5 * L
+        if lora is not None:
+            used = len(set(MK_PAGES) - {0})
+            per_page = sum(A[0, 0].numel() + B[0, 0].numel()
+                           for A, B in lora.factors.values()) * 4
+            nbytes += used * L * per_page
+            live = sum(p != 0 for p in MK_PAGES)
+            flops += 2 * live * L * per_page // 4
+            barriers += 4 * L
+        b, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        est = mk.hbm_bytes_per_trip(cfg, batch=MAX_BATCH, window=1,
+                                    block_size=bs, avg_ctx_blocks=round(
+                                        nblk / MAX_BATCH),
+                                    kv_quant="int8" if quant else "none",
+                                    dtype_bytes=2)
+        t = dict(variant=name, layers=L, B=MAX_BATCH, W=1, pos=MK_POS,
+                 dequant=dequant, pages=MK_PAGES if lora else None,
                  grid=torch.cuda.get_device_properties(0)
                  .multi_processor_count,      # one block per SM
-                 barriers_per_tick=5 * L,
+                 barriers_per_tick=barriers,
                  ms=ms, plain_ms=plain_ms, per_layer_kernels_ms=per_layer_ms,
                  bound_ms=b, bound_by=by, bytes=nbytes,
                  hbm_bytes_per_trip=est,
-                 hbm_bytes_per_trip_bound_ms=est / HBM_BYTES_PER_S * 1e3,
                  library_ms=None,
                  library_note="no single PyTorch call computes a tick; "
                               "per_layer_kernels_ms is the yardstick")
-    log("kernel decode_tick bf16 (full depth): " + json.dumps(timed))
-    del pools, pairs
-    torch.cuda.empty_cache()
-    # the main case (full depth, timed) first, with the checks' errors
-    timed["max_abs_err"] = max(c["max_abs_err"] for c in cases)
-    return [timed] + [dict(c, ms=None, plain_ms=None, bound_ms=None,
-                           bound_by=None, library_ms=None) for c in cases]
+        log(f"kernel decode_tick {name} (full depth): " + json.dumps(t))
+        # the main case (full depth, timed) first, with the checks' errors
+        t["max_abs_err"] = max(c["max_abs_err"] for c in cases[name])
+        timed[name] = t
+        del pools, layer_pools, factors, lora
+        torch.cuda.empty_cache()
+    return {name: [timed[name]] + [dict(c, ms=None, plain_ms=None,
+                                         bound_ms=None, bound_by=None,
+                                         library_ms=None)
+                                   for c in cases[name]]
+            for name in cases}
 
 
 # -------------------------------------------------------------- phase 14
@@ -962,25 +1161,73 @@ def serve_megakernel(torch, ops, model, phase4_tokens):
                                     "megakernel")
     finally:
         ops.set_kernel_mode("auto")
-    same = sum(a == b for a, b in zip(res["tokens"], phase4_tokens))
-    # generated tokens each request shares with phase 4's before the first
-    # difference: greedy decoding of random weights meets near-ties, where
-    # the two paths' bf16 roundings may pick different tokens
+    _shared_tokens(res, phase4_tokens, "serve megakernel vs phase 4")
+    return res
+
+
+def _shared_tokens(res, ref_tokens, label):
+    """Record how many requests of a megakernel cell give its per-layer
+    cell's tokens, and how many generated tokens each shares with them
+    before the first difference: greedy decoding of random weights meets
+    near-ties, where the two paths' bf16 roundings may pick different
+    tokens."""
+    same = sum(a == b for a, b in zip(res["tokens"], ref_tokens))
     common = []
-    for a, b in zip(res["tokens"], phase4_tokens):
+    for a, b in zip(res["tokens"], ref_tokens):
         n = 0
         while n < min(len(a), len(b)) and a[n] == b[n]:
             n += 1
         common.append(n)
     prompt_lens = [len(p) for p in res.pop("prompts")]
-    res["requests_identical_to_phase4"] = same
-    res["generated_tokens_shared_with_phase4"] = [
+    res["requests_identical_to_per_layer"] = same
+    res["generated_tokens_shared_with_per_layer"] = [
         c - n for c, n in zip(common, prompt_lens)]
-    log("serve megakernel vs phase 4: " + json.dumps(
-        {"requests_identical_to_phase4": same,
-         "requests": len(phase4_tokens),
-         "generated_tokens_shared_with_phase4":
-             res["generated_tokens_shared_with_phase4"]}))
+    log(f"{label}: " + json.dumps(
+        {"requests_identical": same, "requests": len(ref_tokens),
+         "generated_tokens_shared":
+             res["generated_tokens_shared_with_per_layer"]}))
+
+
+# -------------------------------------------------------------- phase 16
+def serve_int8_kv(torch, ops, model, megakernel):
+    """Phase 4's traffic over the bf16 model with ``kv_quant="int8"``
+    pools: per layer (every pass launches the int8-pool attention once a
+    layer), or behind ``kernels="megakernel"`` (every decode tick launches
+    decode_tick once and no per-layer kernel but the final norm; every
+    prefill chunk the int8-pool attention once a layer and decode_tick
+    never)."""
+    L = model.cfg.num_hidden_layers
+
+    def expect(st):
+        ticks, chunks = st["decode_ticks"], st["prefill_chunks"]
+        if megakernel:
+            return {"decode_tick": ticks,
+                    "paged_attention_int8": L * chunks,
+                    "paged_attention": 0, "w8_matmul": 0,
+                    "rms_norm": ticks + (2 * L + 1) * chunks}
+        return {"decode_tick": 0, "paged_attention_int8": L * (ticks + chunks),
+                "paged_attention": 0, "w8_matmul": 0,
+                "rms_norm": (2 * L + 1) * (ticks + chunks)}
+
+    kw = {}
+    if megakernel:
+        kw = dict(kernels="megakernel", expect_per_pass={
+            "decode_paged": {"decode_tick": 1, "paged_attention_int8": 0,
+                             "paged_attention": 0, "fused_lora_matmul": 0,
+                             "w8_matmul": 0},
+            "chunk_prefill": {"decode_tick": 0, "paged_attention_int8": L}})
+    label = "serve llama3-8b paged int8-kv" + (" megakernel" if megakernel
+                                               else "")
+    try:
+        res, _, srv = serve(torch, ops, model, label=label, expect=expect,
+                            kv_quant="int8", **kw)
+        check(srv._exec.megakernel == megakernel,
+              f"{label}: the server's megakernel flag")
+    finally:
+        ops.set_kernel_mode("auto")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1270,10 +1517,14 @@ def lora_registry(cfg):
     return reg
 
 
-def serve_lora(torch, ops, model):
+def serve_lora(torch, ops, model, megakernel=False):
     """Phase 4's traffic behind ``lora=LoRAConfig(registry, max_live_adapters
     =2, max_rank=8)``: 8 requests on three adapters, 4 without; then one
-    prompt of 2+ blocks under a1, then a2, then a2 again."""
+    prompt of 2+ blocks under a1, then a2, then a2 again. ``megakernel``
+    (phase 17): behind ``kernels="megakernel"``, where every decode tick
+    launches decode_tick once and neither the fused LoRA kernel nor the
+    per-layer attention, and every prefill chunk launches both as the
+    per-layer path does."""
     from paddle_tpu_torch.inference.lora import LoRAConfig
 
     cfg = model.cfg
@@ -1286,16 +1537,33 @@ def serve_lora(torch, ops, model):
                 None, "a2"]
 
     def expect(st):
-        passes = st["decode_ticks"] + st["prefill_chunks"]
+        ticks, chunks = st["decode_ticks"], st["prefill_chunks"]
+        if megakernel:
+            return {"decode_tick": ticks, "fused_lora_matmul": 7 * L * chunks,
+                    "paged_attention": L * chunks,
+                    "rms_norm": ticks + (2 * L + 1) * chunks}
+        passes = ticks + chunks
         return {"fused_lora_matmul": 7 * L * passes,
                 "paged_attention": L * passes,
                 "rms_norm": (2 * L + 1) * passes}
 
-    res, prompt, srv = serve(
-        torch, ops, model, label="serve llama3-8b paged lora",
-        adapters=adapters, expect=expect,
-        lora=LoRAConfig(reg, max_live_adapters=LORA_LIVE,
-                        max_rank=LORA_MAX_RANK))
+    kw = {}
+    if megakernel:
+        kw = dict(kernels="megakernel", expect_per_pass={
+            "decode_paged": {"decode_tick": 1, "fused_lora_matmul": 0,
+                             "paged_attention": 0},
+            "chunk_prefill": {"decode_tick": 0, "fused_lora_matmul": 7 * L}})
+    label = "serve llama3-8b paged lora" + (" megakernel" if megakernel
+                                            else "")
+    try:
+        res, prompt, srv = serve(
+            torch, ops, model, label=label, adapters=adapters, expect=expect,
+            lora=LoRAConfig(reg, max_live_adapters=LORA_LIVE,
+                            max_rank=LORA_MAX_RANK), **kw)
+        check(srv._exec.megakernel == megakernel,
+              f"{label}: the server's megakernel flag")
+    finally:
+        ops.set_kernel_mode("auto")
     check(res["adapters"]["adapter_evictions"] >= 1,
           f"phase 10: no adapter upload followed an eviction "
           f"({res['adapters']})")
@@ -2078,6 +2346,16 @@ def main() -> int:
     mk_res = serve_megakernel(torch, ops, model, serve_res["tokens"])
     e2e_mk = end_to_end(torch, ops, model, prompt,
                         label="end_to_end megakernel", megakernel=True)
+    # phase 16, int8 KV pools under the bf16 model: per layer, then
+    # through the whole-tick kernel
+    kv8_res = serve_int8_kv(torch, ops, model, megakernel=False)
+    kv8_mk_res = serve_int8_kv(torch, ops, model, megakernel=True)
+    _shared_tokens(kv8_mk_res, kv8_res.pop("tokens"),
+                   "serve int8-kv megakernel vs per layer")
+    kv8_res.pop("prompts")
+    e2e_kv8_mk = end_to_end(torch, ops, model, prompt,
+                            label="end_to_end int8-kv megakernel",
+                            kv_quant="int8", megakernel=True)
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -2087,6 +2365,18 @@ def main() -> int:
     e2e_lora = end_to_end(torch, ops, model, prompt, label="end_to_end lora",
                           lora=(lora_srv._lora,
                                 lora_srv._lora.acquire("a1")))
+    del lora_srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 17, the LoRA cell through the whole-tick kernel
+    lora_mk_res, _, lora_srv = serve_lora(torch, ops, model, megakernel=True)
+    _shared_tokens(lora_mk_res, lora_res["tokens"],
+                   "serve lora megakernel vs per layer")
+    e2e_lora_mk = end_to_end(torch, ops, model, prompt,
+                             label="end_to_end lora megakernel",
+                             lora=(lora_srv._lora,
+                                   lora_srv._lora.acquire("a1")),
+                             megakernel=True)
     del lora_srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -2142,26 +2432,42 @@ def main() -> int:
         entry("fused_lora_matmul", csrc + "fused_lora.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:343", lora_cases,
               lora_res["launches"]["fused_lora_matmul"]),
-        entry("decode_tick", csrc + "decode_megakernel.cu",
-              "paddle_tpu/ops/decode_megakernel.py:845", mk_cases,
-              mk_res["launches"]["decode_tick"],
-              per_layer_kernels_ms=mk_cases[0]["per_layer_kernels_ms"],
-              library_note=mk_cases[0]["library_note"]),
     ]
+    # row 13, each variant of the tick with the launches of its serving
+    # cell (the int8 variant's cases include the "tile" mode, the LoRA
+    # variant's the int8 pools with LoRA)
+    for name, cases, res in (
+            ("decode_tick", mk_cases["fp"], mk_res),
+            ("decode_tick_int8", mk_cases["int8"] + mk_cases["int8_tile"],
+             kv8_mk_res),
+            ("decode_tick_lora", mk_cases["lora"] + mk_cases["int8_lora"],
+             lora_mk_res)):
+        kernels.append(entry(
+            name, csrc + "decode_megakernel.cu",
+            "paddle_tpu/ops/decode_megakernel.py:845", cases,
+            res["launches"]["decode_tick"],
+            per_layer_kernels_ms=cases[0]["per_layer_kernels_ms"],
+            library_note=cases[0]["library_note"]))
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
     for label, res, e in (("serve llama3-8b paged", serve_res, e2e),
                           ("serve llama3-8b paged megakernel", mk_res,
                            e2e_mk),
+                          ("serve llama3-8b paged int8-kv", kv8_res, None),
+                          ("serve llama3-8b paged int8-kv megakernel",
+                           kv8_mk_res, e2e_kv8_mk),
                           ("serve llama3-8b paged lora", lora_res, e2e_lora),
+                          ("serve llama3-8b paged lora megakernel",
+                           lora_mk_res, e2e_lora_mk),
                           ("serve llama3-8b paged int8", int8_res, e2e_int8)):
         breakdown = res.pop("breakdown")
-        res.pop("tokens")
+        res.pop("tokens", None)
         res.pop("prompts", None)
         log(f"{label}: " + json.dumps(res))
         log("pass breakdown (host vs device): " + json.dumps(breakdown))
-        log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))
+        if e is not None:
+            log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))
     log("train llama3-8b (8 layers): " + json.dumps(train_res))
     log("train end_to_end kernels vs plain vs fp32: " + json.dumps(train_e2e))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -18,10 +18,12 @@ place.
 
 Under ``set_kernel_mode("megakernel")`` (``GenerationServer(kernels=
 "megakernel")``) a decode tick runs every layer as one launch of the
-whole-tick kernel (:meth:`_mk_window`, JAX ``_decode_megakernel_fn``);
-prefill chunks keep the per-layer kernels. The guard runs once, at
-construction, and a configuration the kernel does not serve raises there:
-unlike the JAX executor, nothing falls back to the per-layer programs.
+whole-tick kernel (:meth:`_mk_window`, JAX ``_decode_megakernel_fn``), over
+fp or int8 pools, with the slots' LoRA adapters read from the adapter
+pool's pages; prefill chunks keep the per-layer kernels. The guard runs
+once, at construction, and a configuration the kernel does not serve
+raises there: unlike the JAX executor, nothing falls back to the per-layer
+programs.
 """
 from __future__ import annotations
 
@@ -69,19 +71,13 @@ class PagedExecutor:
         if ops.use_megakernel():
             from ..ops import decode_megakernel as mk
 
-            if engine.kv_quant == "int8":
-                raise NotImplementedError(
-                    "kernels='megakernel' with kv_quant='int8': the int8-KV "
-                    "variant of the whole-tick kernel (in-kernel whole-block "
-                    "requantization) is not ported yet")
-            if engine._lora is not None:
-                raise NotImplementedError(
-                    "kernels='megakernel' with lora=: the whole-tick "
-                    "kernel's LoRA streams are not ported yet")
             geom = engine.mk_geometry or mk.MegakernelGeometry()
-            reason = mk.megakernel_supported(engine.model, cfg,
-                                             block_size=engine.block_size,
-                                             geometry=geom)
+            lora = engine._lora
+            reason = mk.megakernel_supported(
+                engine.model, cfg, block_size=engine.block_size,
+                geometry=geom, lora=lora is not None,
+                kv_quant=engine.kv_quant,
+                lora_rank=0 if lora is None else lora.max_rank)
             if reason is not None:
                 self.megakernel_reason = reason
                 raise ValueError(f"kernels='megakernel' cannot serve this "
@@ -110,7 +106,7 @@ class PagedExecutor:
         tokens, int32 (1, B)."""
         model = self.engine.model
         if self.megakernel:
-            h = self._mk_window(tokens[:, None], tables, pos)
+            h = self._mk_window(tokens[:, None], tables, pos, aidx)
         else:
             h, _ = model.model.paged_decode_step(tokens[:, None], self.pools,
                                                  tables, pos,
@@ -122,11 +118,12 @@ class PagedExecutor:
             nxt = sample_token_rows(lg, generator, temps, topks, topps)
         return nxt[None]
 
-    def _mk_window(self, window, tables, pos):
+    def _mk_window(self, window, tables, pos, aidx=None):
         """One W-token tick through the whole-tick kernel: embed →
-        ``decode_tick`` (every layer, the pools written in place) → final
-        norm. window: int (B, W). Returns the normed hidden (B, W, hidden);
-        the head stays outside, as in the JAX executor."""
+        ``decode_tick`` (every layer, the pools written in place, the rows'
+        adapters read at their pages ``aidx``) → final norm. window: int
+        (B, W). Returns the normed hidden (B, W, hidden); the head stays
+        outside, as in the JAX executor."""
         from ..ops import decode_megakernel as mk
 
         engine = self.engine
@@ -135,10 +132,13 @@ class PagedExecutor:
         x = m.embed_tokens(window)
         cosr, sinr = mk.gather_rope_rows(m._cos, m._sin, pos,
                                          window.shape[1])
+        lora = (None if engine._lora is None
+                else mk.lora_tables(engine._lora, aidx))
         xo, _ = mk.decode_tick(x, self._flat_pools, tables, pos,
                                self._mk_weights, cosr, sinr,
                                block_size=engine.block_size,
-                               eps=engine.cfg.rms_norm_eps)
+                               geometry=self._mk_geometry,
+                               eps=engine.cfg.rms_norm_eps, lora=lora)
         return m.norm(xo)
 
     @torch.no_grad()

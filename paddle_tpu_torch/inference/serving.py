@@ -24,9 +24,11 @@ adapter, and the JAX server, which hashes tokens only, shares blocks
 across adapters (a fault of the reference).
 
 ``kernels="megakernel"`` runs each decode tick as ONE launch of the
-whole-tick CUDA kernel (ops/decode_megakernel.py) over fp pools without
-LoRA; prefill chunks keep the per-layer kernels. A configuration it does
-not serve raises at construction (no fallback).
+whole-tick CUDA kernel (ops/decode_megakernel.py), over fp or
+``kv_quant="int8"`` pools, with or without ``lora=``; prefill chunks keep
+the per-layer kernels. A configuration it does not serve (an int8-weight
+model, a LoRA ``max_rank`` over the kernel's 16, a geometry it does not
+take) raises at construction (no fallback).
 
 Not ported yet (their constructor arguments raise ``NotImplementedError``
 when given a non-default value): the dense cache, ``tick_window > 1``,
@@ -122,12 +124,13 @@ class GenerationServer:
     ``kernels``: ``"auto"`` (default) leaves the process-wide
     :func:`paddle_tpu_torch.ops.set_kernel_mode` as it is; ``"megakernel"``
     (requires ``cache="paged"``) sets it so that every decode tick runs all
-    layers as one launch of the whole-tick kernel — fp KV pools, no LoRA,
-    fp weights; anything else raises at construction, naming the reason
-    (``_exec.megakernel_reason``); ``"reference"`` pins the plain versions.
-    ``mk_geometry``: a :class:`~..ops.decode_megakernel.MegakernelGeometry`,
-    accepted only with ``kernels="megakernel"``; the kernel takes the
-    default geometry only."""
+    layers as one launch of the whole-tick kernel — fp weights, fp or int8
+    KV pools, with or without LoRA; anything else raises at construction,
+    naming the reason (``_exec.megakernel_reason``); ``"reference"`` pins
+    the plain versions. ``mk_geometry``: a
+    :class:`~..ops.decode_megakernel.MegakernelGeometry`, accepted only with
+    ``kernels="megakernel"``; the kernel takes the default ``ffn_tile`` and
+    ``prefetch_depth`` and either ``dequant`` (int8 pools)."""
 
     def __init__(self, model, max_batch: int = 4, max_len: int = 256,
                  eos_token_id: Optional[int] = None, seed: int = 0,

@@ -3,10 +3,11 @@
 // launch.
 //
 // Replaces: paddle_tpu/ops/decode_megakernel.py, `_tick_kernel` (launched by
-// `decode_tick`, the `pallas_call` at :845), fp KV pools without LoRA. Per
-// layer: RMSNorm, q/k/v products, RoPE, the window's K/V written through the
-// block table, paged attention (online softmax, the in-window causal mask),
-// o product + residual, RMSNorm, SiLU(g) * u, down product + residual.
+// `decode_tick`, the `pallas_call` at :845), fp or int8 KV pools, with or
+// without pooled LoRA deltas. Per layer: RMSNorm, q/k/v products, RoPE, the
+// window's K/V written through the block table, paged attention (online
+// softmax, the in-window causal mask), o product + residual, RMSNorm,
+// SiLU(g) * u, down product + residual.
 //
 // Bound: bytes. A tick reads every layer's seven projection weights once
 // (436 MB a layer at Llama-3-8B, 14 GB a tick) and the rows' visible K/V; at
@@ -45,6 +46,44 @@
 // through the non-coherent read-only path. The kernel allocates nothing:
 // the residual, q, the attention output and the SiLU product are scratch
 // tensors of the wrapper.
+//
+// int8 pools (quant = 1; codes (N, bs, KV, D) int8, scales (N, KV) f32, four
+// tensors a layer). A window token joins its block by whole-block
+// requantization (the reference's _insert_token_q: dequantize the block-head,
+// drop the token in, absmax, re-code), which needs the whole block-head
+// while a P1 item holds a quarter of one head. So P1 writes the roped,
+// bf16-rounded K and V rows to a scratch (B*W, KV*D), and the P2 item of
+// (row b, KV head g) — the only item that touches head g of row b's blocks —
+// inserts its W tokens in window order before it reads any block: no extra
+// barrier. The block-head (bs x 128) is dequantized into shared memory in
+// fp32, the per-head absmax reduced over the block, the scale
+// max(amax, 1e-8) / 127 computed with IEEE division, and the codes rounded
+// half to even (rintf, as torch.round) and clamped to +-127. A token bound
+// for scratch block 0 (idle and prefilling rows) is not inserted: those
+// rows would requantize block 0 concurrently; block 0 is never attended, so
+// skipping keeps the kernel deterministic and leaves every live block as
+// the reference writes it. Attention widens each lane's four codes in
+// registers (exact) with the block's two scales beside them, in the mode's
+// order: dequant = 0 ("scores") multiplies the fp32 QK sum by the k-scale
+// before the division by sqrt(D) and p by the v-scale before PV, the
+// running sum taking p unscaled; dequant = 1 ("tile") rounds code * scale
+// to bf16 first, as the reference dequantizes its VMEM tile.
+//
+// LoRA (la[t] != nullptr for a served target t of q k v o gate up down):
+// the adapter pool's pages are read in place, A (pages, L, in, R) and B
+// (pages, L, R, out) f32, the row's page from laidx and its alpha/r from
+// lscale; page 0 is the null adapter and its rows are skipped (their
+// outputs are the fp kernel's, bit for bit). A delta has two steps. The
+// shrink t = x @ A[page] needs a whole input row, so it gets a phase of
+// its own before its products: items (row, target, 512-wide K slice)
+// write fp32 partial sums to a scratch (B*W, 7, NS, R), then a barrier.
+// The expand runs in the product's epilogue: for its 8 rows x 32 columns
+// the block adds the slices in order, d = s * (t @ B[page]) in fp32, and
+// out = bf16(bf16(base) + bf16(d)) — the JAX kernel's rounding (the fused
+// LoRA kernel of the per-layer path rounds once instead). q/k/v deltas come
+// before RoPE and the K/V write, the o delta reads the attention output,
+// the down delta SiLU(g) * u. Four shrink phases a layer (before q/k/v, o,
+// gate/up and down) add four barriers.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -67,13 +106,18 @@ constexpr int kKStep = kKGroups * kUnroll;        // 256: K % kKStep == 0
 constexpr int kChunk = 4096;    // K staged in shared memory at a time
 constexpr int kMaxRows = 64;    // B * W
 constexpr int kAttnRows = 8;    // query rows of one attention pass
+constexpr int kTargets = 7;     // LoRA targets: q k v o gate up down
+constexpr int kMaxRank = 16;    // largest LoRA rank staged
+constexpr int kShrink = 512;    // K slice of one shrink item
+constexpr int kRedFloats = kKGroups * kRows * kTileN;
+constexpr int kMaxBlock = kRedFloats / kHeadDim;  // int8: bs <= 128
 constexpr float kNegInf = -1e30f;
 
 typedef __nv_bfloat16 bf16;
 
 struct Args {
   const long long* wptrs;    // (9, L): wq wk wv wo wg wu wd ln1 ln2
-  const long long* pools;    // (2 L): k0 v0 k1 v1 ...
+  const long long* pools;    // fp: (2 L) k0 v0 ...; int8: (4 L) kq0 ks0 vq0 vs0 ...
   const int* tables;         // (B, M)
   const int* pos;            // (B,)
   const float* cos_rows;     // (B*W, D/2)
@@ -82,14 +126,25 @@ struct Args {
   bf16* q;                   // (B*W, H*D) scratch
   bf16* ao;                  // (B*W, H*D) scratch
   bf16* hbuf;                // (B*W, I) scratch
+  bf16* ktok;                // int8: (B*W, KV*D) roped K rows of the window
+  bf16* vtok;                // int8: (B*W, KV*D) V rows of the window
+  const float* la[kTargets];   // LoRA A (pages, L, in, R) or nullptr
+  const float* lb[kTargets];   // LoRA B (pages, L, R, out) or nullptr
+  const float* lscale;       // (pages,) alpha / r
+  const int* laidx;          // (B,) page of each row
+  float* lpart;              // (B*W, 7, NS, R) shrink partial sums
   int L, B, W, H, KV, I, bs, M;
+  int dequant, R, NS;        // int8: 0 "scores", 1 "tile"; LoRA rank, slices
   float eps;
 };
 
 struct Smem {
   float xs[kChunk * kRows];              // staged input rows [k][row]
   union {
-    float red[kKGroups * kRows * kTileN];  // partial sums [kgroup][row][col]
+    float red[kRedFloats];               // partial sums [kgroup][row][col];
+                                         // int8: one dequantized block-head
+    float lt[kRows * kMaxRank];          // LoRA: t = x @ A of the tile's rows
+                                         // (once gemv_tile has read red)
     struct {
       float q[kAttnRows * kHeadDim];
       float m[kWarps * kAttnRows];
@@ -98,9 +153,17 @@ struct Smem {
     } at;
   } u;
   float out[kRows * kTileN];             // summed tile
-  float gate[kRows * kTileN];            // gate tile of P4
+  union {
+    float gate[kRows * kTileN];          // gate tile of P4
+    float wred[kWarps * kMaxRank];       // per-warp partials of a reduction
+                                         // (LoRA shrink, int8 requantization)
+  } gw;
   float inv[kMaxRows];                   // per-row 1/rms
 };
+// With the 1 KB an SM reserves per block, the block must fit the 196 KB
+// shared-memory carve-out: the next one (228 KB) would leave L1, where the
+// register spills live, 28 KB instead of 60.
+static_assert(sizeof(Smem) + 1024 <= 196 * 1024, "Smem outgrew its carve-out");
 
 __device__ __forceinline__ float bf(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16(v));
@@ -121,6 +184,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// (in, out) dims of LoRA target t (q k v o gate up down).
+__device__ __forceinline__ void lora_dims(const Args& a, int t, int& K, int& N) {
+  const int hid = a.H * kHeadDim;
+  K = t == 6 ? a.I : hid;
+  N = t == 1 || t == 2 ? a.KV * kHeadDim : t == 4 || t == 5 ? a.I : hid;
 }
 
 // 1/rms of every row of the residual, into s.inv (block-wide).
@@ -148,6 +224,13 @@ struct XSrc {
   int ld;             // row length of src
   int id;             // identity for the staging cache
 };
+
+// Element k of input row r, normed and rounded as stage() does.
+__device__ __forceinline__ float x_at(const XSrc& x, int r, int k, const Smem& s) {
+  const float f = ldcg_bf(x.src + (size_t)r * x.ld + k);
+  if (x.norm == nullptr) return f;
+  return bf(__fmul_rn(__fmul_rn(f, s.inv[r]), __bfloat162float(x.norm[k])));
+}
 
 // Stage rows [r0, r0 + 8) x K [k0, k0 + n) of the input as fp32 [k][row].
 __device__ void stage(const XSrc& x, int rows, int r0, int k0, int n, Smem& s) {
@@ -234,7 +317,102 @@ __device__ void gemv_tile(const bf16* __restrict__ w, int N, int K,
   __syncthreads();
 }
 
+// ------------------------------------------------------------ LoRA
+// True when one of the LoRA targets t0 .. t0 + nt - 1 is served.
+__device__ __forceinline__ bool any_served(const Args& a, int t0, int nt) {
+  for (int t = t0; t < t0 + nt; ++t)
+    if (a.la[t] != nullptr) return true;
+  return false;
+}
+
+// Shrink phase of the LoRA targets t0 .. t0 + nt - 1 (they share the input
+// x and its length): for each served target t, every row r on a page
+// other than 0 and every K slice sp, lpart[r][t][sp][:R] = the slice's
+// share of x[r] @ A_t[page, l]. An item is (row, target, slice); its 256
+// threads take K elements in turn and the partial sums are reduced in a
+// fixed order (warp trees, then the warps in order).
+__device__ void phase_shrink(const Args& a, int l, int t0, int nt,
+                             const XSrc& x, Smem& s) {
+  const int rows = a.B * a.W, R = a.R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int K, N;
+  lora_dims(a, t0, K, N);
+  const int ns = (K + kShrink - 1) / kShrink;
+  if (x.norm != nullptr) {
+    row_inv_rms(a, rows, a.H * kHeadDim, s);
+    __syncthreads();
+  }
+  for (int it = blockIdx.x; it < rows * nt * ns; it += gridDim.x) {
+    const int r = it / (nt * ns), t = t0 + (it / ns) % nt, sp = it % ns;
+    const int page = __ldg(a.laidx + r / a.W);
+    if (page == 0 || a.la[t] == nullptr) continue;
+    const float* A = a.la[t] + ((size_t)page * a.L + l) * K * R;
+    float acc[kMaxRank];
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) acc[j] = 0.f;
+    const int k1 = min(K, (sp + 1) * kShrink);
+    for (int k = sp * kShrink + threadIdx.x; k < k1; k += kThreads) {
+      const float xv = x_at(x, r, k, s);
+      const float* ak = A + (size_t)k * R;
+#pragma unroll
+      for (int j = 0; j < kMaxRank; ++j)
+        if (j < R) acc[j] = fmaf(xv, __ldg(ak + j), acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) {
+      if (j >= R) break;
+      const float v = warp_sum(acc[j]);
+      if (lane == 0) s.gw.wred[warp * kMaxRank + j] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < R) {
+      float v = 0.f;
+      for (int w = 0; w < kWarps; ++w) v += s.gw.wred[w * kMaxRank + threadIdx.x];
+      a.lpart[(((size_t)r * kTargets + t) * a.NS + sp) * R + threadIdx.x] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// Expand epilogue of LoRA target t on a product tile (rows r0.., the 32
+// columns of `cols` of an N-wide output): for rows on a page other than 0,
+// s.out = bf16(bf16(base) + bf16(scale * (t @ B_t[page, l]))), t being the
+// sum of the row's shrink slices in order. Rows on page 0 keep s.out.
+__device__ void lora_expand(const Args& a, int l, int t, const int* cols,
+                            int rows, int r0, Smem& s) {
+  if (a.la[t] == nullptr) return;
+  int K, N;
+  lora_dims(a, t, K, N);
+  const int ns = (K + kShrink - 1) / kShrink, R = a.R;
+  if (threadIdx.x < kRows * kMaxRank) {
+    const int m = threadIdx.x / kMaxRank, j = threadIdx.x % kMaxRank, r = r0 + m;
+    float v = 0.f;
+    if (r < rows && j < R && __ldg(a.laidx + r / a.W) != 0) {
+      const float* p = a.lpart + (((size_t)r * kTargets + t) * a.NS) * R + j;
+      for (int sp = 0; sp < ns; ++sp) v += __ldcg(p + (size_t)sp * R);
+    }
+    s.u.lt[threadIdx.x] = v;
+  }
+  __syncthreads();
+  const int m = threadIdx.x / kTileN, c = threadIdx.x % kTileN, r = r0 + m;
+  if (r < rows) {
+    const int page = __ldg(a.laidx + r / a.W);
+    if (page != 0) {
+      const int cg = c >> 3;
+      const int col = (cg == 0 ? cols[0] : cg == 1 ? cols[1]
+                       : cg == 2 ? cols[2] : cols[3]) + (c & 7);
+      const float* bp = a.lb[t] + ((size_t)page * a.L + l) * R * N + col;
+      float d = 0.f;
+      for (int j = 0; j < R; ++j) d = fmaf(s.u.lt[m * kMaxRank + j], __ldg(bp + (size_t)j * N), d);
+      d *= __ldg(a.lscale + page);
+      s.out[m * kTileN + c] = bf(bf(s.out[m * kTileN + c]) + bf(d));
+    }
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------- phase 1
+template <bool kQ, bool kLora>
 __device__ void phase_qkv(const Args& a, int l, Smem& s, int& staged) {
   const int D = kHeadDim, H = a.H, KV = a.KV, hid = H * D;
   const int rows = a.B * a.W;
@@ -242,8 +420,9 @@ __device__ void phase_qkv(const Args& a, int l, Smem& s, int& staged) {
   const bf16* wq = reinterpret_cast<const bf16*>(a.wptrs[0 * a.L + l]);
   const bf16* wk = reinterpret_cast<const bf16*>(a.wptrs[1 * a.L + l]);
   const bf16* wv = reinterpret_cast<const bf16*>(a.wptrs[2 * a.L + l]);
-  bf16* kpool = reinterpret_cast<bf16*>(a.pools[2 * l]);
-  bf16* vpool = reinterpret_cast<bf16*>(a.pools[2 * l + 1]);
+  const int st = kQ ? 4 : 2;
+  bf16* kpool = reinterpret_cast<bf16*>(a.pools[st * l]);
+  bf16* vpool = reinterpret_cast<bf16*>(a.pools[st * l + st / 2]);
   row_inv_rms(a, rows, hid, s);
   __syncthreads();
   const XSrc x{a.xres, ln1, hid, 1};
@@ -271,6 +450,7 @@ __device__ void phase_qkv(const Args& a, int l, Smem& s, int& staged) {
     }
     for (int r0 = 0; r0 < rows; r0 += kRows) {
       gemv_tile(w, N, hid, cols, x, rows, r0, staged, s);
+      if (kLora) lora_expand(a, l, kind, cols, rows, r0, s);  // q, k, v
       const int t = threadIdx.x;
       if (kind < 2) {
         // 8 rows x 16 rope pairs: 128 threads
@@ -288,6 +468,10 @@ __device__ void phase_qkv(const Args& a, int l, Smem& s, int& staged) {
               bf16* qr = a.q + (size_t)r * hid + head * D;
               qr[d] = o1;
               qr[d + D / 2] = o2;
+            } else if (kQ) {                        // to the token scratch
+              bf16* kr = a.ktok + (size_t)r * KV * D + head * D;
+              kr[d] = o1;
+              kr[d + D / 2] = o2;
             } else {
               const int b = r / a.W, pj = __ldg(a.pos + b) + r % a.W;
               if (pj / a.bs < a.M) {
@@ -302,11 +486,15 @@ __device__ void phase_qkv(const Args& a, int l, Smem& s, int& staged) {
       } else {
         const int m = t / kTileN, c = t % kTileN, r = r0 + m;
         if (r < rows) {
-          const int b = r / a.W, pj = __ldg(a.pos + b) + r % a.W;
-          if (pj / a.bs < a.M) {
-            const int blk = __ldg(a.tables + (size_t)b * a.M + pj / a.bs);
-            vpool[((size_t)blk * a.bs + pj % a.bs) * KV * D + cols[0] + c] =
-                __float2bfloat16(s.out[m * kTileN + c]);
+          const bf16 v = __float2bfloat16(s.out[m * kTileN + c]);
+          if (kQ) {
+            a.vtok[(size_t)r * KV * D + cols[0] + c] = v;
+          } else {
+            const int b = r / a.W, pj = __ldg(a.pos + b) + r % a.W;
+            if (pj / a.bs < a.M) {
+              const int blk = __ldg(a.tables + (size_t)b * a.M + pj / a.bs);
+              vpool[((size_t)blk * a.bs + pj % a.bs) * KV * D + cols[0] + c] = v;
+            }
           }
         }
       }
@@ -315,11 +503,69 @@ __device__ void phase_qkv(const Args& a, int l, Smem& s, int& staged) {
 }
 
 // ---------------------------------------------------------------- phase 2
+// int8: insert one token (head g's 128 values at `tok`) at slot `off` of
+// block `bid`, requantizing the block-head in place (block-wide).
+__device__ void insert_token_q(int8_t* codes, float* scales, const bf16* tok,
+                               int bid, int off, int g, const Args& a, Smem& s) {
+  const int D = kHeadDim, n = a.bs * D;
+  const size_t row = (size_t)a.KV * D;
+  int8_t* base = codes + (size_t)bid * a.bs * row + (size_t)g * D;
+  const float sc = __ldcg(scales + (size_t)bid * a.KV + g);
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int j = i / D, d = i % D;
+    const float v = j == off ? ldcg_bf(tok + d)
+                             : __fmul_rn((float)__ldcg(base + j * row + d), sc);
+    s.u.red[i] = v;
+    amax = fmaxf(amax, fabsf(v));
+  }
+  amax = warp_max(amax);
+  if ((threadIdx.x & 31) == 0) s.gw.wred[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  float m = 0.f;
+  for (int w = 0; w < kWarps; ++w) m = fmaxf(m, s.gw.wred[w]);
+  const float ns = __fdiv_rn(fmaxf(m, 1e-8f), 127.0f);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float qv = fminf(fmaxf(rintf(__fdiv_rn(s.u.red[i], ns)), -127.f), 127.f);
+    base[(i / D) * row + i % D] = (int8_t)qv;
+  }
+  if (threadIdx.x == 0) scales[(size_t)bid * a.KV + g] = ns;
+  __syncthreads();
+}
+
+// One lane's four K (or V) elements of one key as loaded: four bf16 (fp
+// pool) or four int8 codes.
+template <bool kQ> struct Raw4 { typedef uint2 T; typedef bf16 E; };
+template <> struct Raw4<true> { typedef unsigned T; typedef int8_t E; };
+
+// Widen them to fp32: exact, or for dequant "tile" the rounded code * scale.
+template <bool kQ, bool kTile>
+__device__ __forceinline__ void widen4(const typename Raw4<kQ>::T& u, float sc,
+                                       float* f) {
+  if constexpr (kQ) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float c = (float)(int8_t)(u >> (8 * e));
+      f[e] = kTile ? bf(__fmul_rn(c, sc)) : c;
+    }
+  } else {
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[j] = __bfloat162float(e[j]);
+  }
+}
+
+template <bool kQ, bool kTile>
 __device__ void phase_attention(const Args& a, int l, Smem& s) {
   const int D = kHeadDim, H = a.H, KV = a.KV, hid = H * D;
   const int rep = H / KV, Wr = a.W * rep;
-  const bf16* kpool = reinterpret_cast<const bf16*>(a.pools[2 * l]);
-  const bf16* vpool = reinterpret_cast<const bf16*>(a.pools[2 * l + 1]);
+  const int st = kQ ? 4 : 2;
+  typedef typename Raw4<kQ>::T RawT;
+  typedef typename Raw4<kQ>::E ElemT;
+  const ElemT* kpool = reinterpret_cast<const ElemT*>(a.pools[st * l]);
+  const ElemT* vpool = reinterpret_cast<const ElemT*>(a.pools[st * l + st / 2]);
+  const float* kscl = kQ ? reinterpret_cast<const float*>(a.pools[4 * l + 1]) : nullptr;
+  const float* vscl = kQ ? reinterpret_cast<const float*>(a.pools[4 * l + 3]) : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float sqrt_d = sqrtf((float)D);
   const size_t key_stride = (size_t)KV * D;
@@ -327,6 +573,25 @@ __device__ void phase_attention(const Args& a, int l, Smem& s) {
     const int b = it / KV, g = it % KV;
     const int p0 = __ldg(a.pos + b);
     const int nb = min((p0 + a.W - 1) / a.bs + 1, a.M);
+    if (kQ) {
+      // this item alone touches head g of row b's blocks: insert the
+      // window's tokens in order, then attend (the barrier: the previous
+      // item's merge may still read the shared memory the insert reuses)
+      __syncthreads();
+      for (int w = 0; w < a.W; ++w) {
+        const int pj = p0 + w;
+        if (pj / a.bs >= a.M) continue;
+        const int bid = __ldg(a.tables + (size_t)b * a.M + pj / a.bs);
+        if (bid == 0) continue;          // scratch: see the design note
+        const size_t tr = (size_t)(b * a.W + w) * key_stride + (size_t)g * D;
+        insert_token_q(reinterpret_cast<int8_t*>(a.pools[4 * l]),
+                       reinterpret_cast<float*>(a.pools[4 * l + 1]),
+                       a.ktok + tr, bid, pj % a.bs, g, a, s);
+        insert_token_q(reinterpret_cast<int8_t*>(a.pools[4 * l + 2]),
+                       reinterpret_cast<float*>(a.pools[4 * l + 3]),
+                       a.vtok + tr, bid, pj % a.bs, g, a, s);
+      }
+    }
     for (int rc = 0; rc < Wr; rc += kAttnRows) {
       const int nr = min(kAttnRows, Wr - rc);
       __syncthreads();
@@ -351,25 +616,28 @@ __device__ void phase_attention(const Args& a, int l, Smem& s) {
       }
       for (int blk = warp; blk < nb; blk += kWarps) {
         const int bid = __ldg(a.tables + (size_t)b * a.M + blk);
-        const bf16* kb = kpool + (size_t)bid * a.bs * key_stride + g * D + lane * 4;
-        const bf16* vb = vpool + (size_t)bid * a.bs * key_stride + g * D + lane * 4;
+        const size_t off = (size_t)bid * a.bs * key_stride + g * D + lane * 4;
+        const ElemT* kb = kpool + off;
+        const ElemT* vb = vpool + off;
+        // int8: the block-head's scales (dequant "scores": the k-scale on
+        // the QK sum, the v-scale on p)
+        float ksc = 1.f, vsc = 1.f;
+        if (kQ) {
+          ksc = __ldcg(kscl + (size_t)bid * KV + g);
+          vsc = __ldcg(vscl + (size_t)bid * KV + g);
+        }
         for (int j0 = 0; j0 < a.bs; j0 += 8) {
-          uint2 kr[8], vr[8];
+          RawT kr[8], vr[8];           // every load in flight before use
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            kr[j] = __ldcg(reinterpret_cast<const uint2*>(kb + (j0 + j) * key_stride));
-            vr[j] = __ldcg(reinterpret_cast<const uint2*>(vb + (j0 + j) * key_stride));
+            kr[j] = __ldcg(reinterpret_cast<const RawT*>(kb + (j0 + j) * key_stride));
+            vr[j] = __ldcg(reinterpret_cast<const RawT*>(vb + (j0 + j) * key_stride));
           }
           float kf[8][4], vf[8][4];
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const bf16* ke = reinterpret_cast<const bf16*>(&kr[j]);
-            const bf16* ve = reinterpret_cast<const bf16*>(&vr[j]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              kf[j][e] = __bfloat162float(ke[e]);
-              vf[j][e] = __bfloat162float(ve[e]);
-            }
+            widen4<kQ, kTile>(kr[j], ksc, kf[j]);
+            widen4<kQ, kTile>(vr[j], vsc, vf[j]);
           }
           const int key0 = blk * a.bs + j0;
 #pragma unroll
@@ -384,7 +652,9 @@ __device__ void phase_attention(const Args& a, int l, Smem& s) {
               part = fmaf(qv[r][1], kf[j][1], part);
               part = fmaf(qv[r][2], kf[j][2], part);
               part = fmaf(qv[r][3], kf[j][3], part);
-              const float sv = warp_sum(part) / sqrt_d;
+              float sv = warp_sum(part);
+              if (kQ && !kTile) sv *= ksc;
+              sv /= sqrt_d;
               sc[j] = key0 + j <= qpos ? sv : kNegInf;
               mx = fmaxf(mx, sc[j]);
             }
@@ -397,8 +667,9 @@ __device__ void phase_attention(const Args& a, int l, Smem& s) {
             for (int j = 0; j < 8; ++j) {
               const float p = key0 + j <= qpos ? expf(sc[j] - mn) : 0.f;
               psum += p;
+              const float pv = kQ && !kTile ? p * vsc : p;
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[e] = fmaf(p, vf[j][e], acc[e]);
+              for (int e = 0; e < 4; ++e) acc[e] = fmaf(pv, vf[j][e], acc[e]);
             }
             lr[r] = lr[r] * alpha + psum;
             mr[r] = mn;
@@ -437,15 +708,18 @@ __device__ void phase_attention(const Args& a, int l, Smem& s) {
 }
 
 // ------------------------------------------------------- phases 3 and 5
-// out-product + residual: xres[:, cols] = bf16(xres + bf16(x @ w)).
-__device__ void phase_residual(const Args& a, const bf16* w, const XSrc& x,
-                               int K, Smem& s, int& staged) {
+// out-product + residual: xres[:, cols] = bf16(xres + bf16(x @ w)), with
+// LoRA target lt's delta (3: o, 6: down) added to the product first.
+template <bool kLora>
+__device__ void phase_residual(const Args& a, int l, const bf16* w, int lt,
+                               const XSrc& x, int K, Smem& s, int& staged) {
   const int hid = a.H * kHeadDim, rows = a.B * a.W;
   for (int it = blockIdx.x; it < hid / kTileN; it += gridDim.x) {
     int cols[kColGroups];
     for (int c = 0; c < kColGroups; ++c) cols[c] = it * kTileN + 8 * c;
     for (int r0 = 0; r0 < rows; r0 += kRows) {
       gemv_tile(w, hid, K, cols, x, rows, r0, staged, s);
+      if (kLora) lora_expand(a, l, lt, cols, rows, r0, s);
       const int m = threadIdx.x / kTileN, c = threadIdx.x % kTileN, r = r0 + m;
       if (r < rows) {
         bf16* xp = a.xres + (size_t)r * hid + it * kTileN + c;
@@ -456,6 +730,7 @@ __device__ void phase_residual(const Args& a, const bf16* w, const XSrc& x,
 }
 
 // ---------------------------------------------------------------- phase 4
+template <bool kLora>
 __device__ void phase_gate_up(const Args& a, int l, Smem& s, int& staged) {
   const int hid = a.H * kHeadDim, rows = a.B * a.W, I = a.I;
   const bf16* ln2 = reinterpret_cast<const bf16*>(a.wptrs[8 * a.L + l]);
@@ -469,11 +744,13 @@ __device__ void phase_gate_up(const Args& a, int l, Smem& s, int& staged) {
     for (int c = 0; c < kColGroups; ++c) cols[c] = it * kTileN + 8 * c;
     for (int r0 = 0; r0 < rows; r0 += kRows) {
       gemv_tile(wg, I, hid, cols, x, rows, r0, staged, s);
-      s.gate[threadIdx.x] = bf(s.out[threadIdx.x]);
+      if (kLora) lora_expand(a, l, 4, cols, rows, r0, s);
+      s.gw.gate[threadIdx.x] = bf(s.out[threadIdx.x]);
       gemv_tile(wu, I, hid, cols, x, rows, r0, staged, s);
+      if (kLora) lora_expand(a, l, 5, cols, rows, r0, s);
       const int m = threadIdx.x / kTileN, c = threadIdx.x % kTileN, r = r0 + m;
       if (r < rows) {
-        const float g = s.gate[threadIdx.x];
+        const float g = s.gw.gate[threadIdx.x];
         const float u = bf(s.out[threadIdx.x]);
         const float silu = bf(g / (1.0f + expf(-g)));
         a.hbuf[(size_t)r * I + it * kTileN + c] = __float2bfloat16(silu * u);
@@ -482,49 +759,99 @@ __device__ void phase_gate_up(const Args& a, int l, Smem& s, int& staged) {
   }
 }
 
+// One instantiation per pool format and LoRA on or off, so that each
+// variant carries only its own code and register pressure (the fp tick
+// without LoRA compiles to the same code as before the variants).
+template <bool kQ, bool kLora>
 __global__ void __launch_bounds__(kThreads, 1) decode_tick_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
   const int hid = a.H * kHeadDim;
+  // the shrink phases: q/k/v, o, gate/up, down (each one input, one K)
+  const bool s_qkv = kLora && any_served(a, 0, 3);
+  const bool s_o = kLora && any_served(a, 3, 1);
+  const bool s_gu = kLora && any_served(a, 4, 2);
+  const bool s_d = kLora && any_served(a, 6, 1);
   int staged = -1;
   for (int l = 0; l < a.L; ++l) {
+    if (s_qkv) {
+      phase_shrink(a, l, 0, 3, XSrc{a.xres, reinterpret_cast<const bf16*>(
+                                        a.wptrs[7 * a.L + l]), hid, 0}, s);
+      grid.sync();
+    }
     staged = -1;               // the residual changed since the last stage
-    phase_qkv(a, l, s, staged);
+    phase_qkv<kQ, kLora>(a, l, s, staged);
     grid.sync();               // this tick's K/V and q are visible
-    phase_attention(a, l, s);
+    if constexpr (!kQ) phase_attention<false, false>(a, l, s);
+    else if (a.dequant == 0) phase_attention<true, false>(a, l, s);
+    else phase_attention<true, true>(a, l, s);
     grid.sync();
+    if (s_o) {
+      phase_shrink(a, l, 3, 1, XSrc{a.ao, nullptr, hid, 0}, s);
+      grid.sync();
+    }
     staged = -1;
-    phase_residual(a, reinterpret_cast<const bf16*>(a.wptrs[3 * a.L + l]),
-                   XSrc{a.ao, nullptr, hid, 2}, hid, s, staged);
+    phase_residual<kLora>(a, l, reinterpret_cast<const bf16*>(
+                              a.wptrs[3 * a.L + l]), 3,
+                          XSrc{a.ao, nullptr, hid, 2}, hid, s, staged);
     grid.sync();
+    if (s_gu) {
+      phase_shrink(a, l, 4, 2, XSrc{a.xres, reinterpret_cast<const bf16*>(
+                                        a.wptrs[8 * a.L + l]), hid, 0}, s);
+      grid.sync();
+    }
     staged = -1;
-    phase_gate_up(a, l, s, staged);
+    phase_gate_up<kLora>(a, l, s, staged);
     grid.sync();
+    if (s_d) {
+      phase_shrink(a, l, 6, 1, XSrc{a.hbuf, nullptr, a.I, 0}, s);
+      grid.sync();
+    }
     staged = -1;
-    phase_residual(a, reinterpret_cast<const bf16*>(a.wptrs[6 * a.L + l]),
-                   XSrc{a.hbuf, nullptr, a.I, 4}, a.I, s, staged);
+    phase_residual<kLora>(a, l, reinterpret_cast<const bf16*>(
+                              a.wptrs[6 * a.L + l]), 6,
+                          XSrc{a.hbuf, nullptr, a.I, 4}, a.I, s, staged);
     grid.sync();
   }
 }
 
 }  // namespace
 
-// One decode / verify tick over all L layers. Pointers: see Args. Shapes:
-// head dim 128; hid = H * 128 and I multiples of 256; B * W <= 64; bs a
-// multiple of 8; H a multiple of KV. The grid is one block per SM; the
-// launch is refused when a block does not fit on an SM. Returns
-// cudaGetLastError() after the launch, or the error that refused it.
+// One decode / verify tick over all L layers. Pointers: see Args; `lora_a`
+// and `lora_b` are host arrays of the 7 targets' device pointers (null for a
+// target not served; both null without LoRA). Shapes: head dim 128; hid =
+// H * 128 and I multiples of 256; B * W <= 64; bs a multiple of 8 (at most
+// 128 for int8 pools); H a multiple of KV; LoRA rank R <= 16 and NS >=
+// ceil(max(hid, I) / 512). The grid is one block per SM; the launch is
+// refused when a block does not fit on an SM. Returns cudaGetLastError()
+// after the launch, or the error that refused it.
 extern "C" int pt_decode_tick(const void* wptrs, const void* pools,
                               const void* tables, const void* pos,
                               const void* cos_rows, const void* sin_rows,
-                              void* xres, void* q, void* ao, void* hbuf, int L,
-                              int B, int W, int H, int KV, int D, int I, int bs,
-                              int M, float eps, void* stream) {
+                              void* xres, void* q, void* ao, void* hbuf,
+                              void* ktok, void* vtok, const void* lora_a,
+                              const void* lora_b, const void* lscale,
+                              const void* laidx, void* lpart, int L, int B,
+                              int W, int H, int KV, int D, int I, int bs,
+                              int M, int quant, int dequant, int R, int NS,
+                              float eps, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const long long* la = static_cast<const long long*>(lora_a);
+  const long long* lb = static_cast<const long long*>(lora_b);
+  int n_lora = 0;
+  for (int t = 0; t < kTargets; ++t) {
+    if ((la[t] == 0) != (lb[t] == 0)) return (int)cudaErrorInvalidValue;
+    n_lora += la[t] != 0;
+  }
+  const int maxk = (H * D > I ? H * D : I);
   if (D != kHeadDim || L <= 0 || B <= 0 || W <= 0 || B * W > kMaxRows ||
       KV <= 0 || H % KV != 0 || (H * D) % kKStep != 0 || I % kKStep != 0 ||
-      bs <= 0 || bs % 8 != 0 || M <= 0)
+      bs <= 0 || bs % 8 != 0 || M <= 0 || (quant != 0 && quant != 1) ||
+      (dequant != 0 && dequant != 1) ||
+      (quant && (bs > kMaxBlock || ktok == nullptr || vtok == nullptr)) ||
+      (n_lora && (R <= 0 || R > kMaxRank || NS < (maxk + kShrink - 1) / kShrink ||
+                  lscale == nullptr || laidx == nullptr || lpart == nullptr)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -534,12 +861,16 @@ extern "C" int pt_decode_tick(const void* wptrs, const void* pools,
   if (!coop) return (int)cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
+  void (*kernel)(Args) = quant ? (n_lora ? decode_tick_kernel<true, true>
+                                         : decode_tick_kernel<true, false>)
+                                 : (n_lora ? decode_tick_kernel<false, true>
+                                         : decode_tick_kernel<false, false>);
   const size_t smem = sizeof(Smem);
-  e = cudaFuncSetAttribute(decode_tick_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_tick_kernel,
-                                                    kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int grid = sms;   // one block per SM: all co-resident
@@ -554,10 +885,20 @@ extern "C" int pt_decode_tick(const void* wptrs, const void* pools,
   a.q = static_cast<bf16*>(q);
   a.ao = static_cast<bf16*>(ao);
   a.hbuf = static_cast<bf16*>(hbuf);
+  a.ktok = static_cast<bf16*>(ktok);
+  a.vtok = static_cast<bf16*>(vtok);
+  for (int t = 0; t < kTargets; ++t) {
+    a.la[t] = reinterpret_cast<const float*>(la[t]);
+    a.lb[t] = reinterpret_cast<const float*>(lb[t]);
+  }
+  a.lscale = static_cast<const float*>(lscale);
+  a.laidx = static_cast<const int*>(laidx);
+  a.lpart = static_cast<float*>(lpart);
   a.L = L; a.B = B; a.W = W; a.H = H; a.KV = KV; a.I = I; a.bs = bs; a.M = M;
+  a.dequant = dequant; a.R = n_lora ? R : 0; a.NS = NS;
   a.eps = eps;
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(decode_tick_kernel),
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                   dim3(grid), dim3(kThreads), params, smem, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 """CUDA whole-tick decode megakernel — port of
-``paddle_tpu/ops/decode_megakernel.py`` (``_tick_kernel`` / ``decode_tick``,
-fp pools without LoRA).
+``paddle_tpu/ops/decode_megakernel.py`` (``_tick_kernel`` / ``decode_tick``):
+fp or int8 KV pools, with or without pooled LoRA deltas.
 
 :func:`decode_tick_cuda` launches ``csrc/decode_megakernel.cu`` once: a
 cooperative launch of one block per SM that runs every layer of the tick
@@ -9,12 +9,18 @@ is held against is ``decode_megakernel._tick_plain``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 # the kernel's shape rules (csrc/decode_megakernel.cu)
 HEAD_DIM = 128
 K_STEP = 256
 MAX_ROWS = 64
+MAX_LORA_RANK = 16
+MAX_INT8_BLOCK = 128
+SHRINK_SLICE = 512     # K slice of one LoRA shrink item
+LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
 
 _POOL_TABLES: dict = {}
 
@@ -31,36 +37,113 @@ def _pool_table(pools, device):
     return t
 
 
+def _check_pools(name, pools, L):
+    """(quantized, N, bs, KV, D) of the flat pool list; raises on a type,
+    count or shape the kernel does not take."""
+    if not pools or pools[0].dim() != 4:
+        raise ValueError(f"{name}: want pools (N, bs, KV, D)")
+    quant = pools[0].dtype == torch.int8
+    N, bs, KV, D = pools[0].shape
+    if quant:
+        codes, scales = pools[0::2], pools[1::2]
+        if any(p.dtype != torch.int8 for p in codes) or \
+                any(p.dtype != torch.float32 for p in scales):
+            raise TypeError(f"{name}: int8 pools take int8 codes and float32 "
+                            f"scales, got {sorted({str(p.dtype) for p in pools})}")
+        if len(pools) != 4 * L or any(p.shape != pools[0].shape
+                                      for p in codes):
+            raise ValueError(f"{name}: want {4 * L} pools (codes, scales, "
+                             f"codes, scales a layer), codes of one shape")
+        if any(tuple(p.shape) != (N, KV) for p in scales):
+            raise ValueError(f"{name}: scales must be ({N}, {KV}) per (block, "
+                             f"KV head)")
+        if bs > MAX_INT8_BLOCK:
+            raise ValueError(f"{name}: unsupported block size {bs} for int8 "
+                             f"pools (at most {MAX_INT8_BLOCK})")
+    else:
+        if any(p.dtype != torch.bfloat16 for p in pools):
+            raise TypeError(f"{name}: the kernel takes bfloat16 or int8 pools, "
+                            f"got {sorted({str(p.dtype) for p in pools})}")
+        if len(pools) != 2 * L or any(p.shape != pools[0].shape
+                                      for p in pools):
+            raise ValueError(f"{name}: want {2 * L} pools of one shape")
+    return quant, N, bs, KV, D
+
+
+def _lora_args(name, lora, B, L, dims, device):
+    """(A pointers, B pointers, scale, aidx, R) of the LoRA tables; raises
+    on what the kernel does not take."""
+    R = int(lora.max_rank)
+    if not 1 <= R <= MAX_LORA_RANK:
+        raise ValueError(f"{name}: LoRA rank {R} is over the kernel's limit "
+                         f"{MAX_LORA_RANK} (or below 1)")
+    aidx, scale = lora.aidx, lora.scale
+    if aidx.dtype != torch.int32:
+        raise TypeError(f"{name}: aidx must be int32, got {aidx.dtype}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"{name}: the LoRA scale must be float32")
+    if aidx.device != device or scale.device != device:
+        raise ValueError(f"{name}: aidx and the LoRA scale must be on "
+                         f"{device}")
+    if tuple(aidx.shape) != (B,) or scale.dim() != 1:
+        raise ValueError(f"{name}: want aidx ({B},) and scale (pages,)")
+    pages = scale.shape[0]
+    a_ptr, b_ptr = [0] * 7, [0] * 7
+    for t, (A, Bt) in lora.factors.items():
+        i, o = dims[t]
+        if A.dtype != torch.float32 or Bt.dtype != torch.float32:
+            raise TypeError(f"{name}: LoRA factors of {t!r} must be float32")
+        if not (A.is_contiguous() and Bt.is_contiguous()):
+            raise ValueError(f"{name}: LoRA factors of {t!r} must be "
+                             f"contiguous")
+        if tuple(A.shape) != (pages, L, i, R) or \
+                tuple(Bt.shape) != (pages, L, R, o):
+            raise ValueError(f"{name}: LoRA factors of {t!r} must be "
+                             f"({pages}, {L}, {i}, {R}) and ({pages}, {L}, "
+                             f"{R}, {o})")
+        if A.device != device or Bt.device != device:
+            raise ValueError(f"{name}: LoRA factors must be on {device}")
+        k = LORA_TARGETS.index(t)
+        a_ptr[k], b_ptr[k] = A.data_ptr(), Bt.data_ptr()
+    for tname, t in (("aidx", aidx), ("scale", scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+    return a_ptr, b_ptr, scale, aidx, R
+
+
 def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
-                     eps: float):
+                     eps: float, dequant: str = "scores", lora=None):
     """One decode/verify tick through every layer, on the card.
 
     ``x``: (B, W, hidden) bfloat16 with hidden = H·128; ``pools``: flat
-    [k0, v0, ...] bfloat16 (N, bs, KV, 128) pools, written in place;
-    ``tables`` int32 (B, M); ``pos`` int32 (B,); ``weights``: a
-    ``decode_megakernel.LayerWeights`` built on this card; ``cos_rows`` /
-    ``sin_rows`` float32 (B, W, 64). B·W ≤ 64, hidden and the
+    [k0, v0, ...] bfloat16 (N, bs, KV, 128) pools, or int8 [kq0, ks0, vq0,
+    vs0, ...] with int8 codes (N, bs, KV, 128) and float32 scales (N, KV)
+    (bs ≤ 128), written in place; ``tables`` int32 (B, M); ``pos`` int32
+    (B,); ``weights``: a ``decode_megakernel.LayerWeights`` built on this
+    card; ``cos_rows`` / ``sin_rows`` float32 (B, W, 64); ``dequant``:
+    ``"scores"`` or ``"tile"`` (int8 pools); ``lora``: a
+    ``decode_megakernel.LoraTables`` (float32 contiguous factors, rank ≤
+    16, int32 aidx on the card) or None. B·W ≤ 64, hidden and the
     intermediate size multiples of 256, bs a multiple of 8. Returns the
     tick's output rows (B, W, hidden). Raises on a type, shape, layout or
     device the kernel does not take, and when the launch is refused."""
     from . import _build
 
     name = "decode_tick_cuda"
-    tensors = [x, tables, pos, cos_rows, sin_rows, *pools]
-    if x.dtype != torch.bfloat16 or any(p.dtype != torch.bfloat16
-                                        for p in pools):
-        raise TypeError(f"{name}: the kernel takes bfloat16 x and pools, got "
-                        f"{x.dtype}, {sorted({str(p.dtype) for p in pools})}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16 x, got {x.dtype}")
     if tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"{name}: tables and pos must be int32")
     if cos_rows.dtype != torch.float32 or sin_rows.dtype != torch.float32:
         raise TypeError(f"{name}: cos_rows and sin_rows must be float32")
-    if x.dim() != 3 or not pools or pools[0].dim() != 4:
-        raise ValueError(f"{name}: want x (B, W, hidden) and pools (N, bs, "
-                         f"KV, D)")
-    B, W, Hd = x.shape
-    N, bs, KV, D = pools[0].shape
+    if dequant not in ("scores", "tile"):
+        raise ValueError(f"{name}: dequant must be 'scores' or 'tile', got "
+                         f"{dequant!r}")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: want x (B, W, hidden)")
     L = weights.num_layers
+    quant, N, bs, KV, D = _check_pools(name, pools, L)
+    B, W, Hd = x.shape
     wq = weights["wq"][0]
     I = weights["wg"][0].shape[1]
     if D != HEAD_DIM or cos_rows.shape[-1] * 2 != D:
@@ -69,8 +152,6 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     if H * D != Hd or wq.shape != (Hd, Hd) or H % KV:
         raise ValueError(f"{name}: hidden {Hd} is not heads x {D} with a "
                          f"multiple of {KV} KV heads")
-    if len(pools) != 2 * L or any(p.shape != pools[0].shape for p in pools):
-        raise ValueError(f"{name}: want {2 * L} pools of one shape")
     if B * W > MAX_ROWS or Hd % K_STEP or I % K_STEP or bs % 8:
         raise ValueError(f"{name}: unsupported B*W={B * W} (max {MAX_ROWS}), "
                          f"hidden {Hd} / intermediate {I} (multiples of "
@@ -80,6 +161,17 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
             sin_rows.shape != cos_rows.shape:
         raise ValueError(f"{name}: want tables ({B}, M), pos ({B},) and "
                          f"rope rows ({B}, {W}, {D // 2})")
+    dev = x.device
+    a_ptr, b_ptr = [0] * 7, [0] * 7
+    lscale = laidx = lpart = None
+    R = 0
+    if lora is not None:
+        KVD = KV * D
+        dims = {"q": (Hd, Hd), "k": (Hd, KVD), "v": (Hd, KVD), "o": (Hd, Hd),
+                "gate": (Hd, I), "up": (Hd, I), "down": (I, Hd)}
+        a_ptr, b_ptr, lscale, laidx, R = _lora_args(name, lora, B, L, dims,
+                                                    dev)
+    tensors = [x, tables, pos, cos_rows, sin_rows, *pools]
     for tname, t in (("x", x), ("tables", tables), ("pos", pos),
                      ("cos_rows", cos_rows), ("sin_rows", sin_rows),
                      *(("pool", p) for p in pools)):
@@ -92,18 +184,34 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     if weights.ptrs is None or weights.ptrs.device != x.device:
         raise ValueError(f"{name}: the weight table is not on {x.device}")
     M = tables.shape[1]
-    dev = x.device
+    rows = B * W
+    NS = -(-max(Hd, I) // SHRINK_SLICE)
+    if lora is not None:
+        lpart = torch.empty((rows, 7, NS, R), dtype=torch.float32, device=dev)
     xres = x.clone()                      # the residual, updated in place
-    q = torch.empty((B * W, Hd), dtype=x.dtype, device=dev)
-    ao = torch.empty((B * W, Hd), dtype=x.dtype, device=dev)
-    hbuf = torch.empty((B * W, I), dtype=x.dtype, device=dev)
+    q = torch.empty((rows, Hd), dtype=x.dtype, device=dev)
+    ao = torch.empty((rows, Hd), dtype=x.dtype, device=dev)
+    hbuf = torch.empty((rows, I), dtype=x.dtype, device=dev)
+    ktok = vtok = None
+    if quant:
+        ktok = torch.empty((rows, KV * D), dtype=x.dtype, device=dev)
+        vtok = torch.empty((rows, KV * D), dtype=x.dtype, device=dev)
     ptab = _pool_table(pools, dev)
+    la = (ctypes.c_longlong * 7)(*a_ptr)
+    lb = (ctypes.c_longlong * 7)(*b_ptr)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _build.library()
     err = lib.pt_decode_tick(
         weights.ptrs.data_ptr(), ptab.data_ptr(), tables.data_ptr(),
         pos.data_ptr(), cos_rows.data_ptr(), sin_rows.data_ptr(),
         xres.data_ptr(), q.data_ptr(), ao.data_ptr(), hbuf.data_ptr(),
-        L, B, W, H, KV, D, I, bs, M, float(eps), _build.stream_ptr(dev))
+        ptr(ktok), ptr(vtok), ctypes.addressof(la), ctypes.addressof(lb),
+        ptr(lscale), ptr(laidx), ptr(lpart),
+        L, B, W, H, KV, D, I, bs, M, int(quant),
+        int(dequant == "tile"), R, NS, float(eps), _build.stream_ptr(dev))
     _build.check(err, "decode_tick")
     decode_tick_cuda.launches += 1
     return xres

@@ -349,3 +349,53 @@ def test_decode_tick_runs_the_twin_only_for_cpu_or_reference(
     finally:
         ops.set_kernel_mode("auto")
     assert calls[1] == ("kernel" if wrapper else "twin")
+
+
+def _variant_args(case):
+    """``_tick_args`` with int8 pools and LoRA tables, one of them made
+    wrong as ``case`` says; returns (positional args, keyword args)."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+
+    x, pools, tables, pos, weights, c, s = _tick_args()
+    N, bs, KV, D = pools[0].shape
+    sdt = torch.float64 if case == "scale_dtype" else torch.float32
+    sshape = (N, KV + 1) if case == "scale_shape" else (N, KV)
+    pools = [torch.zeros(N, bs, KV, D, dtype=torch.int8),
+             torch.zeros(sshape, dtype=sdt)] * 2
+    R = 32 if case == "rank" else 4
+    fdt = torch.float64 if case == "factor_dtype" else torch.float32
+    Hd, I = 2 * D, 256
+    dims = {"q": (Hd, Hd), "k": (Hd, D), "v": (Hd, D), "o": (Hd, Hd),
+            "gate": (Hd, I), "up": (Hd, I), "down": (I, Hd)}
+    factors = {t: (torch.zeros(3, 1, i, R, dtype=fdt),
+                   torch.zeros(3, 1, R, o, dtype=fdt))
+               for t, (i, o) in dims.items()}
+    if case == "factor_layout":
+        factors["o"] = (torch.zeros(3, 1, R, Hd).transpose(2, 3),
+                        factors["o"][1])
+    adt = torch.int64 if case == "aidx_dtype" else torch.int32
+    lora = mk.LoraTables(factors, torch.zeros(3), torch.zeros(2, dtype=adt),
+                         R)
+    kw = dict(eps=1e-5, lora=lora,
+              dequant="bits" if case == "dequant" else "scores")
+    return (x, pools, tables, pos, weights, c, s), kw
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("cpu", ValueError, "CUDA"), ("scale_dtype", TypeError, "float32"),
+    ("scale_shape", ValueError, "scales must be"),
+    ("rank", ValueError, "rank 32"), ("factor_dtype", TypeError, "float32"),
+    ("factor_layout", ValueError, "contiguous"),
+    ("aidx_dtype", TypeError, "int32"), ("dequant", ValueError, "dequant")])
+def test_decode_tick_wrapper_raises_on_int8_and_lora_arguments(case, exc,
+                                                               match):
+    """The int8 pools and the LoRA tables: a type, a shape, a rank or a
+    layout the kernel does not take raises before any launch, and valid
+    ones on the CPU still raise (no plain twin inside the wrapper)."""
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    args, kw = _variant_args(case)
+    before = decode_tick_cuda.launches
+    with pytest.raises(exc, match=match):
+        decode_tick_cuda(*args, **kw)
+    assert decode_tick_cuda.launches == before

@@ -266,6 +266,11 @@ def test_megakernel_supported_int8_model_and_cuda_rules():
     assert "block_size 12" in mk.cuda_shape_reason(bf, 12)
     assert "intermediate dim 14000" in mk.cuda_shape_reason(
         dataclasses.replace(bf, intermediate_size=14000), 16)
+    # the int8 variant's block-head and the LoRA streams' rank
+    assert mk.cuda_shape_reason(bf, 128, kv_quant="int8") is None
+    assert "block_size 256" in mk.cuda_shape_reason(bf, 256, kv_quant="int8")
+    assert mk.cuda_shape_reason(bf, 16, lora_rank=16) is None
+    assert "max_rank 32" in mk.cuda_shape_reason(bf, 16, lora_rank=32)
 
 
 def _lora_config(cfg):
@@ -286,12 +291,12 @@ def _lora_config(cfg):
                                   "geometry_without_megakernel", "pallas"])
 def test_constructor_rules(case):
     """(e) Unsupported megakernel configurations raise at construction,
-    naming the reason, and leave the kernel mode as they found it."""
+    naming the reason, and leave the kernel mode as they found it; int8 KV
+    pools and LoRA build on the megakernel."""
     _, tm, cfg = _models(1)
     kw = dict(device="cpu", max_len=64, block_size=4, kernels="megakernel")
     model = tm
-    want = {"int8_kv": (NotImplementedError, "int8"),
-            "lora": (NotImplementedError, "LoRA"),
+    want = {"int8_kv": None, "lora": None,
             "int8_model": (ValueError, "gate_proj is not a plain Linear"),
             "geometry_not_ported": (NotImplementedError, "ffn_tile"),
             "dense_cache": (ValueError, "paged"),
@@ -311,6 +316,11 @@ def test_constructor_rules(case):
         kw.update(kernels="auto", mk_geometry=mk.MegakernelGeometry())
     elif case == "pallas":
         kw["kernels"] = "pallas"
+    if want is None:
+        srv = GenerationServer(model, **kw)
+        assert srv._exec.megakernel is True
+        assert srv._exec.megakernel_reason is None
+        return
     with pytest.raises(want[0], match=want[1]):
         GenerationServer(model, **kw)
     assert ops.kernel_mode() == "auto"
