@@ -129,6 +129,37 @@ Phases 13-16 run between phases 5 and 9, on the same model:
    ``decode_tick`` and no per-layer kernel but the final norm); then end
    to end as phase 15.
 
+Phases 18-20 run last, after phase 8: long-context training, past the
+8192 keys where flash attention takes its streaming kernels (rows 2, 5
+and 6 of the kernel table; same bodies as the loop rows' kernels, own
+entry points and counters):
+
+18. The streaming forward, dQ and dK/dV kernels through the dispatch,
+   bf16, B=1, H=32, KV=8, D=128: causal at S=16384, without the causal
+   mask at S=12288, with a ragged last tile at Sq=8256 / Sk=16448 and
+   causal at phase 19's S=32768 (both untimed); phase 6's per-row
+   tolerances, shown to reject a causal mask
+   one key off in the forward and in the backward; only the ``*_stream``
+   counters move. Times as phase 6 (SDPA forward and backward).
+19. Long-context training: ``ParallelEngine`` over
+   ``llama3_8b_config(num_hidden_layers=8, max_position_embeddings=
+   32768)``, B=1, AdamW as phase 7: (a) S=16384 without remat, 6 steps
+   (2 warm-up); (b) S=32768 under ``remat=True, remat_policy="nothing"``,
+   4 steps (1 warm-up); (c) S=16384, one step under each policy, each
+   cell from the same seeded weights and fresh AdamW state. Checks
+   the loss falls (a, b), every first loss equals (a)'s bit for bit, and
+   every step's launches: the streaming forward
+   once a layer (twice under remat: the layer's recompute runs it again),
+   dQ and dK/dV once, the loop kernels never, RMSNorm 2 x layers + 1
+   (4 x layers + 1 under remat) and AdamW once per parameter tensor; and
+   that peak memory orders as the policies save (nothing <= save_attn <=
+   save_attn_mlp, save_qkv_attn <= dots, 1 % slack; dots < no remat).
+   Prints as phase 7, with each cell's compute bound.
+20. End to end at S=16384, 2 layers at full width: the kernels (twice),
+   the kernels under ``remat_policy="dots"``, the plain versions in bf16
+   and on an fp32 copy: the remat run equals the kernels' run bit for
+   bit; the kernels' loss and gradients within phase 8's drift ratio.
+
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
 LoRA or per-layer attention launch; prefill chunks as in phase 10, the
@@ -2287,6 +2318,435 @@ def train_end_to_end(torch, ops, fa):
     return res
 
 
+# -------------------------------------------------------------- phase 18
+# the long-context training cell (phases 18-20): Llama-3-8B width, 8
+# layers, one sequence of 16384 tokens (the JAX package's tuned streaming
+# regime and profiled step) and of 32768 under remat (its 8B recipe's
+# length), max_position_embeddings raised to the longest, as bench.py does
+LONG_LAYERS, LONG_S, LONG_REMAT_S = 8, 16384, 32768
+LONG_STEPS, LONG_WARMUP = 6, 2
+REMAT_STEPS, REMAT_WARMUP = 4, 1
+LONG_POLICIES = ("nothing", "save_attn", "save_attn_mlp", "save_qkv_attn",
+                 "dots")
+LOOP_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+STREAM_FLASH = ("flash_fwd_stream", "flash_bwd_dq_stream",
+                "flash_bwd_dkv_stream")
+
+
+def _lse_ratio(lse, ref, Sk):
+    """LSE per row against its tolerance: both sides sum the same fp32
+    exponentials in other orders; Sk terms bound the relative error of the
+    sum by Sk * 2^-24 (phase 6)."""
+    return (lse - ref).abs() / (Sk * 2.0 ** -24 + 2.0 ** -20 * ref.abs())
+
+
+def kernel_flash_stream(torch, fa, fac, ops):
+    """Phase 18: the streaming kernels (rows 2, 5, 6) through the dispatch
+    at Sk > 8192, against the plain versions with phase 6's tolerances."""
+    from torch.nn import functional as F
+
+    B, H, KV, D = 1, 32, 8, 128
+    s = 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(18)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    cases = {n: [] for n in STREAM_FLASH}
+    # (Sq, Sk, causal, timed): the training shape; no causal mask; a
+    # ragged last tile with Sq < Sk (bottom-right alignment); the remat
+    # cell's shape (2048 query tiles a dK/dV block, the longest offsets)
+    for Sq, Sk, causal, timed in ((LONG_S, LONG_S, True, True),
+                                  (12288, 12288, False, True),
+                                  (8192 + 64, LONG_S + 64, True, False),
+                                  (LONG_REMAT_S, LONG_REMAT_S, True, False)):
+        q, k, v = rnd(B, H, Sq, D), rnd(B, KV, Sk, D), rnd(B, KV, Sk, D)
+        do = rnd(B, H, Sq, D)
+        ops.reset_launch_counts()
+        out, lse = fa._flash_fwd_bhsd(q, k, v, causal, s)
+        ref, rlse = fa._flash_fwd_plain(q, k, v, causal, s)
+        delta = (do.float() * ref.float()).sum(-1)
+        got = dict(o=out, **dict(zip(("dq", "dk", "dv"), fa._flash_bwd_bhsd(
+            q, k, v, do, rlse, delta, causal, s))))
+        counts = ops.launch_counts()
+        want = dict(zip(("dq", "dk", "dv"), fa._flash_bwd_plain(
+            q, k, v, do, rlse, delta, causal, s)), o=ref)
+        torch.cuda.synchronize()
+        check(all(counts[n] == 1 for n in STREAM_FLASH)
+              and all(counts[n] == 0 for n in LOOP_FLASH),
+              f"flash stream Sq={Sq} Sk={Sk}: the dispatch launched "
+              f"{ {n: counts[n] for n in LOOP_FLASH + STREAM_FLASH} }")
+        rms = {n: _rms(v) if n == "o" else _rms(w) for n, w in want.items()}
+        ratios = {n: _row_ratio(x, want[n], rms[n]).max().item()
+                  for n, x in got.items()}
+        ratios["lse"] = _lse_ratio(lse, rlse, Sk).max().item()
+        for n, w in ratios.items():
+            check(bool(torch.isfinite(got.get(n, lse).float()).all()),
+                  f"flash stream Sq={Sq} Sk={Sk}: {n} non-finite")
+            check(w <= 1.0, f"flash stream Sq={Sq} Sk={Sk} causal={causal}: "
+                            f"{n} off by {w:.3g} x its tolerance")
+        errs = {n: (x.float() - want[n].float()).abs().max().item()
+                for n, x in got.items()}
+        errs["lse"] = (lse - rlse).abs().max().item()
+        base = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=causal)
+        mutants = {}
+        if causal and Sq == Sk == LONG_S:
+            # the tolerances reject the causal mask one key off, forward
+            # (O) and backward (the mutant's whole plain pipeline)
+            for d in (1, -1):
+                with _mask_shifted(fa, d):
+                    mo, ml = fa._flash_fwd_plain(q, k, v, True, s)
+                    mg = fa._flash_bwd_plain(
+                        q, k, v, do, ml, (do.float() * mo.float()).sum(-1),
+                        True, s)
+                mutants[f"mask{d:+d}"] = {
+                    n: _row_ratio(x, want[n], rms[n]).max().item()
+                    for n, x in zip(("o", "dq", "dk", "dv"), (mo,) + mg)}
+                del mo, ml, mg
+                for n, w in mutants[f"mask{d:+d}"].items():
+                    check(w > 1.0, f"flash stream: the tolerance passes the "
+                                   f"mask{d:+d} fault in {n} ({w:.3g})")
+        pairs = _visible_pairs(Sq, Sk) if causal else Sq * Sk
+        io = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bounds = {"flash_fwd_stream": bound_ms(io + 4 * lse.numel(),
+                                              4 * D * B * H * pairs,
+                                              BF16_FLOPS),
+                  "flash_bwd_dq_stream": bound_ms(
+                      io + 8 * lse.numel() + 2 * q.numel(),
+                      6 * D * B * H * pairs, BF16_FLOPS),
+                  "flash_bwd_dkv_stream": bound_ms(
+                      io + 8 * lse.numel() + 2 * (k.numel() + v.numel()),
+                      8 * D * B * H * pairs, BF16_FLOPS)}
+        keys = {"flash_fwd_stream": ("o", "lse"), "flash_bwd_dq_stream":
+                ("dq",), "flash_bwd_dkv_stream": ("dk", "dv")}
+        for name in STREAM_FLASH:
+            case = dict(base, max_abs_err=max(errs[n] for n in keys[name]),
+                        max_abs_errs={n: errs[n] for n in keys[name]},
+                        worst_err_over_tol={n: ratios[n]
+                                            for n in keys[name]})
+            if name == "flash_fwd_stream":
+                case["mutants"] = {m: r["o"] for m, r in mutants.items()}
+            else:
+                case["mutants"] = {m: {n: r[n] for n in keys[name]}
+                                   for m, r in mutants.items()}
+            case["bound_ms"], case["bound_by"] = bounds[name]
+            cases[name].append(case)
+        if timed:
+            fwd = cases["flash_fwd_stream"][-1]
+            mask = {"is_causal": True} if causal else {}
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                      **mask)
+
+            fwd.update(ms=time_ms(lambda: fac.flash_fwd_stream_cuda(
+                q, k, v, causal, s), 5),
+                plain_ms=time_ms(lambda: fa._flash_fwd_plain(q, k, v, causal,
+                                                             s), 1),
+                library_ms=time_ms(lib_fwd, 5))
+        if timed and causal:
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+
+            def lib_fwd_bwd():
+                qg.grad = kg.grad = vg.grad = None
+                F.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=True, enable_gqa=True).backward(do)
+
+            # SDPA's backward computes dQ, dK and dV in one call: its time
+            # is the forward + backward less the forward (phase 6)
+            lib_fb = event_ms(torch, lib_fwd_bwd, 3)
+            lib_bwd = lib_fb - event_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=True, enable_gqa=True), 3)
+            plain_bwd = time_ms(lambda: fa._flash_bwd_plain(
+                q, k, v, do, rlse, delta, True, s), 1)
+            for name, fn in (
+                    ("flash_bwd_dq_stream",
+                     lambda: fac.flash_bwd_dq_stream_cuda(
+                         q, k, v, do, rlse, delta, True, s)),
+                    ("flash_bwd_dkv_stream",
+                     lambda: fac.flash_bwd_dkv_stream_cuda(
+                         q, k, v, do, rlse, delta, True, s))):
+                cases[name][-1].update(ms=time_ms(fn, 5), plain_ms=plain_bwd,
+                                       library_ms=lib_bwd,
+                                       library_fwd_bwd_ms=lib_fb)
+            del qg, kg, vg
+        for name in STREAM_FLASH:
+            log(f"kernel {name} Sq={Sq} Sk={Sk} causal={causal} bf16: "
+                + json.dumps(cases[name][-1]))
+        del q, k, v, do, out, lse, ref, rlse, delta, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cases
+
+
+# -------------------------------------------------------------- phase 19
+def _long_batch(torch, gen, vocab, S):
+    tok = torch.randint(0, vocab, (1, S + 1), generator=gen, device="cuda")
+    return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+
+def train_long(torch, ops):
+    """Phase 19: the long-context training cells, one model and optimizer
+    for all, each cell from the same seeded weights and fresh optimizer
+    state: (a) S = 16384 without remat, (b) S = 32768 under
+    remat_policy="nothing", (c) S = 16384, one step under each policy,
+    whose losses must equal (a)'s first bit for bit (remat changes what is
+    kept, not what is computed)."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    L = LONG_LAYERS
+    cfg = llama3_8b_config(num_hidden_layers=L,
+                           max_position_embeddings=LONG_REMAT_S)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=0)
+    opt = AdamW(learning_rate=3e-4, parameters=model.named_parameters(),
+                weight_decay=0.01, multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    n_nonembed = n_params - model.model.embed_tokens.weight.numel()
+    H, D = cfg.num_attention_heads, cfg.head_dim
+    log(f"train long model: llama3-8b width, {L} layers, {n_params} params "
+        f"bf16, max_position_embeddings {cfg.max_position_embeddings}, made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    batches = {S: _long_batch(torch, gen, cfg.vocab_size, S)
+               for S in (LONG_S, LONG_REMAT_S)}
+    launches = dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+
+    def cell(S, steps, warmup, remat, policy, profile):
+        model.reset_parameters(0)
+        opt._accumulators.clear()
+        gc.collect()
+        eng = ParallelEngine(model, optimizer=opt, remat=remat,
+                             remat_policy=policy)
+        ids, labels = batches[S]
+        # per step: the streaming kernels and never the loop ones; under
+        # remat the forward kernel runs again in each layer's recompute
+        # (no policy can save what a ctypes kernel makes, as no JAX policy
+        # saves the Pallas call), and so does RMSNorm, but for the final
+        # norm outside the layers
+        want = {"flash_fwd_stream": 2 * L if remat else L,
+                "flash_bwd_dq_stream": L, "flash_bwd_dkv_stream": L,
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "rms_norm": 4 * L + 1 if remat else 2 * L + 1,
+                "fused_adamw": n_tensors}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for i in range(steps):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(ids, labels).item())
+            walls.append(time.perf_counter() - t0)
+            got = ops.launch_counts()
+            for name, n in want.items():
+                check(got[name] == n, f"train long S={S} remat={remat} "
+                                      f"{policy}: step {i} launched {name} "
+                                      f"{got[name]} times, want {n}")
+            for name in launches:
+                launches[name] += got[name]
+        peak = torch.cuda.max_memory_allocated()
+        check(all(x == x and abs(x) < 1e4 for x in losses),
+              f"train long S={S}: non-finite loss {losses}")
+        timed = sorted(walls[warmup:])
+        step_s = timed[len(timed) // 2]
+        flops = 6 * n_nonembed * S + 6 * L * H * D * S * S
+        res = dict(seq=S, batch=1, layers=L, remat=remat,
+                   remat_policy=policy if remat else None, losses=losses,
+                   step_walls_s=walls, ms_per_step=step_s * 1e3,
+                   tokens_per_s=S / step_s, mfu=flops / step_s / BF16_FLOPS,
+                   compute_bound_ms=flops / BF16_FLOPS * 1e3,
+                   peak_memory_gib=peak / 2 ** 30, launches_per_step=want)
+        if profile:
+            busy, wall, classes, names = _device_busy(
+                torch, lambda: eng.train_batch(ids, labels).item(), 1)
+            # only the streaming entry points ran (checked above): the
+            # shared kernel bodies' time is theirs
+            rename = dict(zip(LOOP_FLASH, STREAM_FLASH))
+            res.update(
+                device_busy_ms_per_step=None if busy is None else busy * 1e3,
+                busy_share=None if busy is None else busy / step_s,
+                device_ms_per_step_by_class={
+                    rename.get(c, c): t * 1e3 for c, t in sorted(
+                        classes.items(), key=lambda kv: -kv[1])},
+                top_kernels_ms_per_step={
+                    n[:80]: t * 1e3 for n, t in sorted(
+                        names.items(), key=lambda kv: -kv[1])[:10]})
+        del eng
+        gc.collect()
+        return res
+
+    mfu_formula = ("(6 * N_nonembed * S + 6 * L * H * D * S * S) / step_s / "
+                   "989e12, B = 1, the model's operations (a recompute's "
+                   "are not counted), causal attention forward + backward")
+    res = dict(params=n_params, params_nonembed=n_nonembed,
+               mfu_formula=mfu_formula)
+    res["no_remat"] = cell(LONG_S, LONG_STEPS, LONG_WARMUP, False, None,
+                           True)
+    log(f"train long S={LONG_S} no remat: " + json.dumps(res["no_remat"]))
+    res["remat"] = cell(LONG_REMAT_S, REMAT_STEPS, REMAT_WARMUP, True,
+                        "nothing", True)
+    log(f"train long S={LONG_REMAT_S} remat nothing: "
+        + json.dumps(res["remat"]))
+    for key in ("no_remat", "remat"):
+        ls = res[key]["losses"]
+        check(ls[-1] < ls[0], f"train long {key}: the loss did not fall: "
+                              f"{ls}")
+    res["policies"] = {p: cell(LONG_S, 1, 0, True, p, False)
+                       for p in LONG_POLICIES}
+    first = res["no_remat"]["losses"][0]
+    for p, c in res["policies"].items():
+        check(c["losses"][0] == first, f"train long: the first loss under "
+              f"{p} {c['losses'][0]} differs from no remat's {first}")
+    peaks = {p: c["peak_memory_gib"] for p, c in res["policies"].items()}
+    peaks["no_remat"] = res["no_remat"]["peak_memory_gib"]
+    log(f"train long S={LONG_S} per policy: " + json.dumps(
+        {p: dict(ms_per_step=c["ms_per_step"],
+                 peak_memory_gib=c["peak_memory_gib"], losses=c["losses"])
+         for p, c in res["policies"].items()}))
+    # peak memory orders as the policies save: each at most 1 % above the
+    # next, and dots below no remat
+    order = [("nothing", "save_attn"), ("save_attn", "save_attn_mlp"),
+             ("save_attn", "save_qkv_attn"), ("save_attn_mlp", "dots"),
+             ("save_qkv_attn", "dots")]
+    for a, b in order:
+        check(peaks[a] <= 1.01 * peaks[b], f"train long: peak memory under "
+              f"{a} {peaks[a]:.3f} GiB > {b} {peaks[b]:.3f} GiB + 1 %")
+    check(peaks["dots"] < peaks["no_remat"], f"train long: peak memory "
+          f"under dots {peaks['dots']:.3f} GiB >= no remat "
+          f"{peaks['no_remat']:.3f} GiB")
+    res["peak_memory_gib_by_policy"] = peaks
+    res["launches"] = launches
+    del opt, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# -------------------------------------------------------------- phase 20
+def train_long_end_to_end(torch, ops):
+    """Phase 20: 2 layers at full width, S = 16384, one forward + backward
+    with the kernels (twice), with the kernels under remat_policy="dots",
+    with the plain versions in bf16 and with the plain versions on an fp32
+    copy. The kernels' loss and gradients may be at most DRIFT_RATIO as
+    far from fp32 as the plain bf16 path's; the remat run must equal the
+    kernels' run bit for bit."""
+    from paddle_tpu_torch.distributed.fleet.recompute import remat_layers
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+
+    L = E2E_LAYERS
+    cfg = llama3_8b_config(num_hidden_layers=L,
+                           max_position_embeddings=LONG_S)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    ids, labels = _long_batch(torch, gen, cfg.vocab_size, LONG_S)
+
+    def grads(m, mode, policy=None):
+        """(loss, {name: grad in the parameter's dtype}, launches)"""
+        ops.set_kernel_mode(mode)
+        for p in m.parameters():
+            p.requires_grad_(True)
+            p.grad = None
+        ops.reset_launch_counts()
+        # the per-layer scope ParallelEngine(remat=True, remat_policy=)
+        # opens for this model
+        with (remat_layers(policy) if policy else contextlib.nullcontext()):
+            loss = m(ids, labels)
+        loss.backward()
+        counts = ops.launch_counts()
+        ops.set_kernel_mode("auto")
+        out = {n: p.grad for n, p in m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+        return loss.item(), out, counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(cfg, seed=2)
+    lk, gk, ck = grads(model, "auto")
+    lk2, gk2, _ = grads(model, "auto")
+    lr_, gr, cr = grads(model, "auto", "dots")
+    for counts, fwd in ((ck, L), (cr, 2 * L)):
+        check(counts["flash_fwd_stream"] == fwd
+              and counts["flash_bwd_dq_stream"] == L
+              and counts["flash_bwd_dkv_stream"] == L
+              and all(counts[n] == 0 for n in LOOP_FLASH),
+              f"train long end to end: flash launches {counts}")
+    # recompute replays the same kernels and products on the same inputs:
+    # the remat step must be the plain step bit for bit. The one admissible
+    # exception is a product shown to differ between two runs of the step
+    # without remat; its spread is then the limit
+    det = lk2 == lk and all(torch.equal(gk2[n], gk[n]) for n in gk)
+    diff_remat = sorted(n for n in gk if not torch.equal(gr[n], gk[n]))
+    res = dict(layers=L, seq=LONG_S, loss_kernels=lk,
+               loss_kernels_rerun=lk2, loss_kernels_remat_dots=lr_,
+               kernel_step_deterministic=det,
+               remat_bitwise_equal=lr_ == lk and not diff_remat,
+               remat_tensors_differing=diff_remat)
+    if det:
+        check(res["remat_bitwise_equal"], f"train long end to end: the "
+              f"remat step differs from the kernels' step (loss {lr_} vs "
+              f"{lk}; tensors {diff_remat})")
+    else:
+        spread = {n: (gk2[n].float() - gk[n].float()).abs().max().item()
+                  for n in gk}
+        off = {n: (gr[n].float() - gk[n].float()).abs().max().item()
+               for n in gk}
+        res.update(rerun_spread=spread, remat_off=off)
+        check(abs(lr_ - lk) <= abs(lk2 - lk)
+              and all(off[n] <= spread[n] for n in gk),
+              f"train long end to end: the remat step is farther from the "
+              f"kernels' step than two runs of it are: {off} vs {spread}")
+    gk = {n: g.float() for n, g in gk.items()}
+    del gk2, gr
+    lp, gp, _ = grads(model, "reference")
+    gp = {n: g.float() for n, g in gp.items()}
+    m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                           device="cuda")
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p16)
+    del model
+    lf, gf, _ = grads(m32, "reference")
+    del m32
+    per = {}
+    sk = sp = 0.0
+    for n in gf:
+        dk2 = (gk[n] - gf[n]).square().sum().item()
+        dp2 = (gp[n] - gf[n]).square().sum().item()
+        sk, sp = sk + dk2, sp + dp2
+        per[n] = (dk2 / max(dp2, 1e-300)) ** 0.5
+    worst = max(per, key=per.get)
+    res.update(loss_plain_bf16=lp, loss_fp32=lf,
+               loss_drift_ratio=abs(lk - lf) / max(abs(lp - lf), 1e-30),
+               grad_drift_ratio_all=(sk / sp) ** 0.5,
+               grad_drift_ratio_worst=per[worst],
+               grad_drift_worst_tensor=worst)
+    del gk, gp, gf
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train long end_to_end kernels vs remat vs plain vs fp32: "
+        + json.dumps(res))
+    check(res["loss_drift_ratio"] <= DRIFT_RATIO,
+          f"train long end to end: the kernels' loss is "
+          f"{res['loss_drift_ratio']:.3g} x as far from fp32 as the plain "
+          f"bf16 path's (limit {DRIFT_RATIO})")
+    for key in ("grad_drift_ratio_all", "grad_drift_ratio_worst"):
+        check(res[key] <= DRIFT_RATIO, f"train long end to end: {key} "
+              f"{res[key]:.3g} > {DRIFT_RATIO} ({worst})")
+    return res
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -2391,6 +2851,10 @@ def main() -> int:
     adamw_cases = kernel_adamw(torch, fw, ops)
     train_res = train(torch, ops)
     train_e2e = train_end_to_end(torch, ops, fa)
+    # phases 18-20, long-context training through the streaming kernels
+    stream_cases = kernel_flash_stream(torch, fa, fac, ops)
+    long_res = train_long(torch, ops)
+    long_e2e = train_long_end_to_end(torch, ops)
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -2424,6 +2888,12 @@ def main() -> int:
         entry("fused_adamw", csrc + "fused_adamw.cu",
               "paddle_tpu/ops/fused_adamw.py:167", adamw_cases,
               tl["fused_adamw"]),
+        # rows 2, 5, 6, with their launches in phase 19's counted steps
+        *(entry(name, csrc + "flash_attention.cu", flash + line,
+                stream_cases[name], long_res["launches"][name])
+          for name, line in (("flash_fwd_stream", "189"),
+                             ("flash_bwd_dq_stream", "352"),
+                             ("flash_bwd_dkv_stream", "376"))),
         entry("w8_matmul", csrc + "w8_matmul.cu", "paddle_tpu/ops/int8.py:80",
               w8_cases, int8_res["launches"]["w8_matmul"]),
         entry("paged_attention_int8", csrc + "paged_attention.cu",
@@ -2470,6 +2940,9 @@ def main() -> int:
             log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))
     log("train llama3-8b (8 layers): " + json.dumps(train_res))
     log("train end_to_end kernels vs plain vs fp32: " + json.dumps(train_e2e))
+    log("train long (phase 19): " + json.dumps(long_res))
+    log("train long end_to_end kernels vs remat vs plain vs fp32: "
+        + json.dumps(long_e2e))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,206 @@
+"""Activation recompute — port of ``paddle_tpu/distributed/fleet/
+recompute.py`` (``recompute``, ``:52``), of the JAX engine's remat
+policies (``paddle_tpu/parallel/engine.py:376-405``) and of the model's
+``checkpoint_name`` anchors (``paddle_tpu/models/llama.py``: ``qkv``
+``:401-403``, ``attn_out`` ``:465``, ``mlp_out`` ``:744-749, 787``).
+
+JAX recomputes under ``jax.checkpoint``; the port under non-reentrant
+``torch.utils.checkpoint``:
+
+* :func:`recompute` runs a function so that only its inputs are kept for
+  the backward, which runs it again (the JAX package's eager replay).
+* :func:`checkpoint_name` is the anchor a policy saves by name: an
+  identity op registered with the dispatcher
+  (``paddle_tpu_torch::checkpoint_name``), because a selective-checkpoint
+  policy sees dispatcher ops only. A registered op may not return its
+  input, so the anchor is a contiguous copy, made only for a name that
+  the policy of the layer being run saves (``qkv`` at S = 16384 on
+  Llama-3-8B's widths is 200 MB a layer, ``mlp_out`` 128 MB). Anywhere
+  else (no remat, ``cfg.recompute``, ``"dots"``, ``"nothing"``, a name
+  the policy does not save) ``checkpoint_name`` returns its input.
+* :func:`remat_context_fn` turns a JAX policy name into the
+  ``context_fn`` of a selective checkpoint
+  (``create_selective_checkpoint_contexts``); None is full recompute.
+* :func:`remat_layers` opens the engine's scope in which a model that
+  checkpoints by layer (``LlamaModel``) runs each decoder layer through
+  :func:`layer_checkpoint`'s function under that policy. The scope counts
+  the layers so run, and the engine refuses a model that ran none.
+
+What a policy can see: dispatcher ops. The kernels launch through ctypes
+inside ``torch.autograd.Function``s, so no policy saves their outputs:
+the flash forward runs again in the backward under every policy, as the
+Pallas call does under every JAX policy (it is neither a dot nor named).
+Nothing a kernel fills in place is ever saved: the policies save only
+the outputs of ``aten.mm`` / ``aten.addmm`` and of the anchor, never an
+``aten.empty``.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import functools
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+#: the JAX engine's policy names (``offload_attn`` is not ported)
+REMAT_POLICIES = ("dots", "nothing", "save_attn", "save_attn_mlp",
+                  "save_qkv_attn")
+#: checkpoint names each named policy saves
+_SAVED_NAMES = {"save_attn": ("attn_out",),
+                "save_attn_mlp": ("attn_out", "mlp_out"),
+                "save_qkv_attn": ("attn_out", "qkv")}
+#: products of matrices without batch dims ("dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def recompute(function, *args, **kwargs):
+    """``function(*args)`` with its activations recomputed in the backward
+    instead of kept: only ``args`` are saved. Keyword arguments:
+    ``preserve_rng_state`` (default True: the replay draws the random
+    numbers the forward drew) and ``use_reentrant`` (accepted, as in JAX,
+    and ignored: the port always takes the non-reentrant form); any other
+    raises ``ValueError``, as in JAX."""
+    preserve = kwargs.pop("preserve_rng_state", True)
+    kwargs.pop("use_reentrant", None)
+    if kwargs:
+        raise ValueError(f"unsupported kwargs {list(kwargs)}")
+    return checkpoint(function, *args, use_reentrant=False,
+                      preserve_rng_state=bool(preserve))
+
+
+@torch.library.custom_op("paddle_tpu_torch::checkpoint_name",
+                         mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _checkpoint_name_backward(ctx, grad):
+    return grad, None
+
+
+_checkpoint_name.register_autograd(_checkpoint_name_backward)
+_ANCHOR = torch.ops.paddle_tpu_torch.checkpoint_name.default
+
+
+# the checkpoint names anchored in the layer being run: those its policy
+# saves (empty outside a checkpointed layer)
+_ANCHORED = contextvars.ContextVar("paddle_tpu_torch_anchored",
+                                   default=frozenset())
+
+
+@contextlib.contextmanager
+def anchored(names):
+    """Within: :func:`checkpoint_name` anchors the names in ``names``."""
+    token = _ANCHORED.set(frozenset(names))
+    try:
+        yield
+    finally:
+        _ANCHORED.reset(token)
+
+
+def checkpoint_name(x, name: str):
+    """``x`` under the checkpoint name ``name`` (``jax.ad_checkpoint.
+    checkpoint_name``): the same values, as the anchor's contiguous copy
+    where the policy of the layer being run saves ``name``, else ``x``
+    itself."""
+    return _checkpoint_name(x, name) if name in _ANCHORED.get() else x
+
+
+def _policy(saved_names, dots, ctx, op, *args, **kwargs):
+    if op is _ANCHOR and args[1] in saved_names:
+        return CheckpointPolicy.MUST_SAVE
+    # a product autograd records: one of the differentiated graph's
+    # activations (the fused CE's chunk logits, made inside its Function
+    # without grad, stay its own business and are recomputed)
+    if dots and op in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat_policy(policy):
+    """Raise for a policy the port does not take: ``offload_attn``
+    (pinned-host offload) ``NotImplementedError``, any other unknown name
+    ``ValueError``, as the JAX engine does."""
+    if policy == "offload_attn":
+        raise NotImplementedError(
+            "remat_policy='offload_attn' (activations offloaded to pinned "
+            "host memory) is not ported yet")
+    if policy is not None and policy != "none" and \
+            policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+def remat_context_fn(policy):
+    """The ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for a
+    JAX policy name: ``"dots"`` saves the outputs of ``aten.mm`` /
+    ``aten.addmm`` (``dots_with_no_batch_dims_saveable``), the named
+    policies the anchors they name (``save_only_these_names``); None for
+    ``"nothing"``, ``"none"`` and None, which save only the checkpoint's
+    inputs (``nothing_saveable``, or no policy: the same in JAX)."""
+    check_remat_policy(policy)
+    dots = policy == "dots"
+    names = _SAVED_NAMES.get(policy, ())
+    if not dots and not names:
+        return None
+    fn = functools.partial(_policy, names, dots)
+    return functools.partial(create_selective_checkpoint_contexts, fn)
+
+
+class _LayerScope:
+    """An open :func:`remat_layers` scope: the policy's ``context_fn``, the
+    names it saves and the count of layers checkpointed under it."""
+
+    def __init__(self, policy):
+        self.context_fn = remat_context_fn(policy)
+        self.names = frozenset(_SAVED_NAMES.get(policy, ()))
+        self.layers = 0
+
+
+_LAYER_REMAT = contextvars.ContextVar("paddle_tpu_torch_layer_remat",
+                                      default=None)
+
+
+@contextlib.contextmanager
+def remat_layers(policy):
+    """Within: :func:`layer_checkpoint` gives the function that runs one
+    layer under ``policy``. Yields the scope, whose ``layers`` counts the
+    layers run so."""
+    scope = _LayerScope(policy)
+    token = _LAYER_REMAT.set(scope)
+    try:
+        yield scope
+    finally:
+        _LAYER_REMAT.reset(token)
+
+
+def _run_anchored(names, layer, *args):
+    # the checkpointed function: its replay in the backward anchors the
+    # same names as the forward, on whatever thread runs it
+    with anchored(names):
+        return layer(*args)
+
+
+def layer_checkpoint():
+    """``run(layer, *args)``, checkpointing one layer under the policy of
+    the innermost :func:`remat_layers` scope, while one is open and grad
+    is on; None otherwise."""
+    scope = _LAYER_REMAT.get()
+    if scope is None or not torch.is_grad_enabled():
+        return None
+    kw = {} if scope.context_fn is None else dict(
+        context_fn=scope.context_fn)
+
+    def run(layer, *args):
+        scope.layers += 1
+        return checkpoint(functools.partial(_run_anchored, scope.names,
+                                            layer), *args,
+                          use_reentrant=False, **kw)
+
+    return run

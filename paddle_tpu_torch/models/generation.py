@@ -28,7 +28,10 @@ def next_token(logits, generator, temperature: float, top_k: int,
     if temperature and temperature > 0:
         lg = logits.float() / temperature
         if top_k and top_k > 0:
-            kth = torch.sort(lg, dim=-1).values[:, -top_k][:, None]
+            # a k past the vocabulary keeps every token, as JAX's clamped
+            # index does
+            k = min(int(top_k), lg.shape[-1])
+            kth = torch.sort(lg, dim=-1).values[:, -k][:, None]
             lg = torch.where(lg < kth, torch.full_like(lg, NEG), lg)
         if top_p and 0 < top_p < 1:
             srt = torch.sort(lg, dim=-1, descending=True).values

@@ -11,8 +11,13 @@ every projection weight is ``(in, out)`` and a projection computes
 ``x @ weight`` (``torch.matmul``), so a JAX state dict carries over
 name-for-name and array-for-array (``models/convert.py``).
 
+Training recomputes activations per decoder layer under ``cfg.recompute``
+(full recompute, as JAX's ``recompute``) or under the engine's
+``remat=True`` and its ``remat_policy``, which sees the checkpoint names
+``qkv``, ``attn_out`` and ``mlp_out`` where the JAX model sets them.
+
 Left out so far: dense KV caches, MoE, training-side LoRA (``lora_rank``),
-the fused int8 q/k/v weight (``PT_W8_FUSED_QKV``), recompute,
+the fused int8 q/k/v weight (``PT_W8_FUSED_QKV``),
 ring/Ulysses/context/sequence parallel attention.
 """
 from __future__ import annotations
@@ -25,6 +30,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import resolve_device
+from ..distributed.fleet.recompute import (checkpoint_name, layer_checkpoint,
+                                           recompute)
 from ..nn.lora import lora_matmul
 from ..nn.quant import Int8Linear
 from ..ops.flash_attention import flash_attention
@@ -238,12 +245,15 @@ class LlamaAttention(nn.Module):
         """Dense causal pass (training): heads go head-major BEFORE RoPE,
         then flash attention, then back. x: (B, S, hidden)."""
         B, S = x.shape[0], x.shape[1]
-        q, k, v = self._qkv(x, B, S)
+        q, k, v = (checkpoint_name(t, "qkv") for t in self._qkv(x, B, S))
         qh = _apply_rope_bhsd(q.transpose(1, 2), cos, sin)
         kh = _apply_rope_bhsd(k.transpose(1, 2), cos, sin)
         vh = v.transpose(1, 2)
         out = flash_attention(qh, kh, vh, causal=True)
-        return self.o_proj(out.transpose(1, 2).reshape(B, S, -1))
+        # back to (B, S, H, D) for the output projection: the anchor's
+        # copy where a policy saves it, the reshape's copy otherwise
+        out = checkpoint_name(out.transpose(1, 2), "attn_out")
+        return self.o_proj(out.reshape(B, S, -1))
 
     def paged_decode(self, x, cos, sin, pool, block_tables, pos,
                      lora=None):
@@ -321,7 +331,8 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        return h + checkpoint_name(self.mlp(self.post_attention_layernorm(h)),
+                                   "mlp_out")
 
     def paged_decode(self, x, cos, sin, pool, block_tables, pos,
                      lora=None):
@@ -356,10 +367,18 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids):
         """Dense causal pass over (B, S) token ids from position 0;
-        returns the normed hidden states (B, S, hidden)."""
+        returns the normed hidden states (B, S, hidden). Inside the
+        engine's ``remat=True`` scope each decoder layer is checkpointed
+        under its policy; otherwise, with ``cfg.recompute`` while training
+        with grad on, each is recomputed in full (as the JAX model)."""
+        run = layer_checkpoint()
+        if run is None and self.cfg.recompute and self.training and \
+                torch.is_grad_enabled():
+            run = recompute
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, self._cos, self._sin)
+            x = layer(x, self._cos, self._sin) if run is None else \
+                run(layer, x, self._cos, self._sin)
         return self.norm(x)
 
     def paged_decode_step(self, token, pools, block_tables, pos, lora=None):
@@ -401,7 +420,6 @@ def _check_supported(cfg: LlamaConfig) -> None:
         "context_parallel": (cfg.context_parallel, False),
         "sequence_parallel": (cfg.sequence_parallel, False),
         "ulysses_parallel": (cfg.ulysses_parallel, False),
-        "recompute": (cfg.recompute, False),
         # attention always goes through flash_attention (its plain twin
         # on the CPU or under set_kernel_mode("reference"))
         "use_flash_attention": (cfg.use_flash_attention, True),
@@ -410,7 +428,7 @@ def _check_supported(cfg: LlamaConfig) -> None:
         if got != default:
             raise NotImplementedError(
                 f"LlamaConfig.{name}={got!r} is not ported yet (the port "
-                f"runs dense-MLP, single-device Llama without recompute)")
+                f"runs dense-MLP, single-device Llama)")
     if cfg.hidden_size % cfg.num_attention_heads or \
             cfg.num_attention_heads % cfg.num_key_value_heads:
         raise ValueError("hidden_size must divide by num_attention_heads and "

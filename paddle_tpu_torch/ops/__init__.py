@@ -60,7 +60,10 @@ def use_megakernel() -> bool:
 
 from .decode_megakernel_cuda import decode_tick_cuda  # noqa: E402
 from .flash_attention_cuda import (flash_bwd_dkv_cuda,  # noqa: E402
-                                   flash_bwd_dq_cuda, flash_fwd_cuda)
+                                   flash_bwd_dkv_stream_cuda,
+                                   flash_bwd_dq_cuda,
+                                   flash_bwd_dq_stream_cuda, flash_fwd_cuda,
+                                   flash_fwd_stream_cuda)
 from .fused_adamw import fused_adamw_cuda, fused_adamw_update  # noqa: E402
 from .fused_ce import fused_linear_cross_entropy  # noqa: E402
 from .fused_lora_cuda import fused_lora_matmul_cuda  # noqa: E402
@@ -86,6 +89,9 @@ KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
                    "flash_fwd": flash_fwd_cuda,
                    "flash_bwd_dq": flash_bwd_dq_cuda,
                    "flash_bwd_dkv": flash_bwd_dkv_cuda,
+                   "flash_fwd_stream": flash_fwd_stream_cuda,
+                   "flash_bwd_dq_stream": flash_bwd_dq_stream_cuda,
+                   "flash_bwd_dkv_stream": flash_bwd_dkv_stream_cuda,
                    "fused_adamw": fused_adamw_cuda,
                    "w8_matmul": w8_matmul_cuda,
                    "paged_attention_int8": paged_attention_int8_cuda,
@@ -103,8 +109,9 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "decode_tick_cuda",
-           "flash_bwd_dkv_cuda",
-           "flash_bwd_dq_cuda", "flash_fwd_cuda", "fused_adamw_cuda",
+           "flash_bwd_dkv_cuda", "flash_bwd_dkv_stream_cuda",
+           "flash_bwd_dq_cuda", "flash_bwd_dq_stream_cuda", "flash_fwd_cuda",
+           "flash_fwd_stream_cuda", "fused_adamw_cuda",
            "fused_adamw_update", "fused_linear_cross_entropy",
            "fused_lora_matmul_cuda", "fused_rms_norm",
            "gather_block_kv", "kernel_mode", "launch_counts",

@@ -53,6 +53,13 @@ SIGNATURES = {
     # stream
     "pt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _P),
+    # the streaming entry points take the same arguments
+    "pt_flash_fwd_stream": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _P),
+    "pt_flash_bwd_dq_stream": (_P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _F, _P),
+    "pt_flash_bwd_dkv_stream": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _F, _P),
     # q, kq_pool, k_scales, vq_pool, v_scales, tables, pos, out, part_acc,
     # part_ml, B, W, H, KV, D, N, bs, M, S, P, stream
     "pt_paged_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

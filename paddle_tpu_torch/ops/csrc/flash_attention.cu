@@ -4,6 +4,23 @@
 //   _fwd_kernel_loop      launched by _flash_fwd_bhsd_loop   (:488)
 //   _bwd_dq_kernel_loop   launched by _flash_bwd_bhsd_loop   (:628)
 //   _bwd_dkv_kernel_loop  launched by _flash_bwd_bhsd_loop   (:646)
+// and the streaming kernels the JAX package takes past _FULL_K_MAX = 8192
+// keys (:678, dispatch :771-789)
+//   _fwd_kernel      launched by _flash_fwd_bhsd_stream      (:189)
+//   _bwd_dq_kernel   launched by _flash_bwd_bhsd_stream dQ   (:352)
+//   _bwd_dkv_kernel  launched by _flash_bwd_bhsd_stream dK/dV (:376)
+// The TPU keeps two forms because its loop kernels hold the whole of K/V in
+// VMEM, which stops fitting past 8192 keys; they compute one function. The
+// kernels below already stream 64-key tiles through shared memory at any
+// length, so the streaming entry points (pt_flash_*_stream) launch the same
+// bodies; they exist so that a run can count rows 2, 5 and 6 apart from
+// rows 1, 3 and 4. Long keys are safe here: every tensor offset is formed
+// in size_t, row and tile indices stay below Sq, Sk < 2^31, and the wrapper
+// refuses a tensor of 2^31 or more elements (so b * H + h cannot wrap). The
+// dK/dV block's loop over rep x ceil(Sq / 64) query tiles (2,048 at
+// S = 32768, GQA 4) is a plain loop with no per-iteration state beyond the
+// fp32 accumulators, and Sk - Sq (offs) is a signed int, negative when
+// Sq > Sk.
 // Semantics, kept: q (B, H, Sq, D), k/v (B, Hkv, Sk, D), query head h reads
 // KV head h / (H / Hkv); causal masks align bottom-right (query i sees key j
 // iff j <= i + Sk - Sq). QK in fp32 times `scale`; running max from -1e30,
@@ -505,14 +522,9 @@ bool bad_shape(int B, int H, int Hkv, int Sq, int Sk) {
          B > 65535 || H > 65535;
 }
 
-}  // namespace
-
-// bfloat16 only, head_dim 128 only. q, dO, O, dQ: (B, H, Sq, 128); k, v,
-// dK, dV: (B, Hkv, Sk, 128); lse, delta: fp32 (B, H, Sq); all contiguous and
-// 16-byte aligned. Each returns cudaGetLastError() after its launch.
-extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int H, int Hkv, int Sq,
-                            int Sk, int causal, float scale, void* stream) {
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int H, int Hkv, int Sq, int Sk, int causal,
+               float scale, void* stream) {
   if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + kTile - 1) / kTile, H, B);
   flash_fwd_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
@@ -522,11 +534,10 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, int B, int H,
-                               int Hkv, int Sq, int Sk, int causal,
-                               float scale, void* stream) {
+int launch_bwd_dq(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int B, int H, int Hkv, int Sq, int Sk, int causal,
+                  float scale, void* stream) {
   if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + kTile - 1) / kTile, H, B);
   flash_bwd_dq_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
@@ -537,11 +548,10 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv, int B,
-                                int H, int Hkv, int Sq, int Sk, int causal,
-                                float scale, void* stream) {
+int launch_bwd_dkv(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
+                   int causal, float scale, void* stream) {
   if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
@@ -560,4 +570,46 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, causal,
       scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bfloat16 only, head_dim 128 only. q, dO, O, dQ: (B, H, Sq, 128); k, v,
+// dK, dV: (B, Hkv, Sk, 128); lse, delta: fp32 (B, H, Sq); all contiguous and
+// 16-byte aligned. Each returns cudaGetLastError() after its launch. The
+// loop entry points (rows 1, 3, 4) and the streaming ones (rows 2, 5, 6)
+// take the same arguments and launch the same kernels.
+#define PT_FLASH_FWD_ARGS                                                   \
+  const void *q, const void *k, const void *v, void *o, void *lse, int B,   \
+      int H, int Hkv, int Sq, int Sk, int causal, float scale, void *stream
+#define PT_FLASH_DQ_ARGS                                                    \
+  const void *q, const void *k, const void *v, const void *dout,            \
+      const void *lse, const void *delta, void *dq, int B, int H, int Hkv,  \
+      int Sq, int Sk, int causal, float scale, void *stream
+#define PT_FLASH_DKV_ARGS                                                   \
+  const void *q, const void *k, const void *v, const void *dout,            \
+      const void *lse, const void *delta, void *dk, void *dv, int B, int H, \
+      int Hkv, int Sq, int Sk, int causal, float scale, void *stream
+
+extern "C" int pt_flash_fwd(PT_FLASH_FWD_ARGS) {
+  return launch_fwd(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, stream);
+}
+extern "C" int pt_flash_bwd_dq(PT_FLASH_DQ_ARGS) {
+  return launch_bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk,
+                       causal, scale, stream);
+}
+extern "C" int pt_flash_bwd_dkv(PT_FLASH_DKV_ARGS) {
+  return launch_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
+                        causal, scale, stream);
+}
+extern "C" int pt_flash_fwd_stream(PT_FLASH_FWD_ARGS) {
+  return launch_fwd(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, stream);
+}
+extern "C" int pt_flash_bwd_dq_stream(PT_FLASH_DQ_ARGS) {
+  return launch_bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk,
+                       causal, scale, stream);
+}
+extern "C" int pt_flash_bwd_dkv_stream(PT_FLASH_DKV_ARGS) {
+  return launch_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
+                        causal, scale, stream);
 }

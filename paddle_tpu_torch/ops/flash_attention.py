@@ -1,6 +1,8 @@
 """Flash attention — port of ``paddle_tpu/ops/flash_attention.py`` (the
 full-K loop forms ``_flash_fwd_bhsd_loop`` / ``_flash_bwd_bhsd_loop``, the
-reference ``_ref_bhsd``, the custom-vjp ``flash_attention`` and
+streaming forms ``_flash_fwd_bhsd_stream`` / ``_flash_bwd_bhsd_stream``
+and the dispatch between them at ``_FULL_K_MAX``, the reference
+``_ref_bhsd``, the custom-vjp ``flash_attention`` and
 ``flash_attention_bshd``).
 
 Layout (B, H, S, D); GQA with Hkv | H query heads (query head h reads KV
@@ -13,7 +15,9 @@ returns O and saves the fp32 logsumexp (B, H, Sq); its backward takes
 ``delta = rowsum(dO·O)`` (fp32, plain PyTorch, as XLA computes it in the
 JAX package) and recomputes P from the LSE. On CUDA tensors the three
 steps launch the kernels of ``csrc/flash_attention.cu`` (forward, dQ,
-dK/dV; :mod:`.flash_attention_cuda`); on CPU tensors, or under
+dK/dV; :mod:`.flash_attention_cuda`) — the loop kernels' entry points up
+to ``_FULL_K_MAX`` keys, the streaming ones past it, where the JAX package
+switches; on CPU tensors, or under
 ``set_kernel_mode("reference")``, they run :func:`_flash_fwd_plain` and
 :func:`_flash_bwd_plain`, which repeat the kernels' arithmetic. Unlike the
 JAX package there is no fallback to the reference on odd shapes or on a
@@ -31,6 +35,10 @@ import math
 import torch
 
 NEG_INF = -1e30
+# K/V longer than this take the streaming forms, as in the JAX package
+# (whose loop kernels keep the whole of K/V resident in VMEM up to here).
+# The JAX block-size tables beside it are TPU tuning and are not ported.
+_FULL_K_MAX = 8192
 # query rows per step of the plain versions: bounds their fp32 score
 # tensors to (B, H, _PLAIN_ROWS, Sk)
 _PLAIN_ROWS = 512
@@ -138,23 +146,56 @@ def _flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _flash_fwd_bhsd_stream(q, k, v, causal: bool, scale: float):
+    """(O, LSE) of the streaming form (rows past ``_FULL_K_MAX`` keys): the
+    stream forward kernel on CUDA tensors, else the plain version (which
+    takes any length, ``_PLAIN_ROWS`` query rows at a time)."""
+    from . import use_kernel
+    from .flash_attention_cuda import flash_fwd_stream_cuda
+
+    if use_kernel(q):
+        return flash_fwd_stream_cuda(q, k, v, causal, scale)
+    return _flash_fwd_plain(q, k, v, causal, scale)
+
+
+def _flash_bwd_bhsd_stream(q, k, v, do, lse, delta, causal: bool,
+                           scale: float):
+    """(dQ, dK, dV) of the streaming form: the stream dQ and dK/dV kernels
+    on CUDA tensors, else the plain version."""
+    from . import use_kernel
+    from .flash_attention_cuda import (flash_bwd_dkv_stream_cuda,
+                                       flash_bwd_dq_stream_cuda)
+
+    if use_kernel(q):
+        dq = flash_bwd_dq_stream_cuda(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv_stream_cuda(q, k, v, do, lse, delta, causal,
+                                           scale)
+        return dq, dk, dv
+    return _flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
+
+
 def _flash_fwd_bhsd(q, k, v, causal: bool, scale: float):
-    """(O, LSE): the forward kernel on CUDA tensors, else its plain
-    version."""
+    """(O, LSE): the loop forward kernel up to ``_FULL_K_MAX`` keys and the
+    streaming one past it on CUDA tensors, else the plain version."""
     from . import use_kernel
     from .flash_attention_cuda import flash_fwd_cuda
 
+    if k.shape[2] > _FULL_K_MAX:
+        return _flash_fwd_bhsd_stream(q, k, v, causal, scale)
     if use_kernel(q):
         return flash_fwd_cuda(q, k, v, causal, scale)
     return _flash_fwd_plain(q, k, v, causal, scale)
 
 
 def _flash_bwd_bhsd(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """(dQ, dK, dV): the dQ and dK/dV kernels on CUDA tensors, else the
-    plain version."""
+    """(dQ, dK, dV): the loop dQ and dK/dV kernels up to ``_FULL_K_MAX``
+    keys and the streaming ones past it on CUDA tensors, else the plain
+    version."""
     from . import use_kernel
     from .flash_attention_cuda import flash_bwd_dkv_cuda, flash_bwd_dq_cuda
 
+    if k.shape[2] > _FULL_K_MAX:
+        return _flash_bwd_bhsd_stream(q, k, v, do, lse, delta, causal, scale)
     if use_kernel(q):
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)

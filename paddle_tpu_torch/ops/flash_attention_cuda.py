@@ -1,13 +1,24 @@
-"""CUDA flash attention — port of the Pallas kernels
-``_flash_fwd_bhsd_loop`` (``paddle_tpu/ops/flash_attention.py:488``) and
-the ``_flash_bwd_bhsd_loop`` pair (dQ ``:628``, dK/dV ``:646``).
+"""CUDA flash attention — port of the Pallas kernels of
+``paddle_tpu/ops/flash_attention.py``: the full-K loop forms
+``_flash_fwd_bhsd_loop`` (``:488``) and the ``_flash_bwd_bhsd_loop`` pair
+(dQ ``:628``, dK/dV ``:646``), and the streaming forms
+``_flash_fwd_bhsd_stream`` (``:189``) and the ``_flash_bwd_bhsd_stream``
+pair (dQ ``:352``, dK/dV ``:376``), which the JAX package takes past
+``_FULL_K_MAX`` keys.
 
-Three wrappers over ``csrc/flash_attention.cu``, each with its launch
+Six wrappers over ``csrc/flash_attention.cu``, each with its launch
 counter: :func:`flash_fwd_cuda` (O, LSE), :func:`flash_bwd_dq_cuda` and
-:func:`flash_bwd_dkv_cuda`. Their plain versions are
-``flash_attention._flash_fwd_plain`` / ``_flash_bwd_plain``. The kernels
-take bfloat16 (B, H, S, 128) tensors only (Llama-3-8B's head dim); any
-other type, head dim or device raises.
+:func:`flash_bwd_dkv_cuda` for the loop rows, and
+:func:`flash_fwd_stream_cuda`, :func:`flash_bwd_dq_stream_cuda` and
+:func:`flash_bwd_dkv_stream_cuda` for the streaming rows. The TPU splits
+the two forms only because the loop kernels keep all of K/V resident in
+VMEM; on Hopper every form streams 64-key tiles through shared memory, so
+both sets of entry points launch the same kernel bodies, and the separate
+entry points and counters show which rows a run went through. Their plain
+versions are ``flash_attention._flash_fwd_plain`` / ``_flash_bwd_plain``.
+The kernels take bfloat16 (B, H, S, 128) tensors only (Llama-3-8B's head
+dim) whose every tensor holds fewer than 2**31 elements; any other type,
+head dim, extent or device raises.
 """
 from __future__ import annotations
 
@@ -15,17 +26,24 @@ import torch
 
 # the one head dim the kernels are instantiated for (Llama-3-8B's)
 HEAD_DIM = 128
+# the kernels index a tensor's elements with 32-bit row and batch·head
+# products: every tensor must hold fewer elements than this
+MAX_ELEMENTS = 2 ** 31
 
 
 def _check(name, q, k, v, *rest):
-    tensors = (q, k, v) + rest
-    if not all(t.is_cuda for t in tensors) or \
-            len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name}: all inputs must be on one CUDA device")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: want q (B, H, Sq, D) and equal k/v "
                          f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    for t in (q, k):
+        if t.numel() >= MAX_ELEMENTS:
+            raise ValueError(f"{name}: {tuple(t.shape)} holds {t.numel()} "
+                             f"elements, the kernel takes fewer than 2**31")
+    tensors = (q, k, v) + rest
+    if not all(t.is_cuda for t in tensors) or \
+            len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
@@ -56,46 +74,78 @@ def _rows(name, t, B, H, Sq):
     return t.contiguous()
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
-    """Forward kernel: (O (B, H, Sq, D) bf16, LSE fp32 (B, H, Sq))."""
+def _fwd(name, entry, q, k, v, causal, scale):
+    """Launch the forward kernel through C entry point ``entry``."""
     from . import _build
 
-    B, H, Hkv, Sq, Sk = _check("flash_fwd_cuda", q, k, v)
+    B, H, Hkv, Sq, Sk = _check(name, q, k, v)
     q, k, v = _c(q), _c(k), _c(v)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    lib = _build.library()
-    err = lib.pt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), lse.data_ptr(), B, H, Hkv, Sq, Sk,
-                           int(bool(causal)), float(scale),
-                           _build.stream_ptr(q.device))
-    _build.check(err, "flash_fwd")
-    flash_fwd_cuda.launches += 1
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, H, Hkv, Sq, Sk, int(bool(causal)), float(scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, name)
     return out, lse
+
+
+def _bwd_inputs(name, q, k, v, do, lse, delta):
+    B, H, Hkv, Sq, Sk = _check(name, q, k, v, do, lse, delta)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{name}: dO must match q")
+    lse = _rows(name, lse, B, H, Sq)
+    delta = _rows(name, delta, B, H, Sq)
+    return (B, H, Hkv, Sq, Sk), (_c(q), _c(k), _c(v), _c(do), lse, delta)
+
+
+def _bwd_dq(name, entry, q, k, v, do, lse, delta, causal, scale):
+    """Launch the dQ kernel through C entry point ``entry``."""
+    from . import _build
+
+    dims, (q, k, v, do, lse, delta) = _bwd_inputs(name, q, k, v, do, lse,
+                                                  delta)
+    dq = torch.empty_like(q)
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+        int(bool(causal)), float(scale), _build.stream_ptr(q.device))
+    _build.check(err, name)
+    return dq
+
+
+def _bwd_dkv(name, entry, q, k, v, do, lse, delta, causal, scale):
+    """Launch the dK/dV kernel through C entry point ``entry``."""
+    from . import _build
+
+    dims, (q, k, v, do, lse, delta) = _bwd_inputs(name, q, k, v, do, lse,
+                                                  delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dims, int(bool(causal)), float(scale), _build.stream_ptr(q.device))
+    _build.check(err, name)
+    return dk, dv
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+    """Forward kernel (loop row 1): (O (B, H, Sq, D) bf16, LSE fp32
+    (B, H, Sq))."""
+    out = _fwd("flash_fwd", "pt_flash_fwd", q, k, v, causal, scale)
+    flash_fwd_cuda.launches += 1
+    return out
 
 
 flash_fwd_cuda.launches = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dQ kernel: dQ (B, H, Sq, D) bf16 from the saved LSE and
+    """dQ kernel (loop row 3): dQ (B, H, Sq, D) bf16 from the saved LSE and
     delta = rowsum(dO·O)."""
-    from . import _build
-
-    B, H, Hkv, Sq, Sk = _check("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError("flash_bwd_dq_cuda: dO must match q")
-    lse = _rows("flash_bwd_dq_cuda", lse, B, H, Sq)
-    delta = _rows("flash_bwd_dq_cuda", delta, B, H, Sq)
-    q, k, v, do = _c(q), _c(k), _c(v), _c(do)
-    dq = torch.empty_like(q)
-    lib = _build.library()
-    err = lib.pt_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              do.data_ptr(), lse.data_ptr(),
-                              delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Sq,
-                              Sk, int(bool(causal)), float(scale),
-                              _build.stream_ptr(q.device))
-    _build.check(err, "flash_bwd_dq")
+    dq = _bwd_dq("flash_bwd_dq", "pt_flash_bwd_dq", q, k, v, do, lse, delta,
+                 causal, scale)
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -104,28 +154,49 @@ flash_bwd_dq_cuda.launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dK/dV kernel: (dK, dV) (B, Hkv, Sk, D) bf16, summed over each KV
-    head's group of query heads inside the kernel."""
-    from . import _build
-
-    B, H, Hkv, Sq, Sk = _check("flash_bwd_dkv_cuda", q, k, v, do, lse,
-                               delta)
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError("flash_bwd_dkv_cuda: dO must match q")
-    lse = _rows("flash_bwd_dkv_cuda", lse, B, H, Sq)
-    delta = _rows("flash_bwd_dkv_cuda", delta, B, H, Sq)
-    q, k, v, do = _c(q), _c(k), _c(v), _c(do)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    lib = _build.library()
-    err = lib.pt_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                               B, H, Hkv, Sq, Sk, int(bool(causal)),
-                               float(scale), _build.stream_ptr(q.device))
-    _build.check(err, "flash_bwd_dkv")
+    """dK/dV kernel (loop row 4): (dK, dV) (B, Hkv, Sk, D) bf16, summed
+    over each KV head's group of query heads in fp32 inside the kernel."""
+    out = _bwd_dkv("flash_bwd_dkv", "pt_flash_bwd_dkv", q, k, v, do, lse,
+                   delta, causal, scale)
     flash_bwd_dkv_cuda.launches += 1
-    return dk, dv
+    return out
 
 
 flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_fwd_stream_cuda(q, k, v, causal: bool, scale: float):
+    """Streaming forward kernel (row 2): as :func:`flash_fwd_cuda`."""
+    out = _fwd("flash_fwd_stream", "pt_flash_fwd_stream", q, k, v, causal,
+               scale)
+    flash_fwd_stream_cuda.launches += 1
+    return out
+
+
+flash_fwd_stream_cuda.launches = 0
+
+
+def flash_bwd_dq_stream_cuda(q, k, v, do, lse, delta, causal: bool,
+                             scale: float):
+    """Streaming dQ kernel (row 5): as :func:`flash_bwd_dq_cuda`."""
+    dq = _bwd_dq("flash_bwd_dq_stream", "pt_flash_bwd_dq_stream", q, k, v,
+                 do, lse, delta, causal, scale)
+    flash_bwd_dq_stream_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_stream_cuda.launches = 0
+
+
+def flash_bwd_dkv_stream_cuda(q, k, v, do, lse, delta, causal: bool,
+                              scale: float):
+    """Streaming dK/dV kernel (row 6): as :func:`flash_bwd_dkv_cuda`, the
+    GQA group summed in fp32 and rounded once, as the JAX stream kernel
+    rounds."""
+    out = _bwd_dkv("flash_bwd_dkv_stream", "pt_flash_bwd_dkv_stream", q, k,
+                   v, do, lse, delta, causal, scale)
+    flash_bwd_dkv_stream_cuda.launches += 1
+    return out
+
+
+flash_bwd_dkv_stream_cuda.launches = 0

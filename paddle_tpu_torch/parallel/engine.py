@@ -12,8 +12,23 @@ schedule follow the JAX engine: the update uses bias correction at
 ``step_count + 1`` with the learning rate read before the step, and an
 ``LRScheduler`` learning rate is stepped after it.
 
+``remat=True`` recomputes activations in the backward under
+``remat_policy`` (the JAX engine's names: ``"dots"``, ``"nothing"``,
+``"save_attn"``, ``"save_attn_mlp"``, ``"save_qkv_attn"``, or None /
+``"none"`` for a full recompute; see ``distributed/fleet/recompute.py``),
+once per microbatch, one decoder layer at a time: the engine opens the
+policy's scope and the model (``LlamaModel``) runs each layer as its own
+checkpointed region, which keeps the layer's inputs and what the policy
+saves. The JAX engine wraps the whole per-microbatch loss in
+``jax.checkpoint`` and XLA recomputes it layer by layer; PyTorch replays a
+checkpointed region as a whole at the backward's first use of it, so one
+region over the whole loss would hold every activation at once in the
+backward, as no remat does. A model that checkpoints no layer in the
+scope is refused (NotImplementedError) rather than run without remat.
+
 Not ported yet (they raise): a mesh of more than one device, ``fsdp``,
-``remat``, ``offload_opt_state``, ``injector`` and ``telemetry``.
+``remat_policy="offload_attn"``, ``offload_opt_state``, ``injector`` and
+``telemetry``.
 """
 from __future__ import annotations
 
@@ -22,8 +37,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-_UNPORTED = {"fsdp": False, "remat": False, "offload_opt_state": False,
-             "injector": None, "telemetry": None}
+from ..distributed.fleet.recompute import check_remat_policy, remat_layers
+
+_UNPORTED = {"fsdp": False, "offload_opt_state": False, "injector": None,
+             "telemetry": None}
 
 
 class ParallelEngine:
@@ -41,6 +58,7 @@ class ParallelEngine:
 
     def __init__(self, model, optimizer=None,
                  loss_fn: Optional[Callable] = None, mesh=None,
+                 remat: bool = False, remat_policy: Optional[str] = "dots",
                  grad_accum: int = 1, **unported):
         for key, value in unported.items():
             if key not in _UNPORTED:
@@ -56,6 +74,10 @@ class ParallelEngine:
         self.grad_accum = int(grad_accum)
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.remat = bool(remat)
+        self.remat_policy = remat_policy
+        if self.remat:
+            check_remat_policy(remat_policy)
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -79,6 +101,20 @@ class ParallelEngine:
             np.asarray(b))
         return t.to(self.device)
 
+    def _step_loss(self, batch):
+        """The loss of one (micro)batch, each decoder layer checkpointed
+        under the remat policy when ``remat``."""
+        if not self.remat:
+            return self._loss(batch)
+        with remat_layers(self.remat_policy) as scope:
+            loss = self._loss(batch)
+        if not scope.layers:
+            raise NotImplementedError(
+                f"remat=True checkpoints decoder layers, and "
+                f"{type(self.model).__name__} ran none through "
+                f"layer_checkpoint() (LlamaForCausalLM does)")
+        return loss
+
     def _loss(self, batch):
         *inputs, label = batch
         if self.loss_fn is None:
@@ -100,7 +136,7 @@ class ParallelEngine:
             for _, p in named:
                 p.grad = None
             if accum == 1:
-                loss = self._loss(batch)
+                loss = self._step_loss(batch)
                 loss.backward()
                 grads = [p.grad for _, p in named]
             else:
@@ -110,7 +146,7 @@ class ParallelEngine:
                 loss = torch.zeros((), dtype=torch.float32,
                                    device=self.device)
                 for mb in mbs:
-                    l_mb = self._loss(mb)
+                    l_mb = self._step_loss(mb)
                     l_mb.backward()
                     loss += l_mb.detach().float()
                     for a, (_, p) in zip(acc, named):

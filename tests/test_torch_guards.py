@@ -21,7 +21,10 @@ from paddle_tpu_torch.parallel import ParallelEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
-PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.ops",
+PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
+                "paddle_tpu_torch.distributed.fleet",
+                "paddle_tpu_torch.distributed.fleet.recompute",
+                "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.ops._build",
                 "paddle_tpu_torch.ops.decode_megakernel",
                 "paddle_tpu_torch.ops.decode_megakernel_cuda",
@@ -145,7 +148,9 @@ def test_train_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
 
 
-@pytest.mark.parametrize("kwargs", [dict(fsdp=True), dict(remat=True),
+@pytest.mark.parametrize("kwargs", [dict(fsdp=True),
+                                    dict(remat=True,
+                                         remat_policy="offload_attn"),
                                     dict(offload_opt_state=True),
                                     dict(injector=object()),
                                     dict(telemetry=object()),
@@ -162,12 +167,22 @@ def test_unported_engine_options_raise(kwargs):
                                          ("context_parallel", True),
                                          ("sequence_parallel", True),
                                          ("ulysses_parallel", True),
-                                         ("recompute", True),
                                          ("use_flash_attention", False)])
 def test_unported_model_options_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1,
                                            **{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("policy", ["bogus", "save_everything"])
+def test_unknown_remat_policy_raises(policy):
+    """An unknown ``remat_policy`` raises ValueError under ``remat=True``
+    (as the JAX engine's), and is not looked at without it."""
+    model = _tiny_model()
+    opt = AdamW(parameters=model.named_parameters())
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        ParallelEngine(model, optimizer=opt, remat=True, remat_policy=policy)
+    ParallelEngine(model, optimizer=opt, remat_policy=policy)
 
 
 def _cpu_args(name):
@@ -179,11 +194,13 @@ def _cpu_args(name):
     return {"flash_fwd": (q, k, k, True, 0.1),
             "flash_bwd_dq": (q, k, k, q, rows, rows, True, 0.1),
             "flash_bwd_dkv": (q, k, k, q, rows, rows, True, 0.1),
-            "fused_adamw": (p, p, f, f)}[name]
+            "fused_adamw": (p, p, f, f)}[name.removesuffix("_stream")]
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
-                                  "flash_bwd_dkv", "fused_adamw"])
+                                  "flash_bwd_dkv", "fused_adamw",
+                                  "flash_fwd_stream", "flash_bwd_dq_stream",
+                                  "flash_bwd_dkv_stream"])
 def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
     wrapper = ops.KERNEL_WRAPPERS[name]
     kw = {} if name != "fused_adamw" else dict(

@@ -4,6 +4,7 @@ in fp32: a JAX ``LlamaForCausalLM`` (GQA) carried across with
 states and logits, and greedy ``GenerationServer(cache="paged")`` tokens
 are identical to the JAX server's on the same requests. Also the ported
 host-side pieces (block allocator, sampling) against their JAX originals."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -224,3 +225,36 @@ def test_sampling_filters_match_jax():
                                   torch.ones(4, dtype=torch.int32),
                                   torch.zeros(4))
     np.testing.assert_array_equal(rows.numpy(), lg.argmax(-1))
+
+
+def test_next_token_top_k_past_vocab_keeps_every_token():
+    """top_k larger than the vocabulary keeps every token, as the JAX
+    ``next_token``'s clamped index does: with one seed, top_k = 20 draws
+    what top_k = V = 8 and no top-k filter draw, on both sides."""
+    rng = np.random.default_rng(4)
+    lg = rng.standard_normal((2, 8)).astype(np.float32) * 2
+    key = jax.random.PRNGKey(0)
+    jtok = {k: np.asarray(jgen.next_token(jnp.asarray(lg), key, 0.9, k)[0])
+            for k in (20, 8, 0)}
+    np.testing.assert_array_equal(jtok[20], jtok[8])
+    np.testing.assert_array_equal(jtok[20], jtok[0])
+    ttok = {k: tgen.next_token(torch.from_numpy(lg),
+                               torch.Generator().manual_seed(5), 0.9,
+                               k).numpy() for k in (20, 8, 0)}
+    np.testing.assert_array_equal(ttok[20], ttok[8])
+    np.testing.assert_array_equal(ttok[20], ttok[0])
+    assert ttok[20].dtype == np.int32 and ttok[20].shape == (2,)
+
+
+def test_sampled_request_with_top_k_past_vocab_completes(models):
+    """A sampled request whose top_k exceeds the vocabulary is served to
+    its full length (it raised at its first token before)."""
+    _, tm, _ = models
+    srv = GenerationServer(tm, device="cpu", max_batch=2, max_len=64,
+                           block_size=4, prefill_chunk=8, seed=2)
+    prompt = list(range(1, 7))
+    rid = srv.submit(prompt, max_new_tokens=5, temperature=0.8,
+                     top_k=1000)
+    out = srv.run()[rid]
+    assert out[:6] == prompt and len(out) == 11
+    assert all(0 <= t < SMALL["vocab_size"] for t in out[6:])
