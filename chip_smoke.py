@@ -160,6 +160,33 @@ entry points and counters):
    and on an fp32 copy: the remat run equals the kernels' run bit for
    bit; the kernels' loss and gradients within phase 8's drift ratio.
 
+Phases 21-23 run after phase 20: ERNIE-3.0 base finetune (BASELINE config
+2, ``examples/ernie_finetune.py``), through the LayerNorm kernel (row 8)
+and the flash kernels at head dim 64 (rows 1, 3, 4):
+
+21. LayerNorm against its plain version, bf16 and fp32, eps 1e-12, at
+   ERNIE's B x S rows (4096 and 16384) x 768, at 8 x 768 and at 4096 x
+   4096, rows with means of either sign: per element one rounding step of
+   the output plus the fp32 sums' bound on the row mean, shown to reject
+   the bias left out and the variance taken about 0. Times beside the
+   plain version and ``F.layer_norm``, with the byte bound.
+22. The flash forward, dQ and dK/dV kernels at D = 64 without the causal
+   mask, B=32, H=12, S in {128, 512}, against the plain versions with
+   phase 6's per-row tolerances, shown to reject the last key dropped;
+   times beside SDPA forward and backward. (Phases 6 and 18 keep D = 128.)
+23. ``ErnieForSequenceClassification`` at 12 layers, hidden 768, 12
+   heads, vocab 40000, seeded random weights, ``model.bfloat16()``, AdamW
+   lr 5e-5 (fp32 master weights), ``ParallelEngine(loss_fn=model.
+   loss_fn)``: (a) the recipe, B=32, S=128, dropout 0.1 / 0.1 (attention
+   takes the SDPA reference, as in the JAX package); (b) B=32, S=512,
+   attention dropout 0 (the flash kernels); 10 steps each (2 warm-up),
+   every step's launches checked (LayerNorm 25, flash 12 / 12 / 12 in (b)
+   and 0 in (a), AdamW once a parameter tensor); (c) the eval forward at
+   both shapes (LayerNorm 25, flash forward 12). Prints as phase 7. Then
+   2 layers at dropout 0, B=128, S in {128, 512}: the kernels' per-example
+   losses and gradients against the plain bf16 path and an fp32 copy
+   under phase 8's drift ratio, the eval outputs under phase 5's rule.
+
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
 LoRA or per-layer attention launch; prefill chunks as in phase 10, the
@@ -172,7 +199,9 @@ host wall time around work that ends in a copy of its result to the host.
 The second-to-last line is a JSON object listing each kernel with its
 launches on the main path and its measurements (the tick kernel once per
 variant: ``decode_tick``, ``decode_tick_int8``, ``decode_tick_lora``, each
-with the launches of its serving cell); the last line is
+with the launches of its serving cell; the flash rows once more at head
+dim 64, ``flash_fwd_d64``, ``flash_bwd_dq_d64``, ``flash_bwd_dkv_d64``,
+with phase 23's launches); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2008,6 +2037,7 @@ def kernel_adamw(torch, fw, ops):
 OWN_KERNELS = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel":
                "flash_bwd_dq", "flash_bwd_dkv_kernel": "flash_bwd_dkv",
                "adamw_kernel": "fused_adamw", "rms_norm_kernel": "rms_norm",
+               "layer_norm_kernel": "layer_norm",
                "paged_attention_": "paged_attention", "w8_": "w8_matmul",
                "lora_": "fused_lora_matmul",
                "decode_tick_kernel": "decode_tick"}
@@ -2747,6 +2777,534 @@ def train_long_end_to_end(torch, ops):
     return res
 
 
+# -------------------------------------------------------------- phase 21
+# ERNIE-3.0 base finetune (phases 21-23): the repo's recipe (BASELINE
+# config 2, tools/model_benchmark.py's bench_ernie): 12 layers, hidden
+# 768, 12 heads of 64, vocab 40000, B = 32 x S = 128, dropout 0.1 / 0.1,
+# AdamW lr 5e-5; and S = 512 with attention dropout 0, which takes the
+# flash kernels (rows 1, 3, 4) at head dim 64
+ERNIE_B, ERNIE_S, ERNIE_LONG_S = 32, 128, 512
+ERNIE_STEPS, ERNIE_WARMUP = 10, 2
+ERNIE_LAYERS, ERNIE_H, ERNIE_D = 12, 12, 64
+# LayerNorms a forward: the embeddings' one and two a layer
+ERNIE_LN = 2 * ERNIE_LAYERS + 1
+
+
+def _ln_case(torch, g, rows, D, dtype):
+    """LayerNorm inputs whose rows have means of either sign and several
+    scales (a residual stream's rows do), so that a variance taken about 0
+    instead of about the mean shows."""
+    mean = torch.randn(rows, 1, generator=g, device="cuda")
+    scale = 0.5 + 1.5 * torch.rand(rows, 1, generator=g, device="cuda")
+    x = (mean + scale * torch.randn(rows, D, generator=g, device="cuda")).to(
+        dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(dtype)
+    b = (0.1 * torch.randn(D, generator=g, device="cuda")).to(dtype)
+    return x, w, b
+
+
+def _ln_mutant(torch, x, w, b, eps, fault):
+    """The plain LayerNorm with one planted fault, in its own rounding:
+    the bias left out, or the variance taken about 0 (E[x^2])."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    if fault == "var_about_0":
+        var = xf.square().mean(-1, keepdim=True)
+    else:
+        var = (xf - mu).square().mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * w.float()
+    if fault != "no_bias":
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+def _ln_ratio(y, ref, x, w, dtype):
+    """Per element: |y - ref| against one rounding step of the output (one
+    bf16 step, 2^-7 of the value; 16 fp32 ulps, 2^-20) plus what the order
+    of the fp32 sums moves the row's mean, in units of the normalised
+    output: kernel and plain version each sum D terms with an error of at
+    most ~32 ulps of sum|x| (a lane's 24 serial adds and the 5 shuffle
+    levels; the plain version's vectorised pairwise sum), so 2^-18 of
+    mean|x| / std(x) a row, times |w|."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    shift = xf.abs().mean(-1, keepdim=True) / (
+        (xf - mu).square().mean(-1, keepdim=True).sqrt() + 1e-30)
+    r = ref.float()
+    rel = 2.0 ** -7 if dtype == "bf16" else 2.0 ** -20
+    tol = rel * r.abs() + 2.0 ** -18 * shift * w.float().abs()
+    return (y.float() - r).abs() / tol
+
+
+def kernel_layer_norm(torch, fused_norm):
+    """Phase 21: row 8 against its plain version in bf16 and fp32 at
+    ERNIE's B x S rows (S = 128 and 512), at 8 rows and at 4096 x 4096,
+    with the tolerance shown to reject two planted faults; times beside
+    the plain version and ``torch.nn.functional.layer_norm``."""
+    from torch.nn import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    eps = 1e-12                   # ERNIE's embedding norm: the hardest eps
+    cases = []
+    for rows, D in ((ERNIE_B * ERNIE_S, 768), (ERNIE_B * ERNIE_LONG_S, 768),
+                    (8, 768), (4096, 4096)):
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32)):
+            x, w, b = _ln_case(torch, g, rows, D, dtype)
+            y = fused_norm.layer_norm_cuda(x, w, b, eps)
+            ref = fused_norm._ln_ref(x, w, b, eps)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y.float()).all()),
+                  f"layer_norm {rows}x{D} {name}: non-finite")
+            worst = _ln_ratio(y, ref, x, w, name).max().item()
+            check(worst <= 1.0, f"layer_norm {rows}x{D} {name}: an element "
+                                f"is off by {worst:.3g} x its tolerance")
+            mutants = {}
+            for fault in ("no_bias", "var_about_0"):
+                r = _ln_ratio(_ln_mutant(torch, x, w, b, eps, fault), ref,
+                              x, w, name)
+                mutants[fault] = dict(worst_err_over_tol=r.max().item(),
+                                      elements_failed=(r > 1.0).float()
+                                      .mean().item())
+                check(r.max().item() > 1.0, f"layer_norm {rows}x{D} {name}: "
+                                            f"the tolerance passes the "
+                                            f"{fault} fault")
+            es = x.element_size()
+            bnd, by = bound_ms(2 * rows * D * es + 2 * D * es, 8 * rows * D,
+                               FP32_FLOPS)
+            case = dict(
+                rows=rows, dim=D, dtype=name, eps=eps,
+                max_abs_err=(y.float() - ref.float()).abs().max().item(),
+                worst_err_over_tol=worst, mutants=mutants,
+                ms=time_ms(lambda: fused_norm.layer_norm_cuda(x, w, b, eps),
+                           200),
+                plain_ms=time_ms(lambda: fused_norm._ln_ref(x, w, b, eps),
+                                 50),
+                bound_ms=bnd, bound_by=by,
+                library_ms=time_ms(lambda: F.layer_norm(x, (D,), w, b, eps),
+                                   200))
+            log(f"kernel layer_norm rows={rows}x{D} {name}: "
+                + json.dumps(case))
+            cases.append(case)
+            del x, w, b, y, ref
+    return cases
+
+
+# -------------------------------------------------------------- phase 22
+def _drop_last_key(torch, fa, q, k, v, do=None):
+    """The plain flash versions with the last key left out: the planted
+    fault of the non-causal checks (phase 6 moves the causal mask), in the
+    plain versions' own rounding. (O, LSE), or (dQ, dK, dV) with ``do``,
+    dK and dV zero at the dropped key."""
+    s = 1.0 / q.shape[-1] ** 0.5
+    kk, vv = k[:, :, :-1].contiguous(), v[:, :, :-1].contiguous()
+    o, lse = fa._flash_fwd_plain(q, kk, vv, False, s)
+    if do is None:
+        return o, lse
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = fa._flash_bwd_plain(q, kk, vv, do, lse, delta, False, s)
+    pad = torch.nn.functional.pad
+    return dq, pad(dk, [0, 0, 0, 1]), pad(dv, [0, 0, 0, 1])
+
+
+def kernel_flash_d64(torch, fa, fac):
+    """Phase 22: the flash forward, dQ and dK/dV kernels at head dim 64,
+    without the causal mask, at ERNIE's B = 32, H = 12 and S in {128, 512},
+    against the plain versions with phase 6's per-row tolerances and a
+    planted fault (the last key dropped); times beside SDPA."""
+    from torch.nn import functional as F
+
+    B, H, D = ERNIE_B, ERNIE_H, ERNIE_D
+    s = 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    fwd_cases, bwd_cases = [], []
+    for S in (ERNIE_S, ERNIE_LONG_S):
+        q, k, v, do = (rnd(B, H, S, D) for _ in range(4))
+        out, lse = fac.flash_fwd_cuda(q, k, v, False, s)
+        ref, rlse = fa._flash_fwd_plain(q, k, v, False, s)
+        delta = (do.float() * ref.float()).sum(-1)
+        dq = fac.flash_bwd_dq_cuda(q, k, v, do, rlse, delta, False, s)
+        dk, dv = fac.flash_bwd_dkv_cuda(q, k, v, do, rlse, delta, False, s)
+        rdq, rdk, rdv = fa._flash_bwd_plain(q, k, v, do, rlse, delta, False,
+                                            s)
+        torch.cuda.synchronize()
+        got = {"o": out, "dq": dq, "dk": dk, "dv": dv}
+        want = {"o": ref, "dq": rdq, "dk": rdk, "dv": rdv}
+        scale_of = {n: _rms(v) if n == "o" else _rms(want[n]) for n in got}
+        ratios = {n: _row_ratio(x, want[n], scale_of[n]).max().item()
+                  for n, x in got.items()}
+        ratios["lse"] = _lse_ratio(lse, rlse, S).max().item()
+        for n, w_ in ratios.items():
+            check(bool(torch.isfinite(got.get(n, lse).float()).all()),
+                  f"flash d64 S={S}: {n} non-finite")
+            check(w_ <= 1.0, f"flash d64 S={S}: {n} off by {w_:.3g} x its "
+                             f"tolerance")
+        mo, _ = _drop_last_key(torch, fa, q, k, v)
+        mut = {"o": _row_ratio(mo, ref, scale_of["o"]).max().item()}
+        for n, x in zip(("dq", "dk", "dv"),
+                        _drop_last_key(torch, fa, q, k, v, do)):
+            mut[n] = _row_ratio(x, want[n], scale_of[n]).max().item()
+        for n, w_ in mut.items():
+            check(w_ > 1.0, f"flash d64 S={S}: the tolerance passes the "
+                            f"dropped-key fault in {n} ({w_:.3g})")
+        errs = {n: (x.float() - want[n].float()).abs().max().item()
+                for n, x in got.items()}
+        pairs = S * S
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+        bnd, by = bound_ms(nbytes, 4 * D * B * H * pairs, BF16_FLOPS)
+        fcase = dict(B=B, H=H, KV=H, D=D, Sq=S, Sk=S, causal=False,
+                     max_abs_err=errs["o"], worst_err_over_tol=ratios["o"],
+                     lse_worst_err_over_tol=ratios["lse"],
+                     mutants={"drop_last_key": mut["o"]},
+                     ms=time_ms(lambda: fac.flash_fwd_cuda(q, k, v, False, s),
+                                20),
+                     plain_ms=time_ms(lambda: fa._flash_fwd_plain(
+                         q, k, v, False, s), 2),
+                     bound_ms=bnd, bound_by=by,
+                     library_ms=time_ms(
+                         lambda: F.scaled_dot_product_attention(q, k, v), 20))
+        log(f"kernel flash_fwd d64 S={S} B={B} bf16: " + json.dumps(fcase))
+        fwd_cases.append(fcase)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def lib_fwd_bwd():
+            qg.grad = kg.grad = vg.grad = None
+            F.scaled_dot_product_attention(qg, kg, vg).backward(do)
+
+        lib_fb = event_ms(torch, lib_fwd_bwd, 10)
+        lib_bwd = lib_fb - event_ms(
+            torch, lambda: F.scaled_dot_product_attention(qg, kg, vg), 10)
+        plain_bwd = time_ms(lambda: fa._flash_bwd_plain(
+            q, k, v, do, rlse, delta, False, s), 2)
+        io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * lse.numel()
+        for name, products, outs, keys, fn in (
+                ("flash_bwd_dq", 3, dq.numel(), ("dq",),
+                 lambda: fac.flash_bwd_dq_cuda(q, k, v, do, rlse, delta,
+                                               False, s)),
+                ("flash_bwd_dkv", 4, dk.numel() + dv.numel(), ("dk", "dv"),
+                 lambda: fac.flash_bwd_dkv_cuda(q, k, v, do, rlse, delta,
+                                                False, s))):
+            bnd, by = bound_ms(io + 2 * outs, 2 * products * D * B * H * pairs,
+                               BF16_FLOPS)
+            case = dict(B=B, H=H, KV=H, D=D, S=S, causal=False,
+                        library_fwd_bwd_ms=lib_fb,
+                        max_abs_err=max(errs[n] for n in keys),
+                        max_abs_errs={n: errs[n] for n in keys},
+                        worst_err_over_tol={n: ratios[n] for n in keys},
+                        mutants={"drop_last_key": {n: mut[n] for n in keys}},
+                        ms=time_ms(fn, 20), plain_ms=plain_bwd,
+                        bound_ms=bnd, bound_by=by, library_ms=lib_bwd)
+            log(f"kernel {name} d64 S={S} B={B} bf16: " + json.dumps(case))
+            bwd_cases.append((name, case))
+        del q, k, v, do, qg, kg, vg, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
+# -------------------------------------------------------------- phase 23
+def _ernie_config(**kw):
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+
+    return ErnieConfig(**{**dict(
+        vocab_size=40000, hidden_size=768, num_hidden_layers=ERNIE_LAYERS,
+        num_attention_heads=ERNIE_H, intermediate_size=3072,
+        max_position_embeddings=2048), **kw})
+
+
+def _ernie_batch(torch, gen, vocab, S):
+    ids = torch.randint(0, vocab, (ERNIE_B, S), generator=gen, device="cuda")
+    labels = torch.randint(0, 2, (ERNIE_B,), generator=gen, device="cuda")
+    return ids, labels
+
+
+def _ernie_flops(n_nonembed, S):
+    """(6 * N_nonembed * T + 12 * L * H * D * S * T): the weight products
+    forward and backward and the non-causal attention products (QK^T and
+    PV, 2 * 2 * S * D a token a head, x3 with the backward)."""
+    T = ERNIE_B * S
+    return 6 * n_nonembed * T + 12 * ERNIE_LAYERS * ERNIE_H * ERNIE_D * S * T
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def train_ernie(torch, ops):
+    """Phase 23 (a, b, c): ERNIE-3.0 base finetune on the card, seeded
+    random weights, ``model.bfloat16()``, AdamW lr 5e-5 with fp32 master
+    weights as phase 7: (a) the recipe, B = 32, S = 128, dropout 0.1 / 0.1
+    (attention takes the SDPA reference: its dropout rate keeps it off the
+    flash path, as in the JAX package); (b) S = 512 with attention dropout
+    0 (the flash kernels at head dim 64); (c) the eval forward of each
+    model at its shape. Every step's launches are read and checked."""
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    results = {}
+    launches = dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+    for cell, S, attn_drop in (("a", ERNIE_S, 0.1),
+                               ("b", ERNIE_LONG_S, 0.0)):
+        cfg = _ernie_config(attention_probs_dropout_prob=attn_drop)
+        t0 = time.perf_counter()
+        model = ErnieForSequenceClassification(cfg, num_classes=2, seed=0)
+        model.bfloat16()
+        opt = AdamW(learning_rate=5e-5, parameters=model.named_parameters(),
+                    multi_precision=True)
+        eng = ParallelEngine(model, optimizer=opt, loss_fn=model.loss_fn)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        n_tensors = len(list(model.parameters()))
+        emb = model.ernie.embeddings
+        n_nonembed = n_params - sum(
+            t.weight.numel() for t in (emb.word_embeddings,
+                                       emb.position_embeddings,
+                                       emb.token_type_embeddings))
+        log(f"ernie model ({cell}): {n_params} params bf16 ({n_tensors} "
+            f"tensors, {n_nonembed} outside the embedding tables) + AdamW "
+            f"fp32 state, made on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ids, labels = _ernie_batch(torch, gen, cfg.vocab_size, S)
+        flash = 0 if attn_drop else ERNIE_LAYERS
+        want = {"layer_norm": ERNIE_LN, "flash_fwd": flash,
+                "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
+                "fused_adamw": n_tensors}
+        model.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for i in range(ERNIE_STEPS):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(ids, labels).item())
+            walls.append(time.perf_counter() - t0)
+            got = ops.launch_counts()
+            for name, n in want.items():
+                check(got[name] == n, f"ernie ({cell}) step {i}: {name} "
+                                      f"launched {got[name]} times, want {n}")
+            others = {k: n for k, n in got.items() if n and k not in want}
+            check(not others, f"ernie ({cell}) step {i}: unexpected "
+                              f"launches {others}")
+            for name in launches:
+                launches[name] += got[name]
+        peak = torch.cuda.max_memory_allocated()
+        check(all(x == x and abs(x) < 1e4 for x in losses),
+              f"ernie ({cell}): non-finite loss {losses}")
+        # the first update lifts the loss (AdamW's first step moves every
+        # weight by ~lr at once); it must fall from there: the last four
+        # steps' mean below the first four's
+        check(sum(losses[-4:]) < sum(losses[:4]),
+              f"ernie ({cell}): the loss did not fall over {ERNIE_STEPS} "
+              f"steps: {losses}")
+        step_s = _median(walls[ERNIE_WARMUP:])
+        flops = _ernie_flops(n_nonembed, S)
+        busy, prof_wall, classes, names = _device_busy(
+            torch, lambda: eng.train_batch(ids, labels).item(), 2)
+        tokens = ERNIE_B * S
+        res = dict(cell=cell, batch=ERNIE_B, seq=S, layers=ERNIE_LAYERS,
+                   hidden_dropout=cfg.hidden_dropout_prob,
+                   attention_dropout=attn_drop, params=n_params,
+                   params_nonembed=n_nonembed, losses=losses,
+                   step_walls_s=walls, ms_per_step=step_s * 1e3,
+                   tokens_per_s=tokens / step_s,
+                   examples_per_s=ERNIE_B / step_s,
+                   mfu=flops / step_s / BF16_FLOPS,
+                   mfu_formula="(6 * N_nonembed * T + 12 * L * H * D * S * "
+                               "T) / step_s / 989e12, T = B * S, "
+                               "non-causal attention",
+                   compute_bound_ms=flops / BF16_FLOPS * 1e3,
+                   flops_per_step=flops, peak_memory_gib=peak / 2 ** 30,
+                   device_busy_ms_per_step=(None if busy is None
+                                            else busy / 2 * 1e3),
+                   busy_share=(None if busy is None
+                               else busy / 2 / step_s),
+                   busy_share_profiled=(None if busy is None
+                                        else busy / prof_wall),
+                   device_ms_per_step_by_class={
+                       c: t / 2 * 1e3 for c, t in sorted(
+                           classes.items(), key=lambda kv: -kv[1])},
+                   top_kernels_ms_per_step={
+                       n[:80]: t / 2 * 1e3 for n, t in sorted(
+                           names.items(), key=lambda kv: -kv[1])[:12]},
+                   launches_per_step=want)
+        log(f"train ernie ({cell}) B={ERNIE_B} S={S}: " + json.dumps(res))
+        results[cell] = res
+
+        # (c) the eval forward at this cell's shape: no dropout, so
+        # attention takes the flash kernels at S = 128 too
+        model.eval()
+        ev_want = {"layer_norm": ERNIE_LN, "flash_fwd": ERNIE_LAYERS}
+        walls = []
+        for i in range(ERNIE_STEPS):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = model(ids)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = ops.launch_counts()
+            check({k: n for k, n in got.items() if n} == ev_want,
+                  f"ernie eval S={S} pass {i}: launches {got}, want "
+                  f"{ev_want}")
+            for name in launches:
+                launches[name] += got[name]
+        check(tuple(logits.shape) == (ERNIE_B, 2)
+              and bool(torch.isfinite(logits.float()).all()),
+              f"ernie eval S={S}: logits {tuple(logits.shape)} not finite")
+        ev_s = _median(walls[ERNIE_WARMUP:])
+        with torch.no_grad():
+            busy, prof_wall, classes, _ = _device_busy(
+                torch, lambda: model(ids).float().sum().item(), 2)
+        ev = dict(cell="c", seq=S, batch=ERNIE_B, ms_per_forward=ev_s * 1e3,
+                  tokens_per_s=ERNIE_B * S / ev_s,
+                  examples_per_s=ERNIE_B / ev_s,
+                  mfu=flops / 3 / ev_s / BF16_FLOPS,
+                  busy_share=(None if busy is None else busy / 2 / ev_s),
+                  device_ms_per_forward_by_class={
+                      c: t / 2 * 1e3 for c, t in sorted(
+                          classes.items(), key=lambda kv: -kv[1])},
+                  launches_per_forward=ev_want)
+        log(f"eval ernie S={S}: " + json.dumps(ev))
+        results[f"c{S}"] = ev
+        del eng, opt, model, ids, labels, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["launches"] = launches
+    return results
+
+
+# the drift check's batch: 4 x the recipe's, so that the per-example
+# losses and the eval logits held below are 128 and 256 values (the
+# recipe's 32 examples give its 2-class head too few for a ratio of two
+# rounding errors to settle); gradients are held over every tensor and
+# tensor by tensor where a tensor has at least DRIFT_MIN_NUMEL elements
+DRIFT_B = 128
+DRIFT_MIN_NUMEL = 65536
+
+
+def ernie_end_to_end(torch, ops):
+    """Phase 23 (drift): 2 layers at full width, dropout 0, B = DRIFT_B at
+    S = 128 and 512 (both take the flash and LayerNorm kernels): the
+    per-example losses and every gradient with the kernels and with the
+    plain versions in bf16, and with the plain versions on an fp32 copy of
+    the same weights, under phase 8's rule; the eval outputs (the encoder's
+    sequence output and the logits) under phase 5's."""
+    import copy
+
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = _ernie_config(num_hidden_layers=E2E_LAYERS, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = ErnieForSequenceClassification(cfg, seed=1)
+    m16 = copy.deepcopy(m32).bfloat16()
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), m16.parameters()):
+            p32.copy_(p16)                  # exact widening of bf16
+
+    def run(m, mode, ids, labels):
+        ops.set_kernel_mode(mode)
+        m.train()
+        for p in m.parameters():
+            p.requires_grad_(True)
+            p.grad = None
+        per_example = F.cross_entropy(m(ids), labels, reduction="none")
+        per_example.mean().backward()
+        grads = {n: p.grad.float() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        for p in m.parameters():
+            p.grad = None
+        m.eval()
+        with torch.no_grad():
+            seq, pooled = m.ernie(ids)
+            logits = m.classifier(pooled)
+        ops.set_kernel_mode("auto")
+        return (per_example.detach().float(), grads, seq.float(),
+                logits.float())
+
+    def rms(t):
+        return t.square().mean().sqrt().item()
+
+    out = {}
+    for S in (ERNIE_S, ERNIE_LONG_S):
+        ids = torch.randint(0, cfg.vocab_size, (DRIFT_B, S), generator=gen,
+                            device="cuda")
+        labels = torch.randint(0, 2, (DRIFT_B,), generator=gen,
+                               device="cuda")
+        lk, gk, sk, zk = run(m16, "auto", ids, labels)
+        lp, gp, sp, zp = run(m16, "reference", ids, labels)
+        lf, gf, sf, zf = run(m32, "reference", ids, labels)
+        per = {}
+        tk = tp = 0.0
+        for n in gf:
+            dk2 = (gk[n] - gf[n]).square().sum().item()
+            dp2 = (gp[n] - gf[n]).square().sum().item()
+            tk, tp = tk + dk2, tp + dp2
+            per[n] = (dk2 / max(dp2, 1e-300)) ** 0.5
+        held = {n: r for n, r in per.items()
+                if gf[n].numel() >= DRIFT_MIN_NUMEL}
+        worst = max(held, key=held.get)
+        res = dict(S=S, B=DRIFT_B, layers=E2E_LAYERS,
+                   loss_kernels=lk.mean().item(),
+                   loss_plain_bf16=lp.mean().item(),
+                   loss_fp32=lf.mean().item(),
+                   loss_drift_ratio=rms(lk - lf) / rms(lp - lf),
+                   mean_loss_drift_ratio=abs((lk - lf).mean().item())
+                   / max(abs((lp - lf).mean().item()), 1e-30),
+                   grad_drift_ratio_all=(tk / tp) ** 0.5,
+                   grad_drift_ratio_worst=held[worst],
+                   grad_drift_worst_tensor=worst,
+                   grad_drift_ratio_median=_median(list(held.values())),
+                   small_tensor_ratios={n: r for n, r in per.items()
+                                        if n not in held})
+        for what, (k, p, f) in (("seq_out", (sk, sp, sf)),
+                                ("logits", (zk, zp, zf))):
+            res[what] = dict(
+                drift_ratio_max=(k - f).abs().max().item()
+                / (p - f).abs().max().item(),
+                drift_ratio_rms=rms(k - f) / rms(p - f),
+                gap_fraction=rms(k - p) / rms(f),
+                kernels_vs_fp32_rms=rms(k - f), plain_vs_fp32_rms=rms(p - f),
+                rms=rms(f))
+        log(f"ernie end_to_end S={S} kernels vs plain vs fp32: "
+            + json.dumps(res))
+        for key in ("loss_drift_ratio", "grad_drift_ratio_all",
+                    "grad_drift_ratio_worst"):
+            check(res[key] <= DRIFT_RATIO, f"ernie end to end S={S}: {key} "
+                  f"{res[key]:.3g} > {DRIFT_RATIO} ({worst})")
+        # phase 5's rule in full on the sequence output (B x S x 768
+        # values); on the 256 logits the rms ratio and the gap (their
+        # largest error is one draw of a few hundred)
+        for what, keys in (("seq_out", ("drift_ratio_max",
+                                        "drift_ratio_rms")),
+                           ("logits", ("drift_ratio_rms",))):
+            for key in keys:
+                check(res[what][key] <= DRIFT_RATIO,
+                      f"ernie end to end S={S}: eval {what} {key} "
+                      f"{res[what][key]:.3g} > {DRIFT_RATIO}")
+            check(res[what]["gap_fraction"] <= GAP_FRACTION,
+                  f"ernie end to end S={S}: eval {what} gap "
+                  f"{res[what]['gap_fraction']:.3g} > {GAP_FRACTION}")
+        out[S] = res
+        del gk, gp, gf, sk, sp, sf
+        gc.collect()
+        torch.cuda.empty_cache()
+    del m32, m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -2855,6 +3413,12 @@ def main() -> int:
     stream_cases = kernel_flash_stream(torch, fa, fac, ops)
     long_res = train_long(torch, ops)
     long_e2e = train_long_end_to_end(torch, ops)
+    # phases 21-23, ERNIE-3.0 base finetune: LayerNorm (row 8), the flash
+    # kernels at head dim 64, the finetune and its drift check
+    ln_cases = kernel_layer_norm(torch, fused_norm)
+    fwd64_cases, bwd64_cases = kernel_flash_d64(torch, fa, fac)
+    ernie_res = train_ernie(torch, ops)
+    ernie_e2e = ernie_end_to_end(torch, ops)
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -2894,6 +3458,18 @@ def main() -> int:
           for name, line in (("flash_fwd_stream", "189"),
                              ("flash_bwd_dq_stream", "352"),
                              ("flash_bwd_dkv_stream", "376"))),
+        # row 8 and rows 1, 3, 4 at head dim 64, with their launches in
+        # phase 23's counted steps and eval passes
+        entry("layer_norm", csrc + "layer_norm.cu",
+              "paddle_tpu/ops/fused_norm.py:128", ln_cases,
+              ernie_res["launches"]["layer_norm"]),
+        entry("flash_fwd_d64", csrc + "flash_attention.cu", flash + "488",
+              fwd64_cases, ernie_res["launches"]["flash_fwd"]),
+        *(entry(f"{name}_d64", csrc + "flash_attention.cu", flash + line,
+                [c for n, c in bwd64_cases if n == name],
+                ernie_res["launches"][name])
+          for name, line in (("flash_bwd_dq", "628"),
+                             ("flash_bwd_dkv", "646"))),
         entry("w8_matmul", csrc + "w8_matmul.cu", "paddle_tpu/ops/int8.py:80",
               w8_cases, int8_res["launches"]["w8_matmul"]),
         entry("paged_attention_int8", csrc + "paged_attention.cu",
@@ -2943,6 +3519,10 @@ def main() -> int:
     log("train long (phase 19): " + json.dumps(long_res))
     log("train long end_to_end kernels vs remat vs plain vs fp32: "
         + json.dumps(long_e2e))
+    for key in ("a", "b", f"c{ERNIE_S}", f"c{ERNIE_LONG_S}"):
+        log(f"ernie ({key}): " + json.dumps(ernie_res[key]))
+    log("ernie end_to_end kernels vs plain vs fp32: "
+        + json.dumps(ernie_e2e))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Weights from the JAX package into the port.
+"""Weights from the JAX package into the port: Llama
+(:func:`params_from_jax`) and ERNIE (:func:`ernie_params_from_jax`).
 
 The port keeps Paddle's ``Linear`` layout — every projection weight is
 ``(in, out)`` and the port computes ``x @ weight`` — so the conversion is a
@@ -15,6 +16,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import resolve_device
+from .ernie import ErnieConfig
 from .llama import LlamaConfig
 
 
@@ -90,4 +93,78 @@ def params_from_jax(state: Dict[str, np.ndarray],
         t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
         out[name] = t if name.endswith(".weight_scale") else \
             t.to(cfg.torch_dtype)
+    return out
+
+
+def ernie_param_shapes(cfg: ErnieConfig, head: str,
+                       num_classes: int = 2) -> Dict[str, tuple]:
+    """Name → shape of every parameter of an ERNIE model with ``head``
+    ``"classifier"`` (sequence or token classification with
+    ``num_classes``; question answering is the same at 2) or
+    ``"masked_lm"``, in the JAX package's naming and layout."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    e = "ernie.embeddings."
+    out = {e + "word_embeddings.weight": (cfg.vocab_size, h),
+           e + "position_embeddings.weight": (cfg.max_position_embeddings,
+                                              h),
+           e + "token_type_embeddings.weight": (cfg.type_vocab_size, h),
+           e + "layer_norm.weight": (h,), e + "layer_norm.bias": (h,)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"ernie.encoder.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out[p + f"self_attn.{proj}.weight"] = (h, h)
+            out[p + f"self_attn.{proj}.bias"] = (h,)
+        out.update({p + "linear1.weight": (h, f), p + "linear1.bias": (f,),
+                    p + "linear2.weight": (f, h), p + "linear2.bias": (h,)})
+        for norm in ("norm1", "norm2"):
+            out[p + f"{norm}.weight"] = (h,)
+            out[p + f"{norm}.bias"] = (h,)
+    out.update({"ernie.pooler.weight": (h, h), "ernie.pooler.bias": (h,)})
+    if head == "classifier":
+        out.update({"classifier.weight": (h, num_classes),
+                    "classifier.bias": (num_classes,)})
+    elif head == "masked_lm":
+        out.update({"lm_head.transform.weight": (h, h),
+                    "lm_head.transform.bias": (h,),
+                    "lm_head.norm.weight": (h,), "lm_head.norm.bias": (h,),
+                    "lm_head.bias": (cfg.vocab_size,)})
+    else:
+        raise ValueError(f"ERNIE head must be 'classifier' or 'masked_lm', "
+                         f"got {head!r}")
+    return out
+
+
+def ernie_params_from_jax(state: Dict[str, np.ndarray], cfg: ErnieConfig,
+                          device=None,
+                          dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Turn a JAX ERNIE model's named parameters (``state_values(model)``
+    converted to numpy) into a state dict for the port's model of the same
+    head (``load_state_dict``), in ``dtype`` on ``device`` (None: the CUDA
+    card). The head is read from the names: ``lm_head.*`` is the masked-LM
+    head, ``classifier.*`` a classification or question-answering head of
+    as many classes as the classifier has columns. Raises on a missing,
+    unexpected or mis-shaped parameter."""
+    device = resolve_device(device)
+    if any(n.startswith("lm_head.") for n in state):
+        want = ernie_param_shapes(cfg, "masked_lm")
+    elif "classifier.weight" in state:
+        want = ernie_param_shapes(
+            cfg, "classifier",
+            int(np.asarray(state["classifier.weight"]).shape[-1]))
+    else:
+        raise KeyError("ernie_params_from_jax: neither classifier.* nor "
+                       "lm_head.* parameters: not an ERNIE head's state")
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    if missing or extra:
+        raise KeyError(f"ernie_params_from_jax: missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    out = {}
+    for name, shape in want.items():
+        arr = np.asarray(state[name])
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"ernie_params_from_jax: {name} has shape "
+                             f"{tuple(arr.shape)}, want {shape}")
+        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+        out[name] = t.to(device=device, dtype=dtype)
     return out

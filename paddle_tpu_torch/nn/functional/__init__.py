@@ -1,0 +1,13 @@
+"""Functional ops — port of ``paddle_tpu/nn/functional`` for the ops the
+ERNIE encoder needs: activations (``gelu``, ``relu``, ``tanh``), ``linear``
+and ``dropout``, ``layer_norm``, ``scaled_dot_product_attention`` and
+``cross_entropy``. Tensors in and out; no ``Tensor`` wrapper, no
+``apply_op``."""
+from .activation import gelu, relu, tanh
+from .attention import scaled_dot_product_attention
+from .common import dropout, linear
+from .loss import cross_entropy
+from .norm import layer_norm
+
+__all__ = ["cross_entropy", "dropout", "gelu", "layer_norm", "linear",
+           "relu", "scaled_dot_product_attention", "tanh"]

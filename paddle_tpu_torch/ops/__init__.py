@@ -67,7 +67,8 @@ from .flash_attention_cuda import (flash_bwd_dkv_cuda,  # noqa: E402
 from .fused_adamw import fused_adamw_cuda, fused_adamw_update  # noqa: E402
 from .fused_ce import fused_linear_cross_entropy  # noqa: E402
 from .fused_lora_cuda import fused_lora_matmul_cuda  # noqa: E402
-from .fused_norm import fused_rms_norm, rms_norm_cuda  # noqa: E402
+from .fused_norm import (fused_layer_norm, fused_rms_norm,  # noqa: E402
+                         layer_norm_cuda, rms_norm_cuda)
 from .int8 import quantize_per_channel, w8_matmul  # noqa: E402
 from .int8_cuda import w8_matmul_cuda  # noqa: E402
 from .paged_attention import (gather_block_kv,  # noqa: E402
@@ -85,6 +86,7 @@ from .paged_attention_cuda import (paged_attention_cuda,  # noqa: E402
 
 # every kernel wrapper of the port, by kernel name
 KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
+                   "layer_norm": layer_norm_cuda,
                    "paged_attention": paged_attention_cuda,
                    "flash_fwd": flash_fwd_cuda,
                    "flash_bwd_dq": flash_bwd_dq_cuda,
@@ -112,9 +114,10 @@ __all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "decode_tick_cuda",
            "flash_bwd_dkv_cuda", "flash_bwd_dkv_stream_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dq_stream_cuda", "flash_fwd_cuda",
            "flash_fwd_stream_cuda", "fused_adamw_cuda",
-           "fused_adamw_update", "fused_linear_cross_entropy",
-           "fused_lora_matmul_cuda", "fused_rms_norm",
-           "gather_block_kv", "kernel_mode", "launch_counts",
+           "fused_adamw_update", "fused_layer_norm",
+           "fused_linear_cross_entropy", "fused_lora_matmul_cuda",
+           "fused_rms_norm", "gather_block_kv", "kernel_mode",
+           "launch_counts", "layer_norm_cuda",
            "paged_attention_cuda", "paged_attention_int8_cuda",
            "paged_decode_attention", "paged_decode_attention_q",
            "paged_prefill_attention", "paged_prefill_attention_q",

@@ -44,22 +44,19 @@ SIGNATURES = {
     # B, W, H, KV, D, N, bs, M, S, P, stream
     "pt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, v, out, lse, B, H, Hkv, Sq, Sk, causal, scale, stream
-    "pt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, do, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, scale, stream
+    # x, w, b, y, rows, dim, dtype (0 bf16, 1 fp32), eps, stream
+    "pt_layer_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # q, k, v, out, lse, B, H, Hkv, Sq, Sk, D, causal, scale, stream
+    "pt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                     _P),
+    # q, k, v, do, lse, delta, dq, B, H, Hkv, Sq, Sk, D, causal, scale,
+    # stream
     "pt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, do, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal, scale,
+                        _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, do, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, D, causal, scale,
     # stream
     "pt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _F, _P),
-    # the streaming entry points take the same arguments
-    "pt_flash_fwd_stream": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                            _P),
-    "pt_flash_bwd_dq_stream": (_P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _P),
-    "pt_flash_bwd_dkv_stream": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _F, _P),
+                         _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, kq_pool, k_scales, vq_pool, v_scales, tables, pos, out, part_acc,
     # part_ml, B, W, H, KV, D, N, bs, M, S, P, stream
     "pt_paged_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

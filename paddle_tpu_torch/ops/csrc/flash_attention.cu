@@ -12,15 +12,19 @@
 // The TPU keeps two forms because its loop kernels hold the whole of K/V in
 // VMEM, which stops fitting past 8192 keys; they compute one function. The
 // kernels below already stream 64-key tiles through shared memory at any
-// length, so the streaming entry points (pt_flash_*_stream) launch the same
-// bodies; they exist so that a run can count rows 2, 5 and 6 apart from
-// rows 1, 3 and 4. Long keys are safe here: every tensor offset is formed
+// length, so both forms launch the same entry points below; the Python
+// wrappers (flash_*_stream_cuda) keep their own launch counters so that a
+// run can count rows 2, 5 and 6 apart from rows 1, 3 and 4. Long keys are
+// safe here: every tensor offset is formed
 // in size_t, row and tile indices stay below Sq, Sk < 2^31, and the wrapper
 // refuses a tensor of 2^31 or more elements (so b * H + h cannot wrap). The
 // dK/dV block's loop over rep x ceil(Sq / 64) query tiles (2,048 at
 // S = 32768, GQA 4) is a plain loop with no per-iteration state beyond the
 // fp32 accumulators, and Sk - Sq (offs) is a signed int, negative when
 // Sq > Sk.
+// Head dims: every kernel is a template on D, instantiated for D = 128
+// (Llama-3-8B) and D = 64 (ERNIE-3.0 base, 12 heads of 64); the entry
+// points take D and refuse any other.
 // Semantics, kept: q (B, H, Sq, D), k/v (B, Hkv, Sk, D), query head h reads
 // KV head h / (H / Hkv); causal masks align bottom-right (query i sees key j
 // iff j <= i + Sk - Sq). QK in fp32 times `scale`; running max from -1e30,
@@ -57,8 +61,14 @@
 //   * every product is warp-level mma.sync m16n8k16 (bf16 in, fp32
 //     accumulate); the softmax probabilities and dS go from the fp32
 //     accumulator layout straight into the next product's A operand in
-//     registers. Shared-memory rows are padded by 16 bytes so that the
-//     fragment loads hit 32 different banks.
+//     registers. Shared-memory rows are padded by 16 bytes (8 bf16), so a
+//     row is D + 8 elements: 68 words at D = 128 and 36 at D = 64, both 4
+//     (mod 32), so the 8 rows x 4 words of a fragment load hit 32 different
+//     banks at either head dim, and the 16-byte tile stores of a
+//     quarter-warp cover one 128-byte span of a row.
+//   * grid: forward and dQ launch ceil(Sq / 64) x H x B blocks (768 at
+//     ERNIE's B = 32, H = 12, S = 128; 3,072 at S = 512), dK/dV
+//     ceil(Sk / 64) x Hkv x B.
 //   * a ragged last tile (S not a multiple of 64) is loaded with zeros and
 //     masked; nothing needs a fallback.
 // Left for later: cp.async/TMA double buffering of the K/V (Q/dO) tiles and
@@ -73,12 +83,17 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kD = 128;               // head dim (Llama-3-8B's); the only one
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;             // query rows / keys per tile
-constexpr int kStride = kD + 8;       // padded shared row, in bf16 elements
-constexpr int kTileElems = kTile * kStride;
+
+// a (64 x kD) bf16 tile in shared memory: its padded row, in elements,
+// and its size
+template <int kD>
+struct Tile {
+  static constexpr int kStride = kD + 8;
+  static constexpr int kElems = kTile * kStride;
+};
 constexpr float kNegBig = -1e30f;     // running-max start, as the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -105,25 +120,33 @@ __device__ __forceinline__ uint32_t pair(const bf16* lo, const bf16* hi) {
          (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
 }
 
-// rows [row0, row0 + 64) of a (rows x 128) bf16 matrix into a padded shared
+// rows [row0, row0 + 64) of a (rows x kD) bf16 matrix into a padded shared
 // tile; rows at or past `limit` are zeros
+template <int kD>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
                                           int limit, int tid) {
-  constexpr int kChunks = kTile * kD / 8;  // 16-byte chunks
+  static_assert(kD == 64 || kD == 128, "head dim 64 or 128");
+  constexpr int kRowShift = kD == 128 ? 4 : 3;  // log2 of 16-byte chunks a row
+  constexpr int kChunks = kTile << kRowShift;
+  // a signed counter (the loop unrolls) and a shift and a mask (a signed /
+  // and % cost instructions and registers: at D = 128 the forward then
+  // needed 179 registers, 2 blocks an SM, and ran 1.5x as long on an H100)
 #pragma unroll
   for (int c = tid; c < kChunks; c += kThreads) {
-    const int r = c >> 4, col = (c & 15) * 8;
+    const int r = c >> kRowShift, col = (c & ((1 << kRowShift) - 1)) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < limit)
       val = *reinterpret_cast<const uint4*>(g + size_t(row0 + r) * kD + col);
-    *reinterpret_cast<uint4*>(s + r * kStride + col) = val;
+    *reinterpret_cast<uint4*>(s + r * Tile<kD>::kStride + col) = val;
   }
 }
 
 // fragment lanes: g = lane / 4 (row group), t = lane % 4
 // A operand (16 x 16) of a row-major shared tile at (r0, c0)
+template <int kD>
 __device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int r0,
                                        int c0, int g, int t) {
+  constexpr int kStride = Tile<kD>::kStride;
   const bf16* p = s + (r0 + g) * kStride + c0 + 2 * t;
   a[0] = ld32(p);
   a[1] = ld32(p + 8 * kStride);
@@ -133,17 +156,20 @@ __device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int r0,
 
 // B operand (16 x 8) whose transpose is the shared tile: B[k][n] = s[n0 + n]
 // [k0 + k] (keys or query rows of the tile are B's columns)
+template <int kD>
 __device__ __forceinline__ void frag_b_rows(uint32_t* b, const bf16* s,
                                             int n0, int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * kStride + k0 + 2 * t;
+  const bf16* p = s + (n0 + g) * Tile<kD>::kStride + k0 + 2 * t;
   b[0] = ld32(p);
   b[1] = ld32(p + 8);
 }
 
 // B operand (16 x 8) read straight from the shared tile: B[k][n] = s[k0 + k]
 // [n0 + n] (the tile's rows are the reduction dim)
+template <int kD>
 __device__ __forceinline__ void frag_b_cols(uint32_t* b, const bf16* s,
                                             int k0, int n0, int g, int t) {
+  constexpr int kStride = Tile<kD>::kStride;
   const bf16* p = s + (k0 + 2 * t) * kStride + n0 + g;
   b[0] = pair(p, p + kStride);
   b[1] = pair(p + 8 * kStride, p + 9 * kStride);
@@ -183,13 +209,14 @@ __device__ __forceinline__ bool visible(int key, int row, int Sk, int offs,
   return key < Sk && (!causal || key <= row + offs);
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
                  int causal, float scale) {
-  __shared__ __align__(16) bf16 sK[kTileElems];
-  __shared__ __align__(16) bf16 sV[kTileElems];
+  __shared__ __align__(16) bf16 sK[Tile<kD>::kElems];
+  __shared__ __align__(16) bf16 sV[Tile<kD>::kElems];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // heavy tiles first
@@ -200,11 +227,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int offs = Sk - Sq;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  load_tile(sK, qb, q0, Sq, tid);
+  load_tile<kD>(sK, qb, q0, Sq, tid);
   __syncthreads();
   uint32_t qf[kD / 16][4];
 #pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) frag_a(qf[kc], sK, warp * 16, kc * 16, g, t);
+  for (int kc = 0; kc < kD / 16; ++kc) frag_a<kD>(qf[kc], sK, warp * 16, kc * 16, g, t);
   __syncthreads();
 
   float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
@@ -215,8 +242,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntiles = key_tiles(q0, Sq, Sk, causal);
   for (int j = 0; j < ntiles; ++j) {
     const int k0 = j * kTile;
-    load_tile(sK, kb, k0, Sk, tid);
-    load_tile(sV, vb, k0, Sk, tid);
+    load_tile<kD>(sK, kb, k0, Sk, tid);
+    load_tile<kD>(sV, vb, k0, Sk, tid);
     __syncthreads();
     float s[kTile / 8][4];
 #pragma unroll
@@ -226,7 +253,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int nt = 0; nt < kTile / 8; ++nt) {
         uint32_t bf[2];
-        frag_b_rows(bf, sK, nt * 8, kc * 16, g, t);
+        frag_b_rows<kD>(bf, sK, nt * 8, kc * 16, g, t);
         mma(s[nt], qf[kc], bf);
       }
     }
@@ -273,7 +300,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int nd = 0; nd < kD / 8; ++nd) {
         uint32_t bf[2];
-        frag_b_cols(bf, sV, kc * 16, nd * 8, g, t);
+        frag_b_cols<kD>(bf, sV, kc * 16, nd * 8, g, t);
         mma(acc[nd], pa, bf);
       }
     }
@@ -295,14 +322,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int H, int Hkv, int Sq, int Sk, int causal, float scale) {
-  __shared__ __align__(16) bf16 sK[kTileElems];
-  __shared__ __align__(16) bf16 sV[kTileElems];
+  __shared__ __align__(16) bf16 sK[Tile<kD>::kElems];
+  __shared__ __align__(16) bf16 sV[Tile<kD>::kElems];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
@@ -319,14 +347,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     delta_r[i] = row[i] < Sq ? delta[bh * Sq + row[i]] : 0.f;
   }
 
-  load_tile(sK, q + bh * Sq * kD, q0, Sq, tid);
-  load_tile(sV, dout + bh * Sq * kD, q0, Sq, tid);
+  load_tile<kD>(sK, q + bh * Sq * kD, q0, Sq, tid);
+  load_tile<kD>(sV, dout + bh * Sq * kD, q0, Sq, tid);
   __syncthreads();
   uint32_t qf[kD / 16][4], dof[kD / 16][4];
 #pragma unroll
   for (int kc = 0; kc < kD / 16; ++kc) {
-    frag_a(qf[kc], sK, warp * 16, kc * 16, g, t);
-    frag_a(dof[kc], sV, warp * 16, kc * 16, g, t);
+    frag_a<kD>(qf[kc], sK, warp * 16, kc * 16, g, t);
+    frag_a<kD>(dof[kc], sV, warp * 16, kc * 16, g, t);
   }
   __syncthreads();
 
@@ -337,8 +365,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntiles = key_tiles(q0, Sq, Sk, causal);
   for (int j = 0; j < ntiles; ++j) {
     const int k0 = j * kTile;
-    load_tile(sK, kb, k0, Sk, tid);
-    load_tile(sV, vb, k0, Sk, tid);
+    load_tile<kD>(sK, kb, k0, Sk, tid);
+    load_tile<kD>(sV, vb, k0, Sk, tid);
     __syncthreads();
 #pragma unroll
     for (int half = 0; half < 2; ++half) {   // 32 keys at a time
@@ -352,9 +380,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           uint32_t bf[2];
-          frag_b_rows(bf, sK, half * 32 + nt * 8, kc * 16, g, t);
+          frag_b_rows<kD>(bf, sK, half * 32 + nt * 8, kc * 16, g, t);
           mma(s[nt], qf[kc], bf);
-          frag_b_rows(bf, sV, half * 32 + nt * 8, kc * 16, g, t);
+          frag_b_rows<kD>(bf, sV, half * 32 + nt * 8, kc * 16, g, t);
           mma(dp[nt], dof[kc], bf);
         }
       }
@@ -377,7 +405,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int nd = 0; nd < kD / 8; ++nd) {
           uint32_t bf[2];
-          frag_b_cols(bf, sK, half * 32 + kc * 16, nd * 8, g, t);
+          frag_b_cols<kD>(bf, sK, half * 32 + kc * 16, nd * 8, g, t);
           mma(acc[nd], da, bf);
         }
       }
@@ -398,9 +426,15 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-constexpr size_t kDkvSmem = 4 * kTileElems * sizeof(bf16) + 2 * kTile * sizeof(float);
+template <int kD>
+constexpr size_t dkv_smem() {
+  return 4 * Tile<kD>::kElems * sizeof(bf16) + 2 * kTile * sizeof(float);
+}
 
-__global__ void __launch_bounds__(kThreads)
+// at D = 64, at most 168 registers a thread, so that 3 blocks fit an SM
+// (at 170, 2 did); at D = 128 the kernel needs all 255 and fits 2
+template <int kD>
+__global__ void __launch_bounds__(kThreads, kD == 64 ? 3 : 1)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
@@ -410,10 +444,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTileElems;
-  bf16* sQ = sV + kTileElems;
-  bf16* sO = sQ + kTileElems;   // dO
-  float* sL = reinterpret_cast<float*>(sO + kTileElems);
+  bf16* sV = sK + Tile<kD>::kElems;
+  bf16* sQ = sV + Tile<kD>::kElems;
+  bf16* sO = sQ + Tile<kD>::kElems;   // dO
+  float* sL = reinterpret_cast<float*>(sO + Tile<kD>::kElems);
   float* sD = sL + kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -423,8 +457,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int offs = Sk - Sq;
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
 
-  load_tile(sK, k + bhk * Sk * kD, k0, Sk, tid);
-  load_tile(sV, v + bhk * Sk * kD, k0, Sk, tid);
+  load_tile<kD>(sK, k + bhk * Sk * kD, k0, Sk, tid);
+  load_tile<kD>(sV, v + bhk * Sk * kD, k0, Sk, tid);
 
   float dka[kD / 8][4], dva[kD / 8][4];
 #pragma unroll
@@ -440,8 +474,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int qt = first; qt < nq; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();  // the previous tile's readers are done
-      load_tile(sQ, q + bh * Sq * kD, q0, Sq, tid);
-      load_tile(sO, dout + bh * Sq * kD, q0, Sq, tid);
+      load_tile<kD>(sQ, q + bh * Sq * kD, q0, Sq, tid);
+      load_tile<kD>(sO, dout + bh * Sq * kD, q0, Sq, tid);
       if (tid < kTile) {
         const bool in = q0 + tid < Sq;
         sL[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
@@ -458,14 +492,14 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kc = 0; kc < kD / 16; ++kc) {
           uint32_t ka[4], va[4];
-          frag_a(ka, sK, warp * 16, kc * 16, g, t);
-          frag_a(va, sV, warp * 16, kc * 16, g, t);
+          frag_a<kD>(ka, sK, warp * 16, kc * 16, g, t);
+          frag_a<kD>(va, sV, warp * 16, kc * 16, g, t);
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             uint32_t bf[2];
-            frag_b_rows(bf, sQ, half * 32 + nt * 8, kc * 16, g, t);
+            frag_b_rows<kD>(bf, sQ, half * 32 + nt * 8, kc * 16, g, t);
             mma(st[nt], ka, bf);
-            frag_b_rows(bf, sO, half * 32 + nt * 8, kc * 16, g, t);
+            frag_b_rows<kD>(bf, sO, half * 32 + nt * 8, kc * 16, g, t);
             mma(dpt[nt], va, bf);
           }
         }
@@ -491,9 +525,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int nd = 0; nd < kD / 8; ++nd) {
             uint32_t bf[2];
-            frag_b_cols(bf, sO, half * 32 + kc * 16, nd * 8, g, t);
+            frag_b_cols<kD>(bf, sO, half * 32 + kc * 16, nd * 8, g, t);
             mma(dva[nd], pa, bf);
-            frag_b_cols(bf, sQ, half * 32 + kc * 16, nd * 8, g, t);
+            frag_b_cols<kD>(bf, sQ, half * 32 + kc * 16, nd * 8, g, t);
             mma(dka[nd], da, bf);
           }
         }
@@ -522,25 +556,25 @@ bool bad_shape(int B, int H, int Hkv, int Sq, int Sk) {
          B > 65535 || H > 65535;
 }
 
+template <int kD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int H, int Hkv, int Sq, int Sk, int causal,
-               float scale, void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+               float scale, cudaStream_t stream) {
   dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  flash_fwd_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<kD><<<grid, kThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), H, Hkv, Sq, Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
+template <int kD>
 int launch_bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, int B, int H, int Hkv, int Sq, int Sk, int causal,
-                  float scale, void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+                  float scale, cudaStream_t stream) {
   dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  flash_bwd_dq_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dq_kernel<kD><<<grid, kThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -548,22 +582,22 @@ int launch_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int kD>
 int launch_bwd_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
-                   int causal, float scale, void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
+                   int causal, float scale, cudaStream_t stream) {
+  constexpr size_t kSmem = dkv_smem<kD>();
+  static bool attr_set = false;   // one per head dim
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kDkvSmem);
+        flash_bwd_dkv_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   dim3 grid((Sk + kTile - 1) / kTile, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dkv_kernel<kD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -574,42 +608,53 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// bfloat16 only, head_dim 128 only. q, dO, O, dQ: (B, H, Sq, 128); k, v,
-// dK, dV: (B, Hkv, Sk, 128); lse, delta: fp32 (B, H, Sq); all contiguous and
-// 16-byte aligned. Each returns cudaGetLastError() after its launch. The
-// loop entry points (rows 1, 3, 4) and the streaming ones (rows 2, 5, 6)
-// take the same arguments and launch the same kernels.
-#define PT_FLASH_FWD_ARGS                                                   \
-  const void *q, const void *k, const void *v, void *o, void *lse, int B,   \
-      int H, int Hkv, int Sq, int Sk, int causal, float scale, void *stream
-#define PT_FLASH_DQ_ARGS                                                    \
-  const void *q, const void *k, const void *v, const void *dout,            \
-      const void *lse, const void *delta, void *dq, int B, int H, int Hkv,  \
-      int Sq, int Sk, int causal, float scale, void *stream
-#define PT_FLASH_DKV_ARGS                                                   \
-  const void *q, const void *k, const void *v, const void *dout,            \
-      const void *lse, const void *delta, void *dk, void *dv, int B, int H, \
-      int Hkv, int Sq, int Sk, int causal, float scale, void *stream
+// bfloat16 only, head dim D = 64 or 128. q, dO, O, dQ: (B, H, Sq, D); k,
+// v, dK, dV: (B, Hkv, Sk, D); lse, delta: fp32 (B, H, Sq); all contiguous
+// and 16-byte aligned. Each returns cudaGetLastError() after its launch
+// (cudaErrorInvalidValue, launching nothing, for another D or a bad
+// shape). Rows 1, 3, 4 and the streaming rows 2, 5, 6 launch these same
+// entry points.
+extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int H, int Hkv, int Sq,
+                            int Sk, int D, int causal, float scale,
+                            void* stream) {
+  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_fwd<64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, s);
+  if (D == 128)
+    return launch_fwd<128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
 
-extern "C" int pt_flash_fwd(PT_FLASH_FWD_ARGS) {
-  return launch_fwd(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, stream);
+extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int B, int H,
+                               int Hkv, int Sq, int Sk, int D, int causal,
+                               float scale, void* stream) {
+  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_bwd_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk,
+                             causal, scale, s);
+  if (D == 128)
+    return launch_bwd_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq,
+                              Sk, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
-extern "C" int pt_flash_bwd_dq(PT_FLASH_DQ_ARGS) {
-  return launch_bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk,
-                       causal, scale, stream);
-}
-extern "C" int pt_flash_bwd_dkv(PT_FLASH_DKV_ARGS) {
-  return launch_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
-                        causal, scale, stream);
-}
-extern "C" int pt_flash_fwd_stream(PT_FLASH_FWD_ARGS) {
-  return launch_fwd(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, stream);
-}
-extern "C" int pt_flash_bwd_dq_stream(PT_FLASH_DQ_ARGS) {
-  return launch_bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk,
-                       causal, scale, stream);
-}
-extern "C" int pt_flash_bwd_dkv_stream(PT_FLASH_DKV_ARGS) {
-  return launch_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
-                        causal, scale, stream);
+
+extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv, int B,
+                                int H, int Hkv, int Sq, int Sk, int D,
+                                int causal, float scale, void* stream) {
+  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
+                              Sq, Sk, causal, scale, s);
+  if (D == 128)
+    return launch_bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
+                               Sq, Sk, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

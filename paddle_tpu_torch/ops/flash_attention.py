@@ -22,7 +22,7 @@ switches; on CPU tensors, or under
 :func:`_flash_bwd_plain`, which repeat the kernels' arithmetic. Unlike the
 JAX package there is no fallback to the reference on odd shapes or on a
 kernel error: the kernels mask a ragged last tile themselves, and a CUDA
-tensor they do not take (not bfloat16, D != 128) raises.
+tensor they do not take (not bfloat16, D not 64 or 128) raises.
 
 Masked keys get p = 0 exactly, and the running max starts at -1e30 as in
 the TPU kernel, so every row that sees at least one key gets the JAX

@@ -13,19 +13,23 @@ counter: :func:`flash_fwd_cuda` (O, LSE), :func:`flash_bwd_dq_cuda` and
 :func:`flash_bwd_dkv_stream_cuda` for the streaming rows. The TPU splits
 the two forms only because the loop kernels keep all of K/V resident in
 VMEM; on Hopper every form streams 64-key tiles through shared memory, so
-both sets of entry points launch the same kernel bodies, and the separate
-entry points and counters show which rows a run went through. Their plain
-versions are ``flash_attention._flash_fwd_plain`` / ``_flash_bwd_plain``.
-The kernels take bfloat16 (B, H, S, 128) tensors only (Llama-3-8B's head
-dim) whose every tensor holds fewer than 2**31 elements; any other type,
-head dim, extent or device raises.
+both sets of wrappers launch the same three C entry points, and the
+separate wrappers and counters show which rows a run went through. Their
+plain versions are ``flash_attention._flash_fwd_plain`` /
+``_flash_bwd_plain``. The kernels take bfloat16 (B, H, S, D) tensors at
+head dim D = 128 (Llama-3-8B) or 64 (ERNIE-3.0 base) whose every tensor
+holds fewer than 2**31 elements; any other type, head dim, extent or
+device raises. fp32 q/k/v raise on CUDA (TypeError): the card path runs its
+models in bfloat16 — call ``model.bfloat16()`` first; the plain versions
+keep fp32 on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
-# the one head dim the kernels are instantiated for (Llama-3-8B's)
-HEAD_DIM = 128
+# the head dims the kernels are instantiated for (ERNIE-3.0 base's and
+# Llama-3-8B's)
+HEAD_DIMS = (64, 128)
 # the kernels index a tensor's elements with 32-bit row and batch·head
 # products: every tensor must hold fewer elements than this
 MAX_ELEMENTS = 2 ** 31
@@ -49,15 +53,16 @@ def _check(name, q, k, v, *rest):
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (Hkv must divide H)")
-    if D != HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} != {HEAD_DIM}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise TypeError(f"{name}: the kernel takes bfloat16 q, k, v, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+                        f"{q.dtype}, {k.dtype}, {v.dtype} (run the model in "
+                        f"bfloat16 on the card: model.bfloat16())")
     if min(B, H, Sq, Sk) == 0 or B > 65535 or H > 65535:
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
-    return B, H, Hkv, Sq, Sk
+    return B, H, Hkv, Sq, Sk, D
 
 
 def _c(t):
@@ -74,39 +79,40 @@ def _rows(name, t, B, H, Sq):
     return t.contiguous()
 
 
-def _fwd(name, entry, q, k, v, causal, scale):
-    """Launch the forward kernel through C entry point ``entry``."""
+def _fwd(name, q, k, v, causal, scale):
+    """Launch the forward kernel; (O, LSE)."""
     from . import _build
 
-    B, H, Hkv, Sq, Sk = _check(name, q, k, v)
+    B, H, Hkv, Sq, Sk, D = _check(name, q, k, v)
     q, k, v = _c(q), _c(k), _c(v)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    err = getattr(_build.library(), entry)(
+    err = _build.library().pt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, Hkv, Sq, Sk, int(bool(causal)), float(scale),
-        _build.stream_ptr(q.device))
+        lse.data_ptr(), B, H, Hkv, Sq, Sk, D, int(bool(causal)),
+        float(scale), _build.stream_ptr(q.device))
     _build.check(err, name)
     return out, lse
 
 
 def _bwd_inputs(name, q, k, v, do, lse, delta):
-    B, H, Hkv, Sq, Sk = _check(name, q, k, v, do, lse, delta)
+    B, H, Hkv, Sq, Sk, D = _check(name, q, k, v, do, lse, delta)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{name}: dO must match q")
     lse = _rows(name, lse, B, H, Sq)
     delta = _rows(name, delta, B, H, Sq)
-    return (B, H, Hkv, Sq, Sk), (_c(q), _c(k), _c(v), _c(do), lse, delta)
+    return (B, H, Hkv, Sq, Sk, D), (_c(q), _c(k), _c(v), _c(do), lse,
+                                    delta)
 
 
-def _bwd_dq(name, entry, q, k, v, do, lse, delta, causal, scale):
-    """Launch the dQ kernel through C entry point ``entry``."""
+def _bwd_dq(name, q, k, v, do, lse, delta, causal, scale):
+    """Launch the dQ kernel; dQ."""
     from . import _build
 
     dims, (q, k, v, do, lse, delta) = _bwd_inputs(name, q, k, v, do, lse,
                                                   delta)
     dq = torch.empty_like(q)
-    err = getattr(_build.library(), entry)(
+    err = _build.library().pt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
         int(bool(causal)), float(scale), _build.stream_ptr(q.device))
@@ -114,15 +120,15 @@ def _bwd_dq(name, entry, q, k, v, do, lse, delta, causal, scale):
     return dq
 
 
-def _bwd_dkv(name, entry, q, k, v, do, lse, delta, causal, scale):
-    """Launch the dK/dV kernel through C entry point ``entry``."""
+def _bwd_dkv(name, q, k, v, do, lse, delta, causal, scale):
+    """Launch the dK/dV kernel; (dK, dV)."""
     from . import _build
 
     dims, (q, k, v, do, lse, delta) = _bwd_inputs(name, q, k, v, do, lse,
                                                   delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = getattr(_build.library(), entry)(
+    err = _build.library().pt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *dims, int(bool(causal)), float(scale), _build.stream_ptr(q.device))
@@ -133,7 +139,7 @@ def _bwd_dkv(name, entry, q, k, v, do, lse, delta, causal, scale):
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     """Forward kernel (loop row 1): (O (B, H, Sq, D) bf16, LSE fp32
     (B, H, Sq))."""
-    out = _fwd("flash_fwd", "pt_flash_fwd", q, k, v, causal, scale)
+    out = _fwd("flash_fwd", q, k, v, causal, scale)
     flash_fwd_cuda.launches += 1
     return out
 
@@ -144,8 +150,7 @@ flash_fwd_cuda.launches = 0
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     """dQ kernel (loop row 3): dQ (B, H, Sq, D) bf16 from the saved LSE and
     delta = rowsum(dO·O)."""
-    dq = _bwd_dq("flash_bwd_dq", "pt_flash_bwd_dq", q, k, v, do, lse, delta,
-                 causal, scale)
+    dq = _bwd_dq("flash_bwd_dq", q, k, v, do, lse, delta, causal, scale)
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -156,8 +161,7 @@ flash_bwd_dq_cuda.launches = 0
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     """dK/dV kernel (loop row 4): (dK, dV) (B, Hkv, Sk, D) bf16, summed
     over each KV head's group of query heads in fp32 inside the kernel."""
-    out = _bwd_dkv("flash_bwd_dkv", "pt_flash_bwd_dkv", q, k, v, do, lse,
-                   delta, causal, scale)
+    out = _bwd_dkv("flash_bwd_dkv", q, k, v, do, lse, delta, causal, scale)
     flash_bwd_dkv_cuda.launches += 1
     return out
 
@@ -167,8 +171,7 @@ flash_bwd_dkv_cuda.launches = 0
 
 def flash_fwd_stream_cuda(q, k, v, causal: bool, scale: float):
     """Streaming forward kernel (row 2): as :func:`flash_fwd_cuda`."""
-    out = _fwd("flash_fwd_stream", "pt_flash_fwd_stream", q, k, v, causal,
-               scale)
+    out = _fwd("flash_fwd_stream", q, k, v, causal, scale)
     flash_fwd_stream_cuda.launches += 1
     return out
 
@@ -179,8 +182,8 @@ flash_fwd_stream_cuda.launches = 0
 def flash_bwd_dq_stream_cuda(q, k, v, do, lse, delta, causal: bool,
                              scale: float):
     """Streaming dQ kernel (row 5): as :func:`flash_bwd_dq_cuda`."""
-    dq = _bwd_dq("flash_bwd_dq_stream", "pt_flash_bwd_dq_stream", q, k, v,
-                 do, lse, delta, causal, scale)
+    dq = _bwd_dq("flash_bwd_dq_stream", q, k, v, do, lse, delta, causal,
+                 scale)
     flash_bwd_dq_stream_cuda.launches += 1
     return dq
 
@@ -193,8 +196,8 @@ def flash_bwd_dkv_stream_cuda(q, k, v, do, lse, delta, causal: bool,
     """Streaming dK/dV kernel (row 6): as :func:`flash_bwd_dkv_cuda`, the
     GQA group summed in fp32 and rounded once, as the JAX stream kernel
     rounds."""
-    out = _bwd_dkv("flash_bwd_dkv_stream", "pt_flash_bwd_dkv_stream", q, k,
-                   v, do, lse, delta, causal, scale)
+    out = _bwd_dkv("flash_bwd_dkv_stream", q, k, v, do, lse, delta,
+                   causal, scale)
     flash_bwd_dkv_stream_cuda.launches += 1
     return out
 

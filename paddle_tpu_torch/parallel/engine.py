@@ -47,7 +47,8 @@ class ParallelEngine:
     """Owns the train step of ``model`` (a ``LlamaForCausalLM`` or any
     module whose ``forward(*inputs, *labels)`` returns the loss when
     ``loss_fn`` is None, or whose outputs ``loss_fn(*outputs, *labels)``
-    turns into one).
+    turns into one, as an ERNIE head with ``loss_fn=model.loss_fn``). The
+    last element of a batch is the label; the others are the inputs.
 
     ``grad_accum=k`` splits each batch's leading dim into k contiguous
     microbatches, averages their losses and fp32-accumulated gradients and
@@ -138,7 +139,11 @@ class ParallelEngine:
             if accum == 1:
                 loss = self._step_loss(batch)
                 loss.backward()
-                grads = [p.grad for _, p in named]
+                # a parameter the loss does not reach (an ERNIE masked-LM
+                # head's pooler) gets a zero gradient, as jax.grad gives
+                # it: AdamW still decays it and steps its moments
+                grads = [p.grad if p.grad is not None else
+                         torch.zeros_like(p) for _, p in named]
             else:
                 mbs = list(zip(*(b.chunk(accum) for b in batch)))
                 acc = [torch.zeros(p.shape, dtype=torch.float32,
@@ -155,8 +160,8 @@ class ParallelEngine:
                         p.grad = None
                 loss = loss / accum
                 grads = [a.div_(accum) for a in acc]
-            opt.update([(n, p, g) for (n, p), g in zip(named, grads)
-                        if g is not None], lr, self._step_count + 1)
+            opt.update([(n, p, g) for (n, p), g in zip(named, grads)], lr,
+                       self._step_count + 1)
             self._step_count += 1
             for _, p in named:
                 p.grad = None

@@ -38,7 +38,10 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.ops.int8_cuda",
                 "paddle_tpu_torch.ops.paged_attention",
                 "paddle_tpu_torch.ops.paged_attention_cuda",
-                "paddle_tpu_torch.models", "paddle_tpu_torch.models.llama",
+                "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.nn",
+                "paddle_tpu_torch.incubate.nn.functional",
+                "paddle_tpu_torch.models", "paddle_tpu_torch.models.ernie",
+                "paddle_tpu_torch.models.llama",
                 "paddle_tpu_torch.models.convert",
                 "paddle_tpu_torch.models.generation",
                 "paddle_tpu_torch.inference",
@@ -48,6 +51,15 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.inference.executor",
                 "paddle_tpu_torch.inference.serving",
                 "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.clip",
+                "paddle_tpu_torch.nn.functional",
+                "paddle_tpu_torch.nn.functional.activation",
+                "paddle_tpu_torch.nn.functional.attention",
+                "paddle_tpu_torch.nn.functional.common",
+                "paddle_tpu_torch.nn.functional.loss",
+                "paddle_tpu_torch.nn.functional.norm",
+                "paddle_tpu_torch.nn.layer", "paddle_tpu_torch.nn.layer.common",
+                "paddle_tpu_torch.nn.layer.norm",
+                "paddle_tpu_torch.nn.layer.transformer",
                 "paddle_tpu_torch.nn.lora", "paddle_tpu_torch.nn.quant",
                 "paddle_tpu_torch.nn.quant.quant_layers",
                 "paddle_tpu_torch.optimizer", "paddle_tpu_torch.optimizer.lr",
@@ -114,6 +126,90 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                            block_size=4, prefill_chunk=8)
     rid = srv.submit([1, 2, 3], max_new_tokens=2)
     assert len(srv.run()[rid]) == 5
+
+
+def test_ernie_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """Every ERNIE head, the layers under it and the weight conversion
+    build on the card unless told otherwise, and raise without one; built
+    on the CPU, the finetune step runs there and launches no kernel."""
+    from paddle_tpu_torch.models import ernie
+    from paddle_tpu_torch.models.convert import ernie_params_from_jax
+    from paddle_tpu_torch.nn import LayerNorm, Linear
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ernie.ernie_tiny_config(num_hidden_layers=1)
+    for head in (ernie.ErnieForSequenceClassification,
+                 ernie.ErnieForTokenClassification,
+                 ernie.ErnieForQuestionAnswering, ernie.ErnieForMaskedLM):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            head(cfg)
+    for make in (lambda: Linear(4, 4), lambda: LayerNorm(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    model = ernie.ErnieForSequenceClassification(cfg, device="cpu")
+    state = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ernie_params_from_jax(state, cfg)
+    eng = ParallelEngine(model, optimizer=AdamW(
+        learning_rate=5e-5, parameters=model.named_parameters()),
+        loss_fn=model.loss_fn)
+    ops.reset_launch_counts()
+    loss = eng.train_batch(torch.randint(0, 1024, (2, 128)),
+                           torch.randint(0, 2, (2,)))
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+
+
+def test_layer_norm_wrapper_raises_on_cpu_dtype_and_size():
+    """The LayerNorm wrapper launches nothing for CPU tensors, mixed or
+    unsupported dtypes, or a last dim that is not a multiple of its
+    16-byte vector: each raises (the dtype and size checks follow the
+    device check, so they are reached through a tensor that claims to be
+    on the card)."""
+    from paddle_tpu_torch.ops.fused_norm import layer_norm_cuda
+
+    x, w = torch.zeros(4, 64), torch.zeros(64)
+    before = layer_norm_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm_cuda(x, w, w, 1e-5)
+    cuda = property(lambda t: True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "is_cuda", cuda)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            layer_norm_cuda(x.half(), w.half(), w.half(), 1e-5)
+        with pytest.raises(TypeError, match="one dtype"):
+            layer_norm_cuda(x.bfloat16(), w, w, 1e-5)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            layer_norm_cuda(torch.zeros(4, 12, dtype=torch.bfloat16),
+                            torch.zeros(12, dtype=torch.bfloat16),
+                            torch.zeros(12, dtype=torch.bfloat16), 1e-5)
+    assert layer_norm_cuda.launches == before
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("head_dim_96", ValueError, r"head_dim 96 not in \(64, 128\)"),
+    ("fp32", TypeError, r"model\.bfloat16\(\)")])
+def test_flash_wrappers_take_head_dims_64_and_128_in_bf16_only(case, exc,
+                                                               match):
+    """The flash wrappers take D = 64 (ERNIE) and 128 (Llama); another
+    head dim, or fp32 q/k/v, raise before any launch (reached through
+    tensors that claim to be on the card)."""
+    D = 96 if case == "head_dim_96" else 64
+    dt = torch.float32 if case == "fp32" else torch.bfloat16
+    q = torch.zeros(1, 2, 128, D, dtype=dt)
+    rows = torch.zeros(1, 2, 128)
+    before = {n: ops.KERNEL_WRAPPERS[n].launches for n in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+        with pytest.raises(exc, match=match):
+            ops.flash_fwd_cuda(q, q, q, False, 0.125)
+        with pytest.raises(exc, match=match):
+            ops.flash_bwd_dq_cuda(q, q, q, q, rows, rows, False, 0.125)
+        with pytest.raises(exc, match=match):
+            ops.flash_bwd_dkv_cuda(q, q, q, q, rows, rows, False, 0.125)
+    assert before == {n: ops.KERNEL_WRAPPERS[n].launches for n in before}
 
 
 def _tiny_model():
