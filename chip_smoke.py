@@ -10,7 +10,9 @@ Phases (any failure exits non-zero before the final line):
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compiles the port's CUDA kernels from ``paddle_tpu_torch/ops/
    csrc`` with nvcc for sm_90a and prints the build time and each kernel's
-   registers / spills.
+   registers / spills; then the flash backward kernels' registers, shared
+   memory, ring and tile sizes at both head dims, failing on a spill or an
+   ignored ``setmaxnreg`` (C7508) in ``flash_attention_bwd.cu``.
 3. Serving kernels against their plain PyTorch versions on the card, in
    bf16, at the serving path's shapes: RMSNorm at rows {8, 128} x 4096
    (and at 4096 x 4096, the training path's B x S rows);
@@ -38,17 +40,19 @@ Phases (any failure exits non-zero before the final line):
    differ from the plain bf16 path's by a bounded share of the rms logit.
 6. Training kernels against their plain versions, bf16, at B=2, H=32,
    KV=8, D=128: flash forward at S=2048, at S=8192 (B=1) and at Sq=384 /
-   Sk=2048; the dQ and dK/dV kernels at S=2048; forward and backward
-   without the causal mask, with a ragged last tile and with Sq > Sk
-   (untimed); AdamW on a 4096 x 14336 and a 4096-element tensor with and
-   without an fp32 master weight, on the largest tensor of the path (the
-   128256 x 4096 embedding or lm-head) with one, and with fp32 grads at a
-   ragged length.
+   Sk=2048; the dQ and dK/dV kernels at S=2048; forward and backward at
+   the tile edges (``FLASH_EDGES``: no causal mask, S = 130 and 200 across
+   the backward's 128-row and 128-key blocks, Sq=300 / Sk=1000, Sq > Sk)
+   at KV=8 and KV=32 (untimed); each backward kernel launched twice must
+   give the same bits; AdamW on a 4096 x 14336 and a 4096-element tensor
+   with and without an fp32 master weight, on the largest tensor of the
+   path (the 128256 x 4096 embedding or lm-head) with one, and with fp32
+   grads at a ragged length.
    Attention is compared per output row (and the LSE per row), with the
    tolerance shown to reject a causal mask one key off in the forward and
    in the backward; AdamW per element. Times, bounds and library calls as
-   in phase 3 (SDPA forward and backward, ``torch.optim.AdamW(fused=
-   True)``).
+   in phase 3 (SDPA forward; SDPA's backward as the graph-timed forward +
+   backward less the forward; ``torch.optim.AdamW(fused=True)``).
 7. Train: ``ParallelEngine(LlamaForCausalLM(llama3_8b_config(
    num_hidden_layers=8)), AdamW(multi_precision, ClipGradByGlobalNorm))``
    on the card, 10 steps (2 warm-up) on one seeded batch of B=2 x S=2048;
@@ -140,7 +144,7 @@ entry points and counters):
    causal at phase 19's S=32768 (both untimed); phase 6's per-row
    tolerances, shown to reject a causal mask
    one key off in the forward and in the backward; only the ``*_stream``
-   counters move. Times as phase 6 (SDPA forward and backward).
+   counters move; the backward bitwise repeatable. Times as phase 6.
 19. Long-context training: ``ParallelEngine`` over
    ``llama3_8b_config(num_hidden_layers=8, max_position_embeddings=
    32768)``, B=1, AdamW as phase 7: (a) S=16384 without remat, 6 steps
@@ -173,7 +177,8 @@ and the flash kernels at head dim 64 (rows 1, 3, 4):
 22. The flash forward, dQ and dK/dV kernels at D = 64 without the causal
    mask, B=32, H=12, S in {128, 512}, against the plain versions with
    phase 6's per-row tolerances, shown to reject the last key dropped;
-   times beside SDPA forward and backward. (Phases 6 and 18 keep D = 128.)
+   times beside SDPA forward and backward (as phase 6); then phase 6's
+   tile edges at D = 64, KV = 12 and 3. (Phases 6 and 18 keep D = 128.)
 23. ``ErnieForSequenceClassification`` at 12 layers, hidden 768, 12
    heads, vocab 40000, seeded random weights, ``model.bfloat16()``, AdamW
    lr 5e-5 (fp32 master weights), ``ParallelEngine(loss_fn=model.
@@ -318,6 +323,38 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def flash_bwd_build(_build, fac) -> dict:
+    """Phase 2's check of the flash backward kernels' build: for each head
+    dim, their registers, shared memory, ring and tile sizes (from the
+    library), and none of the ptxas lines of ``flash_attention_bwd.cu``
+    may show a spill or an ignored ``setmaxnreg`` (warning C7508)."""
+    import re
+
+    text = _build.BUILD_INFO["log"]
+    part = text.split("== flash_attention_bwd.cu", 1)
+    lines = part[1].split("\n== ", 1)[0].splitlines() if len(part) > 1 \
+        else []
+    spills, kernel = [], "?"
+    for ln in lines:
+        m = re.search(r"Function properties for .*(flash_bwd_\w+?_kernel)"
+                      r"ILi(\d+)E", ln)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill "
+                                          r"(?:stores|loads)", ln)):
+            spills.append(f"{kernel}: {ln.strip()}")
+    ignored = [ln.strip() for ln in lines
+               if "C7508" in ln or "setmaxnreg ignored" in ln]
+    check(not spills, f"flash backward build spills: {spills}")
+    check(not ignored, f"flash backward build ignores setmaxnreg: {ignored}")
+    conf = {f"D={D}": fac.backward_config(D) for D in (64, 128)}
+    for per_d in conf.values():
+        for name, c in per_d.items():
+            check(c["local_bytes"] == 0,
+                  f"{name}: {c['local_bytes']} local bytes a thread")
+    return dict(ptxas_lines=len(lines), **conf)
 
 
 # --------------------------------------------------------------- phase 3
@@ -1677,9 +1714,9 @@ def serve_int8(torch, ops, model):
 # --------------------------------------------------------------- phase 6
 def event_ms(torch, fn, iters: int, flush=None) -> float:
     """Device time per call from CUDA events around ``iters`` eager calls
-    (after 2 warm-up calls): for work a CUDA graph cannot capture (autograd
-    backward, torch.optim); includes whatever host time the calls leave
-    the device idle. ``flush`` as in :func:`time_ms`."""
+    (after 2 warm-up calls): for work a CUDA graph cannot capture
+    (torch.optim's step); includes whatever host time the calls leave the
+    device idle. ``flush`` as in :func:`time_ms`."""
     def run(body):
         for _ in range(2):
             body()
@@ -1701,6 +1738,37 @@ def event_ms(torch, fn, iters: int, flush=None) -> float:
         fn()
 
     return max(run(flushed) - run(flush.zero_), 0.0)
+
+
+def sdpa_backward_ms(torch, q, k, v, do, iters: int, **mask) -> dict:
+    """Device time of SDPA's backward, which computes dQ, dK and dV in one
+    call: SDPA's forward + ``autograd.grad`` captured in a CUDA graph and
+    timed through :func:`time_ms` (side-stream warm-up), less the
+    graph-timed forward, so that no host gap counts. ``library_ms`` is the
+    backward, ``library_fwd_bwd_ms`` both."""
+    from torch.nn import functional as F
+
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True,
+                                              **mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qg, kg, vg), do)
+
+    fb = time_ms(fwd_bwd, iters)
+    return dict(library_ms=fb - time_ms(fwd, iters), library_fwd_bwd_ms=fb)
+
+
+def _repeatable(torch, fn, first) -> bool:
+    """Whether launching ``fn`` again on the same inputs gives the bits of
+    ``first`` (a tensor or a tuple of them): the backward kernels sum in a
+    fixed order, with no atomics."""
+    again = fn()
+    pairs = zip(first, again) if isinstance(first, tuple) else [(first,
+                                                                 again)]
+    return all(torch.equal(a, b) for a, b in pairs)
 
 
 def _row_ratio(x, ref, rms_scale):
@@ -1734,6 +1802,70 @@ def _visible_pairs(Sq, Sk):
     """(query, key) pairs the bottom-right causal mask keeps."""
     offs = Sk - Sq
     return sum(min(max(i + offs + 1, 0), Sk) for i in range(Sq))
+
+
+# the flash kernels' branches and tile edges that the training shapes do
+# not reach, as (B, Sq, Sk, causal): no causal mask; ragged last tiles
+# (S not a multiple of 64, and 130 and 200 across the backward's 128-row
+# and 128-key blocks); Sq < Sk (bottom-right alignment); Sq > Sk, where the
+# first causal rows see no key (O = 0, zero gradients)
+FLASH_EDGES = ((1, 1000, 1000, False), (1, 300, 1000, True),
+               (1, 300, 1000, False), (1, 200, 130, True),
+               (1, 200, 130, False), (2, 200, 200, True),
+               (2, 130, 130, True), (1, 130, 130, False))
+
+
+def _flash_edges(torch, fa, fac, rnd, H, KV, D):
+    """The forward, dQ and dK/dV kernels at FLASH_EDGES, H query and KV
+    heads of head dim D, against the plain versions with phase 6's
+    per-row tolerances (untimed); each backward kernel, launched a second
+    time, must give the same bits. (forward cases, [(name, case)])."""
+    s = 1.0 / D ** 0.5
+    fwd_cases, bwd_cases = [], []
+    for B, Sq, Sk, causal in FLASH_EDGES:
+        q, k, v = rnd(B, H, Sq, D), rnd(B, KV, Sk, D), rnd(B, KV, Sk, D)
+        do = rnd(B, H, Sq, D)
+        out, lse = fac.flash_fwd_cuda(q, k, v, causal, s)
+        ref, rlse = fa._flash_fwd_plain(q, k, v, causal, s)
+        delta = (do.float() * ref.float()).sum(-1)
+
+        def dq_fn():
+            return fac.flash_bwd_dq_cuda(q, k, v, do, rlse, delta, causal, s)
+
+        def dkv_fn():
+            return fac.flash_bwd_dkv_cuda(q, k, v, do, rlse, delta, causal,
+                                          s)
+
+        got = dict(o=out, dq=dq_fn())
+        got["dk"], got["dv"] = dkv_fn()
+        want = dict(zip(("dq", "dk", "dv"), fa._flash_bwd_plain(
+            q, k, v, do, rlse, delta, causal, s)), o=ref)
+        torch.cuda.synchronize()
+        ratios = {n: _row_ratio(x, want[n], _rms(v) if n == "o"
+                                else _rms(want[n])).max().item()
+                  for n, x in got.items()}
+        ratios["lse"] = _lse_ratio(lse, rlse, Sk).max().item()
+        errs = {n: (x.float() - want[n].float()).abs().max().item()
+                for n, x in got.items()}
+        repeat = (_repeatable(torch, dq_fn, got["dq"])
+                  and _repeatable(torch, dkv_fn, (got["dk"], got["dv"])))
+        case = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=causal,
+                    max_abs_errs=errs, worst_err_over_tol=ratios,
+                    bitwise_repeatable=repeat)
+        label = f"flash edge D={D} KV={KV} B={B} Sq={Sq} Sk={Sk} " \
+                f"causal={causal}"
+        log(f"kernel {label}: " + json.dumps(case))
+        for n, w in ratios.items():
+            check(bool(torch.isfinite(got.get(n, lse).float()).all()),
+                  f"{label}: {n} non-finite")
+            check(w <= 1.0, f"{label}: {n} off by {w:.3g} x its tolerance")
+        check(repeat, f"{label}: a second backward launch gave other bits")
+        fwd_cases.append(dict(case, max_abs_err=errs["o"]))
+        for name, keys in (("flash_bwd_dq", ("dq",)),
+                           ("flash_bwd_dkv", ("dk", "dv"))):
+            bwd_cases.append((name, dict(case, max_abs_err=max(
+                errs[n] for n in keys))))
+    return fwd_cases, bwd_cases
 
 
 def kernel_flash(torch, fa, fac, ops):
@@ -1831,6 +1963,11 @@ def kernel_flash(torch, fa, fac, ops):
                   f"flash backward {n}: non-finite")
             check(w <= 1.0, f"flash backward {n}: a row is off by {w:.3g} x "
                             f"its tolerance")
+        check(_repeatable(torch, lambda: fac.flash_bwd_dq_cuda(
+            q, k, v, do, rlse, delta, True, s), dq)
+              and _repeatable(torch, lambda: fac.flash_bwd_dkv_cuda(
+                  q, k, v, do, rlse, delta, True, s), (dk, dv)),
+              f"flash backward S={Sq}: a second launch gave other bits")
         # the mutant's whole plain pipeline: its own O, LSE and delta
         bmut = {}
         for d in (1, -1):
@@ -1846,20 +1983,7 @@ def kernel_flash(torch, fa, fac, ops):
             for n, w in bmut[f"mask{d:+d}"].items():
                 check(w > 1.0, f"flash backward {n}: the tolerance passes "
                                f"the mask{d:+d} fault ({w:.3g} x tolerance)")
-        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-        def lib_fwd_bwd():
-            qg.grad = kg.grad = vg.grad = None
-            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                               enable_gqa=True)
-            o.backward(do)
-
-        # SDPA's backward computes dQ, dK and dV in one call: its time is
-        # the forward + backward less the forward
-        lib_fb = event_ms(torch, lib_fwd_bwd, 10)
-        lib_bwd = lib_fb - event_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                qg, kg, vg, is_causal=True, enable_gqa=True), 10)
+        lib = sdpa_backward_ms(torch, q, k, v, do, 10, is_causal=True)
         plain_bwd = time_ms(lambda: fa._flash_bwd_plain(
             q, k, v, do, rlse, delta, True, s), 2)
         io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * lse.numel()
@@ -1876,54 +2000,22 @@ def kernel_flash(torch, fa, fac, ops):
                     .max().item() for n in (("dq",) if name.endswith("dq")
                                             else ("dk", "dv"))}
             case = dict(B=B, H=H, KV=KV, D=D, S=Sq, causal=True,
-                        library_fwd_bwd_ms=lib_fb,
                         max_abs_err=max(errs.values()), max_abs_errs=errs,
                         worst_err_over_tol={n: ratios[n] for n in errs},
                         mutants={d: {n: m[n] for n in errs}
                                  for d, m in bmut.items()},
+                        bitwise_repeatable=True,
                         ms=time_ms(fn, 20), plain_ms=plain_bwd,
-                        bound_ms=bnd, bound_by=by, library_ms=lib_bwd)
+                        bound_ms=bnd, bound_by=by, **lib)
             log(f"kernel {name} S={Sq} B={B} bf16: " + json.dumps(case))
             bwd_cases.append((name, case))
-        del qg, kg, vg, do, dq, dk, dv, rdq, rdk, rdv, grads
-    # the kernels' branches the training path does not take: no causal
-    # mask, a ragged last tile (S not a multiple of 64), and Sq > Sk, where
-    # the first causal rows see no key (O = 0); same tolerances, not timed
-    for B, Sq, Sk, causal in ((1, 1000, 1000, False), (1, 300, 1000, True),
-                              (1, 200, 130, True)):
-        q, k, v = rnd(B, H, Sq, D), rnd(B, KV, Sk, D), rnd(B, KV, Sk, D)
-        do = rnd(B, H, Sq, D)
-        out, lse = fac.flash_fwd_cuda(q, k, v, causal, s)
-        ref, rlse = fa._flash_fwd_plain(q, k, v, causal, s)
-        delta = (do.float() * ref.float()).sum(-1)
-        got = dict(o=out, dq=fac.flash_bwd_dq_cuda(q, k, v, do, rlse, delta,
-                                                   causal, s))
-        got["dk"], got["dv"] = fac.flash_bwd_dkv_cuda(q, k, v, do, rlse,
-                                                      delta, causal, s)
-        want = dict(zip(("dq", "dk", "dv"), fa._flash_bwd_plain(
-            q, k, v, do, rlse, delta, causal, s)), o=ref)
-        torch.cuda.synchronize()
-        ratios = {n: _row_ratio(x, want[n], _rms(v) if n == "o"
-                                else _rms(want[n])).max().item()
-                  for n, x in got.items()}
-        ratios["lse"] = ((lse - rlse).abs() / (Sk * 2.0 ** -24 + 2.0 ** -20
-                                               * rlse.abs())).max().item()
-        errs = {n: (x.float() - want[n].float()).abs().max().item()
-                for n, x in got.items()}
-        case = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=causal,
-                    max_abs_errs=errs, worst_err_over_tol=ratios)
-        log(f"kernel flash edge Sq={Sq} Sk={Sk} causal={causal}: "
-            + json.dumps(case))
-        for n, w in ratios.items():
-            check(bool(torch.isfinite(got.get(n, lse).float()).all()),
-                  f"flash edge {case}: {n} non-finite")
-            check(w <= 1.0, f"flash edge Sq={Sq} Sk={Sk} causal={causal}: "
-                            f"{n} off by {w:.3g} x its tolerance")
-        fwd_cases.append(dict(case, max_abs_err=errs["o"]))
-        for name, keys in (("flash_bwd_dq", ("dq",)),
-                           ("flash_bwd_dkv", ("dk", "dv"))):
-            bwd_cases.append((name, dict(case, max_abs_err=max(
-                errs[n] for n in keys))))
+        del do, dq, dk, dv, rdq, rdk, rdv, grads
+    # the kernels' branches and tile edges the training path does not
+    # take, at both GQA group sizes; same tolerances, not timed
+    for group in (H // KV, 1):
+        f, b = _flash_edges(torch, fa, fac, rnd, H, H // group, D)
+        fwd_cases += f
+        bwd_cases += b
     return fwd_cases, bwd_cases
 
 
@@ -2403,6 +2495,13 @@ def kernel_flash_stream(torch, fa, fac, ops):
         want = dict(zip(("dq", "dk", "dv"), fa._flash_bwd_plain(
             q, k, v, do, rlse, delta, causal, s)), o=ref)
         torch.cuda.synchronize()
+        check(_repeatable(torch, lambda: fac.flash_bwd_dq_stream_cuda(
+            q, k, v, do, rlse, delta, causal, s), got["dq"])
+              and _repeatable(torch, lambda: fac.flash_bwd_dkv_stream_cuda(
+                  q, k, v, do, rlse, delta, causal, s), (got["dk"],
+                                                         got["dv"])),
+              f"flash stream Sq={Sq} Sk={Sk}: a second backward launch gave "
+              f"other bits")
         check(all(counts[n] == 1 for n in STREAM_FLASH)
               and all(counts[n] == 0 for n in LOOP_FLASH),
               f"flash stream Sq={Sq} Sk={Sk}: the dispatch launched "
@@ -2419,7 +2518,8 @@ def kernel_flash_stream(torch, fa, fac, ops):
         errs = {n: (x.float() - want[n].float()).abs().max().item()
                 for n, x in got.items()}
         errs["lse"] = (lse - rlse).abs().max().item()
-        base = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=causal)
+        base = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=causal,
+                    bitwise_repeatable=True)
         mutants = {}
         if causal and Sq == Sk == LONG_S:
             # the tolerances reject the causal mask one key off, forward
@@ -2476,20 +2576,7 @@ def kernel_flash_stream(torch, fa, fac, ops):
                                                              s), 1),
                 library_ms=time_ms(lib_fwd, 5))
         if timed and causal:
-            qg, kg, vg = (t.detach().clone().requires_grad_()
-                          for t in (q, k, v))
-
-            def lib_fwd_bwd():
-                qg.grad = kg.grad = vg.grad = None
-                F.scaled_dot_product_attention(
-                    qg, kg, vg, is_causal=True, enable_gqa=True).backward(do)
-
-            # SDPA's backward computes dQ, dK and dV in one call: its time
-            # is the forward + backward less the forward (phase 6)
-            lib_fb = event_ms(torch, lib_fwd_bwd, 3)
-            lib_bwd = lib_fb - event_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qg, kg, vg, is_causal=True, enable_gqa=True), 3)
+            lib = sdpa_backward_ms(torch, q, k, v, do, 3, is_causal=True)
             plain_bwd = time_ms(lambda: fa._flash_bwd_plain(
                 q, k, v, do, rlse, delta, True, s), 1)
             for name, fn in (
@@ -2500,9 +2587,7 @@ def kernel_flash_stream(torch, fa, fac, ops):
                      lambda: fac.flash_bwd_dkv_stream_cuda(
                          q, k, v, do, rlse, delta, True, s))):
                 cases[name][-1].update(ms=time_ms(fn, 5), plain_ms=plain_bwd,
-                                       library_ms=lib_bwd,
-                                       library_fwd_bwd_ms=lib_fb)
-            del qg, kg, vg
+                                       **lib)
         for name in STREAM_FLASH:
             log(f"kernel {name} Sq={Sq} Sk={Sk} causal={causal} bf16: "
                 + json.dumps(cases[name][-1]))
@@ -2944,6 +3029,11 @@ def kernel_flash_d64(torch, fa, fac):
                   f"flash d64 S={S}: {n} non-finite")
             check(w_ <= 1.0, f"flash d64 S={S}: {n} off by {w_:.3g} x its "
                              f"tolerance")
+        check(_repeatable(torch, lambda: fac.flash_bwd_dq_cuda(
+            q, k, v, do, rlse, delta, False, s), dq)
+              and _repeatable(torch, lambda: fac.flash_bwd_dkv_cuda(
+                  q, k, v, do, rlse, delta, False, s), (dk, dv)),
+              f"flash d64 S={S}: a second backward launch gave other bits")
         mo, _ = _drop_last_key(torch, fa, q, k, v)
         mut = {"o": _row_ratio(mo, ref, scale_of["o"]).max().item()}
         for n, x in zip(("dq", "dk", "dv"),
@@ -2970,15 +3060,7 @@ def kernel_flash_d64(torch, fa, fac):
                          lambda: F.scaled_dot_product_attention(q, k, v), 20))
         log(f"kernel flash_fwd d64 S={S} B={B} bf16: " + json.dumps(fcase))
         fwd_cases.append(fcase)
-        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-        def lib_fwd_bwd():
-            qg.grad = kg.grad = vg.grad = None
-            F.scaled_dot_product_attention(qg, kg, vg).backward(do)
-
-        lib_fb = event_ms(torch, lib_fwd_bwd, 10)
-        lib_bwd = lib_fb - event_ms(
-            torch, lambda: F.scaled_dot_product_attention(qg, kg, vg), 10)
+        lib = sdpa_backward_ms(torch, q, k, v, do, 10)
         plain_bwd = time_ms(lambda: fa._flash_bwd_plain(
             q, k, v, do, rlse, delta, False, s), 2)
         io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * lse.numel()
@@ -2992,16 +3074,21 @@ def kernel_flash_d64(torch, fa, fac):
             bnd, by = bound_ms(io + 2 * outs, 2 * products * D * B * H * pairs,
                                BF16_FLOPS)
             case = dict(B=B, H=H, KV=H, D=D, S=S, causal=False,
-                        library_fwd_bwd_ms=lib_fb,
                         max_abs_err=max(errs[n] for n in keys),
                         max_abs_errs={n: errs[n] for n in keys},
                         worst_err_over_tol={n: ratios[n] for n in keys},
                         mutants={"drop_last_key": {n: mut[n] for n in keys}},
+                        bitwise_repeatable=True,
                         ms=time_ms(fn, 20), plain_ms=plain_bwd,
-                        bound_ms=bnd, bound_by=by, library_ms=lib_bwd)
+                        bound_ms=bnd, bound_by=by, **lib)
             log(f"kernel {name} d64 S={S} B={B} bf16: " + json.dumps(case))
             bwd_cases.append((name, case))
-        del q, k, v, do, qg, kg, vg, got, want
+        del q, k, v, do, got, want
+    # the tile edges at head dim 64, both GQA group sizes
+    for KV in (H, H // 4):
+        f, b = _flash_edges(torch, fa, fac, rnd, H, KV, D)
+        fwd_cases += f
+        bwd_cases += b
     gc.collect()
     torch.cuda.empty_cache()
     return fwd_cases, bwd_cases
@@ -3341,6 +3428,10 @@ def main() -> int:
     for line in _build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line or "==" in line:
             log("  " + line.strip())
+    bwd_build = flash_bwd_build(_build, fac)
+    log("flash backward kernels (registers a thread at launch; "
+        "consumers setmaxnreg to consumer_registers): "
+        + json.dumps(bwd_build))
 
     cfg = llama3_8b_config()
     rms_cases = kernel_rms_norm(torch, fused_norm, cfg)
@@ -3443,21 +3534,26 @@ def main() -> int:
               train_launches=tl["rms_norm"]),
         entry("flash_fwd", csrc + "flash_attention.cu", flash + "488",
               fwd_cases, tl["flash_fwd"]),
-        entry("flash_bwd_dq", csrc + "flash_attention.cu", flash + "628",
+        entry("flash_bwd_dq", csrc + "flash_attention_bwd.cu",
+              flash + "628",
               [c for n, c in bwd_cases if n == "flash_bwd_dq"],
-              tl["flash_bwd_dq"]),
-        entry("flash_bwd_dkv", csrc + "flash_attention.cu", flash + "646",
+              tl["flash_bwd_dq"],
+              build=bwd_build["D=128"]["flash_bwd_dq"]),
+        entry("flash_bwd_dkv", csrc + "flash_attention_bwd.cu",
+              flash + "646",
               [c for n, c in bwd_cases if n == "flash_bwd_dkv"],
-              tl["flash_bwd_dkv"]),
+              tl["flash_bwd_dkv"],
+              build=bwd_build["D=128"]["flash_bwd_dkv"]),
         entry("fused_adamw", csrc + "fused_adamw.cu",
               "paddle_tpu/ops/fused_adamw.py:167", adamw_cases,
               tl["fused_adamw"]),
         # rows 2, 5, 6, with their launches in phase 19's counted steps
-        *(entry(name, csrc + "flash_attention.cu", flash + line,
+        *(entry(name, csrc + src, flash + line,
                 stream_cases[name], long_res["launches"][name])
-          for name, line in (("flash_fwd_stream", "189"),
-                             ("flash_bwd_dq_stream", "352"),
-                             ("flash_bwd_dkv_stream", "376"))),
+          for name, src, line in (
+              ("flash_fwd_stream", "flash_attention.cu", "189"),
+              ("flash_bwd_dq_stream", "flash_attention_bwd.cu", "352"),
+              ("flash_bwd_dkv_stream", "flash_attention_bwd.cu", "376"))),
         # row 8 and rows 1, 3, 4 at head dim 64, with their launches in
         # phase 23's counted steps and eval passes
         entry("layer_norm", csrc + "layer_norm.cu",
@@ -3465,9 +3561,10 @@ def main() -> int:
               ernie_res["launches"]["layer_norm"]),
         entry("flash_fwd_d64", csrc + "flash_attention.cu", flash + "488",
               fwd64_cases, ernie_res["launches"]["flash_fwd"]),
-        *(entry(f"{name}_d64", csrc + "flash_attention.cu", flash + line,
-                [c for n, c in bwd64_cases if n == name],
-                ernie_res["launches"][name])
+        *(entry(f"{name}_d64", csrc + "flash_attention_bwd.cu",
+                flash + line, [c for n, c in bwd64_cases if n == name],
+                ernie_res["launches"][name],
+                build=bwd_build["D=64"][name])
           for name, line in (("flash_bwd_dq", "628"),
                              ("flash_bwd_dkv", "646"))),
         entry("w8_matmul", csrc + "w8_matmul.cu", "paddle_tpu/ops/int8.py:80",

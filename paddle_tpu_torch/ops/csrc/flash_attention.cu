@@ -1,83 +1,67 @@
-// Causal / GQA flash attention, forward and backward, for Hopper (sm_90a).
+// Causal / GQA flash attention forward for Hopper (sm_90a). The backward
+// pair (dQ, dK/dV) is flash_attention_bwd.cu.
 //
-// Replaces: paddle_tpu/ops/flash_attention.py, the full-K loop kernels
+// Replaces: paddle_tpu/ops/flash_attention.py, the full-K loop kernel
 //   _fwd_kernel_loop      launched by _flash_fwd_bhsd_loop   (:488)
-//   _bwd_dq_kernel_loop   launched by _flash_bwd_bhsd_loop   (:628)
-//   _bwd_dkv_kernel_loop  launched by _flash_bwd_bhsd_loop   (:646)
-// and the streaming kernels the JAX package takes past _FULL_K_MAX = 8192
+// and the streaming kernel the JAX package takes past _FULL_K_MAX = 8192
 // keys (:678, dispatch :771-789)
-//   _fwd_kernel      launched by _flash_fwd_bhsd_stream      (:189)
-//   _bwd_dq_kernel   launched by _flash_bwd_bhsd_stream dQ   (:352)
-//   _bwd_dkv_kernel  launched by _flash_bwd_bhsd_stream dK/dV (:376)
-// The TPU keeps two forms because its loop kernels hold the whole of K/V in
+//   _fwd_kernel           launched by _flash_fwd_bhsd_stream (:189)
+// The TPU keeps two forms because its loop kernel holds the whole of K/V in
 // VMEM, which stops fitting past 8192 keys; they compute one function. The
-// kernels below already stream 64-key tiles through shared memory at any
-// length, so both forms launch the same entry points below; the Python
-// wrappers (flash_*_stream_cuda) keep their own launch counters so that a
-// run can count rows 2, 5 and 6 apart from rows 1, 3 and 4. Long keys are
-// safe here: every tensor offset is formed
-// in size_t, row and tile indices stay below Sq, Sk < 2^31, and the wrapper
-// refuses a tensor of 2^31 or more elements (so b * H + h cannot wrap). The
-// dK/dV block's loop over rep x ceil(Sq / 64) query tiles (2,048 at
-// S = 32768, GQA 4) is a plain loop with no per-iteration state beyond the
-// fp32 accumulators, and Sk - Sq (offs) is a signed int, negative when
-// Sq > Sk.
-// Head dims: every kernel is a template on D, instantiated for D = 128
+// kernel below already streams 64-key tiles through shared memory at any
+// length, so both forms launch the same entry point; the Python wrappers
+// (flash_fwd_cuda, flash_fwd_stream_cuda) keep their own launch counters so
+// that a run can count row 2 apart from row 1. Long keys are safe here:
+// every tensor offset is formed in size_t, row and tile indices stay below
+// Sq, Sk < 2^31, and the wrapper refuses a tensor of 2^31 or more elements
+// (so b * H + h cannot wrap).
+// Head dims: the kernel is a template on D, instantiated for D = 128
 // (Llama-3-8B) and D = 64 (ERNIE-3.0 base, 12 heads of 64); the entry
-// points take D and refuse any other.
+// point takes D and refuses any other.
 // Semantics, kept: q (B, H, Sq, D), k/v (B, Hkv, Sk, D), query head h reads
 // KV head h / (H / Hkv); causal masks align bottom-right (query i sees key j
 // iff j <= i + Sk - Sq). QK in fp32 times `scale`; running max from -1e30,
-// running sum and accumulator in fp32; p cast to bf16 before PV; O = acc /
-// max(l, 1e-30) in bf16, LSE = m + log(max(l, 1e-30)) in fp32. Backward:
-// P = exp(s - LSE), dS = P * (dO.V^T - delta) cast to bf16, dQ = scale *
-// dS.K, dV = P^T.dO, dK = scale * dS^T.Q, with delta = rowsum(dO * O)
-// computed outside. A masked key gets p = 0 exactly, so a row that sees no
-// key (causal with Sq > Sk) gets O = 0; every other row matches the TPU
-// kernel.
+// running sum and accumulator in fp32; p cast to bf16 before PV;
+// O = acc / max(l, 1e-30) in bf16, LSE = m + log(max(l, 1e-30)) in fp32. A
+// masked key gets p = 0 exactly, so a row that sees no key (causal with
+// Sq > Sk) gets O = 0; every other row matches the TPU kernel.
 //
 // Bound: operations. At the training shape (B = 2, H = 32, Hkv = 8, S =
 // 2048, D = 128, causal) the forward does 2 products of 2*S*S*D/2 flops
 // per head (~69 us at the H100 SXM's 989 TFLOP/s bf16 peak, data sheet,
-// 700 W) on 84 MB of q, k, v and O (~25 us at its 3.35 TB/s); dQ does 3
-// products, dK/dV 4. So the products must run on the tensor cores.
+// 700 W) on 84 MB of q, k, v and O (~25 us at its 3.35 TB/s). So the
+// products must run on the tensor cores.
 //
-// Design. The TPU kernels run a sequential grid and keep whole K/V blocks
+// Design. The TPU kernel runs a sequential grid and keeps whole K/V blocks
 // of up to 8192 rows resident in VMEM; on Hopper blocks run in parallel and
 // a block has at most 227 KB of shared memory, so:
-//   * forward and dQ: one block of 4 warps per (64-row query tile, head,
-//     batch); each warp owns 16 query rows, keeps its Q (and dO) fragments
-//     in registers, and loops over 64-key K/V tiles staged in shared memory
-//     up to the tile's causal frontier (the TPU kernel's early stop). GQA
-//     reads the shared KV head directly: nothing is repeated in memory.
-//     The causal tiles with the most keys are launched first.
-//   * dK/dV: one block per (64-key tile, KV head, batch); each warp owns 16
-//     keys; the block loops over the H/Hkv query heads of its group and over
-//     their 64-row Q/dO tiles from the causal lower bound, accumulating dK
-//     and dV of the whole group in fp32 registers and writing them once.
-//     The TPU kernel computes per query head and sums the [B, H, Sk, D]
-//     result afterwards (in bf16); here the group sum is exact in fp32 and
-//     rounded once, and the intermediate never exists.
+//   * one block of 4 warps per (64-row query tile, head, batch); each warp
+//     owns 16 query rows, keeps its Q fragments in registers, and loops
+//     over 64-key K/V tiles staged in shared memory up to the tile's causal
+//     frontier (the TPU kernel's early stop). GQA reads the shared KV head
+//     directly: nothing is repeated in memory. The causal tiles with the
+//     most keys are launched first.
 //   * every product is warp-level mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate); the softmax probabilities and dS go from the fp32
-//     accumulator layout straight into the next product's A operand in
-//     registers. Shared-memory rows are padded by 16 bytes (8 bf16), so a
-//     row is D + 8 elements: 68 words at D = 128 and 36 at D = 64, both 4
+//     accumulate); the softmax probabilities go from the fp32 accumulator
+//     layout straight into the PV product's A operand in registers.
+//     Shared-memory rows are padded by 16 bytes (8 bf16), so a row is
+//     D + 8 elements: 68 words at D = 128 and 36 at D = 64, both 4
 //     (mod 32), so the 8 rows x 4 words of a fragment load hit 32 different
 //     banks at either head dim, and the 16-byte tile stores of a
 //     quarter-warp cover one 128-byte span of a row.
-//   * grid: forward and dQ launch ceil(Sq / 64) x H x B blocks (768 at
-//     ERNIE's B = 32, H = 12, S = 128; 3,072 at S = 512), dK/dV
-//     ceil(Sk / 64) x Hkv x B.
+//   * grid: ceil(Sq / 64) x H x B blocks (768 at ERNIE's B = 32, H = 12,
+//     S = 128; 3,072 at S = 512).
 //   * a ragged last tile (S not a multiple of 64) is loaded with zeros and
 //     masked; nothing needs a fallback.
-// Left for later: cp.async/TMA double buffering of the K/V (Q/dO) tiles and
-// wgmma; both loops wait on their shared-memory loads.
+// Left for later: TMA double buffering of the K/V tiles and wgmma (as the
+// backward pair has them); the loop waits on its shared-memory loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -322,239 +306,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int H, int Hkv, int Sq, int Sk, int causal, float scale) {
-  __shared__ __align__(16) bf16 sK[Tile<kD>::kElems];
-  __shared__ __align__(16) bf16 sV[Tile<kD>::kElems];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
-  const size_t bh = size_t(b * H + h);
-  const bf16* kb = k + size_t(b * Hkv + hk) * Sk * kD;
-  const bf16* vb = v + size_t(b * Hkv + hk) * Sk * kD;
-  const int offs = Sk - Sq;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse_r[i] = row[i] < Sq ? lse[bh * Sq + row[i]] : 0.f;
-    delta_r[i] = row[i] < Sq ? delta[bh * Sq + row[i]] : 0.f;
-  }
-
-  load_tile<kD>(sK, q + bh * Sq * kD, q0, Sq, tid);
-  load_tile<kD>(sV, dout + bh * Sq * kD, q0, Sq, tid);
-  __syncthreads();
-  uint32_t qf[kD / 16][4], dof[kD / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
-    frag_a<kD>(qf[kc], sK, warp * 16, kc * 16, g, t);
-    frag_a<kD>(dof[kc], sV, warp * 16, kc * 16, g, t);
-  }
-  __syncthreads();
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int ntiles = key_tiles(q0, Sq, Sk, causal);
-  for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * kTile;
-    load_tile<kD>(sK, kb, k0, Sk, tid);
-    load_tile<kD>(sV, vb, k0, Sk, tid);
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {   // 32 keys at a time
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kD / 16; ++kc) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          uint32_t bf[2];
-          frag_b_rows<kD>(bf, sK, half * 32 + nt * 8, kc * 16, g, t);
-          mma(s[nt], qf[kc], bf);
-          frag_b_rows<kD>(bf, sV, half * 32 + nt * 8, kc * 16, g, t);
-          mma(dp[nt], dof[kc], bf);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + half * 32 + nt * 8 + 2 * t + (e & 1);
-          const int i = e >> 1;
-          const float p = visible(key, row[i], Sk, offs, causal)
-                              ? exp2f((s[nt][e] * scale - lse_r[i]) * kLog2e)
-                              : 0.f;
-          s[nt][e] = p * (dp[nt][e] - delta_r[i]);   // dS
-        }
-      }
-#pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        uint32_t da[4];
-        acc_to_a(da, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-        for (int nd = 0; nd < kD / 8; ++nd) {
-          uint32_t bf[2];
-          frag_b_cols<kD>(bf, sK, half * 32 + kc * 16, nd * 8, g, t);
-          mma(acc[nd], da, bf);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= Sq) continue;
-    bf16* drow = dq + (bh * Sq + row[i]) * kD;
-#pragma unroll
-    for (int nd = 0; nd < kD / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(drow + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nd][2 * i] * scale,
-                                acc[nd][2 * i + 1] * scale);
-    }
-  }
-}
-
-template <int kD>
-constexpr size_t dkv_smem() {
-  return 4 * Tile<kD>::kElems * sizeof(bf16) + 2 * kTile * sizeof(float);
-}
-
-// at D = 64, at most 168 registers a thread, so that 3 blocks fit an SM
-// (at 170, 2 did); at D = 128 the kernel needs all 255 and fits 2
-template <int kD>
-__global__ void __launch_bounds__(kThreads, kD == 64 ? 3 : 1)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
-                     int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + Tile<kD>::kElems;
-  bf16* sQ = sV + Tile<kD>::kElems;
-  bf16* sO = sQ + Tile<kD>::kElems;   // dO
-  float* sL = reinterpret_cast<float*>(sO + Tile<kD>::kElems);
-  float* sD = sL + kTile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kTile;
-  const int hk = blockIdx.y, b = blockIdx.z, rep = H / Hkv;
-  const size_t bhk = size_t(b * Hkv + hk);
-  const int offs = Sk - Sq;
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-
-  load_tile<kD>(sK, k + bhk * Sk * kD, k0, Sk, tid);
-  load_tile<kD>(sV, v + bhk * Sk * kD, k0, Sk, tid);
-
-  float dka[kD / 8][4], dva[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) {
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
-  }
-  // first query tile that sees key k0 (bottom-right aligned)
-  const int first = causal ? max(k0 - offs, 0) / kTile : 0;
-  const int nq = (Sq + kTile - 1) / kTile;
-  for (int r = 0; r < rep; ++r) {
-    const size_t bh = size_t(b * H + hk * rep + r);
-    for (int qt = first; qt < nq; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<kD>(sQ, q + bh * Sq * kD, q0, Sq, tid);
-      load_tile<kD>(sO, dout + bh * Sq * kD, q0, Sq, tid);
-      if (tid < kTile) {
-        const bool in = q0 + tid < Sq;
-        sL[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
-        sD[tid] = in ? delta[bh * Sq + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {   // 32 query rows at a time
-        float st[4][4], dpt[4][4];   // S^T, dP^T: 16 keys x 32 rows
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < kD / 16; ++kc) {
-          uint32_t ka[4], va[4];
-          frag_a<kD>(ka, sK, warp * 16, kc * 16, g, t);
-          frag_a<kD>(va, sV, warp * 16, kc * 16, g, t);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            uint32_t bf[2];
-            frag_b_rows<kD>(bf, sQ, half * 32 + nt * 8, kc * 16, g, t);
-            mma(st[nt], ka, bf);
-            frag_b_rows<kD>(bf, sO, half * 32 + nt * 8, kc * 16, g, t);
-            mma(dpt[nt], va, bf);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ql = half * 32 + nt * 8 + 2 * t + (e & 1);  // tile row
-            const int qrow = q0 + ql;
-            const float p =
-                qrow < Sq && visible(key[e >> 1], qrow, Sk, offs, causal)
-                    ? exp2f((st[nt][e] * scale - sL[ql]) * kLog2e)
-                    : 0.f;
-            st[nt][e] = p;
-            dpt[nt][e] = p * (dpt[nt][e] - sD[ql]);   // dS^T
-          }
-        }
-#pragma unroll
-        for (int kc = 0; kc < 2; ++kc) {
-          uint32_t pa[4], da[4];
-          acc_to_a(pa, st[2 * kc], st[2 * kc + 1]);
-          acc_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
-#pragma unroll
-          for (int nd = 0; nd < kD / 8; ++nd) {
-            uint32_t bf[2];
-            frag_b_cols<kD>(bf, sO, half * 32 + kc * 16, nd * 8, g, t);
-            mma(dva[nd], pa, bf);
-            frag_b_cols<kD>(bf, sQ, half * 32 + kc * 16, nd * 8, g, t);
-            mma(dka[nd], da, bf);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= Sk) continue;
-    bf16* krow = dk + (bhk * Sk + key[i]) * kD;
-    bf16* vrow = dv + (bhk * Sk + key[i]) * kD;
-#pragma unroll
-    for (int nd = 0; nd < kD / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(krow + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(dka[nd][2 * i] * scale,
-                                dka[nd][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vrow + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(dva[nd][2 * i], dva[nd][2 * i + 1]);
-    }
-  }
-}
-
-bool bad_shape(int B, int H, int Hkv, int Sq, int Sk) {
-  return B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || H % Hkv != 0 ||
-         B > 65535 || H > 65535;
-}
 
 template <int kD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
@@ -568,93 +319,23 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int kD>
-int launch_bwd_dq(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dq, int B, int H, int Hkv, int Sq, int Sk, int causal,
-                  float scale, cudaStream_t stream) {
-  dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  flash_bwd_dq_kernel<kD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int kD>
-int launch_bwd_dkv(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
-                   int causal, float scale, cudaStream_t stream) {
-  constexpr size_t kSmem = dkv_smem<kD>();
-  static bool attr_set = false;   // one per head dim
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  dim3 grid((Sk + kTile - 1) / kTile, Hkv, B);
-  flash_bwd_dkv_kernel<kD><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, causal,
-      scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// bfloat16 only, head dim D = 64 or 128. q, dO, O, dQ: (B, H, Sq, D); k,
-// v, dK, dV: (B, Hkv, Sk, D); lse, delta: fp32 (B, H, Sq); all contiguous
-// and 16-byte aligned. Each returns cudaGetLastError() after its launch
+// bfloat16 only, head dim D = 64 or 128. q, O: (B, H, Sq, D); k, v:
+// (B, Hkv, Sk, D); lse: fp32 (B, H, Sq); all contiguous and 16-byte
+// aligned. Returns cudaGetLastError() after its launch
 // (cudaErrorInvalidValue, launching nothing, for another D or a bad
-// shape). Rows 1, 3, 4 and the streaming rows 2, 5, 6 launch these same
-// entry points.
+// shape). Row 1 and the streaming row 2 launch this same entry point.
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int H, int Hkv, int Sq,
                             int Sk, int D, int causal, float scale,
                             void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (flash_tiles::bad_shape(B, H, Hkv, Sq, Sk))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch_fwd<64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, s);
   if (D == 128)
     return launch_fwd<128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, int B, int H,
-                               int Hkv, int Sq, int Sk, int D, int causal,
-                               float scale, void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_bwd_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk,
-                             causal, scale, s);
-  if (D == 128)
-    return launch_bwd_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq,
-                              Sk, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv, int B,
-                                int H, int Hkv, int Sq, int Sk, int D,
-                                int causal, float scale, void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
-                              Sq, Sk, causal, scale, s);
-  if (D == 128)
-    return launch_bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
-                               Sq, Sk, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -109,6 +109,67 @@ def test_autograd_flash_attention_matches_jax_grad(shape, causal):
                                    err_msg=name, **TOL)
 
 
+# (B, H, Hkv, Sq, Sk, D, causal) that straddle the CUDA backward kernels'
+# 128-row (dQ) and 128-key (dK/dV) blocks and their 64-row tiles: Sk = 130
+# and 200, Sq = 300 against Sk = 1000 (bottom-right alignment), Sq < Sk
+# across a block edge; GQA groups of 4 and 1, head dims 64 and 128
+EDGE_SHAPES = [(1, 4, 1, 130, 130, 64, True), (1, 4, 4, 130, 130, 128, False),
+               (1, 4, 1, 200, 200, 128, True), (1, 4, 4, 200, 200, 64, True),
+               (1, 4, 1, 300, 1000, 128, True), (1, 4, 4, 300, 1000, 64, True),
+               (1, 4, 1, 300, 1000, 64, False), (2, 4, 4, 130, 200, 128, True)]
+
+
+def _edge_id(s):
+    return f"Sq{s[3]}_Sk{s[4]}_g{s[1] // s[2]}_D{s[5]}_" + \
+        ("causal" if s[6] else "full")
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=_edge_id)
+def test_plain_backward_at_tile_edges_matches_jax_grad_of_reference(shape):
+    """The plain backward (the CUDA kernels' twin), fed its own forward's
+    LSE and delta = rowsum(dO·O), against jax.vjp of the JAX reference
+    composition ``_ref_bhsd`` with cotangent dO. fp32 on both sides; TOL
+    (2e-5): the reference normalises each softmax row by its sum, the port
+    subtracts the LSE, so only fp32 rounding and sum order differ."""
+    B, H, Hkv, Sq, Sk, D, causal = shape
+    q, k, v, do = _inputs(B, H, Hkv, Sq, Sk, D, seed=6)
+    s = 1.0 / math.sqrt(D)
+    _, vjp = jax.vjp(lambda a, b, c: jfa._ref_bhsd(a, b, c, causal, s),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    out, lse = tfa._flash_fwd_plain(tq, tk, tv, causal, s)
+    delta = (tdo * out).sum(-1)
+    got = tfa._flash_bwd_plain(tq, tk, tv, tdo, lse, delta, causal, s)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("shape", [EDGE_SHAPES[5], EDGE_SHAPES[2]],
+                         ids=_edge_id)
+def test_plain_backward_at_tile_edges_matches_pallas_loop_kernels(shape):
+    """Two of the edge shapes through the Pallas loop kernels in interpret
+    mode (their blocks are the whole extent where 128 does not divide it),
+    from the JAX forward's LSE and delta; TOL (2e-5), as the other
+    loop-kernel tests."""
+    B, H, Hkv, Sq, Sk, D, causal = shape
+    q, k, v, do = _inputs(B, H, Hkv, Sq, Sk, D, seed=7)
+    s = 1.0 / math.sqrt(D)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jl = jfa._flash_fwd_bhsd_loop(jq, jk, jv, causal, s, BLOCK, BLOCK)
+    delta = np.array(jnp.sum(jdo * jo, axis=-1), np.float32)
+    lse = np.array(jl, np.float32)
+    want = jfa._flash_bwd_bhsd_loop(jq, jk, jv, jdo, jnp.asarray(lse),
+                                    jnp.asarray(delta), causal, s, BLOCK,
+                                    BLOCK)
+    got = tfa._flash_bwd_plain(*_t(q, k, v, do, lse, delta), causal, s)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_reference_composition_matches_jax(causal):
     q, k, v, _ = _inputs(1, 4, 2, 128, 256, 64, seed=3)
