@@ -10,9 +10,11 @@ Phases (any failure exits non-zero before the final line):
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compiles the port's CUDA kernels from ``paddle_tpu_torch/ops/
    csrc`` with nvcc for sm_90a and prints the build time and each kernel's
-   registers / spills; then the flash backward kernels' registers, shared
-   memory, ring and tile sizes at both head dims, failing on a spill or an
-   ignored ``setmaxnreg`` (C7508) in ``flash_attention_bwd.cu``.
+   registers / spills; then the flash forward kernel's and the backward
+   kernels' registers, shared memory, ring and tile sizes at both head
+   dims (``forward_config``, ``backward_config``), failing on a spill or an
+   ignored ``setmaxnreg`` (C7508) in ``flash_attention.cu`` or
+   ``flash_attention_bwd.cu`` (one helper for both).
 3. Serving kernels against their plain PyTorch versions on the card, in
    bf16, at the serving path's shapes: RMSNorm at rows {8, 128} x 4096
    (and at 4096 x 4096, the training path's B x S rows);
@@ -41,10 +43,12 @@ Phases (any failure exits non-zero before the final line):
 6. Training kernels against their plain versions, bf16, at B=2, H=32,
    KV=8, D=128: flash forward at S=2048, at S=8192 (B=1) and at Sq=384 /
    Sk=2048; the dQ and dK/dV kernels at S=2048; forward and backward at
-   the tile edges (``FLASH_EDGES``: no causal mask, S = 130 and 200 across
-   the backward's 128-row and 128-key blocks, Sq=300 / Sk=1000, Sq > Sk)
-   at KV=8 and KV=32 (untimed); each backward kernel launched twice must
-   give the same bits; AdamW on a 4096 x 14336 and a 4096-element tensor
+   the tile edges (``FLASH_EDGES``: no causal mask, S = 129, 130 and 200
+   across the 128-row and 128-key blocks, Sq=300 / Sk=1000, a single
+   query row against 1000 keys, Sq > Sk; and the forward with a
+   negative scale) at KV=8 and KV=32 (untimed);
+   each flash kernel (forward, dQ, dK/dV) launched twice must give the
+   same bits; AdamW on a 4096 x 14336 and a 4096-element tensor
    with and without an fp32 master weight, on the largest tensor of the
    path (the 128256 x 4096 embedding or lm-head) with one, and with fp32
    grads at a ragged length.
@@ -144,7 +148,8 @@ entry points and counters):
    causal at phase 19's S=32768 (both untimed); phase 6's per-row
    tolerances, shown to reject a causal mask
    one key off in the forward and in the backward; only the ``*_stream``
-   counters move; the backward bitwise repeatable. Times as phase 6.
+   counters move; the forward and the backward bitwise repeatable. Times
+   as phase 6.
 19. Long-context training: ``ParallelEngine`` over
    ``llama3_8b_config(num_hidden_layers=8, max_position_embeddings=
    32768)``, B=1, AdamW as phase 7: (a) S=16384 without remat, 6 steps
@@ -177,8 +182,9 @@ and the flash kernels at head dim 64 (rows 1, 3, 4):
 22. The flash forward, dQ and dK/dV kernels at D = 64 without the causal
    mask, B=32, H=12, S in {128, 512}, against the plain versions with
    phase 6's per-row tolerances, shown to reject the last key dropped;
-   times beside SDPA forward and backward (as phase 6); then phase 6's
-   tile edges at D = 64, KV = 12 and 3. (Phases 6 and 18 keep D = 128.)
+   times beside SDPA forward and backward (as phase 6); every kernel
+   bitwise repeatable; then phase 6's tile edges at D = 64, KV = 12 and 3.
+   (Phases 6 and 18 keep D = 128.)
 23. ``ErnieForSequenceClassification`` at 12 layers, hidden 768, 12
    heads, vocab 40000, seeded random weights, ``model.bfloat16()``, AdamW
    lr 5e-5 (fp32 master weights), ``ParallelEngine(loss_fn=model.
@@ -325,20 +331,20 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def flash_bwd_build(_build, fac) -> dict:
-    """Phase 2's check of the flash backward kernels' build: for each head
-    dim, their registers, shared memory, ring and tile sizes (from the
-    library), and none of the ptxas lines of ``flash_attention_bwd.cu``
-    may show a spill or an ignored ``setmaxnreg`` (warning C7508)."""
+def _ptxas_check(_build, source: str, what: str) -> dict:
+    """The ptxas lines of one source in the build log: none may show a
+    spill or an ignored ``setmaxnreg`` (warning C7508). Returns the count
+    of its lines and its wgmma performance warnings (reported, not
+    fatal)."""
     import re
 
     text = _build.BUILD_INFO["log"]
-    part = text.split("== flash_attention_bwd.cu", 1)
+    part = text.split(f"== {source}", 1)
     lines = part[1].split("\n== ", 1)[0].splitlines() if len(part) > 1 \
         else []
     spills, kernel = [], "?"
     for ln in lines:
-        m = re.search(r"Function properties for .*(flash_bwd_\w+?_kernel)"
+        m = re.search(r"Function properties for .*(flash_\w+?_kernel)"
                       r"ILi(\d+)E", ln)
         if m:
             kernel = f"{m.group(1)}<{m.group(2)}>"
@@ -347,14 +353,41 @@ def flash_bwd_build(_build, fac) -> dict:
             spills.append(f"{kernel}: {ln.strip()}")
     ignored = [ln.strip() for ln in lines
                if "C7508" in ln or "setmaxnreg ignored" in ln]
-    check(not spills, f"flash backward build spills: {spills}")
-    check(not ignored, f"flash backward build ignores setmaxnreg: {ignored}")
+    check(not spills, f"{what} build spills: {spills}")
+    check(not ignored, f"{what} build ignores setmaxnreg: {ignored}")
+    # ptxas's performance notes on wgmma: serialized products (C7510) or a
+    # fence it had to inject (C7519)
+    wgmma = [ln.strip() for ln in lines if "C7510" in ln or "C7519" in ln]
+    return dict(ptxas_lines=len(lines), wgmma_warnings=wgmma)
+
+
+def _no_local_bytes(conf: dict, name: str) -> None:
+    check(conf["local_bytes"] == 0,
+          f"{name}: {conf['local_bytes']} local bytes a thread")
+
+
+def flash_bwd_build(_build, fac) -> dict:
+    """Phase 2's check of the flash backward kernels' build: for each head
+    dim, their registers, shared memory, ring and tile sizes (from the
+    library), and no spill or ignored ``setmaxnreg`` in the ptxas lines of
+    ``flash_attention_bwd.cu``."""
+    ptxas = _ptxas_check(_build, "flash_attention_bwd.cu", "flash backward")
     conf = {f"D={D}": fac.backward_config(D) for D in (64, 128)}
     for per_d in conf.values():
         for name, c in per_d.items():
-            check(c["local_bytes"] == 0,
-                  f"{name}: {c['local_bytes']} local bytes a thread")
-    return dict(ptxas_lines=len(lines), **conf)
+            _no_local_bytes(c, name)
+    return dict(ptxas, **conf)
+
+
+def flash_fwd_build(_build, fac) -> dict:
+    """Phase 2's check of the flash forward kernel's build, as
+    :func:`flash_bwd_build`: its launch shape at each head dim and no spill
+    or ignored ``setmaxnreg`` in ``flash_attention.cu``."""
+    ptxas = _ptxas_check(_build, "flash_attention.cu", "flash forward")
+    conf = {f"D={D}": fac.forward_config(D) for D in (64, 128)}
+    for D, c in conf.items():
+        _no_local_bytes(c, f"flash_fwd {D}")
+    return dict(ptxas, **conf)
 
 
 # --------------------------------------------------------------- phase 3
@@ -1806,20 +1839,23 @@ def _visible_pairs(Sq, Sk):
 
 # the flash kernels' branches and tile edges that the training shapes do
 # not reach, as (B, Sq, Sk, causal): no causal mask; ragged last tiles
-# (S not a multiple of 64, and 130 and 200 across the backward's 128-row
-# and 128-key blocks); Sq < Sk (bottom-right alignment); Sq > Sk, where the
-# first causal rows see no key (O = 0, zero gradients)
+# (S not a multiple of 64, and 129, 130 and 200 across the 128-row and
+# 128-key blocks); Sq < Sk (bottom-right alignment), down to a single query
+# row, where the forward's second warpgroup holds no row; Sq > Sk, where
+# the first causal rows see no key (O = 0, zero gradients)
 FLASH_EDGES = ((1, 1000, 1000, False), (1, 300, 1000, True),
                (1, 300, 1000, False), (1, 200, 130, True),
                (1, 200, 130, False), (2, 200, 200, True),
-               (2, 130, 130, True), (1, 130, 130, False))
+               (2, 130, 130, True), (1, 130, 130, False),
+               (1, 1, 1000, True), (1, 129, 129, True))
 
 
 def _flash_edges(torch, fa, fac, rnd, H, KV, D):
     """The forward, dQ and dK/dV kernels at FLASH_EDGES, H query and KV
     heads of head dim D, against the plain versions with phase 6's
-    per-row tolerances (untimed); each backward kernel, launched a second
-    time, must give the same bits. (forward cases, [(name, case)])."""
+    per-row tolerances (untimed), and the forward once more with a
+    negative scale; each kernel, launched a second time, must give the
+    same bits. (forward cases, [(name, case)])."""
     s = 1.0 / D ** 0.5
     fwd_cases, bwd_cases = [], []
     for B, Sq, Sk, causal in FLASH_EDGES:
@@ -1847,7 +1883,9 @@ def _flash_edges(torch, fa, fac, rnd, H, KV, D):
         ratios["lse"] = _lse_ratio(lse, rlse, Sk).max().item()
         errs = {n: (x.float() - want[n].float()).abs().max().item()
                 for n, x in got.items()}
-        repeat = (_repeatable(torch, dq_fn, got["dq"])
+        repeat = (_repeatable(torch, lambda: fac.flash_fwd_cuda(
+            q, k, v, causal, s), (out, lse))
+                  and _repeatable(torch, dq_fn, got["dq"])
                   and _repeatable(torch, dkv_fn, (got["dk"], got["dv"])))
         case = dict(B=B, H=H, KV=KV, D=D, Sq=Sq, Sk=Sk, causal=causal,
                     max_abs_errs=errs, worst_err_over_tol=ratios,
@@ -1859,12 +1897,32 @@ def _flash_edges(torch, fa, fac, rnd, H, KV, D):
             check(bool(torch.isfinite(got.get(n, lse).float()).all()),
                   f"{label}: {n} non-finite")
             check(w <= 1.0, f"{label}: {n} off by {w:.3g} x its tolerance")
-        check(repeat, f"{label}: a second backward launch gave other bits")
+        check(repeat, f"{label}: a second launch gave other bits")
         fwd_cases.append(dict(case, max_abs_err=errs["o"]))
         for name, keys in (("flash_bwd_dq", ("dq",)),
                            ("flash_bwd_dkv", ("dk", "dv"))):
             bwd_cases.append((name, dict(case, max_abs_err=max(
                 errs[n] for n in keys))))
+    # a negative scale takes the forward's other softmax form (each score
+    # scaled before the row max); forward only, same tolerances
+    q, k, v = rnd(1, H, 200, D), rnd(1, KV, 200, D), rnd(1, KV, 200, D)
+    out, lse = fac.flash_fwd_cuda(q, k, v, True, -s)
+    ref, rlse = fa._flash_fwd_plain(q, k, v, True, -s)
+    torch.cuda.synchronize()
+    ratios = {"o": _row_ratio(out, ref, _rms(v)).max().item(),
+              "lse": _lse_ratio(lse, rlse, 200).max().item()}
+    repeat = _repeatable(torch, lambda: fac.flash_fwd_cuda(q, k, v, True, -s),
+                         (out, lse))
+    case = dict(B=1, H=H, KV=KV, D=D, Sq=200, Sk=200, causal=True, scale=-s,
+                max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                worst_err_over_tol=ratios, bitwise_repeatable=repeat)
+    label = f"flash edge D={D} KV={KV} negative scale"
+    log(f"kernel {label}: " + json.dumps(case))
+    check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite")
+    for n, w in ratios.items():
+        check(w <= 1.0, f"{label}: {n} off by {w:.3g} x its tolerance")
+    check(repeat, f"{label}: a second launch gave other bits")
+    fwd_cases.append(case)
     return fwd_cases, bwd_cases
 
 
@@ -1890,6 +1948,9 @@ def kernel_flash(torch, fa, fac, ops):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out.float()).all()),
               f"flash_fwd S={Sq}/{Sk}: non-finite output")
+        check(_repeatable(torch, lambda: fac.flash_fwd_cuda(q, k, v, True, s),
+                          (out, lse)),
+              f"flash_fwd S={Sq}/{Sk}: a second launch gave other bits")
         rms_v = _rms(v)
         # one bf16 step of the row's largest value (each side rounds O to
         # bf16 once); p is rounded to bf16 against the running max in the
@@ -1936,6 +1997,7 @@ def kernel_flash(torch, fa, fac, ops):
                     worst_err_over_tol=worst,
                     lse_max_abs_err=lse_err.max().item(),
                     lse_worst_err_over_tol=worst_lse, mutants=mutants,
+                    bitwise_repeatable=True,
                     ms=time_ms(lambda: fac.flash_fwd_cuda(q, k, v, True, s),
                                20),
                     plain_ms=time_ms(
@@ -2495,13 +2557,15 @@ def kernel_flash_stream(torch, fa, fac, ops):
         want = dict(zip(("dq", "dk", "dv"), fa._flash_bwd_plain(
             q, k, v, do, rlse, delta, causal, s)), o=ref)
         torch.cuda.synchronize()
-        check(_repeatable(torch, lambda: fac.flash_bwd_dq_stream_cuda(
-            q, k, v, do, rlse, delta, causal, s), got["dq"])
+        check(_repeatable(torch, lambda: fac.flash_fwd_stream_cuda(
+            q, k, v, causal, s), (out, lse))
+              and _repeatable(torch, lambda: fac.flash_bwd_dq_stream_cuda(
+                  q, k, v, do, rlse, delta, causal, s), got["dq"])
               and _repeatable(torch, lambda: fac.flash_bwd_dkv_stream_cuda(
                   q, k, v, do, rlse, delta, causal, s), (got["dk"],
                                                          got["dv"])),
-              f"flash stream Sq={Sq} Sk={Sk}: a second backward launch gave "
-              f"other bits")
+              f"flash stream Sq={Sq} Sk={Sk}: a second launch gave other "
+              f"bits")
         check(all(counts[n] == 1 for n in STREAM_FLASH)
               and all(counts[n] == 0 for n in LOOP_FLASH),
               f"flash stream Sq={Sq} Sk={Sk}: the dispatch launched "
@@ -3029,11 +3093,13 @@ def kernel_flash_d64(torch, fa, fac):
                   f"flash d64 S={S}: {n} non-finite")
             check(w_ <= 1.0, f"flash d64 S={S}: {n} off by {w_:.3g} x its "
                              f"tolerance")
-        check(_repeatable(torch, lambda: fac.flash_bwd_dq_cuda(
-            q, k, v, do, rlse, delta, False, s), dq)
+        check(_repeatable(torch, lambda: fac.flash_fwd_cuda(
+            q, k, v, False, s), (out, lse))
+              and _repeatable(torch, lambda: fac.flash_bwd_dq_cuda(
+                  q, k, v, do, rlse, delta, False, s), dq)
               and _repeatable(torch, lambda: fac.flash_bwd_dkv_cuda(
                   q, k, v, do, rlse, delta, False, s), (dk, dv)),
-              f"flash d64 S={S}: a second backward launch gave other bits")
+              f"flash d64 S={S}: a second launch gave other bits")
         mo, _ = _drop_last_key(torch, fa, q, k, v)
         mut = {"o": _row_ratio(mo, ref, scale_of["o"]).max().item()}
         for n, x in zip(("dq", "dk", "dv"),
@@ -3051,6 +3117,7 @@ def kernel_flash_d64(torch, fa, fac):
                      max_abs_err=errs["o"], worst_err_over_tol=ratios["o"],
                      lse_worst_err_over_tol=ratios["lse"],
                      mutants={"drop_last_key": mut["o"]},
+                     bitwise_repeatable=True,
                      ms=time_ms(lambda: fac.flash_fwd_cuda(q, k, v, False, s),
                                 20),
                      plain_ms=time_ms(lambda: fa._flash_fwd_plain(
@@ -3428,6 +3495,9 @@ def main() -> int:
     for line in _build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line or "==" in line:
             log("  " + line.strip())
+    fwd_build = flash_fwd_build(_build, fac)
+    log("flash forward kernel (registers a thread at launch; consumers "
+        "setmaxnreg to consumer_registers): " + json.dumps(fwd_build))
     bwd_build = flash_bwd_build(_build, fac)
     log("flash backward kernels (registers a thread at launch; "
         "consumers setmaxnreg to consumer_registers): "
@@ -3533,7 +3603,7 @@ def main() -> int:
               serve_res["launches"]["rms_norm"],
               train_launches=tl["rms_norm"]),
         entry("flash_fwd", csrc + "flash_attention.cu", flash + "488",
-              fwd_cases, tl["flash_fwd"]),
+              fwd_cases, tl["flash_fwd"], build=fwd_build["D=128"]),
         entry("flash_bwd_dq", csrc + "flash_attention_bwd.cu",
               flash + "628",
               [c for n, c in bwd_cases if n == "flash_bwd_dq"],
@@ -3549,18 +3619,21 @@ def main() -> int:
               tl["fused_adamw"]),
         # rows 2, 5, 6, with their launches in phase 19's counted steps
         *(entry(name, csrc + src, flash + line,
-                stream_cases[name], long_res["launches"][name])
-          for name, src, line in (
-              ("flash_fwd_stream", "flash_attention.cu", "189"),
-              ("flash_bwd_dq_stream", "flash_attention_bwd.cu", "352"),
-              ("flash_bwd_dkv_stream", "flash_attention_bwd.cu", "376"))),
+                stream_cases[name], long_res["launches"][name], **extra)
+          for name, src, line, extra in (
+              ("flash_fwd_stream", "flash_attention.cu", "189",
+               dict(build=fwd_build["D=128"])),
+              ("flash_bwd_dq_stream", "flash_attention_bwd.cu", "352", {}),
+              ("flash_bwd_dkv_stream", "flash_attention_bwd.cu", "376",
+               {}))),
         # row 8 and rows 1, 3, 4 at head dim 64, with their launches in
         # phase 23's counted steps and eval passes
         entry("layer_norm", csrc + "layer_norm.cu",
               "paddle_tpu/ops/fused_norm.py:128", ln_cases,
               ernie_res["launches"]["layer_norm"]),
         entry("flash_fwd_d64", csrc + "flash_attention.cu", flash + "488",
-              fwd64_cases, ernie_res["launches"]["flash_fwd"]),
+              fwd64_cases, ernie_res["launches"]["flash_fwd"],
+              build=fwd_build["D=64"]),
         *(entry(f"{name}_d64", csrc + "flash_attention_bwd.cu",
                 flash + line, [c for n, c in bwd64_cases if n == name],
                 ernie_res["launches"][name],

@@ -60,6 +60,8 @@ SIGNATURES = {
     # which (0 dQ, 1 dK/dV), D, out (8 ints): the backward kernels' launch
     # shape, registers and local bytes
     "pt_flash_bwd_config": (_I, _I, _P),
+    # D, out (8 ints): the forward kernel's, as pt_flash_bwd_config
+    "pt_flash_fwd_config": (_I, _P),
     # q, kq_pool, k_scales, vq_pool, v_scales, tables, pos, out, part_acc,
     # part_ml, B, W, H, KV, D, N, bs, M, S, P, stream
     "pt_paged_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

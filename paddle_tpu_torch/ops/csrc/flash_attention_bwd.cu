@@ -51,8 +51,9 @@
 //   * the mask runs only on tiles that the causal diagonal or a ragged edge
 //     crosses (a compile-time branch); scale * log2(e) is folded into one
 //     FMA before exp2f.
-//   * launch order (order_heavy_first below): the heavy causal tiles (dQ's
-//     last query tiles, dK/dV's first key tiles) of every head first where
+//   * launch order (order_heavy_first, flash_common.cuh): the heavy causal
+//     tiles (dQ's last query tiles, dK/dV's first key tiles) of every head
+//     first where
 //     a tail would idle SMs or the shared operands fit the L2; otherwise one
 //     (batch, head)'s tiles adjacent, heavy first among them, so that
 //     blocks sharing K/V (dQ) or the group's Q/dO (dK/dV) read them from
@@ -64,18 +65,22 @@
 //     cudaGetDriverEntryPoint (no link against libcuda), and passed as
 //     __grid_constant__ kernel parameters.
 // The tile schedule (first and last tiles, which need the mask) is
-// flash_tiles.cuh, which the CPU tests build with a host compiler.
+// flash_tiles.cuh, which the CPU tests build with a host compiler; the
+// tile loads, tensor maps and launch rule are flash_common.cuh, shared
+// with the forward.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
 
+using namespace flash_common;
 using namespace hopper;
 namespace ft = flash_tiles;
 typedef __nv_bfloat16 bf16;
@@ -87,28 +92,7 @@ constexpr int kConsumerRegs = 232, kProducerRegs = 40;
 constexpr int kConsumerWarps = 2 * kWg / 32;
 constexpr int kStages = 3;               // ring depth (2-4 measured alike)
 constexpr int kSmemMax = 232448;         // shared memory a block may use
-constexpr int kBox = 64;                 // TMA box: 64 rows x 64 columns
-constexpr int kBlockRow = 128;           // bytes a row of a column block
 constexpr float kLog2e = 1.4426950408889634f;
-
-// bytes of an R-row x kD bf16 tile: kD / 64 column blocks of R x 128 bytes
-template <int kD>
-constexpr int tile_bytes(int rows) {
-  return rows * kD * 2;
-}
-
-// rows [row0, row0 + R) of head `bh` of a (kD, S, heads) map into the tile
-// at dst (R a multiple of 64), completing on `bar`
-template <int kD, int R>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int row0, int bh) {
-#pragma unroll
-  for (int c = 0; c < kD / 64; ++c)
-#pragma unroll
-    for (int r = 0; r < R / kBox; ++r)
-      tma_load_3d(dst + (c * R + r * kBox) * kBlockRow, map, bar, c * 64,
-                  row0 + r * kBox, bh);
-}
 
 // ------------------------------------------------------------------ dK/dV
 template <int kD>
@@ -545,49 +529,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ------------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the (kD, rows, heads) bf16 tensor at `ptr` as a TMA map of 64 x 64 boxes,
-// 128-byte swizzle, out-of-bounds rows read as zeros
-template <int kD>
-bool encode(CUtensorMap* map, const void* ptr, int rows, int heads) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(kD), cuuint64_t(rows),
-                              cuuint64_t(heads)};
-  const cuuint64_t strides[2] = {cuuint64_t(kD) * 2,
-                                 cuuint64_t(rows) * kD * 2};
-  const cuuint32_t box[3] = {64, kBox, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kD>
 bool encode_all(CUtensorMap (&m)[4], const void* q, const void* k,
                 const void* v, const void* dout, int B, int H, int Hkv, int Sq,
@@ -595,37 +536,6 @@ bool encode_all(CUtensorMap (&m)[4], const void* q, const void* k,
   return encode<kD>(&m[0], q, Sq, B * H) && encode<kD>(&m[1], k, Sk, B * Hkv) &&
          encode<kD>(&m[2], v, Sk, B * Hkv) &&
          encode<kD>(&m[3], dout, Sq, B * H);
-}
-
-// Launch order. Causal tiles differ in work, so the blocks that see the
-// most pairs should start first, or the last wave waits on them; and the
-// blocks that read the same operands (dQ: one KV head's K/V; dK/dV: one
-// group's Q/dO) should run together, so that those reads hit the L2. The
-// heavy tiles of every head go first (a grid of (heads, batch, tiles))
-// where a tail would idle SMs, the grid spanning at most 4 waves, or where
-// the shared operands fit in the L2 whatever the order; otherwise one
-// (batch, head)'s tiles stay adjacent, heavy first among them (a grid of
-// (tiles, heads, batch)). On an H100 the first measured faster at
-// S = 2048 (both kernels) and the second at S = 16384 (PERF.md §6).
-// Without the causal mask every tile has the same work.
-bool order_heavy_first(int causal, long long blocks,
-                       double shared_bytes) {
-  int dev = 0, sms = 0, l2 = 0;
-  if (!causal || cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev) != cudaSuccess)
-    return false;
-  return blocks <= 4LL * sms || shared_bytes <= double(l2);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  *done = e == cudaSuccess;
-  return e;
 }
 
 template <int kD>
@@ -676,18 +586,6 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename Kernel>
-int describe(Kernel kernel, int block_rows, int stage_rows, int smem,
-             int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  const int vals[8] = {kThreads, block_rows, stage_rows, kStages, smem,
-                       a.numRegs, int(a.localSizeBytes), kConsumerRegs};
-  for (int i = 0; i < 8; ++i) out[i] = vals[i];
-  return 0;
-}
-
 }  // namespace
 
 // bfloat16 only, head dim D = 64 or 128. q, dO: (B, H, Sq, D); k, v, dK,
@@ -735,16 +633,20 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // stack) bytes a thread, and the consumers' setmaxnreg count.
 extern "C" int pt_flash_bwd_config(int which, int D, int* out) {
   if (which == 0 && D == 64)
-    return describe(flash_bwd_dq_kernel<64>, ft::kDqRows, ft::kDqKeys,
-                    DqSmem<64>::kAlloc, out);
+    return describe(flash_bwd_dq_kernel<64>, kThreads, ft::kDqRows,
+                    ft::kDqKeys, kStages, DqSmem<64>::kAlloc, kConsumerRegs,
+                    out);
   if (which == 0 && D == 128)
-    return describe(flash_bwd_dq_kernel<128>, ft::kDqRows, ft::kDqKeys,
-                    DqSmem<128>::kAlloc, out);
+    return describe(flash_bwd_dq_kernel<128>, kThreads, ft::kDqRows,
+                    ft::kDqKeys, kStages, DqSmem<128>::kAlloc, kConsumerRegs,
+                    out);
   if (which == 1 && D == 64)
-    return describe(flash_bwd_dkv_kernel<64>, ft::kDkvKeys, ft::kDkvRows,
-                    DkvSmem<64>::kAlloc, out);
+    return describe(flash_bwd_dkv_kernel<64>, kThreads, ft::kDkvKeys,
+                    ft::kDkvRows, kStages, DkvSmem<64>::kAlloc, kConsumerRegs,
+                    out);
   if (which == 1 && D == 128)
-    return describe(flash_bwd_dkv_kernel<128>, ft::kDkvKeys, ft::kDkvRows,
-                    DkvSmem<128>::kAlloc, out);
+    return describe(flash_bwd_dkv_kernel<128>, kThreads, ft::kDkvKeys,
+                    ft::kDkvRows, kStages, DkvSmem<128>::kAlloc,
+                    kConsumerRegs, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-
 // memory matrix descriptors and warpgroup matrix multiply (wgmma), mbarrier
-// pipelines, TMA tile loads, and setmaxnreg.
+// pipelines, TMA tile loads, named barriers, setmaxnreg, and exp2 on the
+// special-function unit.
 //
 // Layout convention. A bf16 tile of R rows x C columns (C a multiple of 64)
 // is kept in shared memory as C / 64 column blocks of R rows x 128 bytes,
@@ -12,9 +13,9 @@
 //   * MN-major (the rows are the reduction dim, the 64 columns the output
 //     dim; bf16 allows the transpose), the start advanced 2048 bytes (16
 //     rows) per step.
-// The products are m64n64k16 bf16 -> fp32: both operands from shared
-// memory (K-major), or A from registers and B MN-major (one column block at
-// a time).
+// The products are m64n64k16 and m64n128k16 bf16 -> fp32 with both
+// operands from shared memory (K-major), or with A from registers and B
+// MN-major (one column block, or two for n128).
 #pragma once
 
 #include <cuda.h>
@@ -30,12 +31,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // ------------------------------------------------------------ descriptors
 // 64-bit wgmma shared-memory matrix descriptor of a 128-byte-swizzled
 // column block: bits 0-13 start address >> 4, 16-29 leading byte offset
-// >> 4 (one unit: unused, the block being one swizzle atom wide), 32-45
-// stride byte offset >> 4 (1024: the next 8-row group), 62-63 layout (1 =
-// 128-byte swizzle). K-major and MN-major reads of a column block take the
-// same fields; the product's transpose flag tells them apart.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) |
+// >> 4, 32-45 stride byte offset >> 4 (1024: the next 8-row group), 62-63
+// layout (1 = 128-byte swizzle). K-major and MN-major reads of a column
+// block take the same fields; the product's transpose flag tells them
+// apart. The leading byte offset is unused (one unit) where the operand is
+// one swizzle atom wide; an MN-major operand wider than 64 columns takes
+// its next column block that many bytes on.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr,
+                                              uint32_t lead = 16) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lead >> 4) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
@@ -84,6 +88,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 128 fp32, 64 a thread) (+)= A (64 x 16, smem) * B (16 x 128,
+// smem), both K-major (B's 128 rows: 16 8-row groups, 1024 bytes apart)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 64 fp32) (+)= A (64 x 16 bf16, registers: the m16n8k16 A fragment
 // of each warp's 16 rows) * B (16 x 64, smem, MN-major)
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
@@ -104,6 +142,41 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// d (64 x 128 fp32 as two 64-column halves d0, d1) (+)= A (64 x 16 bf16,
+// registers, as wgmma_m64n64k16_rs_tb) * B (16 x 128, smem, MN-major: two
+// column blocks, the second `lead` bytes after the first, desc_b made with
+// smem_desc(addr, lead))
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d0)[32],
+                                                       float (&d1)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
+        "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
+        "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]),
+        "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]),
+        "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
+        "+f"(d0[30]), "+f"(d0[31]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]),
+        "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]),
+        "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]),
+        "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
+        "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
 }
@@ -180,6 +253,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// ---------------------------------------------------------- named barriers
+// barrier `id` (1-15: 0 is __syncthreads) completes when `count` threads
+// have reached it: bar_sync waits for that, bar_arrive does not
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ------------------------------------------------------------- setmaxnreg
 // every warp of the warpgroup executes it; the branches that call these
 // must never reconverge, or ptxas ignores them (warning C7508)
@@ -190,6 +273,15 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------------ exp2
+// 2^x by the special-function unit, subnormal results flushed to zero (one
+// instruction; exp2f adds range fix-ups around it); 2^-inf = 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace hopper

@@ -14,8 +14,9 @@ j iff ``j <= i + Sk - Sq``).
 returns O and saves the fp32 logsumexp (B, H, Sq); its backward takes
 ``delta = rowsum(dO·O)`` (fp32, plain PyTorch, as XLA computes it in the
 JAX package) and recomputes P from the LSE. On CUDA tensors the three
-steps launch the kernels of ``csrc/flash_attention.cu`` (forward, dQ,
-dK/dV; :mod:`.flash_attention_cuda`) — the loop kernels' entry points up
+steps launch the kernels of ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (dQ, dK/dV; :mod:`.flash_attention_cuda`)
+— the loop kernels' entry points up
 to ``_FULL_K_MAX`` keys, the streaming ones past it, where the JAX package
 switches; on CPU tensors, or under
 ``set_kernel_mode("reference")``, they run :func:`_flash_fwd_plain` and

@@ -7,17 +7,18 @@ pair (dQ ``:352``, dK/dV ``:376``), which the JAX package takes past
 ``_FULL_K_MAX`` keys.
 
 Six wrappers over ``csrc/flash_attention.cu`` (the forward) and
-``csrc/flash_attention_bwd.cu`` (the dQ and dK/dV kernels: wgmma fed by a
-TMA ring), each with its launch counter: :func:`flash_fwd_cuda` (O, LSE),
-:func:`flash_bwd_dq_cuda` and :func:`flash_bwd_dkv_cuda` for the loop
+``csrc/flash_attention_bwd.cu`` (the dQ and dK/dV kernels), all three
+kernels wgmma fed by a TMA ring, each wrapper with its launch counter:
+:func:`flash_fwd_cuda` (O, LSE), :func:`flash_bwd_dq_cuda` and
+:func:`flash_bwd_dkv_cuda` for the loop
 rows, and :func:`flash_fwd_stream_cuda`, :func:`flash_bwd_dq_stream_cuda`
 and :func:`flash_bwd_dkv_stream_cuda` for the streaming rows. The TPU
 splits the two forms only because the loop kernels keep all of K/V
 resident in VMEM; on Hopper every form streams tiles through shared
 memory, so both sets of wrappers launch the same three C entry points,
 and the separate wrappers and counters show which rows a run went
-through. :func:`backward_config` reads the backward kernels' launch shape
-and registers from the built library. Their
+through. :func:`forward_config` and :func:`backward_config` read the
+kernels' launch shape and registers from the built library. Their
 plain versions are ``flash_attention._flash_fwd_plain`` /
 ``_flash_bwd_plain``. The kernels take bfloat16 (B, H, S, D) tensors at
 head dim D = 128 (Llama-3-8B) or 64 (ERNIE-3.0 base) whose every tensor
@@ -208,6 +209,33 @@ def flash_bwd_dkv_stream_cuda(q, k, v, do, lse, delta, causal: bool,
 flash_bwd_dkv_stream_cuda.launches = 0
 
 
+_CONFIG_KEYS = ("threads", "block_rows", "stage_rows", "stages",
+                "smem_bytes", "registers", "local_bytes",
+                "consumer_registers")
+
+
+def _config(fn, *args, what):
+    import ctypes
+
+    from . import _build
+
+    vals = (ctypes.c_int * len(_CONFIG_KEYS))()
+    _build.check(fn(*args, vals), f"{what} config")
+    return dict(zip(_CONFIG_KEYS, vals))
+
+
+def forward_config(D: int) -> dict:
+    """The forward kernel's launch shape at head dim D, read from the built
+    library: threads a block, the query rows a block owns, the keys a ring
+    stage holds, ring stages, dynamic shared memory bytes, registers a
+    thread at launch, local (spill and stack) bytes a thread, and the
+    consumer warpgroups' setmaxnreg count."""
+    from . import _build
+
+    return _config(_build.library().pt_flash_fwd_config, D,
+                   what="flash_fwd")
+
+
 def backward_config(D: int) -> dict:
     """The two backward kernels' launch shape at head dim D, read from the
     built library: {"flash_bwd_dq": {...}, "flash_bwd_dkv": {...}} with
@@ -215,16 +243,8 @@ def backward_config(D: int) -> dict:
     the rows a ring stage holds (keys, query rows), ring stages, dynamic
     shared memory bytes, registers a thread at launch, local (spill and
     stack) bytes a thread, and the consumer warpgroups' setmaxnreg count."""
-    import ctypes
-
     from . import _build
 
-    keys = ("threads", "block_rows", "stage_rows", "stages", "smem_bytes",
-            "registers", "local_bytes", "consumer_registers")
-    out = {}
-    for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
-        vals = (ctypes.c_int * len(keys))()
-        _build.check(_build.library().pt_flash_bwd_config(which, D, vals),
-                     f"{name} config")
-        out[name] = dict(zip(keys, vals))
-    return out
+    return {name: _config(_build.library().pt_flash_bwd_config, which, D,
+                          what=name)
+            for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkv"))}

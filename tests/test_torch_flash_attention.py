@@ -170,6 +170,61 @@ def test_plain_backward_at_tile_edges_matches_pallas_loop_kernels(shape):
                                    **TOL)
 
 
+# the edge shapes and a single query row against 1000 keys, where the CUDA
+# forward's 128-row block holds one row and its second warpgroup none
+FWD_EDGE_SHAPES = EDGE_SHAPES + [(1, 4, 1, 1, 1000, 128, True)]
+
+
+def _jax_lse(q, k, causal, s):
+    """fp32 logsumexp over keys of the JAX reference's logits (the
+    composition of ``_ref_bhsd``: repeated K, masked logits -1e30)."""
+    q, k = jnp.asarray(q), jnp.asarray(k)
+    k = jnp.repeat(k, q.shape[1] // k.shape[1], axis=1)
+    logits = jnp.einsum("bhsd,bhtd->bhst", q, k).astype(jnp.float32) * s
+    if causal:
+        sq, sk = logits.shape[-2:]
+        logits = jnp.where(jnp.tril(jnp.ones((sq, sk), bool), k=sk - sq),
+                           logits, jfa.NEG_INF)
+    return jax.nn.logsumexp(logits, axis=-1)
+
+
+@pytest.mark.parametrize("shape", FWD_EDGE_SHAPES, ids=_edge_id)
+def test_plain_forward_at_tile_edges_matches_jax_reference(shape):
+    """The plain forward (the CUDA kernel's twin) against the JAX
+    reference composition ``_ref_bhsd`` (O) and the logsumexp of its
+    logits (LSE), fp32 on both sides; TOL (2e-5): only fp32 rounding and
+    sum order differ."""
+    B, H, Hkv, Sq, Sk, D, causal = shape
+    q, k, v, _ = _inputs(B, H, Hkv, Sq, Sk, D, seed=8)
+    s = 1.0 / math.sqrt(D)
+    want = jfa._ref_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal, s)
+    out, lse = tfa._flash_fwd_plain(*_t(q, k, v), causal, s)
+    assert tuple(out.shape) == want.shape and tuple(lse.shape) == (B, H, Sq)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), err_msg="o",
+                               **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(_jax_lse(q, k, causal,
+                                                                s)),
+                               err_msg="lse", **TOL)
+
+
+@pytest.mark.parametrize("shape", [FWD_EDGE_SHAPES[-1], EDGE_SHAPES[3]],
+                         ids=_edge_id)
+def test_plain_forward_at_tile_edges_matches_pallas_loop_kernel(shape):
+    """Two of those shapes through the Pallas loop kernel in interpret
+    mode (O and LSE); TOL (2e-5), as the other loop-kernel tests."""
+    B, H, Hkv, Sq, Sk, D, causal = shape
+    q, k, v, _ = _inputs(B, H, Hkv, Sq, Sk, D, seed=9)
+    s = 1.0 / math.sqrt(D)
+    jo, jl = jfa._flash_fwd_bhsd_loop(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal, s, BLOCK, BLOCK)
+    out, lse = tfa._flash_fwd_plain(*_t(q, k, v), causal, s)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo), err_msg="o",
+                               **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), err_msg="lse",
+                               **TOL)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_reference_composition_matches_jax(causal):
     q, k, v, _ = _inputs(1, 4, 2, 128, 256, 64, seed=3)
