@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the final line):
    kernels' registers, shared memory, ring and tile sizes at both head
    dims (``forward_config``, ``backward_config``), failing on a spill or an
    ignored ``setmaxnreg`` (C7508) in ``flash_attention.cu`` or
-   ``flash_attention_bwd.cu`` (one helper for both).
+   ``flash_attention_bwd.cu`` (one helper for both); and each instantiation
+   of the weight-streaming kernels (``w8_matmul.cu``, ``fused_lora.cu``:
+   one main loop, ``stream_gemm.cuh``), failing on a spill or local bytes.
 3. Serving kernels against their plain PyTorch versions on the card, in
    bf16, at the serving path's shapes: RMSNorm at rows {8, 128} x 4096
    (and at 4096 x 4096, the training path's B x S rows);
@@ -81,15 +83,19 @@ the card:
 9. int8 and LoRA kernels against their plain PyTorch versions, bf16:
    w8_matmul at M in {1, 8, 16} on every decode shape of Llama-3-8B (the
    projections and the lm-head), per element within one bf16 step plus the
-   fp32 summation bound, shown to reject a lost K slice; int8-pool paged
+   fp32 summation bound, shown to reject a lost K slice, and at M = 128
+   (a prefill chunk's rows; measured beside the dequantize-once path the
+   dispatch takes there); int8-pool paged
    attention in phase 3's decode and prefill forms (scratch poisoned with
    full codes at a huge scale), per row, shown to reject the causal mask
    one key off; the fused LoRA matmul per target shape at a decode batch
    (adapters of ranks 8, 8, 4 in max_rank 8 plus null rows, which must
    equal the kernel's output with every s = 0 bitwise) and a 128-token
-   prefill chunk, shown to reject the wrong adapter page. Times, bounds
-   and a library yardstick as in phase 3 (``torch.matmul`` on a bf16
-   weight; SDPA on the dequantized K/V; ``torch.matmul`` + the torch
+   prefill chunk, shown to reject the wrong adapter page. Every w8_matmul
+   and fused LoRA case is launched 3 times more and must give the same
+   bits, and prints its launch plan and the wrapper's host us a call.
+   Times, bounds and a library yardstick as in phase 3 (``torch.matmul`` on
+   a bf16 weight; SDPA on the dequantized K/V; ``torch.matmul`` + the torch
    ``bgmv``).
 10. LoRA serving: the phase-4 model and traffic behind
    ``lora=LoRAConfig(registry, max_live_adapters=2, max_rank=8)`` with
@@ -344,10 +350,9 @@ def _ptxas_check(_build, source: str, what: str) -> dict:
         else []
     spills, kernel = [], "?"
     for ln in lines:
-        m = re.search(r"Function properties for .*(flash_\w+?_kernel)"
-                      r"ILi(\d+)E", ln)
+        m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+            kernel = m.group(1)
         if any(int(n) for n in re.findall(r"(\d+) bytes spill "
                                           r"(?:stores|loads)", ln)):
             spills.append(f"{kernel}: {ln.strip()}")
@@ -388,6 +393,43 @@ def flash_fwd_build(_build, fac) -> dict:
     for D, c in conf.items():
         _no_local_bytes(c, f"flash_fwd {D}")
     return dict(ptxas, **conf)
+
+
+def stream_gemm_build(_build) -> dict:
+    """Phase 2's check of the weight-streaming kernels' build (w8_matmul,
+    fused LoRA's second launch; one main loop, ``stream_gemm.cuh``): each
+    instantiation's launch shape, registers and local bytes (none may have
+    any), and no spill in the ptxas lines of either source."""
+    from paddle_tpu_torch.ops import fused_lora_cuda, int8_cuda
+
+    out = {}
+    for source, name, conf in (
+            ("w8_matmul.cu", "w8_matmul", int8_cuda.kernel_config()),
+            ("fused_lora.cu", "fused_lora", fused_lora_cuda.kernel_config())):
+        ptxas = _ptxas_check(_build, source, name)
+        for key, c in conf.items():
+            _no_local_bytes(c, f"{name} {key}")
+        out[name] = dict(ptxas, **conf)
+    return out
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one eager call of ``fn`` in us: the wrapper's checks,
+    allocations and launches, the card left to run behind them (``calls``
+    launches stay well inside the launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def _repeats(torch, fn, first, times: int = 3) -> bool:
+    """``times`` more launches of ``fn`` all give the bits of ``first``."""
+    return all(_repeatable(torch, fn, first) for _ in range(times))
 
 
 # --------------------------------------------------------------- phase 3
@@ -1380,9 +1422,13 @@ def _el_ratio(x, ref, mag, K):
 
 def kernel_w8(torch, ops):
     """w8_matmul against its plain twin at every decode shape, M in
-    {1, 8, 16}, with the tolerance shown to reject a lost K slice."""
+    {1, 8, 16}, with the tolerance shown to reject a lost K slice; each
+    launch repeated 3 times bit for bit, the wrapper's host us a call
+    beside its device time. M = 128, a prefill chunk's rows, is measured
+    beside the dequantize-once path the dispatch takes for it (routing
+    unchanged: ``int8.streams_int8``)."""
     from paddle_tpu_torch.ops import int8 as i8
-    from paddle_tpu_torch.ops.int8_cuda import w8_matmul_cuda
+    from paddle_tpu_torch.ops.int8_cuda import plan, w8_matmul_cuda
 
     g = torch.Generator(device="cuda").manual_seed(21)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -1397,7 +1443,7 @@ def kernel_w8(torch, ops):
         check(torch.equal(i8.dequantize(wq, sc, torch.bfloat16),
                           (wq.float() * sc).to(torch.bfloat16)),
               f"dequantize {K}x{N}: not the fp32 product rounded to bf16")
-        for M in (8, 1, 16):
+        for M in (8, 1, 16, 128):
             x = torch.randn(M, K, generator=g, device="cuda").to(
                 torch.bfloat16)
             out = w8_matmul_cuda(x, wq, sc)
@@ -1415,19 +1461,28 @@ def kernel_w8(torch, ops):
             fault = _el_ratio(lost, ref, mag, K).max().item()
             check(fault > 1.0, f"w8_matmul {M}x{K}x{N}: the tolerance "
                                f"passes a lost K slice ({fault:.3g})")
+            check(_repeats(torch, lambda: w8_matmul_cuda(x, wq, sc), out),
+                  f"w8_matmul {M}x{K}x{N}: a repeated launch differs")
             b, by = bound_ms(K * N + 4 * N + 2 * M * K + 2 * M * N,
                              2 * M * K * N, BF16_FLOPS)
-            case = dict(M=M, K=K, N=N,
+            case = dict(M=M, K=K, N=N, plan=plan(M, K, N),
                         max_abs_err=(out.float() - ref.float()).abs()
                         .max().item(),
                         worst_err_over_tol=worst, lost_slice_fault=fault,
+                        bitwise_repeatable=True,
                         ms=time_ms(lambda: w8_matmul_cuda(x, wq, sc), 50,
                                    flush),
+                        host_us=host_us(torch,
+                                        lambda: w8_matmul_cuda(x, wq, sc)),
                         plain_ms=time_ms(lambda: i8._w8_plain(x, wq, sc), 5,
                                          flush),
                         bound_ms=b, bound_by=by,
                         library_ms=time_ms(lambda: torch.matmul(x, w), 50,
                                            flush))
+            if M > i8.STREAM_MAX_ROWS:
+                # measurement only: the path a prefill chunk takes
+                case["dequant_ms"] = time_ms(
+                    lambda: i8._w8_dequant(x, wq, sc), 20, flush)
             log(f"kernel w8_matmul M={M} {K}x{N}: " + json.dumps(case))
             cases.append(case)
         del w, wq, sc, x, out, ref, mag, lost
@@ -1534,10 +1589,13 @@ def kernel_fused_lora(torch, ops, cfg):
     decode batch (8 rows: adapters of ranks 8, 8 and 4 in max_rank 8 and
     null rows, which must equal the same kernel's output with every s = 0
     bitwise) and a prefill chunk (1 x 128 rows); the tolerance is shown to
-    reject the delta of the wrong adapter page."""
+    reject the delta of the wrong adapter page; each launch repeated 3
+    times bit for bit, the wrapper's host us a call beside its device
+    time."""
     from paddle_tpu_torch.inference.lora import target_dims
     from paddle_tpu_torch.nn import lora as tl
     from paddle_tpu_torch.ops.fused_lora_cuda import fused_lora_matmul_cuda
+    from paddle_tpu_torch.ops.int8_cuda import plan
 
     g = torch.Generator(device="cuda").manual_seed(25)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -1585,6 +1643,9 @@ def kernel_fused_lora(torch, ops, cfg):
             fault = _el_ratio(wrong, ref, mag, K).max().item()
             check(fault > 1.0, f"fused_lora {form} {t}: the tolerance passes "
                                f"the wrong page ({fault:.3g})")
+            check(_repeats(torch, lambda: fused_lora_matmul_cuda(
+                x, w, A, Bf, s, layer, ai), out),
+                  f"fused_lora {form} {t}: a repeated launch differs")
             null = [e for e, p in enumerate(aidx) if p == 0]
             if null:
                 zero = fused_lora_matmul_cuda(x, w, A, Bf, torch.zeros_like(s),
@@ -1610,8 +1671,11 @@ def kernel_fused_lora(torch, ops, cfg):
                         max_abs_err=(out.float() - ref.float()).abs()
                         .max().item(),
                         worst_err_over_tol=worst, wrong_page_fault=fault,
+                        bitwise_repeatable=True, plan=plan(E * S, K, N),
                         ms=time_ms(lambda: fused_lora_matmul_cuda(
                             x, w, A, Bf, s, layer, ai), 50, flush),
+                        host_us=host_us(torch, lambda: fused_lora_matmul_cuda(
+                            x, w, A, Bf, s, layer, ai)),
                         plain_ms=time_ms(plain, 5, flush),
                         bound_ms=b, bound_by=by,
                         library_ms=time_ms(library, 20, flush))
@@ -2194,6 +2258,9 @@ OWN_KERNELS = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel":
                "layer_norm_kernel": "layer_norm",
                "paged_attention_": "paged_attention", "w8_": "w8_matmul",
                "lora_": "fused_lora_matmul",
+               # the weight-streaming kernel by its epilogue (its name
+               # holds "gemm", the library matmuls' class)
+               "W8Epi": "w8_matmul", "LoraEpi": "fused_lora_matmul",
                "decode_tick_kernel": "decode_tick"}
 
 
@@ -3502,6 +3569,9 @@ def main() -> int:
     log("flash backward kernels (registers a thread at launch; "
         "consumers setmaxnreg to consumer_registers): "
         + json.dumps(bwd_build))
+    stream_build = stream_gemm_build(_build)
+    log("weight-streaming kernels (w8_matmul, fused LoRA; block_cols: W "
+        "columns a block): " + json.dumps(stream_build))
 
     cfg = llama3_8b_config()
     rms_cases = kernel_rms_norm(torch, fused_norm, cfg)
@@ -3641,13 +3711,15 @@ def main() -> int:
           for name, line in (("flash_bwd_dq", "628"),
                              ("flash_bwd_dkv", "646"))),
         entry("w8_matmul", csrc + "w8_matmul.cu", "paddle_tpu/ops/int8.py:80",
-              w8_cases, int8_res["launches"]["w8_matmul"]),
+              w8_cases, int8_res["launches"]["w8_matmul"],
+              build=stream_build["w8_matmul"]),
         entry("paged_attention_int8", csrc + "paged_attention.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:253", attn8_cases,
               int8_res["launches"]["paged_attention_int8"]),
         entry("fused_lora_matmul", csrc + "fused_lora.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:343", lora_cases,
-              lora_res["launches"]["fused_lora_matmul"]),
+              lora_res["launches"]["fused_lora_matmul"],
+              build=stream_build["fused_lora"]),
     ]
     # row 13, each variant of the tick with the launches of its serving
     # cell (the int8 variant's cases include the "tile" mode, the LoRA

@@ -66,13 +66,19 @@ SIGNATURES = {
     # part_ml, B, W, H, KV, D, N, bs, M, S, P, stream
     "pt_paged_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, w_q, scale, out, part (or NULL), M, K, N, S, KS, stream
-    "pt_w8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w, a (at the layer), b (at the layer), scale, aidx, out, xa, part,
-    # M, K, N, R, rows_per_entry, a_page_stride, b_page_stride, splits, KS,
-    # mt, stream
-    "pt_fused_lora": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _L, _L, _I, _I, _I, _P),
+    # x, w_q, scale, out, M, K, N, stream
+    "pt_w8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # token tile, 64-column blocks of W a block, out (8 ints): the streaming
+    # kernel's launch shape, registers and local bytes (int8 W; LoRA's
+    # bf16 W)
+    "pt_w8_matmul_config": (_I, _I, _P),
+    "pt_fused_lora_config": (_I, _I, _P),
+    # M, K, N, out (6 ints): the streaming product's plan on this device
+    "pt_stream_plan": (_I, _I, _I, _P),
+    # x, w, a (at the layer), b (at the layer), scale, aidx, out, part,
+    # M, K, N, R, rows_per_entry, a_page_stride, b_page_stride, stream
+    "pt_fused_lora": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _L, _L, _P),
     # p, g, m, v, master (or NULL), n, g_is_fp32, lr, inv_bc1, inv_bc2,
     # b1, 1 - b1, b2, 1 - b2, eps, 1 - lr * decay, stream
     "pt_fused_adamw": (_P, _P, _P, _P, _P, _I, _I,

@@ -15,269 +15,233 @@
 // flops per weight byte, still under the card's ~295. The adapter factors
 // (in + out) x R x 4 bytes per distinct page are small beside W.
 //
-// Design. The TPU grid is (batch,): every program re-reads all of W for its
-// row, and its factors arrive as per-row copies gathered from the adapter
-// pool (~84 MB a row per decode tick at Llama-3-8B, rank 8). Here:
-//   * the rows of every batch entry are the M of ONE product, so each W tile
-//     is read once for all rows: a block of 4 warps owns 128 columns and
-//     16*MT rows (MT m16 tiles, every warp the same rows, its own 32
-//     columns) and walks a K range in steps of 32 with warp-level mma.sync
-//     m16n8k16 (bf16 in, fp32 accumulate); x and W tiles are staged in
-//     padded shared memory (16-byte loads, conflict-free fragment reads),
-//     the next step's tiles loaded into registers while this step's
-//     products run.
-//   * a decode batch gives few column tiles for 132 SMs, so the wrapper
-//     splits K over blocks; every block writes fp32 partial sums, and the
-//     epilogue kernel adds the slices in order (deterministic, no atomics).
-//   * the factors are read in place from the adapter pool's pages through
-//     aidx (a page stride and a layer offset): a small kernel computes
-//     xa = x32 @ A (rows x R, fp32) first, and the epilogue adds
-//     (xa @ B) * s to the summed base product and rounds once.
-// Left for later: cp.async/TMA pipelines deeper than one step, and wgmma.
+// Design: two launches, the second allowed to start while the first runs
+// (programmatic dependent launch).
+//   1. xa partials: part[slice, r, :R] = x32[r, slice] @ A_e[slice, :R] in
+//      fp32 FMA (the reference's arithmetic; tf32 is not), over a grid of
+//      (K slices, entries, R in chunks of 8) (stream_tiles::lora_slices):
+//      each entry's page of A is read once, however many rows it has. A
+//      block stages 64 rows of K of its rows of x and of A at a time in
+//      shared memory; each row's sum is split over up to 32 neighbouring
+//      threads and added by a fixed shuffle tree.
+//   2. the weight-streaming main loop of stream_gemm.cuh over bf16 W (TMA
+//      ring, wgmma with x's rows as the N, K splits reduced through the
+//      cluster's shared memory in rank order). It streams W while launch 1
+//      runs; its epilogue waits for launch 1 (griddepcontrol.wait), sums
+//      each of its rows' xa over the slices in order, and adds
+//      (xa @ B_page[:, cols]) * s_page to the reduced base sum in fp32
+//      before the one rounding.
+// The TPU grid is (batch,): every program re-reads all of W for its row;
+// here each W tile is read once for all rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stream_gemm.cuh"
+#include "stream_tiles.cuh"
+
 namespace {
 
+namespace sg = stream_gemm;
+namespace st = stream_tiles;
 typedef __nv_bfloat16 bf16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBN = 128;            // columns per block (32 per warp)
-constexpr int kBK = 32;             // K step
-constexpr int kSX = kBK + 8;        // padded x tile row, in bf16
-constexpr int kSW = kBN + 8;        // padded W tile row, in bf16
-constexpr int kMaxRank = 64;
+constexpr int kXaThreads = 256;
+constexpr int kChunk = st::kLoraChunk;    // K rows staged at a time
+constexpr int kRowsMax = 128;             // rows of an entry staged at a time
+constexpr int kXStride = kChunk + 1;      // padded fp32 row of the x chunk
 
-__device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pair(const bf16* lo, const bf16* hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-// xa[r, j] = sum_i float(x[r, i]) * A_page[i, j], in a fixed order: each
-// thread sums its i's (stride kThreads), then the block adds the threads'
-// sums in thread order. One block per row.
-__global__ void __launch_bounds__(kThreads)
+// part[slice, r, jc*8 .. jc*8 + 7] (j < R) = sum over the slice's K rows i
+// of float(x[r, i]) * A_page[i, j] for the rows r of entry blockIdx.y,
+// slice blockIdx.x, R chunk blockIdx.z. Thread t takes row t / G of a row
+// block and every G-th i of each chunk from t % G; the G partial sums of a
+// row are added by a shuffle tree of fixed shape.
+__global__ void __launch_bounds__(kXaThreads)
 lora_xa_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-               const int* __restrict__ aidx, float* __restrict__ xa, int K,
-               int R, int rows_per_entry, long long a_page_stride) {
-  __shared__ float red[kThreads * 8];
-  const int r = blockIdx.x, tid = threadIdx.x;
-  const float* ap = a + aidx[r / rows_per_entry] * a_page_stride;
-  const bf16* xr = x + size_t(r) * K;
-  for (int j0 = 0; j0 < R; j0 += 8) {
+               const int* __restrict__ aidx, float* __restrict__ part, int M,
+               int K, int R, int S, long long a_page_stride, int slice_rows) {
+  // the second launch may start now: it waits for this one before reading
+  // part
+  hopper::griddep_launch_dependents();
+  __shared__ float sx[kRowsMax * kXStride];
+  __shared__ __align__(16) float sa[kChunk * 8];
+  const int slice = blockIdx.x, e = blockIdx.y, j0 = blockIdx.z * 8;
+  const int k0 = slice * slice_rows, k1 = min(K, k0 + slice_rows);
+  const float* ap = a + aidx[e] * a_page_stride;
+  const int tid = threadIdx.x;
+  // a thread's share of one chunk's loads: x (up to 128 rows x 64 bf16 in
+  // 16-byte vectors) and A (64 x 8 floats)
+  constexpr int kXV = kRowsMax * (kChunk / 8) / kXaThreads;
+  constexpr int kAV = kChunk * 8 / kXaThreads;
+  for (int rb = 0; rb < S; rb += kRowsMax) {
+    const int T = min(kRowsMax, S - rb);
+    int G = 32;
+    while (G > 1 && G * T > kXaThreads) G >>= 1;
+    const int row = tid / G, q = tid % G;
+    const bool live = row < T;
+    const bf16* xr = x + size_t(e * S + rb) * K;
     float acc[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int i = tid; i < K; i += kThreads) {
-      const float xv = __bfloat162float(xr[i]);
-      const float* arow = ap + size_t(i) * R + j0;
+    // the next chunk's loads are issued before this chunk's products
+    uint4 xv[kXV];
+    float av[kAV];
+    auto fetch = [&](int c0) {
+#pragma unroll
+      for (int i = 0; i < kXV; ++i) {
+        const int v = tid + i * kXaThreads, r = v / (kChunk / 8);
+        const int c = (v % (kChunk / 8)) * 8;
+        xv[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (r < T && c0 + c < k1)            // K % 32 == 0: 8 or none
+          xv[i] = *reinterpret_cast<const uint4*>(xr + size_t(r) * K + c0 +
+                                                  c);
+      }
+#pragma unroll
+      for (int i = 0; i < kAV; ++i) {
+        const int v = tid + i * kXaThreads, ii = v / 8, j = v % 8;
+        av[i] = (c0 + ii < k1 && j0 + j < R)
+                    ? ap[size_t(c0 + ii) * R + j0 + j] : 0.f;
+      }
+    };
+    fetch(k0);
+    for (int c0 = k0; c0 < k1; c0 += kChunk) {
+      __syncthreads();                       // the last chunk is read
+#pragma unroll
+      for (int i = 0; i < kXV; ++i) {
+        const int v = tid + i * kXaThreads, r = v / (kChunk / 8);
+        const int c = (v % (kChunk / 8)) * 8;
+        const bf16* h = reinterpret_cast<const bf16*>(&xv[i]);
+        if (r < T) {
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            sx[r * kXStride + c + u] = __bfloat162float(h[u]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kAV; ++i) sa[tid + i * kXaThreads] = av[i];
+      __syncthreads();
+      if (c0 + kChunk < k1) fetch(c0 + kChunk);
+      if (live) {
+        for (int i = q; i < kChunk; i += G) {
+          const float xs = sx[row * kXStride + i];
+          const float4 lo = *reinterpret_cast<const float4*>(sa + i * 8);
+          const float4 hi = *reinterpret_cast<const float4*>(sa + i * 8 + 4);
+          acc[0] = fmaf(xs, lo.x, acc[0]);
+          acc[1] = fmaf(xs, lo.y, acc[1]);
+          acc[2] = fmaf(xs, lo.z, acc[2]);
+          acc[3] = fmaf(xs, lo.w, acc[3]);
+          acc[4] = fmaf(xs, hi.x, acc[4]);
+          acc[5] = fmaf(xs, hi.y, acc[5]);
+          acc[6] = fmaf(xs, hi.z, acc[6]);
+          acc[7] = fmaf(xs, hi.w, acc[7]);
+        }
+      }
+    }
+    // the G threads of a row are neighbouring lanes (G <= 32)
+    for (int o = G / 2; o > 0; o >>= 1)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        if (j0 + j < R) acc[j] = fmaf(xv, arow[j], acc[j]);
-    }
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+    if (live && q == 0) {
+      float* pp = part + (size_t(slice) * M + e * S + rb + row) * R + j0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) red[j * kThreads + tid] = acc[j];
-    __syncthreads();
-    if (tid < 8 && j0 + tid < R) {
+      for (int j = 0; j < 8; ++j)
+        if (j0 + j < R) pp[j] = acc[j];
+    }
+  }
+}
+
+// the second launch's epilogue: xa of the block's rows summed over the
+// slices in order, then out = bf16(v + (xa @ B_page[:, cols]) * s_page)
+struct LoraEpi {
+  bf16* out;
+  const float* part;    // (slices, M, R)
+  const float* b;       // the B pool at this layer
+  const float* scale;
+  const int* aidx;
+  int M, N, R, S, slices;
+  long long b_page_stride;
+  __device__ __forceinline__ void prepare(float* xa, int m0, int r0, int r1,
+                                          int tid, int nthreads) const {
+    hopper::griddep_wait();
+    for (int v = tid; v < (r1 - r0) * R; v += nthreads) {
+      const int row = m0 + r0 + v / R, j = v % R;
       float s = 0.f;
-      for (int t = 0; t < kThreads; ++t) s += red[tid * kThreads + t];
-      xa[size_t(r) * R + j0 + tid] = s;
-    }
-    __syncthreads();
-  }
-}
-
-// part[split, r, n] = sum over the split's K range of x[r, k] * W[k, n]
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-lora_base_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 float* __restrict__ part, int M, int K, int N, int KS) {
-  constexpr int kBM = 16 * MT;
-  __shared__ __align__(16) bf16 sx[kBM * kSX];
-  __shared__ __align__(16) bf16 sw[kBK * kSW];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int kb = blockIdx.z * KS, ke = min(K, kb + KS);
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  // the next step's tiles are loaded into registers while this step's
-  // products run: x tile kBM rows x 32 columns (4 16-byte vectors a row),
-  // W tile 32 rows x 128 columns (16 vectors a row)
-  constexpr int kXV = (kBM * 4 + kThreads - 1) / kThreads;
-  constexpr int kWV = kBK * 16 / kThreads;
-  uint4 xr[kXV], wr[kWV];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kXV; ++i) {
-      const int v = tid + i * kThreads, r = v >> 2, c = (v & 3) * 8;
-      xr[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (v < kBM * 4 && m0 + r < M)
-        xr[i] = *reinterpret_cast<const uint4*>(x + size_t(m0 + r) * K + k0 + c);
-    }
-#pragma unroll
-    for (int i = 0; i < kWV; ++i) {
-      const int v = tid + i * kThreads, r = v >> 4, c = (v & 15) * 8;
-      wr[i] = *reinterpret_cast<const uint4*>(w + size_t(k0 + r) * N + n0 + c);
-    }
-  };
-  fetch(kb);
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
-    __syncthreads();                  // the previous tiles are read
-#pragma unroll
-    for (int i = 0; i < kXV; ++i) {
-      const int v = tid + i * kThreads;
-      if (v < kBM * 4)
-        *reinterpret_cast<uint4*>(sx + (v >> 2) * kSX + (v & 3) * 8) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kWV; ++i) {
-      const int v = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(sw + (v >> 4) * kSW + (v & 15) * 8) = wr[i];
-    }
-    __syncthreads();
-    if (k0 + kBK < ke) fetch(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* p = sw + (kk + 2 * t) * kSW + warp * 32 + nt * 8 + g;
-        b[nt][0] = pair(p, p + kSW);
-        b[nt][1] = pair(p + 8 * kSW, p + 9 * kSW);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const bf16* p = sx + (mt * 16 + g) * kSX + kk + 2 * t;
-        uint32_t a[4];
-        a[0] = ld32(p);
-        a[1] = ld32(p + 8 * kSX);
-        a[2] = ld32(p + 8);
-        a[3] = ld32(p + 8 * kSX + 8);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma(acc[mt][nt], a, b[nt]);
-      }
+      for (int sl = 0; sl < slices; ++sl)
+        s += part[(size_t(sl) * M + row) * R + j];
+      xa[v] = s;
     }
   }
-
-  float* pp = part + size_t(blockIdx.z) * M * N;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + mt * 16 + g + 8 * half;
-      if (r >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = n0 + warp * 32 + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(pp + size_t(r) * N + c) =
-            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-      }
+  __device__ __forceinline__ void store(int row, int col, float4 v, int r,
+                                        const float* xa) const {
+    const int page = aidx[row / S];
+    const float* bp = b + page * b_page_stride + col;
+    const float* xr = xa + r * R;
+    float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+    for (int j = 0; j < R; ++j) {
+      const float xv = xr[j];
+      const float4 bv = *reinterpret_cast<const float4*>(bp + size_t(j) * N);
+      d0 = fmaf(xv, bv.x, d0);
+      d1 = fmaf(xv, bv.y, d1);
+      d2 = fmaf(xv, bv.z, d2);
+      d3 = fmaf(xv, bv.w, d3);
     }
+    const float sc = scale[page];
+    uint2 o;
+    o.x = hopper::pack_bf16(v.x + d0 * sc, v.y + d1 * sc);
+    o.y = hopper::pack_bf16(v.z + d2 * sc, v.w + d3 * sc);
+    *reinterpret_cast<uint2*>(out + size_t(row) * N + col) = o;
   }
-}
-
-// out[r, n] = bf16( sum_s part[s, r, n] + (sum_j xa[r, j] * B_page[j, n]) *
-// s_page ), every sum in a fixed order
-__global__ void __launch_bounds__(256)
-lora_epilogue_kernel(const float* __restrict__ part,
-                     const float* __restrict__ xa,
-                     const float* __restrict__ bpool,
-                     const float* __restrict__ scale,
-                     const int* __restrict__ aidx, bf16* __restrict__ out,
-                     int M, int N, int R, int splits, int rows_per_entry,
-                     long long b_page_stride) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const long long total = static_cast<long long>(M) * N;
-  if (i >= total) return;
-  const int r = static_cast<int>(i / N), n = static_cast<int>(i % N);
-  const int page = aidx[r / rows_per_entry];
-  float y = 0.f;
-  for (int s = 0; s < splits; ++s) y += part[s * total + i];
-  const float* bp = bpool + page * b_page_stride + n;
-  const float* xr = xa + size_t(r) * R;
-  float d = 0.f;
-  for (int j = 0; j < R; ++j) d = fmaf(xr[j], bp[size_t(j) * N], d);
-  out[i] = __float2bfloat16(y + d * scale[page]);
-}
-
-template <int MT>
-int launch_base(const void* x, const void* w, float* part, int M, int K,
-                int N, int splits, int KS, cudaStream_t s) {
-  const dim3 grid(N / kBN, (M + 16 * MT - 1) / (16 * MT), splits);
-  lora_base_kernel<MT><<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part, M, K,
-      N, KS);
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
 // x (M, K) bf16 and w (K, N) bf16, contiguous and 16-byte aligned, K % 32
-// == 0, N % 128 == 0; rows r use adapter page aidx[r / rows_per_entry];
-// a: the A pool at this layer, element (page, i, j) at page * a_page_stride
-// + i * R + j; b: the B pool at this layer, (page, j, n) at page *
-// b_page_stride + j * N + n; scale (pages,) f32; 1 <= R <= 64. Workspaces:
-// xa (M, R) f32 and part (splits, M, N) f32; K splits into `splits` ranges
-// of KS rows (KS % 32 == 0). mt: m16 tiles a block covers (1, 2, 4 or 8).
-// out (M, N) bf16. Returns cudaGetLastError() after the launches.
+// == 0, N % 128 == 0; rows r use adapter page aidx[r / rows_per_entry]
+// (M a multiple of rows_per_entry); a: the A pool at this layer, element
+// (page, i, j) at page * a_page_stride + i * R + j; b: the B pool at this
+// layer, (page, j, n) at page * b_page_stride + j * N + n (16-byte
+// aligned); scale (pages,) f32; 1 <= R <= 64. part: an fp32 workspace of
+// stream_tiles::kMaxSlices * M * R. out (M, N) bf16. Two launches; returns
+// cudaGetLastError() after them (cudaErrorInvalidValue, launching nothing,
+// for a shape it refuses).
 extern "C" int pt_fused_lora(const void* x, const void* w, const void* a,
                              const void* b, const void* scale,
-                             const void* aidx, void* out, void* xa,
-                             void* part, int M, int K, int N, int R,
-                             int rows_per_entry, long long a_page_stride,
-                             long long b_page_stride, int splits, int KS,
-                             int mt, void* stream) {
+                             const void* aidx, void* out, void* part, int M,
+                             int K, int N, int R, int rows_per_entry,
+                             long long a_page_stride, long long b_page_stride,
+                             void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (M <= 0 || K <= 0 || N <= 0 || K % kBK || N % kBN || R < 1 ||
-      R > kMaxRank || rows_per_entry <= 0 || splits < 1 || splits > 65535 ||
-      KS <= 0 || KS % kBK || static_cast<long long>(splits) * KS < K ||
-      static_cast<long long>(splits - 1) * KS >= K ||
-      (mt != 1 && mt != 2 && mt != 4 && mt != 8) ||
-      (M + 16 * mt - 1) / (16 * mt) > 65535)
+  if (M <= 0 || K <= 0 || N <= 0 || K % 32 || N % 128 || R < 1 ||
+      R > st::kMaxRank || rows_per_entry <= 0 || M % rows_per_entry ||
+      M / rows_per_entry > st::kMaxGrid)
     return (int)cudaErrorInvalidValue;
-  lora_xa_kernel<<<M, kThreads, 0, s>>>(
+  const int sms = sg::sm_count();
+  const int E = M / rows_per_entry;
+  const int slices = st::lora_slices(E, rows_per_entry, K, R, sms);
+  const st::Plan p = st::plan(M, K, N, sms);
+  CUtensorMap tw;
+  if (st::bad_plan(p) || !sg::weight_map(&tw, w, K, N, false))
+    return (int)cudaErrorInvalidValue;
+  lora_xa_kernel<<<dim3(slices, E, st::cdiv(R, 8)), kXaThreads, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(a),
-      static_cast<const int*>(aidx), static_cast<float*>(xa), K, R,
-      rows_per_entry, a_page_stride);
+      static_cast<const int*>(aidx), static_cast<float*>(part), M, K, R,
+      rows_per_entry, a_page_stride, st::lora_slice_rows(K, slices));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  int err;
-  float* pf = static_cast<float*>(part);
-  if (mt == 1) err = launch_base<1>(x, w, pf, M, K, N, splits, KS, s);
-  else if (mt == 2) err = launch_base<2>(x, w, pf, M, K, N, splits, KS, s);
-  else if (mt == 4) err = launch_base<4>(x, w, pf, M, K, N, splits, KS, s);
-  else err = launch_base<8>(x, w, pf, M, K, N, splits, KS, s);
-  if (err != cudaSuccess) return err;
-  const long long total = static_cast<long long>(M) * N;
-  lora_epilogue_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                         s>>>(
-      pf, static_cast<const float*>(xa), static_cast<const float*>(b),
-      static_cast<const float*>(scale), static_cast<const int*>(aidx),
-      static_cast<bf16*>(out), M, N, R, splits, rows_per_entry,
-      b_page_stride);
+  const LoraEpi epi{static_cast<bf16*>(out), static_cast<const float*>(part),
+                    static_cast<const float*>(b),
+                    static_cast<const float*>(scale),
+                    static_cast<const int*>(aidx), M, N, R, rows_per_entry,
+                    slices, b_page_stride};
+  e = sg::launch<false>(tw, x, p, M, K, N, epi, true, s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The second launch's shape for token tile X (8, 16, 128) and WG 64-column
+// blocks of W a block (1, 2) into out[8] (stream_gemm::describe).
+extern "C" int pt_fused_lora_config(int X, int WG, int* out) {
+  return sg::describe<false, LoraEpi>(X, WG, out);
 }

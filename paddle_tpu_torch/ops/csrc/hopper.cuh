@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-
 // memory matrix descriptors and warpgroup matrix multiply (wgmma), mbarrier
-// pipelines, TMA tile loads, named barriers, setmaxnreg, and exp2 on the
-// special-function unit.
+// pipelines, TMA tile loads, the async-proxy fence, cluster barriers and
+// distributed shared memory, programmatic dependent launch, named barriers,
+// setmaxnreg, and exp2 on the special-function unit.
 //
 // Layout convention. A bf16 tile of R rows x C columns (C a multiple of 64)
 // is kept in shared memory as C / 64 column blocks of R rows x 128 bytes,
@@ -15,7 +16,8 @@
 //     rows) per step.
 // The products are m64n64k16 and m64n128k16 bf16 -> fp32 with both
 // operands from shared memory (K-major), or with A from registers and B
-// MN-major (one column block, or two for n128).
+// MN-major (one column block, or two for n128); and m64n{8,16,128}k16 with
+// A MN-major and B K-major, both from shared memory (stream_gemm.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -181,6 +183,68 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d0)[32],
         "r"(scale_d));
 }
 
+// d (64 x N fp32, N / 2 a thread) (+)= A (64 x 16, smem, MN-major: one
+// column block, the 64 rows its columns) * B (16 x N, smem, K-major: N rows
+// of 16), for N = 8, 16 and 128: the weight-streaming products of
+// stream_gemm.cuh, where A is a weight tile W (K, 64) read transposed and B
+// the rows of x
+__device__ __forceinline__ void wgmma_m64n8k16_ss_ta(float (&d)[4],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k16_ss_ta(float (&d)[8],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_ss_ta(float (&d)[64],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
+      "1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // The accumulator of m64nN: thread (warp w, lane = 4 g + t) holds, for each
 // 8-column group j, rows 16 w + g and 16 w + g + 8 at columns 8 j + 2 t and
 // 8 j + 2 t + 1, as d[4 j + {0, 1}] and d[4 j + {2, 3}]. Columns 16 s ..
@@ -251,6 +315,73 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// one box of a 2-D tensor map (c0 the inner coordinate) into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// fetch a tensor map (a kernel parameter) into the cache ahead of its
+// first TMA load
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (a wgmma operand written with st.shared)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster: writes to shared memory
+// before it are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address `addr` of this block's shared memory in block `rank` of the
+// cluster, and a 16-byte load from it
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// ------------------------------------------- programmatic dependent launch
+// let the next kernel of the stream (launched with programmatic stream
+// serialization) start; and, in that kernel, wait until the one before it
+// has finished and its writes are visible (a no-op without the attribute)
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------- named barriers

@@ -2,45 +2,33 @@
 (``_lora_kernel`` / ``fused_lora_matmul``).
 
 :func:`fused_lora_matmul_cuda` launches ``csrc/fused_lora.cu``: the base
-projection ``x @ W`` (bf16 in, fp32 accumulate) plus each batch entry's
-LoRA delta ``((x32 @ A) @ B) · s``, combined in fp32 and rounded once. The
-factors are read in place from the adapter pool's pages (``A_t`` (pages, L,
-in, R), ``B_t`` (pages, L, R, out), ``scale`` (pages,)) at one layer,
-through a per-entry page index; the plain twin is
+projection ``x @ W`` (bf16 in, fp32 accumulate; the weight-streaming main
+loop of ``csrc/stream_gemm.cuh``) plus each batch entry's LoRA delta
+``((x32 @ A) @ B) · s``, combined in fp32 and rounded once, in two launches.
+The factors are read in place from the adapter pool's pages (``A_t``
+(pages, L, in, R), ``B_t`` (pages, L, R, out), ``scale`` (pages,)) at one
+layer, through a per-entry page index; the plain twin is
 ``paddle_tpu_torch.nn.lora._lora_plain`` over the gathered factors.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-# columns a block owns and the K step (csrc/fused_lora.cu)
+from .int8_cuda import _config
+
+# the kernel's contract (csrc/fused_lora.cu, csrc/stream_tiles.cuh): in %
+# K_STEP, out % BLOCK_N, rank 1..MAX_RANK; the first launch's K slices of
+# xa partials, at most MAX_SLICES
 BLOCK_N = 128
 K_STEP = 32
 MAX_RANK = 64
+MAX_SLICES = 32
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def tiling(M: int, K: int, N: int, sms: int):
-    """(mt, splits, KS): m16 tiles per block (the fewest of 1, 2, 4, 8 that
-    cover M, capped at 8), and a K split into ``splits`` ranges of KS rows
-    (a multiple of ``K_STEP``) aiming at about 4 blocks per SM for a decode
-    batch (one m16 tile: the blocks wait on memory) and 1 per SM for a
-    prefill chunk (compute-heavy blocks, and fewer partial sums to add)."""
-    mt = 1
-    while mt < 8 and 16 * mt < M:
-        mt *= 2
-    base = (N // BLOCK_N) * -(-M // (16 * mt))
-    target = (4 if mt == 1 else 1) * sms
-    steps = K // K_STEP
-    splits = max(1, min(steps, -(-target // base)))
-    KS = -(-steps // splits) * K_STEP
-    return mt, -(-K // KS), KS
+def kernel_config():
+    """The second launch's instantiations (bf16 W), as
+    ``int8_cuda.kernel_config``."""
+    return _config("pt_fused_lora_config")
 
 
 def fused_lora_matmul_cuda(x, w, a_pool, b_pool, scale, layer: int, aidx):
@@ -92,21 +80,19 @@ def fused_lora_matmul_cuda(x, w, a_pool, b_pool, scale, layer: int, aidx):
                      ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {tname} must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"{name}: x and w must be 16-byte aligned")
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or b_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: x, w and b_pool must be 16-byte aligned")
     M = E * S
-    mt, splits, KS = tiling(M, K, N, _sm_count(x.device.index or 0))
     out = torch.empty((E, S, N), dtype=torch.bfloat16, device=x.device)
-    xa = torch.empty((M, R), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    part = torch.empty((MAX_SLICES, M, R), dtype=torch.float32,
+                       device=x.device)
     a_layer = a_pool.data_ptr() + int(layer) * K * R * 4
     b_layer = b_pool.data_ptr() + int(layer) * R * N * 4
     lib = _build.library()
     err = lib.pt_fused_lora(x.data_ptr(), w.data_ptr(), a_layer, b_layer,
                             scale.data_ptr(), aidx.data_ptr(), out.data_ptr(),
-                            xa.data_ptr(), part.data_ptr(), M, K, N, R, S,
-                            L * K * R, L * R * N, splits, KS, mt,
-                            _build.stream_ptr(x.device))
+                            part.data_ptr(), M, K, N, R, S, L * K * R,
+                            L * R * N, _build.stream_ptr(x.device))
     _build.check(err, "fused_lora_matmul")
     fused_lora_matmul_cuda.launches += 1
     return out

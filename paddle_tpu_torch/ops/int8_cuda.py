@@ -1,45 +1,63 @@
 """CUDA weight-only int8 matmul — port of ``paddle_tpu/ops/int8.py``
 (``_w8_kernel`` as launched by ``_w8_matmul_pallas``).
 
-:func:`w8_matmul_cuda` launches ``csrc/w8_matmul.cu``: ``x (M, K) bf16 @
+:func:`w8_matmul_cuda` launches ``csrc/w8_matmul.cu``, one launch of the
+weight-streaming main loop of ``csrc/stream_gemm.cuh``: ``x (M, K) bf16 @
 w_q (K, N) int8`` with an fp32 accumulator, times ``scale (N,)`` f32, in
-bf16, for M <= 16. Its plain twin is ``int8._w8_plain``.
+bf16, for M <= 128 (the serving path streams only M <= 16,
+``int8.STREAM_MAX_ROWS``). Its plain twin is ``int8._w8_plain``. The launch
+plan (token tile, column tile, K splits) is ``csrc/stream_tiles.cuh``'s.
 """
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
 
-from .int8 import STREAM_MAX_ROWS
-
-# columns of one thread block (32 lanes x 8 int8 columns each)
-BLOCK_N = 256
-# the K range of a block is a multiple of this (4 warps x 32 rows)
-K_STEP = 128
-# blocks per SM the K split aims for
-_BLOCKS_PER_SM = 4
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+# the most rows one call takes (one token tile of the kernel)
+MAX_ROWS = 128
+# (token tile, 64-column blocks of W a block): the instantiations of the
+# streaming kernels (this one and fused LoRA's second launch)
+CONFIGS = tuple((X, wg) for X in (8, 16, 128) for wg in (1, 2))
+_CONFIG_KEYS = ("threads", "token_rows", "k_step", "stages", "smem_bytes",
+                "registers", "local_bytes", "block_cols")
 
 
-def k_splits(K: int, N: int, sms: int):
-    """(S, KS): split K into S slices of KS rows (a multiple of
-    ``K_STEP``; the last may be shorter) so that the column tiles times S
-    give about ``_BLOCKS_PER_SM`` blocks per SM; S = 1 when the column
-    tiles alone fill the card (the lm-head)."""
-    tiles = -(-N // BLOCK_N)
-    steps = K // K_STEP
-    S = max(1, min(steps, -(-_BLOCKS_PER_SM * sms // tiles)))
-    KS = -(-steps // S) * K_STEP
-    return -(-K // KS), KS
+def _config(entry: str):
+    """An instantiation table of a streaming kernel (``kernel_config``)."""
+    from . import _build
+
+    lib = _build.library()
+    out = {}
+    for X, wg in CONFIGS:
+        vals = (ctypes.c_int * 8)()
+        _build.check(getattr(lib, entry)(X, wg, vals), entry)
+        out[f"tok{X}_wg{wg}"] = dict(zip(_CONFIG_KEYS, vals))
+    return out
+
+
+def kernel_config():
+    """Each instantiation's launch shape (threads, token rows, K rows a
+    stage, ring stages, shared memory, registers and local bytes a thread,
+    W columns a block), keyed ``tok{X}_wg{wg}``."""
+    return _config("pt_w8_matmul_config")
+
+
+def plan(M: int, K: int, N: int):
+    """The streaming product's launch plan on the current device: token
+    tile, 64-column blocks of W a block, K splits (the cluster), K steps a
+    split, column tiles, token tiles."""
+    from . import _build
+
+    vals = (ctypes.c_int * 6)()
+    _build.check(_build.library().pt_stream_plan(M, K, N, vals),
+                 "stream_plan")
+    return dict(zip(("tok", "wg", "splits", "ks", "col_tiles", "tok_tiles"),
+                    vals))
 
 
 def w8_matmul_cuda(x2, w_q, scale):
-    """Launch the int8 matmul kernel: x2 (M, K) bfloat16 with M <= 16,
+    """Launch the int8 matmul kernel: x2 (M, K) bfloat16 with M <= 128,
     w_q (K, N) int8, scale (N,) float32, K and N multiples of 128, all on
     one CUDA device. Returns (M, N) bfloat16. Raises on anything else."""
     from . import _build
@@ -59,10 +77,9 @@ def w8_matmul_cuda(x2, w_q, scale):
         raise TypeError(f"w8_matmul_cuda: the kernel takes bfloat16 x, int8 "
                         f"w_q and float32 scale, got {x2.dtype}, {w_q.dtype}, "
                         f"{scale.dtype}")
-    if not 1 <= M <= STREAM_MAX_ROWS or K % 128 or N % 128:
+    if not 1 <= M <= MAX_ROWS or K % 128 or N % 128:
         raise ValueError(f"w8_matmul_cuda: unsupported M={M}, K={K}, N={N} "
-                         f"(M in 1..{STREAM_MAX_ROWS}, K and N multiples of "
-                         f"128)")
+                         f"(M in 1..{MAX_ROWS}, K and N multiples of 128)")
     tensors = (x2, w_q, scale)
     if not all(t.is_cuda for t in tensors) or \
             len({t.device for t in tensors}) != 1:
@@ -72,18 +89,14 @@ def w8_matmul_cuda(x2, w_q, scale):
     for name, t in (("w_q", w_q), ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"w8_matmul_cuda: {name} must be contiguous")
-    if x2.data_ptr() % 16 or w_q.data_ptr() % 16:
-        raise ValueError("w8_matmul_cuda: x and w_q must be 16-byte aligned")
-    S, KS = k_splits(K, N, _sm_count(x2.device.index or 0))
+    if x2.data_ptr() % 16 or w_q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("w8_matmul_cuda: x, w_q and scale must be 16-byte "
+                         "aligned")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
-    part = None
-    if S > 1:
-        part = torch.empty((S, M, N), dtype=torch.float32, device=x2.device)
     lib = _build.library()
     err = lib.pt_w8_matmul(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                           out.data_ptr(),
-                           part.data_ptr() if part is not None else None,
-                           M, K, N, S, KS, _build.stream_ptr(x2.device))
+                           out.data_ptr(), M, K, N,
+                           _build.stream_ptr(x2.device))
     _build.check(err, "w8_matmul")
     w8_matmul_cuda.launches += 1
     return out
