@@ -16,16 +16,20 @@ Phases (any failure exits non-zero before the final line):
    ignored ``setmaxnreg`` (C7508) in ``flash_attention.cu`` or
    ``flash_attention_bwd.cu`` (one helper for both); and each instantiation
    of the weight-streaming kernels (``w8_matmul.cu``, ``fused_lora.cu``:
-   one main loop, ``stream_gemm.cuh``), failing on a spill or local bytes.
+   one main loop, ``stream_gemm.cuh``) and of the paged attention kernel
+   per pool type, failing on a spill or local bytes.
 3. Serving kernels against their plain PyTorch versions on the card, in
    bf16, at the serving path's shapes: RMSNorm at rows {8, 128} x 4096
    (and at 4096 x 4096, the training path's B x S rows);
-   paged attention in decode form (B=8, H=32, KV=8, D=128, bs=16, mixed
-   context lengths with partial final blocks, a block boundary and a
-   poisoned scratch block 0) and in prefill form (B=1, C=128 behind earlier
-   chunks). Tolerances are per element (RMSNorm) or per output row
-   (attention), and the attention tolerance is shown to reject a causal
-   mask one key off either way. Each prints its max abs error and
+   paged attention (``PAGED_FORMS``) in decode form (B=8, H=32, KV=8,
+   D=128, bs=16, mixed context lengths with partial final blocks, a block
+   boundary and a poisoned scratch block 0; every row at 2047 keys; one
+   long row among short ones), a verify window of 4 tokens, and in prefill
+   form (B=1, C=128 behind 384 earlier tokens, at start 0 and at 1920).
+   Tolerances are per element (RMSNorm) or per output row (attention), and
+   the attention tolerance is shown to reject planted faults of the plain
+   version: a causal mask one key off either way, the wrong page, one
+   split of the kernel's plan dropped. Each prints its max abs error and
    its time beside the plain version's, the bound (the least time the card
    could take) and one PyTorch library call of the same function
    (``library_ms``, a yardstick the port never calls).
@@ -86,9 +90,9 @@ the card:
    fp32 summation bound, shown to reject a lost K slice, and at M = 128
    (a prefill chunk's rows; measured beside the dequantize-once path the
    dispatch takes there); int8-pool paged
-   attention in phase 3's decode and prefill forms (scratch poisoned with
-   full codes at a huge scale), per row, shown to reject the causal mask
-   one key off; the fused LoRA matmul per target shape at a decode batch
+   attention at phase 3's cases (scratch poisoned with full codes at a
+   huge scale), per row, shown to reject phase 3's faults and the scales
+   of the wrong block; the fused LoRA matmul per target shape at a decode batch
    (adapters of ranks 8, 8, 4 in max_rank 8 plus null rows, which must
    equal the kernel's output with every s = 0 bitwise) and a 128-token
    prefill chunk, shown to reject the wrong adapter page. Every w8_matmul
@@ -226,12 +230,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import os
 import subprocess
 import sys
 import time
 
+# the paged attention wrappers' module (the package exports a function
+# of the same name, so it is imported by its full name)
+PAGED_WRAPPERS = "paddle_tpu_torch.ops.paged_attention_cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -495,107 +503,200 @@ def _paged_case(torch, g, B, W, H, KV, D, bs, pos, M):
                                                    device="cuda"))
 
 
-def kernel_paged_attention(torch, ops, pa, cfg):
+# The cases of phases 3 and 9, as (form, B, W, pos): decode at the served
+# batch (8 rows: mid-block, a block boundary on each side — 511 ends block
+# 31, 512 opens block 32 — long contexts and a short one of 6 keys, where
+# one key more or less moves the output far past the tolerance) and the
+# prefill chunk behind earlier chunks, the serving path's shapes (the first
+# two, the kernels line's); then decode with every row at 2047 keys and
+# with one long row among short ones, a verify window of 4 tokens, and the
+# prefill chunks at start 0 and at 1920 (the last chunk at MAX_LEN)
+PAGED_FORMS = [("decode", 8, 1, [1000, 511, 512, 255, 37, 700, 128, 5]),
+               ("prefill", 1, PREFILL_CHUNK, [384]),
+               ("decode_all_long", 8, 1, [MAX_LEN - 1] * 8),
+               ("decode_one_long", 8, 1, [MAX_LEN - 1, 3, 17, 0, 9, 31, 1,
+                                          64]),
+               ("verify", 4, 4, [0, 125, 700, MAX_LEN - 4]),
+               ("prefill_0", 1, PREFILL_CHUNK, [0]),
+               ("prefill_last", 1, PREFILL_CHUNK, [MAX_LEN - PREFILL_CHUNK])]
+
+
+def paged_attention_build(_build) -> dict:
+    """Phase 2's check of the paged attention kernel's build: its launch
+    shape per pool type, registers and local bytes (none may have any), and
+    no spill in the ptxas lines of ``paged_attention.cu``."""
+    pac = importlib.import_module(PAGED_WRAPPERS)
+
+    ptxas = _ptxas_check(_build, "paged_attention.cu", "paged attention")
+    conf = pac.kernel_config()
+    for name, c in conf.items():
+        _no_local_bytes(c, f"paged_attention {name}")
+    return dict(ptxas, **conf)
+
+
+def _paged_kernel_cases(torch, ops, pa, cfg, quant: bool, seed: int):
+    """Phases 3 (fp pools) and 9 (int8 pools): the paged attention kernel
+    against its plain twin at every case of ``PAGED_FORMS``, scratch block
+    0 poisoned (fp: +-1e9; int8: full codes at a huge scale). Tolerance per
+    output row; it must reject each planted fault of the plain version: the
+    causal mask one key off either way, the wrong page (the first table
+    entry of row 0 pointing at a block of no row), one split of the
+    kernel's plan dropped from the merge (its keys taken out of the rows
+    that hold them) and, for int8, each page read with the scales of the
+    block at the next table entry."""
     from torch.nn import functional as F
 
-    from paddle_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
+    pac = importlib.import_module(PAGED_WRAPPERS)
 
+    name = "paged_attention_int8" if quant else "paged_attention"
+    wrapper = pac.paged_attention_int8_cuda if quant else \
+        pac.paged_attention_cuda
+    plain_fn = pa.paged_verify_attention_q if quant else \
+        pa.paged_verify_attention
     H, KV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     bs = BLOCK_SIZE
-    g = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     cases = []
-    # decode: position of the new token per row — mid-block, a block
-    # boundary on each side (511 ends block 31, 512 opens block 32), long
-    # contexts and a short one (6 keys, where one key more or less moves
-    # the output far past the tolerance)
-    forms = [("decode", 8, 1, [1000, 511, 512, 255, 37, 700, 128, 5]),
-             ("prefill", 1, 128, [384])]
-    for form, B, W, pos in forms:
+    for form, B, W, pos in PAGED_FORMS:
         q, kp, vp, tables, posv = _paged_case(torch, g, B, W, H, KV, D, bs,
                                               pos, TABLE_WIDTH)
-        out = paged_attention_cuda(q, kp, vp, tables, posv)
+        N = kp.shape[0]
+        if quant:
+            kq, ks = pa.quantize_block_kv(kp)
+            vq, vs = pa.quantize_block_kv(vp)
+            kq[0], vq[0] = 127, -127
+            ks[0], vs[0] = 1e9, 1e9
+            args = (q, kq, ks, vq, vs, tables, posv)
+            pools = (kq, vq)
+            rms_v = pa.dequantize_block_kv(vq[1:], vs[1:]).square().mean() \
+                .sqrt().item()
+        else:
+            args = (q, kp, vp, tables, posv)
+            pools = (kp, vp)
+            rms_v = vp[1:].float().square().mean().sqrt().item()
+        del kp, vp
+        out = wrapper(*args)
         ops.set_kernel_mode("reference")
-        ref = pa.paged_verify_attention(q, kp, vp, tables, posv)
+        ref = plain_fn(*args)
         ops.set_kernel_mode("auto")
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out.float()).all()),
-              f"paged_attention {form}: non-finite output (scratch leaked?)")
-        err = (out.float() - ref.float()).abs().max().item()
+              f"{name} {form}: non-finite output (scratch leaked?)")
         # Tolerance per output row (b, w, h), scaled to what is compared:
         # each output is rounded to bf16 once on either side, which may
         # leave them one bf16 step apart (2^-7 x the row's largest value);
         # p is rounded to bf16 at another scale than in the plain version
-        # (unnormalised per 64-key chunk vs normalised), a relative error
+        # (unnormalised per 64-key stage vs normalised), a relative error
         # of at most 2^-8 per key that averages out over the keys: 2^-8 x
-        # rms(V) bounds its sum even for a row with a single key
-        rms_v = vp[1:].float().square().mean().sqrt().item()
-        tol_row = (2.0 ** -7 * ref.float().abs().amax(-1)
-                   + 2.0 ** -8 * rms_v)
-
-        def row_ratio(o):
-            return (o.float() - ref.float()).abs().amax(-1) / tol_row
-
-        worst_k = row_ratio(out).max().item()
-        check(worst_k <= 1.0, f"paged_attention {form}: a row is off by "
-                              f"{worst_k:.3g} x its tolerance")
-        # the tolerance must reject the faults a kernel plausibly has: the
-        # causal frontier one key too far or too short (plain version with
-        # qpos +- 1). Scratch block 0 gets ordinary values for this, so
-        # that a key read past a row's last block is a plausible key, not
-        # the poison
-        kc, vc = kp.clone(), vp.clone()
-        kc[0], vc[0] = kp[1], vp[1]
-        ck = pa.gather_block_kv(kc, tables)
-        cv = pa.gather_block_kv(vc, tables)
+        # rms(V) (int8: of the dequantized values) bounds its sum even for
+        # a row with a single key
+        worst = _row_ratio(out, ref, rms_v).max().item()
+        check(worst <= 1.0, f"{name} {form}: a row is off by {worst:.3g} x "
+                            f"its tolerance")
+        # the planted faults, each the plain version on changed inputs.
+        # Scratch block 0 gets ordinary values for this, so that a key read
+        # past a row's last block is a plausible key, not the poison
+        kc, vc = pools[0].clone(), pools[1].clone()
+        kc[0], vc[0] = pools[0][1], pools[1][1]
+        if quant:
+            ksc, vsc = ks.clone(), vs.clone()
+            ksc[0], vsc[0] = ks[1], vs[1]
         qpos = posv.long()[:, None] + torch.arange(W, device="cuda")[None]
+
+        def core(tbl, qp, scale_tbl=None):
+            ck, cv = pa.gather_block_kv(kc, tbl), pa.gather_block_kv(vc, tbl)
+            if not quant:
+                return pa._attention_core(q, ck, cv, qp)
+            st = tbl if scale_tbl is None else scale_tbl
+            return pa._attention_core(q, ck, cv, qp,
+                                      pa.gather_block_scales(ksc, st, bs),
+                                      pa.gather_block_scales(vsc, st, bs))
+
+        faults = {f"mask{d:+d}": core(tables, qpos + d) for d in (1, -1)}
+        wrong = tables.clone()
+        wrong[0, 0] = N - 1                 # _paged_case leaves it unused
+        faults["wrong_page"] = core(wrong, qpos)
+        # split 0 of the plan dropped: its table entries moved past every
+        # row's frontier, the rows' positions moved down by its keys; rows
+        # that see no key past it keep the reference (no split merged)
+        plan = pac.plan(B, W, H, KV, bs, TABLE_WIDTH)
+        sk = plan["split_keys"]
+        held = (qpos >= sk)[:, :, None, None]
+        if bool(held.any()):
+            moved = torch.cat([tables[:, sk // bs:], tables[:, :sk // bs]],
+                              1)
+            faults["split_dropped"] = torch.where(
+                held, core(moved, qpos - sk), ref)
+        if quant:
+            faults["wrong_scale"] = core(tables, qpos,
+                                         torch.roll(tables, -1, 1))
         mutants = {}
-        for d in (1, -1):
-            r = row_ratio(pa._attention_core(q, ck, cv, qpos + d))
-            mutants[f"mask{d:+d}"] = dict(
-                worst_err_over_tol=r.max().item(),
-                rows_failed=(r > 1.0).float().mean().item())
-        del kc, vc
-        for name, m in mutants.items():
-            check(m["worst_err_over_tol"] > 1.0,
-                  f"paged_attention {form}: the tolerance passes the {name} "
-                  f"fault ({m['worst_err_over_tol']:.3g} x tolerance)")
+        for fname, fo in faults.items():
+            r = _row_ratio(fo, ref, rms_v)
+            mutants[fname] = dict(worst_err_over_tol=r.max().item(),
+                                  rows_failed=(r > 1.0).float().mean()
+                                  .item())
+            check(r.max().item() > 1.0,
+                  f"{name} {form}: the tolerance passes the {fname} fault "
+                  f"({r.max().item():.3g} x tolerance)")
+        del faults, kc, vc
         # bytes this data needs: q and out once, each visible K/V row once
-        ctx = [p + W for p in pos]                 # keys of the last row
-        kv_bytes = sum(c * KV * D * 2 * 2 for c in ctx)
+        # (int8: one byte an element, with its block's two scales)
+        ctx = [p + W for p in pos]             # keys of the last row
+        if quant:
+            kv_bytes = sum(c * KV * D * 2 + -(-c // bs) * KV * 8
+                           for c in ctx)
+        else:
+            kv_bytes = sum(c * KV * D * 2 * 2 for c in ctx)
         nbytes = 2 * q.numel() * 2 + kv_bytes + tables.numel() * 4 + B * 4
         # QK and PV: 2 flops per multiply-add, each query row over its
         # visible keys
         vis = sum(p + w + 1 for p in pos for w in range(W))
-        flops = 4 * D * H * vis
-        b, by = bound_ms(nbytes, flops, BF16_FLOPS)
-        # library yardstick: SDPA over the gathered dense K/V (GQA heads
-        # expanded, boolean position mask), gathered outside the timing
+        b, by = bound_ms(nbytes, 4 * D * H * vis, BF16_FLOPS)
+        # library yardstick: SDPA over the gathered dense K/V (int8:
+        # dequantized; GQA heads expanded, boolean position mask), made
+        # outside the timing
+        ck = pa.gather_block_kv(pools[0], tables)
+        cv = pa.gather_block_kv(pools[1], tables)
+        if quant:
+            ck = (ck.float() * pa.gather_block_scales(ks, tables, bs)[
+                ..., None]).to(torch.bfloat16)
+            cv = (cv.float() * pa.gather_block_scales(vs, tables, bs)[
+                ..., None]).to(torch.bfloat16)
         ck = ck.repeat_interleave(H // KV, 2)
         cv = cv.repeat_interleave(H // KV, 2)
-        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
-        L = ck.shape[1]
+        qs, kss, vss = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
+        del ck, cv
+        L = kss.shape[2]
         mask = (torch.arange(L, device="cuda")[None, None, :]
                 <= qpos[:, :, None])[:, None]
 
         def plain():
             ops.set_kernel_mode("reference")
-            pa.paged_verify_attention(q, kp, vp, tables, posv)
+            plain_fn(*args)
             ops.set_kernel_mode("auto")
 
         case = dict(form=form, B=B, W=W, H=H, KV=KV, D=D, block_size=bs,
-                    pos=pos, max_abs_err=err, worst_err_over_tol=worst_k,
-                    mutants=mutants,
-                    ms=time_ms(lambda: paged_attention_cuda(q, kp, vp, tables,
-                                                            posv), 50, flush),
+                    pos=pos, plan=plan,
+                    max_abs_err=(out.float() - ref.float()).abs().max()
+                    .item(),
+                    worst_err_over_tol=worst, mutants=mutants,
+                    ms=time_ms(lambda: wrapper(*args), 50, flush),
                     plain_ms=time_ms(plain, 20, flush),
                     bound_ms=b, bound_by=by,
                     library_ms=time_ms(
                         lambda: F.scaled_dot_product_attention(
-                            qs, ks, vs, attn_mask=mask), 50, flush))
-        log(f"kernel paged_attention {form} bf16: " + json.dumps(case))
+                            qs, kss, vss, attn_mask=mask), 50, flush),
+                    host_us=host_us(torch, lambda: wrapper(*args)))
+        log(f"kernel {name} {form}: " + json.dumps(case))
         cases.append(case)
+        del qs, kss, vss, mask, args, pools, out, ref
     return cases
+
+
+def kernel_paged_attention(torch, ops, pa, cfg):
+    return _paged_kernel_cases(torch, ops, pa, cfg, quant=False, seed=3)
 
 
 # --------------------------------------------------------------- phase 4
@@ -1491,97 +1592,9 @@ def kernel_w8(torch, ops):
 
 
 def kernel_paged_attention_int8(torch, ops, pa, cfg):
-    """The int8-pool attention kernel against its plain twin, decode and
-    prefill forms of phase 3, scratch block 0 poisoned with full codes at a
-    huge scale; the per-row tolerance is shown to reject the causal mask
-    one key off."""
-    from torch.nn import functional as F
-
-    from paddle_tpu_torch.ops.paged_attention_cuda import \
-        paged_attention_int8_cuda
-
-    H, KV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    bs = BLOCK_SIZE
-    g = torch.Generator(device="cuda").manual_seed(23)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    cases = []
-    forms = [("decode", 8, 1, [1000, 511, 512, 255, 37, 700, 128, 5]),
-             ("prefill", 1, 128, [384])]
-    for form, B, W, pos in forms:
-        q, kp, vp, tables, posv = _paged_case(torch, g, B, W, H, KV, D, bs,
-                                              pos, TABLE_WIDTH)
-        kq, ks = pa.quantize_block_kv(kp)
-        vq, vs = pa.quantize_block_kv(vp)
-        del kp, vp
-        kq[0], vq[0] = 127, -127
-        ks[0], vs[0] = 1e9, 1e9
-        args = (q, kq, ks, vq, vs, tables, posv)
-        out = paged_attention_int8_cuda(*args)
-        ops.set_kernel_mode("reference")
-        ref = pa.paged_verify_attention_q(*args)
-        ops.set_kernel_mode("auto")
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out.float()).all()),
-              f"paged_attention_int8 {form}: non-finite (scratch leaked?)")
-        # the tolerance of phase 3, with V the dequantized values
-        rms_v = pa.dequantize_block_kv(vq[1:], vs[1:]).square().mean() \
-            .sqrt().item()
-        worst = _row_ratio(out, ref, rms_v).max().item()
-        check(worst <= 1.0, f"paged_attention_int8 {form}: a row is off by "
-                            f"{worst:.3g} x its tolerance")
-        kc, vc, ksc, vsc = kq.clone(), vq.clone(), ks.clone(), vs.clone()
-        kc[0], vc[0], ksc[0], vsc[0] = kq[1], vq[1], ks[1], vs[1]
-        ck, cv = pa.gather_block_kv(kc, tables), pa.gather_block_kv(vc, tables)
-        ksl = pa.gather_block_scales(ksc, tables, bs)
-        vsl = pa.gather_block_scales(vsc, tables, bs)
-        qpos = posv.long()[:, None] + torch.arange(W, device="cuda")[None]
-        mutants = {}
-        for d in (1, -1):
-            r = _row_ratio(pa._attention_core(q, ck, cv, qpos + d, ksl, vsl),
-                           ref, rms_v)
-            mutants[f"mask{d:+d}"] = dict(
-                worst_err_over_tol=r.max().item(),
-                rows_failed=(r > 1.0).float().mean().item())
-            check(r.max().item() > 1.0, f"paged_attention_int8 {form}: the "
-                                        f"tolerance passes the mask{d:+d} "
-                                        f"fault")
-        ctx = [p + W for p in pos]
-        # q and out bf16; each visible K/V row once (int8) with its
-        # block's two scales
-        kv_bytes = sum(c * KV * D * 2 + -(-c // bs) * KV * 8 for c in ctx)
-        nbytes = 2 * q.numel() * 2 + kv_bytes + tables.numel() * 4 + B * 4
-        vis = sum(p + w + 1 for p in pos for w in range(W))
-        b, by = bound_ms(nbytes, 4 * D * H * vis, BF16_FLOPS)
-        # library yardstick: SDPA over the dequantized gathered K/V
-        dk = (ck.float() * ksl[..., None]).to(torch.bfloat16)
-        dv = (cv.float() * vsl[..., None]).to(torch.bfloat16)
-        dk = dk.repeat_interleave(H // KV, 2)
-        dv = dv.repeat_interleave(H // KV, 2)
-        qs, kss, vss = (t.transpose(1, 2).contiguous() for t in (q, dk, dv))
-        L = dk.shape[1]
-        mask = (torch.arange(L, device="cuda")[None, None, :]
-                <= qpos[:, :, None])[:, None]
-
-        def plain():
-            ops.set_kernel_mode("reference")
-            pa.paged_verify_attention_q(*args)
-            ops.set_kernel_mode("auto")
-
-        case = dict(form=form, B=B, W=W, H=H, KV=KV, D=D, block_size=bs,
-                    pos=pos, max_abs_err=(out.float() - ref.float()).abs()
-                    .max().item(),
-                    worst_err_over_tol=worst, mutants=mutants,
-                    ms=time_ms(lambda: paged_attention_int8_cuda(*args), 50,
-                               flush),
-                    plain_ms=time_ms(plain, 20, flush),
-                    bound_ms=b, bound_by=by,
-                    library_ms=time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qs, kss, vss, attn_mask=mask), 50, flush))
-        log(f"kernel paged_attention_int8 {form}: " + json.dumps(case))
-        cases.append(case)
-        del kc, vc, ck, cv, dk, dv, qs, kss, vss
-    return cases
+    """The int8-pool attention kernel against its plain twin at phase 3's
+    cases and faults (and the wrong block's scales)."""
+    return _paged_kernel_cases(torch, ops, pa, cfg, quant=True, seed=23)
 
 
 def kernel_fused_lora(torch, ops, cfg):
@@ -3572,6 +3585,8 @@ def main() -> int:
     stream_build = stream_gemm_build(_build)
     log("weight-streaming kernels (w8_matmul, fused LoRA; block_cols: W "
         "columns a block): " + json.dumps(stream_build))
+    paged_build = paged_attention_build(_build)
+    log("paged attention kernel (per pool type): " + json.dumps(paged_build))
 
     cfg = llama3_8b_config()
     rms_cases = kernel_rms_norm(torch, fused_norm, cfg)
@@ -3667,7 +3682,8 @@ def main() -> int:
     kernels = [
         entry("paged_attention", csrc + "paged_attention.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:253", attn_cases,
-              serve_res["launches"]["paged_attention"]),
+              serve_res["launches"]["paged_attention"],
+              build=paged_build["bf16"]),
         entry("rms_norm", csrc + "rms_norm.cu",
               "paddle_tpu/ops/fused_norm.py:84", rms_cases,
               serve_res["launches"]["rms_norm"],
@@ -3715,7 +3731,8 @@ def main() -> int:
               build=stream_build["w8_matmul"]),
         entry("paged_attention_int8", csrc + "paged_attention.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:253", attn8_cases,
-              int8_res["launches"]["paged_attention_int8"]),
+              int8_res["launches"]["paged_attention_int8"],
+              build=paged_build["int8"]),
         entry("fused_lora_matmul", csrc + "fused_lora.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:343", lora_cases,
               lora_res["launches"]["fused_lora_matmul"],

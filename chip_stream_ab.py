@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Measure the weight-streaming kernels (w8_matmul, fused LoRA) of the
-PyTorch/CUDA port on one NVIDIA card, against another tree or against
-variants of their design. Needs the card and nvcc.
+"""Measure the weight-streaming kernels (w8_matmul, fused LoRA) and the
+paged attention kernel of the PyTorch/CUDA port on one NVIDIA card, against
+another tree or against variants of their design. Needs the card and nvcc.
 
-    python3 chip_stream_ab.py --parent DIR [--rounds 2]
+    python3 chip_stream_ab.py --parent DIR [--rounds 2] [--only paged]
     python3 chip_stream_ab.py --variants NAME[,NAME...] [--rounds 3]
 
 ``--parent DIR``: DIR is a checkout of another commit (e.g. ``git archive``
 of the parent unpacked under an ignored directory). Each tree times its own
-wrappers (``w8_matmul_cuda``, ``fused_lora_matmul_cuda``) at the serving
-shapes of Llama-3-8B, in its own process, in the order parent, this, this,
-parent (repeated ``--rounds`` times): device ms a call (CUDA graph of 50
-calls, inputs cold in device memory) and the wrapper's host us a call.
+wrappers (``w8_matmul_cuda``, ``fused_lora_matmul_cuda``,
+``paged_attention_cuda``, ``paged_attention_int8_cuda``) at the serving
+shapes of Llama-3-8B (paged attention: every case of this tree's
+``chip_smoke.PAGED_FORMS``, fp and int8 pools), in its own process, in the
+order parent, this, this, parent (repeated ``--rounds`` times): device ms a
+call (CUDA graph of 50 calls, inputs cold in device memory) and the
+wrapper's host us a call. ``--only`` takes some of the families
+(``w8``, ``lora``, ``paged``).
 
-``--variants``: builds ``w8_matmul.cu`` and ``fused_lora.cu`` of this tree
-once as they are ("kept") and once per named variant (a design choice
-undone or changed: ``VARIANTS``) into libraries under ``chiprun_out/ab``,
-and times their C entry points on the same inputs in turns, ``--rounds``
-rounds, after holding each variant's output to the kept kernel's within
-the tolerance of ``chip_smoke.py`` phase 9.
+``--variants``: builds ``w8_matmul.cu``, ``fused_lora.cu`` and
+``paged_attention.cu`` of this tree once as they are ("kept") and once per
+named variant (a design choice undone or changed: ``VARIANTS``) into
+libraries under the ignored output directory (``ab/``), and times their C
+entry points on the same inputs in turns, ``--rounds`` rounds, after
+holding each variant's output to the plain version within the tolerances
+of ``chip_smoke.py`` phases 3 and 9 (only the families a variant changes
+are built and timed).
 
 Prints one JSON line per measurement and a summary line of medians.
 """
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import os
 import shutil
@@ -33,6 +40,9 @@ import subprocess
 import sys
 import time
 
+# the paged attention wrappers' module (the package exports a function
+# of the same name, so it is imported by its full name)
+PAGED_WRAPPERS = "paddle_tpu_torch.ops.paged_attention_cuda"
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (name, M, K, N): the int8 tick's projections and lm-head at 8 rows; a
 # prefill chunk's 128 rows at gate and down
@@ -104,11 +114,62 @@ VARIANTS = {
     "no_pdl": [("fused_lora.cu",
                 "e = sg::launch<false>(tw, x, p, M, K, N, epi, true, s);",
                 "e = sg::launch<false>(tw, x, p, M, K, N, epi, false, s);")],
+    # paged attention: a split's keys sized from the launch's keys to one
+    # wave of units, at least 128 (kept); fixed at 128 or 256; at least
+    # 256; no split at all (one block walks a tile's keys)
+    "pa_fixed128": [("paged_tiles.cuh",
+                     "  return ks > p.split_keys ? static_cast<int>(ks) : "
+                     "p.split_keys;", "  return p.split_keys;")],
+    "pa_fixed256": [("paged_tiles.cuh",
+                     "  return ks > p.split_keys ? static_cast<int>(ks) : "
+                     "p.split_keys;", "  return p.split_keys;"),
+                    ("paged_tiles.cuh", "kSplitKeys = 128;",
+                     "kSplitKeys = 256;")],
+    "pa_min256": [("paged_tiles.cuh", "kSplitKeys = 128;",
+                   "kSplitKeys = 256;")],
+    "pa_no_split": [("paged_tiles.cuh", "kSplitKeys = 128;",
+                     "kSplitKeys = 1 << 16;")],
+    # a block a work unit (no persistent grid of one wave)
+    "pa_grid_all": [("paged_attention.cu",
+                     "const int grid = pt::work_blocks(p, w);",
+                     "const int grid = static_cast<int>(p.units);")],
+    # the combine pass launched after the attention grid (no programmatic
+    # dependent launch)
+    "pa_no_pdl": [("paged_attention.cu", "  cfg.numAttrs = 1;",
+                   "  cfg.numAttrs = 0;")],
+    # registers a thread: consumers 216, producers 40 (208 / 48 kept)
+    "pa_regs_216": [("paged_attention.cu",
+                     "kConsumerRegs = 208, kProducerRegs = 48;",
+                     "kConsumerRegs = 216, kProducerRegs = 40;")],
+    # diagnostic, wrong results: the combine pass left out, to time it
+    "pa_no_combine": [("paged_attention.cu",
+                       "if (e != cudaSuccess || p.splits == 1) return (int)e;",
+                       "return (int)e;")],
 }
+
+# the sources each family builds from, and its C entry points
+FAMILIES = {"w8": (("w8_matmul.cu",), ("pt_w8_matmul",)),
+            "lora": (("fused_lora.cu",), ("pt_fused_lora",)),
+            "paged": (("paged_attention.cu",),
+                      ("pt_paged_attention", "pt_paged_attention_int8",
+                       "pt_paged_plan", "pt_paged_attention_config"))}
+
+
+def _families(edits):
+    """The families whose sources a variant's edits touch (a shared header
+    touches every family that includes it)."""
+    touched = {f for f, _, _ in edits}
+    out = []
+    for fam, (srcs, _) in FAMILIES.items():
+        text = "".join(open(os.path.join(HERE, "paddle_tpu_torch", "ops",
+                                         "csrc", f)).read() for f in srcs)
+        if touched & set(srcs) or any(f'"{h}"' in text for h in touched):
+            out.append(fam)
+    return out
 
 
 # variants whose results are wrong by design: timed, not checked
-DIAGNOSTIC = {"no_convert"}
+DIAGNOSTIC = {"no_convert", "pa_no_combine"}
 
 
 def _median(xs):
@@ -156,19 +217,39 @@ def _smoke():
     return mod
 
 
-def measure_tree(root: str) -> list:
+def _paged_inputs(torch, cs, g, form, B, W, pos, quant):
+    """One case of ``PAGED_FORMS`` as chip_smoke.py phases 3 and 9 make it:
+    (the wrapper's arguments, rms of V for the tolerance)."""
+    H, KV, D = 32, 8, 128
+    q, kp, vp, tables, posv = cs._paged_case(torch, g, B, W, H, KV, D,
+                                             cs.BLOCK_SIZE, pos,
+                                             cs.TABLE_WIDTH)
+    if not quant:
+        return (q, kp, vp, tables, posv), \
+            vp[1:].float().square().mean().sqrt().item()
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    kq, ks = pa.quantize_block_kv(kp)
+    vq, vs = pa.quantize_block_kv(vp)
+    kq[0], vq[0] = 127, -127
+    ks[0], vs[0] = 1e9, 1e9
+    rms_v = pa.dequantize_block_kv(vq[1:], vs[1:]).square().mean().sqrt() \
+        .item()
+    return (q, kq, ks, vq, vs, tables, posv), rms_v
+
+
+def measure_tree(root: str, families) -> list:
     """Time the wrappers of the tree at ``root`` (run in its own process)."""
     sys.path.insert(0, root)
     import torch
 
     cs = _smoke()
-    from paddle_tpu_torch.ops.fused_lora_cuda import fused_lora_matmul_cuda
-    from paddle_tpu_torch.ops.int8_cuda import w8_matmul_cuda
-
     g = torch.Generator(device="cuda").manual_seed(7)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = []
-    for name, M, K, N in W8_CASES:
+    for name, M, K, N in W8_CASES if "w8" in families else ():
+        from paddle_tpu_torch.ops.int8_cuda import w8_matmul_cuda
+
         if M > 16:
             continue        # the parent's kernel takes M <= 16
         wq, sc = _inputs(torch, g, K, N, True)
@@ -179,7 +260,10 @@ def measure_tree(root: str) -> list:
         rows.append(dict(kernel="w8_matmul", shape=name, M=M, K=K, N=N,
                          ms=cs.time_ms(fn, 50, flush),
                          host_us=cs.host_us(torch, fn)))
-    for name, E, S, K, N in LORA_CASES:
+    for name, E, S, K, N in LORA_CASES if "lora" in families else ():
+        from paddle_tpu_torch.ops.fused_lora_cuda import \
+            fused_lora_matmul_cuda
+
         w, _ = _inputs(torch, g, K, N, False)
         A, B, s = _lora_factors(torch, g, K, N)
         x = torch.randn(E, S, K, generator=g, device="cuda").to(
@@ -191,10 +275,27 @@ def measure_tree(root: str) -> list:
         rows.append(dict(kernel="fused_lora", shape=name, rows=E * S, K=K,
                          N=N, ms=cs.time_ms(fn, 50, flush),
                          host_us=cs.host_us(torch, fn)))
+    for quant in (False, True) if "paged" in families else ():
+        pac = importlib.import_module(PAGED_WRAPPERS)
+
+        wrapper = pac.paged_attention_int8_cuda if quant else \
+            pac.paged_attention_cuda
+        for form, B, W, pos in cs.PAGED_FORMS:
+            args, _ = _paged_inputs(torch, cs, g, form, B, W, pos, quant)
+
+            def fn():
+                return wrapper(*args)
+            rows.append(dict(kernel="paged_attention_int8" if quant
+                             else "paged_attention", shape=form, B=B, W=W,
+                             ms=cs.time_ms(fn, 50, flush),
+                             host_us=cs.host_us(torch, fn)))
+            del args
     return rows
 
 
-def _build_variant(name, edits, out_dir):
+def _start_variant(name, edits, out_dir, families):
+    """Copy this tree's sources with a variant's edits and start one nvcc
+    a source of the families (all variants' builds run together)."""
     from paddle_tpu_torch.ops import _build
 
     src = os.path.join(out_dir, name, "csrc")
@@ -208,21 +309,31 @@ def _build_variant(name, edits, out_dir):
                              f"{fname}")
         open(path, "w").write(text.replace(old, new))
     nvcc = _build.find_nvcc()
-    objs, procs = [], []
-    for f in ("w8_matmul.cu", "fused_lora.cu"):
+    procs = []
+    for f in (src_ for fam in families for src_ in FAMILIES[fam][0]):
         obj = os.path.join(src, f + ".o")
-        objs.append(obj)
-        procs.append(subprocess.Popen(
+        procs.append((obj, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-c", os.path.join(src, f), "-o", obj],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for p in procs:
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return name, src, procs
+
+
+def _finish_variant(started, families):
+    """Link a started variant's objects and load the library."""
+    from paddle_tpu_torch.ops import _build
+
+    name, src, procs = started
+    for obj, p in procs:
         text, _ = p.communicate()
         if p.returncode:
             raise SystemExit(f"variant {name}: nvcc failed:\n{text}")
+        with open(obj + ".log", "w") as f:     # ptxas lines, for reading
+            f.write(text)
     lib = os.path.join(src, "lib.so")
-    subprocess.run([nvcc, "-shared", "-o", lib, *objs], check=True)
+    subprocess.run([_build.find_nvcc(), "-shared", "-o", lib,
+                    *(obj for obj, _ in procs)], check=True)
     dll = ctypes.CDLL(lib)
-    for fn in ("pt_w8_matmul", "pt_fused_lora"):
+    for fn in (fn for fam in families for fn in FAMILIES[fam][1]):
         getattr(dll, fn).argtypes = list(_build.SIGNATURES[fn])
         getattr(dll, fn).restype = ctypes.c_int
     return dll
@@ -235,22 +346,36 @@ def measure_variants(names, rounds):
     cs = _smoke()
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import int8 as i8
+    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.fused_lora_cuda import MAX_SLICES
 
+    families = sorted({f for n in names for f in _families(VARIANTS[n])})
     out_dir = os.path.join(HERE, "chiprun_out", "ab")
     t0 = time.perf_counter()
-    libs = {"kept": _build_variant("kept", [], out_dir)}
-    for n in names:
-        libs[n] = _build_variant(n, VARIANTS[n], out_dir)
-    print(json.dumps({"built": list(libs), "seconds":
+    started = [_start_variant("kept", [], out_dir, families)] + [
+        _start_variant(n, VARIANTS[n], out_dir, families) for n in names]
+    libs = {st[0]: _finish_variant(st, families) for st in started}
+    print(json.dumps({"built": list(libs), "families": families, "seconds":
                       time.perf_counter() - t0}), flush=True)
+    if "paged" in families:
+        from paddle_tpu_torch.ops.paged_attention_cuda import _CONFIG_KEYS
+
+        for v, lib in libs.items():      # registers, local bytes, blocks
+            for quant in (0, 1):
+                vals = (ctypes.c_int * 8)()
+                _build.check(lib.pt_paged_attention_config(quant, vals),
+                             f"{v} config")
+                print(json.dumps({"variant": v, "int8": quant,
+                                  **dict(zip(_CONFIG_KEYS, vals))}),
+                      flush=True)
     g = torch.Generator(device="cuda").manual_seed(9)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     def stream():          # the capturing stream while a graph records
         return torch.cuda.current_stream().cuda_stream
 
+    # (label, make(lib) -> (out, fn), ratio(out) -> worst error / tolerance)
     calls = []
-    for name, M, K, N in W8_CASES:
+    for name, M, K, N in W8_CASES if "w8" in families else ():
         wq, sc = _inputs(torch, g, K, N, True)
         x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
         ref = i8._w8_plain(x, wq, sc)
@@ -261,8 +386,10 @@ def measure_variants(names, rounds):
             return out, lambda: lib.pt_w8_matmul(
                 x.data_ptr(), wq.data_ptr(), sc.data_ptr(), out.data_ptr(),
                 M, K, N, stream())
-        calls.append((f"w8 {name} M={M}", K, make, ref, mag))
-    for name, E, S, K, N in LORA_CASES:
+        calls.append((f"w8 {name} M={M}", make,
+                      lambda o, ref=ref, mag=mag, K=K:
+                      cs._el_ratio(o, ref, mag, K).max().item()))
+    for name, E, S, K, N in LORA_CASES if "lora" in families else ():
         from paddle_tpu_torch.nn import lora as tl
 
         w, _ = _inputs(torch, g, K, N, False)
@@ -285,16 +412,56 @@ def measure_variants(names, rounds):
                 B.data_ptr() + RANK * N * 4, s.data_ptr(), ai.data_ptr(),
                 out.data_ptr(), part.data_ptr(), E * S, K, N, RANK, S,
                 2 * K * RANK, 2 * RANK * N, stream())
-        calls.append((f"lora {name} rows={E * S}", K, make, ref, mag))
+        calls.append((f"lora {name} rows={E * S}", make,
+                      lambda o, ref=ref, mag=mag, K=K:
+                      cs._el_ratio(o, ref, mag, K).max().item()))
+    for quant in (False, True) if "paged" in families else ():
+        pac = importlib.import_module(PAGED_WRAPPERS)
+
+        for form, B, W, pos in cs.PAGED_FORMS:
+            args, rms_v = _paged_inputs(torch, cs, g, form, B, W, pos, quant)
+            cs_plain = pa.paged_verify_attention_q if quant else \
+                pa.paged_verify_attention
+            from paddle_tpu_torch import ops
+            ops.set_kernel_mode("reference")
+            ref = cs_plain(*args)
+            ops.set_kernel_mode("auto")
+            H, KV, D = 32, 8, 128
+            N, bs = args[1].shape[:2]
+            M = cs.TABLE_WIDTH
+
+            def make(lib, args=args, B=B, W=W, N=N, bs=bs, M=M,
+                     quant=quant):
+                vals = (ctypes.c_int * 7)()
+                _build.check(lib.pt_paged_plan(B, W, H, KV, bs, M, vals),
+                             "plan")
+                p = dict(zip(pac._PLAN_KEYS, vals))
+                out = torch.empty_like(args[0])
+                ws = [torch.empty((B, KV, p["splits"], p["rows"], last),
+                                  dtype=torch.float32, device="cuda")
+                      for last in (D, 2)] if p["splits"] > 1 else [None] * 2
+                ptr = [t.data_ptr() if t is not None else None for t in ws]
+                a = [t.data_ptr() for t in args]
+                # the workspace lives as long as the call (ws=ws)
+                if quant:
+                    return out, lambda ws=ws: lib.pt_paged_attention_int8(
+                        *a, out.data_ptr(), *ptr, B, W, H, KV, D, N, bs, M,
+                        stream())
+                return out, lambda ws=ws: lib.pt_paged_attention(
+                    *a, out.data_ptr(), *ptr, B, W, H, KV, D, N, bs, M,
+                    stream())
+            calls.append((f"paged{'_int8' if quant else ''} {form}", make,
+                          lambda o, ref=ref, r=rms_v:
+                          cs._row_ratio(o, ref, r).max().item()))
     times = {}
-    for label, K, make, ref, mag in calls:
+    for label, make, ratio in calls:
         fns = {}
         for v, lib in libs.items():
             print(json.dumps({"check": label, "variant": v}), flush=True)
             out, fn = make(lib)
             _build.check(fn(), f"{v} {label}")
             torch.cuda.synchronize()
-            worst = cs._el_ratio(out, ref, mag, K).max().item()
+            worst = ratio(out)
             cs.check(worst <= 1.0 or v in DIAGNOSTIC,
                      f"{v} {label}: off by {worst:.3g} x the tolerance")
             fns[v] = fn
@@ -316,10 +483,14 @@ def main() -> int:
     ap.add_argument("--parent", help="another tree to time beside this one")
     ap.add_argument("--variants", help="comma-separated names of VARIANTS")
     ap.add_argument("--rounds", type=int, default=0)
+    ap.add_argument("--only", default=",".join(FAMILIES),
+                    help="comma-separated families for --parent")
     ap.add_argument("--measure", help=argparse.SUPPRESS)   # one tree's run
     args = ap.parse_args()
+    families = args.only.split(",")
     if args.measure:
-        print("ROWS " + json.dumps(measure_tree(args.measure)), flush=True)
+        print("ROWS " + json.dumps(measure_tree(args.measure, families)),
+              flush=True)
         return 0
     import torch
 
@@ -339,7 +510,8 @@ def main() -> int:
                 root = os.path.abspath(args.parent) if tree == "parent" \
                     else HERE
                 p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                    "--measure", root], capture_output=True,
+                                    "--measure", root, "--only",
+                                    args.only], capture_output=True,
                                    text=True, cwd=root)
                 line = [ln for ln in p.stdout.splitlines()
                         if ln.startswith("ROWS ")]

@@ -55,8 +55,10 @@ from .lora import AdapterPool
 from .paged_cache import BlockAllocator
 from .scheduler import Scheduler
 
-# the JAX server's other constructor arguments, at the defaults this slice
-# serves; any other value raises NotImplementedError
+# the JAX server's constructor arguments that the port does not serve yet,
+# each at the one value it takes (the JAX default); any other value raises
+# NotImplementedError. The constructor keeps the JAX server's parameter
+# order, so that a positional call means the same in both packages
 _UNPORTED_DEFAULTS = {
     "tick_window": 1, "prompt_buckets": (32, 64, 128), "spec": None,
     "host_pool_bytes": None, "warm_pool_bytes": None,
@@ -109,8 +111,12 @@ class GenerationServer:
         out = srv.run()          # drain all pending requests
         tokens = out[rid]        # prompt + generated ids
 
-    ``device``: where the server runs — ``None`` means the current CUDA
-    device (raises when there is none); it must be the model's device.
+    The parameters keep the JAX server's order, so a positional call means
+    the same in both packages; the ones the port does not serve yet
+    (``_UNPORTED_DEFAULTS``) take only the JAX default and raise
+    NotImplementedError on any other value. ``device`` comes after them:
+    where the server runs — ``None`` means the current CUDA device (raises
+    when there is none); it must be the model's device.
     ``block_size`` tokens per KV block; ``num_blocks`` bounds KV memory
     (default: every slot can hold ``max_len`` tokens, plus scratch), or
     ``pool_bytes`` sizes the pool by a byte budget (``num_blocks =
@@ -133,22 +139,28 @@ class GenerationServer:
     ``prefetch_depth`` and either ``dequant`` (int8 pools)."""
 
     def __init__(self, model, max_batch: int = 4, max_len: int = 256,
+                 prompt_buckets: Sequence[int] = (32, 64, 128),
                  eos_token_id: Optional[int] = None, seed: int = 0,
-                 cache: str = "paged",
+                 tick_window: int = 1, cache: str = "paged",
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 prefill_chunk: int = 32, policy=None, device=None,
+                 prefill_chunk: int = 32, spec=None,
                  kv_quant: str = "none", pool_bytes: Optional[int] = None,
-                 lora=None, kernels: str = "auto", mk_geometry=None,
-                 **unported):
+                 policy=None, host_pool_bytes: Optional[int] = None,
+                 warm_pool_bytes: Optional[int] = None,
+                 tier_demote_low: Optional[float] = None,
+                 tier_demote_high: Optional[float] = None,
+                 lora=None, telemetry=None, faults=None,
+                 fault_retries: int = 3, kernels: str = "auto",
+                 mk_geometry=None, mesh=None, role: str = "any",
+                 profile=None, clock=None, device=None):
         from ..ops import KERNEL_MODES, kernel_mode, set_kernel_mode
 
-        for name, value in unported.items():
-            if name not in _UNPORTED_DEFAULTS:
-                raise TypeError(f"GenerationServer got an unexpected keyword "
-                                f"argument {name!r}")
-            if value != _UNPORTED_DEFAULTS[name]:
+        given = locals()
+        for name, default in _UNPORTED_DEFAULTS.items():
+            if given[name] != default:
                 raise NotImplementedError(
-                    f"GenerationServer({name}={value!r}) is not ported yet")
+                    f"GenerationServer({name}={given[name]!r}) is not "
+                    f"ported yet")
         if kernels == "pallas":
             raise NotImplementedError(
                 "kernels='pallas' forces the Pallas kernels in interpret "

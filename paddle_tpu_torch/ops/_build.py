@@ -41,9 +41,14 @@ SIGNATURES = {
     # x, w, y, rows, dim, eps, stream
     "pt_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
     # q, k_pool, v_pool, tables, pos, out, part_acc, part_ml,
-    # B, W, H, KV, D, N, bs, M, S, P, stream
+    # B, W, H, KV, D, N, bs, M, stream
     "pt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # B, W, H, KV, bs, M, out (7 ints): the paged attention plan
+    "pt_paged_plan": (_I, _I, _I, _I, _I, _I, _P),
+    # quant (0 bf16 pools, 1 int8), out (8 ints): its launch shape,
+    # registers and local bytes
+    "pt_paged_attention_config": (_I, _P),
     # x, w, b, y, rows, dim, dtype (0 bf16, 1 fp32), eps, stream
     "pt_layer_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, out, lse, B, H, Hkv, Sq, Sk, D, causal, scale, stream
@@ -63,9 +68,9 @@ SIGNATURES = {
     # D, out (8 ints): the forward kernel's, as pt_flash_bwd_config
     "pt_flash_fwd_config": (_I, _P),
     # q, kq_pool, k_scales, vq_pool, v_scales, tables, pos, out, part_acc,
-    # part_ml, B, W, H, KV, D, N, bs, M, S, P, stream
+    # part_ml, B, W, H, KV, D, N, bs, M, stream
     "pt_paged_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w_q, scale, out, M, K, N, stream
     "pt_w8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     # token tile, 64-column blocks of W a block, out (8 ints): the streaming

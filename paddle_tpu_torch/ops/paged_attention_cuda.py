@@ -4,43 +4,63 @@ twin ``paged_attention_q``).
 
 :func:`paged_attention_cuda` (fp pools) and :func:`paged_attention_int8_cuda`
 (int8 codes with per-(block, KV head) f32 scales) launch
-``csrc/paged_attention.cu``: one online-softmax kernel for decode (W=1),
-verify windows (W=k+1) and chunked prefill (B=1, W=chunk). The plain
-versions they are held against are ``paged_attention._attention_core`` over
-the gathered context (``paged_attention.paged_verify_attention`` and
-``paged_verify_attention_q`` under ``"reference"`` mode).
+``csrc/paged_attention.cu``: one wgmma kernel fed by a TMA ring over the
+pool's pages for decode (W=1), verify windows (W=k+1) and chunked prefill
+(B=1, W=chunk), and a combine pass where a tile's keys were split. The
+launch plan is ``csrc/paged_tiles.cuh``'s (:func:`plan`): the grid, the
+splits and the workspace follow from shapes alone, and the kernel reads
+``pos`` on the card, so no wrapper reads a device tensor on the host (a
+call can be captured in a CUDA graph). The plain versions they are held
+against are ``paged_attention._attention_core`` over the gathered context
+(``paged_attention.paged_verify_attention`` and ``paged_verify_attention_q``
+under ``"reference"`` mode).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 # the one head dim the kernel is instantiated for (Llama-3-8B's)
 HEAD_DIM = 128
-# blocks per SM the context split aims for when (row tiles x KV heads x
-# batch) alone would leave SMs idle
-_BLOCKS_PER_SM = 4
+# block sizes the kernel takes: multiples of 8, the TPU kernel's rule on
+# hardware (paddle_tpu/ops/paged_attention_pallas.py:70-79)
+BLOCK_MULTIPLE = 8
+_PLAN_KEYS = ("rows", "tiles", "split_keys", "splits", "box", "items",
+              "units")
+_CONFIG_KEYS = ("threads", "block_rows", "stage_keys", "stages",
+                "smem_bytes", "registers", "local_bytes", "blocks_per_sm")
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def plan(B: int, W: int, H: int, KV: int, bs: int, M: int) -> dict:
+    """The kernel's launch plan from shapes alone (``paged_tiles::plan``):
+    query rows a (batch row, KV head), 64-row tiles, keys a split, splits
+    a tile at most, keys a TMA box, work items and work units (item x KV
+    head) at most."""
+    from . import _build
+
+    vals = (ctypes.c_int * 7)()
+    _build.check(_build.library().pt_paged_plan(B, W, H, KV, bs, M, vals),
+                 "paged_plan")
+    return dict(zip(_PLAN_KEYS, vals))
 
 
-def context_splits(B: int, Wr: int, KV: int, M: int, sms: int):
-    """(S, P): split each row's M table entries into S parts of P entries.
+def kernel_config() -> dict:
+    """The kernel's launch shape per pool type (``bf16``, ``int8``):
+    threads, query rows a block, keys a ring stage, ring stages, shared
+    memory, registers and local bytes a thread, blocks an SM holds."""
+    from . import _build
 
-    One part per row when the row tiles alone fill the card; else enough
-    parts for about ``_BLOCKS_PER_SM`` blocks per SM (flash-decoding). The
-    kernel tiles a KV head's ``Wr`` query rows by 4 (Wr <= 4) or 16."""
-    tiles = -(-Wr // (4 if Wr <= 4 else 16))
-    base = tiles * KV * B
-    if base >= sms:
-        return 1, M
-    S = min(M, -(-_BLOCKS_PER_SM * sms // base), max(65535 // B, 1))
-    P = -(-M // S)
-    return -(-M // P), P
+    lib = _build.library()
+    out = {}
+    for name, quant in (("bf16", 0), ("int8", 1)):
+        vals = (ctypes.c_int * 8)()
+        _build.check(lib.pt_paged_attention_config(quant, vals),
+                     "paged_attention_config")
+        out[name] = dict(zip(_CONFIG_KEYS, vals))
+    return out
 
 
 def _on_one_card(name, *tensors):
@@ -71,6 +91,11 @@ def _check_common(name, q, pools, block_tables, pos):
     if H % KV:
         raise ValueError(f"{name}: {H} query heads not a multiple of {KV} "
                          f"KV heads")
+    if bs <= 0 or bs % BLOCK_MULTIPLE:
+        raise ValueError(f"{name}: unsupported block_size {bs}: the kernel "
+                         f"takes multiples of {BLOCK_MULTIPLE} (the TPU "
+                         f"kernel's rule on hardware, paged_attention_pallas"
+                         f".py:70-79)")
     if block_tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"{name}: block_tables and pos must be int32")
     if B > 65535 or KV > 65535 or M == 0:
@@ -82,18 +107,18 @@ def _check_common(name, q, pools, block_tables, pos):
     return B, W, H, D, N, bs, KV, M
 
 
-def _workspace(q, B, W, H, KV, M):
-    """(S, P, out, part_acc, part_ml) for one launch."""
-    Wr = W * (H // KV)
-    S, P = context_splits(B, Wr, KV, M, _sm_count(q.device.index or 0))
+def _workspace(q, B, W, H, KV, bs, M):
+    """(out, part_acc, part_ml) for one launch, sized from shapes alone:
+    the split workspaces only where the plan may split a tile's keys."""
+    p = plan(B, W, H, KV, bs, M)
     out = torch.empty_like(q)
     part_acc = part_ml = None
-    if S > 1:
-        part_acc = torch.empty((B, KV, S, Wr, q.shape[-1]),
+    if p["splits"] > 1:
+        part_acc = torch.empty((B, KV, p["splits"], p["rows"], q.shape[-1]),
                                dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, KV, S, Wr, 2), dtype=torch.float32,
-                              device=q.device)
-    return S, P, out, part_acc, part_ml
+        part_ml = torch.empty((B, KV, p["splits"], p["rows"], 2),
+                              dtype=torch.float32, device=q.device)
+    return out, part_acc, part_ml
 
 
 def _ptr(t):
@@ -105,8 +130,9 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos):
 
     q: (B, W, H, D) bfloat16 with D = 128; k_pool/v_pool: (N, bs, KV, D)
     bfloat16 (the kernel is instantiated for no other type or head dim
-    yet); block_tables: int32 (B, M) — every entry a valid block id;
-    pos: int32 (B,) absolute position of each row's first query token.
+    yet), bs a multiple of 8; block_tables: int32 (B, M) — every entry a
+    valid block id; pos: int32 (B,) absolute position of each row's first
+    query token.
     Returns (B, W, H, D) in q's dtype. Raises on a shape, dtype or device
     the kernel does not take."""
     from . import _build
@@ -121,13 +147,13 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos):
                         f"{v_pool.dtype}")
     block_tables = block_tables.contiguous()
     pos = pos.contiguous()
-    S, P, out, part_acc, part_ml = _workspace(q, B, W, H, KV, M)
+    out, part_acc, part_ml = _workspace(q, B, W, H, KV, bs, M)
     lib = _build.library()
     err = lib.pt_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
         _ptr(part_acc), _ptr(part_ml),
-        B, W, H, KV, D, N, bs, M, S, P, _build.stream_ptr(q.device))
+        B, W, H, KV, D, N, bs, M, _build.stream_ptr(q.device))
     _build.check(err, "paged_attention")
     paged_attention_cuda.launches += 1
     return out
@@ -166,13 +192,13 @@ def paged_attention_int8_cuda(q, kq_pool, k_scales, vq_pool, v_scales,
                  pos)
     block_tables = block_tables.contiguous()
     pos = pos.contiguous()
-    S, P, out, part_acc, part_ml = _workspace(q, B, W, H, KV, M)
+    out, part_acc, part_ml = _workspace(q, B, W, H, KV, bs, M)
     lib = _build.library()
     err = lib.pt_paged_attention_int8(
         q.data_ptr(), kq_pool.data_ptr(), k_scales.data_ptr(),
         vq_pool.data_ptr(), v_scales.data_ptr(), block_tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml),
-        B, W, H, KV, D, N, bs, M, S, P, _build.stream_ptr(q.device))
+        B, W, H, KV, D, N, bs, M, _build.stream_ptr(q.device))
     _build.check(err, "paged_attention_int8")
     paged_attention_int8_cuda.launches += 1
     return out

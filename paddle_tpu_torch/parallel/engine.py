@@ -26,9 +26,11 @@ region over the whole loss would hold every activation at once in the
 backward, as no remat does. A model that checkpoints no layer in the
 scope is refused (NotImplementedError) rather than run without remat.
 
-Not ported yet (they raise): a mesh of more than one device, ``fsdp``,
-``remat_policy="offload_attn"``, ``offload_opt_state``, ``injector`` and
-``telemetry``.
+The constructor keeps the JAX engine's parameter order. Not ported yet
+(they raise NotImplementedError at any value but the JAX default): a mesh
+of more than one device, ``fsdp``, ``batch_spec``, ``donate``,
+``abstract``, ``remat_policy="offload_attn"``, ``offload_opt_state``,
+``alias_model_params``, ``injector`` and ``telemetry``.
 """
 from __future__ import annotations
 
@@ -39,7 +41,15 @@ import torch
 
 from ..distributed.fleet.recompute import check_remat_policy, remat_layers
 
-_UNPORTED = {"fsdp": False, "offload_opt_state": False, "injector": None,
+# the JAX engine's constructor arguments that the port does not take yet,
+# each at the one value it accepts (the JAX default; ``batch_spec``'s
+# ``P("data")`` equals the tuple ``("data",)``, ``injector``'s null
+# injector is None); any other value raises NotImplementedError. The
+# constructor keeps the JAX engine's parameter order, so that a positional
+# call means the same in both packages
+_UNPORTED = {"fsdp": False, "batch_spec": ("data",), "donate": True,
+             "abstract": False, "offload_opt_state": False,
+             "alias_model_params": False, "injector": None,
              "telemetry": None}
 
 
@@ -59,13 +69,15 @@ class ParallelEngine:
 
     def __init__(self, model, optimizer=None,
                  loss_fn: Optional[Callable] = None, mesh=None,
-                 remat: bool = False, remat_policy: Optional[str] = "dots",
-                 grad_accum: int = 1, **unported):
-        for key, value in unported.items():
-            if key not in _UNPORTED:
-                raise TypeError(f"ParallelEngine got an unexpected keyword "
-                                f"argument {key!r}")
-            if value != _UNPORTED[key]:
+                 fsdp: bool = False, remat: bool = False,
+                 remat_policy: Optional[str] = "dots",
+                 batch_spec=("data",), donate: bool = True,
+                 abstract: bool = False, offload_opt_state: bool = False,
+                 alias_model_params: bool = False, grad_accum: int = 1,
+                 injector=None, telemetry=None):
+        given = locals()
+        for key, default in _UNPORTED.items():
+            if given[key] != default:
                 raise NotImplementedError(
                     f"ParallelEngine({key}=...) is not ported yet (the "
                     f"port's engine trains on one device)")

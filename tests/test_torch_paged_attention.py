@@ -163,17 +163,29 @@ def test_write_chunk_kv_refuses_unaligned_or_overflowing_chunks():
                            torch.arange(3, dtype=torch.int32), 8)
 
 
-@pytest.mark.parametrize("B,Wr,KV,M,want", [
-    (8, 4, 8, 136, (9, 16)),      # Llama-3-8B decode at B=8: 64 blocks
-    (1, 512, 8, 136, (1, 136)),   # prefill chunk 128: 256 blocks fill 132
-    (1, 4, 8, 3, (3, 1)),         # never more parts than table entries
-    (2, 16, 2, 40, (40, 1))])     # tiles of 16 rows at W > 1
-def test_context_splits_cover_the_table_once(B, Wr, KV, M, want):
-    from paddle_tpu_torch.ops.paged_attention_cuda import context_splits
+@pytest.fixture(scope="module")
+def plan_harness(tmp_path_factory):
+    from tests.test_torch_paged_tiles import get_plan, plan_harness
 
-    S, P = context_splits(B, Wr, KV, M, sms=132)
-    assert (S, P) == want
-    assert S * P >= M and (S - 1) * P < M     # every entry in one part
+    run = plan_harness(tmp_path_factory.mktemp("paged_plan"))
+    return lambda *shape: get_plan(run, *shape)
+
+
+@pytest.mark.parametrize("B,Wr,KV,M,want", [
+    (8, 4, 8, 136, (17, 128)),    # Llama-3-8B decode at B=8
+    (1, 512, 8, 136, (17, 128)),  # prefill chunk 128: 8 tiles of 64 rows
+    (1, 4, 8, 3, (1, 128)),       # never more splits than the table needs
+    (2, 16, 2, 40, (5, 128))])    # a verify window of 16 rows
+def test_context_splits_cover_the_table_once(plan_harness, B, Wr, KV, M,
+                                             want):
+    """The kernel's plan (``csrc/paged_tiles.cuh``) splits a table of M
+    entries of 16 keys into (splits, keys a split) at the fewest keys a
+    split takes, from shapes alone: every key in one split (a launch's
+    splits are as long or longer, so never more of them)."""
+    p = plan_harness(B, Wr // 4, 4 * KV, KV, 16, M)
+    S, keys = p["splits"], p["split_keys"]
+    assert (S, keys) == want
+    assert S * keys >= M * 16 and (S - 1) * keys < M * 16
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
