@@ -1183,6 +1183,58 @@ def _mutant_twin(torch, mk, fault, args, kw):
         mk._attention_core, mk.gather_block_scales = orig_core, orig_scales
 
 
+
+def _phase_weight_bytes(cfg):
+    """Weight bytes a layer of each product phase of the tick reads (the
+    counters' TB/s): q/k/v, o, gate/up, down."""
+    Hd, I = cfg.hidden_size, cfg.intermediate_size
+    KVD = cfg.num_key_value_heads * cfg.head_dim
+    return {"qkv": Hd * (Hd + 2 * KVD) * 2, "o": Hd * Hd * 2,
+            "gate_up": 2 * Hd * I * 2, "down": I * Hd * 2}
+
+
+def _tick_breakdown(torch, mkc, trace, phase_bytes):
+    """The clock counters of one traced tick, per phase summed over the
+    layers: the median and the largest work time over the blocks (entry
+    to the end of the block's work), the median barrier wait (end of work
+    to exit from the grid barrier), the phase's wall time (last exit less
+    first entry, a layer), the median and largest waits of the consumers
+    on the weight ring and of the producer on a full ring (0 where the
+    kernel has no ring), and the phase's weight bytes over its wall time;
+    all in ms, the rate in TB/s."""
+    t = trace.cpu().double()
+    out = {}
+    for p, name in enumerate(mkc.TRACE_PHASES):
+        entry, end, exit_ = t[:, p, :, 0], t[:, p, :, 1], t[:, p, :, 2]
+        ran = (entry != 0).all(1)
+        if not bool(ran.any()):
+            continue
+        e, w, x = entry[ran], end[ran], exit_[ran]
+        work = (w - e).sum(0) / 1e6             # per block, ms
+        wait = (x - w).sum(0) / 1e6
+        cw = t[ran, p, :, 3].sum(0) / 1e6
+        pw = t[ran, p, :, 4].sum(0) / 1e6
+        wall = float((x.max(1).values - e.min(1).values).sum()) / 1e6
+        row = dict(layers=int(ran.sum()),
+                   work_median_ms=float(work.median()),
+                   work_max_ms=float(work.max()),
+                   barrier_wait_median_ms=float(wait.median()),
+                   wall_ms=wall,
+                   consumer_ring_wait_median_ms=float(cw.median()),
+                   consumer_ring_wait_max_ms=float(cw.max()),
+                   producer_full_wait_median_ms=float(pw.median()))
+        if name in phase_bytes:
+            nbytes = phase_bytes[name] * int(ran.sum())
+            row["weight_bytes"] = nbytes
+            row["weight_tb_s"] = nbytes / (wall * 1e-3) / 1e12
+        out[name] = row
+    first = t[:, :, :, 0]
+    last = t[:, :, :, 2]
+    out["tick_ms"] = float(last[last != 0].max() - first[first != 0].min()) \
+        / 1e6
+    return out
+
+
 def kernel_decode_tick(torch, ops, model):
     """The whole-tick kernel against its plain twin, bf16, Llama-3-8B width,
     1 and MK_CHECK_LAYERS layers of the served model, B = 8, W in {1, 4},
@@ -1197,11 +1249,13 @@ def kernel_decode_tick(torch, ops, model):
     kernel, twin and per-layer kernels timed at the model's full depth
     (W = 1). Returns {variant: [timed case, check cases...]}."""
     from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import decode_megakernel_cuda as mkc
     from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = model.cfg
     eps, bs = cfg.rms_norm_eps, BLOCK_SIZE
+    phase_bytes = _phase_weight_bytes(cfg)
     g = torch.Generator(device="cuda").manual_seed(31)
     cases = {name: [] for name, *_ in MK_VARIANTS}
     for name, quant, dequant, with_lora in MK_VARIANTS:
@@ -1354,6 +1408,43 @@ def kernel_decode_tick(torch, ops, model):
             ms = time_ms(kernel, 5)
             plain_ms = time_ms(plain, 2)
             per_layer_ms = time_ms(per_layer, 3)
+
+            # the clock counters of one tick, and its bits: two ticks on
+            # the same inputs (fresh copies of the pools) are the same, and
+            # a traced tick is the untraced one
+            def fresh(trace=None):
+                kp = [p.clone() for p in pools]
+                out = decode_tick_cuda(x, kp, tables, pos, weights, cosr,
+                                       sinr, trace=trace, **kw)
+                return out, kp
+
+            o1, k1 = fresh()
+            o2, k2 = fresh()
+            buf = mkc.trace_buffer(L, x.device)
+            o3, k3 = fresh(buf)
+            torch.cuda.synchronize()
+            deterministic = bool(torch.equal(o1, o2) and all(
+                torch.equal(u, v) for u, v in zip(k1, k2)))
+            trace_identical = bool(torch.equal(o1, o3) and all(
+                torch.equal(u, v) for u, v in zip(k1, k3)))
+            counters = _tick_breakdown(torch, mkc, buf, phase_bytes)
+            del o1, o2, o3, k1, k2, k3, buf
+            log(f"kernel decode_tick {name} clock counters (full depth, "
+                f"W = 1): " + json.dumps(counters))
+            check(deterministic, f"decode_tick {name}: two ticks on the "
+                                 f"same inputs differ")
+            check(trace_identical, f"decode_tick {name}: the traced tick "
+                                   f"differs from the untraced one")
+            # a verify tick, W = 4, at full depth
+            x4, p4, t4, pos4, c4, s4 = _tick_inputs(torch, model, g, L, 4,
+                                                    quant)
+            for pp in p4:
+                pp[0] = 0
+            kw4 = dict(kw, lora=_tick_lora(torch, cfg, L, g)
+                       if with_lora else None)
+            ms_w4 = time_ms(lambda: decode_tick_cuda(
+                x4, p4, t4, pos4, weights, c4, s4, **kw4), 5)
+            del x4, p4, kw4
         # bytes this data needs: every layer's seven projections and two
         # norm weights once, each visible K/V row once (int8: each visible
         # block's codes, which the insert reads whole, and its scales; the
@@ -1391,6 +1482,8 @@ def kernel_decode_tick(torch, ops, model):
                  .multi_processor_count,      # one block per SM
                  barriers_per_tick=barriers,
                  ms=ms, plain_ms=plain_ms, per_layer_kernels_ms=per_layer_ms,
+                 ms_w4=ms_w4, deterministic=deterministic,
+                 trace_identical=trace_identical, counters=counters,
                  bound_ms=b, bound_by=by, bytes=nbytes,
                  hbm_bytes_per_trip=est,
                  library_ms=None,
@@ -3589,6 +3682,13 @@ def main() -> int:
     log("paged attention kernel (per pool type): " + json.dumps(paged_build))
 
     cfg = llama3_8b_config()
+    if sys.argv[1:] == ["--only", "tick"]:
+        # a diagnostic run: the build and phase 13 alone, no final line
+        model = LlamaForCausalLM(cfg)
+        kernel_decode_tick(torch, ops, model)
+        log(f"partial run (phase 13 only): {time.perf_counter() - t_start:.1f}"
+            f" s")
+        return 0
     rms_cases = kernel_rms_norm(torch, fused_norm, cfg)
     attn_cases = kernel_paged_attention(torch, ops, pa, cfg)
 

@@ -90,9 +90,10 @@ SIGNATURES = {
                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
     # wptrs, pools, tables, pos, cos_rows, sin_rows, xres, q, ao, hbuf,
     # ktok, vtok, lora_a (host), lora_b (host), lscale, laidx, lpart,
-    # L, B, W, H, KV, D, I, bs, M, quant, dequant, R, NS, eps, stream
+    # trace (or NULL), L, B, W, H, KV, D, I, bs, M, quant, dequant, R, NS,
+    # eps, stream
     "pt_decode_tick": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _P),
 }

@@ -112,6 +112,12 @@ constexpr int kShrink = 512;    // K slice of one shrink item
 constexpr int kRedFloats = kKGroups * kRows * kTileN;
 constexpr int kMaxBlock = kRedFloats / kHeadDim;  // int8: bs <= 128
 constexpr float kNegInf = -1e30f;
+// the clock counters' layout: phases of a layer (LoRA shrinks included) and
+// the slots of a (layer, phase, block): %globaltimer at phase entry, at the
+// end of the block's work, at its exit from the grid barrier, and two wait
+// sums (ns) that only a ring of weight stages has
+constexpr int kPhases = 9;
+constexpr int kTraceSlots = 5;
 
 typedef __nv_bfloat16 bf16;
 
@@ -133,6 +139,7 @@ struct Args {
   const float* lscale;       // (pages,) alpha / r
   const int* laidx;          // (B,) page of each row
   float* lpart;              // (B*W, 7, NS, R) shrink partial sums
+  unsigned long long* trace; // (L, kPhases, grid, kTraceSlots) or nullptr
   int L, B, W, H, KV, I, bs, M;
   int dequant, R, NS;        // int8: 0 "scores", 1 "tile"; LoRA rank, slices
   float eps;
@@ -164,6 +171,22 @@ struct Smem {
 // shared-memory carve-out: the next one (228 KB) would leave L1, where the
 // register spills live, 28 KB instead of 60.
 static_assert(sizeof(Smem) + 1024 <= 196 * 1024, "Smem outgrew its carve-out");
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// record slot `slot` of (layer l, phase p) for this block (a no-op without
+// a trace buffer); the work-end slot waits for every thread of the block
+__device__ __forceinline__ void stamp(const Args& a, int l, int p, int slot) {
+  if (a.trace == nullptr) return;
+  if (slot == 1) __syncthreads();
+  if (threadIdx.x == 0)
+    a.trace[(((size_t)l * kPhases + p) * gridDim.x + blockIdx.x) * kTraceSlots +
+            slot] = globaltimer();
+}
 
 __device__ __forceinline__ float bf(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16(v));
@@ -774,45 +797,55 @@ __global__ void __launch_bounds__(kThreads, 1) decode_tick_kernel(Args a) {
   const bool s_gu = kLora && any_served(a, 4, 2);
   const bool s_d = kLora && any_served(a, 6, 1);
   int staged = -1;
+  // phase p of layer l: entry, work, end of work, grid barrier, exit
+  auto run = [&](int l, int p, auto&& work) {
+    stamp(a, l, p, 0);
+    work();
+    stamp(a, l, p, 1);
+    grid.sync();
+    stamp(a, l, p, 2);
+  };
   for (int l = 0; l < a.L; ++l) {
-    if (s_qkv) {
-      phase_shrink(a, l, 0, 3, XSrc{a.xres, reinterpret_cast<const bf16*>(
-                                        a.wptrs[7 * a.L + l]), hid, 0}, s);
-      grid.sync();
-    }
+    if (s_qkv)
+      run(l, 0, [&] {
+        phase_shrink(a, l, 0, 3, XSrc{a.xres, reinterpret_cast<const bf16*>(
+                                          a.wptrs[7 * a.L + l]), hid, 0}, s);
+      });
     staged = -1;               // the residual changed since the last stage
-    phase_qkv<kQ, kLora>(a, l, s, staged);
-    grid.sync();               // this tick's K/V and q are visible
-    if constexpr (!kQ) phase_attention<false, false>(a, l, s);
-    else if (a.dequant == 0) phase_attention<true, false>(a, l, s);
-    else phase_attention<true, true>(a, l, s);
-    grid.sync();
-    if (s_o) {
-      phase_shrink(a, l, 3, 1, XSrc{a.ao, nullptr, hid, 0}, s);
-      grid.sync();
-    }
+    run(l, 1, [&] { phase_qkv<kQ, kLora>(a, l, s, staged); });
+    // this tick's K/V and q are visible
+    run(l, 2, [&] {
+      if constexpr (!kQ) phase_attention<false, false>(a, l, s);
+      else if (a.dequant == 0) phase_attention<true, false>(a, l, s);
+      else phase_attention<true, true>(a, l, s);
+    });
+    if (s_o)
+      run(l, 3, [&] {
+        phase_shrink(a, l, 3, 1, XSrc{a.ao, nullptr, hid, 0}, s);
+      });
     staged = -1;
-    phase_residual<kLora>(a, l, reinterpret_cast<const bf16*>(
-                              a.wptrs[3 * a.L + l]), 3,
-                          XSrc{a.ao, nullptr, hid, 2}, hid, s, staged);
-    grid.sync();
-    if (s_gu) {
-      phase_shrink(a, l, 4, 2, XSrc{a.xres, reinterpret_cast<const bf16*>(
-                                        a.wptrs[8 * a.L + l]), hid, 0}, s);
-      grid.sync();
-    }
+    run(l, 4, [&] {
+      phase_residual<kLora>(a, l, reinterpret_cast<const bf16*>(
+                                a.wptrs[3 * a.L + l]), 3,
+                            XSrc{a.ao, nullptr, hid, 2}, hid, s, staged);
+    });
+    if (s_gu)
+      run(l, 5, [&] {
+        phase_shrink(a, l, 4, 2, XSrc{a.xres, reinterpret_cast<const bf16*>(
+                                          a.wptrs[8 * a.L + l]), hid, 0}, s);
+      });
     staged = -1;
-    phase_gate_up<kLora>(a, l, s, staged);
-    grid.sync();
-    if (s_d) {
-      phase_shrink(a, l, 6, 1, XSrc{a.hbuf, nullptr, a.I, 0}, s);
-      grid.sync();
-    }
+    run(l, 6, [&] { phase_gate_up<kLora>(a, l, s, staged); });
+    if (s_d)
+      run(l, 7, [&] {
+        phase_shrink(a, l, 6, 1, XSrc{a.hbuf, nullptr, a.I, 0}, s);
+      });
     staged = -1;
-    phase_residual<kLora>(a, l, reinterpret_cast<const bf16*>(
-                              a.wptrs[6 * a.L + l]), 6,
-                          XSrc{a.hbuf, nullptr, a.I, 4}, a.I, s, staged);
-    grid.sync();
+    run(l, 8, [&] {
+      phase_residual<kLora>(a, l, reinterpret_cast<const bf16*>(
+                                a.wptrs[6 * a.L + l]), 6,
+                            XSrc{a.hbuf, nullptr, a.I, 4}, a.I, s, staged);
+    });
   }
 }
 
@@ -832,7 +865,8 @@ extern "C" int pt_decode_tick(const void* wptrs, const void* pools,
                               void* xres, void* q, void* ao, void* hbuf,
                               void* ktok, void* vtok, const void* lora_a,
                               const void* lora_b, const void* lscale,
-                              const void* laidx, void* lpart, int L, int B,
+                              const void* laidx, void* lpart, void* trace,
+                              int L, int B,
                               int W, int H, int KV, int D, int I, int bs,
                               int M, int quant, int dequant, int R, int NS,
                               float eps, void* stream) {
@@ -894,6 +928,7 @@ extern "C" int pt_decode_tick(const void* wptrs, const void* pools,
   a.lscale = static_cast<const float*>(lscale);
   a.laidx = static_cast<const int*>(laidx);
   a.lpart = static_cast<float*>(lpart);
+  a.trace = static_cast<unsigned long long*>(trace);
   a.L = L; a.B = B; a.W = W; a.H = H; a.KV = KV; a.I = I; a.bs = bs; a.M = M;
   a.dequant = dequant; a.R = n_lora ? R : 0; a.NS = NS;
   a.eps = eps;

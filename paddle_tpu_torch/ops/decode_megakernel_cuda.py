@@ -21,6 +21,12 @@ MAX_LORA_RANK = 16
 MAX_INT8_BLOCK = 128
 SHRINK_SLICE = 512     # K slice of one LoRA shrink item
 LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
+# the clock counters (``trace=``): phases of a layer, LoRA shrinks included
+# (``TRACE_PHASES``), and the slots of a (layer, phase, block)
+TRACE_PHASES = ("shrink_qkv", "qkv", "attention", "shrink_o", "o",
+                "shrink_gate_up", "gate_up", "shrink_down", "down")
+TRACE_SLOTS = ("entry", "work_end", "barrier_exit", "consumer_wait_ns",
+               "producer_wait_ns")
 
 _POOL_TABLES: dict = {}
 
@@ -111,8 +117,20 @@ def _lora_args(name, lora, B, L, dims, device):
     return a_ptr, b_ptr, scale, aidx, R
 
 
+def tick_grid(device) -> int:
+    """Blocks of the tick's launch on ``device``: one per SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def trace_buffer(L: int, device):
+    """A zeroed int64 (L, phases, grid, slots) buffer for ``trace=``."""
+    return torch.zeros((L, len(TRACE_PHASES), tick_grid(device),
+                        len(TRACE_SLOTS)), dtype=torch.int64, device=device)
+
+
 def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
-                     eps: float, dequant: str = "scores", lora=None):
+                     eps: float, dequant: str = "scores", lora=None,
+                     trace=None):
     """One decode/verify tick through every layer, on the card.
 
     ``x``: (B, W, hidden) bfloat16 with hidden = H·128; ``pools``: flat
@@ -123,7 +141,9 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     card; ``cos_rows`` / ``sin_rows`` float32 (B, W, 64); ``dequant``:
     ``"scores"`` or ``"tile"`` (int8 pools); ``lora``: a
     ``decode_megakernel.LoraTables`` (float32 contiguous factors, rank ≤
-    16, int32 aidx on the card) or None. B·W ≤ 64, hidden and the
+    16, int32 aidx on the card) or None; ``trace``: None on the served path,
+    or a :func:`trace_buffer` that the kernel fills with its clock counters
+    (a diagnostic: the output is the same bits). B·W ≤ 64, hidden and the
     intermediate size multiples of 256, bs a multiple of 8. Returns the
     tick's output rows (B, W, hidden). Raises on a type, shape, layout or
     device the kernel does not take, and when the launch is refused."""
@@ -181,6 +201,12 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     if not all(t.is_cuda for t in tensors) or \
             len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if trace is not None and (
+            trace.dtype != torch.int64 or not trace.is_contiguous()
+            or trace.device != x.device or tuple(trace.shape) != (
+                weights.num_layers, len(TRACE_PHASES), tick_grid(x.device),
+                len(TRACE_SLOTS))):
+        raise ValueError(f"{name}: trace must be trace_buffer(L, device)")
     if weights.ptrs is None or weights.ptrs.device != x.device:
         raise ValueError(f"{name}: the weight table is not on {x.device}")
     M = tables.shape[1]
@@ -209,7 +235,7 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
         pos.data_ptr(), cos_rows.data_ptr(), sin_rows.data_ptr(),
         xres.data_ptr(), q.data_ptr(), ao.data_ptr(), hbuf.data_ptr(),
         ptr(ktok), ptr(vtok), ctypes.addressof(la), ctypes.addressof(lb),
-        ptr(lscale), ptr(laidx), ptr(lpart),
+        ptr(lscale), ptr(laidx), ptr(lpart), ptr(trace),
         L, B, W, H, KV, D, I, bs, M, int(quant),
         int(dequant == "tile"), R, NS, float(eps), _build.stream_ptr(dev))
     _build.check(err, "decode_tick")
