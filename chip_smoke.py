@@ -4,6 +4,8 @@ card — the quickest proof that the port still builds, serves and trains on
 the GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only tick   # the build and phase 13 alone (a
+                                        # diagnostic: no final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -16,8 +18,9 @@ Phases (any failure exits non-zero before the final line):
    ignored ``setmaxnreg`` (C7508) in ``flash_attention.cu`` or
    ``flash_attention_bwd.cu`` (one helper for both); and each instantiation
    of the weight-streaming kernels (``w8_matmul.cu``, ``fused_lora.cu``:
-   one main loop, ``stream_gemm.cuh``) and of the paged attention kernel
-   per pool type, failing on a spill or local bytes.
+   one main loop, ``stream_gemm.cuh``), of the paged attention kernel
+   per pool type and of the whole-tick kernel (``decode_megakernel.cu``,
+   its 4 instantiations), failing on a spill or local bytes.
 3. Serving kernels against their plain PyTorch versions on the card, in
    bf16, at the serving path's shapes: RMSNorm at rows {8, 128} x 4096
    (and at 4096 x 4096, the training path's B x S rows);
@@ -133,7 +136,12 @@ Phases 13-16 run between phases 5 and 9, on the same model:
    the bf16 twin, by the drift ratio of phase 5; with every row on the
    null page the LoRA tick equals the fp tick bit for bit. Then each
    variant timed at 32 layers beside the twin, the per-layer kernels' tick
-   (the yardstick: no single PyTorch call computes a tick) and the bound.
+   (the yardstick: no single PyTorch call computes a tick) and the bound,
+   and at W = 4; two ticks on the same inputs must give the same bits, and
+   so must a tick with the clock counters on; the counters' breakdown per
+   phase (summed over the layers: work time over the blocks, barrier
+   waits, ring waits, staging, fragment ends, epilogues, attention's key
+   loops and merges, the weight stream's TB/s) is printed at W = 1 and 4.
 14. Megakernel serving: phase 4's traffic behind ``kernels="megakernel"``;
    checks that every decode tick launched ``decode_tick`` once and the
    per-layer attention never, and every prefill chunk the per-layer
@@ -419,6 +427,19 @@ def stream_gemm_build(_build) -> dict:
             _no_local_bytes(c, f"{name} {key}")
         out[name] = dict(ptxas, **conf)
     return out
+
+
+def decode_tick_build(_build) -> dict:
+    """The whole-tick kernel's build: each of its 4 instantiations' launch
+    shape, registers and local bytes (none may have any), and no spill or
+    ignored ``setmaxnreg`` in the ptxas lines of ``decode_megakernel.cu``."""
+    from paddle_tpu_torch.ops import decode_megakernel_cuda as mkc
+
+    ptxas = _ptxas_check(_build, "decode_megakernel.cu", "decode_tick")
+    conf = mkc.kernel_config()
+    for name, c in conf.items():
+        _no_local_bytes(c, f"decode_tick {name}")
+    return dict(ptxas, **conf)
 
 
 def host_us(torch, fn, calls: int = 200) -> float:
@@ -1199,9 +1220,12 @@ def _tick_breakdown(torch, mkc, trace, phase_bytes):
     to the end of the block's work), the median barrier wait (end of work
     to exit from the grid barrier), the phase's wall time (last exit less
     first entry, a layer), the median and largest waits of the consumers
-    on the weight ring and of the producer on a full ring (0 where the
-    kernel has no ring), and the phase's weight bytes over its wall time;
-    all in ms, the rate in TB/s."""
+    on the weight ring and of the producer on a full ring, the parts of the
+    consumers' work (``TRACE_WORK``: a product phase's staging, fragment
+    ends and epilogues, attention's key loops, split merges and int8
+    inserts; summed over both warpgroups where both do them), and the
+    phase's weight bytes over its wall time; all in ms, the rate in
+    TB/s."""
     t = trace.cpu().double()
     out = {}
     for p, name in enumerate(mkc.TRACE_PHASES):
@@ -1223,6 +1247,14 @@ def _tick_breakdown(torch, mkc, trace, phase_bytes):
                    consumer_ring_wait_median_ms=float(cw.median()),
                    consumer_ring_wait_max_ms=float(cw.max()),
                    producer_full_wait_median_ms=float(pw.median()))
+        # the parts of the consumers' work (a warpgroup's sums add up)
+        parts = mkc.TRACE_WORK["attention" if name == "attention"
+                               else "product"]
+        if name in phase_bytes or name == "attention":
+            for k, part in enumerate(parts):
+                v = t[ran, p, :, 5 + k].sum(0) / 1e6
+                row[f"{part}_median_ms"] = float(v.median())
+                row[f"{part}_max_ms"] = float(v.max())
         if name in phase_bytes:
             nbytes = phase_bytes[name] * int(ran.sum())
             row["weight_bytes"] = nbytes
@@ -1444,7 +1476,13 @@ def kernel_decode_tick(torch, ops, model):
                        if with_lora else None)
             ms_w4 = time_ms(lambda: decode_tick_cuda(
                 x4, p4, t4, pos4, weights, c4, s4, **kw4), 5)
-            del x4, p4, kw4
+            buf = mkc.trace_buffer(L, x.device)
+            decode_tick_cuda(x4, p4, t4, pos4, weights, c4, s4, trace=buf,
+                             **kw4)
+            counters_w4 = _tick_breakdown(torch, mkc, buf, phase_bytes)
+            log(f"kernel decode_tick {name} clock counters (full depth, "
+                f"W = 4): " + json.dumps(counters_w4))
+            del x4, p4, kw4, buf
         # bytes this data needs: every layer's seven projections and two
         # norm weights once, each visible K/V row once (int8: each visible
         # block's codes, which the insert reads whole, and its scales; the
@@ -1484,6 +1522,7 @@ def kernel_decode_tick(torch, ops, model):
                  ms=ms, plain_ms=plain_ms, per_layer_kernels_ms=per_layer_ms,
                  ms_w4=ms_w4, deterministic=deterministic,
                  trace_identical=trace_identical, counters=counters,
+                 counters_w4=counters_w4,
                  bound_ms=b, bound_by=by, bytes=nbytes,
                  hbm_bytes_per_trip=est,
                  library_ms=None,
@@ -3668,6 +3707,15 @@ def main() -> int:
     for line in _build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line or "==" in line:
             log("  " + line.strip())
+    if sys.argv[1:] == ["--only", "tick"]:
+        # a diagnostic run: the build and phase 13 alone, no final line
+        model = LlamaForCausalLM(llama3_8b_config())
+        kernel_decode_tick(torch, ops, model)
+        log("decode_tick kernel (per instantiation): "
+            + json.dumps(decode_tick_build(_build)))
+        log(f"partial run (phase 13 only): {time.perf_counter() - t_start:.1f}"
+            f" s")
+        return 0
     fwd_build = flash_fwd_build(_build, fac)
     log("flash forward kernel (registers a thread at launch; consumers "
         "setmaxnreg to consumer_registers): " + json.dumps(fwd_build))
@@ -3680,15 +3728,12 @@ def main() -> int:
         "columns a block): " + json.dumps(stream_build))
     paged_build = paged_attention_build(_build)
     log("paged attention kernel (per pool type): " + json.dumps(paged_build))
+    tick_build = decode_tick_build(_build)
+    log("decode_tick kernel (per instantiation; registers a thread at "
+        "launch, consumers setmaxnreg to consumer_registers): "
+        + json.dumps(tick_build))
 
     cfg = llama3_8b_config()
-    if sys.argv[1:] == ["--only", "tick"]:
-        # a diagnostic run: the build and phase 13 alone, no final line
-        model = LlamaForCausalLM(cfg)
-        kernel_decode_tick(torch, ops, model)
-        log(f"partial run (phase 13 only): {time.perf_counter() - t_start:.1f}"
-            f" s")
-        return 0
     rms_cases = kernel_rms_norm(torch, fused_norm, cfg)
     attn_cases = kernel_paged_attention(torch, ops, pa, cfg)
 
@@ -3852,7 +3897,9 @@ def main() -> int:
             "paddle_tpu/ops/decode_megakernel.py:845", cases,
             res["launches"]["decode_tick"],
             per_layer_kernels_ms=cases[0]["per_layer_kernels_ms"],
-            library_note=cases[0]["library_note"]))
+            library_note=cases[0]["library_note"], build=tick_build[
+                {"decode_tick": "fp", "decode_tick_int8": "int8",
+                 "decode_tick_lora": "fp_lora"}[name]]))
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels

@@ -88,14 +88,21 @@ SIGNATURES = {
     # b1, 1 - b1, b2, 1 - b2, eps, 1 - lr * decay, stream
     "pt_fused_adamw": (_P, _P, _P, _P, _P, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
-    # wptrs, pools, tables, pos, cos_rows, sin_rows, xres, q, ao, hbuf,
-    # ktok, vtok, lora_a (host), lora_b (host), lscale, laidx, lpart,
-    # trace (or NULL), L, B, W, H, KV, D, I, bs, M, quant, dequant, R, NS,
-    # eps, stream
+    # maps, wptrs, pools, tables, pos, cos_rows, sin_rows, xres, q, ao,
+    # hbuf, ktok, vtok, lora_a (host), lora_b (host), lscale, laidx, lpart,
+    # part, apart, gsync, trace (or NULL), L, B, W, H, KV, D, I, bs, M,
+    # quant, dequant, R, NS, eps, stream
     "pt_decode_tick": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _P),
+    # wptrs (host, 9 x L int64), L, hid, KV * D, I, out (device, 7 L maps)
+    "pt_decode_tick_maps": (_P, _I, _I, _I, _I, _P),
+    # hid, KV, I, rows, out (6 ints): the tick's work plan on this device
+    "pt_decode_tick_plan": (_I, _I, _I, _I, _P),
+    # quant, lora, out (8 ints): an instantiation's launch shape,
+    # registers and local bytes
+    "pt_decode_tick_config": (_I, _I, _P),
 }
 
 _LOCK = threading.Lock()

@@ -41,9 +41,10 @@ from .paged_attention import (_attention_core, gather_block_kv,
                               write_window_kv_q)
 
 # the CUDA kernel's shape rules (csrc/decode_megakernel.cu): head dim,
-# hidden and intermediate sizes multiples of K_STEP, the adapter pool's
-# max_rank <= MAX_LORA_RANK, an int8 pool's block size <= MAX_INT8_BLOCK (a
-# block-head is requantized in shared memory)
+# hidden and intermediate sizes multiples of K_STEP (its weight tiles are
+# K_STEP rows by 64 columns), the adapter pool's max_rank <= MAX_LORA_RANK,
+# an int8 pool's block size <= MAX_INT8_BLOCK (a block-head is requantized
+# in shared memory)
 from .decode_megakernel_cuda import (HEAD_DIM, K_STEP, MAX_INT8_BLOCK,
                                      MAX_LORA_RANK)
 
@@ -181,7 +182,9 @@ class LayerWeights:
     of ``NAMES`` the list of the model's own L tensors and, for a model on
     the card, ``ptrs``: an int64 (9, L) device table of their addresses (the
     kernel's argument). Built once at executor construction;
-    :meth:`check` raises when the model's weights were replaced since."""
+    :meth:`check` raises when the model's weights were replaced since. The
+    CUDA wrapper keeps the kernel's TMA maps of the weights in ``maps``,
+    encoded at its first launch."""
 
     NAMES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln1", "ln2")
 
@@ -204,6 +207,7 @@ class LayerWeights:
         self._addrs = [[t.data_ptr() for t in self.tensors[n]]
                        for n in self.NAMES]
         self.ptrs = None
+        self.maps = None
         dev = self.tensors["wq"][0].device
         if dev.type == "cuda":
             for n in self.NAMES:
@@ -215,6 +219,10 @@ class LayerWeights:
                             f"16-byte aligned bfloat16, got {t.dtype}")
             self.ptrs = torch.tensor(self._addrs, dtype=torch.int64,
                                      device=dev)
+
+    def addresses(self):
+        """The (9, L) addresses of ``NAMES``' tensors, as lists."""
+        return self._addrs
 
     @property
     def num_layers(self) -> int:

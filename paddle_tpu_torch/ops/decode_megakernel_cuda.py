@@ -4,8 +4,11 @@ fp or int8 KV pools, with or without pooled LoRA deltas.
 
 :func:`decode_tick_cuda` launches ``csrc/decode_megakernel.cu`` once: a
 cooperative launch of one block per SM that runs every layer of the tick
-and writes the window's K/V into the pools in place. The plain version it
-is held against is ``decode_megakernel._tick_plain``.
+and writes the window's K/V into the pools in place. The weights stream
+through TMA tensor maps that are encoded once per weight table
+(:func:`_weight_maps`); the partial sums and counters of the work plan
+(``csrc/tick_plan.cuh``) are scratch tensors of each call. The plain
+version it is held against is ``decode_megakernel._tick_plain``.
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import ctypes
 
 import torch
 
-# the kernel's shape rules (csrc/decode_megakernel.cu)
+# the kernel's shape rules (csrc/decode_megakernel.cu, csrc/tick_plan.cuh):
+# head dim 128, hidden and intermediate sizes multiples of K_STEP (a weight
+# tile is K_STEP x 64), B * W <= MAX_ROWS
 HEAD_DIM = 128
-K_STEP = 256
+K_STEP = 64
 MAX_ROWS = 64
 MAX_LORA_RANK = 16
 MAX_INT8_BLOCK = 128
@@ -26,9 +31,78 @@ LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
 TRACE_PHASES = ("shrink_qkv", "qkv", "attention", "shrink_o", "o",
                 "shrink_gate_up", "gate_up", "shrink_down", "down")
 TRACE_SLOTS = ("entry", "work_end", "barrier_exit", "consumer_wait_ns",
-               "producer_wait_ns")
+               "producer_wait_ns", "work_a_ns", "work_b_ns", "work_c_ns")
+# what the three work slots sum, a product phase and the attention phase
+TRACE_WORK = {"product": ("staging", "fragment_ends", "epilogues"),
+              "attention": ("key_loops", "split_merges", "int8_inserts")}
+
+ATTN_SPLIT_BLOCKS = 16  # KV blocks of one attention split
+_CONFIG_KEYS = ("threads", "block_rows", "stage_rows", "stages", "smem_bytes",
+                "registers", "local_bytes", "consumer_registers")
 
 _POOL_TABLES: dict = {}
+_PLANS: dict = {}
+
+
+def kernel_config() -> dict:
+    """Each instantiation's launch shape (threads, rows of a full tick, K
+    rows a stage, ring stages, shared memory, registers and local bytes a
+    thread, the consumers' setmaxnreg count), keyed ``fp``, ``fp_lora``,
+    ``int8``, ``int8_lora``."""
+    from . import _build
+
+    lib = _build.library()
+    out = {}
+    for name, quant, lora in (("fp", 0, 0), ("fp_lora", 0, 1),
+                              ("int8", 1, 0), ("int8_lora", 1, 1)):
+        vals = (ctypes.c_int * 8)()
+        _build.check(lib.pt_decode_tick_config(quant, lora, vals),
+                     "decode_tick_config")
+        out[name] = dict(zip(_CONFIG_KEYS, vals))
+    return out
+
+
+def tick_plan(hid: int, kv: int, inter: int, rows: int, device) -> dict:
+    """The work plan's sizes on ``device`` (``csrc/tick_plan.cuh``): fp32
+    floats of the partial-sum scratch, group counters, the grid, shared
+    memory, and whether the plan takes the shapes; cached by shape."""
+    from . import _build
+
+    key = (device, hid, kv, inter, rows)
+    plan = _PLANS.get(key)
+    if plan is None:
+        vals = (ctypes.c_int * 6)()
+        with torch.cuda.device(device):
+            _build.check(_build.library().pt_decode_tick_plan(
+                hid, kv, inter, rows, vals), "decode_tick_plan")
+        plan = dict(scratch_floats=vals[0] + (vals[1] << 31),
+                    groups=vals[2], grid=vals[3], smem_bytes=vals[4],
+                    fits=bool(vals[5]))
+        _PLANS[key] = plan
+    return plan
+
+
+def _weight_maps(weights, device):
+    """The TMA maps of the seven projections of every layer, (7, L)
+    CUtensorMap of 128 bytes, encoded once per weight table and kept on it
+    (the kernel's ``maps``)."""
+    from . import _build
+
+    maps = weights.maps
+    if maps is None or maps.device != device:
+        L = weights.num_layers
+        hid = weights["wq"][0].shape[0]
+        kvd = weights["wk"][0].shape[1]
+        inter = weights["wg"][0].shape[1]
+        maps = torch.empty(7 * L * 128, dtype=torch.uint8, device=device)
+        addrs = [a for row in weights.addresses() for a in row]
+        host = (ctypes.c_longlong * len(addrs))(*addrs)
+        with torch.cuda.device(device):
+            _build.check(_build.library().pt_decode_tick_maps(
+                host, L, hid, kvd, inter, maps.data_ptr()),
+                "decode_tick_maps")
+        weights.maps = maps
+    return maps
 
 
 def _pool_table(pools, device):
@@ -144,7 +218,7 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     16, int32 aidx on the card) or None; ``trace``: None on the served path,
     or a :func:`trace_buffer` that the kernel fills with its clock counters
     (a diagnostic: the output is the same bits). B·W ≤ 64, hidden and the
-    intermediate size multiples of 256, bs a multiple of 8. Returns the
+    intermediate size multiples of 64, bs a multiple of 8. Returns the
     tick's output rows (B, W, hidden). Raises on a type, shape, layout or
     device the kernel does not take, and when the launch is refused."""
     from . import _build
@@ -211,6 +285,11 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
         raise ValueError(f"{name}: the weight table is not on {x.device}")
     M = tables.shape[1]
     rows = B * W
+    plan = tick_plan(Hd, KV, I, rows, dev)
+    if not plan["fits"]:
+        raise ValueError(f"{name}: the work plan does not take hidden {Hd}, "
+                         f"{KV} KV heads, intermediate {I} at {rows} rows")
+    maps = _weight_maps(weights, dev)
     NS = -(-max(Hd, I) // SHRINK_SLICE)
     if lora is not None:
         lpart = torch.empty((rows, 7, NS, R), dtype=torch.float32, device=dev)
@@ -222,6 +301,16 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     if quant:
         ktok = torch.empty((rows, KV * D), dtype=x.dtype, device=dev)
         vtok = torch.empty((rows, KV * D), dtype=x.dtype, device=dev)
+    # the plan's partial sums; the attention splits' (max, sum, output) of
+    # every query row; the grid barrier's, the groups' and the splits'
+    # counters, zeroed
+    part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                       device=dev)
+    splits = -(-M // ATTN_SPLIT_BLOCKS)
+    apart = torch.empty(B * KV * splits * W * (H // KV) * (D + 2),
+                        dtype=torch.float32, device=dev)
+    gsync = torch.zeros(1 + plan["groups"] + B * KV, dtype=torch.int32,
+                        device=dev)
     ptab = _pool_table(pools, dev)
     la = (ctypes.c_longlong * 7)(*a_ptr)
     lb = (ctypes.c_longlong * 7)(*b_ptr)
@@ -231,11 +320,12 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
 
     lib = _build.library()
     err = lib.pt_decode_tick(
-        weights.ptrs.data_ptr(), ptab.data_ptr(), tables.data_ptr(),
-        pos.data_ptr(), cos_rows.data_ptr(), sin_rows.data_ptr(),
-        xres.data_ptr(), q.data_ptr(), ao.data_ptr(), hbuf.data_ptr(),
-        ptr(ktok), ptr(vtok), ctypes.addressof(la), ctypes.addressof(lb),
-        ptr(lscale), ptr(laidx), ptr(lpart), ptr(trace),
+        maps.data_ptr(), weights.ptrs.data_ptr(), ptab.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), cos_rows.data_ptr(),
+        sin_rows.data_ptr(), xres.data_ptr(), q.data_ptr(), ao.data_ptr(),
+        hbuf.data_ptr(), ptr(ktok), ptr(vtok), ctypes.addressof(la),
+        ctypes.addressof(lb), ptr(lscale), ptr(laidx), ptr(lpart),
+        part.data_ptr(), apart.data_ptr(), gsync.data_ptr(), ptr(trace),
         L, B, W, H, KV, D, I, bs, M, int(quant),
         int(dequant == "tile"), R, NS, float(eps), _build.stream_ptr(dev))
     _build.check(err, "decode_tick")

@@ -384,9 +384,9 @@ def test_int8_and_lora_wrappers_raise_on_cpu_dtype_and_size(name):
     assert wrapper.launches == before
 
 
-def _tick_args(dtype=torch.bfloat16, D=128, contiguous=True):
+def _tick_args(dtype=torch.bfloat16, D=128, contiguous=True, inter=256):
     """CPU arguments of decode_tick_cuda at a 1-layer, 2-row tick of
-    hidden 256 (2 heads of D, 1 KV head), intermediate 256, bs 16."""
+    hidden 256 (2 heads of D, 1 KV head), intermediate ``inter``, bs 16."""
     from paddle_tpu_torch.ops import decode_megakernel as mk
 
     z = torch.zeros
@@ -401,9 +401,9 @@ def _tick_args(dtype=torch.bfloat16, D=128, contiguous=True):
                              (layer.self_attn, "k_proj", (Hd, D)),
                              (layer.self_attn, "v_proj", (Hd, D)),
                              (layer.self_attn, "o_proj", (Hd, Hd)),
-                             (layer.mlp, "gate_proj", (Hd, 256)),
-                             (layer.mlp, "up_proj", (Hd, 256)),
-                             (layer.mlp, "down_proj", (256, Hd))):
+                             (layer.mlp, "gate_proj", (Hd, inter)),
+                             (layer.mlp, "up_proj", (Hd, inter)),
+                             (layer.mlp, "down_proj", (inter, Hd))):
         setattr(obj, name, type("L", (), {"weight": z(shape, dtype=dtype)})())
     model = type("Model", (), {})()
     model.model = type("Inner", (), {"layers": [layer]})()
@@ -432,6 +432,22 @@ def test_decode_tick_wrapper_raises_on_what_it_does_not_take(case, exc,
                          "non_contiguous": dict(contiguous=False)}[case])
     before = decode_tick_cuda.launches
     with pytest.raises(exc, match=match):
+        decode_tick_cuda(*args, eps=1e-5)
+    assert decode_tick_cuda.launches == before
+
+
+@pytest.mark.parametrize("inter,match", [(320, "CUDA"),
+                                         (288, "multiples of 64")])
+def test_decode_tick_wrapper_intermediate_rule(inter, match):
+    """The kernel's weight tiles are 64 columns wide: an intermediate size
+    that is a multiple of 64 but not of 256 passes the shape rules (the
+    CPU tensors then raise for want of a card), one that is not a multiple
+    of 64 raises on its shape; neither launches."""
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    args = _tick_args(inter=inter)
+    before = decode_tick_cuda.launches
+    with pytest.raises(ValueError, match=match):
         decode_tick_cuda(*args, eps=1e-5)
     assert decode_tick_cuda.launches == before
 

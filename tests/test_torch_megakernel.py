@@ -273,6 +273,20 @@ def test_megakernel_supported_int8_model_and_cuda_rules():
     assert "max_rank 32" in mk.cuda_shape_reason(bf, 16, lora_rank=32)
 
 
+def test_cuda_shape_reason_takes_64_column_tiles():
+    """The kernel streams 64-column weight tiles: hidden and intermediate
+    sizes that are multiples of 64 are taken (14272 was refused while the
+    rule asked for multiples of 256), others are refused by name."""
+    jm, tm, cfg = _models(1)
+    bf = dataclasses.replace(cfg, hidden_size=4096, num_attention_heads=32,
+                             intermediate_size=14336, dtype="bfloat16")
+    assert mk.K_STEP == 64
+    assert mk.cuda_shape_reason(
+        dataclasses.replace(bf, intermediate_size=14272), 16) is None
+    assert "intermediate dim 14304" in mk.cuda_shape_reason(
+        dataclasses.replace(bf, intermediate_size=14304), 16)
+
+
 def _lora_config(cfg):
     from paddle_tpu_torch.inference.lora import LORA_TARGETS, target_dims
 
