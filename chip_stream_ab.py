@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Measure the weight-streaming kernels (w8_matmul, fused LoRA) and the
-paged attention kernel of the PyTorch/CUDA port on one NVIDIA card, against
-another tree or against variants of their design. Needs the card and nvcc.
+"""Measure the weight-streaming kernels (w8_matmul, fused LoRA), the paged
+attention kernel and the whole-tick decode kernel of the PyTorch/CUDA port
+on one NVIDIA card, against another tree or against variants of their
+design. Needs the card and nvcc.
 
     python3 chip_stream_ab.py --parent DIR [--rounds 2] [--only paged]
+    python3 chip_stream_ab.py --parent DIR --only tick
     python3 chip_stream_ab.py --variants NAME[,NAME...] [--rounds 3]
 
 ``--parent DIR``: DIR is a checkout of another commit (e.g. ``git archive``
@@ -15,7 +17,10 @@ shapes of Llama-3-8B (paged attention: every case of this tree's
 order parent, this, this, parent (repeated ``--rounds`` times): device ms a
 call (CUDA graph of 50 calls, inputs cold in device memory) and the
 wrapper's host us a call. ``--only`` takes some of the families
-(``w8``, ``lora``, ``paged``).
+(``w8``, ``lora``, ``paged``; ``tick``, not in the default: the
+``decode_tick_cuda`` wrapper of each variant of ``chip_smoke.MK_VARIANTS``
+at Llama-3-8B's full depth with seeded random weights, B = 8, W = 1 and 4,
+on ``chip_smoke.py`` phase 13's inputs; device ms of 5 ticks a graph).
 
 ``--variants``: builds ``w8_matmul.cu``, ``fused_lora.cu`` and
 ``paged_attention.cu`` of this tree once as they are ("kept") and once per
@@ -290,6 +295,44 @@ def measure_tree(root: str, families) -> list:
                              ms=cs.time_ms(fn, 50, flush),
                              host_us=cs.host_us(torch, fn)))
             del args
+    if "tick" in families:
+        rows += _measure_ticks(torch, cs, g)
+    return rows
+
+
+def _measure_ticks(torch, cs, g) -> list:
+    """The tree's ``decode_tick_cuda`` at full depth, each variant at W = 1
+    and 4 ("tile" at W = 1), as chip_smoke.py phase 13 times it."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    model = LlamaForCausalLM(llama3_8b_config())
+    cfg, L = model.cfg, model.cfg.num_hidden_layers
+    weights = mk.stack_layer_weights(model)
+    rows = []
+    for name, quant, dequant, with_lora in cs.MK_VARIANTS:
+        for W in (1, 4):
+            if name == "int8_tile" and W == 4:
+                continue
+            x, pools, tables, pos, cosr, sinr = cs._tick_inputs(
+                torch, model, g, L, W, quant)
+            for pl in pools:
+                pl[0] = 0
+            kw = dict(eps=cfg.rms_norm_eps, dequant=dequant,
+                      lora=cs._tick_lora(torch, cfg, L, g) if with_lora
+                      else None)
+
+            def fn():
+                return decode_tick_cuda(x, pools, tables, pos, weights, cosr,
+                                        sinr, **kw)
+            with torch.no_grad():
+                rows.append(dict(kernel="decode_tick", shape=name, W=W,
+                                 ms=cs.time_ms(fn, 5),
+                                 host_us=cs.host_us(torch, fn, 20)))
+            del x, pools, kw
+            torch.cuda.empty_cache()
     return rows
 
 

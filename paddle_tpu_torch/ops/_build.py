@@ -98,7 +98,7 @@ SIGNATURES = {
                        _F, _P),
     # wptrs (host, 9 x L int64), L, hid, KV * D, I, out (device, 7 L maps)
     "pt_decode_tick_maps": (_P, _I, _I, _I, _I, _P),
-    # hid, KV, I, rows, out (6 ints): the tick's work plan on this device
+    # hid, KV, I, rows, out (7 ints): the tick's work plan on this device
     "pt_decode_tick_plan": (_I, _I, _I, _I, _P),
     # quant, lora, out (8 ints): an instantiation's launch shape,
     # registers and local bytes

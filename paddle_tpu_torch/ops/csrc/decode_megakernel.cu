@@ -298,8 +298,8 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 }
 
 // an arrival at a counter: release of this thread's (and, through the
-// named barrier before it, its warpgroup's) writes, acquire of the writes
-// of the arrivals before it; returns the old count
+// named barrier before it, its block's) writes, acquire of the writes of
+// the arrivals before it; returns the old count
 __device__ __forceinline__ unsigned arrive_acq_rel(unsigned* p) {
   unsigned old;
   asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
@@ -590,7 +590,7 @@ __device__ void stage_slab(const bf16* src, const bf16* norm, int ld, int rows,
   }
 }
 
-// a warpgroup's partial of a fragment (64 columns x rows) into its slot:
+// a fragment's partial (64 columns x rows) into its slot, by warpgroup 0:
 // thread (warp w, lane 4 g + t) holds columns 16 w + g (+ 8) of rows 8 i +
 // 2 t (+ 1)
 template <int NR>
@@ -833,11 +833,10 @@ __device__ void epilogue(const Args& a, int l, int ph, const tp::PhasePlan& p,
   }
 }
 
-// A product phase, by the consumers: stage the block's x, then the two
-// warpgroups take the block's units in turn (rp: the ring position of the
-// next unit, par: the warpgroup that takes it; both walk every unit), sum
-// each fragment's units on the tensor cores, write the partials and arrive
-// at the group's counter; the arrival that completes a group runs its
+// A product phase, by the consumers: for each of the block's fragments,
+// stage x of its K slice when the slice changes, sum its units on the
+// tensor cores (fragment_units), write the partial and arrive at the
+// group's counter; the block whose arrival completes a group runs its
 // epilogue.
 template <bool kQ, bool kLora>
 __device__ void product_phase(const Args& a, int l, int ph, Smem& s,
@@ -1386,9 +1385,10 @@ extern "C" int pt_decode_tick_maps(const void* wptrs, int L, int hid, int kvd,
 }
 
 // The plan's sizes for a tick of these shapes on the current device, into
-// out[6]: partial-sum scratch floats (low, high 31 bits), group counters,
+// out[7]: partial-sum scratch floats (low, high 31 bits), group counters,
 // SMs (the grid), the plan's shared memory, 1 when the plan takes the
-// shapes. The wrapper allocates the scratch and counters from these.
+// shapes, and the KV blocks of an attention split. The wrapper allocates
+// the scratch and counters from these.
 extern "C" int pt_decode_tick_plan(int hid, int KV, int I, int rows, int* out) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1404,6 +1404,7 @@ extern "C" int pt_decode_tick_plan(int hid, int KV, int I, int rows, int* out) {
   out[3] = sms;
   out[4] = tp::kSmemBytes;
   out[5] = ok ? 1 : 0;
+  out[6] = kSplitBlocks;
   return 0;
 }
 

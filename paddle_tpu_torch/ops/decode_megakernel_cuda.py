@@ -36,7 +36,6 @@ TRACE_SLOTS = ("entry", "work_end", "barrier_exit", "consumer_wait_ns",
 TRACE_WORK = {"product": ("staging", "fragment_ends", "epilogues"),
               "attention": ("key_loops", "split_merges", "int8_inserts")}
 
-ATTN_SPLIT_BLOCKS = 16  # KV blocks of one attention split
 _CONFIG_KEYS = ("threads", "block_rows", "stage_rows", "stages", "smem_bytes",
                 "registers", "local_bytes", "consumer_registers")
 
@@ -65,19 +64,20 @@ def kernel_config() -> dict:
 def tick_plan(hid: int, kv: int, inter: int, rows: int, device) -> dict:
     """The work plan's sizes on ``device`` (``csrc/tick_plan.cuh``): fp32
     floats of the partial-sum scratch, group counters, the grid, shared
-    memory, and whether the plan takes the shapes; cached by shape."""
+    memory, whether the plan takes the shapes, and the KV blocks of an
+    attention split; cached by shape."""
     from . import _build
 
     key = (device, hid, kv, inter, rows)
     plan = _PLANS.get(key)
     if plan is None:
-        vals = (ctypes.c_int * 6)()
+        vals = (ctypes.c_int * 7)()
         with torch.cuda.device(device):
             _build.check(_build.library().pt_decode_tick_plan(
                 hid, kv, inter, rows, vals), "decode_tick_plan")
         plan = dict(scratch_floats=vals[0] + (vals[1] << 31),
                     groups=vals[2], grid=vals[3], smem_bytes=vals[4],
-                    fits=bool(vals[5]))
+                    fits=bool(vals[5]), split_blocks=vals[6])
         _PLANS[key] = plan
     return plan
 
@@ -306,7 +306,7 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     # counters, zeroed
     part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
                        device=dev)
-    splits = -(-M // ATTN_SPLIT_BLOCKS)
+    splits = -(-M // plan["split_blocks"])
     apart = torch.empty(B * KV * splits * W * (H // KV) * (D + 2),
                         dtype=torch.float32, device=dev)
     gsync = torch.zeros(1 + plan["groups"] + B * KV, dtype=torch.int32,
