@@ -43,10 +43,10 @@
 //     fp32 sums in registers. The two consumer warpgroups take the tiles in
 //     turn. At W > 1 every weight is read once for all B * W rows.
 //   * x is staged in shared memory one K slice at a time (as the block's
-//     fragments reach it), normed (RMSNorm from the residual's 1/rms, which
-//     every block computes for all rows) and rounded to bf16 as the plain
-//     twin rounds, in the swizzled K-major layout wgmma reads, then fenced to
-//     the async proxy.
+//     fragments reach it) by cp.async, in the swizzled K-major layout wgmma
+//     reads; the residual is then normed in place (RMSNorm from its 1/rms,
+//     which every block computes for all rows) and rounded to bf16 as the
+//     plain twin rounds; then a fence to the async proxy.
 //   * K-split sums. At a fragment's end warpgroup 1 hands its sums to
 //     warpgroup 0 through shared memory, which adds them in and writes the
 //     block's fp32 partial to a scratch slot of its own; one thread then
@@ -560,33 +560,45 @@ __device__ void producer(const Args& a, Smem& s) {
 // normed residual (norm != nullptr; s.inv holds the rows' 1/rms), or a bf16
 // activation, rounded to bf16, rows past `rows` zero; K step t's tile at
 // (t - k0) nr 128 bytes, row r at r 128 bytes, 16-byte chunk c at (c ^ r % 8)
-// 16 bytes: the 128-byte swizzle wgmma reads K-major
+// 16 bytes: the 128-byte swizzle wgmma reads K-major. The rows are copied
+// by cp.async (L2 to shared memory, every copy in flight at once), then
+// each thread norms its own chunks in place.
 __device__ void stage_slab(const bf16* src, const bf16* norm, int ld, int rows,
                            int nr, int k0, int k1, Smem& s) {
   const int nk = (k1 - k0) * (tp::kKStep / 8);   // 16-byte chunks a row
-#pragma unroll 8
-  for (int v = threadIdx.x; v < nr * nk; v += kConsumers) {
+  auto chunk = [&](int v) {
     const int r = v / nk, kv = v % nk;
-    const int k = k0 * tp::kKStep + kv * 8;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    return reinterpret_cast<uint4*>(
+        s.u.xs + ((kv >> 3) * nr + r) * 128 + (((kv & 7) ^ (r & 7)) << 4));
+  };
+  for (int v = threadIdx.x; v < nr * nk; v += kConsumers) {
+    const int r = v / nk;
     if (r < rows) {
-      out = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)r * ld + k));
-      if (norm != nullptr) {
-        float f[8], w[8];
-        unpack8(out, f);
-        unpack8(__ldg(reinterpret_cast<const uint4*>(norm + k)), w);
-        const float inv = s.inv[r];
-        uint32_t o[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          o[j] = pack_bf16(__fmul_rn(__fmul_rn(f[2 * j], inv), w[2 * j]),
-                           __fmul_rn(__fmul_rn(f[2 * j + 1], inv), w[2 * j + 1]));
-        out = make_uint4(o[0], o[1], o[2], o[3]);
-      }
+      const bf16* g = src + (size_t)r * ld + k0 * tp::kKStep + (v % nk) * 8;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(chunk(v))),
+                   "l"(g)
+                   : "memory");
+    } else {
+      *chunk(v) = make_uint4(0u, 0u, 0u, 0u);
     }
-    const int tt = kv >> 3, c = kv & 7;
-    *reinterpret_cast<uint4*>(s.u.xs + (tt * nr + r) * 128 + ((c ^ (r & 7)) << 4)) =
-        out;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (norm == nullptr) return;
+  for (int v = threadIdx.x; v < rows * nk; v += kConsumers) {
+    uint4* q = chunk(v);
+    float f[8], w[8];
+    unpack8(*q, f);
+    unpack8(__ldg(reinterpret_cast<const uint4*>(norm + k0 * tp::kKStep +
+                                                 (v % nk) * 8)),
+            w);
+    const float inv = s.inv[v / nk];
+    uint32_t o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = pack_bf16(__fmul_rn(__fmul_rn(f[2 * j], inv), w[2 * j]),
+                       __fmul_rn(__fmul_rn(f[2 * j + 1], inv), w[2 * j + 1]));
+    *q = make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
 
