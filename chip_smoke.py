@@ -6,6 +6,8 @@ the GPU.
     python3 chip_smoke.py
     python3 chip_smoke.py --only tick   # the build and phase 13 alone (a
                                         # diagnostic: no final line)
+    python3 chip_smoke.py --only serve  # the build and phases 4, 14, 24
+                                        # and 25 alone (no final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -26,8 +28,9 @@ Phases (any failure exits non-zero before the final line):
    (and at 4096 x 4096, the training path's B x S rows);
    paged attention (``PAGED_FORMS``) in decode form (B=8, H=32, KV=8,
    D=128, bs=16, mixed context lengths with partial final blocks, a block
-   boundary and a poisoned scratch block 0; every row at 2047 keys; one
-   long row among short ones), a verify window of 4 tokens, and in prefill
+   boundary and a poisoned scratch block 0; every row at 2047 keys; every
+   row at 512, the serving pass breakdown's shape; one long row among
+   short ones), a verify window of 4 tokens, and in prefill
    form (B=1, C=128 behind 384 earlier tokens, at start 0 and at 1920).
    Tolerances are per element (RMSNorm) or per output row (attention), and
    the attention tolerance is shown to reject planted faults of the plain
@@ -39,11 +42,14 @@ Phases (any failure exits non-zero before the final line):
 4. Serve: Llama-3-8B at full width and depth with random bf16 weights made
    on the card from a seed, behind ``GenerationServer(cache="paged")``,
    answering 12 greedy requests through 8 slots; checks every request's
-   length and that every decode tick and prefill chunk went through both
-   kernels (counts reset just before, read just after). Then one decode
-   tick and one prefill chunk are timed on the host clock and, replayed
-   from a CUDA graph, on the device: their ratio is the device's idle
-   share in an eager pass.
+   length, that every decode tick and prefill chunk went through both
+   kernels (counts reset just before, read just after) and that every
+   decode window and prefill chunk was a replay of one of the executor's
+   CUDA graphs (its replay counters; the graphs are captured by a warm-up
+   request before the run). Then one decode tick and one prefill chunk are
+   timed on the host clock and, from the replay of the executor's graph
+   with no host in the loop, on the device: their ratio is the device's
+   idle share in a pass. Every serving phase runs this way.
 5. End to end: one request's first prefill chunk plus 4 decode ticks with
    the kernels and with the plain versions, in bf16, and with the plain
    versions on an fp32 copy of the weights: the kernels' logits may be at
@@ -154,6 +160,22 @@ Phases 13-16 run between phases 5 and 9, on the same model:
    every pass) and behind ``kernels="megakernel"`` (every decode tick one
    ``decode_tick`` and no per-layer kernel but the final norm); then end
    to end as phase 15.
+
+Phase 24 runs beside each serving cell and phase 25 after phase 16, on
+the same model:
+
+24. Graphs on and off: right after each serving cell (phases 4, 10, 11,
+   14, 16, 17), its traffic once more with the executor's graphs off
+   (every pass eager, its device time from the pass captured here);
+   every request's tokens and every kernel's launch count must equal the
+   graphed run's; prints both runs' per-pass host wall, enqueue and
+   device time, rates and peak memory; the graphed per-layer bf16 tick's
+   host wall may be at most ``GRAPH_WALL_RATIO`` x its device time.
+25. ``tick_window=4``: phase 4's and phase 14's cells, 4 ticks a replay,
+   every pass's launches checked per tick; both cells' tokens must equal
+   their W = 1 runs' on the same requests; then 4 sampled requests at
+   W = 4 with the graphs on and off from one seed: every sampled window a
+   replay of a graph that draws from the server's generator.
 
 Phases 18-20 run last, after phase 8: long-context training, past the
 8192 keys where flash attention takes its streaming kernels (rows 2, 5
@@ -535,6 +557,7 @@ def _paged_case(torch, g, B, W, H, KV, D, bs, pos, M):
 PAGED_FORMS = [("decode", 8, 1, [1000, 511, 512, 255, 37, 700, 128, 5]),
                ("prefill", 1, PREFILL_CHUNK, [384]),
                ("decode_all_long", 8, 1, [MAX_LEN - 1] * 8),
+               ("decode_512", 8, 1, [512] * 8),
                ("decode_one_long", 8, 1, [MAX_LEN - 1, 3, 17, 0, 9, 31, 1,
                                           64]),
                ("verify", 4, 4, [0, 125, 700, MAX_LEN - 4]),
@@ -722,26 +745,37 @@ def kernel_paged_attention(torch, ops, pa, cfg):
 
 # --------------------------------------------------------------- phase 4
 def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
-          expect=None, expect_per_pass=None, **server_kw):
+          expect=None, expect_per_pass=None, graphs=True, **server_kw):
     """Phase 4's traffic through ``GenerationServer(**server_kw)``;
     ``adapters`` names each request's LoRA adapter (phase 10), ``expect``
     maps (launches, passes, stats) to {kernel: wanted launches} (default:
     the fp path's attention and norms), ``expect_per_pass`` maps
     "decode_paged" / "chunk_prefill" to the launches every such pass must
-    make (phase 14). Returns (readings, longest prompt, server); the
-    readings' "tokens" holds every request's output, in order."""
+    make, a decode pass's per tick (phase 14). ``graphs=False`` turns the
+    executor's CUDA graphs off (every pass eager: phase 24's yardstick);
+    with them on, every decode window and prefill chunk of the run must be
+    a replay of a graph captured before it (by the warm-up request).
+    Returns (readings, longest prompt, server); the readings' "tokens"
+    holds every request's output, in order."""
     import numpy as np
 
     from paddle_tpu_torch.inference.serving import GenerationServer
 
+    # earlier servers (executor and server refer to each other) and their
+    # graphs' pools would count in this cell's peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = model.cfg
     srv = GenerationServer(model, cache="paged", max_batch=MAX_BATCH,
                            block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
                            max_len=MAX_LEN, **server_kw)
     check(srv._table_width == TABLE_WIDTH, "block-table width")
+    ex = srv._exec
+    check(ex.graphs, f"{label}: the executor does not graph its passes on "
+                     f"the card")
+    ex.graphs = graphs
     # each model pass's own launches: (kind, {kernel: launches})
     per_pass = []
-    ex = srv._exec
     for kind in ("decode_paged", "chunk_prefill"):
         def counted(*a, _fn=getattr(ex, kind), _kind=kind, **k):
             before = ops.launch_counts()
@@ -750,8 +784,9 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
                                      ops.launch_counts().items()}))
             return out
         setattr(ex, kind, counted)
-    # warm-up request (cuBLAS handles, allocator): not part of the run
-    srv.submit(list(range(1, 40)), max_new_tokens=4)
+    # warm-up request (cuBLAS handles, allocator, the graphs' captures):
+    # not part of the run
+    srv.submit(list(range(1, 40)), max_new_tokens=4 * srv.tick_window)
     srv.run()
     rng = np.random.default_rng(0)
     # 12 requests > 8 slots: slots refill mid-flight; lengths span 1-8
@@ -762,6 +797,7 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     adapters = adapters or [None] * len(lens)
     t_before = srv.throughput_stats()
     ad_before = srv.adapter_stats()
+    replays_before, captures_before = dict(ex.replays), ex.captures
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -775,6 +811,7 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     launches = ops.launch_counts()
     t_after = srv.throughput_stats()
     st = {k: t_after[k] - t_before[k] for k in t_after}
+    replays = {k: n - replays_before[k] for k, n in ex.replays.items()}
     for rid, p, m in zip(rids, prompts, news):
         check(rid in out, f"request {rid} did not finish")
         toks = out[rid]
@@ -793,24 +830,39 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
                                    f"{launches[name]} != {n} ({passes} model "
                                    f"passes: {st['decode_ticks']} ticks, "
                                    f"{st['prefill_chunks']} chunks)")
-    check(len(per_pass) == passes, f"{label}: {len(per_pass)} executor "
-                                   f"calls for {passes} passes")
+    calls = st["decode_trips"] + st["prefill_chunks"]
+    check(len(per_pass) == calls, f"{label}: {len(per_pass)} executor "
+                                  f"calls for {calls} passes")
+    # every pass of the run a graph replay, none captured in it (or, with
+    # the graphs off, none replayed)
+    want_replays = ({"decode": st["decode_trips"],
+                     "chunk": st["prefill_chunks"]} if graphs
+                    else {"decode": 0, "chunk": 0})
+    check(replays == want_replays and ex.captures == captures_before,
+          f"{label}: graph replays {replays}, want {want_replays}; "
+          f"{ex.captures - captures_before} captures during the run")
     for kind, want_one in (expect_per_pass or {}).items():
+        ticks = srv.tick_window if kind == "decode_paged" else 1
         for k, got in per_pass:
             if k != kind:
                 continue
             for name, n in want_one.items():
-                check(got[name] == n, f"{label}: a {kind} pass launched "
-                                      f"{name} {got[name]} times, want {n}")
-    res = dict(requests=len(rids), wall_s=wall,
+                check(got[name] == n * ticks,
+                      f"{label}: a {kind} pass launched {name} {got[name]} "
+                      f"times, want {n * ticks}")
+    res = dict(requests=len(rids), wall_s=wall, graphs=graphs,
+               tick_window=srv.tick_window, graph_replays=replays,
+               graph_captures=ex.captures,
                prefill_tokens=st["prefill_tokens"],
                prefill_chunks=st["prefill_chunks"],
                prefill_tok_s=st["prefill_tokens"] / st["prefill_s"],
+               decode_trips=st["decode_trips"],
                decode_ticks=st["decode_ticks"],
                decode_tokens=st["decode_tokens"],
                decode_tok_s=st["decode_tokens"] / st["decode_s"],
                ms_per_decode_tick=st["decode_s"] / st["decode_ticks"] * 1e3,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
                launches=launches)
     if srv._lora is not None:
         ad = srv.adapter_stats()
@@ -825,28 +877,51 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     return res, max(prompts, key=len), srv
 
 
+def _replayed_ms(torch, fn, passes: int = 5, repeats: int = 5) -> float:
+    """Device time of one pass of ``fn`` that replays the executor's graph:
+    CUDA events around ``passes`` passes enqueued back to back (the host
+    runs ahead, so the device sees no gap after the first), median of
+    ``repeats``, per pass."""
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(passes):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / passes)
+    return sorted(times)[len(times) // 2]
+
+
 def pass_breakdown(torch, srv):
-    """Host against device time of one decode tick (every slot at 512
-    tokens of context) and one 128-token prefill chunk (behind 384 tokens)
-    through the server's executor: eager wall time (host clock up to a
-    synchronize), the host's enqueue time (the call's return, before the
-    device is done), and the device time of the same work replayed from a
-    CUDA graph, with no host in the loop, and the device time of three
-    eager passes by kernel class (``torch.profiler``). Run after the served
-    requests have finished, on blocks of the server's pool."""
+    """Host against device time of one decode window (every slot at 512
+    tokens of context; ``tick_window`` ticks) and one 128-token prefill
+    chunk (behind 384 tokens) through the server's executor: wall time
+    (host clock up to a synchronize), the host's enqueue time (the call's
+    return, before the device is done) and the device time of the same
+    work with no host in the loop — the replay of the executor's own graph
+    (events around passes enqueued back to back), or, with its graphs off,
+    the eager pass captured in a CUDA graph here — and the device time of
+    three passes by kernel class (``torch.profiler``). Run after the
+    served requests have finished, on blocks of the server's pool."""
     import statistics
 
     ex = srv._exec
     B, bs, C = srv.max_batch, srv.block_size, srv.prefill_chunk
     ctx, start = 512, 384
-    nblk = ctx // bs + 1
+    nblk = (ctx + srv.tick_window - 1) // bs + 1
     tables = torch.zeros(B, srv._table_width, dtype=torch.int32)
     for b in range(B):
         tables[b, :nblk] = torch.arange(1 + b * nblk, 1 + (b + 1) * nblk)
     tables = tables.cuda()
     pos = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
-    toks = torch.ones(B, dtype=torch.long, device="cuda")
-    chunk = torch.ones(1, C, dtype=torch.long, device="cuda")
+    active = torch.ones(B, dtype=torch.int32, device="cuda")
+    toks = torch.ones(B, dtype=torch.int32, device="cuda")
+    chunk = torch.ones(1, C, dtype=torch.int32, device="cuda")
+    start_v = torch.tensor([start], dtype=torch.int32, device="cuda")
+    last_v = torch.tensor([C - 1], dtype=torch.int32, device="cuda")
     aidx = pages = None
     if srv._lora is not None:
         # rows on two adapters' pages and on the null page
@@ -857,15 +932,16 @@ def pass_breakdown(torch, srv):
                             device="cuda")
 
     def tick():
-        return ex.decode_paged(toks, tables, pos, None, None, None,
-                               greedy=True, generator=None, aidx=aidx)
+        return ex.decode_paged(toks, tables, pos, None, None, None, active,
+                               None, aidx=aidx, greedy=True,
+                               ticks=srv.tick_window)
 
     def prefill():
-        return ex.chunk_prefill(chunk, tables[0], start, C - 1,
+        return ex.chunk_prefill(chunk, tables[0], start_v, last_v,
                                 None if aidx is None else aidx[:1])
 
     res = {}
-    for name, fn in (("decode_tick", tick), ("prefill_chunk", prefill)):
+    for name, fn in (("decode_window", tick), ("prefill_chunk", prefill)):
         fn()
         torch.cuda.synchronize()
         walls, enq = [], []
@@ -877,8 +953,9 @@ def pass_breakdown(torch, srv):
             walls.append(time.perf_counter() - t0)
             enq.append(t1 - t0)
         wall = statistics.median(walls) * 1e3
-        device = time_ms(fn, iters=3)
-        # device time of 3 eager passes by kernel class (torch.profiler)
+        device = (_replayed_ms(torch, fn) if ex.graphs
+                  else time_ms(fn, iters=3))
+        # device time of 3 passes by kernel class (torch.profiler)
         busy, _, classes, _ = _device_busy(torch, fn, 3)
         res[name] = dict(wall_ms=wall,
                          host_enqueue_ms=statistics.median(enq) * 1e3,
@@ -887,6 +964,8 @@ def pass_breakdown(torch, srv):
                          device_ms_by_class={
                              c: t / 3 * 1e3 for c, t in sorted(
                                  classes.items(), key=lambda kv: -kv[1])})
+    res["graphs"] = ex.graphs
+    res["ticks_a_window"] = srv.tick_window
     for p in pages or ():
         srv._lora.release(p)
     log("pass breakdown (host vs device): " + json.dumps(res))
@@ -1542,11 +1621,13 @@ def kernel_decode_tick(torch, ops, model):
 
 
 # -------------------------------------------------------------- phase 14
-def serve_megakernel(torch, ops, model, phase4_tokens):
+def serve_megakernel(torch, ops, model, phase4_tokens, graphs=True,
+                     **server_kw):
     """Phase 4's model and traffic behind ``kernels="megakernel"``: every
     decode tick launches decode_tick once and the per-layer attention never;
     every prefill chunk launches the per-layer attention once a layer and
-    decode_tick never. Counts how many requests give phase 4's tokens."""
+    decode_tick never. Counts how many requests give phase 4's tokens.
+    ``graphs`` and ``server_kw`` (``tick_window``) as in :func:`serve`."""
     L = model.cfg.num_hidden_layers
 
     def expect(st):
@@ -1555,19 +1636,29 @@ def serve_megakernel(torch, ops, model, phase4_tokens):
                 "rms_norm": st["decode_ticks"]
                 + (2 * L + 1) * st["prefill_chunks"]}
 
+    label = "serve llama3-8b paged megakernel" + _cell_suffix(
+        graphs, server_kw.get("tick_window", 1))
     try:
         res, _, srv = serve(
-            torch, ops, model, label="serve llama3-8b paged megakernel",
-            expect=expect, kernels="megakernel",
+            torch, ops, model, label=label, expect=expect, graphs=graphs,
+            kernels="megakernel",
             expect_per_pass={
                 "decode_paged": {"decode_tick": 1, "paged_attention": 0},
-                "chunk_prefill": {"decode_tick": 0, "paged_attention": L}})
+                "chunk_prefill": {"decode_tick": 0, "paged_attention": L}},
+            **server_kw)
         check(srv._exec.megakernel, "phase 14: the server did not take the "
                                     "megakernel")
     finally:
         ops.set_kernel_mode("auto")
-    _shared_tokens(res, phase4_tokens, "serve megakernel vs phase 4")
+    _shared_tokens(res, phase4_tokens, f"{label} vs phase 4")
     return res
+
+
+def _cell_suffix(graphs, window=1):
+    """A serving cell's label past its kernels: the window and whether its
+    passes are eager."""
+    return (f" W={window}" if window != 1 else "") + ("" if graphs
+                                                      else " (eager)")
 
 
 def _shared_tokens(res, ref_tokens, label):
@@ -1594,13 +1685,13 @@ def _shared_tokens(res, ref_tokens, label):
 
 
 # -------------------------------------------------------------- phase 16
-def serve_int8_kv(torch, ops, model, megakernel):
+def serve_int8_kv(torch, ops, model, megakernel, graphs=True):
     """Phase 4's traffic over the bf16 model with ``kv_quant="int8"``
     pools: per layer (every pass launches the int8-pool attention once a
     layer), or behind ``kernels="megakernel"`` (every decode tick launches
     decode_tick once and no per-layer kernel but the final norm; every
     prefill chunk the int8-pool attention once a layer and decode_tick
-    never)."""
+    never). ``graphs`` as in :func:`serve`."""
     L = model.cfg.num_hidden_layers
 
     def expect(st):
@@ -1621,11 +1712,12 @@ def serve_int8_kv(torch, ops, model, megakernel):
                              "paged_attention": 0, "fused_lora_matmul": 0,
                              "w8_matmul": 0},
             "chunk_prefill": {"decode_tick": 0, "paged_attention_int8": L}})
-    label = "serve llama3-8b paged int8-kv" + (" megakernel" if megakernel
-                                               else "")
+    label = ("serve llama3-8b paged int8-kv"
+             + (" megakernel" if megakernel else "")
+             + _cell_suffix(graphs))
     try:
         res, _, srv = serve(torch, ops, model, label=label, expect=expect,
-                            kv_quant="int8", **kw)
+                            kv_quant="int8", graphs=graphs, **kw)
         check(srv._exec.megakernel == megakernel,
               f"{label}: the server's megakernel flag")
     finally:
@@ -1634,6 +1726,130 @@ def serve_int8_kv(torch, ops, model, megakernel):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------- phases 24-25
+# the graph-on/off phase's limit: a graphed per-layer decode tick's host
+# wall over its device time (the host enqueues a replay, 5 input copies and
+# reads 8 tokens back)
+GRAPH_WALL_RATIO = 1.25
+WINDOW = 4
+
+
+def _pass_line(res):
+    """One cell's per-pass readings (window, chunk) and rates."""
+    bd = res["breakdown"]
+    out = {k: res[k] for k in ("decode_tok_s", "prefill_tok_s",
+                               "ms_per_decode_tick", "peak_memory_gib",
+                               "peak_reserved_gib")}
+    for kind in ("decode_window", "prefill_chunk"):
+        out[kind] = {k: bd[kind][k] for k in ("wall_ms", "host_enqueue_ms",
+                                              "device_ms",
+                                              "device_idle_share")}
+    return out
+
+
+def eager_twin(name, graphed, eager):
+    """Phase 24 for one serving cell: its traffic served once more with
+    the executor's graphs off, every pass eager, on the same requests.
+    Every request's tokens and every kernel's launches must equal the
+    graphed run's. Returns both runs' per-pass readings (host wall,
+    enqueue, device time, idle share) and rates."""
+    same = sum(a == b for a, b in zip(graphed["tokens"], eager["tokens"]))
+    check(same == len(graphed["tokens"]),
+          f"phase 24: {name}: {same} of {len(graphed['tokens'])} requests "
+          f"give the same tokens with graphs on and off")
+    check(graphed["launches"] == eager["launches"],
+          f"phase 24: {name}: launches with graphs on {graphed['launches']} "
+          f"!= off {eager['launches']}")
+    out = {"requests_identical": same, "graphs": _pass_line(graphed),
+           "eager": _pass_line(eager)}
+    log(f"phase 24, {name}, graphs on / off: " + json.dumps(out))
+    return out
+
+
+def graphed_tick_check(graphed):
+    """Phase 24's limit: the graphed per-layer bf16 tick's host wall over
+    its device time, at most GRAPH_WALL_RATIO."""
+    tick = graphed["breakdown"]["decode_window"]
+    ratio = tick["wall_ms"] / tick["device_ms"]
+    check(ratio <= GRAPH_WALL_RATIO,
+          f"phase 24: the graphed bf16 tick's host wall is {ratio:.3f} x "
+          f"its device time (limit {GRAPH_WALL_RATIO})")
+    return ratio
+
+
+def serve_windows(torch, ops, model, w1, w1_mk):
+    """Phase 25: phase 4's and phase 14's cells at ``tick_window=4`` (4
+    ticks a graph replay, one host round trip a window). Each cell's tokens
+    must equal its W = 1 run's on phase 4's requests: a row's arithmetic
+    does not depend on the rows beside it (the paged attention sizes a
+    row's key splits from its own context, ``paged_tiles.cuh``
+    ``row_split_keys``), so W = 4's other refill timing changes nothing.
+    Then sampled requests at W = 4 with the graphs on and off from one
+    seed (:func:`serve_sampled_window`)."""
+    res, _, srv = serve(torch, ops, model,
+                        label=f"serve llama3-8b paged W={WINDOW}",
+                        tick_window=WINDOW)
+    del srv
+    res_mk = serve_megakernel(torch, ops, model, res["tokens"],
+                              tick_window=WINDOW)
+    for name, got, want in (("bf16", res, w1), ("bf16 megakernel", res_mk,
+                                                w1_mk)):
+        same = sum(a == b for a, b in zip(got["tokens"], want["tokens"]))
+        check(same == len(want["tokens"]),
+              f"phase 25: {name}: {same} of {len(want['tokens'])} requests "
+              f"give W = 1's tokens at W = {WINDOW}")
+        got["requests_identical_to_w1"] = same
+    sampled = serve_sampled_window(torch, model)
+    log(f"phase 25, W = {WINDOW}: " + json.dumps(
+        {"bf16": _pass_line(res), "bf16 megakernel": _pass_line(res_mk),
+         "sampled": sampled}))
+    return res, res_mk, {"sampled": sampled}
+
+
+def serve_sampled_window(torch, model):
+    """Four sampled requests (temperature 0.8, top-k 50, top-p 0.95) at
+    ``tick_window=4`` from one seed, with the executor's graphs on and then
+    off. Graphs on, every sampled window must be a replay of a graph that
+    draws from the server's generator (``CUDAGraph.
+    register_generator_state``). Returns the replays and how many requests
+    drew the same tokens both ways."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import GenerationServer
+
+    V = model.cfg.vocab_size
+    runs = {}
+    for graphs in (True, False):
+        srv = GenerationServer(model, cache="paged", max_batch=MAX_BATCH,
+                               block_size=BLOCK_SIZE,
+                               prefill_chunk=PREFILL_CHUNK, max_len=MAX_LEN,
+                               tick_window=WINDOW, seed=5)
+        srv._exec.graphs = graphs
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(1, V, n).tolist() for n in (200, 333, 90,
+                                                            500)]
+        rids = [srv.submit(p, max_new_tokens=24, temperature=0.8, top_k=50,
+                           top_p=0.95) for p in prompts]
+        out = srv.run()
+        for rid, p in zip(rids, prompts):
+            toks = out[rid]
+            check(len(toks) == len(p) + 24 and all(
+                0 <= t < V for t in toks[len(p):]),
+                  f"phase 25: sampled request {rid}: bad output")
+        runs[graphs] = ([out[r] for r in rids], dict(srv._exec.replays),
+                        srv.throughput_stats()["decode_trips"])
+        del srv
+        gc.collect()
+    replays, trips = runs[True][1]["decode"], runs[True][2]
+    check(replays == trips,
+          f"phase 25: {replays} sampled windows replayed of {trips}")
+    same = sum(a == b for a, b in zip(runs[True][0], runs[False][0]))
+    return {"windows": trips,
+            "windows_replayed": replays,
+            "requests_same_tokens_graphs_on_off": same,
+            "requests": len(runs[True][0])}
 
 
 # --------------------------------------------------------------- phase 9
@@ -1856,14 +2072,14 @@ def lora_registry(cfg):
     return reg
 
 
-def serve_lora(torch, ops, model, megakernel=False):
+def serve_lora(torch, ops, model, megakernel=False, graphs=True):
     """Phase 4's traffic behind ``lora=LoRAConfig(registry, max_live_adapters
     =2, max_rank=8)``: 8 requests on three adapters, 4 without; then one
     prompt of 2+ blocks under a1, then a2, then a2 again. ``megakernel``
     (phase 17): behind ``kernels="megakernel"``, where every decode tick
     launches decode_tick once and neither the fused LoRA kernel nor the
     per-layer attention, and every prefill chunk launches both as the
-    per-layer path does."""
+    per-layer path does. ``graphs`` as in :func:`serve`."""
     from paddle_tpu_torch.inference.lora import LoRAConfig
 
     cfg = model.cfg
@@ -1892,11 +2108,13 @@ def serve_lora(torch, ops, model, megakernel=False):
             "decode_paged": {"decode_tick": 1, "fused_lora_matmul": 0,
                              "paged_attention": 0},
             "chunk_prefill": {"decode_tick": 0, "fused_lora_matmul": 7 * L}})
-    label = "serve llama3-8b paged lora" + (" megakernel" if megakernel
-                                            else "")
+    label = ("serve llama3-8b paged lora"
+             + (" megakernel" if megakernel else "")
+             + _cell_suffix(graphs))
     try:
         res, prompt, srv = serve(
             torch, ops, model, label=label, adapters=adapters, expect=expect,
+            graphs=graphs,
             lora=LoRAConfig(reg, max_live_adapters=LORA_LIVE,
                             max_rank=LORA_MAX_RANK), **kw)
         check(srv._exec.megakernel == megakernel,
@@ -1924,21 +2142,23 @@ def serve_lora(torch, ops, model, megakernel=False):
 
 
 # --------------------------------------------------------------- phase 11
-def serve_int8(torch, ops, model):
-    """``quantize_int8()`` in place, then phase 4's traffic with
+def serve_int8(torch, ops, model, graphs=True):
+    """``quantize_int8()`` in place (once), then phase 4's traffic with
     ``kv_quant="int8"``: every decode tick streams the 7 x 32 projections
     and the lm-head through w8_matmul and reads the int8 pool through the
     int8 attention kernel; a prefill chunk's projections (128 rows)
-    dequantize, its lm-head row (1 row) streams."""
+    dequantize, its lm-head row (1 row) streams. ``graphs`` as in
+    :func:`serve`."""
     cfg = model.cfg
     L = cfg.num_hidden_layers
-    t0 = time.perf_counter()
-    model.quantize_int8()
-    torch.cuda.synchronize()
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"int8: quantized in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    if not model.quantized:
+        t0 = time.perf_counter()
+        model.quantize_int8()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"int8: quantized in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
 
     def expect(st):
         passes = st["decode_ticks"] + st["prefill_chunks"]
@@ -1948,8 +2168,9 @@ def serve_int8(torch, ops, model):
                 "rms_norm": (2 * L + 1) * passes}
 
     res, prompt, _ = serve(torch, ops, model,
-                           label="serve llama3-8b paged int8",
-                           expect=expect, kv_quant="int8")
+                           label="serve llama3-8b paged int8"
+                           + _cell_suffix(graphs),
+                           expect=expect, kv_quant="int8", graphs=graphs)
     return res, prompt
 
 
@@ -3716,6 +3937,24 @@ def main() -> int:
         log(f"partial run (phase 13 only): {time.perf_counter() - t_start:.1f}"
             f" s")
         return 0
+    if sys.argv[1:] == ["--only", "serve"]:
+        # a diagnostic run: the build and phases 4, 14, 24 and 25 alone, no
+        # final line
+        model = LlamaForCausalLM(llama3_8b_config())
+        serve_res, _, srv = serve(torch, ops, model)
+        del srv
+        mk_res = serve_megakernel(torch, ops, model, serve_res["tokens"])
+        eager_twin("bf16", serve_res, serve(
+            torch, ops, model, label="serve llama3-8b paged (eager)",
+            graphs=False)[0])
+        eager_twin("bf16 megakernel", mk_res, serve_megakernel(
+            torch, ops, model, serve_res["tokens"], graphs=False))
+        log("graphed bf16 tick, host wall over device: "
+            f"{graphed_tick_check(serve_res):.4f}")
+        serve_windows(torch, ops, model, serve_res, mk_res)
+        log(f"partial run (phases 4, 14, 24, 25 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     fwd_build = flash_fwd_build(_build, fac)
     log("flash forward kernel (registers a thread at launch; consumers "
         "setmaxnreg to consumer_registers): " + json.dumps(fwd_build))
@@ -3748,29 +3987,48 @@ def main() -> int:
     del srv4                    # its pools would count in the next peaks
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 24 (with each cell below): the same traffic, graphs off
+    graph_cmp = {"bf16": eager_twin("bf16", serve_res, serve(
+        torch, ops, model, label="serve llama3-8b paged (eager)",
+        graphs=False)[0])}
+    graph_cmp["bf16"]["graphed_tick_wall_over_device"] = graphed_tick_check(
+        serve_res)
 
     # phases 13-15, the whole-tick kernel, while the bf16 model is on the
     # card
     mk_cases = kernel_decode_tick(torch, ops, model)
     mk_res = serve_megakernel(torch, ops, model, serve_res["tokens"])
+    graph_cmp["bf16 megakernel"] = eager_twin(
+        "bf16 megakernel", mk_res, serve_megakernel(
+            torch, ops, model, serve_res["tokens"], graphs=False))
     e2e_mk = end_to_end(torch, ops, model, prompt,
                         label="end_to_end megakernel", megakernel=True)
     # phase 16, int8 KV pools under the bf16 model: per layer, then
     # through the whole-tick kernel
     kv8_res = serve_int8_kv(torch, ops, model, megakernel=False)
+    graph_cmp["int8-kv"] = eager_twin("int8-kv", kv8_res, serve_int8_kv(
+        torch, ops, model, megakernel=False, graphs=False))
     kv8_mk_res = serve_int8_kv(torch, ops, model, megakernel=True)
+    graph_cmp["int8-kv megakernel"] = eager_twin(
+        "int8-kv megakernel", kv8_mk_res, serve_int8_kv(
+            torch, ops, model, megakernel=True, graphs=False))
     _shared_tokens(kv8_mk_res, kv8_res.pop("tokens"),
                    "serve int8-kv megakernel vs per layer")
     kv8_res.pop("prompts")
     e2e_kv8_mk = end_to_end(torch, ops, model, prompt,
                             label="end_to_end int8-kv megakernel",
                             kv_quant="int8", megakernel=True)
+    # phase 25: tick_window = 4
+    w4_res, w4_mk_res, window_res = serve_windows(torch, ops, model,
+                                                  serve_res, mk_res)
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
     attn8_cases = kernel_paged_attention_int8(torch, ops, pa, cfg)
     lora_cases = kernel_fused_lora(torch, ops, cfg)
     lora_res, _, lora_srv = serve_lora(torch, ops, model)
+    graph_cmp["lora"] = eager_twin("lora", lora_res, serve_lora(
+        torch, ops, model, graphs=False)[0])
     e2e_lora = end_to_end(torch, ops, model, prompt, label="end_to_end lora",
                           lora=(lora_srv._lora,
                                 lora_srv._lora.acquire("a1")))
@@ -3779,6 +4037,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 17, the LoRA cell through the whole-tick kernel
     lora_mk_res, _, lora_srv = serve_lora(torch, ops, model, megakernel=True)
+    graph_cmp["lora megakernel"] = eager_twin(
+        "lora megakernel", lora_mk_res, serve_lora(
+            torch, ops, model, megakernel=True, graphs=False)[0])
     _shared_tokens(lora_mk_res, lora_res["tokens"],
                    "serve lora megakernel vs per layer")
     e2e_lora_mk = end_to_end(torch, ops, model, prompt,
@@ -3790,6 +4051,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     int8_res, _ = serve_int8(torch, ops, model)
+    graph_cmp["int8"] = eager_twin("int8", int8_res, serve_int8(
+        torch, ops, model, graphs=False)[0])
     e2e_int8 = end_to_end(torch, ops, model, prompt, label="end_to_end int8",
                           kv_quant="int8")
     del model
@@ -3912,7 +4175,10 @@ def main() -> int:
                           ("serve llama3-8b paged lora", lora_res, e2e_lora),
                           ("serve llama3-8b paged lora megakernel",
                            lora_mk_res, e2e_lora_mk),
-                          ("serve llama3-8b paged int8", int8_res, e2e_int8)):
+                          ("serve llama3-8b paged int8", int8_res, e2e_int8),
+                          (f"serve llama3-8b paged W={WINDOW}", w4_res, None),
+                          (f"serve llama3-8b paged megakernel W={WINDOW}",
+                           w4_mk_res, None)):
         breakdown = res.pop("breakdown")
         res.pop("tokens", None)
         res.pop("prompts", None)
@@ -3920,6 +4186,9 @@ def main() -> int:
         log("pass breakdown (host vs device): " + json.dumps(breakdown))
         if e is not None:
             log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))
+    log("phase 24, graphs on / off: " + json.dumps(graph_cmp))
+    log(f"phase 25, sampled W = {WINDOW}: "
+        + json.dumps(window_res))
     log("train llama3-8b (8 layers): " + json.dumps(train_res))
     log("train end_to_end kernels vs plain vs fp32: " + json.dumps(train_e2e))
     log("train long (phase 19): " + json.dumps(long_res))

@@ -119,8 +119,8 @@ VARIANTS = {
     "no_pdl": [("fused_lora.cu",
                 "e = sg::launch<false>(tw, x, p, M, K, N, epi, true, s);",
                 "e = sg::launch<false>(tw, x, p, M, K, N, epi, false, s);")],
-    # paged attention: a split's keys sized from the launch's keys to one
-    # wave of units, at least 128 (kept); fixed at 128 or 256; at least
+    # paged attention: a row's split keys sized from its own keys to one
+    # wave of units were half the rows as long, at least 128 (kept); fixed at 128 or 256; at least
     # 256; no split at all (one block walks a tile's keys)
     "pa_fixed128": [("paged_tiles.cuh",
                      "  return ks > p.split_keys ? static_cast<int>(ks) : "
@@ -132,6 +132,22 @@ VARIANTS = {
                      "kSplitKeys = 256;")],
     "pa_min256": [("paged_tiles.cuh", "kSplitKeys = 128;",
                    "kSplitKeys = 256;")],
+    # a row's split keys sized as if every row, a quarter of them or none
+    # of the others were as long as it, not half (kept): up to 1, 4 or B
+    # waves of units when every row is long
+    "pa_rows_all": [("paged_tiles.cuh",
+                     "  return split_keys_for(keys * ((B + 1) / 2), KV, p, "
+                     "wave);",
+                     "  return split_keys_for(keys * B, KV, p, wave);")],
+    "pa_rows_quarter": [("paged_tiles.cuh",
+                         "  return split_keys_for(keys * ((B + 1) / 2), KV, "
+                         "p, wave);",
+                         "  return split_keys_for(keys * ((B + 3) / 4), KV, "
+                         "p, wave);")],
+    "pa_row_alone": [("paged_tiles.cuh",
+                      "  return split_keys_for(keys * ((B + 1) / 2), KV, p, "
+                      "wave);",
+                      "  return split_keys_for(keys, KV, p, wave);")],
     "pa_no_split": [("paged_tiles.cuh", "kSplitKeys = 128;",
                      "kSplitKeys = 1 << 16;")],
     # a block a work unit (no persistent grid of one wave)

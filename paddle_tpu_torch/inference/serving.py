@@ -30,12 +30,19 @@ the per-layer kernels. A configuration it does not serve (an int8-weight
 model, a LoRA ``max_rank`` over the kernel's 16, a geometry it does not
 take) raises at construction (no fallback).
 
+``tick_window=W`` runs W decode ticks as one program before the host sees
+their tokens (executor.py): eos and max-new completion are found up to
+W - 1 tokens late and the surplus is discarded, so greedy outputs equal
+W = 1's, for one host round trip every W ticks. On a CUDA device every
+decode window and prefill chunk is a replay of a CUDA graph over the
+executor's static buffers, into which each pass copies its inputs from
+pinned host memory.
+
 Not ported yet (their constructor arguments raise ``NotImplementedError``
-when given a non-default value): the dense cache, ``tick_window > 1``,
-speculative decoding, KV tiers and swap preemption, priority/WFQ
-scheduling, telemetry, fault injection, tensor/context parallelism,
-snapshots, replica roles and ``kernels="pallas"`` (the port has no
-interpret mode).
+when given a non-default value): the dense cache, speculative decoding,
+KV tiers and swap preemption, priority/WFQ scheduling, telemetry, fault
+injection, tensor/context parallelism, snapshots, replica roles and
+``kernels="pallas"`` (the port has no interpret mode).
 With the default ``num_blocks`` the pool never runs dry; a smaller pool
 that does raises instead of preempting.
 """
@@ -60,7 +67,7 @@ from .scheduler import Scheduler
 # NotImplementedError. The constructor keeps the JAX server's parameter
 # order, so that a positional call means the same in both packages
 _UNPORTED_DEFAULTS = {
-    "tick_window": 1, "prompt_buckets": (32, 64, 128), "spec": None,
+    "prompt_buckets": (32, 64, 128), "spec": None,
     "host_pool_bytes": None, "warm_pool_bytes": None,
     "tier_demote_low": None, "tier_demote_high": None,
     "telemetry": None, "faults": None, "fault_retries": 3,
@@ -127,6 +134,9 @@ class GenerationServer:
     chunks (rounded up to a block multiple). ``seed`` seeds the
     ``torch.Generator`` of sampled requests.
 
+    ``tick_window``: decode ticks per host round trip (>= 1; see the
+    module docstring).
+
     ``kernels``: ``"auto"`` (default) leaves the process-wide
     :func:`paddle_tpu_torch.ops.set_kernel_mode` as it is; ``"megakernel"``
     (requires ``cache="paged"``) sets it so that every decode tick runs all
@@ -182,6 +192,8 @@ class GenerationServer:
         if cache != "paged":
             raise NotImplementedError(
                 f"cache={cache!r}: only cache='paged' is ported")
+        if tick_window < 1:
+            raise ValueError(f"tick_window must be >= 1, got {tick_window}")
         if policy not in (None, "fifo"):
             raise NotImplementedError(
                 f"policy={policy!r}: only FIFO scheduling is ported")
@@ -211,6 +223,7 @@ class GenerationServer:
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos = eos_token_id
+        self.tick_window = int(tick_window)
         # per-slot scalars live host-side (numpy)
         self.pos = np.zeros((max_batch,), np.int32)
         self.tokens = np.zeros((max_batch,), np.int32)
@@ -235,9 +248,11 @@ class GenerationServer:
         self.prefill_chunk = -(-chunk // bs) * bs  # round up to blocks
         entries = -(-max_len // bs)  # ceil: real table entries per slot
         self._max_entries = entries
-        # slack entries (always 0 = scratch) so a final chunk's table slice
-        # never runs off the row
-        self._table_width = entries + self.prefill_chunk // bs
+        # slack entries (always 0 = scratch) so that neither a final chunk's
+        # table slice nor a finished row's last ticks of a window run off
+        # the row
+        self._table_width = entries + -(-max(self.prefill_chunk,
+                                              self.tick_window) // bs)
         per_block = kv_block_bytes(cfg, bs, kv_quant)
         if num_blocks is None:
             if pool_bytes is not None:
@@ -263,9 +278,31 @@ class GenerationServer:
         self._prefill_tokens = 0
         self._prefill_chunks = 0
         self._prefill_wall_s = 0.0
+        self._decode_trips = 0
+        self._weights_checked = False
         self._decode_ticks = 0
         self._decode_tokens = 0
         self._decode_wall_s = 0.0
+        # the executor's inputs, staged in pinned host memory (on a CUDA
+        # device): a pass fills these and the executor copies them into its
+        # device buffers; every pass ends in a host copy of its result
+        # before the next one refills them
+        pin = self.device.type == "cuda"
+        i32 = torch.int32
+        TW = self._table_width
+        self._stage = {
+            name: torch.zeros(shape, dtype=dt, pin_memory=pin)
+            for name, shape, dt in (
+                ("tokens", (max_batch,), i32), ("tables", (max_batch, TW), i32),
+                ("pos", (max_batch,), i32), ("active", (max_batch,), i32),
+                ("aidx", (max_batch,), i32),
+                ("temps", (max_batch,), torch.float32),
+                ("topks", (max_batch,), i32),
+                ("topps", (max_batch,), torch.float32),
+                ("chunk", (1, self.prefill_chunk), i32), ("table", (TW,), i32),
+                ("start", (1,), i32), ("last_idx", (1,), i32),
+                ("chunk_aidx", (1,), i32))}
+        self._stage_np = {k: t.numpy() for k, t in self._stage.items()}
         self.kernels = kernels
         self.mk_geometry = mk_geometry
         # the mode is process-wide (as in the JAX package); a server that
@@ -332,6 +369,7 @@ class GenerationServer:
                        temperature=float(temperature), top_k=int(top_k),
                        top_p=float(top_p), adapter=adapter)
         req.sched = self._sched.submit(req, rid, adapter=adapter)
+        self._weights_checked = False
         return rid
 
     def _salt(self, adapter: Optional[str]) -> tuple:
@@ -438,16 +476,20 @@ class GenerationServer:
         start = req.pf_next
         end = min(start + C, n)
         self._ensure_blocks(slot, -(-end // bs))
-        chunk = np.zeros((1, C), np.int64)
-        chunk[0, :end - start] = seq[start:end]
-        last_idx = (n - 1 - start) if end == n else 0
+        if start % bs:
+            raise RuntimeError(f"prefill chunk at {start}: not a multiple of "
+                               f"block_size {bs}")
+        st, sn = self._stage, self._stage_np
+        sn["chunk"][:] = 0
+        sn["chunk"][0, :end - start] = seq[start:end]
+        sn["table"][:] = self._bt[slot]
+        sn["start"][0] = start
+        sn["last_idx"][0] = (n - 1 - start) if end == n else 0
+        sn["chunk_aidx"][0] = self.aidx[slot]
         w0 = time.perf_counter()
-        aidx = (torch.from_numpy(self.aidx[slot:slot + 1]).to(self.device)
-                if self._lora is not None else None)
         lg = self._exec.chunk_prefill(
-            torch.from_numpy(chunk).to(self.device),
-            torch.from_numpy(self._bt[slot]).to(self.device), start,
-            last_idx, aidx)
+            st["chunk"], st["table"], st["start"], st["last_idx"],
+            st["chunk_aidx"] if self._lora is not None else None)
         first = self._first_token(req, lg) if end == n else None
         if first is None:
             lg.cpu()    # the host copy closes the timed span on the device
@@ -463,48 +505,54 @@ class GenerationServer:
             self._prefilling[slot] = None
 
     def _plain_decode_trip(self, active) -> None:
-        """One decode tick across the listed slots; idle and prefilling rows
-        run masked — zeroed table and pos 0 route their discarded K/V writes
-        to scratch block 0, which keeps the batch shape fixed."""
+        """One decode trip: ``tick_window`` ticks across the listed slots in
+        one program. Idle and prefilling rows run masked — zeroed table and
+        pos 0 route their discarded K/V writes to scratch block 0, which
+        keeps the batch shape fixed."""
+        k = self.tick_window
         for s in active:
-            self._ensure_blocks(s, -(-(int(self.pos[s]) + 1)
+            self._ensure_blocks(s, -(-(int(self.pos[s]) + k)
                                      // self.block_size))
         greedy = all(float(self.temps[s]) == 0.0 for s in active)
         active_mask = np.zeros((self.max_batch,), np.int32)
         active_mask[active] = 1
-        bt = np.where(active_mask[:, None] > 0, self._bt, 0)
-        posv = self.pos * active_mask
-        dev = self.device
+        st, sn = self._stage, self._stage_np
+        sn["tokens"][:] = self.tokens
+        sn["tables"][:] = np.where(active_mask[:, None] > 0, self._bt, 0)
+        sn["pos"][:] = self.pos * active_mask
+        sn["active"][:] = active_mask
+        sn["aidx"][:] = self.aidx
+        if not greedy:
+            sn["temps"][:] = self.temps
+            sn["topks"][:] = self.topks
+            sn["topps"][:] = self.topps
         w0 = time.perf_counter()
-        if greedy:
-            samp = (None, None, None)
-        else:
-            samp = (torch.from_numpy(self.temps).to(dev),
-                    torch.from_numpy(self.topks).to(dev),
-                    torch.from_numpy(self.topps).to(dev))
-        aidx = (torch.from_numpy(self.aidx).to(dev)
-                if self._lora is not None else None)
         stack = self._exec.decode_paged(
-            torch.from_numpy(self.tokens.astype(np.int64)).to(dev),
-            torch.from_numpy(bt).to(dev), torch.from_numpy(posv).to(dev),
-            *samp, greedy=greedy, generator=self._gen, aidx=aidx)
+            st["tokens"], st["tables"], st["pos"], st["temps"], st["topks"],
+            st["topps"], st["active"], self._gen,
+            aidx=st["aidx"] if self._lora is not None else None,
+            greedy=greedy, ticks=k)
         nxt = stack.cpu().numpy()
         self._decode_wall_s += time.perf_counter() - w0
-        self._decode_ticks += 1
-        self._decode_tokens += len(active)
-        self._harvest_window(nxt, active, active_mask)
+        self._decode_trips += 1
+        self._decode_ticks += k
+        self._decode_tokens += self._harvest_window(nxt, active, active_mask)
 
-    def _harvest_window(self, nxt_host, active, active_mask) -> None:
+    def _harvest_window(self, nxt_host, active, active_mask) -> int:
         """Fold one decode window's (k, B) token stack into the per-request
-        state: append tokens, detect eos / max-new / max-len completion and
-        free finished slots for the next step's refill."""
+        state: append tokens, detect eos / max-new / max-len completion
+        (the window's surplus past completion is discarded) and free
+        finished slots for the next step's refill. Returns the tokens
+        kept."""
         k = nxt_host.shape[0]
         self.pos = self.pos + active_mask * k
         self.tokens = np.where(active_mask > 0, nxt_host[-1],
                                self.tokens).astype(np.int32)
+        kept = 0
         for s in active:
             req = self._slots[s]
             done = False
+            had = len(req.generated)
             for t in range(k):
                 finished_last = (self.eos is not None
                                  and req.generated[-1] == self.eos)
@@ -516,10 +564,12 @@ class GenerationServer:
                         or pos_t >= self.max_len - 1):
                     done = True
                     break
+            kept += len(req.generated) - had
             if done:
                 self._results[req.rid] = (req.prompt
                                           + req.generated[:req.max_new_tokens])
                 self._release_slot(s)
+        return kept
 
     def _release_slot(self, slot: int) -> None:
         req = self._slots[slot]
@@ -542,8 +592,13 @@ class GenerationServer:
     # ------------------------------------------------------------- stepping
     def step(self) -> int:
         """One server step: admit queued requests, advance one prefill chunk
-        per prefilling slot, then one decode tick across decoding slots;
-        returns #remaining (occupied slots + queued)."""
+        per prefilling slot, then one decode trip across decoding slots;
+        returns #remaining (occupied slots + queued). The first step after a
+        submit or a ``run()`` checks that the model's weights are those the
+        server was built over (``PagedExecutor.check_weights``)."""
+        if not self._weights_checked:
+            self._exec.check_weights()
+            self._weights_checked = True
         self._fill_free_slots()
         for s in range(self.max_batch):
             if self._slots[s] is not None and self._prefilling[s]:
@@ -566,6 +621,7 @@ class GenerationServer:
 
     def run(self) -> Dict[int, List[int]]:
         """Drain the queue; returns {rid: prompt+generated token ids}."""
+        self._weights_checked = False
         while self.step():
             pass
         out, self._results = self._results, {}
@@ -583,10 +639,13 @@ class GenerationServer:
     def throughput_stats(self) -> Dict[str, float]:
         """Prompt tokens and decode ticks served so far with their host wall
         time (each span ends on a host copy of its result, so the device
-        work is included)."""
+        work is included): ``decode_trips`` host round trips of
+        ``tick_window`` ``decode_ticks`` each, ``decode_tokens`` the tokens
+        kept (a window's surplus past a request's end is not counted)."""
         return {"prefill_tokens": self._prefill_tokens,
                 "prefill_chunks": self._prefill_chunks,
                 "prefill_s": self._prefill_wall_s,
+                "decode_trips": self._decode_trips,
                 "decode_ticks": self._decode_ticks,
                 "decode_tokens": self._decode_tokens,
                 "decode_s": self._decode_wall_s}

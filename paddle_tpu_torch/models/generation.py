@@ -13,10 +13,13 @@ NEG = -1e30
 
 
 def _categorical(lg, generator):
-    """One draw per row from softmax(lg) (rows of fp32 logits)."""
+    """One draw per row from softmax(lg) (rows of fp32 logits):
+    ``argmax(p / e)`` with ``e`` exponential draws, the arithmetic of
+    ``torch.multinomial``'s one-sample path without its host-side check of
+    the probabilities, so that a CUDA graph can capture it."""
     probs = torch.softmax(lg, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    e = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / e, dim=-1).to(torch.int32)
 
 
 def next_token(logits, generator, temperature: float, top_k: int,

@@ -131,8 +131,11 @@ def _rope_rotate(x, c, s):
 
 
 def _apply_rope_rows(x, cos, sin, pos):
-    """x: (B, 1, H, D), pos: int32 (B,) — each row at its own position."""
-    p = pos.long()
+    """x: (B, 1, H, D), pos: int32 (B,) — each row at its own position,
+    edge-clamped to the table as the JAX gather is: the last ticks of a
+    decode window may run a finished row past it, and their tokens are
+    discarded."""
+    p = torch.clamp(pos.long(), 0, cos.shape[0] - 1)
     return _rope_rotate(x, cos[p][:, None, None, :], sin[p][:, None, None, :])
 
 
@@ -147,9 +150,14 @@ def _apply_rope_bhsd(x, cos, sin, pos_offset=0):
 def _apply_rope_chunk(x, cos, sin, start):
     """x: (B, C, H, D) at positions ``start + arange(C)``, edge-clamped to the
     table: a padded final chunk may overrun it, and the clamped rows are
-    padding that is never read."""
+    padding that is never read. ``start``: a host int or a device int32
+    scalar ((1,) or 0-d; the add runs on the device)."""
     S = x.shape[1]
-    idx = torch.clamp(int(start) + torch.arange(S, device=x.device), 0,
+    if isinstance(start, torch.Tensor):
+        start = start.reshape(()).long()
+    else:
+        start = int(start)
+    idx = torch.clamp(start + torch.arange(S, device=x.device), 0,
                       cos.shape[0] - 1)
     return _rope_rotate(x, cos[idx][None, :, None, :],
                         sin[idx][None, :, None, :])
@@ -279,7 +287,8 @@ class LlamaAttention(nn.Module):
     def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start,
                             lora=None):
         """One fixed-size prefill CHUNK: queries at ``start + arange(C)``
-        (block-aligned ``start``, C a multiple of the block size); their K/V
+        (block-aligned ``start``, a host int or a device int32 scalar that
+        the caller checked; C a multiple of the block size); their K/V
         fill consecutive table entries (in place) and attention runs over
         all paged context written so far. x: (1, C, hidden); ``pool`` and
         ``lora`` as in :meth:`paged_decode`; block_table: int32 (M,).
@@ -400,7 +409,8 @@ class LlamaModel(nn.Module):
     def paged_prefill_chunk(self, input_ids, pools, block_table, start,
                             lora=None):
         """Stream ONE prompt chunk into the paged pool. input_ids: int
-        (1, C); block_table: int32 (M,); start: block-aligned chunk origin;
+        (1, C); block_table: int32 (M,); start: block-aligned chunk origin,
+        a host int or a device int32 scalar (JAX's traced ``start``);
         ``pools``/``lora`` as in :meth:`paged_decode_step`. Returns (normed
         hidden (1, C, hidden), pools)."""
         x = self.embed_tokens(input_ids)

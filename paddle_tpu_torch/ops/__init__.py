@@ -21,9 +21,15 @@ unlike the JAX package there is no trace to freeze it).
 Every wrapper that launches a kernel carries a plain-integer launch counter
 (``wrapper.launches``), bumped exactly where the kernel is launched and
 nowhere else, so a run can show that its main path went through the kernels:
-:func:`reset_launch_counts` before the run, :func:`launch_counts` after.
+:func:`reset_launch_counts` before the run, :func:`launch_counts` after. A
+CUDA graph launches its kernels without calling a wrapper: its capture runs
+under :func:`captured_launches`, which takes the capture's bumps back and
+records them, and each replay adds them (:func:`add_launch_counts`), so N
+replayed passes count what N eager passes would.
 """
 from __future__ import annotations
+
+import contextlib
 
 KERNEL_MODES = ("auto", "megakernel", "reference")
 
@@ -110,7 +116,32 @@ def launch_counts() -> dict:
     return {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
 
 
-__all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "decode_tick_cuda",
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({kernel: launches}) to the wrappers' counters: what
+    one replay of a CUDA graph launches (see :func:`captured_launches`)."""
+    for name, n in counts.items():
+        KERNEL_WRAPPERS[name].launches += n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph's capture: yields a dict that, on exit, holds the
+    launches the wrappers counted inside the block ({kernel: launches}, the
+    kernels launched at least once), and takes them back from the counters
+    — a captured call launches nothing until the graph is replayed."""
+    before = launch_counts()
+    got = {}
+    try:
+        yield got
+    finally:
+        for name, n in launch_counts().items():
+            if n != before[name]:
+                got[name] = n - before[name]
+                KERNEL_WRAPPERS[name].launches = before[name]
+
+
+__all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "add_launch_counts",
+           "captured_launches", "decode_tick_cuda",
            "flash_bwd_dkv_cuda", "flash_bwd_dkv_stream_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dq_stream_cuda", "flash_fwd_cuda",
            "flash_fwd_stream_cuda", "fused_adamw_cuda",

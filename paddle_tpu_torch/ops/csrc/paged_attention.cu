@@ -38,8 +38,9 @@
 //     of 4 rows fills 4 of them: the products cost little beside the
 //     bytes) and one split of the row's keys, so that each row takes as
 //     many splits as its own length needs; a split's keys (at least 128)
-//     are sized on the card from the keys the launch's rows hold, to about
-//     one wave of units. The grid is
+//     are sized on the card from the keys the row holds, to about one wave
+//     of units were half the rows as long (so a row's rounding never
+//     depends on the other rows of the batch). The grid is
 //     persistent, at most one wave of blocks, sized from shapes alone:
 //     each block reads pos on the card and walks its units (i, i + grid,
 //     ...), its ring running on from one to the next, so no host reads a
@@ -167,40 +168,38 @@ __device__ __forceinline__ void codes_to_bf16(const uint4& c, uint4* out) {
   out[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-// The keys a split takes in this launch (paged_tiles::split_keys_for over
-// launch_keys), a warp summing 32 (b, tile) pairs at a time; every warp
-// that calls it gets the same.
-__device__ __forceinline__ int launch_split_keys(const int* __restrict__ pos,
-                                                 int B, int KV, int rep,
-                                                 int M, int bs,
-                                                 const pt::Plan& p,
-                                                 int wave) {
-  const int lane = threadIdx.x & 31;
-  const int pairs = B * p.tiles;
-  long long keys = 0;
-  for (int idx = lane; idx < pairs; idx += 32)
-    keys += pt::tile_frontier(pos[idx / p.tiles], idx % p.tiles, p.rows, rep,
-                              M, bs) + 1;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    keys += __shfl_xor_sync(0xffffffffu, keys, o);
-  return pt::split_keys_for(keys, KV, p, wave);
+// A (b, tile) pair's split count and its row's keys a split
+// (paged_tiles::row_split_keys); n = 0 past the launch's pairs.
+struct PairSplits {
+  int n, ks;
+};
+__device__ __forceinline__ PairSplits pair_splits(const int* __restrict__ pos,
+                                                  int idx, int B, int KV,
+                                                  int rep, int M, int bs,
+                                                  const pt::Plan& p,
+                                                  int wave) {
+  PairSplits r{0, 0};
+  if (idx < B * p.tiles) {
+    const int b = idx / p.tiles;
+    r.ks = pt::row_split_keys(pos[b], B, KV, rep, M, bs, p, wave);
+    r.n = pt::tile_splits(
+        pt::tile_frontier(pos[b], idx % p.tiles, p.rows, rep, M, bs), r.ks);
+  }
+  return r;
 }
 
-// The launch's work units at ks keys a split (paged_tiles::launch_units),
-// as launch_split_keys sums.
+// The launch's work units (paged_tiles::launch_units), a warp summing the
+// splits of 32 (b, tile) pairs at a time; every warp that calls it gets the
+// same. `first`: this lane's pair of the first 32 (pair_splits of the
+// lane), which each thread computes once a block.
 __device__ __forceinline__ int launch_units(const int* __restrict__ pos,
                                             int B, int KV, int rep, int M,
                                             int bs, const pt::Plan& p,
-                                            int ks) {
+                                            int wave, PairSplits first) {
   const int lane = threadIdx.x & 31;
-  const int pairs = B * p.tiles;
-  int items = 0;
-  for (int idx = lane; idx < pairs; idx += 32)
-    items += pt::tile_splits(pt::tile_frontier(pos[idx / p.tiles],
-                                               idx % p.tiles, p.rows, rep,
-                                               M, bs),
-                             ks);
+  int items = first.n;
+  for (int idx = lane + 32; idx < B * p.tiles; idx += 32)
+    items += pair_splits(pos, idx, B, KV, rep, M, bs, p, wave).n;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     items += __shfl_xor_sync(0xffffffffu, items, o);
@@ -209,23 +208,24 @@ __device__ __forceinline__ int launch_units(const int* __restrict__ pos,
 
 // Work unit L (< the launch's units): its batch row, tile and split from
 // the tiles' split counts in (b, tile) order, a warp scan over 32 (b, tile)
-// pairs at a time, and its KV head (paged_tiles::item_of).
-__device__ __forceinline__ pt::Item find_item(const int* __restrict__ pos,
-                                              int L, int B, int KV, int rep,
-                                              int M, int bs,
-                                              const pt::Plan& p, int ks) {
+// pairs at a time, and its KV head (paged_tiles::item_of); with its row's
+// keys a split.
+struct Found {
+  pt::Item it;
+  int ks;
+};
+__device__ __forceinline__ Found find_item(const int* __restrict__ pos,
+                                           int L, int B, int KV, int rep,
+                                           int M, int bs, const pt::Plan& p,
+                                           int wave, PairSplits first) {
   const int lane = threadIdx.x & 31;
   int item = L / KV;
   const int pairs = B * p.tiles;
   for (int base = 0; base < pairs; base += 32) {
-    const int idx = base + lane;
-    int n = 0;
-    if (idx < pairs) {
-      const int b = idx / p.tiles, t = idx % p.tiles;
-      n = pt::tile_splits(pt::tile_frontier(pos[b], t, p.rows, rep, M, bs),
-                          ks);
-    }
-    int c = n;   // inclusive scan over the lanes
+    const PairSplits ps =
+        base == 0 ? first
+                  : pair_splits(pos, base + lane, B, KV, rep, M, bs, p, wave);
+    int c = ps.n;   // inclusive scan over the lanes
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int v = __shfl_up_sync(0xffffffffu, c, o);
@@ -236,14 +236,16 @@ __device__ __forceinline__ pt::Item find_item(const int* __restrict__ pos,
       const unsigned hit = __ballot_sync(0xffffffffu, c > item);
       const int Ln = __ffs(hit) - 1;
       const int cl = __shfl_sync(0xffffffffu, c, Ln);
-      const int nl = __shfl_sync(0xffffffffu, n, Ln);
+      const int nl = __shfl_sync(0xffffffffu, ps.n, Ln);
+      const int ks = __shfl_sync(0xffffffffu, ps.ks, Ln);
       const int pair = base + Ln;
-      return pt::Item{pair / p.tiles, pair % p.tiles, item - (cl - nl),
-                      L % KV};
+      return Found{pt::Item{pair / p.tiles, pair % p.tiles, item - (cl - nl),
+                            L % KV},
+                   ks};
     }
     item -= total;
   }
-  return pt::Item{0, 0, 0, 0};   // not reached: L is below the units
+  return Found{pt::Item{0, 0, 0, 0}, 0};   // not reached: L is below the units
 }
 
 // PT: the pools' element type, bf16 (fp pool) or int8_t (codes with scales)
@@ -266,8 +268,10 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
   const pt::Plan p = pt::plan(B, W, H, KV, bs, M);
   // the combine pass may start now: it waits for this grid's writes
   griddep_launch_dependents();
-  const int ks = launch_split_keys(pos, B, KV, rep, M, bs, p, wave);
-  const int units = launch_units(pos, B, KV, rep, M, bs, p, ks);
+  // this lane's (b, tile) pair of the first 32, once a block
+  const PairSplits first =
+      pair_splits(pos, threadIdx.x & 31, B, KV, rep, M, bs, p, wave);
+  const int units = launch_units(pos, B, KV, rep, M, bs, p, wave, first);
   if (static_cast<int>(blockIdx.x) >= units) return;
   // the unit's tile, split and keys
   struct Unit {
@@ -277,11 +281,12 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
   };
   auto unit = [&](int Lu) {
     Unit u;
-    u.it = find_item(pos, Lu, B, KV, rep, M, bs, p, ks);
+    const Found f = find_item(pos, Lu, B, KV, rep, M, bs, p, wave, first);
+    u.it = f.it;
     u.pos_b = pos[u.it.b];
     u.frontier = pt::tile_frontier(u.pos_b, u.it.tile, p.rows, rep, M, bs);
-    u.n_splits = pt::tile_splits(u.frontier, ks);
-    u.keys = pt::split_keys(u.it.split, u.frontier, ks);
+    u.n_splits = pt::tile_splits(u.frontier, f.ks);
+    u.keys = pt::split_keys(u.it.split, u.frontier, f.ks);
     u.nst = pt::split_stages(u.keys);
     return u;
   };
@@ -611,9 +616,8 @@ paged_attention_combine(const float* __restrict__ part_acc,
   if (row >= B * KV * p.rows) return;
   const int rr = row % p.rows, bg = row / p.rows;
   const int g = bg % KV, b = bg / KV;
-  const int ks = launch_split_keys(pos, B, KV, rep, M, bs, p, wave);
-  const int n = pt::tile_splits(
-      pt::tile_frontier(pos[b], rr / kRows, p.rows, rep, M, bs), ks);
+  const int n =
+      pt::row_tile_splits(pos[b], rr / kRows, B, KV, rep, M, bs, p, wave);
   if (pt::writes_direct(n)) return;
   griddep_wait();   // the attention grid's partials are written
   auto prow = [&](int s) {

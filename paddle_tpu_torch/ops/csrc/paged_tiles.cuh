@@ -14,9 +14,13 @@
 // The plan. A unit of work is one tile of kRows query rows of one (b, KV
 // head) (one wgmma M tile) and one split: a run of `ks` keys, walked in
 // ring stages of kStageKeys keys, so that each row takes as many splits as
-// its own length needs. The kernel sizes ks on the card from the keys the
-// launch's rows really hold (split_keys_for): at least kSplitKeys, more
-// where that many would give more units than one wave of blocks.
+// its own length needs. The kernel sizes a row's ks on the card from the
+// keys that row really holds (row_split_keys): at least kSplitKeys, more
+// where a launch with half its B rows as long as this one would give more
+// units than one wave of blocks (so at most about two waves when every row
+// is long). A row's splits, and so its rounding, depend on its
+// own position alone, never on the other rows of the launch: a served
+// request's tokens do not change with the batch it shares.
 // Every launch is sized from shapes alone (the grid, the most splits a
 // tile can take, the workspace), never from pos: the kernel reads pos on
 // the card and derives from it the work there is. The work items (b, tile,
@@ -123,10 +127,15 @@ PAGED_TILES_FN int row_frontier(int pos, int rr, int rep) {
   return pos + rr / rep;
 }
 
-// The keys a split takes in this launch, from the keys its tiles walk in
-// all (launch_keys: the sum over (b, tile) of frontier + 1): the fewest,
-// or enough, in whole stages, that the units of every KV head come to
-// about `wave` (the blocks the card holds at once)
+// splits a tile walks at ks keys a split: those that hold a key up to its
+// frontier (from 1 to p.splits, as ks >= p.split_keys)
+PAGED_TILES_FN int tile_splits(int frontier, int ks) {
+  return frontier / ks + 1;
+}
+
+// The keys a split takes at `keys` keys to walk in a launch: the fewest,
+// or enough, in whole stages, that the units of every KV head come to about
+// `wave` (the blocks the card holds at once)
 PAGED_TILES_FN int split_keys_for(long long keys, int KV, const Plan& p,
                                   int wave) {
   const long long w = wave > 0 ? wave : 1;
@@ -135,10 +144,24 @@ PAGED_TILES_FN int split_keys_for(long long keys, int KV, const Plan& p,
   return ks > p.split_keys ? static_cast<int>(ks) : p.split_keys;
 }
 
-// splits a tile walks at ks keys a split: those that hold a key up to its
-// frontier (from 1 to p.splits, as ks >= p.split_keys)
-PAGED_TILES_FN int tile_splits(int frontier, int ks) {
-  return frontier / ks + 1;
+// The keys a split of a row at position `pos` takes: split_keys_for over
+// the keys the row's tiles walk (the sum over its tiles of frontier + 1)
+// times ceil(B / 2), as if half the rows of the launch were as long as
+// this one. A function of the row's own position and the launch's shapes
+// only.
+PAGED_TILES_FN int row_split_keys(int pos, int B, int KV, int rep, int M,
+                                  int bs, const Plan& p, int wave) {
+  long long keys = 0;
+  for (int t = 0; t < p.tiles; ++t)
+    keys += tile_frontier(pos, t, p.rows, rep, M, bs) + 1;
+  return split_keys_for(keys * ((B + 1) / 2), KV, p, wave);
+}
+
+// splits tile t of a row at position `pos` walks, at its row's keys a split
+PAGED_TILES_FN int row_tile_splits(int pos, int t, int B, int KV, int rep,
+                                   int M, int bs, const Plan& p, int wave) {
+  return tile_splits(tile_frontier(pos, t, p.rows, rep, M, bs),
+                     row_split_keys(pos, B, KV, rep, M, bs, p, wave));
 }
 
 // the keys [begin, end) that split s of a tile walks
@@ -162,46 +185,33 @@ PAGED_TILES_FN bool box_loaded(int key, int frontier) {
   return key <= frontier;
 }
 
-// The keys every tile of the launch walks, in all (the sequential
-// definition; the kernel sums with a warp)
-template <typename PosFn>
-PAGED_TILES_FN long long launch_keys(int B, int rep, int M, int bs,
-                                     const Plan& p, PosFn pos) {
-  long long keys = 0;
-  for (int b = 0; b < B; ++b)
-    for (int t = 0; t < p.tiles; ++t)
-      keys += tile_frontier(pos(b), t, p.rows, rep, M, bs) + 1;
-  return keys;
-}
-
-// The work units of the launch at ks keys a split: its items (the tiles'
-// splits, summed) times KV (the sequential definition; the kernel sums
-// with a warp)
+// The work units of the launch: its items (the tiles' splits at their
+// rows' keys a split, summed) times KV (the sequential definition; the
+// kernel sums with a warp)
 template <typename PosFn>
 PAGED_TILES_FN long long launch_units(int B, int KV, int rep, int M, int bs,
-                                      const Plan& p, int ks, PosFn pos) {
+                                      const Plan& p, int wave, PosFn pos) {
   long long items = 0;
   for (int b = 0; b < B; ++b)
     for (int t = 0; t < p.tiles; ++t)
-      items += tile_splits(tile_frontier(pos(b), t, p.rows, rep, M, bs), ks);
+      items += row_tile_splits(pos(b), t, B, KV, rep, M, bs, p, wave);
   return items * KV;
 }
 
 // Work unit i: its item (b, tile, split) and KV head, from the tiles'
-// split counts at ks keys a split (the sequential definition; the kernel
-// computes the same with a warp scan). Returns false past the last unit.
+// split counts (the sequential definition; the kernel computes the same
+// with a warp scan). Returns false past the last unit.
 struct Item {
   int b, tile, split, g;
 };
 template <typename PosFn>
 PAGED_TILES_FN bool item_of(long long i, int B, int KV, int rep, int M,
-                            int bs, const Plan& p, int ks, PosFn pos,
+                            int bs, const Plan& p, int wave, PosFn pos,
                             Item* out) {
   long long item = i / KV;
   for (int b = 0; b < B; ++b)
     for (int t = 0; t < p.tiles; ++t) {
-      const int n =
-          tile_splits(tile_frontier(pos(b), t, p.rows, rep, M, bs), ks);
+      const int n = row_tile_splits(pos(b), t, B, KV, rep, M, bs, p, wave);
       if (item < n) {
         *out = Item{b, t, static_cast<int>(item), static_cast<int>(i % KV)};
         return true;

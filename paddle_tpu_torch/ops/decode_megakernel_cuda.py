@@ -106,12 +106,13 @@ def _weight_maps(weights, device):
 
 
 def _pool_table(pools, device):
-    """int64 device table of the pools' addresses, cached by address."""
+    """int64 device table of the pools' addresses, cached by address for
+    the process's life: a CUDA graph that captured a tick reads the table
+    by address, so an entry is never dropped (one small tensor a pool
+    set)."""
     key = (device, tuple(p.data_ptr() for p in pools))
     t = _POOL_TABLES.get(key)
     if t is None:
-        if len(_POOL_TABLES) > 16:
-            _POOL_TABLES.clear()
         t = torch.tensor(key[1], dtype=torch.int64, device=device)
         _POOL_TABLES[key] = t
     return t
@@ -220,7 +221,13 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     (a diagnostic: the output is the same bits). B·W ≤ 64, hidden and the
     intermediate size multiples of 64, bs a multiple of 8. Returns the
     tick's output rows (B, W, hidden). Raises on a type, shape, layout or
-    device the kernel does not take, and when the launch is refused."""
+    device the kernel does not take, and when the launch is refused.
+
+    A CUDA graph may capture the call once a call outside the capture has
+    encoded the weights' TMA maps and built the pools' address table (both
+    kept for later calls): under capture the scratch tensors come from the
+    graph's pool and the barrier counters' zeroing is a captured memset,
+    so every replay starts on clear barriers."""
     from . import _build
 
     name = "decode_tick_cuda"

@@ -75,23 +75,50 @@ def write_decode_kv(k_pool, v_pool, k, v, block_tables, pos):
                            block_tables, pos)
 
 
+def _chunk_blocks(name, block_table, start, bs, C):
+    """The block ids (int64) of table entries ``[start//bs, start//bs +
+    C//bs)``: a chunk's blocks. ``start`` is a host int, checked here
+    (block-aligned, room in the table), or an int32 (1,) / 0-d tensor on
+    the table's device, read on the device (so that a CUDA graph can
+    capture the call), which the caller has checked on the host."""
+    on_device = isinstance(start, torch.Tensor)
+    if not on_device:
+        start = int(start)
+    if C % bs or (not on_device and start % bs):
+        where = "on the device" if on_device else start
+        raise ValueError(f"{name}: chunk {C} and start {where} must be "
+                         f"multiples of block_size {bs}")
+    nb = C // bs
+    if on_device:
+        idx = (start.reshape(()).long() // bs
+               + torch.arange(nb, device=block_table.device))
+        return block_table[idx].long()
+    blocks = block_table[start // bs:start // bs + nb].long()
+    if blocks.shape[0] != nb:
+        raise ValueError(f"{name}: table of {block_table.shape[0]} entries "
+                         f"has no room for {nb} blocks at {start}")
+    return blocks
+
+
+def _start_vector(start, device):
+    """``start`` (a host int or an int32 (1,) / 0-d tensor) as the int32
+    (1,) device vector the attention reads."""
+    if isinstance(start, torch.Tensor):
+        return start.reshape(1).to(torch.int32)
+    return torch.full((1,), int(start), dtype=torch.int32, device=device)
+
+
 def write_chunk_kv(k_pool, v_pool, k, v, block_table, start):
     """Scatter a prefill CHUNK's K/V into consecutive table entries, in place.
 
     k/v: (C, KV, D) with C a multiple of ``bs``; block_table: (M,); start:
-    block-aligned chunk origin (int). The chunk occupies table entries
-    ``[start//bs, start//bs + C//bs)``. Returns ``(k_pool, v_pool)``."""
+    block-aligned chunk origin, a host int or a device int32 scalar (see
+    :func:`_chunk_blocks`). The chunk occupies table entries ``[start//bs,
+    start//bs + C//bs)``. Returns ``(k_pool, v_pool)``."""
     bs = k_pool.shape[1]
-    C = k.shape[0]
-    start = int(start)
-    if C % bs or start % bs:
-        raise ValueError(f"write_chunk_kv: chunk {C} and start {start} must "
-                         f"be multiples of block_size {bs}")
-    nb = C // bs
-    blocks = block_table[start // bs:start // bs + nb].long()
-    if blocks.shape[0] != nb:
-        raise ValueError(f"write_chunk_kv: table of {block_table.shape[0]} "
-                         f"entries has no room for {nb} blocks at {start}")
+    blocks = _chunk_blocks("write_chunk_kv", block_table, start, bs,
+                           k.shape[0])
+    nb = blocks.shape[0]
     k_pool.index_put_((blocks,), k.reshape(nb, bs, *k.shape[1:])
                       .to(k_pool.dtype))
     v_pool.index_put_((blocks,), v.reshape(nb, bs, *v.shape[1:])
@@ -166,12 +193,10 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start):
     """Chunked-prefill attention: one chunk of queries (1, C, H, D) at
     positions ``start + arange(C)`` against all paged context written so far
     (earlier chunks, shared prefix blocks and the chunk itself, whose K/V
-    must already be in the pool). block_table: (M,). The verify attention at
-    B=1, W=C, pos=[start]."""
-    start_v = torch.full((1,), int(start), dtype=torch.int32,
-                         device=q.device)
+    must already be in the pool). block_table: (M,); start: a host int or
+    a device int32 scalar. The verify attention at B=1, W=C, pos=[start]."""
     return paged_verify_attention(q, k_pool, v_pool, _table2d(block_table),
-                                  start_v)
+                                  _start_vector(start, q.device))
 
 
 # --------------------------------------------------------------------------- #
@@ -246,18 +271,12 @@ def write_decode_kv_q(kq, ks, vq, vs, k, v, block_tables, pos):
 def write_chunk_kv_q(kq, ks, vq, vs, k, v, block_table, start):
     """Quantizing twin of :func:`write_chunk_kv`: a prefill chunk fully
     overwrites its blocks, so each block is quantized fresh. k/v: (C, KV, D),
-    C a multiple of ``bs``. In place; returns ``(kq, ks, vq, vs)``."""
+    C a multiple of ``bs``; ``start`` as in :func:`write_chunk_kv`. In
+    place; returns ``(kq, ks, vq, vs)``."""
     bs = kq.shape[1]
-    C = k.shape[0]
-    start = int(start)
-    if C % bs or start % bs:
-        raise ValueError(f"write_chunk_kv_q: chunk {C} and start {start} "
-                         f"must be multiples of block_size {bs}")
-    nb = C // bs
-    blocks = block_table[start // bs:start // bs + nb].long()
-    if blocks.shape[0] != nb:
-        raise ValueError(f"write_chunk_kv_q: table of {block_table.shape[0]} "
-                         f"entries has no room for {nb} blocks at {start}")
+    blocks = _chunk_blocks("write_chunk_kv_q", block_table, start, bs,
+                           k.shape[0])
+    nb = blocks.shape[0]
     knew, ksn = quantize_block_kv(k.reshape(nb, bs, *k.shape[1:]))
     vnew, vsn = quantize_block_kv(v.reshape(nb, bs, *v.shape[1:]))
     kq.index_put_((blocks,), knew)
@@ -304,8 +323,7 @@ def paged_decode_attention_q(q, kq, ks, vq, vs, block_tables, pos):
 
 def paged_prefill_attention_q(q, kq, ks, vq, vs, block_table, start):
     """Chunked-prefill attention over the int8 pool (the verify attention
-    at B=1, W=C, pos=[start]). block_table: (M,)."""
-    start_v = torch.full((1,), int(start), dtype=torch.int32,
-                         device=q.device)
+    at B=1, W=C, pos=[start]). block_table: (M,); start as in
+    :func:`paged_prefill_attention`."""
     return paged_verify_attention_q(q, kq, ks, vq, vs, _table2d(block_table),
-                                    start_v)
+                                    _start_vector(start, q.device))

@@ -56,7 +56,7 @@ def _server_config(srv):
                 seed=seed, block_size=srv.block_size,
                 prefill_chunk=srv.prefill_chunk,
                 num_blocks=srv.alloc.num_blocks, kv_quant=srv.kv_quant,
-                kernels=srv.kernels)
+                kernels=srv.kernels, tick_window=srv.tick_window)
 
 
 # positional arguments after the model, in the JAX order (model, max_batch,
@@ -79,7 +79,7 @@ SERVER_CALLS = {
     # the JAX paged server ignores prompt_buckets; the port takes only the
     # default
     "prompt_buckets": ((2, 64, (16, 32)), "prompt_buckets"),
-    "tick_window": ((2, 64, BUCKETS, None, 0, 2, "paged"), "tick_window"),
+    "tick_window": ((2, 64, BUCKETS, None, 0, 2, "paged"), None),
     "host_pool_bytes": ((2, 64) + PAGED + (None, "none", None, None, 0),
                         "host_pool_bytes"),
     "fault_retries": ((2, 64) + PAGED + (None, "none", None, None, None,

@@ -310,12 +310,15 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
 
 @pytest.mark.parametrize("kwargs", [dict(cache="dense"), dict(spec=object()),
                                     dict(telemetry=object()),
-                                    dict(tick_window=2), dict(policy="wfq"),
+                                    dict(tick_window=0), dict(policy="wfq"),
                                     dict(kernels="pallas")])
 def test_unported_server_options_raise(kwargs):
+    """Each unported option raises NotImplementedError; ``tick_window`` is
+    served, and a window under one tick raises ValueError, as in JAX."""
     model = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
                              device="cpu")
-    with pytest.raises(NotImplementedError):
+    exc = ValueError if "tick_window" in kwargs else NotImplementedError
+    with pytest.raises(exc):
         GenerationServer(model, device="cpu", **kwargs)
 
 

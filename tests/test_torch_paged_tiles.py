@@ -2,10 +2,10 @@
 (``paddle_tpu_torch/ops/csrc/paged_tiles.cuh``), the part of
 ``paged_attention.cu`` a host compiler can build: a small harness around the
 header, compiled with ``g++``, prints the launch plan (the persistent grid,
-the launch's work units and the keys a split takes, sized from the rows'
-keys to about one wave) and, for every work unit, its item (batch row,
-tile, split, KV head), the keys it walks and, stage by stage, which TMA
-boxes it loads from the pool.
+the launch's work units and each row's keys a split, sized from that row's
+keys to about one wave were half the rows as long) and, for every work
+unit, its item (batch row, tile, split, KV head), the keys it walks and,
+stage by stage, which TMA boxes it loads from the pool.
 
 Held here, for every case and two waves: every visible (row, key) pair is
 covered exactly once across a row's splits; no box past a tile's causal
@@ -13,8 +13,9 @@ frontier is loaded (so the tail entries on scratch block 0 are never
 read); the combine pass reads exactly the splits that were written (a tile
 of one split writes its output directly), never more than the workspace
 holds; the work units are numbered in order and every grid stays in
-range. Cases: decode rows of ragged lengths (1 to 2048 keys),
-verify windows of 2-8 tokens, prefill chunks at start 0, 384 and 1920,
+range; a row's splits are the same whatever the other rows hold. Cases:
+decode rows of ragged lengths (1 to 2048 keys), verify windows of 2-8
+tokens, prefill chunks at start 0, 384 and 1920,
 block sizes 8, 16 and 32, tables up to 136 entries wide, and group sizes
 that do not divide the 64-row tile.
 
@@ -46,8 +47,9 @@ namespace pt = paged_tiles;
 // plan B W H KV bs M         -> rows tiles split_keys splits box items
 //                               units kRows kStageKeys bad
 // blocks B W H KV bs M wave pos...
-//   -> "G blocks units ks" (the grid, the launch's work units, its keys a
-//   split), then per work unit up to the plan's most, "I i" (none) or
+//   -> "G blocks units" (the grid, the launch's work units), per row "R ks"
+//   (its keys a split), then per work unit up to the plan's most, "I i"
+//   (none) or
 //   "A i b tile split g frontier n begin end stages direct"; for KV head
 //   0 then per stage "S key0" and per box "X key loaded entry slot"
 int main(int argc, char** argv) {
@@ -68,17 +70,21 @@ int main(int argc, char** argv) {
   for (int b = 0; b < B; ++b) pos[b] = atoi(argv[9 + b]);
   const int rep = H / KV;
   auto posf = [&](int b) { return pos[b]; };
-  const int ks = pt::split_keys_for(pt::launch_keys(B, rep, M, bs, p, posf),
-                                    KV, p, wave);
-  printf("G %d %lld %d\n", pt::work_blocks(p, wave),
-         pt::launch_units(B, KV, rep, M, bs, p, ks, posf), ks);
+  printf("G %d %lld\n", pt::work_blocks(p, wave),
+         pt::launch_units(B, KV, rep, M, bs, p, wave, posf));
+  for (int b = 0; b < B; ++b)
+    printf("R %d\n", pt::row_split_keys(pos[b], B, KV, rep, M, bs, p, wave));
   for (long long i = 0; i < p.units; ++i) {
     pt::Item it;
-    if (!pt::item_of(i, B, KV, rep, M, bs, p, ks, posf, &it)) {
+    if (!pt::item_of(i, B, KV, rep, M, bs, p, wave, posf, &it)) {
       printf("I %lld\n", i);
       continue;
     }
     const int fr = pt::tile_frontier(pos[it.b], it.tile, p.rows, rep, M, bs);
+    const int ks = pt::row_split_keys(pos[it.b], B, KV, rep, M, bs, p, wave);
+    if (pt::row_tile_splits(pos[it.b], it.tile, B, KV, rep, M, bs, p, wave) !=
+        pt::tile_splits(fr, ks))
+      return 3;
     const int n = pt::tile_splits(fr, ks);
     const pt::Keys k = pt::split_keys(it.split, fr, ks);
     const int ns = pt::split_stages(k);
@@ -138,14 +144,16 @@ WAVE = 264
 
 
 def blocks(harness, W, H, KV, bs, M, pos, wave=WAVE):
-    """The launch: ((grid, work units, keys a split), the units with work
-    as dicts, the unit indices past them)."""
+    """The launch: ((grid, work units, each row's keys a split), the units
+    with work as dicts, the unit indices past them)."""
     lines = harness("blocks", len(pos), W, H, KV, bs, M, wave, *pos)
     active, idle = [], []
-    launch = None
+    launch, ks = None, []
     for ln in lines:
         if ln[0] == "G":
             launch = tuple(map(int, ln[1:]))
+        elif ln[0] == "R":
+            ks.append(int(ln[1]))
         elif ln[0] == "I":
             idle.append(int(ln[1]))
         elif ln[0] == "A":
@@ -158,7 +166,7 @@ def blocks(harness, W, H, KV, bs, M, pos, wave=WAVE):
             active[-1]["boxes"].append((int(ln[1]), []))
         else:
             active[-1]["boxes"][-1][1].append(tuple(map(int, ln[1:])))
-    return launch, active, idle
+    return launch + (ks,), active, idle
 
 
 def _frontier(pos, tile, rows, rep, M, bs):
@@ -166,11 +174,13 @@ def _frontier(pos, tile, rows, rep, M, bs):
     return max(0, min(pos + last // rep, M * bs - 1))
 
 
-def _split_keys(plan, pos, rep, KV, M, bs, wave):
-    """The keys a split takes, from the keys the launch's tiles walk: the
-    fewest (128), or enough in whole stages for about one wave of units."""
-    keys = sum(_frontier(p, t, plan["rows"], rep, M, bs) + 1
-               for p in pos for t in range(plan["tiles"]))
+def _split_keys(plan, pos, B, rep, KV, M, bs, wave):
+    """The keys a split of a row at ``pos`` takes, from the keys its tiles
+    walk: the fewest (128), or enough in whole stages for about one wave of
+    units in a launch with half its ``B`` rows as long."""
+    keys = (B + 1) // 2 * sum(
+        _frontier(pos, t, plan["rows"], rep, M, bs) + 1
+        for t in range(plan["tiles"]))
     per = -(-keys * KV // wave)
     return max(plan["split_keys"], -(-per // STAGE) * STAGE)
 
@@ -224,12 +234,14 @@ def test_plan_covers_each_visible_pair_once(harness, case, wave):
                                              wave)
     assert p["units"] == p["items"] * KV == \
         B * p["tiles"] * p["splits"] * KV < 2 ** 31
-    # a split's keys from the rows' keys: about one wave of units, never
-    # fewer than the plan's (so the workspace's splits always suffice)
-    assert ks == _split_keys(p, pos, rep, KV, M, bs, wave)
-    assert ks % STAGE == 0 and ks >= p["split_keys"]
-    if ks > p["split_keys"]:
-        assert units <= wave + B * p["tiles"] * KV
+    # a row's split keys from its own keys: about one wave of units were
+    # half the rows as long, never fewer than the plan's (so the
+    # workspace's splits always suffice)
+    assert ks == [_split_keys(p, x, B, rep, KV, M, bs, wave) for x in pos]
+    assert all(k % STAGE == 0 and k >= p["split_keys"] for k in ks)
+    big = [b for b in range(B) if ks[b] > p["split_keys"]]
+    assert sum(a["b"] in big for a in active) <= \
+        len(big) * (-(-wave // ((B + 1) // 2)) + p["tiles"] * KV)
     # a persistent grid of at most one wave, sized from shapes alone; the
     # launch's units with work are 0 .. units - 1, block i taking units
     # i, i + grid, ...
@@ -248,7 +260,7 @@ def test_plan_covers_each_visible_pair_once(harness, case, wave):
             mine = [a for a in active if a["b"] == b and a["tile"] == tile
                     and a["g"] == 0]
             frontier = _frontier(pos[b], tile, p["rows"], rep, M, bs)
-            n = frontier // ks + 1
+            n = frontier // ks[b] + 1
             # the splits written are exactly 0 .. n - 1, within the
             # workspace's p["splits"], which the combine reads (a tile of
             # one split writes its output directly)
@@ -262,8 +274,8 @@ def test_plan_covers_each_visible_pair_once(harness, case, wave):
             # the frontier's is read
             covered = np.zeros(M * bs, np.int64)
             for a in mine:
-                assert a["begin"] == a["split"] * ks
-                assert a["end"] == min(a["begin"] + ks, frontier + 1)
+                assert a["begin"] == a["split"] * ks[b]
+                assert a["end"] == min(a["begin"] + ks[b], frontier + 1)
                 assert a["stages"] == -(-(a["end"] - a["begin"]) // STAGE)
                 assert len(a["boxes"]) == a["stages"]
                 for j, (key0, bxs) in enumerate(a["boxes"]):
@@ -278,6 +290,32 @@ def test_plan_covers_each_visible_pair_once(harness, case, wave):
                             assert slot + p["box"] <= bs   # one pool block
                             covered[key:key + p["box"]] += 1
             assert (covered[:frontier + 1] == 1).all(), (b, tile)
+
+
+def _row_work(active, b):
+    return [(a["tile"], a["split"], a["g"], a["frontier"], a["n"],
+             a["begin"], a["end"]) for a in active if a["b"] == b]
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if len(c[6]) > 1],
+                         ids=_case_ids)
+def test_a_rows_splits_do_not_depend_on_the_other_rows(harness, case):
+    """A row's keys a split, splits and keys walked are the same whatever
+    the other rows of the launch hold (none, all as short as can be, all
+    at the table's end): its sums, and so a served request's tokens, do
+    not change with the batch it shares."""
+    _, W, H, KV, bs, M, pos = case
+    (_, _, ks), active, _ = blocks(harness, W, H, KV, bs, M, pos)
+    last = M * bs - W
+    for b in range(len(pos)):
+        mine = _row_work(active, b)
+        assert mine
+        for fill in (0, last):
+            other = [fill] * len(pos)
+            other[b] = pos[b]
+            (_, _, ks2), active2, _ = blocks(harness, W, H, KV, bs, M, other)
+            assert ks2[b] == ks[b] and _row_work(active2, b) == mine, \
+                (b, fill)
 
 
 @pytest.mark.parametrize("bs,bad", [(8, 0), (16, 0), (24, 0), (4, 1),
