@@ -8,6 +8,9 @@ the GPU.
                                         # diagnostic: no final line)
     python3 chip_smoke.py --only serve  # the build and phases 4, 14, 24
                                         # and 25 alone (no final line)
+    python3 chip_smoke.py --only spec   # the build and phases 3 (paged
+                                        # attention), 4 and 26 alone (no
+                                        # final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -30,8 +33,10 @@ Phases (any failure exits non-zero before the final line):
    D=128, bs=16, mixed context lengths with partial final blocks, a block
    boundary and a poisoned scratch block 0; every row at 2047 keys; every
    row at 512, the serving pass breakdown's shape; one long row among
-   short ones), a verify window of 4 tokens, and in prefill
-   form (B=1, C=128 behind 384 earlier tokens, at start 0 and at 1920).
+   short ones), verify windows of 4 tokens (B=4) and of 5 (B=8, the
+   speculative server's, two windows across a block boundary), and in
+   prefill form (B=1, C=128 behind 384 earlier tokens, at start 0 and at
+   1920).
    Tolerances are per element (RMSNorm) or per output row (attention), and
    the attention tolerance is shown to reject planted faults of the plain
    version: a causal mask one key off either way, the wrong page, one
@@ -129,7 +134,8 @@ the card:
 Phases 13-16 run between phases 5 and 9, on the same model:
 
 13. The whole-tick decode kernel (``decode_tick``) against its plain twin,
-   bf16, at 1 and 4 of the model's layers, B=8, W in {1, 4}, phase 3's
+   bf16, at 1 and 4 of the model's layers, B=8, W in {1, 4} (and 5, the
+   speculative verify window, for fp and int8 pools), phase 3's
    positions and poisoned scratch block, in each variant: fp pools, int8
    pools (both ``dequant`` modes; "tile" at W=1), LoRA on every target
    (pages of ranks 8, 8, 4 and the null page) over fp and over int8 pools:
@@ -143,7 +149,10 @@ Phases 13-16 run between phases 5 and 9, on the same model:
    null page the LoRA tick equals the fp tick bit for bit. Then each
    variant timed at 32 layers beside the twin, the per-layer kernels' tick
    (the yardstick: no single PyTorch call computes a tick) and the bound,
-   and at W = 4; two ticks on the same inputs must give the same bits, and
+   and at W = 4; fp and int8 pools at W = 5 (40 rows) at full depth
+   against the twin (two tolerances a layer), timed beside it with their
+   bound, the JAX byte estimate and clock counters; two ticks on the same
+   inputs must give the same bits, and
    so must a tick with the clock counters on; the counters' breakdown per
    phase (summed over the layers: work time over the blocks, barrier
    waits, ring waits, staging, fragment ends, epilogues, attention's key
@@ -176,6 +185,39 @@ the same model:
    their W = 1 runs' on the same requests; then 4 sampled requests at
    W = 4 with the graphs on and off from one seed: every sampled window a
    replay of a graph that draws from the server's generator.
+
+Phase 26 runs after phase 25, on the same model:
+
+26. Speculative serving (``GenerationServer(spec=SpecConfig(k=4))``,
+   tools/serving_benchmark.py's ``--spec 4`` mode). (a) Cells, each with
+   its warm-up request capturing every graph: the plain graphed server
+   per layer and through the megakernel on the repeat-suffix traffic
+   (12 prompts tiling one motif at phase 4's lengths, 128 new tokens:
+   the yardsticks); the n-gram drafter at ``tick_window=4`` per layer on
+   that traffic and on phase 4's, through the megakernel, sampled
+   (temperature 0.8, top-p 0.9); the draft model of that tool (hidden
+   2048, 8 layers, 16 heads, 4 KV heads) at ``tick_window=1``; and
+   drafts replayed from the plain cell's outputs (``ReplayDrafter``: the
+   verify path at an acceptance near 1, which the random weights deny
+   the n-gram drafter), and the n-gram drafter with the gate off, both
+   with ``gate_cooldown=0``. Each
+   checks every request's length, that every speculative trip and gated
+   plain trip was a graph replay, the launches of every kernel in the
+   run and of rows 11 and 13 per verify window; prints
+   ``spec_metrics()``, rates, ms per trip and per emitted token, and one
+   trip's host wall, enqueue and device time (the draft program's
+   apart). (b) One request after its prefill: a W = 5 verify window of
+   the plain server's next tokens against 5 decode ticks on a copy of
+   the pools, with the kernels (per layer and whole tick), their plain
+   twins in bf16 and on an fp32 copy: the largest |verify - decode|
+   logit per position, and the kernels' verify logits at most
+   DRIFT_RATIO x as far from fp32 as the twins'. (c) Greedy tokens
+   against the plain server's cells: every request that differs must
+   differ first at a near tie of the fp32 logits, within twice the
+   largest |bf16 kernels - fp32| logit difference of (b); a planted
+   fault (one draft accepted too many) must fail it. (d) The n-gram cell
+   with graphs off gives the same tokens and launches; the sampled cell
+   twice from one seed the same tokens.
 
 Phases 18-20 run last, after phase 8: long-context training, past the
 8192 keys where flash attention takes its streaming kernels (rows 2, 5
@@ -552,8 +594,10 @@ def _paged_case(torch, g, B, W, H, KV, D, bs, pos, M):
 # one key more or less moves the output far past the tolerance) and the
 # prefill chunk behind earlier chunks, the serving path's shapes (the first
 # two, the kernels line's); then decode with every row at 2047 keys and
-# with one long row among short ones, a verify window of 4 tokens, and the
-# prefill chunks at start 0 and at 1920 (the last chunk at MAX_LEN)
+# with one long row among short ones, a verify window of 4 tokens, the
+# prefill chunks at start 0 and at 1920 (the last chunk at MAX_LEN), and
+# the speculative server's verify window (phase 26: k = 4, W = 5, the
+# served batch of 8 at mixed lengths, two windows across a block boundary)
 PAGED_FORMS = [("decode", 8, 1, [1000, 511, 512, 255, 37, 700, 128, 5]),
                ("prefill", 1, PREFILL_CHUNK, [384]),
                ("decode_all_long", 8, 1, [MAX_LEN - 1] * 8),
@@ -562,7 +606,8 @@ PAGED_FORMS = [("decode", 8, 1, [1000, 511, 512, 255, 37, 700, 128, 5]),
                                           64]),
                ("verify", 4, 4, [0, 125, 700, MAX_LEN - 4]),
                ("prefill_0", 1, PREFILL_CHUNK, [0]),
-               ("prefill_last", 1, PREFILL_CHUNK, [MAX_LEN - PREFILL_CHUNK])]
+               ("prefill_last", 1, PREFILL_CHUNK, [MAX_LEN - PREFILL_CHUNK]),
+               ("verify_5", 8, 5, [1000, 511, 509, 255, 37, 700, 13, 128])]
 
 
 def paged_attention_build(_build) -> dict:
@@ -744,21 +789,50 @@ def kernel_paged_attention(torch, ops, pa, cfg):
 
 
 # --------------------------------------------------------------- phase 4
-def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
-          expect=None, expect_per_pass=None, graphs=True, **server_kw):
-    """Phase 4's traffic through ``GenerationServer(**server_kw)``;
-    ``adapters`` names each request's LoRA adapter (phase 10), ``expect``
-    maps (launches, passes, stats) to {kernel: wanted launches} (default:
-    the fp path's attention and norms), ``expect_per_pass`` maps
-    "decode_paged" / "chunk_prefill" to the launches every such pass must
-    make, a decode pass's per tick (phase 14). ``graphs=False`` turns the
-    executor's CUDA graphs off (every pass eager: phase 24's yardstick);
-    with them on, every decode window and prefill chunk of the run must be
-    a replay of a graph captured before it (by the warm-up request).
-    Returns (readings, longest prompt, server); the readings' "tokens"
-    holds every request's output, in order."""
+PHASE4_LENS = [100, 1000, 517, 256, 733, 129, 384, 960, 211, 640, 300, 871]
+
+
+def phase4_traffic(cfg):
+    """Phase 4's requests: (prompts, max_new_tokens). 12 requests > 8
+    slots: slots refill mid-flight; lengths span 1-8 chunks of 128, some
+    ending mid-block, two on a chunk boundary."""
     import numpy as np
 
+    rng = np.random.default_rng(0)
+    news = rng.integers(32, 65, len(PHASE4_LENS)).tolist()
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in PHASE4_LENS]
+    return prompts, news
+
+
+# the executor's passes, each with the keyword that counts its units: a
+# decode window's ticks, a speculative trip's verify windows
+EXECUTOR_PASSES = (("decode_paged", "ticks"), ("chunk_prefill", None),
+                   ("spec_scan", "windows"), ("spec_verify", None))
+
+
+def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
+          expect=None, expect_per_pass=None, graphs=True, traffic=None,
+          requests_kw=None, warmup=None, prime=None, breakdown=None,
+          **server_kw):
+    """Phase 4's traffic (or ``traffic``: (prompts, max_new_tokens), with
+    ``requests_kw`` each request's other ``submit`` arguments) through
+    ``GenerationServer(**server_kw)``; ``adapters`` names each request's
+    LoRA adapter (phase 10), ``expect`` maps (launches, passes, stats) to
+    {kernel: wanted launches} (default: the fp path's attention and
+    norms), ``expect_per_pass`` maps an executor pass ("decode_paged",
+    "chunk_prefill", "spec_scan", "spec_verify") to the launches every
+    such pass must make per unit (a decode window's tick, a speculative
+    trip's window; phase 14). ``graphs=False`` turns the executor's CUDA
+    graphs off (every pass eager: phase 24's yardstick); with them on,
+    every decode window, prefill chunk and speculative trip of the run
+    must be a replay of a graph captured before it (by the warm-up
+    requests: ``warmup``, a list of (prompt, max_new_tokens, submit
+    keywords); default one greedy request), then ``prime(srv)`` when
+    given. ``breakdown(torch, srv)``
+    reads the passes' host and device times after the run (default
+    :func:`pass_breakdown`). Returns (readings, longest prompt, server);
+    the readings' "tokens" holds every request's output, in order."""
     from paddle_tpu_torch.inference.serving import GenerationServer
 
     # earlier servers (executor and server refer to each other) and their
@@ -769,42 +843,45 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     srv = GenerationServer(model, cache="paged", max_batch=MAX_BATCH,
                            block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
                            max_len=MAX_LEN, **server_kw)
-    check(srv._table_width == TABLE_WIDTH, "block-table width")
+    if srv.spec is None:
+        check(srv._table_width == TABLE_WIDTH, "block-table width")
     ex = srv._exec
     check(ex.graphs, f"{label}: the executor does not graph its passes on "
                      f"the card")
     ex.graphs = graphs
-    # each model pass's own launches: (kind, {kernel: launches})
+    # each model pass's own launches: (kind, units, {kernel: launches})
     per_pass = []
-    for kind in ("decode_paged", "chunk_prefill"):
-        def counted(*a, _fn=getattr(ex, kind), _kind=kind, **k):
+    for kind, unit in EXECUTOR_PASSES:
+        def counted(*a, _fn=getattr(ex, kind), _kind=kind, _unit=unit, **k):
             before = ops.launch_counts()
             out = _fn(*a, **k)
-            per_pass.append((_kind, {n: c - before[n] for n, c in
-                                     ops.launch_counts().items()}))
+            per_pass.append((_kind, k.get(_unit, 1) if _unit else 1,
+                             {n: c - before[n] for n, c in
+                              ops.launch_counts().items()}))
             return out
         setattr(ex, kind, counted)
-    # warm-up request (cuBLAS handles, allocator, the graphs' captures):
+    # warm-up requests (cuBLAS handles, allocator, the graphs' captures):
     # not part of the run
-    srv.submit(list(range(1, 40)), max_new_tokens=4 * srv.tick_window)
+    for prompt, new, kw in warmup or [(list(range(1, 40)),
+                                       4 * srv.tick_window, {})]:
+        srv.submit(prompt, max_new_tokens=new, **kw)
     srv.run()
-    rng = np.random.default_rng(0)
-    # 12 requests > 8 slots: slots refill mid-flight; lengths span 1-8
-    # chunks of 128, some ending mid-block, two on a chunk boundary
-    lens = [100, 1000, 517, 256, 733, 129, 384, 960, 211, 640, 300, 871]
-    news = rng.integers(32, 65, len(lens)).tolist()
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
-    adapters = adapters or [None] * len(lens)
+    if prime is not None:
+        prime(srv)
+    prompts, news = traffic or phase4_traffic(cfg)
+    adapters = adapters or [None] * len(prompts)
+    requests_kw = requests_kw or [{}] * len(prompts)
     t_before = srv.throughput_stats()
     ad_before = srv.adapter_stats()
+    sm_before = srv.spec_metrics()
     replays_before, captures_before = dict(ex.replays), ex.captures
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     per_pass.clear()
     t0 = time.perf_counter()
-    rids = [srv.submit(p, max_new_tokens=m, adapter=a)
-            for p, m, a in zip(prompts, news, adapters)]
+    rids = [srv.submit(p, max_new_tokens=m, adapter=a, **kw)
+            for p, m, a, kw in zip(prompts, news, adapters, requests_kw)]
     out = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -819,37 +896,38 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
               f"request {rid}: {len(toks)} tokens, want {len(p) + m}")
         check(all(0 <= t < cfg.vocab_size for t in toks[len(p):]),
               f"request {rid}: token id out of range")
-    passes = st["decode_ticks"] + st["prefill_chunks"]
+    passes = st["decode_ticks"] + st["prefill_chunks"] + st["verify_windows"]
     L = cfg.num_hidden_layers
-    # every decode tick and prefill chunk: one attention per layer, two
-    # norms per layer plus the final norm
+    # every decode tick, verify window and prefill chunk: one attention per
+    # layer, two norms per layer plus the final norm
     want = (expect or (lambda st: {"paged_attention": L * passes,
                                    "rms_norm": (2 * L + 1) * passes}))(st)
     for name, n in want.items():
         check(launches[name] == n, f"{label}: {name} launches "
                                    f"{launches[name]} != {n} ({passes} model "
                                    f"passes: {st['decode_ticks']} ticks, "
+                                   f"{st['verify_windows']} verify windows, "
                                    f"{st['prefill_chunks']} chunks)")
-    calls = st["decode_trips"] + st["prefill_chunks"]
+    calls = st["decode_trips"] + st["prefill_chunks"] + st["verify_trips"]
     check(len(per_pass) == calls, f"{label}: {len(per_pass)} executor "
                                   f"calls for {calls} passes")
     # every pass of the run a graph replay, none captured in it (or, with
     # the graphs off, none replayed)
     want_replays = ({"decode": st["decode_trips"],
-                     "chunk": st["prefill_chunks"]} if graphs
-                    else {"decode": 0, "chunk": 0})
+                     "chunk": st["prefill_chunks"],
+                     "spec": st["verify_trips"]} if graphs
+                    else {"decode": 0, "chunk": 0, "spec": 0})
     check(replays == want_replays and ex.captures == captures_before,
           f"{label}: graph replays {replays}, want {want_replays}; "
           f"{ex.captures - captures_before} captures during the run")
     for kind, want_one in (expect_per_pass or {}).items():
-        ticks = srv.tick_window if kind == "decode_paged" else 1
-        for k, got in per_pass:
+        for k, units, got in per_pass:
             if k != kind:
                 continue
             for name, n in want_one.items():
-                check(got[name] == n * ticks,
-                      f"{label}: a {kind} pass launched {name} {got[name]} "
-                      f"times, want {n * ticks}")
+                check(got[name] == n * units,
+                      f"{label}: a {kind} pass of {units} units launched "
+                      f"{name} {got[name]} times, want {n * units}")
     res = dict(requests=len(rids), wall_s=wall, graphs=graphs,
                tick_window=srv.tick_window, graph_replays=replays,
                graph_captures=ex.captures,
@@ -859,20 +937,42 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
                decode_trips=st["decode_trips"],
                decode_ticks=st["decode_ticks"],
                decode_tokens=st["decode_tokens"],
-               decode_tok_s=st["decode_tokens"] / st["decode_s"],
-               ms_per_decode_tick=st["decode_s"] / st["decode_ticks"] * 1e3,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
                launches=launches)
+    if st["decode_ticks"]:
+        res["ms_per_decode_tick"] = st["decode_s"] / st["decode_ticks"] * 1e3
+    if srv.spec is None:
+        res["decode_tok_s"] = st["decode_tokens"] / st["decode_s"]
+    else:
+        # every emitted token, plain and speculative trips together
+        tokens = st["decode_tokens"] + st["verify_tokens"]
+        secs = st["decode_s"] + st["verify_s"]
+        sm = srv.spec_metrics()
+        spec = {k: sm[k] - sm_before[k] for k in
+                ("draft_tokens_proposed", "draft_tokens_accepted",
+                 "gated_plain_windows")}
+        spec["acceptance_rate"] = (spec["draft_tokens_accepted"]
+                                   / max(spec["draft_tokens_proposed"], 1))
+        res.update(decode_tok_s=tokens / secs,
+                   ms_per_emitted_token=secs / tokens * 1e3,
+                   verify_trips=st["verify_trips"],
+                   verify_windows=st["verify_windows"],
+                   verify_tokens=st["verify_tokens"],
+                   ms_per_verify_trip=(st["verify_s"] / st["verify_trips"]
+                                       * 1e3 if st["verify_trips"] else None),
+                   ms_per_plain_trip=(st["decode_s"] / st["decode_trips"]
+                                      * 1e3 if st["decode_trips"] else None),
+                   spec=srv.spec.describe(), spec_metrics=spec)
     if srv._lora is not None:
         ad = srv.adapter_stats()
         res["adapters"] = {k: ad[k] - ad_before.get(k, 0) for k in (
             "adapter_hits", "adapter_uploads", "adapter_evictions")}
     log(f"{label}: " + json.dumps(res))
-    res["breakdown"] = pass_breakdown(torch, srv)
+    res["breakdown"] = (breakdown or pass_breakdown)(torch, srv)
     res["tokens"] = [out[rid] for rid in rids]
     res["prompts"] = prompts
-    for kind in ("decode_paged", "chunk_prefill"):
+    for kind, _ in EXECUTOR_PASSES:
         delattr(ex, kind)       # the counting wrappers hold the executor
     return res, max(prompts, key=len), srv
 
@@ -1100,6 +1200,9 @@ def end_to_end(torch, ops, model, prompt, label="end_to_end", kv_quant="none",
 
 # -------------------------------------------------------------- phase 13
 MK_CHECK_LAYERS = 4
+# the speculative server's verify window (phase 26: k = 4): 8 x 5 = 40
+# rows a tick, which only the fp and int8-pool variants serve there
+MK_VERIFY_W = 5
 # decode positions of phase 3: mid-block, a block boundary on each side,
 # long contexts and a short one
 MK_POS = [1000, 511, 512, 255, 37, 700, 128, 5]
@@ -1346,6 +1449,114 @@ def _tick_breakdown(torch, mkc, trace, phase_bytes):
     return out
 
 
+def _tick_bound(cfg, L, W, quant, lora=None):
+    """(bytes, bound ms, bound_by, grid barriers) of an L-layer tick of
+    window W at MK_POS. Bytes this data needs: every layer's seven
+    projections and two norm weights once, each visible K/V row once
+    (int8: each visible block's codes, which the insert reads whole, and
+    its scales; each written block-head back), the window's K/V written,
+    x in and out, the table, the used adapter pages' factors once;
+    operations: 2 per weight element and row, QK + PV over each query's
+    visible keys, and the LoRA shrink and expand."""
+    bs, B = BLOCK_SIZE, MAX_BATCH
+    Hd, I = cfg.hidden_size, cfg.intermediate_size
+    KV, D = cfg.num_key_value_heads, cfg.head_dim
+    KVD = KV * D
+    w_elems = Hd * Hd * 2 + 2 * Hd * KVD + 3 * Hd * I
+    keys = sum(p + W for p in MK_POS)              # the last query's
+    vis = sum(p + w + 1 for p in MK_POS for w in range(W))
+    nblk = sum((p + W - 1) // bs + 1 for p in MK_POS)
+    written = sum((p + W - 1) // bs - p // bs + 1 for p in MK_POS)
+    if quant:
+        kv_bytes = L * 2 * (nblk + written) * (bs * KVD + KV * 4)
+    else:
+        kv_bytes = L * (2 * keys * KVD * 2 + 2 * B * W * KVD * 2)
+    nbytes = (L * (w_elems + 2 * Hd) * 2 + kv_bytes + 2 * B * W * Hd * 2
+              + B * TABLE_WIDTH * 4)
+    flops = L * (2 * B * W * w_elems + 4 * D * cfg.num_attention_heads * vis)
+    barriers = 5 * L
+    if lora is not None:
+        used = len(set(MK_PAGES) - {0})
+        per_page = sum(A[0, 0].numel() + Bf[0, 0].numel()
+                       for A, Bf in lora.factors.values()) * 4
+        nbytes += used * L * per_page
+        live = sum(p != 0 for p in MK_PAGES)
+        flops += 2 * live * W * L * per_page // 4
+        barriers += 4 * L
+    b, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    return nbytes, b, by, barriers
+
+
+def _tick_hbm_estimate(mk, cfg, W, quant):
+    """The JAX package's per-trip byte estimate at MK_POS."""
+    nblk = sum((p + W - 1) // BLOCK_SIZE + 1 for p in MK_POS)
+    return mk.hbm_bytes_per_trip(cfg, batch=MAX_BATCH, window=W,
+                                 block_size=BLOCK_SIZE,
+                                 avg_ctx_blocks=round(nblk / MAX_BATCH),
+                                 kv_quant="int8" if quant else "none",
+                                 dtype_bytes=2)
+
+
+def _tick_verify_full_depth(torch, mk, mkc, model, g, quant, dequant,
+                            phase_bytes):
+    """The speculative verify tick, W = MK_VERIFY_W (B·W = 40 rows), at the
+    model's full depth: output rows and written entries against the plain
+    twin with the rule of the shallow checks (two tolerances a layer),
+    then timed beside the twin, its bound and the JAX byte estimate, and
+    its clock counters printed."""
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    cfg = model.cfg
+    L, W = cfg.num_hidden_layers, MK_VERIFY_W
+    weights = mk.stack_layer_weights(model)
+    x, pools, tables, pos, cosr, sinr = _tick_inputs(torch, model, g, L, W,
+                                                     quant)
+    kw = dict(eps=cfg.rms_norm_eps, dequant=dequant, lora=None)
+    kp = [p.clone() for p in pools]
+    rp = [p.clone() for p in pools]
+    with torch.no_grad():
+        out = decode_tick_cuda(x, kp, tables, pos, weights, cosr, sinr, **kw)
+        ref = mk._tick_plain(x, rp, tables, pos, weights, cosr, sinr, **kw)
+    torch.cuda.synchronize()
+    label = f"decode_tick {'int8' if quant else 'fp'} W={W} L={L}"
+    check(bool(torch.isfinite(out.float()).all()),
+          f"{label}: non-finite output")
+    worst = (_row_ratio(out, ref, _rms(ref)) / (2 * L)).max().item()
+    worst_kv, moved = _pool_ratio(torch, kp, rp, pools, tables, W, quant)
+    check(worst <= 1.0, f"{label}: an output row is off by {worst:.3g} x "
+                        f"its tolerance")
+    check(worst_kv <= 1.0, f"{label}: a written K/V entry is off by "
+                           f"{worst_kv:.3g} x its tolerance")
+    check(moved == 0, f"{label}: {moved} pool entries outside the window "
+                      f"moved")
+    max_err = (out.float() - ref.float()).abs().max().item()
+    del kp, rp, out, ref
+    for p in pools:
+        p[0] = 0
+    with torch.no_grad():
+        ms = time_ms(lambda: decode_tick_cuda(x, pools, tables, pos, weights,
+                                              cosr, sinr, **kw), 5)
+        plain_ms = time_ms(lambda: mk._tick_plain(
+            x, pools, tables, pos, weights, cosr, sinr, **kw), 2)
+        buf = mkc.trace_buffer(L, x.device)
+        decode_tick_cuda(x, pools, tables, pos, weights, cosr, sinr,
+                         trace=buf, **kw)
+        counters = _tick_breakdown(torch, mkc, buf, phase_bytes)
+    nbytes, b, by, _ = _tick_bound(cfg, L, W, quant)
+    res = dict(W=W, rows=MAX_BATCH * W, layers=L, max_abs_err=max_err,
+               worst_err_over_tol=worst, kv_worst_err_over_tol=worst_kv,
+               ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               bytes=nbytes,
+               hbm_bytes_per_trip=_tick_hbm_estimate(mk, cfg, W, quant))
+    log(f"kernel {label} (full depth): " + json.dumps(res))
+    log(f"kernel decode_tick {'int8' if quant else 'fp'} clock counters "
+        f"(full depth, W = {W}): " + json.dumps(counters))
+    res["counters"] = counters
+    del x, pools, buf
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_decode_tick(torch, ops, model):
     """The whole-tick kernel against its plain twin, bf16, Llama-3-8B width,
     1 and MK_CHECK_LAYERS layers of the served model, B = 8, W in {1, 4},
@@ -1370,9 +1581,11 @@ def kernel_decode_tick(torch, ops, model):
     g = torch.Generator(device="cuda").manual_seed(31)
     cases = {name: [] for name, *_ in MK_VARIANTS}
     for name, quant, dequant, with_lora in MK_VARIANTS:
-        for W in (1, 4):
+        for W in (1, 4, MK_VERIFY_W):
             for L in (1, MK_CHECK_LAYERS):
                 if name == "int8_tile" and W == 4:
+                    continue
+                if W == MK_VERIFY_W and name not in ("fp", "int8"):
                     continue
                 view = _layers_view(model, L)
                 weights = mk.stack_layer_weights(view)
@@ -1485,12 +1698,6 @@ def kernel_decode_tick(torch, ops, model):
     # timing at full depth, W = 1, the serving path's shapes
     L = cfg.num_hidden_layers
     weights = mk.stack_layer_weights(model)
-    Hd, I = cfg.hidden_size, cfg.intermediate_size
-    KV, D = cfg.num_key_value_heads, cfg.head_dim
-    KVD = KV * D
-    w_elems = Hd * Hd * 2 + 2 * Hd * KVD + 3 * Hd * I
-    vis = sum(p + 1 for p in MK_POS)
-    nblk = sum(p // bs + 1 for p in MK_POS)
     tok = torch.ones(MAX_BATCH, 1, dtype=torch.long, device="cuda")
     timed = {}
     for name, quant, dequant, with_lora in MK_VARIANTS:
@@ -1562,44 +1769,18 @@ def kernel_decode_tick(torch, ops, model):
             log(f"kernel decode_tick {name} clock counters (full depth, "
                 f"W = 4): " + json.dumps(counters_w4))
             del x4, p4, kw4, buf
-        # bytes this data needs: every layer's seven projections and two
-        # norm weights once, each visible K/V row once (int8: each visible
-        # block's codes, which the insert reads whole, and its scales; the
-        # written block-head back), the window's K/V written, x in and
-        # out, the used adapter pages' factors once; operations: 2 per
-        # weight element and row, QK + PV over the visible keys, and the
-        # LoRA shrink and expand
-        if quant:
-            kv_bytes = L * (2 * nblk * (bs * KVD + KV * 4)
-                            + 2 * MAX_BATCH * (bs * KVD + KV * 4))
-        else:
-            kv_bytes = L * (2 * vis * KVD * 2 + 2 * MAX_BATCH * KVD * 2)
-        nbytes = (L * (w_elems + 2 * Hd) * 2 + kv_bytes
-                  + 2 * x.numel() * 2 + tables.numel() * 4)
-        flops = L * (2 * MAX_BATCH * w_elems
-                     + 4 * D * cfg.num_attention_heads * vis)
-        barriers = 5 * L
-        if lora is not None:
-            used = len(set(MK_PAGES) - {0})
-            per_page = sum(A[0, 0].numel() + B[0, 0].numel()
-                           for A, B in lora.factors.values()) * 4
-            nbytes += used * L * per_page
-            live = sum(p != 0 for p in MK_PAGES)
-            flops += 2 * live * L * per_page // 4
-            barriers += 4 * L
-        b, by = bound_ms(nbytes, flops, BF16_FLOPS)
-        est = mk.hbm_bytes_per_trip(cfg, batch=MAX_BATCH, window=1,
-                                    block_size=bs, avg_ctx_blocks=round(
-                                        nblk / MAX_BATCH),
-                                    kv_quant="int8" if quant else "none",
-                                    dtype_bytes=2)
+            verify = (_tick_verify_full_depth(torch, mk, mkc, model, g, quant,
+                                              dequant, phase_bytes)
+                      if name in ("fp", "int8") else None)
+        nbytes, b, by, barriers = _tick_bound(cfg, L, 1, quant, lora)
+        est = _tick_hbm_estimate(mk, cfg, 1, quant)
         t = dict(variant=name, layers=L, B=MAX_BATCH, W=1, pos=MK_POS,
                  dequant=dequant, pages=MK_PAGES if lora else None,
                  grid=torch.cuda.get_device_properties(0)
                  .multi_processor_count,      # one block per SM
                  barriers_per_tick=barriers,
                  ms=ms, plain_ms=plain_ms, per_layer_kernels_ms=per_layer_ms,
-                 ms_w4=ms_w4, deterministic=deterministic,
+                 ms_w4=ms_w4, verify_w5=verify, deterministic=deterministic,
                  trace_identical=trace_identical, counters=counters,
                  counters_w4=counters_w4,
                  bound_ms=b, bound_by=by, bytes=nbytes,
@@ -1622,7 +1803,7 @@ def kernel_decode_tick(torch, ops, model):
 
 # -------------------------------------------------------------- phase 14
 def serve_megakernel(torch, ops, model, phase4_tokens, graphs=True,
-                     **server_kw):
+                     label="serve llama3-8b paged megakernel", **server_kw):
     """Phase 4's model and traffic behind ``kernels="megakernel"``: every
     decode tick launches decode_tick once and the per-layer attention never;
     every prefill chunk launches the per-layer attention once a layer and
@@ -1636,8 +1817,7 @@ def serve_megakernel(torch, ops, model, phase4_tokens, graphs=True,
                 "rms_norm": st["decode_ticks"]
                 + (2 * L + 1) * st["prefill_chunks"]}
 
-    label = "serve llama3-8b paged megakernel" + _cell_suffix(
-        graphs, server_kw.get("tick_window", 1))
+    label += _cell_suffix(graphs, server_kw.get("tick_window", 1))
     try:
         res, _, srv = serve(
             torch, ops, model, label=label, expect=expect, graphs=graphs,
@@ -1850,6 +2030,556 @@ def serve_sampled_window(torch, model):
             "windows_replayed": replays,
             "requests_same_tokens_graphs_on_off": same,
             "requests": len(runs[True][0])}
+
+
+# -------------------------------------------------------------- phase 26
+# Speculative serving, tools/serving_benchmark.py's --spec 4 mode
+# (:460-474, 736-742): k = 4 drafts a window; tick_window 4 with the
+# n-gram drafter (that tool's default under --spec), 1 with the draft
+# model; SPEC_NEW new tokens a request (its default under --repeat-suffix)
+SPEC_K, SPEC_WINDOW, SPEC_NEW = 4, 4, 128
+# the draft model of tools/serving_benchmark.py:962-973 at Llama-3-8B:
+# half the width, a quarter of the depth, half the heads
+DRAFT_CFG = dict(hidden_size=2048, intermediate_size=7168,
+                 num_hidden_layers=8, num_attention_heads=16,
+                 num_key_value_heads=4)
+SAMPLED = dict(temperature=0.8, top_p=0.9)
+
+
+def repeat_suffix_traffic(cfg):
+    """tools/serving_benchmark.py's --repeat-suffix requests (:906-911):
+    every prompt tiles one motif of 8 random tokens (seeded), at phase 4's
+    prompt lengths, SPEC_NEW new tokens each; the shared motif makes the
+    prompts share their prefix blocks."""
+    import numpy as np
+
+    motif = np.random.default_rng(26).integers(1, cfg.vocab_size,
+                                               8).tolist()
+    prompts = [(motif * (n // len(motif) + 1))[:n] for n in PHASE4_LENS]
+    return prompts, [SPEC_NEW] * len(prompts)
+
+
+def _spec_warmup(kw):
+    """A speculative cell's warm-up: a random 39-token prompt (the drafts
+    miss: the gate's plain trips follow the first speculative trip), 64
+    tokens, submitted with the cell's sampling keywords."""
+    return [(list(range(1, 40)), 64, kw)]
+
+
+def _prime_gate(torch, srv, greedy):
+    """Capture the gate's plain program (``gate_ticks`` ticks) over zeroed
+    inputs (every row idle: its writes land in scratch block 0), so that
+    no capture falls in the measured run whether or not the warm-up's
+    gate fired."""
+    B, TW = srv.max_batch, srv._table_width
+    zi = torch.zeros(B, dtype=torch.int32, device="cuda")
+    zf = torch.zeros(B, dtype=torch.float32, device="cuda")
+    srv._exec.decode_paged(zi, torch.zeros(B, TW, dtype=torch.int32,
+                                           device="cuda"), zi, zf, zi, zf,
+                           zi, srv._gen, greedy=greedy,
+                           ticks=srv.spec.gate_ticks)
+    torch.cuda.synchronize()
+
+
+def spec_breakdown(torch, srv, greedy=True):
+    """Host against device time of one speculative trip of the cell's own
+    key (every row at 512 tokens of context, random tokens, every draft
+    budget k): a fused drafter's scan of ``tick_window`` windows, or a
+    host-side drafter's verify window and, apart, its draft program (the
+    drafter's graph replayed). Wall time (host clock up to a synchronize),
+    the host's enqueue time and the device time of the graph's replay
+    (events around passes enqueued back to back); per window as well."""
+    import statistics
+
+    ex = srv._exec
+    B, bs, k = srv.max_batch, srv.block_size, srv.spec_k
+    S, ctx = srv._spec_windows, 512
+    nblk = (ctx + S * (k + 1)) // bs + 1
+    tables = torch.zeros(B, srv._table_width, dtype=torch.int32)
+    for b in range(B):
+        tables[b, :nblk] = torch.arange(1 + b * nblk, 1 + (b + 1) * nblk)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dev = dict(device="cuda", dtype=torch.int32)
+    toks = torch.randint(1, srv.cfg.vocab_size, (B, srv.max_len),
+                         generator=g, **dev)
+    tables = tables.cuda()
+    pos = torch.full((B,), ctx, **dev)
+    ones = torch.ones(B, **dev)
+    kcaps = torch.full((B,), k, **dev)
+    temps = torch.full((B,), SAMPLED["temperature"], device="cuda")
+    topps = torch.full((B,), SAMPLED["top_p"], device="cuda")
+    zi = torch.zeros(B, **dev)
+
+    if srv._spec_fused:
+        def trip():
+            return ex.spec_scan(toks, tables, pos, temps, zi, topps, kcaps,
+                                ones, srv._gen, greedy=greedy, windows=S)
+    else:
+        drafts = toks[:, 1:k + 1].contiguous()
+
+        def trip():
+            return ex.spec_verify(toks[:, 0], drafts, tables, pos, temps, zi,
+                                  topps, kcaps, srv._gen, greedy=greedy)
+
+    def time_pass(fn):
+        fn()
+        torch.cuda.synchronize()
+        walls, enq = [], []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            enq.append(t1 - t0)
+        wall = statistics.median(walls) * 1e3
+        device = _replayed_ms(torch, fn) if ex.graphs else time_ms(fn, 3)
+        return dict(wall_ms=wall, host_enqueue_ms=statistics.median(enq) * 1e3,
+                    device_ms=device,
+                    device_idle_share=max(0.0, 1.0 - device / wall))
+
+    res = {"verify_trip": time_pass(trip)}
+    res["verify_trip"]["windows"] = S
+    res["verify_trip"]["device_ms_per_window"] = \
+        res["verify_trip"]["device_ms"] / S
+    # the trip's host wall over the most tokens it can emit (every draft
+    # accepted): the verify path's ceiling
+    res["verify_trip"]["ms_per_token_all_accepted"] = \
+        res["verify_trip"]["wall_ms"] / (B * S * (k + 1))
+    if getattr(srv.drafter, "_graphs", None):
+        prog = srv.drafter._graphs[k]
+        res["draft_program"] = dict(device_ms=_replayed_ms(torch,
+                                                           prog.replay),
+                                    forwards=k)
+    res["graphs"] = ex.graphs
+    log("speculative trip breakdown (host vs device): " + json.dumps(res))
+    return res
+
+
+def _spec_expect(L, megakernel, draft_cfg=None):
+    """The launches a speculative cell's run must count: every verify
+    window and decode tick as a model pass (the per-layer path: an
+    attention a layer, 2 norms a layer and the final one; the whole-tick
+    kernel: one decode_tick and the final norm; prefill chunks per layer
+    either way); the draft model's k forwards a window (a flash forward
+    a layer, 2 norms a layer and the final one)."""
+    def expect(st):
+        windows, ticks, chunks = (st["verify_windows"], st["decode_ticks"],
+                                  st["prefill_chunks"])
+        if megakernel:
+            want = {"decode_tick": ticks + windows,
+                    "paged_attention": L * chunks,
+                    "rms_norm": ticks + windows + (2 * L + 1) * chunks}
+        else:
+            passes = ticks + windows + chunks
+            want = {"paged_attention": L * passes,
+                    "rms_norm": (2 * L + 1) * passes}
+        if draft_cfg is not None:
+            Ld = draft_cfg["num_hidden_layers"]
+            want["rms_norm"] += (2 * Ld + 1) * SPEC_K * windows
+            want["flash_fwd"] = Ld * SPEC_K * windows
+        return want
+    return expect
+
+
+class ReplayDrafter:
+    """A host-side drafter (the ``SpecConfig(drafter=obj)`` protocol) that
+    proposes the plain server's own next tokens for a context that is a
+    prefix of one of its outputs, and repeats the last token otherwise:
+    the verify path at an acceptance near 1, its ceiling on this model
+    (the random weights never continue the n-gram drafts)."""
+
+    deterministic = True
+    fusible = False
+
+    def __init__(self, outputs):
+        self.outputs = [list(o) for o in outputs]
+
+    def propose(self, contexts, k, temps=None, generator=None):
+        import numpy as np
+
+        out = np.zeros((len(contexts), k), np.int32)
+        for i, ctx in enumerate(contexts):
+            if ctx is None:
+                continue
+            n = len(ctx)
+            # the output this context is a prefix of (the repeat-suffix
+            # prompts are prefixes of each other: their outputs are not)
+            nxt = next((o[n:n + k] for o in self.outputs
+                        if len(o) > n and o[:n] == ctx), [])
+            out[i] = (nxt + [ctx[-1]] * k)[:k]
+        return out, None
+
+
+def serve_spec_cell(torch, ops, model, label, traffic, megakernel=False,
+                    drafter=None, sampled=False, graphs=True, **spec_kw):
+    """One speculative cell of phase 26 through :func:`serve`:
+    ``GenerationServer(spec=SpecConfig(k=SPEC_K, ...), tick_window=
+    SPEC_WINDOW)`` (1 with a draft model), per layer or behind
+    ``kernels="megakernel"``; ``spec_kw``: more ``SpecConfig`` fields
+    (``gate_cooldown=0``: the gate off); every verify window and gated
+    plain trip a graph replay; the launches of rows 11 and 13 per window
+    checked."""
+    from paddle_tpu_torch.inference.speculative import SpecConfig
+
+    L = model.cfg.num_hidden_layers
+    kw = dict(SAMPLED) if sampled else {}
+    if drafter is None:
+        spec = SpecConfig(k=SPEC_K, **spec_kw)
+    elif isinstance(drafter, ReplayDrafter):
+        spec = SpecConfig(k=SPEC_K, drafter=drafter, **spec_kw)
+    else:
+        spec = SpecConfig(k=SPEC_K, drafter="model", draft_model=drafter,
+                          **spec_kw)
+    draft_model = drafter is not None and not isinstance(drafter,
+                                                         ReplayDrafter)
+    server_kw = dict(spec=spec, tick_window=1 if drafter else SPEC_WINDOW,
+                     seed=7)
+    if megakernel:
+        server_kw["kernels"] = "megakernel"
+        per_window = {"decode_tick": 1, "paged_attention": 0, "rms_norm": 1}
+    else:
+        per_window = {"paged_attention": L, "rms_norm": 2 * L + 1}
+    pass_kind = "spec_verify" if drafter is not None else "spec_scan"
+    expect_per_pass = {pass_kind: per_window, "decode_paged": per_window}
+    if draft_model:
+        expect_per_pass[pass_kind] = dict(per_window, flash_fwd=0)
+
+    def prime(srv):
+        _prime_gate(torch, srv, greedy=not sampled)
+
+    def breakdown(torch, srv):
+        return spec_breakdown(torch, srv, greedy=not sampled)
+
+    try:
+        res, _, srv = serve(
+            torch, ops, model, label=label + _cell_suffix(graphs),
+            expect=_spec_expect(L, megakernel,
+                                DRAFT_CFG if draft_model else None),
+            expect_per_pass=expect_per_pass, graphs=graphs, traffic=traffic,
+            requests_kw=[kw] * len(traffic[0]), warmup=_spec_warmup(kw),
+            prime=prime, breakdown=breakdown, **server_kw)
+        check(srv._exec.megakernel == megakernel,
+              f"{label}: the server's megakernel is {srv._exec.megakernel}")
+    finally:
+        ops.set_kernel_mode("auto")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _first_difference(a, b):
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def near_ties(torch, ops, m32, got, want, tie):
+    """Phase 26 (c): for each request whose speculative tokens differ from
+    the plain server's, the target's fp32 logits (the plain twins on the
+    fp32 copy, a dense forward over the common tokens) at the first
+    differing position: the two candidate tokens' logits must lie within
+    ``tie``. Returns (requests identical, [per differing request: position,
+    the two logits' gap, fp32 argmax among the two], all within)."""
+    same, rows, ok = 0, [], True
+    ops.set_kernel_mode("reference")
+    try:
+        for a, b in zip(got, want):
+            if a == b:
+                same += 1
+                continue
+            n = _first_difference(a, b)
+            ids = torch.tensor([a[:n]], device="cuda")
+            with torch.no_grad():
+                lg = m32.head(m32.model(ids)[:, -1]).float()[0]
+            gap = abs(lg[a[n]].item() - lg[b[n]].item())
+            top = int(lg.argmax())
+            rows.append(dict(position=n, gap=gap,
+                             fp32_argmax_is=("spec" if top == a[n] else
+                                             "plain" if top == b[n] else
+                                             "neither")))
+            ok = ok and gap <= tie
+    finally:
+        ops.set_kernel_mode("auto")
+    return same, rows, ok
+
+
+def verify_vs_decode(torch, ops, model, m32, prompt, following):
+    """Phase 26 (b): one request's state after its prefill (its prompt in
+    chunks of 128 into fresh pools); a verify window of W = 5 (the first
+    token and the plain server's next 4) scored at once, against 5 single
+    decode ticks on a copy of the pools — with the kernels (per layer, and
+    through decode_tick at W = 5 against W = 1), with the plain twins in
+    bf16 and with the plain twins on the fp32 copy. Prints the largest
+    |verify - decode| logit difference per position for each, alone (the
+    products at 5 rows against 1) and with the request in all 8 rows of the
+    served batch (40 rows against 8, as the server runs them: ``_b8``); the
+    kernels' verify logits may be at most DRIFT_RATIO x as far from the
+    fp32 ones as the plain bf16 path's (phase 5's rule). Returns the
+    readings, with the largest |bf16 kernels - fp32| logit difference seen
+    (verify or decode), the ground of (c)'s near-tie bound."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+
+    cfg = model.cfg
+    C, bs, W = PREFILL_CHUNK, BLOCK_SIZE, SPEC_K + 1
+    n = len(prompt)
+    nblk = -(-(n + C) // bs) + 1       # the last chunk's padding too
+    table = torch.arange(1, nblk + 1, dtype=torch.int32, device="cuda")
+    shape = (nblk + 1, bs, cfg.num_key_value_heads, cfg.head_dim)
+    window = torch.tensor([following[:W]], device="cuda")
+    posv = torch.tensor([n], dtype=torch.int32, device="cuda")
+
+    def run(m, mode, megakernel=False, B=1):
+        ops.set_kernel_mode(mode)
+        tb = table[None].expand(B, -1).contiguous()
+        win, pv = window.expand(B, -1), posv.expand(B).contiguous()
+        pools = [tuple(torch.zeros(shape, dtype=m.cfg.torch_dtype,
+                                   device="cuda") for _ in range(2))
+                 for _ in range(cfg.num_hidden_layers)]
+        with torch.no_grad():
+            for start in range(0, n, C):
+                chunk = torch.zeros(1, C, dtype=torch.long, device="cuda")
+                part = prompt[start:start + C]
+                chunk[0, :len(part)] = torch.tensor(part)
+                m.model.paged_prefill_chunk(chunk, pools, table, start)
+            copy = [tuple(p.clone() for p in pool) for pool in pools]
+            flat = [p for pool in pools for p in pool]
+            flat_copy = [p for pool in copy for p in pool]
+            if megakernel:
+                weights = mk.stack_layer_weights(m)
+
+                def tick(toks, pool_list, p):
+                    x = m.model.embed_tokens(toks)
+                    cr, sr = mk.gather_rope_rows(m.model._cos, m.model._sin,
+                                                 p, toks.shape[1])
+                    xo, _ = mk.decode_tick(x, pool_list, tb, p, weights, cr,
+                                           sr, block_size=bs,
+                                           eps=m.cfg.rms_norm_eps)
+                    return m.head(m.model.norm(xo)).float()[0]
+
+                ver = tick(win, flat, pv)
+                dec = torch.stack([tick(win[:, j:j + 1], flat_copy,
+                                        pv + j)[0] for j in range(W)])
+            else:
+                h, _ = m.model.paged_verify_step(win, pools, tb, pv)
+                ver = m.head(h).float()[0]
+                dec = torch.stack([m.head(m.model.paged_decode_step(
+                    win[:, j:j + 1], copy, tb, pv + j)[0])
+                    .float()[0, 0] for j in range(W)])
+        ops.set_kernel_mode("auto")
+        del pools, copy
+        return ver, dec
+
+    paths = {"kernels": run(model, "auto"),
+             "plain_bf16": run(model, "reference"),
+             "megakernel": run(model, "megakernel", megakernel=True),
+             "megakernel_plain_bf16": run(model, "reference",
+                                          megakernel=True),
+             "plain_fp32": run(m32, "reference")}
+    fv, fd = paths["plain_fp32"]
+
+    def rms(t):
+        return t.square().mean().sqrt().item()
+
+    res = {name: dict(verify_vs_decode_max_per_position=(v - d).abs()
+                      .amax(-1).tolist(),
+                      verify_vs_fp32_max=(v - fv).abs().max().item(),
+                      verify_vs_fp32_rms=rms(v - fv),
+                      decode_vs_fp32_max=(d - fd).abs().max().item())
+           for name, (v, d) in paths.items()}
+    for kern, plain in (("kernels", "plain_bf16"),
+                        ("megakernel", "megakernel_plain_bf16")):
+        for key in ("max", "rms"):
+            ratio = (res[kern][f"verify_vs_fp32_{key}"]
+                     / res[plain][f"verify_vs_fp32_{key}"])
+            res[kern][f"drift_ratio_{key}"] = ratio
+            check(ratio <= DRIFT_RATIO,
+                  f"phase 26 (b): {kern}' verify logits drift from fp32 "
+                  f"{ratio:.3g} x as far as {plain}'s (limit {DRIFT_RATIO})")
+    for name, mode, mega in (("kernels", "auto", False),
+                             ("megakernel", "megakernel", True)):
+        v, d = run(model, mode, megakernel=mega, B=MAX_BATCH)
+        res[name]["verify_vs_decode_max_per_position_b8"] = \
+            (v - d).abs().amax(-1).tolist()
+        res[name]["argmax_verify_equals_decode_b8"] = int(
+            (v.argmax(-1) == d.argmax(-1)).sum())
+    res["argmax_verify_equals_decode"] = {
+        name: int((v.argmax(-1) == d.argmax(-1)).sum())
+        for name, (v, d) in paths.items()}
+    res["kernels_vs_fp32_max"] = max(
+        max(res[k]["verify_vs_fp32_max"], res[k]["decode_vs_fp32_max"])
+        for k in ("kernels", "megakernel"))
+    res["rms_logit"] = rms(fv)
+    res["prompt_tokens"] = n
+    log("phase 26 (b), verify against decode: " + json.dumps(res))
+    return res
+
+
+def _faulty_accept(orig):
+    """A planted fault of the acceptance: one draft more accepted than the
+    target agreed with (up to the row's draft budget)."""
+    import torch
+
+    def accept(logits, proposals, temps, topks, topps, kcaps, generator,
+               qprobs=None, greedy=False):
+        out, acc = orig(logits, proposals, temps, topks, topps, kcaps,
+                        generator, qprobs, greedy)
+        acc2 = torch.minimum(acc + 1, kcaps)
+        B, W = out.shape
+        pad = torch.cat([proposals.to(out.dtype),
+                         torch.zeros(B, 1, dtype=out.dtype,
+                                     device=out.device)], 1)
+        wpos = torch.arange(W, device=out.device)[None]
+        return torch.where(wpos < acc2[:, None], pad, out), acc2
+    return accept
+
+
+def serve_spec(torch, ops, model, phase4_tokens):
+    """Phase 26: speculative serving of Llama-3-8B (see the module
+    docstring); ``phase4_tokens``: phase 4's plain run of the random-prompt
+    traffic, the yardstick of that cell's tokens."""
+    import paddle_tpu_torch.inference.speculative as spec_mod
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = model.cfg
+    rs = repeat_suffix_traffic(cfg)
+    out = {}
+    # (a) the yardsticks: the plain graphed server, per layer and through
+    # the whole-tick kernel, on the repeat-suffix traffic
+    plain, _, srv = serve(torch, ops, model,
+                          label="phase 26 plain (repeat-suffix)", traffic=rs)
+    del srv
+    plain_mk = serve_megakernel(torch, ops, model, plain["tokens"],
+                                label="phase 26 plain megakernel "
+                                      "(repeat-suffix)", traffic=rs)
+    cells = {
+        "ngram": serve_spec_cell(torch, ops, model,
+                                 "phase 26 spec ngram (repeat-suffix)", rs),
+        "ngram random": serve_spec_cell(
+            torch, ops, model, "phase 26 spec ngram (random prompts)",
+            phase4_traffic(cfg)),
+        "ngram megakernel": serve_spec_cell(
+            torch, ops, model, "phase 26 spec ngram megakernel "
+                               "(repeat-suffix)", rs, megakernel=True),
+        "ngram sampled": serve_spec_cell(
+            torch, ops, model, "phase 26 spec ngram sampled "
+                               "(repeat-suffix)", rs, sampled=True),
+    }
+    draft = LlamaForCausalLM(LlamaConfig(
+        vocab_size=cfg.vocab_size, max_position_embeddings=MAX_LEN,
+        **DRAFT_CFG), seed=1)
+    cells["draft model"] = serve_spec_cell(
+        torch, ops, model, "phase 26 spec draft model (repeat-suffix)", rs,
+        drafter=draft)
+    del draft
+    # the gate off: every trip speculative, whatever the acceptance
+    cells["ngram gate off"] = serve_spec_cell(
+        torch, ops, model, "phase 26 spec ngram, gate off (repeat-suffix)",
+        rs, gate_cooldown=0)
+    # the verify path's ceiling: drafts that the target accepts (the gate
+    # off, so that a row's drafts missing after a near tie leave the
+    # others speculating)
+    cells["replayed drafts"] = serve_spec_cell(
+        torch, ops, model, "phase 26 spec replayed drafts, gate off "
+                           "(repeat-suffix)", rs,
+        drafter=ReplayDrafter(plain["tokens"]), gate_cooldown=0)
+    # (d) determinism: graphs off give the greedy cell's tokens; the
+    # sampled cell once more from the same seed gives the same bits
+    eager = serve_spec_cell(torch, ops, model,
+                            "phase 26 spec ngram (repeat-suffix)", rs,
+                            graphs=False)
+    again = serve_spec_cell(torch, ops, model,
+                            "phase 26 spec ngram sampled (repeat-suffix, "
+                            "again)", rs, sampled=True)
+    det = {"graphs_on_off_identical": sum(
+        a == b for a, b in zip(cells["ngram"]["tokens"], eager["tokens"])),
+           "graphs_on_off_launches_equal":
+               cells["ngram"]["launches"] == eager["launches"],
+           "sampled_twice_identical": sum(
+               a == b for a, b in zip(cells["ngram sampled"]["tokens"],
+                                      again["tokens"])),
+           "requests": len(rs[0])}
+    log("phase 26 (d), determinism: " + json.dumps(det))
+    for key in ("graphs_on_off_identical", "sampled_twice_identical"):
+        check(det[key] == len(rs[0]), f"phase 26 (d): {key} {det[key]} of "
+                                      f"{len(rs[0])} requests")
+    check(det["graphs_on_off_launches_equal"],
+          "phase 26 (d): launches differ with graphs on and off")
+    # the planted fault of (c): one draft accepted too many
+    orig = spec_mod.speculative_accept
+    spec_mod.speculative_accept = _faulty_accept(orig)
+    try:
+        faulty = serve_spec_cell(torch, ops, model,
+                                 "phase 26 planted fault: one draft accepted "
+                                 "too many", rs)
+    finally:
+        spec_mod.speculative_accept = orig
+    # (b) and (c) against the fp32 copy of the weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import dataclasses as dc
+
+    m32 = LlamaForCausalLM(dc.replace(cfg, dtype="float32"), device="cuda")
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p16)
+    i = PHASE4_LENS.index(517)
+    vd = verify_vs_decode(torch, ops, model, m32, rs[0][i],
+                          plain["tokens"][i][len(rs[0][i]):])
+    # a near tie: both bf16 paths lie within the largest error (b) saw of
+    # the fp32 logits, so two tokens they order differently lie within
+    # twice it of each other in fp32
+    tie = 2 * vd["kernels_vs_fp32_max"]
+    ties = {"bound": tie}
+    for name, got, want in (
+            ("ngram", cells["ngram"], plain),
+            ("ngram random", cells["ngram random"],
+             {"tokens": phase4_tokens}),
+            ("ngram megakernel", cells["ngram megakernel"], plain_mk),
+            ("ngram gate off", cells["ngram gate off"], plain),
+            ("draft model", cells["draft model"], plain),
+            ("replayed drafts", cells["replayed drafts"], plain),
+            ("planted fault", faulty, plain)):
+        same, rows, ok = near_ties(torch, ops, m32, got["tokens"],
+                                   want["tokens"], tie)
+        ties[name] = dict(requests_identical=same, differing=rows,
+                          within_bound=ok)
+        if name == "planted fault":
+            check(not ok, "phase 26 (c): the near-tie check passes the "
+                          "planted fault")
+        else:
+            check(ok, f"phase 26 (c): {name}: a request's first differing "
+                      f"token is no near tie ({rows})")
+    log("phase 26 (c), greedy tokens against the plain server: "
+        + json.dumps(ties))
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(plain=plain, plain_megakernel=plain_mk, cells=cells,
+               determinism=det, verify_vs_decode=vd, ties=ties)
+    return out
+
+
+def log_spec(res):
+    """Phase 26's readings once more, for the last lines of the output:
+    each cell's rates, acceptance, launches and trip breakdown beside the
+    plain cells' ms per tick."""
+    plain = {}
+    for name in ("plain", "plain_megakernel"):
+        r = res[name]
+        plain[name] = dict(decode_tok_s=r["decode_tok_s"],
+                           ms_per_decode_tick=r["ms_per_decode_tick"],
+                           prefill_tok_s=r["prefill_tok_s"],
+                           decode_ticks=r["decode_ticks"],
+                           tick=r["breakdown"]["decode_window"])
+    log("phase 26, plain yardsticks (repeat-suffix): " + json.dumps(plain))
+    for name, r in res["cells"].items():
+        r = {k: v for k, v in r.items() if k not in ("tokens", "prompts")}
+        log(f"phase 26, spec {name}: " + json.dumps(r))
+    log("phase 26 (b): " + json.dumps(res["verify_vs_decode"]))
+    log("phase 26 (c): " + json.dumps(res["ties"]))
+    log("phase 26 (d): " + json.dumps(res["determinism"]))
 
 
 # --------------------------------------------------------------- phase 9
@@ -3937,6 +4667,18 @@ def main() -> int:
         log(f"partial run (phase 13 only): {time.perf_counter() - t_start:.1f}"
             f" s")
         return 0
+    if sys.argv[1:] == ["--only", "spec"]:
+        # a diagnostic run: the build, phase 3's paged attention (the
+        # verify form at W = 5 among its cases), phase 4 and phase 26
+        # alone, no final line
+        kernel_paged_attention(torch, ops, pa, llama3_8b_config())
+        model = LlamaForCausalLM(llama3_8b_config())
+        serve_res, _, srv = serve(torch, ops, model)
+        del srv
+        log_spec(serve_spec(torch, ops, model, serve_res["tokens"]))
+        log(f"partial run (phases 3, 4, 26 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--only", "serve"]:
         # a diagnostic run: the build and phases 4, 14, 24 and 25 alone, no
         # final line
@@ -4021,6 +4763,8 @@ def main() -> int:
     # phase 25: tick_window = 4
     w4_res, w4_mk_res, window_res = serve_windows(torch, ops, model,
                                                   serve_res, mk_res)
+    # phase 26: speculative serving
+    spec_res = serve_spec(torch, ops, model, serve_res["tokens"])
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -4086,18 +4830,24 @@ def main() -> int:
 
     csrc = "paddle_tpu_torch/ops/csrc/"
     flash = "paddle_tpu/ops/flash_attention.py:"
+    spec_cells = spec_res["cells"]
     tl = train_res["launches"]
     kernels = [
         entry("paged_attention", csrc + "paged_attention.cu",
               "paddle_tpu/ops/paged_attention_pallas.py:253", attn_cases,
               serve_res["launches"]["paged_attention"],
-              build=paged_build["bf16"]),
+              build=paged_build["bf16"],
+              spec_launches=spec_cells["ngram"]["launches"][
+                  "paged_attention"]),
         entry("rms_norm", csrc + "rms_norm.cu",
               "paddle_tpu/ops/fused_norm.py:84", rms_cases,
               serve_res["launches"]["rms_norm"],
-              train_launches=tl["rms_norm"]),
+              train_launches=tl["rms_norm"],
+              spec_launches=spec_cells["ngram"]["launches"]["rms_norm"]),
         entry("flash_fwd", csrc + "flash_attention.cu", flash + "488",
-              fwd_cases, tl["flash_fwd"], build=fwd_build["D=128"]),
+              fwd_cases, tl["flash_fwd"], build=fwd_build["D=128"],
+              draft_model_launches=spec_cells["draft model"]["launches"][
+                  "flash_fwd"]),
         entry("flash_bwd_dq", csrc + "flash_attention_bwd.cu",
               flash + "628",
               [c for n, c in bwd_cases if n == "flash_bwd_dq"],
@@ -4155,10 +4905,13 @@ def main() -> int:
              kv8_mk_res),
             ("decode_tick_lora", mk_cases["lora"] + mk_cases["int8_lora"],
              lora_mk_res)):
+        extra = ({} if name != "decode_tick" else dict(
+            spec_launches=spec_cells["ngram megakernel"]["launches"][
+                "decode_tick"]))
         kernels.append(entry(
             name, csrc + "decode_megakernel.cu",
             "paddle_tpu/ops/decode_megakernel.py:845", cases,
-            res["launches"]["decode_tick"],
+            res["launches"]["decode_tick"], **extra,
             per_layer_kernels_ms=cases[0]["per_layer_kernels_ms"],
             library_note=cases[0]["library_note"], build=tick_build[
                 {"decode_tick": "fp", "decode_tick_int8": "int8",
@@ -4186,6 +4939,7 @@ def main() -> int:
         log("pass breakdown (host vs device): " + json.dumps(breakdown))
         if e is not None:
             log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))
+    log_spec(spec_res)
     log("phase 24, graphs on / off: " + json.dumps(graph_cmp))
     log(f"phase 25, sampled W = {WINDOW}: "
         + json.dumps(window_res))

@@ -6,9 +6,13 @@ scheduling, slot bookkeeping and harvest, all host-side numpy state.
 :class:`PagedExecutor` owns what lives on the device: the per-layer K/V
 block pools — ``(K, V)`` in the model dtype, or for ``kv_quant="int8"``
 ``(K codes, K scales, V codes, V scales)`` with int8 codes and one f32
-scale per (block, KV head) — and the two programs of a step: a decode
-window of ``ticks`` ticks (:meth:`decode_paged`, JAX ``_decode_paged_fn``)
-and one prefill chunk (:meth:`chunk_prefill`, JAX ``_chunk_prefill_fn``).
+scale per (block, KV head) — and the programs of a step: a decode window
+of ``ticks`` ticks (:meth:`decode_paged`, JAX ``_decode_paged_fn``), one
+prefill chunk (:meth:`chunk_prefill`, JAX ``_chunk_prefill_fn``) and, on
+a speculative server, one verify window of W = k+1 tokens a row with a
+host-side drafter's drafts (:meth:`spec_verify`, JAX ``_spec_verify_fn``)
+or S windows of device-side drafting, verify and acceptance
+(:meth:`spec_scan`, JAX ``_spec_scan_fn``).
 With LoRA, each program takes the slots' adapter page indices and hands
 every layer the adapter pool's factors at those pages
 (``AdapterPool.layer_factors``).
@@ -16,8 +20,10 @@ every layer the adapter pool's factors at those pages
 Where the JAX executor jit-compiles each program over donated pools, this
 one, on a CUDA device, captures each program in a CUDA graph at its first
 use and replays it: one graph per decode key ``(greedy, ticks)`` (JAX's
-static arguments) and one for every prefill chunk, whose ``start`` and
-``last_idx`` are device scalars (as JAX traces them). A graph reads the
+static arguments), one for every prefill chunk, whose ``start`` and
+``last_idx`` are device scalars (as JAX traces them), and one per
+speculative key ``("spec_verify", greedy)`` or ``("spec_scan", greedy,
+S)``. A graph reads the
 executor's static input buffers, into which each pass copies its inputs,
 and writes static outputs, which the pass returns: they hold until the
 next pass. The pools, the weights, the rope tables and the adapter pool's
@@ -47,7 +53,9 @@ Under ``set_kernel_mode("megakernel")`` (``GenerationServer(kernels=
 "megakernel")``) each decode tick runs every layer as one launch of the
 whole-tick kernel (:meth:`_mk_window`, JAX ``_decode_megakernel_fn``), over
 fp or int8 pools, with the slots' LoRA adapters read from the adapter
-pool's pages; prefill chunks keep the per-layer kernels. The guard runs
+pool's pages, and so does each verify window, at W = k+1 (JAX
+``_spec_verify_megakernel_fn``, ``_spec_scan_megakernel_fn``); prefill
+chunks keep the per-layer kernels. The guard runs
 once, at construction, and a configuration the kernel does not serve
 raises there: unlike the JAX executor, nothing falls back to the per-layer
 programs.
@@ -63,7 +71,7 @@ import torch
 
 from ..models.generation import sample_token_rows
 
-__all__ = ["PagedExecutor"]
+__all__ = ["PagedExecutor", "capture_graph"]
 
 
 class PagedExecutor:
@@ -103,11 +111,14 @@ class PagedExecutor:
 
             geom = engine.mk_geometry or mk.MegakernelGeometry()
             lora = engine._lora
+            # a verify window is a tick of k+1 tokens a row
+            window = 1 if engine.spec is None else engine.spec_k + 1
             reason = mk.megakernel_supported(
                 engine.model, cfg, block_size=engine.block_size,
                 geometry=geom, lora=lora is not None,
                 kv_quant=engine.kv_quant,
-                lora_rank=0 if lora is None else lora.max_rank)
+                lora_rank=0 if lora is None else lora.max_rank,
+                rows=engine.max_batch * window)
             if reason is not None:
                 self.megakernel_reason = reason
                 raise ValueError(f"kernels='megakernel' cannot serve this "
@@ -130,6 +141,15 @@ class PagedExecutor:
                          active=zeros(B), aidx=zeros(B),
                          temps=zeros(B, dtype=torch.float32), topks=zeros(B),
                          topps=zeros(B, dtype=torch.float32))
+        if engine.spec is not None:
+            # the speculative programs read the decode window's buffers and
+            # these (every pass copies in what its program reads)
+            k = engine.spec_k
+            self._dec.update(proposals=zeros(B, k), kcaps=zeros(B),
+                             ctx=zeros(B, engine.max_len))
+            if not engine.drafter.deterministic:
+                self._dec["qprobs"] = zeros(B, k, cfg.vocab_size,
+                                            dtype=torch.float32)
         self._chk = dict(chunk=zeros(1, engine.prefill_chunk),
                          table=zeros(TW), start=zeros(1), last_idx=zeros(1),
                          aidx=zeros(1))
@@ -137,7 +157,7 @@ class PagedExecutor:
         self._graphs = {}
         self._graph_pool = None
         self.captures = 0
-        self.replays = {"decode": 0, "chunk": 0}
+        self.replays = {"decode": 0, "chunk": 0, "spec": 0}
 
     def check_weights(self) -> None:
         """Raise RuntimeError when a tensor of the model (a parameter or a
@@ -196,23 +216,11 @@ class PagedExecutor:
         per-layer forwards or one whole-tick launch, then the head and the
         sampling; returns the (ticks, B) stack."""
         b = self._dec
-        model = self.engine.model
-        if self.megakernel:
-            from ..ops import decode_megakernel as mk
-
-            lora = (None if self.engine._lora is None
-                    else mk.lora_tables(self.engine._lora, b["aidx"]))
-        else:
-            lora = self._lora(b["aidx"])
+        lora = self._window_lora(b["aidx"])
         toks, p, out = b["tokens"], b["pos"], []
         for _ in range(ticks):
-            if self.megakernel:
-                h = self._mk_window(toks[:, None], b["tables"], p, lora)
-            else:
-                h, _ = model.model.paged_decode_step(toks[:, None],
-                                                     self.pools, b["tables"],
-                                                     p, lora)
-            lg = model.head(h)[:, 0].float()             # (B, V)
+            lg = self._window_logits(toks[:, None], b["tables"], p,
+                                     lora)[:, 0]          # (B, V)
             if greedy:
                 toks = torch.argmax(lg, dim=-1).to(torch.int32)
             else:
@@ -221,6 +229,31 @@ class PagedExecutor:
             out.append(toks)
             p = p + b["active"]
         return torch.stack(out)
+
+    def _window_lora(self, aidx):
+        """The rows' adapters in the form the window's forward takes: the
+        whole-tick kernel's ``mk.lora_tables``, or the per-layer factors
+        (None without LoRA); taken once a program."""
+        if self.engine._lora is None:
+            return None
+        if self.megakernel:
+            from ..ops import decode_megakernel as mk
+
+            return mk.lora_tables(self.engine._lora, aidx)
+        return self._lora(aidx)
+
+    def _window_logits(self, window, tables, pos, lora):
+        """fp32 logits (B, W, V) of a window of W tokens a row at positions
+        ``pos + arange(W)``, its K/V written into the pools: one whole-tick
+        launch, or the per-layer forwards (``paged_verify_step``), then
+        the head."""
+        model = self.engine.model
+        if self.megakernel:
+            h = self._mk_window(window, tables, pos, lora)
+        else:
+            h, _ = model.model.paged_verify_step(window, self.pools, tables,
+                                                 pos, lora)
+        return model.head(h).float()
 
     def _mk_window(self, window, tables, pos, lora=None):
         """One W-token tick through the whole-tick kernel: embed →
@@ -269,6 +302,116 @@ class PagedExecutor:
         last = torch.index_select(h, 1, b["last_idx"])     # (1, 1, hidden)
         return model.head(last)[:, 0].float()
 
+    @torch.no_grad()
+    def spec_verify(self, tokens, proposals, tables, pos, temps, topks,
+                    topps, kcaps, generator, qprobs=None, aidx=None,
+                    greedy: bool = False):
+        """One speculative window with a host-side drafter's drafts (JAX
+        ``_spec_verify_fn``): the window [current token, k drafts] through
+        the verify forward, the head, then :func:`~.speculative.
+        speculative_accept`. tokens int32 (B,); proposals int32 (B, k);
+        tables, pos, temps, topks, topps, aidx as in :meth:`decode_paged`;
+        kcaps int32 (B,) the rows' draft budgets (0 on idle and
+        prefilling rows); qprobs fp32 (B, k, V) from a sampling drafter
+        (None: one-hot). Returns (out int32 (B, k+1), acc int32 (B,)),
+        the program's static outputs."""
+        buf = self._dec
+        with_q = qprobs is not None
+        gen = None if greedy else generator
+        body = functools.partial(self._spec_window, bool(greedy), gen,
+                                 with_q)
+        prog = self._program(("spec_verify", bool(greedy)), body, buf, gen)
+        inputs = dict(tokens=tokens, proposals=proposals, tables=tables,
+                      pos=pos, kcaps=kcaps, aidx=aidx,
+                      qprobs=qprobs if with_q else None)
+        if not greedy:
+            inputs.update(temps=temps, topks=topks, topps=topps)
+        _copy_in(buf, inputs)
+        return body() if prog is None else self._replay(prog, "spec")
+
+    def _spec_window(self, greedy: bool, generator, with_q: bool):
+        """The verify program over the static inputs."""
+        from .speculative import speculative_accept
+
+        b = self._dec
+        window = torch.cat([b["tokens"][:, None], b["proposals"]], dim=1)
+        lg = self._window_logits(window, b["tables"], b["pos"],
+                                 self._window_lora(b["aidx"]))
+        return speculative_accept(lg, b["proposals"], b["temps"], b["topks"],
+                                  b["topps"], b["kcaps"], generator,
+                                  b["qprobs"] if with_q else None,
+                                  greedy=greedy)
+
+    @torch.no_grad()
+    def spec_scan(self, ctx, tables, pos, temps, topks, topps, kcaps, active,
+                  generator, aidx=None, greedy: bool = False,
+                  windows: int = 1):
+        """``windows`` speculative windows as one program, the drafter on
+        the device (JAX ``_spec_scan_fn``; ``drafter.propose_device``):
+        draft, verify, accept, then the emitted tokens appended to the
+        context and the positions advanced, window after window. ctx int32
+        (B, max_len): row b's prompt and generated tokens through index
+        ``pos[b]``; ``active`` int32 (B,), 1 on decoding rows; the rest as
+        in :meth:`spec_verify`. Tokens past a request's end are discarded
+        by the host. Returns (outs int32 (windows, B, k+1), accs int32
+        (windows, B))."""
+        windows = int(windows)
+        if windows < 1:
+            raise ValueError(f"windows must be >= 1, got {windows}")
+        buf = self._dec
+        gen = None if greedy else generator
+        body = functools.partial(self._spec_scan, bool(greedy), gen, windows)
+        prog = self._program(("spec_scan", bool(greedy), windows), body, buf,
+                             gen)
+        inputs = dict(ctx=ctx, tables=tables, pos=pos, kcaps=kcaps,
+                      active=active, aidx=aidx)
+        if not greedy:
+            inputs.update(temps=temps, topks=topks, topps=topps)
+        _copy_in(buf, inputs)
+        return body() if prog is None else self._replay(prog, "spec")
+
+    def _spec_scan(self, greedy: bool, generator, windows: int):
+        """The fused speculative program over the static inputs; the
+        context buffer is updated in place (each pass copies it in
+        anew)."""
+        from .speculative import speculative_accept
+
+        engine = self.engine
+        b = self._dec
+        k = engine.spec_k
+        W = k + 1
+        c = b["ctx"]
+        L = c.shape[1]
+        dev = c.device
+        wpos = torch.arange(W, device=dev)[None, :]
+        live = (b["active"] > 0)[:, None]
+        lora = self._window_lora(b["aidx"])
+        p = b["pos"]
+        outs, accs = [], []
+        for _ in range(windows):
+            cur = torch.gather(c, 1, p.long()[:, None])            # (B, 1)
+            proposals = engine.drafter.propose_device(c, p, k)
+            window = torch.cat([cur, proposals], dim=1)
+            lg = self._window_logits(window, b["tables"], p, lora)
+            out, acc = speculative_accept(lg, proposals, b["temps"],
+                                          b["topks"], b["topps"], b["kcaps"],
+                                          generator, None, greedy=greedy)
+            # the emitted tokens appended to the context for the next
+            # window's drafts; writes clamped at L - 1 touch only rows the
+            # harvest releases
+            widx = torch.clamp(p.long()[:, None] + 1 + wpos, max=L - 1)
+            keep = (wpos <= acc[:, None]) & live
+            c.scatter_(1, widx, torch.where(keep, out,
+                                            torch.gather(c, 1, widx)))
+            # clamped: only surplus windows past max_len (discarded by the
+            # harvest) reach L - 1; without it the ``cur`` gather reads out
+            # of bounds and a garbage token's K/V written to scratch block
+            # 0 poisons every row whose table padding points there
+            p = torch.clamp(p + (acc + 1) * b["active"], max=L - 1)
+            outs.append(out)
+            accs.append(acc)
+        return torch.stack(outs), torch.stack(accs)
+
     # --------------------------------------------------------------- graphs
     def _program(self, key, body, inputs, generator):
         """The captured graph of ``key`` (captured now at its first use),
@@ -279,47 +422,48 @@ class PagedExecutor:
             return None
         prog = self._graphs.get(key)
         if prog is None:
-            prog = self._graphs[key] = self._capture(body, inputs, generator)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            prog = self._graphs[key] = capture_graph(
+                body, inputs, generator, self.engine.device,
+                self._graph_pool)
+            self.captures += 1
         elif prog.generator is not generator:
             raise ValueError("a sampled window's graph draws from the "
                              "generator it was captured with")
         return prog
 
-    def _capture(self, body, inputs, generator):
-        """Warm ``body`` up eagerly on a side stream over zeroed inputs (its
-        writes land in scratch block 0; a generator's state is restored
-        after), then capture it into a graph in the executor's pool."""
-        from .. import ops
-
-        dev = self.engine.device
-        for t in inputs.values():
-            t.zero_()
-        state = None if generator is None else generator.get_state()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), ops.captured_launches():
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if generator is not None:
-            generator.set_state(state)
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-        with ops.captured_launches() as launches:
-            with torch.cuda.graph(graph, pool=self._graph_pool):
-                out = body()
-        self.captures += 1
-        return _Graph(graph, out, launches, generator)
-
     def _replay(self, prog, kind: str):
-        from .. import ops
-
-        prog.graph.replay()
-        ops.add_launch_counts(prog.launches)
         self.replays[kind] += 1
-        return prog.out
+        return prog.replay()
+
+
+def capture_graph(body, inputs, generator, device, pool=None):
+    """Warm ``body`` up eagerly on a side stream over zeroed ``inputs`` (a
+    dict of its static input tensors: a pool write lands in scratch block
+    0; a generator's state is restored after), then capture it into a CUDA
+    graph (in ``pool``, a ``graph_pool_handle``, when given) that draws
+    from ``generator`` (None: none). The launches the capture counted are
+    taken back and added at each replay."""
+    from .. import ops
+
+    for t in inputs.values():
+        t.zero_()
+    state = None if generator is None else generator.get_state()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side), ops.captured_launches():
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if generator is not None:
+        generator.set_state(state)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with ops.captured_launches() as launches:
+        with torch.cuda.graph(graph, pool=pool):
+            out = body()
+    return _Graph(graph, out, launches, generator)
 
 
 @dataclasses.dataclass
@@ -329,9 +473,17 @@ class _Graph:
     (None: greedy)."""
 
     graph: object
-    out: torch.Tensor
+    out: object
     launches: dict
     generator: object
+
+    def replay(self):
+        """Replay the graph, count its launches; returns its outputs."""
+        from .. import ops
+
+        self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        return self.out
 
 
 def _weights_key(model) -> tuple:

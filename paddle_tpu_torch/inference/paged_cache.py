@@ -157,6 +157,17 @@ class BlockAllocator:
         else:
             self._free.append(bid)
 
+    def truncate(self, table: List[int], n_tokens: int) -> List[int]:
+        """Release the tail of ``table`` so that it covers only ``n_tokens``
+        positions: the speculative rollback. Blocks reserved for drafts
+        that the verify window rejected go back through :meth:`free` (a
+        shared prefix block drops a reference, a hashed one lands on the
+        LRU list). Returns the kept prefix of ``table``."""
+        keep = -(-n_tokens // self.block_size)  # ceil; 0 tokens keeps none
+        for bid in table[keep:]:
+            self.free(bid)
+        return list(table[:keep])
+
     # --------------------------------------------------------------- pinning
     def pin(self, bid: int) -> None:
         """Freeze a live or cached block against eviction; refcounts are

@@ -38,9 +38,18 @@ decode window and prefill chunk is a replay of a CUDA graph over the
 executor's static buffers, into which each pass copies its inputs from
 pinned host memory.
 
+``spec=SpecConfig(...)`` serves speculative decoding (inference/
+speculative.py): a drafter proposes ``k`` tokens a row, one verify window
+scores the k+1 positions and the exact accept/reject emits 1 to k+1 tokens
+a row. With the n-gram drafter (in-program) a trip runs ``tick_window``
+windows as one program; a host-side drafter (``DraftModelDrafter``) runs
+one window a trip. The speculation gate switches to plain decode trips of
+``gate_ticks`` ticks while acceptance is low. Greedy outputs equal the
+plain server's; on a CUDA device every verify window or trip is a CUDA
+graph replay, per layer or through the whole-tick kernel at W = k+1.
+
 Not ported yet (their constructor arguments raise ``NotImplementedError``
-when given a non-default value): the dense cache, speculative decoding,
-KV tiers and swap preemption, priority/WFQ scheduling, telemetry, fault
+when given a non-default value): the dense cache, KV tiers and swap preemption, priority/WFQ scheduling, telemetry, fault
 injection, tensor/context parallelism, snapshots, replica roles and
 ``kernels="pallas"`` (the port has no interpret mode).
 With the default ``num_blocks`` the pool never runs dry; a smaller pool
@@ -67,12 +76,16 @@ from .scheduler import Scheduler
 # NotImplementedError. The constructor keeps the JAX server's parameter
 # order, so that a positional call means the same in both packages
 _UNPORTED_DEFAULTS = {
-    "prompt_buckets": (32, 64, 128), "spec": None,
+    "prompt_buckets": (32, 64, 128),
     "host_pool_bytes": None, "warm_pool_bytes": None,
     "tier_demote_low": None, "tier_demote_high": None,
     "telemetry": None, "faults": None, "fault_retries": 3,
     "mesh": None, "role": "any", "profile": None, "clock": None,
 }
+# the JAX server's ``submit`` arguments that the port does not serve yet,
+# at the one value each takes (``priority`` the JAX PRIORITY_NORMAL)
+_UNPORTED_SUBMIT = {"priority": 1, "tenant": "default", "ttl_s": None}
+
 
 def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
     """Device bytes one KV block costs across ALL layers (K + V pools, plus
@@ -97,6 +110,7 @@ class _Request:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 0.0
+    draft_k: Optional[int] = None                    # per-request spec budget
     adapter: Optional[str] = None                    # LoRA adapter name
     generated: List[int] = field(default_factory=list)
     sched: Any = None                                # its SchedEntry
@@ -135,7 +149,9 @@ class GenerationServer:
     ``torch.Generator`` of sampled requests.
 
     ``tick_window``: decode ticks per host round trip (>= 1; see the
-    module docstring).
+    module docstring); with ``spec``, verify windows per trip (a host-side
+    drafter takes 1 only). ``spec``: a :class:`~.speculative.SpecConfig`
+    (paged cache only).
 
     ``kernels``: ``"auto"`` (default) leaves the process-wide
     :func:`paddle_tpu_torch.ops.set_kernel_mode` as it is; ``"megakernel"``
@@ -189,6 +205,11 @@ class GenerationServer:
                                  "kernels='megakernel' (the geometry only "
                                  "parameterizes the whole-tick kernel)")
             mk_geometry.validate()
+        if spec is not None:
+            if cache != "paged":
+                raise ValueError(
+                    "spec= (speculative decoding) requires cache='paged'")
+            spec.validate()
         if cache != "paged":
             raise NotImplementedError(
                 f"cache={cache!r}: only cache='paged' is ported")
@@ -224,6 +245,7 @@ class GenerationServer:
         self.max_len = max_len
         self.eos = eos_token_id
         self.tick_window = int(tick_window)
+        self.spec = spec
         # per-slot scalars live host-side (numpy)
         self.pos = np.zeros((max_batch,), np.int32)
         self.tokens = np.zeros((max_batch,), np.int32)
@@ -251,8 +273,15 @@ class GenerationServer:
         # slack entries (always 0 = scratch) so that neither a final chunk's
         # table slice nor a finished row's last ticks of a window run off
         # the row
-        self._table_width = entries + -(-max(self.prefill_chunk,
-                                              self.tick_window) // bs)
+        slack = -(-max(self.prefill_chunk, self.tick_window) // bs)
+        if spec is not None:
+            # a speculative trip writes up to tick_window (or turbo)
+            # windows of k+1 positions past a row's last live position, a
+            # gated plain trip gate_ticks positions
+            wmax = max(self.tick_window, int(spec.turbo_windows))
+            slack = max(slack, -(-(wmax * (int(spec.k) + 1)) // bs),
+                        -(-int(spec.gate_ticks) // bs))
+        self._table_width = entries + slack
         per_block = kv_block_bytes(cfg, bs, kv_quant)
         if num_blocks is None:
             if pool_bytes is not None:
@@ -302,6 +331,43 @@ class GenerationServer:
                 ("chunk", (1, self.prefill_chunk), i32), ("table", (TW,), i32),
                 ("start", (1,), i32), ("last_idx", (1,), i32),
                 ("chunk_aidx", (1,), i32))}
+        if spec is not None:
+            self.spec_k = int(spec.k)
+            self.drafter = spec.build_drafter(max_len)
+            dm = getattr(self.drafter, "model", None)
+            if dm is not None and dm.device != self.device:
+                raise ValueError(f"the draft model lives on {dm.device}, the "
+                                 f"server on {self.device}: move one of them")
+            # fusible drafters (in-program drafting: the n-gram matcher)
+            # run tick_window draft, verify, accept windows in one program;
+            # a host-side drafter needs a round trip a window
+            self._spec_fused = bool(getattr(self.drafter, "fusible", False))
+            if not self._spec_fused and self.tick_window != 1:
+                raise ValueError(
+                    f"tick_window={tick_window} with spec= needs an "
+                    f"in-program (fusible) drafter such as 'ngram'; drafter "
+                    f"{type(self.drafter).__name__} proposes host-side and "
+                    f"supports tick_window=1 only")
+            self._spec_windows = self.tick_window if self._spec_fused else 1
+            # per-slot draft budget: kcap 0 (idle and prefilling slots) runs
+            # a plain decode tick inside the verify window
+            self.kcaps = np.zeros((max_batch,), np.int32)
+            self._spec_proposed = 0
+            self._spec_accepted = 0
+            # the gate: > 0 = plain trips left before the next probe;
+            # turbo = long trips while the batch accepts near k
+            self._spec_gate_off = 0
+            self._spec_plain_windows = 0
+            self._spec_turbo = False
+            self._stage.update({
+                name: torch.zeros(shape, dtype=i32, pin_memory=pin)
+                for name, shape in (("proposals", (max_batch, self.spec_k)),
+                                    ("kcaps", (max_batch,)),
+                                    ("ctx", (max_batch, max_len)))})
+        self._verify_trips = 0
+        self._verify_windows = 0
+        self._verify_tokens = 0
+        self._verify_wall_s = 0.0
         self._stage_np = {k: t.numpy() for k, t in self._stage.items()}
         self.kernels = kernels
         self.mk_geometry = mk_geometry
@@ -319,11 +385,24 @@ class GenerationServer:
     # --------------------------------------------------------------- requests
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 0.0, adapter: Optional[str] = None) -> int:
-        """Queue one request; returns its rid. ``adapter`` names a
+               top_p: float = 0.0, draft_k: Optional[int] = None,
+               priority: int = 1, tenant: str = "default",
+               ttl_s: Optional[float] = None,
+               adapter: Optional[str] = None) -> int:
+        """Queue one request; returns its rid. ``draft_k`` lowers the
+        request's drafts a window below ``spec.k`` (requires ``spec=``; 0
+        decodes it plainly inside the verify windows). ``adapter`` names a
         registered LoRA adapter (requires ``lora=``); an unknown name, a
         rank past the pool's ``max_rank`` or mis-shaped factors are
-        rejected here, not at admission."""
+        rejected here, not at admission. ``priority``, ``tenant`` and
+        ``ttl_s`` keep the JAX order; the port's FIFO scheduler takes only
+        their defaults and raises NotImplementedError on any other
+        value."""
+        given = locals()
+        for name, default in _UNPORTED_SUBMIT.items():
+            if given[name] != default:
+                raise NotImplementedError(
+                    f"submit({name}={given[name]!r}) is not ported yet")
         prompt = list(prompt)
         if not prompt:
             raise ValueError("prompt must contain at least one token id")
@@ -348,6 +427,20 @@ class GenerationServer:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         if not 0.0 <= top_p <= 1.0:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        if draft_k is not None:
+            if self.spec is None:
+                raise ValueError(
+                    "draft_k= requires a server built with "
+                    "spec=SpecConfig(...)")
+            if isinstance(draft_k, bool) or \
+                    not isinstance(draft_k, (int, np.integer)) or draft_k < 0:
+                raise ValueError(
+                    f"draft_k must be an int >= 0, got {draft_k!r}")
+            if draft_k > self.spec_k:
+                raise ValueError(
+                    f"draft_k ({draft_k}) exceeds spec.k ({self.spec_k}) — "
+                    f"the compiled verify-window width; raise SpecConfig.k")
+            draft_k = int(draft_k)
         if adapter is not None:
             if self._lora is None:
                 raise ValueError(
@@ -367,7 +460,7 @@ class GenerationServer:
         self._next_rid += 1
         req = _Request(rid, prompt, int(max_new_tokens),
                        temperature=float(temperature), top_k=int(top_k),
-                       top_p=float(top_p), adapter=adapter)
+                       top_p=float(top_p), draft_k=draft_k, adapter=adapter)
         req.sched = self._sched.submit(req, rid, adapter=adapter)
         self._weights_checked = False
         return rid
@@ -396,6 +489,9 @@ class GenerationServer:
         self.temps[slot] = req.temperature
         self.topks[slot] = req.top_k
         self.topps[slot] = req.top_p
+        if self.spec is not None:
+            self.kcaps[slot] = (self.spec_k if req.draft_k is None
+                                else req.draft_k)
         req.generated.append(first)
 
     def _fill_free_slots(self) -> None:
@@ -504,28 +600,17 @@ class GenerationServer:
             self._activate_slot(slot, req, first)
             self._prefilling[slot] = None
 
-    def _plain_decode_trip(self, active) -> None:
-        """One decode trip: ``tick_window`` ticks across the listed slots in
-        one program. Idle and prefilling rows run masked — zeroed table and
-        pos 0 route their discarded K/V writes to scratch block 0, which
-        keeps the batch shape fixed."""
-        k = self.tick_window
+    def _plain_decode_trip(self, active, ticks: Optional[int] = None) -> None:
+        """One decode trip: ``ticks`` (default ``tick_window``) ticks across
+        the listed slots in one program. Idle and prefilling rows run
+        masked — zeroed table and pos 0 route their discarded K/V writes to
+        scratch block 0, which keeps the batch shape fixed."""
+        k = self.tick_window if ticks is None else ticks
         for s in active:
             self._ensure_blocks(s, -(-(int(self.pos[s]) + k)
                                      // self.block_size))
-        greedy = all(float(self.temps[s]) == 0.0 for s in active)
-        active_mask = np.zeros((self.max_batch,), np.int32)
-        active_mask[active] = 1
-        st, sn = self._stage, self._stage_np
-        sn["tokens"][:] = self.tokens
-        sn["tables"][:] = np.where(active_mask[:, None] > 0, self._bt, 0)
-        sn["pos"][:] = self.pos * active_mask
-        sn["active"][:] = active_mask
-        sn["aidx"][:] = self.aidx
-        if not greedy:
-            sn["temps"][:] = self.temps
-            sn["topks"][:] = self.topks
-            sn["topps"][:] = self.topps
+        greedy, active_mask = self._stage_rows(active)
+        st = self._stage
         w0 = time.perf_counter()
         stack = self._exec.decode_paged(
             st["tokens"], st["tables"], st["pos"], st["temps"], st["topks"],
@@ -537,6 +622,28 @@ class GenerationServer:
         self._decode_trips += 1
         self._decode_ticks += k
         self._decode_tokens += self._harvest_window(nxt, active, active_mask)
+
+    def _stage_rows(self, active):
+        """Stage the per-row inputs of a decode or verify trip over the
+        listed slots (the rest masked: zeroed table, pos 0); returns
+        (greedy, the active mask)."""
+        greedy = all(float(self.temps[s]) == 0.0 for s in active)
+        active_mask = np.zeros((self.max_batch,), np.int32)
+        active_mask[active] = 1
+        sn = self._stage_np
+        sn["tokens"][:] = self.tokens
+        sn["tables"][:] = np.where(active_mask[:, None] > 0, self._bt, 0)
+        sn["pos"][:] = self.pos * active_mask
+        sn["active"][:] = active_mask
+        sn["aidx"][:] = self.aidx
+        if self.spec is not None:
+            # nonzero only on activated, unreleased slots: the active set
+            sn["kcaps"][:] = self.kcaps * active_mask
+        if not greedy:
+            sn["temps"][:] = self.temps
+            sn["topks"][:] = self.topks
+            sn["topps"][:] = self.topps
+        return greedy, active_mask
 
     def _harvest_window(self, nxt_host, active, active_mask) -> int:
         """Fold one decode window's (k, B) token stack into the per-request
@@ -588,6 +695,158 @@ class GenerationServer:
         self.temps[slot] = 0.0
         self.topks[slot] = 0
         self.topps[slot] = 0.0
+        if self.spec is not None:
+            self.kcaps[slot] = 0
+
+    # ----------------------------------------------------------- speculative
+    def _dispatch_trips(self, active) -> None:
+        """The step's decode work for ``active`` slots. With ``spec``: the
+        gate runs ``spec.gate_cooldown`` plain trips of ``spec.gate_ticks``
+        ticks after a trip of low acceptance, then probes speculation
+        again; a :class:`~.speculative.DrafterFault` runs the trip through
+        the plain program and holds the gate off."""
+        if self.spec is None:
+            self._plain_decode_trip(active)
+            return
+        if self._spec_gate_off > 0:
+            self._spec_gate_off -= 1
+            self._spec_plain_windows += self.spec.gate_ticks
+            self._plain_decode_trip(active, self.spec.gate_ticks)
+            return
+        from .speculative import DrafterFault
+
+        try:
+            self._spec_tick(active)
+        except DrafterFault:
+            # the drafter is an accelerator, not a correctness dependency
+            self._spec_gate_off = max(int(self.spec.gate_cooldown) or 0, 4)
+            self._spec_turbo = False
+            self._spec_plain_windows += self.spec.gate_ticks
+            self._plain_decode_trip(active, self.spec.gate_ticks)
+
+    def _spec_tick(self, active) -> None:
+        """One speculative trip: every decoding slot drafts k tokens, one
+        verify window scores the k+1 positions, exact accept/reject emits 1
+        to k+1 tokens a row — a fusible drafter's ``S`` windows as one
+        program (``tick_window``, or ``turbo_windows`` in the turbo tier),
+        a host-side drafter's one. Blocks for all ``S·(k+1)`` positions
+        are reserved up front; the harvest truncates back."""
+        k = self.spec_k
+        S = self._spec_windows
+        if self._spec_turbo and self.spec.turbo_windows > S:
+            S = self.spec.turbo_windows
+        for s in active:
+            self._ensure_blocks(s, -(-(int(self.pos[s]) + S * (k + 1))
+                                     // self.block_size))
+        greedy, active_mask = self._stage_rows(active)
+        st, sn = self._stage, self._stage_np
+        lora = st["aidx"] if self._lora is not None else None
+        ex = self._exec
+        w0 = time.perf_counter()
+        if self._spec_fused:
+            ctx = sn["ctx"]
+            ctx[:] = 0
+            for s in active:
+                req = self._slots[s]
+                toks = req.prompt + req.generated
+                ctx[s, :len(toks)] = toks
+            outs, accs = ex.spec_scan(
+                st["ctx"], st["tables"], st["pos"], st["temps"],
+                st["topks"], st["topps"], st["kcaps"], st["active"],
+                self._gen, aidx=lora, greedy=greedy, windows=S)
+        else:
+            contexts: List[Optional[List[int]]] = [None] * self.max_batch
+            for s in active:
+                req = self._slots[s]
+                contexts[s] = req.prompt + req.generated
+            proposals, qprobs = self.drafter.propose(
+                contexts, k, temps=self.temps, generator=self._gen)
+            if isinstance(proposals, np.ndarray):
+                sn["proposals"][:] = proposals
+                proposals = st["proposals"]
+            outs, accs = ex.spec_verify(
+                st["tokens"], proposals, st["tables"], st["pos"],
+                st["temps"], st["topks"], st["topps"], st["kcaps"],
+                self._gen, qprobs=qprobs, aidx=lora, greedy=greedy)
+            outs, accs = outs[None], accs[None]
+        outs = outs.cpu().numpy()
+        accs = accs.cpu().numpy()
+        self._verify_wall_s += time.perf_counter() - w0
+        self._verify_trips += 1
+        self._verify_windows += S
+        self._verify_tokens += self._harvest_spec(outs, accs, active)
+        if self.spec.gate_cooldown:
+            m = float(accs[:, active].mean())
+            # below gate_low mean accepted drafts a window, drafting is a
+            # net loss: plain trips for a cooldown, then probe again
+            if m < self.spec.gate_low:
+                self._spec_gate_off = self.spec.gate_cooldown
+                self._spec_turbo = False
+            else:
+                self._spec_turbo = (self._spec_fused
+                                    and self.spec.turbo_windows > 0
+                                    and m >= self.spec_k - 1)
+
+    def _harvest_spec(self, outs, accs, active) -> int:
+        """Fold a trip's verify windows into the requests: window w of row
+        ``s`` emits ``outs[w, s, :accs[w, s] + 1]``, appended under the
+        eos / max-new / max-len walk of :meth:`_harvest_window` (an eos
+        inside a window drops the rest of the trip), so greedy outputs
+        equal the plain server's token for token. A slot that goes on
+        advances ``pos`` by the emitted count and gives back the blocks
+        reserved for rejected drafts (``BlockAllocator.truncate``; their
+        stale K/V is overwritten by the next window before a query reads
+        it). Returns the tokens kept."""
+        S = outs.shape[0]
+        kept = 0
+        for s in active:
+            req = self._slots[s]
+            kcap = int(self.kcaps[s])
+            new_pos = int(self.pos[s])
+            had = len(req.generated)
+            done = False
+            for w in range(S):
+                a = int(accs[w, s])
+                self._spec_proposed += kcap
+                self._spec_accepted += a
+                for j in range(a + 1):
+                    finished_last = (self.eos is not None
+                                     and req.generated[-1] == self.eos)
+                    if not finished_last:
+                        req.generated.append(int(outs[w, s, j]))
+                    if (finished_last
+                            or len(req.generated) >= req.max_new_tokens
+                            or new_pos + j + 1 >= self.max_len - 1):
+                        done = True
+                        break
+                if done:
+                    break
+                new_pos += a + 1
+            kept += len(req.generated) - had
+            if done:
+                self._results[req.rid] = (req.prompt
+                                          + req.generated[:req.max_new_tokens])
+                self._release_slot(s)
+            else:
+                self.pos[s] = new_pos
+                self.tokens[s] = req.generated[-1]
+                req.table = self.alloc.truncate(req.table, new_pos)
+                self._bt[s, len(req.table):] = 0
+        return kept
+
+    def spec_metrics(self) -> Dict[str, float]:
+        """Draft and accept counters of the speculative path (empty
+        without ``spec``); ``acceptance_rate`` = accepted / proposed
+        drafts, ``gated_plain_windows`` the ticks of the gate's plain
+        trips."""
+        if self.spec is None:
+            return {}
+        prop = self._spec_proposed
+        return {"draft_tokens_proposed": prop,
+                "draft_tokens_accepted": self._spec_accepted,
+                "acceptance_rate":
+                    (self._spec_accepted / prop) if prop else 0.0,
+                "gated_plain_windows": self._spec_plain_windows}
 
     # ------------------------------------------------------------- stepping
     def step(self) -> int:
@@ -606,7 +865,7 @@ class GenerationServer:
         active = [s for s in range(self.max_batch)
                   if self._slots[s] is not None and not self._prefilling[s]]
         if active:
-            self._plain_decode_trip(active)
+            self._dispatch_trips(active)
         occupied = sum(sl is not None for sl in self._slots)
         if occupied == 0 and len(self._sched) > 0:
             # every slot empty yet entries wait: admission against an idle
@@ -639,13 +898,20 @@ class GenerationServer:
     def throughput_stats(self) -> Dict[str, float]:
         """Prompt tokens and decode ticks served so far with their host wall
         time (each span ends on a host copy of its result, so the device
-        work is included): ``decode_trips`` host round trips of
-        ``tick_window`` ``decode_ticks`` each, ``decode_tokens`` the tokens
-        kept (a window's surplus past a request's end is not counted)."""
+        work is included): ``decode_trips`` plain host round trips of
+        ``decode_ticks`` ticks in all (``tick_window`` each, ``gate_ticks``
+        a gated trip), ``decode_tokens`` the tokens they kept (a window's
+        surplus past a request's end is not counted); ``verify_trips``
+        speculative round trips of ``verify_windows`` windows in all and
+        ``verify_tokens`` the tokens they kept, in ``verify_s``."""
         return {"prefill_tokens": self._prefill_tokens,
                 "prefill_chunks": self._prefill_chunks,
                 "prefill_s": self._prefill_wall_s,
                 "decode_trips": self._decode_trips,
                 "decode_ticks": self._decode_ticks,
                 "decode_tokens": self._decode_tokens,
-                "decode_s": self._decode_wall_s}
+                "decode_s": self._decode_wall_s,
+                "verify_trips": self._verify_trips,
+                "verify_windows": self._verify_windows,
+                "verify_tokens": self._verify_tokens,
+                "verify_s": self._verify_wall_s}

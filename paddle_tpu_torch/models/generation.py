@@ -1,5 +1,6 @@
 """Token sampling — port of ``paddle_tpu/models/generation.py``
-(``next_token``, ``filtered_logits_rows``, ``sample_token_rows``).
+(``next_token``, ``filtered_logits_rows``, ``filtered_probs_rows``,
+``sample_token_rows``).
 
 An explicit ``torch.Generator`` (on the logits' device) replaces the JAX key
 and is advanced in place. The same seed gives other draws than JAX's
@@ -67,6 +68,14 @@ def filtered_logits_rows(logits, temps, top_ks, top_ps):
                          ).min(dim=-1, keepdim=True).values
     nucleus = ((top_ps > 0) & (top_ps < 1))[:, None]
     return torch.where(nucleus & (lg < cutoff), neg, lg)
+
+
+def filtered_probs_rows(logits, temps, top_ks, top_ps):
+    """Softmax of :func:`filtered_logits_rows`: the distribution a sampled
+    row draws from, the ``p`` of speculative rejection sampling
+    (``inference/speculative.py``)."""
+    return torch.softmax(filtered_logits_rows(logits, temps, top_ks, top_ps),
+                         dim=-1)
 
 
 def sample_token_rows(logits, generator, temps, top_ks, top_ps):

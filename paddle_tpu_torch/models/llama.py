@@ -2,7 +2,7 @@
 GQA attention, the fp SwiGLU MLP and the causal-LM head, with the dense
 causal training forward (``LlamaForCausalLM.forward(input_ids, labels)``:
 flash attention, the fused lm-head + CE loss) and the paged serving
-forwards (decode and chunked prefill) over an fp or an int8 KV pool, with
+forwards (decode, the speculative verify window and chunked prefill) over an fp or an int8 KV pool, with
 weight-only int8 projections (:meth:`LlamaForCausalLM.quantize_int8`) or
 per-row LoRA adapters read from the adapter pool (``lora=``).
 
@@ -37,12 +37,12 @@ from ..nn.quant import Int8Linear
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_ce import capped_chunk_size, fused_linear_cross_entropy
 from ..ops.fused_norm import fused_rms_norm
-from ..ops.paged_attention import (paged_decode_attention,
-                                   paged_decode_attention_q,
-                                   paged_prefill_attention,
-                                   paged_prefill_attention_q, write_chunk_kv,
-                                   write_chunk_kv_q, write_decode_kv,
-                                   write_decode_kv_q)
+from ..ops.paged_attention import (paged_prefill_attention,
+                                   paged_prefill_attention_q,
+                                   paged_verify_attention,
+                                   paged_verify_attention_q, write_chunk_kv,
+                                   write_chunk_kv_q, write_window_kv,
+                                   write_window_kv_q)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -130,13 +130,17 @@ def _rope_rotate(x, c, s):
     return out.to(x.dtype)
 
 
-def _apply_rope_rows(x, cos, sin, pos):
-    """x: (B, 1, H, D), pos: int32 (B,) — each row at its own position,
-    edge-clamped to the table as the JAX gather is: the last ticks of a
-    decode window may run a finished row past it, and their tokens are
-    discarded."""
-    p = torch.clamp(pos.long(), 0, cos.shape[0] - 1)
-    return _rope_rotate(x, cos[p][:, None, None, :], sin[p][:, None, None, :])
+def _apply_rope_window(x, cos, sin, pos):
+    """x: (B, W, H, D), row ``b``'s token ``j`` at position ``pos[b] + j``
+    (pos int32 (B,)), edge-clamped to the table as the JAX gather is: the
+    last ticks of a decode window or the surplus of a verify window may run
+    a finished row past it, and their tokens are discarded. W = 1 is one
+    decode token a row."""
+    W = x.shape[1]
+    p = torch.clamp(pos.long()[:, None]
+                    + torch.arange(W, device=pos.device)[None, :], 0,
+                    cos.shape[0] - 1)                        # (B, W)
+    return _rope_rotate(x, cos[p][:, :, None, :], sin[p][:, :, None, :])
 
 
 def _apply_rope_bhsd(x, cos, sin, pos_offset=0):
@@ -263,26 +267,31 @@ class LlamaAttention(nn.Module):
         out = checkpoint_name(out.transpose(1, 2), "attn_out")
         return self.o_proj(out.reshape(B, S, -1))
 
-    def paged_decode(self, x, cos, sin, pool, block_tables, pos,
+    def paged_verify(self, x, cos, sin, pool, block_tables, pos,
                      lora=None):
-        """Single-token decode against the paged pool: the new token's K/V
-        scatter through the block table at ``pos`` (in place), then attention
-        reads the context by table. x: (B, 1, hidden); pool: ``(kp, vp)``
-        (num_blocks, bs, KV, D) fp pools, or ``(kq, ks, vq, vs)`` int8 codes
-        with (num_blocks, KV) f32 scales; block_tables: int32 (B, M); pos:
-        int32 (B,); ``lora``: this layer's adapter factors (or None).
-        Returns (output, pool)."""
-        B = x.shape[0]
-        q, k, v = self._qkv(x, B, 1, lora)
-        qr = _apply_rope_rows(q, cos, sin, pos)
-        kr = _apply_rope_rows(k, cos, sin, pos)
+        """A WINDOW of W tokens a row against the paged pool (JAX
+        ``paged_verify_attn``): row ``b``'s token ``j`` sits at position
+        ``pos[b] + j``; the window's K/V scatter through the block table
+        (in place), then query ``j`` attends the context up to its own
+        position. x: (B, W, hidden); pool: ``(kp, vp)`` (num_blocks, bs,
+        KV, D) fp pools, or ``(kq, ks, vq, vs)`` int8 codes with (num_blocks,
+        KV) f32 scales; block_tables: int32 (B, M); pos: int32 (B,);
+        ``lora``: this layer's adapter factors (or None). W = 1 is the
+        single-token decode. Returns (output, pool)."""
+        B, W = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(x, B, W, lora)
+        qr = _apply_rope_window(q, cos, sin, pos)
+        kr = _apply_rope_window(k, cos, sin, pos)
         if len(pool) == 4:
-            write_decode_kv_q(*pool, kr[:, 0], v[:, 0], block_tables, pos)
-            out = paged_decode_attention_q(qr, *pool, block_tables, pos)
+            write_window_kv_q(*pool, kr, v, block_tables, pos)
+            out = paged_verify_attention_q(qr, *pool, block_tables, pos)
         else:
-            write_decode_kv(*pool, kr[:, 0], v[:, 0], block_tables, pos)
-            out = paged_decode_attention(qr, *pool, block_tables, pos)
-        return self._o_lora(out.reshape(B, 1, -1), lora), pool
+            write_window_kv(*pool, kr, v, block_tables, pos)
+            out = paged_verify_attention(qr, *pool, block_tables, pos)
+        return self._o_lora(out.reshape(B, W, -1), lora), pool
+
+    # single-token decode: the verify window at W = 1
+    paged_decode = paged_verify
 
     def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start,
                             lora=None):
@@ -291,7 +300,7 @@ class LlamaAttention(nn.Module):
         the caller checked; C a multiple of the block size); their K/V
         fill consecutive table entries (in place) and attention runs over
         all paged context written so far. x: (1, C, hidden); ``pool`` and
-        ``lora`` as in :meth:`paged_decode`; block_table: int32 (M,).
+        ``lora`` as in :meth:`paged_verify`; block_table: int32 (M,).
         Returns (output, pool)."""
         B, S = x.shape[0], x.shape[1]
         q, k, v = self._qkv(x, B, S, lora)
@@ -343,13 +352,15 @@ class LlamaDecoderLayer(nn.Module):
         return h + checkpoint_name(self.mlp(self.post_attention_layernorm(h)),
                                    "mlp_out")
 
-    def paged_decode(self, x, cos, sin, pool, block_tables, pos,
+    def paged_verify(self, x, cos, sin, pool, block_tables, pos,
                      lora=None):
-        a, pool = self.self_attn.paged_decode(self.input_layernorm(x), cos,
+        a, pool = self.self_attn.paged_verify(self.input_layernorm(x), cos,
                                               sin, pool, block_tables, pos,
                                               lora)
         h = x + a
         return h + self.mlp(self.post_attention_layernorm(h), lora), pool
+
+    paged_decode = paged_verify
 
     def paged_prefill_chunk(self, x, cos, sin, pool, block_table, start,
                             lora=None):
@@ -390,21 +401,30 @@ class LlamaModel(nn.Module):
                 run(layer, x, self._cos, self._sin)
         return self.norm(x)
 
-    def paged_decode_step(self, token, pools, block_tables, pos, lora=None):
-        """Paged continuous-batching decode. token: int (B, 1); pools: list
-        of per-layer ``(kp, vp)`` or ``(kq, ks, vq, vs)`` (updated in
-        place); block_tables: int32 (B, M); pos: int32 (B,); ``lora``: None
-        or a per-layer list of {target: factors}
+    def paged_verify_step(self, tokens, pools, block_tables, pos,
+                          lora=None):
+        """Speculative verify: score a window of W = k+1 tokens a row in one
+        pass (JAX ``paged_verify_step``). tokens: int (B, W), the current
+        token then the k drafts, at positions ``pos[b] + arange(W)``;
+        pools: list of per-layer ``(kp, vp)`` or ``(kq, ks, vq, vs)``
+        (updated in place); block_tables: int32 (B, M); pos: int32 (B,);
+        ``lora``: None or a per-layer list of {target: factors}
         (``inference.lora.AdapterPool.layer_factors``). Returns (normed
-        hidden (B, 1, hidden), pools)."""
-        x = self.embed_tokens(token)
+        hidden (B, W, hidden), pools). W = 1 is :meth:`paged_decode_step`."""
+        x = self.embed_tokens(tokens)
         new = []
         for i, (layer, pool) in enumerate(zip(self.layers, pools)):
-            x, pool = layer.paged_decode(x, self._cos, self._sin, pool,
+            x, pool = layer.paged_verify(x, self._cos, self._sin, pool,
                                          block_tables, pos,
                                          None if lora is None else lora[i])
             new.append(pool)
         return self.norm(x), new
+
+    def paged_decode_step(self, token, pools, block_tables, pos, lora=None):
+        """Paged continuous-batching decode, token int (B, 1): the verify
+        window at W = 1 (see :meth:`paged_verify_step`). Returns (normed
+        hidden (B, 1, hidden), pools)."""
+        return self.paged_verify_step(token, pools, block_tables, pos, lora)
 
     def paged_prefill_chunk(self, input_ids, pools, block_table, start,
                             lora=None):

@@ -46,7 +46,7 @@ from .paged_attention import (_attention_core, gather_block_kv,
 # an int8 pool's block size <= MAX_INT8_BLOCK (a block-head is requantized
 # in shared memory)
 from .decode_megakernel_cuda import (HEAD_DIM, K_STEP, MAX_INT8_BLOCK,
-                                     MAX_LORA_RANK)
+                                     MAX_LORA_RANK, MAX_ROWS)
 
 DEQUANT_MODES = ("scores", "tile")
 
@@ -123,14 +123,19 @@ def megakernel_supported(model, cfg, *, tp: int = 1, cp: int = 1,
                          block_size: int = 16,
                          geometry: Optional[MegakernelGeometry] = None,
                          lora: bool = False, kv_quant: str = "none",
-                         lora_rank: int = 0) -> Optional[str]:
+                         lora_rank: int = 0,
+                         rows: int = 1) -> Optional[str]:
     """Structural and shape guard of the whole-tick kernel, checked at
     executor construction: None when the megakernel can serve this model,
     else the reason — the JAX package's reasons, word for word, then the
-    CUDA kernel's rules (:func:`cuda_shape_reason`, given ``kv_quant`` and
-    the adapter pool's ``lora_rank``) for a model on the card (the CPU twin
-    takes any shape, as the JAX kernel's interpret mode does). The port
-    raises on a reason instead of falling back."""
+    rows a tick (``rows`` = B·W: the batch times the window, k+1 on a
+    speculative server) against the kernel's ``MAX_ROWS``, on any device,
+    then the CUDA kernel's rules (:func:`cuda_shape_reason`, given
+    ``kv_quant`` and the adapter pool's ``lora_rank``) for a model on the
+    card (the CPU twin takes any shape, as the JAX kernel's interpret mode
+    does). The port raises on a reason instead of falling back (the JAX
+    executor falls back to the per-layer programs where the kernel's
+    trace raises)."""
     from ..models.llama import Linear
 
     geometry = geometry or MegakernelGeometry()
@@ -170,6 +175,9 @@ def megakernel_supported(model, cfg, *, tp: int = 1, cp: int = 1,
         return "hidden_size is not num_attention_heads * head_dim"
     if D % 2:
         return f"head_dim {D} is odd — rope splits it in half"
+    if rows > MAX_ROWS:
+        return f"{rows} rows a tick (batch x window): the kernel takes " \
+               f"B·W <= MAX_ROWS = {MAX_ROWS}"
     if getattr(model, "device", torch.device("cpu")).type == "cuda":
         return cuda_shape_reason(cfg, block_size, kv_quant=kv_quant,
                                  lora_rank=lora_rank if lora else 0)

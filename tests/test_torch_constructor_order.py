@@ -10,6 +10,7 @@ from jax.sharding import PartitionSpec as P
 
 import paddle_tpu as paddle
 from paddle_tpu.inference.serving import GenerationServer as JServer
+from paddle_tpu.inference.speculative import SpecConfig as JSpec
 from paddle_tpu.jit import state_values
 from paddle_tpu.models import LlamaConfig as JConfig
 from paddle_tpu.models import LlamaForCausalLM as JModel
@@ -17,6 +18,7 @@ from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu.parallel import ParallelEngine as JEngine
 from paddle_tpu_torch import ops as tops
 from paddle_tpu_torch.inference.serving import GenerationServer
+from paddle_tpu_torch.inference.speculative import SpecConfig
 from paddle_tpu_torch.models.convert import params_from_jax
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
@@ -56,7 +58,8 @@ def _server_config(srv):
                 seed=seed, block_size=srv.block_size,
                 prefill_chunk=srv.prefill_chunk,
                 num_blocks=srv.alloc.num_blocks, kv_quant=srv.kv_quant,
-                kernels=srv.kernels, tick_window=srv.tick_window)
+                kernels=srv.kernels, tick_window=srv.tick_window,
+                spec=None if srv.spec is None else srv.spec.describe())
 
 
 # positional arguments after the model, in the JAX order (model, max_batch,
@@ -65,6 +68,8 @@ def _server_config(srv):
 # policy, host_pool_bytes, warm_pool_bytes, tier_demote_low,
 # tier_demote_high, lora, telemetry, faults, fault_retries, kernels)
 PAGED = (BUCKETS, 7, 3, 1, "paged", 4, 40, 8)
+# stands for each package's own SpecConfig(k=3) in a call
+SPEC = "spec"
 SERVER_CALLS = {
     "batch_len": ((2, 64), None),
     "eos_seed": ((2, 64, BUCKETS, 7, 3), None),
@@ -80,6 +85,7 @@ SERVER_CALLS = {
     # default
     "prompt_buckets": ((2, 64, (16, 32)), "prompt_buckets"),
     "tick_window": ((2, 64, BUCKETS, None, 0, 2, "paged"), None),
+    "spec": ((2, 64) + PAGED + (SPEC, "int8"), None),
     "host_pool_bytes": ((2, 64) + PAGED + (None, "none", None, None, 0),
                         "host_pool_bytes"),
     "fault_retries": ((2, 64) + PAGED + (None, "none", None, None, None,
@@ -95,13 +101,28 @@ def test_server_positional_calls_mean_the_same(models, name):
     # the JAX server's default cache is "dense", the port's "paged" (the
     # one it has): a call that leaves cache out names it for both
     kw = {} if len(args) >= 7 else dict(cache="paged")
-    js = JServer(jm, *args, **kw)
+
+    def call(spec):
+        return tuple(spec(k=3) if a is SPEC else a for a in args)
+
+    js = JServer(jm, *call(JSpec), **kw)
     if unported is not None:
         with pytest.raises(NotImplementedError, match=unported):
-            GenerationServer(tm, *args, device="cpu", **kw)
+            GenerationServer(tm, *call(SpecConfig), device="cpu", **kw)
         return
-    ts = GenerationServer(tm, *args, device="cpu", **kw)
+    ts = GenerationServer(tm, *call(SpecConfig), device="cpu", **kw)
     assert _server_config(ts) == _server_config(js)
+    if SPEC in args:
+        # the scratch slack of a trip's windows and a gated trip's ticks
+        assert ts._table_width == js._table_width
+        assert ts.spec_k == js.spec_k == 3
+
+
+def test_submit_keeps_the_jax_parameters():
+    import inspect
+
+    assert list(inspect.signature(GenerationServer.submit).parameters) == \
+        list(inspect.signature(JServer.submit).parameters)
 
 
 def test_server_device_comes_after_the_jax_parameters():

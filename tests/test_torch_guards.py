@@ -15,6 +15,7 @@ import paddle_tpu_torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.inference.serving import (_UNPORTED_DEFAULTS,
                                                 GenerationServer)
+from paddle_tpu_torch.inference.speculative import SpecConfig
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel import ParallelEngine
@@ -50,6 +51,7 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.inference.scheduler",
                 "paddle_tpu_torch.inference.executor",
                 "paddle_tpu_torch.inference.serving",
+                "paddle_tpu_torch.inference.speculative",
                 "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.clip",
                 "paddle_tpu_torch.nn.functional",
                 "paddle_tpu_torch.nn.functional.activation",
@@ -308,16 +310,19 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("kwargs", [dict(cache="dense"), dict(spec=object()),
+@pytest.mark.parametrize("kwargs", [dict(cache="dense"),
+                                    dict(spec=SpecConfig(k=0)),
                                     dict(telemetry=object()),
                                     dict(tick_window=0), dict(policy="wfq"),
                                     dict(kernels="pallas")])
 def test_unported_server_options_raise(kwargs):
-    """Each unported option raises NotImplementedError; ``tick_window`` is
-    served, and a window under one tick raises ValueError, as in JAX."""
+    """Each unported option raises NotImplementedError; ``tick_window`` and
+    ``spec`` are served, and a window under one tick or an invalid
+    ``SpecConfig`` raises ValueError, as in JAX."""
     model = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
                              device="cpu")
-    exc = ValueError if "tick_window" in kwargs else NotImplementedError
+    exc = ValueError if {"tick_window", "spec"} & set(kwargs) else \
+        NotImplementedError
     with pytest.raises(exc):
         GenerationServer(model, device="cpu", **kwargs)
 
@@ -338,6 +343,33 @@ def test_chip_smoke_fails_without_a_card_or_the_port(alone, tmp_path):
                        env=NO_CARD_ENV)
     assert p.returncode != 0
     assert '"ok"' not in p.stdout
+
+
+@pytest.mark.parametrize("batch,k,ok", [(16, 4, False), (13, 4, False),
+                                        (16, 3, True), (12, 4, True),
+                                        (65, None, False)])
+def test_megakernel_rows_over_the_kernel_raise_at_construction(batch, k, ok):
+    """``kernels="megakernel"`` takes B·W <= MAX_ROWS = 64 rows a tick (W =
+    k+1 on a speculative server, 1 otherwise): past it the server refuses
+    to build, naming the rule, instead of serving the per-layer programs;
+    at it the server builds on the whole-tick kernel."""
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import MAX_ROWS
+
+    model = _tiny_model()
+    spec = None if k is None else SpecConfig(k=k)
+    kw = dict(device="cpu", max_batch=batch, max_len=32, block_size=4,
+              prefill_chunk=8, kernels="megakernel", spec=spec)
+    try:
+        if ok:
+            srv = GenerationServer(model, **kw)
+            assert srv._exec.megakernel
+            assert batch * (k + 1) <= MAX_ROWS
+        else:
+            with pytest.raises(ValueError, match="MAX_ROWS = 64"):
+                GenerationServer(model, **kw)
+    finally:
+        ops.set_kernel_mode("auto")
+    assert ops.kernel_mode() == "auto"
 
 
 @pytest.mark.parametrize("name", sorted(_UNPORTED_DEFAULTS))
