@@ -79,12 +79,18 @@ Phases (any failure exits non-zero before the final line):
    backward less the forward; ``torch.optim.AdamW(fused=True)``).
 7. Train: ``ParallelEngine(LlamaForCausalLM(llama3_8b_config(
    num_hidden_layers=8)), AdamW(multi_precision, ClipGradByGlobalNorm))``
-   on the card, 10 steps (2 warm-up) on one seeded batch of B=2 x S=2048;
-   checks the loss falls and that every step launched each flash kernel
-   once per layer, RMSNorm 2 x layers + 1 times and AdamW once per
-   parameter tensor (counts reset before each step, read after). Prints
-   ms/step, tokens/s, MFU (formula printed), peak memory and the device's
-   busy share of a step from ``torch.profiler``.
+   on the card, 10 steps (2 warm-up) on one seeded batch of B=2 x S=2048,
+   on the graphed engine (every step from the third a CUDA graph replay;
+   the first is its warm-up, the second its capture) and on its eager
+   twin (``graphs = False``), each from the same seeded weights and fresh
+   AdamW state; checks the loss falls and that every step launched each
+   flash kernel once per layer, RMSNorm 2 x layers + 1 times and AdamW
+   once per parameter tensor (counts reset before each step, read after),
+   the same in both twins, and that the graphed engine replayed. Prints,
+   for each twin, ms/step, tokens/s, MFU (formula printed), peak memory,
+   device ms a step (graphed: CUDA events around back-to-back replays;
+   eager: the busy time of ``torch.profiler``'s trace, which is also
+   printed for the graphs), busy share, replays and captures.
 8. Train end to end, 2 layers at full width: one forward + backward with
    the kernels, with the plain versions (bf16) and with the plain versions
    on an fp32 copy: the kernels' loss and every gradient may be at most
@@ -245,6 +251,8 @@ entry points and counters):
    (4 x layers + 1 under remat) and AdamW once per parameter tensor; and
    that peak memory orders as the policies save (nothing <= save_attn <=
    save_attn_mlp, save_qkv_attn <= dots, 1 % slack; dots < no remat).
+   (a) and (b) run on the graphed engine and on its eager twin, as phase
+   7; (c)'s one step is a graphed engine's warm-up, eager.
    Prints as phase 7, with each cell's compute bound.
 20. End to end at S=16384, 2 layers at full width: the kernels (twice),
    the kernels under ``remat_policy="dots"``, the plain versions in bf16
@@ -274,11 +282,28 @@ and the flash kernels at head dim 64 (rows 1, 3, 4):
    takes the SDPA reference, as in the JAX package); (b) B=32, S=512,
    attention dropout 0 (the flash kernels); 10 steps each (2 warm-up),
    every step's launches checked (LayerNorm 25, flash 12 / 12 / 12 in (b)
-   and 0 in (a), AdamW once a parameter tensor); (c) the eval forward at
-   both shapes (LayerNorm 25, flash forward 12). Prints as phase 7. Then
+   and 0 in (a), AdamW once a parameter tensor); (c) the eval forward
+   (``eval_batch``) at both shapes (LayerNorm 25, flash forward 12). Each
+   cell on the graphed engine and its eager twin (a model of the same
+   seed: weights and dropout masks), as phase 7. Prints as phase 7. Then
    2 layers at dropout 0, B=128, S in {128, 512}: the kernels' per-example
    losses and gradients against the plain bf16 path and an fp32 copy
    under phase 8's drift ratio, the eval outputs under phase 5's rule.
+
+Phase 27 runs last: the graphed training step against the eager one,
+4 steps each from the same weights and seeds, losses, parameters and
+every optimizer slot bit for bit, launches equal (else the largest
+difference and its tensor are printed and the run fails): (a)
+Llama-3-8B's width at 2 layers, B=2 x S=2048, ``ClipGradByGlobalNorm``,
+``grad_accum=2``, ``LinearWarmup`` -> ``CosineAnnealingDecay``; (b)
+ERNIE (a) with dropout 0.1 / 0.1, whose graphed step's host wall (the
+loss read back) may be at most 1.25 x its device time (phase 24's
+limit); (c) (a)'s model under ``remat=True, remat_policy="dots"``; (d) a
+checkpointed layer that draws a dropout mask from the default generator,
+under ``remat_policy="nothing"``: each recompute draws its forward's mask
+(the engine's graph-safe generator states). ``python3 chip_smoke.py
+--only train_graph`` runs the build, phase 6's AdamW kernel, phases 7,
+23 and 27 alone (a diagnostic, no final line).
 
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
@@ -3245,7 +3270,15 @@ def kernel_adamw(torch, fw, ops):
     """AdamW kernel against ``_reference_update`` per element, at an MLP
     projection, a norm weight and the largest tensor of the training path
     (the embedding table and the lm-head), and with fp32 grads."""
-    hp = dict(lr=3e-4, step=5, b1=0.9, b2=0.95, eps=1e-8, decay=0.01)
+    lr, step = 3e-4, 5
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8, decay=0.01)
+    # the step's [lr, 1/bc1, 1/bc2] on the card, as the optimizer builds
+    # it (every launch reads it)
+    hp["scalars"] = fw.adamw_scalars(
+        torch.tensor(lr, device="cuda"),
+        torch.tensor(step, dtype=torch.int32, device="cuda"),
+        torch.tensor([hp["b1"], hp["b2"]], dtype=torch.float32,
+                     device="cuda"))
     g = torch.Generator(device="cuda").manual_seed(12)
     # a train step updates each tensor once, from device memory: every
     # timed call follows a rewrite of a buffer larger than the L2
@@ -3287,13 +3320,14 @@ def kernel_adamw(torch, fw, ops):
         kw = master.clone() if with_master else None
         fw.fused_adamw_update(kp, grad, km, kv, master=kw, **hp)
         torch.cuda.synchronize()
-        mhat = rm / (1 - hp["b1"] ** hp["step"])
-        vhat = rv / (1 - hp["b2"] ** hp["step"])
-        t_w = (pf.abs() * (1 - hp["lr"] * hp["decay"])
-               + hp["lr"] * mhat.abs() / (vhat.sqrt() + hp["eps"]))
+        mhat = rm / (1 - hp["b1"] ** step)
+        vhat = rv / (1 - hp["b2"] ** step)
+        t_w = (pf.abs() * (1 - lr * hp["decay"])
+               + lr * mhat.abs() / (vhat.sqrt() + hp["eps"]))
         # p: one bf16 step of the element; m, v, master: fp32 relative
-        # 1e-6 of their terms (the kernel multiplies by 1/(1-beta^t)
-        # where the plain version divides: a few fp32 ulps)
+        # 1e-6 of their terms (both multiply by the same 1/(1-beta^t);
+        # PyTorch's eager ops may round a product the kernel keeps apart:
+        # a few fp32 ulps)
         worst = {
             "p": ((kp.float() - rp.float()).abs()
                   / (2.0 ** -7 * rp.float().abs() + 1e-30)).max().item(),
@@ -3318,7 +3352,7 @@ def kernel_adamw(torch, fw, ops):
         w32 = (master if with_master else p.float()).clone()
         w32.requires_grad_()
         w32.grad = gf.clone()
-        lib_opt = torch.optim.AdamW([w32], lr=hp["lr"],
+        lib_opt = torch.optim.AdamW([w32], lr=lr,
                                     betas=(hp["b1"], hp["b2"]),
                                     eps=hp["eps"],
                                     weight_decay=hp["decay"], fused=True)
@@ -3411,7 +3445,129 @@ def _device_busy(torch, step, steps: int):
     return busy * 1e-6, wall, classes, names
 
 
+def _timed_steps(torch, ops, eng, batch, steps, want, label, exact=False):
+    """``steps`` train steps of ``eng`` on ``batch``, each read back
+    (``loss.item()``), every step's launches checked against ``want``
+    ({kernel: launches a step}; with ``exact`` no other kernel may
+    launch). Returns (losses, host walls in s, {kernel: launches over the
+    steps}, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    launches = dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+    for i in range(steps):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(*batch).item())
+        walls.append(time.perf_counter() - t0)
+        got = ops.launch_counts()
+        for name, n in want.items():
+            check(got[name] == n, f"{label}: step {i} launched {name} "
+                                  f"{got[name]} times, want {n}")
+        if exact:
+            others = {k: n for k, n in got.items() if n and k not in want}
+            check(not others, f"{label}: step {i}: unexpected launches "
+                              f"{others}")
+        for name in launches:
+            launches[name] += got[name]
+    check(all(x == x and abs(x) < 1e4 for x in losses),
+          f"{label}: non-finite loss {losses}")
+    return losses, walls, launches, \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _step_device(torch, eng, fn, prof_steps, passes, repeats):
+    """Device time of one step (or eval pass) ``fn`` of ``eng``: on its
+    graphs, CUDA events around ``passes`` calls enqueued back to back
+    (``_replayed_ms``); eager, the busy time of ``torch.profiler``'s trace.
+    Both report the profiler's busy time and its split by kernel class
+    over ``prof_steps`` calls (the trace of a graph replay included)."""
+    graphed = eng._use_graphs()
+    replayed = _replayed_ms(torch, fn, passes, repeats) if graphed else None
+    busy, prof_wall, classes, names = _device_busy(
+        torch, lambda: fn().item(), prof_steps)
+    busy_ms = None if busy is None else busy / prof_steps * 1e3
+    return dict(
+        device_ms=replayed if graphed else busy_ms,
+        device_ms_from="cuda events around back-to-back replays"
+        if graphed else "torch.profiler busy time",
+        profiled_busy_ms=busy_ms,
+        busy_share_profiled=None if busy is None else busy / prof_wall,
+        device_ms_by_class={c: t / prof_steps * 1e3 for c, t in sorted(
+            classes.items(), key=lambda kv: -kv[1])},
+        top_kernels_ms={n[:80]: t / prof_steps * 1e3 for n, t in sorted(
+            names.items(), key=lambda kv: -kv[1])[:10]})
+
+
+def _train_cell(torch, ops, eng, batch, *, steps, warmup, want, label,
+                flops, tokens, examples=None, prof_steps=2, passes=3,
+                repeats=3, exact=False):
+    """One training cell on ``eng`` (graphed unless ``eng.graphs`` is
+    False): :func:`_timed_steps`, then the step's device time
+    (:func:`_step_device`) and the rates: ms per step (median host wall
+    of the steps after ``warmup``: a graphed cell's first two steps are
+    its warm-up and its capture), tokens/s, examples/s, MFU over the
+    ``flops`` of a step, busy share (device over host ms), peak memory,
+    replays and captures."""
+    losses, walls, launches, peak = _timed_steps(
+        torch, ops, eng, batch, steps, want, label, exact)
+    step_s = _median(walls[warmup:])
+    dev = _step_device(torch, eng, lambda: eng.train_batch(*batch),
+                       prof_steps, passes, repeats)
+    res = dict(graphs=eng._use_graphs(), losses=losses,
+               step_walls_s=walls, ms_per_step=step_s * 1e3,
+               tokens_per_s=tokens / step_s,
+               mfu=flops / step_s / BF16_FLOPS,
+               peak_memory_gib=peak,
+               device_ms_per_step=dev.pop("device_ms"), **dev,
+               replays=dict(eng.replays), captures=eng.captures,
+               launches=launches, launches_per_step=want)
+    if examples is not None:
+        res["examples_per_s"] = examples / step_s
+    res["busy_share"] = (None if res["device_ms_per_step"] is None
+                         else res["device_ms_per_step"] / res["ms_per_step"])
+    res["host_wall_over_device"] = (
+        None if res["device_ms_per_step"] is None
+        else res["ms_per_step"] / res["device_ms_per_step"])
+    if res["graphs"]:
+        check(eng.captures >= 1 and eng.replays["train"] >= steps - 1,
+              f"{label}: {eng.replays['train']} replays, {eng.captures} "
+              f"captures over {steps} steps: the graphs did not run")
+    else:
+        check(eng.captures == 0, f"{label}: the eager twin captured")
+    log(f"{label}: " + json.dumps(res))
+    return res
+
+
+def _twins(label, graphed, eager):
+    """A graphed cell against its eager twin: the same launches every
+    step; the losses of the same steps (the same weights and batch)
+    compared bit for bit (reported). Returns both and the ratios."""
+    check(graphed["launches"] == eager["launches"],
+          f"{label}: launches with graphs {graphed['launches']} != eager "
+          f"{eager['launches']}")
+    n = min(len(graphed["losses"]), len(eager["losses"]))
+    out = dict(graphs=graphed, eager=eager,
+               losses_bitwise_equal=graphed["losses"][:n]
+               == eager["losses"][:n],
+               ms_per_step_graphs_over_eager=graphed["ms_per_step"]
+               / eager["ms_per_step"],
+               peak_gib_graphs_minus_eager=graphed["peak_memory_gib"]
+               - eager["peak_memory_gib"])
+    log(f"{label}, graphs / eager: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("graphs", "eager")}))
+    return out
+
+
+def _free(torch):
+    gc.collect()                        # an engine holds a cycle
+    torch.cuda.empty_cache()
+
+
 def train(torch, ops):
+    """Phase 7: 8 Llama-3-8B-wide layers, the graphed engine and its
+    eager twin (``graphs = False``), each from the same seeded weights
+    and fresh AdamW state."""
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama3_8b_config)
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -3421,10 +3577,6 @@ def train(torch, ops):
     cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=0)      # on the card, seeded
-    opt = AdamW(learning_rate=3e-4, parameters=model.named_parameters(),
-                weight_decay=0.01, multi_precision=True,
-                grad_clip=ClipGradByGlobalNorm(1.0))
-    eng = ParallelEngine(model, optimizer=opt)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     n_tensors = len(list(model.parameters()))
@@ -3440,66 +3592,41 @@ def train(torch, ops):
     want = {"flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
             "flash_bwd_dkv": TRAIN_LAYERS, "rms_norm": 2 * TRAIN_LAYERS + 1,
             "fused_adamw": n_tensors}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, walls, launches = [], [], dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
-    for i in range(TRAIN_STEPS):
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        losses.append(eng.train_batch(ids, labels).item())
-        walls.append(time.perf_counter() - t0)
-        got = ops.launch_counts()
-        for name, n in want.items():
-            check(got[name] == n, f"train step {i}: {name} launched "
-                                  f"{got[name]} times, want {n}")
-        for name in launches:
-            launches[name] += got[name]
-    peak = torch.cuda.max_memory_allocated()
-    check(all(map(lambda x: x == x and abs(x) < 1e4, losses)),
-          f"train: non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"train: the loss did not fall over "
-                                  f"{TRAIN_STEPS} steps: {losses}")
-    timed = sorted(walls[TRAIN_WARMUP:])
-    step_s = timed[len(timed) // 2]
     tokens = TRAIN_B * TRAIN_S
     embed = model.model.embed_tokens.weight.numel()
     n_nonembed = n_params - embed
     H, D = cfg.num_attention_heads, cfg.head_dim
     attn_flops = 6 * TRAIN_LAYERS * H * D * TRAIN_S * tokens
     flops = 6 * n_nonembed * tokens + attn_flops
-    prof_steps = 2
-    busy, prof_wall, classes, names = _device_busy(
-        torch, lambda: eng.train_batch(ids, labels).item(), prof_steps)
-    busy_step = None if busy is None else busy / prof_steps
+    cells = {}
+    for mode in ("graphs", "eager"):
+        model.reset_parameters(0)
+        opt = AdamW(learning_rate=3e-4, parameters=model.named_parameters(),
+                    weight_decay=0.01, multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        eng = ParallelEngine(model, optimizer=opt)
+        eng.graphs = mode == "graphs"
+        c = cells[mode] = _train_cell(
+            torch, ops, eng, (ids, labels), steps=TRAIN_STEPS,
+            warmup=TRAIN_WARMUP, want=want,
+            label=f"train llama3-8b (8 layers, {mode})", flops=flops,
+            tokens=tokens)
+        check(c["losses"][-1] < c["losses"][0], f"train ({mode}): the "
+              f"loss did not fall over {TRAIN_STEPS} steps: {c['losses']}")
+        del eng, opt
+        _free(torch)
     res = dict(layers=TRAIN_LAYERS, batch=TRAIN_B, seq=TRAIN_S,
                params=n_params, params_nonembed=n_nonembed,
-               losses=losses, step_walls_s=walls,
-               ms_per_step=step_s * 1e3, tokens_per_s=tokens / step_s,
-               mfu=flops / step_s / BF16_FLOPS,
                mfu_formula="(6 * N_nonembed * T + 6 * L * H * D * S * T) / "
                            "step_s / 989e12, N_nonembed = params - embedding "
                            "table, T = B * S tokens, causal attention "
                            "forward + backward",
-               flops_per_step=flops, peak_memory_gib=peak / 2 ** 30,
-               device_busy_ms_per_step=(None if busy is None
-                                        else busy_step * 1e3),
-               # device-busy time per step over the unprofiled step time,
-               # and over the profiled steps' own wall (profiler overhead
-               # included)
-               busy_share=(None if busy is None else busy_step / step_s),
-               busy_share_profiled=(None if busy is None
-                                    else busy / prof_wall),
-               device_ms_per_step_by_class={
-                   c: t / prof_steps * 1e3 for c, t in sorted(
-                       classes.items(), key=lambda kv: -kv[1])},
-               top_kernels_ms_per_step={
-                   n[:80]: t / prof_steps * 1e3 for n, t in sorted(
-                       names.items(), key=lambda kv: -kv[1])[:12]},
-               launches=launches, launches_per_step=want)
-    log("train llama3-8b (8 layers): " + json.dumps(res))
-    del eng, opt, model
-    gc.collect()
-    torch.cuda.empty_cache()
+               flops_per_step=flops,
+               **_twins("train llama3-8b (8 layers)", cells["graphs"],
+                        cells["eager"]),
+               launches=cells["graphs"]["launches"])
+    del model
+    _free(torch)
     return res
 
 
@@ -3864,13 +3991,14 @@ def train_long(torch, ops):
                for S in (LONG_S, LONG_REMAT_S)}
     launches = dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
 
-    def cell(S, steps, warmup, remat, policy, profile):
+    def cell(S, steps, warmup, remat, policy, graphs=True, timed=True):
         model.reset_parameters(0)
         opt._accumulators.clear()
-        gc.collect()
+        _free(torch)
         eng = ParallelEngine(model, optimizer=opt, remat=remat,
                              remat_policy=policy)
-        ids, labels = batches[S]
+        eng.graphs = graphs
+        batch = batches[S]
         # per step: the streaming kernels and never the loop ones; under
         # remat the forward kernel runs again in each layer's recompute
         # (no policy can save what a ctypes kernel makes, as no JAX policy
@@ -3881,52 +4009,35 @@ def train_long(torch, ops):
                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                 "rms_norm": 4 * L + 1 if remat else 2 * L + 1,
                 "fused_adamw": n_tensors}
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, walls = [], []
-        for i in range(steps):
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            losses.append(eng.train_batch(ids, labels).item())
-            walls.append(time.perf_counter() - t0)
-            got = ops.launch_counts()
-            for name, n in want.items():
-                check(got[name] == n, f"train long S={S} remat={remat} "
-                                      f"{policy}: step {i} launched {name} "
-                                      f"{got[name]} times, want {n}")
-            for name in launches:
-                launches[name] += got[name]
-        peak = torch.cuda.max_memory_allocated()
-        check(all(x == x and abs(x) < 1e4 for x in losses),
-              f"train long S={S}: non-finite loss {losses}")
-        timed = sorted(walls[warmup:])
-        step_s = timed[len(timed) // 2]
         flops = 6 * n_nonembed * S + 6 * L * H * D * S * S
-        res = dict(seq=S, batch=1, layers=L, remat=remat,
-                   remat_policy=policy if remat else None, losses=losses,
-                   step_walls_s=walls, ms_per_step=step_s * 1e3,
-                   tokens_per_s=S / step_s, mfu=flops / step_s / BF16_FLOPS,
-                   compute_bound_ms=flops / BF16_FLOPS * 1e3,
-                   peak_memory_gib=peak / 2 ** 30, launches_per_step=want)
-        if profile:
-            busy, wall, classes, names = _device_busy(
-                torch, lambda: eng.train_batch(ids, labels).item(), 1)
-            # only the streaming entry points ran (checked above): the
-            # shared kernel bodies' time is theirs
+        label = (f"train long S={S} remat={policy if remat else None} "
+                 f"({'graphs' if graphs else 'eager'})")
+        if timed:
+            # one profiled step, two replays back to back for the events
+            res = _train_cell(torch, ops, eng, batch, steps=steps,
+                              warmup=warmup, want=want, label=label,
+                              flops=flops, tokens=S, prof_steps=1,
+                              passes=2, repeats=1)
+            # only the streaming entry points ran (checked): the shared
+            # kernel bodies' time is theirs
             rename = dict(zip(LOOP_FLASH, STREAM_FLASH))
-            res.update(
-                device_busy_ms_per_step=None if busy is None else busy * 1e3,
-                busy_share=None if busy is None else busy / step_s,
-                device_ms_per_step_by_class={
-                    rename.get(c, c): t * 1e3 for c, t in sorted(
-                        classes.items(), key=lambda kv: -kv[1])},
-                top_kernels_ms_per_step={
-                    n[:80]: t * 1e3 for n, t in sorted(
-                        names.items(), key=lambda kv: -kv[1])[:10]})
+            res["device_ms_by_class"] = {
+                rename.get(c, c): t
+                for c, t in res["device_ms_by_class"].items()}
+        else:
+            losses, walls, _, peak = _timed_steps(torch, ops, eng, batch,
+                                                  steps, want, label)
+            res = dict(losses=losses, step_walls_s=walls,
+                       ms_per_step=_median(walls[warmup:]) * 1e3,
+                       peak_memory_gib=peak, launches_per_step=want)
+        res.update(seq=S, batch=1, layers=L, remat=remat,
+                   remat_policy=policy if remat else None,
+                   compute_bound_ms=flops / BF16_FLOPS * 1e3)
+        if graphs and timed:        # the main path's counted steps
+            for name in launches:
+                launches[name] += res["launches"][name]
         del eng
-        gc.collect()
+        _free(torch)
         return res
 
     mfu_formula = ("(6 * N_nonembed * S + 6 * L * H * D * S * S) / step_s / "
@@ -3934,25 +4045,31 @@ def train_long(torch, ops):
                    "are not counted), causal attention forward + backward")
     res = dict(params=n_params, params_nonembed=n_nonembed,
                mfu_formula=mfu_formula)
-    res["no_remat"] = cell(LONG_S, LONG_STEPS, LONG_WARMUP, False, None,
-                           True)
-    log(f"train long S={LONG_S} no remat: " + json.dumps(res["no_remat"]))
-    res["remat"] = cell(LONG_REMAT_S, REMAT_STEPS, REMAT_WARMUP, True,
-                        "nothing", True)
-    log(f"train long S={LONG_REMAT_S} remat nothing: "
-        + json.dumps(res["remat"]))
-    for key in ("no_remat", "remat"):
-        ls = res[key]["losses"]
+    for key, S, steps, warmup, remat, policy in (
+            ("no_remat", LONG_S, LONG_STEPS, LONG_WARMUP, False, None),
+            ("remat", LONG_REMAT_S, REMAT_STEPS, REMAT_WARMUP, True,
+             "nothing")):
+        graphed = cell(S, steps, warmup, remat, policy)
+        res[key] = graphed
+        res[key + "_eager"] = cell(S, steps, warmup, remat, policy,
+                                   graphs=False)
+        res[key + "_twins"] = {k: v for k, v in _twins(
+            f"train long {key}", graphed, res[key + "_eager"]).items()
+            if k not in ("graphs", "eager")}
+        ls = graphed["losses"]
         check(ls[-1] < ls[0], f"train long {key}: the loss did not fall: "
                               f"{ls}")
-    res["policies"] = {p: cell(LONG_S, 1, 0, True, p, False)
+    # (c) one step a policy: a graphed engine's first step is its warm-up,
+    # run eagerly
+    res["policies"] = {p: cell(LONG_S, 1, 0, True, p, timed=False)
                        for p in LONG_POLICIES}
     first = res["no_remat"]["losses"][0]
     for p, c in res["policies"].items():
         check(c["losses"][0] == first, f"train long: the first loss under "
               f"{p} {c['losses'][0]} differs from no remat's {first}")
     peaks = {p: c["peak_memory_gib"] for p, c in res["policies"].items()}
-    peaks["no_remat"] = res["no_remat"]["peak_memory_gib"]
+    # (c)'s steps run eagerly: against (a)'s eager twin
+    peaks["no_remat"] = res["no_remat_eager"]["peak_memory_gib"]
     log(f"train long S={LONG_S} per policy: " + json.dumps(
         {p: dict(ms_per_step=c["ms_per_step"],
                  peak_memory_gib=c["peak_memory_gib"], losses=c["losses"])
@@ -4359,8 +4476,10 @@ def train_ernie(torch, ops):
     weights as phase 7: (a) the recipe, B = 32, S = 128, dropout 0.1 / 0.1
     (attention takes the SDPA reference: its dropout rate keeps it off the
     flash path, as in the JAX package); (b) S = 512 with attention dropout
-    0 (the flash kernels at head dim 64); (c) the eval forward of each
-    model at its shape. Every step's launches are read and checked."""
+    0 (the flash kernels at head dim 64); (c) the eval forward
+    (``eval_batch``) of each model at its shape. Each cell on the graphed
+    engine and on its eager twin, a model of the same seed (weights and
+    dropout masks); every step's launches are read and checked."""
     from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ParallelEngine
@@ -4371,129 +4490,105 @@ def train_ernie(torch, ops):
     for cell, S, attn_drop in (("a", ERNIE_S, 0.1),
                                ("b", ERNIE_LONG_S, 0.0)):
         cfg = _ernie_config(attention_probs_dropout_prob=attn_drop)
-        t0 = time.perf_counter()
-        model = ErnieForSequenceClassification(cfg, num_classes=2, seed=0)
-        model.bfloat16()
-        opt = AdamW(learning_rate=5e-5, parameters=model.named_parameters(),
-                    multi_precision=True)
-        eng = ParallelEngine(model, optimizer=opt, loss_fn=model.loss_fn)
-        torch.cuda.synchronize()
-        n_params = sum(p.numel() for p in model.parameters())
-        n_tensors = len(list(model.parameters()))
-        emb = model.ernie.embeddings
-        n_nonembed = n_params - sum(
-            t.weight.numel() for t in (emb.word_embeddings,
-                                       emb.position_embeddings,
-                                       emb.token_type_embeddings))
-        log(f"ernie model ({cell}): {n_params} params bf16 ({n_tensors} "
-            f"tensors, {n_nonembed} outside the embedding tables) + AdamW "
-            f"fp32 state, made on the card in "
-            f"{time.perf_counter() - t0:.1f} s")
         ids, labels = _ernie_batch(torch, gen, cfg.vocab_size, S)
         flash = 0 if attn_drop else ERNIE_LAYERS
-        want = {"layer_norm": ERNIE_LN, "flash_fwd": flash,
-                "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
-                "fused_adamw": n_tensors}
-        model.train()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, walls = [], []
-        for i in range(ERNIE_STEPS):
-            ops.reset_launch_counts()
+        cells, evals = {}, {}
+        for mode in ("graphs", "eager"):
             t0 = time.perf_counter()
-            losses.append(eng.train_batch(ids, labels).item())
-            walls.append(time.perf_counter() - t0)
-            got = ops.launch_counts()
-            for name, n in want.items():
-                check(got[name] == n, f"ernie ({cell}) step {i}: {name} "
-                                      f"launched {got[name]} times, want {n}")
-            others = {k: n for k, n in got.items() if n and k not in want}
-            check(not others, f"ernie ({cell}) step {i}: unexpected "
-                              f"launches {others}")
-            for name in launches:
-                launches[name] += got[name]
-        peak = torch.cuda.max_memory_allocated()
-        check(all(x == x and abs(x) < 1e4 for x in losses),
-              f"ernie ({cell}): non-finite loss {losses}")
-        # the first update lifts the loss (AdamW's first step moves every
-        # weight by ~lr at once); it must fall from there: the last four
-        # steps' mean below the first four's
-        check(sum(losses[-4:]) < sum(losses[:4]),
-              f"ernie ({cell}): the loss did not fall over {ERNIE_STEPS} "
-              f"steps: {losses}")
-        step_s = _median(walls[ERNIE_WARMUP:])
-        flops = _ernie_flops(n_nonembed, S)
-        busy, prof_wall, classes, names = _device_busy(
-            torch, lambda: eng.train_batch(ids, labels).item(), 2)
-        tokens = ERNIE_B * S
-        res = dict(cell=cell, batch=ERNIE_B, seq=S, layers=ERNIE_LAYERS,
-                   hidden_dropout=cfg.hidden_dropout_prob,
-                   attention_dropout=attn_drop, params=n_params,
-                   params_nonembed=n_nonembed, losses=losses,
-                   step_walls_s=walls, ms_per_step=step_s * 1e3,
-                   tokens_per_s=tokens / step_s,
-                   examples_per_s=ERNIE_B / step_s,
-                   mfu=flops / step_s / BF16_FLOPS,
-                   mfu_formula="(6 * N_nonembed * T + 12 * L * H * D * S * "
-                               "T) / step_s / 989e12, T = B * S, "
-                               "non-causal attention",
-                   compute_bound_ms=flops / BF16_FLOPS * 1e3,
-                   flops_per_step=flops, peak_memory_gib=peak / 2 ** 30,
-                   device_busy_ms_per_step=(None if busy is None
-                                            else busy / 2 * 1e3),
-                   busy_share=(None if busy is None
-                               else busy / 2 / step_s),
-                   busy_share_profiled=(None if busy is None
-                                        else busy / prof_wall),
-                   device_ms_per_step_by_class={
-                       c: t / 2 * 1e3 for c, t in sorted(
-                           classes.items(), key=lambda kv: -kv[1])},
-                   top_kernels_ms_per_step={
-                       n[:80]: t / 2 * 1e3 for n, t in sorted(
-                           names.items(), key=lambda kv: -kv[1])[:12]},
-                   launches_per_step=want)
-        log(f"train ernie ({cell}) B={ERNIE_B} S={S}: " + json.dumps(res))
-        results[cell] = res
-
-        # (c) the eval forward at this cell's shape: no dropout, so
-        # attention takes the flash kernels at S = 128 too
-        model.eval()
-        ev_want = {"layer_norm": ERNIE_LN, "flash_fwd": ERNIE_LAYERS}
-        walls = []
-        for i in range(ERNIE_STEPS):
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                logits = model(ids)
+            model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                                   seed=0)
+            model.bfloat16()
+            opt = AdamW(learning_rate=5e-5,
+                        parameters=model.named_parameters(),
+                        multi_precision=True)
+            eng = ParallelEngine(model, optimizer=opt, loss_fn=model.loss_fn)
+            eng.graphs = mode == "graphs"
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            got = ops.launch_counts()
-            check({k: n for k, n in got.items() if n} == ev_want,
-                  f"ernie eval S={S} pass {i}: launches {got}, want "
-                  f"{ev_want}")
-            for name in launches:
-                launches[name] += got[name]
-        check(tuple(logits.shape) == (ERNIE_B, 2)
-              and bool(torch.isfinite(logits.float()).all()),
-              f"ernie eval S={S}: logits {tuple(logits.shape)} not finite")
-        ev_s = _median(walls[ERNIE_WARMUP:])
-        with torch.no_grad():
-            busy, prof_wall, classes, _ = _device_busy(
-                torch, lambda: model(ids).float().sum().item(), 2)
-        ev = dict(cell="c", seq=S, batch=ERNIE_B, ms_per_forward=ev_s * 1e3,
-                  tokens_per_s=ERNIE_B * S / ev_s,
-                  examples_per_s=ERNIE_B / ev_s,
-                  mfu=flops / 3 / ev_s / BF16_FLOPS,
-                  busy_share=(None if busy is None else busy / 2 / ev_s),
-                  device_ms_per_forward_by_class={
-                      c: t / 2 * 1e3 for c, t in sorted(
-                          classes.items(), key=lambda kv: -kv[1])},
-                  launches_per_forward=ev_want)
-        log(f"eval ernie S={S}: " + json.dumps(ev))
-        results[f"c{S}"] = ev
-        del eng, opt, model, ids, labels, logits
-        gc.collect()
-        torch.cuda.empty_cache()
+            n_params = sum(p.numel() for p in model.parameters())
+            n_tensors = len(list(model.parameters()))
+            emb = model.ernie.embeddings
+            n_nonembed = n_params - sum(
+                t.weight.numel() for t in (emb.word_embeddings,
+                                           emb.position_embeddings,
+                                           emb.token_type_embeddings))
+            log(f"ernie model ({cell}, {mode}): {n_params} params bf16 "
+                f"({n_tensors} tensors, {n_nonembed} outside the embedding "
+                f"tables) + AdamW fp32 state, made on the card in "
+                f"{time.perf_counter() - t0:.1f} s")
+            want = {"layer_norm": ERNIE_LN, "flash_fwd": flash,
+                    "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
+                    "fused_adamw": n_tensors}
+            model.train()
+            flops = _ernie_flops(n_nonembed, S)
+            c = cells[mode] = _train_cell(
+                torch, ops, eng, (ids, labels), steps=ERNIE_STEPS,
+                warmup=ERNIE_WARMUP, want=want,
+                label=f"train ernie ({cell}) B={ERNIE_B} S={S} ({mode})",
+                flops=flops, tokens=ERNIE_B * S, examples=ERNIE_B,
+                passes=5, repeats=3, exact=True)
+            c.update(cell=cell, batch=ERNIE_B, seq=S, layers=ERNIE_LAYERS,
+                     hidden_dropout=cfg.hidden_dropout_prob,
+                     attention_dropout=attn_drop, params=n_params,
+                     params_nonembed=n_nonembed,
+                     mfu_formula="(6 * N_nonembed * T + 12 * L * H * D * S "
+                                 "* T) / step_s / 989e12, T = B * S, "
+                                 "non-causal attention",
+                     compute_bound_ms=flops / BF16_FLOPS * 1e3,
+                     flops_per_step=flops)
+            # the first update lifts the loss (AdamW's first step moves
+            # every weight by ~lr at once); it must fall from there: the
+            # last four steps' mean below the first four's
+            ls = c["losses"]
+            check(sum(ls[-4:]) < sum(ls[:4]),
+                  f"ernie ({cell}, {mode}): the loss did not fall over "
+                  f"{ERNIE_STEPS} steps: {ls}")
+            if mode == "graphs":
+                for name in launches:
+                    launches[name] += c["launches"][name]
+
+            # (c) the eval forward at this cell's shape: no dropout, so
+            # attention takes the flash kernels at S = 128 too
+            model.eval()
+            ev_want = {"layer_norm": ERNIE_LN, "flash_fwd": ERNIE_LAYERS}
+            walls = []
+            for i in range(ERNIE_STEPS):
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                loss = eng.eval_batch(ids, labels).item()
+                walls.append(time.perf_counter() - t0)
+                got = ops.launch_counts()
+                check({k: n for k, n in got.items() if n} == ev_want,
+                      f"ernie eval S={S} ({mode}) pass {i}: launches {got}, "
+                      f"want {ev_want}")
+                if mode == "graphs":
+                    for name in launches:
+                        launches[name] += got[name]
+            check(loss == loss, f"ernie eval S={S}: loss {loss}")
+            ev_s = _median(walls[ERNIE_WARMUP:])
+            dev = _step_device(torch, eng,
+                               lambda: eng.eval_batch(ids, labels), 2, 5, 3)
+            ev = dict(cell="c", seq=S, batch=ERNIE_B, graphs=eng.graphs,
+                      ms_per_forward=ev_s * 1e3,
+                      tokens_per_s=ERNIE_B * S / ev_s,
+                      examples_per_s=ERNIE_B / ev_s,
+                      mfu=flops / 3 / ev_s / BF16_FLOPS,
+                      device_ms_per_forward=dev.pop("device_ms"), **dev,
+                      replays=dict(eng.replays), captures=eng.captures,
+                      launches_per_forward=ev_want, loss=loss)
+            ev["busy_share"] = (None if ev["device_ms_per_forward"] is None
+                                else ev["device_ms_per_forward"]
+                                / ev["ms_per_forward"])
+            if mode == "graphs":
+                check(eng.replays["eval"] >= ERNIE_STEPS - 1,
+                      f"ernie eval S={S}: {eng.replays['eval']} replays")
+            log(f"eval ernie S={S} ({mode}): " + json.dumps(ev))
+            evals[mode] = ev
+            del eng, opt, model
+            _free(torch)
+        results[cell] = _twins(f"train ernie ({cell})", cells["graphs"],
+                               cells["eager"])
+        results[f"c{S}"] = dict(graphs=evals["graphs"], eager=evals["eager"])
+        del ids, labels
     results["launches"] = launches
     return results
 
@@ -4622,6 +4717,208 @@ def ernie_end_to_end(torch, ops):
     return out
 
 
+# -------------------------------------------------------------- phase 27
+PARITY_STEPS = 4
+# phase 27's limit on the graphed ERNIE (a) step: its host wall (the call
+# to the loss read back) over its device time, the serving graphs' limit
+# (phase 24)
+TRAIN_GRAPH_WALL_RATIO = GRAPH_WALL_RATIO
+
+
+def _snapshot(eng):
+    """Device copies of every parameter and optimizer slot of ``eng``."""
+    out = {n: p.detach().clone() for n, p in eng.named}
+    for n, slots in eng.optimizer._accumulators.items():
+        for k, t in slots.items():
+            out[f"{n}.{k}"] = t.detach().clone()
+    return out
+
+
+def _parity_cell(torch, ops, label, make, batch, timed=False, check_fn=None):
+    """``PARITY_STEPS`` steps of an eager engine and of a graphed one, each
+    from ``make()`` (the same seeded weights, fresh optimizer state): the
+    losses, the parameters and every optimizer slot must be equal bit for
+    bit, and the launches too; else the largest difference is named. With
+    ``timed``, the graphed step's host wall (median of 8 steps read back)
+    over its device time (events around 5 replays) is measured."""
+    out, snaps = {}, {}
+    for mode in ("eager", "graphs"):
+        eng = make()
+        eng.graphs = mode == "graphs"
+        ops.reset_launch_counts()
+        losses = [eng.train_batch(*batch).item()
+                  for _ in range(PARITY_STEPS)]
+        out[mode] = dict(losses=losses, launches={
+            k: n for k, n in ops.launch_counts().items() if n},
+            replays=dict(eng.replays), captures=eng.captures)
+        if check_fn is not None:
+            out[mode].update(check_fn(eng))
+        snaps[mode] = _snapshot(eng)
+        if mode == "graphs":
+            check(eng.captures == 1 and eng.replays["train"]
+                  == PARITY_STEPS - 1, f"phase 27 {label}: "
+                  f"{eng.replays['train']} replays, {eng.captures} captures")
+            if timed:
+                walls = []
+                for _ in range(8):
+                    t0 = time.perf_counter()
+                    eng.train_batch(*batch).item()
+                    walls.append(time.perf_counter() - t0)
+                dev = _replayed_ms(torch, lambda: eng.train_batch(*batch),
+                                   5, 3)
+                out["graphed_wall_ms"] = _median(walls) * 1e3
+                out["graphed_device_ms"] = dev
+                out["wall_over_device"] = out["graphed_wall_ms"] / dev
+        del eng
+        _free(torch)
+    diffs = {}
+    for k, a in snaps["graphs"].items():
+        b = snaps["eager"][k]
+        if not torch.equal(a, b):
+            diffs[k] = (a.float() - b.float()).abs().max().item()
+    worst = max(diffs, key=diffs.get) if diffs else None
+    out.update(losses_bitwise_equal=out["graphs"]["losses"]
+               == out["eager"]["losses"],
+               tensors=len(snaps["eager"]), tensors_differing=len(diffs),
+               max_abs_diff=diffs.get(worst, 0.0), worst_tensor=worst)
+    del snaps
+    _free(torch)
+    log(f"phase 27 {label}: " + json.dumps(out))
+    check(out["graphs"]["launches"] == out["eager"]["launches"],
+          f"phase 27 {label}: launches differ, graphs "
+          f"{out['graphs']['launches']} eager {out['eager']['launches']}")
+    check(out["losses_bitwise_equal"] and not diffs,
+          f"phase 27 {label}: graphed and eager steps differ: losses "
+          f"{out['graphs']['losses']} vs {out['eager']['losses']}, "
+          f"{len(diffs)} tensors, largest |diff| {out['max_abs_diff']:.3g} "
+          f"in {worst}")
+    return out
+
+
+def _dropout_model(torch):
+    """A model of one checkpointed layer that draws from the default CUDA
+    generator (a dropout mask on a product): phase 27's check that a
+    region's recompute draws its forward's mask, eagerly and in a graph.
+    Each run of the layer keeps a copy of its mask in ``seen`` (a graph's
+    copies are refilled by every replay), taken before the op that saves
+    it for the backward: the recompute stops early after that op."""
+    from paddle_tpu_torch.distributed.fleet.recompute import layer_checkpoint
+
+    class DropoutModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator(device="cuda").manual_seed(27)
+            self.w = torch.nn.Parameter((0.03 * torch.randn(
+                1024, 1024, generator=g, device="cuda")).bfloat16())
+            self.seen = []
+
+        def layer(self, x):
+            h = x @ self.w
+            keep = torch.rand(h.shape, device=h.device) >= 0.1
+            self.seen.append(keep.clone())
+            return h * keep / 0.9
+
+        def forward(self, x, y):
+            run = layer_checkpoint()
+            h = self.layer(x) if run is None else run(self.layer, x)
+            return (h.float() - y.float()).square().mean()
+
+    return DropoutModel()
+
+
+def train_graph_parity(torch, ops):
+    """Phase 27: the graphed engine against the eager one (``graphs =
+    False``), 4 steps each from the same weights and seeds, bit for bit
+    (:func:`_parity_cell`): (a) Llama-3-8B width, 2 layers, B = 2 x S =
+    2048, ``ClipGradByGlobalNorm``, ``grad_accum=2``, ``LinearWarmup`` ->
+    ``CosineAnnealingDecay``; (b) ERNIE (a), dropout 0.1 / 0.1, with the
+    graphed step's host wall over its device time held to
+    TRAIN_GRAPH_WALL_RATIO; (c) Llama as (a) under ``remat=True,
+    remat_policy="dots"``; (d) a checkpointed dropout layer under
+    ``remat_policy="nothing"``: each recompute draws its forward's mask."""
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    res = {}
+    cfg = llama3_8b_config(num_hidden_layers=E2E_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                        generator=gen, device="cuda")
+    llama_batch = (tok[:, :-1].contiguous(), tok[:, 1:].contiguous())
+
+    def llama(**kw):
+        def make():
+            m = LlamaForCausalLM(cfg, seed=3)
+            sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=10),
+                                    warmup_steps=2, start_lr=3e-5,
+                                    end_lr=3e-4)
+            opt = AdamW(learning_rate=sched,
+                        parameters=m.named_parameters(), weight_decay=0.01,
+                        multi_precision=True,
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+            return ParallelEngine(m, optimizer=opt, **kw)
+        return make
+
+    res["llama_clip_accum2_schedule"] = _parity_cell(
+        torch, ops, "(a) llama clip grad_accum=2 schedule",
+        llama(grad_accum=2), llama_batch)
+
+    ecfg = _ernie_config(attention_probs_dropout_prob=0.1)
+    ernie_batch = _ernie_batch(torch, gen, ecfg.vocab_size, ERNIE_S)
+
+    def ernie():
+        m = ErnieForSequenceClassification(ecfg, num_classes=2, seed=0)
+        m.bfloat16()
+        opt = AdamW(learning_rate=5e-5, parameters=m.named_parameters(),
+                    multi_precision=True)
+        return ParallelEngine(m, optimizer=opt, loss_fn=m.loss_fn)
+
+    e = res["ernie_a_dropout"] = _parity_cell(
+        torch, ops, "(b) ernie (a) dropout 0.1 / 0.1", ernie, ernie_batch,
+        timed=True)
+    check(e["wall_over_device"] <= TRAIN_GRAPH_WALL_RATIO,
+          f"phase 27: the graphed ERNIE (a) step's host wall "
+          f"{e['graphed_wall_ms']:.3f} ms is {e['wall_over_device']:.3f} x "
+          f"its device time (limit {TRAIN_GRAPH_WALL_RATIO})")
+
+    res["llama_remat_dots"] = _parity_cell(
+        torch, ops, "(c) llama remat dots", llama(remat=True,
+                                                  remat_policy="dots"),
+        llama_batch)
+
+    x = torch.randn(256, 1024, generator=gen, device="cuda").bfloat16()
+    y = torch.randn(256, 1024, generator=gen, device="cuda").bfloat16()
+
+    def dropout_model():
+        m = _dropout_model(torch)
+        return ParallelEngine(m, optimizer=AdamW(
+            learning_rate=1e-3, parameters=m.named_parameters(),
+            multi_precision=True), remat=True, remat_policy="nothing")
+
+    def masks_equal(eng):
+        # the last run's forward and recompute copies (a graph's: the
+        # capture's two, refilled by the last replay)
+        fwd, rec = eng.model.seen[-2:]
+        return dict(recompute_equals_forward=bool(torch.equal(fwd, rec)),
+                    dropped_share=(~fwd).float().mean().item())
+
+    d = res["dropout_remat"] = _parity_cell(
+        torch, ops, "(d) checkpointed dropout, remat nothing",
+        dropout_model, (x, y), check_fn=masks_equal)
+    for mode in ("eager", "graphs"):
+        check(d[mode]["recompute_equals_forward"], f"phase 27 (d) {mode}: "
+              f"the recompute drew another dropout mask than the forward")
+        check(0.05 < d[mode]["dropped_share"] < 0.15,
+              f"phase 27 (d) {mode}: dropped share "
+              f"{d[mode]['dropped_share']:.3f}, want ~0.1")
+    log("phase 27, graphed against eager training: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -4677,6 +4974,17 @@ def main() -> int:
         del srv
         log_spec(serve_spec(torch, ops, model, serve_res["tokens"]))
         log(f"partial run (phases 3, 4, 26 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--only", "train_graph"]:
+        # a diagnostic run: the build, phase 6's AdamW kernel, the
+        # graphed training cells of phases 7 and 23 and phase 27 alone,
+        # no final line
+        kernel_adamw(torch, fw, ops)
+        train_graph_parity(torch, ops)
+        train(torch, ops)
+        train_ernie(torch, ops)
+        log(f"partial run (phases 6 AdamW, 7, 23, 27 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--only", "serve"]:
@@ -4817,6 +5125,8 @@ def main() -> int:
     fwd64_cases, bwd64_cases = kernel_flash_d64(torch, fa, fac)
     ernie_res = train_ernie(torch, ops)
     ernie_e2e = ernie_end_to_end(torch, ops)
+    # phase 27: the graphed training step against the eager one
+    parity = train_graph_parity(torch, ops)
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -4952,6 +5262,7 @@ def main() -> int:
         log(f"ernie ({key}): " + json.dumps(ernie_res[key]))
     log("ernie end_to_end kernels vs plain vs fp32: "
         + json.dumps(ernie_e2e))
+    log("phase 27, graphed against eager training: " + json.dumps(parity))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -33,6 +33,18 @@ Pallas call does under every JAX policy (it is neither a dot nor named).
 Nothing a kernel fills in place is ever saved: the policies save only
 the outputs of ``aten.mm`` / ``aten.addmm`` and of the anchor, never an
 ``aten.empty``.
+
+RNG preservation (``preserve_rng_state``): PyTorch's checkpoint stashes
+the default generators' states with ``get_rng_state``, which a CUDA graph
+capture refuses. Inside a :class:`RegionRng` scope, which the engine opens
+around every train step on a CUDA device (eager or captured), a
+checkpointed region instead draws from graph-safe generator states: the
+k-th region of a step runs its forward on one clone of the default CUDA
+generator and its recompute on a second clone made at the same point
+(``graphsafe_set_state`` swaps them in), so the two draw the same numbers;
+both are registered with each graph the engine captures, so that every
+replay advances them as an eager step does. Outside such a scope (on the
+CPU) PyTorch's own stash is kept.
 """
 from __future__ import annotations
 
@@ -55,6 +67,92 @@ _SAVED_NAMES = {"save_attn": ("attn_out",),
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
+class RegionRng:
+    """The graph-safe generator states of the checkpointed regions of a
+    train step on one CUDA device: a pair of clones of the default
+    generator a region, in the order the step runs its regions, made at
+    their first use (an eager step: a capture follows a warm-up of the
+    same step) and kept for every later step."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pairs = []
+        self.next = 0
+
+    def _default(self):
+        idx = self.device.index
+        return torch.cuda.default_generators[
+            torch.cuda.current_device() if idx is None else idx]
+
+    def take(self):
+        """The (forward, recompute) generators of the step's next
+        region."""
+        k = self.next
+        self.next += 1
+        if k == len(self.pairs):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a checkpointed region ran in a CUDA "
+                                   "graph capture but not in its warm-up")
+            # a seed of its own a region: regions draw independent streams
+            seed = (self._default().initial_seed() * 1000003 + k + 1) \
+                % 2 ** 63
+            self.pairs.append(tuple(
+                torch.Generator(device=self.device).manual_seed(seed)
+                for _ in range(2)))
+        return self.pairs[k]
+
+    def generators(self):
+        """Every clone, for ``CUDAGraph.register_generator_state``."""
+        return [g for pair in self.pairs for g in pair]
+
+    @contextlib.contextmanager
+    def drawing_from(self, gen):
+        """Within: the default CUDA generator draws from ``gen``'s
+        state."""
+        default = self._default()
+        main = default.graphsafe_get_state()
+        default.graphsafe_set_state(gen)
+        try:
+            yield
+        finally:
+            default.graphsafe_set_state(main)
+
+
+_REGION_RNG = contextvars.ContextVar("paddle_tpu_torch_region_rng",
+                                     default=None)
+
+
+@contextlib.contextmanager
+def region_rng(store: RegionRng):
+    """Within: checkpointed regions preserve their draws through
+    ``store``'s graph-safe states (numbered from 0 for this step)."""
+    store.next = 0
+    token = _REGION_RNG.set(store)
+    try:
+        yield store
+    finally:
+        _REGION_RNG.reset(token)
+
+
+def _checkpoint(function, *args, preserve_rng_state=True, **kw):
+    """Non-reentrant ``checkpoint`` of ``function(*args)`` whose
+    recompute draws the random numbers its forward drew: PyTorch's stash,
+    or inside a :func:`region_rng` scope the region's graph-safe pair."""
+    store = _REGION_RNG.get()
+    if store is None or not preserve_rng_state:
+        return checkpoint(function, *args, use_reentrant=False,
+                          preserve_rng_state=preserve_rng_state, **kw)
+    runs = iter(store.take())
+
+    def run(*a):
+        # the forward on the first clone, the recompute on the second
+        with store.drawing_from(next(runs)):
+            return function(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def recompute(function, *args, **kwargs):
     """``function(*args)`` with its activations recomputed in the backward
     instead of kept: only ``args`` are saved. Keyword arguments:
@@ -66,8 +164,7 @@ def recompute(function, *args, **kwargs):
     kwargs.pop("use_reentrant", None)
     if kwargs:
         raise ValueError(f"unsupported kwargs {list(kwargs)}")
-    return checkpoint(function, *args, use_reentrant=False,
-                      preserve_rng_state=bool(preserve))
+    return _checkpoint(function, *args, preserve_rng_state=bool(preserve))
 
 
 @torch.library.custom_op("paddle_tpu_torch::checkpoint_name",
@@ -199,8 +296,7 @@ def layer_checkpoint():
 
     def run(layer, *args):
         scope.layers += 1
-        return checkpoint(functools.partial(_run_anchored, scope.names,
-                                            layer), *args,
-                          use_reentrant=False, **kw)
+        return _checkpoint(functools.partial(_run_anchored, scope.names,
+                                             layer), *args, **kw)
 
     return run

@@ -1,0 +1,78 @@
+"""CUDA graph capture and replay, shared by the serving executor
+(``inference/executor.py``) and the train engine (``parallel/engine.py``):
+the port's counterpart of the JAX package's compiled programs.
+
+A program is a Python body over static tensors (inputs copied in before
+each run, outputs read after). :func:`warm_up` runs a body once eagerly on
+a side stream, which creates what a capture cannot (the libraries' handles
+and workspaces, a kernel library's first build, tensor maps cached on the
+host); :func:`capture` records a body into a ``torch.cuda.CUDAGraph``,
+registering the ``torch.Generator``s it draws from so that each replay
+advances them as an eager run would; :class:`Graph` replays it. A capture
+launches nothing, so the launches its wrappers count are taken back
+(``ops.captured_launches``) and each replay adds them again: N replays
+count what N eager runs would. A capture that fails raises: nothing here
+falls back to an eager run.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+
+import torch
+
+__all__ = ["Graph", "capture", "warm_up", "weights_key"]
+
+
+def warm_up(body, device):
+    """Run ``body`` eagerly on a side stream (ordered after the current
+    stream's work, and the current stream after it); returns its
+    output."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        out = body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return out
+
+
+def capture(body, generators=(), pool=None) -> "Graph":
+    """Capture ``body`` into a CUDA graph (in ``pool``, a
+    ``graph_pool_handle``, when given) that draws from ``generators``
+    (the default CUDA generator is registered by PyTorch itself)."""
+    from . import ops
+
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    with ops.captured_launches() as launches:
+        with torch.cuda.graph(graph, pool=pool):
+            out = body()
+    return Graph(graph, out, launches, tuple(generators))
+
+
+@dataclasses.dataclass
+class Graph:
+    """One captured program: the graph, its static output, the launches
+    one replay makes ({kernel: launches}) and the generators it draws
+    from."""
+
+    graph: object
+    out: object
+    launches: dict
+    generators: tuple
+
+    def replay(self):
+        """Replay the graph, count its launches; returns its outputs."""
+        from . import ops
+
+        self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        return self.out
+
+
+def weights_key(*tensors) -> tuple:
+    """Each tensor's address, dtype and shape: what a graph reads by
+    address. ``tensors``: iterables of tensors."""
+    return tuple((t.data_ptr(), t.dtype, tuple(t.shape))
+                 for t in itertools.chain(*tensors))

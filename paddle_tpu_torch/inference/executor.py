@@ -62,13 +62,12 @@ programs.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
-import itertools
 from typing import List, Optional, Tuple
 
 import torch
 
+from .. import graphs
 from ..models.generation import sample_token_rows
 
 __all__ = ["PagedExecutor", "capture_graph"]
@@ -428,7 +427,7 @@ class PagedExecutor:
                 body, inputs, generator, self.engine.device,
                 self._graph_pool)
             self.captures += 1
-        elif prog.generator is not generator:
+        elif prog.generators != (() if generator is None else (generator,)):
             raise ValueError("a sampled window's graph draws from the "
                              "generator it was captured with")
         return prog
@@ -442,55 +441,25 @@ def capture_graph(body, inputs, generator, device, pool=None):
     """Warm ``body`` up eagerly on a side stream over zeroed ``inputs`` (a
     dict of its static input tensors: a pool write lands in scratch block
     0; a generator's state is restored after), then capture it into a CUDA
-    graph (in ``pool``, a ``graph_pool_handle``, when given) that draws
-    from ``generator`` (None: none). The launches the capture counted are
-    taken back and added at each replay."""
+    graph (``graphs.capture``, in ``pool`` when given) that draws from
+    ``generator`` (None: none). The warm-up counts no launch; the capture's
+    are taken back and added at each replay."""
     from .. import ops
 
     for t in inputs.values():
         t.zero_()
     state = None if generator is None else generator.get_state()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side), ops.captured_launches():
-        body()
-    torch.cuda.current_stream(device).wait_stream(side)
+    with ops.captured_launches():
+        graphs.warm_up(body, device)
     if generator is not None:
         generator.set_state(state)
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    with ops.captured_launches() as launches:
-        with torch.cuda.graph(graph, pool=pool):
-            out = body()
-    return _Graph(graph, out, launches, generator)
-
-
-@dataclasses.dataclass
-class _Graph:
-    """One captured program: the graph, its static output, the launches
-    one replay makes ({kernel: launches}) and the generator it draws from
-    (None: greedy)."""
-
-    graph: object
-    out: object
-    launches: dict
-    generator: object
-
-    def replay(self):
-        """Replay the graph, count its launches; returns its outputs."""
-        from .. import ops
-
-        self.graph.replay()
-        ops.add_launch_counts(self.launches)
-        return self.out
+    return graphs.capture(body, () if generator is None else (generator,),
+                          pool)
 
 
 def _weights_key(model) -> tuple:
     """Each parameter's and buffer's address, dtype and shape."""
-    return tuple((t.data_ptr(), t.dtype, tuple(t.shape))
-                 for t in itertools.chain(model.parameters(),
-                                          model.buffers()))
+    return graphs.weights_key(model.parameters(), model.buffers())
 
 
 def _copy_in(buffers, values) -> None:

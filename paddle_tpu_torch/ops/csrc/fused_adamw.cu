@@ -7,12 +7,15 @@
 //   master = pf * (1 - lr * decay)
 //   m2 = b1 * m + (1 - b1) * g;  v2 = b2 * v + (1 - b2) * g * g
 //   new = master - lr * (m2 / bc1) / (sqrt(v2 / bc2) + eps)
-// with the bias corrections arriving as 1 / bc = 1 / (1 - beta^step),
-// computed on the host (as the TPU kernel's scalar block). p (bf16), m, v
-// (fp32) and the master (fp32) are written in place. Every product and sum
-// is rounded on its own (no fused multiply-add), in the order PyTorch's
-// eager ops evaluate the plain version, so the two differ only by the
-// bias-correction multiply against its division.
+// with lr and the bias corrections 1 / bc = 1 / (1 - beta^step) read from
+// a float array on the device, [lr, 1/bc1, 1/bc2] (the TPU kernel's scalar
+// block `sc_ref`), which the optimizer builds once a step in fp32 from the
+// device learning rate and step count: a CUDA graph replays the launch
+// with the same pointer while the values change. wd = 1 - lr * decay is
+// computed here from that lr. p (bf16), m, v (fp32) and the master (fp32)
+// are written in place. Every product and sum is rounded on its own (no
+// fused multiply-add), in the order PyTorch's eager ops evaluate the plain
+// version, which reads the same scalars and multiplies by them too.
 //
 // Bound: bytes. Per element it reads the master (4 B; without one, p, 2 B),
 // g (2 B bf16 or 4 B fp32), m and v (4 B each), and writes p, m, v and the
@@ -40,6 +43,18 @@ typedef __nv_bfloat16 bf16;
 struct Hyper {
   float lr, inv_bc1, inv_bc2, b1, omb1, b2, omb2, eps, wd;  // wd = 1 - lr*decay
 };
+
+struct Consts {  // the launch's host constants; lr and 1/bc come from `sc`
+  float b1, omb1, b2, omb2, eps, decay;
+};
+
+// every thread reads the three scalars (one 12-byte line, from L2)
+__device__ __forceinline__ Hyper hyper(const float* __restrict__ sc,
+                                       const Consts& c) {
+  const float lr = sc[0];
+  return Hyper{lr, sc[1], sc[2], c.b1, c.omb1, c.b2, c.omb2, c.eps,
+               __fsub_rn(1.0f, __fmul_rn(lr, c.decay))};
+}
 
 __device__ __forceinline__ void update(float pf, float gf, float& m, float& v,
                                        float& out, const Hyper& h) {
@@ -73,7 +88,9 @@ template <typename G, bool kMaster>
 __global__ void __launch_bounds__(256)
 adamw_kernel(bf16* __restrict__ p, const G* __restrict__ g,
              float* __restrict__ m, float* __restrict__ v,
-             float* __restrict__ master, int n, Hyper h) {
+             float* __restrict__ master, int n, const float* __restrict__ sc,
+             Consts c) {
+  const Hyper h = hyper(sc, c);
   const int n8 = n / 8;
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n8; i += stride) {
@@ -111,17 +128,17 @@ adamw_kernel(bf16* __restrict__ p, const G* __restrict__ g,
 
 template <typename G>
 void launch(void* p, const void* g, void* m, void* v, void* master, int n,
-            const Hyper& h, cudaStream_t s) {
+            const float* sc, const Consts& c, cudaStream_t s) {
   constexpr int kThreads = 256;
   const int blocks = max(1, min((n / 8 + kThreads - 1) / kThreads, 132 * 16));
   if (master) {
     adamw_kernel<G, true><<<blocks, kThreads, 0, s>>>(
         static_cast<bf16*>(p), static_cast<const G*>(g), static_cast<float*>(m),
-        static_cast<float*>(v), static_cast<float*>(master), n, h);
+        static_cast<float*>(v), static_cast<float*>(master), n, sc, c);
   } else {
     adamw_kernel<G, false><<<blocks, kThreads, 0, s>>>(
         static_cast<bf16*>(p), static_cast<const G*>(g), static_cast<float*>(m),
-        static_cast<float*>(v), nullptr, n, h);
+        static_cast<float*>(v), nullptr, n, sc, c);
   }
 }
 
@@ -129,16 +146,17 @@ void launch(void* p, const void* g, void* m, void* v, void* master, int n,
 
 // p: bfloat16; g: bfloat16 (g_fp32 = 0) or float32 (g_fp32 = 1); m, v,
 // master (NULL for none): float32; all n elements, contiguous, 16-byte
-// aligned, updated in place. Returns cudaGetLastError() after the launch.
+// aligned, updated in place; sc: float32 [lr, 1/(1-b1^step), 1/(1-b2^step)]
+// on the device. Returns cudaGetLastError() after the launch.
 extern "C" int pt_fused_adamw(void* p, const void* g, void* m, void* v,
-                              void* master, int n, int g_fp32, float lr,
-                              float inv_bc1, float inv_bc2, float b1,
-                              float omb1, float b2, float omb2, float eps,
-                              float wd, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const Hyper h{lr, inv_bc1, inv_bc2, b1, omb1, b2, omb2, eps, wd};
+                              void* master, int n, int g_fp32,
+                              const float* sc, float b1, float omb1, float b2,
+                              float omb2, float eps, float decay,
+                              void* stream) {
+  if (n <= 0 || sc == nullptr) return (int)cudaErrorInvalidValue;
+  const Consts c{b1, omb1, b2, omb2, eps, decay};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (g_fp32) launch<float>(p, g, m, v, master, n, h, s);
-  else launch<bf16>(p, g, m, v, master, n, h, s);
+  if (g_fp32) launch<float>(p, g, m, v, master, n, sc, c, s);
+  else launch<bf16>(p, g, m, v, master, n, sc, c, s);
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,19 @@
-"""Learning-rate schedulers — port of ``paddle_tpu/optimizer/lr.py`` (the
-``LRScheduler`` base, ``LinearWarmup`` and ``CosineAnnealingDecay``), with
-the JAX package's arithmetic: host-side Python floats, stepped once per
-``ParallelEngine.train_batch`` after the update."""
+"""Learning-rate schedulers — port of ``paddle_tpu/optimizer/lr.py``
+(the ``LRScheduler`` base and its 17 schedulers), with the JAX package's
+arithmetic: host-side Python floats, stepped once per
+``ParallelEngine.train_batch`` after the update. The learning rate reaches
+the step through the engine's device scalar, so a schedule changes the
+rate of a replayed CUDA graph without a new capture."""
 from __future__ import annotations
 
 import math
 
 
 class LRScheduler:
-    def __init__(self, learning_rate=0.1, last_epoch=-1):
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
+        self.verbose = verbose
         self.last_lr = self.base_lr
         self.step()
 
@@ -27,20 +30,97 @@ class LRScheduler:
     def get_lr(self):
         raise NotImplementedError
 
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, list))}
+
+    def set_state_dict(self, state_dict):
+        self.__dict__.update(state_dict)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch == 0:
+            return 0.0
+        return self.base_lr * (self.d_model ** -0.5) * min(
+            self.last_epoch ** -0.5,
+            self.last_epoch * self.warmup_steps ** -1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = boundaries
+        self.values = values
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        steps = self.decay_steps
+        if self.cycle:
+            div = math.ceil(t / steps) if t > 0 else 1
+            steps = steps * div
+        else:
+            t = min(t, steps)
+        return (self.base_lr - self.end_lr) * (
+            (1 - t / steps) ** self.power) + self.end_lr
+
 
 class LinearWarmup(LRScheduler):
     """Linear ramp from ``start_lr`` to ``end_lr`` over ``warmup_steps``,
     then ``learning_rate`` (a float, or a scheduler stepped from 0)."""
 
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
-                 last_epoch=-1):
+                 last_epoch=-1, verbose=False):
         sched = isinstance(learning_rate, LRScheduler)
         self.lr_sched = learning_rate if sched else None
         self.target_lr = None if sched else learning_rate
         self.warmup_steps = warmup_steps
         self.start_lr = start_lr
         self.end_lr = end_lr
-        super().__init__(start_lr, last_epoch)
+        super().__init__(start_lr, last_epoch, verbose)
 
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:
@@ -52,12 +132,228 @@ class LinearWarmup(LRScheduler):
         return self.target_lr
 
 
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** self.last_epoch)
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = milestones
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * (self.gamma ** n)
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** (self.last_epoch
+                                              // self.step_size))
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class ReduceOnPlateau(LRScheduler):
+    """Cuts the rate by ``factor`` after ``patience`` steps without a better
+    metric. ``step(metrics)`` compares on the host: a tensor metric is read
+    once a call (an epoch's cadence, outside any graph)."""
+
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.cooldown_counter = 0
+        self.num_bad_epochs = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def _margin(self):
+        return (abs(self.best) * self.threshold
+                if self.threshold_mode == "rel" else self.threshold)
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        if hasattr(metrics, "item"):
+            metrics = float(metrics.item())
+        self.last_epoch += 1
+        if self.best is None:
+            self.best = metrics
+            return
+        better = (metrics < self.best - self._margin()
+                  if self.mode == "min" else
+                  metrics > self.best + self._margin())
+        if better:
+            self.best = metrics
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+
 class CosineAnnealingDecay(LRScheduler):
-    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
         self.T_max = T_max
         self.eta_min = eta_min
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * (
             1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        self.three_phase = three_phase
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        t = min(self.last_epoch, self.total_steps)
+        up = int(self.phase_pct * self.total_steps)
+        if t <= up:
+            return self._interp(self.initial_lr, self.max_lr,
+                                t / max(up, 1))
+        return self._interp(self.max_lr, self.end_lr,
+                            (t - up) / max(self.total_steps - up, 1))
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = (step_size_down if step_size_down is not None
+                          else step_size_up)
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        self.scale_fn = scale_fn
+        self.scale_mode = scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_up + self.step_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x <= self.step_up:
+            pct = x / self.step_up
+        else:
+            pct = 1 - (x - self.step_up) / self.step_down
+        lr = self.base_lr + (self.max_lr - self.base_lr) * pct
+        if self.scale_fn is not None:
+            s = self.scale_fn(cycle if self.scale_mode == "cycle"
+                              else self.last_epoch)
+            lr = self.base_lr + (lr - self.base_lr) * s
+        elif self.mode == "triangular2":
+            lr = self.base_lr + (lr - self.base_lr) / (2 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            lr = self.base_lr + (lr - self.base_lr) * (
+                self.exp_gamma ** self.last_epoch)
+        return lr
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0,
+                 last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        self.T_cur = last_epoch
+        self.T_i = T_0
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        T_i = self.T_0
+        while t >= T_i:
+            t -= T_i
+            T_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (
+            1 + math.cos(math.pi * t / T_i)) / 2
+
+
+class LinearLR(LRScheduler):
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(self.last_epoch, self.total_steps)
+        factor = self.start_factor + (
+            self.end_factor - self.start_factor) * t / self.total_steps
+        return self.base_lr * factor

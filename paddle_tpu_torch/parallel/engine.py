@@ -2,15 +2,46 @@
 (``ParallelEngine``: ``build_train_step``, ``train_batch``, ``eval_batch``,
 ``engine_state_dict`` / ``set_engine_state``) for one device.
 
-The JAX engine copies the model's parameters in, donates them to a jitted
-step and returns new arrays. PyTorch runs eagerly, so the port's engine
-trains the model's own parameters in place: every parameter is trained
-(the port has no frozen parameters yet), the forward and backward run
-through autograd (with the port's kernels on the card), and the optimizer
-updates parameters and moments in place. The step counter and the LR
-schedule follow the JAX engine: the update uses bias correction at
-``step_count + 1`` with the learning rate read before the step, and an
-``LRScheduler`` learning rate is stepped after it.
+The JAX engine compiles the whole train step into one program over
+donated parameters, optimizer state and step count, with the learning
+rate a traced operand (``jax.jit(step_fn, donate_argnums=(0, 1, 2))``),
+and the eval step into another. The port's engine trains the model's own
+parameters in place, and on a CUDA device each step is a CUDA graph
+replay (``graphs.py``, shared with the serving executor): one graph per
+key — the batch's shapes and dtypes, ``model.training``, ``grad_accum``
+and the remat policy, as JAX retraces on a new shape — over static input
+buffers that each call fills (from pinned host memory for a host batch).
+A train graph holds the whole step: zeroing the grads, the forward and
+backward (``grad_accum``'s microbatches), a zero gradient for a parameter
+the loss does not reach, the clip and the optimizer's update; an eval
+graph the forward and the loss under ``no_grad``. Every parameter is
+trained (the port has no frozen parameters yet).
+
+The learning rate and the step count live on the device, as the JAX
+step's operands: before each step the host's ``get_lr()`` is copied into
+a device fp32 scalar through pinned memory, and the step count is a
+device int32 that the step itself increments (``_step_count`` is its host
+mirror, which ``engine_state_dict`` reports). The update uses bias
+correction at ``step_count + 1`` with the learning rate read before the
+step; an ``LRScheduler`` is stepped on the host after it, and its next
+rate reaches the graph through the scalar.
+
+The first call of a key is the warm-up and a real step, counted once: it
+runs eagerly on a side stream (creating the libraries' handles and the
+kernels' build); the second call captures the graph, and it and every
+later call replay it. The returned loss is a fresh tensor each call (a
+clone of the graph's output). The graphs read the parameters, the
+optimizer's slots and the buffers by address: one replaced since a
+capture (``.to()``, a new ``Parameter``) raises at the next call;
+updates in place (``set_engine_state``) are trained on. A capture that
+fails raises; nothing falls back. The graphs share one memory pool, and
+every ``torch.Generator`` the model's modules draw from (ERNIE's dropout)
+is registered with them, so that a replay draws the masks an eager step
+would. A step runs eagerly only by rule: on the CPU, under
+``set_kernel_mode("reference")`` and with ``graphs`` set to False (a
+measurement switch, as the executor's; the JAX engine has no such
+argument). Launch counts add up per replay (``ops.captured_launches``),
+equal to an eager step's.
 
 ``remat=True`` recomputes activations in the backward under
 ``remat_policy`` (the JAX engine's names: ``"dots"``, ``"nothing"``,
@@ -24,7 +55,9 @@ saves. The JAX engine wraps the whole per-microbatch loss in
 checkpointed region as a whole at the backward's first use of it, so one
 region over the whole loss would hold every activation at once in the
 backward, as no remat does. A model that checkpoints no layer in the
-scope is refused (NotImplementedError) rather than run without remat.
+scope is refused (NotImplementedError) rather than run without remat. On
+a CUDA device a region's random draws are preserved through graph-safe
+generator states (``recompute.RegionRng``), registered with the graphs.
 
 The constructor keeps the JAX engine's parameter order. Not ported yet
 (they raise NotImplementedError at any value but the JAX default): a mesh
@@ -34,12 +67,17 @@ of more than one device, ``fsdp``, ``batch_spec``, ``donate``,
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..distributed.fleet.recompute import check_remat_policy, remat_layers
+from .. import graphs
+from ..distributed.fleet.recompute import (RegionRng, check_remat_policy,
+                                           region_rng, remat_layers)
 
 # the JAX engine's constructor arguments that the port does not take yet,
 # each at the one value it accepts (the JAX default; ``batch_spec``'s
@@ -51,6 +89,16 @@ _UNPORTED = {"fsdp": False, "batch_spec": ("data",), "donate": True,
              "abstract": False, "offload_opt_state": False,
              "alias_model_params": False, "injector": None,
              "telemetry": None}
+
+
+@dataclasses.dataclass
+class _Program:
+    """One key's static input buffers, whether its warm-up step has run,
+    and its graph once captured."""
+
+    inputs: tuple
+    warm: bool = False
+    graph: Optional[graphs.Graph] = None
 
 
 class ParallelEngine:
@@ -105,15 +153,25 @@ class ParallelEngine:
             p.requires_grad_(True)
         if optimizer is not None:
             optimizer.init_state(self.named)
+        # JAX's step_count (donated, incremented by the step) and lr
+        # operand, on the device; _step_count is the host mirror
         self._step_count = 0
+        self._step_dev = torch.zeros((), dtype=torch.int32,
+                                     device=self.device)
+        self._lr_dev = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
         self._train_step = None
+        self.graphs = self.device.type == "cuda"
+        self._programs = {}
+        self._graph_pool = None
+        self._weights = None
+        self.captures = 0
+        self.replays = {"train": 0, "eval": 0}
+        # graph-safe RNG states of checkpointed regions (CUDA only)
+        self._region_rng = (RegionRng(self.device)
+                            if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ step
-    def _to_device(self, b):
-        t = b if isinstance(b, torch.Tensor) else torch.as_tensor(
-            np.asarray(b))
-        return t.to(self.device)
-
     def _step_loss(self, batch):
         """The loss of one (micro)batch, each decoder layer checkpointed
         under the remat policy when ``remat``."""
@@ -137,17 +195,20 @@ class ParallelEngine:
         outs = out if isinstance(out, (list, tuple)) else (out,)
         return self.loss_fn(*outs, label)
 
-    def build_train_step(self):
-        """The step function ``step(batch) -> loss`` (host-side Python:
-        there is nothing to compile); built on the first ``train_batch``."""
+    def _train_body(self, batch):
+        """One train step over the static inputs ``batch``, with no host
+        read of a device value (the body of a train graph): zeroed grads,
+        forward and backward (per microbatch), the update at the device
+        step count + 1 with the device lr, the count incremented. Returns
+        the loss."""
         opt = self.optimizer
         accum = self.grad_accum
         named = self.named
-
-        def step(batch):
-            lr = opt.get_lr()
-            for _, p in named:
-                p.grad = None
+        for _, p in named:
+            p.grad = None
+        rng = (contextlib.nullcontext() if self._region_rng is None
+               else region_rng(self._region_rng))
+        with rng:
             if accum == 1:
                 loss = self._step_loss(batch)
                 loss.backward()
@@ -172,12 +233,24 @@ class ParallelEngine:
                         p.grad = None
                 loss = loss / accum
                 grads = [a.div_(accum) for a in acc]
-            opt.update([(n, p, g) for (n, p), g in zip(named, grads)], lr,
-                       self._step_count + 1)
-            self._step_count += 1
-            for _, p in named:
-                p.grad = None
-            return loss.detach()
+        step = self._step_dev + 1
+        opt.update([(n, p, g) for (n, p), g in zip(named, grads)],
+                   self._lr_dev, step)
+        self._step_dev.copy_(step)
+        for _, p in named:
+            p.grad = None
+        return loss.detach()
+
+    def _eval_body(self, batch):
+        with torch.no_grad():
+            return self._loss(batch).detach()
+
+    def build_train_step(self):
+        """The step function ``step(batch) -> loss`` (``batch`` a tuple of
+        tensors or arrays), built on the first ``train_batch``: the key's
+        program — its graph on a CUDA device — run once."""
+        def step(batch):
+            return self._run("train", self._train_body, batch)
 
         self._train_step = step
         return step
@@ -187,22 +260,129 @@ class ParallelEngine:
         not synchronised)."""
         if self._train_step is None:
             self.build_train_step()
-        batch = tuple(self._to_device(b) for b in batch)
+        batch = tuple(self._as_tensor(b) for b in batch)
         if self.grad_accum > 1:
             for b in batch:
                 if b.shape[0] % self.grad_accum:
                     raise ValueError(
                         f"grad_accum={self.grad_accum} needs the leading "
                         f"batch dim to divide evenly, got {tuple(b.shape)}")
+        self._set_lr(self.optimizer.get_lr())
         loss = self._train_step(batch)
+        self._step_count += 1
         sched = self.optimizer._learning_rate
         if hasattr(sched, "step"):
             sched.step()
         return loss
 
-    @torch.no_grad()
     def eval_batch(self, *batch):
-        return self._loss(tuple(self._to_device(b) for b in batch)).detach()
+        """The loss of one batch under ``no_grad`` (on a CUDA device a
+        graph replay); a 0-d tensor, not synchronised."""
+        return self._run("eval", self._eval_body,
+                         tuple(self._as_tensor(b) for b in batch))
+
+    # ----------------------------------------------------------- programs
+    @staticmethod
+    def _as_tensor(b):
+        return b if isinstance(b, torch.Tensor) else torch.as_tensor(
+            np.asarray(b))
+
+    def _pinned(self, t):
+        """A host tensor in pinned memory on a CUDA engine (the copy to
+        the device is then asynchronous; the caching host allocator keeps
+        the block until that copy has run)."""
+        if self.device.type == "cuda" and not t.is_pinned():
+            return t.pin_memory()
+        return t
+
+    def _set_lr(self, lr: float) -> None:
+        self._lr_dev.copy_(self._pinned(torch.tensor(lr,
+                                                     dtype=torch.float32)),
+                           non_blocking=True)
+
+    def _use_graphs(self) -> bool:
+        from .. import ops
+
+        return self.graphs and ops.kernel_mode() != "reference"
+
+    def _run(self, kind, body, batch):
+        """Run ``body`` over the static inputs of ``batch``'s key: eagerly
+        (by rule, or the key's warm-up step), by capturing its graph (the
+        key's second call) and replaying it."""
+        key = (kind, tuple((tuple(b.shape), b.dtype) for b in batch),
+               self.model.training, self.grad_accum, self.remat,
+               self.remat_policy)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _Program(tuple(
+                torch.empty(b.shape, dtype=b.dtype, device=self.device)
+                for b in batch))
+        for dst, src in zip(prog.inputs, batch):
+            dst.copy_(src if src.device.type != "cpu" else self._pinned(src),
+                      non_blocking=True)
+        run = functools.partial(body, prog.inputs)
+        if not self._use_graphs():
+            return run()
+        if self._weights is not None:
+            self.check_weights()
+        if prog.graph is None:
+            if not prog.warm:
+                out = graphs.warm_up(run, self.device)
+                prog.warm = True
+                if out.is_cuda:      # made on the side stream, used here
+                    out.record_stream(torch.cuda.current_stream(self.device))
+                return out
+            prog.graph = self._capture(run)
+        self.replays[kind] += 1
+        return prog.graph.replay().clone()
+
+    def _capture(self, run):
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        # the warm-ups' freed blocks back to the device before the graph
+        # takes its own pool
+        torch.cuda.empty_cache()
+        gens = self._generators()
+        if self._region_rng is not None:
+            gens += self._region_rng.generators()
+        graph = graphs.capture(run, gens, self._graph_pool)
+        self.captures += 1
+        if self._weights is None:
+            self._weights = self._weights_key()
+        return graph
+
+    def _generators(self):
+        """The CUDA ``torch.Generator``s the model's modules draw from,
+        other than the default one (registered by PyTorch itself)."""
+        out = []
+        for m in self.model.modules():
+            g = getattr(m, "generator", None)
+            if isinstance(g, torch.Generator) and g.device.type == "cuda" \
+                    and all(g is not h for h in out):
+                out.append(g)
+        if out:
+            idx = self.device.index
+            default = torch.cuda.default_generators[
+                torch.cuda.current_device() if idx is None else idx]
+            out = [g for g in out if g is not default]
+        return out
+
+    def _weights_key(self):
+        slots = [t for s in self.optimizer._accumulators.values()
+                 for t in s.values()]
+        return graphs.weights_key(self.model.parameters(),
+                                  self.model.buffers(), slots)
+
+    def check_weights(self) -> None:
+        """Raise RuntimeError when a parameter, buffer or optimizer slot
+        is no longer the tensor, at the address, the graphs were captured
+        over."""
+        if self._weights is not None and \
+                self._weights_key() != self._weights:
+            raise RuntimeError("the model's weights or the optimizer's "
+                               "state were replaced after the engine's "
+                               "graphs were captured: build a new "
+                               "ParallelEngine for the changed model")
 
     # ------------------------------------------------------------------ state
     def engine_state_dict(self):
@@ -233,3 +413,4 @@ class ParallelEngine:
             for k, v in slots.items():
                 live[k].copy_(torch.as_tensor(np.asarray(v)))
         self._step_count = int(state.get("step", 0))
+        self._step_dev.fill_(self._step_count)

@@ -186,6 +186,32 @@ def test_head_outputs_and_loss_match_jax(head, config):
     np.testing.assert_allclose(tl.item(), float(jl), **TOL)
 
 
+def _adamw_kernel_arithmetic(monkeypatch):
+    """The JAX engine's AdamW update with its TPU kernel's arithmetic, the
+    one the port keeps (``paddle_tpu/ops/fused_adamw.py``: the scalar block
+    ``[lr, 1/(1 - b1**step), 1/(1 - b2**step)]`` built in fp32, ``:245-251``,
+    and multiplied in by ``_make_kernel``). The XLA fallback the engine
+    takes on the CPU computes the bias corrections in float64 (the package
+    enables x64), 1.3e-5 apart from fp32's at step 1."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops import fused_adamw as jfa
+
+    def update(param_f32, grad_f32, m, v, lr, b1, b2, eps, decay, step):
+        step_f = jnp.asarray(step, jnp.float32)
+        lr = jnp.asarray(lr, jnp.float32)
+        inv_bc1 = 1.0 / (1.0 - jnp.asarray(b1, jnp.float32) ** step_f)
+        inv_bc2 = 1.0 / (1.0 - jnp.asarray(b2, jnp.float32) ** step_f)
+        master = param_f32 * (1.0 - lr * decay)
+        m2 = b1 * m + (1.0 - b1) * grad_f32
+        v2 = b2 * v + (1.0 - b2) * grad_f32 * grad_f32
+        new_master = master - lr * (m2 * inv_bc1) / (
+            jnp.sqrt(v2 * inv_bc2) + eps)
+        return new_master, m2, v2
+
+    monkeypatch.setattr(jfa, "_reference_update", update)
+
+
 def _engines(head, cfg_kw):
     jm, tm = _pair(head, cfg_kw)
     jeng = JEngine(jm, optimizer=JAdamW(learning_rate=LR,
@@ -202,10 +228,12 @@ def _engines(head, cfg_kw):
                                          ("seq_cls", "D32"),
                                          ("token_cls", "D64"),
                                          ("qa", "D64"), ("mlm", "D64")])
-def test_three_adamw_steps_match_jax_engine(head, config):
+def test_three_adamw_steps_match_jax_engine(head, config, monkeypatch):
     """Losses of every step, then the parameters and moments; the masked-LM
     head leaves the pooler out of its loss, and both engines still decay
-    it and step its (zero) moments."""
+    it and step its (zero) moments. The JAX engine updates with its AdamW
+    kernel's fp32 arithmetic, as the port does."""
+    _adamw_kernel_arithmetic(monkeypatch)
     _, tm, jeng, teng = _engines(head, CONFIGS[config])
     start = {n: p.detach().clone().numpy() for n, p in tm.named_parameters()}
     ids, _, labels = _data(head, 1024, seed=4)

@@ -53,8 +53,12 @@ def test_reference_update_matches_jax_reference():
     args = (HP["lr"], HP["b1"], HP["b2"], HP["eps"], HP["decay"], HP["step"])
     want = jfa._reference_update(jnp.asarray(p), jnp.asarray(g),
                                  jnp.asarray(m), jnp.asarray(v), *args)
+    # the port's twin reads the device scalars [lr, 1/bc1, 1/bc2]
+    scalars = tfa.adamw_scalars(HP["lr"], HP["step"], torch.tensor(
+        [HP["b1"], HP["b2"]], dtype=torch.float32))
     got = tfa._reference_update(*(torch.from_numpy(a) for a in (p, g, m, v)),
-                                *args)
+                                scalars, HP["b1"], HP["b2"], HP["eps"],
+                                HP["decay"])
     for name, a, b in zip(("master", "m", "v"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
                                    **TOL)
@@ -93,9 +97,9 @@ def test_cpu_update_never_launches_and_cuda_wrapper_refuses_cpu():
     tfa.fused_adamw_update(p.bfloat16(), g, m, v, **HP)
     assert tops.launch_counts()["fused_adamw"] == 0
     with pytest.raises(ValueError, match="CUDA"):
-        tfa.fused_adamw_cuda(p.bfloat16(), g, m, v, lr=1e-3, inv_bc1=1.0,
-                             inv_bc2=1.0, b1=0.9, b2=0.999, eps=1e-8,
-                             decay=0.0)
+        tfa.fused_adamw_cuda(p.bfloat16(), g, m, v,
+                             scalars=torch.tensor([1e-3, 1.0, 1.0]), b1=0.9,
+                             b2=0.999, eps=1e-8, decay=0.0)
     assert tops.launch_counts()["fused_adamw"] == 0
 
 

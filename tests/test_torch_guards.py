@@ -25,6 +25,7 @@ PORT = ROOT / "paddle_tpu_torch"
 PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.distributed.fleet",
                 "paddle_tpu_torch.distributed.fleet.recompute",
+                "paddle_tpu_torch.graphs",
                 "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.ops._build",
                 "paddle_tpu_torch.ops.decode_megakernel",
@@ -302,7 +303,7 @@ def _cpu_args(name):
 def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
     wrapper = ops.KERNEL_WRAPPERS[name]
     kw = {} if name != "fused_adamw" else dict(
-        lr=1e-3, inv_bc1=1.0, inv_bc2=1.0, b1=0.9, b2=0.999, eps=1e-8,
+        scalars=torch.tensor([1e-3, 1.0, 1.0]), b1=0.9, b2=0.999, eps=1e-8,
         decay=0.0)
     before = wrapper.launches
     with pytest.raises(ValueError, match="CUDA"):
