@@ -11,6 +11,10 @@ the GPU.
     python3 chip_smoke.py --only spec   # the build and phases 3 (paged
                                         # attention), 4 and 26 alone (no
                                         # final line)
+    python3 chip_smoke.py --only invariance  # the build, phases 28, 4
+                                        # and 26 (no final line)
+    python3 chip_smoke.py --only sched  # the build and phase 29 alone (no
+                                        # final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -23,7 +27,8 @@ Phases (any failure exits non-zero before the final line):
    ignored ``setmaxnreg`` (C7508) in ``flash_attention.cu`` or
    ``flash_attention_bwd.cu`` (one helper for both); and each instantiation
    of the weight-streaming kernels (``w8_matmul.cu``, ``fused_lora.cu``:
-   one main loop, ``stream_gemm.cuh``), of the paged attention kernel
+   the bf16 streaming product ``stream_matmul.cu`` in both W layouts; one
+   main loop, ``stream_gemm.cuh``), of the paged attention kernel
    per pool type and of the whole-tick kernel (``decode_megakernel.cu``,
    its 4 instantiations), failing on a spill or local bytes.
 3. Serving kernels against their plain PyTorch versions on the card, in
@@ -105,11 +110,11 @@ Phases 9-12 run between phases 5 and 6, while the bf16 serving model is on
 the card:
 
 9. int8 and LoRA kernels against their plain PyTorch versions, bf16:
-   w8_matmul at M in {1, 8, 16} on every decode shape of Llama-3-8B (the
-   projections and the lm-head), per element within one bf16 step plus the
-   fp32 summation bound, shown to reject a lost K slice, and at M = 128
-   (a prefill chunk's rows; measured beside the dequantize-once path the
-   dispatch takes there); int8-pool paged
+   w8_matmul at M in {1, 8, 16, 40, 128} on every decode shape of
+   Llama-3-8B (the projections and the lm-head), per element within one
+   bf16 step plus the fp32 summation bound, shown to reject a lost K
+   slice (at 40 and 128 rows measured beside the dequantize-once path
+   those rows took before they streamed); int8-pool paged
    attention at phase 3's cases (scratch poisoned with full codes at a
    huge scale), per row, shown to reject phase 3's faults and the scales
    of the wrong block; the fused LoRA matmul per target shape at a decode batch
@@ -129,10 +134,12 @@ the card:
    a1, a2 and a2 again hits the prefix cache only on the third turn
    (blocks keyed by adapter). Prints as phase 4.
 11. int8 serving: ``quantize_int8()`` in place, then the phase-4 traffic
-   with ``kv_quant="int8"``; checks that every decode tick launched
-   w8_matmul 7 x 32 + 1 times and the int8 attention 32 times, and that a
-   prefill chunk launched w8_matmul once (its lm-head row; its 128-row
-   projections dequantize). Prints as phase 4.
+   with ``kv_quant="int8"``; checks that every decode tick and every
+   prefill chunk launched w8_matmul 7 x 32 + 1 times (a chunk's 128 rows
+   stream too) and the int8 attention 32 times. Prints as phase 4. Then
+   phase 26's int8-weights cell (bf16 KV): the plain and the n-gram
+   speculative server on the repeat-suffix traffic, every request's
+   tokens equal, and (b) at B = 8 for the int8 model.
 12. End to end as phase 5, for the LoRA path (before phase 11) and for the
    int8 path (the fp32 copy holds the same codes and scales), with phase
    5's limits.
@@ -214,16 +221,51 @@ Phase 26 runs after phase 25, on the same model:
    trip's host wall, enqueue and device time (the draft program's
    apart). (b) One request after its prefill: a W = 5 verify window of
    the plain server's next tokens against 5 decode ticks on a copy of
-   the pools, with the kernels (per layer and whole tick), their plain
-   twins in bf16 and on an fp32 copy: the largest |verify - decode|
-   logit per position, and the kernels' verify logits at most
-   DRIFT_RATIO x as far from fp32 as the twins'. (c) Greedy tokens
-   against the plain server's cells: every request that differs must
-   differ first at a near tie of the fp32 logits, within twice the
-   largest |bf16 kernels - fp32| logit difference of (b); a planted
-   fault (one draft accepted too many) must fail it. (d) The n-gram cell
+   the pools, with the kernels (per layer and whole tick: equal bit for
+   bit), their plain twins in bf16 and on an fp32 copy, and the kernels'
+   verify logits at most DRIFT_RATIO x as far from fp32 as the twins';
+   then the served batch, 8 distinct requests (``verify_decode_b8``):
+   verify (40 rows) and decode (8 rows) logits equal bit for bit per
+   layer and through ``decode_tick``, and each row's equal to the same
+   row's alone; over int8 pools the row test holds and the verify
+   against decode difference is printed (a window's later tokens
+   requantize a block before its earlier queries read it); after phases
+   10 and 11 the same for LoRA (rows on two adapters and none) and int8
+   weights. (c) Greedy tokens against the plain server's cells: every
+   greedy cell's 12 requests identical (near ties at the first
+   differing token are printed as a diagnostic); a planted fault (one
+   draft accepted too many) must make a request differ. (d) The n-gram cell
    with graphs off gives the same tokens and launches; the sampled cell
    twice from one seed the same tokens.
+
+Phase 28 runs after phase 3, phase 29 after phase 26:
+
+28. Batch invariance of every decode and verify product: at Llama-3-8B's
+   q/o, k/v, gate/up, down and lm-head shapes (and the lm-head tied, its
+   W^T read K-major), the bf16 streaming product, w8_matmul and (q, gate,
+   down) the fused LoRA kernel give one row the same bits at M in {1, 8,
+   16, 40, 64, 128, 160, 512}, at the first and the last row among random
+   others, as at M = 8 (the token tile runs 8 to 128 rows: a wgmma's sum
+   for one element does not depend on its N; past 128 rows several token
+   tiles run with the same K slices); a planted fault (a K split that
+   follows M) fails the check; cuBLAS's rows are checked alike as a
+   diagnostic. The bf16 and int8 products against their plain twins per
+   element (one bf16 step plus the fp32 summation bound, shown to reject
+   a lost K slice), the bf16 one repeatable, and each kernel timed at M =
+   8, 40 and 160 beside ``torch.matmul`` of the same shape, with its
+   bound.
+29. Scheduling and preemption: ``GenerationServer(policy="priority")``
+   with a pool of 45 % of the blocks phase 4's requests need, phase 4's
+   12 requests at normal priority and 4 urgent ones submitted after the
+   first decode window in which no slot prefills (so that their victims
+   decode and swap), ``assert_conserved()`` after every step; bf16 and
+   int8 KV, per layer and through the megakernel. Every request's tokens
+   must equal the same request's on a pool that never runs dry (phase 4's
+   cells), preemptions (swaps to pinned host memory) must happen, no
+   graph be captured after the warm-up, and every pass of a kind launch
+   the same kernels. Prints preemptions, resumes, the host pool's peak
+   bytes, the swap copies' ms a block and GB/s each way,
+   ``sched_metrics()`` and ``load_metrics()``.
 
 Phases 18-20 run last, after phase 8: long-context training, past the
 8192 keys where flash attention takes its streaming kernels (rows 2, 5
@@ -315,7 +357,9 @@ Python wrappers' host cost is left out); serving and training rates are
 host wall time around work that ends in a copy of its result to the host.
 
 The second-to-last line is a JSON object listing each kernel with its
-launches on the main path and its measurements (the tick kernel once per
+launches on the main path and its measurements (``stream_matmul``, the
+port's own kernel with no TPU counterpart, with its launches a tick and
+a window; the tick kernel once per
 variant: ``decode_tick``, ``decode_tick_int8``, ``decode_tick_lora``, each
 with the launches of its serving cell; the flash rows once more at head
 dim 64, ``flash_fwd_d64``, ``flash_bwd_dq_d64``, ``flash_bwd_dkv_d64``,
@@ -502,15 +546,19 @@ def flash_fwd_build(_build, fac) -> dict:
 
 def stream_gemm_build(_build) -> dict:
     """Phase 2's check of the weight-streaming kernels' build (w8_matmul,
-    fused LoRA's second launch; one main loop, ``stream_gemm.cuh``): each
+    fused LoRA's second launch, the bf16 streaming product in both W
+    layouts; one main loop, ``stream_gemm.cuh``): each
     instantiation's launch shape, registers and local bytes (none may have
     any), and no spill in the ptxas lines of either source."""
-    from paddle_tpu_torch.ops import fused_lora_cuda, int8_cuda
+    from paddle_tpu_torch.ops import (fused_lora_cuda, int8_cuda,
+                                      stream_matmul_cuda)
 
     out = {}
     for source, name, conf in (
             ("w8_matmul.cu", "w8_matmul", int8_cuda.kernel_config()),
-            ("fused_lora.cu", "fused_lora", fused_lora_cuda.kernel_config())):
+            ("fused_lora.cu", "fused_lora", fused_lora_cuda.kernel_config()),
+            ("stream_matmul.cu", "stream_matmul",
+             stream_matmul_cuda.kernel_config())):
         ptxas = _ptxas_check(_build, source, name)
         for key, c in conf.items():
             _no_local_bytes(c, f"{name} {key}")
@@ -813,6 +861,247 @@ def kernel_paged_attention(torch, ops, pa, cfg):
     return _paged_kernel_cases(torch, ops, pa, cfg, quant=False, seed=3)
 
 
+# -------------------------------------------------------------- phase 28
+# Batch invariance of the decode and verify products: the row counts a
+# decode tick (1, 8, 16 rows), a verify window (40 = 8 x 5) and larger
+# batches run, past one 128-row token tile too (160 = 32 x 5, a 32-slot
+# server's k = 4 window; 512, four tiles), and Llama-3-8B's product
+# shapes (K, N)
+INVARIANCE_ROWS = (1, 8, 16, 40, 64, 128, 160, 512)
+# the row counts each product is also held against its plain twin and timed
+TIMED_ROWS = (8, 40, 160)
+PRODUCT_SHAPES = (("gate_up", 4096, 14336), ("q_o", 4096, 4096),
+                  ("k_v", 4096, 1024), ("down", 14336, 4096),
+                  ("lm_head", 4096, 128256))
+LORA_TARGETS = (("q", 4096, 4096), ("gate", 4096, 14336),
+                ("down", 14336, 4096))
+
+
+def _row_mismatches(torch, fn, K, g):
+    """The bits of one row of x through ``fn`` (x (M, K) bf16 -> (M, N))
+    inside batches of every M in INVARIANCE_ROWS, at the first and the
+    last row, the other rows random each time, against the same row at M =
+    8. Returns (the M, position pairs whose row differs, the row at M =
+    8)."""
+    row = torch.randn(1, K, generator=g, device="cuda").to(torch.bfloat16)
+
+    def at(M, r):
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        x[r] = row[0]
+        return fn(x, r)[r]
+
+    want = at(8, 3)
+    bad = [(M, r) for M in INVARIANCE_ROWS for r in sorted({0, M - 1})
+           if not torch.equal(at(M, r), want)]
+    return bad, want
+
+
+def _split_by_rows(torch, fn, K):
+    """A planted fault: ``fn`` at up to 8 rows, and above 8 rows the same
+    kernel over the two halves of K, added in fp32 and rounded again (a K
+    split that follows the row count)."""
+    def mutant(x, r):
+        if x.shape[0] <= 8:
+            return fn(x, r, 0, K)
+        h = K // 2
+        return (fn(x, r, 0, h).float() + fn(x, r, h, K).float()).to(
+            torch.bfloat16)
+    return mutant
+
+
+def batch_invariance(torch, ops):
+    """Phase 28: every product of a decode tick and a verify window is
+    batch-invariant. For each Llama-3-8B shape (q/o, k/v, gate/up, down,
+    the lm-head; and the lm-head tied, W^T read K-major) the bf16 streaming
+    product, w8_matmul (int8 weights) and, for q, gate and down, the fused
+    LoRA kernel (an adapter a row, the tested row always on one page) give
+    one row the same bits at M in INVARIANCE_ROWS, whatever the rows
+    beside it, as at M = 8: the token tile runs 8 to 128 rows, so the
+    check also shows that a wgmma's sum for one element does not depend on
+    its N; 160 and 512 rows run several token tiles. A planted fault (a K
+    split that follows M) fails the same check; cuBLAS (``torch.matmul``)
+    is checked alike, as a diagnostic. The bf16 and int8 kernels are held
+    against their plain twins per element (one bf16 step plus the fp32
+    summation bound) and, with fused LoRA, timed at each of TIMED_ROWS
+    beside ``torch.matmul`` of the same shape."""
+    from paddle_tpu_torch.ops import int8 as i8
+    from paddle_tpu_torch.ops import stream_matmul as smm
+    from paddle_tpu_torch.ops.fused_lora_cuda import fused_lora_matmul_cuda
+    from paddle_tpu_torch.ops.int8_cuda import plan, w8_matmul_cuda
+    from paddle_tpu_torch.ops.stream_matmul_cuda import stream_matmul_cuda
+    from paddle_tpu_torch.nn import lora as tl
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    res = {"rows": INVARIANCE_ROWS, "bf16": [], "int8": [], "lora": [],
+           "cublas_rows_differing": {}}
+    shapes = PRODUCT_SHAPES + (("lm_head_tied", 4096, 128256),)
+    for name, K, N in shapes:
+        tied = name == "lm_head_tied"
+        w = (0.02 * torch.randn(N if tied else K, K if tied else N,
+                                generator=g, device="cuda")).to(
+            torch.bfloat16)
+        wk = w.t() if tied else w
+
+        def bf(x, r, k0=0, k1=K):
+            if k0 == 0 and k1 == K:
+                return stream_matmul_cuda(x, w, tied)
+            return stream_matmul_cuda(x[:, k0:k1].contiguous(),
+                                      (w[:, k0:k1] if tied else w[k0:k1])
+                                      .contiguous(), tied)
+
+        bad, _ = _row_mismatches(torch, bf, K, g)
+        check(not bad, f"phase 28: stream_matmul {name} {K}x{N}: the row "
+                       f"differs at (M, row) {bad}")
+        if name == "q_o":
+            fault, _ = _row_mismatches(torch, _split_by_rows(torch, bf, K),
+                                       K, g)
+            check(bool(fault), "phase 28: the check passes a K split that "
+                               "follows the row count")
+            res["planted_fault_rows_differing"] = len(fault)
+        lib, _ = _row_mismatches(torch, lambda x, r: torch.matmul(x, wk), K,
+                                 g)
+        res["cublas_rows_differing"][name] = len(lib)
+        for M in TIMED_ROWS:
+            x = torch.randn(M, K, generator=g, device="cuda").to(
+                torch.bfloat16)
+            out = stream_matmul_cuda(x, w, tied)
+            ref = smm._stream_plain(x, w, tied)
+            torch.cuda.synchronize()
+            mag = x.float().abs() @ wk.float().abs()
+            worst = _el_ratio(out, ref, mag, K).max().item()
+            check(worst <= 1.0, f"phase 28: stream_matmul {name} M={M}: an "
+                                f"element is off by {worst:.3g} x its "
+                                f"tolerance")
+            lost = smm._stream_plain(x[:, :-128], (w[:, :-128] if tied
+                                                   else w[:-128]), tied)
+            check(_el_ratio(lost, ref, mag, K).max().item() > 1.0,
+                  f"phase 28: stream_matmul {name}: the tolerance passes a "
+                  f"lost K slice")
+            check(_repeats(torch, lambda: stream_matmul_cuda(x, w, tied),
+                           out), f"phase 28: stream_matmul {name} M={M}: a "
+                                 f"repeated launch differs")
+            b, by = bound_ms(2 * K * N + 2 * M * K + 2 * M * N, 2 * M * K * N,
+                             BF16_FLOPS)
+            case = dict(shape=name, M=M, K=K, N=N, plan=plan(M, K, N),
+                        max_abs_err=(out.float() - ref.float()).abs()
+                        .max().item(), worst_err_over_tol=worst,
+                        ms=time_ms(lambda: stream_matmul_cuda(x, w, tied),
+                                   50, flush),
+                        host_us=host_us(torch, lambda: stream_matmul_cuda(
+                            x, w, tied)),
+                        plain_ms=time_ms(lambda: smm._stream_plain(
+                            x, w, tied), 3, flush),
+                        bound_ms=b, bound_by=by,
+                        library_ms=time_ms(lambda: torch.matmul(x, wk), 50,
+                                           flush))
+            case["ms_over_library"] = case["ms"] / case["library_ms"]
+            log(f"phase 28 stream_matmul {name} M={M}: " + json.dumps(case))
+            res["bf16"].append(case)
+        if tied:
+            del w, wk
+            torch.cuda.empty_cache()
+            continue
+        wq, sc = i8.quantize_per_channel(w)
+
+        def w8(x, r, k0=0, k1=K):
+            return w8_matmul_cuda(x, wq, sc)
+
+        bad, _ = _row_mismatches(torch, w8, K, g)
+        check(not bad, f"phase 28: w8_matmul {name} {K}x{N}: the row differs "
+                       f"at (M, row) {bad}")
+        for M in TIMED_ROWS:
+            x = torch.randn(M, K, generator=g, device="cuda").to(
+                torch.bfloat16)
+            out = w8_matmul_cuda(x, wq, sc)
+            ref = i8._w8_plain(x, wq, sc)
+            torch.cuda.synchronize()
+            mag = x.float().abs() @ (wq.float().abs() * sc)
+            worst = _el_ratio(out, ref, mag, K).max().item()
+            check(worst <= 1.0, f"phase 28: w8_matmul {name} M={M}: an "
+                                f"element is off by {worst:.3g} x its "
+                                f"tolerance")
+            b, by = bound_ms(K * N + 4 * N + 2 * M * K + 2 * M * N,
+                             2 * M * K * N, BF16_FLOPS)
+            case = dict(shape=name, M=M, K=K, N=N, worst_err_over_tol=worst,
+                        ms=time_ms(lambda: w8_matmul_cuda(x, wq, sc), 50,
+                                   flush), bound_ms=b, bound_by=by,
+                        library_ms=time_ms(lambda: torch.matmul(x, w), 50,
+                                           flush))
+            log(f"phase 28 w8_matmul {name} M={M}: " + json.dumps(case))
+            res["int8"].append(case)
+        del w, wq, sc
+        torch.cuda.empty_cache()
+    R, L, layer = LORA_MAX_RANK, 1, 0
+    for t, K, N in LORA_TARGETS:
+        w = (0.02 * torch.randn(K, N, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        A = 0.02 * torch.randn(4, L, K, R, generator=g, device="cuda")
+        Bf = 0.02 * torch.randn(4, L, R, N, generator=g, device="cuda")
+        A[0].zero_()
+        Bf[0].zero_()
+        s = torch.tensor([0.0, 2.0, 1.0, 0.5], device="cuda")
+
+        def lora(x, r, k0=0, k1=K):
+            M = x.shape[0]
+            ai = (torch.arange(M, device="cuda") % 4).to(torch.int32)
+            ai[r] = 1
+            return fused_lora_matmul_cuda(x[:, None, :], w, A, Bf, s, layer,
+                                          ai)[:, 0]
+
+        bad, _ = _row_mismatches(torch, lora, K, g)
+        check(not bad, f"phase 28: fused_lora {t} {K}x{N}: the row differs "
+                       f"at (M, row) {bad}")
+        for M in TIMED_ROWS:
+            x = torch.randn(M, 1, K, generator=g, device="cuda").to(
+                torch.bfloat16)
+            ai = (torch.arange(M, device="cuda") % 4).to(torch.int32)
+            pooled = tl.PooledFactors(A, Bf, s, layer, ai)
+
+            def library():
+                torch.matmul(x, w)
+                tl.bgmv(x, pooled)
+
+            case = dict(target=t, M=M, K=K, N=N, rank=R,
+                        ms=time_ms(lambda: fused_lora_matmul_cuda(
+                            x, w, A, Bf, s, layer, ai), 50, flush),
+                        library_ms=time_ms(library, 20, flush))
+            log(f"phase 28 fused_lora {t} M={M}: " + json.dumps(case))
+            res["lora"].append(case)
+        del w, A, Bf
+        torch.cuda.empty_cache()
+    res["wgmma_n_invariant"] = True       # every check above passed
+    log("phase 28, batch invariance: " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("bf16", "int8", "lora")}))
+    return res
+
+
+def clear_blocks_cost(torch, srv, cleared):
+    """What clearing an int8 pool's fresh blocks cost a run: the calls, the
+    blocks and the host ms spent in them (``cleared``: (blocks, seconds)
+    a call), its launches a call (an ``index_fill_`` a pool tensor: 4 a
+    layer), and one call's device ms on one free block (events around 20
+    calls)."""
+    ex = srv._exec
+    out = dict(calls=len(cleared), blocks=sum(n for n, _ in cleared),
+               host_ms=sum(t for _, t in cleared) * 1e3,
+               launches_a_call=len(ex._flat_pools))
+    free = srv.alloc._free
+    if free:
+        ex.clear_blocks([free[-1]])
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a.record()
+        for _ in range(20):
+            ex.clear_blocks([free[-1]])
+        b.record()
+        torch.cuda.synchronize()
+        out["host_us_a_call"] = (time.perf_counter() - t) / 20 * 1e6
+        out["device_ms_a_call"] = a.elapsed_time(b) / 20
+    return out
+
+
 # --------------------------------------------------------------- phase 4
 PHASE4_LENS = [100, 1000, 517, 256, 733, 129, 384, 960, 211, 640, 300, 871]
 
@@ -885,6 +1174,15 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
                               ops.launch_counts().items()}))
             return out
         setattr(ex, kind, counted)
+    # int8 pools: the blocks cleared as they are allocated (calls, blocks,
+    # host seconds inside the call)
+    cleared = []
+
+    def clearing(bids, _fn=ex.clear_blocks):
+        t = time.perf_counter()
+        _fn(bids)
+        cleared.append((len(bids), time.perf_counter() - t))
+    ex.clear_blocks = clearing
     # warm-up requests (cuBLAS handles, allocator, the graphs' captures):
     # not part of the run
     for prompt, new, kw in warmup or [(list(range(1, 40)),
@@ -904,6 +1202,7 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     per_pass.clear()
+    cleared.clear()
     t0 = time.perf_counter()
     rids = [srv.submit(p, max_new_tokens=m, adapter=a, **kw)
             for p, m, a, kw in zip(prompts, news, adapters, requests_kw)]
@@ -925,8 +1224,12 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     L = cfg.num_hidden_layers
     # every decode tick, verify window and prefill chunk: one attention per
     # layer, two norms per layer plus the final norm
-    want = (expect or (lambda st: {"paged_attention": L * passes,
-                                   "rms_norm": (2 * L + 1) * passes}))(st)
+    # (and the bf16 streaming product for the 7 projections of every
+    # layer and the head, each decode tick and verify window)
+    want = (expect or (lambda st: {
+        "paged_attention": L * passes, "rms_norm": (2 * L + 1) * passes,
+        "stream_matmul": (7 * L + 1) * (st["decode_ticks"]
+                                        + st["verify_windows"])}))(st)
     for name, n in want.items():
         check(launches[name] == n, f"{label}: {name} launches "
                                    f"{launches[name]} != {n} ({passes} model "
@@ -967,6 +1270,8 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
                launches=launches)
     if st["decode_ticks"]:
         res["ms_per_decode_tick"] = st["decode_s"] / st["decode_ticks"] * 1e3
+    if srv.alloc.kv_quant == "int8":
+        res["clear_blocks"] = clear_blocks_cost(torch, srv, cleared)
     if srv.spec is None:
         res["decode_tok_s"] = st["decode_tokens"] / st["decode_s"]
     else:
@@ -1840,7 +2145,8 @@ def serve_megakernel(torch, ops, model, phase4_tokens, graphs=True,
         return {"decode_tick": st["decode_ticks"],
                 "paged_attention": L * st["prefill_chunks"],
                 "rms_norm": st["decode_ticks"]
-                + (2 * L + 1) * st["prefill_chunks"]}
+                + (2 * L + 1) * st["prefill_chunks"],
+                "stream_matmul": st["decode_ticks"]}     # the head
 
     label += _cell_suffix(graphs, server_kw.get("tick_window", 1))
     try:
@@ -1905,10 +2211,12 @@ def serve_int8_kv(torch, ops, model, megakernel, graphs=True):
             return {"decode_tick": ticks,
                     "paged_attention_int8": L * chunks,
                     "paged_attention": 0, "w8_matmul": 0,
-                    "rms_norm": ticks + (2 * L + 1) * chunks}
+                    "rms_norm": ticks + (2 * L + 1) * chunks,
+                    "stream_matmul": ticks}
         return {"decode_tick": 0, "paged_attention_int8": L * (ticks + chunks),
                 "paged_attention": 0, "w8_matmul": 0,
-                "rms_norm": (2 * L + 1) * (ticks + chunks)}
+                "rms_norm": (2 * L + 1) * (ticks + chunks),
+                "stream_matmul": (7 * L + 1) * ticks}
 
     kw = {}
     if megakernel:
@@ -1988,8 +2296,8 @@ def serve_windows(torch, ops, model, w1, w1_mk):
     """Phase 25: phase 4's and phase 14's cells at ``tick_window=4`` (4
     ticks a graph replay, one host round trip a window). Each cell's tokens
     must equal its W = 1 run's on phase 4's requests: a row's arithmetic
-    does not depend on the rows beside it (the paged attention sizes a
-    row's key splits from its own context, ``paged_tiles.cuh``
+    does not depend on the rows beside it (the paged attention sizes its
+    key splits from the launch's shapes, ``paged_tiles.cuh``
     ``row_split_keys``), so W = 4's other refill timing changes nothing.
     Then sampled requests at W = 4 with the graphs on and off from one
     seed (:func:`serve_sampled_window`)."""
@@ -2181,7 +2489,7 @@ def spec_breakdown(torch, srv, greedy=True):
     return res
 
 
-def _spec_expect(L, megakernel, draft_cfg=None):
+def _spec_expect(L, megakernel, draft_cfg=None, int8=False):
     """The launches a speculative cell's run must count: every verify
     window and decode tick as a model pass (the per-layer path: an
     attention a layer, 2 norms a layer and the final one; the whole-tick
@@ -2191,14 +2499,23 @@ def _spec_expect(L, megakernel, draft_cfg=None):
     def expect(st):
         windows, ticks, chunks = (st["verify_windows"], st["decode_ticks"],
                                   st["prefill_chunks"])
-        if megakernel:
+        if int8:
+            # int8 weights: the projections and the head through w8_matmul
+            # in every pass (prefill chunks' 128 rows included)
+            passes = ticks + windows + chunks
+            want = {"paged_attention": L * passes,
+                    "rms_norm": (2 * L + 1) * passes,
+                    "w8_matmul": (7 * L + 1) * passes, "stream_matmul": 0}
+        elif megakernel:
             want = {"decode_tick": ticks + windows,
                     "paged_attention": L * chunks,
-                    "rms_norm": ticks + windows + (2 * L + 1) * chunks}
+                    "rms_norm": ticks + windows + (2 * L + 1) * chunks,
+                    "stream_matmul": ticks + windows}
         else:
             passes = ticks + windows + chunks
             want = {"paged_attention": L * passes,
-                    "rms_norm": (2 * L + 1) * passes}
+                    "rms_norm": (2 * L + 1) * passes,
+                    "stream_matmul": (7 * L + 1) * (ticks + windows)}
         if draft_cfg is not None:
             Ld = draft_cfg["num_hidden_layers"]
             want["rms_norm"] += (2 * Ld + 1) * SPEC_K * windows
@@ -2237,7 +2554,8 @@ class ReplayDrafter:
 
 
 def serve_spec_cell(torch, ops, model, label, traffic, megakernel=False,
-                    drafter=None, sampled=False, graphs=True, **spec_kw):
+                    drafter=None, sampled=False, graphs=True, int8=False,
+                    **spec_kw):
     """One speculative cell of phase 26 through :func:`serve`:
     ``GenerationServer(spec=SpecConfig(k=SPEC_K, ...), tick_window=
     SPEC_WINDOW)`` (1 with a draft model), per layer or behind
@@ -2280,7 +2598,7 @@ def serve_spec_cell(torch, ops, model, label, traffic, megakernel=False,
         res, _, srv = serve(
             torch, ops, model, label=label + _cell_suffix(graphs),
             expect=_spec_expect(L, megakernel,
-                                DRAFT_CFG if draft_model else None),
+                                DRAFT_CFG if draft_model else None, int8),
             expect_per_pass=expect_per_pass, graphs=graphs, traffic=traffic,
             requests_kw=[kw] * len(traffic[0]), warmup=_spec_warmup(kw),
             prime=prime, breakdown=breakdown, **server_kw)
@@ -2338,13 +2656,13 @@ def verify_vs_decode(torch, ops, model, m32, prompt, following):
     decode ticks on a copy of the pools — with the kernels (per layer, and
     through decode_tick at W = 5 against W = 1), with the plain twins in
     bf16 and with the plain twins on the fp32 copy. Prints the largest
-    |verify - decode| logit difference per position for each, alone (the
-    products at 5 rows against 1) and with the request in all 8 rows of the
-    served batch (40 rows against 8, as the server runs them: ``_b8``); the
-    kernels' verify logits may be at most DRIFT_RATIO x as far from the
-    fp32 ones as the plain bf16 path's (phase 5's rule). Returns the
-    readings, with the largest |bf16 kernels - fp32| logit difference seen
-    (verify or decode), the ground of (c)'s near-tie bound."""
+    |verify - decode| logit difference per position for each (the products
+    at 5 rows against 1: 0 with the kernels); the kernels' verify logits
+    may be at most DRIFT_RATIO x as far from the fp32 ones as the plain
+    bf16 path's (phase 5's rule). Returns the readings, with the largest
+    |bf16 kernels - fp32| logit difference seen (verify or decode), the
+    ground of (c)'s near-tie diagnostic. The served batch's form, 8
+    distinct rows, is :func:`verify_decode_b8`."""
     from paddle_tpu_torch.ops import decode_megakernel as mk
 
     cfg = model.cfg
@@ -2423,13 +2741,10 @@ def verify_vs_decode(torch, ops, model, m32, prompt, following):
             check(ratio <= DRIFT_RATIO,
                   f"phase 26 (b): {kern}' verify logits drift from fp32 "
                   f"{ratio:.3g} x as far as {plain}'s (limit {DRIFT_RATIO})")
-    for name, mode, mega in (("kernels", "auto", False),
-                             ("megakernel", "megakernel", True)):
-        v, d = run(model, mode, megakernel=mega, B=MAX_BATCH)
-        res[name]["verify_vs_decode_max_per_position_b8"] = \
-            (v - d).abs().amax(-1).tolist()
-        res[name]["argmax_verify_equals_decode_b8"] = int(
-            (v.argmax(-1) == d.argmax(-1)).sum())
+    for name in ("kernels", "megakernel"):
+        check(max(res[name]["verify_vs_decode_max_per_position"]) == 0.0,
+              f"phase 26 (b): {name}' verify and decode logits differ at "
+              f"B = 1: {res[name]['verify_vs_decode_max_per_position']}")
     res["argmax_verify_equals_decode"] = {
         name: int((v.argmax(-1) == d.argmax(-1)).sum())
         for name, (v, d) in paths.items()}
@@ -2439,6 +2754,124 @@ def verify_vs_decode(torch, ops, model, m32, prompt, following):
     res["rms_logit"] = rms(fv)
     res["prompt_tokens"] = n
     log("phase 26 (b), verify against decode: " + json.dumps(res))
+    return res
+
+
+# phase 26 (b) at the served batch: 8 distinct requests' prompt lengths
+B8_LENS = (100, 300, 517, 256, 129, 384, 211, 640)
+
+
+def verify_decode_b8(torch, ops, model, label, kv_quant="none",
+                     megakernel=False, lora=None):
+    """Phase 26 (b) at the served batch: 8 requests (distinct prompts of
+    B8_LENS tokens, each prefilled in chunks of 128 into its own blocks of
+    fresh pools; ``kv_quant`` "int8": int8 pools), then a window of W = 5
+    random tokens a row scored at once (a verify window, 40 rows) against
+    5 single decode ticks (8 rows) on a copy of the pools, per layer or
+    through ``decode_tick`` (``megakernel``); and rows 0 and 7 alone (B =
+    1, a verify window of 5 rows and ticks of 1). ``lora``: (adapter pool,
+    pages of the 8 rows). Requires verify = decode bit for bit at B = 8
+    (over int8 pools the window's later tokens requantize a block before
+    its earlier queries read it, so there the difference is printed, not
+    required 0) and each row's logits at B = 8 = the same row's alone, in
+    both forms, bit for bit. Returns the readings."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+
+    cfg = model.cfg
+    C, bs, W, B = PREFILL_CHUNK, BLOCK_SIZE, SPEC_K + 1, MAX_BATCH
+    g = torch.Generator(device="cuda").manual_seed(29)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g,
+                             device="cuda") for n in B8_LENS]
+    nblk = -(-(max(B8_LENS) + C) // bs) + 1
+    tables = (1 + torch.arange(B * nblk, dtype=torch.int32, device="cuda")
+              ).reshape(B, nblk)
+    pos = torch.tensor(B8_LENS, dtype=torch.int32, device="cuda")
+    win = torch.randint(1, cfg.vocab_size, (B, W), generator=g,
+                        device="cuda")
+    N = B * nblk + 1
+    shape = (N, bs, cfg.num_key_value_heads, cfg.head_dim)
+
+    def layer():
+        if kv_quant == "int8":
+            sc = (N, cfg.num_key_value_heads)
+            return (torch.zeros(shape, dtype=torch.int8, device="cuda"),
+                    torch.zeros(sc, device="cuda"),
+                    torch.zeros(shape, dtype=torch.int8, device="cuda"),
+                    torch.zeros(sc, device="cuda"))
+        return tuple(torch.zeros(shape, dtype=cfg.torch_dtype, device="cuda")
+                     for _ in range(2))
+
+    def factors(rows):
+        if lora is None:
+            return None, None
+        aidx = torch.tensor([lora[1][r] for r in rows], dtype=torch.int32,
+                            device="cuda")
+        return lora[0].layer_factors(aidx), mk.lora_tables(lora[0], aidx)
+
+    ops.set_kernel_mode("megakernel" if megakernel else "auto")
+    weights = mk.stack_layer_weights(model) if megakernel else None
+    try:
+        with torch.no_grad():
+            base = [layer() for _ in range(cfg.num_hidden_layers)]
+            for b, p in enumerate(prompts):
+                fac, _ = factors([b])
+                for start in range(0, len(p), C):
+                    chunk = torch.zeros(1, C, dtype=torch.long, device="cuda")
+                    part = p[start:start + C]
+                    chunk[0, :len(part)] = part
+                    model.model.paged_prefill_chunk(chunk, base, tables[b],
+                                                    start, fac)
+
+            def window(toks, pools, tb, pv, rows):
+                fac, tick_lora = factors(rows)
+                if megakernel:
+                    x = model.model.embed_tokens(toks)
+                    cr, sr = mk.gather_rope_rows(model.model._cos,
+                                                 model.model._sin, pv,
+                                                 toks.shape[1])
+                    xo, _ = mk.decode_tick(
+                        x, [t for pool in pools for t in pool], tb, pv,
+                        weights, cr, sr, block_size=bs,
+                        eps=cfg.rms_norm_eps, lora=tick_lora)
+                    h = model.model.norm(xo)
+                else:
+                    h, _ = model.model.paged_verify_step(toks, pools, tb, pv,
+                                                         fac)
+                return model.head(h, stream=True).float()
+
+            def both(rows):
+                tb, pv, wn = tables[rows], pos[rows], win[rows]
+                copy = [tuple(t.clone() for t in pool) for pool in base]
+                ver = window(wn, copy, tb, pv, rows)
+                copy = [tuple(t.clone() for t in pool) for pool in base]
+                dec = torch.cat([window(wn[:, j:j + 1], copy, tb, pv + j,
+                                        rows) for j in range(W)], 1)
+                return ver, dec
+
+            v8, d8 = both(list(range(B)))
+            alone = {r: both([r]) for r in (0, B - 1)}
+    finally:
+        ops.set_kernel_mode("auto")
+    res = dict(verify_vs_decode_max=(v8 - d8).abs().max().item(),
+               verify_vs_decode_max_per_position=(v8 - d8).abs()
+               .amax(-1).amax(0).tolist(),
+               argmax_verify_equals_decode=int(
+                   (v8.argmax(-1) == d8.argmax(-1)).sum()),
+               rows_alone_equal={str(r): [torch.equal(v8[r], v[0]),
+                                          torch.equal(d8[r], d[0])]
+                                 for r, (v, d) in alone.items()},
+               finite=bool(torch.isfinite(v8).all()), rows=B, window=W)
+    log(f"phase 26 (b) {label}, B = {B}: " + json.dumps(res))
+    check(res["finite"], f"phase 26 (b) {label}: non-finite logits")
+    check(all(all(v) for v in res["rows_alone_equal"].values()),
+          f"phase 26 (b) {label}: a row's logits at B = {B} differ from the "
+          f"same row's alone: {res['rows_alone_equal']}")
+    if kv_quant != "int8":
+        check(res["verify_vs_decode_max"] == 0.0,
+              f"phase 26 (b) {label}: verify and decode logits differ by "
+              f"{res['verify_vs_decode_max']} at B = {B}")
+    del base
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2552,11 +2985,21 @@ def serve_spec(torch, ops, model, phase4_tokens):
     i = PHASE4_LENS.index(517)
     vd = verify_vs_decode(torch, ops, model, m32, rs[0][i],
                           plain["tokens"][i][len(rs[0][i]):])
-    # a near tie: both bf16 paths lie within the largest error (b) saw of
-    # the fp32 logits, so two tokens they order differently lie within
-    # twice it of each other in fp32
+    vd["b8"] = {name: verify_decode_b8(torch, ops, model, name, kv_quant=kvq,
+                                       megakernel=mega)
+                for name, kvq, mega in (("kernels", "none", False),
+                                        ("megakernel", "none", True),
+                                        ("int8-kv", "int8", False),
+                                        ("int8-kv megakernel", "int8",
+                                         True))}
+    # every greedy cell's tokens equal the plain server's, request for
+    # request (the verify window's products are the decode tick's bit for
+    # bit); near ties are printed as a diagnostic only: both bf16 paths lie
+    # within the largest error (b) saw of the fp32 logits, so two tokens
+    # they order differently lie within twice it of each other in fp32
     tie = 2 * vd["kernels_vs_fp32_max"]
-    ties = {"bound": tie}
+    ties = {"near_tie_bound": tie}
+    n = len(rs[0])
     for name, got, want in (
             ("ngram", cells["ngram"], plain),
             ("ngram random", cells["ngram random"],
@@ -2568,14 +3011,14 @@ def serve_spec(torch, ops, model, phase4_tokens):
             ("planted fault", faulty, plain)):
         same, rows, ok = near_ties(torch, ops, m32, got["tokens"],
                                    want["tokens"], tie)
-        ties[name] = dict(requests_identical=same, differing=rows,
-                          within_bound=ok)
+        ties[name] = dict(requests_identical=same, requests=n,
+                          differing=rows, near_ties_within_bound=ok)
         if name == "planted fault":
-            check(not ok, "phase 26 (c): the near-tie check passes the "
-                          "planted fault")
+            check(same < n, "phase 26 (c): the planted fault's tokens equal "
+                            "the plain server's")
         else:
-            check(ok, f"phase 26 (c): {name}: a request's first differing "
-                      f"token is no near tie ({rows})")
+            check(same == n, f"phase 26 (c): {name}: {same} of {n} requests "
+                             f"identical to the plain server's ({rows})")
     log("phase 26 (c), greedy tokens against the plain server: "
         + json.dumps(ties))
     del m32
@@ -2583,6 +3026,45 @@ def serve_spec(torch, ops, model, phase4_tokens):
     torch.cuda.empty_cache()
     out.update(plain=plain, plain_megakernel=plain_mk, cells=cells,
                determinism=det, verify_vs_decode=vd, ties=ties)
+    return out
+
+
+def serve_spec_int8(torch, ops, model):
+    """Phase 26's int8-weights cell, on the quantized model (phase 11):
+    the plain server and the n-gram speculative server (k = 4, tick_window
+    4) on the repeat-suffix traffic over bf16 KV pools, every projection
+    and the head through w8_matmul (decode ticks, verify windows and
+    prefill chunks alike); every request's tokens must equal the plain
+    server's; and (b) at B = 8 for the int8 model."""
+    check(model.quantized, "phase 26 int8: the model is not quantized")
+    L = model.cfg.num_hidden_layers
+    rs = repeat_suffix_traffic(model.cfg)
+
+    def expect(st):
+        passes = st["decode_ticks"] + st["prefill_chunks"]
+        return {"w8_matmul": (7 * L + 1) * passes, "stream_matmul": 0,
+                "paged_attention": L * passes,
+                "rms_norm": (2 * L + 1) * passes}
+
+    plain, _, srv = serve(torch, ops, model,
+                          label="phase 26 plain int8 weights (repeat-suffix)",
+                          traffic=rs, expect=expect)
+    del srv
+    cell = serve_spec_cell(torch, ops, model, "phase 26 spec ngram int8 "
+                                              "weights (repeat-suffix)", rs,
+                           int8=True)
+    n = len(rs[0])
+    same = sum(a == b for a, b in zip(cell["tokens"], plain["tokens"]))
+    out = dict(requests_identical=same, requests=n,
+               plain_decode_tok_s=plain["decode_tok_s"],
+               plain_ms_per_decode_tick=plain["ms_per_decode_tick"],
+               plain_prefill_tok_s=plain["prefill_tok_s"],
+               spec_decode_tok_s=cell["decode_tok_s"],
+               acceptance_rate=cell["spec_metrics"]["acceptance_rate"],
+               b8=verify_decode_b8(torch, ops, model, "int8 weights"))
+    log("phase 26 (c) int8 weights: " + json.dumps(out))
+    check(same == n, f"phase 26 (c): int8 weights: {same} of {n} requests "
+                     f"identical to the plain server's")
     return out
 
 
@@ -2607,6 +3089,215 @@ def log_spec(res):
     log("phase 26 (d): " + json.dumps(res["determinism"]))
 
 
+# -------------------------------------------------------------- phase 29
+# the pool of the preempting cells: this share of the blocks phase 4's
+# requests need at their full length, so that the batch outgrows it
+SCHED_POOL_SHARE = 0.45
+# the urgent requests, submitted after the first decode window in which
+# every occupied slot decodes (none prefills): prompt lengths and new
+# tokens
+SCHED_HIGH = ((200, 48), (700, 48), (150, 48), (400, 48))
+
+
+def sched_traffic(cfg):
+    """Phase 29's requests: phase 4's 12 (normal priority) and 4 urgent
+    ones (prompts from a seed)."""
+    import numpy as np
+
+    prompts, news = phase4_traffic(cfg)
+    rng = np.random.default_rng(29)
+    high = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n, _ in SCHED_HIGH]
+    return prompts, news, high, [m for _, m in SCHED_HIGH]
+
+
+def swap_copy_rates(torch, srv, nblocks=64, repeats=5):
+    """The host pool's copies on the server's own pools: ``nblocks``
+    blocks of every layer gathered into pinned host memory (the swap-out
+    copy, ``KVOffloadEngine.gather_payload``: one pinned buffer, one
+    ``index_select`` and copy a pool tensor) and scattered back in place
+    (the swap-in copy: ``index_copy_`` a pool tensor), the same values
+    back, each timed on the host from a synchronized card to its end
+    (median of ``repeats`` after a warm-up, each payload freed before the
+    next: the caching host allocator hands its buffer back): ms a block
+    and GB/s each way."""
+    import statistics
+
+    eng, pools = srv._offload, srv._exec._flat_pools
+    table = list(range(1, nblocks + 1))
+    idx = torch.tensor(table, dtype=torch.long, device="cuda")
+    nbytes = nblocks * srv.alloc.bytes_per_block
+    outs, ins = [], []
+    arrays = eng.gather_payload(table, pools)       # warm-up
+    for _ in range(repeats):
+        arrays = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays = eng.gather_payload(table, pools)
+        outs.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, a in zip(pools, arrays):
+            p.index_copy_(0, idx, a.to("cuda", non_blocking=True))
+        torch.cuda.synchronize()
+        ins.append(time.perf_counter() - t0)
+    o, i = statistics.median(outs), statistics.median(ins)
+    return dict(blocks=nblocks, bytes=nbytes,
+                swap_out_ms_per_block=o / nblocks * 1e3,
+                swap_in_ms_per_block=i / nblocks * 1e3,
+                swap_out_gb_s=nbytes / o / 1e9, swap_in_gb_s=nbytes / i / 1e9)
+
+
+def serve_sched(torch, ops, model, label, kv_quant="none", megakernel=False,
+                ref_tokens=None):
+    """One cell of phase 29: ``GenerationServer(policy="priority",
+    num_blocks=)`` with a pool of SCHED_POOL_SHARE of the blocks phase 4's
+    requests need, per layer or behind ``kernels="megakernel"``, over bf16
+    or int8 KV pools. Phase 4's 12 greedy requests at normal priority, then
+    (after the first decode window in which no slot prefills, so that a
+    victim of theirs decodes and swaps) 4 urgent ones; every step is
+    followed
+    by ``assert_conserved()``. Every request's tokens must equal those of
+    the same request on a pool that never runs dry (``ref_tokens``: the
+    12's from that cell's phase-4 run; else they are served here, all 16
+    at once), preemptions must happen, no graph may be captured after the
+    warm-up, and every decode pass (and every prefill chunk) must launch
+    the same kernels as every other. Prints the preemptions and resumes,
+    the host pool's peak bytes, the swap copies' ms a block and GB/s, and
+    ``sched_metrics()`` / ``load_metrics()``."""
+    from paddle_tpu_torch.inference.scheduler import PRIORITY_HIGH
+    from paddle_tpu_torch.inference.serving import GenerationServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    prompts, news, high, high_news = sched_traffic(cfg)
+    need = sum(-(-(len(p) + n) // BLOCK_SIZE)
+               for p, n in zip(prompts, news))
+    kw = dict(cache="paged", max_batch=MAX_BATCH, block_size=BLOCK_SIZE,
+              prefill_chunk=PREFILL_CHUNK, max_len=MAX_LEN,
+              kv_quant=kv_quant)
+    if megakernel:
+        kw["kernels"] = "megakernel"
+    try:
+        ref = GenerationServer(model, **kw)
+        todo = list(zip(high, high_news))
+        if ref_tokens is None:
+            todo = list(zip(prompts, news)) + todo
+        rids = [ref.submit(p, max_new_tokens=n) for p, n in todo]
+        out = ref.run()
+        want = list(ref_tokens or []) + [out[r] for r in rids]
+        del ref, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        srv = GenerationServer(model, policy="priority",
+                               num_blocks=int(SCHED_POOL_SHARE * need) + 1,
+                               **kw)
+        ex = srv._exec
+        srv.submit(list(range(1, 40)), max_new_tokens=8)   # warm-up
+        srv.run()
+        captures = ex.captures
+        per_pass = []
+        for kind in ("decode_paged", "chunk_prefill"):
+            def counted(*a, _fn=getattr(ex, kind), _kind=kind, **k):
+                before = ops.launch_counts()
+                res = _fn(*a, **k)
+                per_pass.append((_kind, {n: c - before[n] for n, c in
+                                         ops.launch_counts().items()}))
+                return res
+            setattr(ex, kind, counted)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [srv.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, news)]
+        trips0 = srv.throughput_stats()["decode_trips"]
+        high_rids, peak_q, steps = None, 0, 0
+        while True:
+            left = srv.step()
+            steps += 1
+            srv.assert_conserved()
+            peak_q = max(peak_q, srv.load_metrics()["queue_depth"])
+            if high_rids is None and \
+                    srv.throughput_stats()["decode_trips"] > trips0 and \
+                    not any(srv._prefilling[s] for s in range(MAX_BATCH)
+                            if srv._slots[s] is not None):
+                high_rids = [srv.submit(p, max_new_tokens=n,
+                                        priority=PRIORITY_HIGH)
+                             for p, n in zip(high, high_news)]
+                continue
+            if not left and high_rids is not None:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = srv.take_results()
+        for kind in ("decode_paged", "chunk_prefill"):
+            delattr(ex, kind)
+        sm = srv.sched_metrics()
+        lm = srv.load_metrics()
+        tokens = [got.get(r) for r in rids + high_rids]
+        same = sum(a == b for a, b in zip(tokens, want))
+        kinds = {}
+        for kind, counts in per_pass:
+            kinds.setdefault(kind, set()).add(tuple(sorted(
+                (n, c) for n, c in counts.items() if c)))
+        rates = swap_copy_rates(torch, srv)
+        eng = srv._offload
+        res = dict(requests=len(tokens), requests_identical=same,
+                   num_blocks=srv.alloc.num_blocks, blocks_needed=need,
+                   steps=steps, wall_s=wall, peak_queue_depth=peak_q,
+                   preemptions=sm["preemptions"], resumes=sm["resumes"],
+                   prefill_aborts=sm["prefill_aborts"],
+                   stalled_reservations=sm["stalled_reservations"],
+                   host_bytes_peak=sm["host_bytes_peak"],
+                   swap_out_blocks=srv.kv_stats()["swap_out_blocks"],
+                   swap_in_blocks=srv.kv_stats()["swap_in_blocks"],
+                   swap_out_wall_ms_per_block=(
+                       eng.swap_out_s * 1e3
+                       / max(srv.kv_stats()["swap_out_blocks"], 1)),
+                   captures_after_warmup=ex.captures - captures,
+                   launch_sets_per_pass_kind={k: len(v)
+                                              for k, v in kinds.items()},
+                   sched_metrics=sm, load_metrics=lm, copy_rates=rates,
+                   throughput=srv.throughput_stats())
+        log(f"phase 29 {label}: " + json.dumps(res))
+        check(all(t is not None for t in tokens),
+              f"phase 29 {label}: a request did not finish")
+        check(same == len(tokens), f"phase 29 {label}: {same} of "
+                                   f"{len(tokens)} requests identical to the "
+                                   f"run on a pool that never runs dry")
+        check(sm["preemptions"] > 0 and sm["resumes"] > 0,
+              f"phase 29 {label}: no swap ({sm})")
+        check(ex.captures == captures, f"phase 29 {label}: "
+                                       f"{ex.captures - captures} graph "
+                                       f"captures after the warm-up")
+        check(all(len(v) == 1 for v in kinds.values()),
+              f"phase 29 {label}: passes of one kind launched different "
+              f"kernels: {kinds}")
+        check(sm["host_bytes_in_use"] == 0 and sm["swapped_waiting"] == 0,
+              f"phase 29 {label}: host pool not drained ({sm})")
+    finally:
+        ops.set_kernel_mode("auto")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def scheduling(torch, ops, model, ref=None):
+    """Phase 29: the preempting cells, bf16 and int8 KV, per layer and
+    behind the whole-tick kernel. ``ref``: {cell: phase 4's tokens of the
+    same pool and kernels} (None: served here)."""
+    ref = ref or {}
+    out = {}
+    for name, kvq, mega in (("bf16", "none", False),
+                            ("bf16 megakernel", "none", True),
+                            ("int8-kv", "int8", False),
+                            ("int8-kv megakernel", "int8", True)):
+        out[name] = serve_sched(torch, ops, model, name, kv_quant=kvq,
+                                megakernel=mega, ref_tokens=ref.get(name))
+    return out
+
+
 # --------------------------------------------------------------- phase 9
 # the decode shapes (K, N) of Llama-3-8B's projections and lm-head
 W8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
@@ -2626,11 +3317,12 @@ def _el_ratio(x, ref, mag, K):
 
 def kernel_w8(torch, ops):
     """w8_matmul against its plain twin at every decode shape, M in
-    {1, 8, 16}, with the tolerance shown to reject a lost K slice; each
-    launch repeated 3 times bit for bit, the wrapper's host us a call
-    beside its device time. M = 128, a prefill chunk's rows, is measured
-    beside the dequantize-once path the dispatch takes for it (routing
-    unchanged: ``int8.streams_int8``)."""
+    {1, 8, 16, 40, 128} (decode ticks, a verify window of 8 x 5 rows, a
+    prefill chunk: every one streams, ``int8.streams_int8``), with the
+    tolerance shown to reject a lost K slice; each launch repeated 3
+    times bit for bit, the wrapper's host us a call beside its device
+    time. At 40 and 128 rows the dequantize-once path those rows took
+    before is measured beside it."""
     from paddle_tpu_torch.ops import int8 as i8
     from paddle_tpu_torch.ops.int8_cuda import plan, w8_matmul_cuda
 
@@ -2647,7 +3339,7 @@ def kernel_w8(torch, ops):
         check(torch.equal(i8.dequantize(wq, sc, torch.bfloat16),
                           (wq.float() * sc).to(torch.bfloat16)),
               f"dequantize {K}x{N}: not the fp32 product rounded to bf16")
-        for M in (8, 1, 16, 128):
+        for M in (8, 1, 16, 40, 128):
             x = torch.randn(M, K, generator=g, device="cuda").to(
                 torch.bfloat16)
             out = w8_matmul_cuda(x, wq, sc)
@@ -2683,8 +3375,9 @@ def kernel_w8(torch, ops):
                         bound_ms=b, bound_by=by,
                         library_ms=time_ms(lambda: torch.matmul(x, w), 50,
                                            flush))
-            if M > i8.STREAM_MAX_ROWS:
-                # measurement only: the path a prefill chunk takes
+            if M >= 40:
+                # measurement only: the path these rows took before they
+                # streamed
                 case["dequant_ms"] = time_ms(
                     lambda: i8._w8_dequant(x, wq, sc), 20, flush)
             log(f"kernel w8_matmul M={M} {K}x{N}: " + json.dumps(case))
@@ -2851,11 +3544,13 @@ def serve_lora(torch, ops, model, megakernel=False, graphs=True):
         if megakernel:
             return {"decode_tick": ticks, "fused_lora_matmul": 7 * L * chunks,
                     "paged_attention": L * chunks,
-                    "rms_norm": ticks + (2 * L + 1) * chunks}
+                    "rms_norm": ticks + (2 * L + 1) * chunks,
+                    "stream_matmul": ticks}
         passes = ticks + chunks
         return {"fused_lora_matmul": 7 * L * passes,
                 "paged_attention": L * passes,
-                "rms_norm": (2 * L + 1) * passes}
+                "rms_norm": (2 * L + 1) * passes,
+                "stream_matmul": ticks}
 
     kw = {}
     if megakernel:
@@ -2899,11 +3594,10 @@ def serve_lora(torch, ops, model, megakernel=False, graphs=True):
 # --------------------------------------------------------------- phase 11
 def serve_int8(torch, ops, model, graphs=True):
     """``quantize_int8()`` in place (once), then phase 4's traffic with
-    ``kv_quant="int8"``: every decode tick streams the 7 x 32 projections
-    and the lm-head through w8_matmul and reads the int8 pool through the
-    int8 attention kernel; a prefill chunk's projections (128 rows)
-    dequantize, its lm-head row (1 row) streams. ``graphs`` as in
-    :func:`serve`."""
+    ``kv_quant="int8"``: every decode tick and every prefill chunk (128
+    rows) streams the 7 x 32 projections and the lm-head through
+    w8_matmul, and reads the int8 pool through the int8 attention kernel.
+    ``graphs`` as in :func:`serve`."""
     cfg = model.cfg
     L = cfg.num_hidden_layers
     if not model.quantized:
@@ -2917,8 +3611,7 @@ def serve_int8(torch, ops, model, graphs=True):
 
     def expect(st):
         passes = st["decode_ticks"] + st["prefill_chunks"]
-        return {"w8_matmul": (7 * L + 1) * st["decode_ticks"]
-                + st["prefill_chunks"],
+        return {"w8_matmul": (7 * L + 1) * passes, "stream_matmul": 0,
                 "paged_attention_int8": L * passes, "paged_attention": 0,
                 "rms_norm": (2 * L + 1) * passes}
 
@@ -4976,6 +5669,26 @@ def main() -> int:
         log(f"partial run (phases 3, 4, 26 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--only", "invariance"]:
+        # a diagnostic run: the build, phase 28 and phase 26 (with phase 4,
+        # its random-prompt yardstick), no final line
+        log("weight-streaming kernels: "
+            + json.dumps(stream_gemm_build(_build)))
+        batch_invariance(torch, ops)
+        model = LlamaForCausalLM(llama3_8b_config())
+        serve_res, _, srv = serve(torch, ops, model)
+        del srv
+        log_spec(serve_spec(torch, ops, model, serve_res["tokens"]))
+        log(f"partial run (phases 28, 4, 26 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--only", "sched"]:
+        # a diagnostic run: the build and phase 29 alone, no final line
+        model = LlamaForCausalLM(llama3_8b_config())
+        scheduling(torch, ops, model)
+        log(f"partial run (phase 29 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--only", "train_graph"]:
         # a diagnostic run: the build, phase 6's AdamW kernel, the
         # graphed training cells of phases 7 and 23 and phase 27 alone,
@@ -5025,6 +5738,8 @@ def main() -> int:
     cfg = llama3_8b_config()
     rms_cases = kernel_rms_norm(torch, fused_norm, cfg)
     attn_cases = kernel_paged_attention(torch, ops, pa, cfg)
+    # phase 28: the decode and verify products, batch-invariant
+    inv_res = batch_invariance(torch, ops)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5056,9 +5771,12 @@ def main() -> int:
     # phase 16, int8 KV pools under the bf16 model: per layer, then
     # through the whole-tick kernel
     kv8_res = serve_int8_kv(torch, ops, model, megakernel=False)
+    sched_ref = {"bf16": serve_res["tokens"], "bf16 megakernel":
+                 mk_res["tokens"], "int8-kv": kv8_res["tokens"]}
     graph_cmp["int8-kv"] = eager_twin("int8-kv", kv8_res, serve_int8_kv(
         torch, ops, model, megakernel=False, graphs=False))
     kv8_mk_res = serve_int8_kv(torch, ops, model, megakernel=True)
+    sched_ref["int8-kv megakernel"] = kv8_mk_res["tokens"]
     graph_cmp["int8-kv megakernel"] = eager_twin(
         "int8-kv megakernel", kv8_mk_res, serve_int8_kv(
             torch, ops, model, megakernel=True, graphs=False))
@@ -5073,6 +5791,8 @@ def main() -> int:
                                                   serve_res, mk_res)
     # phase 26: speculative serving
     spec_res = serve_spec(torch, ops, model, serve_res["tokens"])
+    # phase 29: priority scheduling and swap preemption
+    sched_res = scheduling(torch, ops, model, sched_ref)
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -5084,6 +5804,13 @@ def main() -> int:
     e2e_lora = end_to_end(torch, ops, model, prompt, label="end_to_end lora",
                           lora=(lora_srv._lora,
                                 lora_srv._lora.acquire("a1")))
+    # the rows on a1, a2 (the pool's two live pages) and no adapter
+    pages = [lora_srv._lora.acquire(n) for n in ("a1", "a2")] + [0]
+    lora_rows = (lora_srv._lora, [pages[i % 3] for i in range(MAX_BATCH)])
+    lora_b8 = {name: verify_decode_b8(torch, ops, model, name, lora=lora_rows,
+                                      megakernel=mega)
+               for name, mega in (("lora", False), ("lora megakernel",
+                                                    True))}
     del lora_srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -5105,6 +5832,7 @@ def main() -> int:
     int8_res, _ = serve_int8(torch, ops, model)
     graph_cmp["int8"] = eager_twin("int8", int8_res, serve_int8(
         torch, ops, model, graphs=False)[0])
+    int8_spec = serve_spec_int8(torch, ops, model)
     e2e_int8 = end_to_end(torch, ops, model, prompt, label="end_to_end int8",
                           kv_quant="int8")
     del model
@@ -5205,6 +5933,18 @@ def main() -> int:
               "paddle_tpu/ops/paged_attention_pallas.py:343", lora_cases,
               lora_res["launches"]["fused_lora_matmul"],
               build=stream_build["fused_lora"]),
+        # the port's own kernel: no TPU counterpart (XLA runs these
+        # products in the JAX package); launches a decode tick and a
+        # verify window per layer (7 projections a layer and the head)
+        entry("stream_matmul", csrc + "stream_matmul.cu",
+              "none: paddle_tpu/models/llama.py leaves these products to "
+              "XLA", inv_res["bf16"],
+              serve_res["launches"]["stream_matmul"],
+              launches_per_tick=7 * cfg.num_hidden_layers + 1,
+              launches_per_window=7 * cfg.num_hidden_layers + 1,
+              spec_launches=spec_cells["ngram"]["launches"]["stream_matmul"],
+              megakernel_launches=mk_res["launches"]["stream_matmul"],
+              build=stream_build["stream_matmul"]),
     ]
     # row 13, each variant of the tick with the launches of its serving
     # cell (the int8 variant's cases include the "tile" mode, the LoRA
@@ -5250,6 +5990,12 @@ def main() -> int:
         if e is not None:
             log("end_to_end kernels vs plain vs fp32: " + json.dumps(e))
     log_spec(spec_res)
+    log("phase 26 (b) LoRA at B = 8: " + json.dumps(lora_b8))
+    log("phase 26 int8 weights: " + json.dumps(int8_spec))
+    log("phase 28, batch invariance: " + json.dumps(
+        {k: v for k, v in inv_res.items() if k != "bf16"}))
+    for name, r in sched_res.items():
+        log(f"phase 29 {name}: " + json.dumps(r))
     log("phase 24, graphs on / off: " + json.dumps(graph_cmp))
     log(f"phase 25, sampled W = {WINDOW}: "
         + json.dumps(window_res))

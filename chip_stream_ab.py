@@ -20,7 +20,10 @@ wrapper's host us a call. ``--only`` takes some of the families
 (``w8``, ``lora``, ``paged``; ``tick``, not in the default: the
 ``decode_tick_cuda`` wrapper of each variant of ``chip_smoke.MK_VARIANTS``
 at Llama-3-8B's full depth with seeded random weights, B = 8, W = 1 and 4,
-on ``chip_smoke.py`` phase 13's inputs; device ms of 5 ticks a graph).
+on ``chip_smoke.py`` phase 13's inputs; device ms of 5 ticks a graph;
+``paged_long``, not in the default: the paged attention wrappers at
+``LONG_FORMS``, short rows in a table as wide as a server of ``max_len``
+8192 gives them).
 
 ``--variants``: builds ``w8_matmul.cu``, ``fused_lora.cu`` and
 ``paged_attention.cu`` of this tree once as they are ("kept") and once per
@@ -61,6 +64,14 @@ LORA_CASES = [("gate", 8, 1, 4096, 14336), ("down", 8, 1, 14336, 4096),
               ("gate", 1, 128, 4096, 14336), ("down", 1, 128, 14336, 4096),
               ("q", 1, 128, 4096, 4096)]
 LORA_PAGES = [1, 2, 3, 0, 1, 0, 3, 2]
+# (form, B, W, pos): decode and a k = 4 verify window at 512 keys a row,
+# and decode at phase 3's mixed lengths, in the block table of a server of
+# max_len 8192 (block 16, chunk 128: 520 entries a row)
+LONG_FORMS = [("decode_512_table_8192", 8, 1, [512] * 8),
+              ("verify5_512_table_8192", 8, 5, [512] * 8),
+              ("decode_mixed_table_8192", 8, 1,
+               [1000, 511, 512, 255, 37, 700, 128, 5])]
+LONG_TABLE_WIDTH = 8192 // 16 + 128 // 16
 RANK = 8
 
 # name -> [(file under csrc, old text, new text)]: each variant changes one
@@ -69,14 +80,12 @@ VARIANTS = {
     # the first plan: 128-column tiles unless clusters of 8 could not fill
     # the SMs, K splits aiming at one block an SM
     "plan_first": [("stream_tiles.cuh",
-                    "p.wg = 4 * cdiv(N, 2 * kColBlock) * p.tok_tiles >= "
-                    "3 * sms ? 2 : 1;",
-                    "p.wg = cdiv(N, 2 * kColBlock) * p.tok_tiles * "
-                    "kMaxCluster >= sms ? 2 : 1;"),
+                    "return 4 * cdiv(N, 2 * kColBlock) >= 3 * sms ? 2 : 1;",
+                    "return cdiv(N, 2 * kColBlock) * kMaxCluster >= sms ? "
+                    "2 : 1;"),
                    ("stream_tiles.cuh",
-                    "int s = (p.tok <= 16 ? 2 : 1) * sms / "
-                    "(p.col_tiles * p.tok_tiles);",
-                    "int s = sms / (p.col_tiles * p.tok_tiles);")],
+                    "int s = 2 * sms / cdiv(N, col_wg(N, sms) * kColBlock);",
+                    "int s = sms / cdiv(N, col_wg(N, sms) * kColBlock);")],
     # no K split (no cluster): one block an output tile
     "no_split": [("stream_tiles.cuh",
                   "if (s > kMaxCluster) s = kMaxCluster;",
@@ -104,8 +113,7 @@ VARIANTS = {
     # an int8 64-column tile converted by one consumer warpgroup (not two
     # taking the stages in turn)
     "no_share": [("stream_gemm.cuh",
-                  "static constexpr bool kShare = kInt8 && kWG == 1 && "
-                  "kX <= 16;",
+                  "static constexpr bool kShare = kInt8 && kWG == 1;",
                   "static constexpr bool kShare = false;")],
     # the epilogue's sum over the cluster one addend load at a time
     "serial_cluster_sum": [("stream_gemm.cuh", "constexpr int kLoadBatch = 8;",
@@ -117,8 +125,10 @@ VARIANTS = {
                     "sbase + off, tid);", "")],
     # fused LoRA's second launch without programmatic dependent launch
     "no_pdl": [("fused_lora.cu",
-                "e = sg::launch<false>(tw, x, p, M, K, N, epi, true, s);",
-                "e = sg::launch<false>(tw, x, p, M, K, N, epi, false, s);")],
+                "e = sg::launch<false, false>(tw, x, p, M, K, N, epi, true, "
+                "s);",
+                "e = sg::launch<false, false>(tw, x, p, M, K, N, epi, false, "
+                "s);")],
     # paged attention: a row's split keys sized from its own keys to one
     # wave of units were half the rows as long, at least 128 (kept); fixed at 128 or 256; at least
     # 256; no split at all (one block walks a tile's keys)
@@ -238,13 +248,14 @@ def _smoke():
     return mod
 
 
-def _paged_inputs(torch, cs, g, form, B, W, pos, quant):
-    """One case of ``PAGED_FORMS`` as chip_smoke.py phases 3 and 9 make it:
+def _paged_inputs(torch, cs, g, form, B, W, pos, quant, width=None):
+    """One case of ``PAGED_FORMS`` as chip_smoke.py phases 3 and 9 make it,
+    in a block table ``width`` entries wide (the served one by default):
     (the wrapper's arguments, rms of V for the tolerance)."""
     H, KV, D = 32, 8, 128
     q, kp, vp, tables, posv = cs._paged_case(torch, g, B, W, H, KV, D,
                                              cs.BLOCK_SIZE, pos,
-                                             cs.TABLE_WIDTH)
+                                             width or cs.TABLE_WIDTH)
     if not quant:
         return (q, kp, vp, tables, posv), \
             vp[1:].float().square().mean().sqrt().item()
@@ -296,13 +307,18 @@ def measure_tree(root: str, families) -> list:
         rows.append(dict(kernel="fused_lora", shape=name, rows=E * S, K=K,
                          N=N, ms=cs.time_ms(fn, 50, flush),
                          host_us=cs.host_us(torch, fn)))
-    for quant in (False, True) if "paged" in families else ():
+    paged = [(form, None) for form in cs.PAGED_FORMS
+             if "paged" in families]
+    paged += [(form, LONG_TABLE_WIDTH) for form in LONG_FORMS
+              if "paged_long" in families]
+    for quant in (False, True) if paged else ():
         pac = importlib.import_module(PAGED_WRAPPERS)
 
         wrapper = pac.paged_attention_int8_cuda if quant else \
             pac.paged_attention_cuda
-        for form, B, W, pos in cs.PAGED_FORMS:
-            args, _ = _paged_inputs(torch, cs, g, form, B, W, pos, quant)
+        for (form, B, W, pos), width in paged:
+            args, _ = _paged_inputs(torch, cs, g, form, B, W, pos, quant,
+                                    width)
 
             def fn():
                 return wrapper(*args)

@@ -170,6 +170,21 @@ class PagedExecutor:
                                "server was built: build a new server for "
                                "the changed model")
 
+    def clear_blocks(self, bids) -> None:
+        """Zero the int8 codes and scales of blocks ``bids`` in every
+        layer's pool, in place. A decode or verify write requantizes its
+        whole block, unwritten rows included, so a reused block's stale
+        rows would make a request's K/V depend on which request held the
+        block before (and a swapped request's resume on the allocation
+        history); a cleared block gives the same codes whatever its past.
+        fp pools need no clearing (their writes do not rescale)."""
+        if not bids or self.engine.kv_quant != "int8":
+            return
+        idx = torch.tensor(list(bids), dtype=torch.long,
+                           device=self._flat_pools[0].device)
+        for t in self._flat_pools:
+            t.index_fill_(0, idx, 0)
+
     def _lora(self, aidx):
         """Per-layer adapter factors at the page indices ``aidx`` (None
         without LoRA)."""
@@ -245,14 +260,15 @@ class PagedExecutor:
         """fp32 logits (B, W, V) of a window of W tokens a row at positions
         ``pos + arange(W)``, its K/V written into the pools: one whole-tick
         launch, or the per-layer forwards (``paged_verify_step``), then
-        the head."""
+        the head, batch-invariant (``stream=True``): a row's logits do not
+        depend on the window's width or on the other rows."""
         model = self.engine.model
         if self.megakernel:
             h = self._mk_window(window, tables, pos, lora)
         else:
             h, _ = model.model.paged_verify_step(window, self.pools, tables,
                                                  pos, lora)
-        return model.head(h).float()
+        return model.head(h, stream=True).float()
 
     def _mk_window(self, window, tables, pos, lora=None):
         """One W-token tick through the whole-tick kernel: embed →

@@ -2,8 +2,9 @@
 
 Host-only Python, copied from ``paddle_tpu/inference/paged_cache.py`` (the
 port imports nothing from the JAX package) and trimmed to what the port's
-paged server and adapter pool use: swap, warm-tier and fault-injection
-bookkeeping are left out with the features that drive them.
+paged server, its swap preemption (``kv_offload.py``) and the adapter pool
+use: warm-tier and fault-injection bookkeeping are left out with the
+features that drive them.
 
 - **free list**: block id 0 is the reserved SCRATCH block — never
   allocated; idle and prefilling rows of the decode batch write it, so a
@@ -62,6 +63,11 @@ class BlockAllocator:
         self.prefix_hit_blocks = 0
         self.prefix_lookup_blocks = 0
         self.evictions = 0
+        # swap bookkeeping (inference/kv_offload.py drives these)
+        self.swap_out_blocks = 0
+        self.swap_in_blocks = 0
+        self.host_bytes_in_use = 0
+        self.host_bytes_peak = 0
 
     # ----------------------------------------------------------------- stats
     @property
@@ -86,6 +92,12 @@ class BlockAllocator:
         """Cached blocks eviction may actually reclaim (unpinned)."""
         return sum(1 for bid in self._lru if bid not in self._pinned)
 
+    def ref_counts(self) -> Dict[int, int]:
+        """Copy of the live refcount map (bid -> refs): the conservation
+        check (``GenerationServer.assert_conserved``) compares it with the
+        block-table entries of the occupied slots."""
+        return dict(self._ref)
+
     def stats(self) -> Dict[str, int]:
         looked = self.prefix_lookup_blocks
         return {"num_blocks": self.num_blocks,
@@ -103,7 +115,28 @@ class BlockAllocator:
                 "kv_quant": self.kv_quant,
                 "bytes_per_block": self.bytes_per_block,
                 "bytes_in_use": self.bytes_per_block * self.blocks_in_use,
-                "pinned_blocks": self.pinned_blocks}
+                "pinned_blocks": self.pinned_blocks,
+                "swap_out_blocks": self.swap_out_blocks,
+                "swap_in_blocks": self.swap_in_blocks,
+                "host_bytes_in_use": self.host_bytes_in_use,
+                "host_bytes_peak": self.host_bytes_peak}
+
+    # ------------------------------------------------------- swap bookkeeping
+    def note_swap_out(self, nblocks: int, nbytes: int) -> None:
+        """Record ``nblocks`` parked to host (``nbytes`` of host pool)."""
+        self.swap_out_blocks += nblocks
+        self.host_bytes_in_use += nbytes
+        self.host_bytes_peak = max(self.host_bytes_peak,
+                                   self.host_bytes_in_use)
+
+    def note_swap_in(self, nblocks: int, nbytes: int) -> None:
+        """Record ``nblocks`` restored from host (releasing ``nbytes``)."""
+        self.swap_in_blocks += nblocks
+        self.host_bytes_in_use -= nbytes
+
+    def note_host_release(self, nbytes: int) -> None:
+        """Record a parked copy discarded without restore (cancel)."""
+        self.host_bytes_in_use -= nbytes
 
     def _note_use(self):
         self.peak_in_use = max(self.peak_in_use, self.blocks_in_use)
@@ -229,6 +262,24 @@ class BlockAllocator:
                 break
             hits += 1
         return hits
+
+    def contains_hash(self, chain_hash: int) -> bool:
+        """Read-only: is this chain hash resident (live or cached)?"""
+        return chain_hash in self._by_hash
+
+    def match_hashes(self, hashes: Sequence[int]) -> List[int]:
+        """Longest still-resident prefix of an explicit chain-hash list,
+        re-ref'd for the caller: the swap-in fast path (every hit is a
+        block restored without an upload). Touches no prefix-hit
+        counter."""
+        out: List[int] = []
+        for h in hashes:
+            bid = self._by_hash.get(h)
+            if bid is None:
+                break
+            self.ref(bid)
+            out.append(bid)
+        return out
 
     def register(self, bid: int, chain_hash: int) -> None:
         """Publish a fully-prefilled prompt block under its chain hash so

@@ -3,14 +3,25 @@
 
 A FIXED set of ``max_batch`` slots shares one pool of fixed-size KV blocks
 (inference/paged_cache.py) through per-slot block tables. Each
-:meth:`GenerationServer.step` admits waiting requests in FIFO order (gated
-on block headroom), advances ONE prefill chunk per prefilling slot (chunked
-prefill: a long prompt never stalls the slots that are decoding), then runs
-one decode tick for every decoding slot; finished slots are released and
-refilled mid-flight. Full prompt blocks are content-hashed and
+:meth:`GenerationServer.step` services the queue (inference/scheduler.py:
+expires TTL'd waiters, admits waiting requests in policy order, gated on
+block headroom, and preempts one less urgent running request a step for
+a strictly more urgent waiter), advances ONE prefill chunk per prefilling
+slot (chunked prefill: a long prompt never stalls the slots that are
+decoding), then runs one decode tick for every decoding slot; finished
+slots are released and refilled mid-flight. When the block pool runs dry,
+a less urgent request is preempted: a prefilling one is aborted (its
+prompt blocks stay cached), a decoding one swaps its KV blocks to pinned
+host memory (inference/kv_offload.py, ``host_pool_bytes=``) and later
+resumes where it stopped, with the same greedy tokens as a run that was
+never preempted. Full prompt blocks are content-hashed and
 refcount-shared, so a repeated prefix prefills once (prefix caching).
 Greedy outputs are token-identical to the JAX server's on the same weights
-(up to floating-point ties).
+(up to floating-point ties). Every product of a decode tick and of a
+verify window is batch-invariant (``ops/stream_matmul.py``): a row's
+logits depend only on that row, not on the batch or the window width, at
+any ``max_batch · (k + 1)`` (past 128 rows the streaming products run
+several token tiles with the same K slices).
 
 ``kv_quant="int8"`` stores the KV pool as int8 codes with one f32 scale per
 (block, KV head): half the bytes of bf16, so a ``pool_bytes=`` budget holds
@@ -45,15 +56,28 @@ a row. With the n-gram drafter (in-program) a trip runs ``tick_window``
 windows as one program; a host-side drafter (``DraftModelDrafter``) runs
 one window a trip. The speculation gate switches to plain decode trips of
 ``gate_ticks`` ticks while acceptance is low. Greedy outputs equal the
-plain server's; on a CUDA device every verify window or trip is a CUDA
-graph replay, per layer or through the whole-tick kernel at W = k+1.
+plain server's token for token (the verify window's products are the
+decode tick's, bit for bit, on the card as on the CPU; over int8 KV
+pools while no window rescales a block it reads); on a CUDA device
+every verify window or trip is a CUDA graph replay, per layer or through
+the whole-tick kernel at W = k+1.
+
+The per-request API: ``submit(priority=, tenant=, ttl_s=)``,
+:meth:`~GenerationServer.cancel`, :meth:`~GenerationServer.status`,
+:meth:`~GenerationServer.sched_metrics`,
+:meth:`~GenerationServer.request_metrics`,
+:meth:`~GenerationServer.assert_conserved`,
+:meth:`~GenerationServer.take_results`, ``steps``,
+:meth:`~GenerationServer.load_metrics` and
+:meth:`~GenerationServer.probe_prefix`. Preemption and resume run on the
+host between passes: they add no CUDA graph, and a resumed request
+replays the graphs already captured.
 
 Not ported yet (their constructor arguments raise ``NotImplementedError``
-when given a non-default value): the dense cache, KV tiers and swap preemption, priority/WFQ scheduling, telemetry, fault
-injection, tensor/context parallelism, snapshots, replica roles and
-``kernels="pallas"`` (the port has no interpret mode).
-With the default ``num_blocks`` the pool never runs dry; a smaller pool
-that does raises instead of preempting.
+when given a non-default value): the dense cache, the warm KV tier,
+telemetry, fault injection, tensor/context parallelism, snapshots and
+migration, replica roles and ``kernels="pallas"`` (the port has no
+interpret mode).
 """
 from __future__ import annotations
 
@@ -68,8 +92,9 @@ from .. import resolve_device
 from ..models.generation import next_token
 from .executor import PagedExecutor
 from .lora import AdapterPool
+from .kv_offload import KVOffloadEngine
 from .paged_cache import BlockAllocator
-from .scheduler import Scheduler
+from .scheduler import PRIORITY_NORMAL, SchedEntry, Scheduler
 
 # the JAX server's constructor arguments that the port does not serve yet,
 # each at the one value it takes (the JAX default); any other value raises
@@ -77,14 +102,11 @@ from .scheduler import Scheduler
 # order, so that a positional call means the same in both packages
 _UNPORTED_DEFAULTS = {
     "prompt_buckets": (32, 64, 128),
-    "host_pool_bytes": None, "warm_pool_bytes": None,
+    "warm_pool_bytes": None,
     "tier_demote_low": None, "tier_demote_high": None,
     "telemetry": None, "faults": None, "fault_retries": 3,
-    "mesh": None, "role": "any", "profile": None, "clock": None,
+    "mesh": None, "role": "any", "profile": None,
 }
-# the JAX server's ``submit`` arguments that the port does not serve yet,
-# at the one value each takes (``priority`` the JAX PRIORITY_NORMAL)
-_UNPORTED_SUBMIT = {"priority": 1, "tenant": "default", "ttl_s": None}
 
 
 def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
@@ -153,6 +175,14 @@ class GenerationServer:
     drafter takes 1 only). ``spec``: a :class:`~.speculative.SpecConfig`
     (paged cache only).
 
+    ``policy``: None (FIFO), a policy name (``"fifo"``, ``"priority"``,
+    ``"wfq"``) or a configured :class:`~.scheduler.Scheduler` (for
+    ``max_queue``, TTLs, tenant weights); ``clock``: the scheduler's
+    injectable clock (default ``time.monotonic``), also the clock of
+    :meth:`request_metrics`. ``host_pool_bytes``: byte cap of the pinned
+    host pool that swap preemption parks victims' KV blocks in — None
+    unbounded, 0 no swapping (victims then stall instead of parking).
+
     ``kernels``: ``"auto"`` (default) leaves the process-wide
     :func:`paddle_tpu_torch.ops.set_kernel_mode` as it is; ``"megakernel"``
     (requires ``cache="paged"``) sets it so that every decode tick runs all
@@ -215,9 +245,6 @@ class GenerationServer:
                 f"cache={cache!r}: only cache='paged' is ported")
         if tick_window < 1:
             raise ValueError(f"tick_window must be >= 1, got {tick_window}")
-        if policy not in (None, "fifo"):
-            raise NotImplementedError(
-                f"policy={policy!r}: only FIFO scheduling is ported")
         if kv_quant not in ("none", "int8"):
             raise ValueError(
                 f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
@@ -255,10 +282,33 @@ class GenerationServer:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self._slots: List[Optional[_Request]] = [None] * max_batch
-        self._sched = Scheduler()
+        if policy is None:
+            self._sched = Scheduler() if clock is None \
+                else Scheduler(clock=clock)
+        elif isinstance(policy, Scheduler):
+            self._sched = policy
+        elif isinstance(policy, str):
+            self._sched = Scheduler(policy=policy) if clock is None \
+                else Scheduler(policy=policy, clock=clock)
+        else:
+            raise ValueError(
+                f"policy must be None, a policy name ('fifo'/'priority'/"
+                f"'wfq'), or a Scheduler instance, got {policy!r}")
+        self._wall = clock if clock is not None else time.monotonic
         self._results: Dict[int, List[int]] = {}
+        self._dropped: Dict[int, str] = {}   # rid -> cancelled | expired
+        # per-rid clock marks (submit / first token / done)
+        self._req_metrics: Dict[int, Dict[str, Any]] = {}
         self._idle_streak = 0
+        self._stall_streak = 0
         self._next_rid = 0
+        self._step_no = 0
+        # preemption counters (sched_metrics)
+        self._preemptions = 0
+        self._prefill_aborts = 0
+        self._resumes = 0
+        self._stalls = 0
+        self._cancelled = 0
 
         bs = int(block_size)
         if bs < 1:
@@ -292,6 +342,8 @@ class GenerationServer:
                 num_blocks = max_batch * entries + 1  # every slot at max_len
         self.alloc = BlockAllocator(int(num_blocks), bs, kv_quant=kv_quant,
                                     bytes_per_block=per_block)
+        self._offload = KVOffloadEngine(self.alloc,
+                                        capacity_bytes=host_pool_bytes)
         self._bt = np.zeros((max_batch, self._table_width), np.int32)
         # per-slot adapter page in the LoRA pool; 0 = the all-zero NULL
         # page, so adapterless slots need no branching
@@ -386,23 +438,19 @@ class GenerationServer:
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 0.0, draft_k: Optional[int] = None,
-               priority: int = 1, tenant: str = "default",
+               priority: int = PRIORITY_NORMAL, tenant: str = "default",
                ttl_s: Optional[float] = None,
                adapter: Optional[str] = None) -> int:
         """Queue one request; returns its rid. ``draft_k`` lowers the
         request's drafts a window below ``spec.k`` (requires ``spec=``; 0
-        decodes it plainly inside the verify windows). ``adapter`` names a
-        registered LoRA adapter (requires ``lora=``); an unknown name, a
-        rank past the pool's ``max_rank`` or mis-shaped factors are
-        rejected here, not at admission. ``priority``, ``tenant`` and
-        ``ttl_s`` keep the JAX order; the port's FIFO scheduler takes only
-        their defaults and raises NotImplementedError on any other
-        value."""
-        given = locals()
-        for name, default in _UNPORTED_SUBMIT.items():
-            if given[name] != default:
-                raise NotImplementedError(
-                    f"submit({name}={given[name]!r}) is not ported yet")
+        decodes it plainly inside the verify windows). ``priority`` (lower
+        = more urgent), ``tenant`` (the WFQ fairness bucket) and ``ttl_s``
+        (the longest queue wait before the request expires unstarted) feed
+        the scheduler; raises :class:`~.scheduler.AdmissionError` when a
+        bounded queue is full. ``adapter`` names a registered LoRA adapter
+        (requires ``lora=``); an unknown name, a rank past the pool's
+        ``max_rank`` or mis-shaped factors are rejected here, not at
+        admission."""
         prompt = list(prompt)
         if not prompt:
             raise ValueError("prompt must contain at least one token id")
@@ -441,27 +489,41 @@ class GenerationServer:
                     f"draft_k ({draft_k}) exceeds spec.k ({self.spec_k}) — "
                     f"the compiled verify-window width; raise SpecConfig.k")
             draft_k = int(draft_k)
+        if not isinstance(tenant, str) or not tenant:
+            raise ValueError(
+                f"tenant must be a non-empty string, got {tenant!r}")
         if adapter is not None:
             if self._lora is None:
                 raise ValueError(
                     "adapter= requires a server built with "
                     "lora=LoRAConfig(...)")
             self._lora.validate(adapter)
-        # feasibility gate: a request whose worst-case block need exceeds
-        # the pool could never finish
-        worst = len(prompt) + max_new_tokens
+        # feasibility gate: a request whose worst-case block need — its
+        # final position plus the transient decode-window (or speculative-
+        # window) reservation — exceeds the pool could never finish
+        if self.spec is not None:
+            wmax = max(self.tick_window, int(self.spec.turbo_windows))
+            trans = max(wmax * (self.spec_k + 1), int(self.spec.gate_ticks))
+        else:
+            trans = self.tick_window
+        worst = len(prompt) + max_new_tokens - 1 + trans
         need = min(self._max_entries, -(-worst // self.block_size))
         if need > self.alloc.num_blocks - 1:
             raise ValueError(
                 f"request needs up to {need} KV blocks but the pool has "
-                f"{self.alloc.num_blocks - 1} usable — raise num_blocks or "
-                f"shorten the request")
+                f"{self.alloc.num_blocks - 1} usable — it could never be "
+                f"scheduled; raise num_blocks/pool_bytes or shorten the "
+                f"request")
         rid = self._next_rid
         self._next_rid += 1
         req = _Request(rid, prompt, int(max_new_tokens),
                        temperature=float(temperature), top_k=int(top_k),
                        top_p=float(top_p), draft_k=draft_k, adapter=adapter)
-        req.sched = self._sched.submit(req, rid, adapter=adapter)
+        # cost = the estimated total tokens: the WFQ charge a tenant pays
+        req.sched = self._sched.submit(
+            req, rid, priority=priority, tenant=tenant, ttl_s=ttl_s,
+            cost=float(len(prompt) + max_new_tokens), adapter=adapter)
+        self._req_metrics[rid] = {"submit_t": self._wall(), "tenant": tenant}
         self._weights_checked = False
         return rid
 
@@ -493,16 +555,16 @@ class GenerationServer:
             self.kcaps[slot] = (self.spec_k if req.draft_k is None
                                 else req.draft_k)
         req.generated.append(first)
+        m = self._req_metrics.get(req.rid)
+        if m is not None:
+            m.setdefault("first_token_t", self._wall())
 
     def _fill_free_slots(self) -> None:
-        """Admit waiting requests into free slots in FIFO order, gated on
-        block headroom, with no head-of-line bypass (a draining pool always
-        reopens headroom)."""
-        if self._lora is not None:
-            # replay the queue's adapter demand through the pool's LRU: the
-            # adapters of the next requests become most recently used and
-            # evict last
-            self._lora.warm(self._sched.adapter_demand())
+        """Admit waiting requests into free slots in scheduler-policy
+        order, gated on block headroom, with no head-of-line bypass
+        (skipping an inadmissible head for a later entry could starve it;
+        a draining pool always reopens headroom). A swapped entry resumes
+        where it stopped."""
         for s in range(self.max_batch):
             if self._slots[s] is not None:
                 continue
@@ -510,7 +572,48 @@ class GenerationServer:
             if ent is None or not self._admissible(ent):
                 break
             self._sched.pop()
-            self._admit_paged(s, ent.req)
+            ent.started = True
+            if ent.swap is not None:
+                if not self._resume_swapped(s, ent):
+                    # headroom moved between the check and the restore
+                    # (hash matches changed): requeue, retry next step
+                    self._sched.requeue(ent)
+                    break
+            else:
+                self._admit_paged(s, ent.req)
+
+    def _service_queue(self) -> None:
+        """Queue maintenance at the top of every step: expire TTL'd
+        waiters, replay the queue's adapter demand through the adapter
+        pool's LRU, fill free slots in policy order, then — if a strictly
+        more urgent entry waits behind a full batch — preempt the least
+        urgent running request for it (one victim a step bounds the
+        churn)."""
+        for ent in self._sched.expire():
+            self._drop_entry(ent, "expired")
+        if self._lora is not None:
+            # the adapters of the next requests (pop-priority order)
+            # become most recently used and evict last
+            self._lora.warm(self._sched.adapter_demand())
+        self._fill_free_slots()
+        ent = self._sched.peek()
+        if ent is not None and all(sl is not None for sl in self._slots):
+            v = self._pick_victim(ent.priority)
+            if v is not None and self._preempt_slot(v):
+                self._fill_free_slots()
+
+    def _drop_entry(self, ent: SchedEntry, reason: str) -> None:
+        """A queued entry leaves without finishing: record why, close its
+        metrics, release any parked host KV."""
+        self._dropped[ent.rid] = reason
+        if reason == "cancelled":
+            self._cancelled += 1
+        m = self._req_metrics.get(ent.rid)
+        if m is not None:
+            m["done_t"] = self._wall()
+        if ent.swap is not None:
+            self._offload.discard(ent.swap)
+            ent.swap = None
 
     def _admit_paged(self, slot: int, req: _Request) -> None:
         """Claim a slot: take the request's adapter page (an upload on a
@@ -528,18 +631,24 @@ class GenerationServer:
         self._prefilling[slot] = True
         self._slots[slot] = req
 
-    def _admissible(self, ent) -> bool:
-        """Headroom gate: the request's whole prompt (less its resident
-        prefix blocks) plus one spare block must be reclaimable now."""
+    def _admissible(self, ent: SchedEntry) -> bool:
+        """Block-headroom gate: the entry's first allocation burst (the
+        whole prompt less its resident prefix blocks for a fresh request;
+        the parked blocks not still resident for a swapped one) plus one
+        spare block must be reclaimable now."""
         adapter = ent.req.adapter
         if adapter is not None and not self._lora.can_acquire(adapter):
             # every adapter page is held by a running slot: wait for one
-            # to finish
+            # to finish or be preempted
             return False
-        prompt = ent.req.prompt
-        need = min(self._max_entries, -(-len(prompt) // self.block_size))
-        need = max(need - self.alloc.probe_prefix(prompt,
-                                                  self._salt(adapter)), 1)
+        if ent.swap is not None:
+            need = self._offload.restore_cost(ent.swap)
+        else:
+            prompt = ent.req.prompt
+            need = min(self._max_entries, -(-len(prompt) // self.block_size))
+            need = max(need - self.alloc.probe_prefix(
+                prompt, self._salt(adapter)), 1)
+        ent.kv_need = need          # the scheduler's queued-demand sum
         headroom = min(need + 1, self.alloc.num_blocks - 1)
         return (self.alloc.blocks_free
                 + self.alloc.evictable_cached) >= headroom
@@ -547,19 +656,174 @@ class GenerationServer:
     def _ensure_blocks(self, slot: int, entries: int) -> None:
         """Grow the slot's block table to >= ``entries`` real entries
         (capped at ceil(max_len/block_size); writes past that land in
-        scratch by construction)."""
+        scratch by construction). Raises RuntimeError when the pool is
+        dry (:meth:`_reserve_or_preempt` preempts then)."""
         req = self._slots[slot]
         entries = min(entries, self._max_entries)
-        while len(req.table) < entries:
-            try:
+        fresh = []
+        try:
+            while len(req.table) < entries:
                 bid = self.alloc.alloc()
-            except RuntimeError as e:
+                req.table.append(bid)
+                self._bt[slot, len(req.table) - 1] = bid
+                fresh.append(bid)
+        finally:
+            # int8 pools: cleared before any later pass or restore writes
+            # them (``PagedExecutor.clear_blocks``), in stream order
+            self._exec.clear_blocks(fresh)
+
+    # ------------------------------------------------- preemption / offload
+    def _resume_swapped(self, slot: int, ent: SchedEntry) -> bool:
+        """Restore a swapped-out request into ``slot`` where it stopped:
+        KV blocks back from host (prefix-hash hits skip the upload), its
+        position, next token and sampling scalars from the request. The
+        greedy continuation equals the un-preempted run's: the round trip
+        is bit-exact and the decode products are batch-invariant. Returns
+        False (entry untouched) when device headroom vanished."""
+        req = ent.req
+        res = self._offload.swap_in(ent.swap, self._exec._flat_pools)
+        if res is None:
+            return False
+        if res == "corrupt":
+            raise RuntimeError(
+                f"request {req.rid}: its parked KV payload failed its "
+                f"checksum (re-prefilling it from its tokens is not ported)")
+        if self._lora is not None:
+            # re-acquired after the KV restore committed: _admissible
+            # vouched for can_acquire
+            self.aidx[slot] = (self._lora.acquire(req.adapter)
+                               if req.adapter is not None else 0)
+        handle, ent.swap = ent.swap, None
+        req.table = res[0]
+        self._bt[slot, :] = 0
+        self._bt[slot, :len(req.table)] = req.table
+        self._prefilling[slot] = None
+        self._slots[slot] = req
+        self.pos[slot] = handle.n_tokens
+        self.tokens[slot] = handle.last_token
+        self.temps[slot] = req.temperature
+        self.topks[slot] = req.top_k
+        self.topps[slot] = req.top_p
+        if self.spec is not None:
+            self.kcaps[slot] = (self.spec_k if req.draft_k is None
+                                else req.draft_k)
+        self._resumes += 1
+        return True
+
+    def _pick_victim(self, than_priority: int,
+                     exclude=()) -> Optional[int]:
+        """Least urgent occupied slot STRICTLY less urgent than
+        ``than_priority`` (equal-priority peers never preempt each other:
+        no ping-pong). Prefers prefilling victims (aborting them loses
+        recomputable work only), then the largest block holder."""
+        best, best_key = None, None
+        for s in range(self.max_batch):
+            if s in exclude:
+                continue
+            req = self._slots[s]
+            if req is None:
+                continue
+            pr = req.sched.priority
+            if pr <= than_priority:
+                continue
+            key = (pr, 1 if self._prefilling[s] else 0, len(req.table))
+            if best_key is None or key > best_key:
+                best, best_key = s, key
+        return best
+
+    def _preempt_slot(self, s: int) -> bool:
+        """Evict the request in slot ``s`` and requeue it. A slot still
+        prefilling is ABORTED (its KV is recomputable; its registered
+        prompt blocks stay on the LRU, so the re-run's prefix match skips
+        them). A decoding slot SWAPS: its table, truncated of speculative
+        reservations, parks in pinned host memory. Returns False — slot
+        untouched — when the host pool is full."""
+        req = self._slots[s]
+        ent = req.sched
+        if self._prefilling[s]:
+            for bid in req.table:
+                self.alloc.free(bid)
+            req.table = []
+            req.pf_next = 0
+            self._prefill_aborts += 1
+        else:
+            n = int(self.pos[s])
+            req.table = self.alloc.truncate(req.table, n)
+            handle = self._offload.swap_out(
+                req.rid, req.table,
+                req.hashes[:min(len(req.hashes), len(req.table))],
+                self._exec._flat_pools, n_tokens=n,
+                last_token=int(self.tokens[s]))
+            if handle is None:
+                return False
+            req.table = []
+            ent.swap = handle
+            self._preemptions += 1
+        self._slots[s] = None
+        self._bt[s, :] = 0
+        self._prefilling[s] = None
+        self.pos[s] = 0
+        self.tokens[s] = 0
+        self.temps[s] = 0.0
+        self.topks[s] = 0
+        self.topps[s] = 0.0
+        if self.spec is not None:
+            self.kcaps[s] = 0
+        if self._lora is not None:
+            # the page goes cached (LRU): a quick resume revives it
+            # without an upload
+            self._lora.release(int(self.aidx[s]))
+            self.aidx[s] = 0
+        self._sched.requeue(ent)
+        return True
+
+    def _reserve_or_preempt(self, s: int, entries: int) -> str:
+        """Grow slot ``s``'s table to ``entries``, preempting less urgent
+        slots while the pool is dry. Returns ``"ok"`` (reserved),
+        ``"gone"`` (no victim outranked ``s``, so it released its own
+        blocks and requeued) or ``"stall"`` (nothing preemptable and the
+        host pool refused the swap: ``s`` keeps its state and sits out
+        this trip)."""
+        tried = {s}
+        while True:
+            try:
+                self._ensure_blocks(s, entries)
+                return "ok"
+            except RuntimeError:
+                v = self._pick_victim(self._slots[s].sched.priority,
+                                      exclude=tried)
+                if v is not None:
+                    tried.add(v)
+                    self._preempt_slot(v)
+                    continue
+                if self._preempt_slot(s):
+                    return "gone"
+                self._stalls += 1
+                return "stall"
+
+    def _reserve_active(self, active, need_fn) -> List[int]:
+        """Reserve each decoding slot's blocks for the coming trip, most
+        urgent first (under pool pressure this is where swap preemption
+        fires). Returns the surviving slots (victims drop out; stalled
+        slots skip the trip but keep their state)."""
+        out = []
+        for s in sorted(active, key=lambda i: (self._slots[i].sched.priority,
+                                               i)):
+            if self._slots[s] is None:
+                continue        # preempted as a victim earlier in the loop
+            if self._reserve_or_preempt(s, need_fn(s)) == "ok":
+                out.append(s)
+        out.sort()
+        if not out and active:
+            self._stall_streak += 1
+            if self._stall_streak > 256:
                 raise RuntimeError(
-                    f"{e}; swap preemption is not ported yet, so the pool "
-                    f"must hold every admitted request (the default "
-                    f"num_blocks does)") from e
-            req.table.append(bid)
-            self._bt[slot, len(req.table) - 1] = bid
+                    "paged pool wedged: 256 consecutive trips made no "
+                    "progress (every slot stalled on block reservation) — "
+                    "raise num_blocks/pool_bytes or host_pool_bytes")
+        else:
+            self._stall_streak = 0
+        return out
 
     def _prefill_chunk_step(self, slot: int) -> None:
         """Advance one prompt chunk for a prefilling slot; on the final
@@ -571,7 +835,8 @@ class GenerationServer:
         C = self.prefill_chunk
         start = req.pf_next
         end = min(start + C, n)
-        self._ensure_blocks(slot, -(-end // bs))
+        if self._reserve_or_preempt(slot, -(-end // bs)) != "ok":
+            return      # aborted as its own victim, or stalled: no chunk
         if start % bs:
             raise RuntimeError(f"prefill chunk at {start}: not a multiple of "
                                f"block_size {bs}")
@@ -606,9 +871,10 @@ class GenerationServer:
         masked — zeroed table and pos 0 route their discarded K/V writes to
         scratch block 0, which keeps the batch shape fixed."""
         k = self.tick_window if ticks is None else ticks
-        for s in active:
-            self._ensure_blocks(s, -(-(int(self.pos[s]) + k)
-                                     // self.block_size))
+        active = self._reserve_active(
+            active, lambda s: -(-(int(self.pos[s]) + k) // self.block_size))
+        if not active:
+            return
         greedy, active_mask = self._stage_rows(active)
         st = self._stage
         w0 = time.perf_counter()
@@ -673,10 +939,18 @@ class GenerationServer:
                     break
             kept += len(req.generated) - had
             if done:
-                self._results[req.rid] = (req.prompt
-                                          + req.generated[:req.max_new_tokens])
+                self._emit_result(req)
                 self._release_slot(s)
         return kept
+
+    def _emit_result(self, req: _Request) -> None:
+        """A request finished: publish its tokens, close its metrics."""
+        self._results[req.rid] = req.prompt + req.generated[
+            :req.max_new_tokens]
+        m = self._req_metrics.get(req.rid)
+        if m is not None:
+            m["done_t"] = self._wall()
+            m["n_generated"] = min(len(req.generated), req.max_new_tokens)
 
     def _release_slot(self, slot: int) -> None:
         req = self._slots[slot]
@@ -735,9 +1009,13 @@ class GenerationServer:
         S = self._spec_windows
         if self._spec_turbo and self.spec.turbo_windows > S:
             S = self.spec.turbo_windows
-        for s in active:
-            self._ensure_blocks(s, -(-(int(self.pos[s]) + S * (k + 1))
-                                     // self.block_size))
+        # blocks for every window of the trip, reserved up front (the
+        # harvest truncates the rejected drafts' back)
+        active = self._reserve_active(
+            active, lambda s: -(-(int(self.pos[s]) + S * (k + 1))
+                                // self.block_size))
+        if not active:
+            return
         greedy, active_mask = self._stage_rows(active)
         st, sn = self._stage, self._stage_np
         lora = st["aidx"] if self._lora is not None else None
@@ -824,8 +1102,7 @@ class GenerationServer:
                 new_pos += a + 1
             kept += len(req.generated) - had
             if done:
-                self._results[req.rid] = (req.prompt
-                                          + req.generated[:req.max_new_tokens])
+                self._emit_result(req)
                 self._release_slot(s)
             else:
                 self.pos[s] = new_pos
@@ -850,21 +1127,24 @@ class GenerationServer:
 
     # ------------------------------------------------------------- stepping
     def step(self) -> int:
-        """One server step: admit queued requests, advance one prefill chunk
-        per prefilling slot, then one decode trip across decoding slots;
-        returns #remaining (occupied slots + queued). The first step after a
-        submit or a ``run()`` checks that the model's weights are those the
-        server was built over (``PagedExecutor.check_weights``)."""
+        """One server step: service the queue (expiry, admission in policy
+        order, one preemption for a more urgent waiter), advance one
+        prefill chunk per prefilling slot, then one decode trip across
+        decoding slots; returns #remaining (occupied slots + queued). The
+        first step after a submit or a ``run()`` checks that the model's
+        weights are those the server was built over
+        (``PagedExecutor.check_weights``)."""
         if not self._weights_checked:
             self._exec.check_weights()
             self._weights_checked = True
-        self._fill_free_slots()
+        self._service_queue()
         for s in range(self.max_batch):
             if self._slots[s] is not None and self._prefilling[s]:
                 self._prefill_chunk_step(s)
         active = [s for s in range(self.max_batch)
                   if self._slots[s] is not None and not self._prefilling[s]]
         if active:
+            self._step_no += 1
             self._dispatch_trips(active)
         occupied = sum(sl is not None for sl in self._slots)
         if occupied == 0 and len(self._sched) > 0:
@@ -885,6 +1165,187 @@ class GenerationServer:
             pass
         out, self._results = self._results, {}
         return out
+
+    def take_results(self) -> Dict[int, List[int]]:
+        """Pop and return every result finished so far (the incremental
+        form of :meth:`run`'s return value)."""
+        out, self._results = self._results, {}
+        return out
+
+    @property
+    def steps(self) -> int:
+        """Steps that ran a decode trip (the JAX server's tick-progress
+        count)."""
+        return self._step_no
+
+    # ---------------------------------------------------- request lifecycle
+    def cancel(self, rid: int) -> bool:
+        """Cooperative cancel, effective at once on the host: a waiting (or
+        swapped-out) request leaves the queue and any parked host KV is
+        discarded; a running request's blocks — the speculative window's
+        reservation included — roll back through the refcount-safe
+        ``BlockAllocator.truncate``. Returns False for unknown or finished
+        rids; a cancelled request never appears in the results
+        (``status(rid)`` says ``"cancelled"``)."""
+        ent = self._sched.cancel(rid)
+        if ent is not None:
+            self._drop_entry(ent, "cancelled")
+            return True
+        for s in range(self.max_batch):
+            req = self._slots[s]
+            if req is not None and req.rid == rid:
+                req.table = self.alloc.truncate(req.table, 0)
+                self._dropped[rid] = "cancelled"
+                self._cancelled += 1
+                m = self._req_metrics.get(rid)
+                if m is not None:
+                    m["done_t"] = self._wall()
+                self._release_slot(s)
+                return True
+        return False
+
+    def status(self, rid: int) -> str:
+        """One of ``done / cancelled / expired / running / prefilling /
+        swapped / preempted / queued / unknown`` (the JAX server's
+        ``failed``, a request quarantined by fault handling, comes with
+        the fault handling)."""
+        if rid in self._results:
+            return "done"
+        if rid in self._dropped:
+            return self._dropped[rid]
+        for s in range(self.max_batch):
+            req = self._slots[s]
+            if req is not None and req.rid == rid:
+                return "prefilling" if self._prefilling[s] else "running"
+        for ent in self._sched.waiting():
+            if ent.rid == rid:
+                if ent.swap is not None:
+                    return "swapped"
+                return "preempted" if ent.preempted else "queued"
+        return "unknown"
+
+    def sched_metrics(self) -> Dict[str, Any]:
+        """Scheduler and preemption counters, the JAX server's keys: the
+        policy, queue depth, submitted / expired / cancelled requests,
+        preemptions (swaps), prefill aborts, resumes, stalled
+        reservations, the host pool's bytes in use and at peak, the
+        swapped requests waiting, and the adapter pool's counters with
+        ``lora=``. Left out: ``tenants``, the per-tenant TTFT / TPOT
+        percentiles, which come from the telemetry registry (not ported;
+        :meth:`request_metrics` has the marks)."""
+        m = {"policy": self._sched.policy,
+             "queue_depth": len(self._sched),
+             "submitted": self._sched.submitted,
+             "expired": self._sched.expired,
+             "cancelled": self._cancelled,
+             "preemptions": self._preemptions,
+             "prefill_aborts": self._prefill_aborts,
+             "resumes": self._resumes,
+             "stalled_reservations": self._stalls,
+             "host_bytes_in_use": self._offload.host.bytes_in_use,
+             "host_bytes_peak": self._offload.host.bytes_peak,
+             "swapped_waiting": sum(1 for e in self._sched.waiting()
+                                    if e.swap is not None)}
+        if self._lora is not None:
+            m.update(self._lora.stats())
+        return m
+
+    def request_metrics(self) -> Dict[int, Dict[str, Any]]:
+        """Per-rid clock marks — ``submit_t``, ``first_token_t``,
+        ``done_t``, ``n_generated`` — and the request's ``tenant``, from
+        which TTFT and the time per token follow (the server's ``clock``,
+        default ``time.monotonic``)."""
+        return self._req_metrics
+
+    def assert_conserved(self) -> Dict[str, int]:
+        """Pool conservation invariants; raises AssertionError on a leak.
+        Checked between steps:
+
+        - block identity: ``in_use + cached + free == num_blocks - 1``
+          (block 0 is scratch) and no block is left pinned;
+        - refcount audit: the allocator's live refcounts equal the
+          multiset of block-table entries across occupied slots;
+        - host-pool audit: parked bytes equal the sum over waiting swapped
+          entries, in both ledgers (the host pool's and the allocator's);
+        - adapter-pool audit (with ``lora=``): the same identity over
+          pages, and page refs equal the occupied slots holding each page.
+
+        Returns the audited numbers (the JAX server's keys less the warm
+        tier's and the tensor-parallel shards')."""
+        from collections import Counter
+
+        a = self.alloc
+        errs: List[str] = []
+        usable = a.num_blocks - 1
+        if a.blocks_in_use + a.blocks_cached + a.blocks_free != usable:
+            errs.append(
+                f"block identity broken: in_use={a.blocks_in_use} + "
+                f"cached={a.blocks_cached} + free={a.blocks_free} != "
+                f"usable={usable}")
+        if a.pinned_blocks != 0:
+            errs.append(f"{a.pinned_blocks} blocks left pinned between "
+                        f"steps (pins must be copy-scoped)")
+        expect: Counter = Counter()
+        for s in range(self.max_batch):
+            req = self._slots[s]
+            if req is not None:
+                expect.update(req.table)
+        refs = a.ref_counts()
+        if dict(expect) != refs:
+            extra = {b: n for b, n in refs.items() if expect.get(b) != n}
+            missing = {b: n for b, n in expect.items() if refs.get(b) != n}
+            errs.append(f"refcount audit failed: allocator-only={extra} "
+                        f"tables-only={missing}")
+        swapped = [e for e in self._sched.waiting() if e.swap is not None]
+        parked = sum(e.swap.nbytes for e in swapped)
+        host = self._offload.host
+        if host.bytes_in_use != parked:
+            errs.append(f"host pool ledger {host.bytes_in_use} != sum of "
+                        f"waiting swap handles {parked}")
+        if a.host_bytes_in_use != parked:
+            errs.append(f"allocator host ledger {a.host_bytes_in_use} != "
+                        f"sum of waiting swap handles {parked}")
+        if len(host) != len(swapped):
+            errs.append(f"host pool parks {len(host)} payloads but "
+                        f"{len(swapped)} entries are swapped")
+        if self._lora is not None:
+            la = self._lora.alloc
+            lu = la.num_blocks - 1
+            if la.blocks_in_use + la.blocks_cached + la.blocks_free != lu:
+                errs.append(
+                    f"adapter page identity broken: in_use="
+                    f"{la.blocks_in_use} + cached={la.blocks_cached} + "
+                    f"free={la.blocks_free} != usable={lu}")
+            pexp: Counter = Counter()
+            for s in range(self.max_batch):
+                if self._slots[s] is not None and int(self.aidx[s]) > 0:
+                    pexp[int(self.aidx[s])] += 1
+            if dict(pexp) != la.ref_counts():
+                errs.append(f"adapter page refs {la.ref_counts()} != "
+                            f"slot aidx multiset {dict(pexp)}")
+        if errs:
+            raise AssertionError("; ".join(errs))
+        return {"blocks_in_use": a.blocks_in_use,
+                "blocks_cached": a.blocks_cached,
+                "blocks_free": a.blocks_free,
+                "host_bytes_in_use": parked,
+                "swapped_waiting": len(swapped)}
+
+    def load_metrics(self) -> Dict[str, int]:
+        """O(1) load signals for routing: queue depth, occupied and total
+        slots, the allocator's admission headroom and the queue's
+        annotated block demand."""
+        return {"queue_depth": len(self._sched),
+                "slots_occupied": sum(sl is not None for sl in self._slots),
+                "slots_total": self.max_batch,
+                "blocks_headroom": (self.alloc.blocks_free
+                                    + self.alloc.evictable_cached),
+                "queued_kv_demand": self._sched.kv_demand()}
+
+    def probe_prefix(self, prompt: Sequence[int]) -> int:
+        """Cached prefix blocks this server could reuse for ``prompt`` (an
+        adapterless request's chain). Read-only: takes no references."""
+        return self.alloc.probe_prefix(list(prompt))
 
     # -------------------------------------------------------------- metrics
     def kv_stats(self) -> Dict[str, int]:

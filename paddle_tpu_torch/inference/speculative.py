@@ -12,8 +12,11 @@ Exactness, as in the JAX package:
 
 - **greedy** (temperature 0): a draft is accepted iff it equals the
   target's argmax at its position, and the first mismatch's argmax is
-  emitted: the tokens equal the plain server's (up to floating-point
-  ties of the two passes' roundings).
+  emitted: the tokens equal the plain server's. Every product of a
+  verify window is batch-invariant (``ops/stream_matmul.py``), so its
+  logits are the decode ticks' bit for bit, on the card as on the CPU
+  (over int8 KV pools only while no token of a window rescales a block
+  an earlier query of it reads).
 - **sampling**: speculative rejection sampling [Leviathan et al.; Chen
   et al.] against the filtered target distribution ``p``
   (``models/generation.py`` ``filtered_probs_rows``): a draft ``x`` with

@@ -8,8 +8,12 @@ per-row LoRA adapters read from the adapter pool (``lora=``).
 
 Parameters keep the JAX package's names and Paddle's ``Linear`` layout:
 every projection weight is ``(in, out)`` and a projection computes
-``x @ weight`` (``torch.matmul``), so a JAX state dict carries over
-name-for-name and array-for-array (``models/convert.py``).
+``x @ weight``, so a JAX state dict carries over name-for-name and
+array-for-array (``models/convert.py``). Training and prefill chunks
+multiply with ``torch.matmul``; a decode tick or a verify window
+(``paged_verify``) runs every projection and the head through the
+batch-invariant products (``ops.stream_matmul``, the int8 and fused LoRA
+kernels), so that a row's logits do not depend on the rows beside it.
 
 Training recomputes activations per decoder layer under ``cfg.recompute``
 (full recompute, as JAX's ``recompute``) or under the engine's
@@ -43,6 +47,7 @@ from ..ops.paged_attention import (paged_prefill_attention,
                                    paged_verify_attention_q, write_chunk_kv,
                                    write_chunk_kv_q, write_window_kv,
                                    write_window_kv_q)
+from ..ops.stream_matmul import stream_matmul
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -179,7 +184,8 @@ def _param(shape, cfg, device):
 
 class Linear(nn.Module):
     """Bias-free projection in Paddle's layout: ``weight`` (in, out),
-    ``y = x @ weight``."""
+    ``y = x @ weight``: ``torch.matmul`` (training, prefill), or
+    :meth:`stream`, batch-invariant (decode and verify)."""
 
     def __init__(self, in_features, out_features, cfg, device):
         super().__init__()
@@ -187,6 +193,9 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return torch.matmul(x, self.weight)
+
+    def stream(self, x):
+        return stream_matmul(x, self.weight)
 
 
 class Embedding(nn.Module):
@@ -206,6 +215,17 @@ class LlamaRMSNorm(nn.Module):
 
     def forward(self, x):
         return fused_rms_norm(x, self.weight, self._eps)
+
+
+def _proj(p, x, ab=None, stream: bool = False):
+    """Projection ``p`` of x, with this batch's adapter factors ``ab`` of
+    its target (or None) as one ``lora_matmul``; ``stream``: the decode
+    and verify paths' batch-invariant product (``Linear.stream``, an
+    ``Int8Linear``'s streaming kernel, the fused LoRA kernel)."""
+    if ab is not None:
+        _no_int8_lora(p)
+        return lora_matmul(x, p.weight, ab)
+    return p.stream(x) if stream else p(x)
 
 
 def _no_int8_lora(*projections) -> None:
@@ -231,27 +251,25 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(h, self.num_kv_heads * d, cfg, device)
         self.o_proj = Linear(self.num_heads * d, h, cfg, device)
 
-    def _qkv(self, x, B, S, lora=None):
+    def _qkv(self, x, B, S, lora=None, stream: bool = False):
         """q/k/v projections; ``lora``: this layer's {target: factors} —
         each base projection and its per-row delta run as one
-        ``lora_matmul``."""
+        ``lora_matmul``; ``stream``: the batch-invariant products of the
+        decode and verify paths (:func:`_proj`)."""
         if lora is not None:
             _no_int8_lora(self.q_proj, self.k_proj, self.v_proj)
-            q = lora_matmul(x, self.q_proj.weight, lora.get("q"))
-            k = lora_matmul(x, self.k_proj.weight, lora.get("k"))
-            v = lora_matmul(x, self.v_proj.weight, lora.get("v"))
-        else:
-            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        lora = lora or {}
+        q, k, v = (_proj(p, x, lora.get(t), stream) for p, t in (
+            (self.q_proj, "q"), (self.k_proj, "k"), (self.v_proj, "v")))
         return (q.reshape(B, S, self.num_heads, self.head_dim),
                 k.reshape(B, S, self.num_kv_heads, self.head_dim),
                 v.reshape(B, S, self.num_kv_heads, self.head_dim))
 
-    def _o_lora(self, out, lora):
+    def _o_lora(self, out, lora, stream: bool = False):
         """Output projection plus this layer's "o" delta, fused."""
         if lora is not None:
             _no_int8_lora(self.o_proj)
-            return lora_matmul(out, self.o_proj.weight, lora.get("o"))
-        return self.o_proj(out)
+        return _proj(self.o_proj, out, (lora or {}).get("o"), stream)
 
     def forward(self, x, cos, sin):
         """Dense causal pass (training): heads go head-major BEFORE RoPE,
@@ -279,7 +297,7 @@ class LlamaAttention(nn.Module):
         ``lora``: this layer's adapter factors (or None). W = 1 is the
         single-token decode. Returns (output, pool)."""
         B, W = x.shape[0], x.shape[1]
-        q, k, v = self._qkv(x, B, W, lora)
+        q, k, v = self._qkv(x, B, W, lora, stream=True)
         qr = _apply_rope_window(q, cos, sin, pos)
         kr = _apply_rope_window(k, cos, sin, pos)
         if len(pool) == 4:
@@ -288,7 +306,7 @@ class LlamaAttention(nn.Module):
         else:
             write_window_kv(*pool, kr, v, block_tables, pos)
             out = paged_verify_attention(qr, *pool, block_tables, pos)
-        return self._o_lora(out.reshape(B, W, -1), lora), pool
+        return self._o_lora(out.reshape(B, W, -1), lora, stream=True), pool
 
     # single-token decode: the verify window at W = 1
     paged_decode = paged_verify
@@ -323,18 +341,17 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(h, f, cfg, device)
         self.down_proj = Linear(f, h, cfg, device)
 
-    def forward(self, x, lora=None):
+    def forward(self, x, lora=None, stream: bool = False):
         """SwiGLU. ``lora``: this layer's adapter factors — each projection
         and its per-row delta run as one ``lora_matmul``. Int8 projections
-        (``Int8Linear``) run their own ``w8_matmul``."""
-        if lora is not None and any(t in lora for t in ("gate", "up",
-                                                         "down")):
+        (``Int8Linear``) run their own ``w8_matmul``. ``stream``: the
+        batch-invariant products of the decode and verify paths."""
+        lora = lora or {}
+        if any(t in lora for t in ("gate", "up", "down")):
             _no_int8_lora(self.gate_proj, self.up_proj, self.down_proj)
-            g = lora_matmul(x, self.gate_proj.weight, lora.get("gate"))
-            u = lora_matmul(x, self.up_proj.weight, lora.get("up"))
-            return lora_matmul(F.silu(g) * u, self.down_proj.weight,
-                               lora.get("down"))
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        g = _proj(self.gate_proj, x, lora.get("gate"), stream)
+        u = _proj(self.up_proj, x, lora.get("up"), stream)
+        return _proj(self.down_proj, F.silu(g) * u, lora.get("down"), stream)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -358,7 +375,8 @@ class LlamaDecoderLayer(nn.Module):
                                               sin, pool, block_tables, pos,
                                               lora)
         h = x + a
-        return h + self.mlp(self.post_attention_layernorm(h), lora), pool
+        return h + self.mlp(self.post_attention_layernorm(h), lora,
+                            stream=True), pool
 
     paged_decode = paged_verify
 
@@ -524,10 +542,18 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = Int8Linear.from_linear(self.lm_head)
         return self
 
-    def head(self, h):
+    def head(self, h, stream: bool = False):
         """Logits in the model dtype: ``h @ lm_head.weight``, or
-        ``h @ embed.T`` with tied embeddings."""
-        if self.cfg.tie_word_embeddings:
+        ``h @ embed.T`` with tied embeddings; ``stream``: the decode and
+        verify paths' batch-invariant product (a tied head reads the
+        embedding (vocab, hidden) as it lies)."""
+        tied = self.cfg.tie_word_embeddings
+        if stream:
+            if tied:
+                return stream_matmul(h, self.model.embed_tokens.weight,
+                                     transpose_w=True)
+            return self.lm_head.stream(h)
+        if tied:
             return torch.matmul(h, self.model.embed_tokens.weight.t())
         return self.lm_head(h)
 

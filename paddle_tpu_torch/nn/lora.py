@@ -44,6 +44,16 @@ def _gathered(ab):
     return ab.gather() if isinstance(ab, PooledFactors) else ab
 
 
+def _rows_delta(x, A, B):
+    """fp32 ``(x32 @ A_e) @ B_e`` of every row of x (E, S, in), a row at a
+    time (each row's products alike, whatever S and E: batch-invariant).
+    Returns (E * S, out)."""
+    E, S, K = x.shape
+    idx = torch.arange(E, device=x.device).repeat_interleave(S)
+    xa = torch.bmm(x.reshape(E * S, 1, K).float(), A.float()[idx])
+    return torch.bmm(xa, B.float()[idx])[:, 0]
+
+
 def bgmv(x, ab):
     """Batched gathered LoRA delta ``((x32 @ A) @ B) · s`` per batch entry,
     in fp32, returned in x's dtype (None when ``ab`` is None). x: (E, S,
@@ -57,14 +67,21 @@ def bgmv(x, ab):
 
 def _lora_plain(x, w, A, B, s):
     """Plain twin of the fused kernel (``paddle_tpu.ops.paged_attention_
-    pallas._lora_kernel``): the base product accumulated in fp32, the delta
-    ``(x32 @ A) @ B`` in fp32, combined as ``y + d · s`` in fp32 and rounded
-    to x's dtype once. The JAX jnp path instead adds the base product and
-    the delta each rounded to x's dtype (``nn/lora.py:259-262``); in fp32
-    the two agree."""
-    y = torch.matmul(x.float(), w.float())
-    d = torch.bmm(torch.bmm(x.float(), A.float()), B.float())
-    return (y + d * s.float()[:, None, None]).to(x.dtype)
+    pallas._lora_kernel``): the base product accumulated in fp32 over the
+    kernel's K slices (``stream_matmul.sliced_sum``), the delta ``(x32 @
+    A) @ B`` in fp32, combined as ``y + d · s`` in fp32 and rounded to x's
+    dtype once, every row computed alike (batch-invariant, as the
+    kernel). The JAX jnp path instead adds the base product and the delta
+    each rounded to x's dtype (``nn/lora.py:259-262``); in fp32 the two
+    agree."""
+    from ..ops.stream_matmul import k_slices, sliced_sum, sm_count
+
+    E, S, K = x.shape
+    N = w.shape[1]
+    y = sliced_sum(x.reshape(E * S, K), w, k_slices(K, N, sm_count(x.device)))
+    d = _rows_delta(x, A, B)
+    sr = s.float().repeat_interleave(S)[:, None]
+    return (y + d * sr).to(x.dtype).reshape(E, S, N)
 
 
 def lora_matmul(x, w, ab):

@@ -16,8 +16,9 @@ from ...ops.int8 import quantize_per_channel, w8_matmul
 
 class Int8Linear(nn.Module):
     """``y = x @ dequant(weight_q, weight_scale)`` through
-    :func:`~paddle_tpu_torch.ops.int8.w8_matmul`: decode shapes stream the
-    int8 weight through the kernel, other shapes dequantize once. Built
+    :func:`~paddle_tpu_torch.ops.int8.w8_matmul`: up to 128 rows stream the
+    int8 weight through the kernel, more rows dequantize once; :meth:`stream`
+    (decode and verify) streams at every row count. Built
     from a trained bias-free ``Linear`` with :meth:`from_linear`."""
 
     def __init__(self, w_q: torch.Tensor, scale: torch.Tensor):
@@ -39,3 +40,9 @@ class Int8Linear(nn.Module):
 
     def forward(self, x):
         return w8_matmul(x, self.weight_q, self.weight_scale)
+
+    def stream(self, x):
+        """The decode and verify paths' product: the int8 weight streams
+        at every row count (``w8_matmul(any_rows=True)``), so a row's
+        result does not depend on the rows beside it."""
+        return w8_matmul(x, self.weight_q, self.weight_scale, any_rows=True)

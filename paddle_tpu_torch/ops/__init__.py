@@ -15,6 +15,10 @@ Kernel dispatch contract (shared by every wrapper in this package):
   device — ``chip_smoke.py`` uses it to hold each kernel against its plain
   version on the card.
 
+``stream_matmul`` is the port's own kernel, not a port of a Pallas one:
+the batch-invariant bf16 product of the decode and verify paths (the JAX
+package leaves those products to XLA).
+
 The mode is process-wide and read at call time (PyTorch runs eagerly, so
 unlike the JAX package there is no trace to freeze it).
 
@@ -89,6 +93,9 @@ from .paged_attention import (gather_block_kv,  # noqa: E402
                               write_window_kv, write_window_kv_q)
 from .paged_attention_cuda import (paged_attention_cuda,  # noqa: E402
                                    paged_attention_int8_cuda)
+# the modules, not their functions of the same names, stay the package's
+# attributes (``ops.stream_matmul.k_slices``)
+from . import stream_matmul, stream_matmul_cuda  # noqa: E402
 
 # every kernel wrapper of the port, by kernel name
 KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
@@ -104,7 +111,8 @@ KERNEL_WRAPPERS = {"rms_norm": rms_norm_cuda,
                    "w8_matmul": w8_matmul_cuda,
                    "paged_attention_int8": paged_attention_int8_cuda,
                    "fused_lora_matmul": fused_lora_matmul_cuda,
-                   "decode_tick": decode_tick_cuda}
+                   "decode_tick": decode_tick_cuda,
+                   "stream_matmul": stream_matmul_cuda.stream_matmul_cuda}
 
 
 def reset_launch_counts() -> None:

@@ -80,6 +80,10 @@ SIGNATURES = {
     "pt_fused_lora_config": (_I, _I, _P),
     # M, K, N, out (6 ints): the streaming product's plan on this device
     "pt_stream_plan": (_I, _I, _I, _P),
+    # x, w, out, M, K, N, w_kmajor (0: w (K, N); 1: w (N, K)), stream
+    "pt_stream_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # token tile, 64-column blocks of W a block, w_kmajor, out (8 ints)
+    "pt_stream_matmul_config": (_I, _I, _I, _P),
     # x, w, a (at the layer), b (at the layer), scale, aidx, out, part,
     # M, K, N, R, rows_per_entry, a_page_stride, b_page_stride, stream
     "pt_fused_lora": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

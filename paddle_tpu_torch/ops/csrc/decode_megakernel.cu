@@ -57,9 +57,11 @@
 //     (q/k/v), the residual (o, down), SiLU(g) * u (gate/up). No floating-
 //     point atomics: a tick is deterministic.
 //   * Attention. An item is (row b, KV head g, split): a row's visible
-//     blocks in splits of 16 blocks counted from its last block, so that the
-//     blocks a window writes lie in one split; the kernel reads pos and
-//     sizes the splits on the card. A block's 8 consumer warps take 32 keys
+//     blocks in splits of 16 blocks, over fp pools anchored at block 0 (a
+//     key's split does not depend on the window's width: verify windows
+//     round as decode ticks), over int8 pools counted from its last block,
+//     so that the blocks a window's inserts requantize lie in one split;
+//     the kernel reads pos and sizes the splits on the card. A block's 8 consumer warps take 32 keys
 //     each: a lane's QK runs over D for its key (q broadcast from shared
 //     memory) and the online softmax over the warp's keys, then PV runs over
 //     D across the lanes, the keys in order; the warps' states are merged in
@@ -993,8 +995,10 @@ __device__ __forceinline__ void widen4(const typename Raw4<kQ>::T& u, float sc,
 }
 
 // The attention phase. Row b's nb visible blocks go in splits of
-// kSplitBlocks counted from its last block (split 0 the last, holding every
-// block the window writes); an item is (row, KV head g, split), in the
+// kSplitBlocks, over fp pools from block 0 (split sp: blocks [16 sp, 16 sp
+// + 16)), over int8 pools counted from its last block (split 0 the last,
+// holding every block the window writes); an item is (row, KV head g,
+// split), in the
 // order of s.aprefix. Per item the block's 8 consumer warps share its
 // blocks, each keeping an online softmax per query row, merged in warp
 // order; a row of one split writes its output rows, else the split writes
@@ -1034,7 +1038,16 @@ __device__ void phase_attention(const Args& a, int l, Smem& s) {
     const int g = (it - s.aprefix[b] * KV) / ns, sp = (it - s.aprefix[b] * KV) % ns;
     const int p0 = __ldg(a.pos + b);
     const int nb = min((p0 + a.W - 1) / a.bs + 1, a.M);
-    const int bhi = nb - sp * kSplitBlocks, blo = max(0, bhi - kSplitBlocks);
+    // fp pools: split sp holds blocks [16 sp, 16 sp + 16) (anchored at
+    // block 0): a key falls in the same split, and in the same warp's
+    // chunk of it, whatever the window's width, so a verify window's
+    // query rounds as the decode tick's (the window's extra blocks only
+    // add keys masked for the earlier queries, which change no bit).
+    // int8 pools: counted from the last block, so that one split holds
+    // every block the window's inserts requantize
+    const int bhi = kQ ? nb - sp * kSplitBlocks
+                       : min(nb, (sp + 1) * kSplitBlocks);
+    const int blo = kQ ? max(0, bhi - kSplitBlocks) : sp * kSplitBlocks;
     const unsigned t_item = ttime(a);
     if (kQ && sp == 0) {
       // this item alone touches the window's blocks of head g of row b:

@@ -19,11 +19,13 @@
 // (programmatic dependent launch).
 //   1. xa partials: part[slice, r, :R] = x32[r, slice] @ A_e[slice, :R] in
 //      fp32 FMA (the reference's arithmetic; tf32 is not), over a grid of
-//      (K slices, entries, R in chunks of 8) (stream_tiles::lora_slices):
-//      each entry's page of A is read once, however many rows it has. A
+//      (K slices, entries, R in chunks of 8) (stream_tiles::lora_slices:
+//      fixed by K and R): each entry's page of A is read once a pass. A
 //      block stages 64 rows of K of its rows of x and of A at a time in
 //      shared memory; each row's sum is split over up to 32 neighbouring
-//      threads and added by a fixed shuffle tree.
+//      threads and added by a fixed shuffle tree: 32, for every entry of a
+//      decode tick or a verify window (up to 16 rows), so a row's xa does
+//      not depend on the rows beside it.
 //   2. the weight-streaming main loop of stream_gemm.cuh over bf16 W (TMA
 //      ring, wgmma with x's rows as the N, K splits reduced through the
 //      cluster's shared memory in rank order). It streams W while launch 1
@@ -50,13 +52,19 @@ typedef __nv_bfloat16 bf16;
 constexpr int kXaThreads = 256;
 constexpr int kChunk = st::kLoraChunk;    // K rows staged at a time
 constexpr int kRowsMax = 128;             // rows of an entry staged at a time
+// an entry of at most this many rows (a decode token, a verify window) is
+// taken 8 rows a pass, a row by one warp (G = 32 lanes): its rows' sums
+// run the same shuffle tree whatever the entry's row count; a longer one
+// (a prefill chunk) up to 128 rows a pass
+constexpr int kWindowRows = 16;
 constexpr int kXStride = kChunk + 1;      // padded fp32 row of the x chunk
 
 // part[slice, r, jc*8 .. jc*8 + 7] (j < R) = sum over the slice's K rows i
 // of float(x[r, i]) * A_page[i, j] for the rows r of entry blockIdx.y,
 // slice blockIdx.x, R chunk blockIdx.z. Thread t takes row t / G of a row
 // block and every G-th i of each chunk from t % G; the G partial sums of a
-// row are added by a shuffle tree of fixed shape.
+// row are added by a shuffle tree of fixed shape (G = 32 for every entry
+// of at most kWindowRows rows).
 __global__ void __launch_bounds__(kXaThreads)
 lora_xa_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
                const int* __restrict__ aidx, float* __restrict__ part, int M,
@@ -74,8 +82,9 @@ lora_xa_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
   // 16-byte vectors) and A (64 x 8 floats)
   constexpr int kXV = kRowsMax * (kChunk / 8) / kXaThreads;
   constexpr int kAV = kChunk * 8 / kXaThreads;
-  for (int rb = 0; rb < S; rb += kRowsMax) {
-    const int T = min(kRowsMax, S - rb);
+  const int pass = S <= kWindowRows ? kXaThreads / 32 : kRowsMax;
+  for (int rb = 0; rb < S; rb += pass) {
+    const int T = min(pass, S - rb);
     int G = 32;
     while (G > 1 && G * T > kXaThreads) G >>= 1;
     const int row = tid / G, q = tid % G;
@@ -219,7 +228,7 @@ extern "C" int pt_fused_lora(const void* x, const void* w, const void* a,
     return (int)cudaErrorInvalidValue;
   const int sms = sg::sm_count();
   const int E = M / rows_per_entry;
-  const int slices = st::lora_slices(E, rows_per_entry, K, R, sms);
+  const int slices = st::lora_slices(K, R);
   const st::Plan p = st::plan(M, K, N, sms);
   CUtensorMap tw;
   if (st::bad_plan(p) || !sg::weight_map(&tw, w, K, N, false))
@@ -235,12 +244,12 @@ extern "C" int pt_fused_lora(const void* x, const void* w, const void* a,
                     static_cast<const float*>(scale),
                     static_cast<const int*>(aidx), M, N, R, rows_per_entry,
                     slices, b_page_stride};
-  e = sg::launch<false>(tw, x, p, M, K, N, epi, true, s);
+  e = sg::launch<false, false>(tw, x, p, M, K, N, epi, true, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The second launch's shape for token tile X (8, 16, 128) and WG 64-column
+// The second launch's shape for token tile X (8-128) and WG 64-column
 // blocks of W a block (1, 2) into out[8] (stream_gemm::describe).
 extern "C" int pt_fused_lora_config(int X, int WG, int* out) {
   return sg::describe<false, LoraEpi>(X, WG, out);

@@ -16,8 +16,9 @@
 //     rows) per step.
 // The products are m64n64k16 and m64n128k16 bf16 -> fp32 with both
 // operands from shared memory (K-major), or with A from registers and B
-// MN-major (one column block, or two for n128); and m64n{8,16,128}k16 with
-// A MN-major and B K-major, both from shared memory (stream_gemm.cuh).
+// MN-major (one column block, or two for n128); and m64n{8,16,32,48,64,
+// 128}k16 with A MN-major (or K-major) and B K-major, both from shared
+// memory (stream_gemm.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -185,9 +186,11 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d0)[32],
 
 // d (64 x N fp32, N / 2 a thread) (+)= A (64 x 16, smem, MN-major: one
 // column block, the 64 rows its columns) * B (16 x N, smem, K-major: N rows
-// of 16), for N = 8, 16 and 128: the weight-streaming products of
+// of 16), for N = 8, 16, 32, 48, 64 and 128: the weight-streaming products of
 // stream_gemm.cuh, where A is a weight tile W (K, 64) read transposed and B
-// the rows of x
+// the rows of x. kTA = 0 reads A K-major instead (64 rows of 16 K: a tile
+// of W^T, a tied lm-head's embedding rows)
+template <int kTA = 1>
 __device__ __forceinline__ void wgmma_m64n8k16_ss_ta(float (&d)[4],
                                                     uint64_t desc_a,
                                                     uint64_t desc_b,
@@ -195,11 +198,12 @@ __device__ __forceinline__ void wgmma_m64n8k16_ss_ta(float (&d)[4],
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTA));
 }
 
+template <int kTA = 1>
 __device__ __forceinline__ void wgmma_m64n16k16_ss_ta(float (&d)[8],
                                                      uint64_t desc_a,
                                                      uint64_t desc_b,
@@ -207,12 +211,74 @@ __device__ __forceinline__ void wgmma_m64n16k16_ss_ta(float (&d)[8],
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTA));
 }
 
+template <int kTA = 1>
+__device__ __forceinline__ void wgmma_m64n32k16_ss_ta(float (&d)[16],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, %19, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTA));
+}
+
+template <int kTA = 1>
+__device__ __forceinline__ void wgmma_m64n48k16_ss_ta(float (&d)[24],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, %27, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTA));
+}
+
+template <int kTA = 1>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_ta(float (&d)[32],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTA));
+}
+
+template <int kTA = 1>
 __device__ __forceinline__ void wgmma_m64n128k16_ss_ta(float (&d)[64],
                                                       uint64_t desc_a,
                                                       uint64_t desc_b,
@@ -225,7 +291,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_ta(float (&d)[64],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
-      "1, 0;\n}\n"
+      "%67, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -242,7 +308,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_ta(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTA));
 }
 
 // The accumulator of m64nN: thread (warp w, lane = 4 g + t) holds, for each

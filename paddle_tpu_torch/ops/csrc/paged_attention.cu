@@ -37,10 +37,12 @@
 //     rows of one (batch row, KV head) (one wgmma M tile; a decode group
 //     of 4 rows fills 4 of them: the products cost little beside the
 //     bytes) and one split of the row's keys, so that each row takes as
-//     many splits as its own length needs; a split's keys (at least 128)
-//     are sized on the card from the keys the row holds, to about one wave
-//     of units were half the rows as long (so a row's rounding never
-//     depends on the other rows of the batch). The grid is
+//     many splits as its own length needs; a split's keys (at least 128,
+//     from key 0) are sized from the launch's shapes, to about one wave
+//     of units were half the rows as long as the table (so a row's
+//     rounding never depends on the other rows of the batch, nor a
+//     query's on the window's width: verify windows round as decode
+//     ticks). The grid is
 //     persistent, at most one wave of blocks, sized from shapes alone:
 //     each block reads pos on the card and walks its units (i, i + grid,
 //     ...), its ring running on from one to the next, so no host reads a

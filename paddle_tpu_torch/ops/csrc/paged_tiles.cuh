@@ -12,15 +12,16 @@
 // row's context: key j is slot j % bs of the block at table entry j / bs.
 //
 // The plan. A unit of work is one tile of kRows query rows of one (b, KV
-// head) (one wgmma M tile) and one split: a run of `ks` keys, walked in
-// ring stages of kStageKeys keys, so that each row takes as many splits as
-// its own length needs. The kernel sizes a row's ks on the card from the
-// keys that row really holds (row_split_keys): at least kSplitKeys, more
-// where a launch with half its B rows as long as this one would give more
-// units than one wave of blocks (so at most about two waves when every row
-// is long). A row's splits, and so its rounding, depend on its
-// own position alone, never on the other rows of the launch: a served
-// request's tokens do not change with the batch it shares.
+// head) (one wgmma M tile) and one split: a run of `ks` keys from key 0,
+// walked in ring stages of kStageKeys keys, so that each row takes as
+// many splits as its own length needs. ks (row_split_keys) is at least
+// kSplitKeys, more where a launch with half its B rows as long as the
+// table would give more units than one wave of blocks; it depends on the
+// launch's shapes alone (B, KV, the table's keys, the tiles a row's query
+// rows fill: one for every W <= 64 / rep), not on any row's position. So a row's splits, and its rounding, never depend on
+// the other rows of the launch (a served request's tokens do not change
+// with the batch it shares), and a query's keys fall in the same splits
+// in a decode tick as in a verify window (its logits are the same bits).
 // Every launch is sized from shapes alone (the grid, the most splits a
 // tile can take, the workspace), never from pos: the kernel reads pos on
 // the card and derives from it the work there is. The work items (b, tile,
@@ -144,16 +145,19 @@ PAGED_TILES_FN int split_keys_for(long long keys, int KV, const Plan& p,
   return ks > p.split_keys ? static_cast<int>(ks) : p.split_keys;
 }
 
-// The keys a split of a row at position `pos` takes: split_keys_for over
-// the keys the row's tiles walk (the sum over its tiles of frontier + 1)
-// times ceil(B / 2), as if half the rows of the launch were as long as
-// this one. A function of the row's own position and the launch's shapes
-// only.
+// The keys a split of a row takes: split_keys_for over the keys a row as
+// long as the table (M bs) walks in its tiles, times ceil(B / 2), as if
+// half the rows of the launch were that long. A function of the launch's
+// shapes alone — not of the row's position — and the same for every W
+// whose query rows fill one tile (W rep <= 64: a decode tick and a verify
+// window), so a key falls in the same split, at the same place in it, in
+// a decode tick as in a verify window: a query's sums round alike in both
+// (the splits start at key 0).
 PAGED_TILES_FN int row_split_keys(int pos, int B, int KV, int rep, int M,
                                   int bs, const Plan& p, int wave) {
-  long long keys = 0;
-  for (int t = 0; t < p.tiles; ++t)
-    keys += tile_frontier(pos, t, p.rows, rep, M, bs) + 1;
+  (void)pos;
+  (void)rep;
+  const long long keys = static_cast<long long>(p.tiles) * M * bs;
   return split_keys_for(keys * ((B + 1) / 2), KV, p, wave);
 }
 

@@ -1,7 +1,17 @@
 // The weight-streaming product out (M, N) = x (M, K) @ W (K, N) for few
 // rows of x, on Hopper (sm_90a): the main loop that the int8 matmul
-// (w8_matmul.cu, W int8) and the fused LoRA kernel's base product
-// (fused_lora.cu, W bf16) share. Each source supplies an epilogue.
+// (w8_matmul.cu, W int8), the fused LoRA kernel's base product
+// (fused_lora.cu, W bf16) and the bf16 decode product (stream_matmul.cu,
+// W (K, N) or a tied head's W (N, K)) share. Each source supplies an
+// epilogue.
+//
+// Batch invariance: row r of out depends only on row r of x and on W. The
+// K split is a function of (K, N, sms) (stream_tiles::plan), each block
+// sums its K steps in order, the two warpgroups that share an int8 tile
+// take even and odd stages at every token tile, and the cluster's
+// partials add in rank order; a wgmma's sum for one element is taken not
+// to depend on its N (chip_smoke.py phase 28 checks the bits at M = 1 to
+// 128 on the card).
 //
 // Bound: bytes. A decode batch (M <= 16) does 2 M flops per weight it
 // reads (16 per 2-byte weight at M = 8); a 128-row prefill chunk 256 per
@@ -11,14 +21,16 @@
 //
 // Design:
 //   * swap-AB: the product runs as out^T = W^T . x^T, so that x's rows are
-//     the wgmma's N (8, 16 or 128: stream_tiles::token_tile) and W's
+//     the wgmma's N (8, 16, 32, 48, 64 or 128: stream_tiles::token_tile,
+//     so a verify window of 40 rows pads to 48, not 128) and W's
 //     columns its M = 64. A decode batch of 8 rows costs no padding: m64n8
 //     products, 4 accumulator registers a thread. A (64 W columns x 16 K)
-//     is read MN-major from a W tile, B (16 K x the rows) K-major from an x
-//     tile, both 128-byte swizzled as TMA writes them (hopper.cuh).
+//     is read MN-major from a W tile (K-major from a W^T tile), B (16 K x
+//     the rows) K-major from an x tile, both 128-byte swizzled as TMA
+//     writes them (hopper.cuh).
 //   * blocks of one or two consumer warpgroups (64 columns of W each; an
-//     int8 64-column tile at a decode token tile takes two, which take its
-//     stages in turn) and one producer warp. The producer streams K steps
+//     int8 64-column tile takes two, which take its stages in turn) and
+//     one producer warp. The producer streams K steps
 //     of 64 rows through a ring of kStages stages (full/empty mbarriers):
 //     per stage one TMA box of W per 64 columns (64 x 64) and one of x (64
 //     columns x the token tile; rows past M read as zeros). 6 stages of up
@@ -30,8 +42,8 @@
 //     writes to the async proxy, and runs the products on that tile while
 //     it converts the next stage.
 //   * K split: an output tile's K range is split over the blocks of a
-//     cluster (stream_tiles::plan: up to 8, so that the blocks about fill
-//     the SMs). After the main loop each block writes its fp32 partial tile
+//     cluster (stream_tiles::plan: up to 8, so that the blocks of a decode
+//     token tile about fill the SMs twice). After the main loop each block writes its fp32 partial tile
 //     to its shared memory; after a cluster barrier, block r sums its range
 //     of the tile over the cluster's blocks in rank order (distributed
 //     shared memory) and runs the epilogue on it: a fixed order, whatever
@@ -75,10 +87,12 @@ template <int kX, int kWG, bool kInt8>
 struct Layout {
   static constexpr int kBN = kWG * st::kColBlock;        // columns a block
   // consumer warpgroups: one a 64-column block of W, but two on the one
-  // block of an int8 64-column tile at a decode token tile, taking the
-  // stages in turn (the conversion, not the bytes, limited one warpgroup
-  // there; at 128 rows two measured slower)
-  static constexpr bool kShare = kInt8 && kWG == 1 && kX <= 16;
+  // block of an int8 64-column tile, taking the stages in turn (the
+  // conversion, not the bytes, limited one warpgroup at a decode token
+  // tile). At every token tile, so that an element's sum over its K
+  // range is added up in the same order (even stages, odd stages, then
+  // the two) whatever the number of rows
+  static constexpr bool kShare = kInt8 && kWG == 1;
   static constexpr int kCons = kShare ? 2 : kWG;
   static constexpr int kWBlock = kInt8 ? kKStep * 64 : kTile;
   static constexpr int kW = kWG * kWBlock;              // W of a stage
@@ -150,22 +164,32 @@ __device__ __forceinline__ void convert_tile(const unsigned char* codes,
   }
 }
 
-// acc (64 W columns x kX rows) += A (a column block, 64 K) . B (x tile)
-template <int kX>
+// acc (64 W columns x kX rows) += A (a column block, 64 K) . B (x tile).
+// A is a W (K, N) tile read MN-major (16 K rows 2048 bytes on), or with
+// kKMaj a W^T tile of W (N, K) (a tied lm-head's embedding: 64 rows of 64
+// K) read K-major (16 K columns 32 bytes on)
+template <int kX, bool kKMaj>
 __device__ __forceinline__ void stage_products(float (&acc)[kX / 2],
                                                uint32_t a, uint32_t b,
                                                bool first) {
+  constexpr int kTA = kKMaj ? 0 : 1;
 #pragma unroll
   for (int kk = 0; kk < kKStep / 16; ++kk) {
-    const uint64_t da = smem_desc(a + kk * 2048);   // 16 K rows
+    const uint64_t da = smem_desc(a + kk * (kKMaj ? 32 : 2048));
     const uint64_t db = smem_desc(b + kk * 32);     // 16 K columns
     const int scale_d = (first && kk == 0) ? 0 : 1;
     if constexpr (kX == 8)
-      wgmma_m64n8k16_ss_ta(acc, da, db, scale_d);
+      wgmma_m64n8k16_ss_ta<kTA>(acc, da, db, scale_d);
     else if constexpr (kX == 16)
-      wgmma_m64n16k16_ss_ta(acc, da, db, scale_d);
+      wgmma_m64n16k16_ss_ta<kTA>(acc, da, db, scale_d);
+    else if constexpr (kX == 32)
+      wgmma_m64n32k16_ss_ta<kTA>(acc, da, db, scale_d);
+    else if constexpr (kX == 48)
+      wgmma_m64n48k16_ss_ta<kTA>(acc, da, db, scale_d);
+    else if constexpr (kX == 64)
+      wgmma_m64n64k16_ss_ta<kTA>(acc, da, db, scale_d);
     else
-      wgmma_m64n128k16_ss_ta(acc, da, db, scale_d);
+      wgmma_m64n128k16_ss_ta<kTA>(acc, da, db, scale_d);
   }
 }
 
@@ -179,7 +203,7 @@ __device__ __forceinline__ void stage_products(float (&acc)[kX / 2],
 //     kX * 64 floats of shared memory at xa;
 //   store(row, col, v, r, xa): the fully reduced fp32 sums v of out[row,
 //     col .. col + 3] (r: the row's index from r0).
-template <int kX, int kWG, bool kInt8, class Epi>
+template <int kX, int kWG, bool kInt8, bool kKMaj, class Epi>
 __global__ void __launch_bounds__(Layout<kX, kWG, kInt8>::kThreads)
 stream_kernel(const __grid_constant__ CUtensorMap tw,
               const __grid_constant__ CUtensorMap tx, int M, int K, int N,
@@ -224,8 +248,12 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
         const uint32_t st_ = base + stage(j);
         const int k = (s0 + j) * kKStep;
 #pragma unroll
-        for (int c = 0; c < kWG; ++c)
-          tma_load_2d(st_ + c * L::kWBlock, &tw, full(s), n0 + c * 64, k);
+        for (int c = 0; c < kWG; ++c) {
+          if constexpr (kKMaj)
+            tma_load_2d(st_ + c * L::kWBlock, &tw, full(s), k, n0 + c * 64);
+          else
+            tma_load_2d(st_ + c * L::kWBlock, &tw, full(s), n0 + c * 64, k);
+        }
         tma_load_2d(st_ + L::kW, &tx, full(s), k, m0);
       }
     }
@@ -257,7 +285,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
         a = st_ + cb * L::kWBlock;
       }
       wgmma_fence();
-      stage_products<kX>(acc, a, st_ + L::kW, j == j0);
+      stage_products<kX, kKMaj>(acc, a, st_ + L::kW, j == j0);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(acc);
@@ -353,27 +381,28 @@ inline int sm_count() {
 }
 
 // W (K, N), row-major, bf16 (128-byte swizzle) or int8 codes (no swizzle:
-// the consumers read them row by row) as a map of 64 x 64 boxes, encoded
-// once per (pointer, shape, type) and cached; columns and rows past the
-// edge read as zeros
+// the consumers read them row by row), or with kmajor a bf16 W (N, K)
+// whose product is x @ W^T (boxes of 64 K x 64 rows), as a map of 64 x 64
+// boxes, encoded once per (pointer, shape, type, layout) and cached;
+// columns and rows past the edge read as zeros
 inline bool weight_map(CUtensorMap* out, const void* w, int K, int N,
-                       bool int8) {
+                       bool int8, bool kmajor = false) {
   struct Key {
     const void* p;
-    int K, N, int8;
+    int K, N, kind;
     bool operator==(const Key& o) const {
-      return p == o.p && K == o.K && N == o.N && int8 == o.int8;
+      return p == o.p && K == o.K && N == o.N && kind == o.kind;
     }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
       return std::hash<const void*>()(k.p) ^ (size_t(k.K) << 40) ^
-             (size_t(k.N) << 8) ^ size_t(k.int8);
+             (size_t(k.N) << 8) ^ size_t(k.kind);
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{w, K, N, int8 ? 1 : 0};
+  const Key key{w, K, N, (int8 ? 1 : 0) | (kmajor ? 2 : 0)};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
@@ -382,8 +411,10 @@ inline bool weight_map(CUtensorMap* out, const void* w, int K, int N,
   }
   flash_common::EncodeTiled fn = flash_common::encode_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cuuint64_t(N), cuuint64_t(K)};
-  const cuuint64_t strides[1] = {cuuint64_t(N) * (int8 ? 1 : 2)};
+  const cuuint64_t dims[2] = {cuuint64_t(kmajor ? K : N),
+                              cuuint64_t(kmajor ? N : K)};
+  const cuuint64_t strides[1] = {
+      cuuint64_t(kmajor ? K : N) * (int8 ? 1 : 2)};
   const cuuint32_t box[2] = {64, kKStep};
   const cuuint32_t elem[2] = {1, 1};
   if (fn(out,
@@ -419,12 +450,12 @@ inline bool rows_map(CUtensorMap* out, const void* x, int M, int K,
 // one launch of the kernel for plan p, as a cluster of p.splits blocks,
 // with programmatic stream serialization when `pdl` (the kernel may start
 // while the one before it runs; Epi::prepare waits for it)
-template <int kX, int kWG, bool kInt8, class Epi>
+template <int kX, int kWG, bool kInt8, bool kKMaj, class Epi>
 cudaError_t launch_plan(const CUtensorMap& tw, const CUtensorMap& tx,
                         const st::Plan& p, int M, int K, int N,
                         const Epi& epi, bool pdl, cudaStream_t stream) {
   using L = Layout<kX, kWG, kInt8>;
-  auto kernel = stream_kernel<kX, kWG, kInt8, Epi>;
+  auto kernel = stream_kernel<kX, kWG, kInt8, kKMaj, Epi>;
   static bool attr = false;
   cudaError_t e = flash_common::allow_smem(kernel, L::kAlloc, &attr);
   if (e != cudaSuccess) return e;
@@ -445,8 +476,9 @@ cudaError_t launch_plan(const CUtensorMap& tw, const CUtensorMap& tx,
   return cudaLaunchKernelEx(&cfg, kernel, tw, tx, M, K, N, p.ks, epi);
 }
 
-// launch the instantiation that plan p names
-template <bool kInt8, class Epi>
+// launch the instantiation that plan p names (kKMaj: W's map is
+// weight_map's kmajor layout)
+template <bool kInt8, bool kKMaj, class Epi>
 cudaError_t launch(const CUtensorMap& tw, const void* x, const st::Plan& p,
                    int M, int K, int N, const Epi& epi, bool pdl,
                    cudaStream_t stream) {
@@ -454,11 +486,18 @@ cudaError_t launch(const CUtensorMap& tw, const void* x, const st::Plan& p,
   if (!rows_map(&tx, x, M, K, p.tok)) return cudaErrorInvalidValue;
 #define STREAM_GEMM_CASE(X, WG)                                            \
   if (p.tok == X && p.wg == WG)                                            \
-    return launch_plan<X, WG, kInt8>(tw, tx, p, M, K, N, epi, pdl, stream);
+    return launch_plan<X, WG, kInt8, kKMaj>(tw, tx, p, M, K, N, epi, pdl, \
+                                             stream);
   STREAM_GEMM_CASE(8, 1)
   STREAM_GEMM_CASE(8, 2)
   STREAM_GEMM_CASE(16, 1)
   STREAM_GEMM_CASE(16, 2)
+  STREAM_GEMM_CASE(32, 1)
+  STREAM_GEMM_CASE(32, 2)
+  STREAM_GEMM_CASE(48, 1)
+  STREAM_GEMM_CASE(48, 2)
+  STREAM_GEMM_CASE(64, 1)
+  STREAM_GEMM_CASE(64, 2)
   STREAM_GEMM_CASE(128, 1)
   STREAM_GEMM_CASE(128, 2)
 #undef STREAM_GEMM_CASE
@@ -469,12 +508,13 @@ cudaError_t launch(const CUtensorMap& tw, const void* x, const st::Plan& p,
 // a block (token tile), K rows a stage, ring stages, dynamic shared memory
 // bytes, registers a thread, local (spill and stack) bytes a thread, and
 // W columns a block
-template <bool kInt8, class Epi>
+template <bool kInt8, class Epi, bool kKMaj = false>
 int describe(int X, int WG, int* out) {
 #define STREAM_GEMM_DESCRIBE(X_, WG_)                                      \
   if (X == X_ && WG == WG_) {                                              \
     using L = Layout<X_, WG_, kInt8>;                                      \
-    return flash_common::describe(stream_kernel<X_, WG_, kInt8, Epi>,      \
+    return flash_common::describe(stream_kernel<X_, WG_, kInt8, kKMaj,    \
+                                                Epi>,                      \
                                   L::kThreads, X_, kKStep, L::kStages,     \
                                   L::kAlloc, L::kBN, out);                 \
   }
@@ -482,6 +522,12 @@ int describe(int X, int WG, int* out) {
   STREAM_GEMM_DESCRIBE(8, 2)
   STREAM_GEMM_DESCRIBE(16, 1)
   STREAM_GEMM_DESCRIBE(16, 2)
+  STREAM_GEMM_DESCRIBE(32, 1)
+  STREAM_GEMM_DESCRIBE(32, 2)
+  STREAM_GEMM_DESCRIBE(48, 1)
+  STREAM_GEMM_DESCRIBE(48, 2)
+  STREAM_GEMM_DESCRIBE(64, 1)
+  STREAM_GEMM_DESCRIBE(64, 2)
   STREAM_GEMM_DESCRIBE(128, 1)
   STREAM_GEMM_DESCRIBE(128, 2)
 #undef STREAM_GEMM_DESCRIBE

@@ -4,9 +4,10 @@
 // compiler can build it into a test harness (tests/test_torch_stream_gemm.
 // py); under nvcc the functions are __host__ __device__.
 //
-// A product out (M, N) = x (M, K) @ W (K, N) runs as a grid of
+// A product out (M, N) = x (M, K) @ W (K, N) (or W^T with W (N, K)) runs
+// as a grid of
 // (splits, column tiles, token tiles) blocks. A block owns one token tile of
-// x's rows (the N of its wgmma: 8, 16 or 128 rows), one column tile of W
+// x's rows (the N of its wgmma: 8, 16, 32, 48, 64 or 128 rows), one column tile of W
 // (one or two blocks of 64 columns) and one K range
 // of `ks` steps of kKStep rows. The splits of one output tile are the blocks
 // of one thread-block cluster: after the main loop they add their fp32
@@ -36,10 +37,12 @@ constexpr int kMaxRank = 64;
 
 STREAM_TILES_FN int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// rows of x one block covers: the smallest wgmma N of 8, 16 and 128 that
-// holds a decode batch; larger M runs in tiles of 128 rows
+// rows of x one block covers: the smallest wgmma N of 8, 16, 32, 48 and
+// 64 that holds a decode batch or a verify window; larger M runs in tiles
+// of 128 rows
 STREAM_TILES_FN int token_tile(int M) {
-  return M <= 8 ? 8 : M <= 16 ? 16 : 128;
+  return M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : M <= 48 ? 48
+         : M <= 64 ? 64 : 128;
 }
 
 struct Plan {
@@ -54,37 +57,56 @@ struct Plan {
 // The plan for x (M, K) @ W (K, N) on `sms` SMs, a pure function of its
 // arguments. Column tiles of 128 where they alone give at least 3/4 of
 // the SMs a block (the MLP's wide projections, the lm-head), else of 64.
-// K splits so that the blocks about fill the SMs twice at a decode token
-// tile (two blocks fit an SM there) and once at 128 rows, at most
-// kMaxCluster, and never an empty split. On an H100 these measured faster
-// than 128-column tiles split over one block an SM (PERF.md, PR 10).
+// On an H100 these measured faster than 128-column tiles split over one
+// block an SM (PERF.md §6, row 9).
+//
+// The column tile and the K split are functions of (K, N, sms) alone, at
+// every M: the K split is the one a decode token tile takes (the blocks
+// of one token tile about fill the SMs twice, two blocks fit an SM
+// there), at most kMaxCluster, never an empty split. So an output element
+// is summed over the same K ranges in the same order whatever the number
+// of rows: row r of the product does not depend on M or on the other
+// rows (a decode tick at 8 rows, a verify window at 40 and a batch of
+// several 128-row token tiles give the same bits), given that a wgmma's
+// sum over K for one element does not depend on its N. The column tile
+// is fixed too because an int8 tile of 64 columns shares its stages
+// between two warpgroups (stream_gemm.cuh), which changes an element's
+// order of adds. The token tile (8, 16, 32, 48, 64 or 128 rows) and the
+// number of token tiles still follow M.
+STREAM_TILES_FN int col_wg(int N, int sms) {
+  return 4 * cdiv(N, 2 * kColBlock) >= 3 * sms ? 2 : 1;
+}
+
+STREAM_TILES_FN int k_split(int K, int N, int sms) {
+  const int steps = cdiv(K, kKStep);
+  int s = 2 * sms / cdiv(N, col_wg(N, sms) * kColBlock);
+  if (s > kMaxCluster) s = kMaxCluster;
+  if (s > steps) s = steps;
+  if (s < 1) s = 1;
+  return s;
+}
+
 STREAM_TILES_FN Plan plan(int M, int K, int N, int sms) {
   Plan p;
   p.tok = token_tile(M);
   p.tok_tiles = cdiv(M, p.tok);
   const int steps = cdiv(K, kKStep);
-  p.wg = 4 * cdiv(N, 2 * kColBlock) * p.tok_tiles >= 3 * sms ? 2 : 1;
+  p.wg = col_wg(N, sms);
   p.col_tiles = cdiv(N, p.wg * kColBlock);
-  int s = (p.tok <= 16 ? 2 : 1) * sms / (p.col_tiles * p.tok_tiles);
-  if (s > kMaxCluster) s = kMaxCluster;
-  if (s > steps) s = steps;
-  if (s < 1) s = 1;
-  p.ks = cdiv(steps, s);
+  p.ks = cdiv(steps, k_split(K, N, sms));
   p.splits = cdiv(steps, p.ks);
   return p;
 }
 
-// The first launch of the fused LoRA kernel: K slices of xa = x32 @ A for
-// E entries of S rows at rank R, each slice a multiple of kLoraChunk rows.
-// About two blocks an SM over (slices, entries, R in chunks of 8), at most
-// kMaxSlices, and at most 32768 / (S * R) slices: the second launch sums
-// the slices' partials of each row it finishes, in slice order.
-STREAM_TILES_FN int lora_slices(int E, int S, int K, int R, int sms) {
+// The first launch of the fused LoRA kernel: K slices of xa = x32 @ A at
+// rank R, each slice a multiple of kLoraChunk rows: at most kMaxSlices,
+// at most 512 / R (the second launch sums the slices' partials of each
+// row it finishes, in slice order), no empty slice. A function of (K, R)
+// alone, so that a row's xa is summed over the same slices in the same
+// order whatever the number of entries and rows.
+STREAM_TILES_FN int lora_slices(int K, int R) {
   const int chunks = cdiv(K, kLoraChunk);
-  const int rc = cdiv(R, 8);
-  int s = cdiv(2 * sms, E * rc);
-  const int cap = 32768 / (S * R);
-  if (s > cap) s = cap;
+  int s = 512 / (R < 1 ? 1 : R);
   if (s > kMaxSlices) s = kMaxSlices;
   if (s > chunks) s = chunks;
   if (s < 1) s = 1;

@@ -30,7 +30,9 @@
 //
 // The x rows a block multiplies are staged in shared memory, normed and
 // rounded to bf16, one K slice at a time as the block's fragments reach it:
-// klen is the most K steps of x the slab holds at the phase's rows.
+// klen is the most K steps of x the slab holds at the largest row tile
+// (kMaxRows), whatever the phase's rows, so that the slices, and with
+// them each element's order of summation, do not depend on the rows.
 #pragma once
 
 #if defined(__CUDACC__)
@@ -111,8 +113,12 @@ TICK_PLAN_FN PhasePlan plan(const Dims& d, int phase, int NB) {
         : d.hid / (2 * kColBlock);
   p.T = (phase == kDown ? d.inter : d.hid) / kKStep;
   p.nr = row_tile(d.rows);
-  // the fewest slices that each fit the slab
-  p.S = cdiv(p.T, slab_steps(p.nr));
+  // the fewest slices that each fit the slab at the largest row tile, at
+  // every row count: a phase's slice boundaries depend on K alone, so an
+  // output element is summed over the same slices in the same order at 8
+  // rows (a decode tick) as at 40 (a verify window): the tick is
+  // batch-invariant (the wgmma's N taken not to change an element's sum)
+  p.S = cdiv(p.T, slab_steps(row_tile(kMaxRows)));
   p.klen = cdiv(p.T, p.S);
   p.S = cdiv(p.T, p.klen);   // no empty slice
   p.U = 2 * p.G * p.T;

@@ -14,7 +14,8 @@
 // with int8 W: the TMA ring carries the codes (half the bytes of bf16),
 // each consumer warpgroup converts its 64 x 64 codes of a stage to bf16 in
 // shared memory (exact) and runs m64nXk16 wgmma on them with x's rows as
-// the N (8, 16 or 128); the K splits of an output tile reduce through the
+// the N (8 to 128); the K splits of an output tile (fixed by K, N and
+// the SM count: a row's sum does not depend on M) reduce through the
 // cluster's shared memory in rank order, and the epilogue applies the scale
 // once to the fully reduced fp32 sum (the TPU kernel's `acc * s`) and
 // rounds to bf16. The TPU kernel's grid walks (K, 512) column blocks of W in
@@ -67,13 +68,13 @@ extern "C" int pt_w8_matmul(const void* x, const void* w, const void* scale,
     return (int)cudaErrorInvalidValue;
   const W8Epi epi{static_cast<bf16*>(out), static_cast<const float*>(scale),
                   N};
-  cudaError_t e = sg::launch<true>(tw, x, p, M, K, N, epi, false,
+  cudaError_t e = sg::launch<true, false>(tw, x, p, M, K, N, epi, false,
                                    reinterpret_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The kernel's launch shape for token tile X (8, 16, 128) and WG 64-column
+// The kernel's launch shape for token tile X (8-128) and WG 64-column
 // blocks of W a block (1, 2) into out[8] (stream_gemm::describe).
 extern "C" int pt_w8_matmul_config(int X, int WG, int* out) {
   return sg::describe<true, W8Epi>(X, WG, out);

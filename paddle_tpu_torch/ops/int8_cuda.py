@@ -4,9 +4,10 @@
 :func:`w8_matmul_cuda` launches ``csrc/w8_matmul.cu``, one launch of the
 weight-streaming main loop of ``csrc/stream_gemm.cuh``: ``x (M, K) bf16 @
 w_q (K, N) int8`` with an fp32 accumulator, times ``scale (N,)`` f32, in
-bf16, for M <= 128 (the serving path streams only M <= 16,
-``int8.STREAM_MAX_ROWS``). Its plain twin is ``int8._w8_plain``. The launch
-plan (token tile, column tile, K splits) is ``csrc/stream_tiles.cuh``'s.
+bf16, at any M (more than 128 rows run in several token tiles). Its
+plain twin is ``int8._w8_plain``. The launch plan (token
+tile, column tile, K splits fixed by K, N and the SM count) is
+``csrc/stream_tiles.cuh``'s.
 """
 from __future__ import annotations
 
@@ -14,11 +15,11 @@ import ctypes
 
 import torch
 
-# the most rows one call takes (one token tile of the kernel)
-MAX_ROWS = 128
+# rows of x the largest token tile holds (more rows run in several tiles)
+TILE_ROWS = 128
 # (token tile, 64-column blocks of W a block): the instantiations of the
 # streaming kernels (this one and fused LoRA's second launch)
-CONFIGS = tuple((X, wg) for X in (8, 16, 128) for wg in (1, 2))
+CONFIGS = tuple((X, wg) for X in (8, 16, 32, 48, 64, 128) for wg in (1, 2))
 _CONFIG_KEYS = ("threads", "token_rows", "k_step", "stages", "smem_bytes",
                 "registers", "local_bytes", "block_cols")
 
@@ -57,7 +58,7 @@ def plan(M: int, K: int, N: int):
 
 
 def w8_matmul_cuda(x2, w_q, scale):
-    """Launch the int8 matmul kernel: x2 (M, K) bfloat16 with M <= 128,
+    """Launch the int8 matmul kernel: x2 (M, K) bfloat16 with M >= 1,
     w_q (K, N) int8, scale (N,) float32, K and N multiples of 128, all on
     one CUDA device. Returns (M, N) bfloat16. Raises on anything else."""
     from . import _build
@@ -77,9 +78,9 @@ def w8_matmul_cuda(x2, w_q, scale):
         raise TypeError(f"w8_matmul_cuda: the kernel takes bfloat16 x, int8 "
                         f"w_q and float32 scale, got {x2.dtype}, {w_q.dtype}, "
                         f"{scale.dtype}")
-    if not 1 <= M <= MAX_ROWS or K % 128 or N % 128:
+    if M < 1 or K % 128 or N % 128:
         raise ValueError(f"w8_matmul_cuda: unsupported M={M}, K={K}, N={N} "
-                         f"(M in 1..{MAX_ROWS}, K and N multiples of 128)")
+                         f"(M >= 1, K and N multiples of 128)")
     tensors = (x2, w_q, scale)
     if not all(t.is_cuda for t in tensors) or \
             len({t.device for t in tensors}) != 1:

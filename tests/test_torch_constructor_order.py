@@ -6,6 +6,7 @@ the port does not take are accepted at their JAX defaults and raise
 NotImplementedError at any other value (never TypeError)."""
 import numpy as np
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 import paddle_tpu as paddle
@@ -29,6 +30,17 @@ SMALL = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
              num_key_value_heads=2, max_position_embeddings=160,
              dtype="float32")
 BUCKETS = (32, 64, 128)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +71,9 @@ def _server_config(srv):
                 prefill_chunk=srv.prefill_chunk,
                 num_blocks=srv.alloc.num_blocks, kv_quant=srv.kv_quant,
                 kernels=srv.kernels, tick_window=srv.tick_window,
-                spec=None if srv.spec is None else srv.spec.describe())
+                spec=None if srv.spec is None else srv.spec.describe(),
+                policy=srv._sched.policy,
+                host_pool_bytes=srv._offload.host.capacity_bytes)
 
 
 # positional arguments after the model, in the JAX order (model, max_batch,
@@ -86,8 +100,8 @@ SERVER_CALLS = {
     "prompt_buckets": ((2, 64, (16, 32)), "prompt_buckets"),
     "tick_window": ((2, 64, BUCKETS, None, 0, 2, "paged"), None),
     "spec": ((2, 64) + PAGED + (SPEC, "int8"), None),
-    "host_pool_bytes": ((2, 64) + PAGED + (None, "none", None, None, 0),
-                        "host_pool_bytes"),
+    "host_pool_bytes": ((2, 64) + PAGED + (None, "none", None, "wfq", 0),
+                        None),
     "fault_retries": ((2, 64) + PAGED + (None, "none", None, None, None,
                                          None, None, None, None, None,
                                          None, 5), "fault_retries"),

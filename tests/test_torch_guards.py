@@ -40,6 +40,8 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.ops.int8_cuda",
                 "paddle_tpu_torch.ops.paged_attention",
                 "paddle_tpu_torch.ops.paged_attention_cuda",
+                "paddle_tpu_torch.ops.stream_matmul",
+                "paddle_tpu_torch.ops.stream_matmul_cuda",
                 "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.nn",
                 "paddle_tpu_torch.incubate.nn.functional",
                 "paddle_tpu_torch.models", "paddle_tpu_torch.models.ernie",
@@ -48,6 +50,7 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.models.generation",
                 "paddle_tpu_torch.inference",
                 "paddle_tpu_torch.inference.lora",
+                "paddle_tpu_torch.inference.kv_offload",
                 "paddle_tpu_torch.inference.paged_cache",
                 "paddle_tpu_torch.inference.scheduler",
                 "paddle_tpu_torch.inference.executor",
@@ -71,6 +74,17 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.parallel.engine"]
 # torch sees no card in the child, whatever the machine has
 NO_CARD_ENV = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _imported_roots(path: Path):
@@ -314,7 +328,8 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
 @pytest.mark.parametrize("kwargs", [dict(cache="dense"),
                                     dict(spec=SpecConfig(k=0)),
                                     dict(telemetry=object()),
-                                    dict(tick_window=0), dict(policy="wfq"),
+                                    dict(tick_window=0),
+                                    dict(warm_pool_bytes=1 << 20),
                                     dict(kernels="pallas")])
 def test_unported_server_options_raise(kwargs):
     """Each unported option raises NotImplementedError; ``tick_window`` and

@@ -33,6 +33,17 @@ SMALL = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _restore_modes():
     yield
@@ -86,13 +97,15 @@ def test_w8_plain_matches_the_pallas_kernel_in_interpret_mode(M, K, N):
 
 @pytest.mark.parametrize("M,K,N,streams", [(8, 128, 256, True),
                                            (16, 256, 128, True),
-                                           (128, 128, 256, False),
+                                           (128, 128, 256, True),
+                                           (256, 128, 256, False),
                                            (8, 100, 256, False),
                                            (8, 128, 200, False)])
 def test_w8_matmul_routes_by_shape(M, K, N, streams, monkeypatch):
-    """Decode shapes (M <= 16, K and N multiples of 128) take the kernel's
-    plain twin on the CPU; the rest dequantize once, as JAX's
-    ``w8_matmul`` outside Pallas. Both agree with the JAX function."""
+    """Up to 128 rows with K and N multiples of 128 (decode ticks, verify
+    windows, prefill chunks) take the kernel's plain twin on the CPU; the
+    rest dequantize once, as JAX's ``w8_matmul`` outside Pallas. Both
+    agree with the JAX function (which dequantizes past 16 rows)."""
     calls = []
     for name in ("_w8_plain", "_w8_dequant"):
         orig = getattr(tint8, name)
@@ -169,9 +182,9 @@ def test_quantize_int8_matches_jax_codes():
 
 
 def test_quantized_model_logits_match_jax(models):
-    """Dense forward (the prefill shapes: every projection dequantizes) and
-    a paged decode step (8 rows: the projections and the lm-head stream
-    int8 through the kernel's plain twin)."""
+    """Dense forward (24 rows: every projection streams int8 through the
+    kernel's plain twin, where JAX dequantizes) and a paged decode step (8
+    rows: the projections and the lm-head stream in both)."""
     jm, tm, _ = models
     rng = np.random.default_rng(4)
     ids = rng.integers(0, 256, (2, 12)).astype(np.int32)

@@ -34,6 +34,7 @@ from paddle_tpu_torch.inference.serving import GenerationServer
 from paddle_tpu_torch.models.convert import params_from_jax
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import lora as tlora
+from paddle_tpu_torch.ops.stream_matmul import stream_matmul
 
 SMALL = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
              num_hidden_layers=2, num_attention_heads=4,
@@ -46,6 +47,17 @@ _TGT_MODS = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
              "gate": "mlp.gate_proj", "up": "mlp.up_proj",
              "down": "mlp.down_proj"}
 SERVE = dict(max_len=64, block_size=4, prefill_chunk=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -107,7 +119,7 @@ def _registries(entries):
 def test_lora_matmul_plain_matches_pallas_fused_lora(rank, S):
     """Batch of 3: two adapter rows with rank ``rank`` padded to max_rank 4
     and one null row (zero factors, s = 0), which comes out exactly as the
-    plain projection."""
+    decode path's plain projection."""
     rng = np.random.default_rng(rank + S)
     E, IN, OUT, R = 3, 64, 96, 4
     x = rng.standard_normal((E, S, IN)).astype(np.float32)
@@ -124,8 +136,11 @@ def test_lora_matmul_plain_matches_pallas_fused_lora(rank, S):
     t = [torch.from_numpy(a) for a in (x, w, A, B, s)]
     got = tlora.lora_matmul(t[0], t[1], tuple(t[2:]))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the null row is the decode path's plain projection (the batch-
+    # invariant streaming product, whose K slices the twin sums)
     plain = torch.matmul(t[0], t[1])
-    np.testing.assert_array_equal(got[2].numpy(), plain[2].numpy())
+    np.testing.assert_array_equal(
+        got[2].numpy(), stream_matmul(t[0], t[1])[2].numpy())
     np.testing.assert_array_equal(tlora.lora_matmul(t[0], t[1], None).numpy(),
                                   plain.numpy())
     # the delta alone, as JAX's bgmv

@@ -46,6 +46,17 @@ POS = [10, 16, 5]
 ADAPTERS = (("a1", 4, 8.0), ("a2", 2, 4.0))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _restore_kernel_modes():
     yield

@@ -18,6 +18,17 @@ from paddle_tpu_torch.ops import paged_attention as tpa
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _restore_modes():
     yield

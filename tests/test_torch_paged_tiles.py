@@ -109,6 +109,17 @@ int main(int argc, char** argv) {
 ROWS, STAGE = 64, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     return plan_harness(tmp_path_factory.mktemp("paged_tiles"))
@@ -175,12 +186,11 @@ def _frontier(pos, tile, rows, rep, M, bs):
 
 
 def _split_keys(plan, pos, B, rep, KV, M, bs, wave):
-    """The keys a split of a row at ``pos`` takes, from the keys its tiles
-    walk: the fewest (128), or enough in whole stages for about one wave of
-    units in a launch with half its ``B`` rows as long."""
-    keys = (B + 1) // 2 * sum(
-        _frontier(pos, t, plan["rows"], rep, M, bs) + 1
-        for t in range(plan["tiles"]))
+    """The keys a split of a row takes, from the keys a row as long as
+    the table walks in its tiles (not the row's ``pos``): the fewest (128),
+    or enough in whole stages for about one wave of units in a launch with
+    half its ``B`` rows that long."""
+    keys = (B + 1) // 2 * plan["tiles"] * M * bs
     per = -(-keys * KV // wave)
     return max(plan["split_keys"], -(-per // STAGE) * STAGE)
 
@@ -316,6 +326,22 @@ def test_a_rows_splits_do_not_depend_on_the_other_rows(harness, case):
             (_, _, ks2), active2, _ = blocks(harness, W, H, KV, bs, M, other)
             assert ks2[b] == ks[b] and _row_work(active2, b) == mine, \
                 (b, fill)
+
+
+@pytest.mark.parametrize("pos0", [0, 250, 1052, 1055, 2043])
+def test_a_keys_split_does_not_depend_on_the_window(harness, pos0):
+    """A verify window of W = 5 tokens a row and the 5 decode ticks that
+    score the same queries (the served batch's shapes): every query's keys
+    a split, and the split each of its keys falls in, are the same, so its
+    sums round alike in both (a split size that followed the row's keys
+    changed at 1056 keys between a window and its ticks)."""
+    B, H, KV, bs, M = 8, 32, 8, 16, 136
+    pos = [pos0 + 7 * b for b in range(B)]
+    (_, _, ks_w), _, _ = blocks(harness, 5, H, KV, bs, M, pos)
+    for j in range(5):
+        (_, _, ks_d), _, _ = blocks(harness, 1, H, KV, bs, M,
+                                    [p + j for p in pos])
+        assert ks_d == ks_w, (j, ks_d, ks_w)
 
 
 @pytest.mark.parametrize("bs,bad", [(8, 0), (16, 0), (24, 0), (4, 1),

@@ -47,6 +47,17 @@ SERVE = dict(max_batch=2, max_len=64, block_size=4, prefill_chunk=8)
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work on one intra-op thread: the plain twins'
+    row-at-a-time products are too small to split over a thread team
+    that the other test processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _restore_kernel_modes():
     yield
@@ -416,9 +427,15 @@ def test_submit_draft_k_checked_as_jax(models):
     rid = spec.submit([1, 2, 3], 4, 0.0, 0, 0.0, 2)
     assert spec._sched.peek().req.draft_k == 2
     assert len(spec.run()[rid]) == 7
+    # priority, tenant and ttl_s reach the scheduler's entry, as in JAX
     for name, value in (("priority", 0), ("tenant", "t"), ("ttl_s", 1.0)):
-        with pytest.raises(NotImplementedError, match=name):
-            spec.submit([1, 2, 3], max_new_tokens=2, **{name: value})
+        ents = []
+        for srv in (spec, jspec):
+            r = srv.submit([1, 2, 3], max_new_tokens=2, **{name: value})
+            ent = next(e for e in srv._sched.waiting() if e.rid == r)
+            ents.append((ent.priority, ent.tenant, ent.deadline is not None))
+            assert srv.cancel(r)
+        assert ents[0] == ents[1], (name, ents)
     assert spec.spec_metrics()["draft_tokens_proposed"] >= 0
     assert plain.spec_metrics() == jplain.spec_metrics() == {}
 

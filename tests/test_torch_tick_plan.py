@@ -323,3 +323,35 @@ def test_plan_k_split_sum_model(harness, ph):
         g, c = (item // 2) % G, item % 2
         np.testing.assert_allclose(got[(g, c)], ref[w][:, n0:n0 + 64],
                                    rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dims", [LLAMA] + SMALL,
+                         ids=["llama3_8b", "small_256", "small_512",
+                              "small_384"])
+def test_plan_slices_do_not_depend_on_rows(harness, dims):
+    """Batch invariance of the tick: at every row count 1..64 each product
+    phase has the K slices (S, klen) of the largest row tile, so an output
+    element is summed over the same slices in the same order at 8 rows (a
+    decode tick) as at 40 (a verify window), 14-step slices at most (the
+    slab at 64 rows); the blocks' fragments (item, first K step, units)
+    are the same walk at 1, 8, 40 and 64 rows."""
+    def tick_slices(K):
+        # the fewest slices of at most the slab's K steps at 64 rows
+        T = -(-K // 64)
+        S = -(-T // (112 * 1024 // (64 * 128)))
+        klen = -(-T // S)
+        return [(k0, min(K, k0 + klen * 64))
+                for k0 in range(0, T * 64, klen * 64)]
+
+    plans = {rows: [(c["G"], c["T"], c["S"], c["klen"])
+                    for c in _check(harness, dims, rows)]
+             for rows in range(1, 65)}
+    assert len({tuple(p) for p in plans.values()}) == 1, plans
+    for ph, (G, T, S, klen) in enumerate(plans[1]):
+        K = dims[2] if ph == 3 else dims[0]
+        assert tick_slices(K) == [(64 * s * klen, min(K, 64 * (s + 1) * klen))
+                                  for s in range(S)], (ph, K)
+    for ph in range(4):
+        walks = {rows: [ln for ln in harness("frags", *dims, rows, GRID, ph)]
+                 for rows in (1, 8, 40, 64)}
+        assert walks[1] == walks[8] == walks[40] == walks[64], (dims, ph)
