@@ -15,6 +15,8 @@ the GPU.
                                         # and 26 (no final line)
     python3 chip_smoke.py --only sched  # the build and phase 29 alone (no
                                         # final line)
+    python3 chip_smoke.py --only recovery  # the build and phase 30 alone
+                                        # (no final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -332,7 +334,7 @@ and the flash kernels at head dim 64 (rows 1, 3, 4):
    losses and gradients against the plain bf16 path and an fp32 copy
    under phase 8's drift ratio, the eval outputs under phase 5's rule.
 
-Phase 27 runs last: the graphed training step against the eager one,
+Phase 27 runs after phase 23: the graphed training step against the eager one,
 4 steps each from the same weights and seeds, losses, parameters and
 every optimizer slot bit for bit, launches equal (else the largest
 difference and its tensor are printed and the run fails): (a)
@@ -346,6 +348,33 @@ under ``remat_policy="nothing"``: each recompute draws its forward's mask
 (the engine's graph-safe generator states). ``python3 chip_smoke.py
 --only train_graph`` runs the build, phase 6's AdamW kernel, phases 7,
 23 and 27 alone (a diagnostic, no final line).
+
+Phase 30, observability and recovery, serves after phase 29 (the bf16
+model on the card) and trains after phase 27: (a) phase 4's traffic with
+``telemetry=True`` and without, in turns, per layer and through the
+whole-tick kernel: the same tokens, decode tok/s both ways, the host ms a
+step that telemetry adds, the flight records and spans, the chrome trace
+written and read back, no graph captured after the warm-up (no
+``steady_state_recompile``), ``tenants``; the server generator behind a
+sampled window's graph reports its moved offset and takes a restored one;
+(b) phase 29's overload on its tight pool under a fault plan (a poisoned
+request quarantined, tick faults retried, allocator exhaustion, a refused
+swap-out, a corrupted swap-in payload re-prefilled), bf16 and int8 KV,
+every surviving request's tokens those of the unpressured run and the
+pool conserved after every step; a drafter fault in the n-gram cell; a
+fatal fault (``submit`` then raises ``EngineFailedError``); (c) the
+overload snapshotted with swapped entries waiting and slots decoding
+(``trust_kv`` True and False), per layer and through the whole-tick
+kernel: the captured server and fresh servers restored from each snapshot
+all give the unpressured tokens; one request evacuated into a busy server
+(``admit_migrated``); (d) a shared 1024-token prefix demoted under the
+watermarks and promoted for a later request, bf16 and int8 KV, tokens
+those of a server without the tier, and the demote / promote copies' ms a
+block and GB/s; (e) phase 7's cell with ``TrainTelemetry`` (this card's
+bf16 peak for MFU) and without, and a ``train_step`` fault at step 3
+retried: the parameters after 5 steps bit for bit the fault-free run's,
+goodput exactly 1.0. ``python3 chip_smoke.py --only recovery`` runs the
+build and phase 30 alone (no final line).
 
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
@@ -376,6 +405,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # the paged attention wrappers' module (the package exports a function
@@ -3298,6 +3328,675 @@ def scheduling(torch, ops, model, ref=None):
     return out
 
 
+# -------------------------------------------------------------- phase 30
+# Observability and recovery over phase 4's model and traffic (and phase
+# 29's overload): (a) telemetry on / off, (b) the fault ladder, (c)
+# snapshot / restore and migration, (d) the warm KV tier, and (e) the
+# train engine's telemetry and retried step. The fault plan of (b): a
+# poisoned request (the first of the traffic, decoding from the first
+# trip) faulted on the first 4 trips (> fault_retries = 3: quarantined),
+# two tick faults later (retried), allocator exhaustion, the first
+# swap-out refused by the host pool and the first swap-in's payload
+# corrupted (the re-prefill rung)
+RECOVERY_TICK_AT, RECOVERY_ALLOC_AT = 12, 150
+# (d): a shared prompt prefix of 1024 tokens (64 blocks) behind two
+# requests, four 1000-token prompts between them that push the pool's
+# free share under the low watermark, in a pool of 300 usable blocks
+WARM_PREFIX, WARM_SUFFIX, WARM_PRESSURE, WARM_NEW = 1024, 100, 1000, 32
+WARM_BLOCKS, WARM_LOW, WARM_HIGH = 301, 0.3, 0.6
+# (e): phase 7's cell, 8 steps a run (the first two the warm-up and the
+# capture), the parameters compared after 5
+RECOVERY_TRAIN_STEPS = 8
+
+
+
+def _rec_server(torch, model, warm=True, **kw):
+    """A phase-4 server (its slots, blocks, chunk and max_len) over
+    ``model`` with ``kw``, warmed up by one greedy request (its graphs
+    captured) unless ``warm`` is False; a fault injector is disarmed for
+    the warm-up (its sites count from the traffic's first call)."""
+    from paddle_tpu_torch.inference.serving import GenerationServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = GenerationServer(model, cache="paged", max_batch=MAX_BATCH,
+                           block_size=BLOCK_SIZE,
+                           prefill_chunk=PREFILL_CHUNK, max_len=MAX_LEN,
+                           device=model.device, **kw)
+    if warm:
+        armed, srv.faults.enabled = srv.faults.enabled, False
+        srv.submit(list(range(1, 40)), max_new_tokens=4 * srv.tick_window)
+        srv.run()
+        srv.faults.enabled = armed
+    return srv
+
+
+def _drain(srv, conserve=False):
+    """Step ``srv`` until it holds no work; returns the steps."""
+    steps = 0
+    while srv.step():
+        if conserve:
+            srv.assert_conserved()
+        steps += 1
+        check(steps < 20000, "phase 30: a server wedged")
+    return steps
+
+
+def _overload(srv, traffic, stop=None, conserve=True):
+    """Phase 29's overload through ``srv``: the 12 requests at normal
+    priority, then the 4 urgent ones after the first decode window in
+    which no slot prefills; ``stop(srv)``, when given, ends the drive
+    early (once the urgent ones are in) and returns True. Returns (the
+    16 rids, whether it stopped early)."""
+    from paddle_tpu_torch.inference.scheduler import PRIORITY_HIGH
+
+    prompts, news, high, high_news = traffic
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    trips0 = srv.throughput_stats()["decode_trips"]
+    high_rids, steps = None, 0
+    while True:
+        left = srv.step()
+        steps += 1
+        check(steps < 20000, "phase 30: an overloaded server wedged")
+        if conserve:
+            srv.assert_conserved()
+        if high_rids is None and \
+                srv.throughput_stats()["decode_trips"] > trips0 and \
+                not any(srv._prefilling[s] for s in range(srv.max_batch)
+                        if srv._slots[s] is not None):
+            high_rids = [srv.submit(p, max_new_tokens=n,
+                                    priority=PRIORITY_HIGH)
+                         for p, n in zip(high, high_news)]
+            continue
+        if high_rids is not None and stop is not None and stop(srv):
+            return rids + high_rids, True
+        if not left and high_rids is not None:
+            return rids + high_rids, False
+
+
+def _recovery_ref(torch, model, traffic, **kw):
+    """The overload traffic's tokens on a pool that never runs dry, all 16
+    at once (phase 29's yardstick)."""
+    prompts, news, high, high_news = traffic
+    srv = _rec_server(torch, model, warm=False, **kw)
+    rids = [srv.submit(p, max_new_tokens=n)
+            for p, n in zip(prompts + high, news + high_news)]
+    out = srv.run()
+    del srv
+    return [out[r] for r in rids]
+
+
+def _tight_blocks(cfg, traffic):
+    prompts, news = traffic[0], traffic[1]
+    need = sum(-(-(len(p) + n) // BLOCK_SIZE) for p, n in zip(prompts, news))
+    return int(SCHED_POOL_SHARE * need) + 1
+
+
+def recovery_telemetry(torch, model, ref, here, megakernel=False):
+    """(a) Phase 4's traffic with ``telemetry=True`` and without, in turns
+    (off, on, on, off; per layer or behind the whole-tick kernel): the
+    same tokens (phase 4's), decode tok/s both ways and the host ms a
+    step that telemetry adds (the steps' wall difference); with it on,
+    the flight records and spans, the chrome trace written and read back
+    (events a request), no ``steady_state_recompile`` after the warm-up
+    and ``sched_metrics()["tenants"]``."""
+    cfg = model.cfg
+    prompts, news = phase4_traffic(cfg)
+    label = "phase 30 (a) telemetry" + (" megakernel" if megakernel else "")
+    kw = dict(kernels="megakernel") if megakernel else {}
+    runs = {False: [], True: []}
+    seen = {}
+    for on in ((False, True) if megakernel else (False, True, True, False)):
+        srv = _rec_server(torch, model, telemetry=on, **kw)
+        if on:
+            srv.telemetry.reset()      # the warm-up boundary
+        caps = srv._exec.captures
+        t_before = srv.throughput_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [srv.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+        steps = _drain(srv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = srv.take_results()
+        toks = [out.get(r) for r in rids]
+        check(toks == ref, f"{label} (telemetry={on}): "
+                           f"{sum(a == b for a, b in zip(toks, ref))} of "
+                           f"{len(ref)} requests equal to phase 4's")
+        t_after = srv.throughput_stats()
+        st = {k: t_after[k] - t_before[k] for k in t_after}
+        runs[on].append(dict(wall_s=wall, steps=steps,
+                             host_ms_per_step=wall / steps * 1e3,
+                             decode_tok_s=st["decode_tokens"]
+                             / st["decode_s"],
+                             captures_after_warmup=srv._exec.captures
+                             - caps))
+        check(srv._exec.captures == caps,
+              f"{label}: {srv._exec.captures - caps} graph captures after "
+              f"the warm-up")
+        if on and "flight_records" not in seen:
+            tel = srv.telemetry
+            finds = srv.watchdog_findings()
+            check(not [f for f in finds
+                       if f["kind"] == "steady_state_recompile"],
+                  f"{label}: recapture findings {finds}")
+            sm = srv.sched_metrics()
+            check("tenants" in sm and sm["tenants"]["default"]["completed"]
+                  == len(rids), f"{label}: tenants {sm.get('tenants')}")
+            with tempfile.TemporaryDirectory(dir=here) as tmp:
+                path = srv.export_chrome_trace(os.path.join(tmp,
+                                                            "trace.json"))
+                with open(path) as f:
+                    evs = json.load(f)["traceEvents"]
+            per_req = [sum(1 for e in evs if e.get("tid") == r
+                           and e["ph"] in ("X", "i")) for r in rids]
+            check(min(per_req) > 0, f"{label}: a request without trace "
+                                    f"events")
+            seen = dict(flight_records=tel.flight.total,
+                        spans=len(tel.tracer.spans()),
+                        trace_events=len(evs),
+                        trace_events_per_request=per_req,
+                        watchdog_findings=finds,
+                        tenants=sm["tenants"],
+                        snapshot_keys=sorted(srv.telemetry_snapshot()))
+        del srv
+    off = runs[False]
+    on = runs[True]
+    res = dict(
+        off=off, on=on,
+        decode_tok_s_off=_median([r["decode_tok_s"] for r in off]),
+        decode_tok_s_on=_median([r["decode_tok_s"] for r in on]),
+        host_ms_per_step_added=(
+            sum(r["host_ms_per_step"] for r in on) / len(on)
+            - sum(r["host_ms_per_step"] for r in off) / len(off)),
+        **seen)
+    log(f"{label}: " + json.dumps(res))
+    return res
+
+
+def recovery_faults(torch, model, traffic, ref, kv_quant="none"):
+    """(b) Phase 29's overload on its tight pool under one fault plan
+    (above), bf16 or int8 KV, ``assert_conserved()`` after every step:
+    the poisoned request quarantined, every other request's tokens those
+    of the run on a pool that never runs dry, each rung fired and
+    counted."""
+    from paddle_tpu_torch.faults import FaultInjector, FaultPlan, FaultSpec
+
+    label = f"phase 30 (b) faults {kv_quant}"
+    poison = 1          # the warm-up request took rid 0
+    inj = FaultInjector(FaultPlan([
+        FaultSpec("tick", at=0, count=4, rid=poison),
+        FaultSpec("tick", at=RECOVERY_TICK_AT, count=2),
+        FaultSpec("alloc", at=RECOVERY_ALLOC_AT, count=2),
+        FaultSpec("host_put", at=0),
+        FaultSpec("swap_corrupt", at=0)], seed=30))
+    srv = _rec_server(torch, model, kv_quant=kv_quant, policy="priority",
+                      num_blocks=_tight_blocks(model.cfg, traffic),
+                      faults=inj, telemetry=True)
+    t0 = time.perf_counter()
+    rids, _ = _overload(srv, traffic)
+    wall = time.perf_counter() - t0
+    statuses = [srv.status(r) for r in rids]
+    out = srv.take_results()
+    toks = [out.get(r) for r in rids]
+    reg = srv.telemetry.registry
+    sites = {s for s, _ in inj.fired}
+    same = sum(t == w for t, w, s in zip(toks, ref, statuses)
+               if s != "failed")
+    res = dict(requests=len(rids), quarantined=statuses.count("failed"),
+               surviving_identical=same, fired=inj.fired, wall_s=wall,
+               tick_retries=reg.counter("serving_tick_retries").total(),
+               reprefills=reg.counter("serving_swap_reprefills").total(),
+               faults_injected={s: reg.counter(
+                   "serving_faults_injected").value(site=s)
+                   for s in ("tick", "drafter")},
+               sched_metrics={k: v for k, v in srv.sched_metrics().items()
+                              if k != "tenants"},
+               kv_stats=srv.kv_stats(), audit=srv.assert_conserved())
+    log(f"{label}: " + json.dumps(res))
+    check(statuses[0] == "failed" and statuses.count("failed") == 1,
+          f"{label}: statuses {statuses}")
+    check(same == len(rids) - 1, f"{label}: {same} of {len(rids) - 1} "
+                                 f"surviving requests identical")
+    check({"tick", "alloc", "host_put", "swap_corrupt"} <= sites,
+          f"{label}: fired {inj.fired}")
+    check(res["reprefills"] >= 1 and res["tick_retries"] >= 6,
+          f"{label}: rungs {res}")
+    del srv
+    return res
+
+
+def recovery_drafter(torch, model, ref):
+    """(b) A ``drafter`` fault in phase 26's n-gram cell (k = 4,
+    ``tick_window`` 4) over phase 4's traffic: the trip runs the plain
+    program, and every request's tokens are phase 4's."""
+    from paddle_tpu_torch.faults import FaultInjector, FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference.speculative import SpecConfig
+
+    inj = FaultInjector(FaultPlan([FaultSpec("drafter", at=1)]))
+    srv = _rec_server(torch, model, spec=SpecConfig(k=SPEC_K),
+                      tick_window=SPEC_WINDOW, seed=7, faults=inj,
+                      warm=False)
+    prompts, news = phase4_traffic(model.cfg)
+    rids = [srv.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    out = srv.run()
+    toks = [out[r] for r in rids]
+    reg = srv.telemetry.registry
+    res = dict(fired=inj.fired, identical=sum(a == b for a, b in
+                                              zip(toks, ref)),
+               drafter_faults=reg.counter("serving_faults_injected")
+               .value(site="drafter"), spec_metrics=srv.spec_metrics())
+    log("phase 30 (b) drafter fault, n-gram: " + json.dumps(res))
+    check(inj.fired == [("drafter", 1)] and res["drafter_faults"] == 1,
+          f"phase 30 (b) drafter: {res}")
+    check(res["identical"] == len(ref), f"phase 30 (b) drafter: "
+                                        f"{res['identical']} of {len(ref)}")
+    del srv
+    return res
+
+
+def recovery_fatal(torch, model):
+    """(b) A ``fatal`` tick fault: the run raises, the server is failed,
+    ``submit`` raises ``EngineFailedError``, a salvage snapshot works."""
+    from paddle_tpu_torch.faults import (EngineFailedError, FaultInjector,
+                                         FaultPlan, FaultSpec)
+
+    srv = _rec_server(torch, model, warm=False, faults=FaultInjector(
+        FaultPlan([FaultSpec("tick", at=0, kind="fatal")])))
+    srv.submit(list(range(1, 200)), max_new_tokens=8)
+    try:
+        srv.run()
+        fail("phase 30 (b) fatal: the run did not raise")
+    except RuntimeError as e:
+        check("injected fatal" in str(e), f"phase 30 (b) fatal: {e}")
+    try:
+        srv.submit([1, 2, 3], max_new_tokens=2)
+        fail("phase 30 (b) fatal: submit did not raise")
+    except EngineFailedError:
+        pass
+    phases = [d["phase"] for d in srv.snapshot(trust_kv=False)["requests"]]
+    log(f"phase 30 (b) fatal: submit raises EngineFailedError; salvage "
+        f"snapshot phases {phases}")
+    del srv
+    return dict(submit_raises="EngineFailedError", salvage_phases=phases)
+
+
+def _payload_bytes(snap):
+    return sum(d["kv"]["nbytes"] for d in snap["requests"]
+               if d["phase"] == "kv") + sum(w["nbytes"]
+                                            for w in snap["warm_tier"])
+
+
+def recovery_snapshot(torch, model, traffic, ref, megakernel=False):
+    """(c) Phase 29's overload on its tight pool (per layer or behind the
+    whole-tick kernel) until swapped entries wait and slots decode; then
+    ``snapshot()`` (the decoding slots' KV copied) and
+    ``snapshot(trust_kv=False)`` (salvage: they re-prefill); the captured
+    server runs on, and each snapshot restores into a fresh server over
+    the same model: all 16 requests' tokens in every run must be those of
+    the pool that never runs dry."""
+    label = "phase 30 (c) snapshot" + (" megakernel" if megakernel else "")
+    kw = dict(policy="priority",
+              num_blocks=_tight_blocks(model.cfg, traffic))
+    if megakernel:
+        kw["kernels"] = "megakernel"
+    srv = _rec_server(torch, model, **kw)
+
+    def swapped_and_decoding(s):
+        return s.sched_metrics()["swapped_waiting"] > 0 and any(
+            s._slots[i] is not None and not s._prefilling[i]
+            for i in range(s.max_batch))
+    rids, stopped = _overload(srv, traffic, stop=swapped_and_decoding)
+    check(stopped, f"{label}: no step with swapped entries and decoding "
+                   f"slots")
+    snaps, res = {}, {}
+    for trust in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snaps[trust] = srv.snapshot(trust_kv=trust)
+        res[f"snapshot_ms_{'kv' if trust else 'salvage'}"] = \
+            (time.perf_counter() - t0) * 1e3
+    phases = [d["phase"] for d in snaps[True]["requests"]]
+    res.update(snapshot_bytes=_payload_bytes(snaps[True]),
+               salvage_bytes=_payload_bytes(snaps[False]),
+               phases=phases, finished_before=len(snaps[True]["results"]),
+               swapped_waiting=srv.sched_metrics()["swapped_waiting"])
+    _drain(srv, conserve=True)
+    out = srv.take_results()
+    res["captured_identical"] = sum(out.get(r) == w
+                                    for r, w in zip(rids, ref))
+    del srv
+    for trust in (True, False):
+        name = "kv" if trust else "salvage"
+        fresh = _rec_server(torch, model, warm=False, **kw)
+        t0 = time.perf_counter()
+        n = fresh.restore(snaps[trust])
+        res[f"restore_ms_{name}"] = (time.perf_counter() - t0) * 1e3
+        _drain(fresh, conserve=True)
+        out = fresh.run()
+        res[f"restored_{name}"] = n
+        res[f"restored_identical_{name}"] = sum(
+            out.get(r) == w for r, w in zip(rids, ref))
+        res[f"reprefills_{name}"] = fresh.telemetry.registry.counter(
+            "serving_swap_reprefills").total()
+        del fresh
+    log(f"{label}: " + json.dumps(res))
+    check(phases.count("kv") >= 2, f"{label}: KV payloads {phases}")
+    for key in ("captured_identical", "restored_identical_kv",
+                "restored_identical_salvage"):
+        check(res[key] == len(rids), f"{label}: {key} {res[key]} of "
+                                     f"{len(rids)}")
+    return res
+
+
+def recovery_migrate(torch, model, ref):
+    """(c) ``evacuate(rids=[r])`` one decoding request of phase 4's
+    traffic out of its server (its KV copied), ``admit_migrated`` it into
+    a server busy with 4 requests of its own: every request's tokens
+    (phase 4's) on both servers."""
+    prompts, news = phase4_traffic(model.cfg)
+    src = _rec_server(torch, model)
+    rids = [src.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    moving = rids[1]                    # the 1000-token prompt
+
+    def generated(rid):
+        return next((len(r.generated) for r in src._slots
+                     if r is not None and r.rid == rid), 0)
+    while src.status(moving) != "running" or generated(moving) < 4:
+        check(src.step() > 0, "phase 30 (c) migrate: the request finished")
+    t0 = time.perf_counter()
+    snap = src.evacuate(rids=[moving])
+    evac_ms = (time.perf_counter() - t0) * 1e3
+    check([d["phase"] for d in snap["requests"]] == ["kv"],
+          f"phase 30 (c) migrate: {snap['requests']}")
+    dst = _rec_server(torch, model, warm=False)
+    dst.set_rid_base(1000)
+    own = [dst.submit(p, max_new_tokens=m)
+           for p, m in zip(prompts[4:8], news[4:8])]
+    for _ in range(3):
+        dst.step()
+    dst.admit_migrated(snap["requests"][0], source_config=snap["config"])
+    out_dst = dst.run()
+    out_src = src.run()
+    res = dict(evacuate_ms=evac_ms, moved_bytes=_payload_bytes(snap),
+               moved_identical=out_dst[moving] == ref[1],
+               busy_identical=sum(out_dst[r] == ref[4 + i]
+                                  for i, r in enumerate(own)),
+               source_identical=sum(out_src[r] == ref[i]
+                                    for i, r in enumerate(rids)
+                                    if r != moving))
+    log("phase 30 (c) migrate: " + json.dumps(res))
+    check(res["moved_identical"] and res["busy_identical"] == 4
+          and res["source_identical"] == len(rids) - 1,
+          f"phase 30 (c) migrate: {res}")
+    dst.assert_conserved()
+    src.assert_conserved()
+    del src, dst
+    return res
+
+
+def warm_traffic(cfg):
+    """(d): request A (the shared prefix and its own suffix), the four
+    pressure prompts, then C (the prefix and another suffix)."""
+    import numpy as np
+
+    rng = np.random.default_rng(30)
+    prefix = rng.integers(1, cfg.vocab_size, WARM_PREFIX).tolist()
+    a = prefix + rng.integers(1, cfg.vocab_size, WARM_SUFFIX).tolist()
+    pressure = [rng.integers(1, cfg.vocab_size, WARM_PRESSURE).tolist()
+                for _ in range(4)]
+    c = prefix + rng.integers(1, cfg.vocab_size, WARM_SUFFIX).tolist()
+    return [[a], pressure, [c]]
+
+
+def _warm_run(srv, waves):
+    toks = []
+    for wave in waves:
+        rids = [srv.submit(p, max_new_tokens=WARM_NEW) for p in wave]
+        _drain(srv, conserve=True)
+        out = srv.take_results()
+        toks += [out[r] for r in rids]
+    return toks
+
+
+def tier_copy_rates(torch, srv, prompt, repeats=3):
+    """The warm tier's copies on the server's own pools: the first
+    WARM_PREFIX // BLOCK_SIZE blocks of ``prompt``'s cached chain demoted
+    (``KVOffloadEngine.demote``: one gather into pinned memory, its
+    synchronise, a CRC and a host copy a block) and promoted back
+    (``match_prefix_tiered``: ``index_copy_`` a pool tensor, timed to a
+    synchronise), median of ``repeats``: ms a block and GB/s each way."""
+    import statistics
+
+    a, eng, pools = srv.alloc, srv._offload, srv._exec._flat_pools
+    n = WARM_PREFIX // BLOCK_SIZE
+    hashes = a.chain_hashes(prompt)[:n]
+    downs, ups = [], []
+    for _ in range(repeats):
+        victims = [(a._by_hash[h], h) for h in hashes]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = eng.demote(victims, pools)
+        downs.append(time.perf_counter() - t0)
+        check(moved == n, f"phase 30 (d): demoted {moved} of {n}")
+        t0 = time.perf_counter()
+        table, _, st = eng.match_prefix_tiered(prompt, pools)
+        torch.cuda.synchronize()
+        ups.append(time.perf_counter() - t0)
+        check(st["warm"] == n, f"phase 30 (d): promoted {st}")
+        for bid in table:
+            a.free(bid)
+    d, u = statistics.median(downs), statistics.median(ups)
+    nbytes = n * a.bytes_per_block
+    return dict(blocks=n, bytes=nbytes, demote_ms_per_block=d / n * 1e3,
+                promote_ms_per_block=u / n * 1e3,
+                demote_gb_s=nbytes / d / 1e9, promote_gb_s=nbytes / u / 1e9)
+
+
+def recovery_warm(torch, model, kv_quant="none"):
+    """(d) The warm tier: A, then the pressure prompts (the free share
+    falls under ``tier_demote_low``, the coldest cached blocks — A's,
+    the shared prefix first — move to host memory), then C, whose prefix
+    is promoted back; every token that of a server with no warm tier;
+    then the copies' rates."""
+    label = f"phase 30 (d) warm tier {kv_quant}"
+    waves = warm_traffic(model.cfg)
+    plain = _rec_server(torch, model, warm=False, kv_quant=kv_quant)
+    want = _warm_run(plain, waves)
+    del plain
+    srv = _rec_server(torch, model, warm=False, kv_quant=kv_quant,
+                      num_blocks=WARM_BLOCKS, tier_demote_low=WARM_LOW,
+                      tier_demote_high=WARM_HIGH)
+    got = _warm_run(srv, waves)
+    st = srv.kv_stats()
+    res = dict(identical=sum(a == b for a, b in zip(got, want)),
+               requests=len(want),
+               **{k: st[k] for k in ("warm_demoted_blocks",
+                                     "warm_promoted_blocks", "cold_refills",
+                                     "evictions", "warm_bytes_peak")},
+               rates=tier_copy_rates(torch, srv, waves[2][0]))
+    log(f"{label}: " + json.dumps(res))
+    prefix_blocks = WARM_PREFIX // BLOCK_SIZE
+    check(res["identical"] == len(want), f"{label}: {res['identical']} of "
+                                         f"{len(want)} identical")
+    check(st["warm_demoted_blocks"] >= prefix_blocks
+          and st["warm_promoted_blocks"] >= prefix_blocks,
+          f"{label}: the prefix did not go warm and come back ({st})")
+    srv.assert_conserved()
+    del srv
+    return res
+
+
+def recovery_generator(torch, model):
+    """The server generator behind a graph: after sampled windows replayed
+    from a graph that registers it, ``get_state()`` reports a moved
+    offset, and ``set_state()`` of the earlier state makes the same
+    replays draw the same tokens (what a restore relies on)."""
+    srv = _rec_server(torch, model, warm=False, seed=3)
+    srv.submit(list(range(1, 40)), max_new_tokens=8, temperature=0.8)
+    srv.run()                           # the sampled window's graph
+    prompt = list(range(5, 5 + MAX_LEN // 8))
+    state = srv._gen.get_state()
+    r = srv.submit(prompt, max_new_tokens=24, temperature=0.8)
+    first = srv.run()[r]
+    moved = srv._gen.get_state()
+    srv._gen.set_state(state)
+    r = srv.submit(prompt, max_new_tokens=24, temperature=0.8)
+    again = srv.run()[r]
+    res = dict(offset_moved=not torch.equal(state, moved),
+               same_draws=first == again,
+               state_after_equal=torch.equal(srv._gen.get_state(), moved),
+               sampled_replays=srv._exec.replays["decode"])
+    log("phase 30 generator state behind a graph: " + json.dumps(res))
+    check(all(v for k, v in res.items() if k != "sampled_replays"),
+          f"phase 30 generator state: {res}")
+    del srv
+    return res
+
+
+def recovery_serving(torch, ops, model, here, ref=None):
+    """Phase 30's serving half, (a)-(d), with the bf16 model on the card;
+    ``ref``: {cell: phase 4's tokens} (None: served here). Returns the
+    readings and the launches of the whole half."""
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    ref = dict(ref or {})
+    out = {}
+    try:
+        traffic = sched_traffic(cfg)
+        over = {"bf16": _recovery_ref(torch, model, traffic),
+                "int8-kv": _recovery_ref(torch, model, traffic,
+                                         kv_quant="int8"),
+                "bf16 megakernel": _recovery_ref(torch, model, traffic,
+                                                 kernels="megakernel")}
+        ops.set_kernel_mode("auto")
+        for name in ("bf16", "bf16 megakernel"):
+            ref.setdefault(name, over[name][:len(PHASE4_LENS)])
+        out["telemetry"] = recovery_telemetry(torch, model, ref["bf16"],
+                                              here)
+        out["telemetry megakernel"] = recovery_telemetry(
+            torch, model, ref["bf16 megakernel"], here, megakernel=True)
+        ops.set_kernel_mode("auto")
+        out["generator"] = recovery_generator(torch, model)
+        out["faults bf16"] = recovery_faults(torch, model, traffic,
+                                             over["bf16"])
+        out["faults int8-kv"] = recovery_faults(torch, model, traffic,
+                                                over["int8-kv"], "int8")
+        out["drafter"] = recovery_drafter(torch, model, ref["bf16"])
+        out["fatal"] = recovery_fatal(torch, model)
+        out["snapshot"] = recovery_snapshot(torch, model, traffic,
+                                            over["bf16"])
+        out["snapshot megakernel"] = recovery_snapshot(
+            torch, model, traffic, over["bf16 megakernel"], megakernel=True)
+        ops.set_kernel_mode("auto")
+        out["migrate"] = recovery_migrate(torch, model, ref["bf16"])
+        out["warm bf16"] = recovery_warm(torch, model)
+        out["warm int8-kv"] = recovery_warm(torch, model, "int8")
+    finally:
+        ops.set_kernel_mode("auto")
+    launches = ops.launch_counts()
+    for name in ("paged_attention", "paged_attention_int8", "rms_norm",
+                 "stream_matmul", "decode_tick"):
+        check(launches[name] > 0, f"phase 30: {name} never launched")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recovery_train(torch, ops):
+    """(e) Phase 7's cell (8 Llama-3-8B-wide layers, B = 2 x 2048, AdamW
+    with clip): the graphed step with ``TrainTelemetry`` (peak_flops: this
+    card's bf16 peak) and without, and a ``train_step`` fault at step 3,
+    retried: after 5 steps the parameters equal the fault-free run's bit
+    for bit; goodput exactly 1.0."""
+    from paddle_tpu_torch.faults import (FaultInjector, FaultPlan, FaultSpec,
+                                         StepFault)
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+    from paddle_tpu_torch.telemetry import TrainTelemetry
+
+    t_start = time.perf_counter()
+    ops.reset_launch_counts()
+    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS)
+    model = LlamaForCausalLM(cfg, seed=0)
+    gen = torch.Generator(device=model.device).manual_seed(7)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                        generator=gen, device=model.device)
+    batch = (tok[:, :-1].contiguous(), tok[:, 1:].contiguous())
+    steps, at = RECOVERY_TRAIN_STEPS, 3
+
+    def run(injector=None, telemetry=None):
+        model.reset_parameters(0)
+        opt = AdamW(learning_rate=3e-4, parameters=model.named_parameters(),
+                    weight_decay=0.01, multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        eng = ParallelEngine(model, optimizer=opt, injector=injector,
+                             telemetry=telemetry)
+        walls, snap, retried = [], None, 0
+        for i in range(steps):
+            t0 = time.perf_counter()
+            try:
+                loss = eng.train_batch(*batch).item()
+            except StepFault:
+                retried += 1
+                loss = eng.train_batch(*batch).item()
+            walls.append(time.perf_counter() - t0)
+            check(loss == loss, "phase 30 (e): a non-finite loss")
+            if i == 4:
+                snap = [p.detach().clone() for p in model.parameters()]
+        del eng, opt
+        _free(torch)
+        return walls, snap, retried
+
+    walls_off, ref, _ = run()
+    peak = BF16_FLOPS
+    tel = TrainTelemetry(peak_flops=peak)
+    inj = FaultInjector(FaultPlan([FaultSpec("train_step", at=at)]))
+    walls_on, got, retried = run(inj, tel)
+    equal = all(torch.equal(a, b) for a, b in zip(ref, got))
+    del ref, got
+    reg = tel.registry
+    off_ms, on_ms = (_median(w[2:]) * 1e3 for w in (walls_off, walls_on))
+    res = dict(card=card_line(), peak_flops=peak,
+               ms_per_step_off=off_ms, ms_per_step_on=on_ms,
+               fired=inj.fired, retried=retried,
+               params_bit_equal_after_5=equal,
+               goodput_ratio=tel.goodput.ratio(),
+               mfu=reg.gauge("train_mfu").value(),
+               mfu_formula="6 * N * T / step_s / peak_flops, N = every "
+                           "parameter (embeddings included), T = B * S",
+               tokens_per_s=reg.gauge("train_tokens_per_s").value(),
+               model_params=tel.model_params,
+               flight_steps=[r["step"] for r in tel.flight.dump()],
+               recompiles=[r["recompiles"] for r in tel.flight.dump()],
+               watchdog=tel.watchdog(), seconds=0.0)
+    launches = ops.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw",
+                 "rms_norm"):
+        check(launches[name] > 0, f"phase 30 (e): {name} never launched")
+    res["launches"] = launches
+    del model
+    _free(torch)
+    res["seconds"] = time.perf_counter() - t_start
+    log("phase 30 (e) engine: " + json.dumps(res))
+    check(equal, "phase 30 (e): parameters after the retried step differ "
+                 "from the fault-free run's")
+    check(inj.fired == [("train_step", at)] and retried == 1,
+          f"phase 30 (e): fired {inj.fired}, retried {retried}")
+    check(res["goodput_ratio"] == 1.0, f"phase 30 (e): goodput {res}")
+    check(res["flight_steps"] == list(range(steps)),
+          f"phase 30 (e): flight {res['flight_steps']}")
+    check(not res["watchdog"], f"phase 30 (e): findings {res['watchdog']}")
+    return res
+
+
+
 # --------------------------------------------------------------- phase 9
 # the decode shapes (K, N) of Llama-3-8B's projections and lm-head
 W8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
@@ -5689,6 +6388,21 @@ def main() -> int:
         log(f"partial run (phase 29 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--only", "recovery"]:
+        # a diagnostic run: the build and phase 30 alone, no final line
+        model = LlamaForCausalLM(llama3_8b_config())
+        rec = recovery_serving(torch, ops, model, here)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec_train = recovery_train(torch, ops)
+        for name, r in rec.items():
+            log(f"phase 30 {name}: " + json.dumps(r))
+        log("phase 30 (e) engine: " + json.dumps(rec_train))
+        log(f"partial run (phase 30 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if sys.argv[1:] == ["--only", "train_graph"]:
         # a diagnostic run: the build, phase 6's AdamW kernel, the
         # graphed training cells of phases 7 and 23 and phase 27 alone,
@@ -5793,6 +6507,8 @@ def main() -> int:
     spec_res = serve_spec(torch, ops, model, serve_res["tokens"])
     # phase 29: priority scheduling and swap preemption
     sched_res = scheduling(torch, ops, model, sched_ref)
+    # phase 30 (a)-(d): observability and recovery, the bf16 model
+    rec_res = recovery_serving(torch, ops, model, here, sched_ref)
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -5855,6 +6571,8 @@ def main() -> int:
     ernie_e2e = ernie_end_to_end(torch, ops)
     # phase 27: the graphed training step against the eager one
     parity = train_graph_parity(torch, ops)
+    # phase 30 (e): the engine's telemetry and its retried step
+    rec_train = recovery_train(torch, ops)
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -5966,6 +6684,11 @@ def main() -> int:
             library_note=cases[0]["library_note"], build=tick_build[
                 {"decode_tick": "fp", "decode_tick_int8": "int8",
                  "decode_tick_lora": "fp_lora"}[name]]))
+    # phase 30's launches (its serving half and its engine) beside each
+    # kernel's main-path count
+    for k in kernels:
+        k["recovery_launches"] = (rec_res["launches"].get(k["name"], 0)
+                                  + rec_train["launches"].get(k["name"], 0))
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
@@ -6009,6 +6732,9 @@ def main() -> int:
     log("ernie end_to_end kernels vs plain vs fp32: "
         + json.dumps(ernie_e2e))
     log("phase 27, graphed against eager training: " + json.dumps(parity))
+    for name, r in rec_res.items():
+        log(f"phase 30 {name}: " + json.dumps(r))
+    log("phase 30 (e) engine: " + json.dumps(rec_train))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,10 +1,8 @@
 """Paged KV-cache block allocator — free list, refcounts, prefix caching.
 
 Host-only Python, copied from ``paddle_tpu/inference/paged_cache.py`` (the
-port imports nothing from the JAX package) and trimmed to what the port's
-paged server, its swap preemption (``kv_offload.py``) and the adapter pool
-use: warm-tier and fault-injection bookkeeping are left out with the
-features that drive them.
+port imports nothing from the JAX package), less the tensor-parallel shard
+accounting (the port serves on one device).
 
 - **free list**: block id 0 is the reserved SCRATCH block — never
   allocated; idle and prefilling rows of the decode batch write it, so a
@@ -22,6 +20,13 @@ features that drive them.
   generated token.
 - **pinning**: a pinned block (live or cached) is never evicted; the
   adapter pool pins hot adapter pages through it.
+- **tiers**: under pressure the server demotes the coldest cached blocks
+  to the warm tier (``kv_offload.WarmTier``: :meth:`coldest_cached`, then
+  :meth:`evict_cached` once copied) and promotes them back on a prefix hit
+  (``note_promote``); :meth:`probe_prefix` counts warm-resident blocks
+  through the ``warm_probe`` hook.
+- **faults**: a ``faults`` injector's ``alloc`` site makes :meth:`alloc`
+  raise exactly as a dry pool does.
 - **chain seed**: the pool format (``kv_quant``) seeds every chain, as in
   the JAX package, so int8 and fp blocks never alias. The port adds an
   optional per-request ``salt`` to the seed: the server passes the request's
@@ -32,7 +37,7 @@ features that drive them.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 SCRATCH_BLOCK = 0
 
@@ -68,6 +73,18 @@ class BlockAllocator:
         self.swap_in_blocks = 0
         self.host_bytes_in_use = 0
         self.host_bytes_peak = 0
+        # tier bookkeeping: blocks demoted to the warm tier under LRU
+        # pressure and promoted back on a cross-tier prefix hit
+        # (inference/kv_offload.py drives both)
+        self.demoted_blocks = 0
+        self.promoted_blocks = 0
+        # optional read-only membership probe into the warm tier (chain
+        # hash -> bool): KVOffloadEngine wires its WarmTier here so that
+        # probe_prefix sees warm-resident blocks without a side effect
+        self.warm_probe = None
+        # optional FaultInjector (faults.py): the server wires it so that
+        # a plan can script pool exhaustion
+        self.faults = None
 
     # ----------------------------------------------------------------- stats
     @property
@@ -119,7 +136,18 @@ class BlockAllocator:
                 "swap_out_blocks": self.swap_out_blocks,
                 "swap_in_blocks": self.swap_in_blocks,
                 "host_bytes_in_use": self.host_bytes_in_use,
-                "host_bytes_peak": self.host_bytes_peak}
+                "host_bytes_peak": self.host_bytes_peak,
+                "demoted_blocks": self.demoted_blocks,
+                "promoted_blocks": self.promoted_blocks}
+
+    def publish(self, registry) -> None:
+        """Mirror :meth:`stats` into a
+        :class:`~paddle_tpu_torch.telemetry.MetricsRegistry` as
+        ``kv_pool_*`` gauges (numeric fields only) — called at snapshot
+        time, never per tick."""
+        for k, v in self.stats().items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                registry.gauge(f"kv_pool_{k}").set(float(v))
 
     # ------------------------------------------------------- swap bookkeeping
     def note_swap_out(self, nblocks: int, nbytes: int) -> None:
@@ -138,6 +166,10 @@ class BlockAllocator:
         """Record a parked copy discarded without restore (cancel)."""
         self.host_bytes_in_use -= nbytes
 
+    def note_promote(self, nblocks: int) -> None:
+        """Record ``nblocks`` promoted back from the warm tier."""
+        self.promoted_blocks += nblocks
+
     def _note_use(self):
         self.peak_in_use = max(self.peak_in_use, self.blocks_in_use)
 
@@ -145,6 +177,12 @@ class BlockAllocator:
     def alloc(self) -> int:
         """Hand out one private block (ref=1, no hash). Prefers the free
         list; falls back to evicting the coldest unpinned cached block."""
+        if self.faults is not None and self.faults.fire("alloc") is not None:
+            # the same exception (and message shape) as a dry pool, so an
+            # injected exhaustion takes the real preempt / stall path
+            raise RuntimeError(
+                f"paged KV pool exhausted (injected fault): all "
+                f"{self.num_blocks - 1} usable blocks unavailable")
         if self._free:
             bid = self._free.pop()
         else:
@@ -213,6 +251,46 @@ class BlockAllocator:
         """Release a pin (idempotent; unknown ids are a no-op)."""
         self._pinned.discard(bid)
 
+    def coldest_cached(self, n: int) -> List[Tuple[int, int]]:
+        """Up to ``n`` demotion candidates ``[(bid, chain_hash), ...]`` in
+        LRU order (coldest first): cached, unpinned blocks. Read-only — the
+        warm tier copies them to host first and only then calls
+        :meth:`evict_cached` on each."""
+        out: List[Tuple[int, int]] = []
+        for bid in self._lru:
+            if len(out) >= n:
+                break
+            if bid in self._pinned:
+                continue
+            out.append((bid, self._hash_of[bid]))
+        return out
+
+    def evict_cached(self, bid: int) -> None:
+        """Remove one cached block from the prefix cache and return it to
+        the free list — the demotion commit. Counted as
+        ``demoted_blocks``, not ``evictions``: the contents survive in the
+        warm tier."""
+        if bid not in self._lru:
+            raise KeyError(f"block {bid} is not cached")
+        if bid in self._pinned:
+            raise KeyError(f"block {bid} is pinned — cannot demote")
+        del self._lru[bid]
+        h = self._hash_of.pop(bid)
+        self._by_hash.pop(h, None)
+        self._free.append(bid)
+        self.demoted_blocks += 1
+
+    def ref_hash(self, chain_hash: int) -> Optional[int]:
+        """Re-ref the hot-resident block carrying ``chain_hash`` and return
+        its id, or None on a miss — the per-hash twin of
+        :meth:`match_prefix` that the cross-tier walk interleaves with
+        warm-tier promotion."""
+        bid = self._by_hash.get(chain_hash)
+        if bid is None:
+            return None
+        self.ref(bid)
+        return bid
+
     def touch(self, bid: int) -> None:
         """Make a CACHED block the most recently used, so eviction reaches
         it last; live or unknown blocks are a no-op."""
@@ -251,14 +329,20 @@ class BlockAllocator:
         self.prefix_hit_blocks += len(out)
         return out
 
-    def probe_prefix(self, tokens: Sequence[int], salt: tuple = ()) -> int:
+    def probe_prefix(self, tokens: Sequence[int], salt: tuple = (),
+                     hot_only: bool = False) -> int:
         """Read-only: how many leading full prompt blocks of ``tokens`` are
         resident, capped like :meth:`match_prefix`. Takes no references and
-        touches no counter or LRU order."""
+        touches no counter or LRU order. "Resident" is hot (live or cached
+        on the device) or warm (``warm_probe``); ``hot_only`` counts device
+        residency only (admission: a warm hit still costs a fresh block to
+        promote into)."""
         limit = max((len(tokens) - 1) // self.block_size, 0)
+        warm = None if hot_only else self.warm_probe
         hits = 0
         for h in self.chain_hashes(tokens, salt)[:limit]:
-            if h not in self._by_hash:
+            if h not in self._by_hash and not (warm is not None
+                                               and warm(h)):
                 break
             hits += 1
         return hits

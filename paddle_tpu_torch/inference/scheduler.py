@@ -26,8 +26,8 @@ TTLs bound queue wait, not execution: a never-started entry whose deadline
 passes is dropped by :meth:`Scheduler.expire`; a started one (preempted
 and requeued included) is never expired, only cancelled.
 
-Not ported: ``Scheduler.attach_metrics`` (the telemetry registry, with the
-server's telemetry).
+:meth:`Scheduler.attach_metrics` mirrors the intake counters into the
+server's telemetry registry (``sched_requests_*``).
 """
 from __future__ import annotations
 
@@ -118,6 +118,30 @@ class Scheduler:
         self.submitted = 0
         self.expired = 0
         self.cancelled = 0
+        # registry twins (telemetry.py) — None until a server calls
+        # attach_metrics; the ints above stay authoritative for direct
+        # Scheduler users with no registry
+        self._m_submitted = None
+        self._m_expired = None
+        self._m_cancelled = None
+
+    def attach_metrics(self, registry) -> None:
+        """Mirror the intake counters into a
+        :class:`~paddle_tpu_torch.telemetry.MetricsRegistry`
+        (``sched_requests_*``). Pre-attach history is seeded in so registry
+        totals always equal the ints; ``submitted`` is additionally
+        labeled by tenant."""
+        self._m_submitted = registry.counter(
+            "sched_requests_submitted", "requests admitted to the queue")
+        self._m_expired = registry.counter(
+            "sched_requests_expired", "queued requests dropped by TTL")
+        self._m_cancelled = registry.counter(
+            "sched_requests_cancelled", "queued requests cancelled")
+        for c, n in ((self._m_submitted, self.submitted),
+                     (self._m_expired, self.expired),
+                     (self._m_cancelled, self.cancelled)):
+            if n:
+                c.inc(n)
 
     # ------------------------------------------------------------------- clock
     def now(self) -> float:
@@ -166,6 +190,8 @@ class Scheduler:
         self._seq += 1
         self._q.append(ent)
         self.submitted += 1
+        if self._m_submitted is not None:
+            self._m_submitted.inc(tenant=tenant)
         return ent
 
     def requeue(self, ent: SchedEntry) -> None:
@@ -211,6 +237,8 @@ class Scheduler:
         self._q.append(ent)
         self._seq = max(self._seq, ent.seq + 1)
         self.submitted += 1
+        if self._m_submitted is not None:
+            self._m_submitted.inc(tenant=ent.tenant)
 
     def restore_state(self, vnow: float,
                       tenant_tag: Dict[str, float]) -> None:
@@ -238,6 +266,8 @@ class Scheduler:
         ent = self.remove(rid)
         if ent is not None:
             self.cancelled += 1
+            if self._m_cancelled is not None:
+                self._m_cancelled.inc()
         return ent
 
     def expire(self) -> List[SchedEntry]:
@@ -252,6 +282,8 @@ class Scheduler:
         for e in out:
             self._q.remove(e)
         self.expired += len(out)
+        if out and self._m_expired is not None:
+            self._m_expired.inc(len(out))
         return out
 
     def __len__(self) -> int:

@@ -73,11 +73,65 @@ The per-request API: ``submit(priority=, tenant=, ttl_s=)``,
 host between passes: they add no CUDA graph, and a resumed request
 replays the graphs already captured.
 
+Observability and recovery (as in the JAX server):
+
+- ``telemetry=`` (None, a bool or a
+  :class:`~paddle_tpu_torch.telemetry.ServingTelemetry`): the metrics
+  registry is always live — ``sched_metrics()`` is a view of its counters,
+  TTFT / TPOT are observed at completion — and an enabled facade records
+  per-request spans (a decode or verify window's span closes after the
+  host holds its tokens; a prefill chunk's is the host's dispatch time, as
+  JAX's, with no synchronise added) and one flight record a step, whose
+  ``recompiles`` is the executor's CUDA graph captures in the step. Every
+  32 records the watchdog runs; a preemption storm or a stall run puts the
+  server in a degraded mode for 64 steps (speculation off, admission
+  asking for more spare blocks). With ``telemetry=None`` the server adds
+  no clock read and no synchronise.
+- ``faults=`` (a :class:`~paddle_tpu_torch.faults.FaultInjector`) and
+  ``fault_retries=``: the degradation ladder. A ``tick`` fault fires before
+  the step's graph replay (which writes the pools in place and advances a
+  sampled window's generator), so the retried trip is the same replay;
+  the participants take strikes and back off, and a request past
+  ``fault_retries`` strikes is quarantined (``status`` ``"failed"``);
+  ``kind="fatal"`` leaves the server failed (``submit`` raises
+  ``EngineFailedError``). ``alloc`` and ``host_put`` faults take the
+  dry-pool and stall paths, a ``drafter`` fault a plain decode trip, and a
+  swap payload that fails its CRC (``swap_corrupt``) rebuilds the
+  request's KV from its tokens and resumes it — the re-prefill rung. The
+  JAX server prefills ``prompt + generated[:-1]``; the port prefills the
+  prompt and then feeds ``generated`` back through the decode program,
+  one known token a tick (``_Request.force``): on the card a prefill
+  chunk's products are not a decode tick's bit for bit, and at a near
+  tie of the logits a prefilled KV row flips the request's later greedy
+  tokens, where the decode program rebuilds the rows the request wrote.
+  Each rung is counted and traced.
+- ``warm_pool_bytes=`` and ``tier_demote_low=`` / ``tier_demote_high=``:
+  the warm KV tier (``kv_offload.WarmTier``): below the low watermark of
+  free blocks the coldest cached prefix blocks move to host memory until
+  the high one is reached; a later prefix match promotes them.
+- :meth:`~GenerationServer.snapshot` / :meth:`~GenerationServer.restore`,
+  :meth:`~GenerationServer.evacuate`,
+  :meth:`~GenerationServer.admit_migrated`,
+  :meth:`~GenerationServer.adopt_warm` and :meth:`~GenerationServer.fail`:
+  a snapshot carries every request's host state and, for decoding slots,
+  their KV blocks (gathered into host memory without disturbing the
+  server) behind CRCs; a restore re-enters each through the swap-in path
+  into the restoring server's own pools. Where the JAX snapshot carries
+  its sampling key, the port's carries the server generator's state
+  (``torch.Generator.get_state()``); greedy continuation is
+  token-identical, a sampled request keeps its distribution.
+- :meth:`~GenerationServer.watchdog_findings`,
+  :meth:`~GenerationServer.slo_observations`,
+  :meth:`~GenerationServer.telemetry_snapshot` and
+  :meth:`~GenerationServer.export_chrome_trace`.
+
 Not ported yet (their constructor arguments raise ``NotImplementedError``
-when given a non-default value): the dense cache, the warm KV tier,
-telemetry, fault injection, tensor/context parallelism, snapshots and
-migration, replica roles and ``kernels="pallas"`` (the port has no
-interpret mode).
+when given a non-default value): the dense cache and ``prompt_buckets``,
+tensor/context parallelism (``mesh``), replica roles (``role``, with
+``handoff_ready``: the handoff set is filled only by a prefill-class
+replica of the disaggregated fleet), tuned profiles (``profile``) and
+``kernels="pallas"`` (the port has no interpret mode). The fleet's fault
+sites come with the fleet.
 """
 from __future__ import annotations
 
@@ -89,10 +143,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..faults import (NULL_INJECTOR, EngineFailedError, FaultInjector,
+                      TickFault)
 from ..models.generation import next_token
+from ..telemetry import ServingTelemetry, watchdog
 from .executor import PagedExecutor
+from .kv_offload import KVOffloadEngine, SwapHandle, payload_checksum
 from .lora import AdapterPool
-from .kv_offload import KVOffloadEngine
 from .paged_cache import BlockAllocator
 from .scheduler import PRIORITY_NORMAL, SchedEntry, Scheduler
 
@@ -102,9 +159,6 @@ from .scheduler import PRIORITY_NORMAL, SchedEntry, Scheduler
 # order, so that a positional call means the same in both packages
 _UNPORTED_DEFAULTS = {
     "prompt_buckets": (32, 64, 128),
-    "warm_pool_bytes": None,
-    "tier_demote_low": None, "tier_demote_high": None,
-    "telemetry": None, "faults": None, "fault_retries": 3,
     "mesh": None, "role": "any", "profile": None,
 }
 
@@ -140,6 +194,14 @@ class _Request:
     table: List[int] = field(default_factory=list)   # block ids, in order
     hashes: List[int] = field(default_factory=list)  # chain hash per full blk
     pf_next: int = 0                                 # next prefill position
+    # the re-prefill rung: when a swap payload fails its CRC, the KV of
+    # this sequence (prompt + generated[:-1]) is rebuilt instead of
+    # restored: the prompt by chunked prefill, the generated tokens by
+    # decode ticks fed from `force`
+    replay: Optional[List[int]] = None
+    # while a replay's decode rebuild runs: the known inputs of its next
+    # ticks (their outputs are known already)
+    force: Optional[List[int]] = None
 
 
 class GenerationServer:
@@ -179,9 +241,19 @@ class GenerationServer:
     ``"wfq"``) or a configured :class:`~.scheduler.Scheduler` (for
     ``max_queue``, TTLs, tenant weights); ``clock``: the scheduler's
     injectable clock (default ``time.monotonic``), also the clock of
-    :meth:`request_metrics`. ``host_pool_bytes``: byte cap of the pinned
-    host pool that swap preemption parks victims' KV blocks in — None
-    unbounded, 0 no swapping (victims then stall instead of parking).
+    :meth:`request_metrics` and of a telemetry facade the server builds.
+    ``host_pool_bytes``: byte cap of the pinned host pool that swap
+    preemption parks victims' KV blocks in — None unbounded, 0 no swapping
+    (victims then stall instead of parking). ``warm_pool_bytes``: byte cap
+    of the warm tier (None unbounded); ``tier_demote_low`` /
+    ``tier_demote_high``: the free-block watermarks of demotion, as a pair
+    with ``0 < low < high <= 1`` (None: no demotion).
+
+    ``telemetry``: None / False (the registry only), True (spans and the
+    flight recorder too) or a :class:`~paddle_tpu_torch.telemetry.
+    ServingTelemetry`; ``faults``: None or a :class:`~paddle_tpu_torch.
+    faults.FaultInjector`; ``fault_retries``: tick-fault strikes a request
+    survives before it is quarantined (see the module docstring).
 
     ``kernels``: ``"auto"`` (default) leaves the process-wide
     :func:`paddle_tpu_torch.ops.set_kernel_mode` as it is; ``"megakernel"``
@@ -251,6 +323,19 @@ class GenerationServer:
         if pool_bytes is not None and num_blocks is not None:
             raise ValueError(
                 "pass either num_blocks= or pool_bytes=, not both")
+        if (tier_demote_low is None) != (tier_demote_high is None):
+            raise ValueError(
+                "tier_demote_low/tier_demote_high come as a pair — set "
+                "both watermarks (or neither to keep demotion off)")
+        if tier_demote_low is not None:
+            low, high = float(tier_demote_low), float(tier_demote_high)
+            if not (0.0 < low < high <= 1.0):
+                raise ValueError(
+                    f"tier watermarks must satisfy 0 < low < high <= 1, "
+                    f"got low={tier_demote_low} high={tier_demote_high}")
+            tier_demote_low, tier_demote_high = low, high
+        self.tier_demote_low = tier_demote_low
+        self.tier_demote_high = tier_demote_high
         if lora is not None and model.quantized:
             raise NotImplementedError(
                 "lora= over weight-only int8 projections is not supported "
@@ -296,19 +381,97 @@ class GenerationServer:
                 f"'wfq'), or a Scheduler instance, got {policy!r}")
         self._wall = clock if clock is not None else time.monotonic
         self._results: Dict[int, List[int]] = {}
-        self._dropped: Dict[int, str] = {}   # rid -> cancelled | expired
+        # rid -> cancelled | expired | failed
+        self._dropped: Dict[int, str] = {}
         # per-rid clock marks (submit / first token / done)
         self._req_metrics: Dict[int, Dict[str, Any]] = {}
         self._idle_streak = 0
         self._stall_streak = 0
         self._next_rid = 0
         self._step_no = 0
-        # preemption counters (sched_metrics)
+        # preemption counters; their registry twins below are what
+        # sched_metrics() reads
         self._preemptions = 0
         self._prefill_aborts = 0
         self._resumes = 0
         self._stalls = 0
-        self._cancelled = 0
+
+        if faults is None:
+            self._faults = NULL_INJECTOR
+        elif isinstance(faults, FaultInjector):
+            self._faults = faults
+        else:
+            raise ValueError(
+                f"faults must be None or a FaultInjector, got {faults!r}")
+        self.faults = self._faults
+        if not isinstance(fault_retries, int) or fault_retries < 0:
+            raise ValueError(
+                f"fault_retries must be an int >= 0, got {fault_retries!r}")
+        self.fault_retries = fault_retries
+        # degradation-ladder state (host ints; see step)
+        self._failed: Optional[str] = None      # terminal-failure reason
+        self._strikes: Dict[int, int] = {}      # rid -> tick-fault strikes
+        self._backoff_ticks = 0                 # ticks left to sit out
+        self._degraded_ticks = 0                # pressure-response cooldown
+        self._tick_faults = 0
+        self._quarantined = 0
+
+        if telemetry is None or telemetry is False or telemetry is True:
+            on = telemetry is True
+            self._tel = (ServingTelemetry(enabled=on) if clock is None
+                         else ServingTelemetry(enabled=on, clock=clock))
+        elif isinstance(telemetry, ServingTelemetry):
+            self._tel = telemetry
+        else:
+            raise ValueError(
+                f"telemetry must be None, a bool, or a ServingTelemetry "
+                f"instance, got {telemetry!r}")
+        self.telemetry = self._tel
+        reg = self._tel.registry
+        self._sched.attach_metrics(reg)
+        self._c_preempt = reg.counter(
+            "serving_preemptions", "decoding slots swapped out to host")
+        self._c_aborts = reg.counter(
+            "serving_prefill_aborts",
+            "prefilling slots aborted under pool pressure (recomputable)")
+        self._c_resumes = reg.counter(
+            "serving_resumes", "swapped requests restored into a slot")
+        self._c_stalls = reg.counter(
+            "serving_stalled_reservations",
+            "block reservations that found no victim and no headroom")
+        self._c_completed = reg.counter(
+            "serving_requests_completed", "requests finished with results")
+        self._c_dropped = reg.counter(
+            "serving_requests_dropped",
+            "requests dropped before finishing (reason label)")
+        self._h_ttft = reg.histogram(
+            "serving_ttft_s",
+            "submit -> first token, completed requests (seconds)")
+        self._h_tpot = reg.histogram(
+            "serving_tpot_ms",
+            "per-token latency after the first, completed requests (ms)",
+            buckets=(0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+                     250.0, 500.0, 1000.0, 2500.0))
+        self._h_e2e = reg.histogram(
+            "serving_e2e_s", "submit -> done, completed requests (seconds)")
+        self._c_faults = reg.counter(
+            "serving_faults_injected",
+            "fault-injector firings observed by the server (site label)")
+        self._c_retries = reg.counter(
+            "serving_tick_retries",
+            "decode trips retried after a recoverable tick fault")
+        self._c_failed = reg.counter(
+            "serving_requests_failed",
+            "requests quarantined to terminal failed status (reason label)")
+        self._c_corrupt = reg.counter(
+            "serving_swap_reprefills",
+            "corrupted swap payloads recovered by re-prefill")
+        self._c_degrade = reg.counter(
+            "serving_degrade_events",
+            "watchdog-driven degradation responses (kind label)")
+        # program key of the last trip, recorded per step by the flight
+        # recorder; the watchdog keys its recompile excusal on it
+        self._last_prog = "idle"
 
         bs = int(block_size)
         if bs < 1:
@@ -343,7 +506,18 @@ class GenerationServer:
         self.alloc = BlockAllocator(int(num_blocks), bs, kv_quant=kv_quant,
                                     bytes_per_block=per_block)
         self._offload = KVOffloadEngine(self.alloc,
-                                        capacity_bytes=host_pool_bytes)
+                                        capacity_bytes=host_pool_bytes,
+                                        warm_capacity_bytes=warm_pool_bytes)
+        self._offload.telemetry = self._tel
+        # prefix chains that ran out of cached ancestry while a warm tier
+        # held blocks and paid a fresh chunked prefill (the cold tier)
+        self._cold_refills = 0
+        if self._faults is not NULL_INJECTOR:
+            # the injector is threaded through even while disabled (a
+            # harness arms its plan later); the null injector never is, so
+            # each hook stays an `is None` check
+            self.alloc.faults = self._faults
+            self._offload.faults = self._faults
         self._bt = np.zeros((max_batch, self._table_width), np.int32)
         # per-slot adapter page in the LoRA pool; 0 = the all-zero NULL
         # page, so adapterless slots need no branching
@@ -386,6 +560,9 @@ class GenerationServer:
         if spec is not None:
             self.spec_k = int(spec.k)
             self.drafter = spec.build_drafter(max_len)
+            if self._faults is not NULL_INJECTOR \
+                    and hasattr(self.drafter, "faults"):
+                self.drafter.faults = self._faults
             dm = getattr(self.drafter, "model", None)
             if dm is not None and dm.device != self.device:
                 raise ValueError(f"the draft model lives on {dm.device}, the "
@@ -450,7 +627,14 @@ class GenerationServer:
         bounded queue is full. ``adapter`` names a registered LoRA adapter
         (requires ``lora=``); an unknown name, a rank past the pool's
         ``max_rank`` or mis-shaped factors are rejected here, not at
-        admission."""
+        admission.
+
+        Raises :class:`~paddle_tpu_torch.faults.EngineFailedError` once the
+        server is in a terminal failed state."""
+        if self._failed is not None:
+            raise EngineFailedError(
+                f"server is in a terminal failed state ({self._failed}) — "
+                f"restore a snapshot into a fresh server or rebuild")
         prompt = list(prompt)
         if not prompt:
             raise ValueError("prompt must contain at least one token id")
@@ -525,6 +709,11 @@ class GenerationServer:
             cost=float(len(prompt) + max_new_tokens), adapter=adapter)
         self._req_metrics[rid] = {"submit_t": self._wall(), "tenant": tenant}
         self._weights_checked = False
+        if self._tel.enabled:
+            tr = self._tel.tracer
+            tr.set_meta(rid, tenant=tenant, priority=priority,
+                        prompt_len=len(prompt), adapter=adapter or "")
+            tr.begin(rid, "queued", priority=priority, tenant=tenant)
         return rid
 
     def _salt(self, adapter: Optional[str]) -> tuple:
@@ -558,6 +747,9 @@ class GenerationServer:
         m = self._req_metrics.get(req.rid)
         if m is not None:
             m.setdefault("first_token_t", self._wall())
+        if self._tel.enabled:
+            self._tel.tracer.end(req.rid, "prefill")
+            self._tel.tracer.instant(req.rid, "first_token")
 
     def _fill_free_slots(self) -> None:
         """Admit waiting requests into free slots in scheduler-policy
@@ -606,36 +798,53 @@ class GenerationServer:
         """A queued entry leaves without finishing: record why, close its
         metrics, release any parked host KV."""
         self._dropped[ent.rid] = reason
-        if reason == "cancelled":
-            self._cancelled += 1
+        self._c_dropped.inc(reason=reason)
         m = self._req_metrics.get(ent.rid)
         if m is not None:
             m["done_t"] = self._wall()
         if ent.swap is not None:
             self._offload.discard(ent.swap)
             ent.swap = None
+        self._tel.tracer.close(ent.rid, reason)
 
     def _admit_paged(self, slot: int, req: _Request) -> None:
         """Claim a slot: take the request's adapter page (an upload on a
-        miss), reuse cached prefix blocks (the matched span skips prefill)
-        and start chunked prefill at the first uncached block."""
+        miss), reuse cached prefix blocks — hot ones by reference, warm
+        ones promoted (``kv_offload.match_prefix_tiered``); the matched
+        span skips prefill — and start chunked prefill at the first
+        uncached block. A re-prefill replay prefills its prompt the same
+        way; its generated tokens follow through decode
+        (:meth:`_activate_replayed`)."""
         if self._lora is not None:
             self.aidx[slot] = (self._lora.acquire(req.adapter)
                                if req.adapter is not None else 0)
+        seq = req.prompt
         req.salt = self._salt(req.adapter)
-        req.table = self.alloc.match_prefix(req.prompt, req.salt)
-        req.hashes = self.alloc.chain_hashes(req.prompt, req.salt)
+        req.table, _, tiers = self._offload.match_prefix_tiered(
+            seq, self._exec._flat_pools, req.salt)
+        req.hashes = self.alloc.chain_hashes(seq, req.salt)
         req.pf_next = len(req.table) * self.block_size
+        if req.pf_next < len(seq) and self._offload.warm.demoted_blocks:
+            # the chain ran out of cached ancestry while a warm tier is
+            # live: the rest re-prefills cold
+            self._cold_refills += 1
         self._bt[slot, :] = 0
         self._bt[slot, :len(req.table)] = req.table
         self._prefilling[slot] = True
         self._slots[slot] = req
+        if self._tel.enabled:
+            tr = self._tel.tracer
+            tr.end(req.rid, "queued")
+            tr.begin(req.rid, "prefill", cached_blocks=len(req.table),
+                     warm_blocks=tiers["warm"], prompt_len=len(seq),
+                     replay=req.replay is not None)
 
     def _admissible(self, ent: SchedEntry) -> bool:
         """Block-headroom gate: the entry's first allocation burst (the
-        whole prompt less its resident prefix blocks for a fresh request;
-        the parked blocks not still resident for a swapped one) plus one
-        spare block must be reclaimable now."""
+        whole prompt less its device-resident prefix blocks for a fresh or
+        replayed request; the parked blocks not still resident for a
+        swapped one) plus one spare block (three while the server is
+        degraded) must be reclaimable now."""
         adapter = ent.req.adapter
         if adapter is not None and not self._lora.can_acquire(adapter):
             # every adapter page is held by a running slot: wait for one
@@ -644,12 +853,16 @@ class GenerationServer:
         if ent.swap is not None:
             need = self._offload.restore_cost(ent.swap)
         else:
-            prompt = ent.req.prompt
-            need = min(self._max_entries, -(-len(prompt) // self.block_size))
+            seq = ent.req.prompt
+            need = min(self._max_entries, -(-len(seq) // self.block_size))
+            # hot hits only: a warm hit still promotes into a fresh block
             need = max(need - self.alloc.probe_prefix(
-                prompt, self._salt(adapter)), 1)
+                seq, self._salt(adapter), hot_only=True), 1)
         ent.kv_need = need          # the scheduler's queued-demand sum
-        headroom = min(need + 1, self.alloc.num_blocks - 1)
+        # while degraded (a watchdog pressure finding), admission asks for
+        # more spare blocks so that it stops feeding the pressure
+        spare = 3 if self._degraded_ticks > 0 else 1
+        headroom = min(need + spare, self.alloc.num_blocks - 1)
         return (self.alloc.blocks_free
                 + self.alloc.evictable_cached) >= headroom
 
@@ -672,6 +885,29 @@ class GenerationServer:
             # them (``PagedExecutor.clear_blocks``), in stream order
             self._exec.clear_blocks(fresh)
 
+    def _maybe_demote(self) -> None:
+        """Watermark-driven demotion (the tier ladder's pressure rung):
+        when the free share of usable blocks drops below
+        ``tier_demote_low``, move the coldest cached prefix blocks to the
+        warm tier until it reaches ``tier_demote_high``, so that admission
+        finds free blocks instead of evicting the prefix cache (eviction
+        loses the bytes; demotion keeps them promotable). Runs before
+        admission each step; a no-op without watermarks or cached
+        blocks."""
+        low = self.tier_demote_low
+        if low is None:
+            return
+        a = self.alloc
+        usable = a.num_blocks - 1
+        if usable <= 0 or a.blocks_free / usable >= low:
+            return
+        want = int(self.tier_demote_high * usable) - a.blocks_free
+        if want <= 0:
+            return
+        victims = a.coldest_cached(want)
+        if victims:
+            self._offload.demote(victims, self._exec._flat_pools)
+
     # ------------------------------------------------- preemption / offload
     def _resume_swapped(self, slot: int, ent: SchedEntry) -> bool:
         """Restore a swapped-out request into ``slot`` where it stopped:
@@ -679,15 +915,29 @@ class GenerationServer:
         position, next token and sampling scalars from the request. The
         greedy continuation equals the un-preempted run's: the round trip
         is bit-exact and the decode products are batch-invariant. Returns
-        False (entry untouched) when device headroom vanished."""
+        False (entry untouched) when device headroom vanished.
+
+        A payload that fails its CRC takes the re-prefill rung: the
+        request's tokens are host state, so the KV of ``prompt +
+        generated[:-1]`` (``handle.n_tokens`` tokens, the coverage at
+        swap-out) is rebuilt — the prompt by chunked prefill, the
+        generated tokens by decode — and it then decodes on as if nothing
+        happened."""
         req = ent.req
         res = self._offload.swap_in(ent.swap, self._exec._flat_pools)
         if res is None:
             return False
         if res == "corrupt":
-            raise RuntimeError(
-                f"request {req.rid}: its parked KV payload failed its "
-                f"checksum (re-prefilling it from its tokens is not ported)")
+            handle, ent.swap = ent.swap, None
+            self._c_corrupt.inc()
+            req.replay = (req.prompt + req.generated)[:handle.n_tokens]
+            req.force = None
+            if self._tel.enabled:
+                tr = self._tel.tracer
+                tr.end(req.rid, "preempted", corrupt=True)
+                tr.begin(req.rid, "queued", reason="swap_corrupt")
+            self._admit_paged(slot, req)
+            return True
         if self._lora is not None:
             # re-acquired after the KV restore committed: _admissible
             # vouched for can_acquire
@@ -708,6 +958,9 @@ class GenerationServer:
             self.kcaps[slot] = (self.spec_k if req.draft_k is None
                                 else req.draft_k)
         self._resumes += 1
+        self._c_resumes.inc()
+        if self._tel.enabled:
+            self._tel.tracer.end(req.rid, "preempted", resumed=True)
         return True
 
     def _pick_victim(self, than_priority: int,
@@ -746,6 +999,11 @@ class GenerationServer:
             req.table = []
             req.pf_next = 0
             self._prefill_aborts += 1
+            self._c_aborts.inc()
+            if self._tel.enabled:
+                tr = self._tel.tracer
+                tr.end(req.rid, "prefill", aborted=True)
+                tr.begin(req.rid, "queued", reason="prefill_abort")
         else:
             n = int(self.pos[s])
             req.table = self.alloc.truncate(req.table, n)
@@ -759,6 +1017,12 @@ class GenerationServer:
             req.table = []
             ent.swap = handle
             self._preemptions += 1
+            self._c_preempt.inc()
+            if self._tel.enabled:
+                # the time parked on host; the swap_out / swap_in spans
+                # come from the offload engine
+                self._tel.tracer.begin(req.rid, "preempted",
+                                       blocks=handle.n_blocks)
         self._slots[s] = None
         self._bt[s, :] = 0
         self._prefilling[s] = None
@@ -799,6 +1063,7 @@ class GenerationServer:
                 if self._preempt_slot(s):
                     return "gone"
                 self._stalls += 1
+                self._c_stalls.inc()
                 return "stall"
 
     def _reserve_active(self, active, need_fn) -> List[int]:
@@ -827,7 +1092,10 @@ class GenerationServer:
 
     def _prefill_chunk_step(self, slot: int) -> None:
         """Advance one prompt chunk for a prefilling slot; on the final
-        chunk, take the first token and flip the slot to decoding."""
+        chunk, take the first token and flip the slot to decoding (a
+        re-prefill replay instead starts its decode rebuild: nothing is
+        sampled). The chunk's ``prefill_chunk`` span is the host's dispatch
+        time, as in JAX: a non-final chunk is not synchronised for it."""
         req = self._slots[slot]
         seq = req.prompt
         n = len(seq)
@@ -847,23 +1115,55 @@ class GenerationServer:
         sn["start"][0] = start
         sn["last_idx"][0] = (n - 1 - start) if end == n else 0
         sn["chunk_aidx"][0] = self.aidx[slot]
+        tel = self._tel
+        t0 = tel.clock() if tel.enabled else 0.0
         w0 = time.perf_counter()
         lg = self._exec.chunk_prefill(
             st["chunk"], st["table"], st["start"], st["last_idx"],
             st["chunk_aidx"] if self._lora is not None else None)
-        first = self._first_token(req, lg) if end == n else None
+        if tel.enabled:
+            tel.tracer.complete(req.rid, "prefill_chunk", t0, tel.clock(),
+                                start=start, tokens=end - start)
+        final = end == n
+        first = (self._first_token(req, lg)
+                 if final and req.replay is None else None)
         if first is None:
             lg.cpu()    # the host copy closes the timed span on the device
         self._prefill_tokens += end - start
         self._prefill_chunks += 1
         self._prefill_wall_s += time.perf_counter() - w0
         # publish the prompt blocks this chunk completed for prefix reuse
+        # (a freshly prefilled hash supersedes any stale warm copy)
         for i in range(start // bs, end // bs):
             self.alloc.register(req.table[i], req.hashes[i])
+            self._offload.forget_warm(req.hashes[i])
         req.pf_next = start + C
-        if end == n:
-            self._activate_slot(slot, req, first)
+        if final:
+            if req.replay is not None:
+                self._activate_replayed(slot, req)
+            else:
+                self._activate_slot(slot, req, first)
             self._prefilling[slot] = None
+
+    def _activate_replayed(self, slot: int, req: _Request) -> None:
+        """Start a re-prefill replay's decode rebuild: the chunked prefill
+        rebuilt the prompt's KV; decode ticks now take the generated
+        tokens as their inputs, one a tick (``req.force``), each writing
+        its token's KV as the request's own decode did, their outputs
+        discarded. Past the last, the request decodes on from the state a
+        swap-in restore lands on. Nothing is sampled here."""
+        req.replay = None
+        self.pos[slot] = len(req.prompt)
+        self.tokens[slot] = req.generated[0]
+        req.force = req.generated[1:] or None
+        self.temps[slot] = req.temperature
+        self.topks[slot] = req.top_k
+        self.topps[slot] = req.top_p
+        if self.spec is not None:
+            self.kcaps[slot] = (self.spec_k if req.draft_k is None
+                                else req.draft_k)
+        if self._tel.enabled:
+            self._tel.tracer.end(req.rid, "prefill", replayed=True)
 
     def _plain_decode_trip(self, active, ticks: Optional[int] = None) -> None:
         """One decode trip: ``ticks`` (default ``tick_window``) ticks across
@@ -871,11 +1171,21 @@ class GenerationServer:
         masked — zeroed table and pos 0 route their discarded K/V writes to
         scratch block 0, which keeps the batch shape fixed."""
         k = self.tick_window if ticks is None else ticks
+        tel = self._tel
         active = self._reserve_active(
             active, lambda s: -(-(int(self.pos[s]) + k) // self.block_size))
         if not active:
+            if tel.enabled:
+                self._last_prog = "stalled"
             return
         greedy, active_mask = self._stage_rows(active)
+        if tel.enabled:
+            # the program key: the tick count and the greedy
+            # specialization are the decode graphs' keys
+            self._last_prog = (f"plain:t{'w' if ticks is None else ticks}"
+                               f":g{int(greedy)}")
+            t0 = tel.clock()
+            rids = [self._slots[s].rid for s in active]
         st = self._stage
         w0 = time.perf_counter()
         stack = self._exec.decode_paged(
@@ -888,6 +1198,13 @@ class GenerationServer:
         self._decode_trips += 1
         self._decode_ticks += k
         self._decode_tokens += self._harvest_window(nxt, active, active_mask)
+        if tel.enabled:
+            # retroactive: one replay advanced every listed row, each
+            # request gets the same span, closed after the host holds the
+            # window's tokens (the copy above)
+            t1 = tel.clock()
+            for rid in rids:
+                tel.tracer.complete(rid, "decode_window", t0, t1, ticks=k)
 
     def _stage_rows(self, active):
         """Stage the per-row inputs of a decode or verify trip over the
@@ -924,6 +1241,13 @@ class GenerationServer:
         kept = 0
         for s in active:
             req = self._slots[s]
+            if req.force is not None:
+                # a replay's rebuild tick (trips of 1 tick while one runs):
+                # it wrote a known token's KV; the next input is known too
+                self.tokens[s] = req.force.pop(0)
+                if not req.force:
+                    req.force = None
+                continue
             done = False
             had = len(req.generated)
             for t in range(k):
@@ -944,13 +1268,31 @@ class GenerationServer:
         return kept
 
     def _emit_result(self, req: _Request) -> None:
-        """A request finished: publish its tokens, close its metrics."""
+        """A request finished: publish its tokens, close its metrics. TTFT
+        and TPOT are observed HERE, at completion, into the registry's
+        histograms: the tenant breakdown and a benchmark's percentiles
+        are two views of the same samples."""
         self._results[req.rid] = req.prompt + req.generated[
             :req.max_new_tokens]
         m = self._req_metrics.get(req.rid)
         if m is not None:
             m["done_t"] = self._wall()
             m["n_generated"] = min(len(req.generated), req.max_new_tokens)
+            tenant = m.get("tenant", "default")
+            pr = (req.sched.priority if req.sched is not None
+                  else PRIORITY_NORMAL)
+            self._c_completed.inc(tenant=tenant)
+            if "first_token_t" in m:
+                self._h_ttft.observe(m["first_token_t"] - m["submit_t"],
+                                     tenant=tenant, priority=pr)
+                self._h_e2e.observe(m["done_t"] - m["submit_t"],
+                                    tenant=tenant)
+                n = int(m["n_generated"])
+                if n > 1:
+                    self._h_tpot.observe(
+                        (m["done_t"] - m["first_token_t"]) / (n - 1) * 1e3,
+                        tenant=tenant)
+        self._tel.tracer.close(req.rid, "complete")
 
     def _release_slot(self, slot: int) -> None:
         req = self._slots[slot]
@@ -974,16 +1316,34 @@ class GenerationServer:
 
     # ----------------------------------------------------------- speculative
     def _dispatch_trips(self, active) -> None:
-        """The step's decode work for ``active`` slots. With ``spec``: the
-        gate runs ``spec.gate_cooldown`` plain trips of ``spec.gate_ticks``
-        ticks after a trip of low acceptance, then probes speculation
-        again; a :class:`~.speculative.DrafterFault` runs the trip through
-        the plain program and holds the gate off."""
+        """The step's decode work for ``active`` slots — the one place a
+        tick fault fires, and it fires before anything that changes device
+        state a retry would not rewrite: before the graph replay, which
+        writes the pools in place and advances a sampled window's
+        generator (a reservation it may follow is host state the retry
+        finds made). With ``spec``: the gate runs ``spec.gate_cooldown``
+        plain trips of ``spec.gate_ticks`` ticks after a trip of low
+        acceptance, then probes speculation again; a degraded server runs
+        plain trips too; a :class:`~.speculative.DrafterFault` runs the
+        trip through the plain program and holds the gate off."""
+        if self._faults.enabled:
+            spec = self._faults.fire("tick")
+            if spec is not None:
+                self._c_faults.inc(site="tick")
+                if spec.kind == "fatal":
+                    raise RuntimeError("injected fatal engine fault")
+                raise TickFault(rid=spec.rid)
+        if any(self._slots[s].force is not None for s in active):
+            # a replay's decode rebuild feeds its known tokens from the
+            # host, one a tick
+            self._plain_decode_trip(active, 1)
+            return
         if self.spec is None:
             self._plain_decode_trip(active)
             return
-        if self._spec_gate_off > 0:
-            self._spec_gate_off -= 1
+        if self._spec_gate_off > 0 or self._degraded_ticks > 0:
+            if self._spec_gate_off > 0:
+                self._spec_gate_off -= 1
             self._spec_plain_windows += self.spec.gate_ticks
             self._plain_decode_trip(active, self.spec.gate_ticks)
             return
@@ -993,10 +1353,58 @@ class GenerationServer:
             self._spec_tick(active)
         except DrafterFault:
             # the drafter is an accelerator, not a correctness dependency
+            self._c_faults.inc(site="drafter")
             self._spec_gate_off = max(int(self.spec.gate_cooldown) or 0, 4)
             self._spec_turbo = False
             self._spec_plain_windows += self.spec.gate_ticks
             self._plain_decode_trip(active, self.spec.gate_ticks)
+
+    def _on_tick_fault(self, rids, fault) -> None:
+        """Degradation ladder, strike rung: attribute the fault (to its
+        named rid when the plan says so, else to every participant), back
+        off exponentially, and quarantine any request past its retries —
+        one poison request must never take the engine down."""
+        self._tick_faults += 1
+        self._c_retries.inc()
+        targets = rids
+        rid = getattr(fault, "rid", None)
+        if rid is not None and rid in rids:
+            targets = [rid]
+        worst = 0
+        for r in targets:
+            self._strikes[r] = self._strikes.get(r, 0) + 1
+            worst = max(worst, self._strikes[r])
+        # 1, 2, 4, 8 ticks — capped so a noisy plan cannot idle the engine
+        self._backoff_ticks = min(1 << max(worst - 1, 0), 8)
+        for r in list(targets):
+            if self._strikes.get(r, 0) > self.fault_retries:
+                self._quarantine_rid(r, "tick_fault_retries_exhausted")
+
+    def _quarantine_rid(self, rid: int, reason: str) -> None:
+        """Terminal ``failed`` status for one request: release its slot,
+        blocks and adapter page, or its queue entry and parked KV; record
+        why. The engine keeps serving."""
+        self._strikes.pop(rid, None)
+        self._quarantined += 1
+        self._dropped[rid] = "failed"
+        self._c_failed.inc(reason=reason)
+        self._c_dropped.inc(reason="failed")
+        m = self._req_metrics.get(rid)
+        if m is not None:
+            m["done_t"] = self._wall()
+        for s in range(self.max_batch):
+            req = self._slots[s]
+            if req is not None and req.rid == rid:
+                req.table = self.alloc.truncate(req.table, 0)
+                self._tel.tracer.close(rid, "failed")
+                self._release_slot(s)
+                return
+        ent = self._sched.remove(rid)
+        if ent is not None:
+            if ent.swap is not None:
+                self._offload.discard(ent.swap)
+                ent.swap = None
+            self._tel.tracer.close(rid, "failed")
 
     def _spec_tick(self, active) -> None:
         """One speculative trip: every decoding slot drafts k tokens, one
@@ -1005,18 +1413,34 @@ class GenerationServer:
         program (``tick_window``, or ``turbo_windows`` in the turbo tier),
         a host-side drafter's one. Blocks for all ``S·(k+1)`` positions
         are reserved up front; the harvest truncates back."""
+        if self._spec_fused and self._faults.enabled \
+                and self._faults.fire("drafter") is not None:
+            # a fused drafter proposes in the program, so its host propose
+            # hook never runs: the site is consulted here, before any
+            # reservation or replay
+            from .speculative import DrafterFault
+
+            raise DrafterFault("injected drafter failure (fused path)")
         k = self.spec_k
         S = self._spec_windows
         if self._spec_turbo and self.spec.turbo_windows > S:
             S = self.spec.turbo_windows
         # blocks for every window of the trip, reserved up front (the
         # harvest truncates the rejected drafts' back)
+        tel = self._tel
         active = self._reserve_active(
             active, lambda s: -(-(int(self.pos[s]) + S * (k + 1))
                                 // self.block_size))
         if not active:
+            if tel.enabled:
+                self._last_prog = "stalled"
             return
         greedy, active_mask = self._stage_rows(active)
+        if tel.enabled:
+            self._last_prog = f"spec:w{S}:g{int(greedy)}"
+            t0 = tel.clock()
+            rids = [(s, self._slots[s].rid) for s in active]
+            kcaps = {s: int(self.kcaps[s]) for s in active}
         st, sn = self._stage, self._stage_np
         lora = st["aidx"] if self._lora is not None else None
         ex = self._exec
@@ -1053,6 +1477,13 @@ class GenerationServer:
         self._verify_trips += 1
         self._verify_windows += S
         self._verify_tokens += self._harvest_spec(outs, accs, active)
+        if tel.enabled:
+            t1 = tel.clock()
+            for s, rid in rids:
+                tel.tracer.complete(
+                    rid, "spec_window", t0, t1, windows=int(accs.shape[0]),
+                    accepted=int(accs[:, s].sum()),
+                    proposed=int(accs.shape[0]) * kcaps[s])
         if self.spec.gate_cooldown:
             m = float(accs[:, active].mean())
             # below gate_low mean accepted drafts a window, drafting is a
@@ -1127,31 +1558,131 @@ class GenerationServer:
 
     # ------------------------------------------------------------- stepping
     def step(self) -> int:
-        """One server step: service the queue (expiry, admission in policy
-        order, one preemption for a more urgent waiter), advance one
-        prefill chunk per prefilling slot, then one decode trip across
-        decoding slots; returns #remaining (occupied slots + queued). The
-        first step after a submit or a ``run()`` checks that the model's
-        weights are those the server was built over
-        (``PagedExecutor.check_weights``)."""
+        """One server step: demote under pool pressure (with watermarks),
+        service the queue (expiry, admission in policy order, one
+        preemption for a more urgent waiter), advance one prefill chunk per
+        prefilling slot, then one decode trip across decoding slots (or sit
+        it out while a tick fault's backoff lasts); returns #remaining
+        (occupied slots + queued). The first step after a submit or a
+        ``run()`` checks that the model's weights are those the server was
+        built over (``PagedExecutor.check_weights``). With telemetry
+        enabled, each step leaves a flight record, and every 32 records the
+        watchdog may put the server in its degraded mode."""
         if not self._weights_checked:
             self._exec.check_weights()
             self._weights_checked = True
+        tel = self._tel
+        if not tel.enabled:
+            return self._step_inner()
+        a = self.alloc
+        t0 = tel.clock()
+        c0 = self._exec.captures
+        pre = (self._preemptions, self._prefill_aborts, self._resumes,
+               self._stalls, a.fresh_allocs, a.evictions,
+               a.swap_out_blocks, a.swap_in_blocks,
+               a.demoted_blocks, a.promoted_blocks)
+        sp0, sa0 = ((self._spec_proposed, self._spec_accepted)
+                    if self.spec is not None else (0, 0))
+        remaining = self._step_inner()
+        rec = {
+            "t_wall_s": tel.clock() - t0,
+            "prog": self._last_prog,
+            "decoding": sum(1 for s in range(self.max_batch)
+                            if self._slots[s] is not None
+                            and not self._prefilling[s]),
+            "prefilling": sum(1 for s in range(self.max_batch)
+                              if self._prefilling[s]),
+            "queue_depth": len(self._sched),
+            "blocks_in_use": a.blocks_in_use,
+            "blocks_allocated": a.fresh_allocs - pre[4],
+            "evictions": a.evictions - pre[5],
+            "preemptions": self._preemptions - pre[0],
+            "prefill_aborts": self._prefill_aborts - pre[1],
+            "resumes": self._resumes - pre[2],
+            "stalls": self._stalls - pre[3],
+            "swap_out_blocks": a.swap_out_blocks - pre[6],
+            "swap_in_blocks": a.swap_in_blocks - pre[7],
+            "swap_bytes": (a.swap_out_blocks - pre[6]
+                           + a.swap_in_blocks - pre[7]) * a.bytes_per_block,
+            "host_bytes": self._offload.host.bytes_in_use,
+            "demotions": a.demoted_blocks - pre[8],
+            "promotions": a.promoted_blocks - pre[9],
+            "warm_bytes": self._offload.warm.bytes_in_use,
+            # the port's program builds: CUDA graphs captured in the step
+            "recompiles": self._exec.captures - c0,
+        }
+        if self.spec is not None:
+            rec["spec_proposed"] = self._spec_proposed - sp0
+            rec["spec_accepted"] = self._spec_accepted - sa0
+        tel.flight.record(**rec)
+        # pressure response: every 32 records, the watchdog over the recent
+        # window; a preemption storm or a stall run makes the server
+        # degraded for a cooldown (speculation off, admission tightened)
+        if tel.flight.total % 32 == 0:
+            finds = [f for f in watchdog(tel.flight.dump()[-64:])
+                     if f["kind"] in ("preemption_storm",
+                                      "pool_pressure_stall")]
+            if finds:
+                if self._degraded_ticks == 0:
+                    for f in finds:
+                        self._c_degrade.inc(kind=f["kind"])
+                self._degraded_ticks = 64
+        return remaining
+
+    def _step_inner(self) -> int:
+        tel_on = self._tel.enabled
+        if tel_on:
+            self._last_prog = "idle"
+        # demote BEFORE admission: freed blocks feed this step's headroom
+        self._maybe_demote()
         self._service_queue()
+        did_prefill = False
         for s in range(self.max_batch):
             if self._slots[s] is not None and self._prefilling[s]:
                 self._prefill_chunk_step(s)
+                did_prefill = True
         active = [s for s in range(self.max_batch)
                   if self._slots[s] is not None and not self._prefilling[s]]
+        if self._degraded_ticks > 0:
+            self._degraded_ticks -= 1
         if active:
             self._step_no += 1
-            self._dispatch_trips(active)
+            if self._backoff_ticks > 0:
+                # backoff rung: a tick fault left the state untouched (it
+                # fires before the replay), so sitting out a few steps lets
+                # a transient fault clear before the same trip is retried
+                self._backoff_ticks -= 1
+                if tel_on:
+                    self._last_prog = "backoff"
+            else:
+                rids = [self._slots[s].rid for s in active]
+                try:
+                    self._dispatch_trips(active)
+                except TickFault as e:
+                    self._on_tick_fault(rids, e)
+                except Exception as e:
+                    # an exception after a replay may have left the pools
+                    # half written: no further trip is safe; the server is
+                    # failed (submit refuses) and the error propagates
+                    self._failed = f"{type(e).__name__}: {e}"
+                    raise
+                else:
+                    # a clean trip clears its participants' strikes
+                    for r in rids:
+                        self._strikes.pop(r, None)
+        if tel_on and did_prefill:
+            # prefill-bearing steps get their own program key: the chunk
+            # graph's one capture must not read as a recapture of an
+            # already-warm decode program
+            self._last_prog += "+pf"
         occupied = sum(sl is not None for sl in self._slots)
         if occupied == 0 and len(self._sched) > 0:
             # every slot empty yet entries wait: admission against an idle
             # pool must succeed, so a streak means corrupted state
             self._idle_streak += 1
             if self._idle_streak > 64:
+                self._failed = ("scheduler wedged: 64 steps with empty "
+                                "slots and a non-empty queue")
                 raise RuntimeError("scheduler wedged: 64 steps with empty "
                                    "slots and a non-empty queue")
         else:
@@ -1196,19 +1727,19 @@ class GenerationServer:
             if req is not None and req.rid == rid:
                 req.table = self.alloc.truncate(req.table, 0)
                 self._dropped[rid] = "cancelled"
-                self._cancelled += 1
+                self._c_dropped.inc(reason="cancelled")
                 m = self._req_metrics.get(rid)
                 if m is not None:
                     m["done_t"] = self._wall()
+                self._tel.tracer.close(rid, "cancelled")
                 self._release_slot(s)
                 return True
         return False
 
     def status(self, rid: int) -> str:
-        """One of ``done / cancelled / expired / running / prefilling /
-        swapped / preempted / queued / unknown`` (the JAX server's
-        ``failed``, a request quarantined by fault handling, comes with
-        the fault handling)."""
+        """One of ``done / cancelled / expired / failed / running /
+        prefilling / swapped / preempted / queued / unknown`` (``failed``:
+        quarantined after exhausting its fault retries; terminal)."""
         if rid in self._results:
             return "done"
         if rid in self._dropped:
@@ -1229,26 +1760,49 @@ class GenerationServer:
         policy, queue depth, submitted / expired / cancelled requests,
         preemptions (swaps), prefill aborts, resumes, stalled
         reservations, the host pool's bytes in use and at peak, the
-        swapped requests waiting, and the adapter pool's counters with
-        ``lora=``. Left out: ``tenants``, the per-tenant TTFT / TPOT
-        percentiles, which come from the telemetry registry (not ported;
-        :meth:`request_metrics` has the marks)."""
+        swapped requests waiting, ``tenants`` (per-tenant TTFT / TPOT
+        percentiles) and the adapter pool's counters with ``lora=``. A
+        view over the telemetry registry: these counters are the values
+        it exposes."""
+        reg = self._tel.registry
         m = {"policy": self._sched.policy,
              "queue_depth": len(self._sched),
-             "submitted": self._sched.submitted,
-             "expired": self._sched.expired,
-             "cancelled": self._cancelled,
-             "preemptions": self._preemptions,
-             "prefill_aborts": self._prefill_aborts,
-             "resumes": self._resumes,
-             "stalled_reservations": self._stalls,
+             "submitted": int(reg.counter(
+                 "sched_requests_submitted").total()),
+             "expired": int(reg.counter("sched_requests_expired").total()),
+             "cancelled": int(self._c_dropped.total(
+                 where={"reason": "cancelled"})),
+             "preemptions": int(self._c_preempt.total()),
+             "prefill_aborts": int(self._c_aborts.total()),
+             "resumes": int(self._c_resumes.total()),
+             "stalled_reservations": int(self._c_stalls.total()),
              "host_bytes_in_use": self._offload.host.bytes_in_use,
              "host_bytes_peak": self._offload.host.bytes_peak,
              "swapped_waiting": sum(1 for e in self._sched.waiting()
                                     if e.swap is not None)}
+        m["tenants"] = self._tenant_breakdown()
         if self._lora is not None:
             m.update(self._lora.stats())
         return m
+
+    def _tenant_breakdown(self) -> Dict[str, Dict[str, float]]:
+        """Per-tenant latency percentiles over COMPLETED requests: TTFT
+        (submit → first token) and TPOT (a token after the first) p50 /
+        p95, read from the registry's ``serving_ttft_s`` /
+        ``serving_tpot_ms`` histograms (observed in :meth:`_emit_result`)."""
+        out: Dict[str, Dict[str, float]] = {}
+        for t in self._h_ttft.label_values("tenant"):
+            xs = self._h_ttft.samples({"tenant": t})
+            row = {"completed": float(len(xs))}
+            if xs:
+                row["ttft_p50_ms"] = float(np.percentile(xs, 50) * 1e3)
+                row["ttft_p95_ms"] = float(np.percentile(xs, 95) * 1e3)
+            tp = self._h_tpot.samples({"tenant": t})
+            if tp:
+                row["tpot_p50_ms"] = float(np.percentile(tp, 50))
+                row["tpot_p95_ms"] = float(np.percentile(tp, 95))
+            out[t] = row
+        return out
 
     def request_metrics(self) -> Dict[int, Dict[str, Any]]:
         """Per-rid clock marks — ``submit_t``, ``first_token_t``,
@@ -1267,11 +1821,14 @@ class GenerationServer:
           multiset of block-table entries across occupied slots;
         - host-pool audit: parked bytes equal the sum over waiting swapped
           entries, in both ledgers (the host pool's and the allocator's);
+        - warm-tier audit: its byte ledger equals the sum over its entries,
+          and no chain hash is resident in both the hot prefix cache and
+          the warm tier;
         - adapter-pool audit (with ``lora=``): the same identity over
           pages, and page refs equal the occupied slots holding each page.
 
-        Returns the audited numbers (the JAX server's keys less the warm
-        tier's and the tensor-parallel shards')."""
+        Returns the audited numbers (the JAX server's keys less the
+        tensor-parallel shards')."""
         from collections import Counter
 
         a = self.alloc
@@ -1308,6 +1865,17 @@ class GenerationServer:
         if len(host) != len(swapped):
             errs.append(f"host pool parks {len(host)} payloads but "
                         f"{len(swapped)} entries are swapped")
+        warm = self._offload.warm
+        warm_bytes = sum(nb for _, _, nb, _ in warm.entries())
+        if warm_bytes != warm.bytes_in_use:
+            errs.append(f"warm tier ledger {warm.bytes_in_use} != sum of "
+                        f"parked entries {warm_bytes}")
+        dual = [h for h, _, _, _ in warm.entries() if a.contains_hash(h)]
+        if dual:
+            # promotion takes the warm copy and demotion unregisters the
+            # hot block: a hash in both tiers is a half-finished handoff
+            errs.append(f"{len(dual)} chain hashes resident in both the "
+                        f"hot prefix cache and the warm tier")
         if self._lora is not None:
             la = self._lora.alloc
             lu = la.num_blocks - 1
@@ -1329,6 +1897,8 @@ class GenerationServer:
                 "blocks_cached": a.blocks_cached,
                 "blocks_free": a.blocks_free,
                 "host_bytes_in_use": parked,
+                "warm_blocks": len(warm),
+                "warm_bytes_in_use": warm.bytes_in_use,
                 "swapped_waiting": len(swapped)}
 
     def load_metrics(self) -> Dict[str, int]:
@@ -1344,13 +1914,451 @@ class GenerationServer:
 
     def probe_prefix(self, prompt: Sequence[int]) -> int:
         """Cached prefix blocks this server could reuse for ``prompt`` (an
-        adapterless request's chain). Read-only: takes no references."""
+        adapterless request's chain), hot or warm. Read-only: takes no
+        references."""
         return self.alloc.probe_prefix(list(prompt))
+
+    def set_rid_base(self, base: int) -> None:
+        """Start this server's rid counter at ``base`` — only on a fresh
+        server (nothing submitted yet): servers that trade requests
+        (:meth:`admit_migrated`) take disjoint rid spaces."""
+        if (self._next_rid != 0 or len(self._sched)
+                or any(sl is not None for sl in self._slots)
+                or self._results or self._dropped):
+            raise ValueError("set_rid_base() requires a fresh server — "
+                             "rids already handed out would collide")
+        if not isinstance(base, int) or isinstance(base, bool) or base < 0:
+            raise ValueError(f"rid base must be an int >= 0, got {base!r}")
+        self._next_rid = base
+
+    def fail(self, reason: str) -> None:
+        """Mark this server terminally failed (idempotent — the first
+        reason sticks). ``submit``, ``restore`` and ``admit_migrated``
+        refuse afterwards; ``snapshot(trust_kv=False)`` still salvages its
+        host state."""
+        if self._failed is None:
+            self._failed = str(reason)
+
+    # --------------------------------------------------- snapshot / restore
+    def _snapshot_fingerprint(self) -> Dict[str, Any]:
+        """The configuration a snapshot can only restore into: what fixes
+        the programs' shapes and the KV payloads' layout."""
+        return {"cache": "paged",
+                "block_size": self.block_size,
+                "max_len": self.max_len,
+                "max_batch": self.max_batch,
+                "kv_quant": self.kv_quant,
+                "tick_window": self.tick_window,
+                "table_width": self._table_width,
+                "num_blocks": self.alloc.num_blocks,
+                "spec_k": self.spec_k if self.spec is not None else None,
+                "lora": self._lora is not None,
+                "kernels": self.kernels,
+                "mk_geometry": (self.mk_geometry.asdict()
+                                if self.mk_geometry is not None else None)}
+
+    def _req_state(self, req: _Request) -> Dict[str, Any]:
+        return {"rid": req.rid, "prompt": list(req.prompt),
+                "max_new_tokens": req.max_new_tokens,
+                "temperature": req.temperature, "top_k": req.top_k,
+                "top_p": req.top_p, "generated": list(req.generated),
+                "draft_k": req.draft_k, "adapter": req.adapter,
+                "replay": (list(req.replay) if req.replay is not None
+                           else None),
+                "force": list(req.force) if req.force else None,
+                "hashes": list(req.hashes)}
+
+    def _sched_state(self, ent: SchedEntry) -> Dict[str, Any]:
+        now = self._sched.now()
+        return {"priority": ent.priority, "tenant": ent.tenant,
+                "ttl_remaining": (None if ent.deadline is None
+                                  else max(ent.deadline - now, 0.0)),
+                "seq": ent.seq, "cost": ent.cost, "vtag": ent.vtag,
+                "preempted": ent.preempted, "started": ent.started}
+
+    def snapshot(self, *, trust_kv: bool = True) -> Dict[str, Any]:
+        """Capture of the whole in-flight state — the drain / migrate
+        primitive: every queued, prefilling, decoding and swapped request,
+        with enough state that :meth:`restore` on a FRESH server over the
+        same model continues each one with the greedy tokens this server
+        goes on to produce.
+
+        A decoding slot's blocks are copied into host memory
+        (``KVOffloadEngine.gather_payload``: one ``index_select`` a pool
+        tensor; the blocks are neither freed nor changed — this server
+        keeps serving); an already-swapped entry's parked payload is
+        copied; prefilling and queued work is recomputable and restores as
+        queued. Each payload carries its CRC, so a payload damaged in
+        transit degrades to re-prefill on the restoring side. The server's
+        generator state (``torch.Generator.get_state()``) rides along in
+        place of the JAX snapshot's sampling key.
+
+        ``trust_kv=False`` captures decoding slots as replay work
+        (``prompt + generated`` up to their position, re-prefilled on the
+        restoring side) instead of copying their device KV — the salvage
+        mode for a server whose device state cannot be trusted (a failed
+        one): host request state is consistent at the last harvest, the
+        pools may not be. Swapped entries keep their payloads either way
+        (host memory behind a CRC)."""
+        if self._failed is not None and trust_kv:
+            raise ValueError(
+                f"server failed ({self._failed}): device KV is untrusted "
+                f"after a post-dispatch failure — capture with "
+                f"snapshot(trust_kv=False) to salvage from host state")
+        pools = self._exec._flat_pools
+        reqs: List[Dict[str, Any]] = []
+        for s in range(self.max_batch):
+            req = self._slots[s]
+            if req is None:
+                continue
+            d = self._req_state(req)
+            d["sched"] = self._sched_state(req.sched)
+            if self._prefilling[s]:
+                # recomputable (its KV may end inside a chunk): re-queued
+                d["phase"] = "queued"
+            elif not trust_kv:
+                # salvage through the re-prefill rung: the KV of prompt +
+                # generated[:-1] rebuilt, then decode resumes with the last
+                # generated token (a rebuild in progress starts over)
+                d["phase"] = "queued"
+                d["replay"] = (list(req.prompt) + list(req.generated))[
+                    :len(req.prompt) + len(req.generated) - 1]
+                d["force"] = None
+            else:
+                arrays = self._offload.gather_payload(req.table, pools)
+                d["phase"] = "kv"
+                d["kv"] = {
+                    "arrays": arrays,
+                    "n_tokens": int(self.pos[s]),
+                    "last_token": int(self.tokens[s]),
+                    "n_blocks": len(req.table),
+                    "hashes": list(
+                        req.hashes[:min(len(req.hashes), len(req.table))]),
+                    "nbytes": len(req.table) * self.alloc.bytes_per_block,
+                    "checksum": payload_checksum(arrays)}
+            reqs.append(d)
+        for ent in self._sched.waiting():
+            d = self._req_state(ent.req)
+            d["sched"] = self._sched_state(ent)
+            if ent.swap is not None:
+                h = ent.swap
+                d["phase"] = "kv"
+                d["kv"] = {"arrays": [a.clone() for a in
+                                      self._offload.host.peek(h.rid)],
+                           "n_tokens": h.n_tokens,
+                           "last_token": h.last_token,
+                           "n_blocks": h.n_blocks,
+                           "hashes": list(h.hashes), "nbytes": h.nbytes,
+                           "checksum": h.checksum}
+            else:
+                d["phase"] = "queued"
+            reqs.append(d)
+        snap: Dict[str, Any] = {
+            "format": 1,
+            "config": self._snapshot_fingerprint(),
+            "generator_state": self._gen.get_state(),
+            "step_no": self._step_no,
+            "next_rid": self._next_rid,
+            "sched": {"vnow": self._sched._vnow,
+                      "tenant_tag": dict(self._sched._tenant_tag)},
+            "requests": reqs,
+            "results": {r: list(t) for r, t in self._results.items()},
+            "dropped": dict(self._dropped),
+            # the warm tier rides along in both modes: host memory behind
+            # per-block CRCs, which an untrusted device cannot taint; the
+            # restoring side adopts it (adopt_warm, best effort)
+            "warm_tier": [
+                {"hash": h, "arrays": [x.clone() for x in arrs],
+                 "nbytes": nb, "checksum": crc}
+                for h, arrs, nb, crc in self._offload.warm.entries()],
+        }
+        if self.spec is not None:
+            snap["spec_state"] = {
+                "gate_off": self._spec_gate_off,
+                "plain_windows": self._spec_plain_windows,
+                "turbo": self._spec_turbo,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted}
+        return snap
+
+    def restore(self, snap: Dict[str, Any]) -> int:
+        """Rebuild a :meth:`snapshot` into THIS (idle) server; returns the
+        number of requests restored.
+
+        Every request re-enters through the normal machinery: a KV-bearing
+        one becomes a swapped queue entry whose payload is adopted into the
+        host pool and written into this server's own pools by the
+        CRC-verified swap-in at its admission; queued and replay work
+        re-queues. The configuration, the host pool's room and every
+        request's adapter are checked before anything changes (a refused
+        snapshot leaves this server as it was). The generator state is set
+        here, before this server's next replay (and, on a fresh server, its
+        first capture); the speculation gate's state with ``spec=``."""
+        if self._failed is not None:
+            raise ValueError(f"cannot restore into a failed server "
+                             f"({self._failed}) — build a fresh one")
+        if any(sl is not None for sl in self._slots) or len(self._sched):
+            raise ValueError("restore() needs an idle server: slots and "
+                             "queue must be empty")
+        if snap.get("format") != 1:
+            raise ValueError(f"unknown snapshot format "
+                             f"{snap.get('format')!r}")
+        self._check_snapshot_config(snap["config"])
+        # the per-request ladder runs BEFORE anything changes: a rejection
+        # midway would be a partial restore — corruption, not an error
+        for d in snap["requests"]:
+            self._validate_snapshot_request(d)
+        self._gen.set_state(snap["generator_state"])
+        self._step_no = int(snap["step_no"])
+        self._next_rid = max(self._next_rid, int(snap["next_rid"]))
+        self._sched.restore_state(snap["sched"]["vnow"],
+                                  snap["sched"]["tenant_tag"])
+        if self.spec is not None and "spec_state" in snap:
+            st = snap["spec_state"]
+            self._spec_gate_off = int(st["gate_off"])
+            self._spec_plain_windows = int(st["plain_windows"])
+            self._spec_turbo = bool(st["turbo"])
+            self._spec_proposed = int(st["proposed"])
+            self._spec_accepted = int(st["accepted"])
+        self._results.update(
+            {int(r): list(t) for r, t in snap["results"].items()})
+        self._dropped.update(snap["dropped"])
+        now = self._sched.now()
+        restored = 0
+        for d in sorted(snap["requests"], key=lambda d: d["sched"]["seq"]):
+            self._admit_snapshot_request(d, now)
+            restored += 1
+        self._weights_checked = False
+        self.adopt_warm(snap.get("warm_tier", ()))
+        return restored
+
+    def _check_snapshot_config(self, want: Dict[str, Any]) -> None:
+        """Validate a snapshot's config fingerprint against this server's
+        (shared by :meth:`restore` and :meth:`admit_migrated`)."""
+        for k, hv in self._snapshot_fingerprint().items():
+            wv = want.get(k)
+            if k == "num_blocks":
+                if hv < wv:
+                    raise ValueError(
+                        f"restoring pool has {hv} blocks but the snapshot "
+                        f"was taken with {wv} — a smaller pool cannot "
+                        f"guarantee the captured requests stay feasible")
+            elif hv != wv:
+                raise ValueError(
+                    f"snapshot/server config mismatch on {k!r}: snapshot "
+                    f"has {wv!r}, this server has {hv!r}")
+
+    def _validate_snapshot_request(self, d: Dict[str, Any]) -> None:
+        """Reject-at-the-door checks for one snapshot request — run before
+        any server state changes."""
+        if d["adapter"] is not None:
+            if self._lora is None:
+                raise ValueError(
+                    f"request {d['rid']} names adapter "
+                    f"{d['adapter']!r} but this server has no lora=")
+            self._lora.validate(d["adapter"])
+
+    def _admit_snapshot_request(self, d: Dict[str, Any],
+                                now: float) -> None:
+        """Re-admit one validated snapshot request: a KV payload is adopted
+        into the host pool and re-enters through the CRC-verified swap-in
+        at admission; queued and replay work re-queues. The per-request
+        half of :meth:`restore`, shared with :meth:`admit_migrated`."""
+        req = _Request(int(d["rid"]), list(d["prompt"]),
+                       int(d["max_new_tokens"]),
+                       temperature=float(d["temperature"]),
+                       top_k=int(d["top_k"]), top_p=float(d["top_p"]),
+                       draft_k=d["draft_k"], adapter=d["adapter"])
+        req.generated = list(d["generated"])
+        req.replay = (list(d["replay"]) if d["replay"] is not None
+                      else None)
+        req.force = list(d["force"]) if d.get("force") else None
+        req.hashes = list(d["hashes"])
+        sd = d["sched"]
+        ent = SchedEntry(req=req, rid=req.rid,
+                         priority=int(sd["priority"]),
+                         tenant=sd["tenant"],
+                         deadline=(None if sd["ttl_remaining"] is None
+                                   else now + sd["ttl_remaining"]),
+                         seq=int(sd["seq"]), cost=float(sd["cost"]),
+                         vtag=float(sd["vtag"]),
+                         preempted=bool(sd["preempted"]),
+                         started=bool(sd["started"]),
+                         adapter=req.adapter)
+        req.sched = ent
+        if d["phase"] == "kv":
+            kv = d["kv"]
+            handle = SwapHandle(
+                rid=req.rid, n_tokens=int(kv["n_tokens"]),
+                last_token=int(kv["last_token"]),
+                n_blocks=int(kv["n_blocks"]),
+                hashes=list(kv["hashes"]), nbytes=int(kv["nbytes"]),
+                checksum=int(kv["checksum"]))
+            self._offload.adopt(handle, [_host_tensor(a)
+                                         for a in kv["arrays"]])
+            ent.swap = handle
+        self._sched.restore_entry(ent)
+        # fresh clock marks: the captured server's clock does not
+        # transfer, and mixing the two would observe negative latencies
+        m: Dict[str, Any] = {"submit_t": self._wall(),
+                             "tenant": ent.tenant}
+        if req.generated:
+            m["first_token_t"] = m["submit_t"]
+        self._req_metrics[req.rid] = m
+        if self._tel.enabled:
+            tr = self._tel.tracer
+            tr.set_meta(req.rid, tenant=ent.tenant, priority=ent.priority,
+                        prompt_len=len(req.prompt),
+                        adapter=req.adapter or "")
+            tr.begin(req.rid, "queued", restored=True)
+
+    def admit_migrated(self, d: Dict[str, Any], *,
+                       source_config: Optional[Dict[str, Any]] = None
+                       ) -> int:
+        """Admit ONE snapshot request into this — possibly busy — server:
+        the migration primitive. Unlike :meth:`restore` (a whole snapshot,
+        an idle target) this re-admits a single request through the same
+        validated path while the target serves its own traffic; a KV
+        payload resumes through the CRC-verified swap-in. ``source_config``
+        (the snapshot's ``config``) is checked when given. The caller
+        keeps rids unique across servers. Returns the admitted rid."""
+        if self._failed is not None:
+            raise EngineFailedError(
+                f"cannot migrate into a failed server ({self._failed})")
+        if source_config is not None:
+            self._check_snapshot_config(source_config)
+        self._validate_snapshot_request(d)
+        self._admit_snapshot_request(d, self._sched.now())
+        self._weights_checked = False
+        return int(d["rid"])
+
+    def adopt_warm(self, entries: Sequence[Dict[str, Any]]) -> int:
+        """Adopt a peer's warm-tier entries (a snapshot's ``warm_tier``)
+        into this server's warm tier, so that a prompt prefix prefilled on
+        the captured server stays promotable here. Best effort and
+        CRC-verified per entry: a corrupt payload is dropped (counted in
+        ``serving_swap_reprefills``), a hash already hot here is skipped,
+        and the tier's own capacity rules apply. Returns the number of
+        entries adopted."""
+        adopted = 0
+        for d in entries:
+            h = int(d["hash"])
+            if self.alloc.contains_hash(h) or h in self._offload.warm:
+                continue
+            arrays = [_host_tensor(a) for a in d["arrays"]]
+            if payload_checksum(arrays) != int(d["checksum"]):
+                self._c_corrupt.inc()
+                continue
+            if self._offload.warm.put(h, arrays, int(d["nbytes"]),
+                                      int(d["checksum"])):
+                adopted += 1
+        return adopted
+
+    def evacuate(self, *, trust_kv: bool = True,
+                 rids: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+        """Take a :meth:`snapshot`, then RELEASE every in-flight request
+        from this server — the drain half of a migration: the caller
+        re-admits the snapshot's requests elsewhere, and this server ends
+        empty (slots free, queue empty, host pool drained). Finished
+        results and dropped markers stay readable here (and ride the
+        snapshot). ``trust_kv=False`` salvages a failed server from host
+        state. ``rids=``: evacuate only those requests (the snapshot's
+        ``requests`` are filtered to them and only they leave); the warm
+        tier is dropped only by a full evacuation."""
+        snap = self.snapshot(trust_kv=trust_kv)
+        keep = None if rids is None else {int(r) for r in rids}
+        if keep is not None:
+            snap["requests"] = [d for d in snap["requests"]
+                                if d["rid"] in keep]
+        for s in range(self.max_batch):
+            req = self._slots[s]
+            if req is None or (keep is not None and req.rid not in keep):
+                continue
+            req.table = self.alloc.truncate(req.table, 0)
+            self._tel.tracer.close(req.rid, "migrated")
+            self._release_slot(s)
+        for ent in list(self._sched.waiting()):
+            if keep is not None and ent.rid not in keep:
+                continue
+            self._sched.remove(ent.rid)
+            if ent.swap is not None:
+                self._offload.discard(ent.swap)
+            self._tel.tracer.close(ent.rid, "migrated")
+        if keep is None:
+            # the warm entries left with the snapshot
+            self._offload.warm.clear()
+        return snap
 
     # -------------------------------------------------------------- metrics
     def kv_stats(self) -> Dict[str, int]:
-        """Paged-pool occupancy and prefix-cache counters."""
-        return self.alloc.stats()
+        """Paged-pool occupancy and prefix-cache counters, merged with the
+        warm tier's (``warm_*``) and the cold-refill count."""
+        out = self.alloc.stats()
+        out.update(self._offload.tier_stats())
+        out["cold_refills"] = self._cold_refills
+        return out
+
+    # ------------------------------------------------------------ read-outs
+    def watchdog_findings(self) -> List[Dict[str, Any]]:
+        """The flight-recorder watchdog's findings (see
+        :meth:`~paddle_tpu_torch.telemetry.ServingTelemetry.watchdog`); a
+        ``steady_state_recompile`` is a CUDA graph captured on an
+        already-warm program key."""
+        return self._tel.watchdog()
+
+    def slo_observations(self) -> Dict[str, Dict[str, List[float]]]:
+        """Per-tenant latency samples: ``{"ttft": {tenant: [seconds...]},
+        "tpot": {tenant: [ms...]}}``, from the tenant-labeled histograms —
+        the shape a fleet roll-up merges across replicas."""
+        out: Dict[str, Dict[str, List[float]]] = {"ttft": {}, "tpot": {}}
+        for hname, key in (("serving_ttft_s", "ttft"),
+                           ("serving_tpot_ms", "tpot")):
+            h = self._tel.registry.get(hname)
+            if h is None:
+                continue
+            for tenant in h.label_values("tenant"):
+                out[key][tenant] = list(h.samples({"tenant": tenant}))
+        return out
+
+    def telemetry_snapshot(self) -> Dict[str, Any]:
+        """Sync the point-in-time gauges (pool occupancy, host pool, warm
+        tier, adapter pool, spec counters, queue depth) into the registry,
+        then return the telemetry blob: registry JSON (histograms with
+        p50 / p95), watchdog findings over the flight ring, and the
+        serving configuration. (The JAX blob's kernel-geometry gauge is
+        left out: the port has no tuned kernel geometry.)"""
+        reg = self._tel.registry
+        reg.gauge("serving_queue_depth").set(float(len(self._sched)))
+        reg.gauge("serving_slots_occupied").set(
+            float(sum(sl is not None for sl in self._slots)))
+        reg.gauge("serving_slots_total").set(float(self.max_batch))
+        self.alloc.publish(reg)
+        for k, v in self._offload.host.stats().items():
+            reg.gauge(f"serving_host_pool_{k}").set(float(v))
+        for k, v in self._offload.tier_stats().items():
+            reg.gauge(f"serving_tier_{k}").set(float(v))
+        reg.gauge("serving_tier_cold_refills").set(float(self._cold_refills))
+        if self._lora is not None:
+            for k, v in self._lora.stats().items():
+                reg.gauge(f"serving_{k}").set(float(v))
+        for k, v in self.spec_metrics().items():
+            reg.gauge(f"serving_spec_{k}").set(float(v))
+        snap = self._tel.snapshot()
+        snap["config"] = {"cache": "paged",
+                          "max_batch": self.max_batch,
+                          "max_len": self.max_len,
+                          "tick_window": self.tick_window,
+                          "kv_quant": self.kv_quant,
+                          "policy": self._sched.policy}
+        if self.spec is not None:
+            snap["config"]["spec"] = self.spec.describe()
+        return snap
+
+    def export_chrome_trace(self, path: str) -> str:
+        """Write the span tracer's chrome trace (one timeline row per
+        request: queued / prefill / decode / spec / preempt / swap spans);
+        empty when telemetry is disabled."""
+        return self._tel.export_chrome_trace(path)
 
     def adapter_stats(self) -> Dict[str, Any]:
         """Adapter-pool residency counters (empty without ``lora=``)."""
@@ -1376,3 +2384,10 @@ class GenerationServer:
                 "verify_windows": self._verify_windows,
                 "verify_tokens": self._verify_tokens,
                 "verify_s": self._verify_wall_s}
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A snapshot payload array as a host tensor (numpy arrays of the
+    pool's dtype are taken as they are)."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))

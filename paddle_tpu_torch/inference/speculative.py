@@ -198,6 +198,8 @@ class NgramDrafter:
                 f"min_ngram={min_ngram}, max_ngram={max_ngram}")
         self.max_ngram = int(max_ngram)
         self.min_ngram = int(min_ngram)
+        # optional FaultInjector (faults.py), wired by the server
+        self.faults = None
 
     def propose_one(self, ctx: Sequence[int], k: int) -> np.ndarray:
         """k proposed continuation tokens for one context (host numpy)."""
@@ -225,6 +227,9 @@ class NgramDrafter:
                 temps=None, generator=None) -> Tuple[np.ndarray, None]:
         """Batch proposals: (B, k) int32, one row a slot (an idle slot
         passes None and gets zeros: its row runs masked)."""
+        if self.faults is not None and \
+                self.faults.fire("drafter") is not None:
+            raise DrafterFault("injected drafter failure (ngram)")
         out = np.zeros((len(contexts), k), np.int32)
         for i, ctx in enumerate(contexts):
             if ctx is not None and len(ctx):
@@ -265,6 +270,8 @@ class DraftModelDrafter:
         self.deterministic = not self.sample_draft
         self._buf = None      # static inputs, made at the first propose
         self._graphs: Dict[int, Any] = {}
+        # optional FaultInjector (faults.py), wired by the server
+        self.faults = None
 
     @torch.no_grad()
     def _draft(self, k: int, generator):
@@ -303,7 +310,11 @@ class DraftModelDrafter:
         """(B, k) int32 draft tokens on the model's device and, with
         ``sample_draft``, their (B, k, V) distributions (else None). The
         outputs are the program's static buffers: they hold until the next
-        call."""
+        call. An injected ``drafter`` fault raises :class:`DrafterFault`
+        before the program runs."""
+        if self.faults is not None and \
+                self.faults.fire("drafter") is not None:
+            raise DrafterFault("injected drafter failure (draft model)")
         B = len(contexts)
         dev = self.model.device
         buf = np.zeros((B, self.max_len), np.int32)

@@ -59,11 +59,25 @@ scope is refused (NotImplementedError) rather than run without remat. On
 a CUDA device a region's random draws are preserved through graph-safe
 generator states (``recompute.RegionRng``), registered with the graphs.
 
+``injector=`` (a :class:`~paddle_tpu_torch.faults.FaultInjector`) fires
+its ``train_step`` site in :meth:`ParallelEngine.train_batch` before the
+step's learning rate is set on the device and before its graph replays, so
+a :class:`~paddle_tpu_torch.faults.StepFault` leaves the parameters, the
+optimizer state, the step count and the lr untouched and the caller
+retries the step verbatim (``kind="fatal"`` raises a plain
+``RuntimeError``). ``telemetry=`` (a :class:`~paddle_tpu_torch.telemetry.
+TrainTelemetry`) records each train step: ``t_dispatch`` after the step is
+enqueued and ``t_wait`` after the stream is synchronised — the one
+synchronise telemetry adds, as JAX's ``block_until_ready`` — with the
+engine's CUDA graph captures during the step as its ``compiles``.
+``telemetry=None`` (the default) keeps the step free of clock reads and
+its loss unsynchronised.
+
 The constructor keeps the JAX engine's parameter order. Not ported yet
 (they raise NotImplementedError at any value but the JAX default): a mesh
 of more than one device, ``fsdp``, ``batch_spec``, ``donate``,
-``abstract``, ``remat_policy="offload_attn"``, ``offload_opt_state``,
-``alias_model_params``, ``injector`` and ``telemetry``.
+``abstract``, ``remat_policy="offload_attn"``, ``offload_opt_state`` and
+``alias_model_params``.
 """
 from __future__ import annotations
 
@@ -76,19 +90,19 @@ import numpy as np
 import torch
 
 from .. import graphs
+from ..faults import NULL_INJECTOR, FaultInjector, StepFault
+from ..telemetry import TrainTelemetry
 from ..distributed.fleet.recompute import (RegionRng, check_remat_policy,
                                            region_rng, remat_layers)
 
 # the JAX engine's constructor arguments that the port does not take yet,
 # each at the one value it accepts (the JAX default; ``batch_spec``'s
-# ``P("data")`` equals the tuple ``("data",)``, ``injector``'s null
-# injector is None); any other value raises NotImplementedError. The
-# constructor keeps the JAX engine's parameter order, so that a positional
-# call means the same in both packages
+# ``P("data")`` equals the tuple ``("data",)``); any other value raises
+# NotImplementedError. The constructor keeps the JAX engine's parameter
+# order, so that a positional call means the same in both packages
 _UNPORTED = {"fsdp": False, "batch_spec": ("data",), "donate": True,
              "abstract": False, "offload_opt_state": False,
-             "alias_model_params": False, "injector": None,
-             "telemetry": None}
+             "alias_model_params": False}
 
 
 @dataclasses.dataclass
@@ -135,6 +149,16 @@ class ParallelEngine:
         self.grad_accum = int(grad_accum)
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        if injector is not None and not isinstance(injector, FaultInjector):
+            raise ValueError(f"injector must be None or a FaultInjector, "
+                             f"got {injector!r}")
+        self.injector = injector or NULL_INJECTOR
+        if telemetry is not None and \
+                not isinstance(telemetry, TrainTelemetry):
+            raise ValueError(f"telemetry must be None or a TrainTelemetry, "
+                             f"got {telemetry!r}")
+        # None (the default): no clock read and no synchronise a step
+        self.telemetry = telemetry
         self.remat = bool(remat)
         self.remat_policy = remat_policy
         if self.remat:
@@ -257,23 +281,59 @@ class ParallelEngine:
 
     def train_batch(self, *batch):
         """One train step; returns the loss (a 0-d tensor on the device,
-        not synchronised)."""
+        not synchronised unless ``telemetry`` is attached). An injected
+        ``train_step`` fault raises before anything on the device
+        changes."""
+        tel = self.telemetry
         if self._train_step is None:
             self.build_train_step()
+        t0 = tel.clock() if tel is not None else 0.0
         batch = tuple(self._as_tensor(b) for b in batch)
+        t_h2d = tel.clock() if tel is not None else 0.0
         if self.grad_accum > 1:
             for b in batch:
                 if b.shape[0] % self.grad_accum:
                     raise ValueError(
                         f"grad_accum={self.grad_accum} needs the leading "
                         f"batch dim to divide evenly, got {tuple(b.shape)}")
+        spec = self.injector.fire("train_step")
+        if spec is not None:
+            # before the lr is set and the step replays: the caller may
+            # retry this step verbatim
+            if spec.kind == "fatal":
+                raise RuntimeError("injected fatal train-step fault")
+            raise StepFault(f"injected train-step fault at step "
+                            f"{self._step_count}")
+        c0 = self.captures
         self._set_lr(self.optimizer.get_lr())
         loss = self._train_step(batch)
+        if tel is not None:
+            self._record_step(tel, batch, t0, t_h2d, self.captures - c0)
         self._step_count += 1
         sched = self.optimizer._learning_rate
         if hasattr(sched, "step"):
             sched.step()
         return loss
+
+    def _record_step(self, tel, batch, t0, t_h2d, compiles) -> None:
+        """The telemetry of one train step (JAX's prog key, token count and
+        phase timestamps): ``t_dispatch`` now, with the step enqueued,
+        ``t_wait`` after the stream has run it."""
+        t_dispatch = tel.clock()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        t_wait = tel.clock()
+        if not tel.model_params:
+            tel.model_params = sum(p.numel() for _, p in self.named)
+        first = batch[0] if batch else None
+        tokens = 0 if first is None else \
+            int(np.prod(first.shape[:2])) if first.ndim >= 2 \
+            else int(first.shape[0])
+        prog = "train:" + ";".join("x".join(map(str, b.shape))
+                                   for b in batch)
+        tel.record_step(step=self._step_count, prog=prog, tokens=tokens,
+                        t0=t0, t_h2d=t_h2d, t_dispatch=t_dispatch,
+                        t_wait=t_wait, compiles=compiles)
 
     def eval_batch(self, *batch):
         """The loss of one batch under ``no_grad`` (on a CUDA device a

@@ -73,7 +73,8 @@ def _server_config(srv):
                 kernels=srv.kernels, tick_window=srv.tick_window,
                 spec=None if srv.spec is None else srv.spec.describe(),
                 policy=srv._sched.policy,
-                host_pool_bytes=srv._offload.host.capacity_bytes)
+                host_pool_bytes=srv._offload.host.capacity_bytes,
+                fault_retries=srv.fault_retries)
 
 
 # positional arguments after the model, in the JAX order (model, max_batch,
@@ -104,7 +105,7 @@ SERVER_CALLS = {
                         None),
     "fault_retries": ((2, 64) + PAGED + (None, "none", None, None, None,
                                          None, None, None, None, None,
-                                         None, 5), "fault_retries"),
+                                         None, 5), None),
 }
 
 

@@ -25,7 +25,9 @@ PORT = ROOT / "paddle_tpu_torch"
 PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.distributed.fleet",
                 "paddle_tpu_torch.distributed.fleet.recompute",
+                "paddle_tpu_torch.faults",
                 "paddle_tpu_torch.graphs",
+                "paddle_tpu_torch.telemetry",
                 "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.ops._build",
                 "paddle_tpu_torch.ops.decode_megakernel",
@@ -54,6 +56,8 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.inference.paged_cache",
                 "paddle_tpu_torch.inference.scheduler",
                 "paddle_tpu_torch.inference.executor",
+                "paddle_tpu_torch.inference.faults",
+                "paddle_tpu_torch.inference.telemetry",
                 "paddle_tpu_torch.inference.serving",
                 "paddle_tpu_torch.inference.speculative",
                 "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.clip",
@@ -265,8 +269,8 @@ def test_train_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
                                     dict(remat=True,
                                          remat_policy="offload_attn"),
                                     dict(offload_opt_state=True),
-                                    dict(injector=object()),
-                                    dict(telemetry=object()),
+                                    dict(donate=False),
+                                    dict(alias_model_params=True),
                                     dict(mesh=type("Mesh", (), {"size": 2}))])
 def test_unported_engine_options_raise(kwargs):
     model = _tiny_model()
@@ -329,16 +333,17 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
                                     dict(spec=SpecConfig(k=0)),
                                     dict(telemetry=object()),
                                     dict(tick_window=0),
-                                    dict(warm_pool_bytes=1 << 20),
+                                    dict(role="prefill"),
                                     dict(kernels="pallas")])
 def test_unported_server_options_raise(kwargs):
-    """Each unported option raises NotImplementedError; ``tick_window`` and
-    ``spec`` are served, and a window under one tick or an invalid
-    ``SpecConfig`` raises ValueError, as in JAX."""
+    """Each unported option raises NotImplementedError; ``tick_window``,
+    ``spec`` and ``telemetry`` are served, and a window under one tick, an
+    invalid ``SpecConfig`` or a telemetry that is none of None, a bool or
+    a ``ServingTelemetry`` raises ValueError, as in JAX."""
     model = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
                              device="cpu")
-    exc = ValueError if {"tick_window", "spec"} & set(kwargs) else \
-        NotImplementedError
+    exc = ValueError if {"tick_window", "spec", "telemetry"} & \
+        set(kwargs) else NotImplementedError
     with pytest.raises(exc):
         GenerationServer(model, device="cpu", **kwargs)
 
