@@ -17,6 +17,8 @@ the GPU.
                                         # final line)
     python3 chip_smoke.py --only recovery  # the build and phase 30 alone
                                         # (no final line)
+    python3 chip_smoke.py --only dense  # the build, phase 4 and phase 31
+                                        # alone (no final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -376,6 +378,35 @@ retried: the parameters after 5 steps bit for bit the fault-free run's,
 goodput exactly 1.0. ``python3 chip_smoke.py --only recovery`` runs the
 build and phase 30 alone (no final line).
 
+Phase 31, dense-cache generation, serves after phase 30 (the bf16 model
+on the card), takes its int8 cell after phase 12 and GPT-2 after the
+serving model is freed: (a) phase 4's traffic through
+``GenerationServer(cache="dense", max_batch=8, max_len=2048,
+prompt_buckets=(128, 256, 512, 1024))``: every request's length, every
+prefill and decode window a replay of a graph captured by the warm-up
+(one request a bucket), launches per pass (a prefill: flash forward 32,
+RMSNorm 65; a tick: RMSNorm 65, ``stream_matmul`` 225), tokens bit-equal
+to the eager twin's and at ``tick_window=4`` to W = 1's, against phase
+4's paged tokens every difference a near tie (phase 26's rule: an fp32
+copy of the weights, the bound twice the largest bf16 - fp32 logit gap
+over every position of two prompts), which a planted fault (a bucket's
+logits read at ``true_len``) breaks; tok/s, ms a tick, the passes' device
+ms by kernel class and peak memory beside phase 4's cell; (b)
+``LlamaForCausalLM.generate`` on four of phase 4's prompts alone (32
+greedy tokens: launches, two captures a key then one replay a token,
+graphed equal to eager, tokens against the dense server's within the
+rule) and ``num_beams=4`` on two (against the same search in reference
+mode within the beam rule, :func:`beam_ties`: the fp32 score of the
+yardstick's beam over the kernels' at most the bound a generated token);
+the int8 model's dense server (``w8_matmul`` 225 a tick) and generate;
+(c) GPT-2 small (bf16, random weights from a seed): ``generate`` at B = 4
+x 256 + 64 greedy tokens and 4 beams — LayerNorm 25 launches a forward,
+flash forward (D = 64) 12 a prefill, graphed equal to eager, greedy and
+beams against an fp32 copy in reference mode within the two rules, each
+rule breaking on a planted fault (the position embedding read one
+position on). ``python3 chip_smoke.py --only dense`` runs the build,
+phase 4 and phase 31 (no final line).
+
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
 LoRA or per-layer attention launch; prefill chunks as in phase 10, the
@@ -392,8 +423,8 @@ a window; the tick kernel once per
 variant: ``decode_tick``, ``decode_tick_int8``, ``decode_tick_lora``, each
 with the launches of its serving cell; the flash rows once more at head
 dim 64, ``flash_fwd_d64``, ``flash_bwd_dq_d64``, ``flash_bwd_dkv_d64``,
-with phase 23's launches); the last line is
-``{"ok": true, "device": {...}}``.
+with phase 23's launches; every kernel with its launches in phase 31,
+``dense_launches``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2649,13 +2680,14 @@ def _first_difference(a, b):
     return n
 
 
-def near_ties(torch, ops, m32, got, want, tie):
+def near_ties(torch, ops, m32, got, want, tie, logits=None):
     """Phase 26 (c): for each request whose speculative tokens differ from
     the plain server's, the target's fp32 logits (the plain twins on the
-    fp32 copy, a dense forward over the common tokens) at the first
-    differing position: the two candidate tokens' logits must lie within
-    ``tie``. Returns (requests identical, [per differing request: position,
-    the two logits' gap, fp32 argmax among the two], all within)."""
+    fp32 copy, a dense forward over the common tokens; ``logits(ids)``,
+    the last position's fp32 logits, when given) at the first differing
+    position: the two candidate tokens' logits must lie within ``tie``.
+    Returns (requests identical, [per differing request: position, the
+    two logits' gap, fp32 argmax among the two], all within)."""
     same, rows, ok = 0, [], True
     ops.set_kernel_mode("reference")
     try:
@@ -2666,7 +2698,8 @@ def near_ties(torch, ops, m32, got, want, tie):
             n = _first_difference(a, b)
             ids = torch.tensor([a[:n]], device="cuda")
             with torch.no_grad():
-                lg = m32.head(m32.model(ids)[:, -1]).float()[0]
+                lg = (logits(ids) if logits is not None else
+                      m32.head(m32.model(ids)[:, -1]).float()[0])
             gap = abs(lg[a[n]].item() - lg[b[n]].item())
             top = int(lg.argmax())
             rows.append(dict(position=n, gap=gap,
@@ -4319,6 +4352,600 @@ def serve_int8(torch, ops, model, graphs=True):
                            + _cell_suffix(graphs),
                            expect=expect, kv_quant="int8", graphs=graphs)
     return res, prompt
+
+
+# -------------------------------------------------------------- phase 31
+# the dense server's prompt buckets (phase 4's prompts run 100-1000 tokens)
+DENSE_BUCKETS = (128, 256, 512, 1024)
+# (b): four of phase 4's prompts, each alone, and two of them in a beam
+# search
+DENSE_GEN_LENS = (100, 256, 517, 1000)
+DENSE_GEN_NEW = 32
+DENSE_BEAM_LENS = (100, 517)
+DENSE_BEAMS = 4
+# the prompts whose every position measures the bf16 logits' distance from
+# the fp32 copy's (the near-tie bound)
+DENSE_TIE_LENS = (517, 1000)
+# (c): GPT-2 small, bf16
+GPT_B, GPT_P, GPT_NEW, GPT_BEAMS = 4, 256, 64, 4
+# the executor's dense passes, each with the keyword that counts its units
+DENSE_PASSES = (("decode_dense", "ticks"), ("prefill_dense", None))
+
+
+def serve_dense(torch, ops, model, label="serve llama3-8b dense",
+                graphs=True, tick_window=1, fault=False):
+    """Phase 31 (a): phase 4's traffic through ``GenerationServer(cache=
+    "dense", max_batch=8, max_len=2048, prompt_buckets=DENSE_BUCKETS)``
+    after a warm-up request in every bucket (the graphs' captures). Checks
+    every request's length and ids, the launches of every pass (a prefill:
+    flash forward once a layer, RMSNorm 2L + 1; a tick: RMSNorm 2L + 1 and
+    the 7L + 1 decode products, ``stream_matmul`` or, on an int8 model,
+    ``w8_matmul``; no paged attention), and, with ``graphs``, that every
+    prefill and decode window of the run was a replay of a graph captured
+    before it. ``fault``: the planted fault of the near-tie rule, each
+    bucket's logits read at ``true_len`` (the first padding position)
+    instead of ``true_len - 1``. Returns (readings with every request's
+    "tokens", the server)."""
+    from paddle_tpu_torch.inference.serving import GenerationServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    int8 = model.quantized
+    srv = GenerationServer(model, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                           prompt_buckets=DENSE_BUCKETS,
+                           tick_window=tick_window)
+    ex = srv._exec
+    check(srv.cache_mode == "dense" and ex.graphs,
+          f"{label}: not a dense server graphing its passes")
+    ex.graphs = graphs
+    if fault:
+        right = ex.prefill_dense
+
+        def read_at_true_len(bucket, prompt, true_len, slot):
+            return right(bucket, prompt,
+                         torch.clamp(true_len + 1, max=bucket), slot)
+        ex.prefill_dense = read_at_true_len
+    per_pass = []
+    for kind, unit in DENSE_PASSES:
+        def counted(*a, _fn=getattr(ex, kind), _kind=kind, _unit=unit, **k):
+            before = ops.launch_counts()
+            out = _fn(*a, **k)
+            per_pass.append((_kind, k.get(_unit, 1) if _unit else 1,
+                             {n: c - before[n] for n, c in
+                              ops.launch_counts().items()}))
+            return out
+        setattr(ex, kind, counted)
+    for b in DENSE_BUCKETS:                 # warm-up: every graph captured
+        srv.submit(list(range(1, b)), max_new_tokens=2 * tick_window)
+    srv.run()
+    prompts, news = phase4_traffic(cfg)
+    t_before = srv.throughput_stats()
+    replays_before, captures_before = dict(ex.replays), ex.captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    per_pass.clear()
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    out = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    t_after = srv.throughput_stats()
+    st = {k: t_after[k] - t_before[k] for k in t_after}
+    replays = {k: n - replays_before[k] for k, n in ex.replays.items()}
+    for rid, p, m in zip(rids, prompts, news):
+        check(rid in out, f"{label}: request {rid} did not finish")
+        toks = out[rid]
+        check(toks[:len(p)] == p and len(toks) == len(p) + m,
+              f"{label}: request {rid}: {len(toks)} tokens, want "
+              f"{len(p) + m}")
+        check(all(0 <= t < cfg.vocab_size for t in toks[len(p):]),
+              f"{label}: request {rid}: token id out of range")
+    prefills, ticks = st["prefill_chunks"], st["decode_ticks"]
+    product = "w8_matmul" if int8 else "stream_matmul"
+    check(prefills == len(rids), f"{label}: {prefills} prefills")
+    want = {"rms_norm": (2 * L + 1) * (prefills + ticks),
+            "flash_fwd": L * prefills, "paged_attention": 0,
+            "decode_tick": 0, "stream_matmul": 0 if int8 else
+            (7 * L + 1) * ticks}
+    for name, n in want.items():
+        check(launches[name] == n, f"{label}: {name} launches "
+                                   f"{launches[name]} != {n} ({prefills} "
+                                   f"prefills, {ticks} ticks)")
+    for kind, units, got in per_pass:
+        one = ({"rms_norm": 2 * L + 1, "flash_fwd": L}
+               if kind == "prefill_dense" else
+               {"rms_norm": 2 * L + 1, product: 7 * L + 1, "flash_fwd": 0})
+        for name, n in one.items():
+            check(got[name] == n * units,
+                  f"{label}: a {kind} pass of {units} units launched "
+                  f"{name} {got[name]} times, want {n * units}")
+    want_replays = ({"decode": st["decode_trips"], "prefill": prefills}
+                    if graphs else {"decode": 0, "prefill": 0})
+    check(replays == want_replays and ex.captures == captures_before,
+          f"{label}: graph replays {replays}, want {want_replays}; "
+          f"{ex.captures - captures_before} captures during the run")
+    res = dict(requests=len(rids), wall_s=wall, graphs=graphs,
+               tick_window=srv.tick_window, graph_replays=replays,
+               graph_captures=ex.captures,
+               prefill_tokens=st["prefill_tokens"], prefills=prefills,
+               prefill_tok_s=st["prefill_tokens"] / st["prefill_s"],
+               decode_trips=st["decode_trips"], decode_ticks=ticks,
+               decode_tokens=st["decode_tokens"],
+               decode_tok_s=st["decode_tokens"] / st["decode_s"],
+               ms_per_decode_tick=st["decode_s"] / ticks * 1e3,
+               slab_gib=sum(t.numel() * t.element_size()
+                            for t in ex.slab) / 2 ** 30,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    log(f"{label}: " + json.dumps(res))
+    res["tokens"] = [out[rid] for rid in rids]
+    for kind, _ in DENSE_PASSES:
+        delattr(ex, kind)
+    return res, srv
+
+
+def dense_breakdown(torch, srv):
+    """Host against device time of one dense decode window (every slot at
+    512 tokens of context; attention reads the whole 2048-row slab, masked)
+    and one 512-bucket prefill (into slot 0) through the server's
+    executor, as :func:`pass_breakdown` reads the paged ones. Run after the
+    served requests have finished."""
+    import statistics
+
+    ex = srv._exec
+    B = srv.max_batch
+    n = DENSE_BUCKETS[2]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pos = torch.full((B,), n, **i32)
+    ones = torch.ones(B, **i32)
+    prompt = torch.ones(1, n, **i32)
+    true_len = torch.tensor([n], dtype=torch.long, device="cuda")
+    slot = torch.zeros(1, dtype=torch.long, device="cuda")
+
+    def tick():
+        return ex.decode_dense(ones, pos, None, None, None, ones, None,
+                               greedy=True, ticks=srv.tick_window)
+
+    def prefill():
+        return ex.prefill_dense(n, prompt, true_len, slot)
+
+    res = {}
+    for name, fn in (("decode_window", tick), (f"prefill_{n}", prefill)):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls) * 1e3
+        device = (_replayed_ms(torch, fn) if ex.graphs
+                  else time_ms(fn, iters=3))
+        _, _, classes, _ = _device_busy(torch, fn, 3)
+        res[name] = dict(wall_ms=wall, device_ms=device,
+                         device_idle_share=max(0.0, 1.0 - device / wall),
+                         device_ms_by_class={
+                             c: t / 3 * 1e3 for c, t in sorted(
+                                 classes.items(), key=lambda kv: -kv[1])})
+    log("dense pass breakdown (host vs device): " + json.dumps(res))
+    return res
+
+
+def _logit_error(torch, ops, fwd16, fwd32, prompts):
+    """The largest |kernels' bf16 - plain fp32| logit difference over every
+    position of ``prompts`` (each a full forward: ``fwd16`` with the
+    kernels, ``fwd32`` with the plain versions on the fp32 copy; each
+    returns (S, vocab) logits)."""
+    err = 0.0
+    for p in prompts:
+        ids = torch.tensor([p], device="cuda")
+        with torch.no_grad():
+            lg16 = fwd16(ids).float()
+            ops.set_kernel_mode("reference")
+            try:
+                lg32 = fwd32(ids).float()
+            finally:
+                ops.set_kernel_mode("auto")
+        err = max(err, (lg16 - lg32).abs().max().item())
+        del lg16, lg32
+    return err
+
+
+def _seq_logprob(torch, ops, fwd, seq, P):
+    """log p(seq[P:] | seq[:P]) in fp32 from one forward of ``fwd`` (ids ->
+    (1, S, vocab) logits) over ``seq[:-1]``, with the plain versions."""
+    ids = torch.tensor([seq[:-1]], device="cuda")
+    ops.set_kernel_mode("reference")
+    try:
+        with torch.no_grad():
+            lp = torch.log_softmax(fwd(ids)[0, P - 1:].float(), dim=-1)
+    finally:
+        ops.set_kernel_mode("auto")
+    tgt = torch.tensor(seq[P:], device="cuda")
+    return lp.gather(1, tgt[:, None]).sum().item()
+
+
+def beam_ties(torch, ops, fwd32, got, want, P, tie):
+    """The near-tie rule of a beam search, which picks by a hypothesis's
+    summed log-probability, not one step's logits, and is not continuous
+    in them (a near tie at a pruning step drops a hypothesis for good):
+    for each row whose beams ``got`` (the kernels' search) and ``want``
+    (the yardstick's) differ, the fp32 copy's log-probability of ``want``
+    (``fwd32``: ids -> logits with the plain versions) may exceed
+    ``got``'s by at most ``tie`` (two bf16 logits' largest gap, the bound
+    of one step's log-probability error) a generated token. Returns (rows
+    identical, [per differing row: first difference, score gap, bound],
+    all within)."""
+    same, rows, ok = 0, [], True
+    for a, b in zip(got, want):
+        if a == b:
+            same += 1
+            continue
+        gap = (_seq_logprob(torch, ops, fwd32, b, P)
+               - _seq_logprob(torch, ops, fwd32, a, P))
+        bound = tie * (len(a) - P)
+        rows.append(dict(position=_first_difference(a, b), score_gap=gap,
+                         bound=bound))
+        ok = ok and gap <= bound
+    return same, rows, ok
+
+
+def _gen_program(model):
+    """The generate program made last (the newest key)."""
+    return list(model._gen_cache.values())[-1]
+
+
+def dense_generate(torch, ops, model, prompts, dense_tokens, m32, tie):
+    """Phase 31 (b): ``LlamaForCausalLM.generate`` on the card, each of
+    four of phase 4's prompts alone, 32 greedy tokens: launches (a prefill
+    and 31 decode steps), one capture a body per key then one replay a
+    step (a second call replays only, the same bits), graphed bit-equal to
+    eager, and the tokens against the dense server's within the near-tie
+    rule; then ``num_beams=4`` on two prompts: lengths, launches, and the
+    beams against the same search in reference mode (equal, or within the
+    beam rule, :func:`beam_ties`)."""
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    N = DENSE_GEN_NEW
+    model.__dict__.pop("_gen_cache", None)
+    got, want, runs = [], [], []
+    for n in DENSE_GEN_LENS:
+        i = PHASE4_LENS.index(n)
+        p = prompts[i]
+        ids = torch.tensor([p], device="cuda")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=N)[0].tolist()
+        first_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        prog = _gen_program(model)
+        t0 = time.perf_counter()
+        again = model.generate(ids, max_new_tokens=N)[0].tolist()
+        wall = time.perf_counter() - t0
+        check(len(out) == n + N and out[:n] == p,
+              f"generate P={n}: {len(out)} tokens")
+        check(again == out, f"generate P={n}: a second call differs")
+        want_l = {"flash_fwd": L, "rms_norm": (2 * L + 1) * N,
+                  "stream_matmul": (7 * L + 1) * (N - 1),
+                  "paged_attention": 0}
+        for name, k in want_l.items():
+            check(launches[name] == k, f"generate P={n}: {name} launches "
+                                       f"{launches[name]} != {k}")
+        check(prog.captures == 2 and prog.replays == 2 * N,
+              f"generate P={n}: {prog.captures} captures, {prog.replays} "
+              f"replays (want 2 and {2 * N})")
+        runs.append(dict(prompt=n, first_call_s=first_s, wall_s=wall,
+                         tok_s=N / wall, captures=prog.captures,
+                         replays=prog.replays))
+        got.append(out)
+        want.append(dense_tokens[i][:n + N])
+    model.gen_graphs = False
+    try:
+        eager = model.generate(torch.tensor([got[0][:DENSE_GEN_LENS[0]]],
+                                            device="cuda"),
+                               max_new_tokens=N)[0].tolist()
+    finally:
+        del model.gen_graphs
+    check(eager == got[0], "generate: graphed tokens differ from eager")
+    same, rows, ok = near_ties(torch, ops, m32, got, want, tie)
+    check(ok, f"phase 31 (b): generate against the dense server outside "
+              f"the near-tie bound {tie}: {rows}")
+    beams = []
+    for n in DENSE_BEAM_LENS:
+        p = prompts[PHASE4_LENS.index(n)]
+        ids = torch.tensor([p], device="cuda")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=N,
+                             num_beams=DENSE_BEAMS)[0].tolist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check(len(out) == n + N and out[:n] == p,
+              f"beam P={n}: {len(out)} tokens")
+        check(launches["flash_fwd"] == L and launches["stream_matmul"]
+              == (7 * L + 1) * (N - 1),
+              f"beam P={n}: launches {launches}")
+        ops.set_kernel_mode("reference")
+        try:
+            ref = model.generate(ids, max_new_tokens=N,
+                                 num_beams=DENSE_BEAMS)[0].tolist()
+        finally:
+            ops.set_kernel_mode("auto")
+        b_same, b_rows, b_ok = beam_ties(
+            torch, ops, lambda x: m32.head(m32.model(x)), [out], [ref], n,
+            tie)
+        check(b_ok, f"beam P={n}: against reference mode outside the "
+                    f"beam near-tie bound: {b_rows}")
+        beams.append(dict(prompt=n, wall_s=wall, identical=b_same,
+                          differing=b_rows))
+    model.__dict__.pop("_gen_cache", None)
+    res = dict(runs=runs, requests_identical_to_dense=same,
+               requests=len(got), differing=rows, beams=beams)
+    log("phase 31 (b) generate: " + json.dumps(res))
+    return res
+
+
+def dense_generation(torch, ops, model, paged_tokens):
+    """Phase 31 (a)-(b), the bf16 Llama-3-8B on the card (see
+    :func:`serve_dense`, :func:`dense_generate`); ``paged_tokens``: phase
+    4's tokens of the same traffic."""
+    import dataclasses as dc
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = model.cfg
+    a, srv = serve_dense(torch, ops, model)
+    a["breakdown"] = dense_breakdown(torch, srv)
+    del srv
+    eager, srv = serve_dense(torch, ops, model,
+                             label="serve llama3-8b dense (eager)",
+                             graphs=False)
+    del srv
+    w4, srv = serve_dense(torch, ops, model, tick_window=WINDOW,
+                          label=f"serve llama3-8b dense W={WINDOW}")
+    del srv
+    faulty, srv = serve_dense(torch, ops, model, fault=True,
+                              label="phase 31 planted fault: logits read "
+                                    "at true_len")
+    del srv
+    n = len(a["tokens"])
+    for name, other in (("eager", eager), (f"W={WINDOW}", w4)):
+        same = sum(x == y for x, y in zip(a["tokens"], other["tokens"]))
+        check(same == n, f"phase 31 (a): dense {name}: {same} of {n} "
+                         f"requests equal the graphed W=1 run's")
+    check(eager["launches"] == a["launches"],
+          "phase 31 (a): launches differ with graphs on and off")
+    # the near-tie rule against phase 26's fp32 copy of the weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    m32 = LlamaForCausalLM(dc.replace(cfg, dtype="float32"), device="cuda")
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p16)
+    prompts, _ = phase4_traffic(cfg)
+    err = _logit_error(
+        torch, ops, lambda ids: model.head(model.model(ids))[0],
+        lambda ids: m32.head(m32.model(ids))[0],
+        [prompts[PHASE4_LENS.index(k)] for k in DENSE_TIE_LENS])
+    tie = 2 * err
+    ties = {"kernels_vs_fp32_max": err, "near_tie_bound": tie}
+    for name, got in (("dense vs paged", a["tokens"]),
+                      ("planted fault vs paged", faulty["tokens"])):
+        same, rows, ok = near_ties(torch, ops, m32, got, paged_tokens, tie)
+        ties[name] = dict(requests_identical=same, requests=n,
+                          differing=rows, near_ties_within_bound=ok)
+        if name.startswith("planted"):
+            check(not ok, "phase 31: the planted fault's tokens lie within "
+                          "the near-tie bound")
+        else:
+            check(ok, f"phase 31 (a): dense against paged outside the "
+                      f"near-tie bound {tie}: {rows}")
+    log("phase 31 (a) near ties: " + json.dumps(ties))
+    b = dense_generate(torch, ops, model, prompts, a["tokens"], m32, tie)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in (a, eager, w4, faulty):
+        r.pop("tokens")
+    return dict(dense=a, eager=eager, window=w4, ties=ties, generate=b,
+                launches=a["launches"])
+
+
+def dense_int8(torch, ops, model):
+    """Phase 31 (b), int8 weights (the model after phase 11's
+    ``quantize_int8``): the dense server's traffic (``w8_matmul`` the 7L +
+    1 decode products of every tick, no ``stream_matmul``) and ``generate``
+    on two of its prompts (one capture a body, one replay a step;
+    ``w8_matmul`` counted); tokens of the two paths compared (a count: no
+    fp32 copy holds these codes)."""
+    check(model.quantized, "phase 31 int8: the model is not quantized")
+    L = model.cfg.num_hidden_layers
+    N = DENSE_GEN_NEW
+    srv_res, srv = serve_dense(torch, ops, model,
+                               label="serve llama3-8b dense int8")
+    del srv
+    prompts, _ = phase4_traffic(model.cfg)
+    model.__dict__.pop("_gen_cache", None)
+    same = 0
+    runs = []
+    for n in DENSE_BEAM_LENS:
+        i = PHASE4_LENS.index(n)
+        ids = torch.tensor([prompts[i]], device="cuda")
+        ops.reset_launch_counts()
+        out = model.generate(ids, max_new_tokens=N)[0].tolist()
+        launches = ops.launch_counts()
+        prog = _gen_program(model)
+        check(len(out) == n + N, f"int8 generate P={n}: {len(out)} tokens")
+        check(launches["stream_matmul"] == 0
+              and launches["w8_matmul"] >= (7 * L + 1) * (N - 1),
+              f"int8 generate P={n}: launches {launches}")
+        check(prog.captures == 2 and prog.replays == N,
+              f"int8 generate P={n}: {prog.captures} captures, "
+              f"{prog.replays} replays")
+        same += out == srv_res["tokens"][i][:n + N]
+        runs.append(dict(prompt=n, w8_matmul=launches["w8_matmul"]))
+    model.__dict__.pop("_gen_cache", None)
+    srv_res.pop("tokens")
+    res = dict(server=srv_res, generate=runs,
+               generate_equal_to_server=same, requests=len(runs),
+               launches=srv_res["launches"])
+    log("phase 31 int8: " + json.dumps({k: v for k, v in res.items()
+                                         if k != "server"}))
+    return res
+
+
+def gpt_generation(torch, ops):
+    """Phase 31 (c): GPT-2 small (``gpt2_small_config``, bf16, random
+    weights from a seed) on the card: ``generate`` at B = 4 x 256-token
+    prompts + 64 greedy tokens and ``num_beams=4``: LayerNorm (row 8) 25
+    launches a forward, the flash forward (row 1, D = 64) 12 a prefill, one
+    capture a body then one replay a step, graphed bit-equal to eager;
+    tokens against an fp32 copy in reference mode within the near-tie rule
+    (2 x the largest bf16 - fp32 logit gap over the prompts), the beams
+    against the same search on the fp32 copy within the beam rule
+    (:func:`beam_ties`) and, reported, on the bf16 model in reference
+    mode; a planted fault (the position embedding read one position on)
+    breaks both rules."""
+    import numpy as np
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt2_small_config(dtype="bfloat16")
+    L, N = cfg.num_hidden_layers, GPT_NEW
+    m = GPTForCausalLM(cfg, seed=3).eval()      # dropout off, as served
+    rng = np.random.default_rng(31)
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (GPT_B, GPT_P)),
+                       dtype=torch.int32, device="cuda")
+
+    def run(**kw):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.generate(ids, max_new_tokens=N, **kw)
+        torch.cuda.synchronize()
+        return out.tolist(), time.perf_counter() - t0, ops.launch_counts()
+
+    res = {}
+    for name, kw in (("greedy", {}), ("beam", dict(num_beams=GPT_BEAMS))):
+        out, first_s, launches = run(**kw)
+        prog = _gen_program(m)
+        again, wall, _ = run(**kw)
+        check(all(len(r) == GPT_P + N for r in out), f"gpt {name}: lengths")
+        check(again == out, f"gpt {name}: a second call differs")
+        check(launches["layer_norm"] == (2 * L + 1) * N
+              and launches["flash_fwd"] == L,
+              f"gpt {name}: launches {launches}")
+        bodies = 3 if kw else 2
+        check(prog.captures == bodies
+              and prog.replays == 2 * (bodies - 2 + N),
+              f"gpt {name}: {prog.captures} captures, {prog.replays} "
+              f"replays")
+        m.gen_graphs = False
+        try:
+            eager, _, eager_launches = run(**kw)
+        finally:
+            del m.gen_graphs
+        check(eager == out and eager_launches == launches,
+              f"gpt {name}: graphed differs from eager")
+        res[name] = dict(tokens=out, first_call_s=first_s, wall_s=wall,
+                         tok_s=GPT_B * N / wall, launches={
+                             k: v for k, v in launches.items() if v})
+    # the fp32 copy in reference mode, and the near-tie rule
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = GPTForCausalLM(gpt2_small_config(), seed=3).eval()
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), m.parameters()):
+            p32.copy_(p16)
+    err = _logit_error(torch, ops, lambda x: m(x)[0], lambda x: m32(x)[0],
+                       ids.tolist())
+    tie = 2 * err
+
+    def fp32_last(x):
+        return m32(x)[:, -1].float()[0]
+
+    # the yardsticks, in reference mode: greedy and beams on the fp32 copy;
+    # the beams on the bf16 model too (reported, as (b) checks them)
+    ops.set_kernel_mode("reference")
+    try:
+        ref = {"greedy": m32.generate(ids, max_new_tokens=N).tolist(),
+               "beam": m32.generate(ids, max_new_tokens=N,
+                                    num_beams=GPT_BEAMS).tolist(),
+               "beam bf16": m.generate(ids, max_new_tokens=N,
+                                       num_beams=GPT_BEAMS).tolist()}
+    finally:
+        ops.set_kernel_mode("auto")
+
+    def rule(name, got):
+        if name == "greedy":
+            return near_ties(torch, ops, None, got, ref[name], tie,
+                             logits=fp32_last)
+        return beam_ties(torch, ops, m32, got, ref[name], GPT_P, tie)
+
+    ties = {"kernels_vs_fp32_max": err, "near_tie_bound": tie}
+    got = {name: res[name].pop("tokens") for name in ("greedy", "beam")}
+    got["beam bf16"] = got["beam"]
+    for name in ("greedy", "beam", "beam bf16"):
+        same, rows, ok = rule(name, got[name])
+        ties[name] = dict(requests_identical=same, requests=GPT_B,
+                          differing=rows, within_bound=ok)
+        if name != "beam bf16":
+            check(ok, f"gpt {name}: against its yardstick outside the "
+                      f"near-tie rule (greedy bound {tie}): {rows}")
+    # the planted fault: the position embedding read one position on
+    right = m.transformer.decode_step
+
+    def wpe_one_on(token, caches, pos):
+        return right(token, caches, pos + 1)
+
+    m.transformer.decode_step = wpe_one_on
+    m.__dict__.pop("_gen_cache", None)
+    try:
+        faulty = {name: m.generate(ids, max_new_tokens=N, **kw).tolist()
+                  for name, kw in (("greedy", {}),
+                                   ("beam", dict(num_beams=GPT_BEAMS)))}
+    finally:
+        del m.transformer.decode_step
+    for name in ("greedy", "beam"):
+        same, rows, ok = rule(name, faulty[name])
+        ties[f"planted fault {name}"] = dict(
+            requests_identical=same, requests=GPT_B, differing=rows,
+            within_bound=ok)
+        check(not ok, f"gpt {name}: the planted fault's tokens lie within "
+                      f"the rule")
+    res["ties"] = ties
+    res["launches"] = res["greedy"]["launches"]
+    log("phase 31 (c) gpt-2 small: " + json.dumps(res))
+    del m, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def log_dense(res, paged):
+    """Phase 31's readings, the dense cell beside phase 4's paged one."""
+    keys = ("prefill_tok_s", "decode_tok_s", "ms_per_decode_tick",
+            "decode_ticks", "peak_memory_gib")
+    log("phase 31 (a) dense beside paged: " + json.dumps(
+        {"dense": {k: res["dense"][k] for k in keys},
+         "dense eager": {k: res["eager"][k] for k in keys},
+         f"dense W={WINDOW}": {k: res["window"][k] for k in keys},
+         "paged": {k: paged.get(k) for k in keys}}))
+    log("phase 31 (a) dense pass breakdown: "
+        + json.dumps(res["dense"]["breakdown"]))
+    log("phase 31 (a) near ties: " + json.dumps(res["ties"]))
+    log("phase 31 (b) generate: " + json.dumps(res["generate"]))
+    log("phase 31 int8: " + json.dumps(res["int8"]))
+    log("phase 31 (c) gpt-2 small: " + json.dumps(res["gpt"]))
 
 
 # --------------------------------------------------------------- phase 6
@@ -6414,6 +7041,24 @@ def main() -> int:
         log(f"partial run (phases 6 AdamW, 7, 23, 27 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--only", "dense"]:
+        # a diagnostic run: the build, phase 4 (the paged tokens phase 31
+        # compares with) and phase 31 alone, no final line
+        model = LlamaForCausalLM(llama3_8b_config())
+        serve_res, _, srv = serve(torch, ops, model)
+        del srv
+        dense_res = dense_generation(torch, ops, model, serve_res["tokens"])
+        model.quantize_int8()
+        dense_res["int8"] = dense_int8(torch, ops, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense_res["gpt"] = gpt_generation(torch, ops)
+        log_dense(dense_res, serve_res)
+        log(f"partial run (phases 4, 31 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if sys.argv[1:] == ["--only", "serve"]:
         # a diagnostic run: the build and phases 4, 14, 24 and 25 alone, no
         # final line
@@ -6509,6 +7154,8 @@ def main() -> int:
     sched_res = scheduling(torch, ops, model, sched_ref)
     # phase 30 (a)-(d): observability and recovery, the bf16 model
     rec_res = recovery_serving(torch, ops, model, here, sched_ref)
+    # phase 31 (a), (b): dense-cache serving and generate, the bf16 model
+    dense_res = dense_generation(torch, ops, model, serve_res["tokens"])
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -6551,9 +7198,13 @@ def main() -> int:
     int8_spec = serve_spec_int8(torch, ops, model)
     e2e_int8 = end_to_end(torch, ops, model, prompt, label="end_to_end int8",
                           kv_quant="int8")
+    # phase 31 (b), int8 weights
+    dense_res["int8"] = dense_int8(torch, ops, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 31 (c): GPT-2 small
+    dense_res["gpt"] = gpt_generation(torch, ops)
 
     fwd_cases, bwd_cases = kernel_flash(torch, fa, fac, ops)
     adamw_cases = kernel_adamw(torch, fw, ops)
@@ -6685,10 +7336,17 @@ def main() -> int:
                 {"decode_tick": "fp", "decode_tick_int8": "int8",
                  "decode_tick_lora": "fp_lora"}[name]]))
     # phase 30's launches (its serving half and its engine) beside each
-    # kernel's main-path count
+    # kernel's main-path count, and phase 31's (the bf16 dense server, the
+    # int8 one, GPT-2's generate)
+    dense_launches = dict(dense_res["launches"])
+    dense_launches["w8_matmul"] = dense_res["int8"]["launches"]["w8_matmul"]
+    gl = dense_res["gpt"]["launches"]
+    dense_launches.update(layer_norm=gl.get("layer_norm", 0),
+                          flash_fwd_d64=gl.get("flash_fwd", 0))
     for k in kernels:
         k["recovery_launches"] = (rec_res["launches"].get(k["name"], 0)
                                   + rec_train["launches"].get(k["name"], 0))
+        k["dense_launches"] = dense_launches.get(k["name"], 0)
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
@@ -6735,6 +7393,7 @@ def main() -> int:
     for name, r in rec_res.items():
         log(f"phase 30 {name}: " + json.dumps(r))
     log("phase 30 (e) engine: " + json.dumps(rec_train))
+    log_dense(dense_res, serve_res)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""Paged serving executor — port of ``paddle_tpu/inference/executor.py``
-(single device): the device half of the engine/executor split.
+"""Serving executors — port of ``paddle_tpu/inference/executor.py``
+(single device) and of the JAX dense server's programs: the device half of
+the engine/executor split.
 
 ``GenerationServer`` (serving.py) is the engine — request lifecycle,
 scheduling, slot bookkeeping and harvest, all host-side numpy state.
@@ -43,6 +44,20 @@ code, with no graph), under ``set_kernel_mode("reference")`` (the plain
 versions: chip_smoke's yardstick, not a serving path), and with
 ``graphs`` set to False (a measurement switch).
 
+:class:`DenseExecutor` is the device half of ``cache="dense"`` (the
+JAX server's ``_decode_fn`` and ``_prefill``): a fixed slab of
+``2·L`` caches (max_batch, max_len, KV, D), one row a slot; a decode
+window as one CUDA graph per ``(greedy, ticks)`` (every slot through
+``decode_step`` at its own position, ``pos + active`` a tick so that idle
+slots do not drift); and a prefill per prompt bucket as one graph: the
+bucket-padded prompt through ``prefill`` into zeroed single-row caches,
+the logits read at ``true_len - 1`` (device scalars), and the whole row
+copied into the slot's row of the slab (``index_copy_`` at a device
+slot), zeros past the bucket, as JAX's ``pool.at[slot].set(row)``. Its
+warm-ups run on the pass's own inputs, not zeroed ones: the dense slab has
+no scratch block, and a prefill's warm-up writes the very row its replay
+then rewrites, a decode window's the values its replay writes again.
+
 The executor serves the weights the model held when it was built: a graph
 reads them by address, and so does the megakernel's weight table.
 :meth:`check_weights`, which the server runs once after each submit and
@@ -70,10 +85,53 @@ import torch
 from .. import graphs
 from ..models.generation import sample_token_rows
 
-__all__ = ["PagedExecutor", "capture_graph"]
+__all__ = ["DenseExecutor", "PagedExecutor", "capture_graph"]
 
 
-class PagedExecutor:
+class _GraphPrograms:
+    """What both executors share: the programs' graphs by key (captured at
+    a key's first use), their shared memory pool, the capture and replay
+    counters, and the check that the model's weights are those the graphs
+    read. A subclass sets ``engine``, ``graphs``, ``_graphs``,
+    ``_graph_pool``, ``captures``, ``replays`` and ``_weights``."""
+
+    def check_weights(self) -> None:
+        """Raise RuntimeError when a tensor of the model (a parameter or a
+        buffer) is no longer the one, at the address, the executor was
+        built over: a graph would read stale memory."""
+        if _weights_key(self.engine.model) != self._weights:
+            raise RuntimeError("the model's weights were replaced after the "
+                               "server was built: build a new server for "
+                               "the changed model")
+
+    def _program(self, key, body, inputs, generator, zero: bool = True):
+        """The captured graph of ``key`` (captured now at its first use,
+        warmed up over zeroed ``inputs`` or, with ``zero=False``, over the
+        ones copied in), or None where the pass runs eagerly (see the
+        module docstring)."""
+        from .. import ops
+
+        if not self.graphs or ops.kernel_mode() == "reference":
+            return None
+        prog = self._graphs.get(key)
+        if prog is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            prog = self._graphs[key] = capture_graph(
+                body, inputs, generator, self.engine.device,
+                self._graph_pool, zero=zero)
+            self.captures += 1
+        elif prog.generators != (() if generator is None else (generator,)):
+            raise ValueError("a sampled window's graph draws from the "
+                             "generator it was captured with")
+        return prog
+
+    def _replay(self, prog, kind: str):
+        self.replays[kind] += 1
+        return prog.replay()
+
+
+class PagedExecutor(_GraphPrograms):
     """Owns the paged device state for one engine. ``engine`` is the owning
     :class:`~.serving.GenerationServer`; only its construction-time
     configuration is read here."""
@@ -159,16 +217,11 @@ class PagedExecutor:
         self.replays = {"decode": 0, "chunk": 0, "spec": 0}
 
     def check_weights(self) -> None:
-        """Raise RuntimeError when a tensor of the model (a parameter or a
-        buffer) is no longer the one, at the address, the executor was
-        built over: a graph or the megakernel would read stale memory."""
-        model = self.engine.model
+        """As :meth:`_GraphPrograms.check_weights`, and the megakernel's
+        weight table too."""
         if self._mk_weights is not None:
-            self._mk_weights.check(model)
-        if _weights_key(model) != self._weights:
-            raise RuntimeError("the model's weights were replaced after the "
-                               "server was built: build a new server for "
-                               "the changed model")
+            self._mk_weights.check(self.engine.model)
+        super().check_weights()
 
     def clear_blocks(self, bids) -> None:
         """Zero the int8 codes and scales of blocks ``bids`` in every
@@ -427,43 +480,126 @@ class PagedExecutor:
             accs.append(acc)
         return torch.stack(outs), torch.stack(accs)
 
-    # --------------------------------------------------------------- graphs
-    def _program(self, key, body, inputs, generator):
-        """The captured graph of ``key`` (captured now at its first use),
-        or None where the pass runs eagerly (see the module docstring)."""
-        from .. import ops
+class DenseExecutor(_GraphPrograms):
+    """Owns the dense slab and the programs of a ``cache="dense"`` engine
+    (see the module docstring)."""
 
-        if not self.graphs or ops.kernel_mode() == "reference":
-            return None
-        prog = self._graphs.get(key)
-        if prog is None:
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            prog = self._graphs[key] = capture_graph(
-                body, inputs, generator, self.engine.device,
-                self._graph_pool)
-            self.captures += 1
-        elif prog.generators != (() if generator is None else (generator,)):
-            raise ValueError("a sampled window's graph draws from the "
-                             "generator it was captured with")
-        return prog
+    def __init__(self, engine):
+        self.engine = engine
+        cfg = engine.cfg
+        dev = engine.device
+        B, L = engine.max_batch, engine.max_len
+        shape = (cfg.num_key_value_heads, cfg.head_dim)
+        n = 2 * cfg.num_hidden_layers
 
-    def _replay(self, prog, kind: str):
-        self.replays[kind] += 1
-        return prog.replay()
+        def zeros(*sh, dtype=cfg.torch_dtype):
+            return torch.zeros(sh, dtype=dtype, device=dev)
+
+        self.slab = [zeros(B, L, *shape) for _ in range(n)]
+        self.caches = [(self.slab[2 * i], self.slab[2 * i + 1])
+                       for i in range(cfg.num_hidden_layers)]
+        # the prefill's single-row caches, copied whole into a slot's row
+        self._row = [zeros(1, L, *shape) for _ in range(n)]
+        self._weights = _weights_key(engine.model)
+        i32 = torch.int32
+        self._dec = dict(tokens=zeros(B, dtype=i32), pos=zeros(B, dtype=i32),
+                         active=zeros(B, dtype=i32),
+                         temps=zeros(B, dtype=torch.float32),
+                         topks=zeros(B, dtype=i32),
+                         topps=zeros(B, dtype=torch.float32))
+        self._pre = {
+            b: dict(prompt=zeros(1, b, dtype=i32),
+                    true_len=zeros(1, dtype=torch.long),
+                    slot=zeros(1, dtype=torch.long))
+            for b in engine.buckets}
+        self.graphs = dev.type == "cuda"
+        self._graphs = {}
+        self._graph_pool = None
+        self.captures = 0
+        self.replays = {"decode": 0, "prefill": 0}
+
+    @torch.no_grad()
+    def decode_dense(self, tokens, pos, temps, topks, topps, active,
+                     generator, greedy: bool = False, ticks: int = 1):
+        """A decode window of ``ticks`` ticks for every slot as one program
+        (JAX ``_decode_fn``): each tick writes every row's K/V at its
+        position, samples its next token (an argmax when ``greedy``) and
+        advances ``pos`` by ``active``. tokens / pos / active int32 (B,);
+        temps / topps float32, topks int32 (B,), read unless ``greedy``.
+        Returns the window's tokens, int32 (ticks, B)."""
+        ticks = int(ticks)
+        if ticks < 1:
+            raise ValueError(f"ticks must be >= 1, got {ticks}")
+        buf = self._dec
+        inputs = dict(tokens=tokens, pos=pos, active=active)
+        if not greedy:
+            inputs.update(temps=temps, topks=topks, topps=topps)
+        _copy_in(buf, inputs)
+        gen = None if greedy else generator
+        body = functools.partial(self._decode_window, bool(greedy), ticks,
+                                 gen)
+        prog = self._program(("decode", bool(greedy), ticks), body, buf, gen,
+                             zero=False)
+        return body() if prog is None else self._replay(prog, "decode")
+
+    def _decode_window(self, greedy: bool, ticks: int, generator):
+        b = self._dec
+        model = self.engine.model
+        toks, p, out = b["tokens"], b["pos"], []
+        for _ in range(ticks):
+            h, _ = model.model.decode_step(toks[:, None], self.caches, p)
+            lg = model.head(h, stream=True)[:, 0].float()     # (B, V)
+            if greedy:
+                toks = torch.argmax(lg, dim=-1).to(torch.int32)
+            else:
+                toks = sample_token_rows(lg, generator, b["temps"],
+                                         b["topks"], b["topps"])
+            out.append(toks)
+            p = p + b["active"]
+        return torch.stack(out)
+
+    @torch.no_grad()
+    def prefill_dense(self, bucket: int, prompt, true_len, slot):
+        """One prompt's prefill and slot scatter as one program a bucket
+        (JAX ``_prefill``): prompt int32 (1, bucket) right-padded;
+        ``true_len`` and ``slot`` int tensors (1,) (host or device) or
+        ints. Returns fp32 logits (1, V) at ``true_len - 1``."""
+        buf = self._pre[int(bucket)]
+        _copy_in(buf, dict(prompt=prompt, true_len=true_len, slot=slot))
+        body = functools.partial(self._prefill, int(bucket))
+        prog = self._program(("prefill", int(bucket)), body, buf, None,
+                             zero=False)
+        return body() if prog is None else self._replay(prog, "prefill")
+
+    def _prefill(self, bucket: int):
+        b = self._pre[bucket]
+        model = self.engine.model
+        for r in self._row:
+            r.zero_()
+        rows = [(self._row[2 * i], self._row[2 * i + 1])
+                for i in range(len(self._row) // 2)]
+        h, _ = model.model.prefill(b["prompt"], rows)
+        last = torch.index_select(h, 1, b["true_len"] - 1)  # (1, 1, hidden)
+        lg = model.head(last)[:, 0].float()
+        for slab, row in zip(self.slab, self._row):
+            slab.index_copy_(0, b["slot"], row)
+        return lg
 
 
-def capture_graph(body, inputs, generator, device, pool=None):
+def capture_graph(body, inputs, generator, device, pool=None,
+                  zero: bool = True):
     """Warm ``body`` up eagerly on a side stream over zeroed ``inputs`` (a
     dict of its static input tensors: a pool write lands in scratch block
-    0; a generator's state is restored after), then capture it into a CUDA
-    graph (``graphs.capture``, in ``pool`` when given) that draws from
-    ``generator`` (None: none). The warm-up counts no launch; the capture's
-    are taken back and added at each replay."""
+    0; ``zero=False`` keeps the values copied in; a generator's state is
+    restored after), then capture it into a CUDA graph (``graphs.capture``,
+    in ``pool`` when given) that draws from ``generator`` (None: none). The
+    warm-up counts no launch; the capture's are taken back and added at
+    each replay."""
     from .. import ops
 
-    for t in inputs.values():
-        t.zero_()
+    if zero:
+        for t in inputs.values():
+            t.zero_()
     state = None if generator is None else generator.get_state()
     with ops.captured_launches():
         graphs.warm_up(body, device)

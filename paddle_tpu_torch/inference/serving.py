@@ -1,7 +1,23 @@
 """Continuous-batching generation server — port of
-``paddle_tpu/inference/serving.py`` for ``cache="paged"``.
+``paddle_tpu/inference/serving.py``.
 
-A FIXED set of ``max_batch`` slots shares one pool of fixed-size KV blocks
+``cache="dense"`` (the default, as in JAX): every slot owns one row of a
+fixed KV slab (max_batch, max_len) a layer (inference/executor.py
+``DenseExecutor``). A request is admitted as soon as a slot is free: its
+prompt, right-padded to the smallest of ``prompt_buckets`` that holds it,
+runs one prefill program per bucket that writes the slot's whole row, and
+its first token is taken from the logits at the prompt's last real
+position; then every step runs one decode window of ``tick_window`` ticks
+across the occupied slots. On a CUDA device each prefill and each decode
+window is a CUDA graph replay. Greedy outputs equal ``model.generate``'s
+(the decode products are batch-invariant), under slot churn. The dense
+path has no block pool: the paged options (``kv_quant``, ``pool_bytes``,
+``host_pool_bytes``, ``lora``, ``role``, ``mesh``, the tier watermarks,
+``warm_pool_bytes``, ``kernels="megakernel"``, ``spec``) raise the JAX
+server's ValueError with it, and so do ``snapshot``, ``restore``,
+``evacuate``, ``admit_migrated`` and ``adopt_warm``.
+
+``cache="paged"``: a FIXED set of ``max_batch`` slots shares one pool of fixed-size KV blocks
 (inference/paged_cache.py) through per-slot block tables. Each
 :meth:`GenerationServer.step` services the queue (inference/scheduler.py:
 expires TTL'd waiters, admits waiting requests in policy order, gated on
@@ -126,8 +142,7 @@ Observability and recovery (as in the JAX server):
   :meth:`~GenerationServer.export_chrome_trace`.
 
 Not ported yet (their constructor arguments raise ``NotImplementedError``
-when given a non-default value): the dense cache and ``prompt_buckets``,
-tensor/context parallelism (``mesh``), replica roles (``role``, with
+when given a non-default value): tensor/context parallelism (``mesh``), replica roles (``role``, with
 ``handoff_ready``: the handoff set is filled only by a prefill-class
 replica of the disaggregated fleet), tuned profiles (``profile``) and
 ``kernels="pallas"`` (the port has no interpret mode). The fleet's fault
@@ -147,7 +162,7 @@ from ..faults import (NULL_INJECTOR, EngineFailedError, FaultInjector,
                       TickFault)
 from ..models.generation import next_token
 from ..telemetry import ServingTelemetry, watchdog
-from .executor import PagedExecutor
+from .executor import DenseExecutor, PagedExecutor
 from .kv_offload import KVOffloadEngine, SwapHandle, payload_checksum
 from .lora import AdapterPool
 from .paged_cache import BlockAllocator
@@ -157,10 +172,7 @@ from .scheduler import PRIORITY_NORMAL, SchedEntry, Scheduler
 # each at the one value it takes (the JAX default); any other value raises
 # NotImplementedError. The constructor keeps the JAX server's parameter
 # order, so that a positional call means the same in both packages
-_UNPORTED_DEFAULTS = {
-    "prompt_buckets": (32, 64, 128),
-    "mesh": None, "role": "any", "profile": None,
-}
+_UNPORTED_DEFAULTS = {"mesh": None, "role": "any", "profile": None}
 
 
 def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
@@ -176,6 +188,56 @@ def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
         itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
         per_pool = block_size * kv * d * itemsize
     return 2 * cfg.num_hidden_layers * per_pool
+
+
+def _refuse_paged_only(given) -> None:
+    """``cache="dense"`` with an option of the paged path: the JAX server's
+    ValueError, in its words (``given``: the constructor's arguments)."""
+    if given["kv_quant"] != "none":
+        raise ValueError("kv_quant='int8' requires cache='paged' "
+                         "(the dense slab has no block pool to quantize)")
+    if given["pool_bytes"] is not None:
+        raise ValueError("pool_bytes= requires cache='paged'")
+    if given["host_pool_bytes"] is not None:
+        raise ValueError("host_pool_bytes= requires cache='paged' "
+                         "(only the block pool can swap to host)")
+    if given["lora"] is not None:
+        raise ValueError("lora= (multi-adapter serving) requires "
+                         "cache='paged' — the adapter pool shares the "
+                         "paged slot/eviction machinery")
+    role = given["role"]
+    if role not in ("any", "prefill", "decode"):
+        raise ValueError(
+            f"role must be 'any', 'prefill', or 'decode', got {role!r}")
+    if role != "any":
+        raise ValueError("role= (disaggregated replica classes) "
+                         "requires cache='paged' — handoff rides the "
+                         "paged snapshot/migration path")
+    if given["mesh"] is not None:
+        raise ValueError("mesh= (multi-chip serving) requires "
+                         "cache='paged' — only the paged executor "
+                         "places its programs on a mesh")
+    low, high = given["tier_demote_low"], given["tier_demote_high"]
+    if (low is None) != (high is None):
+        raise ValueError(
+            "tier_demote_low/tier_demote_high come as a pair — set "
+            "both watermarks (or neither to keep demotion off)")
+    if low is not None:
+        raise ValueError("tier_demote_low/high (tiered KV) "
+                         "require cache='paged'")
+    if given["warm_pool_bytes"] is not None:
+        raise ValueError("warm_pool_bytes= requires cache='paged'")
+    if given["kernels"] == "megakernel":
+        raise ValueError("kernels='megakernel' requires cache='paged' "
+                         "(the whole-tick kernel serves the paged "
+                         "decode path)")
+    if given["mk_geometry"] is not None:
+        raise ValueError("mk_geometry= requires "
+                         "kernels='megakernel' (the geometry only "
+                         "parameterizes the whole-tick kernel)")
+    if given["spec"] is not None:
+        raise ValueError(
+            "spec= (speculative decoding) requires cache='paged'")
 
 
 @dataclass
@@ -205,9 +267,10 @@ class _Request:
 
 
 class GenerationServer:
-    """Paged continuous-batching decode server for a ``LlamaForCausalLM`` —
-    greedy by default, per-request sampling via ``submit(...,
-    temperature=, top_k=, top_p=)``.
+    """Continuous-batching decode server for a ``LlamaForCausalLM``, over a
+    dense slab (``cache="dense"``, the default) or a paged block pool
+    (``cache="paged"``) — greedy by default, per-request sampling via
+    ``submit(..., temperature=, top_k=, top_p=)``.
 
     Usage::
 
@@ -222,6 +285,9 @@ class GenerationServer:
     NotImplementedError on any other value. ``device`` comes after them:
     where the server runs — ``None`` means the current CUDA device (raises
     when there is none); it must be the model's device.
+    ``prompt_buckets``: the dense path's prefill lengths (those over
+    ``max_len`` are dropped; a prompt longer than the largest raises at
+    ``submit``); taken and ignored on the paged path, as in JAX.
     ``block_size`` tokens per KV block; ``num_blocks`` bounds KV memory
     (default: every slot can hold ``max_len`` tokens, plus scratch), or
     ``pool_bytes`` sizes the pool by a byte budget (``num_blocks =
@@ -269,7 +335,7 @@ class GenerationServer:
     def __init__(self, model, max_batch: int = 4, max_len: int = 256,
                  prompt_buckets: Sequence[int] = (32, 64, 128),
                  eos_token_id: Optional[int] = None, seed: int = 0,
-                 tick_window: int = 1, cache: str = "paged",
+                 tick_window: int = 1, cache: str = "dense",
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 32, spec=None,
                  kv_quant: str = "none", pool_bytes: Optional[int] = None,
@@ -281,9 +347,16 @@ class GenerationServer:
                  fault_retries: int = 3, kernels: str = "auto",
                  mk_geometry=None, mesh=None, role: str = "any",
                  profile=None, clock=None, device=None):
-        from ..ops import KERNEL_MODES, kernel_mode, set_kernel_mode
+        from ..ops import KERNEL_MODES
 
         given = locals()
+        if cache not in ("dense", "paged"):
+            raise ValueError(f"cache must be 'dense' or 'paged', got {cache!r}")
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(
+                f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
+        if cache == "dense":
+            _refuse_paged_only(given)
         for name, default in _UNPORTED_DEFAULTS.items():
             if given[name] != default:
                 raise NotImplementedError(
@@ -312,14 +385,8 @@ class GenerationServer:
                 raise ValueError(
                     "spec= (speculative decoding) requires cache='paged'")
             spec.validate()
-        if cache != "paged":
-            raise NotImplementedError(
-                f"cache={cache!r}: only cache='paged' is ported")
         if tick_window < 1:
             raise ValueError(f"tick_window must be >= 1, got {tick_window}")
-        if kv_quant not in ("none", "int8"):
-            raise ValueError(
-                f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
         if pool_bytes is not None and num_blocks is not None:
             raise ValueError(
                 "pass either num_blocks= or pool_bytes=, not both")
@@ -352,6 +419,7 @@ class GenerationServer:
                              f"on {self.device}: move one of them")
         self.model = model
         self.cfg = cfg
+        self.cache_mode = cache
         self.kv_quant = kv_quant
         self.max_batch = max_batch
         self.max_len = max_len
@@ -472,6 +540,31 @@ class GenerationServer:
         # program key of the last trip, recorded per step by the flight
         # recorder; the watchdog keys its recompile excusal on it
         self._last_prog = "idle"
+        # throughput ledger: real prompt tokens / decoded tokens and the
+        # host wall time of the work, each span ending on a host copy of
+        # its result (so the device work is complete)
+        self._prefill_tokens = 0
+        self._prefill_chunks = 0
+        self._prefill_wall_s = 0.0
+        self._decode_trips = 0
+        self._weights_checked = False
+        self._decode_ticks = 0
+        self._decode_tokens = 0
+        self._decode_wall_s = 0.0
+        self._verify_trips = 0
+        self._verify_windows = 0
+        self._verify_tokens = 0
+        self._verify_wall_s = 0.0
+        self.kernels = kernels
+        self.mk_geometry = mk_geometry
+        self._lora = None
+        # True while a paged slot streams prompt chunks; a dense slot
+        # prefills at admission and is never left prefilling
+        self._prefilling: List[Optional[bool]] = [None] * max_batch
+        if cache == "dense":
+            self._init_dense(prompt_buckets)
+            self._build_executor(kernels, lambda: DenseExecutor(self))
+            return
 
         bs = int(block_size)
         if bs < 1:
@@ -524,20 +617,6 @@ class GenerationServer:
         self.aidx = np.zeros((max_batch,), np.int32)
         self._lora = (AdapterPool(cfg, lora, device=self.device)
                       if lora is not None else None)
-        # True while the slot streams prompt chunks; None once it decodes
-        # (or is empty)
-        self._prefilling: List[Optional[bool]] = [None] * max_batch
-        # throughput ledger: real prompt tokens / decoded tokens and the
-        # host wall time of the work, each span ending on a host copy of
-        # its result (so the device work is complete)
-        self._prefill_tokens = 0
-        self._prefill_chunks = 0
-        self._prefill_wall_s = 0.0
-        self._decode_trips = 0
-        self._weights_checked = False
-        self._decode_ticks = 0
-        self._decode_tokens = 0
-        self._decode_wall_s = 0.0
         # the executor's inputs, staged in pinned host memory (on a CUDA
         # device): a pass fills these and the executor copies them into its
         # device buffers; every pass ends in a host copy of its result
@@ -593,23 +672,46 @@ class GenerationServer:
                 for name, shape in (("proposals", (max_batch, self.spec_k)),
                                     ("kcaps", (max_batch,)),
                                     ("ctx", (max_batch, max_len)))})
-        self._verify_trips = 0
-        self._verify_windows = 0
-        self._verify_tokens = 0
-        self._verify_wall_s = 0.0
         self._stage_np = {k: t.numpy() for k, t in self._stage.items()}
-        self.kernels = kernels
-        self.mk_geometry = mk_geometry
-        # the mode is process-wide (as in the JAX package); a server that
-        # fails to build leaves it as it found it
+        self._build_executor(
+            kernels, lambda: PagedExecutor(self, num_blocks=int(num_blocks)))
+
+    def _build_executor(self, kernels: str, make) -> None:
+        """Set the process-wide kernel mode (as in the JAX package), then
+        build the executor (``make()``); a server that fails to build
+        leaves the mode as it found it."""
+        from ..ops import kernel_mode, set_kernel_mode
+
         prev_mode = kernel_mode()
         if kernels != "auto":
             set_kernel_mode(kernels)
         try:
-            self._exec = PagedExecutor(self, num_blocks=int(num_blocks))
+            self._exec = make()
         except BaseException:
             set_kernel_mode(prev_mode)
             raise
+
+    def _init_dense(self, prompt_buckets) -> None:
+        """The dense half of the constructor: the prompt buckets that fit
+        ``max_len`` and the pinned staging of the programs' inputs."""
+        self.buckets = sorted(int(b) for b in prompt_buckets
+                              if b <= self.max_len)
+        if not self.buckets:
+            raise ValueError(
+                f"no prompt bucket fits max_len={self.max_len} "
+                f"(prompt_buckets={tuple(prompt_buckets)})")
+        B = self.max_batch
+        pin = self.device.type == "cuda"
+        i32 = torch.int32
+        self._stage = {
+            name: torch.zeros(shape, dtype=dt, pin_memory=pin)
+            for name, shape, dt in (
+                ("tokens", (B,), i32), ("pos", (B,), i32),
+                ("active", (B,), i32), ("temps", (B,), torch.float32),
+                ("topks", (B,), i32), ("topps", (B,), torch.float32),
+                ("prompt", (1, self.buckets[-1]), i32),
+                ("true_len", (1,), torch.long), ("slot", (1,), torch.long))}
+        self._stage_np = {k: t.numpy() for k, t in self._stage.items()}
 
     # --------------------------------------------------------------- requests
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -682,22 +784,10 @@ class GenerationServer:
                     "adapter= requires a server built with "
                     "lora=LoRAConfig(...)")
             self._lora.validate(adapter)
-        # feasibility gate: a request whose worst-case block need — its
-        # final position plus the transient decode-window (or speculative-
-        # window) reservation — exceeds the pool could never finish
-        if self.spec is not None:
-            wmax = max(self.tick_window, int(self.spec.turbo_windows))
-            trans = max(wmax * (self.spec_k + 1), int(self.spec.gate_ticks))
+        if self.cache_mode == "dense":
+            self._bucket_for(len(prompt))   # validated against the buckets
         else:
-            trans = self.tick_window
-        worst = len(prompt) + max_new_tokens - 1 + trans
-        need = min(self._max_entries, -(-worst // self.block_size))
-        if need > self.alloc.num_blocks - 1:
-            raise ValueError(
-                f"request needs up to {need} KV blocks but the pool has "
-                f"{self.alloc.num_blocks - 1} usable — it could never be "
-                f"scheduled; raise num_blocks/pool_bytes or shorten the "
-                f"request")
+            self._feasible(prompt, max_new_tokens)
         rid = self._next_rid
         self._next_rid += 1
         req = _Request(rid, prompt, int(max_new_tokens),
@@ -715,6 +805,33 @@ class GenerationServer:
                         prompt_len=len(prompt), adapter=adapter or "")
             tr.begin(rid, "queued", priority=priority, tenant=tenant)
         return rid
+
+    def _feasible(self, prompt, max_new_tokens) -> None:
+        """The paged feasibility gate: a request whose worst-case block
+        need — its final position plus the transient decode-window (or
+        speculative-window) reservation — exceeds the pool could never
+        finish; it is refused at the door."""
+        if self.spec is not None:
+            wmax = max(self.tick_window, int(self.spec.turbo_windows))
+            trans = max(wmax * (self.spec_k + 1), int(self.spec.gate_ticks))
+        else:
+            trans = self.tick_window
+        worst = len(prompt) + max_new_tokens - 1 + trans
+        need = min(self._max_entries, -(-worst // self.block_size))
+        if need > self.alloc.num_blocks - 1:
+            raise ValueError(
+                f"request needs up to {need} KV blocks but the pool has "
+                f"{self.alloc.num_blocks - 1} usable — it could never be "
+                f"scheduled; raise num_blocks/pool_bytes or shorten the "
+                f"request")
+
+    def _bucket_for(self, n: int) -> int:
+        """The smallest prompt bucket that holds ``n`` tokens (dense)."""
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest bucket "
+                         f"{self.buckets[-1]}")
 
     def _salt(self, adapter: Optional[str]) -> tuple:
         """Prefix-chain seed of a request: its adapter's name and
@@ -753,15 +870,18 @@ class GenerationServer:
 
     def _fill_free_slots(self) -> None:
         """Admit waiting requests into free slots in scheduler-policy
-        order, gated on block headroom, with no head-of-line bypass
+        order; a dense slot prefills at once (:meth:`_assign`). Paged
+        admission is gated on block headroom, with no head-of-line bypass
         (skipping an inadmissible head for a later entry could starve it;
-        a draining pool always reopens headroom). A swapped entry resumes
+        a draining pool always reopens headroom); a swapped entry resumes
         where it stopped."""
         for s in range(self.max_batch):
             if self._slots[s] is not None:
                 continue
             ent = self._sched.peek()
-            if ent is None or not self._admissible(ent):
+            if ent is None:
+                break
+            if self.cache_mode == "paged" and not self._admissible(ent):
                 break
             self._sched.pop()
             ent.started = True
@@ -771,16 +891,18 @@ class GenerationServer:
                     # (hash matches changed): requeue, retry next step
                     self._sched.requeue(ent)
                     break
-            else:
+            elif self.cache_mode == "paged":
                 self._admit_paged(s, ent.req)
+            else:
+                self._assign(s, ent.req)
 
     def _service_queue(self) -> None:
         """Queue maintenance at the top of every step: expire TTL'd
         waiters, replay the queue's adapter demand through the adapter
         pool's LRU, fill free slots in policy order, then — if a strictly
         more urgent entry waits behind a full batch — preempt the least
-        urgent running request for it (one victim a step bounds the
-        churn)."""
+        urgent running request for it (one victim a step bounds the churn;
+        paged only)."""
         for ent in self._sched.expire():
             self._drop_entry(ent, "expired")
         if self._lora is not None:
@@ -788,6 +910,8 @@ class GenerationServer:
             # become most recently used and evict last
             self._lora.warm(self._sched.adapter_demand())
         self._fill_free_slots()
+        if self.cache_mode != "paged":
+            return
         ent = self._sched.peek()
         if ent is not None and all(sl is not None for sl in self._slots):
             v = self._pick_victim(ent.priority)
@@ -806,6 +930,33 @@ class GenerationServer:
             self._offload.discard(ent.swap)
             ent.swap = None
         self._tel.tracer.close(ent.rid, reason)
+
+    def _assign(self, slot: int, req: _Request) -> None:
+        """Dense admission: the prompt, right-padded to its bucket, through
+        one prefill program that scatters the slot's whole cache row, then
+        the first token. Rows past the prompt hold the padding's K/V, but
+        decode writes from ``pos = len(prompt)`` on, each position before
+        the attention mask (``<= pos``) reaches it."""
+        n = len(req.prompt)
+        bucket = self._bucket_for(n)
+        st, sn = self._stage, self._stage_np
+        sn["prompt"][:] = 0
+        sn["prompt"][0, :n] = req.prompt
+        sn["true_len"][0] = n
+        sn["slot"][0] = slot
+        if self._tel.enabled:
+            self._tel.tracer.end(req.rid, "queued")
+            self._tel.tracer.begin(req.rid, "prefill", bucket=bucket,
+                                   prompt_len=n)
+        w0 = time.perf_counter()
+        lg = self._exec.prefill_dense(bucket, st["prompt"][:, :bucket],
+                                      st["true_len"], st["slot"])
+        first = self._first_token(req, lg)
+        self._prefill_tokens += n
+        self._prefill_chunks += 1
+        self._prefill_wall_s += time.perf_counter() - w0
+        self._activate_slot(slot, req, first)
+        self._slots[slot] = req
 
     def _admit_paged(self, slot: int, req: _Request) -> None:
         """Claim a slot: take the request's adapter page (an upload on a
@@ -1297,6 +1448,9 @@ class GenerationServer:
     def _release_slot(self, slot: int) -> None:
         req = self._slots[slot]
         self._slots[slot] = None
+        if self.cache_mode == "dense":
+            # as JAX's: the row stays until the next prefill rewrites it
+            return
         for bid in req.table:
             self.alloc.free(bid)
         req.table = []
@@ -1571,6 +1725,8 @@ class GenerationServer:
         if not self._weights_checked:
             self._exec.check_weights()
             self._weights_checked = True
+        if self.cache_mode == "dense":
+            return self._step_dense()
         tel = self._tel
         if not tel.enabled:
             return self._step_inner()
@@ -1628,6 +1784,59 @@ class GenerationServer:
                         self._c_degrade.inc(kind=f["kind"])
                 self._degraded_ticks = 64
         return remaining
+
+    def _step_dense(self) -> int:
+        """The dense step (JAX ``step`` with ``cache="dense"``): admit
+        queued requests (each prefilled at once into its slot's row), then
+        one decode window of ``tick_window`` ticks across the occupied
+        slots. With telemetry, each request gets the window's
+        ``decode_window`` span and the step a flight record with
+        ``prog="dense"``."""
+        tel = self._tel
+        if tel.enabled:
+            t_step = tel.clock()
+            c0 = self._exec.captures
+        self._service_queue()
+        active = [s for s in range(self.max_batch)
+                  if self._slots[s] is not None]
+        if not active:
+            return 0
+        self._step_no += 1
+        greedy = all(float(self.temps[s]) == 0.0 for s in active)
+        active_mask = np.zeros((self.max_batch,), np.int32)
+        active_mask[active] = 1
+        st, sn = self._stage, self._stage_np
+        sn["tokens"][:] = self.tokens
+        sn["pos"][:] = self.pos
+        sn["active"][:] = active_mask
+        if not greedy:
+            sn["temps"][:] = self.temps
+            sn["topks"][:] = self.topks
+            sn["topps"][:] = self.topps
+        if tel.enabled:
+            t0 = tel.clock()
+            rids = [self._slots[s].rid for s in active]
+        w0 = time.perf_counter()
+        # only occupied slots advance: an idle slot's writes stay at its
+        # last position, in a row the next prefill rewrites
+        stack = self._exec.decode_dense(
+            st["tokens"], st["pos"], st["temps"], st["topks"], st["topps"],
+            st["active"], self._gen, greedy=greedy, ticks=self.tick_window)
+        nxt = stack.cpu().numpy()
+        self._decode_wall_s += time.perf_counter() - w0
+        self._decode_trips += 1
+        self._decode_ticks += self.tick_window
+        self._decode_tokens += self._harvest_window(nxt, active, active_mask)
+        if tel.enabled:
+            t1 = tel.clock()
+            for rid in rids:
+                tel.tracer.complete(rid, "decode_window", t0, t1,
+                                    ticks=self.tick_window)
+            tel.flight.record(t_wall_s=t1 - t_step, prog="dense",
+                              decoding=len(active),
+                              queue_depth=len(self._sched),
+                              recompiles=self._exec.captures - c0)
+        return sum(sl is not None for sl in self._slots) + len(self._sched)
 
     def _step_inner(self) -> int:
         tel_on = self._tel.enabled
@@ -1725,7 +1934,8 @@ class GenerationServer:
         for s in range(self.max_batch):
             req = self._slots[s]
             if req is not None and req.rid == rid:
-                req.table = self.alloc.truncate(req.table, 0)
+                if self.cache_mode == "paged":
+                    req.table = self.alloc.truncate(req.table, 0)
                 self._dropped[rid] = "cancelled"
                 self._c_dropped.inc(reason="cancelled")
                 m = self._req_metrics.get(rid)
@@ -1759,8 +1969,8 @@ class GenerationServer:
         """Scheduler and preemption counters, the JAX server's keys: the
         policy, queue depth, submitted / expired / cancelled requests,
         preemptions (swaps), prefill aborts, resumes, stalled
-        reservations, the host pool's bytes in use and at peak, the
-        swapped requests waiting, ``tenants`` (per-tenant TTFT / TPOT
+        reservations, the host pool's bytes in use and at peak and the
+        swapped requests waiting (paged), ``tenants`` (per-tenant TTFT / TPOT
         percentiles) and the adapter pool's counters with ``lora=``. A
         view over the telemetry registry: these counters are the values
         it exposes."""
@@ -1775,11 +1985,12 @@ class GenerationServer:
              "preemptions": int(self._c_preempt.total()),
              "prefill_aborts": int(self._c_aborts.total()),
              "resumes": int(self._c_resumes.total()),
-             "stalled_reservations": int(self._c_stalls.total()),
-             "host_bytes_in_use": self._offload.host.bytes_in_use,
-             "host_bytes_peak": self._offload.host.bytes_peak,
-             "swapped_waiting": sum(1 for e in self._sched.waiting()
-                                    if e.swap is not None)}
+             "stalled_reservations": int(self._c_stalls.total())}
+        if self.cache_mode == "paged":
+            m["host_bytes_in_use"] = self._offload.host.bytes_in_use
+            m["host_bytes_peak"] = self._offload.host.bytes_peak
+            m["swapped_waiting"] = sum(1 for e in self._sched.waiting()
+                                       if e.swap is not None)
         m["tenants"] = self._tenant_breakdown()
         if self._lora is not None:
             m.update(self._lora.stats())
@@ -1828,7 +2039,10 @@ class GenerationServer:
           pages, and page refs equal the occupied slots holding each page.
 
         Returns the audited numbers (the JAX server's keys less the
-        tensor-parallel shards')."""
+        tensor-parallel shards'); a dense server has no pool to audit and
+        returns ``{}``."""
+        if self.cache_mode != "paged":
+            return {}
         from collections import Counter
 
         a = self.alloc
@@ -1903,19 +2117,24 @@ class GenerationServer:
 
     def load_metrics(self) -> Dict[str, int]:
         """O(1) load signals for routing: queue depth, occupied and total
-        slots, the allocator's admission headroom and the queue's
-        annotated block demand."""
-        return {"queue_depth": len(self._sched),
-                "slots_occupied": sum(sl is not None for sl in self._slots),
-                "slots_total": self.max_batch,
-                "blocks_headroom": (self.alloc.blocks_free
-                                    + self.alloc.evictable_cached),
-                "queued_kv_demand": self._sched.kv_demand()}
+        slots, and (paged) the allocator's admission headroom and the
+        queue's annotated block demand."""
+        m = {"queue_depth": len(self._sched),
+             "slots_occupied": sum(sl is not None for sl in self._slots),
+             "slots_total": self.max_batch}
+        if self.cache_mode == "paged":
+            m["blocks_headroom"] = (self.alloc.blocks_free
+                                    + self.alloc.evictable_cached)
+            m["queued_kv_demand"] = self._sched.kv_demand()
+        return m
 
     def probe_prefix(self, prompt: Sequence[int]) -> int:
         """Cached prefix blocks this server could reuse for ``prompt`` (an
         adapterless request's chain), hot or warm. Read-only: takes no
-        references."""
+        references. 0 on the dense path, which has no content-addressed
+        cache."""
+        if self.cache_mode != "paged":
+            return 0
         return self.alloc.probe_prefix(list(prompt))
 
     def set_rid_base(self, base: int) -> None:
@@ -2000,6 +2219,9 @@ class GenerationServer:
         one): host request state is consistent at the last harvest, the
         pools may not be. Swapped entries keep their payloads either way
         (host memory behind a CRC)."""
+        if self.cache_mode != "paged":
+            raise ValueError("snapshot() requires cache='paged' — the "
+                             "dense slab has no per-request KV capture")
         if self._failed is not None and trust_kv:
             raise ValueError(
                 f"server failed ({self._failed}): device KV is untrusted "
@@ -2094,6 +2316,8 @@ class GenerationServer:
         snapshot leaves this server as it was). The generator state is set
         here, before this server's next replay (and, on a fresh server, its
         first capture); the speculation gate's state with ``spec=``."""
+        if self.cache_mode != "paged":
+            raise ValueError("restore() requires cache='paged'")
         if self._failed is not None:
             raise ValueError(f"cannot restore into a failed server "
                              f"({self._failed}) — build a fresh one")
@@ -2222,6 +2446,8 @@ class GenerationServer:
         payload resumes through the CRC-verified swap-in. ``source_config``
         (the snapshot's ``config``) is checked when given. The caller
         keeps rids unique across servers. Returns the admitted rid."""
+        if self.cache_mode != "paged":
+            raise ValueError("admit_migrated() requires cache='paged'")
         if self._failed is not None:
             raise EngineFailedError(
                 f"cannot migrate into a failed server ({self._failed})")
@@ -2240,6 +2466,8 @@ class GenerationServer:
         ``serving_swap_reprefills``), a hash already hot here is skipped,
         and the tier's own capacity rules apply. Returns the number of
         entries adopted."""
+        if self.cache_mode != "paged":
+            raise ValueError("adopt_warm() requires cache='paged'")
         adopted = 0
         for d in entries:
             h = int(d["hash"])
@@ -2292,7 +2520,10 @@ class GenerationServer:
     # -------------------------------------------------------------- metrics
     def kv_stats(self) -> Dict[str, int]:
         """Paged-pool occupancy and prefix-cache counters, merged with the
-        warm tier's (``warm_*``) and the cold-refill count."""
+        warm tier's (``warm_*``) and the cold-refill count (empty for
+        dense)."""
+        if self.cache_mode != "paged":
+            return {}
         out = self.alloc.stats()
         out.update(self._offload.tier_stats())
         out["cold_refills"] = self._cold_refills
@@ -2332,19 +2563,21 @@ class GenerationServer:
         reg.gauge("serving_slots_occupied").set(
             float(sum(sl is not None for sl in self._slots)))
         reg.gauge("serving_slots_total").set(float(self.max_batch))
-        self.alloc.publish(reg)
-        for k, v in self._offload.host.stats().items():
-            reg.gauge(f"serving_host_pool_{k}").set(float(v))
-        for k, v in self._offload.tier_stats().items():
-            reg.gauge(f"serving_tier_{k}").set(float(v))
-        reg.gauge("serving_tier_cold_refills").set(float(self._cold_refills))
+        if self.cache_mode == "paged":
+            self.alloc.publish(reg)
+            for k, v in self._offload.host.stats().items():
+                reg.gauge(f"serving_host_pool_{k}").set(float(v))
+            for k, v in self._offload.tier_stats().items():
+                reg.gauge(f"serving_tier_{k}").set(float(v))
+            reg.gauge("serving_tier_cold_refills").set(
+                float(self._cold_refills))
         if self._lora is not None:
             for k, v in self._lora.stats().items():
                 reg.gauge(f"serving_{k}").set(float(v))
         for k, v in self.spec_metrics().items():
             reg.gauge(f"serving_spec_{k}").set(float(v))
         snap = self._tel.snapshot()
-        snap["config"] = {"cache": "paged",
+        snap["config"] = {"cache": self.cache_mode,
                           "max_batch": self.max_batch,
                           "max_len": self.max_len,
                           "tick_window": self.tick_window,
@@ -2367,7 +2600,8 @@ class GenerationServer:
     def throughput_stats(self) -> Dict[str, float]:
         """Prompt tokens and decode ticks served so far with their host wall
         time (each span ends on a host copy of its result, so the device
-        work is included): ``decode_trips`` plain host round trips of
+        work is included): ``prefill_chunks`` the prefill passes (on the
+        dense path one a prompt, at its bucket), ``decode_trips`` plain host round trips of
         ``decode_ticks`` ticks in all (``tick_window`` each, ``gate_ticks``
         a gated trip), ``decode_tokens`` the tokens they kept (a window's
         surplus past a request's end is not counted); ``verify_trips``

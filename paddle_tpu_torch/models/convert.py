@@ -1,5 +1,6 @@
 """Weights from the JAX package into the port: Llama
-(:func:`params_from_jax`) and ERNIE (:func:`ernie_params_from_jax`).
+(:func:`params_from_jax`), ERNIE (:func:`ernie_params_from_jax`) and GPT
+(:func:`gpt_params_from_jax`).
 
 The port keeps Paddle's ``Linear`` layout — every projection weight is
 ``(in, out)`` and the port computes ``x @ weight`` — so the conversion is a
@@ -18,6 +19,7 @@ import torch
 
 from .. import resolve_device
 from .ernie import ErnieConfig
+from .gpt import GPTConfig
 from .llama import LlamaConfig
 
 
@@ -164,6 +166,55 @@ def ernie_params_from_jax(state: Dict[str, np.ndarray], cfg: ErnieConfig,
         arr = np.asarray(state[name])
         if tuple(arr.shape) != shape:
             raise ValueError(f"ernie_params_from_jax: {name} has shape "
+                             f"{tuple(arr.shape)}, want {shape}")
+        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+        out[name] = t.to(device=device, dtype=dtype)
+    return out
+
+
+def gpt_param_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
+    """Name → shape of every parameter of ``GPTForCausalLM(cfg)``, in the
+    JAX package's naming and layout (the head is tied to ``wte``: no
+    parameter of its own)."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    t = "transformer."
+    out = {t + "wte.weight": (cfg.vocab_size, h),
+           t + "wpe.weight": (cfg.max_position_embeddings, h)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"{t}h.{i}."
+        for name, (n_in, n_out) in (("c_attn", (h, 3 * h)),
+                                    ("c_proj", (h, h)), ("c_fc", (h, f)),
+                                    ("c_out", (f, h))):
+            out[p + name + ".weight"] = (n_in, n_out)
+            out[p + name + ".bias"] = (n_out,)
+        for norm in ("ln_1", "ln_2"):
+            out[p + norm + ".weight"] = (h,)
+            out[p + norm + ".bias"] = (h,)
+    out[t + "ln_f.weight"] = (h,)
+    out[t + "ln_f.bias"] = (h,)
+    return out
+
+
+def gpt_params_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
+                        device=None, dtype=None) -> Dict[str, torch.Tensor]:
+    """Turn a JAX GPT model's named parameters (``state_values(model)``
+    converted to numpy) into a state dict for the port's
+    ``GPTForCausalLM.load_state_dict``, in ``dtype`` (default
+    ``cfg.dtype``) on ``device`` (None: the CUDA card). Raises on a
+    missing, unexpected or mis-shaped parameter."""
+    device = resolve_device(device)
+    dtype = cfg.torch_dtype if dtype is None else dtype
+    want = gpt_param_shapes(cfg)
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    if missing or extra:
+        raise KeyError(f"gpt_params_from_jax: missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    out = {}
+    for name, shape in want.items():
+        arr = np.asarray(state[name])
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"gpt_params_from_jax: {name} has shape "
                              f"{tuple(arr.shape)}, want {shape}")
         t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
         out[name] = t.to(device=device, dtype=dtype)

@@ -4,7 +4,10 @@ causal training forward (``LlamaForCausalLM.forward(input_ids, labels)``:
 flash attention, the fused lm-head + CE loss) and the paged serving
 forwards (decode, the speculative verify window and chunked prefill) over an fp or an int8 KV pool, with
 weight-only int8 projections (:meth:`LlamaForCausalLM.quantize_int8`) or
-per-row LoRA adapters read from the adapter pool (``lora=``).
+per-row LoRA adapters read from the adapter pool (``lora=``), and the
+fixed-cache forwards of dense generation (``prefill`` over a whole prompt,
+``decode`` of one token a row at a scalar or per-row position) behind
+:meth:`LlamaForCausalLM.generate` and ``GenerationServer(cache="dense")``.
 
 Parameters keep the JAX package's names and Paddle's ``Linear`` layout:
 every projection weight is ``(in, out)`` and a projection computes
@@ -20,13 +23,14 @@ Training recomputes activations per decoder layer under ``cfg.recompute``
 ``remat=True`` and its ``remat_policy``, which sees the checkpoint names
 ``qkv``, ``attn_out`` and ``mlp_out`` where the JAX model sets them.
 
-Left out so far: dense KV caches, MoE, training-side LoRA (``lora_rank``),
+Left out so far: MoE, training-side LoRA (``lora_rank``),
 the fused int8 q/k/v weight (``PT_W8_FUSED_QKV``),
 ring/Ulysses/context/sequence parallel attention.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -49,6 +53,7 @@ from ..ops.paged_attention import (paged_prefill_attention,
                                    write_window_kv_q)
 from ..ops.stream_matmul import stream_matmul
 
+NEG_INF = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -172,6 +177,81 @@ def _apply_rope_chunk(x, cos, sin, start):
                         sin[idx][None, :, None, :])
 
 
+def rows_pos(pos, B: int, device) -> torch.Tensor:
+    """A decode position as int (B,) rows on ``device``: a host int, a
+    0-d or (1,) device scalar (one position for every row, expanded
+    without a copy) or a per-row (B,) tensor."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((B,), int(pos), dtype=torch.long, device=device)
+    return pos.reshape(-1).long().expand(B) if pos.numel() == 1 \
+        else pos.reshape(B).long()
+
+
+def masked_attention(q, k, v, causal: bool = True):
+    """The JAX model's einsum attention (``use_flash_attention=False``):
+    q (B, S, H, D), k/v (B, T, KV, D) repeated to H heads, logits in the
+    input dtype then fp32 over sqrt(D), masked logits -1e30 (causal:
+    bottom-right aligned), fp32 softmax cast to q's dtype before PV.
+    Returns (B, S, H, D)."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if KV != H:
+        # query head h reads KV head h // (H / KV), as jnp.repeat lays out
+        k = k[:, :, :, None].expand(B, T, KV, H // KV, D).reshape(B, T, H, D)
+        v = v[:, :, :, None].expand(B, T, KV, H // KV, D).reshape(B, T, H, D)
+    logits = torch.einsum("bshd,bthd->bhst", q, k).float() \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        mask = torch.ones(S, T, dtype=torch.bool, device=q.device).tril(T - S)
+        logits = logits.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", p, v)
+
+
+def write_rows(cache, new, pos) -> None:
+    """Write one token a row into a fixed cache, in place: ``cache`` (B, L,
+    KV, D), ``new`` (B, KV, D) at row b's position ``pos[b]`` (int (B,)).
+    A position past the cache is clamped to L - 1, a slot no kept token
+    reads (the surplus ticks of a decode window past max_len: JAX drops
+    those writes)."""
+    B, L = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    cache.index_put_((rows, torch.clamp(pos, max=L - 1)),
+                     new.to(cache.dtype))
+
+
+def decode_attention(q, ck, cv, pos):
+    """One query a row against a fixed cache — the JAX ``decode`` step's
+    GQA einsum (a jnp composition there, plain PyTorch here): q (B, 1, H,
+    D); ck/cv (B, L, KV, D); row b attends positions ``<= pos[b]`` (int
+    (B,)). Logits in the input dtype then fp32 over sqrt(D), masked -1e30,
+    fp32 softmax cast to q's dtype before PV. Returns (B, 1, H, D).
+
+    Each product reads the cache as it lies, (L, KV·D) rows a batch row,
+    in one matrix product: the scores multiply it by the queries placed
+    block-diagonally (H, KV·D), zero outside each query head's KV group,
+    and PV multiplies the probabilities by it and keeps the (query head,
+    its group) blocks. The zeros add exact zeros to the sums; the cache
+    is never permuted into a copy (a per-group product would copy the
+    whole slab every layer)."""
+    B, _, H, D = q.shape
+    L, KV = ck.shape[1], ck.shape[2]
+    eye = torch.eye(KV, dtype=q.dtype, device=q.device)
+    # qbd[b, g·rep + r, g2·D + d] = [g == g2] · q[b, g·rep + r, d]
+    qg = q.reshape(B, KV, H // KV, 1, D)
+    qbd = (qg * eye[None, :, None, :, None]).reshape(B, H, KV * D)
+    scores = torch.matmul(qbd, ck.reshape(B, L, KV * D).transpose(1, 2))
+    scores = scores.float() / math.sqrt(D)                   # (B, H, L)
+    mask = torch.arange(L, device=q.device)[None, :] <= pos[:, None]
+    scores = scores.masked_fill(~mask[:, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    full = torch.matmul(p, cv.reshape(B, L, KV * D))         # (B, H, KV·D)
+    # keep head h = (g, r)'s own group g: (B, KV, rep, KV, D) diagonal
+    out = torch.diagonal(full.reshape(B, KV, H // KV, KV, D), dim1=1,
+                         dim2=3)                             # (B, rep, D, KV)
+    return out.permute(0, 3, 1, 2).reshape(B, 1, H, D)
+
+
 # --------------------------------------------------------------------------- #
 # Modules
 # --------------------------------------------------------------------------- #
@@ -245,6 +325,7 @@ class LlamaAttention(nn.Module):
         self.num_heads = cfg.num_attention_heads
         self.num_kv_heads = cfg.num_key_value_heads
         self.head_dim = cfg.head_dim
+        self.use_flash = cfg.use_flash_attention
         h, d = cfg.hidden_size, self.head_dim
         self.q_proj = Linear(h, self.num_heads * d, cfg, device)
         self.k_proj = Linear(h, self.num_kv_heads * d, cfg, device)
@@ -276,6 +357,11 @@ class LlamaAttention(nn.Module):
         then flash attention, then back. x: (B, S, hidden)."""
         B, S = x.shape[0], x.shape[1]
         q, k, v = (checkpoint_name(t, "qkv") for t in self._qkv(x, B, S))
+        if not self.use_flash:
+            out = masked_attention(_apply_rope_chunk(q, cos, sin, 0),
+                                   _apply_rope_chunk(k, cos, sin, 0), v)
+            out = checkpoint_name(out, "attn_out")
+            return self.o_proj(out.reshape(B, S, -1))
         qh = _apply_rope_bhsd(q.transpose(1, 2), cos, sin)
         kh = _apply_rope_bhsd(k.transpose(1, 2), cos, sin)
         vh = v.transpose(1, 2)
@@ -284,6 +370,44 @@ class LlamaAttention(nn.Module):
         # copy where a policy saves it, the reshape's copy otherwise
         out = checkpoint_name(out.transpose(1, 2), "attn_out")
         return self.o_proj(out.reshape(B, S, -1))
+
+    def prefill(self, x, cos, sin, ck, cv):
+        """A whole prompt in one causal pass (JAX ``prefill``): its K/V
+        written into the fixed caches ck/cv (B, L, KV, D) at [0, S), in
+        place; flash attention over the prompt with ``use_flash_attention``
+        (the kernel on the card), the masked einsum otherwise. x: (B, S,
+        hidden). Returns (output, ck, cv)."""
+        B, S = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(x, B, S)
+        qr = _apply_rope_chunk(q, cos, sin, 0)
+        kr = _apply_rope_chunk(k, cos, sin, 0)
+        ck[:, :S] = kr.to(ck.dtype)
+        cv[:, :S] = v.to(cv.dtype)
+        if self.use_flash:
+            out = flash_attention(qr.transpose(1, 2), kr.transpose(1, 2),
+                                  v.transpose(1, 2),
+                                  causal=True).transpose(1, 2)
+        else:
+            out = masked_attention(qr, kr, v)
+        return self.o_proj(out.reshape(B, S, -1)), ck, cv
+
+    def decode(self, x, cos, sin, ck, cv, pos):
+        """One token a row against the fixed caches (JAX ``decode``): its
+        K/V written at the row's position (in place) and attention over
+        positions <= it. x: (B, 1, hidden); ck/cv (B, L, KV, D); pos: a
+        host int, a device scalar, or int (B,) per-row positions (the
+        dense server's slots). The projections are the batch-invariant
+        decode products (``stream``), so a row's logits do not depend on
+        the rows beside it. Returns (output, ck, cv)."""
+        B = x.shape[0]
+        q, k, v = self._qkv(x, B, 1, stream=True)
+        p = rows_pos(pos, B, x.device)
+        qr = _apply_rope_window(q, cos, sin, p)
+        kr = _apply_rope_window(k, cos, sin, p)
+        write_rows(ck, kr[:, 0], p)
+        write_rows(cv, v[:, 0], p)
+        out = decode_attention(qr, ck, cv, p)
+        return self.o_proj.stream(out.reshape(B, 1, -1)), ck, cv
 
     def paged_verify(self, x, cos, sin, pool, block_tables, pos,
                      lora=None):
@@ -369,6 +493,19 @@ class LlamaDecoderLayer(nn.Module):
         return h + checkpoint_name(self.mlp(self.post_attention_layernorm(h)),
                                    "mlp_out")
 
+    def prefill(self, x, cos, sin, ck, cv):
+        a, ck, cv = self.self_attn.prefill(self.input_layernorm(x), cos, sin,
+                                           ck, cv)
+        h = x + a
+        return h + self.mlp(self.post_attention_layernorm(h)), ck, cv
+
+    def decode(self, x, cos, sin, ck, cv, pos):
+        a, ck, cv = self.self_attn.decode(self.input_layernorm(x), cos, sin,
+                                          ck, cv, pos)
+        h = x + a
+        return h + self.mlp(self.post_attention_layernorm(h),
+                            stream=True), ck, cv
+
     def paged_verify(self, x, cos, sin, pool, block_tables, pos,
                      lora=None):
         a, pool = self.self_attn.paged_verify(self.input_layernorm(x), cos,
@@ -419,6 +556,29 @@ class LlamaModel(nn.Module):
                 run(layer, x, self._cos, self._sin)
         return self.norm(x)
 
+    def decode_step(self, token, caches, pos):
+        """Fixed-cache decode (JAX ``decode_step``): token int (B, 1);
+        caches: per-layer ``(ck, cv)`` (B, L, KV, D), written in place;
+        pos: a host int, a device scalar or int (B,) per-row positions.
+        Returns (normed hidden (B, 1, hidden), caches)."""
+        x = self.embed_tokens(token)
+        new = []
+        for layer, (ck, cv) in zip(self.layers, caches):
+            x, ck, cv = layer.decode(x, self._cos, self._sin, ck, cv, pos)
+            new.append((ck, cv))
+        return self.norm(x), new
+
+    def prefill(self, input_ids, caches):
+        """Fill the fixed caches at [0, S) from a whole prompt in one
+        forward (JAX ``prefill``). Returns (normed hidden of every prompt
+        position (B, S, hidden), caches)."""
+        x = self.embed_tokens(input_ids)
+        new = []
+        for layer, (ck, cv) in zip(self.layers, caches):
+            x, ck, cv = layer.prefill(x, self._cos, self._sin, ck, cv)
+            new.append((ck, cv))
+        return self.norm(x), new
+
     def paged_verify_step(self, tokens, pools, block_tables, pos,
                           lora=None):
         """Speculative verify: score a window of W = k+1 tokens a row in one
@@ -468,9 +628,6 @@ def _check_supported(cfg: LlamaConfig) -> None:
         "context_parallel": (cfg.context_parallel, False),
         "sequence_parallel": (cfg.sequence_parallel, False),
         "ulysses_parallel": (cfg.ulysses_parallel, False),
-        # attention always goes through flash_attention (its plain twin
-        # on the CPU or under set_kernel_mode("reference"))
-        "use_flash_attention": (cfg.use_flash_attention, True),
     }
     for name, (got, default) in unsupported.items():
         if got != default:
@@ -484,7 +641,8 @@ def _check_supported(cfg: LlamaConfig) -> None:
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama causal LM: the dense training forward and paged serving.
+    """Llama causal LM: the dense training forward, paged serving and
+    fixed-cache generation (:meth:`generate`).
 
     ``device=None`` puts the model on the current CUDA device and raises if
     there is none; pass ``device="cpu"`` for the plain PyTorch path. Weights
@@ -540,6 +698,8 @@ class LlamaForCausalLM(nn.Module):
                 setattr(mlp, name, Int8Linear.from_linear(getattr(mlp, name)))
         if not self.cfg.tie_word_embeddings:
             self.lm_head = Int8Linear.from_linear(self.lm_head)
+        # generation programs read the fp weights by address
+        self.__dict__.pop("_gen_cache", None)
         return self
 
     def head(self, h, stream: bool = False):
@@ -585,3 +745,50 @@ class LlamaForCausalLM(nn.Module):
         nll = -logp.gather(-1, lbl.clamp(0, logits.shape[-1] - 1)[..., None])
         nll = torch.where(valid, nll[..., 0], 0.0)
         return nll.sum() / valid.sum().clamp_min(1).float()
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: int = 0,
+                 eos_token_id: Optional[int] = None, num_beams: int = 1,
+                 length_penalty: float = 0.0):
+        """Autoregressive generation over fixed-size KV caches (PaddleNLP
+        ``model.generate``; greedy when temperature == 0): the prompt in
+        one prefill (flash attention with ``use_flash_attention``), then
+        one decode step a token, as the replay of one CUDA graph a step
+        on the card (``models/generation.py``). Sampling draws from a
+        generator seeded with ``seed``; ``num_beams > 1`` runs the beam
+        search (temperature / top_k / seed ignored). The decode products
+        are the batch-invariant ones (``stream_matmul``, or the int8
+        kernel after :meth:`quantize_int8`). Returns int32 (B, P +
+        max_new_tokens) on the model's device."""
+        from .generation import generate_with_caches
+
+        cfg = self.cfg
+        kv, d, n_layers = cfg.num_key_value_heads, cfg.head_dim, \
+            cfg.num_hidden_layers
+        device = self.device
+        model = self
+
+        def make_caches(B, L):
+            return [torch.zeros(B, L, kv, d, dtype=cfg.torch_dtype,
+                                device=device)
+                    for _ in range(2 * n_layers)]
+
+        def pairs(flat):
+            return [(flat[2 * i], flat[2 * i + 1]) for i in range(n_layers)]
+
+        def run_one(tok, flat, pos):
+            h, _ = model.model.decode_step(tok, pairs(flat), pos)
+            return model.head(h, stream=True)[:, 0]
+
+        def prefill(prompt, flat):
+            h, _ = model.model.prefill(prompt, pairs(flat))
+            return model.head(h[:, -1:])[:, 0]
+
+        return generate_with_caches(
+            self, input_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+            eos_token_id=eos_token_id, num_beams=num_beams,
+            length_penalty=length_penalty, make_caches=make_caches,
+            run_one=run_one, prefill=prefill,
+            max_positions=cfg.max_position_embeddings)

@@ -252,8 +252,8 @@ def bf16_model():
 
 
 def _serve(model, prompts, **kw):
-    srv = GenerationServer(model, device="cpu", max_batch=2, max_len=64,
-                           block_size=8, prefill_chunk=16, **kw)
+    srv = GenerationServer(model, cache="paged", device="cpu", max_batch=2,
+                           max_len=64, block_size=8, prefill_chunk=16, **kw)
     rids = [srv.submit(p, max_new_tokens=16) for p in prompts]
     out = srv.run()
     return [out[r] for r in rids], srv

@@ -3,7 +3,8 @@ parameters in the JAX package's order: the same positional call into both
 packages gives the same configuration, or a NotImplementedError in the port
 where it reaches a parameter the port does not serve yet. The JAX keywords
 the port does not take are accepted at their JAX defaults and raise
-NotImplementedError at any other value (never TypeError)."""
+NotImplementedError at any other value (never TypeError). A call that
+leaves ``cache`` out builds a dense server in both packages."""
 import numpy as np
 import pytest
 import torch
@@ -66,15 +67,20 @@ def _server_config(srv):
     """What a positional call sets, read alike from both servers."""
     seed = (int(np.asarray(srv._base_key)[-1]) if hasattr(srv, "_base_key")
             else srv._gen.initial_seed())
-    return dict(max_batch=srv.max_batch, max_len=srv.max_len, eos=srv.eos,
-                seed=seed, block_size=srv.block_size,
-                prefill_chunk=srv.prefill_chunk,
-                num_blocks=srv.alloc.num_blocks, kv_quant=srv.kv_quant,
-                kernels=srv.kernels, tick_window=srv.tick_window,
-                spec=None if srv.spec is None else srv.spec.describe(),
-                policy=srv._sched.policy,
-                host_pool_bytes=srv._offload.host.capacity_bytes,
-                fault_retries=srv.fault_retries)
+    out = dict(cache=srv.cache_mode, max_batch=srv.max_batch,
+               max_len=srv.max_len, eos=srv.eos, seed=seed,
+               kv_quant=srv.kv_quant, kernels=srv.kernels,
+               tick_window=srv.tick_window,
+               spec=None if srv.spec is None else srv.spec.describe(),
+               policy=srv._sched.policy, fault_retries=srv.fault_retries)
+    if srv.cache_mode == "paged":
+        out.update(block_size=srv.block_size,
+                   prefill_chunk=srv.prefill_chunk,
+                   num_blocks=srv.alloc.num_blocks,
+                   host_pool_bytes=srv._offload.host.capacity_bytes)
+    else:
+        out.update(buckets=list(srv.buckets))
+    return out
 
 
 # positional arguments after the model, in the JAX order (model, max_batch,
@@ -86,46 +92,36 @@ PAGED = (BUCKETS, 7, 3, 1, "paged", 4, 40, 8)
 # stands for each package's own SpecConfig(k=3) in a call
 SPEC = "spec"
 SERVER_CALLS = {
-    "batch_len": ((2, 64), None),
-    "eos_seed": ((2, 64, BUCKETS, 7, 3), None),
-    "dense": ((2, 64, BUCKETS, None, 0, 1, "dense"), "cache"),
-    "paged_blocks_chunk": ((2, 64) + PAGED, None),
-    "kv_quant": ((2, 64) + PAGED + (None, "int8"), None),
-    "pool_bytes_policy": ((2, 64) + PAGED + (None, "none", None, "fifo"),
-                          None),
-    "kernels": ((2, 64) + PAGED + (None, "none", None, None, None, None,
-                                   None, None, None, None, None, 3,
-                                   "reference"), None),
-    # the JAX paged server ignores prompt_buckets; the port takes only the
-    # default
-    "prompt_buckets": ((2, 64, (16, 32)), "prompt_buckets"),
-    "tick_window": ((2, 64, BUCKETS, None, 0, 2, "paged"), None),
-    "spec": ((2, 64) + PAGED + (SPEC, "int8"), None),
-    "host_pool_bytes": ((2, 64) + PAGED + (None, "none", None, "wfq", 0),
-                        None),
-    "fault_retries": ((2, 64) + PAGED + (None, "none", None, None, None,
-                                         None, None, None, None, None,
-                                         None, 5), None),
+    "batch_len": (2, 64),
+    "eos_seed": (2, 64, BUCKETS, 7, 3),
+    "dense": (2, 64, BUCKETS, None, 0, 1, "dense"),
+    "paged_blocks_chunk": (2, 64) + PAGED,
+    "kv_quant": (2, 64) + PAGED + (None, "int8"),
+    "pool_bytes_policy": (2, 64) + PAGED + (None, "none", None, "fifo"),
+    "kernels": (2, 64) + PAGED + (None, "none", None, None, None, None,
+                                  None, None, None, None, None, 3,
+                                  "reference"),
+    # the dense server's buckets (those past max_len dropped)
+    "prompt_buckets": (2, 64, (16, 32, 128)),
+    "tick_window": (2, 64, BUCKETS, None, 0, 2, "paged"),
+    "spec": (2, 64) + PAGED + (SPEC, "int8"),
+    "host_pool_bytes": (2, 64) + PAGED + (None, "none", None, "wfq", 0),
+    "fault_retries": (2, 64) + PAGED + (None, "none", None, None, None,
+                                        None, None, None, None, None,
+                                        None, 5),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SERVER_CALLS))
 def test_server_positional_calls_mean_the_same(models, name):
     jm, tm = models
-    args, unported = SERVER_CALLS[name]
-    # the JAX server's default cache is "dense", the port's "paged" (the
-    # one it has): a call that leaves cache out names it for both
-    kw = {} if len(args) >= 7 else dict(cache="paged")
+    args = SERVER_CALLS[name]
 
     def call(spec):
         return tuple(spec(k=3) if a is SPEC else a for a in args)
 
-    js = JServer(jm, *call(JSpec), **kw)
-    if unported is not None:
-        with pytest.raises(NotImplementedError, match=unported):
-            GenerationServer(tm, *call(SpecConfig), device="cpu", **kw)
-        return
-    ts = GenerationServer(tm, *call(SpecConfig), device="cpu", **kw)
+    js = JServer(jm, *call(JSpec))
+    ts = GenerationServer(tm, *call(SpecConfig), device="cpu")
     assert _server_config(ts) == _server_config(js)
     if SPEC in args:
         # the scratch slack of a trip's windows and a gated trip's ticks

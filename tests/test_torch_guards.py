@@ -47,6 +47,7 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.nn",
                 "paddle_tpu_torch.incubate.nn.functional",
                 "paddle_tpu_torch.models", "paddle_tpu_torch.models.ernie",
+                "paddle_tpu_torch.models.gpt",
                 "paddle_tpu_torch.models.llama",
                 "paddle_tpu_torch.models.convert",
                 "paddle_tpu_torch.models.generation",
@@ -65,6 +66,7 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.nn.functional.activation",
                 "paddle_tpu_torch.nn.functional.attention",
                 "paddle_tpu_torch.nn.functional.common",
+                "paddle_tpu_torch.nn.functional.extras",
                 "paddle_tpu_torch.nn.functional.loss",
                 "paddle_tpu_torch.nn.functional.norm",
                 "paddle_tpu_torch.nn.layer", "paddle_tpu_torch.nn.layer.common",
@@ -283,8 +285,7 @@ def test_unported_engine_options_raise(kwargs):
                                          ("lora_rank", 8),
                                          ("context_parallel", True),
                                          ("sequence_parallel", True),
-                                         ("ulysses_parallel", True),
-                                         ("use_flash_attention", False)])
+                                         ("ulysses_parallel", True)])
 def test_unported_model_options_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1,
@@ -329,23 +330,25 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("kwargs", [dict(cache="dense"),
+@pytest.mark.parametrize("kwargs", [dict(cache="bogus"),
                                     dict(spec=SpecConfig(k=0)),
                                     dict(telemetry=object()),
                                     dict(tick_window=0),
                                     dict(role="prefill"),
                                     dict(kernels="pallas")])
 def test_unported_server_options_raise(kwargs):
-    """Each unported option raises NotImplementedError; ``tick_window``,
-    ``spec`` and ``telemetry`` are served, and a window under one tick, an
-    invalid ``SpecConfig`` or a telemetry that is none of None, a bool or
-    a ``ServingTelemetry`` raises ValueError, as in JAX."""
+    """Each unported option of the paged server raises
+    NotImplementedError; ``cache``, ``tick_window``, ``spec`` and
+    ``telemetry`` are served, and a cache that is neither "dense" nor
+    "paged", a window under one tick, an invalid ``SpecConfig`` or a
+    telemetry that is none of None, a bool or a ``ServingTelemetry``
+    raises ValueError, as in JAX."""
     model = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
                              device="cpu")
-    exc = ValueError if {"tick_window", "spec", "telemetry"} & \
+    exc = ValueError if {"cache", "tick_window", "spec", "telemetry"} & \
         set(kwargs) else NotImplementedError
     with pytest.raises(exc):
-        GenerationServer(model, device="cpu", **kwargs)
+        GenerationServer(model, device="cpu", **{"cache": "paged", **kwargs})
 
 
 @pytest.mark.parametrize("alone", [False, True],
@@ -378,8 +381,8 @@ def test_megakernel_rows_over_the_kernel_raise_at_construction(batch, k, ok):
 
     model = _tiny_model()
     spec = None if k is None else SpecConfig(k=k)
-    kw = dict(device="cpu", max_batch=batch, max_len=32, block_size=4,
-              prefill_chunk=8, kernels="megakernel", spec=spec)
+    kw = dict(device="cpu", cache="paged", max_batch=batch, max_len=32,
+              block_size=4, prefill_chunk=8, kernels="megakernel", spec=spec)
     try:
         if ok:
             srv = GenerationServer(model, **kw)
@@ -397,7 +400,8 @@ def test_megakernel_rows_over_the_kernel_raise_at_construction(batch, k, ok):
 def test_every_unported_server_default_still_raises(name):
     model = _tiny_model()
     with pytest.raises(NotImplementedError, match=name):
-        GenerationServer(model, device="cpu", **{name: object()})
+        GenerationServer(model, cache="paged", device="cpu",
+                         **{name: object()})
 
 
 def _new_wrapper_cases():
@@ -584,3 +588,75 @@ def test_decode_tick_wrapper_raises_on_int8_and_lora_arguments(case, exc,
     with pytest.raises(exc, match=match):
         decode_tick_cuda(*args, **kw)
     assert decode_tick_cuda.launches == before
+
+
+def test_dense_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """The dense server (the default cache) and GPT build on the card
+    unless told otherwise, and raise without one; ``generate`` runs where
+    the model lives."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = _tiny_model()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationServer(model, prompt_buckets=(8,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTForCausalLM(gpt_tiny_config(num_hidden_layers=1))
+    srv = GenerationServer(model, device="cpu", max_len=32,
+                           prompt_buckets=(8,))
+    assert srv.cache_mode == "dense"
+    rid = srv.submit([1, 2, 3], max_new_tokens=2)
+    assert len(srv.run()[rid]) == 5
+    ops.reset_launch_counts()
+    out = model.generate(torch.tensor([[1, 2, 3]]), max_new_tokens=2)
+    assert out.device.type == "cpu" and out.shape == (1, 5)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+
+
+def test_dense_server_refuses_replaced_weights():
+    """The dense graphs read the weights by address: a weight replaced
+    after the server was built raises at the next run."""
+    model = _tiny_model()
+    srv = GenerationServer(model, device="cpu", max_len=32,
+                           prompt_buckets=(8,))
+    rid = srv.submit([1, 2, 3], max_new_tokens=2)
+    assert len(srv.run()[rid]) == 5
+    model.lm_head.weight = torch.nn.Parameter(
+        model.lm_head.weight.detach().clone(), requires_grad=False)
+    srv.submit([1, 2, 3], max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="replaced"):
+        srv.run()
+
+
+def test_failed_captures_raise_without_an_eager_rerun(monkeypatch):
+    """A dense program's capture or a generate program's that fails
+    raises; neither pass is run eagerly instead."""
+    from paddle_tpu_torch import graphs
+    from paddle_tpu_torch.inference import executor
+    from paddle_tpu_torch.models import generation
+
+    def refuse(*a, **k):
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    model = _tiny_model()
+    srv = GenerationServer(model, device="cpu", max_len=32,
+                           prompt_buckets=(8,))
+    srv._exec.graphs = True
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(executor, "capture_graph", refuse)
+    runs = []
+    body = srv._exec._prefill
+    srv._exec._prefill = lambda b: runs.append(b) or body(b)
+    srv.submit([1, 2, 3], max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="capturing"):
+        srv.run()
+    assert runs == []
+    monkeypatch.setattr(generation.Program, "graphed", lambda self: True)
+    monkeypatch.setattr(graphs, "warm_up", lambda body, device: body())
+    monkeypatch.setattr(graphs, "capture", refuse)
+    with pytest.raises(RuntimeError, match="capturing"):
+        model.generate(torch.tensor([[1, 2, 3]]), max_new_tokens=2)
+    (prog,) = model._gen_cache.values()
+    assert prog.replays == 0 and not prog.graphs

@@ -282,9 +282,11 @@ def test_pool_bytes_budget_gives_about_2x_blocks(models):
     _, tm = models
     cfg = tm.cfg
     budget = 40 * kv_block_bytes(cfg, 8, "none")
-    fp = GenerationServer(tm, device="cpu", max_batch=2, max_len=64,
+    fp = GenerationServer(tm, cache="paged", device="cpu", max_batch=2,
+                          max_len=64,
                           block_size=8, pool_bytes=budget)
-    q = GenerationServer(tm, device="cpu", max_batch=2, max_len=64,
+    q = GenerationServer(tm, cache="paged", device="cpu", max_batch=2,
+                         max_len=64,
                          block_size=8, kv_quant="int8", pool_bytes=budget)
     assert fp.alloc.num_blocks == 40
     # fp32 model: ~3.9x; a bf16 model ~2x
@@ -298,9 +300,12 @@ def test_pool_bytes_budget_gives_about_2x_blocks(models):
 def test_kv_quant_ctor_validation(models):
     _, tm = models
     with pytest.raises(ValueError, match="kv_quant"):
-        GenerationServer(tm, device="cpu", max_len=64, kv_quant="fp8")
+        GenerationServer(tm, cache="paged", device="cpu", max_len=64,
+                         kv_quant="fp8")
     with pytest.raises(ValueError, match="not both"):
-        GenerationServer(tm, device="cpu", max_len=64, num_blocks=8,
+        GenerationServer(tm, cache="paged", device="cpu", max_len=64,
+                         num_blocks=8,
                          pool_bytes=1 << 20)
-    srv = GenerationServer(tm, device="cpu", max_len=64, kv_quant="int8")
+    srv = GenerationServer(tm, cache="paged", device="cpu", max_len=64,
+                           kv_quant="int8")
     assert srv.alloc.kv_quant == "int8"

@@ -172,11 +172,13 @@ def test_sampled_slot_leaves_greedy_slot_unchanged(models):
     _, tm, _ = models
     rng = np.random.RandomState(3)
     pg, ps = (rng.randint(1, 128, 6).tolist() for _ in range(2))
-    alone = GenerationServer(tm, device="cpu", max_batch=2, max_len=64,
+    alone = GenerationServer(tm, cache="paged", device="cpu", max_batch=2,
+                             max_len=64,
                              block_size=4, prefill_chunk=8)
     rg = alone.submit(pg, max_new_tokens=6)
     want = alone.run()[rg]
-    srv = GenerationServer(tm, device="cpu", max_batch=2, max_len=64,
+    srv = GenerationServer(tm, cache="paged", device="cpu", max_batch=2,
+                           max_len=64,
                            block_size=4, prefill_chunk=8, seed=11)
     rg = srv.submit(pg, max_new_tokens=6)
     rs = srv.submit(ps, max_new_tokens=6, temperature=0.9, top_k=20,
@@ -261,7 +263,8 @@ def test_sampled_request_with_top_k_past_vocab_completes(models):
     """A sampled request whose top_k exceeds the vocabulary is served to
     its full length (it raised at its first token before)."""
     _, tm, _ = models
-    srv = GenerationServer(tm, device="cpu", max_batch=2, max_len=64,
+    srv = GenerationServer(tm, cache="paged", device="cpu", max_batch=2,
+                           max_len=64,
                            block_size=4, prefill_chunk=8, seed=2)
     prompt = list(range(1, 7))
     rid = srv.submit(prompt, max_new_tokens=5, temperature=0.8,

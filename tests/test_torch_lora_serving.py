@@ -218,7 +218,7 @@ def test_multi_adapter_batch_matches_merged_models_and_jax(models, kv_quant):
     prompts = [rng.randint(1, 128, (n,)).tolist() for n in (6, 4, 9)]
     adapters = ["a1", "a2", None]
     kw = dict(max_batch=3, kv_quant=kv_quant, **SERVE)
-    srv = GenerationServer(tm, device="cpu",
+    srv = GenerationServer(tm, cache="paged", device="cpu",
                            lora=LoRAConfig(tr, max_live_adapters=4,
                                            max_rank=4), **kw)
     rids = [srv.submit(p, max_new_tokens=8, adapter=a)
@@ -234,7 +234,8 @@ def test_multi_adapter_batch_matches_merged_models_and_jax(models, kv_quant):
                             (rids[1], w2, (2, 2.0), prompts[1]),
                             (rids[2], None, None, prompts[2])):
         ref_model = tm if w is None else _merged(tm, w, *meta)
-        ref = GenerationServer(ref_model, device="cpu", max_batch=1,
+        ref = GenerationServer(ref_model, cache="paged", device="cpu",
+                               max_batch=1,
                                kv_quant=kv_quant, **SERVE)
         rr = ref.submit(p, max_new_tokens=8)
         assert out[rid] == ref.run()[rr], (kv_quant, meta)
@@ -274,7 +275,8 @@ def test_reference_fault_jax_prefix_cache_shares_blocks_across_adapters(
                  **SERVE)
     _, second = _serve_in_turn(js, prompt, ["a1", "a2"])
     assert js.alloc.stats()["prefix_hit_blocks"] == 2   # shared across a1/a2
-    ref = GenerationServer(_merged(tm, w2, 4, 8.0), device="cpu",
+    ref = GenerationServer(_merged(tm, w2, 4, 8.0), cache="paged",
+                           device="cpu",
                            max_batch=1, **SERVE)
     rr = ref.submit(prompt, max_new_tokens=8)
     want = ref.run()[rr]
@@ -288,7 +290,7 @@ def test_port_prefix_cache_keys_blocks_by_adapter(models):
     _, tm = models
     w1, w2, prompt = _shared_prompt_case(tm)
     _, tr = _registries([("a1", w1, 4, 8.0), ("a2", w2, 4, 8.0)])
-    srv = GenerationServer(tm, device="cpu", max_batch=1,
+    srv = GenerationServer(tm, cache="paged", device="cpu", max_batch=1,
                            lora=LoRAConfig(tr, max_live_adapters=2,
                                            max_rank=4), **SERVE)
     first, second = _serve_in_turn(srv, prompt, ["a1", "a2"])
@@ -296,18 +298,21 @@ def test_port_prefix_cache_keys_blocks_by_adapter(models):
     third, plain = _serve_in_turn(srv, prompt, ["a2", None])
     assert srv.kv_stats()["prefix_hit_blocks"] == 2     # a2's own blocks
     for got, w in ((first, w1), (second, w2), (third, w2)):
-        ref = GenerationServer(_merged(tm, w, 4, 8.0), device="cpu",
+        ref = GenerationServer(_merged(tm, w, 4, 8.0), cache="paged",
+                               device="cpu",
                                max_batch=1, **SERVE)
         rr = ref.submit(prompt, max_new_tokens=8)
         assert got == ref.run()[rr]
-    ref = GenerationServer(tm, device="cpu", max_batch=1, **SERVE)
+    ref = GenerationServer(tm, cache="paged", device="cpu", max_batch=1,
+                           **SERVE)
     rr = ref.submit(prompt, max_new_tokens=8)
     assert plain == ref.run()[rr]
 
 
 def test_submit_adapter_validation(models):
     _, tm = models
-    plain = GenerationServer(tm, device="cpu", max_batch=2, **SERVE)
+    plain = GenerationServer(tm, cache="paged", device="cpu", max_batch=2,
+                             **SERVE)
     with pytest.raises(ValueError, match="lora=LoRAConfig"):
         plain.submit([1, 2, 3], max_new_tokens=4, adapter="a1")
     reg = AdapterRegistry()
@@ -319,7 +324,7 @@ def test_submit_adapter_validation(models):
     A, B = bad[(0, "q")]
     bad[(0, "q")] = (A[:-1], B)          # wrong in_features
     reg.register("misshapen", bad, rank=2, alpha=4.0)
-    srv = GenerationServer(tm, device="cpu", max_batch=2,
+    srv = GenerationServer(tm, cache="paged", device="cpu", max_batch=2,
                            lora=LoRAConfig(reg, max_live_adapters=2,
                                            max_rank=4), **SERVE)
     with pytest.raises(ValueError, match="unknown adapter"):
@@ -343,7 +348,8 @@ def test_int8_weights_with_lora_raise(models):
     w = _adapter_weights(tm.cfg, 2, seed=1)
     reg.register("a", w, rank=2, alpha=4.0)
     with pytest.raises(NotImplementedError, match="int8"):
-        GenerationServer(q, device="cpu", lora=LoRAConfig(reg), **SERVE)
+        GenerationServer(q, cache="paged", device="cpu", lora=LoRAConfig(reg),
+                         **SERVE)
     pool = AdapterPool(tm.cfg, LoRAConfig(reg, max_rank=2), device="cpu")
     page = torch.tensor([pool.acquire("a")], dtype=torch.int32)
     lora = pool.layer_factors(page)

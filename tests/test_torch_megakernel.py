@@ -319,7 +319,8 @@ def test_constructor_rules(case):
     naming the reason, and leave the kernel mode as they found it; int8 KV
     pools and LoRA build on the megakernel."""
     _, tm, cfg = _models(1)
-    kw = dict(device="cpu", max_len=64, block_size=4, kernels="megakernel")
+    kw = dict(device="cpu", cache="paged", max_len=64, block_size=4,
+              kernels="megakernel")
     model = tm
     want = {"int8_kv": None, "lora": None,
             "int8_model": (ValueError, "gate_proj is not a plain Linear"),
@@ -360,7 +361,8 @@ def test_auto_never_selects_the_megakernel():
     assert ops.use_megakernel()
     _, tm, _ = _models(1)
     ops.set_kernel_mode("auto")
-    srv = GenerationServer(tm, device="cpu", max_len=64, block_size=4)
+    srv = GenerationServer(tm, cache="paged", device="cpu", max_len=64,
+                           block_size=4)
     assert not srv._exec.megakernel and srv._exec._mk_weights is None
 
 
@@ -370,7 +372,8 @@ def test_replaced_weights_are_refused():
     _, tm, cfg = _models(1)
     model = LlamaForCausalLM(cfg, device="cpu")
     model.load_state_dict(tm.state_dict())
-    srv = GenerationServer(model, device="cpu", max_len=64, block_size=4,
+    srv = GenerationServer(model, cache="paged", device="cpu", max_len=64,
+                           block_size=4,
                            prefill_chunk=8, kernels="megakernel")
     srv.submit([1, 2, 3], max_new_tokens=2)
     srv.run()

@@ -163,10 +163,11 @@ def test_sampled_slot_in_a_window_leaves_greedy_slot_unchanged(models):
     ones are valid ids."""
     _, tm = models
     pg, ps = _prompts()[:2]
-    alone = GenerationServer(tm, device="cpu", **SERVE)
+    alone = GenerationServer(tm, cache="paged", device="cpu", **SERVE)
     rg = alone.submit(pg, max_new_tokens=MAX_NEW)
     want = alone.run()[rg]
-    srv = GenerationServer(tm, device="cpu", tick_window=W, seed=11, **SERVE)
+    srv = GenerationServer(tm, cache="paged", device="cpu", tick_window=W,
+                           seed=11, **SERVE)
     rg = srv.submit(pg, max_new_tokens=MAX_NEW)
     rs = srv.submit(ps, max_new_tokens=MAX_NEW, temperature=0.9, top_k=20,
                     top_p=0.9)
@@ -182,15 +183,17 @@ def test_window_under_one_tick_raises_as_jax(models, window):
     with pytest.raises(ValueError, match="tick_window"):
         JServer(jm, cache="paged", tick_window=window, **SERVE)
     with pytest.raises(ValueError, match="tick_window"):
-        GenerationServer(tm, device="cpu", tick_window=window, **SERVE)
+        GenerationServer(tm, cache="paged", device="cpu", tick_window=window,
+                         **SERVE)
 
 
 def test_table_width_covers_a_window_past_the_chunk(models):
     """A window longer than a prefill chunk widens the tables' scratch
     slack, so a finished row's last ticks stay on the row."""
     _, tm = models
-    narrow = GenerationServer(tm, device="cpu", **SERVE)
-    wide = GenerationServer(tm, device="cpu", tick_window=13, **SERVE)
+    narrow = GenerationServer(tm, cache="paged", device="cpu", **SERVE)
+    wide = GenerationServer(tm, cache="paged", device="cpu", tick_window=13,
+                            **SERVE)
     bs = SERVE["block_size"]
     assert narrow._table_width == -(-SERVE["max_len"] // bs) + 8 // bs
     assert wide._table_width == -(-SERVE["max_len"] // bs) + -(-13 // bs)
@@ -241,7 +244,7 @@ def test_executor_chunk_with_device_scalars_equals_host_ints(models):
     prompt = _prompts()[1]                          # 17 tokens: 3 chunks
     out = []
     for as_tensor in (False, True):
-        srv = GenerationServer(tm, device="cpu", **SERVE)
+        srv = GenerationServer(tm, cache="paged", device="cpu", **SERVE)
         ex = srv._exec
         table = torch.tensor([1, 2, 3, 0, 0, 0, 0, 0] + [0] * 18,
                              dtype=torch.int32)[:srv._table_width]
@@ -316,7 +319,7 @@ def test_replayed_program_counts_the_launches_of_eager_passes(models,
     program registers its generator and is a graph too; reference mode
     runs eagerly."""
     _, tm = models
-    srv = GenerationServer(tm, device="cpu", **SERVE)
+    srv = GenerationServer(tm, cache="paged", device="cpu", **SERVE)
     ex = srv._exec
     ex.graphs = True
     runs = []
@@ -356,7 +359,7 @@ def test_replaced_weights_are_refused_in_place_updates_served(models):
     per-layer path reads it."""
     _, tm = models
     model = copy.deepcopy(tm)
-    srv = GenerationServer(model, device="cpu", **SERVE)
+    srv = GenerationServer(model, cache="paged", device="cpu", **SERVE)
     prompt = [3, 1, 4, 1, 5]
     rid = srv.submit(prompt, max_new_tokens=4)
     before = srv.run()[rid]
@@ -366,7 +369,7 @@ def test_replaced_weights_are_refused_in_place_updates_served(models):
         mlp.down_proj.weight.mul_(-1.0)
     rid = srv.submit(prompt, max_new_tokens=4)
     flipped = srv.run()[rid]
-    fresh = GenerationServer(model, device="cpu", **SERVE)
+    fresh = GenerationServer(model, cache="paged", device="cpu", **SERVE)
     rid = fresh.submit(prompt, max_new_tokens=4)
     assert flipped == fresh.run()[rid]
     mlp.down_proj.weight = torch.nn.Parameter(mlp.down_proj.weight.clone(),
@@ -382,7 +385,7 @@ def test_weights_checked_once_a_run_not_a_pass(models, monkeypatch):
     """The weight check costs no pass: one check for each run(), and one
     on the first step after each submit."""
     _, tm = models
-    srv = GenerationServer(tm, device="cpu", **SERVE)
+    srv = GenerationServer(tm, cache="paged", device="cpu", **SERVE)
     calls = []
     real = srv._exec.check_weights
     monkeypatch.setattr(srv._exec, "check_weights",

@@ -311,7 +311,8 @@ def test_draft_model_drafter_greedy_tokens_equal_jax(models, drafts):
     assert srv.spec_metrics() == jsrv.spec_metrics()
     assert srv.spec_metrics()["draft_tokens_proposed"] > 0
     with pytest.raises(ValueError, match="fusible"):
-        GenerationServer(tm, device="cpu", tick_window=2, **SERVE,
+        GenerationServer(tm, cache="paged", device="cpu", tick_window=2,
+                         **SERVE,
                          spec=SpecConfig(k=2, drafter="model",
                                          draft_model=td))
 
@@ -395,7 +396,8 @@ def test_spec_sampled_rows_beside_greedy_rows(models):
     want = _plain(tm, [pg], new=8)[0]
     runs = []
     for _ in range(2):
-        srv = GenerationServer(tm, device="cpu", tick_window=2, seed=5,
+        srv = GenerationServer(tm, cache="paged", device="cpu", tick_window=2,
+                               seed=5,
                                spec=SpecConfig(k=2), **SERVE)
         rg = srv.submit(pg, max_new_tokens=8)
         rs = [srv.submit(p, max_new_tokens=8, temperature=0.9, top_k=12,
@@ -411,9 +413,10 @@ def test_spec_sampled_rows_beside_greedy_rows(models):
 
 def test_submit_draft_k_checked_as_jax(models):
     jm, tm = models
-    plain = GenerationServer(tm, device="cpu", **SERVE)
+    plain = GenerationServer(tm, cache="paged", device="cpu", **SERVE)
     jplain = JServer(jm, cache="paged", **SERVE)
-    spec = GenerationServer(tm, device="cpu", spec=SpecConfig(k=3), **SERVE)
+    spec = GenerationServer(tm, cache="paged", device="cpu",
+                            spec=SpecConfig(k=3), **SERVE)
     jspec = JServer(jm, cache="paged", spec=JSpec(k=3), **SERVE)
     for srv, js, bad in ((plain, jplain, 1), (spec, jspec, -1),
                          (spec, jspec, True), (spec, jspec, 1.0),
@@ -447,8 +450,9 @@ def test_spec_construction_checks(models):
     with pytest.raises(ValueError, match="paged"):
         GenerationServer(tm, device="cpu", cache="dense", spec=SpecConfig())
     with pytest.raises(ValueError, match="spec.k"):
-        GenerationServer(tm, device="cpu", spec=SpecConfig(k=0), **SERVE)
-    srv = GenerationServer(tm, device="cpu", tick_window=3,
+        GenerationServer(tm, cache="paged", device="cpu",
+                         spec=SpecConfig(k=0), **SERVE)
+    srv = GenerationServer(tm, cache="paged", device="cpu", tick_window=3,
                            spec=SpecConfig(k=4, gate_ticks=20,
                                            turbo_windows=5), **SERVE)
     bs = SERVE["block_size"]
@@ -491,7 +495,7 @@ def test_spec_programs_are_graphs_under_their_keys(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph",
                         lambda g, pool=None: contextlib.nullcontext())
     _, tm = models
-    srv = GenerationServer(tm, device="cpu", tick_window=2,
+    srv = GenerationServer(tm, cache="paged", device="cpu", tick_window=2,
                            spec=SpecConfig(k=3), **SERVE)
     ex = srv._exec
     ex.graphs = True
