@@ -19,6 +19,9 @@ the GPU.
                                         # (no final line)
     python3 chip_smoke.py --only dense  # the build, phase 4 and phase 31
                                         # alone (no final line)
+    python3 chip_smoke.py --only finetune  # the build, phase 6's AdamW
+                                        # kernel and phase 32 (no final
+                                        # line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -209,7 +212,7 @@ Phase 26 runs after phase 25, on the same model:
    tools/serving_benchmark.py's ``--spec 4`` mode). (a) Cells, each with
    its warm-up request capturing every graph: the plain graphed server
    per layer and through the megakernel on the repeat-suffix traffic
-   (12 prompts tiling one motif at phase 4's lengths, 128 new tokens:
+   (12 prompts tiling one motif at phase 4's lengths, 64 new tokens:
    the yardsticks); the n-gram drafter at ``tick_window=4`` per layer on
    that traffic and on phase 4's, through the megakernel, sampled
    (temperature 0.8, top-p 0.9); the draft model of that tool (hidden
@@ -285,10 +288,11 @@ entry points and counters):
    counters move; the forward and the backward bitwise repeatable. Times
    as phase 6.
 19. Long-context training: ``ParallelEngine`` over
-   ``llama3_8b_config(num_hidden_layers=8, max_position_embeddings=
-   32768)``, B=1, AdamW as phase 7: (a) S=16384 without remat, 6 steps
-   (2 warm-up); (b) S=32768 under ``remat=True, remat_policy="nothing"``,
-   4 steps (1 warm-up); (c) S=16384, one step under each policy, each
+   ``llama3_8b_config(num_hidden_layers=4, max_position_embeddings=
+   32768)`` (cut from 8 layers to pay for phase 32), B=1, AdamW as phase
+   7: (a) S=16384 without remat, 4 steps (2 warm-up); (b) S=32768 under
+   ``remat=True, remat_policy="nothing"``, 3 steps (1 warm-up); (c)
+   S=16384, one step under each policy, each
    cell from the same seeded weights and fresh AdamW state. Checks
    the loss falls (a, b), every first loss equals (a)'s bit for bit, and
    every step's launches: the streaming forward
@@ -407,6 +411,40 @@ rule breaking on a planted fault (the position embedding read one
 position on). ``python3 chip_smoke.py --only dense`` runs the build,
 phase 4 and phase 31 (no final line).
 
+Phase 32, the rest of the training side, runs last (each cell's model
+made and freed in turn; every number beside the card's name and power
+limit): (a) ``LlamaForCausalLM(llama3_8b_config(lora_rank=8,
+lora_alpha=16))`` at full width and all 32 layers, bf16 base from a seed,
+``ParallelEngine(model, AdamW(parameters=lora_parameters(model)),
+remat=True, remat_policy="dots")``, 8 graphed steps of B = 2 x 2048 on one
+fixed seeded batch: ms a step, tokens/s, MFU (formula printed), peak
+memory, device ms by kernel class, launches a step (flash forward 64, dQ
+32, dK/dV 32, RMSNorm 129, AdamW 448, checked each step); the loss falls,
+every base weight bit for bit what the seed draws, every ``lora_B``
+moved, ``set_lr`` reaching the device without a new capture; (b) the
+adapter exported (``.npz``), loaded, registered and served (4 of phase
+4's prompts, 24 greedy tokens) through the paged server on the unmerged
+base (the fused LoRA kernel, row 12, and paged attention, row 11,
+launched), against ``merge_lora``'s model served plain: tokens equal or
+every first difference a near tie (phase 31's rule); row 12 at the
+trained factors against its plain twin; (c) ``offload_opt_state=True``:
+2 layers, 3 steps, parameters and moments bit for bit the resident
+engine's; then a full finetune at the deepest depth whose moments fit
+``MemAvailable`` (read with ``ulimit -l`` first; pinning that fails
+raises), 3 graphed steps: ms a step, the pinned copy rates each way, the
+PCIe bound, peak memory; (d) ``PT_MT_ADAMW=1`` at phase 7's depth (more
+than 2^31 elements in one launch): parameters bit for bit the per-tensor
+path's, AdamW device ms and launches a step both ways, the flat launch
+against its byte bound; (e) ``remat_policy="offload_attn"`` against
+``"nothing"`` (losses and parameters bit for bit) and ``"dots"`` at phase
+19's S = 16384: ms a step, peak memory, host anchor bytes; (f) AMP O2
+(``decorate``) with ``GradScaler`` at 2 layers: two planted inf
+gradients skip their steps and halve the scale once, masters fp32.
+Every kernel's launches in (a)'s steps and (b)'s served run stand in the
+kernels line as ``finetune_launches``; row 10 also carries the flat
+launch (``flat_case``). Each phase group's end is printed as it
+passes (``phase group ... ended at``).
+
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
 LoRA or per-layer attention launch; prefill chunks as in phase 10, the
@@ -494,7 +532,7 @@ def card_line() -> str:
     return p.stdout.strip().splitlines()[0]
 
 
-def _graph_ms(torch, body, iters: int, replays: int = 5) -> float:
+def _graph_ms(torch, body, iters: int, replays: int = 3) -> float:
     """Device time of one CUDA-graph replay of ``iters`` calls of ``body``
     (median of ``replays``), in ms. A graph launches its kernels back to
     back, so the host-side cost of the Python wrappers stays out of it."""
@@ -2430,8 +2468,9 @@ def serve_sampled_window(torch, model):
 # Speculative serving, tools/serving_benchmark.py's --spec 4 mode
 # (:460-474, 736-742): k = 4 drafts a window; tick_window 4 with the
 # n-gram drafter (that tool's default under --spec), 1 with the draft
-# model; SPEC_NEW new tokens a request (its default under --repeat-suffix)
-SPEC_K, SPEC_WINDOW, SPEC_NEW = 4, 4, 128
+# model; SPEC_NEW new tokens a request (half its default of 128 under
+# --repeat-suffix, cut to pay for phase 32 inside the run's time)
+SPEC_K, SPEC_WINDOW, SPEC_NEW = 4, 4, 64
 # the draft model of tools/serving_benchmark.py:962-973 at Llama-3-8B:
 # half the width, a quarter of the depth, half the heads
 DRAFT_CFG = dict(hidden_size=2048, intermediate_size=7168,
@@ -3467,7 +3506,7 @@ def _tight_blocks(cfg, traffic):
 
 def recovery_telemetry(torch, model, ref, here, megakernel=False):
     """(a) Phase 4's traffic with ``telemetry=True`` and without, in turns
-    (off, on, on, off; per layer or behind the whole-tick kernel): the
+    (off, on; per layer or behind the whole-tick kernel): the
     same tokens (phase 4's), decode tok/s both ways and the host ms a
     step that telemetry adds (the steps' wall difference); with it on,
     the flight records and spans, the chrome trace written and read back
@@ -3479,7 +3518,9 @@ def recovery_telemetry(torch, model, ref, here, megakernel=False):
     kw = dict(kernels="megakernel") if megakernel else {}
     runs = {False: [], True: []}
     seen = {}
-    for on in ((False, True) if megakernel else (False, True, True, False)):
+    # one turn each way (off, on, on, off per layer before phase 32 took
+    # the time)
+    for on in (False, True):
         srv = _rec_server(torch, model, telemetry=on, **kw)
         if on:
             srv.telemetry.reset()      # the warm-up boundary
@@ -5307,16 +5348,18 @@ def kernel_adamw(torch, fw, ops):
     # without a master weight; the path's largest tensor (embedding and
     # lm-head, 525 M elements) as the path updates it, with a master; then
     # the fp32-grad instantiations (gradient accumulation hands the update
-    # fp32 grads) at a length with a ragged tail (n % 8 != 0)
-    for shape, with_master, gdt in (
-            ((4096, 14336), True, torch.bfloat16),
-            ((4096, 14336), False, torch.bfloat16),
-            ((4096,), True, torch.bfloat16), ((4096,), False, torch.bfloat16),
-            ((128256, 4096), True, torch.bfloat16),
-            ((1000003,), True, torch.float32),
-            ((1000003,), False, torch.float32)):
-        p = (0.02 * torch.randn(*shape, generator=g, device="cuda")).to(
-            torch.bfloat16)
+    # fp32 grads) at a length with a ragged tail (n % 8 != 0); an fp32
+    # parameter, its own master (a LoRA factor, phase 32), ragged too
+    for shape, with_master, gdt, pdt in (
+            ((4096, 14336), True, torch.bfloat16, torch.bfloat16),
+            ((4096, 14336), False, torch.bfloat16, torch.bfloat16),
+            ((4096,), True, torch.bfloat16, torch.bfloat16),
+            ((4096,), False, torch.bfloat16, torch.bfloat16),
+            ((128256, 4096), True, torch.bfloat16, torch.bfloat16),
+            ((1000003,), True, torch.float32, torch.bfloat16),
+            ((1000003,), False, torch.float32, torch.bfloat16),
+            ((14337, 8), False, torch.float32, torch.float32)):
+        p = (0.02 * torch.randn(*shape, generator=g, device="cuda")).to(pdt)
         grad = (1e-3 * torch.randn(*shape, generator=g,
                                    device="cuda")).to(gdt)
         m = 1e-4 * torch.randn(*shape, generator=g, device="cuda")
@@ -5347,15 +5390,17 @@ def kernel_adamw(torch, fw, ops):
         # 1e-6 of their terms (both multiply by the same 1/(1-beta^t);
         # PyTorch's eager ops may round a product the kernel keeps apart:
         # a few fp32 ulps)
+        p_tol = (1e-6 * t_w if pdt == torch.float32
+                 else 2.0 ** -7 * rp.float().abs())
         worst = {
             "p": ((kp.float() - rp.float()).abs()
-                  / (2.0 ** -7 * rp.float().abs() + 1e-30)).max().item(),
+                  / (p_tol + 1e-30)).max().item(),
             "m": ((km - rm).abs() / (1e-6 * t_m + 1e-30)).max().item(),
             "v": ((kv - rv).abs() / (1e-6 * t_v + 1e-30)).max().item()}
         if with_master:
             worst["master"] = ((kw - new).abs()
                                / (1e-6 * t_w + 1e-30)).max().item()
-        del t_m, t_v, t_w, mhat, vhat       # room for the largest tensor
+        del t_m, t_v, t_w, mhat, vhat, p_tol  # room for the largest tensor
         for n, w in worst.items():
             check(w <= 1.0, f"fused_adamw {shape} master={with_master}: "
                             f"{n} off by {w:.3g} x its tolerance")
@@ -5363,10 +5408,10 @@ def kernel_adamw(torch, fw, ops):
                   (km - rm).abs().max().item(),
                   (kv - rv).abs().max().item())
         n = p.numel()
-        gb = grad.element_size()
+        gb, pb = grad.element_size(), p.element_size()
         # reads: master or p, g, m, v; writes: p, m, v, master
         nbytes = n * ((4 + gb + 8) + (2 + 8 + 4) if with_master
-                      else (2 + gb + 8) + (2 + 8))
+                      else (pb + gb + 8) + (pb + 8))
         bnd, by = bound_ms(nbytes, 15 * n, FP32_FLOPS)
         w32 = (master if with_master else p.float()).clone()
         w32.requires_grad_()
@@ -5383,6 +5428,7 @@ def kernel_adamw(torch, fw, ops):
 
         case = dict(shape=list(shape), master=with_master,
                     grad=str(gdt).replace("torch.", ""),
+                    param=str(pdt).replace("torch.", ""),
                     max_abs_err=err, worst_err_over_tol=worst,
                     ms=time_ms(lambda: fw.fused_adamw_update(
                         kp, grad, km, kv, master=kw, **hp), 20, flush),
@@ -5816,9 +5862,11 @@ def train_end_to_end(torch, ops, fa):
 # layers, one sequence of 16384 tokens (the JAX package's tuned streaming
 # regime and profiled step) and of 32768 under remat (its 8B recipe's
 # length), max_position_embeddings raised to the longest, as bench.py does
-LONG_LAYERS, LONG_S, LONG_REMAT_S = 8, 16384, 32768
-LONG_STEPS, LONG_WARMUP = 6, 2
-REMAT_STEPS, REMAT_WARMUP = 4, 1
+# (depth 8 and 6 / 4 steps before phase 32 took the time; every check
+# kept)
+LONG_LAYERS, LONG_S, LONG_REMAT_S = 4, 16384, 32768
+LONG_STEPS, LONG_WARMUP = 4, 2
+REMAT_STEPS, REMAT_WARMUP = 3, 1
 LONG_POLICIES = ("nothing", "save_attn", "save_attn_mlp", "save_qkv_attn",
                  "dots")
 LOOP_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -6938,6 +6986,641 @@ def train_graph_parity(torch, ops):
     return res
 
 
+# -------------------------------------------------------------- phase 32
+# the finetune phase: Llama-3-8B at full width and depth, LoRA rank 8 on
+# the seven default targets (alpha 16), B = 2 x 2048 tokens, one fixed
+# seeded batch; phase 4's prompts served through the trained adapter
+FT_LAYERS, FT_B, FT_S, FT_STEPS, FT_WARMUP = 32, 2, 2048, 8, 2
+FT_RANK, FT_ALPHA, FT_LR, FT_SEED = 8, 16.0, 2e-4, 32
+FT_SERVE_LENS = (100, 256, 517, 1000)
+FT_NEW = 24
+# (c): 3 graphed steps (warm-up, capture, replay); (d) at phase 7's depth;
+# (e) phase 19's cell, S = 16384 on its layers; (f) at 2 layers
+OFF_STEPS, FLAT_LAYERS, OA_S, AMP_LAYERS = 3, 8, 16384, 2
+# host memory the offloaded cell leaves free beside its pinned moments
+OFF_HOST_MARGIN = 16 * 2 ** 30
+
+
+def _ft_want(L, n_tensors, remat=True):
+    """Launches a training step makes: the flash forward again in each
+    layer's recompute, RMSNorm twice a layer (and again in the recompute)
+    plus the final norm, AdamW once a trained tensor (or once, flat)."""
+    return {"flash_fwd": 2 * L if remat else L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "rms_norm": 4 * L + 1 if remat
+            else 2 * L + 1, "fused_adamw": n_tensors}
+
+
+def _ft_batch(torch, vocab, B, S, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tok = torch.randint(0, vocab, (B, S + 1), generator=gen, device="cuda")
+    return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+
+def _base_unchanged(torch, model, seed):
+    """Every non-LoRA parameter of ``model`` equal, bit for bit, to what
+    ``reset_parameters(seed)`` draws: the draws made again one tensor at a
+    time in the same order from the same generator. Returns the count."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 0
+    for name, p in model.named_parameters():
+        if name.endswith(("lora_A", "lora_B")):
+            continue
+        ref = torch.empty_like(p)
+        if name.endswith("norm.weight"):
+            ref.fill_(1.0)
+        else:
+            ref.normal_(0.0, 0.02, generator=g)
+        check(torch.equal(ref, p), f"phase 32 (a): base weight {name} "
+                                   f"changed in training")
+        n += 1
+        del ref
+    return n
+
+
+def _unwrapped(model):
+    """The LoRA wraps of ``model`` taken off (the plain projections put
+    back, nothing merged): [(owner, attribute, wrap)], to put back."""
+    from paddle_tpu_torch.nn.lora import LoRALinear
+
+    wraps = [(m, k, c) for m in model.modules()
+             for k, c in list(m._modules.items())
+             if isinstance(c, LoRALinear)]
+    for m, k, c in wraps:
+        setattr(m, k, c.base)
+    return wraps
+
+
+def finetune_lora(torch, ops):
+    """Phase 32 (a): the LoRA finetune at full width and depth; returns
+    (result, model)."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn.lora import lora_parameters
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    cfg = llama3_8b_config(lora_rank=FT_RANK, lora_alpha=FT_ALPHA)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=FT_SEED)
+    torch.cuda.synchronize()
+    factors = lora_parameters(model)
+    n_factors = sum(p.numel() for p in factors)
+    n_params = sum(p.numel() for p in model.parameters()) - n_factors
+    n_nonembed = n_params - model.model.embed_tokens.weight.numel()
+    log(f"phase 32 (a) model: llama3-8b, {FT_LAYERS} layers, {n_params} "
+        f"base params bf16 (frozen), LoRA rank {FT_RANK} on 7 targets: "
+        f"{len(factors)} fp32 factors, {n_factors} elements, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids, labels = _ft_batch(torch, cfg.vocab_size, FT_B, FT_S, 33)
+    opt = AdamW(learning_rate=FT_LR, parameters=factors)
+    eng = ParallelEngine(model, optimizer=opt, remat=True,
+                         remat_policy="dots")
+    check(len(eng.trained) == len(factors), "phase 32 (a): the engine "
+          "trains more than the factors")
+    tokens = FT_B * FT_S
+    L, H, D = FT_LAYERS, cfg.num_attention_heads, cfg.head_dim
+    # the projections: forward 2NT, the gradient into the frozen base's
+    # input 2NT (no weight gradient), the dots policy's recompute saves
+    # the products; causal attention forward, recompute and backward
+    flops = 4 * n_nonembed * tokens + 8 * L * H * D * FT_S * tokens
+    want = _ft_want(L, len(factors))
+    ops.reset_launch_counts()
+    res = _train_cell(torch, ops, eng, (ids, labels), steps=FT_STEPS,
+                      warmup=FT_WARMUP, want=want,
+                      label="phase 32 (a) lora finetune llama3-8b "
+                            "(32 layers)", flops=flops, tokens=tokens,
+                      prof_steps=1, passes=2, repeats=1)
+    ls = res["losses"]
+    check(ls[-1] < ls[0], f"phase 32 (a): the loss did not fall: {ls}")
+    # the learning rate moves without a new capture
+    caps = eng.captures
+    opt.set_lr(FT_LR / 2)
+    lr_loss = eng.train_batch(ids, labels).item()
+    check(eng.captures == caps and float(eng._lr_dev) == torch.tensor(
+        FT_LR / 2, dtype=torch.float32).item(),
+          "phase 32 (a): set_lr recaptured or did not reach the device")
+    moved = sum(int(bool((p != 0).any())) for p in factors
+                if p.shape[0] == FT_RANK)
+    check(moved == len(factors) // 2, f"phase 32 (a): {moved} of "
+          f"{len(factors) // 2} lora_B factors moved")
+    res.update(layers=L, batch=FT_B, seq=FT_S, rank=FT_RANK,
+               alpha=FT_ALPHA, base_params=n_params,
+               base_params_nonembed=n_nonembed, factor_params=n_factors,
+               factor_tensors=len(factors), remat_policy="dots",
+               loss_after_set_lr=lr_loss,
+               mfu_formula="(4 * N_nonembed * T + 8 * L * H * D * S * T) / "
+                           "step_s / 989e12: the frozen projections' "
+                           "forward and input gradient (no weight "
+                           "gradient), causal attention's forward, "
+                           "recompute and backward; the LoRA factors' "
+                           "products and the recomputed projections are "
+                           "not counted",
+               flops_per_step=flops,
+               optimizer_state_bytes=sum(
+                   t.numel() * 4 for s in opt._accumulators.values()
+                   for t in s.values()),
+               base_weights_unchanged=_base_unchanged(torch, model,
+                                                      FT_SEED),
+               lora_b_moved=moved)
+    del eng, opt
+    _free(torch)
+    return res, model
+
+
+def finetune_serve(torch, ops, model, tmp):
+    """Phase 32 (b): the trained adapter exported, loaded and served
+    through the paged server on the unmerged base (fused LoRA, row 12;
+    paged attention, row 11), against ``merge_lora``'s model served
+    plain; the fused LoRA kernel at the trained factors against its plain
+    twin."""
+    import dataclasses as dc
+
+    from paddle_tpu_torch.inference.lora import (AdapterRegistry,
+                                                 LoRAConfig)
+    from paddle_tpu_torch.inference.serving import GenerationServer
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn import lora as tl
+    from paddle_tpu_torch.ops.fused_lora_cuda import fused_lora_matmul_cuda
+
+    cfg = model.cfg
+    path = os.path.join(tmp, "adapter.npz")
+    t0 = time.perf_counter()
+    tl.export_adapter(model, path)
+    state = tl.load_adapter(path)
+    reg = AdapterRegistry()
+    reg.register("tuned", state)
+    t_export = time.perf_counter() - t0
+    prompts, _ = phase4_traffic(cfg)
+    prompts = [prompts[PHASE4_LENS.index(n)] for n in FT_SERVE_LENS]
+    kw = dict(cache="paged", max_batch=len(prompts), max_len=MAX_LEN,
+              block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK)
+    wraps = _unwrapped(model)
+
+    def run(srv, adapter):
+        rids = [srv.submit(p, max_new_tokens=FT_NEW, adapter=adapter)
+                for p in prompts]
+        out = srv.run()
+        return [out[r][len(p):] for r, p in zip(rids, prompts)]
+
+    srv = GenerationServer(model, lora=LoRAConfig(reg, max_live_adapters=1,
+                                                  max_rank=FT_RANK), **kw)
+    run(srv, "tuned")                   # the graphs' warm-up and capture
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run(srv, "tuned")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches["fused_lora_matmul"] > 0 and
+          launches["paged_attention"] > 0, f"phase 32 (b): the adapter "
+          f"was not served through rows 11 and 12: {launches}")
+    # row 12 at the trained factors: the pool's page of "tuned", layer 5
+    pool = srv._lora
+    page = pool.acquire("tuned")
+    g = torch.Generator(device="cuda").manual_seed(32)
+    kernel = {}
+    ai = torch.full((MAX_BATCH,), page, dtype=torch.int32, device="cuda")
+    factors = pool.layer_factors(ai)[5]
+    layer = model.model.layers[5]
+    for t, w in (("q", layer.self_attn.q_proj.weight),
+                 ("gate", layer.mlp.gate_proj.weight),
+                 ("down", layer.mlp.down_proj.weight)):
+        pooled = factors[t]
+        K = w.shape[0]
+        x = torch.randn(MAX_BATCH, 1, K, generator=g, device="cuda").to(
+            torch.bfloat16)
+        out = fused_lora_matmul_cuda(x, w, pooled.a, pooled.b, pooled.scale,
+                                     pooled.layer, pooled.aidx)
+        Ag, Bg, sg = pooled.gather()
+        ref = tl._lora_plain(x, w, Ag, Bg, sg)
+        mag = (x.float().abs() @ w.float().abs()
+               + torch.bmm(torch.bmm(x.float(), Ag).abs(), Bg.abs())
+               * sg[:, None, None])
+        worst = _el_ratio(out, ref, mag, K).max().item()
+        check(worst <= 1.0, f"phase 32 (b): fused LoRA {t} at the trained "
+                            f"factors off by {worst:.3g} x its tolerance")
+        delta = tl.bgmv(x, pooled).float().abs().max().item()
+        kernel[t] = dict(max_abs_err=(out.float() - ref.float()).abs()
+                         .max().item(), worst_err_over_tol=worst,
+                         max_abs_delta=delta)
+        del x, out, ref, mag
+    pool.release(page)
+    del srv, pool
+    _free(torch)
+    for m, k, c in wraps:
+        setattr(m, k, c)
+    model.merge_lora()
+    ref_srv = GenerationServer(model, **kw)
+    run(ref_srv, None)
+    want = run(ref_srv, None)
+    del ref_srv
+    _free(torch)
+    same = sum(a == b for a, b in zip(got, want))
+    res = dict(prompts=list(FT_SERVE_LENS), new_tokens=FT_NEW,
+               export_load_register_s=t_export, adapter_file_bytes=
+               os.path.getsize(path), requests_identical=same,
+               requests=len(prompts), serve_wall_s=wall,
+               tokens_per_s=len(prompts) * FT_NEW / wall,
+               launches=launches, fused_lora_at_trained_factors=kernel)
+    if same < len(prompts):
+        # phase 31's near-tie rule on an fp32 copy of the merged weights
+        torch.backends.cuda.matmul.allow_tf32 = False
+        m32 = LlamaForCausalLM(dc.replace(cfg, dtype="float32", lora_rank=0),
+                               device="cuda")
+        with torch.no_grad():
+            for p32, p16 in zip(m32.parameters(), model.parameters()):
+                p32.copy_(p16)
+        err = _logit_error(
+            torch, ops, lambda ids: model.head(model.model(ids))[0],
+            lambda ids: m32.head(m32.model(ids))[0], prompts[:2])
+        tie = 2 * err
+        same_, rows, ok = near_ties(
+            torch, ops, m32, [p + a for p, a in zip(prompts, got)],
+            [p + b for p, b in zip(prompts, want)], tie)
+        res.update(kernels_vs_fp32_max=err, near_tie_bound=tie,
+                   differing=rows, near_ties_within_bound=ok)
+        del m32
+        _free(torch)
+        check(ok, f"phase 32 (b): the adapter's tokens differ from the "
+                  f"merged model's outside the near-tie bound {tie}: {rows}")
+    log("phase 32 (b) serve the trained adapter: " + json.dumps(res))
+    return res
+
+
+def _copy_rates(torch, nbytes=2 ** 30, repeats=3):
+    """Pinned host <-> device copy rates (GB/s, best of ``repeats``) of an
+    ``nbytes`` buffer, each way alone."""
+    from paddle_tpu_torch.graphs import pinned_zeros
+
+    host = pinned_zeros((nbytes,), torch.uint8)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    rates = {}
+    for name, fn in (("h2d", lambda: dev.copy_(host, non_blocking=True)),
+                     ("d2h", lambda: host.copy_(dev, non_blocking=True))):
+        best = float("inf")
+        for _ in range(repeats):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best, a.elapsed_time(b) / 1e3)
+        rates[name] = nbytes / best / 1e9
+    del host, dev
+    return rates
+
+
+def _host_memory():
+    """(MemAvailable bytes, ``ulimit -l`` as text)."""
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    p = subprocess.run(["bash", "-c", "ulimit -l"], capture_output=True,
+                       text=True, timeout=30)
+    return avail, p.stdout.strip()
+
+
+def _snapshot_params(torch, named, host=False):
+    return {n: (p.detach().cpu() if host else p.detach().clone())
+            for n, p in named}
+
+
+def finetune_offload(torch, ops):
+    """Phase 32 (c): ``offload_opt_state`` — at 2 layers, 3 steps against
+    the resident engine, parameters and moments bit for bit; then the
+    full finetune (every parameter) at the deepest depth whose moments fit
+    in pinned host memory, 3 graphed steps."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    res = {}
+    cfg2 = llama3_8b_config(num_hidden_layers=2)
+    ids2, labels2 = _ft_batch(torch, cfg2.vocab_size, 1, FT_S, 34)
+    runs = {}
+    for mode in ("resident", "offloaded"):
+        m = LlamaForCausalLM(cfg2, seed=3)
+        opt = AdamW(learning_rate=1e-4, parameters=m.named_parameters())
+        eng = ParallelEngine(m, optimizer=opt, remat=True,
+                             remat_policy="nothing",
+                             offload_opt_state=mode == "offloaded")
+        losses = [eng.train_batch(ids2, labels2).item()
+                  for _ in range(OFF_STEPS)]
+        runs[mode] = (losses, _snapshot_params(torch, eng.named),
+                      {n: {k: v.to("cuda") for k, v in s.items()}
+                       for n, s in opt._accumulators.items()},
+                      eng.captures)
+        del eng, opt, m
+        _free(torch)
+    (rl, rp, rs, _), (ol, op, os_, caps) = runs["resident"], \
+        runs["offloaded"]
+    check(caps == 1, f"phase 32 (c): the offloaded engine captured {caps} "
+                     f"graphs")
+    check(rl == ol, f"phase 32 (c): offloaded losses {ol} != resident {rl}")
+    bad = [n for n in rp if not torch.equal(rp[n], op[n])] + \
+        [f"{n}.{k}" for n in rs for k in rs[n]
+         if not torch.equal(rs[n][k], os_[n][k])]
+    check(not bad, f"phase 32 (c): offloaded parameters or moments differ "
+                   f"from the resident run's: {bad[:5]}")
+    res["two_layers"] = dict(losses=ol, bitwise_equal=True,
+                             tensors_compared=len(rp) + sum(
+                                 len(s) for s in rs.values()))
+    del runs, rp, op, rs, os_
+    _free(torch)
+
+    # the full finetune at the deepest depth that fits
+    avail, memlock = _host_memory()
+    full = llama3_8b_config()
+    per_layer = (2 * full.hidden_size * (full.hidden_size + full.hidden_size
+                                         // full.num_attention_heads
+                                         * full.num_key_value_heads)
+                 + 3 * full.hidden_size * full.intermediate_size
+                 + 2 * full.hidden_size)
+    fixed = 2 * full.vocab_size * full.hidden_size + full.hidden_size
+    depth = FT_LAYERS
+    while depth > 1 and 8 * (fixed + depth * per_layer) + OFF_HOST_MARGIN \
+            > avail:
+        depth -= 1
+    reason = (f"MemAvailable {avail / 2 ** 30:.1f} GiB, ulimit -l "
+              f"{memlock}: {depth} layers need "
+              f"{8 * (fixed + depth * per_layer) / 2 ** 30:.1f} GiB pinned "
+              f"(8 bytes of AdamW moments a parameter) + a "
+              f"{OFF_HOST_MARGIN / 2 ** 30:.0f} GiB margin")
+    log(f"phase 32 (c) offloaded full finetune depth {depth}: {reason}")
+    rates = _copy_rates(torch)
+    cfg = llama3_8b_config(num_hidden_layers=depth)
+    model = LlamaForCausalLM(cfg, seed=4)
+    opt = AdamW(learning_rate=1e-5, parameters=model.named_parameters())
+    t0 = time.perf_counter()
+    eng = ParallelEngine(model, optimizer=opt, remat=True,
+                         remat_policy="nothing", offload_opt_state=True)
+    t_pin = time.perf_counter() - t0
+    off = eng._offload
+    ids, labels = _ft_batch(torch, cfg.vocab_size, FT_B, FT_S, 35)
+    n_tensors = len(eng.trained)
+    want = _ft_want(depth, n_tensors)
+    losses, walls, launches, peak = _timed_steps(
+        torch, ops, eng, (ids, labels), OFF_STEPS, want,
+        f"phase 32 (c) offloaded full finetune ({depth} layers)")
+    check(eng.captures == 1 and eng.replays["train"] == OFF_STEPS - 1,
+          f"phase 32 (c): {eng.captures} captures, {eng.replays} replays")
+    # one profiled step: its busy time and classes (a replay timed with
+    # events would cost another 3 s step)
+    busy, prof_wall, classes, _ = _device_busy(
+        torch, lambda: eng.train_batch(ids, labels).item(), 1)
+    dev = dict(device_ms=None if busy is None else busy * 1e3,
+               device_ms_from="torch.profiler busy time of one replay",
+               busy_share_profiled=None if busy is None else busy / prof_wall,
+               device_ms_by_class={c: t * 1e3 for c, t in sorted(
+                   classes.items(), key=lambda kv: -kv[1])})
+    moved = off.bytes_per_step()
+    bound_s = max(moved / (rates["h2d"] * 1e9), moved / (rates["d2h"] * 1e9))
+    step_s = walls[-1]
+    res["full"] = dict(
+        layers=depth, depth_reason=reason, params=sum(
+            p.numel() for _, p in eng.trained), tensors=n_tensors,
+        pinned_host_gib=off.host_bytes / 2 ** 30,
+        staging_gib=off.staging_bytes / 2 ** 30, window=off.window,
+        setup_s=t_pin, losses=losses, step_walls_s=walls,
+        ms_per_step=step_s * 1e3, tokens_per_s=FT_B * FT_S / step_s,
+        peak_memory_gib=peak, copy_gb_per_s=rates,
+        bytes_each_way_per_step=moved,
+        pcie_bound_ms=bound_s * 1e3,
+        pcie_bound_formula="moment bytes each way a step / the slower "
+                           "direction's measured pinned copy rate (the two "
+                           "directions overlap)",
+        step_over_pcie_bound=step_s / bound_s, launches_per_step=want,
+        **dev)
+    check(all(x == x for x in losses), f"phase 32 (c): non-finite loss "
+                                       f"{losses}")
+    log("phase 32 (c) offload_opt_state: " + json.dumps(res))
+    del eng, opt, model, off
+    _free(torch)
+    return res
+
+
+def finetune_flat(torch, ops):
+    """Phase 32 (d): the flat multi-tensor AdamW (``PT_MT_ADAMW=1``) at
+    phase 7's depth: 3 graphed steps, parameters bit for bit the
+    per-tensor path's; AdamW device ms and launches a step both ways; the
+    flat launch against its byte bound."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    cfg = llama3_8b_config(num_hidden_layers=FLAT_LAYERS)
+    ids, labels = _ft_batch(torch, cfg.vocab_size, FT_B, FT_S, 36)
+    res, params = {}, {}
+    for mode in ("per_tensor", "flat"):
+        os.environ["PT_MT_ADAMW"] = "1" if mode == "flat" else "0"
+        try:
+            model = LlamaForCausalLM(cfg, seed=5)
+            opt = AdamW(learning_rate=1e-4,
+                        parameters=model.named_parameters())
+            eng = ParallelEngine(model, optimizer=opt)
+        finally:
+            os.environ.pop("PT_MT_ADAMW", None)
+        n = len(eng.trained)
+        want = _ft_want(FLAT_LAYERS, 1 if mode == "flat" else n,
+                        remat=False)
+        losses, walls, launches, peak = _timed_steps(
+            torch, ops, eng, (ids, labels), OFF_STEPS, want,
+            f"phase 32 (d) {mode} AdamW ({FLAT_LAYERS} layers)")
+        params[mode] = {k: p.detach().cpu() for k, p in eng.named}
+        dev = _step_device(torch, eng, lambda: eng.train_batch(ids, labels),
+                           1, 1, 1)
+        res[mode] = dict(losses=losses, ms_per_step=walls[-1] * 1e3,
+                         peak_memory_gib=peak,
+                         adamw_launches_per_step=want["fused_adamw"],
+                         adamw_device_ms=dev["device_ms_by_class"].get(
+                             "fused_adamw"), **dev)
+        if mode == "flat":
+            mt = opt._accumulators["__mt__"]
+            numel = mt["p"].numel()
+            check(numel >= 2 ** 31, f"phase 32 (d): the flat state has "
+                                    f"{numel} elements, under 2^31")
+            scal = opt._begin(torch.tensor(1e-4, device="cuda"),
+                              torch.tensor(OFF_STEPS + 9, device="cuda"))
+            ms = time_ms(lambda: fused_adamw_update(
+                mt["p"], opt._mt_grad, mt["moment1"], mt["moment2"],
+                scalars=scal, b1=opt._beta1, b2=opt._beta2,
+                eps=opt._epsilon, decay=opt._wd_coeff), 3)
+            nbytes = numel * (2 + 4 + 8 + 2 + 8)
+            b, by = bound_ms(nbytes, 15 * numel, FP32_FLOPS)
+            res["flat_launch"] = dict(rows=numel // 512, cols=512,
+                                      elements=numel, ms=ms, bound_ms=b,
+                                      bound_by=by, plain_ms=None,
+                                      plain_note="not measured: the plain "
+                                      "update's fp32 temporaries of the "
+                                      "whole model do not fit beside it")
+        del eng, opt, model
+        _free(torch)
+    bad = [k for k in params["flat"]
+           if not torch.equal(params["flat"][k], params["per_tensor"][k])]
+    check(not bad, f"phase 32 (d): flat AdamW parameters differ from the "
+                   f"per-tensor path's: {bad[:5]}")
+    check(res["flat"]["losses"] == res["per_tensor"]["losses"],
+          "phase 32 (d): flat losses differ from per-tensor")
+    res["bitwise_equal"] = True
+    log("phase 32 (d) flat AdamW: " + json.dumps(res))
+    del params
+    return res
+
+
+def finetune_offload_attn(torch, ops):
+    """Phase 32 (e): ``remat_policy="offload_attn"`` at phase 19's S =
+    16384 on its layers against ``"nothing"`` and ``"dots"``: 3 graphed
+    steps each from the same weights; losses and parameters bit for bit
+    ``"nothing"``'s (the host copies are the values the recompute makes
+    again: tolerance 0); peak memory and ms a step."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    cfg = llama3_8b_config(num_hidden_layers=LONG_LAYERS,
+                           max_position_embeddings=OA_S)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    batch = _long_batch(torch, gen, cfg.vocab_size, OA_S)
+    model = LlamaForCausalLM(cfg, seed=6)
+    res, final = {}, {}
+    for policy in ("nothing", "offload_attn", "dots"):
+        model.reset_parameters(6)
+        opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+        eng = ParallelEngine(model, optimizer=opt, remat=True,
+                             remat_policy=policy)
+        want = {"flash_fwd_stream": 2 * LONG_LAYERS,
+                "flash_bwd_dq_stream": LONG_LAYERS,
+                "flash_bwd_dkv_stream": LONG_LAYERS,
+                "rms_norm": 4 * LONG_LAYERS + 1,
+                "fused_adamw": len(eng.trained)}
+        losses, walls, _, peak = _timed_steps(
+            torch, ops, eng, batch, OFF_STEPS, want,
+            f"phase 32 (e) S={OA_S} remat {policy}")
+        res[policy] = dict(losses=losses, ms_per_step=walls[-1] * 1e3,
+                           peak_memory_gib=peak,
+                           host_anchor_gib=eng.host_stash.nbytes / 2 ** 30)
+        if policy != "dots":
+            final[policy] = _snapshot_params(torch, eng.named, host=True)
+        del eng, opt
+        _free(torch)
+    check(res["offload_attn"]["host_anchor_gib"] > 0 and
+          len(res) == 3, "phase 32 (e): no anchor went to the host")
+    check(res["offload_attn"]["losses"] == res["nothing"]["losses"],
+          f"phase 32 (e): offload_attn losses "
+          f"{res['offload_attn']['losses']} != nothing's "
+          f"{res['nothing']['losses']}")
+    diff = max((final["offload_attn"][n].float() - final["nothing"][n]
+                .float()).abs().max().item() for n in final["nothing"])
+    res["param_max_abs_diff_vs_nothing"] = diff
+    res["tolerance"] = 0.0
+    check(diff == 0.0, f"phase 32 (e): offload_attn parameters differ from "
+                       f"nothing's by {diff}")
+    log("phase 32 (e) offload_attn: " + json.dumps(res))
+    del model, final, batch
+    _free(torch)
+    return res
+
+
+def finetune_amp(torch, ops):
+    """Phase 32 (f): AMP O2 (``decorate``: bf16 parameters, fp32 master
+    weights) with ``GradScaler`` at 2 layers, eager: the loss falls; two
+    planted inf gradients skip their steps (parameters bit for bit) and
+    halve the scale after ``decr_every_n_nan_or_inf`` = 2 bad steps."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama3_8b_config(num_hidden_layers=AMP_LAYERS, dtype="float32")
+    model = LlamaForCausalLM(cfg, seed=7)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()),
+          "phase 32 (f): decorate O2 left an fp32 parameter")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 14,
+                            decr_every_n_nan_or_inf=2)
+    ids, labels = _ft_batch(torch, cfg.vocab_size, 1, FT_S, 38)
+    plant = (2, 3)
+    losses, scales, skipped = [], [], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k in range(6):
+        with amp.auto_cast(level="O2"):
+            loss = model(ids, labels)
+        scaler.scale(loss).backward()
+        if k in plant:
+            model.model.layers[0].mlp.up_proj.weight.grad.fill_(float("inf"))
+        before = model.model.layers[1].self_attn.q_proj.weight.detach() \
+            .clone()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        same = torch.equal(before,
+                           model.model.layers[1].self_attn.q_proj.weight)
+        losses.append(loss.item())
+        scales.append(scaler.state_dict()["scale"])
+        skipped.append(same)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(skipped == [k in plant for k in range(6)], f"phase 32 (f): the "
+          f"skipped steps {skipped}, want the planted ones {plant}")
+    check(scales[1] == 2.0 ** 14 and scales[2] == 2.0 ** 14 and
+          scales[3] == 2.0 ** 13, f"phase 32 (f): scales {scales}")
+    check(losses[-1] < losses[0], f"phase 32 (f): the loss did not fall: "
+                                  f"{losses}")
+    masters = {s["master_weight"].dtype for s in opt._accumulators.values()}
+    check(masters == {torch.float32}, f"phase 32 (f): master weights "
+                                      f"{masters}")
+    check(launches["fused_adamw"] > 0 and launches["flash_fwd"] > 0,
+          f"phase 32 (f): launches {launches}")
+    res = dict(layers=AMP_LAYERS, level="O2", losses=losses, scales=scales,
+               skipped=skipped, planted_inf_at=list(plant),
+               master_weight_dtype="float32", wall_s=wall,
+               launches=launches)
+    log("phase 32 (f) amp O2 + GradScaler: " + json.dumps(res))
+    del model, opt
+    _free(torch)
+    return res
+
+
+def finetune(torch, ops):
+    """Phase 32: the rest of the training side at full width (see the
+    module docstring); returns the results and the launches of the main
+    path ((a)'s steps and (b)'s counted serving run)."""
+    t0 = time.perf_counter()
+    res = {}
+    lora, model = finetune_lora(torch, ops)
+    res["a"] = lora
+    with tempfile.TemporaryDirectory() as tmp:
+        res["b"] = finetune_serve(torch, ops, model, tmp)
+    del model
+    _free(torch)
+    launches = dict(lora["launches"])
+    for k, n in res["b"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rms_norm",
+              "fused_adamw", "paged_attention", "fused_lora_matmul"):
+        check(launches.get(k, 0) > 0, f"phase 32: {k} was not launched on "
+                                      f"the finetune path")
+    res["c"] = finetune_offload(torch, ops)
+    res["d"] = finetune_flat(torch, ops)
+    res["e"] = finetune_offload_attn(torch, ops)
+    res["f"] = finetune_amp(torch, ops)
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 32: {res['phase_s']:.1f} s, {card_line()}")
+    return res
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -7059,6 +7742,16 @@ def main() -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
+    if sys.argv[1:] == ["--only", "finetune"]:
+        # a diagnostic run: the build, phase 6's AdamW kernel and phase 32
+        # alone, no final line
+        kernel_adamw(torch, fw, ops)
+        fin = finetune(torch, ops)
+        log("phase 32: " + json.dumps(fin))
+        log(f"partial run (phase 32 only): {time.perf_counter() - t_start:.1f}"
+            f" s")
+        log(card)
+        return 0
     if sys.argv[1:] == ["--only", "serve"]:
         # a diagnostic run: the build and phases 4, 14, 24 and 25 alone, no
         # final line
@@ -7077,6 +7770,13 @@ def main() -> int:
         log(f"partial run (phases 4, 14, 24, 25 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    # each phase group's end, seconds into the run
+    marks = [("build", time.perf_counter() - t_start)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter() - t_start))
+        log(f"phase group {name} ended at {marks[-1][1]:.1f} s")
+
     fwd_build = flash_fwd_build(_build, fac)
     log("flash forward kernel (registers a thread at launch; consumers "
         "setmaxnreg to consumer_registers): " + json.dumps(fwd_build))
@@ -7099,6 +7799,7 @@ def main() -> int:
     attn_cases = kernel_paged_attention(torch, ops, pa, cfg)
     # phase 28: the decode and verify products, batch-invariant
     inv_res = batch_invariance(torch, ops)
+    mark("phases 2-3, 28 (kernels, batch invariance)")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -7108,6 +7809,7 @@ def main() -> int:
         f"params bf16, made on the card in {time.perf_counter() - t0:.1f} s")
     serve_res, prompt, srv4 = serve(torch, ops, model)
     e2e = end_to_end(torch, ops, model, prompt)
+    mark("phases 4-5 (serve, end to end)")
     del srv4                    # its pools would count in the next peaks
     gc.collect()
     torch.cuda.empty_cache()
@@ -7117,6 +7819,7 @@ def main() -> int:
         graphs=False)[0])}
     graph_cmp["bf16"]["graphed_tick_wall_over_device"] = graphed_tick_check(
         serve_res)
+    mark("phase 24 bf16 eager twin")
 
     # phases 13-15, the whole-tick kernel, while the bf16 model is on the
     # card
@@ -7127,6 +7830,7 @@ def main() -> int:
             torch, ops, model, serve_res["tokens"], graphs=False))
     e2e_mk = end_to_end(torch, ops, model, prompt,
                         label="end_to_end megakernel", megakernel=True)
+    mark("phases 13-15 (megakernel)")
     # phase 16, int8 KV pools under the bf16 model: per layer, then
     # through the whole-tick kernel
     kv8_res = serve_int8_kv(torch, ops, model, megakernel=False)
@@ -7145,17 +7849,23 @@ def main() -> int:
     e2e_kv8_mk = end_to_end(torch, ops, model, prompt,
                             label="end_to_end int8-kv megakernel",
                             kv_quant="int8", megakernel=True)
+    mark("phase 16 (int8 KV)")
     # phase 25: tick_window = 4
     w4_res, w4_mk_res, window_res = serve_windows(torch, ops, model,
                                                   serve_res, mk_res)
+    mark("phase 25 (windows)")
     # phase 26: speculative serving
     spec_res = serve_spec(torch, ops, model, serve_res["tokens"])
+    mark("phase 26 (speculative)")
     # phase 29: priority scheduling and swap preemption
     sched_res = scheduling(torch, ops, model, sched_ref)
+    mark("phase 29 (scheduling)")
     # phase 30 (a)-(d): observability and recovery, the bf16 model
     rec_res = recovery_serving(torch, ops, model, here, sched_ref)
+    mark("phase 30 (a)-(d) (recovery)")
     # phase 31 (a), (b): dense-cache serving and generate, the bf16 model
     dense_res = dense_generation(torch, ops, model, serve_res["tokens"])
+    mark("phase 31 (a), (b) (dense)")
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -7177,6 +7887,7 @@ def main() -> int:
     del lora_srv
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phases 9-12 (int8 / LoRA kernels, LoRA serving)")
     # phase 17, the LoRA cell through the whole-tick kernel
     lora_mk_res, _, lora_srv = serve_lora(torch, ops, model, megakernel=True)
     graph_cmp["lora megakernel"] = eager_twin(
@@ -7200,30 +7911,42 @@ def main() -> int:
                           kv_quant="int8")
     # phase 31 (b), int8 weights
     dense_res["int8"] = dense_int8(torch, ops, model)
+    mark("phases 17, 11, 31 int8 (LoRA megakernel, int8)")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     # phase 31 (c): GPT-2 small
     dense_res["gpt"] = gpt_generation(torch, ops)
+    mark("phase 31 (c) (GPT-2)")
 
     fwd_cases, bwd_cases = kernel_flash(torch, fa, fac, ops)
     adamw_cases = kernel_adamw(torch, fw, ops)
+    mark("phase 6 (flash, AdamW kernels)")
     train_res = train(torch, ops)
     train_e2e = train_end_to_end(torch, ops, fa)
+    mark("phases 7-8 (train)")
     # phases 18-20, long-context training through the streaming kernels
     stream_cases = kernel_flash_stream(torch, fa, fac, ops)
     long_res = train_long(torch, ops)
     long_e2e = train_long_end_to_end(torch, ops)
+    mark("phases 18-20 (long context)")
     # phases 21-23, ERNIE-3.0 base finetune: LayerNorm (row 8), the flash
     # kernels at head dim 64, the finetune and its drift check
     ln_cases = kernel_layer_norm(torch, fused_norm)
     fwd64_cases, bwd64_cases = kernel_flash_d64(torch, fa, fac)
     ernie_res = train_ernie(torch, ops)
     ernie_e2e = ernie_end_to_end(torch, ops)
+    mark("phases 21-23 (ERNIE)")
     # phase 27: the graphed training step against the eager one
     parity = train_graph_parity(torch, ops)
+    mark("phase 27 (graph parity)")
     # phase 30 (e): the engine's telemetry and its retried step
     rec_train = recovery_train(torch, ops)
+    mark("phase 30 (e) (engine telemetry)")
+    # phase 32: LoRA finetune at full depth, served; offloaded optimizer
+    # state; flat AdamW; offload_attn; AMP
+    fin_res = finetune(torch, ops)
+    mark("phase 32 (finetune)")
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -7347,6 +8070,15 @@ def main() -> int:
         k["recovery_launches"] = (rec_res["launches"].get(k["name"], 0)
                                   + rec_train["launches"].get(k["name"], 0))
         k["dense_launches"] = dense_launches.get(k["name"], 0)
+        # phase 32's main path: (a)'s counted steps, (b)'s served run
+        k["finetune_launches"] = fin_res["launches"].get(k["name"], 0)
+        if k["name"] == "fused_adamw":
+            # row 10's new launch shapes: the whole model's flat state in
+            # one launch; a parameter's moments streamed from the host
+            k["flat_case"] = fin_res["d"]["flat_launch"]
+            k["flat_launches_per_step"] = 1
+            k["offloaded_device_ms_per_step"] = fin_res["c"]["full"][
+                "device_ms_by_class"].get("fused_adamw")
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
@@ -7394,6 +8126,11 @@ def main() -> int:
         log(f"phase 30 {name}: " + json.dumps(r))
     log("phase 30 (e) engine: " + json.dumps(rec_train))
     log_dense(dense_res, serve_res)
+    log("phase 32 (finetune): " + json.dumps(fin_res))
+    prev = 0.0
+    for name, at in marks:
+        log(f"phase time {name}: {at - prev:.1f} s")
+        prev = at
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

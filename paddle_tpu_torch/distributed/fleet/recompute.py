@@ -34,6 +34,22 @@ Nothing a kernel fills in place is ever saved: the policies save only
 the outputs of ``aten.mm`` / ``aten.addmm`` and of the anchor, never an
 ``aten.empty``.
 
+``remat_policy="offload_attn"`` (JAX: ``save_and_offload_only_these_
+names``, nothing saved on the device, ``attn_out`` and ``mlp_out``
+offloaded to pinned host memory): each layer is checkpointed saving only
+its inputs, as under ``"nothing"``; in the layer's forward the two
+anchors are copied to pinned host buffers, and in its recompute each is
+brought back and used in place of its recomputed value, so the layer's
+backward reads the host copies (the output projection's weight gradient
+reads ``attn_out``). The recompute still runs what precedes an anchor,
+the flash forward included, as it does under every policy. The host
+buffers are preallocated, one an anchor of the step in the order the
+step runs them (:class:`HostStash`, made at their first use, outside a
+capture), so a CUDA graph replays the same copies; the engine opens the
+stash's scope around each step. On CPU tensors "host" is where
+they already are: the buffers are plain CPU tensors (outside an engine's
+stash scope, a clone).
+
 RNG preservation (``preserve_rng_state``): PyTorch's checkpoint stashes
 the default generators' states with ``get_rng_state``, which a CUDA graph
 capture refuses. Inside a :class:`RegionRng` scope, which the engine opens
@@ -56,9 +72,11 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-#: the JAX engine's policy names (``offload_attn`` is not ported)
+#: the JAX engine's policy names
 REMAT_POLICIES = ("dots", "nothing", "save_attn", "save_attn_mlp",
-                  "save_qkv_attn")
+                  "save_qkv_attn", "offload_attn")
+#: checkpoint names each offloading policy keeps in pinned host memory
+_OFFLOADED_NAMES = {"offload_attn": ("attn_out", "mlp_out")}
 #: checkpoint names each named policy saves
 _SAVED_NAMES = {"save_attn": ("attn_out",),
                 "save_attn_mlp": ("attn_out", "mlp_out"),
@@ -116,6 +134,88 @@ class RegionRng:
             yield
         finally:
             default.graphsafe_set_state(main)
+
+
+class HostStash:
+    """The host copies of a train step's offloaded anchors: one buffer an
+    anchor, in the order the step runs them, made at its first use (an
+    eager step: a capture follows a warm-up of the same step) and kept for
+    every later step, pinned in place when the anchor is on a CUDA device
+    (``graphs.pinned_zeros``)."""
+
+    def __init__(self):
+        self.bufs = []
+        self.next = 0
+
+    def take(self, x):
+        """The host buffer of the step's next anchor, shaped as ``x``."""
+        k = self.next
+        self.next += 1
+        if k == len(self.bufs):
+            if x.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("an offloaded anchor ran in a CUDA graph "
+                                   "capture but not in its warm-up")
+            from ...graphs import pinned_zeros
+
+            self.bufs.append(pinned_zeros(x.shape, x.dtype) if x.is_cuda
+                             else torch.empty(x.shape, dtype=x.dtype))
+        buf = self.bufs[k]
+        if buf.shape != x.shape or buf.dtype != x.dtype:
+            raise RuntimeError(f"offloaded anchor {k} changed shape: "
+                               f"{tuple(buf.shape)} {buf.dtype} -> "
+                               f"{tuple(x.shape)} {x.dtype}")
+        return buf
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.numel() * b.element_size() for b in self.bufs)
+
+
+_HOST_STASH = contextvars.ContextVar("paddle_tpu_torch_host_stash",
+                                     default=None)
+
+
+@contextlib.contextmanager
+def host_stash(store: HostStash):
+    """Within: offloaded anchors copy into ``store``'s buffers (numbered
+    from 0 for this step)."""
+    store.next = 0
+    token = _HOST_STASH.set(store)
+    try:
+        yield store
+    finally:
+        _HOST_STASH.reset(token)
+
+
+# the checkpointed layer being run: whether this run is its recompute, and
+# the host buffers its forward filled, in order
+_REGION = contextvars.ContextVar("paddle_tpu_torch_offload_region",
+                                 default=None)
+
+
+def _offload_anchor(x):
+    """An offloaded anchor: in the layer's forward, ``x`` copied to the
+    step's next host buffer (``x`` returned); in its recompute, that
+    buffer brought back in place of the recomputed value (what the
+    layer's backward then reads)."""
+    region = _REGION.get()
+    if not region["recomputing"]:
+        store = _HOST_STASH.get()
+        if store is not None:
+            buf = store.take(x)
+        elif x.is_cuda:
+            raise RuntimeError("an offloaded anchor on a CUDA device needs "
+                               "the engine's host stash (ParallelEngine, "
+                               "remat_policy='offload_attn')")
+        else:
+            buf = torch.empty_like(x)
+        buf.copy_(x.detach(), non_blocking=True)
+        region["bufs"].append(buf)
+        return x
+    buf = region["bufs"][region["next"]]
+    region["next"] += 1
+    out = buf.to(x.device, non_blocking=True) if x.is_cuda else buf.clone()
+    return out.requires_grad_(x.requires_grad)
 
 
 _REGION_RNG = contextvars.ContextVar("paddle_tpu_torch_region_rng",
@@ -187,26 +287,33 @@ _ANCHOR = torch.ops.paddle_tpu_torch.checkpoint_name.default
 
 
 # the checkpoint names anchored in the layer being run: those its policy
-# saves (empty outside a checkpointed layer)
+# saves, and those it offloads (empty outside a checkpointed layer)
 _ANCHORED = contextvars.ContextVar("paddle_tpu_torch_anchored",
                                    default=frozenset())
+_OFFLOADED = contextvars.ContextVar("paddle_tpu_torch_offloaded",
+                                    default=frozenset())
 
 
 @contextlib.contextmanager
-def anchored(names):
-    """Within: :func:`checkpoint_name` anchors the names in ``names``."""
+def anchored(names, offloaded=()):
+    """Within: :func:`checkpoint_name` anchors the names in ``names`` and
+    offloads those in ``offloaded``."""
     token = _ANCHORED.set(frozenset(names))
+    token_off = _OFFLOADED.set(frozenset(offloaded))
     try:
         yield
     finally:
+        _OFFLOADED.reset(token_off)
         _ANCHORED.reset(token)
 
 
 def checkpoint_name(x, name: str):
     """``x`` under the checkpoint name ``name`` (``jax.ad_checkpoint.
     checkpoint_name``): the same values, as the anchor's contiguous copy
-    where the policy of the layer being run saves ``name``, else ``x``
-    itself."""
+    where the policy of the layer being run saves ``name``, through a
+    host copy where it offloads ``name``, else ``x`` itself."""
+    if name in _OFFLOADED.get():
+        return _offload_anchor(x)
     return _checkpoint_name(x, name) if name in _ANCHORED.get() else x
 
 
@@ -222,13 +329,8 @@ def _policy(saved_names, dots, ctx, op, *args, **kwargs):
 
 
 def check_remat_policy(policy):
-    """Raise for a policy the port does not take: ``offload_attn``
-    (pinned-host offload) ``NotImplementedError``, any other unknown name
-    ``ValueError``, as the JAX engine does."""
-    if policy == "offload_attn":
-        raise NotImplementedError(
-            "remat_policy='offload_attn' (activations offloaded to pinned "
-            "host memory) is not ported yet")
+    """Raise ValueError for an unknown policy name, as the JAX engine
+    does."""
     if policy is not None and policy != "none" and \
             policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}")
@@ -239,7 +341,8 @@ def remat_context_fn(policy):
     JAX policy name: ``"dots"`` saves the outputs of ``aten.mm`` /
     ``aten.addmm`` (``dots_with_no_batch_dims_saveable``), the named
     policies the anchors they name (``save_only_these_names``); None for
-    ``"nothing"``, ``"none"`` and None, which save only the checkpoint's
+    ``"nothing"``, ``"offload_attn"`` (whose anchors go to the host
+    outside the policy), ``"none"`` and None, which save only the checkpoint's
     inputs (``nothing_saveable``, or no policy: the same in JAX)."""
     check_remat_policy(policy)
     dots = policy == "dots"
@@ -257,6 +360,7 @@ class _LayerScope:
     def __init__(self, policy):
         self.context_fn = remat_context_fn(policy)
         self.names = frozenset(_SAVED_NAMES.get(policy, ()))
+        self.offloaded = frozenset(_OFFLOADED_NAMES.get(policy, ()))
         self.layers = 0
 
 
@@ -277,11 +381,20 @@ def remat_layers(policy):
         _LAYER_REMAT.reset(token)
 
 
-def _run_anchored(names, layer, *args):
+def _run_anchored(names, offloaded, region, layer, *args):
     # the checkpointed function: its replay in the backward anchors the
-    # same names as the forward, on whatever thread runs it
-    with anchored(names):
-        return layer(*args)
+    # same names as the forward, on whatever thread runs it; every call
+    # after the first is a recompute, which reads the forward's host
+    # buffers from the first
+    region["recomputing"] = region["runs"] > 0
+    region["runs"] += 1
+    region["next"] = 0
+    token = _REGION.set(region)
+    try:
+        with anchored(names, offloaded):
+            return layer(*args)
+    finally:
+        _REGION.reset(token)
 
 
 def layer_checkpoint():
@@ -296,7 +409,9 @@ def layer_checkpoint():
 
     def run(layer, *args):
         scope.layers += 1
-        return _checkpoint(functools.partial(_run_anchored, scope.names,
-                                             layer), *args, **kw)
+        region = {"runs": 0, "recomputing": False, "bufs": [], "next": 0}
+        return _checkpoint(functools.partial(
+            _run_anchored, scope.names, scope.offloaded, region, layer),
+            *args, **kw)
 
     return run

@@ -13,15 +13,21 @@ launches nothing, so the launches its wrappers count are taken back
 (``ops.captured_launches``) and each replay adds them again: N replays
 count what N eager runs would. A capture that fails raises: nothing here
 falls back to an eager run.
+
+:func:`pinned_zeros` makes the host buffers a graph copies to and from: a
+plain CPU allocation pinned in place (``cudaHostRegister``) rather than a
+block of PyTorch's caching host allocator, which rounds each block up to
+a power of two and tracks its blocks' uses with events.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import weakref
 
 import torch
 
-__all__ = ["Graph", "capture", "warm_up", "weights_key"]
+__all__ = ["Graph", "capture", "pinned_zeros", "warm_up", "weights_key"]
 
 
 def warm_up(body, device):
@@ -76,3 +82,21 @@ def weights_key(*tensors) -> tuple:
     address. ``tensors``: iterables of tensors."""
     return tuple((t.data_ptr(), t.dtype, tuple(t.shape))
                  for t in itertools.chain(*tensors))
+
+
+def pinned_zeros(shape, dtype) -> torch.Tensor:
+    """A zeroed CPU tensor pinned in place for the card's copies (unpinned
+    when it is collected); raises when pinning fails. The zero fill runs
+    on every intra-op thread, so the pages are faulted in in parallel
+    before ``cudaHostRegister`` pins them."""
+    t = torch.zeros(shape, dtype=dtype)
+    nbytes = t.numel() * t.element_size()
+    if nbytes == 0:
+        return t
+    cudart = torch.cuda.cudart()
+    err = cudart.cudaHostRegister(t.data_ptr(), nbytes, 0)
+    if int(getattr(err, "value", err)) != 0:
+        raise RuntimeError(f"pinning {nbytes / 2 ** 30:.2f} GiB of host "
+                           f"memory failed ({err})")
+    weakref.finalize(t, cudart.cudaHostUnregister, t.data_ptr())
+    return t

@@ -8,7 +8,11 @@ name-for-name, array-for-array copy with no transpose. Parameter names are
 the JAX model's (``paddle_tpu.jit.state_values(model)``). A JAX model after
 ``quantize_int8()`` carries each projection as ``…weight_q`` (int8) and
 ``…weight_scale`` (f32): those load into a port model after its own
-``quantize_int8()``, codes and scales unchanged.
+``quantize_int8()``, codes and scales unchanged. A JAX model with LoRA
+attached (``lora_rank``, ``attach_lora``) carries each wrapped projection
+as ``…base.weight`` (the frozen base, in the model dtype) with its fp32
+factors ``…lora_A`` (in, r) and ``…lora_B`` (r, out): those load into a
+port model with the same LoRA attached.
 """
 from __future__ import annotations
 
@@ -64,16 +68,40 @@ def param_shapes(cfg: LlamaConfig, int8: bool = False) -> Dict[str, tuple]:
     return out
 
 
+def _with_lora(out: Dict[str, tuple], state, suffixes) -> Dict[str, tuple]:
+    """``out`` with every projection that ``state`` carries as
+    ``<proj>.base.weight`` renamed so, and its factors ``<proj>.lora_A``
+    (in, r) / ``<proj>.lora_B`` (r, out) added (r read from the state); a
+    bias goes to ``<proj>.base.bias``."""
+    for name in [n for n in out if n.endswith(".weight")
+                 and any(n.endswith(f"{p}.weight") for p in suffixes)]:
+        proj = name[:-len(".weight")]
+        if proj + ".base.weight" not in state:
+            continue
+        n_in, n_out = out.pop(name)
+        r = np.asarray(state[proj + ".lora_A"]).shape[-1]
+        out.update({proj + ".base.weight": (n_in, n_out),
+                    proj + ".lora_A": (n_in, r), proj + ".lora_B": (r, n_out)})
+        if proj + ".bias" in out:
+            out[proj + ".base.bias"] = out.pop(proj + ".bias")
+    return out
+
+
+def _is_factor(name: str) -> bool:
+    return name.endswith((".lora_A", ".lora_B"))
+
+
 def params_from_jax(state: Dict[str, np.ndarray],
                     cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """Turn the JAX model's named parameters (``state_values(model)``
     converted to numpy) into a state dict for the port's
     ``LlamaForCausalLM.load_state_dict``: floating parameters in
     ``cfg.dtype``; an int8-quantized state keeps its int8 codes and f32
-    scales (load it into a port model after ``quantize_int8()``). Raises
-    on a missing, unexpected or mis-shaped parameter."""
+    scales (load it into a port model after ``quantize_int8()``); LoRA
+    factors stay fp32. Raises on a missing, unexpected or mis-shaped
+    parameter."""
     int8 = any(n.endswith(".weight_q") for n in state)
-    want = param_shapes(cfg, int8=int8)
+    want = _with_lora(param_shapes(cfg, int8=int8), state, _PROJECTIONS)
     missing = sorted(set(want) - set(state))
     extra = sorted(set(state) - set(want))
     if missing or extra:
@@ -93,8 +121,8 @@ def params_from_jax(state: Dict[str, np.ndarray],
             continue
         # numpy has no bfloat16: widen (exactly) and narrow in torch
         t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
-        out[name] = t if name.endswith(".weight_scale") else \
-            t.to(cfg.torch_dtype)
+        out[name] = t if name.endswith(".weight_scale") or \
+            _is_factor(name) else t.to(cfg.torch_dtype)
     return out
 
 
@@ -201,10 +229,12 @@ def gpt_params_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
     converted to numpy) into a state dict for the port's
     ``GPTForCausalLM.load_state_dict``, in ``dtype`` (default
     ``cfg.dtype``) on ``device`` (None: the CUDA card). Raises on a
-    missing, unexpected or mis-shaped parameter."""
+    missing, unexpected or mis-shaped parameter. LoRA factors stay
+    fp32."""
     device = resolve_device(device)
     dtype = cfg.torch_dtype if dtype is None else dtype
-    want = gpt_param_shapes(cfg)
+    want = _with_lora(gpt_param_shapes(cfg), state,
+                      ("c_attn", "c_proj", "c_fc", "c_out"))
     missing = sorted(set(want) - set(state))
     extra = sorted(set(state) - set(want))
     if missing or extra:
@@ -217,5 +247,6 @@ def gpt_params_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
             raise ValueError(f"gpt_params_from_jax: {name} has shape "
                              f"{tuple(arr.shape)}, want {shape}")
         t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
-        out[name] = t.to(device=device, dtype=dtype)
+        out[name] = t.to(device=device,
+                         dtype=torch.float32 if _is_factor(name) else dtype)
     return out

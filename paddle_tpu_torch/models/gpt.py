@@ -22,9 +22,11 @@ kernels take bfloat16 only, so a GPT on the card is built with
 the JAX model's einsum, computed in plain PyTorch
 (``llama.decode_attention``).
 
-Training-side LoRA (``lora_rank``, :meth:`GPTForCausalLM.attach_lora`,
-:meth:`GPTForCausalLM.merge_lora`) is not ported yet and raises
-NotImplementedError.
+Training-side LoRA: ``cfg.lora_rank > 0`` (or :meth:`GPTForCausalLM.
+attach_lora`) wraps the projections named by ``cfg.lora_targets`` (default
+:data:`GPT_LORA_TARGETS`, every projection of a block; the fused ``c_attn``
+adapts q, k and v through one (h, 3h) residual) in ``nn.lora.LoRALinear``;
+:meth:`GPTForCausalLM.merge_lora` folds them back.
 """
 from __future__ import annotations
 
@@ -53,8 +55,8 @@ class GPTConfig:
     attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-5
     dtype: str = "float32"
-    # the JAX config's LoRA knobs, kept so a config carries over field for
-    # field; only lora_rank = 0 is served (GPTForCausalLM raises otherwise)
+    # training-side LoRA: rank > 0 wraps the block projections at
+    # construction (nn/lora.py)
     lora_rank: int = 0
     lora_alpha: Optional[float] = None
     lora_targets: Optional[tuple] = None
@@ -65,6 +67,11 @@ class GPTConfig:
             raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got "
                              f"{self.dtype!r}")
         return _DTYPES[self.dtype]
+
+
+# fused qkv + attention out + both MLP projections: every projection in a
+# GPTBlock
+GPT_LORA_TARGETS = ("c_attn", "c_proj", "c_fc", "c_out")
 
 
 def gpt2_small_config(**kw) -> GPTConfig:
@@ -195,10 +202,6 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.lora_rank:
-            raise NotImplementedError(
-                f"GPTConfig.lora_rank={cfg.lora_rank} is not ported yet "
-                f"(training-side LoRA comes with the rest of training)")
         device = resolve_device(device)
         self.cfg = cfg
         self.generator = torch.Generator(device=device)
@@ -208,6 +211,10 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             if isinstance(m, Dropout):
                 m.generator = self.generator
         self.reset_parameters(seed)
+        if cfg.lora_rank:
+            self.attach_lora(cfg.lora_rank, alpha=cfg.lora_alpha,
+                             targets=cfg.lora_targets,
+                             generator=self.generator)
 
     @property
     def device(self) -> torch.device:
@@ -222,16 +229,30 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         for name, p in self.named_parameters():
             if ".ln_" in name or name.startswith("transformer.ln_f"):
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("bias"):
+            elif name.endswith(("bias", "lora_B")):
                 p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=self.generator)
 
-    def attach_lora(self, rank, alpha=None, targets=None):
-        raise NotImplementedError("GPT LoRA (attach_lora) is not ported yet")
+    def attach_lora(self, rank, alpha=None, targets=None, generator=None):
+        """Wrap the block projections with trainable LoRA factors
+        (``targets`` defaults to :data:`GPT_LORA_TARGETS`); the fused
+        ``c_attn`` wrap adapts q/k/v through one (h, 3h) residual. Returns
+        self."""
+        from ..nn.lora import attach_lora
+
+        self.__dict__.pop("_gen_cache", None)
+        return attach_lora(self, rank, alpha=alpha,
+                           targets=targets or GPT_LORA_TARGETS,
+                           generator=generator)
 
     def merge_lora(self, targets=None):
-        raise NotImplementedError("GPT LoRA (merge_lora) is not ported yet")
+        """Fold the adapter deltas back into the base weights (the dense
+        export). Returns self."""
+        from ..nn.lora import merge_lora
+
+        self.__dict__.pop("_gen_cache", None)
+        return merge_lora(self, targets=targets or GPT_LORA_TARGETS)
 
     def _logits(self, h):
         return torch.matmul(h, self.transformer.wte.weight.t())

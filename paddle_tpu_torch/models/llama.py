@@ -23,9 +23,14 @@ Training recomputes activations per decoder layer under ``cfg.recompute``
 ``remat=True`` and its ``remat_policy``, which sees the checkpoint names
 ``qkv``, ``attn_out`` and ``mlp_out`` where the JAX model sets them.
 
-Left out so far: MoE, training-side LoRA (``lora_rank``),
-the fused int8 q/k/v weight (``PT_W8_FUSED_QKV``),
-ring/Ulysses/context/sequence parallel attention.
+Training-side LoRA: ``cfg.lora_rank > 0`` (or :meth:`LlamaForCausalLM.
+attach_lora`) wraps the projections named by ``cfg.lora_targets``
+(default :data:`LLAMA_LORA_TARGETS`, all seven) in ``nn.lora.LoRALinear``,
+whose frozen base keeps the weights a model without LoRA draws from the
+same seed; :meth:`LlamaForCausalLM.merge_lora` folds the factors back.
+
+Left out so far: MoE, the fused int8 q/k/v weight (``PT_W8_FUSED_QKV``, a
+serving option), ring/Ulysses/context/sequence parallel attention.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import resolve_device
+from ..amp import cast_inputs
 from ..distributed.fleet.recompute import (checkpoint_name, layer_checkpoint,
                                            recompute)
 from ..nn.lora import lora_matmul
@@ -100,6 +106,11 @@ class LlamaConfig:
             raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got "
                              f"{self.dtype!r}")
         return _DTYPES[self.dtype]
+
+
+# attribute names attach_lora / merge_lora wrap when cfg.lora_targets is None
+LLAMA_LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
+                      "gate_proj", "up_proj", "down_proj")
 
 
 def llama3_8b_config(**kw) -> LlamaConfig:
@@ -193,6 +204,7 @@ def masked_attention(q, k, v, causal: bool = True):
     input dtype then fp32 over sqrt(D), masked logits -1e30 (causal:
     bottom-right aligned), fp32 softmax cast to q's dtype before PV.
     Returns (B, S, H, D)."""
+    q, k, v = cast_inputs("einsum", q, k, v)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     if KV != H:
@@ -272,7 +284,8 @@ class Linear(nn.Module):
         self.weight = _param((in_features, out_features), cfg, device)
 
     def forward(self, x):
-        return torch.matmul(x, self.weight)
+        x, w = cast_inputs("linear", x, self.weight)
+        return torch.matmul(x, w)
 
     def stream(self, x):
         return stream_matmul(x, self.weight)
@@ -624,7 +637,6 @@ class LlamaModel(nn.Module):
 def _check_supported(cfg: LlamaConfig) -> None:
     unsupported = {
         "moe_num_experts": (cfg.moe_num_experts, 0),
-        "lora_rank": (cfg.lora_rank, 0),
         "context_parallel": (cfg.context_parallel, False),
         "sequence_parallel": (cfg.sequence_parallel, False),
         "ulysses_parallel": (cfg.ulysses_parallel, False),
@@ -651,7 +663,10 @@ class LlamaForCausalLM(nn.Module):
     full-width model never has to exist in host memory. Load trained or JAX
     weights with ``load_state_dict`` (see ``models/convert.py``).
     Parameters are built with ``requires_grad=False`` (serving);
-    ``parallel.ParallelEngine`` turns gradients on for training."""
+    ``parallel.ParallelEngine`` turns gradients on for the ones it trains.
+    With ``cfg.lora_rank`` the projections are wrapped in LoRA after the
+    base weights are drawn (:meth:`attach_lora`), so the base equals that
+    of the same config without LoRA at the same seed."""
 
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -661,6 +676,9 @@ class LlamaForCausalLM(nn.Module):
         self.model = LlamaModel(cfg, device)
         if not cfg.tie_word_embeddings:
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, cfg, device)
+        if cfg.lora_rank:
+            self.attach_lora(cfg.lora_rank, alpha=cfg.lora_alpha,
+                             targets=cfg.lora_targets)
         self.reset_parameters(seed)
 
     @property
@@ -669,13 +687,47 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
+        """Projections and embeddings N(0, 0.02), norms 1, drawn in
+        parameter order from a generator seeded with ``seed``; then each
+        LoRA ``lora_A`` N(0, 0.02) from the same generator and ``lora_B``
+        zeros (the base draws do not depend on whether LoRA is
+        attached)."""
         g = torch.Generator(device=self.device)
         g.manual_seed(int(seed))
-        for name, p in self.named_parameters():
+        named = list(self.named_parameters())
+        for name, p in named:
+            if name.endswith(("lora_A", "lora_B")):
+                continue
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=g)
+        for name, p in named:
+            if name.endswith("lora_A"):
+                p.normal_(0.0, 0.02, generator=g)
+            elif name.endswith("lora_B"):
+                p.zero_()
+
+    def attach_lora(self, rank, alpha=None, targets=None, generator=None):
+        """Wrap the projections with trainable LoRA factors
+        (``nn/lora.py``; ``lora_A`` drawn from ``generator``); ``targets``
+        defaults to all of :data:`LLAMA_LORA_TARGETS`. Base weights freeze
+        (``trainable = False``); only A and B train. Returns self."""
+        from ..nn.lora import attach_lora
+
+        self.__dict__.pop("_gen_cache", None)
+        return attach_lora(self, rank, alpha=alpha,
+                           targets=targets or LLAMA_LORA_TARGETS,
+                           generator=generator)
+
+    def merge_lora(self, targets=None):
+        """Fold the trained factors into the base weights (in place) and
+        restore plain projections — the dense model the served adapter is
+        compared with. Returns self."""
+        from ..nn.lora import merge_lora
+
+        self.__dict__.pop("_gen_cache", None)
+        return merge_lora(self, targets=targets or LLAMA_LORA_TARGETS)
 
     @property
     def quantized(self) -> bool:

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ...amp import cast_inputs
 from ...ops.flash_attention import flash_attention_bshd
 
 NEG_INF = -1e30
@@ -61,7 +62,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """(B, S, H, D) attention: flash attention where the JAX package's rule
     admits it, else :func:`_sdpa_ref` with the mask. ``training`` is taken
     for the signature's sake: callers pass ``dropout_p = 0`` outside
-    training, as the JAX package's layers do."""
+    training, as the JAX package's layers do. Under ``amp.auto_cast`` the
+    inputs take the ``sdpa`` rule."""
+    query, key, value = cast_inputs("sdpa", query, key, value)
     if _takes_flash(query, key, attn_mask, dropout_p):
         return flash_attention_bshd(query, key, value, causal=is_causal,
                                     scale=scale)

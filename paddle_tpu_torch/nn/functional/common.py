@@ -4,10 +4,13 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_inputs
+
 
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with ``weight`` stored (in, out), Paddle's
-    layout."""
+    layout (under ``amp.auto_cast``: the ``linear`` rule)."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 

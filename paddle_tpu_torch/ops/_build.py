@@ -88,10 +88,11 @@ SIGNATURES = {
     # M, K, N, R, rows_per_entry, a_page_stride, b_page_stride, stream
     "pt_fused_lora": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _L, _L, _P),
-    # p, g, m, v, master (or NULL), n, g_is_fp32, sc (device fp32 [lr,
+    # p, g, m, v, master (or NULL), n, g_is_fp32, p_is_fp32, sc (device
+    # fp32 [lr,
     # 1/(1-b1^step), 1/(1-b2^step)]), b1, 1 - b1, b2, 1 - b2, eps, decay,
     # stream
-    "pt_fused_adamw": (_P, _P, _P, _P, _P, _I, _I, _P,
+    "pt_fused_adamw": (_P, _P, _P, _P, _P, _L, _I, _I, _P,
                        _F, _F, _F, _F, _F, _F, _P),
     # maps, wptrs, pools, tables, pos, cos_rows, sin_rows, xres, q, ao,
     # hbuf, ktok, vtok, lora_a (host), lora_b (host), lscale, laidx, lpart,

@@ -2,8 +2,8 @@
 //
 // Replaces: paddle_tpu/ops/fused_adamw.py, the Pallas kernel of
 // `_make_kernel` launched by `_fused_call` (:167). Semantics, kept: with pf
-// the fp32 master weight (or the upcast bf16 parameter) and g the gradient
-// upcast to fp32,
+// the fp32 master weight (or the upcast bf16 parameter, or an fp32
+// parameter itself) and g the gradient upcast to fp32,
 //   master = pf * (1 - lr * decay)
 //   m2 = b1 * m + (1 - b1) * g;  v2 = b2 * v + (1 - b2) * g * g
 //   new = master - lr * (m2 / bc1) / (sqrt(v2 / bc2) + eps)
@@ -29,12 +29,16 @@
 // Design: a grid-stride loop over groups of 8 elements, so that every
 // access is a 16-byte load or store (8 bf16 or two 4-float vectors) and
 // neighbouring threads touch neighbouring addresses; the last n % 8
-// elements go one per thread. One launch per tensor, as the TPU kernel
-// (the multi-tensor flat form is left for later).
+// elements go one per thread. One launch per tensor, as the TPU kernel, or
+// one launch over the whole model's flat (K, 512) state (PT_MT_ADAMW=1,
+// the TPU package's `flat_adamw_update`): Llama-3-8B's 8.03e9 elements
+// pass 2^31, so every index and the element count are 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -83,17 +87,33 @@ __device__ __forceinline__ void store8(float* p, const float* f) {
   reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
+__device__ __forceinline__ void store8(bf16* p, const float* f) {
+  uint4 u;
+  bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(f[j]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ float tof(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float tof(float x) { return x; }
+__device__ __forceinline__ void put(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
-template <typename G, bool kMaster>
+// P: the parameter's type, bf16 (with or without an fp32 master) or fp32
+// (the parameter is its own master: LoRA's factors)
+template <typename G, typename P, bool kMaster>
 __global__ void __launch_bounds__(256)
-adamw_kernel(bf16* __restrict__ p, const G* __restrict__ g,
+adamw_kernel(P* __restrict__ p, const G* __restrict__ g,
              float* __restrict__ m, float* __restrict__ v,
-             float* __restrict__ master, int n, const float* __restrict__ sc,
-             Consts c) {
+             float* __restrict__ master, long long n,
+             const float* __restrict__ sc, Consts c) {
   const Hyper h = hyper(sc, c);
-  const int n8 = n / 8;
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n8; i += stride) {
+  const long long n8 = n / 8;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n8; i += stride) {
     const size_t o = size_t(i) * 8;
     float pf[8], gf[8], mf[8], vf[8], out[8];
     if (kMaster) load8(master + o, pf); else load8(p + o, pf);
@@ -102,61 +122,64 @@ adamw_kernel(bf16* __restrict__ p, const G* __restrict__ g,
     load8(v + o, vf);
 #pragma unroll
     for (int j = 0; j < 8; ++j) update(pf[j], gf[j], mf[j], vf[j], out[j], h);
-    uint4 pu;
-    bf16* pe = reinterpret_cast<bf16*>(&pu);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) pe[j] = __float2bfloat16(out[j]);
-    *reinterpret_cast<uint4*>(p + o) = pu;
+    store8(p + o, out);
     store8(m + o, mf);
     store8(v + o, vf);
     if (kMaster) store8(master + o, out);
   }
-  const int tail = n8 * 8 + blockIdx.x * blockDim.x + threadIdx.x;
+  const long long tail = n8 * 8 + (long long)blockIdx.x * blockDim.x +
+                         threadIdx.x;
   if (tail < n) {
-    const float pf = kMaster ? master[tail] : __bfloat162float(p[tail]);
-    float gf;
-    if constexpr (sizeof(G) == 2) gf = __bfloat162float(g[tail]);
-    else gf = g[tail];
+    const float pf = kMaster ? master[tail] : tof(p[tail]);
+    const float gf = tof(g[tail]);
     float mf = m[tail], vf = v[tail], out;
     update(pf, gf, mf, vf, out, h);
-    p[tail] = __float2bfloat16(out);
+    put(p + tail, out);
     m[tail] = mf;
     v[tail] = vf;
     if (kMaster) master[tail] = out;
   }
 }
 
-template <typename G>
-void launch(void* p, const void* g, void* m, void* v, void* master, int n,
-            const float* sc, const Consts& c, cudaStream_t s) {
+template <typename G, typename P>
+void launch(void* p, const void* g, void* m, void* v, void* master,
+            long long n, const float* sc, const Consts& c, cudaStream_t s) {
   constexpr int kThreads = 256;
-  const int blocks = max(1, min((n / 8 + kThreads - 1) / kThreads, 132 * 16));
+  const int blocks = (int)std::max(
+      1LL, std::min((n / 8 + kThreads - 1) / kThreads, 132LL * 16));
   if (master) {
-    adamw_kernel<G, true><<<blocks, kThreads, 0, s>>>(
-        static_cast<bf16*>(p), static_cast<const G*>(g), static_cast<float*>(m),
+    adamw_kernel<G, P, true><<<blocks, kThreads, 0, s>>>(
+        static_cast<P*>(p), static_cast<const G*>(g), static_cast<float*>(m),
         static_cast<float*>(v), static_cast<float*>(master), n, sc, c);
   } else {
-    adamw_kernel<G, false><<<blocks, kThreads, 0, s>>>(
-        static_cast<bf16*>(p), static_cast<const G*>(g), static_cast<float*>(m),
+    adamw_kernel<G, P, false><<<blocks, kThreads, 0, s>>>(
+        static_cast<P*>(p), static_cast<const G*>(g), static_cast<float*>(m),
         static_cast<float*>(v), nullptr, n, sc, c);
   }
 }
 
 }  // namespace
 
-// p: bfloat16; g: bfloat16 (g_fp32 = 0) or float32 (g_fp32 = 1); m, v,
-// master (NULL for none): float32; all n elements, contiguous, 16-byte
+// p: bfloat16 (p_fp32 = 0) or float32 (p_fp32 = 1, no master); g:
+// bfloat16 (g_fp32 = 0) or float32 (g_fp32 = 1); m, v, master (NULL for
+// none): float32; all n (64-bit) elements, contiguous, 16-byte
 // aligned, updated in place; sc: float32 [lr, 1/(1-b1^step), 1/(1-b2^step)]
 // on the device. Returns cudaGetLastError() after the launch.
 extern "C" int pt_fused_adamw(void* p, const void* g, void* m, void* v,
-                              void* master, int n, int g_fp32,
-                              const float* sc, float b1, float omb1, float b2,
+                              void* master, long long n, int g_fp32,
+                              int p_fp32, const float* sc, float b1, float omb1, float b2,
                               float omb2, float eps, float decay,
                               void* stream) {
-  if (n <= 0 || sc == nullptr) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || sc == nullptr || (p_fp32 && master))
+    return (int)cudaErrorInvalidValue;
   const Consts c{b1, omb1, b2, omb2, eps, decay};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (g_fp32) launch<float>(p, g, m, v, master, n, sc, c, s);
-  else launch<bf16>(p, g, m, v, master, n, sc, c, s);
+  if (p_fp32) {
+    if (g_fp32) launch<float, float>(p, g, m, v, master, n, sc, c, s);
+    else launch<bf16, float>(p, g, m, v, master, n, sc, c, s);
+  } else {
+    if (g_fp32) launch<float, bf16>(p, g, m, v, master, n, sc, c, s);
+    else launch<bf16, bf16>(p, g, m, v, master, n, sc, c, s);
+  }
   return (int)cudaGetLastError();
 }

@@ -224,7 +224,11 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = False, scale=None):
     """(B, H, S, D) flash attention with a flash backward; ``scale``
-    defaults to 1/sqrt(D)."""
+    defaults to 1/sqrt(D). Under ``amp.auto_cast`` the inputs take the
+    ``flash_attention`` rule (white list)."""
+    from ..amp import cast_inputs
+
+    q, k, v = cast_inputs("flash_attention", q, k, v)
     s = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, bool(causal), s)
 

@@ -59,11 +59,11 @@ def _reference_update(param_f32, grad_f32, m, v, scalars, b1, b2, eps,
 
 def fused_adamw_cuda(param, grad, m, v, master=None, *, scalars, b1, b2,
                      eps, decay):
-    """Launch the one-pass AdamW kernel: param (bfloat16), grad (bfloat16
-    or float32), m, v and master (float32), all contiguous, one shape, on
-    one CUDA device; updated in place; ``scalars`` the fp32 (3,) device
-    tensor of :func:`adamw_scalars` on that device. Raises on anything
-    else."""
+    """Launch the one-pass AdamW kernel: param (bfloat16, or float32 with
+    no master: the parameter is its own fp32 weight), grad (bfloat16 or
+    float32), m, v and master (float32), all contiguous, one shape, on one
+    CUDA device; updated in place; ``scalars`` the fp32 (3,) device tensor
+    of :func:`adamw_scalars` on that device. Raises on anything else."""
     from . import _build
 
     tensors = [param, grad, m, v] + ([master] if master is not None else [])
@@ -74,11 +74,13 @@ def fused_adamw_cuda(param, grad, m, v, master=None, *, scalars, b1, b2,
     if any(t.shape != param.shape for t in tensors):
         raise ValueError("fused_adamw_cuda: param, grad, moments and master "
                          "must have one shape")
-    if param.dtype != torch.bfloat16 or grad.dtype not in (
+    p_fp32 = param.dtype == torch.float32 and master is None
+    if (param.dtype != torch.bfloat16 and not p_fp32) or grad.dtype not in (
             torch.bfloat16, torch.float32):
         raise TypeError(f"fused_adamw_cuda: the kernel takes a bfloat16 "
-                        f"param and a bfloat16 or float32 grad, got "
-                        f"{param.dtype} and {grad.dtype}")
+                        f"param (or a float32 one without a master) and a "
+                        f"bfloat16 or float32 grad, got {param.dtype} and "
+                        f"{grad.dtype}")
     if any(t.dtype != torch.float32 for t in tensors[2:]):
         raise TypeError("fused_adamw_cuda: moments and master must be "
                         "float32")
@@ -90,16 +92,15 @@ def fused_adamw_cuda(param, grad, m, v, master=None, *, scalars, b1, b2,
                for t in tensors):
         raise ValueError("fused_adamw_cuda: tensors must be contiguous and "
                          "16-byte aligned (updated in place)")
-    n = param.numel()
+    n = param.numel()     # 64-bit in the kernel: a flat model's state
     if n == 0:
         return
-    if n >= 2 ** 31:
-        raise ValueError(f"fused_adamw_cuda: {n} elements exceed int32")
     lib = _build.library()
     err = lib.pt_fused_adamw(
         param.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
         master.data_ptr() if master is not None else None, n,
-        int(grad.dtype == torch.float32), scalars.data_ptr(), float(b1),
+        int(grad.dtype == torch.float32), int(p_fp32), scalars.data_ptr(),
+        float(b1),
         float(1.0 - b1), float(b2), float(1.0 - b2), float(eps),
         float(decay), _build.stream_ptr(param.device))
     _build.check(err, "fused_adamw")

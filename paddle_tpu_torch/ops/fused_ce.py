@@ -12,10 +12,15 @@ contraction, so non-finite values there cannot poison dW.
 Every product here is a plain ``torch`` matrix product, as the JAX
 package leaves them to XLA (no Pallas in this op). Chunk logits are fp32
 products of the working-dtype operands: on the card a bf16 ``torch.mm``
-with an fp32 output (``out_dtype``), on the CPU an fp32 product. Not
-ported: the ``PT_CE_CHUNK`` env knob and the ``CEGeometry`` row sub-tile.
+with an fp32 output (``out_dtype``), on the CPU an fp32 product.
+``PT_CE_CHUNK`` (a positive int) overrides every caller's chunk size, as
+in the JAX package; any other value warns and keeps the caller's. Not
+ported: the ``CEGeometry`` row sub-tile.
 """
 from __future__ import annotations
+
+import os
+import warnings
 
 import torch
 from torch.nn import functional as F
@@ -106,7 +111,19 @@ def fused_linear_cross_entropy(hidden, weight, labels,
     hidden: [..., H]; weight: [H, V] ([V, H] with ``transpose_weight``, for
     tied embeddings); labels: integer [...] matching hidden's leading
     dims; rows labelled ``ignore_index`` count neither in the sum nor in
-    the mean."""
+    the mean. ``PT_CE_CHUNK`` overrides ``chunk_size`` (see the module
+    docstring)."""
+    override = os.environ.get("PT_CE_CHUNK")
+    if override is not None:
+        try:
+            parsed = int(override)
+        except ValueError:
+            parsed = 0
+        if parsed > 0:
+            chunk_size = parsed
+        else:
+            warnings.warn(f"PT_CE_CHUNK={override!r} is not a positive int; "
+                          f"keeping chunk_size={chunk_size}")
     if transpose_weight:
         weight = weight.t()
     h2 = hidden.reshape(-1, hidden.shape[-1])

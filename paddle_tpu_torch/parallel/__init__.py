@@ -1,3 +1,3 @@
-from .engine import ParallelEngine
+from .engine import ParallelEngine, make_train_step, parallelize
 
-__all__ = ["ParallelEngine"]
+__all__ = ["ParallelEngine", "make_train_step", "parallelize"]

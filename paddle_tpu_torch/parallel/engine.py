@@ -14,8 +14,20 @@ buffers that each call fills (from pinned host memory for a host batch).
 A train graph holds the whole step: zeroing the grads, the forward and
 backward (``grad_accum``'s microbatches), a zero gradient for a parameter
 the loss does not reach, the clip and the optimizer's update; an eval
-graph the forward and the loss under ``no_grad``. Every parameter is
-trained (the port has no frozen parameters yet).
+graph the forward and the loss under ``no_grad``.
+
+Trainable parameters (the JAX package's ``Parameter.trainable``): a
+parameter with the attribute ``trainable = False`` is frozen; one without
+the attribute is trainable (the port builds plain ``nn.Parameter``s, and
+serving models build them with ``requires_grad=False``, so ``requires_grad``
+cannot carry the notion). The engine trains the parameters that are
+trainable and, when the optimizer was given an explicit parameter list,
+in that list (``AdamW(parameters=lora_parameters(model))`` trains the
+factors only; the JAX engine ignores the list and trains every trainable
+parameter). Those get ``requires_grad`` on, gradients, optimizer state and
+the update; every other parameter gets ``requires_grad`` off, no state,
+and rides each step bit for bit unchanged. The graphs' weight key covers
+every parameter, frozen ones included.
 
 The learning rate and the step count live on the device, as the JAX
 step's operands: before each step the host's ``get_lr()`` is copied into
@@ -73,11 +85,27 @@ engine's CUDA graph captures during the step as its ``compiles``.
 ``telemetry=None`` (the default) keeps the step free of clock reads and
 its loss unsynchronised.
 
+``offload_opt_state=True`` keeps the optimizer's slots in pinned host
+memory and streams them through the device around each parameter's
+update in a window of ``PT_OFFLOAD_WINDOW`` staging sets
+(``parallel/offload.py``), inside the step's graph. As the JAX engine it
+refuses a mesh of more than one device (NotImplementedError),
+``PT_MT_ADAMW``'s flat state (ValueError), an optimizer without a
+per-parameter rule (NotImplementedError), and a model on the CPU
+(NotImplementedError: no pinned host memory to offload to, as the JAX
+CPU backend). ``remat_policy="offload_attn"`` keeps each layer's
+``attn_out`` and ``mlp_out`` in pinned host buffers, one an anchor of the
+step (``recompute.HostStash``), and recomputes the rest.
+
+The module functions :func:`parallelize` and :func:`make_train_step` and
+the methods :meth:`ParallelEngine.sync_to_model` (a no-op: the engine
+trains the model's own parameters) and :meth:`ParallelEngine.state_dict`
+are the JAX engine's.
+
 The constructor keeps the JAX engine's parameter order. Not ported yet
 (they raise NotImplementedError at any value but the JAX default): a mesh
 of more than one device, ``fsdp``, ``batch_spec``, ``donate``,
-``abstract``, ``remat_policy="offload_attn"``, ``offload_opt_state`` and
-``alias_model_params``.
+``abstract`` and ``alias_model_params``.
 """
 from __future__ import annotations
 
@@ -92,8 +120,10 @@ import torch
 from .. import graphs
 from ..faults import NULL_INJECTOR, FaultInjector, StepFault
 from ..telemetry import TrainTelemetry
-from ..distributed.fleet.recompute import (RegionRng, check_remat_policy,
+from ..distributed.fleet.recompute import (HostStash, RegionRng,
+                                           check_remat_policy, host_stash,
                                            region_rng, remat_layers)
+from .offload import OffloadedState, window_and_order
 
 # the JAX engine's constructor arguments that the port does not take yet,
 # each at the one value it accepts (the JAX default; ``batch_spec``'s
@@ -101,8 +131,7 @@ from ..distributed.fleet.recompute import (RegionRng, check_remat_policy,
 # NotImplementedError. The constructor keeps the JAX engine's parameter
 # order, so that a positional call means the same in both packages
 _UNPORTED = {"fsdp": False, "batch_spec": ("data",), "donate": True,
-             "abstract": False, "offload_opt_state": False,
-             "alias_model_params": False}
+             "abstract": False, "alias_model_params": False}
 
 
 @dataclasses.dataclass
@@ -144,6 +173,10 @@ class ParallelEngine:
                     f"ParallelEngine({key}=...) is not ported yet (the "
                     f"port's engine trains on one device)")
         if mesh is not None and getattr(mesh, "size", 1) > 1:
+            if offload_opt_state:
+                raise NotImplementedError(
+                    "offload_opt_state is single-device; multi-chip runs "
+                    "shard the state over the mesh instead (ZeRO)")
             raise NotImplementedError("ParallelEngine over a mesh of more "
                                       "than one device is not ported yet")
         self.grad_accum = int(grad_accum)
@@ -173,10 +206,20 @@ class ParallelEngine:
                              f"{sorted(map(str, held))}")
         self.device = held.pop()
         self.named = list(model.named_parameters())
+        listed = (None if optimizer is None
+                  or optimizer._parameter_list is None
+                  else {id(p) for _, p in optimizer._parameter_list})
+        self.trained = [(n, p) for n, p in self.named
+                        if getattr(p, "trainable", True)
+                        and (listed is None or id(p) in listed)]
+        trained_ids = {id(p) for _, p in self.trained}
         for _, p in self.named:
-            p.requires_grad_(True)
-        if optimizer is not None:
-            optimizer.init_state(self.named)
+            p.requires_grad_(id(p) in trained_ids)
+        self._offload = None
+        if offload_opt_state and optimizer is not None:
+            self._offload = self._build_offload(optimizer)
+        elif optimizer is not None:
+            optimizer.init_state(self.trained)
         # JAX's step_count (donated, incremented by the step) and lr
         # operand, on the device; _step_count is the host mirror
         self._step_count = 0
@@ -194,6 +237,29 @@ class ParallelEngine:
         # graph-safe RNG states of checkpointed regions (CUDA only)
         self._region_rng = (RegionRng(self.device)
                             if self.device.type == "cuda" else None)
+        # the pinned host buffers of remat_policy="offload_attn"
+        self.host_stash = HostStash()
+
+    def _build_offload(self, optimizer):
+        """The host-resident optimizer state (``offload_opt_state``), with
+        the JAX engine's refusals."""
+        from ..optimizer.optimizer import Optimizer
+
+        if getattr(optimizer, "mt_active", lambda: False)():
+            raise ValueError(
+                "offload_opt_state and PT_MT_ADAMW are mutually exclusive "
+                "(the flat state has no per-param layout to stream); unset "
+                "one")
+        if self.device.type != "cuda":
+            raise NotImplementedError(
+                f"offload_opt_state needs pinned host memory beside a CUDA "
+                f"device; the model is on {self.device}")
+        if type(optimizer)._apply_one is Optimizer._apply_one:
+            raise NotImplementedError(
+                "offload_opt_state needs a per-param update rule "
+                "(_apply_one)")
+        window, order = window_and_order()
+        return OffloadedState(optimizer, self.trained, window, order)
 
     # ------------------------------------------------------------------ step
     def _step_loss(self, batch):
@@ -227,12 +293,12 @@ class ParallelEngine:
         the loss."""
         opt = self.optimizer
         accum = self.grad_accum
-        named = self.named
+        named = self.trained
         for _, p in named:
             p.grad = None
         rng = (contextlib.nullcontext() if self._region_rng is None
                else region_rng(self._region_rng))
-        with rng:
+        with rng, host_stash(self.host_stash):
             if accum == 1:
                 loss = self._step_loss(batch)
                 loss.backward()
@@ -324,7 +390,7 @@ class ParallelEngine:
             torch.cuda.current_stream(self.device).synchronize()
         t_wait = tel.clock()
         if not tel.model_params:
-            tel.model_params = sum(p.numel() for _, p in self.named)
+            tel.model_params = sum(p.numel() for _, p in self.trained)
         first = batch[0] if batch else None
         tokens = 0 if first is None else \
             int(np.prod(first.shape[:2])) if first.ndim >= 2 \
@@ -468,9 +534,35 @@ class ParallelEngine:
         params = dict(self.named)
         for n, v in state["params"].items():
             params[n].copy_(torch.as_tensor(np.asarray(v)))
+        accs = self.optimizer._accumulators
         for n, slots in state["opt_state"].items():
-            live = self.optimizer._slots_for(n, params[n])
+            live = accs[n] if n in accs else \
+                self.optimizer._slots_for(n, params[n])
             for k, v in slots.items():
                 live[k].copy_(torch.as_tensor(np.asarray(v)))
         self._step_count = int(state.get("step", 0))
         self._step_dev.fill_(self._step_count)
+
+    def sync_to_model(self) -> None:
+        """The JAX engine copies its trained arrays back into the model's
+        parameters; the port's engine trains those parameters in place,
+        so there is nothing to copy."""
+
+    def state_dict(self):
+        """The model's ``state_dict()`` after :meth:`sync_to_model`."""
+        self.sync_to_model()
+        return self.model.state_dict()
+
+
+def parallelize(model, optimizer=None, loss_fn=None, mesh=None,
+                **kwargs) -> ParallelEngine:
+    return ParallelEngine(model, optimizer=optimizer, loss_fn=loss_fn,
+                          mesh=mesh, **kwargs)
+
+
+def make_train_step(model, loss_fn, optimizer, mesh=None, **kwargs):
+    """A :class:`ParallelEngine` with its train step built."""
+    eng = ParallelEngine(model, optimizer=optimizer, loss_fn=loss_fn,
+                         mesh=mesh, **kwargs)
+    eng.build_train_step()
+    return eng

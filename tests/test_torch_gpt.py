@@ -170,12 +170,14 @@ def test_init_draws_from_the_seed_and_unported_options_raise(monkeypatch):
     assert float(a.transformer.h[0].c_fc.bias.abs().sum()) == 0
     assert float(a.transformer.ln_f.weight.min()) == 1.0
     assert gpt2_small_config().hidden_size == 768
-    with pytest.raises(NotImplementedError, match="lora_rank"):
-        GPTForCausalLM(GPTConfig(**TINY, lora_rank=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="attach_lora"):
-        a.attach_lora(4)
-    with pytest.raises(NotImplementedError, match="merge_lora"):
-        a.merge_lora()
+    # LoRA is ported: lora_rank wraps every block projection at
+    # construction, over the base the same seed draws without it
+    lo = GPTForCausalLM(GPTConfig(**TINY, lora_rank=4), device="cpu", seed=3)
+    assert type(lo.transformer.h[0].c_attn).__name__ == "LoRALinear"
+    assert torch.equal(lo.transformer.h[0].c_fc.base.weight, w)
+    a.attach_lora(4)
+    assert a.merge_lora() is a
+    assert torch.equal(a.transformer.h[0].c_fc.weight, w)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPTForCausalLM(cfg)

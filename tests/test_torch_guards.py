@@ -22,7 +22,9 @@ from paddle_tpu_torch.parallel import ParallelEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
-PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
+PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
+                "paddle_tpu_torch.regularizer",
+                "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.distributed.fleet",
                 "paddle_tpu_torch.distributed.fleet.recompute",
                 "paddle_tpu_torch.faults",
@@ -77,7 +79,8 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.optimizer", "paddle_tpu_torch.optimizer.lr",
                 "paddle_tpu_torch.optimizer.optimizer",
                 "paddle_tpu_torch.parallel",
-                "paddle_tpu_torch.parallel.engine"]
+                "paddle_tpu_torch.parallel.engine",
+                "paddle_tpu_torch.parallel.offload"]
 # torch sees no card in the child, whatever the machine has
 NO_CARD_ENV = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
@@ -268,8 +271,7 @@ def test_train_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [dict(fsdp=True),
-                                    dict(remat=True,
-                                         remat_policy="offload_attn"),
+                                    dict(abstract=True),
                                     dict(offload_opt_state=True),
                                     dict(donate=False),
                                     dict(alias_model_params=True),
@@ -282,7 +284,6 @@ def test_unported_engine_options_raise(kwargs):
 
 
 @pytest.mark.parametrize("field,value", [("moe_num_experts", 4),
-                                         ("lora_rank", 8),
                                          ("context_parallel", True),
                                          ("sequence_parallel", True),
                                          ("ulysses_parallel", True)])

@@ -308,18 +308,30 @@ def _params():
 ], ids=["lr_ratio", "adam_lazy", "adamw_lazy", "l2_object", "l1_object",
         "lamb_exclude", "lars_exclude"])
 def test_unported_options_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
+    """These options raised NotImplementedError until they were ported;
+    now each builds an optimizer whose eager step runs, as the JAX
+    package accepts them (their numbers against JAX:
+    tests/test_torch_optimizer_surface.py)."""
+    opt = make()
+    for _, p in opt._parameter_list:
+        p.grad = torch.full_like(p, 0.5)
+    opt.step()
+    assert opt._global_step == 1
 
 
 def test_multi_tensor_adamw_state_raises(monkeypatch):
-    """``PT_MT_ADAMW=1`` (JAX's flat multi-tensor state and
-    ``flat_adamw_update``) is not ported: an AdamW it would apply to
-    refuses to build its state."""
+    """``PT_MT_ADAMW=1`` builds JAX's flat multi-tensor state (one
+    ``"__mt__"`` entry, the parameters views into it), and an update that
+    misses a parameter's gradient raises ValueError, as JAX's flat
+    ``pure_update`` does; per-tensor options keep the per-tensor path."""
     monkeypatch.setenv("PT_MT_ADAMW", "1")
-    opt = topt_mod.AdamW(parameters=_params())
-    with pytest.raises(NotImplementedError, match="PT_MT_ADAMW"):
-        opt.init_state(_params())
-    # as in JAX, per-tensor options keep the per-tensor path
-    topt_mod.AdamW(parameters=_params(), multi_precision=True).init_state(
-        _params())
+    params = _params()
+    opt = topt_mod.AdamW(parameters=params)
+    opt.init_state(params)
+    assert set(opt._accumulators) == {"__mt__"}
+    assert opt._accumulators["__mt__"]["p"].shape == (128, 512)
+    with pytest.raises(ValueError, match="PT_MT_ADAMW"):
+        opt.update([("w", params[0][1], torch.ones(4, 8))], 1e-3, 1)
+    per = topt_mod.AdamW(parameters=_params(), multi_precision=True)
+    per.init_state(_params())
+    assert set(per._accumulators) == {"w", "b"}
