@@ -22,6 +22,8 @@ the GPU.
     python3 chip_smoke.py --only finetune  # the build, phase 6's AdamW
                                         # kernel and phase 32 (no final
                                         # line)
+    python3 chip_smoke.py --only vision  # the build and phase 33 (no
+                                        # final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -471,6 +473,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2468,9 +2471,10 @@ def serve_sampled_window(torch, model):
 # Speculative serving, tools/serving_benchmark.py's --spec 4 mode
 # (:460-474, 736-742): k = 4 drafts a window; tick_window 4 with the
 # n-gram drafter (that tool's default under --spec), 1 with the draft
-# model; SPEC_NEW new tokens a request (half its default of 128 under
-# --repeat-suffix, cut to pay for phase 32 inside the run's time)
-SPEC_K, SPEC_WINDOW, SPEC_NEW = 4, 4, 64
+# model; SPEC_NEW new tokens a request (its default is 128 under
+# --repeat-suffix: cut to 64 to pay for phase 32 inside the run's time,
+# then to 32 for phase 33)
+SPEC_K, SPEC_WINDOW, SPEC_NEW = 4, 4, 32
 # the draft model of tools/serving_benchmark.py:962-973 at Llama-3-8B:
 # half the width, a quarter of the depth, half the heads
 DRAFT_CFG = dict(hidden_size=2048, intermediate_size=7168,
@@ -5474,13 +5478,14 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _device_busy(torch, step, steps: int):
+def _device_busy(torch, step, steps: int, classify=_kernel_class):
     """(device-busy seconds, host wall seconds, {class: device seconds},
     {kernel name: device seconds}) of ``steps`` train steps under
     torch.profiler: busy is the union of the trace's CUDA kernel and copy
-    intervals, and the classes split the device time into the port's
-    kernels, matrix products, elementwise and reduction kernels and the
-    rest; (None, wall, {}, {}) when the trace holds no device time."""
+    intervals, and the classes (``classify`` of a kernel's name; by
+    default the port's kernels, matrix products, elementwise and reduction
+    kernels and the rest) split the device time; (None, wall, {}, {}) when
+    the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5502,7 +5507,7 @@ def _device_busy(torch, step, steps: int):
     classes, names = {}, {}
     for e in device:
         t = e.time_range.elapsed_us() * 1e-6
-        c = _kernel_class(e.name)
+        c = classify(e.name)
         classes[c] = classes.get(c, 0.0) + t
         names[e.name] = names.get(e.name, 0.0) + t
     if busy <= 0:
@@ -5541,16 +5546,18 @@ def _timed_steps(torch, ops, eng, batch, steps, want, label, exact=False):
         torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def _step_device(torch, eng, fn, prof_steps, passes, repeats):
+def _step_device(torch, eng, fn, prof_steps, passes, repeats,
+                 classify=_kernel_class):
     """Device time of one step (or eval pass) ``fn`` of ``eng``: on its
     graphs, CUDA events around ``passes`` calls enqueued back to back
     (``_replayed_ms``); eager, the busy time of ``torch.profiler``'s trace.
     Both report the profiler's busy time and its split by kernel class
-    over ``prof_steps`` calls (the trace of a graph replay included)."""
+    (``classify``) over ``prof_steps`` calls (the trace of a graph replay
+    included)."""
     graphed = eng._use_graphs()
     replayed = _replayed_ms(torch, fn, passes, repeats) if graphed else None
     busy, prof_wall, classes, names = _device_busy(
-        torch, lambda: fn().item(), prof_steps)
+        torch, lambda: fn().item(), prof_steps, classify)
     busy_ms = None if busy is None else busy / prof_steps * 1e3
     return dict(
         device_ms=replayed if graphed else busy_ms,
@@ -7465,12 +7472,47 @@ def finetune_flat(torch, ops):
            if not torch.equal(params["flat"][k], params["per_tensor"][k])]
     check(not bad, f"phase 32 (d): flat AdamW parameters differ from the "
                    f"per-tensor path's: {bad[:5]}")
+    res["flat_launch"]["library_ms"], res["flat_launch"]["library_note"] = \
+        _flat_adamw_library_ms(torch, cfg)
     check(res["flat"]["losses"] == res["per_tensor"]["losses"],
           "phase 32 (d): flat losses differ from per-tensor")
     res["bitwise_equal"] = True
     log("phase 32 (d) flat AdamW: " + json.dumps(res))
     del params
     return res
+
+
+def _flat_adamw_library_ms(torch, cfg):
+    """Row 10's library yardstick at the flat shape: one step of
+    ``torch.optim.AdamW(fused=True)`` over the same tensors (the model's
+    parameter shapes), fp32 parameters and gradients as phase 6's
+    yardstick, timed with events after two warm-up steps (the first makes
+    the moments). Returns (ms, what was measured), or (None, why not)
+    when the 16 bytes an element do not fit the free device memory."""
+    from paddle_tpu_torch.models.convert import param_shapes
+
+    shapes = list(param_shapes(cfg).values())
+    numel = sum(math.prod(s) for s in shapes)
+    need = 16 * numel + 2 ** 30
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        return None, (f"not measured: {len(shapes)} fp32 tensors of "
+                      f"{numel} elements need {need / 2 ** 30:.1f} GiB with "
+                      f"gradients and moments, {free / 2 ** 30:.1f} free")
+    g = torch.Generator(device="cuda").manual_seed(37)
+    ws = []
+    for shape in shapes:
+        w = torch.randn(shape, generator=g, device="cuda").mul_(0.02)
+        w.requires_grad_()
+        w.grad = torch.randn(shape, generator=g, device="cuda").mul_(1e-3)
+        ws.append(w)
+    opt = torch.optim.AdamW(ws, lr=1e-4, weight_decay=0.01, fused=True)
+    ms = event_ms(torch, opt.step, 3)
+    del opt, ws
+    _free(torch)
+    return ms, (f"torch.optim.AdamW(fused=True), one step over the same "
+                f"{len(shapes)} tensors ({numel} elements), fp32 "
+                f"parameters and gradients")
 
 
 def finetune_offload_attn(torch, ops):
@@ -7621,6 +7663,416 @@ def finetune(torch, ops):
     return res
 
 
+# -------------------------------------------------------------- phase 33
+# ResNet-50 / CIFAR-10, BASELINE config 1 (BASELINE.md:20): the cell of
+# tools/model_benchmark.py:114-140 (resnet50(num_classes=10), B = 32 x 3 x
+# 224 x 224, Momentum, cross_entropy, ParallelEngine) with the recipe of
+# examples/resnet_cifar10.py:36-39 (momentum 0.9, weight decay 5e-4,
+# CosineAnnealingDecay(0.1)); (b) and (c) at B = 256, the per-GPU batch of
+# ResNet-50 recipes on an 80 GB card; (e) at B = 4 against the CPU
+VISION_B, VISION_BIG_B, VISION_CHECK_B = 32, 256, 4
+VISION_SIZE, VISION_STEPS = 224, 8
+# the scheduler's period in steps (the engine steps it once a batch)
+VISION_T_MAX = 16
+# dense TF32 peak of one H100 SXM (NVIDIA's H100 datasheet, no sparsity):
+# the fp32 cells' convolutions run in TF32 (cudnn.allow_tf32, PyTorch's
+# default); the AMP cell divides by BF16_FLOPS
+TF32_FLOPS = 495e12
+# (e): the card's fp32 logits (TF32 off) against the port on the CPU on
+# the same weights and images, the largest |difference| over the largest
+# |logit|, and the losses' relative gap. The port's fp32 ResNet-50 stays
+# within 1e-4 of its fp64 run at the CPU tests' smaller shapes (B = 4 at
+# 224 x 224 normalises 196 values a channel in the last stage, better
+# conditioned still); the limit leaves 10x that
+VISION_CPU_TOL = 1e-3
+
+
+# (b)'s BatchNorm on bf16 activations (cuDNN's mixed-dtype kernels on the
+# card) against the port on the CPU, which the CPU tests hold to the JAX
+# package: one training BatchNorm2D forward and backward at the first
+# stage's width. Both compute in fp32 and round to bf16, so the outputs
+# and the input's gradients may differ by a bf16 rounding (2^-8 of the
+# largest; the limits leave 2x and 4x that), the fp32 running statistics
+# by fp32 summation order
+VISION_BN_SHAPE = (8, 256, 56, 56)
+VISION_BN_TOL = dict(out=2 ** -7, mean=1e-5, variance=1e-5, x_grad=2 ** -6)
+
+
+def _vision_class(name: str) -> str:
+    """ResNet's kernel classes: convolutions (cuDNN's kernels, the GEMMs
+    it runs 1 x 1 convolutions as, its layout transforms; the fc's small
+    product lands here too), BatchNorm, pooling, elementwise (ReLU, the
+    residual adds, casts, the optimizer's update) and the rest
+    (reductions, the loss)."""
+    low = name.lower()
+    if any(k in low for k in ("bn_fw", "bn_bw", "batch_norm", "batchnorm")):
+        return "batch_norm"
+    if "pool" in low:
+        return "pooling"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                              "nchw", "nhwc", "cudnn", "gemm", "nvjet",
+                              "xmma", "cutlass", "cublas", "sm90_",
+                              "sm80_")):
+        return "conv"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduce"
+    return "other"
+
+
+def _conv_fc_flops(torch, model, x) -> int:
+    """2 x the multiply-adds of every ``Conv2D`` and ``Linear`` in one
+    eval forward of ``x`` (the running statistics are left as they are)."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+
+    total = [0]
+
+    def conv(layer, inp, out):
+        w = layer.weight
+        total[0] += 2 * out.numel() * w.shape[1] * math.prod(w.shape[2:])
+
+    def fc(layer, inp, out):
+        total[0] += 2 * out.numel() * layer.weight.shape[0]
+
+    hooks = [m.register_forward_post_hook(conv if isinstance(m, Conv2D)
+                                          else fc)
+             for m in model.sublayers() if isinstance(m, (Conv2D, Linear))]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(x)
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def _vision_snapshot(eng):
+    """Device copies of the parameters, the velocities and the
+    BatchNorm statistics."""
+    out = _snapshot(eng)
+    for n, b in eng.model.named_buffers():
+        out[n] = b.detach().clone()
+    return out
+
+
+def _vision_cell(torch, ops, eng, batch, label, flops, peak, images):
+    """VISION_STEPS steps of ``eng`` (no port kernel may launch: the path
+    has none), each read back; a snapshot of the state after them; then
+    the step's device time and its split by class. The loss must fall.
+    Returns (the cell, the snapshot)."""
+    losses, walls, _, peak_gib = _timed_steps(
+        torch, ops, eng, batch, VISION_STEPS, {}, label, exact=True)
+    snap = _vision_snapshot(eng)
+    step_s = _median(walls[2:])
+    dev = _step_device(torch, eng, lambda: eng.train_batch(*batch), 2, 3, 3,
+                       _vision_class)
+    res = dict(graphs=eng._use_graphs(), losses=losses, step_walls_s=walls,
+               ms_per_step=step_s * 1e3, images_per_s=images / step_s,
+               flops_per_step=flops, peak_flops=peak,
+               mfu=flops / step_s / peak,
+               compute_bound_ms=flops / peak * 1e3,
+               peak_memory_gib=peak_gib,
+               device_ms_per_step=dev.pop("device_ms"), **dev,
+               replays=dict(eng.replays), captures=eng.captures)
+    res["busy_share"] = (None if res["device_ms_per_step"] is None
+                         else res["device_ms_per_step"] / res["ms_per_step"])
+    if res["graphs"]:
+        check(eng.captures == 1 and eng.replays["train"] >= VISION_STEPS - 2,
+              f"{label}: {eng.replays['train']} replays, {eng.captures} "
+              f"captures: the graphs did not run")
+    else:
+        check(eng.captures == 0, f"{label}: the eager twin captured")
+    # the recipe's first update lifts the loss of a random network (lr 0.1
+    # with no warm-up); it must fall from there: the last three steps'
+    # mean below the first three's
+    res["loss_fell"] = sum(losses[-3:]) < sum(losses[:3])
+    check(res["loss_fell"],
+          f"{label}: the loss did not fall over {VISION_STEPS} steps: "
+          f"{losses}")
+    log(f"{label}: " + json.dumps(res))
+    return res, snap
+
+
+def _vision_optimizer_ms(torch, model):
+    """Device ms of the Momentum update alone over the model's 161
+    parameters (fp32 clones, gradients of their shapes; graph-timed): the
+    optimizer's share of the elementwise class."""
+    from paddle_tpu_torch.optimizer import Momentum
+
+    g = torch.Generator(device="cuda").manual_seed(330)
+    triples = [(n, p.detach().clone(), torch.randn(
+        p.shape, generator=g, device="cuda") * 1e-3)
+        for n, p in model.named_parameters()]
+    opt = Momentum(learning_rate=0.1, momentum=0.9, weight_decay=5e-4)
+    lr = torch.tensor(0.1, device="cuda")
+    step = torch.tensor(1, dtype=torch.int32, device="cuda")
+    return time_ms(lambda: opt.update(triples, lr, step), 10)
+
+
+def _vision_bn_bf16(torch):
+    """The largest difference, over the largest value, of the card's and
+    the CPU's bf16 BatchNorm: output, running mean and variance, the
+    input's gradient."""
+    from paddle_tpu_torch.nn import BatchNorm2D
+
+    g = torch.Generator().manual_seed(335)
+    x = (torch.randn(VISION_BN_SHAPE, generator=g) * 2 + 1).bfloat16()
+    dy = torch.randn(VISION_BN_SHAPE, generator=g)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        bn = BatchNorm2D(VISION_BN_SHAPE[1], device=dev)
+        xd = x.to(dev).requires_grad_()
+        y = bn(xd)
+        (y.float() * dy.to(dev)).sum().backward()
+        check(y.dtype == xd.grad.dtype == torch.bfloat16
+              and bn._mean.dtype == torch.float32,
+              f"phase 33 (b) BatchNorm bf16 on {dev}: output {y.dtype}, "
+              f"gradient {xd.grad.dtype}, statistics {bn._mean.dtype}")
+        got[dev] = [t.detach().float().cpu()
+                    for t in (y, bn._mean, bn._variance, xd.grad)]
+    return {k: ((c - h).abs().max() / h.abs().max()).item()
+            for k, c, h in zip(VISION_BN_TOL, got["cuda"], got["cpu"])}
+
+
+def vision(torch, ops):
+    """Phase 33: ResNet-50 training and eval on the card through the
+    framework core and the convolutional layer surface (see the module
+    docstring): (a) fp32 B = 32, graphed and its eager twin bit for bit
+    under deterministic cuDNN; (b) AMP O1 bf16 at B = 256, graphed; (c) the
+    eval forward at B = 256 on (a)'s running statistics, graphed; (d)
+    ``save`` / ``load`` / ``set_state_dict`` into a fresh model: (c)'s
+    logits bit for bit; (e) B = 4 fp32 (TF32 off) against the port on the
+    CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum, lr
+    from paddle_tpu_torch.parallel import ParallelEngine
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    flags = dict(cudnn_allow_tf32=cudnn.allow_tf32,
+                 matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                 cudnn_deterministic=True, cudnn_benchmark=False,
+                 cudnn_version=cudnn.version())
+    log("phase 33 settings: " + json.dumps(flags) + f", TF32 peak "
+        f"{TF32_FLOPS:.3g}, bf16 peak {BF16_FLOPS:.3g} (dense), "
+        f"{card_line()}")
+    res = dict(settings=flags)
+    try:
+        def make(seed):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            model = resnet50(num_classes=10, generator=g,
+                             device="cuda")
+            opt = Momentum(learning_rate=lr.CosineAnnealingDecay(
+                0.1, T_max=VISION_T_MAX), momentum=0.9, weight_decay=5e-4,
+                parameters=model.parameters())
+            return model, opt, ParallelEngine(model, optimizer=opt,
+                                              loss_fn=F.cross_entropy)
+
+        g = torch.Generator(device="cuda").manual_seed(33)
+        x = torch.randn(VISION_B, 3, VISION_SIZE, VISION_SIZE, generator=g,
+                        device="cuda")
+        y = torch.randint(0, 10, (VISION_B,), generator=g,
+                          device="cuda")
+        model_a, opt_a, eng_a = make(33)
+        n_params = sum(p.numel() for p in model_a.parameters())
+        n_bufs = len(model_a.buffers())
+        fwd_flops = _conv_fc_flops(torch, model_a, x[:1])
+        res["model"] = dict(params=n_params, parameter_tensors=len(
+            model_a.parameters()), buffers=n_bufs,
+            forward_flops_per_image=fwd_flops,
+            flops_formula="3 x (2 x MACs of every conv and the fc) a "
+                          "training image, from their shapes")
+        log("phase 33 model: " + json.dumps(res["model"]))
+        check(n_bufs == 106 and len(model_a.parameters()) == 161,
+              f"phase 33: resnet50 has {len(model_a.parameters())} "
+              f"parameters and {n_bufs} buffers, want 161 and 106")
+        before = {n: b.detach().clone() for n, b in model_a.named_buffers()}
+
+        # (a) fp32, graphed and its eager twin
+        res["a"], snap = _vision_cell(
+            torch, ops, eng_a, (x, y), f"phase 33 (a) resnet50 fp32 "
+            f"B={VISION_B} (graphs)", 3 * fwd_flops * VISION_B, TF32_FLOPS,
+            VISION_B)
+        moved = sum(not torch.equal(snap[n], before[n]) for n in before)
+        res["a"]["bn_buffers_moved"] = moved
+        check(moved == n_bufs, f"phase 33 (a): {n_bufs - moved} BatchNorm "
+                               f"buffers did not move")
+        model_e, _, eng_e = make(33)
+        eng_e.graphs = False
+        res["a_eager"], snap_e = _vision_cell(
+            torch, ops, eng_e, (x, y), f"phase 33 (a) resnet50 fp32 "
+            f"B={VISION_B} (eager)", 3 * fwd_flops * VISION_B, TF32_FLOPS,
+            VISION_B)
+        diffs = [k for k in snap if not torch.equal(snap[k], snap_e[k])]
+        res["a_bitwise"] = dict(
+            losses_equal=res["a"]["losses"] == res["a_eager"]["losses"],
+            tensors=len(snap), tensors_differing=len(diffs),
+            first_differing=diffs[:3])
+        log("phase 33 (a) graphs against eager: "
+            + json.dumps(res["a_bitwise"]))
+        check(res["a_bitwise"]["losses_equal"] and not diffs,
+              f"phase 33 (a): graphed and eager steps differ: "
+              f"{res['a_bitwise']}")
+        res["optimizer_ms_per_step"] = _vision_optimizer_ms(torch, model_a)
+        del model_e, eng_e, snap, snap_e
+        _free(torch)
+
+        # (b) AMP O1 bf16 at B = 256, graphed
+        gb = torch.Generator(device="cuda").manual_seed(34)
+        xb = torch.randn(VISION_BIG_B, 3, VISION_SIZE, VISION_SIZE,
+                         generator=gb, device="cuda")
+        yb = torch.randint(0, 10, (VISION_BIG_B,), generator=gb,
+                           device="cuda")
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            model_b, _, eng_b = make(34)
+            seen = {}
+
+            def conv1_dtype(layer, inp, out):
+                seen["conv1"] = out.dtype
+
+            hook = model_b.conv1.register_forward_post_hook(conv1_dtype)
+            model_b.eval()
+            with torch.no_grad():
+                dt = model_b(xb[:2]).dtype
+            model_b.train()
+            hook.remove()
+            check(seen["conv1"] == torch.bfloat16 and dt == torch.bfloat16,
+                  f"phase 33 (b): under O1 conv1 gave {seen['conv1']} and "
+                  f"the logits {dt}, want bfloat16")
+            bn_err = _vision_bn_bf16(torch)
+            res["b_batch_norm_bf16_against_cpu"] = dict(
+                shape=list(VISION_BN_SHAPE), err_over_max=bn_err,
+                tolerance=VISION_BN_TOL)
+            log("phase 33 (b) BatchNorm bf16, card against CPU: "
+                + json.dumps(res["b_batch_norm_bf16_against_cpu"]))
+            check(all(bn_err[k] <= VISION_BN_TOL[k] for k in bn_err),
+                  f"phase 33 (b): the card's bf16 BatchNorm is off the "
+                  f"CPU's: {bn_err} (limits {VISION_BN_TOL})")
+            res["b"], _ = _vision_cell(
+                torch, ops, eng_b, (xb, yb), f"phase 33 (b) resnet50 AMP "
+                f"O1 bf16 B={VISION_BIG_B} (graphs)",
+                3 * fwd_flops * VISION_BIG_B, BF16_FLOPS, VISION_BIG_B)
+        del model_b, eng_b
+        _free(torch)
+
+        # (c) eval on (a)'s running statistics at B = 256, graphed
+        model_a.eval()
+        logits_of = lambda logits, label: logits       # noqa: E731
+        eng_c = ParallelEngine(model_a, optimizer=opt_a, loss_fn=logits_of)
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(VISION_STEPS):
+            t1 = time.perf_counter()
+            logits_c = eng_c.eval_batch(xb, yb)
+            logits_c.float().sum().item()
+            walls.append(time.perf_counter() - t1)
+        ev_s = _median(walls[2:])
+        dev = _step_device(torch, eng_c,
+                           lambda: eng_c.eval_batch(xb, yb).float().sum(),
+                           2, 3, 3, _vision_class)
+        ev_flops = fwd_flops * VISION_BIG_B
+        res["c"] = dict(ms_per_forward=ev_s * 1e3,
+                        images_per_s=VISION_BIG_B / ev_s,
+                        mfu=ev_flops / ev_s / TF32_FLOPS,
+                        compute_bound_ms=ev_flops / TF32_FLOPS * 1e3,
+                        peak_memory_gib=torch.cuda.max_memory_allocated()
+                        / 2 ** 30,
+                        device_ms_per_forward=dev.pop("device_ms"), **dev,
+                        replays=dict(eng_c.replays), captures=eng_c.captures)
+        res["c"]["busy_share"] = (None if res["c"]["device_ms_per_forward"]
+                                  is None else res["c"][
+                                      "device_ms_per_forward"]
+                                  / res["c"]["ms_per_forward"])
+        check(eng_c.captures == 1 and eng_c.replays["eval"]
+              >= VISION_STEPS - 2, f"phase 33 (c): {eng_c.replays} replays, "
+                                   f"{eng_c.captures} captures")
+        check(bool(torch.isfinite(logits_c).all()) and tuple(logits_c.shape)
+              == (VISION_BIG_B, 10), "phase 33 (c): eval logits not finite "
+                                     "or of the wrong shape")
+        logits_c = logits_c.clone()
+        log("phase 33 (c) eval resnet50 fp32 B=256 (graphs): "
+            + json.dumps(res["c"]))
+
+        # (d) save, load, set_state_dict into a fresh model: (c) bit for bit
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "resnet50.pdparams")
+            t1 = time.perf_counter()
+            paddle.save(model_a.state_dict(), path)
+            t2 = time.perf_counter()
+            sd = paddle.load(path, device="cuda")
+            t3 = time.perf_counter()
+            nbytes = os.path.getsize(path)
+        fresh = resnet50(num_classes=10, device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(99))
+        missing, unexpected = fresh.set_state_dict(sd)
+        check(len(sd) == 267 and not missing and not unexpected
+              and all(t.device == x.device for t in sd.values()),
+              f"phase 33 (d): {len(sd)} entries, missing {missing[:3]}, "
+              f"unexpected {unexpected[:3]}")
+        fresh.eval()
+        eng_d = ParallelEngine(fresh, optimizer=Momentum(
+            0.1, parameters=fresh.parameters()), loss_fn=logits_of)
+        for _ in range(3):            # warm-up, capture, replay
+            logits_d = eng_d.eval_batch(xb, yb)
+        same = bool(torch.equal(logits_d, logits_c))
+        res["d"] = dict(entries=len(sd), file_bytes=nbytes,
+                        save_s=t2 - t1, load_s=t3 - t2,
+                        logits_bitwise_equal=same,
+                        max_abs_diff=(logits_d - logits_c).abs().max()
+                        .item())
+        log("phase 33 (d) save / load / set_state_dict: "
+            + json.dumps(res["d"]))
+        check(same, f"phase 33 (d): the loaded model's eval logits differ "
+                    f"from (c)'s by up to {res['d']['max_abs_diff']:.3g}")
+        del eng_c, eng_d, fresh, sd, logits_d, logits_c
+        _free(torch)
+
+        # (e) fp32 with TF32 off against the port on the CPU
+        cudnn.allow_tf32 = False
+        state = model_a.state_dict()
+        card = resnet50(num_classes=10, device="cuda",
+                        generator=torch.Generator(
+                            device="cuda").manual_seed(98))
+        card.set_state_dict(state)
+        host = resnet50(num_classes=10, device="cpu")
+        host.set_state_dict({k: v.cpu() for k, v in state.items()})
+        xe, ye = x[:VISION_CHECK_B], y[:VISION_CHECK_B]
+        with torch.no_grad():
+            lc = card(xe)
+            loss_c = F.cross_entropy(lc, ye).item()
+            t1 = time.perf_counter()
+            lh = host(xe.cpu())
+            cpu_s = time.perf_counter() - t1
+            loss_h = F.cross_entropy(lh, ye.cpu()).item()
+        cudnn.allow_tf32 = saved[2]
+        err = ((lc.cpu() - lh).abs().max() / lh.abs().max()).item()
+        gap = abs(loss_c - loss_h) / abs(loss_h)
+        res["e"] = dict(batch=VISION_CHECK_B, tf32=False, train_mode=True,
+                        logits_err_over_max=err, loss_card=loss_c,
+                        loss_cpu=loss_h, loss_rel_gap=gap,
+                        tolerance=VISION_CPU_TOL, cpu_forward_s=cpu_s)
+        log("phase 33 (e) card fp32 against the CPU: " + json.dumps(res["e"]))
+        check(err <= VISION_CPU_TOL and gap <= VISION_CPU_TOL,
+              f"phase 33 (e): the card's logits are {err:.3g} of the "
+              f"largest off the CPU's, the loss {gap:.3g} (limit "
+              f"{VISION_CPU_TOL})")
+        del card, host, model_a, eng_a, opt_a
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = saved
+    _free(torch)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 33: {res['phase_s']:.1f} s, {card_line()}")
+    return res
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -7749,6 +8201,14 @@ def main() -> int:
         fin = finetune(torch, ops)
         log("phase 32: " + json.dumps(fin))
         log(f"partial run (phase 32 only): {time.perf_counter() - t_start:.1f}"
+            f" s")
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--only", "vision"]:
+        # a diagnostic run: the build and phase 33 alone, no final line
+        vis = vision(torch, ops)
+        log("phase 33 (vision): " + json.dumps(vis))
+        log(f"partial run (phase 33 only): {time.perf_counter() - t_start:.1f}"
             f" s")
         log(card)
         return 0
@@ -7947,6 +8407,9 @@ def main() -> int:
     # state; flat AdamW; offload_attn; AMP
     fin_res = finetune(torch, ops)
     mark("phase 32 (finetune)")
+    # phase 33: ResNet-50 through the framework core and the layer surface
+    vis_res = vision(torch, ops)
+    mark("phase 33 (vision)")
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -8127,6 +8590,7 @@ def main() -> int:
     log("phase 30 (e) engine: " + json.dumps(rec_train))
     log_dense(dense_res, serve_res)
     log("phase 32 (finetune): " + json.dumps(fin_res))
+    log("phase 33 (vision): " + json.dumps(vis_res))
     prev = 0.0
     for name, at in marks:
         log(f"phase time {name}: {at - prev:.1f} s")

@@ -19,12 +19,25 @@ The first slice is paged continuous-batching serving of a Llama model:
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
 with ``device=None`` and no CUDA device they raise instead of quietly
 running on the CPU (:func:`resolve_device`).
+
+The framework core and the layer surface are exported here as a Paddle
+program calls them (``import paddle_tpu_torch as paddle``):
+``paddle.to_tensor``, ``paddle.seed``, ``paddle.save`` / ``paddle.load``,
+``paddle.no_grad``, ``paddle.grad``, the dtypes, the creation and shape
+functions, ``paddle.nn`` (``paddle.nn.Conv2D`` …), ``paddle.optimizer``,
+``paddle.amp`` and ``paddle.vision.models.resnet50``; the tensor is
+``torch.Tensor``:
+
+    import paddle_tpu_torch as paddle
+
+    model = paddle.vision.models.resnet50(num_classes=10)   # on the card
+    x = paddle.to_tensor(images)                            # on the card
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "resolve_place"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,3 +52,38 @@ def resolve_device(device=None) -> torch.device:
                 "PyTorch versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def resolve_place(device=None, place=None) -> torch.device:
+    """:func:`resolve_device` of ``device`` or of Paddle's ``place`` (its
+    alias: ``"gpu"`` / ``"gpu:1"`` name the CUDA devices); both given and
+    different raise ValueError."""
+    if place is not None:
+        if isinstance(place, str):
+            place = place.replace("gpu", "cuda")
+        place = torch.device(place)
+        if device is not None and torch.device(device) != place:
+            raise ValueError(f"device={device!r} and place={place!r} "
+                             f"disagree")
+        device = place
+    return resolve_device(device)
+
+
+# the Paddle surface, after the two functions above, which its modules
+# import
+from . import amp, framework, nn, optimizer, tensor, vision  # noqa: E402
+from .framework import (ParamAttr, Parameter, bfloat16, complex64,  # noqa
+                        complex128, enable_grad, float16, float32, float64,
+                        get_default_dtype, get_rng_state, grad, int8, int16,
+                        int32, int64, is_grad_enabled, load, no_grad, save,
+                        seed, set_default_dtype, set_rng_state, uint8)
+from .tensor import *  # noqa: E402,F401,F403
+from .tensor import __all__ as _tensor_all  # noqa: E402
+
+__all__ += ["ParamAttr", "Parameter", "amp", "bfloat16", "complex64",
+            "complex128", "enable_grad", "float16", "float32", "float64",
+            "framework", "get_default_dtype", "get_rng_state", "grad",
+            "int8", "int16", "int32", "int64", "is_grad_enabled", "load",
+            "nn", "no_grad", "optimizer", "save", "seed",
+            "set_default_dtype", "set_rng_state", "tensor", "uint8",
+            "vision", *_tensor_all]

@@ -9,7 +9,8 @@ lists). The JAX package applies the rule in its dispatcher, to every op;
 the port applies it where its functional ops stand in for that dispatcher
 (:func:`cast_inputs`): ``linear`` (``nn.functional.linear`` and the Llama
 projections), ``matmul``, ``einsum`` (Llama's masked attention), ``sdpa``
-(``nn.functional.scaled_dot_product_attention``) and ``flash_attention``.
+(``nn.functional.scaled_dot_product_attention``), ``flash_attention`` and
+``conv1d`` / ``conv2d`` / ``conv3d`` (``nn.functional.conv*d``).
 The norms and losses are on the black list, which casts nothing, so they
 run in their inputs' dtype as in JAX. ``decorate(level="O2")`` casts the
 models' floating parameters and buffers (in place: the optimizer's

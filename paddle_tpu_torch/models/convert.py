@@ -1,6 +1,7 @@
 """Weights from the JAX package into the port: Llama
-(:func:`params_from_jax`), ERNIE (:func:`ernie_params_from_jax`) and GPT
-(:func:`gpt_params_from_jax`).
+(:func:`params_from_jax`), ERNIE (:func:`ernie_params_from_jax`), GPT
+(:func:`gpt_params_from_jax`) and any ``Layer`` model built of the same
+layers, such as the ResNet family (:func:`layer_params_from_jax`).
 
 The port keeps Paddle's ``Linear`` layout — every projection weight is
 ``(in, out)`` and the port computes ``x @ weight`` — so the conversion is a
@@ -250,3 +251,30 @@ def gpt_params_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
         out[name] = t.to(device=device,
                          dtype=torch.float32 if _is_factor(name) else dtype)
     return out
+
+
+@torch.no_grad()
+def layer_params_from_jax(state: Dict[str, np.ndarray], model):
+    """Copy a JAX model's parameters AND buffers (``paddle_tpu.jit.
+    state_values(model)`` converted to numpy: a ResNet-50's 161 parameters
+    and 106 BatchNorm statistics) into the port model of the same
+    architecture, name for name, in place (a CUDA graph reads them by
+    address), each cast to the port tensor's dtype on its device. Raises
+    KeyError on a missing or unexpected name and ValueError on a shape
+    that differs. Returns ``model``."""
+    from ..framework.io_state import from_numpy
+
+    own = dict(model.named_parameters())
+    own.update(model.named_buffers())
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"layer_params_from_jax: missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    for name, tgt in own.items():
+        arr = np.asarray(state[name])
+        if tuple(arr.shape) != tuple(tgt.shape):
+            raise ValueError(f"layer_params_from_jax: {name} has shape "
+                             f"{tuple(arr.shape)}, want {tuple(tgt.shape)}")
+        tgt.copy_(from_numpy(arr, "cpu").to(tgt.dtype))
+    return model

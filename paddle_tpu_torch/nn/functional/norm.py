@@ -1,4 +1,6 @@
-"""``layer_norm`` — port of ``paddle_tpu/nn/functional/norm.py``.
+"""Normalization — port of ``paddle_tpu/nn/functional/norm.py``:
+``layer_norm``, ``batch_norm``, ``instance_norm``, ``group_norm``,
+``normalize`` and ``local_response_norm``.
 
 The JAX package's ``F.layer_norm`` is a jnp composition (XLA fuses it); its
 Pallas LayerNorm kernel (``ops.fused_norm._ln_pallas``) is reached only
@@ -35,3 +37,99 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)
+
+
+def _channel_axis(x, data_format):
+    return 1 if data_format.startswith("NC") else x.dim() - 1
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape).float()
+    if bias is not None:
+        out = out + bias.reshape(shape).float()
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """BatchNorm over every axis but the channel one (axis 1 for an
+    ``"NC…"`` format, the last otherwise), as the JAX package's:
+
+    - statistics in fp32: the running ones where ``use_global_stats``
+      (default: outside training), else the batch's mean and biased
+      variance; the output computed in fp32 and cast to x's dtype (bf16
+      activations under AMP keep fp32 statistics);
+    - in training with batch statistics, the running ones updated IN PLACE
+      (a CUDA graph replays the update): ``running = momentum · running +
+      (1 - momentum) · batch``, the variance unbiased (n / (n - 1)).
+      Paddle's ``momentum`` weighs the OLD statistic, PyTorch's the new
+      one: the port passes ``1 - momentum``.
+
+    It runs PyTorch's ``batch_norm`` (cuDNN's on the card) on an fp32
+    running mean and variance, channel-first (a channel-last input is
+    viewed so)."""
+    cl = not data_format.startswith("NC")
+    use_stats = (not training) if use_global_stats is None \
+        else use_global_stats
+    update = training and not use_stats
+    if cl:
+        x = x.movedim(-1, 1)
+    out = torch.nn.functional.batch_norm(
+        x, running_mean if (use_stats or update) else None,
+        running_var if (use_stats or update) else None, weight, bias,
+        training=not use_stats, momentum=1.0 - momentum, eps=epsilon)
+    return out.movedim(1, -1) if cl else out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None):
+    """Normalize each (N, C) plane over its spatial axes in fp32, then
+    ``weight`` / ``bias``, as the JAX package's (which reads no running
+    statistics and no ``data_format``: the input is channel-first)."""
+    axes = tuple(range(2, x.dim()))
+    xf = x.float()
+    mean = xf.mean(axes, keepdim=True)
+    var = (xf - mean).square().mean(axes, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+    return _affine(out, weight, bias, shape).to(x.dtype)
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Normalize each of ``num_groups`` channel groups per sample over its
+    channels and spatial axes in fp32, then ``weight`` / ``bias``."""
+    cl = not data_format.startswith("NC")
+    v = x.movedim(-1, 1) if cl else x
+    n, c = v.shape[:2]
+    g = v.reshape(n, num_groups, c // num_groups, *v.shape[2:]).float()
+    axes = tuple(range(2, g.dim()))
+    mean = g.mean(axes, keepdim=True)
+    var = (g - mean).square().mean(axes, keepdim=True)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(v.shape)
+    out = _affine(out, weight, bias,
+                  [1, c] + [1] * (v.dim() - 2)).to(x.dtype)
+    return out.movedim(1, -1) if cl else out
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """``x / max(‖x‖_p, epsilon)`` along ``axis``, in x's dtype."""
+    norm = x.abs().pow(p).sum(axis, keepdim=True).pow(1.0 / p)
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha · mean of the squares over ``size`` neighbouring
+    channels) ** beta``, the window centred (the odd element low), the
+    squares summed in fp32, as the JAX package's."""
+    ch = _channel_axis(x, data_format)
+    sq = x.float().square().movedim(ch, 0)
+    c, half = sq.shape[0], size // 2
+    padded = torch.nn.functional.pad(
+        sq.movedim(0, -1), (half, size - 1 - half)).movedim(-1, 0)
+    acc = sum(padded[i:i + c] for i in range(size)).movedim(0, ch)
+    return x / torch.pow(k + alpha * acc / size, beta).to(x.dtype)

@@ -1,14 +1,27 @@
-"""Layers — port of ``paddle_tpu/nn/layer`` for the ERNIE encoder:
-``Linear``, ``Embedding``, ``Dropout``, ``LayerNorm``,
-``MultiHeadAttention``, ``TransformerEncoderLayer`` and
-``TransformerEncoder``."""
-from .common import Dropout, Embedding, Linear
-from .norm import LayerNorm
+"""Layers — port of ``paddle_tpu/nn/layer``: the common layers
+(``Linear``, ``Embedding``, ``Dropout``, ``Flatten``, ``Identity``), the
+containers, convolutions, pooling, norms, activations, four losses and
+the transformer encoder and decoder."""
+from .activation import (CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid,
+                         Hardswish, Hardtanh, LeakyReLU, LogSigmoid,
+                         LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6, RReLU,
+                         SELU, Sigmoid, Silu, Softmax, Softplus, Softshrink,
+                         Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
+from .common import Dropout, Embedding, Flatten, Identity, Linear
+from .container import LayerDict, LayerList, ParameterList, Sequential
+from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+                   Conv3DTranspose)
+from .loss import CrossEntropyLoss, L1Loss, MSELoss, NLLLoss
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   GroupNorm, InstanceNorm1D, InstanceNorm2D, InstanceNorm3D,
+                   LayerNorm, LocalResponseNorm, SyncBatchNorm)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
+                      AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+                      AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+                      MaxUnPool2D)
 from .transformer import (MultiHeadAttention, TransformerDecoder,
                           TransformerDecoderLayer, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention", "TransformerDecoder",
-           "TransformerDecoderLayer", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+__all__ = [n for n in dir() if not n.startswith("_") and n[0].isupper()]

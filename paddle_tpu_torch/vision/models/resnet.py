@@ -1,0 +1,222 @@
+"""The ResNet family — port of ``paddle_tpu/vision/models/resnet.py``:
+``BasicBlock``, ``BottleneckBlock``, ``ResNet`` and ``resnet18`` / ``34`` /
+``50`` / ``101`` / ``152``, ``wide_resnet50_2`` / ``101_2`` and the
+``resnext`` forms, with the JAX package's layer names, so that its weights
+load name for name (``models/convert.py`` ``layer_params_from_jax``).
+
+Every constructor also takes ``device`` (``place`` its alias; None: the
+CUDA card, raising without one), ``dtype`` (None: the default dtype,
+fp32) and ``generator`` (the ``torch.Generator`` the weights draw from;
+None: the device's default one), handed to each layer. ``pretrained=True``
+is not ported (NotImplementedError: there is no weight download).
+"""
+from __future__ import annotations
+
+from ... import resolve_place
+from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Layer, Linear,
+                   MaxPool2D, ReLU, Sequential)
+from ...tensor.manipulation import flatten
+
+__all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
+           "resnet34", "resnet50", "resnet101", "resnet152",
+           "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
+           "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
+           "wide_resnet50_2", "wide_resnet101_2"]
+
+
+def _kw(device=None, place=None, dtype=None, generator=None):
+    """The layers' keywords: the device resolved once (None: the card)."""
+    return dict(device=resolve_place(device, place), dtype=dtype,
+                generator=generator)
+
+
+def _bn(norm_layer, planes, kw):
+    return norm_layer(planes, device=kw["device"], dtype=kw["dtype"])
+
+
+class BasicBlock(Layer):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, **kw):
+        super().__init__()
+        kw = _kw(**kw)
+        norm_layer = norm_layer or BatchNorm2D
+        self.conv1 = Conv2D(inplanes, planes, 3, padding=1, stride=stride,
+                            bias_attr=False, **kw)
+        self.bn1 = _bn(norm_layer, planes, kw)
+        self.relu = ReLU()
+        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
+                            **kw)
+        self.bn2 = _bn(norm_layer, planes, kw)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(Layer):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, **kw):
+        super().__init__()
+        kw = _kw(**kw)
+        norm_layer = norm_layer or BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False, **kw)
+        self.bn1 = _bn(norm_layer, width, kw)
+        self.conv2 = Conv2D(width, width, 3, padding=dilation, stride=stride,
+                            groups=groups, dilation=dilation,
+                            bias_attr=False, **kw)
+        self.bn2 = _bn(norm_layer, width, kw)
+        self.conv3 = Conv2D(width, planes * self.expansion, 1,
+                            bias_attr=False, **kw)
+        self.bn3 = _bn(norm_layer, planes * self.expansion, kw)
+        self.relu = ReLU()
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class ResNet(Layer):
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, *, device=None, place=None,
+                 dtype=None, generator=None):
+        super().__init__()
+        kw = _kw(device, place, dtype, generator)
+        layer_cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+                     101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+        layers = layer_cfg[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self.inplanes = 64
+        self.dilation = 1
+        self._kw = kw
+
+        self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                            bias_attr=False, **kw)
+        self.bn1 = _bn(BatchNorm2D, self.inplanes, kw)
+        self.relu = ReLU()
+        self.maxpool = MaxPool2D(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0])
+        self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+        self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+        self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+        if with_pool:
+            self.avgpool = AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = Linear(512 * block.expansion, num_classes, **kw)
+
+    def _make_layer(self, block, planes, blocks, stride=1):
+        kw = self._kw
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = Sequential(
+                Conv2D(self.inplanes, planes * block.expansion, 1,
+                       stride=stride, bias_attr=False, **kw),
+                _bn(BatchNorm2D, planes * block.expansion, kw))
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width, **kw)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width, **kw))
+        return Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = flatten(x, 1)
+            x = self.fc(x)
+        return x
+
+
+def _resnet(block, depth, pretrained=False, **kwargs):
+    if pretrained:
+        raise NotImplementedError("pretrained weights are not ported (no "
+                                  "download)")
+    return ResNet(block, depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    kwargs["width"] = 128
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    kwargs["width"] = 128
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def _resnext(depth, groups, width, pretrained=False, **kwargs):
+    kwargs["groups"] = groups
+    kwargs["width"] = width
+    return _resnet(BottleneckBlock, depth, pretrained, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnext(50, 32, 4, pretrained, **kwargs)
+
+
+def resnext50_64x4d(pretrained=False, **kwargs):
+    return _resnext(50, 64, 4, pretrained, **kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnext(101, 32, 4, pretrained, **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnext(101, 64, 4, pretrained, **kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnext(152, 32, 4, pretrained, **kwargs)
+
+
+def resnext152_64x4d(pretrained=False, **kwargs):
+    return _resnext(152, 64, 4, pretrained, **kwargs)

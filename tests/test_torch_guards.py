@@ -80,7 +80,29 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.optimizer.optimizer",
                 "paddle_tpu_torch.parallel",
                 "paddle_tpu_torch.parallel.engine",
-                "paddle_tpu_torch.parallel.offload"]
+                "paddle_tpu_torch.parallel.offload",
+                "paddle_tpu_torch.framework",
+                "paddle_tpu_torch.framework.core",
+                "paddle_tpu_torch.framework.dtype",
+                "paddle_tpu_torch.framework.io_state",
+                "paddle_tpu_torch.framework.param_attr",
+                "paddle_tpu_torch.framework.random",
+                "paddle_tpu_torch.nn.initializer",
+                "paddle_tpu_torch.nn.layer_base",
+                "paddle_tpu_torch.nn.functional._spatial",
+                "paddle_tpu_torch.nn.functional.conv",
+                "paddle_tpu_torch.nn.functional.pooling",
+                "paddle_tpu_torch.nn.layer.activation",
+                "paddle_tpu_torch.nn.layer.container",
+                "paddle_tpu_torch.nn.layer.conv",
+                "paddle_tpu_torch.nn.layer.loss",
+                "paddle_tpu_torch.nn.layer.pooling",
+                "paddle_tpu_torch.tensor",
+                "paddle_tpu_torch.tensor.creation",
+                "paddle_tpu_torch.tensor.manipulation",
+                "paddle_tpu_torch.vision",
+                "paddle_tpu_torch.vision.models",
+                "paddle_tpu_torch.vision.models.resnet"]
 # torch sees no card in the child, whatever the machine has
 NO_CARD_ENV = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
@@ -661,3 +683,23 @@ def test_failed_captures_raise_without_an_eager_rerun(monkeypatch):
         model.generate(torch.tensor([[1, 2, 3]]), max_new_tokens=2)
     (prog,) = model._gen_cache.values()
     assert prog.replays == 0 and not prog.graphs
+
+
+def test_framework_and_vision_entry_points_default_to_cuda(monkeypatch):
+    """``to_tensor``, the creation functions, every layer that makes a
+    tensor, ``load`` and ``resnet50`` build on the card unless told
+    otherwise, and raise without one; a layer that makes no tensor needs
+    no card."""
+    import paddle_tpu_torch as paddle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: paddle.to_tensor([1.0]), lambda: paddle.ones([2]),
+                 lambda: paddle.nn.Conv2D(3, 4, 3),
+                 lambda: paddle.nn.BatchNorm2D(4),
+                 lambda: paddle.nn.Linear(2, 2),
+                 lambda: paddle.vision.models.resnet50(num_classes=10)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert isinstance(paddle.nn.ReLU(), paddle.nn.Layer)
+    m = paddle.vision.models.resnet18(num_classes=10, device="cpu")
+    assert {p.device.type for p in m.parameters()} == {"cpu"}
