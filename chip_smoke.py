@@ -24,6 +24,8 @@ the GPU.
                                         # line)
     python3 chip_smoke.py --only vision  # the build and phase 33 (no
                                         # final line)
+    python3 chip_smoke.py --only tensor  # the build and phase 34 (no
+                                        # final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -446,6 +448,26 @@ Every kernel's launches in (a)'s steps and (b)'s served run stand in the
 kernels line as ``finetune_launches``; row 10 also carries the flat
 launch (``flat_case``). Each phase group's end is printed as it
 passes (``phase group ... ended at``).
+
+Phase 34, after phase 33, drives the tensor functions and the rest of
+the framework core (``paddle_tpu_torch/tensor``, ``framework``,
+``device``): (a) every family (math, manipulation, logic, search, stat,
+linalg, random, containers) on the card against the port on the CPU at
+``tools/op_benchmark.py``'s TPU widths (2048 x 2048 bf16 and fp32,
+int32 / int64, linalg at 512 x 512 fp32; integer, logic, search and
+index results equal, floating ones within per-family limits, random
+draws' moments within 6 standard errors and ``paddle.seed`` repeating
+each draw bit for bit); (b) ``tools/op_benchmark.py``'s op-level suite
+through the public API at its TPU sizes (matmul, Conv2D, softmax,
+LayerNorm, Embedding, sum, and the causal GQA flash cell), each op's
+device ms, the launches of rows 1 and 8 (``op_suite_launches`` in the
+kernels line), LayerNorm at (32, 2048) against ``F.layer_norm``; (c)
+ResNet-50's top-1 / top-5 on phase 33 (c)'s B = 256 logits through
+``paddle.topk`` / ``equal`` / ``cast`` / ``mean`` / ``argmax``, card and
+CPU equal; (d) ``FLAGS_check_nan_inf`` on an eager ResNet-50 step at
+B = 32 (off and on, a planted Inf raising, the graphed engine refusing),
+C3 at B = 1 on 3 x 32 x 32 against the CPU, C2 (a bf16 state dict saved
+from the card loads bf16 bit for bit) and AMP O1's product hooks.
 
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
@@ -7836,7 +7858,7 @@ def _vision_bn_bf16(torch):
             for k, c, h in zip(VISION_BN_TOL, got["cuda"], got["cpu"])}
 
 
-def vision(torch, ops):
+def vision(torch, ops, keep=None):
     """Phase 33: ResNet-50 training and eval on the card through the
     framework core and the convolutional layer surface (see the module
     docstring): (a) fp32 B = 32, graphed and its eager twin bit for bit
@@ -7997,6 +8019,8 @@ def vision(torch, ops):
               == (VISION_BIG_B, 10), "phase 33 (c): eval logits not finite "
                                      "or of the wrong shape")
         logits_c = logits_c.clone()
+        if keep is not None:         # phase 34 (c) reads these logits
+            keep["eval_batch"] = (logits_c.clone(), yb.clone())
         log("phase 33 (c) eval resnet50 fp32 B=256 (graphs): "
             + json.dumps(res["c"]))
 
@@ -8070,6 +8094,670 @@ def vision(torch, ops):
     _free(torch)
     res["phase_s"] = time.perf_counter() - t0
     log(f"phase 33: {res['phase_s']:.1f} s, {card_line()}")
+    return res
+
+
+# -------------------------------------------------------------- phase 34
+# the tensor functions and the rest of the framework core on the card,
+# at the widths tools/op_benchmark.py:28-67 uses on the TPU branch:
+# (2048, 2048) bf16 and fp32 for elementwise work, reductions, sort,
+# search, scatter and gather; int32 / int64 for logic and bitwise; linalg
+# at 512 x 512 fp32 (well conditioned: A / sqrt(n) + 2 I, and B B^T / n +
+# I). Each family runs on the card and on the port on the CPU on the same
+# inputs; integer, logic, search and index results must be equal, floating
+# ones within the row's limit, the largest |card - CPU| over the largest
+# |CPU| value. The limits, each about 8x or more what the phase read on
+# an H100 80GB HBM3 at 700 W (PERF.md): one op of fp32 arithmetic
+# (another libm, FMA contraction) 1e-6 (read: 1.2e-7, tanh); fp32
+# reductions, scans and
+# products over 2048 values 1e-5 (7.3e-7, cumsum); bf16 results (both
+# sides compute in fp32 and round once) 2^-7 (read: 0), bf16 reductions
+# and products 2^-6 (2.1e-3, the product); cuSOLVER and cuBLAS against
+# LAPACK and the CPU's BLAS on the well-conditioned matrices 1e-3 (1.9e-4,
+# eigvalsh). Random draws: the mean and variance of 4M draws within 6
+# standard errors (read: at most 1.6), and paddle.seed repeats a draw bit
+# for bit
+TENSOR_N = 2048
+TENSOR_LINALG_N = 512
+TENSOR_K = 6.0
+TOL_F32, TOL_F32_RED, TOL_BF16, TOL_BF16_RED, TOL_LINALG = (
+    1e-6, 1e-5, 2 ** -7, 2 ** -6, 1e-3)
+# (b): tools/op_benchmark.py:36-67 at its TPU sizes, and the flash cell
+OPS_N, OPS_LN_ROWS, OPS_VOCAB, OPS_EMB = 2048, 32, 32000, 512
+OPS_FLASH = dict(B=4, H=16, KV=8, S=2048, D=128)
+# (c): top-1 / top-5 over phase 33 (c)'s B = 256 eval logits
+TENSOR_TOPK = 5
+# (d): C3's B = 1 step on 3 x 32 x 32 (layer4 1 x 1), the card (TF32 off)
+# and the port on the CPU in fp32, each against the port's fp64 step on
+# the CPU: BatchNorm over 1-16 values a channel amplifies fp32 rounding
+# (the card read 3.5e-3 of the largest value off the CPU's fp32
+# statistics on an H100, PERF.md), so each running statistic of the
+# card must lie as close to fp64 as the CPU's fp32 one does, within
+# TENSOR_C3_FACTOR, plus
+# TENSOR_C3_FLOOR of the statistic's norm (Frobenius norms; the CPU
+# tests' yardstick, tests/test_torch_resnet.py)
+TENSOR_C3_FACTOR, TENSOR_C3_FLOOR = 4.0, 1e-5
+# (b): each op against its plain version (reference kernel mode) on the
+# same inputs, the largest difference over the largest value: row 1's
+# bf16 output within two bf16 roundings, row 8's fp32 within 1e-5; the
+# other ops run the same code in both modes
+OPS_TOL = {"flash_attention_causal_gqa": 2 ** -6, "layer_norm": 1e-5}
+
+
+def _leaves(v):
+    if isinstance(v, (list, tuple)):
+        return [x for a in v for x in _leaves(a)]
+    return [v]
+
+
+def _rel_err(torch, card, host) -> float:
+    """The largest |card - host| over the largest |host| (inf when the
+    dtypes, shapes or NaN positions differ; 0 or inf for integer and bool
+    results: equal or not)."""
+    worst = 0.0
+    for c, h in zip(_leaves(card), _leaves(host), strict=True):
+        if not isinstance(h, torch.Tensor):
+            worst = max(worst, 0.0 if c == h else math.inf)
+            continue
+        c = c.detach().cpu()
+        if c.dtype != h.dtype or c.shape != h.shape:
+            return math.inf
+        if not (h.is_floating_point() or h.is_complex()):
+            worst = max(worst, 0.0 if torch.equal(c, h) else math.inf)
+            continue
+        c, h = c.to(torch.complex128 if h.is_complex() else torch.float64), \
+            h.to(torch.complex128 if h.is_complex() else torch.float64)
+        if not torch.equal(torch.isnan(c), torch.isnan(h)):
+            return math.inf
+        c, h = c.nan_to_num(0.0), h.nan_to_num(0.0)
+        if h.numel():
+            scale = h.abs().max().item() or 1.0
+            worst = max(worst, (c - h).abs().max().item() / scale)
+    return worst
+
+
+def _tensor_families(torch, pt, g):
+    """{family: [(label, fn, args, limit)]}: every input made on the CPU
+    from ``g``; ``limit`` 0 means equal."""
+    n, m = TENSOR_N, TENSOR_LINALG_N
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    a, b = randn(n, n), randn(n, n)
+    pos = a.abs() + 0.5
+    a16, b16, pos16 = a.bfloat16(), b.bfloat16(), pos.bfloat16()
+    i32 = torch.randint(-1000, 1000, (n, n), generator=g, dtype=torch.int32)
+    sign = torch.where(torch.rand(n, n, generator=g) > 0.5, 1, -1)
+    j32 = (torch.randint(1, 50, (n, n), generator=g) * sign).int()
+    i64, j64 = i32.long(), j32.long()
+    ties = torch.randint(0, 16, (n, n), generator=g).float()
+    rows = torch.randint(0, n, (n,), generator=g)
+    uniq = torch.randperm(n, generator=g)[:256]
+    cols = torch.rand(n, n, generator=g).argsort(1)[:, :64]
+    mask = torch.rand(n, n, generator=g) > 0.5
+    srt = torch.sort(randn(n), stable=True).values
+    small = torch.randint(0, 100, (n * n,), generator=g)
+    A = randn(m, m) / math.sqrt(m) + 2 * torch.eye(m)
+    Bm = randn(m, m)
+    spd = Bm @ Bm.T / m + torch.eye(m)
+    rhs = randn(m, 16)
+    x_cd, y_cd = randn(m, 64), randn(256, 64)
+    E, R, BF, BR = TOL_F32, TOL_F32_RED, TOL_BF16, TOL_BF16_RED
+    L = TOL_LINALG
+    math_rows = [
+        ("add fp32", pt.add, (a, b), E), ("add bf16", pt.add, (a16, b16), BF),
+        ("multiply bf16", pt.multiply, (a16, b16), BF),
+        ("divide fp32", pt.divide, (a, pos), E),
+        ("divide int32", pt.divide, (i32, j32), E),
+        ("floor_divide int32", pt.floor_divide, (i32, j32), 0),
+        ("mod int64", pt.mod, (i64, j64), 0),
+        ("pow fp32", pt.pow, (pos, 2.5), E),
+        ("exp fp32", pt.exp, (a,), E), ("exp bf16", pt.exp, (a16,), BF),
+        ("log fp32", pt.log, (pos,), E), ("sqrt bf16", pt.sqrt, (pos16,), BF),
+        ("tanh fp32", pt.tanh, (a,), E), ("sigmoid bf16", pt.sigmoid, (a16,),
+                                          BF),
+        ("erf fp32", pt.erf, (a,), E), ("maximum fp32", pt.maximum, (a, b), 0),
+        ("clip fp32", lambda x: pt.clip(x, -0.5, 0.5), (a,), 0),
+        ("scale fp32", lambda x: pt.scale(x, 2.0, 1.0, False), (a,), E),
+        ("lerp fp32", lambda x, y: pt.lerp(x, y, 0.3), (a, b), E),
+        ("sum fp32", lambda x: pt.sum(x, axis=-1), (a,), R),
+        ("sum bf16", lambda x: pt.sum(x, axis=-1), (a16,), BR),
+        ("sum int32", lambda x: pt.sum(x, axis=0), (i32,), 0),
+        ("mean fp32", lambda x: pt.mean(x, axis=0), (a,), R),
+        ("max fp32", lambda x: pt.max(x, axis=1), (a,), 0),
+        ("logsumexp fp32", lambda x: pt.logsumexp(x, axis=-1), (a,), R),
+        ("cumsum fp32", lambda x: pt.cumsum(x, axis=1), (a,), R),
+        ("cummax fp32", lambda x: pt.cummax(x, axis=1), (ties,), 0),
+        ("count_nonzero", lambda x: pt.count_nonzero(x, axis=1), (i32,), 0),
+        ("any bool", lambda x: pt.any(x, axis=0), (mask,), 0),
+        ("isfinite fp32", pt.isfinite, (pt.log(a),), 0),
+        # M = N = 512, K = 2048: the CPU's bf16 product at 2048^3 takes
+        # seconds; the op suite (b) times the full one
+        ("matmul fp32", pt.matmul, (a[:512], b[:, :512]), R),
+        ("matmul bf16", pt.matmul, (a16[:512], b16[:, :512]), BR),
+    ]
+    manipulation_rows = [
+        ("gather fp32", pt.gather, (a, rows), 0),
+        ("gather bf16 axis 1", lambda x, i: pt.gather(x, i, axis=1),
+         (a16, rows), 0),
+        ("index_select", lambda x, i: pt.index_select(x, i, axis=1),
+         (a, uniq), 0),
+        ("take_along_axis", lambda x, i: pt.take_along_axis(x, i, 1),
+         (a, cols), 0),
+        ("put_along_axis", lambda x, i, v: pt.put_along_axis(x, i, v, 1),
+         (a, cols, b[:, :64]), 0),
+        ("scatter", pt.scatter, (a, uniq, b[:256]), 0),
+        ("scatter overwrite=False", lambda x, i, u: pt.scatter(
+            x, i, u, overwrite=False), (a, uniq, b[:256]), 0),
+        ("index_add", lambda x, i, v: pt.index_add(x, i, 0, v),
+         (a, rows[:512], b[:512]), E),
+        ("scatter_nd_add", pt.scatter_nd_add,
+         (a, torch.stack([rows, rows.flip(0)], 1), b[0]), E),
+        ("masked_fill", lambda x, mk: pt.masked_fill(x, mk, -1.0),
+         (a16, mask), 0),
+        ("masked_select", pt.masked_select, (a, mask), 0),
+        ("flip", lambda x: pt.flip(x, [0, 1]), (a,), 0),
+        ("roll", lambda x: pt.roll(x, [3, -5], axis=[0, 1]), (a,), 0),
+        ("tile", lambda x: pt.tile(x[:64], [2, 1]), (a,), 0),
+        ("repeat_interleave", lambda x: pt.repeat_interleave(
+            x[:256], 2, axis=0), (a16,), 0),
+        ("pad reflect", lambda x: pt.pad(x[None, None], [2, 3, 1, 4],
+                                         mode="reflect"), (a,), 0),
+        ("unique int64", lambda x: pt.unique(x, return_inverse=True,
+                                             return_counts=True), (small,), 0),
+        ("unique_consecutive", lambda x: pt.unique_consecutive(
+            x, return_counts=True), (torch.sort(small).values,), 0),
+        ("strided_slice", lambda x: pt.strided_slice(
+            x, [0, 1], [5, 2040], [2000, 3], [3, -7]), (a,), 0),
+        ("concat / split", lambda x, y: pt.split(pt.concat([x, y], 1),
+                                                 [n // 2, -1], axis=1),
+         (a16, b16), 0),
+    ]
+    logic_rows = [
+        ("equal int32", pt.equal, (i32, j32), 0),
+        ("less_than int64", pt.less_than, (i64, j64), 0),
+        ("bitwise_and int32", pt.bitwise_and, (i32, j32), 0),
+        ("bitwise_xor int64", pt.bitwise_xor, (i64, j64), 0),
+        ("bitwise_not int32", pt.bitwise_not, (i32,), 0),
+        ("left_shift int32", pt.bitwise_left_shift, (i32, j32.abs() % 8), 0),
+        ("right_shift int64", pt.bitwise_right_shift, (i64, j64.abs() % 8),
+         0),
+        ("logical_xor", pt.logical_xor, (mask, i32 > 0), 0),
+        ("isclose fp32", pt.isclose, (a, a + 1e-6 * b), 0),
+        ("allclose fp32", pt.allclose, (a, a.clone()), 0),
+        ("equal_all int64", pt.equal_all, (i64, i64.clone()), 0),
+    ]
+    search_rows = [
+        ("argmax fp32", lambda x: pt.argmax(x, axis=1), (a,), 0),
+        ("argmin bf16", lambda x: pt.argmin(x, axis=0), (a16,), 0),
+        ("argsort ties", lambda x: pt.argsort(x, axis=1, descending=True),
+         (ties,), 0),
+        ("sort bf16", lambda x: pt.sort(x, axis=0), (a16,), 0),
+        ("topk ties", lambda x: pt.topk(x, TENSOR_TOPK), (ties,), 0),
+        ("topk bf16 smallest", lambda x: pt.topk(x, 8, largest=False),
+         (a16,), 0),
+        ("kthvalue ties", lambda x: pt.kthvalue(x, 7), (ties,), 0),
+        ("searchsorted", pt.searchsorted, (srt, a), 0),
+        ("bucketize right", lambda x, s: pt.bucketize(x, s, right=True),
+         (a, srt), 0),
+        ("nonzero", pt.nonzero, (mask,), 0),
+        ("where", pt.where, (mask, a, b), 0),
+        ("index_fill", lambda x, i: pt.index_fill(x, i, 1, -2.0),
+         (a, uniq), 0),
+    ]
+    stat_rows = [
+        ("var fp32", lambda x: pt.var(x, axis=1), (a,), R),
+        ("std fp32 biased", lambda x: pt.std(x, axis=0, unbiased=False),
+         (a,), R),
+        ("median fp32", lambda x: pt.median(x, axis=1), (a,), 0),
+        ("nanmedian fp32", lambda x: pt.nanmedian(x, axis=0),
+         (pt.where(mask, a, a * float("nan")),), 0),
+        ("quantile fp32", lambda x: pt.quantile(x, [0.1, 0.5, 0.9], axis=1),
+         (a,), E),
+        ("histogram", lambda x: pt.histogram(x, bins=100), (a,), 0),
+        ("bincount", pt.bincount, (small,), 0),
+        ("cov fp32", lambda x: pt.cov(x[:64]), (a,), R),
+        ("numel", pt.numel, (a,), 0),
+    ]
+    linalg_rows = [
+        ("inv", pt.linalg.inv, (A,), L),
+        ("solve", pt.linalg.solve, (A, rhs), L),
+        ("slogdet", pt.linalg.slogdet, (A,), L),
+        ("cholesky", pt.linalg.cholesky, (spd,), L),
+        ("eigvalsh", pt.linalg.eigvalsh, (spd,), L),
+        ("svdvals", pt.linalg.svdvals, (A,), L),
+        ("qr |R|", lambda x: pt.abs(pt.linalg.qr(x, mode="r")), (A,), L),
+        ("lstsq", lambda x, y: pt.linalg.lstsq(x, y)[0], (A, rhs), L),
+        ("pinv", pt.linalg.pinv, (A,), L),
+        ("lu_unpack P L U", lambda x: pt.matmul(pt.matmul(
+            *pt.linalg.lu_unpack(*pt.linalg.lu(x))[:2]),
+            pt.linalg.lu_unpack(*pt.linalg.lu(x))[2]), (A,), L),
+        ("triangular_solve", lambda x, y: pt.linalg.triangular_solve(
+            pt.triu(x), y), (A, rhs), L),
+        ("matrix_norm fro", pt.linalg.matrix_norm, (A,), L),
+        ("norm p=3", lambda x: pt.linalg.norm(x, p=3, axis=1), (A,), R),
+        ("cond", pt.linalg.cond, (spd,), L),
+        ("matrix_exp", lambda x: pt.linalg.matrix_exp(x * 0.05), (Bm,), L),
+        ("cdist", pt.linalg.cdist, (x_cd, y_cd), R),
+        ("matmul 512", pt.matmul, (A, Bm), R),
+        ("einsum", lambda x, y: pt.einsum("ij,kj->ik", x, y), (A, Bm), R),
+    ]
+    return {"math": math_rows, "manipulation": manipulation_rows,
+            "logic": logic_rows, "search": search_rows, "stat": stat_rows,
+            "linalg": linalg_rows}
+
+
+def _tensor_random(torch, pt):
+    """Moments of 4M draws on the card (within TENSOR_K standard errors:
+    of the mean sigma / sqrt(n), of the variance sqrt(mu4 - sigma^4) /
+    sqrt(n)) and ``paddle.seed`` repeating each draw bit for bit."""
+    n = TENSOR_N * TENSOR_N
+    shape = [TENSOR_N, TENSOR_N]
+    cu = dict(device="cuda")
+    full = lambda v: torch.full(shape, v, device="cuda")  # noqa: E731
+    rows = [  # (name, draw, mean, variance, fourth central moment)
+        ("rand", lambda: pt.rand(shape, **cu), 0.5, 1 / 12, 1 / 80),
+        ("uniform", lambda: pt.uniform(shape, min=-2.0, max=3.0, **cu), 0.5,
+         25 / 12, 625 / 80),
+        ("randn", lambda: pt.randn(shape, **cu), 0.0, 1.0, 3.0),
+        ("gaussian", lambda: pt.gaussian(shape, mean=1.0, std=2.0, **cu),
+         1.0, 4.0, 48.0),
+        ("normal tensors", lambda: pt.normal(full(1.0), full(0.5)), 1.0,
+         0.25, 3 * 0.0625),
+        ("bernoulli", lambda: pt.bernoulli(full(0.3)), 0.3, 0.21,
+         0.21 * (1 - 3 * 0.21)),
+        ("poisson", lambda: pt.poisson(full(3.0)), 3.0, 3.0, 3.0 * 10),
+        ("standard_gamma", lambda: pt.standard_gamma(full(2.5)), 2.5, 2.5,
+         3 * 2.5 * 4.5),
+        ("exponential_", lambda: pt.exponential_(torch.empty(
+            shape, device="cuda"), 2.0), 0.5, 0.25, 9 / 16),
+        ("randint", lambda: pt.randint(-3, 5, shape, **cu), 0.5, 63 / 12,
+         63 * 185 / 240),
+        ("binomial", lambda: pt.binomial(full(10).long(), full(0.4)), 4.0,
+         2.4, 2.4 * (1 + 3 * 8 * 0.24)),
+    ]
+    out = {}
+    for name, draw, mean, var, mu4 in rows:
+        pt.seed(34)
+        v = draw()
+        pt.seed(34)
+        again = draw()
+        check(v.is_cuda and torch.equal(v, again),
+              f"phase 34 (a) random {name}: paddle.seed did not repeat the "
+              f"draw on the card")
+        d = v.double()
+        got_m, got_v = d.mean().item(), d.var(correction=0).item()
+        se_m, se_v = math.sqrt(var / n), math.sqrt((mu4 - var * var) / n)
+        out[name] = dict(mean=got_m, want_mean=mean,
+                         mean_se=abs(got_m - mean) / se_m, var=got_v,
+                         want_var=var, var_se=abs(got_v - var) / se_v)
+        check(out[name]["mean_se"] <= TENSOR_K
+              and out[name]["var_se"] <= TENSOR_K,
+              f"phase 34 (a) random {name}: {out[name]} (limit {TENSOR_K} "
+              f"standard errors)")
+    p = torch.tensor([0.2, 0.3, 0.5], device="cuda")
+    pt.seed(34)
+    v = pt.multinomial(p, n)
+    freqs = [(v == c).double().mean().item() for c in range(3)]
+    out["multinomial"] = dict(freqs=freqs, se=[
+        abs(f - q) / math.sqrt(q * (1 - q) / n)
+        for f, q in zip(freqs, (0.2, 0.3, 0.5))])
+    check(max(out["multinomial"]["se"]) <= TENSOR_K,
+          f"phase 34 (a) random multinomial: {out['multinomial']}")
+    a = pt.uniform(shape, seed=5, **cu)
+    check(torch.equal(a, pt.uniform(shape, seed=5, **cu)),
+          "phase 34 (a) random: uniform(seed=5) did not repeat on the card")
+    return out
+
+
+def _tensor_containers(torch, pt):
+    """TensorArray and SelectedRows on the card against the CPU."""
+    from paddle_tpu_torch.framework import SelectedRows, TensorArray
+
+    g = torch.Generator().manual_seed(341)
+    parts = [torch.randn(64, 128, generator=g) for _ in range(4)]
+    rows = torch.randint(0, 512, (4096,), generator=g)
+    value = torch.randint(-8, 8, (4096, 128), generator=g).float()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        ta = TensorArray(device=dev)
+        for k, p in enumerate(parts):
+            ta.write(3 - k, p.to(dev))
+        sr = SelectedRows(rows.to(dev), value.to(dev), 512)
+        merged = sr.merge()
+        got[dev] = (ta.stack(1), sr.to_dense(), merged.rows, merged.value)
+    return _rel_err(torch, got["cuda"], got["cpu"])
+
+
+def _ops_suite(torch, ops, pt):
+    """(b): tools/op_benchmark.py's suite through the port's public API on
+    the card, each op once with the launch counts from 0 (rows 1 and 8
+    must launch), then each timed (graph-timed device ms)."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+
+    F = pt.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(342)
+    n = OPS_N
+    a = torch.randn(n, n, generator=g, device="cuda").bfloat16()
+    b = torch.randn(n, n, generator=g, device="cuda").bfloat16()
+    img = torch.randn(8, 64, 56, 56, generator=g, device="cuda")
+    conv = pt.nn.Conv2D(64, 128, 3, padding=1, device="cuda")
+    x3 = torch.randn(OPS_LN_ROWS, n, generator=g, device="cuda")
+    ln = pt.nn.LayerNorm(n, device="cuda")
+    with torch.no_grad():        # a random affine, not the identity
+        ln.weight.copy_(torch.rand(n, generator=g, device="cuda") + 0.5)
+        ln.bias.copy_(torch.randn(n, generator=g, device="cuda"))
+    ids = torch.randint(0, OPS_VOCAB, (8, 512), generator=g, device="cuda",
+                        dtype=torch.int32)
+    emb = pt.nn.Embedding(OPS_VOCAB, OPS_EMB, device="cuda")
+    fl = OPS_FLASH
+    q = torch.randn(fl["B"], fl["H"], fl["S"], fl["D"], generator=g,
+                    device="cuda").bfloat16()
+    k = torch.randn(fl["B"], fl["KV"], fl["S"], fl["D"], generator=g,
+                    device="cuda").bfloat16()
+    v = torch.randn(fl["B"], fl["KV"], fl["S"], fl["D"], generator=g,
+                    device="cuda").bfloat16()
+    suite = {
+        "matmul": (lambda: pt.matmul(a, b), f"({n},{n})x({n},{n}) bf16"),
+        "conv2d_3x3": (lambda: conv(img), "(8,64,56,56)->128ch fp32"),
+        "softmax": (lambda: F.softmax(x3, axis=-1), f"(32,{n}) fp32"),
+        "layer_norm": (lambda: ln(x3), f"(32,{n}) fp32"),
+        "embedding": (lambda: emb(ids), "(8,512) of 32000x512"),
+        "reduce_sum": (lambda: pt.sum(a, axis=-1), f"({n},{n}) bf16"),
+        "flash_attention_causal_gqa": (
+            lambda: flash_attention(q, k, v, True),
+            "B4 H16/8 S2048 D128 bf16"),
+    }
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        outs = {name: fn() for name, (fn, _) in suite.items()}
+        torch.cuda.synchronize()
+        launches = {k2: c for k2, c in ops.launch_counts().items() if c}
+        for name, out in outs.items():
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"phase 34 (b) {name}: output not finite")
+        res = {name: dict(shape=shape, ms=time_ms(fn, 20))
+               for name, (fn, shape) in suite.items()}
+        # the reference each op is held to: the plain version (reference
+        # kernel mode) on the same inputs
+        ops.set_kernel_mode("reference")
+        try:
+            ref = {name: fn() for name, (fn, _) in suite.items()}
+        finally:
+            ops.set_kernel_mode("auto")
+        for name in suite:
+            diff = (outs[name].float() - ref[name].float()).abs().max()
+            res[name]["max_abs_err"] = diff.item()
+            res[name]["err_over_max"] = (
+                diff / ref[name].float().abs().max()).item()
+            check(res[name]["err_over_max"] <= OPS_TOL.get(name, 0.0),
+                  f"phase 34 (b) {name}: {res[name]['err_over_max']:.3g} "
+                  f"of the largest off its plain version (limit "
+                  f"{OPS_TOL.get(name, 0.0)})")
+        # row 8 at (32, 2048) against the library's LayerNorm
+        res["layer_norm"]["library_ms"] = time_ms(
+            lambda: torch.nn.functional.layer_norm(x3, (n,), ln.weight,
+                                                   ln.bias, 1e-5), 20)
+        res["layer_norm"]["plain_ms"] = time_ms(
+            lambda: ops.fused_norm._ln_ref(x3, ln.weight, ln.bias, 1e-5), 20)
+        nbytes = 2 * x3.numel() * 4 + 2 * n * 4
+        res["layer_norm"]["bound_ms"], res["layer_norm"]["bound_by"] = \
+            bound_ms(nbytes, 8 * x3.numel(), 67e12)
+    for row in ("flash_fwd", "layer_norm"):
+        check(launches.get(row, 0) > 0,
+              f"phase 34 (b): row {row} was not launched ({launches})")
+    return res, launches
+
+
+def _eval_metrics(torch, pt, logits, labels):
+    """top-1 and top-5 accuracy through paddle.topk / equal / cast / mean /
+    argmax, on the logits' device."""
+    top1 = pt.mean(pt.cast(pt.equal(pt.argmax(logits, axis=1), labels),
+                           "float32"))
+    _, idx = pt.topk(logits, TENSOR_TOPK, axis=1)
+    hit = pt.any(pt.equal(idx, pt.unsqueeze(labels, 1)), axis=1)
+    top5 = pt.mean(pt.cast(hit, "float32"))
+    return top1, top5
+
+
+def _resnet_step(torch, pt, dev, state, x, y, graphs=False, dtype=None):
+    """An engine over ResNet-50 on ``dev`` (in ``dtype``, fp32 by
+    default) from ``state``, with phase 33's recipe (Momentum,
+    cross_entropy; fp64 takes torch's cross_entropy, the port's computes
+    in fp32); returns (engine, model)."""
+    from paddle_tpu_torch.models.convert import layer_params_from_jax
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel import ParallelEngine
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(num_classes=10, device=dev)
+    layer_params_from_jax(state, model)
+    loss_fn = pt.nn.functional.cross_entropy
+    if dtype is not None and dtype != torch.float32:
+        model.to(dtype=dtype)
+        loss_fn = torch.nn.functional.cross_entropy
+    eng = ParallelEngine(model, optimizer=Momentum(
+        learning_rate=0.1, momentum=0.9, weight_decay=5e-4,
+        parameters=model.parameters()), loss_fn=loss_fn)
+    eng.graphs = graphs
+    return eng, model
+
+
+def _timed_step(torch, eng, x, y):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = eng.train_batch(x, y)
+    loss_v = loss.item()
+    torch.cuda.synchronize()
+    return loss_v, time.perf_counter() - t0
+
+
+def tensor_api(torch, ops, eval_batch=None):
+    """Phase 34: the tensor functions and the rest of the framework core
+    on the card (see the module docstring): (a) each family on CUDA against
+    the port on the CPU; (b) the op-level suite through the public API,
+    rows 1 and 8 launched; (c) ResNet-50's top-1 / top-5 on phase 33 (c)'s
+    B = 256 logits (``eval_batch``; with None, a seeded ResNet-50's eval
+    logits) on the card and on the CPU, equal; (d) FLAGS_check_nan_inf on
+    an eager ResNet-50 step, C3 at B = 1 on 3 x 32 x 32, C2 and AMP's
+    product hooks."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t0 = time.perf_counter()
+    res = dict(card=card_line())
+    # (a) families on the card against the CPU
+    g = torch.Generator().manual_seed(34)
+    fams = _tensor_families(torch, pt, g)
+    res["a"] = {}
+    for fam, rows in fams.items():
+        t1 = time.perf_counter()
+        errs = {}
+        for label, fn, args, limit in rows:
+            host = fn(*args)
+            card = fn(*(x.to("cuda") if isinstance(x, torch.Tensor) else x
+                        for x in args))
+            check(all(c.is_cuda for c in _leaves(card)
+                      if isinstance(c, torch.Tensor)),
+                  f"phase 34 (a) {fam} {label}: a result left the card")
+            err = _rel_err(torch, card, host)
+            errs[label] = dict(err=err, limit=limit)
+            check(err <= limit, f"phase 34 (a) {fam} {label}: card against "
+                                f"CPU {err:.3g} (limit {limit})")
+        torch.cuda.synchronize()
+        res["a"][fam] = dict(rows=errs, seconds=time.perf_counter() - t1)
+        log(f"phase 34 (a) {fam}: " + json.dumps(res["a"][fam]))
+    res["a"]["random"] = _tensor_random(torch, pt)
+    log("phase 34 (a) random: " + json.dumps(res["a"]["random"]))
+    res["a"]["containers_err"] = _tensor_containers(torch, pt)
+    check(res["a"]["containers_err"] == 0.0,
+          f"phase 34 (a) containers: card against CPU "
+          f"{res['a']['containers_err']}")
+    _free(torch)
+
+    # (b) the op-level suite
+    res["b"], res["launches"] = _ops_suite(torch, ops, pt)
+    log(f"phase 34 (b) op suite, {res['card']}: " + json.dumps(res["b"]))
+    log("phase 34 (b) launches: " + json.dumps(res["launches"]))
+    _free(torch)
+
+    # (c) ResNet-50's eval metrics on the card and on the CPU
+    if eval_batch is None:
+        gm = torch.Generator(device="cuda").manual_seed(343)
+        model = resnet50(num_classes=10, generator=gm, device="cuda").eval()
+        xb = torch.randn(VISION_BIG_B, 3, VISION_SIZE, VISION_SIZE,
+                         generator=gm, device="cuda")
+        with torch.no_grad():
+            logits = model(xb)
+        labels = torch.randint(0, 10, (VISION_BIG_B,), generator=gm,
+                               device="cuda")
+        del model, xb
+    else:
+        logits, labels = eval_batch
+    card = _eval_metrics(torch, pt, logits, labels)
+    host = _eval_metrics(torch, pt, logits.cpu(), labels.cpu())
+    res["c"] = dict(batch=int(logits.shape[0]), top1=card[0].item(),
+                    top5=card[1].item(), top1_cpu=host[0].item(),
+                    top5_cpu=host[1].item(),
+                    logits="phase 33 (c)" if eval_batch is not None
+                    else "a seeded resnet50, eval")
+    log("phase 34 (c) eval metrics: " + json.dumps(res["c"]))
+    check(card[0].is_cuda and [t.item() for t in card]
+          == [t.item() for t in host],
+          f"phase 34 (c): the card's top-1 / top-5 {res['c']} differ from "
+          f"the CPU's")
+    _free(torch)
+
+    # (d) FLAGS_check_nan_inf on an eager ResNet-50 step at B = 32
+    gd = torch.Generator().manual_seed(344)
+    ref_model = resnet50(num_classes=10, generator=gd, device="cpu")
+    state = {n: t.detach().numpy() for n, t in
+             list(ref_model.named_parameters())
+             + list(ref_model.named_buffers())}
+    gx = torch.Generator(device="cuda").manual_seed(345)
+    x = torch.randn(VISION_B, 3, VISION_SIZE, VISION_SIZE, generator=gx,
+                    device="cuda")
+    y = torch.randint(0, 10, (VISION_B,), generator=gx, device="cuda")
+    eng, model = _resnet_step(torch, pt, "cuda", state, x, y)
+    _timed_step(torch, eng, x, y)                      # warm-up
+    off = [_timed_step(torch, eng, x, y) for _ in range(2)]
+    pt.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        on = [_timed_step(torch, eng, x, y) for _ in range(2)]
+        pt.set_flags({"FLAGS_check_nan_inf": False})
+        with torch.no_grad():
+            model.layer2[1].bn2.weight.view(-1)[0] = float("inf")
+        pt.set_flags({"FLAGS_check_nan_inf": True})
+        raised = None
+        try:
+            eng.train_batch(x, y)
+        except FloatingPointError as e:
+            raised = str(e)
+        # a graphed engine refuses to run under the flag
+        geng, _ = _resnet_step(torch, pt, "cuda", state, x, y, graphs=True)
+        try:
+            geng.train_batch(x, y)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+    finally:
+        pt.set_flags({"FLAGS_check_nan_inf": False})
+    res["d_nan_inf"] = dict(
+        batch=VISION_B, eager_step_s_off=[s for _, s in off],
+        eager_step_s_on=[s for _, s in on], losses_on=[l for l, _ in on],
+        planted="layer2.1.bn2.weight[0] = inf", raised=raised,
+        graphed_refused=refused)
+    log(f"phase 34 (d) FLAGS_check_nan_inf, {res['card']}: "
+        + json.dumps(res["d_nan_inf"]))
+    check(all(math.isfinite(l) for l, _ in off + on),
+          f"phase 34 (d): a clean step's loss is not finite "
+          f"({res['d_nan_inf']})")
+    check(raised is not None and "NaN/Inf detected in output of op" in raised,
+          f"phase 34 (d): the planted Inf did not raise FloatingPointError "
+          f"({raised})")
+    check(refused is not None and "FLAGS_check_nan_inf" in refused,
+          f"phase 34 (d): the graphed engine ran under the flag ({refused})")
+    del eng, model, geng
+    _free(torch)
+
+    # (d) C3: one step at B = 1 on 3 x 32 x 32: the card and the CPU in
+    # fp32, each against the CPU's fp64 step
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        g1 = torch.Generator().manual_seed(346)
+        x1 = torch.randn(1, 3, 32, 32, generator=g1)
+        y1 = torch.tensor([3])
+        bufs = {}
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                        ("cpu", torch.float64)):
+            eng, model = _resnet_step(torch, pt, dev, state, x1, y1,
+                                      dtype=dt)
+            loss = eng.train_batch(x1.to(dev, dt), y1.to(dev)).item()
+            bufs[dev, dt] = (loss, {n: t.detach().cpu().double() for n, t
+                                    in model.named_buffers()})
+            del eng, model
+    finally:
+        cudnn.allow_tf32 = saved
+    f64 = bufs["cpu", torch.float64][1]
+    worst = (0.0, None)
+    for n, ref in f64.items():
+        scale = ref.norm().item()
+        noise = (bufs["cpu", torch.float32][1][n] - ref).norm().item()
+        err = (bufs["cuda", torch.float32][1][n] - ref).norm().item()
+        bound = TENSOR_C3_FACTOR * noise + TENSOR_C3_FLOOR * scale
+        worst = max(worst, (err / bound if err else 0.0, n))
+    card_cpu = max((((bufs["cuda", torch.float32][1][n] - b).abs().max()
+                     / b.abs().max().clamp_min(1e-30)).item(), n)
+                   for n, b in bufs["cpu", torch.float32][1].items())
+    res["d_c3"] = dict(
+        batch=1, size=32, tf32=False,
+        loss_card=bufs["cuda", torch.float32][0],
+        loss_cpu=bufs["cpu", torch.float32][0],
+        loss_cpu_fp64=bufs["cpu", torch.float64][0],
+        card_over_fp32_noise=worst[0], worst_buffer=worst[1],
+        card_vs_cpu_err_over_max=card_cpu[0], card_vs_cpu_worst=card_cpu[1],
+        factor=TENSOR_C3_FACTOR, floor=TENSOR_C3_FLOOR)
+    log("phase 34 (d) C3 B=1 32x32 step, card against CPU: "
+        + json.dumps(res["d_c3"]))
+    check(worst[0] <= 1.0 and math.isfinite(res["d_c3"]["loss_card"]),
+          f"phase 34 (d) C3: {res['d_c3']}")
+
+    # (d) C2: a bf16 state dict saved from the card loads as bf16
+    sd = {n: t.to("cuda", torch.bfloat16) for n, t in
+          ref_model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50_bf16.pdparams")
+        pt.save(sd, path)
+        back = pt.load(path, device="cuda")
+        nbytes = os.path.getsize(path)
+    same = all(back[n].dtype == torch.bfloat16 and back[n].is_cuda
+               and torch.equal(back[n].view(torch.int16), t.view(torch.int16))
+               for n, t in sd.items())
+    res["d_c2"] = dict(entries=len(sd), file_bytes=nbytes, bf16_bitwise=same)
+    log("phase 34 (d) C2 bf16 save / load: " + json.dumps(res["d_c2"]))
+    check(same and len(back) == len(sd),
+          "phase 34 (d) C2: the bf16 state dict did not load back as bf16 "
+          "bit for bit")
+
+    # (d) AMP's product hooks on CUDA inputs
+    p32 = torch.randn(64, 128, device="cuda")
+    q32 = torch.randn(128, 32, device="cuda")
+    with amp.auto_cast(level="O1"):
+        dts = dict(matmul=pt.matmul(p32, q32).dtype,
+                   mm=pt.mm(p32, q32).dtype,
+                   bmm=pt.bmm(p32[None], q32[None]).dtype)
+    res["d_amp"] = {k: str(v) for k, v in dts.items()}
+    log("phase 34 (d) AMP O1 products: " + json.dumps(res["d_amp"]))
+    check(all(d == torch.bfloat16 for d in dts.values()),
+          f"phase 34 (d) AMP: {res['d_amp']}")
+    del ref_model, sd, back
+    _free(torch)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 34: {res['phase_s']:.1f} s, {card_line()}")
     return res
 
 
@@ -8209,6 +8897,14 @@ def main() -> int:
         vis = vision(torch, ops)
         log("phase 33 (vision): " + json.dumps(vis))
         log(f"partial run (phase 33 only): {time.perf_counter() - t_start:.1f}"
+            f" s")
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--only", "tensor"]:
+        # a diagnostic run: the build and phase 34 alone (its (c) on a
+        # seeded ResNet-50's eval logits), no final line
+        log("phase 34 (tensor): " + json.dumps(tensor_api(torch, ops)))
+        log(f"partial run (phase 34 only): {time.perf_counter() - t_start:.1f}"
             f" s")
         log(card)
         return 0
@@ -8408,8 +9104,13 @@ def main() -> int:
     fin_res = finetune(torch, ops)
     mark("phase 32 (finetune)")
     # phase 33: ResNet-50 through the framework core and the layer surface
-    vis_res = vision(torch, ops)
+    eval_keep = {}
+    vis_res = vision(torch, ops, eval_keep)
     mark("phase 33 (vision)")
+    # phase 34: the tensor functions and the framework core; the op-level
+    # suite (rows 1 and 8); phase 33 (c)'s eval metrics; the repairs
+    tensor_res = tensor_api(torch, ops, eval_keep.pop("eval_batch"))
+    mark("phase 34 (tensor)")
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -8439,6 +9140,7 @@ def main() -> int:
               spec_launches=spec_cells["ngram"]["launches"]["rms_norm"]),
         entry("flash_fwd", csrc + "flash_attention.cu", flash + "488",
               fwd_cases, tl["flash_fwd"], build=fwd_build["D=128"],
+              op_suite_launches=tensor_res["launches"].get("flash_fwd", 0),
               draft_model_launches=spec_cells["draft model"]["launches"][
                   "flash_fwd"]),
         entry("flash_bwd_dq", csrc + "flash_attention_bwd.cu",
@@ -8467,7 +9169,9 @@ def main() -> int:
         # phase 23's counted steps and eval passes
         entry("layer_norm", csrc + "layer_norm.cu",
               "paddle_tpu/ops/fused_norm.py:128", ln_cases,
-              ernie_res["launches"]["layer_norm"]),
+              ernie_res["launches"]["layer_norm"],
+              op_suite_launches=tensor_res["launches"].get("layer_norm", 0),
+              op_suite_case=tensor_res["b"]["layer_norm"]),
         entry("flash_fwd_d64", csrc + "flash_attention.cu", flash + "488",
               fwd64_cases, ernie_res["launches"]["flash_fwd"],
               build=fwd_build["D=64"]),
@@ -8591,6 +9295,7 @@ def main() -> int:
     log_dense(dense_res, serve_res)
     log("phase 32 (finetune): " + json.dumps(fin_res))
     log("phase 33 (vision): " + json.dumps(vis_res))
+    log("phase 34 (tensor): " + json.dumps(tensor_res))
     prev = 0.0
     for name, at in marks:
         log(f"phase time {name}: {at - prev:.1f} s")

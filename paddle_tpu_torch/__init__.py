@@ -23,10 +23,12 @@ running on the CPU (:func:`resolve_device`).
 The framework core and the layer surface are exported here as a Paddle
 program calls them (``import paddle_tpu_torch as paddle``):
 ``paddle.to_tensor``, ``paddle.seed``, ``paddle.save`` / ``paddle.load``,
-``paddle.no_grad``, ``paddle.grad``, the dtypes, the creation and shape
-functions, ``paddle.nn`` (``paddle.nn.Conv2D`` …), ``paddle.optimizer``,
-``paddle.amp`` and ``paddle.vision.models.resnet50``; the tensor is
-``torch.Tensor``:
+``paddle.no_grad``, ``paddle.grad``, ``paddle.set_flags`` /
+``get_flags``, the dtypes, every ``paddle.tensor`` function
+(``paddle.matmul``, ``paddle.topk`` …), ``paddle.linalg``,
+``paddle.device``, ``paddle.nn`` (``paddle.nn.Conv2D`` …),
+``paddle.optimizer``, ``paddle.amp`` and
+``paddle.vision.models.resnet50``; the tensor is ``torch.Tensor``:
 
     import paddle_tpu_torch as paddle
 
@@ -71,19 +73,26 @@ def resolve_place(device=None, place=None) -> torch.device:
 
 # the Paddle surface, after the two functions above, which its modules
 # import
-from . import amp, framework, nn, optimizer, tensor, vision  # noqa: E402
+from . import (amp, device, framework, linalg, nn, optimizer,  # noqa: E402
+               tensor, vision)
+from .compat import cast  # noqa: E402
+from .device import (get_device, is_compiled_with_cuda,  # noqa: E402
+                     is_compiled_with_xpu, set_device)
 from .framework import (ParamAttr, Parameter, bfloat16, complex64,  # noqa
                         complex128, enable_grad, float16, float32, float64,
-                        get_default_dtype, get_rng_state, grad, int8, int16,
-                        int32, int64, is_grad_enabled, load, no_grad, save,
-                        seed, set_default_dtype, set_rng_state, uint8)
+                        get_default_dtype, get_flags, get_rng_state, grad,
+                        int8, int16, int32, int64, is_grad_enabled, load,
+                        no_grad, save, seed, set_default_dtype, set_flags,
+                        set_rng_state, uint8)
 from .tensor import *  # noqa: E402,F401,F403
 from .tensor import __all__ as _tensor_all  # noqa: E402
 
-__all__ += ["ParamAttr", "Parameter", "amp", "bfloat16", "complex64",
-            "complex128", "enable_grad", "float16", "float32", "float64",
-            "framework", "get_default_dtype", "get_rng_state", "grad",
-            "int8", "int16", "int32", "int64", "is_grad_enabled", "load",
+__all__ += ["ParamAttr", "Parameter", "amp", "bfloat16", "cast",
+            "complex64", "complex128", "device", "enable_grad", "float16",
+            "float32", "float64", "framework", "get_default_dtype",
+            "get_device", "get_flags", "get_rng_state", "grad", "int8",
+            "int16", "int32", "int64", "is_compiled_with_cuda",
+            "is_compiled_with_xpu", "is_grad_enabled", "linalg", "load",
             "nn", "no_grad", "optimizer", "save", "seed",
-            "set_default_dtype", "set_rng_state", "tensor", "uint8",
-            "vision", *_tensor_all]
+            "set_default_dtype", "set_device", "set_flags", "set_rng_state",
+            "tensor", "uint8", "vision", *_tensor_all]

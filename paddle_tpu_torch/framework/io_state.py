@@ -11,10 +11,11 @@ package (a pure-Python pickler writes that reference itself), so
 unpickler that maps the JAX class's name to this module's class, so it
 reads a ``paddle_tpu.save`` file without importing the JAX package.
 
-numpy has no bfloat16: a bf16 tensor is saved widened (exactly) to
-float32; a JAX file's bf16 arrays (``ml_dtypes.bfloat16``) load as bf16
-tensors. Unpickle only files this program or the JAX package wrote:
-unpickling can run code.
+numpy has no bfloat16 of its own: a bf16 tensor is saved as an
+``ml_dtypes.bfloat16`` array of the same bits, as the JAX package saves
+its bf16 arrays, so a bf16 tensor loads back as bf16 in either package.
+Unpickle only files this program or the JAX package wrote: unpickling
+can run code.
 """
 from __future__ import annotations
 
@@ -48,10 +49,14 @@ class _TensorPayload:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
+    t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy().copy()
+        # the bits as they are, under ml_dtypes' bfloat16 (the JAX
+        # package's numpy bf16); never widened
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
 
 
 def _pack(obj: Any) -> Any:

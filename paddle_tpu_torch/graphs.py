@@ -12,7 +12,10 @@ advances them as an eager run would; :class:`Graph` replays it. A capture
 launches nothing, so the launches its wrappers count are taken back
 (``ops.captured_launches``) and each replay adds them again: N replays
 count what N eager runs would. A capture that fails raises: nothing here
-falls back to an eager run.
+falls back to an eager run. While ``FLAGS_check_nan_inf`` is set, a
+graphed program refuses to run (:func:`refuse_scan`): the scan reads
+every operator's output on the host, which a capture forbids, and the
+JAX package's compiled programs raise under the flag too.
 
 :func:`pinned_zeros` makes the host buffers a graph copies to and from: a
 plain CPU allocation pinned in place (``cudaHostRegister``) rather than a
@@ -27,13 +30,29 @@ import weakref
 
 import torch
 
-__all__ = ["Graph", "capture", "pinned_zeros", "warm_up", "weights_key"]
+__all__ = ["Graph", "capture", "pinned_zeros", "refuse_scan", "warm_up",
+           "weights_key"]
+
+
+def refuse_scan() -> None:
+    """Raise RuntimeError while ``FLAGS_check_nan_inf`` is set: a graphed
+    program cannot read its operators' outputs on the host."""
+    from .framework.flags import GLOBAL_FLAGS
+
+    if GLOBAL_FLAGS.get("check_nan_inf"):
+        raise RuntimeError(
+            "FLAGS_check_nan_inf is set: its scan reads every operator's "
+            "output on the host, which a CUDA graph cannot (the JAX "
+            "package's compiled programs raise under the flag too); clear "
+            "the flag, or run the program eagerly (graphs = False)")
 
 
 def warm_up(body, device):
     """Run ``body`` eagerly on a side stream (ordered after the current
     stream's work, and the current stream after it); returns its
-    output."""
+    output. The first run of a graphed program: refused while
+    ``FLAGS_check_nan_inf`` is set (:func:`refuse_scan`)."""
+    refuse_scan()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -48,6 +67,7 @@ def capture(body, generators=(), pool=None) -> "Graph":
     (the default CUDA generator is registered by PyTorch itself)."""
     from . import ops
 
+    refuse_scan()
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
@@ -69,9 +89,11 @@ class Graph:
     generators: tuple
 
     def replay(self):
-        """Replay the graph, count its launches; returns its outputs."""
+        """Replay the graph, count its launches; returns its outputs
+        (refused while ``FLAGS_check_nan_inf`` is set)."""
         from . import ops
 
+        refuse_scan()
         self.graph.replay()
         ops.add_launch_counts(self.launches)
         return self.out

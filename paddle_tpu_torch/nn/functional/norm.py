@@ -69,18 +69,48 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 
     It runs PyTorch's ``batch_norm`` (cuDNN's on the card) on an fp32
     running mean and variance, channel-first (a channel-last input is
-    viewed so)."""
+    viewed so). PyTorch refuses batch statistics over one value a
+    channel; there the JAX package's arithmetic runs instead
+    (:func:`_one_value_batch_norm`)."""
     cl = not data_format.startswith("NC")
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
     update = training and not use_stats
     if cl:
         x = x.movedim(-1, 1)
+    if not use_stats and x.dim() > 1 and x.numel() == x.shape[1]:
+        out = _one_value_batch_norm(x, running_mean, running_var, weight,
+                                    bias, update, momentum, epsilon)
+        return out.movedim(1, -1) if cl else out
     out = torch.nn.functional.batch_norm(
         x, running_mean if (use_stats or update) else None,
         running_var if (use_stats or update) else None, weight, bias,
         training=not use_stats, momentum=1.0 - momentum, eps=epsilon)
     return out.movedim(1, -1) if cl else out
+
+
+def _one_value_batch_norm(x, running_mean, running_var, weight, bias,
+                          update, momentum, epsilon):
+    """Batch statistics over one value a channel (a channel-first ``x``
+    of ``numel == C``), as the JAX package computes them: the mean is the
+    value, the biased variance 0, so the output is ``bias`` (or 0); the
+    running mean moves towards the value and the running variance by
+    ``momentum`` alone (the unbiased factor ``n / max(n - 1, 1)`` is 1),
+    in place (a CUDA graph replays the update)."""
+    shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+    xf = x.float()
+    axes = [0] + list(range(2, x.dim()))
+    mean = xf.mean(axes, keepdim=True)
+    var = (xf - mean).square().mean(axes, keepdim=True)
+    out = _affine((xf - mean) * torch.rsqrt(var + epsilon), weight, bias,
+                  shape)
+    if update:
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_(
+                mean.reshape(-1).to(running_mean.dtype), alpha=1 - momentum)
+            running_var.mul_(momentum).add_(
+                var.reshape(-1).to(running_var.dtype), alpha=1 - momentum)
+    return out.to(x.dtype)
 
 
 def instance_norm(x, running_mean=None, running_var=None, weight=None,

@@ -40,6 +40,8 @@ import math
 import torch
 from torch.nn import functional as F
 
+from ...framework import dispatch
+
 from ._spatial import (is_channel_last, pad_spec, same_pads, to_channel_first,
                        to_channel_last, tup)
 
@@ -95,10 +97,16 @@ def _max_pool(x, kernel_size, stride, padding, n, ceil_mode, data_format,
     s = tup(stride, n) if stride is not None else k
     pads, _ = _window_pads(x.shape[2:], k, s, padding, n, ceil_mode)
     pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[n - 1]
-    out = _back(pool(_pad(x, pads, _low_value(x)), k, s), n, cl)
+    # the -inf padding is not finite by design: FLAGS_check_nan_inf scans
+    # the pooled result, as the JAX package scans its one pooling op
+    with dispatch.scan_paused():
+        out = pool(_pad(x, pads, _low_value(x)), k, s)
+    out = _back(dispatch.scan(f"max_pool{n}d", out), n, cl)
     if not return_mask:
         return out
-    return out, _back(_max_indices(x, k, s, pads, n), n, cl)
+    with dispatch.scan_paused():
+        mask = _max_indices(x, k, s, pads, n)
+    return out, _back(mask, n, cl)
 
 
 def _max_indices(x, k, s, pads, n):

@@ -1,59 +1,83 @@
-"""Tensor functions — port of ``paddle_tpu/tensor`` for the first program
-a Paddle user writes: creation (``creation.py``) and the shape subset of
-``manipulation.py``. The other functions of ``paddle_tpu/tensor`` (math,
-linalg, logic, search, stat, random, the rest of manipulation …) are not
-ported yet: reaching one here raises NotImplementedError, where a name
-the JAX package does not have raises AttributeError."""
-from .creation import (arange, assign, clone, diag, empty, empty_like, eye,
-                       full, full_like, linspace, ones, ones_like, to_tensor,
-                       tril, triu, zeros, zeros_like)
-from .manipulation import (chunk, concat, flatten, reshape, split, squeeze,
-                           stack, transpose, unsqueeze)
+"""Tensor functions — port of ``paddle_tpu/tensor``: every function it
+exports, from the modules of the same names (``creation``,
+``manipulation``, ``math``, ``linalg``, ``logic``, ``search``, ``stat``,
+``random``, ``attribute``, ``array``, ``einsum``).
 
-__all__ = ["arange", "assign", "chunk", "clone", "concat", "diag", "empty",
-           "empty_like", "eye", "flatten", "full", "full_like", "linspace",
-           "ones", "ones_like", "reshape", "split", "squeeze", "stack",
-           "to_tensor", "transpose", "tril", "triu", "unsqueeze", "zeros",
-           "zeros_like"]
+The tensor is ``torch.Tensor`` (``Tensor`` here). The JAX package also
+patches its functions onto its own ``Tensor`` as methods and operators
+(``paddle_tpu/tensor/__init__.py``, ``_patch_tensor_methods``). The port
+does not patch ``torch.Tensor``: that would change every torch program in
+the process, the port's own kernel wrappers included. A method that
+``torch.Tensor`` lacks (``astype``, ``cast``, …) or gives another meaning
+(``numpy`` of a CUDA tensor, ``max`` / ``min`` / ``sort`` / ``unique``
+returning index tuples or another order, …) is reached as the
+``paddle.`` function of the same name; ROADMAP §C lists them.
+"""
+import torch
 
-# the JAX package's ``paddle_tpu.tensor`` functions not ported yet
-_UNPORTED = frozenset("""
-abs acos acosh add add_ addmm all allclose amax amin angle any argmax argmin
-argsort array_length array_read array_write as_complex as_real asin asinh
-atan atan2 atanh bernoulli bernoulli_ bincount binomial bitwise_and
-bitwise_left_shift bitwise_not bitwise_or bitwise_right_shift bitwise_xor
-bmm broadcast_shape broadcast_tensors broadcast_to bucketize cdist ceil
-ceil_ cholesky cholesky_solve clip clip_ complex cond conj copysign corrcoef
-cos cosh count_nonzero cov create_array create_tensor crop cross cummax
-cummin cumprod cumsum deg2rad det diagflat diff digamma dist divide dot eig
-eigh eigvals eigvalsh einsum equal equal_all erf erfinv erfinv_ exp exp_
-expand expand_as expm1 exponential_ flatten_ flip floor floor_ floor_divide
-floor_mod fmax fmin frac gather gather_nd gaussian gcd greater_equal
-greater_than heaviside histogram histogramdd householder_product hypot i0
-imag increment index_add index_fill index_put index_sample index_select
-inner inv inverse is_empty is_tensor isclose isfinite isinf isnan kron
-kthvalue lcm lerp lerp_ less_equal less_than lgamma log log10 log1p log2
-logaddexp logical_and logical_not logical_or logical_xor logit logspace
-logsumexp lstsq lu lu_unpack masked_fill masked_scatter masked_select matmul
-matrix_exp matrix_norm matrix_power matrix_rank max maximum mean median
-meshgrid min minimum mm mod mode moveaxis multi_dot multinomial multiplex
-multiply nan_to_num nanmean nanmedian nanquantile nansum neg nextafter
-nonzero norm normal normal_ not_equal numel outer pad pinv poisson polar pow
-prod put_along_axis put_along_axis_ qr quantile rad2deg rand randint
-randint_like randn randperm rank real reciprocal reciprocal_ remainder
-remainder_ renorm repeat_interleave reshape_ roll rot90 round round_ rsqrt
-rsqrt_ scale scale_ scatter scatter_ scatter_nd scatter_nd_add searchsorted
-shape shard_index sigmoid sign sin sinh slice slogdet solve sort sqrt sqrt_
-square standard_gamma standard_normal stanh std strided_slice subtract
-subtract_ sum svd svd_lowrank svdvals swapaxes t take take_along_axis tan
-tanh tensor_split tensordot tile topk trace trapezoid triangular_solve
-tril_indices triu_indices trunc unbind unfold uniform uniform_ unique
-unique_consecutive unstack var vector_norm view view_as where
-""".split())
+from . import (array, attribute, creation, einsum as _einsum_mod, linalg,
+               logic, manipulation, math, random, search, stat)
+from .array import (array_length, array_read, array_write, create_array,
+                    create_tensor)
+from .attribute import rank, shape
+from .creation import (arange, assign, clone, complex, diag, diagflat, empty,
+                       empty_like, eye, full, full_like, linspace, logspace,
+                       meshgrid, ones, ones_like, polar, to_tensor, tril,
+                       tril_indices, triu, triu_indices, zeros, zeros_like)
+from .einsum import einsum
+from .linalg import (cdist, cholesky, cholesky_solve, cond, det, dist, eig,
+                     eigh, eigvals, eigvalsh, householder_product, inv, lstsq,
+                     lu, lu_unpack, matrix_exp, matrix_norm, matrix_power,
+                     matrix_rank, multi_dot, norm, pinv, qr, slogdet, solve,
+                     svd, svd_lowrank, svdvals, triangular_solve, vector_norm)
+from .logic import (allclose, bitwise_and, bitwise_left_shift, bitwise_not,
+                    bitwise_or, bitwise_right_shift, bitwise_xor, equal,
+                    equal_all, greater_equal, greater_than, is_empty,
+                    is_tensor, isclose, less_equal, less_than, logical_and,
+                    logical_not, logical_or, logical_xor, not_equal)
+from .manipulation import (as_complex, as_real, broadcast_tensors,
+                           broadcast_to, chunk, concat, crop, expand,
+                           expand_as, flatten, flatten_, flip, gather,
+                           gather_nd, index_add, index_put, index_sample,
+                           index_select, masked_fill, masked_scatter,
+                           masked_select, moveaxis, pad, put_along_axis,
+                           put_along_axis_, repeat_interleave, reshape,
+                           reshape_, roll, rot90, scatter, scatter_,
+                           scatter_nd, scatter_nd_add, shard_index, slice,
+                           split, squeeze, stack, strided_slice, swapaxes, t,
+                           take_along_axis, tensor_split, tensordot, tile,
+                           transpose, unbind, unfold, unique,
+                           unique_consecutive, unsqueeze, unstack, view,
+                           view_as)
+from .math import (abs, acos, acosh, add, add_, addmm, all, amax, amin, angle,
+                   any, asin, asinh, atan, atan2, atanh, bmm, broadcast_shape,
+                   ceil, ceil_, clip, clip_, conj, copysign, cos, cosh,
+                   count_nonzero, cross, cummax, cummin, cumprod, cumsum,
+                   deg2rad, diff, digamma, divide, dot, erf, erfinv, erfinv_,
+                   exp, exp_, expm1, floor, floor_, floor_divide, floor_mod,
+                   fmax, fmin, frac, gcd, heaviside, hypot, i0, imag,
+                   increment, inner, inverse, isfinite, isinf, isnan, kron,
+                   lcm, lerp, lerp_, lgamma, log, log1p, log2, log10,
+                   logaddexp, logit, logsumexp, matmul, max, maximum, mean,
+                   min, minimum, mm, mod, multiplex, multiply, nan_to_num,
+                   nanmean, nansum, neg, nextafter, outer, pow, prod, rad2deg,
+                   real, reciprocal, reciprocal_, remainder, remainder_,
+                   renorm, round, round_, rsqrt, rsqrt_, scale, scale_,
+                   sigmoid, sign, sin, sinh, sqrt, sqrt_, square, stanh,
+                   subtract, subtract_, sum, take, tan, tanh, trace,
+                   trapezoid, trunc)
+from .random import (bernoulli, bernoulli_, binomial, exponential_, gaussian,
+                     multinomial, normal, normal_, poisson, rand, randint,
+                     randint_like, randn, randperm, standard_gamma,
+                     standard_normal, uniform, uniform_)
+from .search import (argmax, argmin, argsort, bucketize, index_fill,
+                     kthvalue, mode, nonzero, searchsorted, sort, topk, where)
+from .stat import (bincount, corrcoef, cov, histogram, histogramdd, median,
+                   nanmedian, nanquantile, numel, quantile, std, var)
 
+Tensor = torch.Tensor
 
-def __getattr__(name):
-    if name in _UNPORTED:
-        raise NotImplementedError(f"paddle.tensor.{name} is not ported yet "
-                                  f"(ROADMAP A8b)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = sorted(n for n in dir() if not n.startswith("_")
+                 and n not in ("torch", "array", "attribute", "creation",
+                               "linalg", "logic", "manipulation", "math",
+                               "random", "search", "stat"))

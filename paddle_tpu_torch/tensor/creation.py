@@ -1,7 +1,8 @@
 """Tensor creation — port of ``paddle_tpu/tensor/creation.py``:
 ``to_tensor``, ``zeros`` / ``ones`` / ``full`` and their ``_like`` forms,
-``empty``, ``arange``, ``linspace``, ``eye``, ``diag``, ``tril`` / ``triu``,
-``assign`` and ``clone``.
+``empty``, ``arange``, ``linspace``, ``logspace``, ``eye``, ``meshgrid``,
+``diag``, ``diagflat``, ``tril`` / ``triu`` and their ``_indices``,
+``complex``, ``polar``, ``assign`` and ``clone``.
 
 Each function that makes a tensor from nothing takes ``device`` (Paddle's
 ``place`` its alias; None: the CUDA card, raising without one); the
@@ -22,9 +23,11 @@ import torch
 from .. import resolve_place
 from ..framework.dtype import convert_dtype, get_default_dtype
 
-__all__ = ["arange", "assign", "clone", "diag", "empty", "empty_like", "eye",
-           "full", "full_like", "linspace", "ones", "ones_like", "to_tensor",
-           "tril", "triu", "zeros", "zeros_like"]
+__all__ = ["arange", "assign", "clone", "complex", "diag", "diagflat",
+           "empty", "empty_like", "eye", "full", "full_like", "linspace",
+           "logspace", "meshgrid", "ones", "ones_like", "polar", "to_tensor",
+           "tril", "tril_indices", "triu", "triu_indices", "zeros",
+           "zeros_like"]
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True, *,
@@ -184,3 +187,50 @@ def assign(x, output=None, *, device=None, place=None):
 
 def clone(x, name=None):
     return x.clone()
+
+
+def logspace(start, stop, num, base=10.0, dtype=None, name=None, *,
+             device=None, place=None):
+    """``base ** linspace(start, stop, num)`` (numpy's, as jnp's)."""
+    vals = np.logspace(float(start), float(stop), int(num), base=float(base))
+    return torch.from_numpy(vals).to(device=resolve_place(device, place),
+                                     dtype=convert_dtype(dtype)
+                                     or get_default_dtype())
+
+
+def meshgrid(*args, **kwargs):
+    """``ij``-indexed grids of 1-D tensors (given as arguments or one
+    list)."""
+    if len(args) == 1 and isinstance(args[0], (list, tuple)):
+        args = tuple(args[0])
+    return list(torch.meshgrid(*args, indexing="ij"))
+
+
+def diagflat(x, offset=0, name=None):
+    return torch.diagflat(x, offset)
+
+
+def _indices(fn, row, col, offset, dtype, device, place):
+    r, c = fn(row, offset, col)
+    return torch.from_numpy(np.stack([r, c])).to(
+        device=resolve_place(device, place), dtype=convert_dtype(dtype))
+
+
+def tril_indices(row, col, offset=0, dtype="int64", *, device=None,
+                 place=None):
+    return _indices(np.tril_indices, row, col, offset, dtype, device, place)
+
+
+def triu_indices(row, col=None, offset=0, dtype="int64", *, device=None,
+                 place=None):
+    return _indices(np.triu_indices, row, row if col is None else col,
+                    offset, dtype, device, place)
+
+
+def complex(real, imag, name=None):
+    """``real + 1j · imag`` (complex64 from float32 parts)."""
+    return torch.complex(real, imag)
+
+
+def polar(abs_t, angle, name=None):
+    return torch.polar(abs_t, angle)

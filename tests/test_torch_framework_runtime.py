@@ -1,0 +1,388 @@
+"""The rest of the framework core of the port (``framework/{flags,monitor,
+dispatch,containers}``, ``device``) and the repairs of C2 and C3, against
+the JAX package on the CPU:
+
+- the flags: names, defaults, ``set_flags`` / ``get_flags`` and the
+  ``FLAGS_<name>`` environment override;
+- the stat registry;
+- AMP at dispatch: under O1 and O2 the tensor functions cast what the
+  JAX dispatcher casts (the output dtypes equal, the values within a
+  bf16 rounding);
+- ``FLAGS_check_nan_inf``: a NaN / Inf output raises FloatingPointError
+  naming the op, through a tensor function and through a layer that
+  calls torch directly; a clean step passes; the eager engine scans its
+  step; a graphed program refuses to run under the flag, as the JAX
+  engine's compiled step raises;
+- ``TensorArray`` and ``SelectedRows``; the device API's CUDA meaning;
+- C2: a bf16 ``Linear`` saved by the port loads as bf16, bit for bit, in
+  both packages;
+- C3: a training BatchNorm over one value a channel, and a ResNet-18
+  training step at B = 1 on 3 x 32 x 32, against JAX.
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+import paddle_tpu.amp as jamp
+import paddle_tpu.framework.flags as jflags
+import paddle_tpu.vision.models as jvm
+from paddle_tpu.framework.containers import SelectedRows as JSelectedRows
+from paddle_tpu.framework.containers import TensorArray as JTensorArray
+from paddle_tpu.framework.monitor import stat_registry as jstats
+from paddle_tpu.parallel import ParallelEngine as JEngine
+import paddle_tpu_torch as pt
+from paddle_tpu_torch import amp as tamp
+from paddle_tpu_torch import graphs
+from paddle_tpu_torch.framework import dispatch
+from paddle_tpu_torch.framework import flags as tflags
+from paddle_tpu_torch.framework.containers import SelectedRows, TensorArray
+from paddle_tpu_torch.framework.monitor import stat_registry as tstats
+from paddle_tpu_torch.models.convert import layer_params_from_jax
+from paddle_tpu_torch.parallel import ParallelEngine
+from torch_tensor_parity import (ANY, ANY2, B3, BF16, POS, assert_same, jx,
+                                 tx)
+
+
+def _plant_inf(t):
+    """An Inf written into ``t`` with the scan off (the write itself would
+    trip it)."""
+    on = pt.get_flags("check_nan_inf")["check_nan_inf"]
+    pt.set_flags({"check_nan_inf": False})
+    with torch.no_grad():
+        t.view(-1)[0] = float("inf")
+    pt.set_flags({"check_nan_inf": on})
+
+
+@pytest.fixture
+def nan_inf_flag():
+    """Sets FLAGS_check_nan_inf in both packages; clears it after."""
+    paddle.set_flags({"FLAGS_check_nan_inf": True})
+    pt.set_flags({"FLAGS_check_nan_inf": True})
+    yield
+    paddle.set_flags({"FLAGS_check_nan_inf": False})
+    pt.set_flags({"FLAGS_check_nan_inf": False})
+
+
+# ------------------------------------------------------------------ flags
+def test_flags_names_defaults_and_api_match_jax():
+    core = ("check_nan_inf", "deterministic", "default_dtype",
+            "eager_delete_tensor_gb", "use_pallas_kernels", "log_level",
+            "profiler_trace_dir")
+    assert tflags.GLOBAL_FLAGS.all() == {k: jflags.GLOBAL_FLAGS.get(k)
+                                         for k in core}
+    assert pt.get_flags("FLAGS_deterministic") == paddle.get_flags(
+        "FLAGS_deterministic") == {"FLAGS_deterministic": False}
+    try:
+        for mod in (paddle, pt):
+            mod.set_flags({"FLAGS_log_level": "INFO", "deterministic": "1"})
+        assert pt.get_flags(["log_level", "FLAGS_deterministic"]) == \
+            paddle.get_flags(["log_level", "FLAGS_deterministic"]) == \
+            {"log_level": "INFO", "FLAGS_deterministic": True}
+    finally:
+        for mod in (paddle, pt):
+            mod.set_flags({"log_level": "WARNING", "deterministic": False})
+    for mod in (paddle, pt):
+        with pytest.raises(KeyError):
+            mod.set_flags({"FLAGS_no_such_flag": 1})
+
+
+def test_flag_environment_override(monkeypatch):
+    monkeypatch.setenv("FLAGS_trial_flag", "on")
+    monkeypatch.setenv("FLAGS_trial_int", "7")
+    for reg in (tflags.FlagRegistry(), jflags.FlagRegistry()):
+        reg.define("trial_flag", False)
+        reg.define("trial_int", 1)
+        reg.define("trial_int", 99)               # a second define is a no-op
+        assert reg.get("trial_flag") is True and reg.get("trial_int") == 7
+        assert reg.has("trial_int") and not reg.has("nothing")
+
+
+def test_stat_registry_matches_jax():
+    for reg in (tstats(), jstats()):
+        reg.reset()
+    for mod in ("paddle_tpu.framework.monitor",
+                "paddle_tpu_torch.framework.monitor"):
+        m = __import__(mod, fromlist=["monitor_add"])
+        m.monitor_add("ops", 3)
+        m.monitor_add("ops")
+        m.stat_registry().set("bytes", 10)
+    assert tstats().stats() == jstats().stats() == {"ops": 4, "bytes": 10}
+    for reg in (tstats(), jstats()):
+        reg.reset("ops")
+        assert reg.get("ops") == 0
+        reg.reset()
+
+
+# ---------------------------------------------------------------- AMP
+AMP_ROWS = [("matmul", (ANY, ANY2.T), {}), ("mm", (ANY, ANY2.T), {}),
+            ("bmm", (B3, B3.transpose(0, 2, 1)), {}),
+            ("add", (ANY, ANY2), {}), ("exp", (ANY,), {}),
+            ("sum", (ANY,), dict(axis=1)), ("mean", (ANY,), {}),
+            ("sqrt", (POS,), {}), ("maximum", (ANY, ANY2), {}),
+            ("max", (ANY,), dict(axis=0)), ("tanh", (ANY,), {}),
+            ("dot", (ANY, ANY2), {}), ("topk", (ANY, 2), {}),
+            ("cumsum", (ANY,), dict(axis=1)), ("square", (ANY,), {}),
+            ("log", (POS,), {}), ("divide", (ANY, POS), {})]
+
+
+@pytest.mark.parametrize("level", ["O1", "O2"])
+@pytest.mark.parametrize("row", AMP_ROWS, ids=[r[0] for r in AMP_ROWS])
+def test_amp_casts_at_dispatch_as_jax(level, row):
+    name, args, kwargs = row
+    with jamp.auto_cast(level=level), tamp.auto_cast(level=level):
+        j = getattr(paddle, name)(*jx(args), **kwargs)
+        t = getattr(pt, name)(*tx(args), **kwargs)
+    assert_same(j, t, BF16, None, f"{name} under {level}")
+
+
+def test_amp_o1_products_of_fp32_inputs_are_bf16():
+    x, y = tx(ANY), tx(ANY2.T)
+    with tamp.auto_cast(level="O1"):
+        assert pt.matmul(x, y).dtype == torch.bfloat16
+        assert pt.mm(x, y).dtype == torch.bfloat16
+        assert pt.bmm(x[None], y[None]).dtype == torch.bfloat16
+        assert pt.einsum("ij,jk->ik", x, y).dtype == torch.bfloat16
+        assert pt.add(x, x).dtype == torch.float32
+    assert pt.matmul(x, y).dtype == torch.float32
+
+
+def test_a_static_variable_reaching_dispatch_raises():
+    from paddle_tpu.static.graph import Variable
+
+    v = Variable.__new__(Variable)
+    with pytest.raises(NotImplementedError, match="A11"):
+        dispatch.apply_op(torch.add, v, 1)
+
+
+# ------------------------------------------------------- check_nan_inf
+def test_check_nan_inf_raises_naming_the_op(nan_inf_flag):
+    bad = np.array([1.0, 0.0, -1.0], "float32")
+    with pytest.raises(FloatingPointError, match="'log'"):
+        paddle.log(paddle.to_tensor(bad))
+    with pytest.raises(FloatingPointError, match="'log'"):
+        pt.log(torch.from_numpy(bad))
+    # a layer of the port calls torch directly: the scan sees it too
+    lin = pt.nn.Linear(3, 2, device="cpu")
+    _plant_inf(lin.weight)
+    with pytest.raises(FloatingPointError, match="NaN/Inf detected"):
+        lin(torch.ones(1, 3))
+    # clean ops and a clean backward pass
+    x = torch.from_numpy(POS.copy()).requires_grad_()
+    pt.sum(pt.log(x)).backward()
+    assert torch.isfinite(x.grad).all()
+
+
+def test_check_nan_inf_off_scans_nothing():
+    assert not pt.get_flags("check_nan_inf")["check_nan_inf"]
+    assert dispatch._scan is None
+    out = pt.log(torch.tensor([-1.0]))
+    assert torch.isnan(out).all()
+
+
+def test_clearing_the_flag_inside_another_mode_raises(nan_inf_flag):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Other(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+
+    with Other():
+        with pytest.raises(RuntimeError, match="another dispatch mode"):
+            pt.set_flags({"check_nan_inf": False})
+
+
+def _port_engine(graphs_on):
+    paddle_model = pt.nn.Sequential(pt.nn.Linear(4, 8, device="cpu"),
+                                    pt.nn.ReLU(),
+                                    pt.nn.Linear(8, 3, device="cpu"))
+    opt = pt.optimizer.SGD(learning_rate=0.1,
+                           parameters=paddle_model.parameters())
+    eng = ParallelEngine(paddle_model, optimizer=opt,
+                         loss_fn=lambda o, y: ((o - y) ** 2).mean())
+    eng.graphs = graphs_on
+    return paddle_model, eng
+
+
+def test_engine_under_the_flag_scans_eagerly_and_refuses_graphs(
+        nan_inf_flag):
+    x, y = torch.ones(2, 4), torch.zeros(2, 3)
+    # the JAX engine's compiled step cannot read its traced outputs
+    jm = paddle.nn.Linear(4, 3)
+    jeng = JEngine(jm, optimizer=paddle.optimizer.SGD(
+        learning_rate=0.1, parameters=jm.parameters()),
+        loss_fn=lambda o, t: paddle.mean((o - t) ** 2))
+    with pytest.raises(jax.errors.TracerArrayConversionError):
+        jeng.train_batch(paddle.to_tensor(x.numpy()),
+                         paddle.to_tensor(y.numpy()))
+    # the port's graphed engine refuses before it runs anything
+    model, eng = _port_engine(True)
+    with pytest.raises(RuntimeError, match="FLAGS_check_nan_inf"):
+        eng.train_batch(x, y)
+    # the eager engine runs the step under the scan: clean, then planted
+    model, eng = _port_engine(False)
+    assert torch.isfinite(eng.train_batch(x, y))
+    _plant_inf(model[0].weight)
+    with pytest.raises(FloatingPointError, match="NaN/Inf detected"):
+        eng.train_batch(x, y)
+    # a graph captured before the flag was set does not replay under it
+    g = graphs.Graph(graph=None, out=None, launches={}, generators=())
+    with pytest.raises(RuntimeError, match="FLAGS_check_nan_inf"):
+        g.replay()
+
+
+# ------------------------------------------------------------ containers
+def test_tensor_array_matches_jax():
+    ta, ja = TensorArray(device="cpu"), JTensorArray()
+    for arr in (ta, ja):
+        arr.append(ANY)
+        arr.write(2, ANY2)
+    with pytest.raises(IndexError):
+        ta.stack()
+    for arr, wrap in ((ta, tx), (ja, jx)):
+        arr.write(1, wrap(POS))
+    assert len(ta) == len(ja) == 3
+    assert_same(ja.stack(axis=1), ta.stack(axis=1), dict(rtol=0, atol=0),
+                None, "TensorArray.stack")
+    assert_same(ja[2], ta[2], dict(rtol=0, atol=0), None, "read")
+    with pytest.raises(IndexError):
+        TensorArray([None]).read(0)
+
+
+def test_selected_rows_matches_jax():
+    rows = np.array([3, 0, 3, 5], "int64")
+    value = np.arange(12, dtype="float32").reshape(4, 3)
+    j = JSelectedRows(jx(rows), jx(value), 6)
+    t = SelectedRows(tx(rows), tx(value), 6)
+    assert j.shape == t.shape == (6, 3)
+    assert_same(j.to_dense(), t.to_dense(), dict(rtol=0, atol=0), None,
+                "to_dense")
+    jm, tm = j.merge(), t.merge()
+    np.testing.assert_array_equal(tm.rows.numpy(), np.asarray(jm.rows))
+    np.testing.assert_array_equal(tm.value.numpy(), np.asarray(jm.value))
+    assert_same(jm.to_dense(), tm.to_dense(), dict(rtol=0, atol=0), None,
+                "merge")
+
+
+# ---------------------------------------------------------------- device
+def test_device_api_has_its_cuda_meaning():
+    dev = pt.device
+    assert dev.is_compiled_with_cuda() and pt.is_compiled_with_cuda()
+    assert not dev.is_compiled_with_xpu() and not dev.is_compiled_with_rocm()
+    assert dev.device_count() == dev.cuda.device_count() == \
+        (torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    try:
+        assert dev.set_device("gpu:0") == "gpu:0"
+        assert dev.get_device() == pt.get_device() == "gpu:0"
+    finally:
+        dev._current_device = None
+    if not torch.cuda.is_available():
+        assert dev.get_device() == "cpu"
+        for fn in (dev.memory_stats, dev.max_memory_reserved,
+                   dev.cuda.memory_allocated, dev.synchronize):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                fn()
+        with pytest.raises(ValueError):
+            dev._cuda("xpu:0")
+
+
+# -------------------------------------------------------------------- C2
+def test_c2_a_bf16_linear_saved_by_the_port_loads_as_bf16(tmp_path):
+    lin = pt.nn.Linear(5, 3, device="cpu").to(torch.bfloat16)
+    path = str(tmp_path / "lin.pdparams")
+    pt.save(lin.state_dict(), path)
+    back = pt.load(path, device="cpu")
+    jback = paddle.load(path)
+    for k, v in lin.state_dict().items():
+        assert back[k].dtype == torch.bfloat16
+        assert torch.equal(back[k].view(torch.int16), v.view(torch.int16))
+        ja = np.asarray(jback[k].numpy())
+        assert ja.dtype == ml_dtypes.bfloat16
+        np.testing.assert_array_equal(
+            ja.view(np.int16), v.view(torch.int16).numpy())
+    raw = pt.load(path, return_numpy=True)
+    assert all(a.dtype == ml_dtypes.bfloat16 for a in raw.values())
+
+
+# -------------------------------------------------------------------- C3
+def test_c3_batch_norm_over_one_value_a_channel_matches_jax():
+    x = np.random.RandomState(3).randn(1, 5).astype("float32") * 2 + 1
+    jb, tb = paddle.nn.BatchNorm1D(5), pt.nn.BatchNorm1D(5, device="cpu")
+    w = np.linspace(0.5, 1.5, 5).astype("float32")
+    b = np.linspace(-1, 1, 5).astype("float32")
+    jb.set_state_dict({"weight": w, "bias": b})
+    layer_params_from_jax({"weight": w, "bias": b,
+                           "_mean": np.zeros(5, "float32"),
+                           "_variance": np.ones(5, "float32")}, tb)
+    xt = torch.from_numpy(x).requires_grad_()
+    assert_same(jb(paddle.to_tensor(x)), tb(xt), dict(rtol=1e-6, atol=1e-6),
+                None, "output")
+    for name, v in jb.state_dict().items():
+        np.testing.assert_allclose(tb.state_dict()[name].numpy(),
+                                   np.asarray(v.numpy()), rtol=1e-6,
+                                   atol=1e-7, err_msg=name)
+    # eval mode reads the running statistics, as before
+    jb.eval()
+    tb.eval()
+    assert_same(jb(paddle.to_tensor(x)), tb(torch.from_numpy(x)), dict(
+        rtol=1e-6, atol=1e-6), None, "eval")
+    # the gradient is finite, and the running statistics are updated in
+    # place (a graph replays them)
+    tb.train()
+    tb(xt).sum().backward()
+    assert torch.isfinite(xt.grad).all()
+    mean = tb._mean
+    tb(xt)
+    assert tb._mean is mean
+
+
+@pytest.fixture
+def jax_draws_stubbed(monkeypatch):
+    """The JAX package's initializers draw zeros: its weights are replaced
+    by the port's before use, and each real draw compiles per shape."""
+    def zeros(key, shape=(), dtype=jnp.float32, *a, **kw):
+        return jnp.zeros(shape, dtype)
+
+    for n in ("normal", "uniform", "truncated_normal"):
+        monkeypatch.setattr(jax.random, n, zeros)
+
+
+def test_c3_resnet18_step_at_batch_1_on_32x32_matches_jax(jax_draws_stubbed):
+    """One Momentum step of ResNet-18 at B = 1 on 3 x 32 x 32 (layer4 is
+    1 x 1: its BatchNorms see one value a channel) through both engines:
+    the loss, the running statistics and the parameters after the step.
+    The loss is ln(10) on both sides (layer4's BatchNorms give their
+    bias, 0); the statistics are within fp32 rounding."""
+    torch.manual_seed(0)
+    tm = pt.vision.models.resnet18(num_classes=10, device="cpu")
+    state = {n: t.detach().numpy().copy() for n, t in
+             list(tm.named_parameters()) + list(tm.named_buffers())}
+    jm = jvm.resnet18(num_classes=10)
+    missing, unexpected = jm.set_state_dict(state)
+    assert not missing and not unexpected
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, 3, 32, 32).astype("float32")
+    y = np.array([3], "int64")
+    jeng = JEngine(jm, optimizer=paddle.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, weight_decay=5e-4,
+        parameters=jm.parameters()),
+        loss_fn=lambda o, t: paddle.nn.functional.cross_entropy(o, t))
+    jloss = float(jeng.train_batch(paddle.to_tensor(x), paddle.to_tensor(y)))
+    teng = ParallelEngine(tm, optimizer=pt.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, weight_decay=5e-4,
+        parameters=tm.parameters()),
+        loss_fn=lambda o, t: pt.nn.functional.cross_entropy(o, t))
+    tloss = float(teng.train_batch(torch.from_numpy(x), torch.from_numpy(y)))
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-6)
+    js = jeng.engine_state_dict()["params"]
+    for n, t in list(tm.named_buffers()) + list(tm.named_parameters()):
+        ref = np.asarray(js[n], np.float64)
+        got = t.detach().double().numpy()
+        scale = max(np.abs(ref).max(), 1e-30)
+        # measured 5e-6 of the largest (JAX) and 8e-6 (the port) from the
+        # port's fp64 step: 1e-4 leaves 10x that
+        assert np.abs(got - ref).max() <= 1e-4 * scale, n
+    assert tm.layer4[0].bn1._mean.abs().sum() > 0

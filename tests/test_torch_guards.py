@@ -23,6 +23,8 @@ from paddle_tpu_torch.parallel import ParallelEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
 PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
+                "paddle_tpu_torch.compat", "paddle_tpu_torch.device",
+                "paddle_tpu_torch.linalg",
                 "paddle_tpu_torch.regularizer",
                 "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.distributed.fleet",
@@ -82,7 +84,11 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.parallel.engine",
                 "paddle_tpu_torch.parallel.offload",
                 "paddle_tpu_torch.framework",
+                "paddle_tpu_torch.framework.containers",
                 "paddle_tpu_torch.framework.core",
+                "paddle_tpu_torch.framework.dispatch",
+                "paddle_tpu_torch.framework.flags",
+                "paddle_tpu_torch.framework.monitor",
                 "paddle_tpu_torch.framework.dtype",
                 "paddle_tpu_torch.framework.io_state",
                 "paddle_tpu_torch.framework.param_attr",
@@ -98,8 +104,18 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.nn.layer.loss",
                 "paddle_tpu_torch.nn.layer.pooling",
                 "paddle_tpu_torch.tensor",
+                "paddle_tpu_torch.tensor._util",
+                "paddle_tpu_torch.tensor.array",
+                "paddle_tpu_torch.tensor.attribute",
                 "paddle_tpu_torch.tensor.creation",
+                "paddle_tpu_torch.tensor.einsum",
+                "paddle_tpu_torch.tensor.linalg",
+                "paddle_tpu_torch.tensor.logic",
                 "paddle_tpu_torch.tensor.manipulation",
+                "paddle_tpu_torch.tensor.math",
+                "paddle_tpu_torch.tensor.random",
+                "paddle_tpu_torch.tensor.search",
+                "paddle_tpu_torch.tensor.stat",
                 "paddle_tpu_torch.vision",
                 "paddle_tpu_torch.vision.models",
                 "paddle_tpu_torch.vision.models.resnet"]
@@ -174,6 +190,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                            block_size=4, prefill_chunk=8)
     rid = srv.submit([1, 2, 3], max_new_tokens=2)
     assert len(srv.run()[rid]) == 5
+
+
+def test_set_device_leaves_entry_points_on_cuda(monkeypatch):
+    """``paddle.device.set_device("cpu")`` records a name, as the JAX
+    package's does: ``device=None`` still means the card and raises
+    without one."""
+    from paddle_tpu_torch import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(device, "_current_device", None)
+    assert device.set_device("cpu") == "cpu" == device.get_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle_tpu_torch.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle_tpu_torch.zeros([2])
+    assert paddle_tpu_torch.zeros([2], device="cpu").device.type == "cpu"
 
 
 def test_ernie_entry_points_default_to_cuda_and_raise_without_it(
