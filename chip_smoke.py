@@ -26,6 +26,8 @@ the GPU.
                                         # final line)
     python3 chip_smoke.py --only tensor  # the build and phase 34 (no
                                         # final line)
+    python3 chip_smoke.py --only ocr    # the build and phase 35 (no
+                                        # final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -433,8 +435,8 @@ launched), against ``merge_lora``'s model served plain: tokens equal or
 every first difference a near tie (phase 31's rule); row 12 at the
 trained factors against its plain twin; (c) ``offload_opt_state=True``:
 2 layers, 3 steps, parameters and moments bit for bit the resident
-engine's; then a full finetune at the deepest depth whose moments fit
-``MemAvailable`` (read with ``ulimit -l`` first; pinning that fails
+engine's; then a full finetune at 8 layers, or the deepest depth below
+whose moments fit ``MemAvailable`` (read with ``ulimit -l`` first; pinning that fails
 raises), 3 graphed steps: ms a step, the pinned copy rates each way, the
 PCIe bound, peak memory; (d) ``PT_MT_ADAMW=1`` at phase 7's depth (more
 than 2^31 elements in one launch): parameters bit for bit the per-tensor
@@ -468,6 +470,27 @@ CPU equal; (d) ``FLAGS_check_nan_inf`` on an eager ResNet-50 step at
 B = 32 (off and on, a planted Inf raising, the graphed engine refusing),
 C3 at B = 1 on 3 x 32 x 32 against the CPU, C2 (a bf16 state dict saved
 from the card loads bf16 bit for bit) and AMP O1's product hooks.
+
+Phase 35, after phase 34, drives BASELINE config 5, the OCR pair,
+through the recurrent layers, CTC and the rest of ``nn``
+(``paddle_tpu_torch/nn/{layer/rnn,functional/loss,functional/common}``,
+``vision/models/ocr.py``): (a) CRNN + CTC training at
+``tools/model_benchmark.py``'s recipe (B = 64 x 1 x 32 x 96, Adam, the
+model computing its own loss: the LSTM's step loop and the CTC loop
+inside the engine's graph) and (b) DBNet at B = 16 x 3 x 640 x 640, each
+8 graphed steps and its eager twin bit for bit under deterministic cuDNN
+(losses, parameters, both moments, BatchNorm statistics), the loss
+falling, every statistic moving, row 10 once a trainable parameter a
+step (``ocr_launches_per_step`` in the kernels line), device ms by class
+(products and convolutions by the ATen op that launched the kernel);
+(c) both against the port on the CPU (TF32 off: loss, gradients,
+statistics, eval outputs; one Adam step from the trained state, row 10
+against its plain version at the models' shapes; a freshly seeded CRNN's
+per-step argmax and greedy decodes equal, not all blank); (d) LSTM / GRU /
+SimpleRNN, ``ctc_loss`` (timed beside ``F.ctc_loss``, a yardstick off the
+path) and ``interpolate`` in every mode against the CPU; (e) an eval
+forward of each vision family at its native size against the CPU.
+Phase 32 (c)'s full offloaded finetune runs at 8 layers to pay for it.
 
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
@@ -5506,8 +5529,9 @@ def _device_busy(torch, step, steps: int, classify=_kernel_class):
     torch.profiler: busy is the union of the trace's CUDA kernel and copy
     intervals, and the classes (``classify`` of a kernel's name; by
     default the port's kernels, matrix products, elementwise and reduction
-    kernels and the rest) split the device time; (None, wall, {}, {}) when
-    the trace holds no device time."""
+    kernels and the rest; or ``classify.split(device events, all
+    events)``, which returns the classes itself) split the device time;
+    (None, wall, {}, {}) when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5527,10 +5551,14 @@ def _device_busy(torch, step, steps: int, classify=_kernel_class):
         busy += b - max(a, end)
         end = b
     classes, names = {}, {}
+    split = getattr(classify, "split", None)
+    if split is not None:
+        classes = split(device, prof.events())
     for e in device:
         t = e.time_range.elapsed_us() * 1e-6
-        c = classify(e.name)
-        classes[c] = classes.get(c, 0.0) + t
+        if split is None:
+            c = classify(e.name)
+            classes[c] = classes.get(c, 0.0) + t
         names[e.name] = names.get(e.name, 0.0) + t
     if busy <= 0:
         return None, wall, {}, {}
@@ -7026,6 +7054,10 @@ FT_NEW = 24
 # (c): 3 graphed steps (warm-up, capture, replay); (d) at phase 7's depth;
 # (e) phase 19's cell, S = 16384 on its layers; (f) at 2 layers
 OFF_STEPS, FLAT_LAYERS, OA_S, AMP_LAYERS = 3, 8, 16384, 2
+# (c)'s full offloaded finetune: at most this depth (all 32 layers pinned
+# 59.8 GiB in 32.4 s, 12 layers 27.3 GiB in 13.5 s; 8 pay for phase 35's
+# time)
+OFF_FULL_LAYERS = 8
 # host memory the offloaded cell leaves free beside its pinned moments
 OFF_HOST_MARGIN = 16 * 2 ** 30
 
@@ -7320,8 +7352,9 @@ def _snapshot_params(torch, named, host=False):
 def finetune_offload(torch, ops):
     """Phase 32 (c): ``offload_opt_state`` — at 2 layers, 3 steps against
     the resident engine, parameters and moments bit for bit; then the
-    full finetune (every parameter) at the deepest depth whose moments fit
-    in pinned host memory, 3 graphed steps."""
+    full finetune (every parameter) at ``OFF_FULL_LAYERS`` layers, or the
+    deepest depth below it whose moments fit in pinned host memory, 3
+    graphed steps."""
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama3_8b_config)
     from paddle_tpu_torch.optimizer import AdamW
@@ -7370,7 +7403,7 @@ def finetune_offload(torch, ops):
                  + 3 * full.hidden_size * full.intermediate_size
                  + 2 * full.hidden_size)
     fixed = 2 * full.vocab_size * full.hidden_size + full.hidden_size
-    depth = FT_LAYERS
+    depth = OFF_FULL_LAYERS
     while depth > 1 and 8 * (fixed + depth * per_layer) + OFF_HOST_MARGIN \
             > avail:
         depth -= 1
@@ -7779,17 +7812,20 @@ def _vision_snapshot(eng):
     return out
 
 
-def _vision_cell(torch, ops, eng, batch, label, flops, peak, images):
-    """VISION_STEPS steps of ``eng`` (no port kernel may launch: the path
-    has none), each read back; a snapshot of the state after them; then
-    the step's device time and its split by class. The loss must fall.
-    Returns (the cell, the snapshot)."""
-    losses, walls, _, peak_gib = _timed_steps(
-        torch, ops, eng, batch, VISION_STEPS, {}, label, exact=True)
+def _vision_cell(torch, ops, eng, batch, label, flops, peak, images,
+                 want=None, classify=_vision_class):
+    """VISION_STEPS steps of ``eng``, each read back, each launching the
+    port's kernels ``want`` says ({kernel: launches a step}) and no other
+    (phase 33's path launches none); a snapshot of the state after them;
+    then the step's device time and its split by ``classify``. The loss
+    must fall. Returns (the cell, the snapshot)."""
+    want = want or {}
+    losses, walls, launches, peak_gib = _timed_steps(
+        torch, ops, eng, batch, VISION_STEPS, want, label, exact=True)
     snap = _vision_snapshot(eng)
     step_s = _median(walls[2:])
     dev = _step_device(torch, eng, lambda: eng.train_batch(*batch), 2, 3, 3,
-                       _vision_class)
+                       classify)
     res = dict(graphs=eng._use_graphs(), losses=losses, step_walls_s=walls,
                ms_per_step=step_s * 1e3, images_per_s=images / step_s,
                flops_per_step=flops, peak_flops=peak,
@@ -7797,7 +7833,8 @@ def _vision_cell(torch, ops, eng, batch, label, flops, peak, images):
                compute_bound_ms=flops / peak * 1e3,
                peak_memory_gib=peak_gib,
                device_ms_per_step=dev.pop("device_ms"), **dev,
-               replays=dict(eng.replays), captures=eng.captures)
+               replays=dict(eng.replays), captures=eng.captures,
+               launches=launches, launches_per_step=want)
     res["busy_share"] = (None if res["device_ms_per_step"] is None
                          else res["device_ms_per_step"] / res["ms_per_step"])
     if res["graphs"]:
@@ -8761,6 +8798,612 @@ def tensor_api(torch, ops, eval_batch=None):
     return res
 
 
+# -------------------------------------------------------------- phase 35
+# BASELINE config 5, the OCR pair (PP-OCRv4 det + rec), through the
+# recurrent layers, CTC and the rest of nn: (a) CRNN + CTC training at
+# tools/model_benchmark.py:190-229's recipe (CRNN(10, in_channels=1),
+# hidden 96, B = 64 x 1 x 32 x 96, labels of 5 digits in 1..10, Adam(1e-3),
+# ParallelEngine(loss_fn=None, remat=False): the model computes its own
+# loss); (b) DBNet training at a detector's real input size, B = 16 x 3 x
+# 640 x 640 (the crop and per-card batch of PaddleOCR's DB training config
+# det_mv3_db.yml), db_loss over seeded shrink and threshold maps; (c) the
+# card against the port on the CPU (TF32 off); (d) the new functional ops
+# on the card against the CPU, ctc_loss timed beside torch's F.ctc_loss
+# (a yardstick: never on the path); (e) one eval forward of each vision
+# family at its native size
+OCR_B, OCR_H, OCR_W, OCR_LABEL = 64, 32, 96, 5
+DB_B, DB_SIZE = 16, 640
+OCR_CHECK_B, DB_CHECK_B, DB_CHECK_SIZE = 4, 2, 160
+# (d): the recurrent layers at CRNN's widths, 2 layers, bidirectional
+RNN_T, RNN_B, RNN_IN, RNN_H = 24, 64, 256, 96
+# (e): each family at its native input, B = 2
+ZOO = (("LeNet", 28, 1), ("alexnet", 224, 3), ("vgg11", 224, 3),
+       ("mobilenet_v1", 224, 3), ("mobilenet_v2", 224, 3),
+       ("mobilenet_v3_small", 224, 3), ("squeezenet1_1", 224, 3),
+       ("shufflenet_v2_x1_0", 224, 3), ("densenet121", 224, 3),
+       ("googlenet", 224, 3), ("inception_v3", 299, 3))
+ZOO_B = 2
+# (c)-(e) limits: the largest |card - CPU| over the largest |CPU| value,
+# TF32 off. Phase 33 (e)'s 1e-3 (ResNet-50's logits read 2.9e-6) is the
+# starting point for every comparison; the greedy CTC decodes must be
+# equal
+OCR_CPU_TOL = 1e-3
+# (c)'s Adam step, row 10 against its plain version from the same state,
+# moments, gradients and [lr, 1/bc1, 1/bc2], each rounding every operation
+# to nearest in fp32 in one order. Limits of the largest |CPU| value, and
+# each parameter within 4 fp32 spacings of the step's largest operand or
+# result. Measured on an H100 80GB HBM3 at 700 W: moments bit for bit, the
+# parameters 7.9e-8 (CRNN) and 1.0e-7 (DBNet) of the largest apart, each
+# within 2 spacings (which operation rounds otherwise is not isolated);
+# 1.3e-5 of the largest change (so the change is not held to a share of
+# itself) and 64 spacings of a result near zero (nor to that)
+ADAM_CPU_TOL = dict(params=1e-6, param_ulps=4.0, moment1=1e-6,
+                    moment2=1e-6)
+# (c): CRNN's decodes are compared on a freshly seeded CRNN over this many
+# images (the trained one emits only blanks after VISION_STEPS steps)
+OCR_DECODE_B = 16
+
+
+# the ATen products whose kernels are the OCR step's "matmul" class
+PRODUCT_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+               "aten::mv", "aten::addmv")
+
+
+class _SiteSplit:
+    """The OCR step's kernel classes by launch site: a kernel that an ATen
+    product (``PRODUCT_OPS``: CRNN's LSTM products and its head; DBNet has
+    none) or a convolution (any op named ``*convolution*``, forward or
+    backward) launched is "matmul" or "conv" whatever its name; any other
+    by phase 33's name classes, the port's own kernels (row 10) first.
+    An eager trace lists under each op the kernels it launched; a graph
+    replay's kernels have no op, so each takes the split its name had in
+    the eager twin's trace (run that first, on the same instance)."""
+
+    def __init__(self):
+        self.seen = {}          # kernel name -> {class: seconds}, eager
+
+    @staticmethod
+    def _site(op):
+        while op is not None:
+            if op.name in PRODUCT_OPS:
+                return "matmul"
+            if "convolution" in op.name:
+                return "conv"
+            op = op.cpu_parent
+        return None
+
+    @staticmethod
+    def _by_name(name):
+        for frag, own in OWN_KERNELS.items():
+            if frag in name:
+                return own
+        cls = _vision_class(name)
+        # a library product kernel that no product or convolution launched
+        return "other" if cls == "conv" else cls
+
+    def split(self, device, events):
+        from torch.autograd import DeviceType
+
+        # the kernels each op of this trace launched, by launch site
+        here = {}
+        for e in events:
+            if e.device_type != DeviceType.CPU or not e.kernels:
+                continue
+            site = self._site(e)
+            for k in e.kernels:
+                c = site or self._by_name(k.name)
+                d = here.setdefault(k.name, {})
+                d[c] = d.get(c, 0.0) + k.duration
+        for name, d in here.items():
+            seen = self.seen.setdefault(name, {})
+            for c, t in d.items():
+                seen[c] = seen.get(c, 0.0) + t
+        classes = {}
+        for e in device:
+            t = e.time_range.elapsed_us() * 1e-6
+            shares = here.get(e.name) or self.seen.get(e.name) or {
+                self._by_name(e.name): 1.0}
+            total = sum(shares.values())
+            for c, s in shares.items():
+                classes[c] = classes.get(c, 0.0) + t * s / total
+        return classes
+
+
+def _rnn_flops(layers, directions, T, B, inputs, H, gates):
+    """2 x the multiply-adds of a recurrent layer's products over T steps:
+    each step x W_ih^T and h W_hh^T, gates x H columns."""
+    return sum(2 * directions * T * B * gates * H * (i + H) for i in inputs)
+
+
+def _ocr_model(torch, kind, seed, device="cuda"):
+    """A seeded CRNN (config 5's rec) or DBNet, wrapped to compute its own
+    loss (``.net`` the model)."""
+    from paddle_tpu_torch.nn import Layer
+    from paddle_tpu_torch.vision import models as vm
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    class WithLoss(Layer):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x, *targets):
+            out = self.net(x)
+            if kind == "crnn":
+                return vm.crnn_ctc_loss(out, *targets)
+            return vm.db_loss(out["maps"], *targets)
+
+    net = vm.CRNN(10, in_channels=1, generator=g, device=device) \
+        if kind == "crnn" else vm.DBNet(generator=g, device=device)
+    return WithLoss(net)
+
+
+def _ocr_make(torch, kind, seed):
+    """:func:`_ocr_model` on the card with its Adam(1e-3) and its
+    ParallelEngine(loss_fn=None, remat=False), the recipe's."""
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import ParallelEngine
+
+    model = _ocr_model(torch, kind, seed)
+    opt = Adam(learning_rate=1e-3, parameters=model.parameters())
+    return model, ParallelEngine(model, optimizer=opt, loss_fn=None,
+                                 remat=False)
+
+
+def _ocr_batch(torch, kind, seed, B, size=None, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "crnn":
+        return (torch.rand(B, 1, OCR_H, OCR_W, generator=g, device=device),
+                torch.randint(1, 11, (B, OCR_LABEL), generator=g,
+                              device=device, dtype=torch.int32),
+                torch.full((B,), OCR_LABEL, dtype=torch.int32,
+                           device=device))
+    S = size
+
+    def draw(lo=0.0, hi=1.0):
+        return torch.rand(B, S, S, generator=g, device=device) * (hi - lo) \
+            + lo
+
+    return (torch.rand(B, 3, S, S, generator=g, device=device),
+            (draw() > 0.7).float(), (draw() > 0.1).float(),
+            draw(0.3, 0.7), (draw() > 0.5).float())
+
+
+def _ocr_cell(torch, ops, kind, batch, label, graphs, flops, images,
+              split):
+    """Phase 33's cell (:func:`_vision_cell`) on a fresh seeded engine,
+    graphed or its eager twin, its device time split by launch site
+    (``split``, a :class:`_SiteSplit`): row 10 launched once a trainable
+    parameter each step (the model's own count, which the engine's and
+    the optimizer's must equal) and no other kernel of §6; every BatchNorm
+    statistic must move. Returns (the cell, the snapshot, the engine)."""
+    model, eng = _ocr_make(torch, kind, 35)
+    eng.graphs = graphs
+    n_train = sum(1 for p in model.parameters()
+                  if getattr(p, "trainable", True))
+    check(n_train == len(eng.trained) == len(eng.optimizer._accumulators),
+          f"{label}: the model has {n_train} trainable parameters, the "
+          f"engine trains {len(eng.trained)}, Adam keeps "
+          f"{len(eng.optimizer._accumulators)} moments")
+    before = {n: b.detach().clone() for n, b in model.named_buffers()}
+    res, snap = _vision_cell(torch, ops, eng, batch, label, flops,
+                             TF32_FLOPS, images, {"fused_adamw": n_train},
+                             split)
+    moved = sum(not torch.equal(snap[n], before[n]) for n in before)
+    res.update(trainable_tensors=n_train, bn_buffers=len(before),
+               bn_buffers_moved=moved)
+    check(moved == len(before), f"{label}: {len(before) - moved} BatchNorm "
+                                f"buffers did not move")
+    return res, snap, eng
+
+
+def _ocr_twins(torch, ops, kind, batch, label, flops, images):
+    """The eager twin, then the graphed cell (VISION_STEPS steps each; the
+    replays' classes take the eager trace's launch sites), bit for bit:
+    losses, parameters, both Adam moments and the BatchNorm statistics.
+    Returns (the record, the graphed engine)."""
+    split = _SiteSplit()
+    eager, snap_e, _ = _ocr_cell(torch, ops, kind, batch,
+                                 f"{label} (eager)", False, flops, images,
+                                 split)
+    res, snap, eng = _ocr_cell(torch, ops, kind, batch,
+                               f"{label} (graphs)", True, flops, images,
+                               split)
+    diffs = [k for k in snap if not torch.equal(snap[k], snap_e[k])]
+    bitwise = dict(losses_equal=res["losses"] == eager["losses"],
+                   tensors=len(snap), tensors_differing=len(diffs),
+                   first_differing=diffs[:3])
+    log(f"{label} graphs against eager: " + json.dumps(bitwise))
+    check(bitwise["losses_equal"] and not diffs,
+          f"{label}: graphed and eager steps differ: {bitwise}")
+    check(res["launches"] == eager["launches"],
+          f"{label}: launches {res['launches']} != eager "
+          f"{eager['launches']}")
+    return dict(graphs=res, eager=eager, bitwise=bitwise,
+                ms_per_step_graphs_over_eager=res["ms_per_step"]
+                / eager["ms_per_step"]), eng
+
+
+def _err(torch, card, host) -> float:
+    """The largest |card - host| over the largest |host| value."""
+    c = card.detach().float().cpu()
+    h = host.detach().float()
+    return ((c - h).abs().max() / h.abs().max().clamp_min(1e-30)).item()
+
+
+def _greedy_ctc(logits):
+    """examples/ocr_recognition.py:57-67's decode: each step's argmax, runs
+    collapsed, blanks (0) dropped."""
+    out = []
+    for row in logits.argmax(-1).tolist():
+        seq, prev = [], 0
+        for t in row:
+            if t != 0 and t != prev:
+                seq.append(t)
+            prev = t
+        out.append(seq)
+    return out
+
+
+def _adam_against_cpu(torch, eng, grads):
+    """One Adam step at the recipe's hyperparameters (lr 1e-3, decay 0,
+    fp32 parameters, no master) over every trained tensor, from the
+    engine's parameters and both moments after its steps, at its step
+    count + 1, on the gradients ``grads`` ({name: CPU tensor}): row 10's
+    wrapper on the card against its plain version on the CPU, both given
+    the CPU's [lr, 1/bc1, 1/bc2] (the card's fp32 powers may round
+    otherwise; whether they do is reported). Returns the largest |card -
+    CPU| over the largest |CPU| of the parameters and of each moment, the
+    largest elementwise difference of the parameters in fp32 spacings of
+    the largest of the parameter before the step, the change and the
+    result (``param_ulps``), and, unchecked, the largest difference of the
+    step's change over its largest."""
+    from paddle_tpu_torch.ops.fused_adamw import (adamw_scalars,
+                                                  fused_adamw_update)
+
+    opt = eng.optimizer
+    b1, b2, eps = opt._beta1, opt._beta2, opt._epsilon
+    step = eng._step_count + 1
+    scalars = {dev: adamw_scalars(1e-3, step, torch.tensor(
+        [b1, b2], dtype=torch.float32, device=dev)) for dev in ("cuda", "cpu")}
+    errs = dict(params=0.0, param_ulps=0.0, moment1=0.0, moment2=0.0)
+    update = 0.0
+    for n, p in eng.trained:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            q = p.detach().to(dev, copy=True)
+            m, v = (opt._accumulators[n][k].to(dev, copy=True)
+                    for k in ("moment1", "moment2"))
+            g = grads.get(n)
+            g = torch.zeros_like(q) if g is None else g.to(dev)
+            fused_adamw_update(q, g, m, v, scalars=scalars["cpu"].to(dev),
+                               b1=b1, b2=b2, eps=eps, decay=0.0)
+            out[dev] = (q, m, v)
+        p0 = p.detach().cpu()
+        (qc, mc, vc), (qh, mh, vh) = out["cuda"], out["cpu"]
+        errs["params"] = max(errs["params"], _err(torch, qc, qh))
+        # elementwise, in fp32 spacings of the largest of the parameter
+        # before the step, the change and the result (near a zero crossing
+        # the result is far smaller than the others)
+        big = torch.maximum(torch.maximum(p0.abs(), (qh - p0).abs()),
+                            qh.abs())
+        spacing = torch.nextafter(big, torch.tensor(math.inf)) - big
+        errs["param_ulps"] = max(errs["param_ulps"], (
+            (qc.cpu() - qh).abs() / spacing).max().item())
+        update = max(update, _err(torch, qc.cpu() - p0, qh - p0))
+        errs["moment1"] = max(errs["moment1"], _err(torch, mc, mh))
+        errs["moment2"] = max(errs["moment2"], _err(torch, vc, vh))
+    return dict(step=step, tensors=len(eng.trained), err_over_max=errs,
+                limits=ADAM_CPU_TOL, update_err_over_max=update,
+                scalars_card_equal_cpu=torch.equal(
+                    scalars["cuda"].cpu(), scalars["cpu"]))
+
+
+def _ocr_against_cpu(torch, kind, eng, batch):
+    """(c): one train-mode forward, loss and backward of the engine's
+    model on the card (TF32 off) and of the port on the CPU holding its
+    state: the loss, every gradient and the BatchNorm statistics the
+    forward leaves; one Adam step from the engine's state and moments on
+    both (:func:`_adam_against_cpu`); the eval outputs. CRNN: the greedy
+    decodes and each step's argmax of a freshly seeded CRNN (the trained
+    one decodes every image to blanks), which must be equal and not all
+    blank."""
+    card_model = eng.model
+    host_model = _ocr_model(torch, kind, 0, device="cpu")
+    card_state = {k: v.detach().cpu() for k, v in
+                  card_model.state_dict().items()}
+    host_model.set_state_dict(card_state)
+    res = dict(kind=kind)
+    losses, grads, bufs = {}, {}, {}
+    for dev, m in (("cuda", card_model), ("cpu", host_model)):
+        m.train()
+        m.clear_gradients()
+        b = [t.to(dev) for t in batch]
+        loss = m(*b)
+        loss.backward()
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad for n, p in m.named_parameters()}
+        bufs[dev] = dict(m.named_buffers())
+    res["loss_card"], res["loss_cpu"] = losses["cuda"], losses["cpu"]
+    res["loss_rel_gap"] = abs(losses["cuda"] - losses["cpu"]) / abs(
+        losses["cpu"])
+    res["grad_err_over_max"] = max(_err(torch, grads["cuda"][n], g)
+                                   for n, g in grads["cpu"].items())
+    res["bn_err_over_max"] = max(_err(torch, bufs["cuda"][n], b)
+                                 for n, b in bufs["cpu"].items())
+    res["adam"] = _adam_against_cpu(torch, eng, grads["cpu"])
+    card_model.clear_gradients()
+    outs = {}
+    for dev, m in (("cuda", card_model), ("cpu", host_model)):
+        m.eval()
+        with torch.no_grad():
+            o = m.net(batch[0].to(dev))
+        outs[dev] = o if kind == "crnn" else o["maps"]
+        m.train()
+    res["eval_err_over_max"] = _err(torch, outs["cuda"], outs["cpu"])
+    if kind == "crnn":
+        res["decode"] = _decodes_against_cpu(torch)
+    res["tolerance"] = OCR_CPU_TOL
+    log(f"phase 35 (c) {kind} card against the CPU: " + json.dumps(res))
+    for k in ("loss_rel_gap", "grad_err_over_max", "bn_err_over_max",
+              "eval_err_over_max"):
+        check(res[k] <= OCR_CPU_TOL, f"phase 35 (c) {kind}: {k} {res[k]:.3g}"
+                                     f" over the limit {OCR_CPU_TOL}")
+    for k, err in res["adam"]["err_over_max"].items():
+        check(err <= ADAM_CPU_TOL[k], f"phase 35 (c) {kind}: Adam's step "
+                                      f"{k} {err:.3g} over the limit "
+                                      f"{ADAM_CPU_TOL[k]}")
+    return res
+
+
+def _decodes_against_cpu(torch):
+    """CRNN's eval logits, their per-step argmax and greedy decodes on the
+    card against the CPU, on a freshly seeded CRNN and OCR_DECODE_B
+    images: every argmax equal, every decode equal, not all blank."""
+    card = _ocr_model(torch, "crnn", 352).net
+    host = _ocr_model(torch, "crnn", 0, device="cpu").net
+    host.set_state_dict({k: v.detach().cpu()
+                         for k, v in card.state_dict().items()})
+    x = _ocr_batch(torch, "crnn", 353, OCR_DECODE_B, device="cpu")[0]
+    card.eval()
+    host.eval()
+    with torch.no_grad():
+        oc, oh = card(x.cuda()).cpu(), host(x)
+    card_dec, host_dec = _greedy_ctc(oc), _greedy_ctc(oh)
+    top2 = oh.topk(2, -1).values
+    res = dict(images=OCR_DECODE_B, err_over_max=_err(torch, oc, oh),
+               step_argmax_equal_share=(oc.argmax(-1) == oh.argmax(-1))
+               .float().mean().item(),
+               non_blank_step_share=(oh.argmax(-1) != 0).float().mean()
+               .item(),
+               min_top2_margin_over_max=((top2[..., 0] - top2[..., 1]).min()
+                                         / oh.abs().max()).item(),
+               decodes_equal=card_dec == host_dec, decodes=card_dec[:4])
+    check(res["non_blank_step_share"] > 0, "phase 35 (c) crnn: the seeded "
+                                           "CRNN decodes only blanks: the "
+                                           "decode check would be vacuous")
+    check(res["step_argmax_equal_share"] == 1.0 and res["decodes_equal"],
+          f"phase 35 (c) crnn: the card's argmax or greedy decodes differ "
+          f"from the CPU's: {res}")
+    check(res["err_over_max"] <= OCR_CPU_TOL,
+          f"phase 35 (c) crnn: the fresh CRNN's logits are "
+          f"{res['err_over_max']:.3g} off the CPU's")
+    return res
+
+
+def _ops_against_cpu(torch):
+    """(d): the recurrent layers (2 layers, bidirectional, T = 24, B = 64
+    at CRNN's widths), ctc_loss and its gradient, and interpolate in every
+    mode up and down, on the card against the port on the CPU; ctc_loss
+    timed against torch's F.ctc_loss on the same inputs."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator().manual_seed(351)
+    res = {}
+    x = torch.randn(RNN_B, RNN_T, RNN_IN, generator=g)
+    for name in ("LSTM", "GRU", "SimpleRNN"):
+        host = getattr(pnn, name)(RNN_IN, RNN_H, num_layers=2,
+                                  direction="bidirect", device="cpu")
+        card = getattr(pnn, name)(RNN_IN, RNN_H, num_layers=2,
+                                  direction="bidirect", device="cuda")
+        card.set_state_dict(host.state_dict())
+        outs = {}
+        for dev, layer in (("cuda", card), ("cpu", host)):
+            xd = x.to(dev).clone().requires_grad_()
+            out, st = layer(xd)
+            out.square().sum().backward()
+            st = st if isinstance(st, tuple) else (st,)
+            outs[dev] = [out, *st, xd.grad]
+        keys = ("out", "h", "c", "x_grad") if name == "LSTM" else \
+            ("out", "h", "x_grad")
+        res[name] = {k: _err(torch, c, h) for k, c, h in
+                     zip(keys, outs["cuda"], outs["cpu"])}
+    # ctc: CRNN's step shapes (T = 23, B = 64, 11 classes, 5 labels)
+    T, B, C = OCR_W // 4 - 1, OCR_B, 11
+    logits = torch.randn(T, B, C, generator=g)
+    labels = torch.randint(1, C, (B, OCR_LABEL), generator=g)
+    in_len = torch.full((B,), T, dtype=torch.long)
+    in_len[::4] = T - 3                      # rows that stop early
+    lab_len = torch.randint(1, OCR_LABEL + 1, (B,), generator=g)
+    ctc = {}
+    for dev in ("cpu", "cuda"):
+        lg = logits.to(dev).clone().requires_grad_()
+        loss = F.ctc_loss(lg, labels.to(dev), in_len.to(dev),
+                          lab_len.to(dev), reduction="none")
+        loss.sum().backward()
+        ctc[dev] = (loss, lg.grad)
+    res["ctc_loss"] = dict(loss=_err(torch, ctc["cuda"][0], ctc["cpu"][0]),
+                           grad=_err(torch, ctc["cuda"][1], ctc["cpu"][1]))
+    args = (labels.cuda(), in_len.cuda(), lab_len.cuda())
+    with torch.no_grad():
+        lib = torch.nn.functional.ctc_loss(
+            torch.log_softmax(logits.cuda(), -1), *args, reduction="none",
+            zero_infinity=False)
+    res["ctc_loss"]["against_torch_ctc"] = _err(torch, lib, ctc["cpu"][0])
+    # each timed body on a leaf of its own (a leaf whose autograd node an
+    # earlier graph on the default stream keeps alive breaks a capture)
+    lg = logits.cuda().clone().requires_grad_()
+    lg_lib = logits.cuda().clone().requires_grad_()
+
+    def ours():
+        loss = F.ctc_loss(lg, *args, reduction="none")
+        torch.autograd.grad(loss.sum(), lg)
+
+    def library():
+        loss = torch.nn.functional.ctc_loss(torch.log_softmax(lg_lib, -1),
+                                            *args, reduction="none")
+        torch.autograd.grad(loss.sum(), lg_lib)
+
+    res["ctc_loss"].update(
+        ms_graphed=time_ms(ours, 20), ms_eager=event_ms(torch, ours, 10),
+        torch_ctc_loss_ms_eager=event_ms(torch, library, 10),
+        shape=dict(T=T, B=B, C=C, L=OCR_LABEL),
+        timed="forward + backward of the summed per-row losses")
+    # interpolate: every mode, up and down, 3-, 4- and 5-D
+    cases = [("nearest", 4, (13, 21)), ("nearest", 4, (5, 7)),
+             ("bilinear", 4, (40, 48)), ("bilinear", 4, (9, 11)),
+             ("bicubic", 4, (40, 48)), ("bicubic", 4, (9, 11)),
+             ("bilinear_align", 4, (40, 11)), ("linear", 3, (50,)),
+             ("linear", 3, (11,)), ("trilinear", 5, (12, 9, 20)),
+             ("area", 4, (7, 7)), ("nearest", 5, (3, 9, 13))]
+    shapes = {3: (4, 8, 24), 4: (4, 8, 24, 24), 5: (2, 4, 6, 12, 10)}
+    res["interpolate"] = {}
+    for mode, nd, size in cases:
+        src = torch.randn(shapes[nd], generator=g)
+        kw = dict(size=list(size), mode=mode.replace("_align", ""),
+                  align_corners=mode.endswith("_align"),
+                  data_format={3: "NCW", 4: "NCHW", 5: "NCDHW"}[nd])
+        res["interpolate"][f"{mode} {nd}-D {list(size)}"] = _err(
+            torch, F.interpolate(src.cuda(), **kw), F.interpolate(src, **kw))
+    worst = max([v for r in (res["LSTM"], res["GRU"], res["SimpleRNN"],
+                             res["interpolate"]) for v in r.values()]
+                + [res["ctc_loss"]["loss"], res["ctc_loss"]["grad"],
+                   res["ctc_loss"]["against_torch_ctc"]])
+    res["worst_err_over_max"] = worst
+    res["tolerance"] = OCR_CPU_TOL
+    log("phase 35 (d) functional ops, card against the CPU: "
+        + json.dumps(res))
+    check(worst <= OCR_CPU_TOL, f"phase 35 (d): an op is {worst:.3g} of "
+                                f"its largest value off the CPU (limit "
+                                f"{OCR_CPU_TOL}): {res}")
+    return res
+
+
+def _zoo_against_cpu(torch):
+    """(e): one eval forward of each family at its native size, B = 2, on
+    the card (TF32 off) against the port on the CPU on the same weights and
+    images."""
+    from paddle_tpu_torch.vision import models as vm
+
+    res = {}
+    g = torch.Generator().manual_seed(353)
+    for name, size, ch in ZOO:
+        t0 = time.perf_counter()
+        card = getattr(vm, name)(num_classes=1000, device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(354))
+        host = getattr(vm, name)(num_classes=1000, device="cpu")
+        host.set_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        card.eval()
+        host.eval()
+        x = torch.randn(ZOO_B, ch, size, size, generator=g)
+        with torch.no_grad():
+            oc = card(x.cuda())
+            oh = host(x)
+        if isinstance(oc, tuple):               # GoogLeNet's aux heads
+            oc, oh = torch.cat(oc, -1), torch.cat(oh, -1)
+        res[name] = dict(size=size, err_over_max=_err(torch, oc, oh),
+                         params=sum(p.numel() for p in card.parameters()),
+                         s=time.perf_counter() - t0)
+        del card, host
+    worst = max(r["err_over_max"] for r in res.values())
+    log("phase 35 (e) zoo eval, card against the CPU: " + json.dumps(res))
+    check(worst <= OCR_CPU_TOL, f"phase 35 (e): a family's logits are "
+                                f"{worst:.3g} of the largest off the CPU "
+                                f"(limit {OCR_CPU_TOL})")
+    return dict(families=res, worst_err_over_max=worst,
+                tolerance=OCR_CPU_TOL)
+
+
+def ocr(torch, ops):
+    """Phase 35: BASELINE config 5 (the OCR pair) through the recurrent
+    layers, CTC and the rest of ``nn`` (see the module docstring): (a)
+    CRNN + CTC and (b) DBNet training, graphed and their eager twins bit
+    for bit under deterministic cuDNN, row 10 once a trainable parameter a
+    step; (c) both against the port on the CPU; (d) the recurrent layers,
+    ctc_loss and interpolate against the CPU, ctc_loss timed beside
+    F.ctc_loss; (e) the vision zoo's eval forwards against the CPU."""
+    from paddle_tpu_torch.vision import models as vm
+
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    flags = dict(cudnn_allow_tf32=cudnn.allow_tf32,
+                 matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                 cudnn_deterministic=True, cudnn_benchmark=False)
+    log("phase 35 settings: " + json.dumps(flags) + f", TF32 peak "
+        f"{TF32_FLOPS:.3g} (dense), {card_line()}")
+    res = dict(settings=flags)
+    try:
+        # (a) CRNN + CTC at config 5's recipe
+        batch = _ocr_batch(torch, "crnn", 350, OCR_B)
+        probe = vm.CRNN(10, in_channels=1, device="cuda")
+        T = OCR_W // 4 - 1
+        flops = 3 * (_conv_fc_flops(torch, probe, batch[0][:1]) * OCR_B
+                     + _rnn_flops(2, 2, T, OCR_B, (256, 192), 96, 4))
+        res["model_crnn"] = dict(
+            params=sum(p.numel() for p in probe.parameters()),
+            parameter_tensors=len(probe.parameters()),
+            buffers=len(probe.buffers()), steps_T=T,
+            flops_per_step=flops,
+            flops_formula="3 x (2 x MACs of the convs, the head and the "
+                          "LSTM's products) a training batch")
+        del probe
+        res["a"], crnn_eng = _ocr_twins(
+            torch, ops, "crnn", batch, f"phase 35 (a) crnn+ctc B={OCR_B}",
+            flops, OCR_B)
+        _free(torch)
+        # (b) DBNet at 640 x 640, B = 16
+        dbatch = _ocr_batch(torch, "dbnet", 360, DB_B, DB_SIZE)
+        probe = vm.DBNet(device="cuda")
+        flops = 3 * _conv_fc_flops(torch, probe, dbatch[0][:1]) * DB_B
+        res["model_dbnet"] = dict(
+            params=sum(p.numel() for p in probe.parameters()),
+            parameter_tensors=len(probe.parameters()),
+            buffers=len(probe.buffers()), flops_per_step=flops)
+        del probe
+        res["b"], db_eng = _ocr_twins(
+            torch, ops, "dbnet", dbatch, f"phase 35 (b) dbnet B={DB_B} "
+            f"{DB_SIZE}x{DB_SIZE}", flops, DB_B)
+        del dbatch
+        _free(torch)
+        # (c) against the port on the CPU, TF32 off
+        cudnn.allow_tf32 = False
+        res["c"] = dict(
+            crnn=_ocr_against_cpu(torch, "crnn", crnn_eng,
+                                  [t[:OCR_CHECK_B] for t in batch]),
+            dbnet=_ocr_against_cpu(torch, "dbnet", db_eng, _ocr_batch(
+                torch, "dbnet", 361, DB_CHECK_B, DB_CHECK_SIZE)))
+        del crnn_eng, db_eng
+        _free(torch)
+        # (d) the functional ops; (e) the zoo
+        res["d"] = _ops_against_cpu(torch)
+        res["e"] = _zoo_against_cpu(torch)
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = saved
+    _free(torch)
+    res["launches"] = dict(
+        crnn_per_step=res["a"]["graphs"]["launches_per_step"],
+        dbnet_per_step=res["b"]["graphs"]["launches_per_step"])
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 35: {res['phase_s']:.1f} s, {card_line()}")
+    return res
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -8905,6 +9548,13 @@ def main() -> int:
         # seeded ResNet-50's eval logits), no final line
         log("phase 34 (tensor): " + json.dumps(tensor_api(torch, ops)))
         log(f"partial run (phase 34 only): {time.perf_counter() - t_start:.1f}"
+            f" s")
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--only", "ocr"]:
+        # a diagnostic run: the build and phase 35 alone, no final line
+        log("phase 35 (ocr): " + json.dumps(ocr(torch, ops)))
+        log(f"partial run (phase 35 only): {time.perf_counter() - t_start:.1f}"
             f" s")
         log(card)
         return 0
@@ -9111,6 +9761,10 @@ def main() -> int:
     # suite (rows 1 and 8); phase 33 (c)'s eval metrics; the repairs
     tensor_res = tensor_api(torch, ops, eval_keep.pop("eval_batch"))
     mark("phase 34 (tensor)")
+    # phase 35: BASELINE config 5 (CRNN + CTC, DBNet) through the recurrent
+    # layers and the rest of nn; the vision zoo
+    ocr_res = ocr(torch, ops)
+    mark("phase 35 (ocr)")
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -9246,6 +9900,17 @@ def main() -> int:
             k["flat_launches_per_step"] = 1
             k["offloaded_device_ms_per_step"] = fin_res["c"]["full"][
                 "device_ms_by_class"].get("fused_adamw")
+            # phase 35's main path: one launch a trainable parameter a
+            # step of CRNN's and DBNet's graphed cells
+            k["ocr_launches_per_step"] = ocr_res["launches"]
+            k["ocr_launches"] = {
+                cell: ocr_res[cell]["graphs"]["launches"]["fused_adamw"]
+                for cell in ("a", "b")}
+            # (c): one step at CRNN's and DBNet's shapes against the
+            # plain version on the CPU
+            k["ocr_step_err_over_max"] = {
+                m: ocr_res["c"][m]["adam"]["err_over_max"]
+                for m in ("crnn", "dbnet")}
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
@@ -9296,6 +9961,7 @@ def main() -> int:
     log("phase 32 (finetune): " + json.dumps(fin_res))
     log("phase 33 (vision): " + json.dumps(vis_res))
     log("phase 34 (tensor): " + json.dumps(tensor_res))
+    log("phase 35 (ocr): " + json.dumps(ocr_res))
     prev = 0.0
     for name, at in marks:
         log(f"phase time {name}: {at - prev:.1f} s")

@@ -26,9 +26,10 @@ program calls them (``import paddle_tpu_torch as paddle``):
 ``paddle.no_grad``, ``paddle.grad``, ``paddle.set_flags`` /
 ``get_flags``, the dtypes, every ``paddle.tensor`` function
 (``paddle.matmul``, ``paddle.topk`` …), ``paddle.linalg``,
-``paddle.device``, ``paddle.nn`` (``paddle.nn.Conv2D`` …),
-``paddle.optimizer``, ``paddle.amp`` and
-``paddle.vision.models.resnet50``; the tensor is ``torch.Tensor``:
+``paddle.device``, ``paddle.nn`` (``paddle.nn.Conv2D``, ``paddle.nn.LSTM``,
+``paddle.nn.functional.ctc_loss`` …, ``paddle.nn.utils``),
+``paddle.optimizer``, ``paddle.amp`` and ``paddle.vision.models`` (the
+zoo and the OCR pair); the tensor is ``torch.Tensor``:
 
     import paddle_tpu_torch as paddle
 

@@ -1,5 +1,6 @@
 """Gradient clipping — port of ``paddle_tpu/nn/clip.py`` (``ClipGradByValue``,
-``ClipGradByNorm``, ``ClipGradByGlobalNorm``) with the math of the JAX
+``ClipGradByNorm``, ``ClipGradByGlobalNorm``, ``clip_grad_norm_``,
+``clip_grad_value_``) with the math of the JAX
 package's traced form ``_pure_grad_clip`` (``optimizer/optimizer.py``).
 
 A clip object is called on ``[(param, grad), ...]`` and scales the grads
@@ -70,3 +71,37 @@ class ClipGradByGlobalNorm(ClipGradBase):
         for g in grads:
             _scale_(g, scale)
 
+
+
+@torch.no_grad()
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale the parameters' gradients in place by ``min(max_norm /
+    (total + 1e-6), 1)``, total their ``norm_type`` norm (the largest
+    |g| for inf, fp32 powers otherwise), as the JAX package does: no host
+    read. Returns the total (a 0-d device tensor)."""
+    if isinstance(parameters, torch.Tensor):
+        parameters = [parameters]
+    grads = [p.grad for p in parameters if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    if norm_type == float("inf"):
+        total = torch.stack([g.abs().max() for g in grads]).max()
+    else:
+        total = torch.stack([g.float().abs().pow(norm_type).sum()
+                             for g in grads]).sum() ** (1.0 / norm_type)
+    scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    for g in grads:
+        g.copy_(g * scale)
+    return total
+
+
+@torch.no_grad()
+def clip_grad_value_(parameters, clip_value):
+    """Clamp the parameters' gradients to [-clip_value, clip_value], in
+    place."""
+    if isinstance(parameters, torch.Tensor):
+        parameters = [parameters]
+    for p in parameters:
+        if p.grad is not None:
+            p.grad.clamp_(-clip_value, clip_value)

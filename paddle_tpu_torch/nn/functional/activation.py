@@ -4,8 +4,9 @@ functions the activation layers call (``relu``, ``relu6``, ``gelu``,
 ``hardsigmoid``, ``tanhshrink``, ``softsign``, ``log_sigmoid``, ``elu``,
 ``selu``, ``celu``, ``leaky_relu``, ``prelu``, ``rrelu``, ``hardtanh``,
 ``hardshrink``, ``softshrink``, ``thresholded_relu``, ``softplus``,
-``maxout``, ``softmax``, ``log_softmax``, ``glu``), each the JAX
-package's formula. ``rrelu`` in training draws its slopes from
+``maxout``, ``softmax``, ``log_softmax``, ``glu``) and
+``gumbel_softmax``, each the JAX package's formula. ``rrelu`` in
+training and ``gumbel_softmax`` draw from
 ``generator`` (a ``torch.Generator`` on x's device; None takes the
 default one): the draws never equal ``jax.random``'s."""
 from __future__ import annotations
@@ -144,6 +145,23 @@ def softmax(x, axis=-1, dtype=None, name=None):
 def log_softmax(x, axis=-1, dtype=None, name=None):
     d = convert_dtype(dtype)
     return torch.log_softmax(x if d is None else x.to(d), dim=axis)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None,
+                   generator=None):
+    """``softmax((x + g) / temperature)`` with Gumbel(0, 1) noise g drawn
+    from ``generator`` (None: the device's default one; never
+    ``jax.random``'s draw); ``hard`` returns the one-hot of its argmax
+    with the soft gradient (straight through)."""
+    u = torch.rand(x.shape, generator=generator, device=x.device,
+                   dtype=x.dtype)
+    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(x.dtype).tiny)))
+    y = torch.softmax((x + g) / temperature, dim=axis)
+    if hard:
+        idx = y.argmax(axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter(axis, idx, 1.0)
+        y = y_hard - y.detach() + y
+    return y
 
 
 def glu(x, axis=-1, name=None):

@@ -1,6 +1,7 @@
 """Normalization — port of ``paddle_tpu/nn/functional/norm.py``:
 ``layer_norm``, ``batch_norm``, ``instance_norm``, ``group_norm``,
-``normalize`` and ``local_response_norm``.
+``normalize``, ``local_response_norm``, ``rms_norm`` and
+``spectral_norm``.
 
 The JAX package's ``F.layer_norm`` is a jnp composition (XLA fuses it); its
 Pallas LayerNorm kernel (``ops.fused_norm._ln_pallas``) is reached only
@@ -163,3 +164,29 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
         sq.movedim(0, -1), (half, size - 1 - half)).movedim(-1, 0)
     acc = sum(padded[i:i + c] for i in range(size)).movedim(0, ch)
     return x / torch.pow(k + alpha * acc / size, beta).to(x.dtype)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """``x / sqrt(mean(x², last axis) + eps) · weight`` in fp32, rounded
+    to x's dtype: the JAX package's jnp composition (its Pallas RMSNorm,
+    row 7, is reached through ``ops.fused_norm``, as the port's is)."""
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    return out.to(x.dtype)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """``weight / σ`` with σ from ``power_iters`` power iterations that
+    start at u = ones (the JAX package's functional form; no state)."""
+    wm = weight.movedim(dim, 0).reshape(weight.shape[dim], -1)
+    u = torch.ones(wm.shape[0], dtype=torch.float32, device=weight.device)
+    v = None
+    for _ in range(power_iters):
+        v = wm.T @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = wm @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    sigma = u @ wm @ v if v is not None else torch.linalg.matrix_norm(wm, 2)
+    return weight / sigma

@@ -1,7 +1,7 @@
 """Norm layers — port of ``paddle_tpu/nn/layer/norm.py``: ``LayerNorm``,
 ``_BatchNormBase`` with ``BatchNorm`` / ``BatchNorm1D`` / ``2D`` / ``3D``,
-``GroupNorm``, ``InstanceNorm1D`` / ``2D`` / ``3D`` and
-``LocalResponseNorm``. ``SyncBatchNorm`` raises NotImplementedError: it
+``GroupNorm``, ``InstanceNorm1D`` / ``2D`` / ``3D``,
+``LocalResponseNorm``, ``RMSNorm`` and ``SpectralNorm``. ``SyncBatchNorm`` raises NotImplementedError: it
 needs a mesh, which the port's engine does not take yet.
 
 Each layer builds its weight (ones) and bias (zeros) through
@@ -190,3 +190,37 @@ class LocalResponseNorm(Layer):
 
     def forward(self, x):
         return F.local_response_norm(x, *self.args)
+
+
+class RMSNorm(Layer):
+    """``F.rms_norm`` over the last axis with a weight (ones)."""
+
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None, place=None, dtype=None):
+        super().__init__(dtype=dtype, device=device, place=place)
+        ns = normalized_shape if isinstance(normalized_shape, (list, tuple)) \
+            else [normalized_shape]
+        self._normalized_shape = [int(n) for n in ns]
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=Constant(1.0))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self._epsilon)
+
+
+class SpectralNorm(Layer):
+    """``F.spectral_norm`` of the weight it is called on (no
+    parameters)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32"):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._epsilon = epsilon
+
+    def forward(self, weight):
+        return F.spectral_norm(weight, self._dim, self._power_iters,
+                               self._epsilon)

@@ -12,8 +12,8 @@ does, so every layer of a freshly built encoder starts from the same
 weights.
 
 Not ported (they raise NotImplementedError): the decoding caches
-(``Cache``/``StaticCache``, ``gen_cache``), ``TransformerDecoderLayer`` and
-``TransformerDecoder``.
+(``Cache``/``StaticCache``, ``gen_cache``), ``TransformerDecoderLayer``,
+``TransformerDecoder`` and ``Transformer``.
 """
 from __future__ import annotations
 
@@ -170,3 +170,12 @@ class TransformerDecoderLayer(nn.Module):
 class TransformerDecoder(nn.Module):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("TransformerDecoder is not ported yet")
+
+
+class Transformer(nn.Module):
+    """Encoder and decoder: not ported yet (it builds a
+    ``TransformerDecoder``; ROADMAP item 11)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("Transformer is not ported yet: it needs "
+                                  "TransformerDecoder (ROADMAP item 11)")

@@ -12,22 +12,17 @@ is not ported (NotImplementedError: there is no weight download).
 """
 from __future__ import annotations
 
-from ... import resolve_place
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Layer, Linear,
                    MaxPool2D, ReLU, Sequential)
 from ...tensor.manipulation import flatten
+from ._common import layer_kw as _kw
+from ._common import no_pretrained
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152",
            "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
            "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
            "wide_resnet50_2", "wide_resnet101_2"]
-
-
-def _kw(device=None, place=None, dtype=None, generator=None):
-    """The layers' keywords: the device resolved once (None: the card)."""
-    return dict(device=resolve_place(device, place), dtype=dtype,
-                generator=generator)
 
 
 def _bn(norm_layer, planes, kw):
@@ -156,9 +151,7 @@ class ResNet(Layer):
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported (no "
-                                  "download)")
+    no_pretrained(pretrained)
     return ResNet(block, depth, **kwargs)
 
 

@@ -20,7 +20,6 @@ the JAX package on the CPU:
   training step at B = 1 on 3 x 32 x 32, against JAX.
 """
 import jax
-import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
@@ -43,8 +42,8 @@ from paddle_tpu_torch.framework.containers import SelectedRows, TensorArray
 from paddle_tpu_torch.framework.monitor import stat_registry as tstats
 from paddle_tpu_torch.models.convert import layer_params_from_jax
 from paddle_tpu_torch.parallel import ParallelEngine
-from torch_tensor_parity import (ANY, ANY2, B3, BF16, POS, assert_same, jx,
-                                 tx)
+from torch_tensor_parity import (ANY, ANY2, B3, BF16, POS, assert_same,
+                                 jax_draws_stubbed, jx, tx)  # noqa: F401
 
 
 def _plant_inf(t):
@@ -337,17 +336,6 @@ def test_c3_batch_norm_over_one_value_a_channel_matches_jax():
     mean = tb._mean
     tb(xt)
     assert tb._mean is mean
-
-
-@pytest.fixture
-def jax_draws_stubbed(monkeypatch):
-    """The JAX package's initializers draw zeros: its weights are replaced
-    by the port's before use, and each real draw compiles per shape."""
-    def zeros(key, shape=(), dtype=jnp.float32, *a, **kw):
-        return jnp.zeros(shape, dtype)
-
-    for n in ("normal", "uniform", "truncated_normal"):
-        monkeypatch.setattr(jax.random, n, zeros)
 
 
 def test_c3_resnet18_step_at_batch_1_on_32x32_matches_jax(jax_draws_stubbed):

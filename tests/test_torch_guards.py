@@ -103,6 +103,9 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.nn.layer.conv",
                 "paddle_tpu_torch.nn.layer.loss",
                 "paddle_tpu_torch.nn.layer.pooling",
+                "paddle_tpu_torch.nn.layer.extras",
+                "paddle_tpu_torch.nn.layer.rnn",
+                "paddle_tpu_torch.nn.utils",
                 "paddle_tpu_torch.tensor",
                 "paddle_tpu_torch.tensor._util",
                 "paddle_tpu_torch.tensor.array",
@@ -118,7 +121,20 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.tensor.stat",
                 "paddle_tpu_torch.vision",
                 "paddle_tpu_torch.vision.models",
-                "paddle_tpu_torch.vision.models.resnet"]
+                "paddle_tpu_torch.vision.models.resnet",
+                "paddle_tpu_torch.vision.models._common",
+                "paddle_tpu_torch.vision.models.alexnet",
+                "paddle_tpu_torch.vision.models.densenet",
+                "paddle_tpu_torch.vision.models.googlenet",
+                "paddle_tpu_torch.vision.models.inceptionv3",
+                "paddle_tpu_torch.vision.models.lenet",
+                "paddle_tpu_torch.vision.models.mobilenetv1",
+                "paddle_tpu_torch.vision.models.mobilenetv2",
+                "paddle_tpu_torch.vision.models.mobilenetv3",
+                "paddle_tpu_torch.vision.models.ocr",
+                "paddle_tpu_torch.vision.models.shufflenetv2",
+                "paddle_tpu_torch.vision.models.squeezenet",
+                "paddle_tpu_torch.vision.models.vgg"]
 # torch sees no card in the child, whatever the machine has
 NO_CARD_ENV = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
@@ -164,6 +180,30 @@ def test_every_port_module_is_in_the_import_guard():
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             f"for m in {PORT_MODULES!r}: __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "print('LOADED', bad)\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=NO_CARD_ENV)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
+def test_nn_utils_and_every_vision_model_import_without_jax():
+    """``nn.utils`` and every name ``vision.models`` exports (the zoo and
+    the OCR pair) import, and build on the CPU, with neither jax nor the
+    JAX package loaded; without ``device`` a model needs the card."""
+    code = ("import sys\n"
+            "import paddle_tpu_torch.nn.utils as u\n"
+            "import paddle_tpu_torch.vision.models as vm\n"
+            "names = [getattr(vm, n) for n in vm.__all__]\n"
+            "vm.LeNet(device='cpu'); vm.CRNN(10, in_channels=1, "
+            "device='cpu'); vm.DBNet(device='cpu')\n"
+            "assert u.weight_norm and len(names) > 60\n"
+            "try:\n    vm.CRNN(10)\nexcept RuntimeError as e:\n"
+            "    assert 'no CUDA device' in str(e)\n"
+            "else:\n    raise AssertionError('CRNN built without a card')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print('LOADED', bad)\n")
