@@ -28,6 +28,8 @@ the GPU.
                                         # final line)
     python3 chip_smoke.py --only ocr    # the build and phase 35 (no
                                         # final line)
+    python3 chip_smoke.py --only hapi   # the build and phase 36 (no
+                                        # final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -200,12 +202,15 @@ Phase 24 runs beside each serving cell and phase 25 after phase 16, on
 the same model:
 
 24. Graphs on and off: right after each serving cell (phases 4, 10, 11,
-   14, 16, 17), its traffic once more with the executor's graphs off
-   (every pass eager, its device time from the pass captured here);
-   every request's tokens and every kernel's launch count must equal the
-   graphed run's; prints both runs' per-pass host wall, enqueue and
-   device time, rates and peak memory; the graphed per-layer bf16 tick's
-   host wall may be at most ``GRAPH_WALL_RATIO`` x its device time.
+   14, 16, 17), the first ``EAGER_REQUESTS`` of its requests once more
+   with the executor's graphs off (every pass eager, its device time from
+   the pass captured here); each of those requests' tokens must equal the
+   graphed run's, and each eager pass launch what a graphed pass of the
+   same kind and size launched (each run's totals held to the cell's
+   launch rule); prints both runs' per-pass host wall, enqueue and
+   device time (by kernel class for the graphed run), rates and peak
+   memory; the graphed per-layer bf16 tick's host wall may be at most
+   ``GRAPH_WALL_RATIO`` x its device time.
 25. ``tick_window=4``: phase 4's and phase 14's cells, 4 ticks a replay,
    every pass's launches checked per tick; both cells' tokens must equal
    their W = 1 runs' on the same requests; then 4 sampled requests at
@@ -248,8 +253,9 @@ Phase 26 runs after phase 25, on the same model:
    greedy cell's 12 requests identical (near ties at the first
    differing token are printed as a diagnostic); a planted fault (one
    draft accepted too many) must make a request differ. (d) The n-gram cell
-   with graphs off gives the same tokens and launches; the sampled cell
-   twice from one seed the same tokens.
+   with graphs off gives the same tokens and launches (its first
+   ``EAGER_REQUESTS`` requests, as phase 24); the sampled cell twice from
+   one seed the same tokens.
 
 Phase 28 runs after phase 3, phase 29 after phase 26:
 
@@ -491,6 +497,30 @@ SimpleRNN, ``ctc_loss`` (timed beside ``F.ctc_loss``, a yardstick off the
 path) and ``interpolate`` in every mode against the CPU; (e) an eval
 forward of each vision family at its native size against the CPU.
 Phase 32 (c)'s full offloaded finetune runs at 8 layers to pay for it.
+
+Phase 36, after phase 35, drives the data pipeline, the metrics,
+``paddle.Model`` and the rest of ``vision`` (``paddle_tpu_torch/{io,
+metric,hapi,reader}``, ``vision/{ops,datasets,transforms}``): (a)
+BASELINE config 1 as ``examples/resnet_cifar10.py`` runs it (ResNet-50,
+the synthetic Cifar10 under its transforms, Momentum with
+CosineAnnealingDecay(0.1) and weight decay 5e-4, ``fit(num_workers=2)``
+for one epoch with its eval set), its datasets behind a probe that
+raises unless a worker process without CUDA reads each sample: images a
+second, ms a step and waiting on the loader, the device's busy share
+(a CUDA-only trace), the eval accuracy, the loader alone at 0 and 2
+workers; ``fit``'s losses and parameters equal to a hand loop of
+``train_batch`` over the same batches bit for bit (deterministic cuDNN);
+two workers' eval batches equal to one process's bit for bit; (b)
+``Model(LeNet())`` on MNIST with Adam: row 10 once a trainable parameter
+a step (``hapi_launches_per_step`` in the kernels line), ``evaluate``,
+``predict``, ``save`` / ``load`` (eval logits bit for bit), ``summary``'s
+totals, one ``train_batch`` against the CPU (loss, gradients, phase 35's
+Adam step); (c) every ``vision.ops`` op on the card against the port on
+the CPU at detection shapes, forward and gradient, each limit shown to
+reject a planted fault, each op's device ms; (d) the native token reader
+built with g++ from ``csrc/ptio.cpp``: tokens a second at B = 2 x 2048
+over a seeded 64 M-token file, every row a window of the file with its
+next-token labels. The loader's forkserver starts after the build.
 
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
@@ -1298,6 +1328,7 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
 
     # earlier servers (executor and server refer to each other) and their
     # graphs' pools would count in this cell's peak memory
+    t_cell = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     cfg = model.cfg
@@ -1338,9 +1369,13 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     srv.run()
     if prime is not None:
         prime(srv)
+    t_setup = time.perf_counter() - t_cell
     prompts, news = traffic or phase4_traffic(cfg)
-    adapters = adapters or [None] * len(prompts)
-    requests_kw = requests_kw or [{}] * len(prompts)
+    if not graphs:
+        # an eager twin serves the traffic's first EAGER_REQUESTS requests
+        prompts, news = prompts[:EAGER_REQUESTS], news[:EAGER_REQUESTS]
+    adapters = (adapters or [None] * len(prompts))[:len(prompts)]
+    requests_kw = (requests_kw or [{}] * len(prompts))[:len(prompts)]
     t_before = srv.throughput_stats()
     ad_before = srv.adapter_stats()
     sm_before = srv.spec_metrics()
@@ -1406,6 +1441,7 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
     res = dict(requests=len(rids), wall_s=wall, graphs=graphs,
                tick_window=srv.tick_window, graph_replays=replays,
                graph_captures=ex.captures,
+               pass_launches=_pass_signatures(per_pass),
                prefill_tokens=st["prefill_tokens"],
                prefill_chunks=st["prefill_chunks"],
                prefill_tok_s=st["prefill_tokens"] / st["prefill_s"],
@@ -1446,12 +1482,38 @@ def serve(torch, ops, model, label="serve llama3-8b paged", adapters=None,
         res["adapters"] = {k: ad[k] - ad_before.get(k, 0) for k in (
             "adapter_hits", "adapter_uploads", "adapter_evictions")}
     log(f"{label}: " + json.dumps(res))
+    t_bd = time.perf_counter()
     res["breakdown"] = (breakdown or pass_breakdown)(torch, srv)
+    # the cell's own seconds: the server, its warm-up and captures; the
+    # served run; the breakdown (printed, not stored)
+    log(f"{label}: cell seconds " + json.dumps(dict(
+        set_up=t_setup, run=wall, breakdown=time.perf_counter() - t_bd,
+        whole=time.perf_counter() - t_cell)))
     res["tokens"] = [out[rid] for rid in rids]
     res["prompts"] = prompts
     for kind, _ in EXECUTOR_PASSES:
         delattr(ex, kind)       # the counting wrappers hold the executor
     return res, max(prompts, key=len), srv
+
+
+def _pass_signatures(per_pass):
+    """Each distinct (executor pass, units, its launches) of a run, as
+    sorted strings: an eager twin's passes must each be one of the graphed
+    run's (a replay counts what its capture launched)."""
+    return sorted({f"{kind} x{units}: " + json.dumps(
+        {k: n for k, n in sorted(got.items()) if n})
+        for kind, units, got in per_pass})
+
+
+def _twin_launches(label, graphed, eager):
+    """Phase 24's launch check of one cell: every pass the eager twin
+    made (its traffic's first EAGER_REQUESTS requests) launched what a
+    pass of the same kind and size launched in the graphed run; each run's
+    totals are held to the cell's launch rule inside :func:`serve`."""
+    missing = sorted(set(eager["pass_launches"])
+                     - set(graphed["pass_launches"]))
+    check(not missing, f"{label}: eager passes launch otherwise than the "
+                       f"graphed run's: {missing}")
 
 
 def _replayed_ms(torch, fn, passes: int = 5, repeats: int = 5) -> float:
@@ -1532,15 +1594,18 @@ def pass_breakdown(torch, srv):
         wall = statistics.median(walls) * 1e3
         device = (_replayed_ms(torch, fn) if ex.graphs
                   else time_ms(fn, iters=3))
-        # device time of 3 passes by kernel class (torch.profiler)
-        busy, _, classes, _ = _device_busy(torch, fn, 3)
         res[name] = dict(wall_ms=wall,
                          host_enqueue_ms=statistics.median(enq) * 1e3,
                          device_ms=device,
-                         device_idle_share=max(0.0, 1.0 - device / wall),
-                         device_ms_by_class={
-                             c: t / 3 * 1e3 for c, t in sorted(
-                                 classes.items(), key=lambda kv: -kv[1])})
+                         device_idle_share=max(0.0, 1.0 - device / wall))
+        if ex.graphs:
+            # device time of 3 passes by kernel class (torch.profiler); an
+            # eager twin runs the same kernels, and tracing its host
+            # operators costs seconds a pass kind
+            busy, _, classes, _ = _device_busy(torch, fn, 3)
+            res[name]["device_ms_by_class"] = {
+                c: t / 3 * 1e3 for c, t in sorted(
+                    classes.items(), key=lambda kv: -kv[1])}
     res["graphs"] = ex.graphs
     res["ticks_a_window"] = srv.tick_window
     for p in pages or ():
@@ -2394,6 +2459,9 @@ def serve_int8_kv(torch, ops, model, megakernel, graphs=True):
 # reads 8 tokens back)
 GRAPH_WALL_RATIO = 1.25
 WINDOW = 4
+# an eager twin serves its cell's first EAGER_REQUESTS requests (of 12:
+# prompts of 1-8 chunks, one wave of the 8 slots), the graphed run all
+EAGER_REQUESTS = 6
 
 
 def _pass_line(res):
@@ -2410,18 +2478,18 @@ def _pass_line(res):
 
 
 def eager_twin(name, graphed, eager):
-    """Phase 24 for one serving cell: its traffic served once more with
-    the executor's graphs off, every pass eager, on the same requests.
-    Every request's tokens and every kernel's launches must equal the
-    graphed run's. Returns both runs' per-pass readings (host wall,
-    enqueue, device time, idle share) and rates."""
+    """Phase 24 for one serving cell: the first EAGER_REQUESTS requests of
+    its traffic served once more with the executor's graphs off, every
+    pass eager. Every one of those requests' tokens must equal the graphed
+    run's, and every eager pass must launch what a graphed pass of the
+    same kind and size launched. Returns both runs' per-pass readings
+    (host wall, enqueue, device time, idle share) and rates."""
     same = sum(a == b for a, b in zip(graphed["tokens"], eager["tokens"]))
-    check(same == len(graphed["tokens"]),
-          f"phase 24: {name}: {same} of {len(graphed['tokens'])} requests "
-          f"give the same tokens with graphs on and off")
-    check(graphed["launches"] == eager["launches"],
-          f"phase 24: {name}: launches with graphs on {graphed['launches']} "
-          f"!= off {eager['launches']}")
+    n = len(eager["tokens"])
+    check(n == min(EAGER_REQUESTS, len(graphed["tokens"])) and same == n,
+          f"phase 24: {name}: {same} of {n} requests give the same tokens "
+          f"with graphs on and off")
+    _twin_launches(f"phase 24: {name}", graphed, eager)
     out = {"requests_identical": same, "graphs": _pass_line(graphed),
            "eager": _pass_line(eager)}
     log(f"phase 24, {name}, graphs on / off: " + json.dumps(out))
@@ -3104,18 +3172,20 @@ def serve_spec(torch, ops, model, phase4_tokens):
                             "again)", rs, sampled=True)
     det = {"graphs_on_off_identical": sum(
         a == b for a, b in zip(cells["ngram"]["tokens"], eager["tokens"])),
-           "graphs_on_off_launches_equal":
-               cells["ngram"]["launches"] == eager["launches"],
+           "eager_requests": len(eager["tokens"]),
            "sampled_twice_identical": sum(
                a == b for a, b in zip(cells["ngram sampled"]["tokens"],
                                       again["tokens"])),
            "requests": len(rs[0])}
     log("phase 26 (d), determinism: " + json.dumps(det))
-    for key in ("graphs_on_off_identical", "sampled_twice_identical"):
-        check(det[key] == len(rs[0]), f"phase 26 (d): {key} {det[key]} of "
-                                      f"{len(rs[0])} requests")
-    check(det["graphs_on_off_launches_equal"],
-          "phase 26 (d): launches differ with graphs on and off")
+    check(det["eager_requests"] == min(EAGER_REQUESTS, len(rs[0]))
+          and det["graphs_on_off_identical"] == det["eager_requests"],
+          f"phase 26 (d): graphs on and off: {det['graphs_on_off_identical']}"
+          f" of {det['eager_requests']} requests identical")
+    check(det["sampled_twice_identical"] == len(rs[0]),
+          f"phase 26 (d): sampled twice: {det['sampled_twice_identical']} of "
+          f"{len(rs[0])} requests identical")
+    _twin_launches("phase 26 (d)", cells["ngram"], eager)
     # the planted fault of (c): one draft accepted too many
     orig = spec_mod.speculative_accept
     spec_mod.speculative_accept = _faulty_accept(orig)
@@ -3300,7 +3370,7 @@ def swap_copy_rates(torch, srv, nblocks=64, repeats=5):
 
 
 def serve_sched(torch, ops, model, label, kv_quant="none", megakernel=False,
-                ref_tokens=None):
+                ref_tokens=None, keep=None):
     """One cell of phase 29: ``GenerationServer(policy="priority",
     num_blocks=)`` with a pool of SCHED_POOL_SHARE of the blocks phase 4's
     requests need, per layer or behind ``kernels="megakernel"``, over bf16
@@ -3315,7 +3385,8 @@ def serve_sched(torch, ops, model, label, kv_quant="none", megakernel=False,
     warm-up, and every decode pass (and every prefill chunk) must launch
     the same kernels as every other. Prints the preemptions and resumes,
     the host pool's peak bytes, the swap copies' ms a block and GB/s, and
-    ``sched_metrics()`` / ``load_metrics()``."""
+    ``sched_metrics()`` / ``load_metrics()``. ``keep``: a dict that
+    receives the 16 requests' yardstick tokens under ``label``."""
     from paddle_tpu_torch.inference.scheduler import PRIORITY_HIGH
     from paddle_tpu_torch.inference.serving import GenerationServer
 
@@ -3338,6 +3409,8 @@ def serve_sched(torch, ops, model, label, kv_quant="none", megakernel=False,
         rids = [ref.submit(p, max_new_tokens=n) for p, n in todo]
         out = ref.run()
         want = list(ref_tokens or []) + [out[r] for r in rids]
+        if keep is not None:
+            keep[label] = want
         del ref, out
         gc.collect()
         torch.cuda.empty_cache()
@@ -3434,10 +3507,12 @@ def serve_sched(torch, ops, model, label, kv_quant="none", megakernel=False,
     return res
 
 
-def scheduling(torch, ops, model, ref=None):
+def scheduling(torch, ops, model, ref=None, yardsticks=None):
     """Phase 29: the preempting cells, bf16 and int8 KV, per layer and
     behind the whole-tick kernel. ``ref``: {cell: phase 4's tokens of the
-    same pool and kernels} (None: served here)."""
+    same pool and kernels} (None: served here); ``yardsticks``: a dict
+    that receives each cell's 16 yardstick tokens (phase 30's
+    references)."""
     ref = ref or {}
     out = {}
     for name, kvq, mega in (("bf16", "none", False),
@@ -3445,7 +3520,8 @@ def scheduling(torch, ops, model, ref=None):
                             ("int8-kv", "int8", False),
                             ("int8-kv megakernel", "int8", True)):
         out[name] = serve_sched(torch, ops, model, name, kv_quant=kvq,
-                                megakernel=mega, ref_tokens=ref.get(name))
+                                megakernel=mega, ref_tokens=ref.get(name),
+                                keep=yardsticks)
     return out
 
 
@@ -3977,45 +4053,58 @@ def recovery_generator(torch, model):
     return res
 
 
-def recovery_serving(torch, ops, model, here, ref=None):
+def recovery_serving(torch, ops, model, here, ref=None, over=None):
     """Phase 30's serving half, (a)-(d), with the bf16 model on the card;
-    ``ref``: {cell: phase 4's tokens} (None: served here). Returns the
-    readings and the launches of the whole half."""
+    ``ref``: {cell: phase 4's tokens} (None: served here); ``over``:
+    {cell: phase 29's yardstick tokens of the overload traffic} for
+    "bf16", "int8-kv" and "bf16 megakernel" (None: served here, all 16 at
+    once on a pool that never runs dry). Returns the readings and the
+    launches of the whole half."""
     cfg = model.cfg
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     ref = dict(ref or {})
-    out = {}
+    out, secs = {}, {}
+
+    def cell(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out[name] = fn(*a, **kw)
+        secs[name] = time.perf_counter() - t
+
     try:
         traffic = sched_traffic(cfg)
-        over = {"bf16": _recovery_ref(torch, model, traffic),
-                "int8-kv": _recovery_ref(torch, model, traffic,
-                                         kv_quant="int8"),
-                "bf16 megakernel": _recovery_ref(torch, model, traffic,
-                                                 kernels="megakernel")}
+        t = time.perf_counter()
+        if over is None:
+            over = {"bf16": _recovery_ref(torch, model, traffic),
+                    "int8-kv": _recovery_ref(torch, model, traffic,
+                                             kv_quant="int8"),
+                    "bf16 megakernel": _recovery_ref(torch, model, traffic,
+                                                     kernels="megakernel")}
+        secs["references"] = time.perf_counter() - t
         ops.set_kernel_mode("auto")
         for name in ("bf16", "bf16 megakernel"):
             ref.setdefault(name, over[name][:len(PHASE4_LENS)])
-        out["telemetry"] = recovery_telemetry(torch, model, ref["bf16"],
-                                              here)
-        out["telemetry megakernel"] = recovery_telemetry(
-            torch, model, ref["bf16 megakernel"], here, megakernel=True)
+        cell("telemetry", recovery_telemetry, torch, model, ref["bf16"],
+             here)
+        cell("telemetry megakernel", recovery_telemetry, torch, model,
+             ref["bf16 megakernel"], here, megakernel=True)
         ops.set_kernel_mode("auto")
-        out["generator"] = recovery_generator(torch, model)
-        out["faults bf16"] = recovery_faults(torch, model, traffic,
-                                             over["bf16"])
-        out["faults int8-kv"] = recovery_faults(torch, model, traffic,
-                                                over["int8-kv"], "int8")
-        out["drafter"] = recovery_drafter(torch, model, ref["bf16"])
-        out["fatal"] = recovery_fatal(torch, model)
-        out["snapshot"] = recovery_snapshot(torch, model, traffic,
-                                            over["bf16"])
-        out["snapshot megakernel"] = recovery_snapshot(
-            torch, model, traffic, over["bf16 megakernel"], megakernel=True)
+        cell("generator", recovery_generator, torch, model)
+        cell("faults bf16", recovery_faults, torch, model, traffic,
+             over["bf16"])
+        cell("faults int8-kv", recovery_faults, torch, model, traffic,
+             over["int8-kv"], "int8")
+        cell("drafter", recovery_drafter, torch, model, ref["bf16"])
+        cell("fatal", recovery_fatal, torch, model)
+        cell("snapshot", recovery_snapshot, torch, model, traffic,
+             over["bf16"])
+        cell("snapshot megakernel", recovery_snapshot, torch, model,
+             traffic, over["bf16 megakernel"], megakernel=True)
         ops.set_kernel_mode("auto")
-        out["migrate"] = recovery_migrate(torch, model, ref["bf16"])
-        out["warm bf16"] = recovery_warm(torch, model)
-        out["warm int8-kv"] = recovery_warm(torch, model, "int8")
+        cell("migrate", recovery_migrate, torch, model, ref["bf16"])
+        cell("warm bf16", recovery_warm, torch, model)
+        cell("warm int8-kv", recovery_warm, torch, model, "int8")
+        log("phase 30 (a)-(d) cell seconds: " + json.dumps(secs))
     finally:
         ops.set_kernel_mode("auto")
     launches = ops.launch_counts()
@@ -4561,6 +4650,7 @@ def serve_dense(torch, ops, model, label="serve llama3-8b dense",
     res = dict(requests=len(rids), wall_s=wall, graphs=graphs,
                tick_window=srv.tick_window, graph_replays=replays,
                graph_captures=ex.captures,
+               pass_launches=_pass_signatures(per_pass),
                prefill_tokens=st["prefill_tokens"], prefills=prefills,
                prefill_tok_s=st["prefill_tokens"] / st["prefill_s"],
                decode_trips=st["decode_trips"], decode_ticks=ticks,
@@ -5523,6 +5613,19 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def _busy_us(device_events) -> float:
+    """The union of the device events' intervals, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy
+
+
 def _device_busy(torch, step, steps: int, classify=_kernel_class):
     """(device-busy seconds, host wall seconds, {class: device seconds},
     {kernel name: device seconds}) of ``steps`` train steps under
@@ -5543,13 +5646,7 @@ def _device_busy(torch, step, steps: int, classify=_kernel_class):
             step()
         wall = time.perf_counter() - t0
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b <= end:
-            continue
-        busy += b - max(a, end)
-        end = b
+    busy = _busy_us(device)
     classes, names = {}, {}
     split = getattr(classify, "split", None)
     if split is not None:
@@ -9404,6 +9501,739 @@ def ocr(torch, ops):
     return res
 
 
+# --------------------------------------------------------------- phase 36
+# (a) BASELINE config 1 as examples/resnet_cifar10.py runs it: --model
+# resnet50 (BASELINE.md's model), --batch 64, one epoch of the synthetic
+# Cifar10 (2048 images: 32 steps, 32 eval batches), fit(num_workers=2)
+HAPI_MODEL, HAPI_B, HAPI_WORKERS = "resnet50", 64, 2
+CIFAR_MEAN, CIFAR_STD = [0.4914, 0.4822, 0.4465], [0.247, 0.243, 0.262]
+# (b) LeNet on MNIST with Adam (row 10 once a trainable parameter a
+# step), as tests/test_models_e2e.py drives the hapi API
+MNIST_B = 64
+MNIST_MEAN, MNIST_STD = [0.1307], [0.3081]
+# (c) detection shapes: an FPN level (stride 16 of an 800 x 1088 image)
+# with 512 RoIs at 7 x 7 (psroi_pool at 490 channels: R-FCN's 10 classes
+# x 49 bins), the CPU holding the first VOPS_CHECK_ROIS RoIs (each RoI's
+# output and its share of the gradient are its own); deformable
+# convolution at a ResNet stage-2 map, 3 x 3; one YOLOv3 head (13 x 13, 3
+# anchors, 80 classes) at B = 8 with 16 ground-truth slots
+VOPS_FEAT, VOPS_SCALE = (2, 256, 50, 68), 1 / 16
+VOPS_PS_C, VOPS_ROIS, VOPS_CHECK_ROIS = 490, 512, 64
+VOPS_DEFORM = (2, 64, 56, 56)
+YOLO_N, YOLO_HW, YOLO_CLASSES, YOLO_GT = 8, 13, 80, 16
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+# (c) limit of every floating op: the largest |card - CPU| over the
+# largest |CPU| value (fp32, TF32 off: gathers and the same products);
+# the host ops (NMS family, proposals, FPN routing, prior boxes) read the
+# card's tensors back and must give the CPU's results exactly. Each limit
+# is shown to reject a planted fault (the op on the CPU with one input or
+# setting off)
+VOPS_TOL = 1e-4
+# (d) the token reader: Llama-3-8B's B x S over a seeded file of int32
+# tokens (~64 M: 256 MB) in a temporary directory
+TOKEN_B, TOKEN_S, TOKEN_FILE_TOKENS, TOKEN_BATCHES = 2, 2048, 64 * 2 ** 20, 256
+TOKEN_VOCAB = 128256
+
+
+class _WorkerProbe:
+    """A map-style dataset around another, checking in every
+    ``__getitem__`` that it runs in a DataLoader worker process (not the
+    main process, not the loader's thread fallback) and that the worker
+    has no CUDA: a sample read anywhere else raises, and the loader ships
+    the error to the parent. Module-level, so that a ``forkserver``
+    worker unpickles it by reference."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        import torch
+        from paddle_tpu_torch.io import get_worker_info
+
+        if get_worker_info() is None:
+            raise RuntimeError("a sample was read outside a DataLoader "
+                               "worker process")
+        if torch.cuda.is_initialized() or torch.cuda._is_in_bad_fork():
+            raise RuntimeError("a DataLoader worker has CUDA up")
+        return self.dataset[idx]
+
+
+def _fit_clock(paddle):
+    """A callback timing ``fit``: each train step's host ms (batch begin
+    to end), the ms before it spent waiting on the loader (the previous
+    step's end, or the train's begin, to its begin), the train and eval
+    walls, the losses and the eval logs."""
+    class Clock(paddle.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.steps, self.waits, self.losses = [], [], []
+            self.eval_logs, self.t_end = {}, None
+            self.train_s = self.eval_s = None
+
+        def on_train_begin(self, logs=None):
+            self.t_train = self.t_end = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.t_begin = time.perf_counter()
+            self.waits.append((self.t_begin - self.t_end) * 1e3)
+
+        def on_train_batch_end(self, step, logs=None):
+            self.t_end = time.perf_counter()
+            self.steps.append((self.t_end - self.t_begin) * 1e3)
+            self.losses.append(logs["loss"])
+
+        def on_eval_begin(self, logs=None):
+            self.train_s = time.perf_counter() - self.t_train
+            self.t_eval = time.perf_counter()
+
+        def on_train_end(self, logs=None):
+            if self.train_s is None:                # no eval data
+                self.train_s = time.perf_counter() - self.t_train
+
+        def on_eval_end(self, logs=None):
+            self.eval_s = time.perf_counter() - self.t_eval
+            self.eval_logs = dict(logs or {})
+
+    return Clock()
+
+
+def _json_logs(logs):
+    """``fit`` / ``evaluate`` logs as plain floats (the metrics give numpy
+    scalars)."""
+    return {k: ([float(x) for x in v] if isinstance(v, (list, tuple))
+                else float(v)) for k, v in logs.items()}
+
+
+def _no_fallback(caught, label):
+    """The loader's fallback chain warned nothing: its batches came from
+    the worker processes."""
+    said = [str(w.message) for w in caught
+            if "falling back" in str(w.message)
+            or "retrying with fork" in str(w.message)]
+    check(not said, f"{label}: the DataLoader fell back: {said}")
+
+
+def _busy_share(torch, fn):
+    """(device-busy s, host wall s) of ``fn()``: busy is the union of the
+    kernel and copy intervals of a CUDA-only profiler trace (no CPU
+    events: a trace of every eager op of a ResNet-50 epoch takes longer
+    to read than the epoch, and costs the host time a step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _busy_us(e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    check(busy > 0, "phase 36: the profiler traced no device time")
+    return busy * 1e-6, wall
+
+
+def _loader_rate(torch, loader) -> float:
+    """Images a second of one pass over ``loader`` (host wall)."""
+    t0 = time.perf_counter()
+    n = sum(int(x.shape[0]) for x, _ in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def start_loader_server():
+    """Start the DataLoader workers' forkserver now (phase 36's loaders
+    take ``forkserver``: CUDA is up by then), preloading the port as the
+    loader does, so that the server's start, which imports torch and the
+    port, overlaps the phases before it; a pool then forks its workers
+    from it. It exits with this process."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+
+    from paddle_tpu_torch.io import worker_pool
+
+    mp.get_context("forkserver").set_forkserver_preload(
+        [worker_pool.__name__])
+    t0 = time.perf_counter()
+    forkserver.ensure_running()
+    log(f"loader forkserver started in {time.perf_counter() - t0:.1f} s")
+
+
+def hapi_cifar(torch, ops):
+    """(a): BASELINE config 1 through ``paddle.Model`` as
+    examples/resnet_cifar10.py writes it, its datasets behind
+    :class:`_WorkerProbe`."""
+    import warnings
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.vision import models, transforms
+    from paddle_tpu_torch.vision.datasets import Cifar10
+
+    T = transforms
+    tfm = T.Compose([T.RandomHorizontalFlip(), T.ToTensor(),
+                     T.Normalize(CIFAR_MEAN, CIFAR_STD)])
+    eval_tfm = T.Compose([T.ToTensor(), T.Normalize(CIFAR_MEAN, CIFAR_STD)])
+    train_ds = Cifar10(mode="train", transform=tfm)
+    eval_ds = Cifar10(mode="test", transform=eval_tfm)
+
+    def build():
+        net = getattr(models, HAPI_MODEL)(num_classes=10)   # on the card
+        model = paddle.Model(net)
+        sched = optimizer.lr.CosineAnnealingDecay(0.1, T_max=1)
+        opt = optimizer.Momentum(learning_rate=sched, momentum=0.9,
+                                 parameters=net.parameters(),
+                                 weight_decay=5e-4)
+        model.prepare(opt, nn.CrossEntropyLoss(), Accuracy())
+        return net, model, sched
+
+    torch.manual_seed(36)
+    net, model, _ = build()
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    fed = []                      # the batches fit gave train_batch
+    fit_train_batch = model.train_batch
+
+    def recording(inputs, labels=None, update=True):
+        fed.append((inputs, labels))
+        return fit_train_batch(inputs, labels, update)
+    model.train_batch = recording
+    clock = _fit_clock(paddle)
+    label = f"phase 36 (a) {HAPI_MODEL} B={HAPI_B}"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        # under a CUDA-only trace: the device's busy share of the run
+        busy, fit_s = _busy_share(torch, lambda: model.fit(
+            _WorkerProbe(train_ds), _WorkerProbe(eval_ds), epochs=1,
+            batch_size=HAPI_B, log_freq=10, num_workers=HAPI_WORKERS,
+            callbacks=[clock]))
+    _no_fallback(caught, label)
+    del model.train_batch
+    steps = len(clock.losses)
+    check(steps == len(train_ds) // HAPI_B == len(fed),
+          f"{label}: {steps} train steps")
+    check(all(math.isfinite(x) for x in clock.losses),
+          f"{label}: a loss is not finite: {clock.losses}")
+    # the hand loop: train_batch over the same batches from the same
+    # state, the scheduler stepped after each as fit's LRScheduler does
+    net2, model2, sched2 = build()
+    net2.set_state_dict(init)
+    hand = []
+    for inputs, labels in fed:
+        hand.append(model2.train_batch(inputs, labels)[0][0])
+        sched2.step()
+    torch.cuda.synchronize()
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(net.parameters(), net2.parameters()))
+    check(hand == clock.losses and same_params,
+          f"{label}: fit against a hand loop of train_batch: losses equal "
+          f"{hand == clock.losses}, parameters equal {same_params}")
+    del net2, model2, fed
+    # the loader alone, and two workers' batches against one process's
+    loader = paddle.io.DataLoader
+    rates = {w: _loader_rate(torch, loader(
+        train_ds, batch_size=HAPI_B, shuffle=True, num_workers=w))
+        for w in (0, HAPI_WORKERS)}
+    one = list(loader(eval_ds, batch_size=HAPI_B))
+    two = list(loader(_WorkerProbe(eval_ds), batch_size=HAPI_B,
+                      num_workers=HAPI_WORKERS))
+    same = len(one) == len(two) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(one, two))
+    check(same, f"{label}: two workers' eval batches differ from one "
+                f"process's")
+    steps_ms = sorted(clock.steps)
+    res = dict(
+        steps=steps, images=steps * HAPI_B, fit_s=fit_s,
+        train_s=clock.train_s, eval_s=clock.eval_s,
+        fit_images_per_s=steps * HAPI_B / clock.train_s,
+        # the first batch waits for the workers (the forkserver's first
+        # start imports torch and the port)
+        fit_images_per_s_after_first_batch=(steps - 1) * HAPI_B / (
+            clock.train_s - (clock.waits[0] + clock.steps[0]) / 1e3),
+        ms_per_step_median=steps_ms[steps // 2],
+        loader_wait_ms_per_step=sum(clock.waits[1:]) / max(steps - 1, 1),
+        loader_wait_first_ms=clock.waits[0],
+        device_busy_share=busy / fit_s,
+        eval=_json_logs(clock.eval_logs),
+        loss_first=clock.losses[0], loss_last=clock.losses[-1],
+        fit_equals_hand_loop=True, worker_batches_equal=True,
+        loader_images_per_s={str(w): r for w, r in rates.items()},
+        workers=HAPI_WORKERS, batch=HAPI_B, model=HAPI_MODEL)
+    log(f"{label}: " + json.dumps(res))
+    return res
+
+
+def hapi_mnist(torch, ops):
+    """(b): ``paddle.Model(LeNet())`` on MNIST with Adam (row 10 once a
+    trainable parameter a step), then evaluate, predict, save / load,
+    summary, and one train_batch on the card against the CPU."""
+    import types
+    import warnings
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    label = f"phase 36 (b) LeNet MNIST B={MNIST_B}"
+    tfm = T.Compose([T.ToTensor(), T.Normalize(MNIST_MEAN, MNIST_STD)])
+    train_ds, test_ds = (MNIST(mode=m, transform=tfm)
+                         for m in ("train", "test"))
+
+    def build(seed):
+        torch.manual_seed(seed)
+        net = LeNet()                                      # on the card
+        model = paddle.Model(net)
+        opt = optimizer.Adam(learning_rate=1e-3,
+                             parameters=net.parameters())
+        model.prepare(opt, nn.CrossEntropyLoss(), Accuracy(topk=(1, 2)))
+        return net, model, opt
+
+    net, model, opt = build(37)
+    trainable = sum(1 for p in net.parameters()
+                    if getattr(p, "trainable", True))
+    per_step = []
+
+    class Count(paddle.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            ops.reset_launch_counts()
+
+        def on_train_batch_end(self, step, logs=None):
+            per_step.append(ops.launch_counts())
+
+    clock = _fit_clock(paddle)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model.fit(_WorkerProbe(train_ds), epochs=1, batch_size=MNIST_B,
+                  verbose=0, num_workers=HAPI_WORKERS,
+                  callbacks=[Count(), clock])
+    _no_fallback(caught, label)
+    for i, got in enumerate(per_step):
+        others = {k: n for k, n in got.items() if n and k != "fused_adamw"}
+        check(got["fused_adamw"] == trainable and not others,
+              f"{label}: step {i} launched fused_adamw "
+              f"{got['fused_adamw']} times (want {trainable}), others "
+              f"{others}")
+    check(all(math.isfinite(x) for x in clock.losses),
+          f"{label}: a loss is not finite")
+    ev = model.evaluate(test_ds, batch_size=MNIST_B)
+    pred = model.predict(test_ds, batch_size=MNIST_B, stack_outputs=True)
+    check(len(pred) == 1 and pred[0].shape == (len(test_ds), 10)
+          and _finite(pred[0]), f"{label}: predict gave "
+                                  f"{[p.shape for p in pred]}")
+    # save / load: a fresh model's eval logits bit for bit
+    x = next(iter(paddle.io.DataLoader(test_ds, batch_size=MNIST_B)))[0]
+    net.eval()
+    with torch.no_grad():
+        want = net(x.to("cuda"))
+    with tempfile.TemporaryDirectory() as d:
+        model.save(os.path.join(d, "lenet"))
+        net2, model2, _ = build(38)
+        model2.load(os.path.join(d, "lenet"))
+    net2.eval()
+    with torch.no_grad():
+        got = net2(x.to("cuda"))
+    check(torch.equal(got, want), f"{label}: eval logits after save / "
+                                  f"load differ")
+    summ = model.summary()
+    numel = sum(p.numel() for p in net.parameters())
+    check(summ == {"total_params": numel, "trainable_params": numel},
+          f"{label}: summary {summ}, {numel} parameters")
+    # one train_batch from the trained state on the card against the CPU
+    # (TF32 off): the loss and every gradient, then phase 35's Adam step
+    # (row 10 against its plain version) on the CPU's gradients
+    cpu_net = LeNet(device="cpu")
+    cpu_net.set_state_dict({k: v.detach().cpu() for k, v in
+                            net.state_dict().items()})
+    xb, yb = next(iter(paddle.io.DataLoader(train_ds, batch_size=MNIST_B)))
+    card_loss = model.train_batch([xb], yb, update=False)[0][0]
+    cpu_net.train()
+    host_loss = nn.CrossEntropyLoss()(cpu_net(xb), yb)
+    host_loss.backward()
+    grad_err = max(_err(torch, p.grad, q.grad) for p, q in
+                   zip(net.parameters(), cpu_net.parameters()))
+    shim = types.SimpleNamespace(optimizer=opt, _step_count=opt._global_step,
+                                 trained=opt._parameter_list)
+    adam = _adam_against_cpu(torch, shim, {
+        n: q.grad.detach() for (n, _), q in zip(opt._parameter_list,
+                                                cpu_net.parameters())})
+    opt.clear_grad()
+    loss_gap = abs(card_loss - host_loss.item()) / abs(host_loss.item())
+    check(loss_gap <= OCR_CPU_TOL and grad_err <= OCR_CPU_TOL,
+          f"{label}: card against CPU: loss {loss_gap:.3g}, gradients "
+          f"{grad_err:.3g} (limit {OCR_CPU_TOL})")
+    for k, err in adam["err_over_max"].items():
+        check(err <= ADAM_CPU_TOL[k], f"{label}: Adam's step {k} {err:.3g} "
+                                      f"over the limit {ADAM_CPU_TOL[k]}")
+    steps = len(clock.losses)
+    res = dict(steps=steps, trainable_parameters=trainable,
+               launches_per_step=trainable,
+               launches=sum(s["fused_adamw"] for s in per_step),
+               fit_images_per_s=steps * MNIST_B / clock.train_s,
+               ms_per_step_median=sorted(clock.steps)[steps // 2],
+               loader_wait_ms_per_step=sum(clock.waits[1:]) / max(
+                   steps - 1, 1),
+               loss_first=clock.losses[0], loss_last=clock.losses[-1],
+               eval=_json_logs(ev), predict_shape=list(pred[0].shape),
+               save_load_bit_for_bit=True, summary=summ,
+               card_vs_cpu=dict(loss_rel_gap=loss_gap,
+                                grad_err_over_max=grad_err,
+                                tolerance=OCR_CPU_TOL),
+               adam=adam)
+    log(f"{label}: " + json.dumps(res))
+    return res
+
+
+def _finite(a) -> bool:
+    import numpy as np
+
+    return bool(np.isfinite(a).all())
+
+
+def _vops_inputs(torch):
+    """(c)'s seeded inputs on the card: the FPN level, its RoIs (two
+    images, sizes 8-400 px, some past the image), the deformable maps and
+    offsets, the YOLO head and its ground truth, the detection boxes and
+    scores of the host ops."""
+    import numpy as np
+
+    rng = np.random.RandomState(36)
+    N, C, H, W = VOPS_FEAT
+    ih, iw = H / VOPS_SCALE, W / VOPS_SCALE
+
+    def boxes(n, h, w, lo=8.0, hi=400.0):
+        xy = rng.rand(n, 2) * np.array([w, h]) * 0.9
+        wh = lo + rng.rand(n, 2) * (hi - lo)
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    f32 = dict(device="cuda", dtype=torch.float32)
+
+    def t(a, **kw):
+        return torch.as_tensor(a, **(kw or f32))
+
+    dn, dc, dh, dw = VOPS_DEFORM
+    S = 3                                # anchors of the YOLO head
+    inp = dict(
+        feat=t(rng.randn(N, C, H, W)),
+        ps_feat=t(rng.randn(N, VOPS_PS_C, H, W)),
+        rois=t(boxes(VOPS_ROIS, ih, iw)),
+        rois_num=t([VOPS_ROIS // 2, VOPS_ROIS - VOPS_ROIS // 2],
+                   device="cuda", dtype=torch.int32),
+        dx=t(rng.randn(dn, dc, dh, dw)),
+        dw=t(rng.randn(dc, dc, 3, 3) * 0.05),
+        db=t(rng.randn(dc) * 0.1),
+        doff=t(rng.randn(dn, 2 * 9, dh, dw) * 1.5),
+        dmask=t(rng.rand(dn, 9, dh, dw)),
+        yolo_x=t(rng.randn(YOLO_N, S * (5 + YOLO_CLASSES), YOLO_HW,
+                           YOLO_HW)),
+        yolo_img=t(np.tile([[416, 416]], (YOLO_N, 1)), device="cuda",
+                   dtype=torch.int32),
+        gt_box=t(np.concatenate([rng.rand(YOLO_N, YOLO_GT, 2) * 0.8 + 0.1,
+                                 rng.rand(YOLO_N, YOLO_GT, 2) * 0.4 + 0.02],
+                                -1)),
+        gt_label=t(rng.randint(0, YOLO_CLASSES, (YOLO_N, YOLO_GT)),
+                   device="cuda", dtype=torch.int32),
+        priors=t(boxes(1000, 1.0, 1.0, 0.02, 0.3)),
+        targets=t(boxes(64, 1.0, 1.0, 0.02, 0.3)),
+        pvar=t(np.tile([[0.1, 0.1, 0.2, 0.2]], (1000, 1))),
+        det_boxes=t(boxes(1000, 800, 1088, 16, 300)),
+        det_scores=t(rng.rand(1000)),
+        det_cats=t(rng.randint(0, 8, 1000), device="cuda",
+                   dtype=torch.int64),
+        mnms_boxes=t(np.stack([boxes(400, 1.0, 1.0, 0.02, 0.3)
+                               for _ in range(2)])),
+        mnms_scores=t(rng.rand(2, 8, 400)),
+        rpn_scores=t(rng.rand(2, 3, H, W)),
+        rpn_deltas=t(rng.randn(2, 12, H, W) * 0.2),
+        rpn_img=t([[ih, iw], [ih, iw]]),
+        rpn_anchors=t(boxes(H * W * 3, ih, iw, 16, 256).reshape(H, W, 3, 4)),
+        rpn_var=t(np.ones((H, W, 3, 4))),
+    )
+    return inp
+
+
+def _vops_cases(V):
+    """(c)'s cases: (name, the op on its inputs, the inputs' names in
+    :func:`_vops_inputs`, the positions differentiated, the planted fault:
+    the op on the same inputs with one of them or a setting off)."""
+    def shifted(b):
+        return b + 16.0                  # one cell of the FPN level
+
+    roi = dict(output_size=7, spatial_scale=VOPS_SCALE)
+    mask = [6, 7, 8]                     # the 13 x 13 head's anchors
+
+    def yloss(x, g, l, **kw):
+        kw = dict(dict(use_label_smooth=True, ignore_thresh=0.7), **kw)
+        return V.yolo_loss(x, g, l, YOLO_ANCHORS, mask, YOLO_CLASSES,
+                           kw["ignore_thresh"], 32,
+                           use_label_smooth=kw["use_label_smooth"])
+
+    dpad = dict(stride=1, padding=1)
+    cases = [
+        ("roi_align", lambda f, b, n: V.roi_align(f, b, n, **roi),
+         ["feat", "rois", "rois_num"], (0,),
+         lambda f, b, n: V.roi_align(f, shifted(b), n, **roi)),
+        ("roi_pool", lambda f, b, n: V.roi_pool(f, b, n, **roi),
+         ["feat", "rois", "rois_num"], (0,),
+         lambda f, b, n: V.roi_pool(f, shifted(b), n, **roi)),
+        ("psroi_pool", lambda f, b, n: V.psroi_pool(f, b, n, **roi),
+         ["ps_feat", "rois", "rois_num"], (0,),
+         lambda f, b, n: V.psroi_pool(f, shifted(b), n, **roi)),
+        ("deform_conv2d_v1",
+         lambda x, o, w, b: V.deform_conv2d(x, o, w, b, **dpad),
+         ["dx", "doff", "dw", "db"], (0, 1, 2),
+         # the centre tap's offsets dropped
+         lambda x, o, w, b: V.deform_conv2d(
+             x, o * _tap_keep(o, 4), w, b, **dpad)),
+        ("deform_conv2d_v2",
+         lambda x, o, w, b, m: V.deform_conv2d(x, o, w, b, mask=m, **dpad),
+         ["dx", "doff", "dw", "db", "dmask"], (0, 1, 2, 4),
+         lambda x, o, w, b, m: V.deform_conv2d(
+             x, o, w, b, mask=m.clamp(min=0.5), **dpad)),
+        ("yolo_box", lambda x, im: V.yolo_box(
+            x, im, YOLO_ANCHORS[12:], YOLO_CLASSES, 0.01, 32),
+         ["yolo_x", "yolo_img"], (0,),
+         lambda x, im: V.yolo_box(x, im, YOLO_ANCHORS[6:12], YOLO_CLASSES,
+                                  0.01, 32)),
+        # the fault: another head's anchors (the 26 x 26 one's)
+        ("yolo_loss", yloss, ["yolo_x", "gt_box", "gt_label"], (0,),
+         lambda x, g, l: V.yolo_loss(x, g, l, YOLO_ANCHORS, [3, 4, 5],
+                                     YOLO_CLASSES, 0.7, 32)),
+        ("box_coder_encode", lambda p, v, t: V.box_coder(p, v, t),
+         ["priors", "pvar", "targets"], (),
+         lambda p, v, t: V.box_coder(p, v.flip(-1), t)),
+        ("box_coder_decode", lambda p, v, t: V.box_coder(
+            p, v, _deltas(t, p), "decode_center_size"),
+         ["priors", "pvar", "targets"], (),
+         lambda p, v, t: V.box_coder(p, v.flip(-1), _deltas(t, p),
+                                     "decode_center_size")),
+        ("prior_box", lambda f: V.prior_box(
+            f, torch_zeros_like_image(f), [32.0, 64.0], [64.0, 128.0],
+            [2.0], flip=True, clip=True),
+         ["feat"], (), lambda f: V.prior_box(
+             f, torch_zeros_like_image(f), [32.0, 64.0], [64.0, 128.0],
+             [2.0], flip=True, clip=True, offset=0.4)),
+        ("nms", lambda b, s, c: V.nms(b, 0.5, s, c, top_k=300),
+         ["det_boxes", "det_scores", "det_cats"], (),
+         lambda b, s, c: V.nms(b, 0.45, s, c, top_k=300)),
+        ("matrix_nms", lambda b, s: V.matrix_nms(
+            b, s, 0.05, 0.05, 200, 100, return_index=True),
+         ["mnms_boxes", "mnms_scores"], (),
+         lambda b, s: V.matrix_nms(b, s, 0.05, 0.05, 200, 100,
+                                   use_gaussian=True, return_index=True)),
+        ("generate_proposals", lambda s, d, im, a, v: V.generate_proposals(
+            s, d, im, a, v, 2000, 300, 0.7, 1.0, return_rois_num=True),
+         ["rpn_scores", "rpn_deltas", "rpn_img", "rpn_anchors", "rpn_var"],
+         (), lambda s, d, im, a, v: V.generate_proposals(
+             s, d, im, a, v, 2000, 300, 0.6, 1.0, return_rois_num=True)),
+        ("distribute_fpn_proposals", lambda b, n: V.distribute_fpn_proposals(
+            b, 2, 5, 4, 224, rois_num=n),
+         ["rois", "rois_num"], (),
+         lambda b, n: V.distribute_fpn_proposals(b, 2, 5, 4, 200,
+                                                 rois_num=n)),
+    ]
+    return cases
+
+
+def _deltas(t, p):
+    """Decode deltas (targets, priors, 4): each target's box, scaled to
+    a delta's size, against every prior."""
+    return t[:, None, :].expand(-1, p.shape[0], 4) * 0.1
+
+
+def torch_zeros_like_image(f):
+    """An image tensor (N, 3, H / scale, W / scale) for prior_box (only its
+    shape is read)."""
+    return f.new_zeros(f.shape[0], 3, int(f.shape[2] / VOPS_SCALE),
+                       int(f.shape[3] / VOPS_SCALE))
+
+
+def _tap_keep(o, tap):
+    """A multiplier of the offsets (N, 2 · 9, Ho, Wo) that drops one tap's
+    (its y and x set to 0)."""
+    keep = o.new_ones(1, o.shape[1], 1, 1)
+    keep[:, 2 * tap:2 * tap + 2] = 0
+    return keep
+
+
+def _flat_outputs(out):
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat_outputs(o)]
+    return [] if out is None else [out]
+
+
+def _vops_err(torch, card, host):
+    """(worst float error over the largest |CPU| value, every exact output
+    equal) of one op's outputs."""
+    worst, exact = 0.0, True
+    for c, h in zip(_flat_outputs(card), _flat_outputs(host)):
+        if tuple(c.shape) != tuple(h.shape):
+            return math.inf, False
+        if h.is_floating_point() and h.numel():
+            worst = max(worst, _err(torch, c, h))
+        elif not torch.equal(c.cpu(), h):
+            exact = False
+    return worst, exact
+
+
+def vision_ops_against_cpu(torch):
+    """(c): every ``vision.ops`` op on the card against the port on the
+    CPU at detection shapes (forward, and the gradient of the sum for the
+    differentiated inputs), each limit shown to reject a planted fault,
+    and each op's device ms (forward; forward + backward where
+    differentiated) at the full shapes."""
+    from paddle_tpu_torch.vision import ops as V
+
+    inp = _vops_inputs(torch)
+    chk = slice(0, VOPS_CHECK_ROIS)
+    out = {}
+    for name, fn, keys, diff, fault in _vops_cases(V):
+        card_in = [inp[k] for k in keys]
+        # the RoI ops on the CPU hold the first RoIs (of image 0)
+        if "rois" in keys and name != "distribute_fpn_proposals":
+            check_in = [v[chk] if k == "rois" else
+                        (v.new_tensor([VOPS_CHECK_ROIS, 0]) if k ==
+                         "rois_num" else v) for k, v in zip(keys, card_in)]
+        else:
+            check_in = card_in
+        ms = event_ms(torch, lambda: fn(*card_in), 5)
+        row = dict(ms=ms)
+        if diff:
+            leaves = [v.detach().clone().requires_grad_(i in diff)
+                      if v.is_floating_point() else v
+                      for i, v in enumerate(card_in)]
+
+            def fwd_bwd():
+                r = fn(*leaves)
+                sum(o.sum() for o in _flat_outputs(r)).backward()
+            row["fwd_bwd_ms"] = event_ms(torch, fwd_bwd, 3)
+        results = {}
+        for dev in ("cuda", "cpu"):
+            args = [v.detach().to(dev).clone().requires_grad_(i in diff)
+                    if v.is_floating_point() else v.to(dev)
+                    for i, v in enumerate(check_in)]
+            r = fn(*args)
+            grads = []
+            if diff:
+                sum(o.sum() for o in _flat_outputs(r)).backward()
+                grads = [args[i].grad for i in diff]
+            results[dev] = ([o.detach() for o in _flat_outputs(r)], grads)
+        host_in = [v.detach().cpu() for v in check_in]
+        with torch.no_grad():
+            planted = [o.detach() for o in _flat_outputs(fault(*host_in))]
+        err, exact = _vops_err(torch, results["cuda"][0], results["cpu"][0])
+        gerr = max((_err(torch, a, b) for a, b in
+                    zip(results["cuda"][1], results["cpu"][1])), default=0.0)
+        ferr, fexact = _vops_err(torch, planted, results["cpu"][0])
+        row.update(err_over_max=err, grad_err_over_max=gerr, exact=exact,
+                   fault_err_over_max=ferr, fault_exact=fexact,
+                   limit=VOPS_TOL, shapes={k: list(v.shape) for k, v in
+                                           zip(keys, card_in)})
+        out[name] = row
+        check(err <= VOPS_TOL and gerr <= VOPS_TOL and exact,
+              f"phase 36 (c) {name}: card against the CPU {err:.3g}, "
+              f"gradients {gerr:.3g}, exact outputs equal {exact} (limit "
+              f"{VOPS_TOL})")
+        check(ferr > VOPS_TOL or not fexact,
+              f"phase 36 (c) {name}: the planted fault passes the limit "
+              f"({ferr:.3g})")
+    log("phase 36 (c) vision ops, card against the CPU: " + json.dumps(out))
+    return out
+
+
+def token_reader(torch):
+    """(d): ``TokenDataLoader`` built from ``csrc/ptio.cpp`` with g++ where
+    the script runs, over a seeded file of TOKEN_FILE_TOKENS int32 tokens:
+    tokens a second at B x S, every batch's rows windows of the file with
+    their next-token labels."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    stride = TOKEN_S + 1
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tokens.bin")
+        tokens = np.random.RandomState(36).randint(
+            0, TOKEN_VOCAB, TOKEN_FILE_TOKENS).astype(np.int32)
+        native.write_token_file(tokens, path)
+        loader = native.TokenDataLoader(path, TOKEN_S, TOKEN_B,
+                                        num_threads=2, seed=36)
+        check(loader.native, "phase 36 (d): the token reader is not native")
+        first = loader.next()
+        t1 = time.perf_counter()
+        batches = [loader.next() for _ in range(TOKEN_BATCHES)]
+        read_s = time.perf_counter() - t1
+        loader.close()
+    windows = tokens[:(len(tokens) // stride) * stride].reshape(-1, stride)
+    by_first = {}
+    for s, tok in enumerate(windows[:, 0].tolist()):
+        by_first.setdefault(tok, []).append(s)
+    bad = 0
+    for ids, labels in [first] + batches:
+        check(ids.shape == (TOKEN_B, TOKEN_S) and ids.dtype == np.int32
+              and labels.dtype == np.int64, "phase 36 (d): batch layout")
+        for row, lab in zip(ids, labels):
+            if not any((windows[s, :-1] == row).all()
+                       and (windows[s, 1:] == lab).all()
+                       for s in by_first.get(int(row[0]), ())):
+                bad += 1
+    check(bad == 0, f"phase 36 (d): {bad} rows are not windows of the file")
+    res = dict(build_s=build_s, file_tokens=len(tokens),
+               windows=len(windows), batch=[TOKEN_B, TOKEN_S],
+               batches=TOKEN_BATCHES,
+               tokens_per_s=TOKEN_BATCHES * TOKEN_B * TOKEN_S / read_s,
+               rows_checked=TOKEN_B * (TOKEN_BATCHES + 1))
+    log("phase 36 (d) token reader: " + json.dumps(res))
+    return res
+
+
+def hapi(torch, ops):
+    """Phase 36: the data pipeline, the metrics, ``hapi.Model`` and the rest
+    of ``vision`` (see the module docstring): (a) BASELINE config 1 through
+    ``paddle.Model`` with two loader workers, (b) ``Model.fit`` with Adam
+    (row 10), (c) ``vision.ops`` against the CPU, (d) the token reader."""
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    log(f"phase 36 settings: cudnn deterministic, benchmark off; "
+        f"{card_line()}")
+    res, secs = {}, {}
+
+    def part(key, fn, *a):
+        t = time.perf_counter()
+        res[key] = fn(*a)
+        secs[key] = time.perf_counter() - t
+
+    try:
+        part("a", hapi_cifar, torch, ops)
+        _free(torch)
+        cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        part("b", hapi_mnist, torch, ops)
+        part("c", vision_ops_against_cpu, torch)
+        _free(torch)
+    finally:
+        (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    part("d", token_reader, torch)
+    res["part_seconds"] = secs
+    res["launches_per_step"] = res["b"]["launches_per_step"]
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 36: {res['phase_s']:.1f} s, {card_line()}")
+    return res
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -9440,6 +10270,7 @@ def main() -> int:
     for line in _build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line or "==" in line:
             log("  " + line.strip())
+    start_loader_server()
     if sys.argv[1:] == ["--only", "tick"]:
         # a diagnostic run: the build and phase 13 alone, no final line
         model = LlamaForCausalLM(llama3_8b_config())
@@ -9558,6 +10389,13 @@ def main() -> int:
             f" s")
         log(card)
         return 0
+    if sys.argv[1:] == ["--only", "hapi"]:
+        # a diagnostic run: the build and phase 36 alone, no final line
+        log("phase 36 (hapi): " + json.dumps(hapi(torch, ops)))
+        log(f"partial run (phase 36 only): {time.perf_counter() - t_start:.1f}"
+            f" s")
+        log(card)
+        return 0
     if sys.argv[1:] == ["--only", "serve"]:
         # a diagnostic run: the build and phases 4, 14, 24 and 25 alone, no
         # final line
@@ -9664,10 +10502,15 @@ def main() -> int:
     spec_res = serve_spec(torch, ops, model, serve_res["tokens"])
     mark("phase 26 (speculative)")
     # phase 29: priority scheduling and swap preemption
-    sched_res = scheduling(torch, ops, model, sched_ref)
+    yardsticks = {}
+    sched_res = scheduling(torch, ops, model, sched_ref, yardsticks)
     mark("phase 29 (scheduling)")
-    # phase 30 (a)-(d): observability and recovery, the bf16 model
-    rec_res = recovery_serving(torch, ops, model, here, sched_ref)
+    # phase 30 (a)-(d): observability and recovery, the bf16 model; its
+    # overload references are phase 29's yardsticks (the same traffic on a
+    # pool that never runs dry)
+    rec_res = recovery_serving(torch, ops, model, here, sched_ref,
+                               over={k: yardsticks[k] for k in (
+                                   "bf16", "int8-kv", "bf16 megakernel")})
     mark("phase 30 (a)-(d) (recovery)")
     # phase 31 (a), (b): dense-cache serving and generate, the bf16 model
     dense_res = dense_generation(torch, ops, model, serve_res["tokens"])
@@ -9765,6 +10608,11 @@ def main() -> int:
     # layers and the rest of nn; the vision zoo
     ocr_res = ocr(torch, ops)
     mark("phase 35 (ocr)")
+    # phase 36: the data pipeline, the metrics, hapi.Model and the rest of
+    # vision: BASELINE config 1 through Model.fit with two loader workers,
+    # LeNet with Adam (row 10), vision.ops, the token reader
+    hapi_res = hapi(torch, ops)
+    mark("phase 36 (hapi)")
 
     def entry(name, source, replaces, cases, launches, **extra):
         main_case = cases[0]      # the main path's shape
@@ -9911,6 +10759,13 @@ def main() -> int:
             k["ocr_step_err_over_max"] = {
                 m: ocr_res["c"][m]["adam"]["err_over_max"]
                 for m in ("crnn", "dbnet")}
+            # phase 36 (b)'s main path: Model.fit over LeNet with Adam, one
+            # launch a trainable parameter a step; one step against the
+            # plain version on the CPU
+            k["hapi_launches_per_step"] = hapi_res["launches_per_step"]
+            k["hapi_launches"] = hapi_res["b"]["launches"]
+            k["hapi_step_err_over_max"] = hapi_res["b"]["adam"][
+                "err_over_max"]
     # the run's serving, breakdown, end-to-end and training readings once
     # more, so that they stand in the last lines of the output beside the
     # kernels
@@ -9962,6 +10817,7 @@ def main() -> int:
     log("phase 33 (vision): " + json.dumps(vis_res))
     log("phase 34 (tensor): " + json.dumps(tensor_res))
     log("phase 35 (ocr): " + json.dumps(ocr_res))
+    log("phase 36 (hapi): " + json.dumps(hapi_res))
     prev = 0.0
     for name, at in marks:
         log(f"phase time {name}: {at - prev:.1f} s")

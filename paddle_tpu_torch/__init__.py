@@ -28,13 +28,25 @@ program calls them (``import paddle_tpu_torch as paddle``):
 (``paddle.matmul``, ``paddle.topk`` …), ``paddle.linalg``,
 ``paddle.device``, ``paddle.nn`` (``paddle.nn.Conv2D``, ``paddle.nn.LSTM``,
 ``paddle.nn.functional.ctc_loss`` …, ``paddle.nn.utils``),
-``paddle.optimizer``, ``paddle.amp`` and ``paddle.vision.models`` (the
-zoo and the OCR pair); the tensor is ``torch.Tensor``:
+``paddle.optimizer``, ``paddle.amp``, ``paddle.vision`` (``models``: the
+zoo and the OCR pair; ``ops``, ``datasets``, ``transforms``), the data
+pipeline (``paddle.io``, ``paddle.reader``, ``paddle.batch``),
+``paddle.metric`` and the high-level API (``paddle.Model``,
+``paddle.callbacks``, ``paddle.summary``); the tensor is ``torch.Tensor``:
 
     import paddle_tpu_torch as paddle
 
     model = paddle.vision.models.resnet50(num_classes=10)   # on the card
     x = paddle.to_tensor(images)                            # on the card
+
+    model = paddle.Model(paddle.vision.models.LeNet())      # on the card
+    model.prepare(paddle.optimizer.Adam(parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    model.fit(paddle.vision.datasets.MNIST(transform=...), num_workers=2)
+
+The loader yields CPU tensors (its workers never touch CUDA); ``Model``
+moves each batch to its network's device. ``paddle.dataset`` (the legacy
+readers) is not ported yet: reaching it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -76,6 +88,9 @@ def resolve_place(device=None, place=None) -> torch.device:
 # import
 from . import (amp, device, framework, linalg, nn, optimizer,  # noqa: E402
                tensor, vision)
+from . import callbacks, io, metric, reader  # noqa: E402
+from .batch import batch  # noqa: E402
+from .hapi import Model, summary  # noqa: E402
 from .compat import cast  # noqa: E402
 from .device import (get_device, is_compiled_with_cuda,  # noqa: E402
                      is_compiled_with_xpu, set_device)
@@ -88,12 +103,21 @@ from .framework import (ParamAttr, Parameter, bfloat16, complex64,  # noqa
 from .tensor import *  # noqa: E402,F401,F403
 from .tensor import __all__ as _tensor_all  # noqa: E402
 
-__all__ += ["ParamAttr", "Parameter", "amp", "bfloat16", "cast",
+__all__ += ["Model", "ParamAttr", "Parameter", "amp", "batch",
+            "bfloat16", "callbacks", "cast",
             "complex64", "complex128", "device", "enable_grad", "float16",
             "float32", "float64", "framework", "get_default_dtype",
             "get_device", "get_flags", "get_rng_state", "grad", "int8",
-            "int16", "int32", "int64", "is_compiled_with_cuda",
+            "int16", "int32", "int64", "io", "is_compiled_with_cuda",
             "is_compiled_with_xpu", "is_grad_enabled", "linalg", "load",
-            "nn", "no_grad", "optimizer", "save", "seed",
+            "metric", "nn", "no_grad", "optimizer", "reader", "save", "seed",
+            "summary",
             "set_default_dtype", "set_device", "set_flags", "set_rng_state",
             "tensor", "uint8", "vision", *_tensor_all]
+
+
+def __getattr__(name):
+    if name == "dataset":
+        raise NotImplementedError(
+            "paddle.dataset (the legacy dataset readers) is not ported yet")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

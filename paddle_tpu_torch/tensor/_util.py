@@ -1,6 +1,7 @@
 """Helpers the port's tensor functions share: axis and int arguments,
-Python scalars and arrays as tensors, and the JAX package's inexact dtype
-of an integer input."""
+Python scalars and arrays as tensors, the JAX package's inexact dtype
+of an integer input, and a tensor read back as numpy (the metrics and the
+host ops of ``vision.ops``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -76,3 +77,15 @@ def inexact(dtype: torch.dtype) -> torch.dtype:
 def to_inexact(x: torch.Tensor) -> torch.Tensor:
     d = inexact(x.dtype)
     return x if x.dtype == d else x.to(d)
+
+
+def host_numpy(x) -> np.ndarray:
+    """``x`` (a tensor on any device, an array, a list) as a numpy array
+    read back to the host; a bf16 tensor widened to fp32, which keeps
+    every value and so every order (numpy has no bf16 of its own)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)

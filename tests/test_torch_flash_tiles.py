@@ -15,9 +15,11 @@ visits every (query tile, head, batch) once, by falling work. The
 grid covers Sq < Sk down to one query row and Sq > Sk (rows that see no
 key), ragged edges at 64 and 128 (129 across the forward's 128-row block),
 and S up to 32768, with the kernels' tile sizes and another split."""
+import functools
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -144,22 +146,30 @@ def harness(tmp_path_factory):
     return run
 
 
+@functools.lru_cache(maxsize=None)
 def _tables(Sq, Sk, causal):
-    """(any, full) bool (ceil(Sq/64), ceil(Sk/64)): whether a 64 x 64 tile
-    holds a visible pair, and whether all of its 64 x 64 pairs are visible
-    (a tile past Sq or Sk never is), from ``_visible``."""
+    """(any, full) bool (ceil(Sq/64), ceil(Sk/64)) numpy arrays: whether a
+    64 x 64 tile holds a visible pair, and whether all of its 64 x 64
+    pairs are visible (a tile past Sq or Sk never is), from ``_visible``
+    at each tile's first and last rows. The causal frontier only moves
+    right down the rows: the tile's last row sees every key any of its
+    rows sees, its first row only keys that all of them see. Each
+    (Sq, Sk, causal) is built once for all the tests that read it."""
     nr, nk = -(-Sq // T), -(-Sk // T)
-    any_ = torch.zeros(nr, nk, dtype=torch.bool)
-    full = torch.zeros(nr, nk, dtype=torch.bool)
+    any_ = np.zeros((nr, nk), dtype=bool)
+    full = np.zeros((nr, nk), dtype=bool)
     for t in range(nr):
         q0, q1 = t * T, min(t * T + T, Sq)
-        vis = (tfa._visible(q0, q1, Sq, Sk, "cpu") if causal
-               else torch.ones(q1 - q0, Sk, dtype=torch.bool))
-        pad = torch.zeros(T, nk * T, dtype=torch.bool)
-        pad[:q1 - q0, :Sk] = vis
-        tiles = pad.reshape(T, nk, T)
-        any_[t] = tiles.any(2).any(0)
-        full[t] = tiles.all(2).all(0)
+        edge = []
+        for r in (q0, q1 - 1):                 # the first and last rows
+            vis = (tfa._visible(r, r + 1, Sq, Sk, "cpu")[0] if causal
+                   else torch.ones(Sk, dtype=torch.bool))
+            pad = np.zeros(nk * T, dtype=bool)
+            pad[:Sk] = vis.numpy()
+            edge.append(pad.reshape(nk, T))
+        any_[t] = edge[1].any(1)
+        # a tile with rows past Sq holds pairs that are not visible
+        full[t] = edge[0].all(1) & (q1 - q0 == T)
     return any_, full
 
 

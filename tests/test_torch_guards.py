@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -134,7 +135,20 @@ PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.vision.models.ocr",
                 "paddle_tpu_torch.vision.models.shufflenetv2",
                 "paddle_tpu_torch.vision.models.squeezenet",
-                "paddle_tpu_torch.vision.models.vgg"]
+                "paddle_tpu_torch.vision.models.vgg",
+                "paddle_tpu_torch.vision.ops",
+                "paddle_tpu_torch.vision.datasets",
+                "paddle_tpu_torch.vision.transforms",
+                "paddle_tpu_torch.vision.transforms.functional",
+                "paddle_tpu_torch.io", "paddle_tpu_torch.io.bucketing",
+                "paddle_tpu_torch.io.native",
+                "paddle_tpu_torch.io.worker_pool",
+                "paddle_tpu_torch.batch", "paddle_tpu_torch.reader",
+                "paddle_tpu_torch.reader.decorator",
+                "paddle_tpu_torch.metric", "paddle_tpu_torch.callbacks",
+                "paddle_tpu_torch.hapi", "paddle_tpu_torch.hapi.callbacks",
+                "paddle_tpu_torch.hapi.model",
+                "paddle_tpu_torch.hapi.summary"]
 # torch sees no card in the child, whatever the machine has
 NO_CARD_ENV = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
@@ -775,3 +789,67 @@ def test_framework_and_vision_entry_points_default_to_cuda(monkeypatch):
     assert isinstance(paddle.nn.ReLU(), paddle.nn.Layer)
     m = paddle.vision.models.resnet18(num_classes=10, device="cpu")
     assert {p.device.type for p in m.parameters()} == {"cpu"}
+
+
+def test_data_metric_and_hapi_import_without_jax():
+    """The data pipeline, the metrics, ``hapi`` and the rest of ``vision``
+    import, build a ``Model`` over a CPU LeNet and load a batch through
+    two worker processes, with neither jax nor the JAX package loaded."""
+    code = ("import sys\n"
+            "import paddle_tpu_torch as paddle\n"
+            "T = paddle.vision.transforms\n"
+            "ds = paddle.vision.datasets.MNIST(transform=T.Compose(\n"
+            "    [T.ToTensor(), T.Normalize([0.5], [0.5])]))\n"
+            "x, y = next(iter(paddle.io.DataLoader(ds, batch_size=4,\n"
+            "                                      num_workers=2)))\n"
+            "m = paddle.Model(paddle.vision.models.LeNet(device='cpu'))\n"
+            "assert m.predict_batch(x)[0].shape == (4, 10)\n"
+            "assert paddle.vision.ops.nms(x[:, 0, 0, :4]).dtype is not None\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "print('LOADED', bad)\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=NO_CARD_ENV)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
+def test_hapi_model_runs_on_cuda_by_default_and_raises_without_it(
+        monkeypatch):
+    """``paddle.Model`` over a default-built network runs where the
+    network is, the card; without one the network cannot be built. A
+    batch the loader yields on the CPU is moved to the network's device
+    (here a stand-in device check on a CPU network)."""
+    import paddle_tpu_torch as paddle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle.Model(paddle.vision.models.LeNet())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle.vision.ops.DeformConv2D(4, 4, 3)
+    m = paddle.Model(paddle.vision.models.LeNet(device="cpu"))
+    assert m._device() == torch.device("cpu")
+    moved = m._to_device([np.zeros((1, 1, 28, 28), np.float32),
+                          torch.zeros(1, dtype=torch.int64)])
+    assert all(isinstance(v, torch.Tensor) and v.device.type == "cpu"
+               for v in moved)
+
+
+def test_the_loaders_workers_start_by_forkserver_once_cuda_is_up(
+        monkeypatch):
+    """A forked child of a process with CUDA up cannot use it: the pool's
+    start method is ``forkserver`` then (or with other threads running),
+    ``fork`` otherwise, ``PADDLE_TPU_MP_START`` over both."""
+    import threading
+
+    from paddle_tpu_torch.io import worker_pool
+
+    monkeypatch.delenv("PADDLE_TPU_MP_START", raising=False)
+    monkeypatch.setattr(threading, "active_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    assert worker_pool._mp_context().get_start_method() == "fork"
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    assert worker_pool._mp_context().get_start_method() == "forkserver"
+    monkeypatch.setenv("PADDLE_TPU_MP_START", "spawn")
+    assert worker_pool._mp_context().get_start_method() == "spawn"
