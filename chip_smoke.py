@@ -30,6 +30,8 @@ the GPU.
                                         # final line)
     python3 chip_smoke.py --only hapi   # the build and phase 36 (no
                                         # final line)
+    python3 chip_smoke.py --only fleet  # the build, phase 4 and phase 37
+                                        # (no final line)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -522,6 +524,41 @@ built with g++ from ``csrc/ptio.cpp``: tokens a second at B = 2 x 2048
 over a seeded 64 M-token file, every row a window of the file with its
 next-token labels. The loader's forkserver starts after the build.
 
+Phase 37, after phase 31 (a)-(b) while the bf16 model is on the card,
+drives the serving fleet (``paddle_tpu_torch/inference/{fleet,transport,
+replica_worker,autoscale}.py``, ``fleetsim/``) at phase 4's configuration
+(Llama-3-8B, 32 layers, bf16, paged, B = 8, block 16, chunk 128, CUDA
+graphs; each replica's pool sized by bytes to phase 4's blocks), its
+yardstick phase 4's tokens: (a) a ``FleetRouter`` over two
+``InProcessReplica`` servers sharing the model: phase 4's 12 requests,
+tokens equal 12 of 12, then again with replica 0 drained mid-decode
+(tokens equal, no CUDA graph captured after the warm-up): the fleet's
+decode tok/s against the single server, per-replica rows, the drain's ms
+a request, payload bytes and GB/s; (b) ``FaultPlan.fleet_chaos`` on a
+fresh pair (a misroute, a replica down mid-decode salvaged through the
+re-prefill rung), then a fresh replica added and the survivor drained
+onto it while the plan runs (its payload flip caught by the receiver's
+CRC and counted): tokens equal, ``fleet_deaths`` 1, no quarantine, the
+host ms from the kill until every salvaged request is admitted on a
+peer; (c) one ``role="prefill"`` and one ``role="decode"`` replica: 12
+handoffs, tokens equal, no decode pass on the prefill replica, handoff ms
+p50 / p99 and bytes a handoff; then ``FaultPlan.disagg_chaos`` (the
+prefill replica killed mid-chunk, salvaged onto the decode class):
+tokens equal; (d) ``tools/fleet_sim.py``'s execute_slice on
+``SubprocessReplica`` workers (fresh interpreters loading the parent's
+kernel build; Llama-3-8B's width at ``FLEET_D_LAYERS`` = 2 layers): a
+drawn day's first 12 sessions through two workers, a ``FleetAutoscaler``
+scripted through one scale-up and one drain, one SIGKILL mid-decode
+salvaged from the handle's journal; tokens equal to the slice on one
+in-process server of that configuration, each worker's weights
+fingerprint equal to the parent's; worker start s, ``ping`` round trip
+µs, salvage ms. Every replica pass launches row 11 and row 7 once a
+layer (and the final norm) and a decode tick ``stream_matmul`` 7 a layer
+and the head (each worker's launches against its passes); each token
+check rejects the yardstick with one token flipped, the fingerprint
+check a fingerprint off by one. ``fleet_launches`` in the kernels line:
+(a)-(c)'s launches.
+
 Phase 17 runs after phase 12's LoRA check: phase 10's LoRA cell behind
 ``kernels="megakernel"`` (every decode tick one ``decode_tick``, no fused
 LoRA or per-layer attention launch; prefill chunks as in phase 10, the
@@ -539,7 +576,8 @@ variant: ``decode_tick``, ``decode_tick_int8``, ``decode_tick_lora``, each
 with the launches of its serving cell; the flash rows once more at head
 dim 64, ``flash_fwd_d64``, ``flash_bwd_dq_d64``, ``flash_bwd_dkv_d64``,
 with phase 23's launches; every kernel with its launches in phase 31,
-``dense_launches``); the last line is ``{"ok": true, "device": {...}}``.
+``dense_launches``, and in phase 37, ``fleet_launches``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -10234,6 +10272,571 @@ def hapi(torch, ops):
     return res
 
 
+# --------------------------------------------------------------- phase 37
+# (d): the workers run Llama-3-8B's width at 2 layers (each worker's start
+# and graph captures would otherwise dominate the phase); the slice of a
+# drawn day (tools/fleet_sim.py's execute_slice, its prompts scaled to the
+# card); the router tick of the SIGKILL, the scale-up and the drain
+FLEET_D_LAYERS = 2
+FLEET_D_SESSIONS = 12
+FLEET_D_KILL_TICK = 3
+# the seed of FaultPlan.fleet_chaos in (b) and of disagg_chaos in (c):
+# (b) kills replica 1 at router tick 7 (ordinal 15) and flips the first
+# KV payload; (c) kills the prefill replica at tick 7 (ordinal 14) and
+# flips the second handoff payload
+FLEET_CHAOS_SEED = 1
+# the workers' device: None is the CUDA card (the spec's default)
+FLEET_WORKER_DEVICE = None
+FLEET_WARMUP = (list(range(1, 40)), 4)
+
+
+def token_mismatches(got, want):
+    """Requests whose tokens differ from the yardstick's (or are missing)."""
+    return sum(1 for i, w in enumerate(want)
+               if i >= len(got) or got[i] != w) + max(len(got) - len(want), 0)
+
+
+def _tokens_check(got, want, label):
+    """Tokens equal to the yardstick's, request for request; the same
+    comparison must reject the yardstick with one token flipped."""
+    bad = token_mismatches(got, want)
+    check(bad == 0, f"{label}: {bad} of {len(want)} requests differ from "
+                    f"the yardstick")
+    flipped = [list(t) for t in want]
+    flipped[-1][-1] = (flipped[-1][-1] + 1) % 128256
+    check(token_mismatches(got, flipped) == 1,
+          f"{label}: the token check passed a planted flipped token")
+    return len(want) - bad
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def _fleet_server(model, **kw):
+    """A replica of phase 4's configuration over ``model`` (shared, not
+    copied), its pool sized by bytes: phase 4's block count."""
+    from paddle_tpu_torch.inference.serving import (GenerationServer,
+                                                    kv_block_bytes)
+
+    pool = ((MAX_BATCH * (MAX_LEN // BLOCK_SIZE) + 1)
+            * kv_block_bytes(model.cfg, BLOCK_SIZE))
+    srv = GenerationServer(model, cache="paged", max_batch=MAX_BATCH,
+                           block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
+                           max_len=MAX_LEN, pool_bytes=pool,
+                           device=model.device, **kw)
+    check(srv._table_width == TABLE_WIDTH, "phase 37: block-table width")
+    if model.device.type == "cuda":
+        check(srv._exec.graphs, "phase 37: a replica does not graph its "
+                                "passes on the card")
+    return srv
+
+
+class _FleetPasses:
+    """Each replica's executor passes with their launches: (replica, kind,
+    units, {kernel: launches}) — a pass that captures its graph counts its
+    replay's launches, as every later one; the wrappers come off with
+    :meth:`close`."""
+
+    def __init__(self, ops, servers):
+        self.rows = []
+        self._ex = []
+        for idx, srv in enumerate(servers):
+            self.add(ops, idx, srv)
+
+    def add(self, ops, idx, srv):
+        ex = srv._exec
+        self._ex.append(ex)
+        for kind, unit in (("decode_paged", "ticks"),
+                           ("chunk_prefill", None)):
+            def counted(*a, _fn=getattr(ex, kind), _kind=kind, _unit=unit,
+                        **k):
+                before = ops.launch_counts()
+                out = _fn(*a, **k)
+                self.rows.append((idx, _kind, k.get(_unit, 1) if _unit
+                                  else 1, {n: c - before[n] for n, c in
+                                           ops.launch_counts().items()}))
+                return out
+            setattr(ex, kind, counted)
+
+    def check(self, L, label):
+        """Every pass of every replica launched row 11 and row 7 once a
+        layer (and the final norm), and a decode tick ``stream_matmul``
+        for the 7 projections of every layer and the head; returns the
+        passes counted, by replica and kind."""
+        want = {"decode_paged": {"paged_attention": L, "rms_norm": 2 * L + 1,
+                                 "stream_matmul": 7 * L + 1},
+                "chunk_prefill": {"paged_attention": L,
+                                  "rms_norm": 2 * L + 1}}
+        for idx, kind, units, got in self.rows:
+            for name, n in want[kind].items():
+                check(got[name] == n * units,
+                      f"{label}: replica {idx}'s {kind} pass of {units} "
+                      f"units launched {name} {got[name]} times, want "
+                      f"{n * units}")
+        return {f"{idx}:{kind}": sum(1 for r in self.rows
+                                     if r[:2] == (idx, kind))
+                for idx, kind in sorted({r[:2] for r in self.rows})}
+
+    def close(self):
+        for ex in self._ex:
+            for kind in ("decode_paged", "chunk_prefill"):
+                if kind in vars(ex):
+                    delattr(ex, kind)
+
+
+def _warm(fleet, servers):
+    """Each replica's warm-up (its graphs' captures), submitted to the
+    replica itself, then the fleet run to empty; the router's counters
+    start after it."""
+    for srv in servers:
+        srv.submit(FLEET_WARMUP[0], max_new_tokens=FLEET_WARMUP[1])
+    fleet.run()
+    return [srv._exec.captures for srv in servers]
+
+
+def _payload_log(handle):
+    """Record the KV bytes of every payload admitted into ``handle``."""
+    log_ = []
+    orig = handle.admit_migrated
+
+    def admit(d, **kw):
+        if d["phase"] == "kv":
+            log_.append(int(d["kv"]["nbytes"]))
+        return orig(d, **kw)
+    handle.admit_migrated = admit
+    return log_
+
+
+def _timed_kills(fleet):
+    """Host ms of each replica kill: from the kill to the last of its
+    salvaged requests admitted on a peer."""
+    ms = []
+    orig = fleet._kill
+
+    def kill(rep, reason):
+        t = time.perf_counter()
+        orig(rep, reason)
+        ms.append((time.perf_counter() - t) * 1e3)
+    fleet._kill = kill
+    return ms
+
+
+def _decode_stats(servers, before):
+    after = [s.throughput_stats() for s in servers]
+    rows = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+    return rows
+
+
+def fleet_routing(torch, ops, model, serve_res):
+    """Phase 37 (a): two in-process replicas over the phase-4 model behind a
+    ``FleetRouter``: phase 4's traffic, tokens against phase 4's; then the
+    traffic again with replica 0 drained mid-decode."""
+    from paddle_tpu_torch.inference import FleetRouter, InProcessReplica
+
+    L = model.cfg.num_hidden_layers
+    prompts, news = phase4_traffic(model.cfg)
+    servers = [_fleet_server(model) for _ in range(2)]
+    handles = [InProcessReplica(s) for s in servers]
+    fleet = FleetRouter(handles)
+    t0 = time.perf_counter()
+    captures = _warm(fleet, servers)
+    t_warm = time.perf_counter() - t0
+    passes = _FleetPasses(ops, servers)
+    before = [s.throughput_stats() for s in servers]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [fleet.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    out = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for name in ("paged_attention", "rms_norm", "stream_matmul"):
+        check(launches[name] > 0, f"phase 37 (a): {name} never launched")
+    equal = _tokens_check([out.get(r) for r in rids], serve_res["tokens"],
+                          "phase 37 (a) routed")
+    pass_counts = passes.check(L, "phase 37 (a)")
+    rows = _decode_stats(servers, before)
+    fm = fleet.fleet_metrics()
+    gen = sum(news)
+    dec_tok = sum(r["decode_tokens"] for r in rows)
+    dec_s = sum(r["decode_s"] for r in rows)
+    res = dict(
+        requests=len(rids), tokens_equal=equal, wall_s=wall,
+        warmup_s=t_warm, homes=[r // (1 << 32) for r in rids],
+        generated_tok_s=gen / wall,
+        single_generated_tok_s=gen / serve_res["wall_s"],
+        fleet_decode_tok_s=dec_tok / dec_s,
+        single_decode_tok_s=serve_res["decode_tok_s"],
+        replicas=[dict(replica=i, routed=row["routed"], steps=row["steps"],
+                       decode_trips=r["decode_trips"],
+                       decode_tokens=r["decode_tokens"],
+                       decode_tok_s=(r["decode_tokens"] / r["decode_s"]
+                                     if r["decode_s"] else None),
+                       prefill_chunks=r["prefill_chunks"])
+                  for i, (row, r) in enumerate(zip(fm["replicas"], rows))],
+        passes=pass_counts, launches=launches)
+    # the same traffic again; replica 0 drained once requests decode
+    payloads = _payload_log(handles[1])
+    rids = [fleet.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    for _ in range(12):
+        fleet.step()
+    decoding = sum(1 for s in range(MAX_BATCH)
+                   if servers[0]._slots[s] is not None
+                   and not servers[0]._prefilling[s])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moved = fleet.drain(0)
+    drain_s = time.perf_counter() - t0
+    check(moved >= 1 and payloads, "phase 37 (a): the drain moved no KV "
+                                   "payload")
+    out = fleet.run()
+    res["drain"] = dict(
+        tokens_equal=_tokens_check([out.get(r) for r in rids],
+                                   serve_res["tokens"], "phase 37 (a) drain"),
+        decoding_at_drain=decoding, moved=moved, kv_payloads=len(payloads),
+        payload_bytes=sum(payloads), drain_ms=drain_s * 1e3,
+        ms_per_request=drain_s * 1e3 / moved,
+        payload_gb_s=sum(payloads) / drain_s / 1e9,
+        captures_after_warmup=[s._exec.captures - c
+                               for s, c in zip(servers, captures)])
+    check(res["drain"]["captures_after_warmup"] == [0, 0],
+          f"phase 37 (a): CUDA graphs captured after the warm-up "
+          f"{res['drain']['captures_after_warmup']}")
+    passes.check(L, "phase 37 (a) drain")
+    passes.close()
+    fleet.assert_conserved()
+    return res
+
+
+def fleet_chaos(torch, ops, model, serve_res):
+    """Phase 37 (b): ``FaultPlan.fleet_chaos`` on a fresh pair — a
+    misroute, one replica down mid-decode (salvaged from host state onto
+    the survivor through the re-prefill rung) — then a fresh replica added
+    and the survivor drained onto it while the plan still runs, so that
+    its ``migrate_payload`` flip lands on a KV payload (the receiver's CRC
+    check degrades it to re-prefill)."""
+    from paddle_tpu_torch.faults import FaultInjector, FaultPlan
+    from paddle_tpu_torch.inference import FleetRouter, InProcessReplica
+    from paddle_tpu_torch.inference.fleet import REPLICA_DEAD
+
+    L = model.cfg.num_hidden_layers
+    prompts, news = phase4_traffic(model.cfg)
+    servers = [_fleet_server(model) for _ in range(2)]
+    inj = FaultInjector(FaultPlan.fleet_chaos(FLEET_CHAOS_SEED, replicas=2))
+    inj.enabled = False
+    fleet = FleetRouter([InProcessReplica(s) for s in servers], faults=inj)
+    _warm(fleet, servers)
+    kills = _timed_kills(fleet)
+    passes = _FleetPasses(ops, servers)
+    inj.enabled = True
+    ops.reset_launch_counts()
+    rids = [fleet.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    ticks = 0
+    while REPLICA_DEAD not in fleet.replica_states():
+        check(fleet.step() > 0, "phase 37 (b): the run ended before the "
+                                "scripted kill")
+        ticks += 1
+    dead = fleet.replica_states().index(REPLICA_DEAD)
+    salvaged = fleet.fleet_metrics()["migrated_requests"]
+    # the autoscaler's primitives: a fresh replica joins, the survivor
+    # drains onto it (its KV payloads pass the migrate_payload site)
+    fresh = _fleet_server(model)              # fresh: captures in the run
+    idx = fleet.add_replica(fresh)
+    passes.add(ops, idx, fresh)
+    survivor = 1 - dead
+    moved = fleet.drain(survivor)
+    out = fleet.run()
+    fm = fleet.fleet_metrics()
+    equal = _tokens_check([out.get(r) for r in rids], serve_res["tokens"],
+                          "phase 37 (b) chaos")
+    reprefills = fresh.telemetry.registry.counter(
+        "serving_swap_reprefills", "").total()
+    check(fm["deaths"] == 1, f"phase 37 (b): fleet_deaths {fm['deaths']}")
+    check(fm["quarantined"] == 0, "phase 37 (b): requests quarantined")
+    check(fm["misroutes"] >= 1, "phase 37 (b): no misroute fired")
+    check(fm["migrate_corruptions"] == 1 and reprefills >= 1,
+          f"phase 37 (b): the payload flip was not counted "
+          f"(fleet {fm['migrate_corruptions']}, receiver {reprefills})")
+    launches = ops.launch_counts()
+    passes.check(L, "phase 37 (b)")
+    passes.close()
+    fleet.assert_conserved()
+    return dict(tokens_equal=equal, token_mismatches=len(rids) - equal,
+                fleet_deaths=fm["deaths"], quarantined=fm["quarantined"],
+                misroutes=fm["misroutes"], kill_tick=ticks,
+                killed_replica=dead, salvaged_requests=salvaged,
+                kill_to_readmitted_ms=kills[0], drained_onto_fresh=moved,
+                migrate_corruptions=fm["migrate_corruptions"],
+                receiver_reprefills=int(reprefills), fired=inj.fired,
+                launches=launches)
+
+
+def fleet_disagg(torch, ops, model, serve_res):
+    """Phase 37 (c): one ``role="prefill"`` and one ``role="decode"``
+    replica; phase 4's traffic handed off request by request; then the
+    traffic again under ``FaultPlan.disagg_chaos`` (the prefill replica
+    killed mid-chunk, its prompts salvaged onto the decode class; a
+    handoff payload flipped)."""
+    from paddle_tpu_torch.faults import FaultInjector, FaultPlan
+    from paddle_tpu_torch.inference import FleetRouter, InProcessReplica
+
+    L = model.cfg.num_hidden_layers
+    prompts, news = phase4_traffic(model.cfg)
+    servers = [_fleet_server(model, role="prefill"),
+               _fleet_server(model, role="decode")]
+    handles = [InProcessReplica(s) for s in servers]
+    inj = FaultInjector(FaultPlan.disagg_chaos(FLEET_CHAOS_SEED))
+    inj.enabled = False
+    fleet = FleetRouter(handles, faults=inj)
+    # the decode replica prefills too (salvaged prompts): both warm both
+    for srv in servers:
+        srv.submit(FLEET_WARMUP[0], max_new_tokens=FLEET_WARMUP[1])
+    fleet.run()
+    passes = _FleetPasses(ops, servers)
+    payloads = _payload_log(handles[1])
+    lat0 = len(fleet._migration_lat)
+    h0 = fleet.fleet_metrics()["handoff_requests"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [fleet.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    out = fleet.run()
+    wall = time.perf_counter() - t0
+    fm = fleet.fleet_metrics()
+    equal = _tokens_check([out.get(r) for r in rids], serve_res["tokens"],
+                          "phase 37 (c) disaggregated")
+    handoffs = fm["handoff_requests"] - h0
+    check(handoffs == len(rids), f"phase 37 (c): {handoffs} handoffs for "
+                                 f"{len(rids)} requests")
+    check(all(fleet._home[r] == 1 for r in rids),
+          "phase 37 (c): a request finished off the decode class")
+    lat = [x * 1e3 for x in fleet._migration_lat[lat0:]]
+    launches = ops.launch_counts()
+    pass_counts = passes.check(L, "phase 37 (c)")
+    check(not any(r[:2] == (0, "decode_paged") for r in passes.rows),
+          "phase 37 (c): a decode pass ran on the prefill replica")
+    check(servers[0].throughput_stats()["decode_trips"] == 0,
+          "phase 37 (c): the prefill replica ran a decode trip")
+    res = dict(tokens_equal=equal, handoffs=handoffs, wall_s=wall,
+               handoff_ms_p50=_pct(lat, 0.5), handoff_ms_p99=_pct(lat, 0.99),
+               handoff_samples=len(lat), kv_payloads=len(payloads),
+               bytes_per_handoff=sum(payloads) / max(len(payloads), 1),
+               generated_tok_s=sum(news) / wall, passes=pass_counts,
+               launches=launches)
+    # the same traffic under the disaggregated chaos plan
+    kills = _timed_kills(fleet)
+    inj.enabled = True
+    rids = [fleet.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+    out = fleet.run()
+    fm = fleet.fleet_metrics()
+    res["chaos"] = dict(
+        tokens_equal=_tokens_check([out.get(r) for r in rids],
+                                   serve_res["tokens"],
+                                   "phase 37 (c) disaggregated chaos"),
+        states=fleet.replica_states(), deaths=fm["deaths"],
+        migrate_corruptions=fm["migrate_corruptions"],
+        quarantined=fm["quarantined"], fired=inj.fired,
+        kill_to_readmitted_ms=kills[0] if kills else None)
+    check(fleet.replica_states() == ["dead", "live"] and fm["deaths"] == 1,
+          f"phase 37 (c): the prefill replica was not killed "
+          f"({fleet.replica_states()})")
+    check(fm["quarantined"] == 0, "phase 37 (c): requests quarantined")
+    passes.check(L, "phase 37 (c) chaos")
+    passes.close()
+    fleet.assert_conserved()
+    return res
+
+
+def _worker_spec(cfg, device):
+    from paddle_tpu_torch.inference.serving import kv_block_bytes
+
+    return {"model": {"config": dataclasses.asdict(cfg), "seed": 0},
+            "server": dict(cache="paged", max_batch=MAX_BATCH,
+                           block_size=BLOCK_SIZE,
+                           prefill_chunk=PREFILL_CHUNK, max_len=MAX_LEN,
+                           pool_bytes=(MAX_BATCH * (MAX_LEN // BLOCK_SIZE)
+                                       + 1) * kv_block_bytes(cfg,
+                                                             BLOCK_SIZE)),
+            "device": device}
+
+
+def fingerprints_equal(worker, parent):
+    return worker == parent
+
+
+def fleet_process(torch, ops, cfg):
+    """Phase 37 (d): ``tools/fleet_sim.py``'s execute_slice on worker
+    processes: a slice of a drawn day through two ``SubprocessReplica``
+    workers (Llama-3-8B's width at 2 layers), a ``FleetAutoscaler``
+    scripted through one scale-up and one drain, one SIGKILL mid-decode;
+    the yardstick the same slice on one in-process server of that
+    configuration."""
+    import concurrent.futures
+
+    from paddle_tpu_torch.fleetsim import (DayTrafficSpec, VirtualClock,
+                                           draw_day, materialize_session,
+                                           replay_slice)
+    from paddle_tpu_torch.inference import (ElasticAutoscaler,
+                                            FleetAutoscaler, FleetRouter,
+                                            SubprocessReplica)
+    from paddle_tpu_torch.inference.autoscale import AutoscalePolicy
+    from paddle_tpu_torch.inference.replica_worker import weights_fingerprint
+    from paddle_tpu_torch.inference.serving import GenerationServer
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=FLEET_D_LAYERS)
+    spec = _worker_spec(dcfg, FLEET_WORKER_DEVICE)
+    n = FLEET_D_SESSIONS
+    day = DayTrafficSpec(sessions=64, seed=0, shared_prefix_tokens=32,
+                         prompt_ladder=(64, 128, 256), longtail_frac=0.0,
+                         max_new_ladder=(8, 16, 24))
+    trace = draw_day(day)
+
+    # the yardstick: the slice on one in-process server, same weights
+    twin = LlamaForCausalLM(dcfg, device=FLEET_WORKER_DEVICE, seed=0)
+    srv = GenerationServer(twin, device=twin.device, **spec["server"])
+    reqs = [materialize_session(trace, i, max_len=MAX_LEN) for i in range(n)]
+    trids = [srv.submit(list(r.prompt), max_new_tokens=r.max_new,
+                        tenant=r.tenant) for r in reqs]
+    tout = srv.run()
+    want = [tout[r] for r in trids]
+    parent_fp = weights_fingerprint(twin)
+    del srv, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # three fresh workers started together: two for the fleet, one for
+    # the autoscaler's scale-up
+    starts = {}
+
+    def start(i):
+        t = time.perf_counter()
+        h = SubprocessReplica(spec)
+        starts[i] = time.perf_counter() - t
+        return h
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        handles = list(pool.map(start, range(3)))
+    try:
+        for h in handles:
+            check(fingerprints_equal(h.weights_fingerprint, parent_fp),
+                  f"phase 37 (d): worker {h.pid}'s weights fingerprint "
+                  f"differs from the parent's")
+            check(h.device.startswith("cuda"),
+                  f"phase 37 (d): a worker came up on {h.device}")
+        bad_fp = format(int(parent_fp, 16) + 1, "064x")
+        check(not fingerprints_equal(handles[0].weights_fingerprint,
+                                     bad_fp),
+              "phase 37 (d): the fingerprint check passed a planted fault")
+        # RPC round trip: ping
+        rtt = []
+        for _ in range(200):
+            t = time.perf_counter()
+            handles[0].ping()
+            rtt.append((time.perf_counter() - t) * 1e6)
+        clock = VirtualClock()
+        fleet = FleetRouter(handles[:2], clock=clock)
+        kills = _timed_kills(fleet)
+        # one replica a scale-up: the spare worker started beside the two
+        engine = ElasticAutoscaler(400.0, policy=AutoscalePolicy(
+            max_replicas=4, max_step_up=1, up_cooldown_s=0.0,
+            down_cooldown_s=0.0))
+        spare = [handles[2]]
+        scaler = FleetAutoscaler(fleet, engine, spawn=spare.pop)
+        killed = []
+
+        def on_tick(tick, now, submitted):
+            if tick == FLEET_D_KILL_TICK and not killed:
+                killed.append(sum(1 for r, home in fleet._home.items()
+                                  if home == 0 and r not in fleet._results))
+                handles[0].kill_process()       # a real SIGKILL mid-decode
+            elif tick == FLEET_D_KILL_TICK + 2:
+                scaler.control(now, demand_tok_s=1e6)
+            elif tick == FLEET_D_KILL_TICK + 6:
+                scaler.control(now, demand_tok_s=1.0)
+
+        for h in handles:
+            h.launch_counts(reset=True)
+        stats0 = [h.throughput_stats() for h in handles]
+        t0 = time.perf_counter()
+        out = replay_slice(trace, fleet, sessions=n, clock=clock,
+                           compress=20000.0, tick_s=1.0, max_len=MAX_LEN,
+                           on_tick=on_tick)
+        wall = time.perf_counter() - t0
+        got = [out["results"].get(r) for r in out["rids"]]
+        equal = _tokens_check(got, want, "phase 37 (d) worker processes")
+        fm = fleet.fleet_metrics()
+        ups = sum(1 for d in engine.events if d.action == "up")
+        downs = sum(1 for d in engine.events if d.action == "down")
+        check(fm["deaths"] >= 1 and kills, "phase 37 (d): the SIGKILL was "
+                                           "not detected")
+        check(ups == 1 and downs == 1, f"phase 37 (d): {ups} scale-ups and "
+                                       f"{downs} drains")
+        check(fm["quarantined"] == 0, "phase 37 (d): requests quarantined")
+        # each live worker's launches against its passes (row 11 and row 7
+        # once a layer a pass, stream_matmul 7 a layer and the head a tick;
+        # the added replica may be drained before it serves)
+        wl, L, worker_passes = {}, FLEET_D_LAYERS, []
+        for h, st0 in zip(handles[1:], stats0[1:]):
+            got = h.launch_counts()
+            st = {k: v - st0[k] for k, v in h.throughput_stats().items()}
+            passes = st["decode_ticks"] + st["prefill_chunks"]
+            worker_passes.append(passes)
+            want = {"paged_attention": L * passes,
+                    "rms_norm": (2 * L + 1) * passes,
+                    "stream_matmul": (7 * L + 1) * st["decode_ticks"]}
+            for name, k in want.items():
+                check(got[name] == k,
+                      f"phase 37 (d): worker {h.pid} launched {name} "
+                      f"{got[name]} times in {passes} passes, want {k}")
+                wl[name] = wl.get(name, 0) + got[name]
+        for name in ("paged_attention", "rms_norm", "stream_matmul"):
+            check(wl[name] > 0, f"phase 37 (d): the workers never "
+                                f"launched {name}")
+        res = dict(sessions=n, tokens_equal=equal, wall_s=wall,
+                   worker_start_s=[starts[i] for i in range(3)],
+                   rpc_round_trip_us_p50=_pct(rtt, 0.5),
+                   rpc_round_trip_us_p99=_pct(rtt, 0.99),
+                   killed_with_requests=killed[0] if killed else None,
+                   salvage_ms=kills[0], deaths=fm["deaths"],
+                   migrated_requests=fm["migrated_requests"],
+                   scale_ups=ups, scale_downs=downs,
+                   states=fleet.replica_states(), ticks=out["ticks"],
+                   weights_fingerprint=parent_fp[:16],
+                   worker_passes=worker_passes, worker_launches=wl)
+    finally:
+        for h in handles:
+            h.close()
+    return res
+
+
+def fleet(torch, ops, model, serve_res):
+    """Phase 37: the serving fleet on the card (see the module
+    docstring)."""
+    res = {}
+    t = time.perf_counter()
+    for name, fn in (("a", fleet_routing), ("b", fleet_chaos),
+                     ("c", fleet_disagg)):
+        res[name] = fn(torch, ops, model, serve_res)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[name]["seconds"] = time.perf_counter() - t
+        log(f"phase 37 ({name}): " + json.dumps(res[name]))
+        t = time.perf_counter()
+    res["d"] = fleet_process(torch, ops, model.cfg)
+    res["d"]["seconds"] = time.perf_counter() - t
+    log("phase 37 (d): " + json.dumps(res["d"]))
+    launches = {}
+    for key in ("a", "b", "c"):
+        for k, v in res[key].pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+    res["launches"] = launches
+    return res
+
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -10396,6 +10999,18 @@ def main() -> int:
             f" s")
         log(card)
         return 0
+    if sys.argv[1:] == ["--only", "fleet"]:
+        # a diagnostic run: the build, phase 4 (the tokens phase 37 holds
+        # the fleet to) and phase 37 alone, no final line
+        model = LlamaForCausalLM(llama3_8b_config())
+        serve_res, _, srv = serve(torch, ops, model)
+        del srv
+        log("phase 37 (fleet): " + json.dumps(fleet(torch, ops, model,
+                                                     serve_res)))
+        log(f"partial run (phases 4, 37 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if sys.argv[1:] == ["--only", "serve"]:
         # a diagnostic run: the build and phases 4, 14, 24 and 25 alone, no
         # final line
@@ -10515,6 +11130,9 @@ def main() -> int:
     # phase 31 (a), (b): dense-cache serving and generate, the bf16 model
     dense_res = dense_generation(torch, ops, model, serve_res["tokens"])
     mark("phase 31 (a), (b) (dense)")
+    # phase 37: the serving fleet over the bf16 model (phase 4's tokens)
+    fleet_res = fleet(torch, ops, model, serve_res)
+    mark("phase 37 (fleet)")
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -10739,6 +11357,8 @@ def main() -> int:
         k["recovery_launches"] = (rec_res["launches"].get(k["name"], 0)
                                   + rec_train["launches"].get(k["name"], 0))
         k["dense_launches"] = dense_launches.get(k["name"], 0)
+        # phase 37 (a)-(c): the in-process fleet's replica passes
+        k["fleet_launches"] = fleet_res["launches"].get(k["name"], 0)
         # phase 32's main path: (a)'s counted steps, (b)'s served run
         k["finetune_launches"] = fin_res["launches"].get(k["name"], 0)
         if k["name"] == "fused_adamw":
@@ -10818,6 +11438,7 @@ def main() -> int:
     log("phase 34 (tensor): " + json.dumps(tensor_res))
     log("phase 35 (ocr): " + json.dumps(ocr_res))
     log("phase 36 (hapi): " + json.dumps(hapi_res))
+    log("phase 37 (fleet): " + json.dumps(fleet_res))
     prev = 0.0
     for name, at in marks:
         log(f"phase time {name}: {at - prev:.1f} s")

@@ -13,8 +13,8 @@ seed, and :meth:`FaultInjector.corrupt` flips the same seeded bit, in numpy
 arrays or in CPU (pinned) tensors of any dtype, bfloat16 included.
 
 Serving hook sites (threaded through ``paddle_tpu_torch/inference/``; the
-fleet sites ``replica_down``, ``migrate_payload`` and ``route`` come with
-the port's ``inference/fleet.py``, which is not ported yet):
+fleet sites ``replica_down``, ``migrate_payload`` and ``route`` fire in
+``inference/fleet.py``):
 
 ========== =================================================== ==========
 site       fires inside                                        effect

@@ -141,12 +141,20 @@ Observability and recovery (as in the JAX server):
   :meth:`~GenerationServer.telemetry_snapshot` and
   :meth:`~GenerationServer.export_chrome_trace`.
 
+``role=`` (paged only) makes the server one class of a disaggregated
+fleet (``inference/fleet.py``): ``"prefill"`` runs chunked prefill only —
+once a request's last chunk has prefilled and its first token is taken it
+parks (:meth:`~GenerationServer.handoff_ready`) for the router to move to
+the decode class over ``evacuate(rids=)`` / ``admit_migrated``, no decode
+pass ever runs it here, and a decode-phase admit (a KV payload, or a
+request that already generated tokens) is refused at the door;
+``"decode"`` marks a handoff target (it serves everything, re-prefilling
+salvaged work); ``"any"`` (default) serves the whole lifecycle.
+
 Not ported yet (their constructor arguments raise ``NotImplementedError``
-when given a non-default value): tensor/context parallelism (``mesh``), replica roles (``role``, with
-``handoff_ready``: the handoff set is filled only by a prefill-class
-replica of the disaggregated fleet), tuned profiles (``profile``) and
-``kernels="pallas"`` (the port has no interpret mode). The fleet's fault
-sites come with the fleet.
+when given a non-default value): tensor/context parallelism (``mesh``,
+ROADMAP A10), tuned profiles (``profile``, ROADMAP A9b) and
+``kernels="pallas"`` (the port has no interpret mode).
 """
 from __future__ import annotations
 
@@ -169,10 +177,12 @@ from .paged_cache import BlockAllocator
 from .scheduler import PRIORITY_NORMAL, SchedEntry, Scheduler
 
 # the JAX server's constructor arguments that the port does not serve yet,
-# each at the one value it takes (the JAX default); any other value raises
-# NotImplementedError. The constructor keeps the JAX server's parameter
-# order, so that a positional call means the same in both packages
-_UNPORTED_DEFAULTS = {"mesh": None, "role": "any", "profile": None}
+# each at the one value it takes (the JAX default) and the queue item that
+# ports it; any other value raises NotImplementedError. The constructor
+# keeps the JAX server's parameter order, so that a positional call means
+# the same in both packages
+_UNPORTED_DEFAULTS = {"mesh": (None, "ROADMAP A10: multi-GPU serving"),
+                      "profile": (None, "ROADMAP A9b: the autotuner")}
 
 
 def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
@@ -357,11 +367,15 @@ class GenerationServer:
                 f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
         if cache == "dense":
             _refuse_paged_only(given)
-        for name, default in _UNPORTED_DEFAULTS.items():
+        for name, (default, item) in _UNPORTED_DEFAULTS.items():
             if given[name] != default:
                 raise NotImplementedError(
                     f"GenerationServer({name}={given[name]!r}) is not "
-                    f"ported yet")
+                    f"ported yet ({item})")
+        if role not in ("any", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'any', 'prefill', or 'decode', got {role!r}")
+        self.role = role
         if kernels == "pallas":
             raise NotImplementedError(
                 "kernels='pallas' forces the Pallas kernels in interpret "
@@ -561,6 +575,10 @@ class GenerationServer:
         # True while a paged slot streams prompt chunks; a dense slot
         # prefills at admission and is never left prefilling
         self._prefilling: List[Optional[bool]] = [None] * max_batch
+        # rids a prefill-class replica has finished prefilling (first token
+        # taken) and parked for the fleet router to hand off to the decode
+        # class through evacuate(rids=) / admit_migrated
+        self._handoff: set = set()
         if cache == "dense":
             self._init_dense(prompt_buckets)
             self._build_executor(kernels, lambda: DenseExecutor(self))
@@ -1295,6 +1313,13 @@ class GenerationServer:
             else:
                 self._activate_slot(slot, req, first)
             self._prefilling[slot] = None
+            if self.role == "prefill" and self._slots[slot] is req:
+                # prefill class: the request now holds exactly the KV and
+                # first token a decode replica resumes from — park it for
+                # the router's handoff instead of decoding here (a replay
+                # parks too: its decode rebuild belongs to the decode
+                # class)
+                self._handoff.add(req.rid)
 
     def _activate_replayed(self, slot: int, req: _Request) -> None:
         """Start a re-prefill replay's decode rebuild: the chunked prefill
@@ -1851,7 +1876,8 @@ class GenerationServer:
                 self._prefill_chunk_step(s)
                 did_prefill = True
         active = [s for s in range(self.max_batch)
-                  if self._slots[s] is not None and not self._prefilling[s]]
+                  if self._slots[s] is not None and not self._prefilling[s]
+                  and self._slots[s].rid not in self._handoff]
         if self._degraded_ticks > 0:
             self._degraded_ticks -= 1
         if active:
@@ -2332,7 +2358,7 @@ class GenerationServer:
         # midway would be a partial restore — corruption, not an error
         for d in snap["requests"]:
             self._validate_snapshot_request(d)
-        self._gen.set_state(snap["generator_state"])
+        self._gen.set_state(_host_tensor(snap["generator_state"]))
         self._step_no = int(snap["step_no"])
         self._next_rid = max(self._next_rid, int(snap["next_rid"]))
         self._sched.restore_state(snap["sched"]["vnow"],
@@ -2375,6 +2401,17 @@ class GenerationServer:
     def _validate_snapshot_request(self, d: Dict[str, Any]) -> None:
         """Reject-at-the-door checks for one snapshot request — run before
         any server state changes."""
+        if self.role == "prefill" and (d.get("phase") == "kv"
+                                       or d.get("generated")):
+            # the prefill class runs chunked prefill ONLY: decode-phase
+            # work (a KV payload, or a request that already generated
+            # tokens and would resume decoding) belongs to the decode
+            # class — admitted here it would stay parked for ever
+            raise ValueError(
+                f"prefill-class replica cannot admit decode-phase "
+                f"request {d['rid']} (phase={d.get('phase')!r}, "
+                f"{len(d.get('generated') or ())} generated tokens) — "
+                f"route it to the decode class")
         if d["adapter"] is not None:
             if self._lora is None:
                 raise ValueError(
@@ -2491,8 +2528,11 @@ class GenerationServer:
         results and dropped markers stay readable here (and ride the
         snapshot). ``trust_kv=False`` salvages a failed server from host
         state. ``rids=``: evacuate only those requests (the snapshot's
-        ``requests`` are filtered to them and only they leave); the warm
-        tier is dropped only by a full evacuation."""
+        ``requests`` are filtered to them and only they leave) — the
+        disaggregated prefill → decode handoff primitive: a prefill-class
+        replica keeps streaming its other prompts while its parked ones
+        (:meth:`handoff_ready`) move to the decode class; the warm tier is
+        dropped only by a full evacuation."""
         snap = self.snapshot(trust_kv=trust_kv)
         keep = None if rids is None else {int(r) for r in rids}
         if keep is not None:
@@ -2502,20 +2542,34 @@ class GenerationServer:
             req = self._slots[s]
             if req is None or (keep is not None and req.rid not in keep):
                 continue
+            self._handoff.discard(req.rid)
             req.table = self.alloc.truncate(req.table, 0)
             self._tel.tracer.close(req.rid, "migrated")
             self._release_slot(s)
         for ent in list(self._sched.waiting()):
             if keep is not None and ent.rid not in keep:
                 continue
+            self._handoff.discard(ent.rid)
             self._sched.remove(ent.rid)
             if ent.swap is not None:
                 self._offload.discard(ent.swap)
             self._tel.tracer.close(ent.rid, "migrated")
         if keep is None:
+            self._handoff.clear()
             # the warm entries left with the snapshot
             self._offload.warm.clear()
         return snap
+
+    def handoff_ready(self) -> List[int]:
+        """Rids a prefill-class replica has finished prefilling and parked
+        for the decode class — the fleet router's per-step handoff sweep
+        passes them straight to ``evacuate(trust_kv=True, rids=...)``.
+        Pruned lazily against the live request set (a parked request can
+        still be cancelled or quarantined out from under the set)."""
+        live = {r.rid for r in self._slots if r is not None}
+        live.update(e.rid for e in self._sched.waiting())
+        self._handoff &= live
+        return sorted(self._handoff)
 
     # -------------------------------------------------------------- metrics
     def kv_stats(self) -> Dict[str, int]:
@@ -2621,7 +2675,12 @@ class GenerationServer:
 
 
 def _host_tensor(a) -> torch.Tensor:
-    """A snapshot payload array as a host tensor (numpy arrays of the
-    pool's dtype are taken as they are)."""
-    return a if isinstance(a, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(a))
+    """A snapshot payload array as a host tensor: a tensor as it is, a numpy
+    array without a copy (a payload that crossed a process boundary:
+    ``ml_dtypes.bfloat16`` read back as bf16)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

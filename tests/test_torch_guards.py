@@ -1,7 +1,8 @@
 """Guards of the PyTorch port's package rules: it imports neither ``jax``
-nor the JAX package, its entry points run on the card by default and raise
-when there is none, and ``chip_smoke.py`` fails (printing no result) where
-there is no card or no port beside it."""
+nor the JAX package (nor does a replica worker process), its entry points
+run on the card by default and raise when there is none, and
+``chip_smoke.py`` fails (printing no result) where there is no card or no
+port beside it."""
 import ast
 import os
 import subprocess
@@ -24,6 +25,15 @@ from paddle_tpu_torch.parallel import ParallelEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
 PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
+                "paddle_tpu_torch.autotune",
+                "paddle_tpu_torch.autotune.workload",
+                "paddle_tpu_torch.fleetsim", "paddle_tpu_torch.fleetsim.clock",
+                "paddle_tpu_torch.fleetsim.sim",
+                "paddle_tpu_torch.fleetsim.traffic",
+                "paddle_tpu_torch.inference.autoscale",
+                "paddle_tpu_torch.inference.fleet",
+                "paddle_tpu_torch.inference.replica_worker",
+                "paddle_tpu_torch.inference.transport",
                 "paddle_tpu_torch.compat", "paddle_tpu_torch.device",
                 "paddle_tpu_torch.linalg",
                 "paddle_tpu_torch.regularizer",
@@ -443,19 +453,20 @@ def test_new_cuda_wrappers_raise_on_cpu_tensors(name):
                                     dict(spec=SpecConfig(k=0)),
                                     dict(telemetry=object()),
                                     dict(tick_window=0),
-                                    dict(role="prefill"),
+                                    dict(role="bogus"),
                                     dict(kernels="pallas")])
 def test_unported_server_options_raise(kwargs):
     """Each unported option of the paged server raises
-    NotImplementedError; ``cache``, ``tick_window``, ``spec`` and
-    ``telemetry`` are served, and a cache that is neither "dense" nor
-    "paged", a window under one tick, an invalid ``SpecConfig`` or a
-    telemetry that is none of None, a bool or a ``ServingTelemetry``
-    raises ValueError, as in JAX."""
+    NotImplementedError; ``cache``, ``tick_window``, ``spec``,
+    ``telemetry`` and ``role`` are served, and a cache that is neither
+    "dense" nor "paged", a window under one tick, an invalid
+    ``SpecConfig``, a telemetry that is none of None, a bool or a
+    ``ServingTelemetry`` or a role that is none of "any", "prefill" and
+    "decode" raises ValueError, as in JAX."""
     model = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
                              device="cpu")
-    exc = ValueError if {"cache", "tick_window", "spec", "telemetry"} & \
-        set(kwargs) else NotImplementedError
+    exc = ValueError if {"cache", "tick_window", "spec", "telemetry",
+                         "role"} & set(kwargs) else NotImplementedError
     with pytest.raises(exc):
         GenerationServer(model, device="cpu", **{"cache": "paged", **kwargs})
 
@@ -853,3 +864,109 @@ def test_the_loaders_workers_start_by_forkserver_once_cuda_is_up(
     assert worker_pool._mp_context().get_start_method() == "forkserver"
     monkeypatch.setenv("PADDLE_TPU_MP_START", "spawn")
     assert worker_pool._mp_context().get_start_method() == "spawn"
+
+
+@pytest.mark.parametrize("name,item", [("mesh", "A10"), ("profile", "A9b")])
+def test_mesh_and_profile_raise_naming_their_queue_items(name, item):
+    """``mesh=`` and ``profile=`` are still unported: each raises
+    NotImplementedError naming the ROADMAP item that ports it; ``role=``
+    is served on the paged path."""
+    model = _tiny_model()
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        GenerationServer(model, cache="paged", device="cpu",
+                         **{name: "tp=2" if name == "mesh" else "x.json"})
+    assert set(_UNPORTED_DEFAULTS) == {"mesh", "profile"}
+    for role in ("any", "prefill", "decode"):
+        srv = GenerationServer(model, cache="paged", device="cpu",
+                               role=role)
+        assert srv.role == role and srv.handoff_ready() == []
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_a_role_requires_the_paged_cache_as_in_jax(role):
+    """``role=`` on the dense path raises the JAX server's ValueError, in
+    its words."""
+    from types import SimpleNamespace
+
+    from paddle_tpu.inference.serving import GenerationServer as JServer
+    from paddle_tpu.models import LlamaConfig as JConfig
+
+    with pytest.raises(ValueError) as port:
+        GenerationServer(_tiny_model(), device="cpu", role=role)
+    with pytest.raises(ValueError) as jax_err:
+        # the JAX server reads only the config before this check
+        JServer(SimpleNamespace(cfg=JConfig()), role=role)
+    assert str(port.value) == str(jax_err.value)
+    assert "requires cache='paged'" in str(port.value)
+
+
+def test_fleet_modules_and_a_worker_import_without_jax():
+    """The fleet's modules import, and a replica worker builds its server
+    on the CPU and answers through the frame codec, with neither jax nor
+    the JAX package loaded in the parent or in the worker process."""
+    code = ("import os, sys\n"
+            "import paddle_tpu_torch.autotune, paddle_tpu_torch.fleetsim\n"
+            "from paddle_tpu_torch.inference import (FleetRouter,\n"
+            "    SubprocessReplica, ElasticAutoscaler)\n"
+            "spec = {'model': {'config': dict(vocab_size=64, hidden_size=32,\n"
+            "    intermediate_size=64, num_hidden_layers=1,\n"
+            "    num_attention_heads=2, num_key_value_heads=1,\n"
+            "    max_position_embeddings=64, dtype='float32'), 'seed': 1},\n"
+            "    'server': dict(cache='paged', max_batch=1, max_len=32,\n"
+            "    block_size=4, prefill_chunk=8), 'device': 'cpu'}\n"
+            "h = SubprocessReplica(spec)\n"
+            "rid = h.submit([1, 2, 3], max_new_tokens=2)\n"
+            "while h.step(): pass\n"
+            "assert len(h.take_results()[rid]) == 5\n"
+            "h.ping()\n"
+            "h.close()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "print('LOADED', bad)\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**NO_CARD_ENV, "OMP_NUM_THREADS": "1"})
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+    # the worker's own interpreter: the module it runs, imported alone
+    w = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, paddle_tpu_torch.inference.replica_worker as w\n"
+         "w.build_server({'model': {'config': dict(vocab_size=64, "
+         "hidden_size=32, intermediate_size=64, num_hidden_layers=1, "
+         "num_attention_heads=2, num_key_value_heads=1, "
+         "max_position_embeddings=64, dtype='float32')}, 'server': "
+         "dict(cache='paged', max_batch=1, max_len=32, block_size=4), "
+         "'device': 'cpu'})\n"
+         "print('LOADED', sorted(m for m in sys.modules if m.split('.')[0] "
+         "in ('jax', 'jaxlib', 'paddle_tpu')))\n"],
+        cwd="/", capture_output=True, text=True, timeout=120,
+        env={**NO_CARD_ENV, "PYTHONPATH": str(ROOT)})
+    assert w.returncode == 0, w.stderr
+    assert "LOADED []" in w.stdout, w.stdout
+
+
+def test_a_worker_and_its_handle_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """A replica spec without ``device`` means the CUDA card: the worker's
+    ``build_server`` and the ``SubprocessReplica`` handle raise where
+    there is none, before any model or process exists; a worker on the
+    card refuses the reference kernels."""
+    from paddle_tpu_torch.inference import replica_worker
+    from paddle_tpu_torch.inference.transport import SubprocessReplica
+
+    spec = {"model": {"config": dict(num_hidden_layers=1)},
+            "server": dict(cache="paged")}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        replica_worker.build_server(spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SubprocessReplica(spec)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    from paddle_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "library", lambda: None)
+    with pytest.raises(ValueError, match="kernels='reference' is refused"):
+        replica_worker.build_server(
+            {**spec, "server": dict(cache="paged", kernels="reference")})
