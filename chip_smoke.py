@@ -443,10 +443,10 @@ launched), against ``merge_lora``'s model served plain: tokens equal or
 every first difference a near tie (phase 31's rule); row 12 at the
 trained factors against its plain twin; (c) ``offload_opt_state=True``:
 2 layers, 3 steps, parameters and moments bit for bit the resident
-engine's; then a full finetune at 8 layers, or the deepest depth below
+engine's; then a full finetune at 4 layers, or the deepest depth below
 whose moments fit ``MemAvailable`` (read with ``ulimit -l`` first; pinning that fails
 raises), 3 graphed steps: ms a step, the pinned copy rates each way, the
-PCIe bound, peak memory; (d) ``PT_MT_ADAMW=1`` at phase 7's depth (more
+PCIe bound, peak memory; (d) ``PT_MT_ADAMW=1`` at 6 layers (more
 than 2^31 elements in one launch): parameters bit for bit the per-tensor
 path's, AdamW device ms and launches a step both ways, the flat launch
 against its byte bound; (e) ``remat_policy="offload_attn"`` against
@@ -498,7 +498,8 @@ per-step argmax and greedy decodes equal, not all blank); (d) LSTM / GRU /
 SimpleRNN, ``ctc_loss`` (timed beside ``F.ctc_loss``, a yardstick off the
 path) and ``interpolate`` in every mode against the CPU; (e) an eval
 forward of each vision family at its native size against the CPU.
-Phase 32 (c)'s full offloaded finetune runs at 8 layers to pay for it.
+Phase 32 (c)'s full offloaded finetune runs at 8 layers to pay for it
+(4 since phase 38).
 
 Phase 36, after phase 35, drives the data pipeline, the metrics,
 ``paddle.Model`` and the rest of ``vision`` (``paddle_tpu_torch/{io,
@@ -2498,8 +2499,10 @@ def serve_int8_kv(torch, ops, model, megakernel, graphs=True):
 GRAPH_WALL_RATIO = 1.25
 WINDOW = 4
 # an eager twin serves its cell's first EAGER_REQUESTS requests (of 12:
-# prompts of 1-8 chunks, one wave of the 8 slots), the graphed run all
-EAGER_REQUESTS = 6
+# prompts of 1-8 chunks; the LoRA cell's first four take three adapters
+# through two live pages, so an eviction precedes an upload), the graphed
+# run all
+EAGER_REQUESTS = 4
 
 
 def _pass_line(res):
@@ -3224,6 +3227,7 @@ def serve_spec(torch, ops, model, phase4_tokens):
           f"phase 26 (d): sampled twice: {det['sampled_twice_identical']} of "
           f"{len(rs[0])} requests identical")
     _twin_launches("phase 26 (d)", cells["ngram"], eager)
+    t_cells = time.perf_counter()
     # the planted fault of (c): one draft accepted too many
     orig = spec_mod.speculative_accept
     spec_mod.speculative_accept = _faulty_accept(orig)
@@ -3280,6 +3284,8 @@ def serve_spec(torch, ops, model, phase4_tokens):
                              f"identical to the plain server's ({rows})")
     log("phase 26 (c), greedy tokens against the plain server: "
         + json.dumps(ties))
+    log(f"phase 26 (b), (c) after the cells: "
+        f"{time.perf_counter() - t_cells:.1f} s")
     del m32
     gc.collect()
     torch.cuda.empty_cache()
@@ -7186,13 +7192,15 @@ FT_LAYERS, FT_B, FT_S, FT_STEPS, FT_WARMUP = 32, 2, 2048, 8, 2
 FT_RANK, FT_ALPHA, FT_LR, FT_SEED = 8, 16.0, 2e-4, 32
 FT_SERVE_LENS = (100, 256, 517, 1000)
 FT_NEW = 24
-# (c): 3 graphed steps (warm-up, capture, replay); (d) at phase 7's depth;
-# (e) phase 19's cell, S = 16384 on its layers; (f) at 2 layers
-OFF_STEPS, FLAT_LAYERS, OA_S, AMP_LAYERS = 3, 8, 16384, 2
+# (c): 3 graphed steps (warm-up, capture, replay); (d) at 6 layers (2.36e9
+# elements, still past 2^31 in one launch; phase 7's 8 until phase 38
+# needed the time); (e) phase 19's cell, S = 16384 on its layers; (f) at 2
+# layers
+OFF_STEPS, FLAT_LAYERS, OA_S, AMP_LAYERS = 3, 6, 16384, 2
 # (c)'s full offloaded finetune: at most this depth (all 32 layers pinned
-# 59.8 GiB in 32.4 s, 12 layers 27.3 GiB in 13.5 s; 8 pay for phase 35's
-# time)
-OFF_FULL_LAYERS = 8
+# 59.8 GiB in 32.4 s, 12 layers 27.3 GiB in 13.5 s; 8 paid for phase 35's
+# time, 4 for phase 38's)
+OFF_FULL_LAYERS = 4
 # host memory the offloaded cell leaves free beside its pinned moments
 OFF_HOST_MARGIN = 16 * 2 ** 30
 
@@ -7602,9 +7610,9 @@ def finetune_offload(torch, ops):
 
 def finetune_flat(torch, ops):
     """Phase 32 (d): the flat multi-tensor AdamW (``PT_MT_ADAMW=1``) at
-    phase 7's depth: 3 graphed steps, parameters bit for bit the
-    per-tensor path's; AdamW device ms and launches a step both ways; the
-    flat launch against its byte bound."""
+    ``FLAT_LAYERS`` layers (past 2^31 elements): 3 graphed steps,
+    parameters bit for bit the per-tensor path's; AdamW device ms and
+    launches a step both ways; the flat launch against its byte bound."""
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama3_8b_config)
     from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
@@ -7830,12 +7838,15 @@ def finetune(torch, ops):
     path ((a)'s steps and (b)'s counted serving run)."""
     t0 = time.perf_counter()
     res = {}
+    part_s = {}
     lora, model = finetune_lora(torch, ops)
     res["a"] = lora
+    part_s["a"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         res["b"] = finetune_serve(torch, ops, model, tmp)
     del model
     _free(torch)
+    part_s["b"] = time.perf_counter() - t0 - sum(part_s.values())
     launches = dict(lora["launches"])
     for k, n in res["b"]["launches"].items():
         launches[k] = launches.get(k, 0) + n
@@ -7843,11 +7854,12 @@ def finetune(torch, ops):
               "fused_adamw", "paged_attention", "fused_lora_matmul"):
         check(launches.get(k, 0) > 0, f"phase 32: {k} was not launched on "
                                       f"the finetune path")
-    res["c"] = finetune_offload(torch, ops)
-    res["d"] = finetune_flat(torch, ops)
-    res["e"] = finetune_offload_attn(torch, ops)
-    res["f"] = finetune_amp(torch, ops)
+    for key, fn in (("c", finetune_offload), ("d", finetune_flat),
+                    ("e", finetune_offload_attn), ("f", finetune_amp)):
+        res[key] = fn(torch, ops)
+        part_s[key] = time.perf_counter() - t0 - sum(part_s.values())
     res["launches"] = launches
+    res["part_s"] = part_s
     res["phase_s"] = time.perf_counter() - t0
     log(f"phase 32: {res['phase_s']:.1f} s, {card_line()}")
     return res
@@ -10837,6 +10849,539 @@ def fleet(torch, ops, model, serve_res):
 
 
 
+# phase 38: the autotuner. (b)'s workload (the JAX tool's defaults: 16
+# requests of 32 new tokens on the short prompt ladder, seed 0) and trial
+# budget; (d) serves phase 4's first MK_KNOB_REQUESTS requests
+TUNE_REQUESTS, TUNE_NEW, TUNE_BUDGET = 16, 32, 6
+MK_KNOB_REQUESTS = 6
+# (b)'s probe of the token gate: the reference config with one knob
+# changed — the prefill's geometry (block size, chunk), whose products'
+# rounding had never been compared
+GATE_PROBE = ({"block_size": 8}, {"block_size": 32}, {"prefill_chunk": 32},
+              {"prefill_chunk": 128})
+# the kernels' times in PERF.md section 6 at the shapes (a) sweeps (the
+# card's earlier runs, H100 80GB HBM3 at 700 W), printed beside the
+# default geometry's time
+PERF6_MS = {"rms_norm 8x4096": 0.00214, "rms_norm 4096x4096": 0.0265,
+            "layer_norm 4096x768": 0.00701,
+            "paged_attention decode_all_long": 0.03777,
+            "paged_attention verify_5": 0.01552,
+            "paged_attention_int8 verify_5": 0.01653,
+            "decode_tick W=1 (full depth)": 8.749}
+
+
+def _bits(torch, t):
+    """A tensor's bits as host numpy: the sweep's bitwise gate."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.view(torch.int16)
+    return t.detach().cpu().numpy()
+
+
+def _sweep_cell(torch, label, op, run, candidates=None, cache=None,
+                exact=True, iters=20, flush=None, **kw):
+    """``sweep_kernel_geometry`` over one cell: ``run(geometry)`` launches
+    the kernel under a candidate and returns its output; each candidate's
+    device ms (a CUDA graph of ``iters`` calls, each after a rewrite of
+    ``flush`` when given: the kernel's own phase's timing), its bits
+    against the default's, the winner and its speed-up are logged.
+    ``exact``: every candidate is a schedule change only, so each must give
+    the default's bits (a rejection fails the phase). Returns (result dict,
+    winner's output)."""
+    from paddle_tpu_torch.autotune import sweep_kernel_geometry
+
+    outs = {}
+
+    def measure(geom):
+        key = json.dumps(geom.asdict(), sort_keys=True)
+        out = run(geom)
+        torch.cuda.synchronize()
+        outs[key] = out
+        ms = time_ms(lambda: run(geom), iters, flush)
+        return _bits(torch, out), ms / 1e3
+
+    lines = []
+    res = sweep_kernel_geometry(measure, op, candidates=candidates,
+                                cache=cache, log=lines.append, **kw)
+    for ln in lines:
+        log(f"phase 38 (a) {label}: {ln}")
+    trials = [dict(geometry=t.geometry, ms=t.seconds * 1e3, exact=t.exact,
+                   accepted=t.accepted) for t in res.trials]
+    if exact:
+        check(all(t.exact for t in res.trials),
+              f"phase 38 (a) {label}: a schedule's output differs from the "
+              f"default's: " + json.dumps([t for t in trials
+                                           if not t["exact"]]))
+    out = dict(cell=label, op=op, trials=trials, winner=res.winner,
+               winner_index=res.winner_index, speedup=res.speedup,
+               default_ms=trials[0]["ms"],
+               rejected=[t["geometry"] for t in trials if not t["exact"]])
+    return out, outs[json.dumps(res.winner, sort_keys=True)]
+
+
+def autotune_sweeps(torch, ops, model, cache):
+    """Phase 38 (a): ``sweep_kernel_geometry`` on the card for each cell —
+    paged attention (fp, int8) at decode (B = 8, W = 1, every row at 2047
+    keys) and at the verify window (W = 5), RMSNorm at 8 x 4096 and 4096 x
+    4096 and LayerNorm at 4096 x 768 (bf16), fused LoRA at rank 8 at
+    decode, the fused CE forward at phase 7's shape, flash attention's one
+    Hopper candidate, and the megakernel's prefetch depth as a full-depth
+    tick at W = 1. Each winner against its plain twin within its row's
+    tolerance; the serving cells' winners go into ``cache``."""
+    from paddle_tpu_torch.autotune import kernel_geometry as kg
+    from paddle_tpu_torch.nn import lora as tl
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import fused_ce, fused_norm
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    pac = importlib.import_module(PAGED_WRAPPERS)
+    cfg = model.cfg
+    kind = kg.local_device_kind()
+    H, KV, D, hid = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim, cfg.hidden_size)
+    g = torch.Generator(device="cuda").manual_seed(38)
+    # each cell timed as its row's phase times it: paged attention and
+    # fused LoRA 50 calls behind a rewrite of this (inputs cold in device
+    # memory, phases 3 and 10), the norms 200 (phases 2 and 21)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    cells = []
+    # paged attention: fp and int8 pools, decode and the verify window
+    for quant in (False, True):
+        wrapper = pac.paged_attention_int8_cuda if quant else \
+            pac.paged_attention_cuda
+        plain_fn = pa.paged_verify_attention_q if quant else \
+            pa.paged_verify_attention
+        for form, B, W, pos in (("decode_all_long", MAX_BATCH, 1,
+                                 [MAX_LEN - 1] * MAX_BATCH),
+                                ("verify_5", MAX_BATCH, MK_VERIFY_W,
+                                 [1000, 511, 509, 255, 37, 700, 13, 128])):
+            q, kp, vp, tables, posv = _paged_case(torch, g, B, W, H, KV, D,
+                                                  BLOCK_SIZE, pos,
+                                                  TABLE_WIDTH)
+            if quant:
+                kq, ks = pa.quantize_block_kv(kp)
+                vq, vs = pa.quantize_block_kv(vp)
+                args = (q, kq, ks, vq, vs, tables, posv)
+                rms_v = pa.dequantize_block_kv(vq[1:], vs[1:]).square() \
+                    .mean().sqrt().item()
+            else:
+                args = (q, kp, vp, tables, posv)
+                rms_v = vp[1:].float().square().mean().sqrt().item()
+            label = f"paged_attention{'_int8' if quant else ''} {form}"
+            cell, win = _sweep_cell(
+                torch, label, "paged_attention",
+                lambda geom: wrapper(*args, geometry=geom), iters=50,
+                flush=flush,
+                cache=cache if form == "decode_all_long" else None,
+                dtype="int8" if quant else "bfloat16", key=D,
+                quantized=quant, shape=dict(head_dim=D, block_size=BLOCK_SIZE,
+                                            window=W, rep=H // KV,
+                                            blocks=TABLE_WIDTH))
+            ops.set_kernel_mode("reference")
+            ref = plain_fn(*args)
+            ops.set_kernel_mode("auto")
+            cell["winner_err_over_tol"] = _row_ratio(win, ref,
+                                                     rms_v).max().item()
+            check(cell["winner_err_over_tol"] <= 1.0,
+                  f"phase 38 (a) {label}: the winner is off its plain twin "
+                  f"by {cell['winner_err_over_tol']:.3g} x the tolerance")
+            cell["config"] = pac.kernel_config(
+                max(c["geometry"]["kv_block_depth"] for c in cell["trials"]))
+            cell["perf6_ms"] = PERF6_MS.get(label)
+            cells.append(cell)
+            del args, q, kp, vp
+    # the norms: RMSNorm (row 7) at decode and at 4096 rows, LayerNorm (row
+    # 8) at ERNIE's shape
+    for name, rows, width in (("rms_norm", MAX_BATCH, hid),
+                              ("rms_norm", 4096, hid),
+                              ("layer_norm", 4096, 768)):
+        x = torch.randn(rows, width, generator=g, device="cuda").to(
+            torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(width, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        b = (0.1 * torch.randn(width, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        if name == "rms_norm":
+            def run(geom, x=x, w=w):
+                return fused_norm.rms_norm_cuda(x, w, cfg.rms_norm_eps, geom)
+            ref = fused_norm._rms_ref(x, w, cfg.rms_norm_eps)
+        else:
+            def run(geom, x=x, w=w, b=b):
+                return fused_norm.layer_norm_cuda(x, w, b, 1e-12, geom)
+            ref = fused_norm._ln_ref(x, w, b, 1e-12)
+        label = f"{name} {rows}x{width}"
+        cell, win = _sweep_cell(
+            torch, label, "fused_norm", run, iters=200,
+            cache=cache if rows != 4096 or width != hid else None,
+            dtype="bfloat16", key=width,
+            shape=dict(rows_total=rows, width=width))
+        if name == "rms_norm":
+            tol = 2.0 ** -7 * ref.float().abs() + 1e-6
+            cell["winner_err_over_tol"] = ((win.float() - ref.float()).abs()
+                                           / tol).max().item()
+        else:
+            cell["winner_err_over_tol"] = _ln_ratio(win, ref, x, w,
+                                                    "bf16").max().item()
+        check(cell["winner_err_over_tol"] <= 1.0,
+              f"phase 38 (a) {label}: the winner is off its plain twin")
+        cell["perf6_ms"] = PERF6_MS.get(label)
+        cells.append(cell)
+    # fused LoRA at rank 8, decode (q's shape): rank padding on the host
+    R, K, N = LORA_MAX_RANK, hid, hid
+    x = torch.randn(MAX_BATCH, 1, K, generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (0.02 * torch.randn(K, N, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    A = 0.02 * torch.randn(4, 2, K, R, generator=g, device="cuda")
+    Bf = 0.02 * torch.randn(4, 2, R, N, generator=g, device="cuda")
+    s = torch.tensor([0.0, 2.0, 1.0, 0.5], device="cuda")
+    ai = torch.tensor([1, 2, 3, 0, 1, 0, 3, 2], dtype=torch.int32,
+                      device="cuda")
+    pooled = tl.PooledFactors(A, Bf, s, 1, ai)
+    cell, win = _sweep_cell(
+        torch, "fused_lora rank 8 decode", "fused_lora",
+        lambda geom: tl.lora_matmul(x, w, pooled, geometry=geom), iters=50,
+        flush=flush, cache=cache, exact=False, dtype="bfloat16", key=R,
+        shape=dict(seq=1, in_dim=K, out_dim=N, rank=R))
+    ref = tl._lora_plain(x, w, *pooled.gather())
+    Ag, Bg, sg = pooled.gather()
+    mag = (x.float().abs() @ w.float().abs()
+           + torch.bmm(torch.bmm(x.float(), Ag).abs(), Bg.abs())
+           * sg[:, None, None])
+    cell["winner_err_over_tol"] = _el_ratio(win, ref, mag, K).max().item()
+    check(cell["winner_err_over_tol"] <= 1.0,
+          "phase 38 (a) fused_lora: the winner is off its plain twin")
+    cells.append(cell)
+    # the fused CE forward at phase 7's shape: rows sub-tiles of the
+    # logits product (the library's product picks its kernel by M: the
+    # gate decides, and what it rejects is reported)
+    T = TRAIN_B * TRAIN_S
+    h = (0.5 * torch.randn(T, hid, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    wv = (0.02 * torch.randn(hid, cfg.vocab_size, generator=g,
+                             device="cuda")).to(torch.bfloat16)
+    labels = torch.randint(0, cfg.vocab_size, (T,), generator=g,
+                           device="cuda")
+    chunk = min(cfg.ce_chunk_size, T)
+    with torch.no_grad():
+        cell, win = _sweep_cell(
+            torch, f"fused_ce {T}x{hid}x{cfg.vocab_size}", "fused_ce",
+            lambda geom: fused_ce.fused_linear_cross_entropy(
+                h, wv, labels, chunk_size=chunk, geometry=geom), iters=2,
+            cache=cache, exact=False, dtype="bfloat16", key=hid,
+            shape=dict(rows_total=chunk, hidden=hid, vocab=cfg.vocab_size))
+    cells.append(cell)
+    del h, wv
+    # flash attention: the Hopper model keeps its one (default) schedule
+    # (block_q / block_kv wait for ROADMAP A9c)
+    from paddle_tpu_torch.ops.flash_attention_cuda import flash_fwd_cuda
+
+    qf = torch.randn(1, H, 2048, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    kf = torch.randn(1, KV, 2048, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    cell, _ = _sweep_cell(
+        torch, "flash_attention 2048", "flash_attention",
+        lambda geom: flash_fwd_cuda(qf, kf, kf, True, D ** -0.5)[0],
+        cache=cache, dtype="bfloat16", key=D,
+        shape=dict(head_dim=D, seq_q=2048, seq_k=2048))
+    check(len(cell["trials"]) == 1, "flash attention: a non-default "
+                                    "schedule among the Hopper candidates")
+    cells.append(cell)
+    # the megakernel's prefetch depth: a full-depth tick at W = 1
+    L = cfg.num_hidden_layers
+    weights = mk.stack_layer_weights(model)
+    xt, pools, tables, posv, cosr, sinr = _tick_inputs(torch, model, g, L, 1)
+    cands, refused = [], {}
+    for depth in (2, 1, 4):
+        geom = mk.MegakernelGeometry(prefetch_depth=depth)
+        errs = geom.hopper_errors(intermediate=cfg.intermediate_size,
+                                  rows=MAX_BATCH)
+        if errs:
+            refused[depth] = errs
+        else:
+            cands.append(geom)
+    with torch.no_grad():
+        cell, win = _sweep_cell(
+            torch, "decode_tick W=1 (full depth)", "megakernel",
+            lambda geom: decode_tick_cuda(
+                xt, pools, tables, posv, weights, cosr, sinr,
+                eps=cfg.rms_norm_eps, stages=geom.ring_stages(),
+                ffn_steps=geom.ffn_steps()), iters=5,
+            candidates=cands, dtype="bfloat16", key=hid)
+    cell["refused"] = {str(k): v for k, v in refused.items()}
+    cell["perf6_ms"] = PERF6_MS.get("decode_tick W=1 (full depth)")
+    cells.append(cell)
+    del pools, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cells
+
+
+def _traffic_tokens(torch, srv, spec, warm: int = 2):
+    """Serve a workload as a TrialRunner does (warm-up requests from the
+    disjoint stream, then the measured traffic): (tokens fingerprint,
+    graphs captured after the warm-up, generated tokens, outputs in
+    order)."""
+    from paddle_tpu_torch.autotune import (draw_traffic, submit_traffic,
+                                           tokens_fingerprint,
+                                           warmup_traffic)
+
+    submit_traffic(srv, warmup_traffic(spec, warm))
+    srv.run()
+    before = srv._exec.captures
+    handed = submit_traffic(srv, draw_traffic(spec).requests)
+    results = srv.run()
+    outs = [list(results.get(rid, [])) for rid in handed]
+    new = sum(len(o) - len(r.prompt) for o, r in zip(outs, handed.values()))
+    return (tokens_fingerprint(outs), srv._exec.captures - before, new,
+            outs)
+
+
+def autotune_search(torch, ops, model, cache, tmpdir):
+    """Phase 38 (b) and (c): the seeded search over the card's servers
+    (the default-config reference trial first), its profile written with
+    (a)'s cache, and ``GenerationServer(profile=)`` on (b)'s workload."""
+    from paddle_tpu_torch.autotune import (SHORT_PROMPT_LADDER, TrialRunner,
+                                           TunedProfile, WorkloadSpec,
+                                           autotune, engine_space,
+                                           install_geometry_cache,
+                                           local_device_kind)
+    from paddle_tpu_torch.inference.serving import GenerationServer
+
+    wl = WorkloadSpec(requests=TUNE_REQUESTS, max_new=TUNE_NEW,
+                      prompt_ladder=SHORT_PROMPT_LADDER, seed=0)
+    runner = TrialRunner(model, wl, max_batch=MAX_BATCH)
+    # the space the card can serve: cp bounded by the cards, the kernel
+    # tier's megakernel geometry by the Hopper model at this model's width
+    space = engine_space(max_len=runner.max_len,
+                         devices=torch.cuda.device_count(),
+                         model_cfg=model.cfg, max_batch=MAX_BATCH)
+    install_geometry_cache(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lines = []
+    prof, trials = autotune(runner, budget=TUNE_BUDGET, seed=0, space=space,
+                            geometry_cache=cache, log=lines.append)
+    search_s = time.perf_counter() - t0
+    for ln in lines:
+        log(f"phase 38 (b): {ln}")
+    ref = trials[0]
+    check(ref.index == 0 and ref.rung == "full" and
+          ref.config == space.default(), "phase 38 (b): the reference trial "
+                                         "is not the default config first")
+    by_knob = {}
+    rows = []
+    for t in trials:
+        rows.append(dict(index=t.index, rung=t.rung, fingerprint=t.fingerprint,
+                         tok_s=t.features.tok_s, accepted=t.accepted,
+                         reject_reason=t.reject_reason,
+                         predicted_tok_s=t.predicted_tok_s,
+                         recompiles=t.features.recompiles,
+                         knobs={k: v for k, v in t.config.items()
+                                if v != ref.config[k]}))
+        if not t.accepted:
+            for k in rows[-1]["knobs"] or ("(none: the default config)",):
+                kind = (t.reject_reason or "").split(":")[0]
+                by_knob.setdefault(k, {}).setdefault(kind, 0)
+                by_knob[k][kind] += 1
+    win = trials[prof.search["winner_trial"]]
+    # the token gate knob by knob: the reference config with one knob
+    # changed, on the search's short rung against the reference config on
+    # the same rung
+    short = wl.truncated(max(2, wl.requests // 4))
+    ref_short = runner.run(ref.config, workload=short)[1]
+    probe = {}
+    for knobs in GATE_PROBE:
+        cfg = space.validate(dict(ref.config, **knobs))
+        fv, fp, findings = runner.run(cfg, workload=short)
+        probe[",".join(f"{k}={v}" for k, v in knobs.items())] = dict(
+            tokens_equal=fp == ref_short, tok_s=fv.tok_s,
+            findings=[f["kind"] for f in findings])
+    path = os.path.join(tmpdir, "profile.json")
+    prof.save(path)
+    res_b = dict(trials=rows, rejections_by_knob=by_knob,
+                 gate_by_single_knob=probe,
+                 winner_trial=win.index, winner_config=win.fingerprint,
+                 winner_tok_s=win.features.tok_s,
+                 reference_tok_s=ref.features.tok_s,
+                 winner_over_reference=win.features.tok_s
+                 / max(ref.features.tok_s, 1e-9),
+                 search_s=search_s,
+                 peak_memory_over_model_gb=(torch.cuda.max_memory_allocated()
+                                            - base_mem) / 2 ** 30,
+                 profile_geometry_fingerprint=cache.fingerprint(),
+                 device_kind=local_device_kind(),
+                 memory_after_search_gb=(torch.cuda.memory_allocated()
+                                         - base_mem) / 2 ** 30)
+    check(res_b["memory_after_search_gb"] < 1.0,
+          "phase 38 (b): the trials' servers were not freed")
+    log("phase 38 (b) search: " + json.dumps(res_b))
+
+    # (c): the profile, applied by GenerationServer(profile=)
+    srv = GenerationServer(model, max_batch=MAX_BATCH,
+                           max_len=runner.max_len, profile=path,
+                           device=model.device)
+    fp, captured, new, _ = _traffic_tokens(torch, srv, wl)
+    srv.telemetry_snapshot()
+    gauge = srv.telemetry.registry.get("serving_kernel_geometry")
+    sources = {op: src for op, (_, src) in srv.kernel_geometry.items()}
+    for op, src in sources.items():
+        check(gauge is not None and gauge.value(op=op, source=src) == 1.0,
+              f"phase 38 (c): no serving_kernel_geometry gauge for {op}")
+        check(src == "profile", f"phase 38 (c): {op} resolved {src!r}, "
+                                f"not the profile's cache")
+    snap = srv.snapshot()
+    install_geometry_cache(None)
+    plain_prof = TunedProfile.from_dict(dict(TunedProfile.load(path)
+                                             .to_dict(), kernel_geometry=None))
+    other = GenerationServer(model, max_batch=MAX_BATCH,
+                             max_len=runner.max_len, profile=plain_prof,
+                             device=model.device)
+    try:
+        other.restore(snap)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "kernel_geometry" in refused,
+          f"phase 38 (c): a snapshot restored into a server of another "
+          f"geometry ({refused})")
+    other.close()
+    srv.close()
+    install_geometry_cache(None)
+    res_c = dict(tokens_fingerprint=fp, reference_fingerprint=ref.tokens_fp,
+                 winner_fingerprint=win.tokens_fp,
+                 captures_after_warmup=captured, new_tokens=new,
+                 sources=sources, restore_refused=refused,
+                 geometry={op: g.asdict()
+                           for op, (g, _) in srv.kernel_geometry.items()})
+    log("phase 38 (c) profile=: " + json.dumps(res_c))
+    check(fp == ref.tokens_fp, "phase 38 (c): the profile server's tokens "
+                               "differ from the reference trial's")
+    check(captured == 0, f"phase 38 (c): {captured} graphs captured after "
+                         f"the warm-up")
+    return res_b, res_c
+
+
+def autotune_megakernel(torch, ops, model, phase4_tokens, count):
+    """Phase 38 (d): phase 4's first requests through kernels="megakernel"
+    at the default geometry, at prefetch depth 1 (the default's tokens, bit
+    for bit) and at ffn_tile 1024 (a tick within row 13's tolerance of its
+    plain twin sliced alike; the tokens equal, or the first difference and
+    its logit gap). ``count()`` takes the launch counters after each
+    serving cell."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops.decode_megakernel_cuda import decode_tick_cuda
+
+    prompts, news = phase4_traffic(model.cfg)
+    traffic = (prompts[:MK_KNOB_REQUESTS], news[:MK_KNOB_REQUESTS])
+    ref4 = phase4_tokens[:MK_KNOB_REQUESTS]
+    cells = {}
+    for name, geom in (("default", mk.MegakernelGeometry()),
+                       ("prefetch_depth=1",
+                        mk.MegakernelGeometry(prefetch_depth=1)),
+                       ("ffn_tile=1024", mk.MegakernelGeometry(
+                           ffn_tile=1024))):
+        res = serve_megakernel(torch, ops, model, ref4,
+                               label=f"phase 38 (d) megakernel {name}",
+                               traffic=traffic, mk_geometry=geom)
+        count()
+        cells[name] = res
+    d = {}
+    base = cells["default"]["tokens"]
+    for name, res in cells.items():
+        bd = res.pop("breakdown")
+        toks = res.pop("tokens")
+        first = None
+        for i, (a, b) in enumerate(zip(toks, base)):
+            if a != b:
+                first = (i, next((j for j in range(min(len(a), len(b)))
+                                  if a[j] != b[j]), min(len(a), len(b))))
+                break
+        d[name] = dict(tokens_equal_default=toks == base,
+                       first_difference=first,
+                       tick_device_ms=bd["decode_window"]["device_ms"],
+                       decode_tok_s=res.get("decode_tok_s"),
+                       launches=res["launches"].get("decode_tick"))
+        if first is not None and first[1] < min(len(toks[first[0]]),
+                                                len(base[first[0]])):
+            i, n = first
+            with torch.no_grad():
+                ctx = torch.tensor([base[i][:n]], device="cuda")
+                lg = model(ctx)[0, -1].float()
+            d[name]["logit_gap"] = (lg[base[i][n]] - lg[toks[i][n]]).item()
+    check(d["prefetch_depth=1"]["tokens_equal_default"],
+          "phase 38 (d): prefetch_depth 1 changed the megakernel's tokens")
+    # the ffn_tile tick against its plain twin sliced alike, W = 1,
+    # MK_CHECK_LAYERS layers
+    g = torch.Generator(device="cuda").manual_seed(381)
+    L = MK_CHECK_LAYERS
+    view = _layers_view(model, L)
+    weights = mk.stack_layer_weights(view)
+    x, pools, tables, pos, cosr, sinr = _tick_inputs(torch, model, g, L, 1)
+    geom = mk.MegakernelGeometry(ffn_tile=1024)
+    with torch.no_grad():
+        out = decode_tick_cuda(x, [p.clone() for p in pools], tables, pos,
+                               weights, cosr, sinr, eps=model.cfg.rms_norm_eps,
+                               stages=geom.ring_stages(),
+                               ffn_steps=geom.ffn_steps())
+        twin = mk._tick_plain(x, [p.clone() for p in pools], tables, pos,
+                              weights, cosr, sinr,
+                              eps=model.cfg.rms_norm_eps, ffn_tile=1024)
+    ratio = (_row_ratio(out, twin, _rms(twin)) / (2 * L)).max().item()
+    d["ffn_tile=1024"]["tick_err_over_tol"] = ratio
+    log("phase 38 (d) megakernel knobs: " + json.dumps(d))
+    check(ratio <= 1.0, f"phase 38 (d): the ffn_tile tick is off its plain "
+                        f"twin by {ratio:.3g} x row 13's tolerance")
+    return d
+
+
+def autotune_phase(torch, ops, model, serve_res):
+    """Phase 38: the autotuner on the card over phase 4's model. Returns
+    the readings; the launches of (a)-(d) in "launches"."""
+    from paddle_tpu_torch.autotune import GeometryCache, local_device_kind
+
+    out = {}
+    launches = {}
+
+    def count():
+        # add the launches since the last reset (a serving cell of (d)
+        # resets the counters at its start: each is counted after it)
+        for name, n in ops.launch_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        ops.reset_launch_counts()
+
+    t = time.perf_counter()
+    cache = GeometryCache()
+    ops.reset_launch_counts()
+    out["a"] = autotune_sweeps(torch, ops, model, cache)
+    count()
+    out["a_seconds"] = time.perf_counter() - t
+    out["cache_fingerprint"] = cache.fingerprint()
+    out["device_kind"] = local_device_kind()
+    log("phase 38 (a) cache: " + json.dumps(
+        dict(fingerprint=out["cache_fingerprint"],
+             device_kind=out["device_kind"], entries=cache.to_dict()[
+                 "entries"])))
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["b"], out["c"] = autotune_search(torch, ops, model, cache, tmp)
+    count()
+    out["bc_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["d"] = autotune_megakernel(torch, ops, model, serve_res["tokens"],
+                                   count)
+    count()
+    out["d_seconds"] = time.perf_counter() - t
+    out["launches"] = launches
+    for k in ("a", "bc", "d"):
+        log(f"phase 38 ({k}) seconds: {out[k + '_seconds']:.1f}")
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -11011,6 +11556,21 @@ def main() -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
+    if sys.argv[1:] == ["--only", "autotune"]:
+        # a diagnostic run: the build, phase 4 (the model and tokens phase
+        # 38 uses) and phase 38 alone, no final line
+        model = LlamaForCausalLM(llama3_8b_config())
+        serve_res, _, srv = serve(torch, ops, model)
+        del srv
+        t38 = time.perf_counter()
+        at = autotune_phase(torch, ops, model, serve_res)
+        log("phase 38 (autotune): " + json.dumps(
+            {k: v for k, v in at.items() if k != "launches"}))
+        log("phase 38 launches: " + json.dumps(at["launches"]))
+        log(f"phase 38: {time.perf_counter() - t38:.1f} s; partial run "
+            f"(phases 4, 38 only): {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if sys.argv[1:] == ["--only", "serve"]:
         # a diagnostic run: the build and phases 4, 14, 24 and 25 alone, no
         # final line
@@ -11133,6 +11693,9 @@ def main() -> int:
     # phase 37: the serving fleet over the bf16 model (phase 4's tokens)
     fleet_res = fleet(torch, ops, model, serve_res)
     mark("phase 37 (fleet)")
+    # phase 38: the autotuner over the bf16 model (phase 4's tokens)
+    at_res = autotune_phase(torch, ops, model, serve_res)
+    mark("phase 38 (autotune)")
 
     # phases 9-12, while the bf16 serving model is on the card
     w8_cases = kernel_w8(torch, ops)
@@ -11359,6 +11922,22 @@ def main() -> int:
         k["dense_launches"] = dense_launches.get(k["name"], 0)
         # phase 37 (a)-(c): the in-process fleet's replica passes
         k["fleet_launches"] = fleet_res["launches"].get(k["name"], 0)
+        # phase 38 (a)-(d): the sweeps, the search's trials, the profile
+        # server and the megakernel's knobs; (a)'s cells of the kernel (its
+        # schedules: the default's ms, the winner and its speed-up)
+        k["autotune_launches"] = at_res["launches"].get(k["name"], 0)
+        prefix = {"paged_attention": "paged_attention ",
+                  "paged_attention_int8": "paged_attention_int8 ",
+                  "rms_norm": "rms_norm ", "layer_norm": "layer_norm ",
+                  "fused_lora_matmul": "fused_lora ",
+                  "decode_tick": "decode_tick "}.get(k["name"])
+        if prefix is not None:
+            k["geometry_cells"] = [
+                dict(cell=c["cell"], default_ms=c["default_ms"],
+                     winner=c["winner"], speedup=c["speedup"],
+                     candidates=len(c["trials"]),
+                     bitwise_equal=sum(t["exact"] for t in c["trials"]))
+                for c in at_res["a"] if c["cell"].startswith(prefix)]
         # phase 32's main path: (a)'s counted steps, (b)'s served run
         k["finetune_launches"] = fin_res["launches"].get(k["name"], 0)
         if k["name"] == "fused_adamw":
@@ -11439,6 +12018,8 @@ def main() -> int:
     log("phase 35 (ocr): " + json.dumps(ocr_res))
     log("phase 36 (hapi): " + json.dumps(hapi_res))
     log("phase 37 (fleet): " + json.dumps(fleet_res))
+    log("phase 38 (autotune): " + json.dumps(
+        {k: v for k, v in at_res.items() if k != "launches"}))
     prev = 0.0
     for name, at in marks:
         log(f"phase time {name}: {at - prev:.1f} s")

@@ -23,7 +23,8 @@ at Llama-3-8B's full depth with seeded random weights, B = 8, W = 1 and 4,
 on ``chip_smoke.py`` phase 13's inputs; device ms of 5 ticks a graph;
 ``paged_long``, not in the default: the paged attention wrappers at
 ``LONG_FORMS``, short rows in a table as wide as a server of ``max_len``
-8192 gives them).
+8192 gives them; ``norm``, not in the default: ``rms_norm_cuda`` and
+``layer_norm_cuda`` at ``NORM_CASES``, 200 calls a graph).
 
 ``--variants``: builds ``w8_matmul.cu``, ``fused_lora.cu`` and
 ``paged_attention.cu`` of this tree once as they are ("kept") and once per
@@ -329,6 +330,39 @@ def measure_tree(root: str, families) -> list:
             del args
     if "tick" in families:
         rows += _measure_ticks(torch, cs, g)
+    if "norm" in families:
+        rows += _measure_norms(torch, g)
+    return rows
+
+
+# (kernel, rows, width): RMSNorm at a decode tick's, a prefill chunk's and
+# a train step's rows (chip_smoke.py phase 2), LayerNorm at ERNIE's and a
+# decode batch's (phase 21), bf16
+NORM_CASES = [("rms_norm", 8, 4096), ("rms_norm", 128, 4096),
+              ("rms_norm", 4096, 4096), ("layer_norm", 4096, 768),
+              ("layer_norm", 8, 768)]
+
+
+def _measure_norms(torch, g) -> list:
+    """The tree's ``rms_norm_cuda`` and ``layer_norm_cuda`` at NORM_CASES,
+    as chip_smoke.py phases 2 and 21 time them (200 calls a graph)."""
+    from paddle_tpu_torch.ops import fused_norm
+
+    cs = _smoke()
+    rows = []
+    for kernel, n, D in NORM_CASES:
+        x = torch.randn(n, D, generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn(D, generator=g, device="cuda").to(torch.bfloat16)
+        b = torch.randn(D, generator=g, device="cuda").to(torch.bfloat16)
+        if kernel == "rms_norm":
+            def fn():
+                return fused_norm.rms_norm_cuda(x, w, 1e-5)
+        else:
+            def fn():
+                return fused_norm.layer_norm_cuda(x, w, b, 1e-12)
+        rows.append(dict(kernel=kernel, shape=f"{n}x{D}",
+                         ms=cs.time_ms(fn, 200),
+                         host_us=cs.host_us(torch, fn)))
     return rows
 
 
@@ -438,7 +472,7 @@ def measure_variants(names, rounds):
         for v, lib in libs.items():      # registers, local bytes, blocks
             for quant in (0, 1):
                 vals = (ctypes.c_int * 8)()
-                _build.check(lib.pt_paged_attention_config(quant, vals),
+                _build.check(lib.pt_paged_attention_config(quant, 1, vals),
                              f"{v} config")
                 print(json.dumps({"variant": v, "int8": quant,
                                   **dict(zip(_CONFIG_KEYS, vals))}),
@@ -521,10 +555,10 @@ def measure_variants(names, rounds):
                 if quant:
                     return out, lambda ws=ws: lib.pt_paged_attention_int8(
                         *a, out.data_ptr(), *ptr, B, W, H, KV, D, N, bs, M,
-                        stream())
+                        1, 0, stream())
                 return out, lambda ws=ws: lib.pt_paged_attention(
                     *a, out.data_ptr(), *ptr, B, W, H, KV, D, N, bs, M,
-                    stream())
+                    1, 0, stream())
             calls.append((f"paged{'_int8' if quant else ''} {form}", make,
                           lambda o, ref=ref, r=rms_v:
                           cs._row_ratio(o, ref, r).max().item()))

@@ -92,6 +92,7 @@ from . import callbacks, io, metric, reader  # noqa: E402
 from .batch import batch  # noqa: E402
 from .hapi import Model, summary  # noqa: E402
 from .compat import cast  # noqa: E402
+from .cost_model import flops  # noqa: E402
 from .device import (get_device, is_compiled_with_cuda,  # noqa: E402
                      is_compiled_with_xpu, set_device)
 from .framework import (ParamAttr, Parameter, bfloat16, complex64,  # noqa
@@ -106,7 +107,7 @@ from .tensor import __all__ as _tensor_all  # noqa: E402
 __all__ += ["Model", "ParamAttr", "Parameter", "amp", "batch",
             "bfloat16", "callbacks", "cast",
             "complex64", "complex128", "device", "enable_grad", "float16",
-            "float32", "float64", "framework", "get_default_dtype",
+            "float32", "float64", "flops", "framework", "get_default_dtype",
             "get_device", "get_flags", "get_rng_state", "grad", "int8",
             "int16", "int32", "int64", "io", "is_compiled_with_cuda",
             "is_compiled_with_xpu", "is_grad_enabled", "linalg", "load",

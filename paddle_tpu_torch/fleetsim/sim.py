@@ -66,9 +66,9 @@ class ReplicaServiceModel:
                         prefill_ratio: float = 8.0,
                         spawn_delay_s: float = 20.0
                         ) -> "ReplicaServiceModel":
-        """Derive rates from a cost model — any object with
-        ``capacity_tok_s(config, workload)`` and ``max_batch`` (the
-        autotuner's ``ServingCostModel`` is not ported yet, ROADMAP A9b):
+        """Derive rates from a cost model — the autotuner's
+        :class:`~paddle_tpu_torch.autotune.ServingCostModel` (or any object
+        with ``capacity_tok_s(config, workload)`` and ``max_batch``):
         decode capacity is the model's ``capacity_tok_s`` prediction; prefill
         runs ``prefill_ratio`` times faster per token (chunked prefill
         is compute-dense where decode is trip-bound)."""

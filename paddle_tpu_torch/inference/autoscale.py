@@ -26,8 +26,8 @@ Two halves, deliberately separated:
 Sizing logic: desired capacity covers ``max(observed demand, forecast)``
 with each replica loaded to at most ``target_utilization`` of the
 per-replica capacity ``capacity_tok_s`` (a measured rate, or a cost
-model's ``capacity_tok_s`` prediction — the autotuner's cost model is not
-ported yet, ROADMAP A9b).
+model's ``capacity_tok_s`` prediction, such as the autotuner's
+``ServingCostModel.capacity_tok_s``).
 That makes the *forecast* the proactive half — capacity arrives before
 the diurnal peak does — while a burn rate above ``burn_up`` forces a
 reactive scale-up even when the model disagrees (the model is a sizing

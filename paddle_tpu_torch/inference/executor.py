@@ -88,6 +88,21 @@ from ..models.generation import sample_token_rows
 __all__ = ["DenseExecutor", "PagedExecutor", "capture_graph"]
 
 
+def _scheduled(fn):
+    """Run an executor pass under its server's resolved kernel schedules
+    (``engine.kernel_geometry``, see ``ops.kernel_geometry``): the eager
+    pass, a capture's warm-up and the capture itself all see them, so a
+    replay runs what the eager twin ran."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        from .. import ops
+
+        with ops.kernel_geometry(getattr(self.engine, "kernel_geometry",
+                                         None)):
+            return fn(self, *args, **kwargs)
+    return run
+
+
 class _GraphPrograms:
     """What both executors share: the programs' graphs by key (captured at
     a key's first use), their shared memory pool, the capture and replay
@@ -129,6 +144,17 @@ class _GraphPrograms:
     def _replay(self, prog, kind: str):
         self.replays[kind] += 1
         return prog.replay()
+
+    def close(self) -> None:
+        """Drop the graphs, their memory pool and the device state the
+        passes read (pools, slabs, static buffers): the executor serves
+        nothing after this."""
+        self._graphs.clear()
+        self._graph_pool = None
+        for name in ("pools", "_flat_pools", "slab", "caches", "_row",
+                     "_dec", "_chk", "_pre", "_mk_weights"):
+            if name in self.__dict__:
+                setattr(self, name, None)
 
 
 class PagedExecutor(_GraphPrograms):
@@ -180,7 +206,9 @@ class PagedExecutor(_GraphPrograms):
                 self.megakernel_reason = reason
                 raise ValueError(f"kernels='megakernel' cannot serve this "
                                  f"model: {reason}")
-            mk.check_geometry(geom)
+            if dev.type == "cuda":
+                mk.check_geometry(geom, intermediate=cfg.intermediate_size,
+                                  rows=engine.max_batch * window)
             self.megakernel = True
             self._mk_geometry = geom
             # pointers to the model's own weights: no second copy
@@ -245,6 +273,7 @@ class PagedExecutor(_GraphPrograms):
         return None if pool is None else pool.layer_factors(aidx)
 
     # ------------------------------------------------------------- programs
+    @_scheduled
     @torch.no_grad()
     def decode_paged(self, tokens, tables, pos, temps, topks, topps, active,
                      generator, aidx=None, greedy: bool = False,
@@ -343,6 +372,7 @@ class PagedExecutor(_GraphPrograms):
                                eps=engine.cfg.rms_norm_eps, lora=lora)
         return m.norm(xo)
 
+    @_scheduled
     @torch.no_grad()
     def chunk_prefill(self, chunk, table, start, last_idx, aidx=None):
         """One prefill chunk, one program for every chunk: chunk int (1, C)
@@ -370,6 +400,7 @@ class PagedExecutor(_GraphPrograms):
         last = torch.index_select(h, 1, b["last_idx"])     # (1, 1, hidden)
         return model.head(last)[:, 0].float()
 
+    @_scheduled
     @torch.no_grad()
     def spec_verify(self, tokens, proposals, tables, pos, temps, topks,
                     topps, kcaps, generator, qprobs=None, aidx=None,
@@ -410,6 +441,7 @@ class PagedExecutor(_GraphPrograms):
                                   b["qprobs"] if with_q else None,
                                   greedy=greedy)
 
+    @_scheduled
     @torch.no_grad()
     def spec_scan(self, ctx, tables, pos, temps, topks, topps, kcaps, active,
                   generator, aidx=None, greedy: bool = False,
@@ -518,6 +550,7 @@ class DenseExecutor(_GraphPrograms):
         self.captures = 0
         self.replays = {"decode": 0, "prefill": 0}
 
+    @_scheduled
     @torch.no_grad()
     def decode_dense(self, tokens, pos, temps, topks, topps, active,
                      generator, greedy: bool = False, ticks: int = 1):
@@ -558,6 +591,7 @@ class DenseExecutor(_GraphPrograms):
             p = p + b["active"]
         return torch.stack(out)
 
+    @_scheduled
     @torch.no_grad()
     def prefill_dense(self, bucket: int, prompt, true_len, slot):
         """One prompt's prefill and slot scatter as one program a bucket

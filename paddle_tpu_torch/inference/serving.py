@@ -151,10 +151,13 @@ request that already generated tokens) is refused at the door;
 ``"decode"`` marks a handoff target (it serves everything, re-prefilling
 salvaged work); ``"any"`` (default) serves the whole lifecycle.
 
+Tuned profiles (``profile=``, from :mod:`paddle_tpu_torch.autotune`) fill
+the constructor arguments still at their defaults, as in JAX, and install
+the profile's per-op kernel-geometry cache before anything is captured.
+
 Not ported yet (their constructor arguments raise ``NotImplementedError``
 when given a non-default value): tensor/context parallelism (``mesh``,
-ROADMAP A10), tuned profiles (``profile``, ROADMAP A9b) and
-``kernels="pallas"`` (the port has no interpret mode).
+ROADMAP A10) and ``kernels="pallas"`` (the port has no interpret mode).
 """
 from __future__ import annotations
 
@@ -181,8 +184,7 @@ from .scheduler import PRIORITY_NORMAL, SchedEntry, Scheduler
 # ports it; any other value raises NotImplementedError. The constructor
 # keeps the JAX server's parameter order, so that a positional call means
 # the same in both packages
-_UNPORTED_DEFAULTS = {"mesh": (None, "ROADMAP A10: multi-GPU serving"),
-                      "profile": (None, "ROADMAP A9b: the autotuner")}
+_UNPORTED_DEFAULTS = {"mesh": (None, "ROADMAP A10: multi-GPU serving")}
 
 
 def kv_block_bytes(cfg, block_size: int, kv_quant: str = "none") -> int:
@@ -339,8 +341,18 @@ class GenerationServer:
     naming the reason (``_exec.megakernel_reason``); ``"reference"`` pins
     the plain versions. ``mk_geometry``: a
     :class:`~..ops.decode_megakernel.MegakernelGeometry`, accepted only with
-    ``kernels="megakernel"``; the kernel takes the default ``ffn_tile`` and
-    ``prefetch_depth`` and either ``dequant`` (int8 pools)."""
+    ``kernels="megakernel"``; on the card a ``prefetch_depth`` whose ring
+    does not fit a block, or an ``ffn_tile`` whose slice does not fit the
+    kernel's x slab at ``max_batch`` rows a tick, raises here.
+
+    ``profile``: a tuned profile (a path to its JSON, a parsed dict or a
+    :class:`~paddle_tpu_torch.autotune.TunedProfile`): its knobs fill the
+    arguments still at their defaults (an explicit non-default argument
+    wins), and its kernel-geometry cache is installed process-wide before
+    the executor is built. The per-op schedules are resolved once
+    (``kernel_geometry``) and passed to the kernels on every pass; they go
+    into the snapshot fingerprint, so a snapshot restores only into a
+    server of the same schedules."""
 
     def __init__(self, model, max_batch: int = 4, max_len: int = 256,
                  prompt_buckets: Sequence[int] = (32, 64, 128),
@@ -359,6 +371,35 @@ class GenerationServer:
                  profile=None, clock=None, device=None):
         from ..ops import KERNEL_MODES
 
+        self.profile = None
+        if profile is not None:
+            from ..autotune.profile import resolve_profile
+
+            self.profile = resolve_profile(profile)
+            _pkw = self.profile.server_kwargs(
+                model.cfg, max_batch=max_batch, max_len=max_len)
+            # tuned knobs fill ctor args still at their declared
+            # defaults; explicit caller choices always win (the JAX
+            # server's rule, knob for knob)
+            if cache == "dense":
+                cache = _pkw["cache"]
+            if block_size == 16:
+                block_size = _pkw["block_size"]
+            if tick_window == 1:
+                tick_window = _pkw["tick_window"]
+            if prefill_chunk == 32:
+                prefill_chunk = _pkw["prefill_chunk"]
+            if spec is None:
+                spec = _pkw.get("spec")
+            if kv_quant == "none":
+                kv_quant = _pkw["kv_quant"]
+            if policy is None:
+                policy = _pkw["policy"]
+            if pool_bytes is None and num_blocks is None:
+                pool_bytes = _pkw.get("pool_bytes")
+            if host_pool_bytes is None:
+                host_pool_bytes = _pkw.get("host_pool_bytes")
+            del _pkw
         given = locals()
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', got {cache!r}")
@@ -571,6 +612,7 @@ class GenerationServer:
         self._verify_wall_s = 0.0
         self.kernels = kernels
         self.mk_geometry = mk_geometry
+        self._resolve_kernel_geometry(lora)
         self._lora = None
         # True while a paged slot streams prompt chunks; a dense slot
         # prefills at admission and is never left prefilling
@@ -694,13 +736,63 @@ class GenerationServer:
         self._build_executor(
             kernels, lambda: PagedExecutor(self, num_blocks=int(num_blocks)))
 
+    def _resolve_kernel_geometry(self, lora) -> None:
+        """The per-layer kernel geometry (autotune/kernel_geometry.py),
+        resolved once here and handed to the kernels by the executor on
+        every pass (never reread from the process-wide cache at a launch):
+        a profile carrying a winner cache installs it first (as in JAX),
+        else an installed swept cache stays in effect. A schedule the
+        port's kernels do not take raises here: a ROADMAP A9c axis on any
+        device, a layout past a Hopper SM on the card. The per-op
+        (geometry, source) map feeds the snapshot fingerprint and the
+        ``serving_kernel_geometry`` gauge."""
+        from ..autotune.kernel_geometry import (check_served,
+                                                install_geometry_cache,
+                                                resolve_server_geometries)
+
+        cfg = self.cfg
+        if self.profile is not None \
+                and self.profile.kernel_geometry is not None:
+            install_geometry_cache(self.profile.geometry_cache(),
+                                   source="profile")
+        cuda = self.device.type == "cuda"
+        kind = torch.cuda.get_device_name(self.device) if cuda else "cpu"
+        rank = (int(lora.max_rank) if lora is not None
+                and hasattr(lora, "max_rank") else None)
+        self.kernel_geometry = resolve_server_geometries(
+            head_dim=cfg.hidden_size // cfg.num_attention_heads,
+            hidden=cfg.hidden_size,
+            dtype=str(cfg.torch_dtype).replace("torch.", ""),
+            kv_quant=self.kv_quant, lora_rank=rank, device_kind=kind)
+        for op, (geom, _) in self.kernel_geometry.items():
+            check_served(op, geom, quantized=self.kv_quant == "int8",
+                         rank=rank, hopper=cuda)
+
+    def close(self) -> None:
+        """Free the server's device state — its executor's CUDA graphs and
+        their memory pool, the KV pools and the programs' buffers — and
+        put back the kernel mode it found. The server serves nothing
+        after this (the autotuner closes each trial's server before it
+        builds the next)."""
+        from ..ops import set_kernel_mode
+
+        ex = self.__dict__.pop("_exec", None)
+        if ex is not None:
+            ex.close()
+        if getattr(self, "_prev_kernel_mode", None) is not None:
+            set_kernel_mode(self._prev_kernel_mode)
+            self._prev_kernel_mode = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def _build_executor(self, kernels: str, make) -> None:
         """Set the process-wide kernel mode (as in the JAX package), then
         build the executor (``make()``); a server that fails to build
-        leaves the mode as it found it."""
+        leaves the mode as it found it, and :meth:`close` puts it back."""
         from ..ops import kernel_mode, set_kernel_mode
 
         prev_mode = kernel_mode()
+        self._prev_kernel_mode = prev_mode
         if kernels != "auto":
             set_kernel_mode(kernels)
         try:
@@ -2200,7 +2292,14 @@ class GenerationServer:
                 "lora": self._lora is not None,
                 "kernels": self.kernels,
                 "mk_geometry": (self.mk_geometry.asdict()
-                                if self.mk_geometry is not None else None)}
+                                if self.mk_geometry is not None else None),
+                # resolved per-layer kernel geometry (non-default ops
+                # only; None when everything runs the default schedule,
+                # as in JAX)
+                "kernel_geometry": ({op: g.asdict()
+                                     for op, (g, src)
+                                     in self.kernel_geometry.items()
+                                     if src != "default"} or None)}
 
     def _req_state(self, req: _Request) -> Dict[str, Any]:
         return {"rid": req.rid, "prompt": list(req.prompt),
@@ -2610,8 +2709,8 @@ class GenerationServer:
         tier, adapter pool, spec counters, queue depth) into the registry,
         then return the telemetry blob: registry JSON (histograms with
         p50 / p95), watchdog findings over the flight ring, and the
-        serving configuration. (The JAX blob's kernel-geometry gauge is
-        left out: the port has no tuned kernel geometry.)"""
+        serving configuration, and which per-layer kernel schedule ran
+        (``serving_kernel_geometry``, one gauge an op)."""
         reg = self._tel.registry
         reg.gauge("serving_queue_depth").set(float(len(self._sched)))
         reg.gauge("serving_slots_occupied").set(
@@ -2630,6 +2729,10 @@ class GenerationServer:
                 reg.gauge(f"serving_{k}").set(float(v))
         for k, v in self.spec_metrics().items():
             reg.gauge(f"serving_spec_{k}").set(float(v))
+        # info gauge: which per-layer kernel schedule actually ran —
+        # value 1.0, identity in the labels (op + default/profile/swept)
+        for op, (_, src) in self.kernel_geometry.items():
+            reg.gauge("serving_kernel_geometry").set(1.0, op=op, source=src)
         snap = self._tel.snapshot()
         snap["config"] = {"cache": self.cache_mode,
                           "max_batch": self.max_batch,

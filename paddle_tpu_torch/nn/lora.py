@@ -249,12 +249,22 @@ def _gathered(ab):
 
 def _rows_delta(x, A, B):
     """fp32 ``(x32 @ A_e) @ B_e`` of every row of x (E, S, in), a row at a
-    time (each row's products alike, whatever S and E: batch-invariant).
-    Returns (E * S, out)."""
+    time (each row's products alike, whatever S and E: batch-invariant):
+    ``x32 @ A`` in chunks of 8 rank columns, as the fused kernel's grid
+    takes them, and the rank contraction summed in rank order, as its
+    epilogue sums it — so a zero-padded rank (``LoRAGeometry.rank_pad``)
+    adds exact zeros after the real terms. Returns (E * S, out)."""
     E, S, K = x.shape
     idx = torch.arange(E, device=x.device).repeat_interleave(S)
-    xa = torch.bmm(x.reshape(E * S, 1, K).float(), A.float()[idx])
-    return torch.bmm(xa, B.float()[idx])[:, 0]
+    xr = x.reshape(E * S, 1, K).float()
+    Ai = A.float()[idx]
+    xa = torch.cat([torch.bmm(xr, Ai[..., j:j + 8])
+                    for j in range(0, Ai.shape[-1], 8)], -1)[:, 0]
+    Bi = B.float()[idx]
+    d = xa[:, :1] * Bi[:, 0]
+    for r in range(1, xa.shape[1]):
+        d = d + xa[:, r:r + 1] * Bi[:, r]
+    return d
 
 
 def bgmv(x, ab):
@@ -287,18 +297,48 @@ def _lora_plain(x, w, A, B, s):
     return (y + d * sr).to(x.dtype).reshape(E, S, N)
 
 
-def lora_matmul(x, w, ab):
+def _pad_rank(ab, rp: int):
+    """The factors with their rank zero-padded to ``rp``: zero columns of A
+    and zero rows of B (``LoRAGeometry.rank_pad``, as the JAX
+    ``fused_lora_matmul`` pads); pooled factors keep their one layer."""
+    from torch.nn import functional as F
+
+    if isinstance(ab, PooledFactors):
+        R = ab.a.shape[-1]
+        a = F.pad(ab.a[:, ab.layer:ab.layer + 1], (0, rp - R))
+        b = F.pad(ab.b[:, ab.layer:ab.layer + 1], (0, 0, 0, rp - R))
+        return PooledFactors(a.contiguous(), b.contiguous(), ab.scale, 0,
+                             ab.aidx)
+    A, B, sc = ab
+    R = A.shape[-1]
+    return F.pad(A, (0, rp - R)), F.pad(B, (0, 0, 0, rp - R)), sc
+
+
+def lora_matmul(x, w, ab, geometry=None):
     """Base projection plus the per-entry LoRA delta in one op: ``x @ w +
     ((x32 @ A) @ B) · s``. x: (E, S, in); w: (in, out); ``ab``: None (the
     plain projection), gathered factors (plain twin only) or
     :class:`PooledFactors`. On a CUDA tensor the fused kernel runs and
     reads the :class:`PooledFactors` pages in place; on a CPU tensor or
-    under ``set_kernel_mode("reference")``, its plain twin."""
-    from ..ops import use_kernel
+    under ``set_kernel_mode("reference")``, its plain twin. ``geometry``:
+    the autotuner's ``LoRAGeometry`` (None: the resolved one, see
+    ``ops.geometry_for``): ``rank_pad`` zero-pads the rank on the host
+    first (the same bits); ``accum`` other than ``"base_first"`` raises
+    (ROADMAP A9c)."""
+    from ..autotune.kernel_geometry import check_served
+    from ..ops import geometry_for, use_kernel
     from ..ops.fused_lora_cuda import fused_lora_matmul_cuda
 
     if ab is None:
         return torch.matmul(x, w)
+    R = (ab.a if isinstance(ab, PooledFactors) else ab[0]).shape[-1]
+    if geometry is None:
+        geometry = geometry_for("fused_lora", x.dtype, R)
+    geometry.validate()
+    check_served("fused_lora", geometry, rank=R, hopper=use_kernel(x))
+    rp = geometry.padded_rank(R)
+    if rp != R:
+        ab = _pad_rank(ab, rp)
     if not use_kernel(x):
         return _lora_plain(x, w, *_gathered(ab))
     return fused_lora_matmul_cuda(x, w, ab.a, ab.b, ab.scale, ab.layer,

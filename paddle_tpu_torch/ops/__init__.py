@@ -68,6 +68,42 @@ def use_megakernel() -> bool:
     return _KERNEL_MODE == "megakernel"
 
 
+# the per-op kernel schedules of the pass being run ({op: geometry}), set
+# by a server's executor around each pass (:func:`kernel_geometry`), or None
+_GEOMETRY = None
+
+
+@contextlib.contextmanager
+def kernel_geometry(geoms):
+    """Run the block's kernels under the schedules ``geoms`` ({op:
+    geometry} or {op: (geometry, source)}, a server's resolved
+    ``kernel_geometry``): the executor hands its server's schedules to
+    every pass this way — eager, warm-up and capture alike — so a replay
+    runs what the eager twin ran, and no launch rereads the process-wide
+    cache."""
+    global _GEOMETRY
+    prev = _GEOMETRY
+    _GEOMETRY = {op: (g[0] if isinstance(g, tuple) else g)
+                 for op, g in dict(geoms or {}).items()}
+    try:
+        yield
+    finally:
+        _GEOMETRY = prev
+
+
+def geometry_for(op: str, dtype, key: int):
+    """The schedule an op runs: the enclosing :func:`kernel_geometry`'s
+    when one is set, else the active winner cache's for (op, dtype, key)
+    on this device kind, else the op's default (as the JAX ops resolve at
+    trace time)."""
+    if _GEOMETRY is not None and op in _GEOMETRY:
+        return _GEOMETRY[op]
+    from ..autotune.kernel_geometry import resolve_geometry
+
+    return resolve_geometry(op, str(dtype).replace("torch.", ""),
+                            int(key))[0]
+
+
 from .decode_megakernel_cuda import decode_tick_cuda  # noqa: E402
 from .flash_attention_cuda import (flash_bwd_dkv_cuda,  # noqa: E402
                                    flash_bwd_dkv_stream_cuda,
@@ -155,7 +191,8 @@ __all__ = ["KERNEL_MODES", "KERNEL_WRAPPERS", "add_launch_counts",
            "flash_fwd_stream_cuda", "fused_adamw_cuda",
            "fused_adamw_update", "fused_layer_norm",
            "fused_linear_cross_entropy", "fused_lora_matmul_cuda",
-           "fused_rms_norm", "gather_block_kv", "kernel_mode",
+           "fused_rms_norm", "gather_block_kv", "geometry_for",
+           "kernel_geometry", "kernel_mode",
            "launch_counts", "layer_norm_cuda",
            "paged_attention_cuda", "paged_attention_int8_cuda",
            "paged_decode_attention", "paged_decode_attention_q",

@@ -38,19 +38,21 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry point -> argtypes (all return int: the launch's cudaError_t)
 SIGNATURES = {
-    # x, w, y, rows, dim, eps, stream
-    "pt_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
+    # x, w, y, rows, dim, eps, rows a block (0: one), stream
+    "pt_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _P),
     # q, k_pool, v_pool, tables, pos, out, part_acc, part_ml,
-    # B, W, H, KV, D, N, bs, M, stream
+    # B, W, H, KV, D, N, bs, M, ring depth (1, 2), order (0 bgm, 1 gbm),
+    # stream
     "pt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # B, W, H, KV, bs, M, out (7 ints): the paged attention plan
     "pt_paged_plan": (_I, _I, _I, _I, _I, _I, _P),
-    # quant (0 bf16 pools, 1 int8), out (8 ints): its launch shape,
-    # registers and local bytes
-    "pt_paged_attention_config": (_I, _P),
-    # x, w, b, y, rows, dim, dtype (0 bf16, 1 fp32), eps, stream
-    "pt_layer_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # quant (0 bf16 pools, 1 int8), ring depth, out (8 ints): its launch
+    # shape, registers and local bytes
+    "pt_paged_attention_config": (_I, _I, _P),
+    # x, w, b, y, rows, dim, dtype (0 bf16, 1 fp32), eps, rows a block
+    # (0: eight), stream
+    "pt_layer_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, out, lse, B, H, Hkv, Sq, Sk, D, causal, scale, stream
     "pt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                      _P),
@@ -68,9 +70,9 @@ SIGNATURES = {
     # D, out (8 ints): the forward kernel's, as pt_flash_bwd_config
     "pt_flash_fwd_config": (_I, _P),
     # q, kq_pool, k_scales, vq_pool, v_scales, tables, pos, out, part_acc,
-    # part_ml, B, W, H, KV, D, N, bs, M, stream
+    # part_ml, B, W, H, KV, D, N, bs, M, ring depth, order, stream
     "pt_paged_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w_q, scale, out, M, K, N, stream
     "pt_w8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     # token tile, 64-column blocks of W a block, out (8 ints): the streaming
@@ -97,15 +99,17 @@ SIGNATURES = {
     # maps, wptrs, pools, tables, pos, cos_rows, sin_rows, xres, q, ao,
     # hbuf, ktok, vtok, lora_a (host), lora_b (host), lscale, laidx, lpart,
     # part, apart, gsync, trace (or NULL), L, B, W, H, KV, D, I, bs, M,
-    # quant, dequant, R, NS, eps, stream
+    # quant, dequant, R, NS, ring stages, ffn (down K steps a slice), eps,
+    # stream
     "pt_decode_tick": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _P),
+                       _I, _I, _F, _P),
     # wptrs (host, 9 x L int64), L, hid, KV * D, I, out (device, 7 L maps)
     "pt_decode_tick_maps": (_P, _I, _I, _I, _I, _P),
-    # hid, KV, I, rows, out (7 ints): the tick's work plan on this device
-    "pt_decode_tick_plan": (_I, _I, _I, _I, _P),
+    # hid, KV, I, rows, ffn, out (7 ints): the tick's work plan on this
+    # device
+    "pt_decode_tick_plan": (_I, _I, _I, _I, _I, _P),
     # quant, lora, out (8 ints): an instantiation's launch shape,
     # registers and local bytes
     "pt_decode_tick_config": (_I, _I, _P),

@@ -198,6 +198,7 @@ struct Args {
   tp::Dims dims;
   int L, B, W, H, KV, I, bs, M, MS;   // MS: most attention splits of a row
   int dequant, R, NS;        // int8: 0 "scores", 1 "tile"; LoRA rank, slices
+  int stages;                // ring stages this launch runs (<= kStages)
   float eps;
 };
 
@@ -516,8 +517,9 @@ __device__ __forceinline__ void unit_products(float (&acc)[NR / 2], uint32_t a,
 struct RingPos {
   int st = 0;
   unsigned ph = 0;
+  int n = kStages;   // the launch's ring stages (the prefetch depth's)
   __device__ __forceinline__ void next() {
-    if (++st == kStages) {
+    if (++st == n) {
       st = 0;
       ph ^= 1u;
     }
@@ -531,6 +533,7 @@ __device__ void producer(const Args& a, Smem& s) {
   const uint32_t ring = smem_addr(s.ring);
   const uint32_t full = smem_addr(s.full), empty = smem_addr(s.empty);
   RingPos rp;
+  rp.n = a.stages;
   for (int l = 0; l < a.L; ++l) {
     for (int ph = 0; ph < tp::kProductPhases; ++ph) {
       const tp::PhasePlan p = tp::plan(a.dims, ph, gridDim.x);
@@ -1277,6 +1280,7 @@ template <bool kQ, bool kLora>
 __device__ void consumers(const Args& a, Smem& s) {
   const int hid = a.H * kHeadDim;
   RingPos rp;         // the ring position of the block's next unit
+  rp.n = a.stages;
   int par = 0;        // the warpgroup that takes it
   int nbar = 0;       // grid barriers so far
   for (int l = 0; l < a.L; ++l) {
@@ -1315,7 +1319,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_tick_kernel(Args a) {
   const uint32_t raw = smem_addr(smem_raw);
   Smem& s = *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < a.stages; ++i) {
       mbar_init(smem_addr(&s.full[i]), 1);
       mbar_init(smem_addr(&s.empty[i]), 4);   // the consuming warpgroup's warps
     }
@@ -1409,18 +1413,20 @@ extern "C" int pt_decode_tick_maps(const void* wptrs, int L, int hid, int kvd,
                          cudaMemcpyHostToDevice);
 }
 
-// The plan's sizes for a tick of these shapes on the current device, into
+// The plan's sizes for a tick of these shapes (ffn: the down product's K
+// steps a slice, 0 for the plan's own) on the current device, into
 // out[7]: partial-sum scratch floats (low, high 31 bits), group counters,
 // SMs (the grid), the plan's shared memory, 1 when the plan takes the
 // shapes, and the KV blocks of an attention split. The wrapper allocates
 // the scratch and counters from these.
-extern "C" int pt_decode_tick_plan(int hid, int KV, int I, int rows, int* out) {
+extern "C" int pt_decode_tick_plan(int hid, int KV, int I, int rows, int ffn,
+                                   int* out) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const tp::Dims d{hid, KV, I, rows};
+  const tp::Dims d{hid, KV, I, rows, ffn};
   const bool ok = tp::fits(d, sms);
   const long long f = ok ? tp::scratch_floats(d, sms) : 0;
   out[0] = (int)(f & 0x7fffffff);
@@ -1450,7 +1456,9 @@ extern "C" int pt_decode_tick_config(int quant, int lora, int* out) {
 // zeroed; `trace` null or (L, 9, SMs, 5) int64. Shapes: head dim 128; hid =
 // H * 128; I a multiple of 64; B * W <= 64; bs a multiple of 8 (at most 128
 // for int8 pools); H a multiple of KV; LoRA rank R <= 16 and NS >=
-// ceil(max(hid, I) / 512). The grid is one block per SM; the launch is
+// ceil(max(hid, I) / 512); `stages` the ring stages to run (1 to 12: the
+// geometry's prefetch depth, 6 a unit), `ffn` the down product's K steps a
+// slice (0: the plan's own). The grid is one block per SM; the launch is
 // refused when a block does not fit on an SM. Returns cudaGetLastError()
 // after the launch, or the error that refused it.
 extern "C" int pt_decode_tick(const void* maps, const void* wptrs,
@@ -1463,8 +1471,8 @@ extern "C" int pt_decode_tick(const void* maps, const void* wptrs,
                               void* lpart, void* part, void* apart, void* gsync,
                               void* trace, int L, int B, int W, int H, int KV,
                               int D, int I, int bs, int M, int quant,
-                              int dequant, int R, int NS, float eps,
-                              void* stream) {
+                              int dequant, int R, int NS, int stages,
+                              int ffn, float eps, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const long long* la = static_cast<const long long*>(lora_a);
   const long long* lb = static_cast<const long long*>(lora_b);
@@ -1477,6 +1485,7 @@ extern "C" int pt_decode_tick(const void* maps, const void* wptrs,
   if (D != kHeadDim || L <= 0 || B <= 0 || W <= 0 || B * W > kMaxRows ||
       KV <= 0 || H <= 0 || H % KV != 0 || bs <= 0 || bs % 8 != 0 || M <= 0 ||
       (quant != 0 && quant != 1) || (dequant != 0 && dequant != 1) ||
+      stages < 1 || stages > kStages ||
       maps == nullptr || part == nullptr || apart == nullptr ||
       gsync == nullptr ||
       (quant && (bs > kMaxBlock || ktok == nullptr || vtok == nullptr)) ||
@@ -1487,7 +1496,7 @@ extern "C" int pt_decode_tick(const void* maps, const void* wptrs,
   int sms = 0;
   cudaError_t e = prepare(kernel, 2 * quant + (n_lora != 0), &sms);
   if (e != cudaSuccess) return (int)e;
-  const tp::Dims dims{H * D, KV, I, B * W};
+  const tp::Dims dims{H * D, KV, I, B * W, ffn};
   if (!tp::fits(dims, sms)) return (int)cudaErrorInvalidValue;
   Args a;
   a.maps = static_cast<const CUtensorMap*>(maps);
@@ -1519,6 +1528,7 @@ extern "C" int pt_decode_tick(const void* maps, const void* wptrs,
   a.L = L; a.B = B; a.W = W; a.H = H; a.KV = KV; a.I = I; a.bs = bs; a.M = M;
   a.MS = (M + kSplitBlocks - 1) / kSplitBlocks;
   a.dequant = dequant; a.R = n_lora ? R : 0; a.NS = NS;
+  a.stages = stages;
   a.eps = eps;
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),

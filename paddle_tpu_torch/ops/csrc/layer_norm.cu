@@ -13,7 +13,9 @@
 // would be the limit. On the ERNIE-3.0 base finetune path the rows are
 // B x S = 4096 (S = 128) or 16384 (S = 512) at D = 768, bf16.
 //
-// Design: one warp per row, 8 rows per 256-thread block, so that a block of
+// Design: one warp per row, 8 rows per 256-thread block (the default
+// schedule; NormGeometry.rows sets the rows a block, each still reduced by
+// one warp, so any value is bit-exact), so that a block of
 // short rows still keeps all its warps busy (one block per row, as
 // rms_norm.cu does, would leave 7 of 8 warps idle at D = 768). Lanes read
 // the row in 16-byte vectors (8 bf16 or 4 fp32; neighbouring lanes on
@@ -92,15 +94,16 @@ __device__ __forceinline__ uint4 vec_norm(const uint4& u, const uint4& wv,
   return o;
 }
 
+// one row, by one warp: the mean, then the sum of (x - mu)^2, then the
+// output
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const T* __restrict__ b, T* __restrict__ y, int rows,
-                  int dim, float eps) {
+__device__ __forceinline__ void ln_row(const T* __restrict__ x,
+                                       const T* __restrict__ w,
+                                       const T* __restrict__ b,
+                                       T* __restrict__ y, int row, int dim,
+                                       float eps) {
   constexpr int kVec = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warps leave together
   const int nvec = dim / kVec;
   const uint4* xr = reinterpret_cast<const uint4*>(x + size_t(row) * dim);
   const uint4* wr = reinterpret_cast<const uint4*>(w);
@@ -135,15 +138,49 @@ layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     yr[i] = vec_norm<T>(xr[i], wr[i], br[i], mu, inv);
 }
 
+// kWalk false (the default launch): a warp a row, kWarps rows a block.
+// kWalk true (the autotuner's NormGeometry.rows): rows [blockIdx.x * rpb,
+// + rpb) of the block, warp by warp (row r0 + warp, then + the block's
+// warps). Each row is reduced by its warp alone either way: the same sums
+// whatever rpb.
+template <typename T, bool kWalk>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                  const T* __restrict__ b, T* __restrict__ y, int rows,
+                  int dim, float eps, int rpb) {
+  if constexpr (!kWalk) {
+    const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (row >= rows) return;  // whole warps leave together
+    ln_row<T>(x, w, b, y, row, dim, eps);
+  } else {
+    const int r0 = blockIdx.x * rpb;
+    const int r1 = r0 + rpb < rows ? r0 + rpb : rows;
+    for (int row = r0 + (threadIdx.x >> 5); row < r1;
+         row += blockDim.x >> 5)
+      ln_row<T>(x, w, b, y, row, dim, eps);
+  }
+}
+
+// rpb: rows a block; 0 keeps kWarps (a warp a row, today's launch), else
+// min(rpb, kWarps) warps walk the block's rpb rows
 template <typename T>
 int launch(const void* x, const void* w, const void* b, void* y, int rows,
-           int dim, float eps, void* stream) {
+           int dim, float eps, int rpb, void* stream) {
   constexpr int kVec = 16 / sizeof(T);
-  if (rows <= 0 || dim <= 0 || dim % kVec != 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  layer_norm_kernel<T><<<blocks, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  if (rows <= 0 || dim <= 0 || dim % kVec != 0 || rpb < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (rpb == 0) {
+    layer_norm_kernel<T, false><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
+                                  s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<const T*>(b), static_cast<T*>(y), rows, dim, eps, kWarps);
+    return (int)cudaGetLastError();
+  }
+  const int warps = rpb < kWarps ? rpb : kWarps;
+  layer_norm_kernel<T, true><<<(rows + rpb - 1) / rpb, 32 * warps, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(y), rows, dim, eps);
+      static_cast<const T*>(b), static_cast<T*>(y), rows, dim, eps, rpb);
   return (int)cudaGetLastError();
 }
 
@@ -151,12 +188,14 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows,
 
 // x, y: (rows, dim) contiguous, 16-byte aligned; w, b: (dim,), the same
 // dtype as x. dtype 0 = bfloat16 (dim % 8 == 0), 1 = float32 (dim % 4 ==
-// 0). Returns cudaGetLastError() after launch.
+// 0); rpb: rows a block (0: today's eight). Returns cudaGetLastError()
+// after launch.
 extern "C" int pt_layer_norm(const void* x, const void* w, const void* b,
                              void* y, int rows, int dim, int dtype, float eps,
-                             void* stream) {
+                             int rpb, void* stream) {
   if (dtype == 0)
-    return launch<__nv_bfloat16>(x, w, b, y, rows, dim, eps, stream);
-  if (dtype == 1) return launch<float>(x, w, b, y, rows, dim, eps, stream);
+    return launch<__nv_bfloat16>(x, w, b, y, rows, dim, eps, rpb, stream);
+  if (dtype == 1)
+    return launch<float>(x, w, b, y, rows, dim, eps, rpb, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -74,7 +74,16 @@
 //     the products read, and the producer stages each key's k- and v-scale
 //     beside its codes: the k-scale multiplies the key's score, the v-scale
 //     the fp32 p after the sum took it.
-//   * the shared-memory attribute is set once per device.
+//   * the schedule (the autotuner's PagedAttentionGeometry, every value
+//     bit-exact against the default): `depth` multiplies the ring's stages
+//     (2 fp, 3 int8 at depth 1, today's; one instantiation a depth whose
+//     layout fits an SM); `order` numbers the work units KV head fastest
+//     (0 "bgm", today's) or slowest (1 "gbm"). A deeper ring takes more
+//     shared memory, so an SM holds fewer blocks: the grid follows, but
+//     the splits are sized from the default layout's wave, so every sum is
+//     the default's. Layouts: paged_tiles::layout.
+//   * the shared-memory attribute is set once per device and
+//     instantiation.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -106,31 +115,30 @@ constexpr int kRows = pt::kRows;
 constexpr int kKeys = pt::kStageKeys;
 constexpr int kRowBytes = 128;           // a row of a 64-column block
 constexpr int kSmemPerSm = 233472;      // an SM's shared memory
+constexpr int kTile = kKeys * kD * 2;    // a K or V tile of a stage, bf16
+constexpr int kCodes = kKeys * kD;       // K or V codes of a stage
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegBig = -1e30f;        // running-max start, as the TPU's
-static_assert(kRows == 64 && kKeys == 64, "one m64n64 product a stage");
+static_assert(kRows == 64 && kKeys == 64 && kD == pt::kHeadDim,
+              "one m64n64 product a stage");
+// the default layouts: two blocks an SM, each with the 1 KB the system
+// keeps a block
+static_assert(2 * (pt::layout(false, 1).alloc + 1024) <= kSmemPerSm &&
+                  2 * (pt::layout(true, 1).alloc + 1024) <= kSmemPerSm,
+              "two blocks an SM");
 
-// Shared memory of a block, every region 1024-byte aligned: the Q tile;
-// for an int8 pool the bf16 tile the consumers widen a stage into; the
-// ring (fp: K and V bf16 tiles; int8: K and V codes, 128 bytes a key, and
-// each key's k- and v-scale); the barriers.
-template <bool kQuant>
-struct Smem {
-  static constexpr int kQ = kRows * kD * 2;
-  static constexpr int kTile = kKeys * kD * 2;          // K or V in bf16
-  static constexpr int kConv = kQuant ? 2 * kTile : 0;  // widened K, V
-  static constexpr int kCodes = kKeys * kD;             // K or V codes
-  static constexpr int kStages = kQuant ? 3 : 2;
-  static constexpr int kStage = kQuant ? 2 * kCodes : 2 * kTile;
-  static constexpr int kScales = kQuant ? 2 * kKeys * 4 : 0;
-  static constexpr int kRing = kQ + kConv;
-  static constexpr int kScaleOff = kRing + kStages * kStage;
-  static constexpr int kBars = kScaleOff + kStages * kScales;
-  // barriers: full[kStages], empty[kStages]
-  static constexpr int kBytes = kBars + 8 * 2 * kStages;
-  static constexpr int kAlloc = kBytes + 1024;   // room to align the base
-  // two blocks an SM, each with the 1 KB the system keeps a block
-  static_assert(2 * (kAlloc + 1024) <= kSmemPerSm, "two blocks an SM");
+// A position in the ring: the stage and the parity of its barriers' phase,
+// advanced a stage at a time
+struct Ring {
+  int s, n;
+  unsigned ph;
+  __device__ __forceinline__ explicit Ring(int stages) : s(0), n(stages), ph(0) {}
+  __device__ __forceinline__ void next() {
+    if (++s == n) {
+      s = 0;
+      ph ^= 1u;
+    }
+  }
 };
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -168,6 +176,22 @@ __device__ __forceinline__ void codes_to_bf16(const uint4& c, uint4* out) {
   }
   out[0] = make_uint4(o[0], o[1], o[2], o[3]);
   out[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// widen code vector `idx` (of 2 * 64 keys * 8) of a stage's K and V codes
+// (64 keys, 128 bytes each) into the bf16 pair at `dst` (K tile, then V
+// tile, in the 128-byte swizzle)
+__device__ __forceinline__ void widen_vec(const unsigned char* codes,
+                                          unsigned char* dst, int idx) {
+  const int kv = idx / (kKeys * 8), rem = idx % (kKeys * 8);
+  const int r = rem / 8, c = rem % 8;
+  const uint4 code = *reinterpret_cast<const uint4*>(
+      codes + kv * kCodes + r * kRowBytes + c * 16);
+  uint4 w[2];
+  codes_to_bf16(code, w);
+  unsigned char* d = dst + kv * kTile;
+  *reinterpret_cast<uint4*>(d + swz(r, 2 * c)) = w[0];
+  *reinterpret_cast<uint4*>(d + swz(r, 2 * c + 1)) = w[1];
 }
 
 // A (b, tile) pair's split count and its row's keys a split
@@ -250,8 +274,9 @@ __device__ __forceinline__ Found find_item(const int* __restrict__ pos,
   return Found{pt::Item{0, 0, 0, 0}, 0};   // not reached: L is below the units
 }
 
-// PT: the pools' element type, bf16 (fp pool) or int8_t (codes with scales)
-template <typename PT>
+// PT: the pools' element type, bf16 (fp pool) or int8_t (codes with
+// scales); kDepth: the ring's depth (the layout, constant)
+template <typename PT, int kDepth>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -262,10 +287,10 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
                        const int* __restrict__ pos, bf16* __restrict__ out,
                        float* __restrict__ part_acc,
                        float* __restrict__ part_ml, int B, int W, int H,
-                       int KV, int N, int bs, int M, int wave) {
+                       int KV, int N, int bs, int M, int wave, int order) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
-  using L = Smem<kQuant>;
-  constexpr int kStages = L::kStages;
+  static_assert(pt::layout_fits(kQuant, kDepth), "the layout fits");
+  constexpr pt::Layout lay = pt::layout(kQuant, kDepth);
   const int rep = H / KV;
   const pt::Plan p = pt::plan(B, W, H, KV, bs, M);
   // the combine pass may start now: it waits for this grid's writes
@@ -283,7 +308,9 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
   };
   auto unit = [&](int Lu) {
     Unit u;
-    const Found f = find_item(pos, Lu, B, KV, rep, M, bs, p, wave, first);
+    const Found f = find_item(
+        pos, static_cast<int>(pt::order_unit(Lu, KV, units, order)), B, KV,
+        rep, M, bs, p, wave, first);
     u.it = f.it;
     u.pos_b = pos[u.it.b];
     u.frontier = pt::tile_frontier(u.pos_b, u.it.tile, p.rows, rep, M, bs);
@@ -296,17 +323,17 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   unsigned char* sbase = smem_raw + (base - smem_addr(smem_raw));
-  const uint32_t bars = base + L::kBars;
+  const uint32_t bars = base + lay.bars;
+  constexpr int nst = lay.stages;
   auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
-  auto stage = [&](int j) { return L::kRing + (j % kStages) * L::kStage; };
-  auto scales = [&](int j) {
-    return reinterpret_cast<float*>(sbase + L::kScaleOff +
-                                    (j % kStages) * L::kScales);
+  auto empty = [&](int s) { return bars + 8 * (nst + s); };
+  auto stage = [&](int s) { return lay.ring + s * lay.stage; };
+  auto scales = [&](int s) {
+    return reinterpret_cast<float*>(sbase + lay.scale_off + s * lay.scales);
   };
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < nst; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), kWg / 32);
     }
@@ -319,21 +346,21 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
     // ------------------------------------------------------------ producer
     setmaxnreg_dec<kProducerRegs>();
     if (warp != kProducerWarp) return;
-    // ring stage jg counts on across the block's units
+    // the ring's position counts on across the block's units
     const int boxes = kKeys / p.box;
-    int jg = 0;
+    Ring r(nst);
     for (int Lu = blockIdx.x; Lu < units; Lu += gridDim.x) {
       const Unit u = unit(Lu);
       const int g = u.it.g;
       const int* trow = tables + static_cast<size_t>(u.it.b) * M;
-      for (int j = 0; j < u.nst; ++j, ++jg) {
-        const int s = jg % kStages;
+      for (int j = 0; j < u.nst; ++j, r.next()) {
+        const int s = r.s;
         const int key0 = u.keys.begin + j * kKeys;
-        mbar_wait(empty(s), ((jg / kStages) & 1) ^ 1);
+        mbar_wait(empty(s), r.ph ^ 1);
         if constexpr (kQuant) {
           // each key's scales beside its codes (0 for a key past the
           // frontier, whose codes are zeros and whose p is 0)
-          float* sc = scales(jg);
+          float* sc = scales(s);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int k = key0 + lane + 32 * h;
@@ -348,7 +375,7 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
           }
           __syncwarp();
         }
-        if (lane == 0) mbar_arrive_expect_tx(full(s), L::kStage);
+        if (lane == 0) mbar_arrive_expect_tx(full(s), lay.stage);
         __syncwarp();
         for (int i = lane; i < boxes; i += 32) {
           const int key = key0 + i * p.box;
@@ -356,16 +383,16 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
           const int row = pt::box_loaded(key, u.frontier)
                               ? trow[key / bs] * bs + key % bs
                               : N * bs;
-          const uint32_t dst = base + stage(jg) + i * p.box * kRowBytes;
+          const uint32_t dst = base + stage(s) + i * p.box * kRowBytes;
           if constexpr (kQuant) {
             tma_load_3d(dst, &tk, full(s), 0, g, row);
-            tma_load_3d(dst + L::kCodes, &tv, full(s), 0, g, row);
+            tma_load_3d(dst + kCodes, &tv, full(s), 0, g, row);
           } else {
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
               tma_load_3d(dst + c * kKeys * kRowBytes, &tk, full(s), 64 * c,
                           g, row);
-              tma_load_3d(dst + L::kTile + c * kKeys * kRowBytes, &tv,
+              tma_load_3d(dst + kTile + c * kKeys * kRowBytes, &tv,
                           full(s), 64 * c, g, row);
             }
           }
@@ -380,7 +407,7 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
   const int tid = threadIdx.x;
   const int grp = lane >> 2, t = lane & 3;
   const float sl2 = kLog2e / sqrtf(static_cast<float>(kD));
-  int jg = 0;
+  Ring r(nst);
   for (int Lu = blockIdx.x; Lu < units; Lu += gridDim.x) {
     const Unit u = unit(Lu);
     const int b = u.it.b, g = u.it.g;
@@ -418,36 +445,26 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
       for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
     float m[2] = {kNegBig * kLog2e, kNegBig * kLog2e}, l[2] = {0.f, 0.f};
 
-    for (int j = 0; j < u.nst; ++j, ++jg) {
-      const int s = jg % kStages;
+    for (int j = 0; j < u.nst; ++j, r.next()) {
+      const int s = r.s;
       const int key0 = u.keys.begin + j * kKeys;
-      mbar_wait(full(s), (jg / kStages) & 1);
       uint32_t k_t, v_t;
       if constexpr (kQuant) {
-        // widen the stage's codes into the bf16 tile once every warp's
+        mbar_wait(full(s), r.ph);
+        // widen the stage's codes into the bf16 pair once every warp's
         // products of the last stage are done with it
         bar_sync(1, kWg);
-        const unsigned char* codes = sbase + stage(jg);
 #pragma unroll 2
-        for (int i = 0; i < 2 * kKeys * 8 / kWg; ++i) {
-          const int idx = i * kWg + tid;
-          const int kv = idx / (kKeys * 8), rem = idx % (kKeys * 8);
-          const int r = rem / 8, c = rem % 8;
-          const uint4 code = *reinterpret_cast<const uint4*>(
-              codes + kv * L::kCodes + r * kRowBytes + c * 16);
-          uint4 w[2];
-          codes_to_bf16(code, w);
-          unsigned char* dst = sbase + L::kQ + kv * L::kTile;
-          *reinterpret_cast<uint4*>(dst + swz(r, 2 * c)) = w[0];
-          *reinterpret_cast<uint4*>(dst + swz(r, 2 * c + 1)) = w[1];
-        }
+        for (int i = 0; i < 2 * kKeys * 8 / kWg; ++i)
+          widen_vec(sbase + stage(s), sbase + lay.q, i * kWg + tid);
         fence_proxy_async();
         bar_sync(1, kWg);
-        k_t = base + L::kQ;
-        v_t = base + L::kQ + L::kTile;
+        k_t = base + lay.q;
+        v_t = base + lay.q + kTile;
       } else {
-        k_t = base + stage(jg);
-        v_t = base + stage(jg) + L::kTile;
+        mbar_wait(full(s), r.ph);
+        k_t = base + stage(s);
+        v_t = base + stage(s) + kTile;
       }
 
       // S = Q.K^T over D
@@ -466,7 +483,7 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
 
       // online softmax in the log2 domain: sc[4 jj + e] is row grp + 8
       // (e >> 1) of this warp's 16, key key0 + 8 jj + 2 t + (e & 1)
-      const float* ksc = scales(jg);
+      const float* ksc = scales(s);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -699,47 +716,53 @@ bool pool_map(CUtensorMap* map, const void* ptr, bool codes, int KV, int N,
   return true;
 }
 
-// raise the kernel's shared-memory limit on the current device, once per
-// device (the attribute belongs to the device's copy of the kernel)
-template <typename Kernel>
-cudaError_t allow_smem_here(Kernel kernel, int bytes,
-                            unsigned long long* done) {
+// raise an instantiation's shared-memory limit on the current device to
+// its layout, once per device (the attribute belongs to the device's copy
+// of the kernel; a bit per device, one set an instantiation)
+template <typename PT, int kDepth>
+cudaError_t allow_smem() {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  static unsigned long long done = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (*done & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) *done |= bit;
+  if (done & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(paged_attention_kernel<PT, kDepth>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           pt::layout(kQuant, kDepth).alloc);
+  if (e == cudaSuccess) done |= bit;
   return e;
 }
 
-// blocks of the kernel the current device holds at once (one wave), once
-// per device
-template <typename PT>
-int wave(int smem) {
+// blocks of an instantiation the current device holds at once (one wave),
+// once per device
+template <typename PT, int kDepth>
+int wave() {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
   static int cached[64] = {0};
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 1;
   if (dev < 64 && cached[dev] > 0) return cached[dev];
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+  if (allow_smem<PT, kDepth>() != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, paged_attention_kernel<PT>, kThreads, smem) !=
-          cudaSuccess)
+          &per_sm, paged_attention_kernel<PT, kDepth>, kThreads,
+          pt::layout(kQuant, kDepth).alloc) != cudaSuccess)
     return 1;
   const int w = sms * per_sm > 0 ? sms * per_sm : 1;
   if (dev < 64) cached[dev] = w;
   return w;
 }
 
-template <typename PT>
+template <typename PT, int kDepth>
 int launch(const void* q, const void* kp, const void* vp, const float* ksc,
            const float* vsc, const int* tables, const int* pos, void* out,
            float* part_acc, float* part_ml, int B, int W, int H, int KV,
-           int N, int bs, int M, cudaStream_t s) {
+           int N, int bs, int M, int order, cudaStream_t s) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  if (order < 0 || order > 1) return (int)cudaErrorInvalidValue;
   const pt::Plan p = pt::plan(B, W, H, KV, bs, M);
   if (p.splits > 1 && (part_acc == nullptr || part_ml == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -747,15 +770,18 @@ int launch(const void* q, const void* kp, const void* vp, const float* ksc,
   if (!pool_map(&mk, kp, kQuant, KV, N, bs, p.box) ||
       !pool_map(&mv, vp, kQuant, KV, N, bs, p.box))
     return (int)cudaErrorInvalidValue;
-  constexpr int kSmem = Smem<kQuant>::kAlloc;
-  static unsigned long long attr = 0;   // a bit per device
-  cudaError_t e = allow_smem_here(paged_attention_kernel<PT>, kSmem, &attr);
+  cudaError_t e = allow_smem<PT, kDepth>();
   if (e != cudaSuccess) return (int)e;
-  const int w = wave<PT>(kSmem);
-  const int grid = pt::work_blocks(p, w);
-  paged_attention_kernel<PT><<<grid, kThreads, kSmem, s>>>(
-      mk, mv, static_cast<const bf16*>(q), ksc, vsc, tables, pos,
-      static_cast<bf16*>(out), part_acc, part_ml, B, W, H, KV, N, bs, M, w);
+  // the splits are sized from the default layout's wave, whatever this
+  // launch's layout: the same sums in the same order at every geometry;
+  // the grid is this layout's wave
+  const int w = wave<PT, 1>();
+  const int grid = pt::work_blocks(p, wave<PT, kDepth>());
+  paged_attention_kernel<PT, kDepth>
+      <<<grid, kThreads, pt::layout(kQuant, kDepth).alloc, s>>>(
+          mk, mv, static_cast<const bf16*>(q), ksc, vsc, tables, pos,
+          static_cast<bf16*>(out), part_acc, part_ml, B, W, H, KV, N, bs, M,
+          w, order);
   e = cudaGetLastError();
   if (e != cudaSuccess || p.splits == 1) return (int)e;
   // the combine launched early (programmatic dependent launch): its
@@ -777,6 +803,23 @@ int launch(const void* q, const void* kp, const void* vp, const float* ksc,
                                  M, w);
 }
 
+typedef int (*LaunchFn)(const void*, const void*, const void*, const float*,
+                        const float*, const int*, const int*, void*, float*,
+                        float*, int, int, int, int, int, int, int, int,
+                        cudaStream_t);
+
+// the instantiation of a ring depth: one for each depth whose layout fits
+// an SM (1 and 2), null for any other
+template <typename PT>
+LaunchFn launch_for(int depth) {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  static_assert(pt::layout_fits(kQuant, 2) && !pt::layout_fits(kQuant, 4),
+                "the depths that fit an SM");
+  if (depth == 1) return launch<PT, 1>;
+  if (depth == 2) return launch<PT, 2>;
+  return nullptr;
+}
+
 bool bad_args(int B, int W, int H, int KV, int D, int N, int bs, int M) {
   return D != kD || pt::bad_shape(B, W, H, KV, bs, M, N) || KV > 65535 ||
          static_cast<long long>(B) * KV * W * (H / KV) >= (1LL << 31);
@@ -789,20 +832,24 @@ bool bad_args(int B, int W, int H, int KV, int D, int N, int bs, int M) {
 // kernel's rule); every table entry a valid block id in [0, N). With more
 // than one split in the plan (pt_paged_plan), part_acc (B, KV, splits,
 // W*H/KV, D) and part_ml (B, KV, splits, W*H/KV, 2) are fp32 workspaces.
-// Returns cudaGetLastError() after the launches (cudaErrorInvalidValue,
-// launching nothing, for a shape it refuses).
+// The schedule: depth (1 today's ring; one whose layout does not fit an SM
+// is refused), order (0 "bgm", 1 "gbm"). Returns cudaGetLastError() after
+// the launches (cudaErrorInvalidValue, launching nothing, for a shape or a
+// schedule it refuses).
 extern "C" int pt_paged_attention(const void* q, const void* k_pool,
                                   const void* v_pool, const void* tables,
                                   const void* pos, void* out, void* part_acc,
                                   void* part_ml, int B, int W, int H, int KV,
-                                  int D, int N, int bs, int M, void* stream) {
-  if (bad_args(B, W, H, KV, D, N, bs, M)) return (int)cudaErrorInvalidValue;
-  return launch<bf16>(q, k_pool, v_pool, nullptr, nullptr,
-                      static_cast<const int*>(tables),
-                      static_cast<const int*>(pos), out,
-                      static_cast<float*>(part_acc),
-                      static_cast<float*>(part_ml), B, W, H, KV, N, bs, M,
-                      reinterpret_cast<cudaStream_t>(stream));
+                                  int D, int N, int bs, int M, int depth,
+                                  int order, void* stream) {
+  const LaunchFn run = launch_for<bf16>(depth);
+  if (bad_args(B, W, H, KV, D, N, bs, M) || run == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return run(q, k_pool, v_pool, nullptr, nullptr,
+             static_cast<const int*>(tables), static_cast<const int*>(pos),
+             out, static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+             B, W, H, KV, N, bs, M, order,
+             reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The int8 pool: k_pool/v_pool (N, bs, KV, D) int8 codes, 16-byte aligned;
@@ -811,17 +858,18 @@ extern "C" int pt_paged_attention_int8(
     const void* q, const void* k_pool, const void* k_scales,
     const void* v_pool, const void* v_scales, const void* tables,
     const void* pos, void* out, void* part_acc, void* part_ml, int B, int W,
-    int H, int KV, int D, int N, int bs, int M, void* stream) {
+    int H, int KV, int D, int N, int bs, int M, int depth, int order,
+    void* stream) {
+  const LaunchFn run = launch_for<int8_t>(depth);
   if (bad_args(B, W, H, KV, D, N, bs, M) || k_scales == nullptr ||
-      v_scales == nullptr)
+      v_scales == nullptr || run == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<int8_t>(q, k_pool, v_pool, static_cast<const float*>(k_scales),
-                        static_cast<const float*>(v_scales),
-                        static_cast<const int*>(tables),
-                        static_cast<const int*>(pos), out,
-                        static_cast<float*>(part_acc),
-                        static_cast<float*>(part_ml), B, W, H, KV, N, bs, M,
-                        reinterpret_cast<cudaStream_t>(stream));
+  return run(q, k_pool, v_pool, static_cast<const float*>(k_scales),
+             static_cast<const float*>(v_scales),
+             static_cast<const int*>(tables), static_cast<const int*>(pos),
+             out, static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+             B, W, H, KV, N, bs, M, order,
+             reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The launch plan from shapes alone, into out[7]: query rows a (b, KV
@@ -839,27 +887,37 @@ extern "C" int pt_paged_plan(int B, int W, int H, int KV, int bs, int M,
 }
 
 namespace {
-template <typename PT>
+template <typename PT, int kDepth>
 int config(int* out) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
-  constexpr int kSmem = Smem<kQuant>::kAlloc;
-  static unsigned long long attr = 0;
-  cudaError_t e = allow_smem_here(paged_attention_kernel<PT>, kSmem, &attr);
+  constexpr pt::Layout lay = pt::layout(kQuant, kDepth);
+  cudaError_t e = allow_smem<PT, kDepth>();
   int per_sm = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, paged_attention_kernel<PT>, kThreads, kSmem);
+        &per_sm, paged_attention_kernel<PT, kDepth>, kThreads,
+        lay.alloc);
   if (e != cudaSuccess) return (int)e;
-  return flash_common::describe(paged_attention_kernel<PT>, kThreads, kRows,
-                                kKeys, Smem<kQuant>::kStages, kSmem, per_sm,
-                                out);
+  return flash_common::describe(paged_attention_kernel<PT, kDepth>,
+                                kThreads, kRows, kKeys, lay.stages,
+                                lay.alloc, per_sm, out);
+}
+
+template <typename PT>
+int config_for(int depth, int* out) {
+  if (depth == 1) return config<PT, 1>(out);
+  if (depth == 2) return config<PT, 2>(out);
+  return (int)cudaErrorInvalidValue;
 }
 }  // namespace
 
-// The kernel's launch shape for a pool type (0 bf16, 1 int8), into out[8]:
-// threads a block, query rows a block, keys a ring stage, ring stages,
-// dynamic shared memory bytes, registers a thread, local (spill and stack)
-// bytes a thread, and blocks an SM holds at once.
-extern "C" int pt_paged_attention_config(int quant, int* out) {
-  return quant ? config<int8_t>(out) : config<bf16>(out);
+// The kernel's launch shape for a pool type (0 bf16, 1 int8) at a ring
+// depth, into out[8]: threads a block,
+// query rows a block, keys a ring stage, ring stages, dynamic shared
+// memory bytes, registers a thread, local (spill and stack) bytes a
+// thread, and blocks an SM holds at once. cudaErrorInvalidValue for a
+// layout that does not fit an SM.
+extern "C" int pt_paged_attention_config(int quant, int depth, int* out) {
+  return quant ? config_for<int8_t>(depth, out)
+               : config_for<bf16>(depth, out);
 }

@@ -41,6 +41,15 @@
 // A tile that needs one split writes its output directly; one that needs
 // more writes each split's unnormalised (m, l, acc) to a workspace, and the
 // combine pass merges exactly those splits.
+//
+// The schedule (the autotuner's PagedAttentionGeometry) changes none of
+// that: `order` renumbers the work units (0 "bgm": KV head fastest, as
+// above; 1 "gbm": KV head slowest, so that neighbouring blocks take one
+// head's items, batch row after batch row), a permutation of the same
+// units (order_unit); the ring's depth changes the shared-memory layout
+// (layout) and, with it, the blocks an SM holds,
+// but the plan's `wave` (which sizes the splits) is the default layout's,
+// so the splits and every sum's order are the default's.
 #pragma once
 
 #if defined(__CUDACC__)
@@ -56,6 +65,8 @@ constexpr int kStageKeys = 64;     // keys a ring stage
 // the fewest keys a split takes, in decode and prefill alike
 constexpr int kSplitKeys = 128;
 constexpr int kMaxUnits = 2147483647;  // work unit indices are ints
+constexpr int kHeadDim = 128;      // the kernel's one head dim
+constexpr int kSmemOptIn = 232448; // the most shared memory a block takes
 
 PAGED_TILES_FN int cdiv(int a, int b) { return (a + b - 1) / b; }
 PAGED_TILES_FN int imin(int a, int b) { return a < b ? a : b; }
@@ -228,6 +239,58 @@ PAGED_TILES_FN bool item_of(long long i, int B, int KV, int rep, int M,
 // whether the tile's blocks write the output themselves (one split), or
 // the combine merges splits 0 .. n - 1 of the workspace
 PAGED_TILES_FN bool writes_direct(int n) { return n == 1; }
+
+// Unit L of a launch of `units` units in the schedule's order, as its
+// number in the plan's own order (KV head fastest): order 0 is the plan's
+// numbering, order 1 takes the KV head slowest. A permutation of [0,
+// units).
+PAGED_TILES_FN long long order_unit(long long L, int KV, long long units,
+                                    int order) {
+  if (order == 0) return L;
+  const long long items = units / KV;
+  return (L % items) * KV + L / items;
+}
+
+// The shared memory of a block, every region 1024-byte aligned from a
+// 1024-aligned base: the Q tile; for an int8 pool the bf16 pair the
+// consumers widen each stage's codes into; the ring (fp: K and V bf16
+// tiles; int8: K and V codes, 128 bytes a key, then each key's k- and
+// v-scale); the barriers (full, empty), and room to align the base.
+// `depth` multiplies the ring's stages: 2 (fp) or 3 (int8) at depth 1.
+struct Layout {
+  int stages;      // ring stages
+  int q;           // the Q tile's bytes (at offset 0)
+  int conv;        // int8: the widened pair's bytes (at offset q)
+  int ring;        // the ring's offset
+  int stage;       // a ring stage's bytes
+  int scale_off;   // the scales' offset
+  int scales;      // a stage's scale bytes
+  int bars;        // the barriers' offset
+  int bytes;       // the layout's end
+  int alloc;       // bytes to allocate: the layout and the base's alignment
+};
+PAGED_TILES_FN constexpr Layout layout(bool quant, int depth) {
+  Layout l{};
+  const int tile = kRows * kHeadDim * 2;  // a K or V tile of 64 keys, bf16
+  const int codes = kStageKeys * kHeadDim;
+  l.stages = (quant ? 3 : 2) * depth;
+  l.q = kRows * kHeadDim * 2;
+  l.conv = quant ? 2 * tile : 0;
+  l.ring = l.q + l.conv;
+  l.stage = quant ? 2 * codes : 2 * tile;
+  l.scales = quant ? 2 * kStageKeys * 4 : 0;
+  l.scale_off = l.ring + l.stages * l.stage;
+  l.bars = l.scale_off + l.stages * l.scales;
+  l.bytes = l.bars + 8 * 2 * l.stages;
+  l.alloc = l.bytes + 1024;
+  return l;
+}
+
+// whether a block of this layout fits a Hopper SM (the depths the
+// autotuner may sweep)
+PAGED_TILES_FN constexpr bool layout_fits(bool quant, int depth) {
+  return depth >= 1 && layout(quant, depth).alloc <= kSmemOptIn;
+}
 
 }  // namespace paged_tiles
 

@@ -9,7 +9,8 @@
 // which the H100's bf16 rate would be the limit. On the serving path the
 // rows are the decode batch (8) or a prefill chunk (128) at D = 4096.
 //
-// Design: one thread block per row; 16-byte vector loads (8 bf16 per load,
+// Design: one thread block per row (the default schedule; NormGeometry.rows
+// gives a block that many rows, one after another, each reduced alike); 16-byte vector loads (8 bf16 per load,
 // neighbouring threads on neighbouring addresses); the sum of
 // squares is reduced with warp shuffles, then across the block's warps
 // through shared memory; a second pass re-reads the row (an L1/L2 hit) and
@@ -34,53 +35,58 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 constexpr int kThreads = 256;
 
+// rows [blockIdx.x * rpb, + rpb), one after another, each reduced by the
+// whole block's tree: the same sums whatever rpb (the autotuner's
+// NormGeometry.rows)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ y, int dim, float eps) {
+                T* __restrict__ y, int dim, float eps, int rpb) {
   constexpr int kVec = 16 / sizeof(T);
   const int nvec = dim / kVec;
-  const size_t row = blockIdx.x;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * dim);
-  const uint4* wr = reinterpret_cast<const uint4*>(w);
-  uint4* yr = reinterpret_cast<uint4*>(y + row * dim);
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    uint4 u = xr[i];
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      const float f = to_f(e[j]);
-      ss += f * f;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
   __shared__ float warp_sum[kThreads / 32];
   __shared__ float total;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sum[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float v = lane < kThreads / 32 ? warp_sum[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) total = v;
-  }
-  __syncthreads();
-  const float inv = rsqrtf(total / static_cast<float>(dim) + eps);
+  const uint4* wr = reinterpret_cast<const uint4*>(w);
+  for (int k = 0; k < rpb; ++k) {
+    const size_t row = static_cast<size_t>(blockIdx.x) * rpb + k;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * dim);
+    uint4* yr = reinterpret_cast<uint4*>(y + row * dim);
 
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    uint4 u = xr[i];
-    uint4 wv = wr[i];
-    uint4 o;
-    const T* e = reinterpret_cast<const T*>(&u);
-    const T* we = reinterpret_cast<const T*>(&wv);
-    T* oe = reinterpret_cast<T*>(&o);
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      uint4 u = xr[i];
+      const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) oe[j] = from_f<T>(to_f(e[j]) * inv * to_f(we[j]));
-    yr[i] = o;
+      for (int j = 0; j < kVec; ++j) {
+        const float f = to_f(e[j]);
+        ss += f * f;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) warp_sum[warp] = ss;
+    __syncthreads();
+    if (warp == 0) {
+      float v = lane < kThreads / 32 ? warp_sum[lane] : 0.f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) total = v;
+    }
+    __syncthreads();
+    const float inv = rsqrtf(total / static_cast<float>(dim) + eps);
+
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      uint4 u = xr[i];
+      uint4 wv = wr[i];
+      uint4 o;
+      const T* e = reinterpret_cast<const T*>(&u);
+      const T* we = reinterpret_cast<const T*>(&wv);
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) oe[j] = from_f<T>(to_f(e[j]) * inv * to_f(we[j]));
+      yr[i] = o;
+    }
   }
 }
 
@@ -88,13 +94,16 @@ rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 // bfloat16 only (the served model's type; others are instantiated when a
 // slice needs them). x, y: (rows, dim) contiguous, 16-byte aligned; w:
-// (dim,); dim % 8 == 0. Returns cudaGetLastError() after launch.
+// (dim,); dim % 8 == 0; rpb: rows a block (0: one, today's launch), a
+// divisor of rows. Returns cudaGetLastError() after launch.
 extern "C" int pt_rms_norm(const void* x, const void* w, void* y, int rows,
-                           int dim, float eps, void* stream) {
+                           int dim, float eps, int rpb, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (rows <= 0 || dim <= 0 || dim % 8 != 0) return (int)cudaErrorInvalidValue;
-  rms_norm_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
+  if (rpb == 0) rpb = 1;
+  if (rows <= 0 || dim <= 0 || dim % 8 != 0 || rpb < 0 || rows % rpb != 0)
+    return (int)cudaErrorInvalidValue;
+  rms_norm_kernel<__nv_bfloat16><<<rows / rpb, kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), dim, eps);
+      static_cast<__nv_bfloat16*>(y), dim, eps, rpb);
   return (int)cudaGetLastError();
 }

@@ -52,13 +52,16 @@ constexpr int kMaxRank = 16;      // LoRA rank
 constexpr int kGridAlign = 1024;  // the 128-byte swizzle's atom alignment
 
 // Shared memory of a block. The ring of weight stages (12 x 8 KB = 96 KB
-// in flight an SM); a union of the x slab (the product phases), one
+// in flight an SM at the default prefetch depth 2; a launch runs
+// kStagesPerDepth x depth of them, depth 1 or 2: a depth of 4 would need
+// 24 stages, past a block's 227 KB); a union of the x slab (the product phases), one
 // dequantized int8 block-head and the attention merge (the attention
 // phase); the LoRA rank rows of an epilogue (two targets, 8 KB), 16 KB
 // that at a fragment's end carry one consumer warpgroup's sums to the
 // other; the per-row 1/rms, reduction partials, flags and the ring's
 // mbarriers; and room to align the base to 1024 bytes.
 constexpr int kStages = 12;
+constexpr int kStagesPerDepth = 6;
 constexpr int kRingBytes = kStages * kUnitBytes;
 constexpr int kUnionBytes = 112 * 1024;
 constexpr int kLtFloats = 2 * kMaxRows * kMaxRank * 2;
@@ -68,6 +71,13 @@ constexpr int kSmemBytes =
     kRingBytes + kUnionBytes + kLtBytes + kMiscBytes + kGridAlign;
 constexpr int kSmemLimit = 232448;  // 227 KB, a block's most on sm_90
 static_assert(kSmemBytes <= kSmemLimit, "the tick's shared memory");
+
+// the ring stages a launch at a prefetch depth runs; 0 for a depth whose
+// ring the layout does not hold
+TICK_PLAN_FN int ring_stages(int depth) {
+  const int n = kStagesPerDepth * depth;
+  return depth >= 1 && n <= kStages ? n : 0;
+}
 
 enum Phase { kQKV = 0, kO = 1, kGateUp = 2, kDown = 3, kProductPhases = 4 };
 
@@ -93,6 +103,8 @@ struct Dims {
   int kv;     // KV heads
   int inter;  // intermediate size
   int rows;   // B * W
+  int ffn;    // the down product's K steps a slice (the geometry's
+              // ffn_tile / 64); 0: the slices of the other phases' rule
 };
 
 struct PhasePlan {
@@ -121,6 +133,11 @@ TICK_PLAN_FN PhasePlan plan(const Dims& d, int phase, int NB) {
   p.S = cdiv(p.T, slab_steps(row_tile(kMaxRows)));
   p.klen = cdiv(p.T, p.S);
   p.S = cdiv(p.T, p.klen);   // no empty slice
+  if (phase == kDown && d.ffn > 0) {
+    // ffn_tile: slices of the geometry's width, whatever the rows
+    p.klen = d.ffn;
+    p.S = cdiv(p.T, p.klen);
+  }
   p.U = 2 * p.G * p.T;
   p.NB = NB;
   return p;
@@ -266,12 +283,14 @@ TICK_PLAN_FN long long scratch_floats(const Dims& d, int NB) {
 }
 
 // the shapes the plan takes: head dim 128 (hid a multiple of 128), the
-// intermediate size a multiple of 64, 1 to 64 rows, and a slice of x
-// within the slab
+// intermediate size a multiple of 64, 1 to 64 rows, a down slice (ffn)
+// that divides the intermediate size's K steps, and a slice of x within
+// the slab
 TICK_PLAN_FN bool fits(const Dims& d, int NB) {
   if (d.hid <= 0 || d.hid % kHeadDim || d.inter <= 0 || d.inter % kColBlock ||
       d.kv <= 0 || d.rows < 1 || d.rows > kMaxRows || NB < 1 ||
-      d.hid > (1 << 16) || d.inter > (1 << 18) || d.kv > 256 || NB > 4096)
+      d.hid > (1 << 16) || d.inter > (1 << 18) || d.kv > 256 || NB > 4096 ||
+      d.ffn < 0 || (d.ffn > 0 && (d.inter / kKStep) % d.ffn))
     return false;
   for (int ph = 0; ph < kProductPhases; ++ph) {
     const PhasePlan p = plan(d, ph, NB);

@@ -24,8 +24,11 @@ under ``set_kernel_mode("reference")``. It writes the pools in place.
 Weights are not copied: :class:`LayerWeights` keeps the model's own
 per-layer tensors and, on the card, a device table of their pointers (the
 JAX package stacks every projection into new ``(L, in, out)`` arrays, which
-doubles the served weights). The geometry knobs ``ffn_tile`` and
-``prefetch_depth`` are not ported: only their defaults are served.
+doubles the served weights). The geometry knobs are all served:
+``prefetch_depth`` sets the producer's ring (6 stages a unit of depth),
+``ffn_tile`` the down projection's K slice (fp32 partials over
+``ffn_tile``-wide slices of the intermediate dim, as in the JAX kernel),
+``dequant`` the int8 scales' placement.
 """
 from __future__ import annotations
 
@@ -51,16 +54,45 @@ from .decode_megakernel_cuda import (HEAD_DIM, K_STEP, MAX_INT8_BLOCK,
 DEQUANT_MODES = ("scores", "tile")
 
 
+#: the whole-tick kernel's shared memory (csrc/tick_plan.cuh): weight
+#: stages of 8 KB, the x slab's union, the LoRA rows and the misc block,
+#: the 1024-byte alignment room, and the most a Hopper block may take
+MK_UNIT_BYTES = 64 * 64 * 2
+MK_UNION_BYTES = 112 * 1024
+MK_LT_BYTES = 2 * MAX_ROWS * MAX_LORA_RANK * 2 * 4
+MK_MISC_BYTES = 2048 + 1024
+HOPPER_SMEM_LIMIT = 232448
+#: ring stages a unit of ``prefetch_depth``: 12 at the default depth 2
+MK_STAGES_PER_DEPTH = 6
+
+
+def _row_tile(rows: int) -> int:
+    """tick_plan::row_tile: the wgmma N that holds ``rows`` rows."""
+    return 8 if rows <= 8 else 16 if rows <= 16 else 32 if rows <= 32 \
+        else 64
+
+
 @dataclasses.dataclass(frozen=True)
 class MegakernelGeometry:
     """The JAX kernel's tunable schedule (``ffn_tile``, ``prefetch_depth``,
-    ``dequant``; see ``paddle_tpu.ops.decode_megakernel``). The CUDA kernel
-    takes the defaults of the first two only: :func:`check_geometry` raises
-    on another ``ffn_tile`` or ``prefetch_depth``. ``dequant`` places the
-    int8 KV scales: ``"scores"`` multiplies the fp32 QK sums by the k-scale
-    and the probabilities by the v-scale, ``"tile"`` dequantizes each K/V
-    tile to the activations' dtype before the products; it has no effect on
-    fp pools."""
+    ``dequant``; see ``paddle_tpu.ops.decode_megakernel``), with its Hopper
+    meaning in the CUDA kernel:
+
+    ``ffn_tile``: 0 keeps the down projection's K slices of the work plan
+    (the fewest that fit the x slab at 64 rows); > 0 cuts its K
+    (the intermediate dim) into ``ffn_tile``-wide slices, each summed in
+    fp32 and the slices summed in a fixed order, whatever the rows (not
+    reference-exact, as in JAX; not combinable with LoRA). A multiple of
+    64 that divides the intermediate size.
+
+    ``prefetch_depth``: the producer's ring, ``MK_STAGES_PER_DEPTH`` stages
+    of one 8 KB weight tile a unit of depth (12 at the default 2). A
+    schedule change only: the tokens are the default's bit for bit.
+
+    ``dequant`` places the int8 KV scales: ``"scores"`` multiplies the
+    fp32 QK sums by the k-scale and the probabilities by the v-scale,
+    ``"tile"`` dequantizes each K/V tile to the activations' dtype before
+    the products; it has no effect on fp pools."""
 
     ffn_tile: int = 0
     prefetch_depth: int = 2
@@ -76,21 +108,92 @@ class MegakernelGeometry:
             raise ValueError(f"dequant must be one of {DEQUANT_MODES}, "
                              f"got {self.dequant!r}")
 
+    def vmem_bytes(self, *, hidden: int, heads: int, kv_heads: int,
+                   head_dim: int, intermediate: int, layers: int,
+                   batch: int, window: int, block_size: int,
+                   dtype_bytes: int = 4, quantized: bool = False) -> int:
+        """The JAX package's worst-case VMEM residency of a TPU core (the
+        autotuner's occupancy model for ``"cpu"`` and TPU kinds), term for
+        term."""
+        BW = batch * window
+        Hq = heads * head_dim
+        KVD = kv_heads * head_dim
+        T = self.ffn_tile or intermediate
+        d = self.prefetch_depth
+        rep = max(heads // max(kv_heads, 1), 1)
+        rows = kv_heads * window * rep
+        n = 0
+        n += BW * hidden * dtype_bytes + 2 * BW * (head_dim // 2) * 4
+        n += 2 * layers * hidden * dtype_bytes
+        n += BW * (2 * hidden + 2 * Hq + 2 * KVD) * dtype_bytes
+        n += BW * hidden * 4
+        n += d * (hidden * Hq + 2 * hidden * KVD + Hq * hidden
+                  + 2 * hidden * T + T * hidden) * dtype_bytes
+        kv_item = 1 if quantized else dtype_bytes
+        n += 2 * 2 * block_size * kv_heads * head_dim * kv_item
+        n += 2 * kv_heads * head_dim * dtype_bytes
+        if quantized:
+            n += 2 * 2 * kv_heads * 4
+            n += block_size * kv_heads * head_dim + kv_heads * 4
+        n += rows * (2 * 128 + head_dim) * 4
+        return n
+
+    def ring_stages(self) -> int:
+        return MK_STAGES_PER_DEPTH * self.prefetch_depth
+
+    def smem_bytes(self) -> int:
+        """Shared memory of one block of the CUDA kernel at this depth
+        (tick_plan.cuh's layout with this ring): the Hopper counterpart of
+        :meth:`vmem_bytes`. The kernel allocates the layout of the deepest
+        ring that fits (12 stages) and runs ``ring_stages()`` of it."""
+        return (self.ring_stages() * MK_UNIT_BYTES + MK_UNION_BYTES
+                + MK_LT_BYTES + MK_MISC_BYTES)
+
+    def ffn_steps(self) -> int:
+        """K steps (64 rows) of the down projection's slices; 0 = the
+        plan's own."""
+        return self.ffn_tile // K_STEP
+
+    def hopper_errors(self, *, intermediate: int, rows: int) -> list:
+        """Why the CUDA kernel cannot take this geometry at ``rows`` rows a
+        tick (the batch times the window) and this intermediate size; empty
+        when it can."""
+        errs = []
+        if self.smem_bytes() > HOPPER_SMEM_LIMIT:
+            errs.append(
+                f"prefetch_depth={self.prefetch_depth} needs "
+                f"{self.ring_stages()} ring stages: {self.smem_bytes()} "
+                f"bytes of shared memory a block, over the "
+                f"{HOPPER_SMEM_LIMIT} a Hopper block may take")
+        if self.ffn_tile:
+            if self.ffn_tile % K_STEP:
+                errs.append(f"ffn_tile={self.ffn_tile} is not a multiple "
+                            f"of the kernel's K step {K_STEP}")
+            elif intermediate % self.ffn_tile:
+                errs.append(f"ffn_tile={self.ffn_tile} does not divide "
+                            f"intermediate_size={intermediate}")
+            else:
+                nr = _row_tile(max(1, min(int(rows), MAX_ROWS)))
+                slab = MK_UNION_BYTES // (nr * 128)
+                if self.ffn_steps() > slab:
+                    errs.append(
+                        f"ffn_tile={self.ffn_tile} is {self.ffn_steps()} K "
+                        f"steps a slice, over the {slab} the x slab holds "
+                        f"at {rows} rows a tick")
+        return errs
+
     def asdict(self) -> dict:
         return dataclasses.asdict(self)
 
 
-def check_geometry(geometry: MegakernelGeometry) -> None:
-    """Raise ``NotImplementedError`` on a geometry the CUDA kernel does not
-    take yet: its tile width and prefetch depth are fixed (both ``dequant``
-    modes are served)."""
-    default = MegakernelGeometry()
-    for name in ("ffn_tile", "prefetch_depth"):
-        if getattr(geometry, name) != getattr(default, name):
-            raise NotImplementedError(
-                f"MegakernelGeometry.{name}={getattr(geometry, name)!r} is "
-                f"not ported: the CUDA decode_tick kernel takes the default "
-                f"geometry only ({name}={getattr(default, name)!r})")
+def check_geometry(geometry: MegakernelGeometry, *, intermediate: int,
+                   rows: int) -> None:
+    """Raise ValueError on a geometry the CUDA kernel cannot take at these
+    shapes (:meth:`MegakernelGeometry.hopper_errors`): it is refused where
+    it is resolved, never mid-launch."""
+    errs = geometry.hopper_errors(intermediate=intermediate, rows=rows)
+    if errs:
+        raise ValueError("MegakernelGeometry: " + "; ".join(errs))
 
 
 def cuda_shape_reason(cfg, block_size: int, *, kv_quant: str = "none",
@@ -337,9 +440,21 @@ def lora_tables(pool, aidx) -> LoraTables:
 
 
 # ------------------------------------------------------------ the tick
+def _down_sliced(h, wd, ffn_tile: int):
+    """The down product with ``ffn_tile``-wide K slices: each slice's
+    product in fp32, the slices summed in order in fp32, rounded once to
+    h's dtype (``MegakernelGeometry.ffn_tile``)."""
+    acc = None
+    for k0 in range(0, h.shape[-1], ffn_tile):
+        part = torch.matmul(h[..., k0:k0 + ffn_tile].float(),
+                            wd[k0:k0 + ffn_tile].float())
+        acc = part if acc is None else acc + part
+    return acc.to(h.dtype)
+
+
 def _tick_plain(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
                 eps: float, dequant: str = "scores",
-                lora: Optional[LoraTables] = None):
+                lora: Optional[LoraTables] = None, ffn_tile: int = 0):
     """Plain twin of the kernel: one layer at a time, the port's plain
     functions in the kernel's order — RMSNorm, q/k/v products, RoPE in fp32,
     K/V written through the table, paged verify attention (scores in fp32
@@ -358,7 +473,11 @@ def _tick_plain(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     come before RoPE and the K/V write, the o delta reads the attention
     output rows, the down delta ``silu(g)·u``. This differs on purpose from
     the fused LoRA kernel of the per-layer path, which adds base and delta
-    in fp32 and rounds once."""
+    in fp32 and rounds once.
+
+    ``ffn_tile`` > 0: the down product is summed in ``ffn_tile``-wide K
+    slices in fp32 and rounded once (:func:`_down_sliced`), as the kernel
+    slices it under that geometry (not combinable with LoRA)."""
     from torch.nn import functional as F
 
     from ..models.llama import _rope_rotate
@@ -408,7 +527,11 @@ def _tick_plain(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
         xn = _rms_ref(x, weights["ln2"][l], eps)
         g = proj(xn, "wg", "gate", l)
         u = proj(xn, "wu", "up", l)
-        x = x + proj(F.silu(g) * u, "wd", "down", l)
+        h = F.silu(g) * u
+        if ffn_tile:
+            x = x + _down_sliced(h, weights["wd"][l], ffn_tile)
+        else:
+            x = x + proj(h, "wd", "down", l)
     return x
 
 
@@ -425,8 +548,8 @@ def decode_tick(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     (B, M); ``pos``: int32 (B,) position of each row's first window token;
     ``weights`` from :func:`stack_layer_weights`; ``cos_rows``/``sin_rows``:
     fp32 (B, W, D/2) from :func:`gather_rope_rows`; ``geometry``: a
-    :class:`MegakernelGeometry` (its ``dequant`` is read; see
-    :func:`check_geometry`); ``lora``: :func:`lora_tables` of the adapter
+    :class:`MegakernelGeometry` (all three fields; on the card
+    :func:`check_geometry` refuses what the kernel cannot take); ``lora``: :func:`lora_tables` of the adapter
     pool at the rows' pages, or None. Returns ``(x_out (B, W, hidden),
     pools)``; the final norm is not applied. CUDA tensors launch the kernel
     (or raise on what it does not take); CPU tensors, or the
@@ -436,7 +559,10 @@ def decode_tick(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
 
     geometry = geometry or MegakernelGeometry()
     geometry.validate()
-    check_geometry(geometry)
+    if geometry.ffn_tile and lora is not None:
+        raise ValueError("ffn_tile > 0 is incompatible with pooled LoRA (the "
+                         "gate/up/down delta needs the full intermediate "
+                         "dim)")
     pools = list(pools)
     st = 4 if pools and pools[0].dtype == torch.int8 else 2
     if len(pools) != st * weights.num_layers:
@@ -447,7 +573,10 @@ def decode_tick(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
                          f"{block_size}")
     kw = dict(eps=eps, dequant=geometry.dequant, lora=lora)
     if use_kernel(x):
+        check_geometry(geometry, intermediate=weights["wg"][0].shape[1],
+                       rows=x.shape[0] * x.shape[1])
         return decode_tick_cuda(x, pools, tables, pos, weights, cos_rows,
-                                sin_rows, **kw), pools
+                                sin_rows, stages=geometry.ring_stages(),
+                                ffn_steps=geometry.ffn_steps(), **kw), pools
     return _tick_plain(x, pools, tables, pos, weights, cos_rows, sin_rows,
-                       **kw), pools
+                       ffn_tile=geometry.ffn_tile, **kw), pools

@@ -61,20 +61,22 @@ def kernel_config() -> dict:
     return out
 
 
-def tick_plan(hid: int, kv: int, inter: int, rows: int, device) -> dict:
+def tick_plan(hid: int, kv: int, inter: int, rows: int, device,
+              ffn: int = 0) -> dict:
     """The work plan's sizes on ``device`` (``csrc/tick_plan.cuh``): fp32
     floats of the partial-sum scratch, group counters, the grid, shared
     memory, whether the plan takes the shapes, and the KV blocks of an
-    attention split; cached by shape."""
+    attention split; ``ffn``: the down product's K steps a slice (the
+    geometry's ``ffn_tile`` / 64; 0 the plan's own); cached by shape."""
     from . import _build
 
-    key = (device, hid, kv, inter, rows)
+    key = (device, hid, kv, inter, rows, ffn)
     plan = _PLANS.get(key)
     if plan is None:
         vals = (ctypes.c_int * 7)()
         with torch.cuda.device(device):
             _build.check(_build.library().pt_decode_tick_plan(
-                hid, kv, inter, rows, vals), "decode_tick_plan")
+                hid, kv, inter, rows, ffn, vals), "decode_tick_plan")
         plan = dict(scratch_floats=vals[0] + (vals[1] << 31),
                     groups=vals[2], grid=vals[3], smem_bytes=vals[4],
                     fits=bool(vals[5]), split_blocks=vals[6])
@@ -205,7 +207,7 @@ def trace_buffer(L: int, device):
 
 def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
                      eps: float, dequant: str = "scores", lora=None,
-                     trace=None):
+                     trace=None, stages: int = 12, ffn_steps: int = 0):
     """One decode/verify tick through every layer, on the card.
 
     ``x``: (B, W, hidden) bfloat16 with hidden = H·128; ``pools``: flat
@@ -218,7 +220,10 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
     ``decode_megakernel.LoraTables`` (float32 contiguous factors, rank ≤
     16, int32 aidx on the card) or None; ``trace``: None on the served path,
     or a :func:`trace_buffer` that the kernel fills with its clock counters
-    (a diagnostic: the output is the same bits). B·W ≤ 64, hidden and the
+    (a diagnostic: the output is the same bits); ``stages``: the ring
+    stages to run (1 to 12; ``MegakernelGeometry.ring_stages()``, the same
+    bits at every value); ``ffn_steps``: the down product's K steps a
+    slice (``MegakernelGeometry.ffn_steps()``; 0 the plan's own). B·W ≤ 64, hidden and the
     intermediate size multiples of 64, bs a multiple of 8. Returns the
     tick's output rows (B, W, hidden). Raises on a type, shape, layout or
     device the kernel does not take, and when the launch is refused.
@@ -292,10 +297,14 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
         raise ValueError(f"{name}: the weight table is not on {x.device}")
     M = tables.shape[1]
     rows = B * W
-    plan = tick_plan(Hd, KV, I, rows, dev)
+    if not 1 <= int(stages) <= 12 or int(ffn_steps) < 0:
+        raise ValueError(f"{name}: stages {stages} not in 1..12 or "
+                         f"ffn_steps {ffn_steps} < 0")
+    plan = tick_plan(Hd, KV, I, rows, dev, int(ffn_steps))
     if not plan["fits"]:
         raise ValueError(f"{name}: the work plan does not take hidden {Hd}, "
-                         f"{KV} KV heads, intermediate {I} at {rows} rows")
+                         f"{KV} KV heads, intermediate {I} at {rows} rows "
+                         f"(down slices of {ffn_steps} K steps)")
     maps = _weight_maps(weights, dev)
     NS = -(-max(Hd, I) // SHRINK_SLICE)
     if lora is not None:
@@ -334,7 +343,8 @@ def decode_tick_cuda(x, pools, tables, pos, weights, cos_rows, sin_rows, *,
         ctypes.addressof(lb), ptr(lscale), ptr(laidx), ptr(lpart),
         part.data_ptr(), apart.data_ptr(), gsync.data_ptr(), ptr(trace),
         L, B, W, H, KV, D, I, bs, M, int(quant),
-        int(dequant == "tile"), R, NS, float(eps), _build.stream_ptr(dev))
+        int(dequant == "tile"), R, NS, int(stages), int(ffn_steps),
+        float(eps), _build.stream_ptr(dev))
     _build.check(err, "decode_tick")
     decode_tick_cuda.launches += 1
     return xres

@@ -25,6 +25,12 @@ JAX package there is no fallback to the reference on odd shapes or on a
 kernel error: the kernels mask a ragged last tile themselves, and a CUDA
 tensor they do not take (not bfloat16, D not 64 or 128) raises.
 
+The autotuner's ``FlashAttentionGeometry`` is resolved at each call as
+the JAX package resolves it (the enclosing ``ops.kernel_geometry``, else
+the installed winner cache, for the dtype and head dim): the CUDA kernels
+run the default ``block_q`` / ``block_kv`` only, and any other value
+raises NotImplementedError (ROADMAP A9c).
+
 Masked keys get p = 0 exactly, and the running max starts at -1e30 as in
 the TPU kernel, so every row that sees at least one key gets the JAX
 package's result; a row that sees none (causal with Sq > Sk) gets O = 0.
@@ -228,7 +234,12 @@ def flash_attention(q, k, v, causal: bool = False, scale=None):
     ``flash_attention`` rule (white list)."""
     from ..amp import cast_inputs
 
+    from ..autotune.kernel_geometry import check_served
+    from . import geometry_for
+
     q, k, v = cast_inputs("flash_attention", q, k, v)
+    check_served("flash_attention",
+                 geometry_for("flash_attention", q.dtype, q.shape[3]))
     s = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, bool(causal), s)
 

@@ -14,8 +14,17 @@ package leaves them to XLA (no Pallas in this op). Chunk logits are fp32
 products of the working-dtype operands: on the card a bf16 ``torch.mm``
 with an fp32 output (``out_dtype``), on the CPU an fp32 product.
 ``PT_CE_CHUNK`` (a positive int) overrides every caller's chunk size, as
-in the JAX package; any other value warns and keeps the caller's. Not
-ported: the ``CEGeometry`` row sub-tile.
+in the JAX package; any other value warns and keeps the caller's.
+
+``geometry`` (the autotuner's ``CEGeometry``; None resolves it as
+:func:`~paddle_tpu_torch.ops.geometry_for` does, keyed by the hidden
+width): ``rows`` > 0 computes the forward's row-local quantities (the
+logits rows, logsumexp, the label gather) in ``rows``-row sub-tiles of
+each chunk, clamped to a divisor of the chunk, and keeps the loss sum at
+whole-chunk granularity, as JAX does; the backward recomputes whole
+chunks. A sub-tile changes the M of the logits product, and the library's
+product may pick another kernel by shape: whether it rounds alike is for
+the sweep's bitwise gate to find.
 """
 from __future__ import annotations
 
@@ -48,21 +57,35 @@ def _chunk(h2, labels, chunk_size, ignore_index):
     return h2.reshape(nchunk, c, h2.shape[-1]), labels.reshape(nchunk, c)
 
 
+def _row_local(hk, lk, w, ignore_index):
+    """A (sub-)tile's per-row loss, logsumexp and validity."""
+    V = w.shape[-1]
+    logits = _mm_f32(hk, w)
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(1, lk.clamp(0, V - 1)[:, None])[:, 0]
+    del logits
+    valid = lk != ignore_index
+    return torch.where(valid, lse - gold, 0.0), lse, valid
+
+
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h2, w, labels, ignore_index, chunk_size):
+    def forward(ctx, h2, w, labels, ignore_index, chunk_size, rows):
+        from ..autotune.kernel_geometry import _largest_divisor
+
         hc, lc = _chunk(h2, labels, chunk_size, ignore_index)
-        V = w.shape[-1]
+        c = hc.shape[1]
+        # CEGeometry.rows: the row-local quantities in r-row sub-tiles, the
+        # loss summed per whole chunk (rows=0: the whole chunk at once)
+        r = c if rows <= 0 else _largest_divisor(c, rows)
         loss_sum = torch.zeros((), dtype=torch.float32, device=h2.device)
         cnt = torch.zeros((), dtype=torch.int64, device=h2.device)
         lses = []
         for hk, lk in zip(hc, lc):
-            logits = _mm_f32(hk, w)
-            lse = torch.logsumexp(logits, -1)
-            gold = logits.gather(1, lk.clamp(0, V - 1)[:, None])[:, 0]
-            del logits
-            valid = lk != ignore_index
-            loss_sum += torch.where(valid, lse - gold, 0.0).sum()
+            parts = [_row_local(hk[i:i + r], lk[i:i + r], w, ignore_index)
+                     for i in range(0, c, r)]
+            loss, lse, valid = (torch.cat(t) for t in zip(*parts))
+            loss_sum += loss.sum()
             cnt += valid.sum()
             lses.append(lse)
         ctx.save_for_backward(h2, w, labels, torch.stack(lses), cnt)
@@ -92,7 +115,7 @@ class _FusedLinearCE(torch.autograd.Function):
             part = _mm_f32(hk.masked_fill(invalid, 0).t(), dlog)
             dw = part if dw is None else dw.add_(part)
         dh2 = torch.cat(dh)[:h2.shape[0]]
-        return dh2, dw.to(w.dtype), None, None, None
+        return dh2, dw.to(w.dtype), None, None, None, None
 
 
 def capped_chunk_size(chunk_size: int, seq_len: int) -> int:
@@ -104,15 +127,19 @@ def capped_chunk_size(chunk_size: int, seq_len: int) -> int:
 def fused_linear_cross_entropy(hidden, weight, labels,
                                ignore_index: int = -100,
                                chunk_size: int = 1024,
-                               transpose_weight: bool = False):
+                               transpose_weight: bool = False,
+                               geometry=None):
     """Mean next-token CE of ``softmax(hidden @ weight)`` against integer
     ``labels`` without materialising the full logits.
 
     hidden: [..., H]; weight: [H, V] ([V, H] with ``transpose_weight``, for
     tied embeddings); labels: integer [...] matching hidden's leading
     dims; rows labelled ``ignore_index`` count neither in the sum nor in
-    the mean. ``PT_CE_CHUNK`` overrides ``chunk_size`` (see the module
-    docstring)."""
+    the mean. ``PT_CE_CHUNK`` overrides ``chunk_size``; ``geometry``: a
+    ``CEGeometry`` (see the module docstring)."""
+    from ..autotune.kernel_geometry import CEGeometry
+    from . import geometry_for
+
     override = os.environ.get("PT_CE_CHUNK")
     if override is not None:
         try:
@@ -127,5 +154,12 @@ def fused_linear_cross_entropy(hidden, weight, labels,
     if transpose_weight:
         weight = weight.t()
     h2 = hidden.reshape(-1, hidden.shape[-1])
+    if geometry is None:
+        geometry = geometry_for("fused_ce", hidden.dtype, hidden.shape[-1])
+    if not isinstance(geometry, CEGeometry):
+        raise ValueError(f"fused CE wants a CEGeometry, got "
+                         f"{type(geometry).__name__}")
+    geometry.validate()
     return _FusedLinearCE.apply(h2, weight, labels.reshape(-1).long(),
-                                int(ignore_index), int(chunk_size))
+                                int(ignore_index), int(chunk_size),
+                                int(geometry.rows))

@@ -22,6 +22,14 @@ package's ``_ln_bwd``. Unlike the JAX package's ``fused_layer_norm`` there
 is no ``except``-and-carry-on: a CUDA tensor the kernel does not take
 raises, and any row count runs (the TPU kernel's row-tile refusal is not
 kept).
+
+Both kernels take the autotuner's :class:`~paddle_tpu_torch.autotune.
+kernel_geometry.NormGeometry` (``geometry=``; None resolves it as
+:func:`~paddle_tpu_torch.ops.geometry_for` does): ``rows`` is the rows a
+block, clamped to a divisor of the flattened rows as the JAX
+``_block_rows`` clamps its tile; 0 keeps the launch above. Each row is
+still reduced by the default's thread tree, so every value gives the same
+bits.
 """
 from __future__ import annotations
 
@@ -36,12 +44,32 @@ def _rms_ref(x, w, eps):
     return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
 
 
-def rms_norm_cuda(x, w, eps):
+def _rows_a_block(rows: int, geometry) -> int:
+    """The kernels' rows a block under a NormGeometry: 0 (the default
+    launch) or its ``rows`` clamped to a divisor of ``rows``."""
+    from ..autotune.kernel_geometry import NormGeometry, _largest_divisor
+
+    if not isinstance(geometry, NormGeometry):
+        raise ValueError(f"fused norm wants a NormGeometry, got "
+                         f"{type(geometry).__name__}")
+    geometry.validate()
+    return _largest_divisor(rows, geometry.rows) if geometry.rows else 0
+
+
+def _norm_geometry(x, geometry):
+    from . import geometry_for
+
+    return geometry if geometry is not None else \
+        geometry_for("fused_norm", x.dtype, x.shape[-1])
+
+
+def rms_norm_cuda(x, w, eps, geometry=None):
     """Launch the CUDA RMSNorm kernel on ``x`` (..., D) and ``w`` (D,).
 
     Takes bfloat16 CUDA tensors (the served model's type; the kernel is
     instantiated for no other yet), D a multiple of 8 (16-byte loads);
-    raises on anything else."""
+    raises on anything else. ``geometry``: a NormGeometry (None: the
+    resolved one)."""
     from . import _build
 
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
@@ -63,9 +91,10 @@ def rms_norm_cuda(x, w, eps):
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    rpb = _rows_a_block(rows, _norm_geometry(x, geometry))
     lib = _build.library()
     err = lib.pt_rms_norm(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, D,
-                          float(eps), _build.stream_ptr(x.device))
+                          float(eps), rpb, _build.stream_ptr(x.device))
     _build.check(err, "rms_norm")
     rms_norm_cuda.launches += 1
     return y
@@ -76,13 +105,13 @@ rms_norm_cuda.launches = 0
 
 class _FusedRMSNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, eps):
+    def forward(ctx, x, w, eps, geometry):
         from . import use_kernel
 
         ctx.save_for_backward(x, w)
         ctx.eps = eps
         if use_kernel(x):
-            return rms_norm_cuda(x, w, eps)
+            return rms_norm_cuda(x, w, eps, geometry)
         return _rms_ref(x, w, eps)
 
     @staticmethod
@@ -93,11 +122,11 @@ class _FusedRMSNorm(torch.autograd.Function):
             wd = w.detach().requires_grad_()
             y = _rms_ref(xd, wd, ctx.eps)
         dx, dw = torch.autograd.grad(y, (xd, wd), g)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
-def fused_rms_norm(x, w, eps=1e-6):
-    return _FusedRMSNorm.apply(x, w, float(eps))
+def fused_rms_norm(x, w, eps=1e-6, geometry=None):
+    return _FusedRMSNorm.apply(x, w, float(eps), geometry)
 
 
 def _ln_ref(x, w, b, eps):
@@ -115,10 +144,11 @@ def _ln_ref(x, w, b, eps):
 _LN_DTYPES = {torch.bfloat16: (0, 8), torch.float32: (1, 4)}
 
 
-def layer_norm_cuda(x, w, b, eps):
+def layer_norm_cuda(x, w, b, eps, geometry=None):
     """Launch the CUDA LayerNorm kernel on ``x`` (..., D) and ``w``, ``b``
     (D,), one dtype (bfloat16 or float32), D a multiple of the 16-byte
-    vector (8 bf16, 4 fp32); any row count. Raises on anything else."""
+    vector (8 bf16, 4 fp32); any row count. Raises on anything else.
+    ``geometry``: a NormGeometry (None: the resolved one)."""
     from . import _build
 
     if not (x.is_cuda and w.is_cuda and b.is_cuda
@@ -147,9 +177,10 @@ def layer_norm_cuda(x, w, b, eps):
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    rpb = _rows_a_block(rows, _norm_geometry(x, geometry))
     lib = _build.library()
     err = lib.pt_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            y.data_ptr(), rows, D, code, float(eps),
+                            y.data_ptr(), rows, D, code, float(eps), rpb,
                             _build.stream_ptr(x.device))
     _build.check(err, "layer_norm")
     layer_norm_cuda.launches += 1
@@ -161,13 +192,13 @@ layer_norm_cuda.launches = 0
 
 class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, eps):
+    def forward(ctx, x, w, b, eps, geometry):
         from . import use_kernel
 
         ctx.save_for_backward(x, w, b)
         ctx.eps = eps
         if use_kernel(x):
-            return layer_norm_cuda(x, w, b, eps)
+            return layer_norm_cuda(x, w, b, eps, geometry)
         return _ln_ref(x, w, b, eps)
 
     @staticmethod
@@ -179,8 +210,8 @@ class _FusedLayerNorm(torch.autograd.Function):
             bd = b.detach().requires_grad_()
             y = _ln_ref(xd, wd, bd, ctx.eps)
         dx, dw, db = torch.autograd.grad(y, (xd, wd, bd), g)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
-def fused_layer_norm(x, w, b, eps=1e-5):
-    return _FusedLayerNorm.apply(x, w, b, float(eps))
+def fused_layer_norm(x, w, b, eps=1e-5, geometry=None):
+    return _FusedLayerNorm.apply(x, w, b, float(eps), geometry)

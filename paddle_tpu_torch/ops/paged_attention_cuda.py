@@ -14,6 +14,14 @@ call can be captured in a CUDA graph). The plain versions they are held
 against are ``paged_attention._attention_core`` over the gathered context
 (``paged_attention.paged_verify_attention`` and ``paged_verify_attention_q``
 under ``"reference"`` mode).
+
+Both take the autotuner's :class:`~paddle_tpu_torch.autotune.
+kernel_geometry.PagedAttentionGeometry` (``geometry=``; None resolves it
+as :func:`~paddle_tpu_torch.ops.geometry_for` does, for dtype
+``"bfloat16"`` or ``"int8"`` and the head dim): ``kv_block_depth``
+multiplies the ring's stages, ``grid_order`` numbers the work units. Every
+schedule gives the default's bits; one whose layout does not fit an SM,
+or a non-default ``q_rows`` or ``dequant`` (ROADMAP A9c), raises.
 """
 from __future__ import annotations
 
@@ -47,20 +55,40 @@ def plan(B: int, W: int, H: int, KV: int, bs: int, M: int) -> dict:
     return dict(zip(_PLAN_KEYS, vals))
 
 
-def kernel_config() -> dict:
-    """The kernel's launch shape per pool type (``bf16``, ``int8``):
-    threads, query rows a block, keys a ring stage, ring stages, shared
-    memory, registers and local bytes a thread, blocks an SM holds."""
+def kernel_config(depth: int = 1) -> dict:
+    """The kernel's launch shape per pool type (``bf16``, ``int8``) at a
+    ring depth: threads, query rows a block, keys a ring stage, ring
+    stages, shared memory, registers and local bytes a thread, blocks an SM
+    holds."""
     from . import _build
 
     lib = _build.library()
     out = {}
     for name, quant in (("bf16", 0), ("int8", 1)):
         vals = (ctypes.c_int * 8)()
-        _build.check(lib.pt_paged_attention_config(quant, vals),
+        _build.check(lib.pt_paged_attention_config(quant, int(depth), vals),
                      "paged_attention_config")
         out[name] = dict(zip(_CONFIG_KEYS, vals))
     return out
+
+
+def _schedule(geometry, quantized: bool, D: int):
+    """(depth, order) of the launch under ``geometry`` (None: the resolved
+    one); raises on a schedule the kernel does not take."""
+    from ..autotune.kernel_geometry import (PagedAttentionGeometry,
+                                            check_served)
+    from . import geometry_for
+
+    if geometry is None:
+        geometry = geometry_for("paged_attention",
+                                "int8" if quantized else "bfloat16", D)
+    if not isinstance(geometry, PagedAttentionGeometry):
+        raise ValueError(f"paged attention wants a PagedAttentionGeometry, "
+                         f"got {type(geometry).__name__}")
+    geometry.validate()
+    check_served("paged_attention", geometry, quantized=quantized,
+                 hopper=True)
+    return geometry.kv_block_depth, int(geometry.grid_order == "gbm")
 
 
 def _on_one_card(name, *tensors):
@@ -125,16 +153,18 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos):
+def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos,
+                         geometry=None):
     """Fused paged attention over an fp block pool, on the card.
 
     q: (B, W, H, D) bfloat16 with D = 128; k_pool/v_pool: (N, bs, KV, D)
     bfloat16 (the kernel is instantiated for no other type or head dim
     yet), bs a multiple of 8; block_tables: int32 (B, M) — every entry a
     valid block id; pos: int32 (B,) absolute position of each row's first
-    query token.
-    Returns (B, W, H, D) in q's dtype. Raises on a shape, dtype or device
-    the kernel does not take."""
+    query token; ``geometry``: a PagedAttentionGeometry (None: the
+    resolved one).
+    Returns (B, W, H, D) in q's dtype. Raises on a shape, dtype, device or
+    schedule the kernel does not take."""
     from . import _build
 
     _on_one_card("paged_attention_cuda", q, k_pool, v_pool, block_tables,
@@ -145,6 +175,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos):
         raise TypeError(f"paged_attention_cuda: the kernel takes bfloat16 q "
                         f"and pools, got {q.dtype}, {k_pool.dtype}, "
                         f"{v_pool.dtype}")
+    depth, order = _schedule(geometry, False, D)
     block_tables = block_tables.contiguous()
     pos = pos.contiguous()
     out, part_acc, part_ml = _workspace(q, B, W, H, KV, bs, M)
@@ -153,7 +184,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos):
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
         _ptr(part_acc), _ptr(part_ml),
-        B, W, H, KV, D, N, bs, M, _build.stream_ptr(q.device))
+        B, W, H, KV, D, N, bs, M, depth, order, _build.stream_ptr(q.device))
     _build.check(err, "paged_attention")
     paged_attention_cuda.launches += 1
     return out
@@ -163,15 +194,16 @@ paged_attention_cuda.launches = 0
 
 
 def paged_attention_int8_cuda(q, kq_pool, k_scales, vq_pool, v_scales,
-                              block_tables, pos):
+                              block_tables, pos, geometry=None):
     """Fused paged attention over an int8 block pool, on the card: the
     kernel reads the codes and applies the per-(block, KV head) scales on
     the tile (k-scale on the QK accumulator, v-scale on p before PV).
 
     q: (B, W, H, D) bfloat16 with D = 128; kq_pool/vq_pool: (N, bs, KV, D)
     int8; k_scales/v_scales: (N, KV) float32; block_tables and pos as in
-    :func:`paged_attention_cuda`. Returns (B, W, H, D) bfloat16. Raises on
-    a shape, dtype or device the kernel does not take."""
+    :func:`paged_attention_cuda`; ``geometry``: as there. Returns (B, W,
+    H, D) bfloat16. Raises on a shape, dtype, device or schedule the
+    kernel does not take."""
     from . import _build
 
     name = "paged_attention_int8_cuda"
@@ -190,6 +222,7 @@ def paged_attention_int8_cuda(q, kq_pool, k_scales, vq_pool, v_scales,
                              f"{tuple(sc.shape)}")
     _on_one_card(name, q, kq_pool, k_scales, vq_pool, v_scales, block_tables,
                  pos)
+    depth, order = _schedule(geometry, True, D)
     block_tables = block_tables.contiguous()
     pos = pos.contiguous()
     out, part_acc, part_ml = _workspace(q, B, W, H, KV, bs, M)
@@ -198,7 +231,7 @@ def paged_attention_int8_cuda(q, kq_pool, k_scales, vq_pool, v_scales,
         q.data_ptr(), kq_pool.data_ptr(), k_scales.data_ptr(),
         vq_pool.data_ptr(), v_scales.data_ptr(), block_tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml),
-        B, W, H, KV, D, N, bs, M, _build.stream_ptr(q.device))
+        B, W, H, KV, D, N, bs, M, depth, order, _build.stream_ptr(q.device))
     _build.check(err, "paged_attention_int8")
     paged_attention_int8_cuda.launches += 1
     return out

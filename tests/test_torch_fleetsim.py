@@ -96,12 +96,35 @@ def test_workload_validation_and_the_unported_autotuner():
         with pytest.raises(ValueError):
             workload.WorkloadSpec(**bad)
     assert autotune.WorkloadSpec is workload.WorkloadSpec
-    for name in ("ServingCostModel", "autotune", "TunedProfile",
-                 "resolve_profile", "kernel_geometry"):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            getattr(autotune, name)
+    # the autotuner is ported: every name of the JAX package's resolves
+    import paddle_tpu.autotune as jautotune
+
+    for name in jautotune.__all__:
+        assert getattr(autotune, name) is not None, name
+    for name in ("cost", "features", "kernel_geometry", "profile",
+                 "search", "space"):
+        assert getattr(autotune, name).__name__.endswith(name)
     with pytest.raises(AttributeError):
         autotune.no_such_name
+    # only the axes that wait for ROADMAP A9c raise
+    kg = autotune.kernel_geometry
+    for op, geom in (("flash_attention",
+                      autotune.FlashAttentionGeometry(block_q=128)),
+                     ("flash_attention",
+                      autotune.FlashAttentionGeometry(block_kv=256)),
+                     ("fused_lora", autotune.LoRAGeometry(
+                         accum="delta_first")),
+                     ("paged_attention", autotune.PagedAttentionGeometry(
+                         q_rows=8)),
+                     ("paged_attention", autotune.PagedAttentionGeometry(
+                         dequant="early"))):
+        with pytest.raises(NotImplementedError, match="A9c"):
+            kg.check_served(op, geom)
+    for op in autotune.OP_FAMILIES:
+        kg.check_served(op, autotune.default_geometry(op), rank=8,
+                        hopper=True)
+    kg.check_served("paged_attention", autotune.PagedAttentionGeometry(
+        kv_block_depth=2, grid_order="gbm"), quantized=True, hopper=True)
 
 
 def test_submit_traffic_submits_in_order():

@@ -27,6 +27,13 @@ PORT = ROOT / "paddle_tpu_torch"
 PORT_MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.autotune",
                 "paddle_tpu_torch.autotune.workload",
+                "paddle_tpu_torch.autotune.space",
+                "paddle_tpu_torch.autotune.cost",
+                "paddle_tpu_torch.autotune.features",
+                "paddle_tpu_torch.autotune.profile",
+                "paddle_tpu_torch.autotune.search",
+                "paddle_tpu_torch.autotune.kernel_geometry",
+                "paddle_tpu_torch.cost_model",
                 "paddle_tpu_torch.fleetsim", "paddle_tpu_torch.fleetsim.clock",
                 "paddle_tpu_torch.fleetsim.sim",
                 "paddle_tpu_torch.fleetsim.traffic",
@@ -866,16 +873,17 @@ def test_the_loaders_workers_start_by_forkserver_once_cuda_is_up(
     assert worker_pool._mp_context().get_start_method() == "spawn"
 
 
-@pytest.mark.parametrize("name,item", [("mesh", "A10"), ("profile", "A9b")])
+@pytest.mark.parametrize("name,item", [("mesh", "A10")])
 def test_mesh_and_profile_raise_naming_their_queue_items(name, item):
-    """``mesh=`` and ``profile=`` are still unported: each raises
-    NotImplementedError naming the ROADMAP item that ports it; ``role=``
-    is served on the paged path."""
+    """``mesh=`` is still unported: it raises NotImplementedError naming
+    the ROADMAP item that ports it (``profile=`` is served since the
+    autotuner was ported: tests/test_torch_autotune.py); ``role=`` is
+    served on the paged path."""
     model = _tiny_model()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         GenerationServer(model, cache="paged", device="cpu",
-                         **{name: "tp=2" if name == "mesh" else "x.json"})
-    assert set(_UNPORTED_DEFAULTS) == {"mesh", "profile"}
+                         **{name: "tp=2"})
+    assert set(_UNPORTED_DEFAULTS) == {"mesh"}
     for role in ("any", "prefill", "decode"):
         srv = GenerationServer(model, cache="paged", device="cpu",
                                role=role)

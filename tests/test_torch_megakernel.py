@@ -324,7 +324,11 @@ def test_constructor_rules(case):
     model = tm
     want = {"int8_kv": None, "lora": None,
             "int8_model": (ValueError, "gate_proj is not a plain Linear"),
-            "geometry_not_ported": (NotImplementedError, "ffn_tile"),
+            # every geometry is served now: what still raises is one
+            # the kernel cannot take (an ffn_tile that does not divide
+            # the intermediate size)
+            "geometry_not_ported": (ValueError, "ffn_tile .* does not "
+                                                "divide"),
             "dense_cache": (ValueError, "paged"),
             "geometry_without_megakernel": (ValueError, "mk_geometry"),
             "pallas": (NotImplementedError, "interpret")}[case]
@@ -335,7 +339,8 @@ def test_constructor_rules(case):
     elif case == "int8_model":
         model = LlamaForCausalLM(cfg, device="cpu").quantize_int8()
     elif case == "geometry_not_ported":
-        kw["mk_geometry"] = mk.MegakernelGeometry(ffn_tile=64)
+        kw["mk_geometry"] = mk.MegakernelGeometry(
+            ffn_tile=cfg.intermediate_size + 1)
     elif case == "dense_cache":
         kw["cache"] = "dense"
     elif case == "geometry_without_megakernel":
@@ -392,6 +397,16 @@ def test_geometry_validation():
         mk.MegakernelGeometry(dequant="magic").validate()
     assert mk.MegakernelGeometry().asdict() == \
         jmk.MegakernelGeometry().asdict()
-    with pytest.raises(NotImplementedError, match="prefetch_depth"):
-        mk.check_geometry(mk.MegakernelGeometry(prefetch_depth=4))
-    mk.check_geometry(mk.MegakernelGeometry(dequant="tile"))
+    # the CUDA kernel's rules (check_geometry, at resolution): a ring past
+    # a block's shared memory, a down slice past the x slab at the rows
+    with pytest.raises(ValueError, match="prefetch_depth=4"):
+        mk.check_geometry(mk.MegakernelGeometry(prefetch_depth=4),
+                          intermediate=14336, rows=8)
+    with pytest.raises(ValueError, match="ffn_tile=2048 .* x slab"):
+        mk.check_geometry(mk.MegakernelGeometry(ffn_tile=2048),
+                          intermediate=14336, rows=64)
+    for geom in (mk.MegakernelGeometry(dequant="tile"),
+                 mk.MegakernelGeometry(prefetch_depth=1),
+                 mk.MegakernelGeometry(ffn_tile=2048),
+                 mk.MegakernelGeometry(ffn_tile=1024)):
+        mk.check_geometry(geom, intermediate=14336, rows=8)

@@ -53,6 +53,22 @@ namespace pt = paged_tiles;
 //   "A i b tile split g frontier n begin end stages direct"; for KV head
 //   0 then per stage "S key0" and per box "X key loaded entry slot"
 int main(int argc, char** argv) {
+  if (argc == 5 && !strcmp(argv[1], "order")) {
+    // order units KV order -> each unit's number in the plan's order
+    const long long units = atoll(argv[2]);
+    for (long long L = 0; L < units; ++L)
+      printf("%lld\n", pt::order_unit(L, atoi(argv[3]), units,
+                                       atoi(argv[4])));
+    return 0;
+  }
+  if (argc == 4 && !strcmp(argv[1], "layout")) {
+    // layout quant depth -> its regions and whether it fits an SM
+    const pt::Layout l = pt::layout(atoi(argv[2]), atoi(argv[3]));
+    printf("%d %d %d %d %d %d %d %d %d %d %d\n", l.stages, l.q, l.conv,
+           l.ring, l.stage, l.scale_off, l.scales, l.bars, l.bytes, l.alloc,
+           pt::layout_fits(atoi(argv[2]), atoi(argv[3])));
+    return 0;
+  }
   if (argc < 8) return 2;
   const int B = atoi(argv[2]), W = atoi(argv[3]), H = atoi(argv[4]);
   const int KV = atoi(argv[5]), bs = atoi(argv[6]), M = atoi(argv[7]);
@@ -540,3 +556,54 @@ def test_split_and_merge_model_matches_the_pallas_kernel(harness):
     finally:
         jops.set_kernel_mode("auto")
     np.testing.assert_allclose(out.numpy(), pallas, **TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_ids)
+def test_grid_orders_walk_the_same_units(harness, case):
+    """``PagedAttentionGeometry.grid_order``: "gbm" numbers the launch's
+    work units KV head slowest — a permutation of the plan's units, each
+    unit the same (item, KV head), so every visible pair is still covered
+    once by the same unit with the same keys and splits (the plan, and a
+    row's splits, take no geometry); "bgm" is the plan's own order."""
+    name, W, H, KV, bs, M, pos = case
+    launch, active, idle = blocks(harness, W, H, KV, bs, M, pos)
+    units = launch[1]
+    assert units % KV == 0
+    for order in (0, 1):
+        got = [int(ln[0]) for ln in harness("order", units, KV, order)]
+        assert sorted(got) == list(range(units))
+        if order == 0:
+            assert got == list(range(units))
+        else:
+            items = units // KV
+            assert got == [(L % items) * KV + L // items
+                           for L in range(units)]
+            # neighbouring blocks take one KV head's items in order
+            assert all(got[L] % KV == L // items for L in range(units))
+
+
+def test_layouts_of_every_geometry_match_the_hopper_model(harness):
+    """The kernel's shared-memory layout at each ring depth
+    (``paged_tiles::layout``) is the autotuner's Hopper model
+    (``PagedAttentionGeometry.smem_bytes``): regions 1024-byte aligned,
+    the default's two blocks an SM, and "fits" exactly where the model
+    admits the geometry (depths 1 and 2)."""
+    from paddle_tpu_torch.autotune.kernel_geometry import (
+        HOPPER_SMEM_LIMIT, PagedAttentionGeometry)
+
+    for quant in (0, 1):
+        for depth in (1, 2, 4):
+            f = list(map(int, harness("layout", quant, depth)[0]))
+            stages, q, conv, ring, stage, scale_off, scales = f[:7]
+            bars, nbytes, alloc, fits = f[7:]
+            assert stages == (3 if quant else 2) * depth
+            for off in (q, ring, scale_off, stage):
+                assert off % 1024 == 0
+            assert bars + 16 * stages == nbytes == alloc - 1024
+            geom = PagedAttentionGeometry(kv_block_depth=depth)
+            assert alloc == geom.smem_bytes(quantized=bool(quant))
+            assert bool(fits) == (alloc <= HOPPER_SMEM_LIMIT) == (depth < 4)
+            assert bool(fits) == (not geom.hopper_errors(
+                quantized=bool(quant)))
+            if depth == 1:
+                assert 2 * (alloc + 1024) <= 233472

@@ -44,8 +44,18 @@ int main(int argc, char** argv) {
     printf("%d\n", tp::barriers(atoi(argv[2]), atoi(argv[3])));
     return 0;
   }
-  const tp::Dims d{atoi(argv[2]), atoi(argv[3]), atoi(argv[4]), atoi(argv[5])};
+  if (!strcmp(cmd, "ring")) {   // the ring stages of prefetch depths 1..8
+    for (int depth = 1; depth <= 8; ++depth)
+      printf("%d ", tp::ring_stages(depth));
+    printf("\n");
+    return 0;
+  }
+  // the last argument after the dims and the grid (after the phase for
+  // "frags"), when given: the down product's K steps a slice (ffn_tile)
+  tp::Dims d{atoi(argv[2]), atoi(argv[3]), atoi(argv[4]), atoi(argv[5])};
   const int NB = atoi(argv[6]);
+  const int ffn_arg = strcmp(cmd, "frags") ? 7 : 8;
+  if (argc > ffn_arg) d.ffn = atoi(argv[ffn_arg]);
   if (!strcmp(cmd, "fits")) {
     printf("%d\n", tp::fits(d, NB) ? 1 : 0);
     return 0;
@@ -206,9 +216,9 @@ CHECK_KEYS = ("G", "T", "S", "klen", "nr", "tile_faults", "walk_faults",
               "slot_faults", "count_faults", "order_faults")
 
 
-def _check(harness, dims, rows, grid=GRID):
+def _check(harness, dims, rows, grid=GRID, ffn=0):
     return [dict(zip(CHECK_KEYS, map(int, line)))
-            for line in harness("check", *dims, rows, grid)]
+            for line in harness("check", *dims, rows, grid, ffn)]
 
 
 @pytest.mark.parametrize("rows", ROWS)
@@ -283,8 +293,21 @@ def test_plan_k_split_sum_model(harness, ph):
     plan's order (column block, slice, block, warpgroup): the result
     equals x @ W to fp32 accuracy, on a small grid that splits K across
     blocks."""
+    _k_split_model(harness, ph)
+
+
+@pytest.mark.parametrize("ffn", [1, 2, 3])
+def test_plan_k_split_sum_model_with_ffn_slices(harness, ffn):
+    """The same model of the down product under a geometry's ``ffn_tile``
+    (``ffn`` K steps a slice): the slices are the geometry's, and the sum
+    is still x @ W."""
+    S = _k_split_model(harness, 3, ffn)
+    assert S == -(-384 // 64 // ffn)
+
+
+def _k_split_model(harness, ph, ffn=0):
     dims, rows, grid = (256, 1, 384), 8, 7
-    lines = harness("frags", *dims, rows, grid, ph)
+    lines = harness("frags", *dims, rows, grid, ph, ffn)
     G, T, S, klen = map(int, lines[0][1:])
     frags = [tuple(map(int, ln[1:])) for ln in lines if ln[0] == "F"]
     reds = [tuple(map(int, ln[1:])) for ln in lines if ln[0] == "R"]
@@ -323,6 +346,9 @@ def test_plan_k_split_sum_model(harness, ph):
         g, c = (item // 2) % G, item % 2
         np.testing.assert_allclose(got[(g, c)], ref[w][:, n0:n0 + 64],
                                    rtol=1e-4, atol=1e-3)
+    if ffn:
+        assert klen == ffn
+    return S
 
 
 @pytest.mark.parametrize("dims", [LLAMA] + SMALL,
@@ -355,3 +381,53 @@ def test_plan_slices_do_not_depend_on_rows(harness, dims):
         walks = {rows: [ln for ln in harness("frags", *dims, rows, GRID, ph)]
                  for rows in (1, 8, 40, 64)}
         assert walks[1] == walks[8] == walks[40] == walks[64], (dims, ph)
+
+
+def test_ring_stages_of_each_prefetch_depth(harness):
+    """``MegakernelGeometry.prefetch_depth`` runs 6 stages a unit of depth
+    (12 at the default 2); a depth whose ring the layout does not hold
+    (past 2: 24 stages would need more than a block's 227 KB) has none."""
+    stages = list(map(int, harness("ring")[0]))
+    assert stages == [6, 12, 0, 0, 0, 0, 0, 0]
+    from paddle_tpu_torch.ops.decode_megakernel import MegakernelGeometry
+
+    for depth in range(1, 9):
+        g = MegakernelGeometry(prefetch_depth=depth)
+        assert (stages[depth - 1] > 0) == (not g.hopper_errors(
+            intermediate=14336, rows=8)), depth
+        if stages[depth - 1]:
+            assert g.ring_stages() == stages[depth - 1]
+
+
+@pytest.mark.parametrize("ffn", [8, 16, 32])
+def test_ffn_tile_slices_are_the_geometrys_at_every_row_count(harness, ffn):
+    """Under ``ffn_tile`` = 64 ffn the down product's slices are ffn K
+    steps whatever the rows (the order of every sum fixed by the
+    geometry: a decode tick and a verify window round alike), the other
+    phases keep theirs, every tile is streamed once in one walk, and a
+    row count whose slab cannot hold a slice is refused by the plan as by
+    the Hopper model (``MegakernelGeometry.hopper_errors``)."""
+    from paddle_tpu_torch.ops.decode_megakernel import MegakernelGeometry
+
+    base = {rows: _check(harness, LLAMA, rows) for rows in ROWS}
+    geom = MegakernelGeometry(ffn_tile=64 * ffn)
+    shapes = set()
+    for rows in ROWS:
+        fits = harness("fits", *LLAMA, rows, GRID, ffn)[0] == ["1"]
+        assert fits == (not geom.hopper_errors(intermediate=LLAMA[2],
+                                               rows=rows)), rows
+        if not fits:
+            continue
+        for ph, c in enumerate(_check(harness, LLAMA, rows, ffn=ffn)):
+            where = f"phase {ph}, rows {rows}, ffn {ffn}: {c}"
+            for k in ("tile_faults", "walk_faults", "slot_faults",
+                      "count_faults", "order_faults"):
+                assert c[k] == 0, where
+            assert c["x_steps_max"] <= c["slab_steps"], where
+            if ph == 3:
+                assert c["klen"] == ffn and c["S"] == c["T"] // ffn, where
+                shapes.add((c["S"], c["klen"]))
+            else:
+                assert (c["S"], c["klen"]) == (base[rows][ph]["S"],
+                                               base[rows][ph]["klen"])
+    assert len(shapes) == 1
